@@ -1,0 +1,19 @@
+"""simple_raytracer_tpu_torch: the progressive path tracer on PyTorch and
+CUDA, for an NVIDIA H100.
+
+A port of ``simple_raytracer_tpu`` (JAX on a TPU), which stays beside it
+as the reference.  This package imports neither JAX nor the JAX package:
+it keeps its own copies of the host models.  The whole trace of a pass
+runs as one hand-written CUDA kernel (``csrc/trace_kernel.cu``) on a CUDA
+device, and as its plain PyTorch version on the CPU.
+"""
+
+from .engine import Renderer, RenderOptions
+from .models.camera import Camera
+from .models.materials import Material, MaterialSet, from_hex, from_rgb
+from .models.scene import Scene, SkySettings
+
+__all__ = [
+    "Camera", "Material", "MaterialSet", "Scene", "SkySettings",
+    "Renderer", "RenderOptions", "from_hex", "from_rgb",
+]

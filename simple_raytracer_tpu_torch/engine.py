@@ -1,0 +1,167 @@
+"""The render engine: progressive accumulation on a torch device.
+
+The counterpart of ``simple_raytracer_tpu.engine``: a ``Renderer`` owns
+the device scene and the ``(canvas, num_steps)`` accumulation state.  Every
+``step`` traces one more sample pass into the canvas; the image is the
+tonemapped mean of all passes since the last ``clear_canvas``.  The
+canvas is kept in ray-tile pixel order and untiled only when read.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .models.camera import Camera
+from .models.scene import Scene
+from .ops.camera import untile_image
+from .ops.scene_types import DeviceScene
+from .ops.tonemap import tonemap_u8
+from .ops.trace import render_pass
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderOptions:
+    """Static render configuration.  Defaults mirror the reference
+    application: 960x540, 2 samples, 10 bounces."""
+    width: int = 960
+    height: int = 540
+    num_samples: int = 2
+    num_bounces: int = 10
+    # screen-tile ray order (th, tw); None = row-major; "auto" tiles 8x64
+    # when the image divides evenly.  A permutation: results are the same.
+    ray_tile: object = "auto"
+
+
+def _resolve_ray_tile(ray_tile, rows: int, width: int):
+    """'auto' -> (8, 64) when rows and width divide evenly, else None."""
+    if ray_tile == "auto":
+        return (8, 64) if rows % 8 == 0 and width % 64 == 0 else None
+    return ray_tile
+
+
+def _resolve_device(device=None) -> torch.device:
+    """None means the card; without CUDA that raises (no silent CPU)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: pass device='cpu' to "
+                               "render with the plain PyTorch version")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class Renderer:
+    """Progressive path tracer with its state on one torch device."""
+
+    def __init__(self, options: RenderOptions = RenderOptions(),
+                 scene: Optional[Scene] = None, device=None):
+        self.options = options
+        self.device = _resolve_device(device)
+        self._tile = _resolve_ray_tile(options.ray_tile, options.height,
+                                       options.width)
+        self._device_scene = None
+        self._canvas = None
+        self.num_steps = 0
+        self._time_base = 1   # deterministic unless the caller passes time
+        if scene is not None:
+            self.update_scene(scene)
+        self.clear_canvas()
+
+    # -- scene / state ----------------------------------------------------
+    def update_scene(self, scene: Scene) -> None:
+        """Build the whole scene onto the device again."""
+        self._device_scene = scene.build(self.device)
+
+    def set_device_scene(self, device_scene: DeviceScene) -> None:
+        if device_scene.device != self.device:
+            raise ValueError(f"scene on {device_scene.device}, renderer on "
+                             f"{self.device}")
+        self._device_scene = device_scene
+
+    @property
+    def device_scene(self) -> Optional[DeviceScene]:
+        return self._device_scene
+
+    @property
+    def ray_tile(self):
+        """The resolved ray-tile order, (th, tw) or None."""
+        return self._tile
+
+    def clear_canvas(self) -> None:
+        o = self.options
+        self._canvas = torch.zeros((o.height, o.width, 3), dtype=torch.float32,
+                                   device=self.device)
+        self.num_steps = 0
+
+    @property
+    def canvas(self) -> torch.Tensor:
+        """Row-major (H, W, 3) radiance sum."""
+        if self._tile is not None:
+            return untile_image(self._canvas, self._tile)
+        return self._canvas
+
+    # -- rendering --------------------------------------------------------
+    def step(self, camera: Camera, time: Optional[int] = None) -> None:
+        """One progressive sample pass accumulated into the canvas.  ``time``
+        seeds the pass's RNG streams (nonzero); by default a counter."""
+        if self._device_scene is None:
+            raise RuntimeError("no scene: call update_scene() first")
+        if time is None:
+            time = self._time_base + self.num_steps
+        o = self.options
+        self._canvas = render_pass(
+            self._device_scene, camera.state(o.width / o.height),
+            self._canvas, time, width=o.width, height=o.height,
+            num_samples=o.num_samples, num_bounces=o.num_bounces,
+            ray_tile=self._tile, canvas_tiled=self._tile is not None)
+        self.num_steps += 1
+
+    def render(self, camera: Camera, num_steps: int = 1,
+               reset: bool = False) -> np.ndarray:
+        """Accumulate ``num_steps`` passes; return the u8 image."""
+        if reset:
+            self.clear_canvas()
+        for _ in range(num_steps):
+            self.step(camera)
+        return self.image()
+
+    def image(self) -> np.ndarray:
+        """Tonemapped (H, W, 3) u8 RGB of the accumulation state."""
+        img = tonemap_u8(self._canvas, max(self.num_steps, 1))
+        if self._tile is not None:
+            img = untile_image(img, self._tile)
+        return img.cpu().numpy()
+
+    # -- instrumentation --------------------------------------------------
+    def benchmark_step(self, camera: Camera, iters: int = 10,
+                       warmup: int = 2) -> dict:
+        """Steady-state time of one progressive pass on the card, from CUDA
+        events around ``iters`` passes after ``warmup`` passes."""
+        if self.device.type != "cuda":
+            raise RuntimeError("benchmark_step times the card; this "
+                               f"renderer is on {self.device}")
+        for _ in range(warmup):
+            self.step(camera)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(self.device):
+            start.record()
+            for _ in range(iters):
+                self.step(camera)
+            end.record()
+            end.synchronize()
+        dt = start.elapsed_time(end) / 1e3 / iters
+        o = self.options
+        segments = o.width * o.height * o.num_samples * o.num_bounces
+        return {
+            "device": torch.cuda.get_device_name(self.device),
+            "seconds_per_step": dt,
+            "steps_per_second": 1.0 / dt,
+            "mrays_per_second": segments / dt / 1e6,
+            "spp_per_second": o.num_samples / dt,
+        }

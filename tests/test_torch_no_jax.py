@@ -1,0 +1,87 @@
+"""The port runs where JAX does not exist.
+
+A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
+``jaxlib`` and ``simple_raytracer_tpu`` (exact top-level names, so
+``simple_raytracer_tpu_torch`` still imports), then imports the port and
+chip_smoke and renders config 2 at 32x16 on the CPU.  chip_smoke.py itself
+must fail, printing no result, without CUDA and outside the repository.
+"""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = r'''
+import importlib.abc
+import sys
+
+BLOCKED = {"jax", "jaxlib", "simple_raytracer_tpu"}
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"import of {name} refused")
+        return None
+
+
+# an interpreter-startup plugin may have imported jax already
+for mod in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+
+import simple_raytracer_tpu_torch
+import chip_smoke   # main() stays behind its __name__ guard
+from simple_raytracer_tpu_torch.engine import Renderer, RenderOptions
+from simple_raytracer_tpu_torch.models.presets import CONFIGS
+
+scene, camera, opt = CONFIGS[2](width=32, height=16)
+r = Renderer(RenderOptions(width=32, height=16, num_samples=opt.num_samples,
+                           num_bounces=opt.num_bounces), scene, device="cpu")
+img = r.render(camera, num_steps=2)
+assert img.shape == (16, 32, 3) and img.std() > 0, img.shape
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+try:
+    import jax  # noqa: F401
+except ImportError:
+    pass
+else:
+    raise AssertionError("the blocker let jax through")
+print("NO_JAX_OK")
+'''
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_port_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=240,
+                          env=_env())
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+    """No card: exit != 0 and no result line.  Alone in a directory: the
+    port cannot be imported, so it fails the same way."""
+    runs = []
+    if not torch.cuda.is_available():
+        runs.append(REPO)
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    runs.append(tmp_path)
+    for cwd in runs:
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              capture_output=True, text=True, timeout=240,
+                              env=_env())
+        assert proc.returncode != 0, cwd
+        assert '"ok"' not in proc.stdout, proc.stdout

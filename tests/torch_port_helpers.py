@@ -1,0 +1,67 @@
+"""Shared helpers for the tests that hold the PyTorch port
+(simple_raytracer_tpu_torch) against the JAX package.
+
+Inputs are made with numpy from a seed and handed to both packages; the
+JAX side runs on the CPU, as the JAX package's own tests run it.
+"""
+import numpy as np
+import torch
+
+from simple_raytracer_tpu.ops.vec import Vec3 as JVec3
+from simple_raytracer_tpu_torch.ops.vec import Vec3 as TVec3
+
+
+def jax_scene_arrays(ds) -> dict:
+    """Flatten a JAX DeviceScene into the numpy arrays that the port's
+    ``from_numpy`` takes (the port's counterpart of carrying weights)."""
+    a = lambda v: np.asarray(v)
+    v3 = lambda v: np.stack([a(v.x), a(v.y), a(v.z)], axis=-1)
+    out = {
+        "spheres.center": v3(ds.spheres.center),
+        "spheres.radius": a(ds.spheres.radius),
+        "spheres.material": a(ds.spheres.material),
+        "spheres.active": a(ds.spheres.active),
+        "planes.position": v3(ds.planes.position),
+        "planes.normal": v3(ds.planes.normal),
+        "planes.material": a(ds.planes.material),
+        "planes.active": a(ds.planes.active),
+        "triangles.material": a(ds.triangles.material),
+        "sky.sun_focus": a(ds.sky.sun_focus),
+        "sky.sun_intensity": a(ds.sky.sun_intensity),
+        "sky_reachable": ds.flags.sky_reachable,
+    }
+    m = ds.materials
+    for k in ("smoothness", "metallic", "specular", "emission_strength",
+              "transmittance", "refraction_index"):
+        out[f"materials.{k}"] = a(getattr(m, k))
+    out["materials.color"] = v3(m.color)
+    out["materials.emission"] = v3(m.emission)
+    for k in ("sun_color", "sun_direction", "horizon_color", "zenith_color",
+              "ground_color"):
+        out[f"sky.{k}"] = v3(getattr(ds.sky, k))
+    return out
+
+
+def unit_vectors(rng: np.random.Generator, n: int) -> np.ndarray:
+    v = rng.normal(size=(n, 3))
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
+def seeds(rng: np.random.Generator, n: int) -> np.ndarray:
+    return rng.integers(0, 2 ** 32, size=n, dtype=np.uint64).astype(np.uint32)
+
+
+def jvec(a: np.ndarray) -> JVec3:
+    import jax.numpy as jnp
+    return JVec3(jnp.asarray(a[:, 0]), jnp.asarray(a[:, 1]),
+                 jnp.asarray(a[:, 2]))
+
+
+def tvec(a: np.ndarray) -> TVec3:
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return TVec3(t[:, 0], t[:, 1], t[:, 2])
+
+
+def to_np(v) -> np.ndarray:
+    """A Vec3 of either package -> (N, 3) numpy array."""
+    return np.stack([np.asarray(c) for c in v], axis=-1)
