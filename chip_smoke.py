@@ -8,18 +8,21 @@ Run from the repository root:
 Phases, one line each on stdout:
   1. the card's name and power limit (nvidia-smi);
   2. the build of the whole-trace kernel (nvcc into build/, via ctypes);
-  3. the main path: configs 1 and 2 at their preset sizes through
+  3. the main path: configs 1 to 5 at their preset sizes through
      Renderer(device="cuda"), 4 progressive steps each, with the kernel's
-     launch count reset just before and read just after;
+     launch counts (in all and per triangle variant) reset just before
+     and read just after;
   4. the kernel against its plain PyTorch version on the card, one pass of
      each config at full size;
   5. the golden-size renders (tests/test_golden.py) against
-     tests/goldens/config{1,2}.npz;
+     tests/goldens/config{1..5}.npz;
   6. timings with CUDA events, and the kernel's bound;
   7. where a Renderer.step's time goes (torch.profiler).
-Then one JSON line per the kernel table, the card line again, and the last
-line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
-before the last line.  Without CUDA it exits 1 and prints no result.
+Then one JSON line per the kernel table (the whole-trace kernel, timed on
+config 2, and its two triangle variants, timed on configs 3 and 5), the
+card line again, and the last line {"ok": true, "device": {...}}.  Any
+failed phase exits non-zero before the last line.  Without CUDA it exits
+1 and prints no result.
 """
 from __future__ import annotations
 
@@ -34,11 +37,18 @@ import torch
 
 from simple_raytracer_tpu_torch.engine import Renderer, RenderOptions
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
+from simple_raytracer_tpu_torch.ops import intersect
+from simple_raytracer_tpu_torch.ops import trace as trace_mod
 from simple_raytracer_tpu_torch.ops.camera import camera_rotation
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 
 STEPS = 4                      # progressive steps on the main path
-GOLDEN_SIZES = {1: (64, 64), 2: (96, 54)}   # tests/test_golden.py
+CONFIG_IDS = (1, 2, 3, 4, 5)
+KWARGS = {3: {"skybox": "gradient"}}        # as tests/test_golden.py
+VARIANTS = {1: "none", 2: "none", 3: "small", 4: "clustered",
+            5: "clustered"}
+GOLDEN_SIZES = {1: (64, 64), 2: (96, 54), 3: (96, 54), 4: (96, 54),
+                5: (96, 54)}                # tests/test_golden.py
 GOLDEN_STEPS, GOLDEN_TIME0 = 2, 1000
 GOLDEN_RMSE = 2e-3             # tests/test_golden.py's bound
 # Kernel vs plain version: the kernel repeats the plain version's float
@@ -108,24 +118,90 @@ def trace_args(renderer: Renderer, camera, time_seed: int) -> tuple:
 RAYGEN_FLOPS = 42          # 2 uniforms, NDC, screen, rotate, normalize
 SPHERE_FLOPS = 21          # one sphere test
 PLANE_FLOPS = 14           # one plane test
+MT_FLOPS = 46              # one Moller-Trumbore test (mt_update)
+SLAB_FLOPS = 24            # one cluster box's slab test
+INV_DIR_FLOPS = 3          # the reciprocal direction of the traversal
 SHADE_FLOPS = 30           # position, normal, front flip, emission
 BSDF_FLOPS = 275           # 3 normals (log, cos), 3 uniforms, mixes
 SKY_FLOPS = 54             # the gradient sky and the final add
 
 
-def kernel_flops(scene, n_rays: int, segments: list) -> float:
+def kernel_flops(scene, n_rays: int, segments: list, mesh_work: list) -> float:
     """Float operations this pass's data needs: every live ray tests each
-    active primitive, every hit shades, and every hit before the last
-    bounce samples the BSDF."""
+    active sphere and plane, every hit shades, and every hit before the
+    last bounce samples the BSDF.  Triangles: a small mesh is tested
+    whole (live rays x active triangles x MT); a clustered mesh at least
+    slab-tests every real cluster box per live ray and runs MT over the K
+    slots of every cluster whose box the ray enters before its nearest
+    hit (``mesh_work``; a lower bound, since the traversal's live t only
+    falls to that hit)."""
     n_s = int(scene.spheres.active.sum())
     n_p = int(scene.planes.active.sum())
+    tris = scene.triangles
+    variant = tk.tri_variant(scene)
     flops = n_rays * (RAYGEN_FLOPS + SKY_FLOPS)
     for i, (live, hits) in enumerate(segments):
         flops += live * (n_s * SPHERE_FLOPS + n_p * PLANE_FLOPS)
+        if variant == "small":
+            flops += live * int(tris.active.sum()) * MT_FLOPS
+        elif variant == "clustered":
+            real = int((tris.clusters.slots[:, 0] >= 0).sum())
+            flops += live * (real * SLAB_FLOPS + INV_DIR_FLOPS)
+            flops += mesh_work[i][1] * tris.clusters.k * MT_FLOPS
         flops += hits * SHADE_FLOPS
         if i < len(segments) - 1:
             flops += hits * BSDF_FLOPS
     return float(flops)
+
+
+def boxes_entered(cl, o, d, t_hit) -> torch.Tensor:
+    """Per ray, the real cluster boxes its segment [0, t_hit] enters (the
+    slab test of csrc/trace_kernel.cu on the unwidened boxes)."""
+    real = cl.slots[:, 0] >= 0
+    lo, hi = cl.aabb[real, 0:3], cl.aabb[real, 3:6]
+    count = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
+    for r0 in range(0, o.x.shape[0], 2 ** 18):
+        sl = slice(r0, r0 + 2 ** 18)
+        t1, t2 = [], []
+        for a, (oc, dc) in enumerate(zip(o, d)):
+            inv = 1.0 / dc[sl, None]
+            t1.append((lo[None, :, a] - oc[sl, None]) * inv)
+            t2.append((hi[None, :, a] - oc[sl, None]) * inv)
+        mn = [torch.minimum(x, y) for x, y in zip(t1, t2)]
+        mx = [torch.maximum(x, y) for x, y in zip(t1, t2)]
+        near = torch.maximum(torch.maximum(mn[0], mn[1]),
+                             torch.clamp_min(mn[2], 0.0))
+        far = torch.minimum(torch.minimum(mx[0], mx[1]),
+                            torch.minimum(mx[2], t_hit[sl, None]))
+        count[sl] = (~((near > far) | (near >= 1.0e38))).sum(dim=1)
+    return count
+
+
+def counting_mesh_work(sink: list):
+    """A closest_hit for the plain version that appends, per bounce, the
+    number of live rays whose nearest hit is a triangle and, for a
+    clustered mesh, the cluster boxes live rays enter before their
+    nearest hit.  A ray dies by missing (trace_rays), so the rays that
+    missed on an earlier call are the dead ones."""
+    real = intersect.closest_hit
+    dead = []
+
+    def closest_hit(scene, o, d):
+        h = real(scene, o, d)
+        live = ~dead[0] if dead else torch.ones_like(h.hit)
+        inf = torch.full_like(o.x, float("inf"))
+        t_s = (intersect.intersect_spheres(o, d, scene.spheres)[0]
+               if scene.spheres.radius.shape[0] else inf)
+        t_p = (intersect.intersect_planes(o, d, scene.planes)[0]
+               if scene.planes.material.shape[0] else inf)
+        tri = live & h.hit & (t_s != h.t) & (t_p != h.t)
+        cl = scene.triangles.clusters
+        entered = (int(boxes_entered(cl, o, d, h.t)[live].sum())
+                   if cl is not None else 0)
+        sink.append((int(tri.sum()), entered))
+        dead[:] = [~live | ~h.hit]
+        return h
+    return closest_hit
 
 
 def step_breakdown(r: Renderer, camera, iters: int = 20) -> str:
@@ -170,34 +246,48 @@ def main() -> int:
 
     t0 = time.perf_counter()
     tk.KERNEL.library()
-    ptxas = "; ".join(line.split("ptxas info    : ")[-1] for line in
-                      tk.KERNEL.build_log.splitlines()
-                      if "registers" in line or "spill" in line)
+    # ptxas reports each template instance after its "entry function"
+    # line; trace_kernel<0|1|2> are the variants of tk.TRI_MODES
+    modes = {str(v): k for k, v in tk.TRI_MODES.items()}
+    parts, variant = [], None
+    for line in tk.KERNEL.build_log.splitlines():
+        m = re.search(r"entry function '.*trace_kernelILi(\d)E", line)
+        if m:
+            variant = modes.get(m.group(1), m.group(1))
+        elif "registers" in line or "spill" in line:
+            parts.append(f"{variant}: "
+                         + line.split("ptxas info    : ")[-1].strip())
+    ptxas = "; ".join(parts)
     say(f"[2] build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, ctypes); "
         f"ptxas: {ptxas or 'no ptxas report'}")
 
     # ---- 3: the main path ----
     renderers = {}
-    for n in (1, 2):
-        scene, camera, options = CONFIGS[n]()
+    for n in CONFIG_IDS:
+        scene, camera, options = CONFIGS[n](**KWARGS.get(n, {}))
         renderers[n] = (Renderer(options, scene, device="cuda"), camera)
-    tk.KERNEL.launches = 0
+    tk.KERNEL.reset_counts()
     for n, (r, camera) in renderers.items():
         for _ in range(STEPS):
             r.step(camera)
     torch.cuda.synchronize()
     launches = tk.KERNEL.launches
-    if launches != STEPS * len(renderers):
-        fail(f"main path launched the kernel {launches} times, "
-             f"want {STEPS * len(renderers)}")
+    variant_launches = dict(tk.KERNEL.variant_launches)
+    want = {v: STEPS * list(VARIANTS.values()).count(v)
+            for v in set(VARIANTS.values())}
+    say(f"[3] launches: {launches} in all, per triangle variant "
+        f"{variant_launches} (want {want})")
+    if launches != STEPS * len(renderers) or variant_launches != want:
+        fail(f"main path launched the kernel {launches} times "
+             f"({variant_launches}), want {STEPS * len(renderers)} ({want})")
     for n, (r, camera) in renderers.items():
         o = r.options
         canvas = r.canvas
         bad = int((~torch.isfinite(canvas).all(dim=-1)).sum())
         img = r.image()
         say(f"[3] config {n} {o.width}x{o.height} spp={o.num_samples} "
-            f"bounces={o.num_bounces}: {STEPS} steps, launches={launches} "
-            f"(both configs), non-finite (ln 0 hazard) pixels={bad}, "
+            f"bounces={o.num_bounces}: {STEPS} steps, variant "
+            f"{tk.tri_variant(r.device_scene)}, non-finite (ln 0 hazard) pixels={bad}, "
             f"image {img.shape} {img.dtype} min={img.min()} max={img.max()} "
             f"mean={img.mean():.3f}  [{card}]")
         if bad > HAZARD_MAX:
@@ -212,9 +302,13 @@ def main() -> int:
     for n, (r, camera) in renderers.items():
         args, kw = trace_args(r, camera, 4242)
         k = torch.stack(list(tk.trace_full(*args, **kw)))
-        segments = []
-        p = torch.stack(list(tk.trace_full_plain(*args, **kw,
-                                                 segments=segments)))
+        segments, mesh_work = [], []
+        trace_mod.closest_hit = counting_mesh_work(mesh_work)
+        try:
+            p = torch.stack(list(tk.trace_full_plain(*args, **kw,
+                                                     segments=segments)))
+        finally:
+            trace_mod.closest_hit = intersect.closest_hit
         torch.cuda.synchronize()
         both = torch.isfinite(k) & torch.isfinite(p)
         same_bad = bool((torch.isfinite(k) == torch.isfinite(p)).all())
@@ -228,19 +322,22 @@ def main() -> int:
         rmse = float(d.pow(2).mean().sqrt())
         share = float(((kp - pp).abs() > 1e-3).any(0)[ok].float().mean())
         bitexact = bool(torch.equal(k[both], p[both]))
-        results[n] = dict(max_abs=max_abs, segments=segments, args=args,
-                          kw=kw, n_rays=k.shape[1])
+        results[n] = dict(max_abs=max_abs, segments=segments,
+                          mesh_work=mesh_work, args=args, kw=kw,
+                          n_rays=k.shape[1])
         say(f"[4] config {n} kernel vs plain: rmse={rmse:.3e} "
             f"share>1e-3={share:.3e} max_abs={max_abs:.3e} "
             f"bit-identical={bitexact} non-finite masks agree={same_bad} "
-            f"segments(live,hit)={segments}  [{card}]")
+            f"segments(live,hit)={segments} (mesh hits, cluster boxes "
+            f"entered)={mesh_work}  [{card}]")
         if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
                 and same_bad):
             fail(f"config {n}: kernel disagrees with the plain version")
 
     # ---- 5: golden-size renders against the JAX package's goldens ----
     for n, (w, h) in GOLDEN_SIZES.items():
-        scene, camera, options = CONFIGS[n](width=w, height=h)
+        scene, camera, options = CONFIGS[n](width=w, height=h,
+                                            **KWARGS.get(n, {}))
         r = Renderer(RenderOptions(width=w, height=h,
                                    num_samples=options.num_samples,
                                    num_bounces=options.num_bounces),
@@ -257,7 +354,12 @@ def main() -> int:
             fail(f"config {n}: golden rmse {rmse}")
 
     # ---- 6: timings ----
-    entry = None
+    entries = {}
+    timed = {2: ("trace_kernel", "bounce_kernel.py:659", launches),
+             3: ("tris_small", "bounce_kernel.py:238",
+                 variant_launches["small"]),
+             5: ("tris_clustered", "bounce_kernel.py:291",
+                 variant_launches["clustered"])}
     for n, (r, camera) in renderers.items():
         res = results[n]
         args, kw = res["args"], res["kw"]
@@ -269,13 +371,15 @@ def main() -> int:
         out = torch.empty((3, n_rays), dtype=torch.float32, device="cuda")
         k_all = cuda_ms(lambda: tk.launch(prep, out), iters=50)
         w_all = cuda_ms(lambda: tk.trace_full(*args, **kw), iters=20)
-        p_all = cuda_ms(lambda: tk.trace_full_plain(*args, **kw), iters=2,
-                        repeats=3, warmup=1)
+        dense_mesh = r.device_scene.triangles.material.shape[0] > 64
+        p_all = cuda_ms(lambda: tk.trace_full_plain(*args, **kw),
+                        iters=1 if dense_mesh else 2, repeats=3, warmup=1)
         s_all = [r.benchmark_step(camera, iters=20)["seconds_per_step"] * 1e3
                  for _ in range(5)]
         k_ms, w_ms, p_ms, step_ms = (float(np.median(v))
                                      for v in (k_all, w_all, p_all, s_all))
-        flops = kernel_flops(r.device_scene, n_rays, res["segments"])
+        flops = kernel_flops(r.device_scene, n_rays, res["segments"],
+                             res["mesh_work"])
         out_bytes = 12.0 * n_rays
         t_ops, t_bytes = flops / FP32_PEAK * 1e3, out_bytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
@@ -291,18 +395,20 @@ def main() -> int:
             f"({flops:.4g} FLOP / 67 TFLOP/s; {out_bytes:.4g} B / 3.35 TB/s "
             f"= {t_bytes:.4f} ms), {bound_ms / k_ms * 100:.1f}% of bound  "
             f"[{card}]")
-        if n == 2:
-            entry = {
-                "name": "trace_kernel", "route": "cuda",
+        if n in timed:
+            name, line, count = timed[n]
+            errs = [v["max_abs"] for m, v in results.items()
+                    if name == "trace_kernel"
+                    or VARIANTS[m] == VARIANTS[n]]
+            entries[n] = {
+                "name": name, "route": "cuda",
                 "source": "simple_raytracer_tpu_torch/csrc/trace_kernel.cu",
-                "replaces": "simple_raytracer_tpu/ops/pallas/"
-                            "bounce_kernel.py:659",
-                "launches": launches,
-                "max_abs_err": max(v["max_abs"] for v in results.values()),
+                "replaces": f"simple_raytracer_tpu/ops/pallas/{line}",
+                "launches": count, "max_abs_err": max(errs),
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None,
-                "shape": f"config 2, {o.width}x{o.height}, "
+                "shape": f"config {n}, {o.width}x{o.height}, "
                          f"{o.num_samples} spp, {o.num_bounces} bounces",
             }
 
@@ -310,7 +416,8 @@ def main() -> int:
     for n, (r, camera) in renderers.items():
         say(f"[7] config {n}: {step_breakdown(r, camera)}  [{card}]")
 
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entries[n] for n in sorted(entries)]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

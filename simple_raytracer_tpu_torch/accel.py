@@ -1,0 +1,177 @@
+"""Host acceleration structures: the BVH build and its cut into clusters.
+
+The port's own copy of ``simple_raytracer_tpu.accel``, limited to the
+NumPy median-split builder: the C++ SAH builder the JAX package prefers
+(``native/libsrt_native.so``) is not bound here, so a cluster layout
+equals the JAX package's only when that package uses its NumPy builder
+too.  The build runs on the host at scene build; the traversal runs in
+the whole-trace kernel (``csrc/trace_kernel.cu``).
+
+BVH layout:
+  nodes:  (N, 8) f32 -- [min.xyz, max.xyz, pad, pad], DFS preorder
+  meta:   (N, 4) i32 -- [skip, first, count, is_leaf]; ``skip`` is the
+          DFS index to jump to when the node's box is missed (N ends),
+          ``first``/``count`` index the REORDERED triangles of a leaf
+  order:  (T,) i32 -- the permutation that makes each leaf contiguous
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+
+class BVH(NamedTuple):
+    nodes: np.ndarray   # (N, 8) f32
+    meta: np.ndarray    # (N, 4) i32: [skip, first, count, is_leaf]
+    order: np.ndarray   # (T,) i32
+
+    @property
+    def num_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+
+def build_bvh(positions: np.ndarray, leaf_size: int = 4) -> BVH:
+    """A BVH over (T, 3, 3) world-space triangle positions."""
+    positions = np.ascontiguousarray(positions, np.float32)
+    if positions.shape[0] == 0:
+        return BVH(nodes=np.zeros((0, 8), np.float32),
+                   meta=np.zeros((0, 4), np.int32),
+                   order=np.zeros((0,), np.int32))
+    return _build_bvh_python(positions, leaf_size)
+
+
+def _build_bvh_python(positions: np.ndarray, leaf_size: int) -> BVH:
+    """Median split on the longest axis of each node's box."""
+    t = positions.shape[0]
+    lo = positions.min(axis=1)
+    hi = positions.max(axis=1)
+    centroid = (lo + hi) * 0.5
+
+    nodes, meta = [], []
+    order = np.arange(t, dtype=np.int32)
+
+    def rec(idx: np.ndarray, depth: int) -> int:
+        node_id = len(nodes)
+        nodes.append(None)
+        meta.append(None)
+        box_lo = lo[idx].min(axis=0)
+        box_hi = hi[idx].max(axis=0)
+        if len(idx) <= leaf_size or depth > 60:
+            nodes[node_id] = (box_lo, box_hi)
+            meta[node_id] = [-1, idx, len(idx), 1]
+            return node_id
+        axis = int(np.argmax(box_hi - box_lo))
+        med = np.argsort(centroid[idx, axis], kind="stable")
+        half = len(idx) // 2
+        left_idx, right_idx = idx[med[:half]], idx[med[half:]]
+        nodes[node_id] = (box_lo, box_hi)
+        meta[node_id] = [rec(left_idx, depth + 1), None, 0, 0]
+        meta[node_id][1] = rec(right_idx, depth + 1)
+        return node_id
+
+    rec(order, 0)
+    n = len(nodes)
+
+    # flatten: leaf ranges in DFS order, and the skip links
+    node_arr = np.zeros((n, 8), np.float32)
+    meta_arr = np.zeros((n, 4), np.int32)
+    new_order = []
+    skip = np.full(n, n, np.int32)
+    for i in range(n):
+        m = meta[i]
+        if not m[3]:
+            left, right = m[0], m[1]
+            skip[left] = right
+            skip[right] = skip[i]
+    for i in range(n):
+        box_lo, box_hi = nodes[i]
+        node_arr[i, :3] = box_lo
+        node_arr[i, 3:6] = box_hi
+        m = meta[i]
+        if m[3]:
+            first = len(new_order)
+            new_order.extend(m[1].tolist())
+            meta_arr[i] = [skip[i], first, m[2], 1]
+        else:
+            meta_arr[i] = [skip[i], -1, 0, 0]
+    return BVH(nodes=node_arr, meta=meta_arr,
+               order=np.asarray(new_order, np.int32))
+
+
+class Clusters(NamedTuple):
+    """Fixed-size triangle clusters cut from a BVH: a box per cluster and
+    exactly K triangle slots (-1 pads).  ``order`` is the BVH permutation:
+    the caller reorders its triangle arrays by it, so slot (c, s) refers
+    to reordered triangle ``slots[c, s]``."""
+    aabb: np.ndarray    # (C, 8) f32: [min.xyz, max.xyz, pad, pad]
+    slots: np.ndarray   # (C, K) i32: reordered triangle index, -1 = pad
+    order: np.ndarray   # (T,) i32: the BVH permutation
+    k: int
+
+
+def build_clusters(positions: np.ndarray, k: int = 256,
+                   leaf_size: int = 8) -> Clusters:
+    """Cut a BVH into spatial clusters of at most ``k`` triangles.
+
+    First the tree is cut into granules, whole subtrees of at most k/4
+    triangles (contiguous ranges of the reordered array); then
+    DFS-consecutive granules are packed greedily into clusters of at most
+    k, each box the union of its granules' boxes."""
+    t = positions.shape[0]
+    if t == 0:
+        return Clusters(aabb=np.zeros((0, 8), np.float32),
+                        slots=np.zeros((0, k), np.int32),
+                        order=np.zeros((0,), np.int32), k=k)
+    bvh = build_bvh(positions, leaf_size=min(leaf_size, k))
+    n = bvh.num_nodes
+    skip = bvh.meta[:, 0]
+    is_leaf = bvh.meta[:, 3] == 1
+    leaf_counts = np.where(is_leaf, bvh.meta[:, 2], 0)
+    pref = np.concatenate([[0], np.cumsum(leaf_counts)])
+    # first reordered index of the subtree rooted at i: the ``first`` of
+    # the next leaf at or after i (leaf firsts are in DFS order)
+    next_leaf_first = np.full(n + 1, t, np.int64)
+    for i in range(n - 1, -1, -1):
+        next_leaf_first[i] = (bvh.meta[i, 1] if is_leaf[i]
+                              else next_leaf_first[i + 1])
+
+    granule = max(min(leaf_size, k), k // 4)
+    g_boxes, g_firsts, g_counts = [], [], []
+    i = 0
+    while i < n:
+        count = pref[skip[i]] - pref[i]
+        if count <= granule or is_leaf[i]:
+            first = int(next_leaf_first[i])
+            # an oversized leaf (the depth cutoff) is split across
+            # granules that share its box
+            for off in range(0, max(int(count), 1), k):
+                g_boxes.append(np.asarray(bvh.nodes[i, :6], np.float32))
+                g_firsts.append(first + off)
+                g_counts.append(min(int(count) - off, k))
+            i = int(skip[i])
+        else:
+            i += 1
+
+    boxes, firsts, counts = [], [], []
+    for box, first, count in zip(g_boxes, g_firsts, g_counts):
+        if counts and counts[-1] + count <= k \
+                and firsts[-1] + counts[-1] == first:
+            counts[-1] += count
+            boxes[-1] = np.concatenate(
+                [np.minimum(boxes[-1][:3], box[:3]),
+                 np.maximum(boxes[-1][3:6], box[3:6])])
+        else:
+            boxes.append(box.copy())
+            firsts.append(first)
+            counts.append(count)
+
+    c = len(boxes)
+    aabb = np.zeros((c, 8), np.float32)
+    aabb[:, :6] = np.asarray(boxes, np.float32)
+    slots = np.full((c, k), -1, np.int32)
+    for ci, (first, count) in enumerate(zip(firsts, counts)):
+        if not 0 <= count <= k:
+            raise ValueError(f"cluster {ci}: count {count} > k {k}")
+        slots[ci, :count] = np.arange(first, first + count, dtype=np.int32)
+    return Clusters(aabb=aabb, slots=slots, order=bvh.order, k=k)

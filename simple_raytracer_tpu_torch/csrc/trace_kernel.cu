@@ -1,21 +1,37 @@
 // Whole-trace path-tracing kernel for Hopper (sm_90a).
 //
 // Replaces the TPU megakernel simple_raytracer_tpu/ops/pallas/bounce_kernel.py
-// :_trace_kernel in its triangle-free form with the gradient sky evaluated in
-// the kernel: ray generation (inverting the ray-tile order), every bounce
-// (nearest sphere or plane, emission, the BSDF sample) and the environment
-// term, in one launch that writes 3 radiance floats per ray.
+// :_trace_kernel with the gradient sky evaluated in the kernel: ray
+// generation (inverting the ray-tile order), every bounce (nearest sphere,
+// plane or triangle, emission, the BSDF sample) and the environment term, in
+// one launch that writes 3 radiance floats per ray.  Triangles come in one of
+// three compile-time variants of the same kernel (TriMode):
+//   - kNoTris: a triangle-free scene;
+//   - kSmallTris (bounce_kernel.py:_tris_small): at most 64 triangles, a
+//     dense Moller-Trumbore loop over a table staged in shared memory;
+//   - kClusteredTris (bounce_kernel.py:_tris_clustered): a BVH-clustered mesh
+//     of at most 8192 slots; the cluster boxes and the front-to-back order of
+//     their groups of 8 sit in shared memory, the slot table stays in global
+//     memory (read-only path), and each ray slab-tests a group's 8 boxes
+//     against its own live best t and runs MT over the K slots of each
+//     admitted cluster.
 //
 // Design: one thread per ray, because the per-ray bounce loop diverges; a
 // 1-D grid of ceil(n_rays / 256) blocks, one launch for all rays.  The
-// sphere, plane and material tables (a few hundred bytes) are staged into
-// shared memory once per block.  A ray that dies leaves its loop at once,
-// which changes no result.
+// sphere, plane and material tables (a few hundred bytes) and the small
+// triangle table or the cluster boxes are staged into shared memory once per
+// block.  A ray that dies leaves its loop at once, which changes no result.
+// The TPU gates a cluster for a whole 1536-ray block; here each ray gates
+// alone, on boxes the scene build widened by about 128 ulps
+// (ops/scene_types.py:widen_boxes), so a ray's f32 slab test cannot drop a
+// hit that MT finds.
 //
 // Bound on the H100: per-ray FP32 arithmetic (every primitive tested per
-// segment, the hash RNG, the BSDF); the only device-memory traffic is the
-// 12 bytes written per ray.  Left for later: divergence across the warp
-// (rays that die early idle their lanes) and register pressure.
+// segment, every slot of an admitted cluster, the hash RNG, the BSDF); the
+// only device-memory traffic it must make is the 12 bytes written per ray
+// (the cluster table, 320 KB at most, stays in L2).  Left for later:
+// divergence across the warp (rays that die early idle their lanes, and
+// secondary rays admit different clusters) and register pressure.
 //
 // Arithmetic: built with --fmad=false and no fast math, and written in the
 // operation order of the plain PyTorch version (ops/camera.py, ops/rng.py,
@@ -53,11 +69,20 @@ struct TraceParams {
   int32_t n_spheres;      // table rows: spheres (n, 8), planes (n, 8),
   int32_t n_planes;       // materials (n, 16), as ops/cuda/trace_kernel.py
   int32_t n_materials;    // prim_tables packs them
+  int32_t tri_mode;       // TriMode
+  int32_t n_tris;         // kSmallTris: rows of the triangle table
+  int32_t n_clusters;     // kClusteredTris: clusters (a multiple of 8)
+  int32_t cluster_k;      // kClusteredTris: slots per cluster
 };
+
+enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
 
 namespace {
 
 constexpr int kBlock = 256;
+// a triangle row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5),
+// e2 (6-8), n0 n1 n2 (9-17), material (18), active (19)
+constexpr int kTriCols = 20;
 
 // cos(2 pi y) polynomial in y^2 (ops/rng.py: COS2PI_C)
 constexpr float kCos0 = -0x1.b6e25p+0f;
@@ -242,20 +267,127 @@ __device__ __forceinline__ V3 sky_gradient(V3 d, const TraceParams& p) {
              scale(load3(p.sun_color), sun_term));
 }
 
+// ---- triangles (ops/intersect.py: intersect_triangles) --------------------
+
+// the best triangle so far: t, its table row, and MT's (u, v) there
+struct TriHit {
+  float t;
+  int row;
+  float u, v;
+};
+
+// a table load: through the read-only path from global memory, or shared
+template <bool kGlobal>
+__device__ __forceinline__ float ld(const float* q) {
+  if constexpr (kGlobal) {
+    return __ldg(q);
+  } else {
+    return *q;
+  }
+}
+
+// Moller-Trumbore against table row q; a valid hit strictly nearer than
+// best.t replaces it, so the first row of an exact tie stays
+template <bool kGlobal>
+__device__ __forceinline__ void mt_update(const float* q, int row, V3 o, V3 d,
+                                          TriHit& best) {
+  const float e1x = ld<kGlobal>(q + 3), e1y = ld<kGlobal>(q + 4),
+              e1z = ld<kGlobal>(q + 5);
+  const float e2x = ld<kGlobal>(q + 6), e2y = ld<kGlobal>(q + 7),
+              e2z = ld<kGlobal>(q + 8);
+  const float hx = d.y * e2z - d.z * e2y;
+  const float hy = d.z * e2x - d.x * e2z;
+  const float hz = d.x * e2y - d.y * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.0f / a;
+  const float sx = o.x - ld<kGlobal>(q + 0);
+  const float sy = o.y - ld<kGlobal>(q + 1);
+  const float sz = o.z - ld<kGlobal>(q + 2);
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (d.x * qx + d.y * qy + d.z * qz);
+  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  if (a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
+      && t > 0.0f && ld<kGlobal>(q + 19) > 0.0f && t < best.t) {
+    best.t = t;
+    best.row = row;
+    best.u = u;
+    best.v = v;
+  }
+}
+
+// The clustered mesh (bounce_kernel.py:_tris_clustered): groups of 8
+// clusters in the wrapper's front-to-back order; a group's 8 boxes are
+// slab-tested against the live best t (seeded with the nearest sphere or
+// plane), then MT runs over every slot of each admitted cluster.  The first
+// cluster visited wins an exact tie, the lowest slot within a cluster.
+__device__ __forceinline__ void tris_clustered(
+    const float* __restrict__ table, const float* s_box, const int* s_order,
+    const TraceParams& p, V3 o, V3 d, TriHit& best) {
+  const float inx = 1.0f / d.x;
+  const float iny = 1.0f / d.y;
+  const float inz = 1.0f / d.z;
+  const int n_groups = p.n_clusters / 8;
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int g = s_order[gi];
+    unsigned word = 0;
+    for (int k = 0; k < 8; ++k) {
+      const float* b = s_box + 8 * (g * 8 + k);
+      const float t1x = (b[0] - o.x) * inx;
+      const float t2x = (b[3] - o.x) * inx;
+      const float t1y = (b[1] - o.y) * iny;
+      const float t2y = (b[4] - o.y) * iny;
+      const float t1z = (b[2] - o.z) * inz;
+      const float t2z = (b[5] - o.z) * inz;
+      const float near = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                                 max_nan(min_nan(t1z, t2z), 0.0f));
+      const float far = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                                min_nan(max_nan(t1z, t2z), best.t));
+      // NaN (0 * inf on a box plane) keeps the cluster; padding clusters
+      // (every plane at 3e38) fall to the near >= 1e38 term
+      if (!((near > far) || (near >= 1.0e38f))) word |= 1u << k;
+    }
+    while (word) {
+      const int c = g * 8 + __ffs(word) - 1;
+      word &= word - 1;
+      const int row0 = c * p.cluster_k;
+      for (int s = 0; s < p.cluster_k; ++s)
+        mt_update<true>(table + kTriCols * (row0 + s), row0 + s, o, d, best);
+    }
+  }
+}
+
+template <int TRI>
 __global__ void __launch_bounds__(kBlock)
 trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
-             const float* __restrict__ mat, float* __restrict__ out,
-             const TraceParams p) {
+             const float* __restrict__ mat, const float* __restrict__ tri,
+             const float* __restrict__ box, const int* __restrict__ order,
+             float* __restrict__ out, const TraceParams p) {
   extern __shared__ float smem[];
   float* s_sph = smem;
   float* s_pln = s_sph + 8 * p.n_spheres;
   float* s_mat = s_pln + 8 * p.n_planes;
+  float* s_tri = s_mat + 16 * p.n_materials;   // kSmallTris
+  float* s_box = s_tri;                        // kClusteredTris
+  int* s_order = (int*)(s_box + 8 * p.n_clusters);
   for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
     s_sph[k] = sph[k];
   for (int k = threadIdx.x; k < 8 * p.n_planes; k += blockDim.x)
     s_pln[k] = pln[k];
   for (int k = threadIdx.x; k < 16 * p.n_materials; k += blockDim.x)
     s_mat[k] = mat[k];
+  if (TRI == kSmallTris) {
+    for (int k = threadIdx.x; k < kTriCols * p.n_tris; k += blockDim.x)
+      s_tri[k] = tri[k];
+  }
+  if (TRI == kClusteredTris) {
+    for (int k = threadIdx.x; k < 8 * p.n_clusters; k += blockDim.x)
+      s_box[k] = box[k];
+    for (int k = threadIdx.x; k < p.n_clusters / 8; k += blockDim.x)
+      s_order[k] = order[k];
+  }
   __syncthreads();
 
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -326,14 +458,30 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
         i_p = j;
       }
     }
-    const float t = min_nan(t_s, t_p);  // +inf on a miss, never NaN
+    // nearest triangle (+inf when none beats the sphere/plane seed)
+    TriHit th;
+    th.t = INFINITY;
+    th.row = -1;
+    th.u = th.v = 0.0f;
+    float t_t = INFINITY;
+    if (TRI == kSmallTris) {
+      for (int j = 0; j < p.n_tris; ++j)
+        mt_update<false>(s_tri + kTriCols * j, j, o, d, th);
+      t_t = th.t;
+    }
+    if (TRI == kClusteredTris) {
+      th.t = min_nan(t_s, t_p);
+      tris_clustered(tri, s_box, s_order, p, o, d, th);
+      if (th.row >= 0) t_t = th.t;
+    }
+    const float t = min_nan(min_nan(t_s, t_p), t_t);  // never NaN
     if (t == INFINITY) {
       // a miss: the sky is evaluated once after the loop, and the ray dies
       sky_mask = mask;
       sky_dir = d;
       break;
     }
-    // closest_hit: ties go to the sphere
+    // closest_hit: ties go to the sphere, then the plane
     const V3 pos = add(o, scale(d, t));
     V3 normal;
     int m;
@@ -342,10 +490,19 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
       normal = mk((pos.x - q[0]) / q[3], (pos.y - q[1]) / q[3],
                   (pos.z - q[2]) / q[3]);
       m = (int)q[4];
-    } else {
+    } else if (TRI == kNoTris || t_p == t) {
       const float* q = s_pln + 8 * i_p;
       normal = mk(q[3], q[4], q[5]);
       m = (int)q[6];
+    } else {
+      // the smooth normal from MT's own (u, v) (ops/intersect.py:
+      // triangle_normal), then normalized
+      const float* q = (TRI == kSmallTris ? s_tri : tri) + kTriCols * th.row;
+      const float w0 = 1.0f - th.u - th.v;
+      normal = normalize(add(add(scale(load3(q + 9), w0),
+                                 scale(load3(q + 12), th.u)),
+                             scale(load3(q + 15), th.v)));
+      m = (int)q[18];
     }
     const bool front = dot(normal, d) < 0.0f;
     normal = scale(normal, front ? 1.0f : -1.0f);
@@ -409,15 +566,33 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
 }  // namespace
 
 extern "C" int srt_trace_launch(const float* sph, const float* pln,
-                                const float* mat, float* out, TraceParams p,
-                                void* stream) {
+                                const float* mat, const float* tri,
+                                const float* box, const int* order,
+                                float* out, TraceParams p, void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
   const int blocks = (p.n_rays + kBlock - 1) / kBlock;
-  const size_t smem = sizeof(float) * (8 * (size_t)p.n_spheres
-                                       + 8 * (size_t)p.n_planes
-                                       + 16 * (size_t)p.n_materials);
-  trace_kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(sph, pln, mat,
-                                                               out, p);
+  size_t words = 8 * (size_t)p.n_spheres + 8 * (size_t)p.n_planes
+                 + 16 * (size_t)p.n_materials;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (p.tri_mode) {
+    case kNoTris:
+      trace_kernel<kNoTris><<<blocks, kBlock, sizeof(float) * words, st>>>(
+          sph, pln, mat, tri, box, order, out, p);
+      break;
+    case kSmallTris:
+      words += kTriCols * (size_t)p.n_tris;
+      trace_kernel<kSmallTris><<<blocks, kBlock, sizeof(float) * words, st>>>(
+          sph, pln, mat, tri, box, order, out, p);
+      break;
+    case kClusteredTris:
+      words += 8 * (size_t)p.n_clusters + (size_t)p.n_clusters / 8;
+      trace_kernel<kClusteredTris>
+          <<<blocks, kBlock, sizeof(float) * words, st>>>(
+              sph, pln, mat, tri, box, order, out, p);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

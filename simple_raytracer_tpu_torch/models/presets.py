@@ -1,16 +1,22 @@
-"""The preset scenes of this slice: configs 1 and 2.
+"""The preset scenes of the port: configs 1 to 5.
 
-Copies of ``config1_red_green`` and ``config2_four_spheres`` from
+Copies of ``config1_red_green`` to ``config5_two_meshes`` from
 ``simple_raytracer_tpu.models.presets``.  Each builder returns
-``(scene, camera, options)``.  The mesh and skybox configs (3 to 7) are
-later slices.
+``(scene, camera, options)``.  The mesh configs use the procedural
+``organic_blob``; loading a model file, a texture skybox and the large
+meshes of configs 6 and 7 are later slices.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 from ..engine import RenderOptions
 from .camera import Camera
 from .materials import Material
+from .meshgen import organic_blob
 from .scene import Scene
+from .shapes import transform_trs
 
 
 def _cornell_base(scene: Scene) -> None:
@@ -67,7 +73,89 @@ def config2_four_spheres(width: int = 960, height: int = 540) -> tuple:
     return scene, camera, options
 
 
+def config3_skybox_emissive(width: int = 960, height: int = 540,
+                            skybox="auto") -> tuple:
+    """Environment lighting + an emissive area light, 8-bounce.
+
+    ``skybox`` is "auto" or "gradient": both give the analytic gradient
+    sky (the reference's texture is not part of this repository, so
+    "auto" finds none).  An (H, W, 3) texture is kept on the scene, whose
+    build then raises: texture skyboxes are a later slice."""
+    scene = Scene()
+    if isinstance(skybox, str):
+        if skybox not in ("auto", "gradient"):
+            raise ValueError(f"unknown skybox mode {skybox!r}")
+    elif skybox is not None:
+        scene.skybox = skybox
+    scene.add_plane((0, -1, 0), (0, 1, 0), material=0)
+    area = scene.add_material(
+        Material(color=(1, 1, 1), emission=(1.0, 0.95, 0.8),
+                 emission_strength=12.0), "Area")
+    glossy = scene.add_material(
+        Material(color=(0.3, 0.4, 0.9), smoothness=0.7, metallic=0.4),
+        "Glossy")
+    scene.add_box((0, 2.8, -3), size=(3.0, 0.2, 3.0), material=area)
+    scene.add_sphere((0, 0, -3), 1.0, material=glossy)
+    scene.add_sphere((-2.4, -0.4, -2.2), 0.6, material=0)
+    camera = Camera(position=(0.0, 0.5, 3.0))
+    options = RenderOptions(width=width, height=height, num_samples=2,
+                            num_bounces=8)
+    return scene, camera, options
+
+
+def _add_mesh(scene: Scene, path: Optional[str], subdivisions: int = 3):
+    """The procedural stand-in mesh (1280 triangles at subdivision 3)."""
+    if path is not None:
+        raise NotImplementedError("model files (STL/OBJ): a later slice")
+    pos, nrm = organic_blob(subdivisions=subdivisions)
+    return scene.pool.append(pos, nrm)
+
+
+def config4_mesh_glass(width: int = 960, height: int = 540,
+                       mesh_path: Optional[str] = None) -> tuple:
+    """One glass mesh on a ground plane."""
+    scene = Scene()
+    scene.add_plane((0, -1.2, 0), (0, 1, 0), material=0)
+    glass = scene.add_material(
+        Material(color=(0.9, 0.95, 1.0), smoothness=1.0, transmittance=1.0,
+                 refraction_index=1.5), "Glass")
+    span = _add_mesh(scene, mesh_path)
+    scene.add_model(span, material=glass,
+                    transform=transform_trs((0, 0, -2.5)))
+    camera = Camera(position=(0.0, 0.3, 2.5))
+    options = RenderOptions(width=width, height=height, num_samples=2,
+                            num_bounces=6)
+    return scene, camera, options
+
+
+def config5_two_meshes(width: int = 960, height: int = 540,
+                       mesh_path: Optional[str] = None) -> tuple:
+    """Two instances of one mesh (refractive + metallic)."""
+    scene = Scene()
+    scene.add_plane((0, -1.2, 0), (0, 1, 0), material=0)
+    glass = scene.add_material(
+        Material(color=(0.9, 0.95, 1.0), smoothness=1.0, transmittance=1.0,
+                 refraction_index=1.5), "Glass")
+    metal = scene.add_material(
+        Material(color=(0.9, 0.7, 0.3), smoothness=0.85, metallic=1.0),
+        "Metal")
+    span = _add_mesh(scene, mesh_path)
+    scene.add_model(span, material=glass,
+                    transform=transform_trs((-1.4, 0, -2.8),
+                                            (math.pi / 8, 0, 0)))
+    scene.add_model(span, material=metal,
+                    transform=transform_trs((1.4, 0, -2.8),
+                                            (-math.pi / 8, 0, 0)))
+    camera = Camera(position=(0.0, 0.3, 2.5))
+    options = RenderOptions(width=width, height=height, num_samples=2,
+                            num_bounces=6)
+    return scene, camera, options
+
+
 CONFIGS = {
     1: config1_red_green,
     2: config2_four_spheres,
+    3: config3_skybox_emissive,
+    4: config4_mesh_glass,
+    5: config5_two_meshes,
 }

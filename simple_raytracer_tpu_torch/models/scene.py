@@ -3,9 +3,11 @@
 The counterpart of ``simple_raytracer_tpu.models.scene``: the same
 primitive lists, materials and sky settings, and a ``build`` that pads
 each category to the same power-of-two buckets with inactive slots, so
-both packages hand their renderers identical arrays.  This port renders
-spheres and planes under the gradient sky; meshes and texture skyboxes
-are later slices and raise.
+both packages hand their renderers identical arrays.  Mesh instances
+point into a shared triangle pool and are flattened to world space at
+build; a mesh of at least ``cluster_threshold`` triangles is reordered
+into BVH clusters (``accel.py``).  Model files and texture skyboxes are
+later slices and raise.
 """
 from __future__ import annotations
 
@@ -14,12 +16,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..ops.scene_types import (MATERIAL_FIELDS, SKY_VECTORS, DeviceScene,
-                               from_numpy)
+from .. import accel
+from ..ops.scene_types import (MATERIAL_FIELDS, SKY_VECTORS, TABLE_MAX_SLOTS,
+                               TRI_VECTORS, DeviceScene, from_numpy)
 from .materials import Material, MaterialSet, from_hex
-from .shapes import Plane, Sphere
-
-_MESHES = "mesh scenes: a later slice"
+from .shapes import Box, Model, Plane, Sphere, TrianglePool
 
 
 def _bucket(n: int, minimum: int = 4) -> int:
@@ -46,12 +47,48 @@ class SkySettings:
     ground_color: Tuple[float, float, float] = from_hex(0x777777)
 
 
+def _padded_clusters(c_raw: int) -> int:
+    """Cluster count after padding: a power of two (at least 8) up to 512
+    clusters, a multiple of 128 beyond."""
+    if c_raw <= 512:
+        return _bucket(c_raw, minimum=8)
+    return ((c_raw + 127) // 128) * 128
+
+
+def _clusters(pos: np.ndarray) -> accel.Clusters:
+    """BVH clusters of K = 64 triangles, or 128 when the padded K = 64
+    table would exceed TABLE_MAX_SLOTS; padding clusters (every box plane
+    at 3e38, no slots) fill the count up to _padded_clusters."""
+    n = pos.shape[0]
+    k = 128 if n > TABLE_MAX_SLOTS else 64
+    cl = accel.build_clusters(pos, k=k)
+    if k == 64 and _padded_clusters(cl.slots.shape[0]) * 64 > TABLE_MAX_SLOTS:
+        cl = accel.build_clusters(pos, k=128)
+    c_raw, k = cl.slots.shape
+    c_cap = _padded_clusters(c_raw)
+    pad_aabb = np.zeros((c_cap - c_raw, 8), np.float32)
+    pad_aabb[:, 0:6] = 3.0e38
+    return accel.Clusters(
+        aabb=np.concatenate([cl.aabb, pad_aabb]),
+        slots=np.concatenate([cl.slots,
+                              np.full((c_cap - c_raw, k), -1, np.int32)]),
+        order=cl.order, k=k)
+
+
 class Scene:
-    """Mutable scene: primitive lists, materials and sky settings."""
+    """Mutable scene: primitive lists, the shared triangle pool with its
+    mesh instances, materials and sky settings."""
+
+    # meshes of at least this many triangles are BVH-clustered; smaller
+    # ones are intersected densely
+    cluster_threshold: int = 512
 
     def __init__(self, default_material: bool = True):
         self.spheres: List[Sphere] = []
         self.planes: List[Plane] = []
+        self.models: List[Model] = []
+        self.pool = TrianglePool()
+        self._box_span: Optional[Tuple[int, int]] = None
         self.materials = MaterialSet()
         self.sky = SkySettings()
         self.skybox: Optional[np.ndarray] = None
@@ -77,14 +114,61 @@ class Scene:
                      name: Optional[str] = None) -> int:
         return self.materials.push(material, name)
 
-    def add_model(self, *args, **kwargs):
-        raise NotImplementedError(_MESHES)
+    def add_model(self, span: Tuple[int, int], material: int = 0,
+                  transform: Optional[np.ndarray] = None) -> Model:
+        """An instance of the pool's triangles [start, start + count)."""
+        start, count = span
+        m = Model(material=material, triangle_index=start,
+                  num_triangles=count)
+        if transform is not None:
+            m.transform = np.asarray(transform, np.float32)
+        self.models.append(m)
+        return m
 
-    def add_box(self, *args, **kwargs):
-        raise NotImplementedError(_MESHES)
+    def add_box(self, position, size=(2.0, 2.0, 2.0),
+                material: int = 0) -> Model:
+        """A box instance; the 12 shared triangles enter the pool on
+        first use."""
+        if self._box_span is None:
+            self._box_span = Box.create_triangles(self.pool)
+        m = Box.model(material, self._box_span, tuple(position), tuple(size))
+        self.models.append(m)
+        return m
 
     def import_model(self, *args, **kwargs):
-        raise NotImplementedError(_MESHES)
+        raise NotImplementedError("model files (STL/OBJ): a later slice")
+
+    def _triangle_arrays(self) -> dict:
+        """World-space triangles (BVH-reordered and clustered at or above
+        cluster_threshold), padded to a power-of-two bucket."""
+        pos = [np.zeros((0, 3, 3), np.float32)]
+        nrm = [np.zeros((0, 3, 3), np.float32)]
+        mat = [np.zeros((0,), np.int32)]
+        for m in self.models:
+            wpos, wnrm = m.world_triangles(self.pool)
+            pos.append(wpos)
+            nrm.append(wnrm)
+            mat.append(np.full((wpos.shape[0],), m.material, np.int32))
+        pos, nrm, mat = (np.concatenate(a) for a in (pos, nrm, mat))
+        n = pos.shape[0]
+        out = {}
+        if n >= self.cluster_threshold:
+            cl = _clusters(pos)
+            pos, nrm, mat = pos[cl.order], nrm[cl.order], mat[cl.order]
+            out["clusters.aabb"] = cl.aabb
+            out["clusters.slots"] = cl.slots
+        pad = _bucket(n) - n
+        # padding triangles: all-zero vertices, inactive
+        pos = np.concatenate([pos, np.zeros((pad, 3, 3), np.float32)])
+        nrm = np.concatenate([nrm, np.zeros((pad, 3, 3), np.float32)])
+        for i, k in enumerate(TRI_VECTORS[:3]):
+            out[f"triangles.{k}"] = pos[:, i]
+        for i, k in enumerate(TRI_VECTORS[3:]):
+            out[f"triangles.{k}"] = nrm[:, i]
+        out["triangles.material"] = np.concatenate(
+            [mat, np.zeros((pad,), np.int32)])
+        out["triangles.active"] = np.arange(n + pad) < n
+        return out
 
     def arrays(self) -> dict:
         """The padded scene as flat numpy arrays (``from_numpy`` names)."""
@@ -113,6 +197,8 @@ class Scene:
             out["planes.position"][i] = p.position
             out["planes.normal"][i] = p.normal
             out["planes.material"][i] = p.material
+
+        out.update(self._triangle_arrays())
 
         mats = self.materials.materials or [Material()]
         pad = _bucket(len(mats)) - len(mats)

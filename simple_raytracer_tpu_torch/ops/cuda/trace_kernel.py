@@ -2,18 +2,23 @@
 sky in one CUDA launch (``csrc/trace_kernel.cu``).
 
 It replaces the TPU megakernel ``_trace_kernel`` of
-``simple_raytracer_tpu/ops/pallas/bounce_kernel.py`` in its triangle-free
-form with the sky evaluated in the kernel.  Its plain PyTorch version,
-``trace_full_plain``, is ``generate_rays`` followed by ``trace_rays``.
+``simple_raytracer_tpu/ops/pallas/bounce_kernel.py`` with the sky
+evaluated in the kernel, including its two triangle forms: ``_tris_small``
+(a dense loop over at most ``SMALL_TRIS_MAX`` triangles) and
+``_tris_clustered`` (a BVH-clustered mesh of at most ``TABLE_MAX_SLOTS``
+slots).  Its plain PyTorch version, ``trace_full_plain``, is
+``generate_rays`` followed by ``trace_rays``.
 
 ``trace_full`` takes the plain version only for a scene on the CPU.  For
 a scene on a CUDA device it launches the kernel or raises: there is no
-fallback.  The kernel is built on first use with ``nvcc`` into a shared
+fallback, and a mesh outside the kernel's envelope (see ``tri_variant``)
+raises too.  The kernel is built on first use with ``nvcc`` into a shared
 library with a C interface under ``build/srt_torch_kernels/`` (keyed on a
 hash of the source) and bound with ``ctypes``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -23,10 +28,11 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..camera import generate_rays
-from ..scene_types import DeviceScene
+from ..scene_types import TABLE_MAX_SLOTS, Clusters, DeviceScene
 from ..vec import Vec3
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -37,6 +43,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 BLOCK = 256
 MAX_SHARED_BYTES = 48 * 1024
+# meshes of at most this many triangles (padded) and no clusters take the
+# dense in-kernel loop (bounce_kernel.SMALL_TRIS_MAX)
+SMALL_TRIS_MAX = 64
+# the kernel's triangle variants, as the CUDA source's TriMode
+TRI_MODES = {"none": 0, "small": 1, "clustered": 2}
 
 
 class TraceParams(ctypes.Structure):
@@ -66,17 +77,27 @@ class TraceParams(ctypes.Structure):
         ("n_spheres", ctypes.c_int32),
         ("n_planes", ctypes.c_int32),
         ("n_materials", ctypes.c_int32),
+        ("tri_mode", ctypes.c_int32),
+        ("n_tris", ctypes.c_int32),
+        ("n_clusters", ctypes.c_int32),
+        ("cluster_k", ctypes.c_int32),
     ]
 
 
 class TraceKernel:
-    """The built library, nvcc's output, and a count of launches."""
+    """The built library, nvcc's output, and counts of launches: in all,
+    and for each triangle variant (``variant_launches``)."""
 
     def __init__(self):
         self.launches = 0
+        self.variant_launches = collections.Counter()
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.variant_launches.clear()
 
     def library(self):
         """Build (once per source hash) and load the shared library."""
@@ -107,8 +128,7 @@ class TraceKernel:
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         fn = lib.srt_trace_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, TraceParams, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [TraceParams, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.srt_error_string.argtypes = [ctypes.c_int]
         lib.srt_error_string.restype = ctypes.c_char_p
@@ -136,6 +156,42 @@ def prim_tables(scene: DeviceScene):
                      m.color, m.emission,
                      torch.zeros_like(m.color[:, :1]).expand(-1, 4)], dim=1)
     return sph.contiguous(), pln.contiguous(), mat.contiguous()
+
+
+def tri_variant(scene: DeviceScene) -> str:
+    """The kernel's triangle variant for a scene: "none", "small" (at most
+    SMALL_TRIS_MAX triangles, no clusters) or "clustered" (at most
+    TABLE_MAX_SLOTS cluster slots), as the TPU's whole-trace rule
+    (ops/trace.py ``mega_tris``).  Any other mesh raises."""
+    tris = scene.triangles
+    n = tris.material.shape[0]
+    cl = tris.clusters
+    if cl is None and n == 0:
+        return "none"
+    if cl is None and n <= SMALL_TRIS_MAX:
+        return "small"
+    if cl is not None and cl.slots.numel() <= TABLE_MAX_SLOTS:
+        return "clustered"
+    raise NotImplementedError(
+        f"trace kernel: a mesh of {n} triangles "
+        + ("with %d cluster slots" % cl.slots.numel() if cl is not None
+           else "without clusters")
+        + " is outside the whole-trace kernel; mid-size unclustered meshes "
+        "and large clustered ones (configs 6 and 7) take the split "
+        "per-bounce path, a later slice")
+
+
+def group_order(clusters: Clusters, position) -> np.ndarray:
+    """Front-to-back order of the groups of 8 clusters from the camera
+    position: by the squared distance of each group's nearest box center,
+    stably (bounce_kernel.trace_full_fused).  Padding groups sort last."""
+    cam = np.asarray(position, np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        diff = clusters.centers - cam[None, :]
+        d2 = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
+              + diff[:, 2] * diff[:, 2])
+    return np.argsort(d2.reshape(-1, 8).min(axis=1),
+                      kind="stable").astype(np.int32)
 
 
 def trace_full_plain(scene: DeviceScene, rot, position, aspect_ratio,
@@ -171,6 +227,8 @@ def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
 class Prepared:
     """One pass's launch, checked and packed: tables and parameters."""
     tables: tuple            # spheres, planes, materials (device f32)
+    tri_tables: tuple        # triangle rows, kernel boxes, group order
+    variant: str             # tri_variant
     params: TraceParams
     n_rays: int
     device: torch.device
@@ -182,6 +240,7 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     """Check a CUDA pass's arguments and pack its launch."""
     if tile_height is None:
         tile_height = height
+    variant = tri_variant(scene)
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"trace kernel: unsupported device {device}")
@@ -193,12 +252,26 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
         raise ValueError("num_bounces must be >= 1")
 
     sph, pln, mat = prim_tables(scene)
-    for name, t in (("spheres", sph), ("planes", pln), ("materials", mat)):
-        if t.device != device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
+    tris = scene.triangles
+    tri, box, order = tris.table, None, None
+    shared = sph.numel() + pln.numel() + mat.numel()
+    if variant == "small":
+        shared += tri.numel()
+    elif variant == "clustered":
+        cl = tris.clusters
+        if cl.slots.shape[0] % 8:
+            raise ValueError("trace kernel: the cluster count must be a "
+                             "multiple of 8")
+        box = cl.kernel_aabb
+        order = torch.from_numpy(group_order(cl, position)).to(device)
+        shared += box.numel() + order.numel()
+    for name, t in (("spheres", sph), ("planes", pln), ("materials", mat),
+                    ("triangles", tri), ("cluster boxes", box)):
+        if t is not None and (t.device != device or t.dtype != torch.float32
+                              or not t.is_contiguous()):
             raise ValueError(f"trace kernel: bad {name} table {t.dtype} "
                              f"on {t.device}")
-    if 4 * (sph.numel() + pln.numel() + mat.numel()) > MAX_SHARED_BYTES:
+    if 4 * shared > MAX_SHARED_BYTES:
         raise ValueError("trace kernel: scene tables exceed 48 KB of "
                          "shared memory")
     n_rays = width * tile_height * num_samples
@@ -223,7 +296,13 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     p.time = int(time) & 0xFFFFFFFF
     p.n_spheres, p.n_planes, p.n_materials = (sph.shape[0], pln.shape[0],
                                               mat.shape[0])
-    return Prepared((sph, pln, mat), p, n_rays, device)
+    p.tri_mode = TRI_MODES[variant]
+    if variant == "small":
+        p.n_tris = tri.shape[0]
+    elif variant == "clustered":
+        p.n_clusters, p.cluster_k = tris.clusters.slots.shape
+    return Prepared((sph, pln, mat), (tri, box, order), variant, p, n_rays,
+                    device)
 
 
 def launch(prep: Prepared, out: torch.Tensor = None) -> Vec3:
@@ -235,15 +314,15 @@ def launch(prep: Prepared, out: torch.Tensor = None) -> Vec3:
     elif (out.shape != (3, prep.n_rays) or out.dtype != torch.float32
           or out.device != prep.device or not out.is_contiguous()):
         raise ValueError("trace kernel: bad output tensor")
-    sph, pln, mat = prep.tables
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = KERNEL.library()
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
-        err = lib.srt_trace_launch(sph.data_ptr(), pln.data_ptr(),
-                                   mat.data_ptr(), out.data_ptr(),
-                                   prep.params, stream)
+        err = lib.srt_trace_launch(*map(ptr, prep.tables + prep.tri_tables),
+                                   out.data_ptr(), prep.params, stream)
     if err != 0:
         raise RuntimeError("trace kernel launch failed: "
                            + lib.srt_error_string(err).decode())
     KERNEL.launches += 1
+    KERNEL.variant_launches[prep.variant] += 1
     return Vec3(out[0], out[1], out[2])

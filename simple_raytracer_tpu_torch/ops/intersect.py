@@ -1,8 +1,14 @@
-"""Sphere and plane intersection and the nearest hit, as dense batches.
+"""Sphere, plane and triangle intersection and the nearest hit, as dense
+batches.
 
-The counterpart of ``simple_raytracer_tpu.ops.intersect`` for scenes
-without triangles: every ray meets every primitive of a category as an
-(R, N) batch, reduced to the first minimum t per ray.
+The counterpart of ``simple_raytracer_tpu.ops.intersect``: every ray
+meets every primitive of a category as an (R, N) batch, reduced to the
+first minimum t per ray.  Triangles take the whole-trace kernel's form
+(``bounce_kernel._tris_small``): Moller-Trumbore, with the smooth normal
+interpolated from MT's own (u, v), not from the hit position as the JAX
+scan path's ``barycentric_weights`` does; the two differ by float
+rounding only.  This is the plain version of both triangle variants of
+the CUDA kernel, and is dense over every triangle: it ignores clusters.
 """
 from __future__ import annotations
 
@@ -11,8 +17,13 @@ from typing import NamedTuple
 
 import torch
 
-from .scene_types import DeviceScene, Planes, Spheres
-from .vec import Vec3, dot, sqrt, where as vwhere
+from .scene_types import DeviceScene, Planes, Spheres, Triangles
+from .vec import Vec3, dot, normalize, sqrt, where as vwhere
+
+# rays x triangles per chunk of the dense triangle loop: on the CPU a
+# chunk's f32 intermediates (16 MB each) stay near the caches, on a card
+# (256 MB each) there are fewer, larger launches
+TRI_CHUNK_ELEMS = {"cpu": 2 ** 22, "cuda": 2 ** 26}
 
 
 class Hit(NamedTuple):
@@ -61,21 +72,78 @@ def intersect_planes(o: Vec3, d: Vec3, p: Planes):
     return torch.min(torch.where(valid, t, math.inf), dim=1)
 
 
+def intersect_triangles(o: Vec3, d: Vec3, tr: Triangles,
+                        max_elems: int = None):
+    """(R,) rays x (Nt,) triangles -> (t_best, idx_best, u, v): MT with the
+    a == 0 test, u in [0, 1], v >= 0, u + v <= 1 and t > 0 strictly; the
+    first index wins an exact tie, and (u, v) are MT's at the winner.  The
+    triangles are taken in chunks of at most ``max_elems`` ray-triangle
+    pairs (by default TRI_CHUNK_ELEMS of the device)."""
+    if max_elems is None:
+        max_elems = TRI_CHUNK_ELEMS.get(o.x.device.type, 2 ** 22)
+    n_rays, n = o.x.shape[0], tr.material.shape[0]
+    e1, e2 = tr.v1 - tr.v0, tr.v2 - tr.v0
+    ro, rd = _rays(o), _rays(d)
+    t_best = torch.full_like(o.x, math.inf)
+    i_best = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
+    u_best = torch.zeros_like(o.x)
+    v_best = torch.zeros_like(o.x)
+    chunk = max(1, max_elems // max(n_rays, 1))
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, c0 + chunk)
+        a1, a2 = _table(e1[sl]), _table(e2[sl])
+        h = Vec3(rd.y * a2.z - rd.z * a2.y, rd.z * a2.x - rd.x * a2.z,
+                 rd.x * a2.y - rd.y * a2.x)
+        a = dot(a1, h)
+        f = 1.0 / a
+        s = ro - _table(tr.v0[sl])
+        u = f * dot(s, h)
+        q = Vec3(s.y * a1.z - s.z * a1.y, s.z * a1.x - s.x * a1.z,
+                 s.x * a1.y - s.y * a1.x)
+        v = f * dot(rd, q)
+        t = f * dot(a2, q)
+        valid = ((a != 0.0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+                 & (u + v <= 1.0) & (t > 0.0) & tr.active[None, sl])
+        t_c, i_c = torch.min(torch.where(valid, t, math.inf), dim=1)
+        better = t_c < t_best
+        pick = lambda x: torch.gather(x, 1, i_c[:, None])[:, 0]
+        t_best = torch.where(better, t_c, t_best)
+        i_best = torch.where(better, i_c + c0, i_best)
+        u_best = torch.where(better, pick(u), u_best)
+        v_best = torch.where(better, pick(v), v_best)
+    return t_best, i_best, u_best, v_best
+
+
+def triangle_normal(tr: Triangles, idx: torch.Tensor, u: torch.Tensor,
+                    v: torch.Tensor) -> Vec3:
+    """The unnormalized smooth normal n0 w0 + n1 u + n2 v, w0 = 1 - u - v,
+    at MT's (u, v) (p = v0 + u e1 + v e2)."""
+    w0 = 1.0 - u - v
+    return (Vec3.from_array(tr.n0[idx]) * w0 + Vec3.from_array(tr.n1[idx]) * u
+            + Vec3.from_array(tr.n2[idx]) * v)
+
+
 def closest_hit(scene: DeviceScene, o: Vec3, d: Vec3) -> Hit:
-    """Nearest hit across categories, ties going to the sphere before the
-    plane; the normal is flipped to face the ray."""
+    """Nearest hit across categories, ties going to the sphere, then the
+    plane, then the triangle; the normal is flipped to face the ray."""
     inf = torch.full_like(o.x, math.inf)
     zero_i = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
     has_spheres = scene.spheres.radius.shape[0] > 0
     has_planes = scene.planes.material.shape[0] > 0
+    has_tris = scene.triangles.material.shape[0] > 0
     t_s, i_s = (intersect_spheres(o, d, scene.spheres) if has_spheres
                 else (inf, zero_i))
     t_p, i_p = (intersect_planes(o, d, scene.planes) if has_planes
                 else (inf, zero_i))
+    if has_tris:
+        t_t, i_t, u_t, v_t = intersect_triangles(o, d, scene.triangles)
+    else:
+        t_t = inf
 
-    t = torch.minimum(t_s, t_p)
+    t = torch.minimum(torch.minimum(t_s, t_p), t_t)
     hit = torch.isfinite(t)
     is_s = t_s == t
+    is_p = ~is_s & (t_p == t)
     position = o + d * t
 
     if has_spheres:
@@ -90,8 +158,15 @@ def closest_hit(scene: DeviceScene, o: Vec3, d: Vec3) -> Hit:
     else:
         n_pln, m_pln = Vec3(inf, inf, inf), zero_i
 
-    normal = vwhere(is_s, n_sph, n_pln)
-    material = torch.where(is_s, m_sph, m_pln)
+    if has_tris:
+        tr = scene.triangles
+        n_tri = normalize(triangle_normal(tr, i_t, u_t, v_t))
+        m_tri = tr.material[i_t]
+    else:
+        n_tri, m_tri = Vec3(inf, inf, inf), zero_i
+
+    normal = vwhere(is_s, n_sph, vwhere(is_p, n_pln, n_tri))
+    material = torch.where(is_s, m_sph, torch.where(is_p, m_pln, m_tri))
     front = dot(normal, d) < 0.0
     normal = normal * torch.where(front, 1.0, -1.0)
     return Hit(hit=hit, t=t, position=position, normal=normal, front=front,

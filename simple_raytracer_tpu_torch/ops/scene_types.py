@@ -3,8 +3,10 @@
 The counterpart of ``simple_raytracer_tpu.ops.scene_types.DeviceScene``,
 as plain dataclasses of tensors instead of a pytree.  Each primitive
 category is padded to a bucket capacity; ``active`` marks the real slots.
-Triangles are an empty category in this port for now: ``from_numpy``
-refuses a scene that has any.
+
+Triangles are world-space and, for a clustered mesh, already in BVH
+order.  ``from_numpy`` packs the whole-trace kernel's triangle table
+once per scene (``tri_table``), so no pass packs mesh tables again.
 
 The sky parameters stay on the host as float32-rounded Python floats: the
 CUDA kernel takes them by value, so moving them costs no copy.
@@ -12,6 +14,7 @@ CUDA kernel takes them by value, so moving them costs no copy.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +36,39 @@ class Planes:
     normal: torch.Tensor     # (Np, 3) f32
     material: torch.Tensor   # (Np,) int64
     active: torch.Tensor     # (Np,) bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Clusters:
+    """A BVH-clustered mesh: C clusters of K triangle slots each."""
+    aabb: torch.Tensor       # (C, 8) f32 [min.xyz, max.xyz, 0, 0]; the
+                             # padding clusters have every plane at 3e38
+    slots: torch.Tensor      # (C, K) int64 triangle index, -1 = empty slot
+    # the kernel's copy of ``aabb``, each real box widened by a few ulps so
+    # that a ray's own f32 slab test never drops a hit that MT finds
+    kernel_aabb: torch.Tensor
+    centers: np.ndarray      # (C, 3) f32 box centers, on the host: the
+                             # wrapper orders the groups by them per pass
+
+    @property
+    def k(self) -> int:
+        return self.slots.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Triangles:
+    v0: torch.Tensor         # (Nt, 3) f32 world-space vertices
+    v1: torch.Tensor
+    v2: torch.Tensor
+    n0: torch.Tensor         # (Nt, 3) f32 vertex normals (not normalized)
+    n1: torch.Tensor
+    n2: torch.Tensor
+    material: torch.Tensor   # (Nt,) int64
+    active: torch.Tensor     # (Nt,) bool
+    # the kernel's rows of TRI_COLS f32: the Nt triangles in order, or for
+    # a clustered mesh the C * K cluster slots (see tri_table)
+    table: torch.Tensor
+    clusters: Optional[Clusters] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +99,7 @@ class SkyParams:
 class DeviceScene:
     spheres: Spheres
     planes: Planes
+    triangles: Triangles
     materials: Materials
     sky: SkyParams
     # a hint only: False declares an enclosed scene (no ray reaches the
@@ -78,6 +115,47 @@ MATERIAL_FIELDS = ("smoothness", "metallic", "specular", "emission_strength",
                    "transmittance", "refraction_index")
 SKY_VECTORS = ("sun_color", "sun_direction", "horizon_color", "zenith_color",
                "ground_color")
+TRI_VECTORS = ("v0", "v1", "v2", "n0", "n1", "n2")
+# a kernel triangle row: [v0 (0-2), e1 = v1 - v0 (3-5), e2 = v2 - v0 (6-8),
+# n0 n1 n2 (9-17), material (18), active (19)], the first 20 columns of
+# the TPU kernel's tables (bounce_kernel.small_tris_table, table_t)
+TRI_COLS = 20
+# the largest cluster table (C * K slots) the whole-trace kernel serves; it
+# also sets the scene build's choice of K (the TPU's VMEM_TABLE_MAX_SLOTS)
+TABLE_MAX_SLOTS = 8192
+# a kernel box is widened by this share of its largest coordinate
+# (2^-16: about 128 ulps), so a slab test never misses a hit by rounding
+BOX_WIDEN = 2.0 ** -16
+
+
+def tri_table(tris: dict, slots: Optional[np.ndarray] = None) -> np.ndarray:
+    """The kernel's (rows, TRI_COLS) f32 triangle table: one row per
+    triangle, or with ``slots`` ((C, K), -1 empty) one row per cluster
+    slot, empty slots all zero (inactive).  The edges are the same f32
+    subtractions the plain version makes."""
+    v0, v1, v2 = tris["v0"], tris["v1"], tris["v2"]
+    rows = np.concatenate(
+        [v0, v1 - v0, v2 - v0, tris["n0"], tris["n1"], tris["n2"],
+         tris["material"].astype(np.float32)[:, None],
+         tris["active"].astype(np.float32)[:, None]], axis=1)
+    if slots is None:
+        return rows
+    flat = slots.reshape(-1)
+    out = np.zeros((flat.shape[0], TRI_COLS), np.float32)
+    out[flat >= 0] = rows[flat[flat >= 0]]
+    return out
+
+
+def widen_boxes(aabb: np.ndarray) -> np.ndarray:
+    """The kernel's boxes: each real box grown on every side by BOX_WIDEN
+    times its largest coordinate magnitude; padding boxes (3e38) stay."""
+    out = np.array(aabb, np.float32)
+    real = out[:, 0] < 1.0e38
+    mag = np.abs(out[real, 0:6]).max(axis=1, keepdims=True)
+    pad = np.float32(BOX_WIDEN) * np.maximum(mag, np.float32(1e-30))
+    out[real, 0:3] -= pad
+    out[real, 3:6] += pad
+    return out
 
 
 def from_numpy(arrays: dict, device) -> DeviceScene:
@@ -86,11 +164,11 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
     ``spheres.material``, ``spheres.active``, ``planes.position``,
     ``planes.normal``, ``planes.material``, ``planes.active``,
     ``materials.<field>`` (color and emission (M, 3)), ``sky.<field>``
-    (vectors (3,)) and ``sky_reachable``.  A ``triangles.material`` array,
-    if present, must be empty."""
-    tris = arrays.get("triangles.material")
-    if tris is not None and np.asarray(tris).shape[0]:
-        raise NotImplementedError("mesh scenes: a later slice")
+    (vectors (3,)) and ``sky_reachable``; optionally the triangles
+    ``triangles.{v0,v1,v2,n0,n1,n2}`` (Nt, 3), ``triangles.material``,
+    ``triangles.active``, and for a clustered mesh ``clusters.aabb``
+    (C, 8) and ``clusters.slots`` (C, K) (-1 for an empty slot).  A scene
+    without ``triangles.v0`` has no triangles."""
 
     def f32(name, shape_tail=()):
         a = np.asarray(arrays[name], np.float32)
@@ -100,12 +178,18 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
 
     n_mat = np.asarray(arrays["materials.smoothness"]).shape[0]
 
-    def index(name):
+    def t(a):
+        return torch.tensor(a, device=device)
+
+    def checked_index(name):
         # the kernel reads materials unchecked, so bad indices stop here
         a = np.asarray(arrays[name], np.int64)
         if a.size and (a.min() < 0 or a.max() >= n_mat):
             raise ValueError(f"{name}: material index outside [0, {n_mat})")
-        return torch.tensor(a, device=device)
+        return a
+
+    def index(name):
+        return t(checked_index(name))
 
     def flag(name):
         return torch.tensor(np.asarray(arrays[name], bool), device=device)
@@ -116,6 +200,36 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
     def vec(name):
         return Vec3.full(tuple(np.asarray(arrays[name], np.float32).reshape(3)))
 
+    if "triangles.v0" in arrays:
+        tris = {k: np.asarray(arrays[f"triangles.{k}"], np.float32)
+                for k in TRI_VECTORS}
+        for k, a in tris.items():
+            if a.shape[1:] != (3,):
+                raise ValueError(f"triangles.{k}: shape {a.shape}")
+        tris["material"] = checked_index("triangles.material")
+        tris["active"] = np.asarray(arrays["triangles.active"], bool)
+    else:
+        tris = {k: np.zeros((0, 3), np.float32) for k in TRI_VECTORS}
+        tris["material"] = np.zeros((0,), np.int64)
+        tris["active"] = np.zeros((0,), bool)
+    n_tris = tris["v0"].shape[0]
+    clusters, slots = None, None
+    if "clusters.aabb" in arrays:
+        aabb = np.asarray(arrays["clusters.aabb"], np.float32)
+        slots = np.asarray(arrays["clusters.slots"], np.int64)
+        if (slots.ndim != 2 or aabb.shape != (slots.shape[0], 8)
+                or slots.min() < -1 or slots.max() >= n_tris):
+            raise ValueError(f"clusters: aabb {aabb.shape}, slots "
+                             f"{slots.shape} over {n_tris} triangles")
+        with np.errstate(over="ignore"):   # padding boxes: inf centers
+            centers = (aabb[:, 0:3] + aabb[:, 3:6]) * np.float32(0.5)
+        clusters = Clusters(aabb=t(aabb), slots=t(slots),
+                            kernel_aabb=t(widen_boxes(aabb)),
+                            centers=centers)
+    triangles = Triangles(
+        **{k: t(tris[k]) for k in TRI_VECTORS + ("material", "active")},
+        table=t(tri_table(tris, slots)), clusters=clusters)
+
     return DeviceScene(
         spheres=Spheres(center=f32("spheres.center", (3,)),
                         radius=f32("spheres.radius"),
@@ -125,6 +239,7 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
                       normal=f32("planes.normal", (3,)),
                       material=index("planes.material"),
                       active=flag("planes.active")),
+        triangles=triangles,
         materials=Materials(
             **{k: f32(f"materials.{k}") for k in MATERIAL_FIELDS},
             color=f32("materials.color", (3,)),

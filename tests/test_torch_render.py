@@ -1,11 +1,16 @@
 """The port's whole progressive pass against simple_raytracer_tpu.
 
-Configs 1 and 2 render at the golden sizes (tests/test_golden.py) through
+Configs 1 to 5 render at the golden sizes (tests/test_golden.py) through
 the port's Renderer on the CPU, which runs the plain version of the trace
 kernel, with the JAX scene carried across through from_numpy.  They are
-held to the JAX Renderer and to tests/goldens/config{1,2}.npz at the
+held to the JAX Renderer and to tests/goldens/config{1..5}.npz at the
 golden bound RMSE < 2e-3.  (Measured here: config 1 is bit-identical,
-config 2 is 7e-7 off, from XLA:CPU's fused multiply-adds and its pow.)
+configs 2 to 5 are 3e-7 to 7e-7 off, from XLA:CPU's fused multiply-adds
+and its pow, and for meshes from the smooth normal, which the port
+interpolates at MT's (u, v) and the JAX scan path at barycentric weights
+of the hit position.)  The JAX scene is built with the JAX package's
+NumPy BVH builder, the one the port has, so that the port's own build and
+the carried one are the same scene.
 """
 import os
 
@@ -24,7 +29,9 @@ from simple_raytracer_tpu_torch.ops.trace import render_pass
 from torch_port_helpers import jax_scene_arrays
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
-SIZES = {1: (64, 64), 2: (96, 54)}
+SIZES = {1: (64, 64), 2: (96, 54), 3: (96, 54), 4: (96, 54), 5: (96, 54)}
+# the gradient sky, as tests/test_golden.py pins it
+KWARGS = {3: {"skybox": "gradient"}}
 STEPS, TIME0 = 2, 1000
 BOUND = 2e-3
 
@@ -35,7 +42,7 @@ def _rmse(a, b) -> float:
 
 def _port_renderer(n, scene=None, **kw):
     w, h = SIZES[n]
-    tscene, camera, opt = CONFIGS[n](width=w, height=h)
+    tscene, camera, opt = CONFIGS[n](width=w, height=h, **KWARGS.get(n, {}))
     r = Renderer(RenderOptions(width=w, height=h,
                                num_samples=opt.num_samples,
                                num_bounces=opt.num_bounces, **kw),
@@ -45,10 +52,14 @@ def _port_renderer(n, scene=None, **kw):
     return r, camera
 
 
-@pytest.mark.parametrize("n", [1, 2])
-def test_renderer_matches_jax_and_golden(n):
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+def test_renderer_matches_jax_and_golden(n, monkeypatch):
+    import simple_raytracer_tpu.accel
+    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
+                        lambda: None)
     w, h = SIZES[n]
-    jscene, jcamera, jopt = JCONFIGS[n](width=w, height=h)
+    jscene, jcamera, jopt = JCONFIGS[n](width=w, height=h,
+                                        **KWARGS.get(n, {}))
     jr = JRenderer(JOptions(width=w, height=h, num_samples=jopt.num_samples,
                             num_bounces=jopt.num_bounces), scene=jscene)
     carried = from_numpy(jax_scene_arrays(jscene.build()), "cpu")

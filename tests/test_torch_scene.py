@@ -1,21 +1,38 @@
 """The port's host scene build against simple_raytracer_tpu's.
 
-For configs 1 and 2, the port's Scene.build() must equal the JAX
-Scene.build() array by array, padding slots included, and the JAX scene
-carried across with from_numpy must give the same tensors.
+For configs 1 to 5, the port's Scene.build() must equal the JAX
+Scene.build() array by array, padding slots included, the triangles in
+BVH order and the cluster boxes and slots too, and the JAX scene carried
+across with from_numpy must give the same tensors.  The port builds its
+BVH with the NumPy builder only, so the JAX side is forced to its NumPy
+builder (the C++ SAH builder gives other clusters).
 """
 import numpy as np
 import pytest
 import torch
 
+import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
+from simple_raytracer_tpu_torch import accel
+from simple_raytracer_tpu_torch.models.meshgen import organic_blob
 from simple_raytracer_tpu_torch.models.presets import CONFIGS as TCONFIGS
 from simple_raytracer_tpu_torch.models.scene import Scene
 from simple_raytracer_tpu_torch.ops.scene_types import (MATERIAL_FIELDS,
                                                         SKY_VECTORS,
+                                                        TRI_VECTORS,
                                                         from_numpy)
 
 from torch_port_helpers import jax_scene_arrays
+
+# the gradient sky, as tests/test_golden.py pins it
+KWARGS = {3: {"skybox": "gradient"}}
+
+
+@pytest.fixture
+def numpy_bvh(monkeypatch):
+    """The JAX package's BVH from its NumPy builder, as the port's."""
+    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
+                        lambda: None)
 
 
 def _flat(ts) -> dict:
@@ -25,10 +42,14 @@ def _flat(ts) -> dict:
                                      "active")),
                         ("planes", ("position", "normal", "material",
                                     "active")),
+                        ("triangles", TRI_VECTORS + ("material", "active")),
                         ("materials", MATERIAL_FIELDS + ("color",
                                                          "emission"))):
         for f in fields:
             out[f"{cat}.{f}"] = getattr(getattr(ts, cat), f).numpy()
+    if ts.triangles.clusters is not None:
+        out["clusters.aabb"] = ts.triangles.clusters.aabb.numpy()
+        out["clusters.slots"] = ts.triangles.clusters.slots.numpy()
     out["sky.sun_focus"] = ts.sky.sun_focus
     out["sky.sun_intensity"] = ts.sky.sun_intensity
     for k in SKY_VECTORS:
@@ -37,12 +58,14 @@ def _flat(ts) -> dict:
     return out
 
 
-@pytest.mark.parametrize("n", [1, 2])
-def test_scene_build_matches_jax(n):
-    jscene, jcam, jopt = JCONFIGS[n]()
-    tscene, tcam, topt = TCONFIGS[n]()
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+def test_scene_build_matches_jax(n, numpy_bvh):
+    jscene, jcam, jopt = JCONFIGS[n](**KWARGS.get(n, {}))
+    tscene, tcam, topt = TCONFIGS[n](**KWARGS.get(n, {}))
     want = jax_scene_arrays(jscene.build())
-    assert want.pop("triangles.material").shape == (0,)
+    n_tris = {1: 0, 2: 0, 3: 16, 4: 2048, 5: 4096}[n]
+    assert want["triangles.material"].shape == (n_tris,)
+    assert ("clusters.slots" in want) == (n >= 4)
     got = _flat(tscene.build("cpu"))
     assert sorted(got) == sorted(want)
     for k, w in want.items():
@@ -84,21 +107,71 @@ def test_padding_buckets():
 
 
 def test_meshes_and_skyboxes_are_a_later_slice():
+    """Model files and texture skyboxes are later slices and raise."""
     s = Scene()
-    for add in (s.add_model, s.add_box, s.import_model):
-        with pytest.raises(NotImplementedError, match="mesh scenes"):
-            add((0, 12))
-    arrays = s.arrays()
-    arrays["triangles.material"] = np.zeros(12, np.int32)
-    with pytest.raises(NotImplementedError, match="mesh scenes"):
-        from_numpy(arrays, "cpu")
+    with pytest.raises(NotImplementedError, match="model files"):
+        s.import_model("suzanne.obj")
+    with pytest.raises(NotImplementedError, match="model files"):
+        TCONFIGS[4](mesh_path="suzanne.obj")
     s.skybox = np.zeros((4, 8, 3), np.float32)
     with pytest.raises(NotImplementedError, match="skybox"):
         s.build("cpu")
+    scene, _, _ = TCONFIGS[3](skybox=np.zeros((4, 8, 3), np.float32))
+    with pytest.raises(NotImplementedError, match="skybox"):
+        scene.build("cpu")
+    for mode in ("auto", "gradient"):   # both are the gradient sky here
+        assert TCONFIGS[3](skybox=mode)[0].skybox is None
+
+
+def test_clusters_match_jax(numpy_bvh):
+    """The BVH and its cut into clusters equal the JAX package's NumPy
+    build: boxes, slots and the reorder permutation."""
+    pos, _ = organic_blob(subdivisions=3)
+    for k in (64, 128):
+        got = accel.build_clusters(pos, k=k)
+        want = simple_raytracer_tpu.accel.build_clusters(pos, k=k)
+        assert got.k == want.k == k
+        for f in ("aabb", "slots", "order"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+    bvh = accel.build_bvh(pos, leaf_size=8)
+    want = simple_raytracer_tpu.accel.build_bvh(pos, leaf_size=8)
+    for f in ("nodes", "meta", "order"):
+        np.testing.assert_array_equal(getattr(bvh, f), getattr(want, f))
+    simple_raytracer_tpu.accel.validate_bvh(bvh, pos)
+
+
+def test_mesh_instances_and_boxes(numpy_bvh):
+    """Boxes and model instances flatten to world space as in the JAX
+    package; at the cluster threshold a mesh is BVH-clustered into
+    K = 64 slots, padded with 3e38 boxes to a power of two."""
+    from simple_raytracer_tpu.models.scene import Scene as JScene
+    pos, nrm = organic_blob(subdivisions=2)              # 320 triangles
+    scenes = []
+    for cls in (JScene, Scene):
+        sc = cls()
+        sc.add_box((1, 2, 3), size=(2.0, 0.5, 1.0))
+        span = sc.pool.append(pos, nrm)
+        sc.add_model(span, transform=np.diag([2, 2, 2, 1]).astype(np.float32))
+        sc.add_model(span)
+        scenes.append(sc)
+    want = jax_scene_arrays(scenes[0].build())
+    got = scenes[1].arrays()
+    assert got["triangles.active"].sum() == 12 + 2 * 320
+    assert got["clusters.slots"].shape[1] == 64
+    assert (got["clusters.aabb"][got["clusters.slots"][:, 0] < 0, :6]
+            == np.float32(3e38)).all()
+    for k, g in got.items():
+        if k.startswith(("triangles.", "clusters.")):
+            np.testing.assert_array_equal(g, want[k], err_msg=k)
 
 
 def test_bad_material_index_is_refused():
     s = Scene()
     s.add_sphere((0, 0, 0), 1.0, material=9)   # the table has 4 rows
     with pytest.raises(ValueError, match="material index"):
+        s.build("cpu")
+    s = Scene()
+    s.add_box((0, 0, 0), material=4)
+    with pytest.raises(ValueError, match="triangles.material"):
         s.build("cpu")

@@ -3,10 +3,13 @@
 The CUDA kernel itself runs only on the card (chip_smoke.py holds it
 against its plain version there).  Here: the wrapper's dispatch (the
 plain version for a CPU scene, an error for any other non-CUDA device,
-no launch counted), the launch ABI against the CUDA source, the kernel's
-tables against the TPU kernel's, and the plain version against the TPU
-kernel ``_trace_kernel`` itself, run in Pallas interpret mode at 64x16
-with 1 sample.  Interpret mode runs under jit, where XLA:CPU fuses
+no launch counted), its envelope (which meshes the kernel serves, and an
+error, not the plain version, for any other), the launch ABI against the
+CUDA source, the kernel's tables and cluster group order against the TPU
+kernel's, and the plain version against the TPU kernel ``_trace_kernel``
+itself, run in Pallas interpret mode at 64x16 with 1 sample, for every
+triangle variant (configs 1 and 2 without triangles, 3 small, 4 and 5
+clustered).  Interpret mode runs under jit, where XLA:CPU fuses
 multiply-adds, so per-ray radiance may drift by float rounding and a
 path may flip at a Bernoulli threshold: that comparison bounds the RMSE
 at 2e-3 (the golden bound) and needs 99% of rays within 1e-3, as
@@ -31,12 +34,13 @@ from torch_port_helpers import jax_scene_arrays, to_np
 
 
 def _scene(n, w=64, h=16):
-    scene, camera, opt = JCONFIGS[n](width=w, height=h)
+    kw = {"skybox": "gradient"} if n == 3 else {}
+    scene, camera, opt = JCONFIGS[n](width=w, height=h, **kw)
     ds = scene.build()
     return ds, from_numpy(jax_scene_arrays(ds), "cpu"), camera, opt
 
 
-@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
 def test_plain_version_matches_tpu_kernel(n):
     w, h = 64, 16
     ds, ts, camera, opt = _scene(n, w, h)
@@ -88,6 +92,70 @@ def test_tables_match_tpu_kernel_tables():
         jt, tt = np.asarray(jt), tt.numpy()
         np.testing.assert_array_equal(jt[:tt.shape[0]], tt)
         assert not jt[tt.shape[0]:].any()   # the TPU table's row padding
+    # the small triangle table: the TPU table's first 20 columns
+    ds, ts, _, _ = _scene(3)
+    np.testing.assert_array_equal(
+        np.asarray(bounce_kernel.small_tris_table(ds))[:, :20],
+        ts.triangles.table.numpy())
+
+
+@pytest.mark.parametrize("n", [4, 5])
+def test_cluster_tables_and_order_match_tpu_kernel(n):
+    """The slot table equals the TPU row table's first 20 columns on every
+    filled slot (an empty slot is all zero, inactive); the kernel's boxes
+    contain the TPU boxes; the group order is the TPU kernel's."""
+    ds, ts, camera, _ = _scene(n)
+    cl, tcl = ds.triangles.clusters, ts.triangles.clusters
+    jt, tt = np.asarray(cl.table_t)[:, :20], ts.triangles.table.numpy()
+    filled = jt[:, 19] > 0
+    np.testing.assert_array_equal(tt[filled], jt[filled])
+    assert not tt[~filled].any()
+    aabb = np.asarray(cl.aabb)
+    box = tcl.kernel_aabb.numpy()
+    real = aabb[:, 0] < 1e38
+    assert (box[real, :3] < aabb[real, :3]).all()
+    assert (box[real, 3:6] > aabb[real, 3:6]).all()
+    np.testing.assert_array_equal(box[~real], aabb[~real])
+    for pos in (camera.position, (0.0, 5.0, -10.0), (3.0, 0.0, -2.8)):
+        cam = jnp.asarray(pos, jnp.float32)
+        centers = (cl.aabb[:, 0:3] + cl.aabb[:, 3:6]) * 0.5
+        d2 = jnp.sum((centers - cam[None, :]) ** 2, axis=1)
+        want = np.asarray(jnp.argsort(d2.reshape(-1, 8).min(axis=1)))
+        got = tk.group_order(tcl, pos)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == np.int32
+
+
+def test_envelope(monkeypatch):
+    """The kernel's variants follow the TPU's whole-trace rule; a mesh
+    outside it (here 100 triangles without clusters) raises for a device
+    scene and never reaches the plain version."""
+    from simple_raytracer_tpu_torch.models.meshgen import icosphere
+    from simple_raytracer_tpu_torch.models.presets import CONFIGS
+    from simple_raytracer_tpu_torch.models.scene import Scene
+    variants = {n: tk.tri_variant(CONFIGS[n](width=64, height=16)[0]
+                                  .build("cpu")) for n in CONFIGS}
+    assert variants == {1: "none", 2: "none", 3: "small", 4: "clustered",
+                        5: "clustered"}
+    s = Scene()
+    pos, nrm = icosphere(subdivisions=2)                 # 320 triangles
+    s.add_model(s.pool.append(pos[:100], nrm[:100]))
+    arrays = s.arrays()
+    assert arrays["triangles.material"].shape == (128,)
+    assert "clusters.slots" not in arrays
+    meta = from_numpy(arrays, "meta")
+    args = (meta, camera_rotation(0.0, 0.0), (0.0, 0.0, 5.0), 2.0, 1.0, 9)
+    kw = dict(width=8, height=4, num_samples=1, num_bounces=2)
+    calls, before = [], tk.KERNEL.launches
+    with monkeypatch.context() as m:
+        m.setattr(tk, "trace_full_plain", lambda *a, **k: calls.append(a))
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tk.trace_full(*args, **kw)
+    assert not calls and tk.KERNEL.launches == before
+    # the CPU renders it with the plain version
+    cpu = from_numpy(arrays, "cpu")
+    col = tk.trace_full(cpu, *args[1:], **kw)
+    assert np.isfinite(to_np(col)).all()
 
 
 def test_launch_struct_matches_cuda_source():

@@ -25,11 +25,23 @@ def jax_scene_arrays(ds) -> dict:
         "planes.normal": v3(ds.planes.normal),
         "planes.material": a(ds.planes.material),
         "planes.active": a(ds.planes.active),
-        "triangles.material": a(ds.triangles.material),
         "sky.sun_focus": a(ds.sky.sun_focus),
         "sky.sun_intensity": a(ds.sky.sun_intensity),
         "sky_reachable": ds.flags.sky_reachable,
     }
+    tr = ds.triangles
+    for k in ("v0", "v1", "v2", "n0", "n1", "n2"):
+        out[f"triangles.{k}"] = v3(getattr(tr, k))
+    out["triangles.material"] = a(tr.material)
+    out["triangles.active"] = a(tr.active)
+    if tr.clusters is not None:
+        # the cluster slots from the TPU kernel's row table: column 19
+        # marks a filled slot, column 20 holds its triangle index
+        table = a(tr.clusters.table_t)
+        c = tr.clusters.aabb.shape[0]
+        out["clusters.aabb"] = a(tr.clusters.aabb)
+        out["clusters.slots"] = np.where(table[:, 19] > 0, table[:, 20],
+                                         -1).astype(np.int32).reshape(c, -1)
     m = ds.materials
     for k in ("smoothness", "metallic", "specular", "emission_strength",
               "transmittance", "refraction_index"):
