@@ -37,8 +37,6 @@ import torch
 
 from simple_raytracer_tpu_torch.engine import Renderer, RenderOptions
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
-from simple_raytracer_tpu_torch.ops import intersect
-from simple_raytracer_tpu_torch.ops import trace as trace_mod
 from simple_raytracer_tpu_torch.ops.camera import camera_rotation
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 
@@ -119,89 +117,39 @@ RAYGEN_FLOPS = 42          # 2 uniforms, NDC, screen, rotate, normalize
 SPHERE_FLOPS = 21          # one sphere test
 PLANE_FLOPS = 14           # one plane test
 MT_FLOPS = 46              # one Moller-Trumbore test (mt_update)
-SLAB_FLOPS = 24            # one cluster box's slab test
+SLAB_FLOPS = 24            # one cluster box's slab test, without the margin
 INV_DIR_FLOPS = 3          # the reciprocal direction of the traversal
 SHADE_FLOPS = 30           # position, normal, front flip, emission
 BSDF_FLOPS = 275           # 3 normals (log, cos), 3 uniforms, mixes
 SKY_FLOPS = 54             # the gradient sky and the final add
 
 
-def kernel_flops(scene, n_rays: int, segments: list, mesh_work: list) -> float:
-    """Float operations this pass's data needs: every live ray tests each
-    active sphere and plane, every hit shades, and every hit before the
-    last bounce samples the BSDF.  Triangles: a small mesh is tested
-    whole (live rays x active triangles x MT); a clustered mesh at least
-    slab-tests every real cluster box per live ray and runs MT over the K
-    slots of every cluster whose box the ray enters before its nearest
-    hit (``mesh_work``; a lower bound, since the traversal's live t only
-    falls to that hit)."""
+def kernel_flops(scene, n_rays: int, segments: list) -> float:
+    """Float operations this pass's data needs (``segments`` from the plain
+    version: live rays, hits, triangle hits per bounce): every live ray
+    tests each active sphere and plane, every hit shades, and every hit
+    before the last bounce samples the BSDF.  Triangles: a small mesh is
+    tested whole (live rays x active triangles x MT); a clustered mesh at
+    least slab-tests every real cluster box per live ray, and each ray
+    whose nearest hit is a triangle runs MT over the K slots of that
+    triangle's cluster."""
     n_s = int(scene.spheres.active.sum())
     n_p = int(scene.planes.active.sum())
     tris = scene.triangles
     variant = tk.tri_variant(scene)
     flops = n_rays * (RAYGEN_FLOPS + SKY_FLOPS)
-    for i, (live, hits) in enumerate(segments):
+    for i, (live, hits, tri_hits) in enumerate(segments):
         flops += live * (n_s * SPHERE_FLOPS + n_p * PLANE_FLOPS)
         if variant == "small":
             flops += live * int(tris.active.sum()) * MT_FLOPS
         elif variant == "clustered":
             real = int((tris.clusters.slots[:, 0] >= 0).sum())
             flops += live * (real * SLAB_FLOPS + INV_DIR_FLOPS)
-            flops += mesh_work[i][1] * tris.clusters.k * MT_FLOPS
+            flops += tri_hits * tris.clusters.k * MT_FLOPS
         flops += hits * SHADE_FLOPS
         if i < len(segments) - 1:
             flops += hits * BSDF_FLOPS
     return float(flops)
-
-
-def boxes_entered(cl, o, d, t_hit) -> torch.Tensor:
-    """Per ray, the real cluster boxes its segment [0, t_hit] enters (the
-    slab test of csrc/trace_kernel.cu on the unwidened boxes)."""
-    real = cl.slots[:, 0] >= 0
-    lo, hi = cl.aabb[real, 0:3], cl.aabb[real, 3:6]
-    count = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
-    for r0 in range(0, o.x.shape[0], 2 ** 18):
-        sl = slice(r0, r0 + 2 ** 18)
-        t1, t2 = [], []
-        for a, (oc, dc) in enumerate(zip(o, d)):
-            inv = 1.0 / dc[sl, None]
-            t1.append((lo[None, :, a] - oc[sl, None]) * inv)
-            t2.append((hi[None, :, a] - oc[sl, None]) * inv)
-        mn = [torch.minimum(x, y) for x, y in zip(t1, t2)]
-        mx = [torch.maximum(x, y) for x, y in zip(t1, t2)]
-        near = torch.maximum(torch.maximum(mn[0], mn[1]),
-                             torch.clamp_min(mn[2], 0.0))
-        far = torch.minimum(torch.minimum(mx[0], mx[1]),
-                            torch.minimum(mx[2], t_hit[sl, None]))
-        count[sl] = (~((near > far) | (near >= 1.0e38))).sum(dim=1)
-    return count
-
-
-def counting_mesh_work(sink: list):
-    """A closest_hit for the plain version that appends, per bounce, the
-    number of live rays whose nearest hit is a triangle and, for a
-    clustered mesh, the cluster boxes live rays enter before their
-    nearest hit.  A ray dies by missing (trace_rays), so the rays that
-    missed on an earlier call are the dead ones."""
-    real = intersect.closest_hit
-    dead = []
-
-    def closest_hit(scene, o, d):
-        h = real(scene, o, d)
-        live = ~dead[0] if dead else torch.ones_like(h.hit)
-        inf = torch.full_like(o.x, float("inf"))
-        t_s = (intersect.intersect_spheres(o, d, scene.spheres)[0]
-               if scene.spheres.radius.shape[0] else inf)
-        t_p = (intersect.intersect_planes(o, d, scene.planes)[0]
-               if scene.planes.material.shape[0] else inf)
-        tri = live & h.hit & (t_s != h.t) & (t_p != h.t)
-        cl = scene.triangles.clusters
-        entered = (int(boxes_entered(cl, o, d, h.t)[live].sum())
-                   if cl is not None else 0)
-        sink.append((int(tri.sum()), entered))
-        dead[:] = [~live | ~h.hit]
-        return h
-    return closest_hit
 
 
 def step_breakdown(r: Renderer, camera, iters: int = 20) -> str:
@@ -302,13 +250,9 @@ def main() -> int:
     for n, (r, camera) in renderers.items():
         args, kw = trace_args(r, camera, 4242)
         k = torch.stack(list(tk.trace_full(*args, **kw)))
-        segments, mesh_work = [], []
-        trace_mod.closest_hit = counting_mesh_work(mesh_work)
-        try:
-            p = torch.stack(list(tk.trace_full_plain(*args, **kw,
-                                                     segments=segments)))
-        finally:
-            trace_mod.closest_hit = intersect.closest_hit
+        segments = []
+        p = torch.stack(list(tk.trace_full_plain(*args, **kw,
+                                                 segments=segments)))
         torch.cuda.synchronize()
         both = torch.isfinite(k) & torch.isfinite(p)
         same_bad = bool((torch.isfinite(k) == torch.isfinite(p)).all())
@@ -322,14 +266,12 @@ def main() -> int:
         rmse = float(d.pow(2).mean().sqrt())
         share = float(((kp - pp).abs() > 1e-3).any(0)[ok].float().mean())
         bitexact = bool(torch.equal(k[both], p[both]))
-        results[n] = dict(max_abs=max_abs, segments=segments,
-                          mesh_work=mesh_work, args=args, kw=kw,
-                          n_rays=k.shape[1])
+        results[n] = dict(max_abs=max_abs, segments=segments, args=args,
+                          kw=kw, n_rays=k.shape[1])
         say(f"[4] config {n} kernel vs plain: rmse={rmse:.3e} "
             f"share>1e-3={share:.3e} max_abs={max_abs:.3e} "
             f"bit-identical={bitexact} non-finite masks agree={same_bad} "
-            f"segments(live,hit)={segments} (mesh hits, cluster boxes "
-            f"entered)={mesh_work}  [{card}]")
+            f"segments(live,hit,triangle hit)={segments}  [{card}]")
         if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
                 and same_bad):
             fail(f"config {n}: kernel disagrees with the plain version")
@@ -378,12 +320,11 @@ def main() -> int:
                  for _ in range(5)]
         k_ms, w_ms, p_ms, step_ms = (float(np.median(v))
                                      for v in (k_all, w_all, p_all, s_all))
-        flops = kernel_flops(r.device_scene, n_rays, res["segments"],
-                             res["mesh_work"])
+        flops = kernel_flops(r.device_scene, n_rays, res["segments"])
         out_bytes = 12.0 * n_rays
         t_ops, t_bytes = flops / FP32_PEAK * 1e3, out_bytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
-        segs = sum(live for live, _ in res["segments"])
+        segs = sum(seg[0] for seg in res["segments"])
         say(f"[6] config {n} {o.width}x{o.height}: kernel {k_ms:.4f} ms/pass "
             f"({spread(k_all)}; {n_rays / k_ms / 1e3:.1f} Mrays/s primary, "
             f"{segs / k_ms / 1e3:.1f} M segments/s); with the wrapper's "

@@ -10,11 +10,11 @@
 //   - kSmallTris (bounce_kernel.py:_tris_small): at most 64 triangles, a
 //     dense Moller-Trumbore loop over a table staged in shared memory;
 //   - kClusteredTris (bounce_kernel.py:_tris_clustered): a BVH-clustered mesh
-//     of at most 8192 slots; the cluster boxes and the front-to-back order of
-//     their groups of 8 sit in shared memory, the slot table stays in global
-//     memory (read-only path), and each ray slab-tests a group's 8 boxes
-//     against its own live best t and runs MT over the K slots of each
-//     admitted cluster.
+//     of at most 8192 slots; the cluster boxes sit in shared memory, the
+//     front-to-back order of their groups of 8 comes by value in the launch
+//     parameters, the slot table stays in global memory (read-only path),
+//     and each ray slab-tests a group's 8 boxes against its own live best t
+//     and runs MT over the K slots of each admitted cluster.
 //
 // Design: one thread per ray, because the per-ray bounce loop diverges; a
 // 1-D grid of ceil(n_rays / 256) blocks, one launch for all rays.  The
@@ -22,9 +22,12 @@
 // triangle table or the cluster boxes are staged into shared memory once per
 // block.  A ray that dies leaves its loop at once, which changes no result.
 // The TPU gates a cluster for a whole 1536-ray block; here each ray gates
-// alone, on boxes the scene build widened by about 128 ulps
-// (ops/scene_types.py:widen_boxes), so a ray's f32 slab test cannot drop a
-// hit that MT finds.
+// alone, so its slab test carries a margin (kSlabMargin, see tris_clustered)
+// that only adds MT work: it covers the slab test's own rounding and MT's
+// acceptance of a ray that passes within the margin of a triangle's edge.
+// A hit that MT finds farther outside the triangle than that (a ray almost
+// parallel to its plane) can still be dropped where the dense plain version
+// keeps it; chip_smoke.py phase 4 bounds the difference.
 //
 // Bound on the H100: per-ray FP32 arithmetic (every primitive tested per
 // segment, every slot of an admitted cluster, the hash RNG, the BSDF); the
@@ -73,6 +76,10 @@ struct TraceParams {
   int32_t n_tris;         // kSmallTris: rows of the triangle table
   int32_t n_clusters;     // kClusteredTris: clusters (a multiple of 8)
   int32_t cluster_k;      // kClusteredTris: slots per cluster
+  float cluster_extent;   // kClusteredTris: largest |coordinate| of a box
+  // kClusteredTris: the groups of 8 clusters, front to back; as many as
+  // the 48 KB of boxes in shared memory allow (1536 clusters)
+  uint8_t group_order[192];
 };
 
 enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
@@ -83,6 +90,10 @@ constexpr int kBlock = 256;
 // a triangle row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5),
 // e2 (6-8), n0 n1 n2 (9-17), material (18), active (19)
 constexpr int kTriCols = 20;
+// the slab test's margin, a share of the largest coordinate magnitude it
+// meets: 2^-16 is 256 ulps, against the at most 6 ulps of rounding in
+// t = (b - o) / d
+constexpr float kSlabMargin = 0x1p-16f;
 
 // cos(2 pi y) polynomial in y^2 (ops/rng.py: COS2PI_C)
 constexpr float kCos0 = -0x1.b6e25p+0f;
@@ -323,15 +334,23 @@ __device__ __forceinline__ void mt_update(const float* q, int row, V3 o, V3 d,
 // slab-tested against the live best t (seeded with the nearest sphere or
 // plane), then MT runs over every slot of each admitted cluster.  The first
 // cluster visited wins an exact tie, the lowest slot within a cluster.
+// Each box is grown by kSlabMargin times the larger of the ray origin's and
+// the boxes' largest coordinate magnitude: in t that is `pad` times the
+// largest |1 / d|, which widens each axis's slab at least as much.  A zero
+// direction component makes pad infinite and admits every real box.
 __device__ __forceinline__ void tris_clustered(
-    const float* __restrict__ table, const float* s_box, const int* s_order,
-    const TraceParams& p, V3 o, V3 d, TriHit& best) {
+    const float* __restrict__ table, const float* s_box, const TraceParams& p,
+    V3 o, V3 d, TriHit& best) {
   const float inx = 1.0f / d.x;
   const float iny = 1.0f / d.y;
   const float inz = 1.0f / d.z;
+  const float mag = fmaxf(fmaxf(fabsf(o.x), fabsf(o.y)),
+                          fmaxf(fabsf(o.z), p.cluster_extent));
+  const float pad = kSlabMargin * mag
+                    * fmaxf(fmaxf(fabsf(inx), fabsf(iny)), fabsf(inz));
   const int n_groups = p.n_clusters / 8;
   for (int gi = 0; gi < n_groups; ++gi) {
-    const int g = s_order[gi];
+    const int g = p.group_order[gi];
     unsigned word = 0;
     for (int k = 0; k < 8; ++k) {
       const float* b = s_box + 8 * (g * 8 + k);
@@ -346,8 +365,8 @@ __device__ __forceinline__ void tris_clustered(
       const float far = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
                                 min_nan(max_nan(t1z, t2z), best.t));
       // NaN (0 * inf on a box plane) keeps the cluster; padding clusters
-      // (every plane at 3e38) fall to the near >= 1e38 term
-      if (!((near > far) || (near >= 1.0e38f))) word |= 1u << k;
+      // (every plane at 3e38) fall to the b[0] >= 1e38 term
+      if (!((near - pad > far + pad) || (b[0] >= 1.0e38f))) word |= 1u << k;
     }
     while (word) {
       const int c = g * 8 + __ffs(word) - 1;
@@ -363,15 +382,14 @@ template <int TRI>
 __global__ void __launch_bounds__(kBlock)
 trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
              const float* __restrict__ mat, const float* __restrict__ tri,
-             const float* __restrict__ box, const int* __restrict__ order,
-             float* __restrict__ out, const TraceParams p) {
+             const float* __restrict__ box, float* __restrict__ out,
+             const TraceParams p) {
   extern __shared__ float smem[];
   float* s_sph = smem;
   float* s_pln = s_sph + 8 * p.n_spheres;
   float* s_mat = s_pln + 8 * p.n_planes;
   float* s_tri = s_mat + 16 * p.n_materials;   // kSmallTris
   float* s_box = s_tri;                        // kClusteredTris
-  int* s_order = (int*)(s_box + 8 * p.n_clusters);
   for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
     s_sph[k] = sph[k];
   for (int k = threadIdx.x; k < 8 * p.n_planes; k += blockDim.x)
@@ -385,8 +403,6 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
   if (TRI == kClusteredTris) {
     for (int k = threadIdx.x; k < 8 * p.n_clusters; k += blockDim.x)
       s_box[k] = box[k];
-    for (int k = threadIdx.x; k < p.n_clusters / 8; k += blockDim.x)
-      s_order[k] = order[k];
   }
   __syncthreads();
 
@@ -471,7 +487,7 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
     }
     if (TRI == kClusteredTris) {
       th.t = min_nan(t_s, t_p);
-      tris_clustered(tri, s_box, s_order, p, o, d, th);
+      tris_clustered(tri, s_box, p, o, d, th);
       if (th.row >= 0) t_t = th.t;
     }
     const float t = min_nan(min_nan(t_s, t_p), t_t);  // never NaN
@@ -567,8 +583,8 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
 
 extern "C" int srt_trace_launch(const float* sph, const float* pln,
                                 const float* mat, const float* tri,
-                                const float* box, const int* order,
-                                float* out, TraceParams p, void* stream) {
+                                const float* box, float* out, TraceParams p,
+                                void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
   const int blocks = (p.n_rays + kBlock - 1) / kBlock;
   size_t words = 8 * (size_t)p.n_spheres + 8 * (size_t)p.n_planes
@@ -577,18 +593,20 @@ extern "C" int srt_trace_launch(const float* sph, const float* pln,
   switch (p.tri_mode) {
     case kNoTris:
       trace_kernel<kNoTris><<<blocks, kBlock, sizeof(float) * words, st>>>(
-          sph, pln, mat, tri, box, order, out, p);
+          sph, pln, mat, tri, box, out, p);
       break;
     case kSmallTris:
       words += kTriCols * (size_t)p.n_tris;
       trace_kernel<kSmallTris><<<blocks, kBlock, sizeof(float) * words, st>>>(
-          sph, pln, mat, tri, box, order, out, p);
+          sph, pln, mat, tri, box, out, p);
       break;
     case kClusteredTris:
-      words += 8 * (size_t)p.n_clusters + (size_t)p.n_clusters / 8;
+      if (p.n_clusters > 8 * (int)sizeof(p.group_order))
+        return (int)cudaErrorInvalidValue;
+      words += 8 * (size_t)p.n_clusters;
       trace_kernel<kClusteredTris>
           <<<blocks, kBlock, sizeof(float) * words, st>>>(
-              sph, pln, mat, tri, box, order, out, p);
+              sph, pln, mat, tri, box, out, p);
       break;
     default:
       return (int)cudaErrorInvalidValue;

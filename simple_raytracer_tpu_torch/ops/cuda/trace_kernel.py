@@ -48,6 +48,9 @@ MAX_SHARED_BYTES = 48 * 1024
 SMALL_TRIS_MAX = 64
 # the kernel's triangle variants, as the CUDA source's TriMode
 TRI_MODES = {"none": 0, "small": 1, "clustered": 2}
+# room for the group order in TraceParams: groups of 8 clusters whose
+# boxes (8 f32 each) fill MAX_SHARED_BYTES
+MAX_GROUPS = MAX_SHARED_BYTES // (8 * 8 * 4)
 
 
 class TraceParams(ctypes.Structure):
@@ -81,7 +84,13 @@ class TraceParams(ctypes.Structure):
         ("n_tris", ctypes.c_int32),
         ("n_clusters", ctypes.c_int32),
         ("cluster_k", ctypes.c_int32),
+        ("cluster_extent", ctypes.c_float),
+        ("group_order", ctypes.c_uint8 * MAX_GROUPS),
     ]
+
+
+# srt_trace_launch(sph, pln, mat, tri, box, out, params, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 6 + [TraceParams, ctypes.c_void_p]
 
 
 class TraceKernel:
@@ -128,7 +137,7 @@ class TraceKernel:
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         fn = lib.srt_trace_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [TraceParams, ctypes.c_void_p]
+        fn.argtypes = LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
         lib.srt_error_string.argtypes = [ctypes.c_int]
         lib.srt_error_string.restype = ctypes.c_char_p
@@ -227,7 +236,7 @@ def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
 class Prepared:
     """One pass's launch, checked and packed: tables and parameters."""
     tables: tuple            # spheres, planes, materials (device f32)
-    tri_tables: tuple        # triangle rows, kernel boxes, group order
+    tri_tables: tuple        # triangle rows, cluster boxes
     variant: str             # tri_variant
     params: TraceParams
     n_rays: int
@@ -253,7 +262,7 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
 
     sph, pln, mat = prim_tables(scene)
     tris = scene.triangles
-    tri, box, order = tris.table, None, None
+    tri, box = tris.table, None
     shared = sph.numel() + pln.numel() + mat.numel()
     if variant == "small":
         shared += tri.numel()
@@ -262,9 +271,8 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
         if cl.slots.shape[0] % 8:
             raise ValueError("trace kernel: the cluster count must be a "
                              "multiple of 8")
-        box = cl.kernel_aabb
-        order = torch.from_numpy(group_order(cl, position)).to(device)
-        shared += box.numel() + order.numel()
+        box = cl.aabb
+        shared += box.numel()
     for name, t in (("spheres", sph), ("planes", pln), ("materials", mat),
                     ("triangles", tri), ("cluster boxes", box)):
         if t is not None and (t.device != device or t.dtype != torch.float32
@@ -300,9 +308,12 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     if variant == "small":
         p.n_tris = tri.shape[0]
     elif variant == "clustered":
-        p.n_clusters, p.cluster_k = tris.clusters.slots.shape
-    return Prepared((sph, pln, mat), (tri, box, order), variant, p, n_rays,
-                    device)
+        cl = tris.clusters
+        p.n_clusters, p.cluster_k = cl.slots.shape
+        p.cluster_extent = cl.extent
+        order = group_order(cl, position)
+        p.group_order[:order.shape[0]] = order.tolist()
+    return Prepared((sph, pln, mat), (tri, box), variant, p, n_rays, device)
 
 
 def launch(prep: Prepared, out: torch.Tensor = None) -> Vec3:

@@ -20,9 +20,9 @@ import torch
 from .scene_types import DeviceScene, Planes, Spheres, Triangles
 from .vec import Vec3, dot, normalize, sqrt, where as vwhere
 
-# rays x triangles per chunk of the dense triangle loop: on the CPU a
-# chunk's f32 intermediates (16 MB each) stay near the caches, on a card
-# (256 MB each) there are fewer, larger launches
+# rays x triangles per chunk of the dense triangle loop, by device type:
+# on the CPU a chunk's f32 intermediates (16 MB each) stay near the
+# caches, on a card (256 MB each) there are fewer, larger launches
 TRI_CHUNK_ELEMS = {"cpu": 2 ** 22, "cuda": 2 ** 26}
 
 
@@ -34,6 +34,7 @@ class Hit(NamedTuple):
     normal: Vec3             # unit, flipped toward the ray
     front: torch.Tensor      # bool: the outside was hit (before the flip)
     material: torch.Tensor   # int64 material index (meaningless on a miss)
+    triangle: torch.Tensor   # bool: the nearest hit is a triangle
 
 
 def _rays(v: Vec3) -> Vec3:
@@ -72,15 +73,13 @@ def intersect_planes(o: Vec3, d: Vec3, p: Planes):
     return torch.min(torch.where(valid, t, math.inf), dim=1)
 
 
-def intersect_triangles(o: Vec3, d: Vec3, tr: Triangles,
-                        max_elems: int = None):
+def intersect_triangles(o: Vec3, d: Vec3, tr: Triangles):
     """(R,) rays x (Nt,) triangles -> (t_best, idx_best, u, v): MT with the
     a == 0 test, u in [0, 1], v >= 0, u + v <= 1 and t > 0 strictly; the
     first index wins an exact tie, and (u, v) are MT's at the winner.  The
-    triangles are taken in chunks of at most ``max_elems`` ray-triangle
-    pairs (by default TRI_CHUNK_ELEMS of the device)."""
-    if max_elems is None:
-        max_elems = TRI_CHUNK_ELEMS.get(o.x.device.type, 2 ** 22)
+    triangles are taken in chunks of at most TRI_CHUNK_ELEMS ray-triangle
+    pairs."""
+    max_elems = TRI_CHUNK_ELEMS.get(o.x.device.type, 2 ** 22)
     n_rays, n = o.x.shape[0], tr.material.shape[0]
     e1, e2 = tr.v1 - tr.v0, tr.v2 - tr.v0
     ro, rd = _rays(o), _rays(d)
@@ -167,7 +166,8 @@ def closest_hit(scene: DeviceScene, o: Vec3, d: Vec3) -> Hit:
 
     normal = vwhere(is_s, n_sph, vwhere(is_p, n_pln, n_tri))
     material = torch.where(is_s, m_sph, torch.where(is_p, m_pln, m_tri))
+    triangle = hit & ~is_s & ~is_p
     front = dot(normal, d) < 0.0
     normal = normal * torch.where(front, 1.0, -1.0)
     return Hit(hit=hit, t=t, position=position, normal=normal, front=front,
-               material=material)
+               material=material, triangle=triangle)

@@ -44,11 +44,10 @@ class Clusters:
     aabb: torch.Tensor       # (C, 8) f32 [min.xyz, max.xyz, 0, 0]; the
                              # padding clusters have every plane at 3e38
     slots: torch.Tensor      # (C, K) int64 triangle index, -1 = empty slot
-    # the kernel's copy of ``aabb``, each real box widened by a few ulps so
-    # that a ray's own f32 slab test never drops a hit that MT finds
-    kernel_aabb: torch.Tensor
     centers: np.ndarray      # (C, 3) f32 box centers, on the host: the
                              # wrapper orders the groups by them per pass
+    extent: float            # the largest |coordinate| of a real box: the
+                             # kernel scales its slab-test margin by it
 
     @property
     def k(self) -> int:
@@ -123,9 +122,6 @@ TRI_COLS = 20
 # the largest cluster table (C * K slots) the whole-trace kernel serves; it
 # also sets the scene build's choice of K (the TPU's VMEM_TABLE_MAX_SLOTS)
 TABLE_MAX_SLOTS = 8192
-# a kernel box is widened by this share of its largest coordinate
-# (2^-16: about 128 ulps), so a slab test never misses a hit by rounding
-BOX_WIDEN = 2.0 ** -16
 
 
 def tri_table(tris: dict, slots: Optional[np.ndarray] = None) -> np.ndarray:
@@ -143,18 +139,6 @@ def tri_table(tris: dict, slots: Optional[np.ndarray] = None) -> np.ndarray:
     flat = slots.reshape(-1)
     out = np.zeros((flat.shape[0], TRI_COLS), np.float32)
     out[flat >= 0] = rows[flat[flat >= 0]]
-    return out
-
-
-def widen_boxes(aabb: np.ndarray) -> np.ndarray:
-    """The kernel's boxes: each real box grown on every side by BOX_WIDEN
-    times its largest coordinate magnitude; padding boxes (3e38) stay."""
-    out = np.array(aabb, np.float32)
-    real = out[:, 0] < 1.0e38
-    mag = np.abs(out[real, 0:6]).max(axis=1, keepdims=True)
-    pad = np.float32(BOX_WIDEN) * np.maximum(mag, np.float32(1e-30))
-    out[real, 0:3] -= pad
-    out[real, 3:6] += pad
     return out
 
 
@@ -223,9 +207,10 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
                              f"{slots.shape} over {n_tris} triangles")
         with np.errstate(over="ignore"):   # padding boxes: inf centers
             centers = (aabb[:, 0:3] + aabb[:, 3:6]) * np.float32(0.5)
-        clusters = Clusters(aabb=t(aabb), slots=t(slots),
-                            kernel_aabb=t(widen_boxes(aabb)),
-                            centers=centers)
+        real = aabb[:, 0] < 1.0e38
+        extent = float(np.abs(aabb[real, 0:6]).max()) if real.any() else 0.0
+        clusters = Clusters(aabb=t(aabb), slots=t(slots), centers=centers,
+                            extent=extent)
     triangles = Triangles(
         **{k: t(tris[k]) for k in TRI_VECTORS + ("material", "active")},
         table=t(tri_table(tris, slots)), clusters=clusters)

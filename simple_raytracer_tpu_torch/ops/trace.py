@@ -40,8 +40,9 @@ def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
                num_bounces: int, segments: Optional[list] = None) -> Vec3:
     """Trace the (R,) ray batch to completion; returns per-ray radiance.
 
-    ``segments``, when given, receives one (live rays, rays that hit) pair
-    per bounce: the work the kernel does, which depends on the data."""
+    ``segments``, when given, receives one (live rays, rays that hit,
+    rays whose nearest hit is a triangle) triple per bounce: the work the
+    kernel does, which depends on the data."""
     zeros = torch.zeros_like(o.x)
     ones = torch.ones_like(o.x)
     color = Vec3(zeros, zeros, zeros)
@@ -54,7 +55,8 @@ def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
         hit = closest_hit(scene, o, d)
         h_alive = alive & hit.hit
         if segments is not None:
-            segments.append((int(alive.sum()), int(h_alive.sum())))
+            segments.append((int(alive.sum()), int(h_alive.sum()),
+                             int((h_alive & hit.triangle).sum())))
         m_alive = alive & ~hit.hit
         sky_mask = vwhere(m_alive, mask, sky_mask)
         sky_dir = vwhere(m_alive, d, sky_dir)

@@ -126,15 +126,15 @@ def test_small_triangles_match_tpu_kernel():
                                   np.asarray(jm)[0][hit].astype(np.int64))
 
 
-def test_triangle_chunks_compose():
+def test_triangle_chunks_compose(monkeypatch):
     """The dense triangle loop gives the same winners, (u, v) included,
     whatever its chunk size: the first minimum wins across chunks."""
     _, ts = _scenes(4)
     o, d = _mesh_rays(ts, 500, 7)
     whole = tint.intersect_triangles(tvec(o), tvec(d), ts.triangles)
     for chunk in (1, 7, 256):
-        part = tint.intersect_triangles(tvec(o), tvec(d), ts.triangles,
-                                        max_elems=500 * chunk)
+        monkeypatch.setitem(tint.TRI_CHUNK_ELEMS, "cpu", 500 * chunk)
+        part = tint.intersect_triangles(tvec(o), tvec(d), ts.triangles)
         for a, b in zip(whole, part):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
 
@@ -158,3 +158,8 @@ def test_closest_hit_matches_dense_meshes(n_cfg):
                                   th.material.numpy()[hit])
     np.testing.assert_allclose(to_np(th.normal)[hit],
                                to_np(jh.normal)[hit], rtol=0, atol=1e-4)
+    # the triangle flag marks the hits whose t is the nearest triangle's
+    tri = th.triangle.numpy()
+    t_tri = tint.intersect_triangles(tvec(o), tvec(d), ts.triangles)[0]
+    assert tri.any() and not (tri & ~hit).any()
+    np.testing.assert_array_equal(th.t.numpy()[tri], t_tri.numpy()[tri])

@@ -80,7 +80,7 @@ def test_wrapper_dispatch():
     np.testing.assert_array_equal(to_np(a), to_np(b))
     live = [s[0] for s in segments]
     assert live[0] == 64 * 16 * 2 and live == sorted(live, reverse=True)
-    assert all(hit <= l for l, hit in segments)
+    assert all(tri == 0 and hit <= l for l, hit, tri in segments)
     meta = from_numpy(scene.arrays(), "meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tk.trace_full(meta, *args[1:], **kw)
@@ -103,7 +103,8 @@ def test_tables_match_tpu_kernel_tables():
 def test_cluster_tables_and_order_match_tpu_kernel(n):
     """The slot table equals the TPU row table's first 20 columns on every
     filled slot (an empty slot is all zero, inactive); the kernel's boxes
-    contain the TPU boxes; the group order is the TPU kernel's."""
+    are the TPU boxes, and its slab margin scales with their largest real
+    coordinate; the group order is the TPU kernel's."""
     ds, ts, camera, _ = _scene(n)
     cl, tcl = ds.triangles.clusters, ts.triangles.clusters
     jt, tt = np.asarray(cl.table_t)[:, :20], ts.triangles.table.numpy()
@@ -111,11 +112,9 @@ def test_cluster_tables_and_order_match_tpu_kernel(n):
     np.testing.assert_array_equal(tt[filled], jt[filled])
     assert not tt[~filled].any()
     aabb = np.asarray(cl.aabb)
-    box = tcl.kernel_aabb.numpy()
+    np.testing.assert_array_equal(tcl.aabb.numpy(), aabb)
     real = aabb[:, 0] < 1e38
-    assert (box[real, :3] < aabb[real, :3]).all()
-    assert (box[real, 3:6] > aabb[real, 3:6]).all()
-    np.testing.assert_array_equal(box[~real], aabb[~real])
+    assert tcl.extent == np.abs(aabb[real, :6]).max() > 0
     for pos in (camera.position, (0.0, 5.0, -10.0), (3.0, 0.0, -2.8)):
         cam = jnp.asarray(pos, jnp.float32)
         centers = (cl.aabb[:, 0:3] + cl.aabb[:, 3:6]) * 0.5
@@ -160,12 +159,16 @@ def test_envelope(monkeypatch):
 
 def test_launch_struct_matches_cuda_source():
     """ctypes passes TraceParams by value: its fields must be the CUDA
-    struct's, in order, with the same types and sizes."""
+    struct's, in order, with the same types and sizes; the launch takes
+    as many pointers as the wrapper passes."""
     src = Path(tk.SOURCE).read_text()
     body = re.search(r"struct TraceParams \{(.*?)\};", src, re.S).group(1)
-    fields = re.findall(r"^\s*(float|int32_t|uint32_t) (\w+)(?:\[(\d+)\])?;",
-                        body, re.M)
-    ctypes_of = {"float": "c_float", "int32_t": "c_int", "uint32_t": "c_uint"}
+    fields = re.findall(
+        r"^\s*(float|int32_t|uint32_t|uint8_t) (\w+)(?:\[(\d+)\])?;",
+        body, re.M)
+    ctypes_of = {"float": "c_float", "int32_t": "c_int", "uint32_t": "c_uint",
+                 "uint8_t": "c_ubyte"}
+    size_of = {"float": 4, "int32_t": 4, "uint32_t": 4, "uint8_t": 1}
     got = []
     for name, ct in tk.TraceParams._fields_:
         length = getattr(ct, "_length_", None)
@@ -173,5 +176,8 @@ def test_launch_struct_matches_cuda_source():
         got.append((base.__name__, name, str(length) if length else ""))
     want = [(ctypes_of[t], n, k) for t, n, k in fields]
     assert got == want
-    n_words = sum(int(k or 1) for _, _, k in fields)
-    assert ctypes.sizeof(tk.TraceParams) == 4 * n_words
+    n_bytes = sum(size_of[t] * int(k or 1) for t, _, k in fields)
+    assert ctypes.sizeof(tk.TraceParams) == -(-n_bytes // 4) * 4
+    sig = re.search(r"int srt_trace_launch\((.*?)\)", src, re.S).group(1)
+    assert sig.count("*") == tk.LAUNCH_ARGTYPES.count(ctypes.c_void_p)
+    assert tk.LAUNCH_ARGTYPES[-2] is tk.TraceParams
