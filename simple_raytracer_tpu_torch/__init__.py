@@ -3,9 +3,12 @@ CUDA, for an NVIDIA H100.
 
 A port of ``simple_raytracer_tpu`` (JAX on a TPU), which stays beside it
 as the reference.  This package imports neither JAX nor the JAX package:
-it keeps its own copies of the host models.  The whole trace of a pass
-runs as one hand-written CUDA kernel (``csrc/trace_kernel.cu``) on a CUDA
-device, and as its plain PyTorch version on the CPU.
+it keeps its own copies of the host models.  On a CUDA device a pass runs
+as one hand-written whole-trace kernel (``csrc/trace_kernel.cu``) for the
+scenes it serves, and otherwise as the split per-bounce path, whose
+triangle hits come from the hand-written BVH kernel
+(``csrc/bvh_kernel.cu``); on the CPU each kernel's plain PyTorch version
+runs instead.
 """
 
 from .engine import Renderer, RenderOptions

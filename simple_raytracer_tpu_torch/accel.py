@@ -5,7 +5,8 @@ NumPy median-split builder: the C++ SAH builder the JAX package prefers
 (``native/libsrt_native.so``) is not bound here, so a cluster layout
 equals the JAX package's only when that package uses its NumPy builder
 too.  The build runs on the host at scene build; the traversal runs in
-the whole-trace kernel (``csrc/trace_kernel.cu``).
+the whole-trace kernel (``csrc/trace_kernel.cu``) or, on the split
+per-bounce path, in the BVH kernel (``csrc/bvh_kernel.cu``).
 
 BVH layout:
   nodes:  (N, 8) f32 -- [min.xyz, max.xyz, pad, pad], DFS preorder

@@ -20,7 +20,8 @@
 // 1-D grid of ceil(n_rays / 256) blocks, one launch for all rays.  The
 // sphere, plane and material tables (a few hundred bytes) and the small
 // triangle table or the cluster boxes are staged into shared memory once per
-// block.  A ray that dies leaves its loop at once, which changes no result.
+// block; above the default 48 KB the launch opts in to more, up to the
+// device's limit (227 KB on an H100), which the wrapper checks first.  A ray that dies leaves its loop at once, which changes no result.
 // The TPU gates a cluster for a whole 1536-ray block; here each ray gates
 // alone, so its slab test carries a margin (kSlabMargin, see tris_clustered)
 // that only adds MT work: it covers the slab test's own rounding and MT's
@@ -47,6 +48,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// the wrapper derives it from the parameter block (ops/cuda/trace_kernel.py:
+// MAX_GROUPS) and passes it with -D
+#ifndef SRT_MAX_GROUPS
+#error "SRT_MAX_GROUPS must be defined"
+#endif
 
 struct TraceParams {
   float rot[9];           // camera rotation, row-major
@@ -78,9 +85,14 @@ struct TraceParams {
   int32_t cluster_k;      // kClusteredTris: slots per cluster
   float cluster_extent;   // kClusteredTris: largest |coordinate| of a box
   // kClusteredTris: the groups of 8 clusters, front to back; as many as
-  // the 48 KB of boxes in shared memory allow (1536 clusters)
-  uint8_t group_order[192];
+  // the parameter block holds beside the rest
+  uint16_t group_order[SRT_MAX_GROUPS];
 };
+
+// the launch's parameters: 6 pointers and TraceParams, within the 4 KB that
+// a kernel takes on every architecture
+static_assert(6 * sizeof(void*) + sizeof(TraceParams) <= 4096,
+              "TraceParams overflows the kernel parameter block");
 
 enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
 
@@ -579,6 +591,25 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
   out[2 * p.n_rays + g] = color.z;
 }
 
+// launch one variant, opting in to more than the default dynamic shared
+// memory when its tables need it
+template <int TRI>
+cudaError_t launch_variant(int blocks, size_t bytes, cudaStream_t st,
+                           const float* sph, const float* pln,
+                           const float* mat, const float* tri,
+                           const float* box, float* out,
+                           const TraceParams& p) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        trace_kernel<TRI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return e;
+  }
+  trace_kernel<TRI><<<blocks, kBlock, bytes, st>>>(sph, pln, mat, tri, box,
+                                                    out, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int srt_trace_launch(const float* sph, const float* pln,
@@ -592,26 +623,28 @@ extern "C" int srt_trace_launch(const float* sph, const float* pln,
   cudaStream_t st = (cudaStream_t)stream;
   switch (p.tri_mode) {
     case kNoTris:
-      trace_kernel<kNoTris><<<blocks, kBlock, sizeof(float) * words, st>>>(
-          sph, pln, mat, tri, box, out, p);
-      break;
+      return (int)launch_variant<kNoTris>(blocks, sizeof(float) * words, st,
+                                          sph, pln, mat, tri, box, out, p);
     case kSmallTris:
       words += kTriCols * (size_t)p.n_tris;
-      trace_kernel<kSmallTris><<<blocks, kBlock, sizeof(float) * words, st>>>(
-          sph, pln, mat, tri, box, out, p);
-      break;
+      return (int)launch_variant<kSmallTris>(blocks, sizeof(float) * words,
+                                             st, sph, pln, mat, tri, box, out,
+                                             p);
     case kClusteredTris:
-      if (p.n_clusters > 8 * (int)sizeof(p.group_order))
+      if (p.n_clusters > 8 * SRT_MAX_GROUPS)
         return (int)cudaErrorInvalidValue;
       words += 8 * (size_t)p.n_clusters;
-      trace_kernel<kClusteredTris>
-          <<<blocks, kBlock, sizeof(float) * words, st>>>(
-              sph, pln, mat, tri, box, out, p);
-      break;
+      return (int)launch_variant<kClusteredTris>(
+          blocks, sizeof(float) * words, st, sph, pln, mat, tri, box, out, p);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory a block of the device may opt in to
+extern "C" int srt_shared_optin(int device, int* bytes) {
+  return (int)cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
 
 extern "C" const char* srt_error_string(int err) {

@@ -19,7 +19,7 @@ from .models.scene import Scene
 from .ops.camera import untile_image
 from .ops.scene_types import DeviceScene
 from .ops.tonemap import tonemap_u8
-from .ops.trace import render_pass
+from .ops.trace import check_tri_backend, render_pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +33,14 @@ class RenderOptions:
     # screen-tile ray order (th, tw); None = row-major; "auto" tiles 8x64
     # when the image divides evenly.  A permutation: results are the same.
     ray_tile: object = "auto"
+    # "auto": the whole-trace kernel for the scenes it serves, the split
+    # per-bounce path for the others; "bvh": the split path for every
+    # scene.  The JAX package's other values raise (ops/trace.py:
+    # TRI_BACKENDS_TO_PORT).
+    tri_backend: str = "auto"
+
+    def __post_init__(self):
+        check_tri_backend(self.tri_backend)
 
 
 def _resolve_ray_tile(ray_tile, rows: int, width: int):
@@ -118,7 +126,8 @@ class Renderer:
             self._device_scene, camera.state(o.width / o.height),
             self._canvas, time, width=o.width, height=o.height,
             num_samples=o.num_samples, num_bounces=o.num_bounces,
-            ray_tile=self._tile, canvas_tiled=self._tile is not None)
+            ray_tile=self._tile, canvas_tiled=self._tile is not None,
+            tri_backend=o.tri_backend)
         self.num_steps += 1
 
     def render(self, camera: Camera, num_steps: int = 1,
@@ -141,21 +150,24 @@ class Renderer:
     def benchmark_step(self, camera: Camera, iters: int = 10,
                        warmup: int = 2) -> dict:
         """Steady-state time of one progressive pass on the card, from CUDA
-        events around ``iters`` passes after ``warmup`` passes."""
+        events around ``iters`` passes after ``warmup`` passes.  The passes
+        run on a scratch canvas: the accumulation state (canvas and step
+        count) is left as it was, as in the JAX Renderer."""
         if self.device.type != "cuda":
             raise RuntimeError("benchmark_step times the card; this "
                                f"renderer is on {self.device}")
-        for _ in range(warmup):
-            self.step(camera)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.device(self.device):
-            start.record()
-            for _ in range(iters):
-                self.step(camera)
-            end.record()
-            end.synchronize()
-        dt = start.elapsed_time(end) / 1e3 / iters
+
+        def cuda_seconds(run):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.device(self.device):
+                start.record()
+                run()
+                end.record()
+                end.synchronize()
+            return start.elapsed_time(end) / 1e3
+
+        dt = self._time_passes(camera, iters, warmup, cuda_seconds) / iters
         o = self.options
         segments = o.width * o.height * o.num_samples * o.num_bounces
         return {
@@ -165,3 +177,20 @@ class Renderer:
             "mrays_per_second": segments / dt / 1e6,
             "spp_per_second": o.num_samples / dt,
         }
+
+    def _time_passes(self, camera: Camera, iters: int, warmup: int,
+                     seconds) -> float:
+        """``seconds(run)`` of ``iters`` passes after ``warmup`` passes, on
+        a scratch canvas; the canvas and the step count are restored."""
+        canvas, num_steps = self._canvas, self.num_steps
+        self._canvas = torch.zeros_like(canvas)
+        try:
+            for _ in range(warmup):
+                self.step(camera)
+
+            def run():
+                for _ in range(iters):
+                    self.step(camera)
+            return seconds(run)
+        finally:
+            self._canvas, self.num_steps = canvas, num_steps

@@ -1,14 +1,15 @@
-"""The preset scenes of the port: configs 1 to 5.
+"""The preset scenes of the port: configs 1 to 6.
 
-Copies of ``config1_red_green`` to ``config5_two_meshes`` from
+Copies of ``config1_red_green`` to ``config6_large_mesh`` from
 ``simple_raytracer_tpu.models.presets``.  Each builder returns
 ``(scene, camera, options)``.  The mesh configs use the procedural
-``organic_blob``; loading a model file, a texture skybox and the large
-meshes of configs 6 and 7 are later slices.
+``organic_blob``; loading a model file, a texture skybox and config 7's
+1.31M-triangle mesh are later slices.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 from ..engine import RenderOptions
@@ -73,18 +74,40 @@ def config2_four_spheres(width: int = 960, height: int = 540) -> tuple:
     return scene, camera, options
 
 
+# where the JAX package looks for the reference application's skybox
+# texture when SRT_REFERENCE_SKYBOX is unset (models/showcase.py:
+# REFERENCE_SKYBOX); it is not part of this repository
+REFERENCE_SKYBOX = os.path.join(os.sep, "root", "reference", "assets",
+                                "skybox.png")
+
+
+def reference_skybox_path() -> Optional[str]:
+    """The reference skybox texture config 3's "auto" would load, as the
+    JAX package finds it (``load_reference_skybox``), or None."""
+    path = os.environ.get("SRT_REFERENCE_SKYBOX", REFERENCE_SKYBOX)
+    return path if os.path.exists(path) else None
+
+
 def config3_skybox_emissive(width: int = 960, height: int = 540,
                             skybox="auto") -> tuple:
     """Environment lighting + an emissive area light, 8-bounce.
 
-    ``skybox`` is "auto" or "gradient": both give the analytic gradient
-    sky (the reference's texture is not part of this repository, so
-    "auto" finds none).  An (H, W, 3) texture is kept on the scene, whose
-    build then raises: texture skyboxes are a later slice."""
+    ``skybox="gradient"`` gives the analytic gradient sky.  "auto" gives
+    it too when the reference skybox texture is absent; when it is there
+    (``reference_skybox_path``), the JAX package renders with it, which
+    the port cannot yet, so "auto" raises, as an explicit texture does.
+    An (H, W, 3) texture is kept on the scene, whose build then raises:
+    texture skyboxes are a later slice (ROADMAP Queue A 3)."""
     scene = Scene()
     if isinstance(skybox, str):
         if skybox not in ("auto", "gradient"):
             raise ValueError(f"unknown skybox mode {skybox!r}")
+        found = reference_skybox_path() if skybox == "auto" else None
+        if found is not None:
+            raise NotImplementedError(
+                f"texture skybox ({found}, which config 3's \"auto\" "
+                "loads): a later slice (ROADMAP Queue A 3); pass "
+                "skybox=\"gradient\"")
     elif skybox is not None:
         scene.skybox = skybox
     scene.add_plane((0, -1, 0), (0, 1, 0), material=0)
@@ -152,10 +175,30 @@ def config5_two_meshes(width: int = 960, height: int = 540,
     return scene, camera, options
 
 
+def config6_large_mesh(width: int = 960, height: int = 540,
+                       mesh_path: Optional[str] = None,
+                       subdivisions: int = 6) -> tuple:
+    """Large-mesh stress config: one 81,920-triangle organic sculpt on a
+    ground plane, beyond the whole-trace kernel's table: it renders
+    through the split per-bounce path and the BVH kernel."""
+    scene = Scene()
+    scene.add_plane((0, -1.2, 0), (0, 1, 0), material=0)
+    m = scene.add_material(
+        Material(color=(0.8, 0.7, 0.6), smoothness=0.3), "Clay")
+    span = _add_mesh(scene, mesh_path, subdivisions=subdivisions)
+    scene.add_model(span, material=m,
+                    transform=transform_trs((0, 0, -2.5)))
+    camera = Camera(position=(0.0, 0.3, 2.5))
+    options = RenderOptions(width=width, height=height, num_samples=2,
+                            num_bounces=6)
+    return scene, camera, options
+
+
 CONFIGS = {
     1: config1_red_green,
     2: config2_four_spheres,
     3: config3_skybox_emissive,
     4: config4_mesh_glass,
     5: config5_two_meshes,
+    6: config6_large_mesh,
 }

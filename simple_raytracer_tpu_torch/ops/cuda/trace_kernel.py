@@ -7,26 +7,22 @@ evaluated in the kernel, including its two triangle forms: ``_tris_small``
 (a dense loop over at most ``SMALL_TRIS_MAX`` triangles) and
 ``_tris_clustered`` (a BVH-clustered mesh of at most ``TABLE_MAX_SLOTS``
 slots).  Its plain PyTorch version, ``trace_full_plain``, is
-``generate_rays`` followed by ``trace_rays``.
+``generate_rays`` followed by ``trace_rays`` in its whole-trace form
+(triangles shaded at MT's (u, v)).
 
 ``trace_full`` takes the plain version only for a scene on the CPU.  For
 a scene on a CUDA device it launches the kernel or raises: there is no
 fallback, and a mesh outside the kernel's envelope (see ``tri_variant``)
-raises too.  The kernel is built on first use with ``nvcc`` into a shared
-library with a C interface under ``build/srt_torch_kernels/`` (keyed on a
-hash of the source) and bound with ``ctypes``.
+raises too; ``ops/trace.render_pass`` sends such scenes to the split
+per-bounce path instead.  The tables sit in shared memory, and the launch
+opts in to more than the default 48 KB, up to the device's limit.  The
+kernel is built on first use (``ops/cuda/build.py``).
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
+import functools
 
 import numpy as np
 import torch
@@ -34,28 +30,25 @@ import torch
 from ..camera import generate_rays
 from ..scene_types import TABLE_MAX_SLOTS, Clusters, DeviceScene
 from ..vec import Vec3
+from .build import PACKAGE_DIR, Kernel
 
-PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE = PACKAGE_DIR / "csrc" / "trace_kernel.cu"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "srt_torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 BLOCK = 256
-MAX_SHARED_BYTES = 48 * 1024
+# dynamic shared memory a block gets without opting in; above it the
+# launch opts in, up to the device's limit (227 KB on an H100)
+DEFAULT_SHARED_BYTES = 48 * 1024
 # meshes of at most this many triangles (padded) and no clusters take the
 # dense in-kernel loop (bounce_kernel.SMALL_TRIS_MAX)
 SMALL_TRIS_MAX = 64
 # the kernel's triangle variants, as the CUDA source's TriMode
 TRI_MODES = {"none": 0, "small": 1, "clustered": 2}
-# room for the group order in TraceParams: groups of 8 clusters whose
-# boxes (8 f32 each) fill MAX_SHARED_BYTES
-MAX_GROUPS = MAX_SHARED_BYTES // (8 * 8 * 4)
+# bytes of parameters a kernel takes on every architecture; the launch
+# passes 6 pointers beside TraceParams
+PARAM_LIMIT_BYTES = 4096
+LAUNCH_POINTERS = 6
 
 
-class TraceParams(ctypes.Structure):
-    """By-value launch parameters; the layout of ``TraceParams`` in the
-    CUDA source."""
+class _TraceParamsHead(ctypes.Structure):
     _fields_ = [
         ("rot", ctypes.c_float * 9),
         ("cam_pos", ctypes.c_float * 3),
@@ -85,66 +78,56 @@ class TraceParams(ctypes.Structure):
         ("n_clusters", ctypes.c_int32),
         ("cluster_k", ctypes.c_int32),
         ("cluster_extent", ctypes.c_float),
-        ("group_order", ctypes.c_uint8 * MAX_GROUPS),
+    ]
+
+
+# the groups of 8 clusters whose order fits the parameter block, as
+# uint16 entries (an even count keeps the struct's size a multiple of 4)
+MAX_GROUPS = (PARAM_LIMIT_BYTES - 8 * LAUNCH_POINTERS
+              - ctypes.sizeof(_TraceParamsHead)) // 4 * 2
+
+
+class TraceParams(ctypes.Structure):
+    """By-value launch parameters; the layout of ``TraceParams`` in the
+    CUDA source (which takes MAX_GROUPS as SRT_MAX_GROUPS)."""
+    _fields_ = _TraceParamsHead._fields_ + [
+        ("group_order", ctypes.c_uint16 * MAX_GROUPS),
     ]
 
 
 # srt_trace_launch(sph, pln, mat, tri, box, out, params, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 6 + [TraceParams, ctypes.c_void_p]
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * LAUNCH_POINTERS
+                   + [TraceParams, ctypes.c_void_p])
 
 
-class TraceKernel:
-    """The built library, nvcc's output, and counts of launches: in all,
-    and for each triangle variant (``variant_launches``)."""
-
-    def __init__(self):
-        self.launches = 0
-        self.variant_launches = collections.Counter()
-        self.build_log = ""
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def reset_counts(self) -> None:
-        self.launches = 0
-        self.variant_launches.clear()
-
-    def library(self):
-        """Build (once per source hash) and load the shared library."""
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._build()
-            return self._lib
-
-    def _build(self):
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-        out = BUILD_DIR / f"trace_kernel-{digest}.so"
-        if not out.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            if not os.path.exists(nvcc):
-                raise RuntimeError("nvcc not found: the CUDA toolkit is "
-                                   "needed to build the trace kernel")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{self.build_log}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        fn = lib.srt_trace_launch
-        fn.argtypes = LAUNCH_ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.srt_error_string.argtypes = [ctypes.c_int]
-        lib.srt_error_string.restype = ctypes.c_char_p
-        return lib
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.srt_trace_launch.argtypes = LAUNCH_ARGTYPES
+    lib.srt_trace_launch.restype = ctypes.c_int
+    lib.srt_shared_optin.argtypes = [ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.srt_shared_optin.restype = ctypes.c_int
 
 
-KERNEL = TraceKernel()
+KERNEL = Kernel(SOURCE, _bind, extra_flags=[f"-DSRT_MAX_GROUPS={MAX_GROUPS}"])
+
+
+@functools.lru_cache(maxsize=None)
+def shared_limit(device_index: int) -> int:
+    """The dynamic shared memory a block of the device may opt in to."""
+    out = ctypes.c_int(0)
+    KERNEL.check(KERNEL.library().srt_shared_optin(device_index,
+                                                   ctypes.byref(out)),
+                 "shared memory query")
+    return out.value
+
+
+def check_shared_bytes(n_bytes: int, limit: int) -> None:
+    """The launch's size rule: its tables must fit the shared memory a
+    block may opt in to."""
+    if n_bytes > limit:
+        raise ValueError(f"trace kernel: the scene tables need {n_bytes} B "
+                         f"of shared memory, above the device's {limit} B "
+                         "per block")
 
 
 def prim_tables(scene: DeviceScene):
@@ -185,9 +168,18 @@ def tri_variant(scene: DeviceScene) -> str:
         f"trace kernel: a mesh of {n} triangles "
         + ("with %d cluster slots" % cl.slots.numel() if cl is not None
            else "without clusters")
-        + " is outside the whole-trace kernel; mid-size unclustered meshes "
-        "and large clustered ones (configs 6 and 7) take the split "
-        "per-bounce path, a later slice")
+        + " is outside the whole-trace kernel; ops/trace.render_pass "
+        "sends it to the split per-bounce path (ops/cuda/bvh_kernel.py "
+        "for clustered meshes)")
+
+
+def whole_trace_serves(scene: DeviceScene) -> bool:
+    """Does the whole-trace kernel serve this scene (``tri_variant``)?"""
+    try:
+        tri_variant(scene)
+    except NotImplementedError:
+        return False
+    return True
 
 
 def group_order(clusters: Clusters, position) -> np.ndarray:
@@ -279,9 +271,9 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
                               or not t.is_contiguous()):
             raise ValueError(f"trace kernel: bad {name} table {t.dtype} "
                              f"on {t.device}")
-    if 4 * shared > MAX_SHARED_BYTES:
-        raise ValueError("trace kernel: scene tables exceed 48 KB of "
-                         "shared memory")
+    check_shared_bytes(4 * shared, shared_limit(
+        device.index if device.index is not None
+        else torch.cuda.current_device()))
     n_rays = width * tile_height * num_samples
     if n_rays >= 2 ** 31 - BLOCK:
         raise ValueError(f"trace kernel: {n_rays} rays overflow int32")
@@ -312,6 +304,10 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
         p.n_clusters, p.cluster_k = cl.slots.shape
         p.cluster_extent = cl.extent
         order = group_order(cl, position)
+        if order.shape[0] > MAX_GROUPS:
+            raise ValueError(f"trace kernel: {order.shape[0]} cluster groups "
+                             f"exceed the {MAX_GROUPS} the launch "
+                             "parameters hold")
         p.group_order[:order.shape[0]] = order.tolist()
     return Prepared((sph, pln, mat), (tri, box), variant, p, n_rays, device)
 
@@ -331,9 +327,6 @@ def launch(prep: Prepared, out: torch.Tensor = None) -> Vec3:
         stream = torch.cuda.current_stream(prep.device).cuda_stream
         err = lib.srt_trace_launch(*map(ptr, prep.tables + prep.tri_tables),
                                    out.data_ptr(), prep.params, stream)
-    if err != 0:
-        raise RuntimeError("trace kernel launch failed: "
-                           + lib.srt_error_string(err).decode())
-    KERNEL.launches += 1
-    KERNEL.variant_launches[prep.variant] += 1
+    KERNEL.check(err, "trace kernel")
+    KERNEL.count(prep.variant)
     return Vec3(out[0], out[1], out[2])

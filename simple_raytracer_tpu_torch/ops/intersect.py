@@ -3,12 +3,20 @@ batches.
 
 The counterpart of ``simple_raytracer_tpu.ops.intersect``: every ray
 meets every primitive of a category as an (R, N) batch, reduced to the
-first minimum t per ray.  Triangles take the whole-trace kernel's form
-(``bounce_kernel._tris_small``): Moller-Trumbore, with the smooth normal
-interpolated from MT's own (u, v), not from the hit position as the JAX
-scan path's ``barycentric_weights`` does; the two differ by float
-rounding only.  This is the plain version of both triangle variants of
-the CUDA kernel, and is dense over every triangle: it ignores clusters.
+first minimum t per ray.  The nearest hit comes in two forms:
+
+- ``closest_hit``, the whole-trace kernel's form and its plain version
+  (``bounce_kernel._tris_small``): Moller-Trumbore dense over every
+  triangle, with the smooth normal interpolated from MT's own (u, v).
+- ``closest_hit_split``, the split per-bounce path's form (the JAX
+  ``closest_hit`` with ``tri_backend="bvh"``): a clustered mesh goes
+  through the BVH kernel (``ops/cuda/bvh_kernel.py``), seeded with the
+  nearest sphere or plane hit, a mesh without clusters through the dense
+  loop; the winner's row is gathered by its index and the smooth normal
+  interpolated at the barycentric weights of the hit position
+  (``barycentric_weights_from_edges``).
+
+The two normals differ by float rounding only.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from .cuda import bvh_kernel
 from .scene_types import DeviceScene, Planes, Spheres, Triangles
 from .vec import Vec3, dot, normalize, sqrt, where as vwhere
 
@@ -122,45 +131,55 @@ def triangle_normal(tr: Triangles, idx: torch.Tensor, u: torch.Tensor,
             + Vec3.from_array(tr.n2[idx]) * v)
 
 
-def closest_hit(scene: DeviceScene, o: Vec3, d: Vec3) -> Hit:
-    """Nearest hit across categories, ties going to the sphere, then the
-    plane, then the triangle; the normal is flipped to face the ray."""
+def barycentric_weights(v0: Vec3, v1: Vec3, v2: Vec3, p: Vec3):
+    """The weights (w2, w0, w1) of p, to pair with the vertex normals
+    (n0, n1, n2) (simple_raytracer_tpu.ops.intersect.barycentric_weights,
+    with the reference's result rotation)."""
+    return barycentric_weights_from_edges(v1 - v0, v2 - v0, p - v0)
+
+
+def barycentric_weights_from_edges(a: Vec3, b: Vec3, c: Vec3):
+    """barycentric_weights from the edges a = v1 - v0, b = v2 - v0 and
+    c = p - v0, in the JAX function's operation order."""
+    d00 = dot(a, a)
+    d01 = dot(a, b)
+    d11 = dot(b, b)
+    d20 = dot(c, a)
+    d21 = dot(c, b)
+    denom = d00 * d11 - d01 * d01
+    w0 = (d11 * d20 - d01 * d21) / denom
+    w1 = (d00 * d21 - d01 * d20) / denom
+    w2 = 1.0 - w0 - w1
+    return w2, w0, w1
+
+
+def _resolve(scene: DeviceScene, o: Vec3, d: Vec3, t_s, i_s, t_p, i_p, t_t,
+             tri_shade) -> Hit:
+    """The nearest hit across categories, ties going to the sphere, then
+    the plane, then the triangle; ``tri_shade(position)`` gives the
+    triangle winner's (unit normal, material).  The normal is flipped to
+    face the ray."""
     inf = torch.full_like(o.x, math.inf)
     zero_i = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
-    has_spheres = scene.spheres.radius.shape[0] > 0
-    has_planes = scene.planes.material.shape[0] > 0
-    has_tris = scene.triangles.material.shape[0] > 0
-    t_s, i_s = (intersect_spheres(o, d, scene.spheres) if has_spheres
-                else (inf, zero_i))
-    t_p, i_p = (intersect_planes(o, d, scene.planes) if has_planes
-                else (inf, zero_i))
-    if has_tris:
-        t_t, i_t, u_t, v_t = intersect_triangles(o, d, scene.triangles)
-    else:
-        t_t = inf
-
     t = torch.minimum(torch.minimum(t_s, t_p), t_t)
     hit = torch.isfinite(t)
     is_s = t_s == t
     is_p = ~is_s & (t_p == t)
     position = o + d * t
 
-    if has_spheres:
+    if scene.spheres.radius.shape[0] > 0:
         n_sph = (position - Vec3.from_array(scene.spheres.center[i_s])
                  ) / scene.spheres.radius[i_s]
         m_sph = scene.spheres.material[i_s]
     else:
         n_sph, m_sph = Vec3(inf, inf, inf), zero_i
-    if has_planes:
+    if scene.planes.material.shape[0] > 0:
         n_pln = Vec3.from_array(scene.planes.normal[i_p])
         m_pln = scene.planes.material[i_p]
     else:
         n_pln, m_pln = Vec3(inf, inf, inf), zero_i
-
-    if has_tris:
-        tr = scene.triangles
-        n_tri = normalize(triangle_normal(tr, i_t, u_t, v_t))
-        m_tri = tr.material[i_t]
+    if scene.triangles.material.shape[0] > 0:
+        n_tri, m_tri = tri_shade(position)
     else:
         n_tri, m_tri = Vec3(inf, inf, inf), zero_i
 
@@ -171,3 +190,64 @@ def closest_hit(scene: DeviceScene, o: Vec3, d: Vec3) -> Hit:
     normal = normal * torch.where(front, 1.0, -1.0)
     return Hit(hit=hit, t=t, position=position, normal=normal, front=front,
                material=material, triangle=triangle)
+
+
+def _spheres_planes(scene: DeviceScene, o: Vec3, d: Vec3):
+    inf = torch.full_like(o.x, math.inf)
+    zero_i = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
+    t_s, i_s = (intersect_spheres(o, d, scene.spheres)
+                if scene.spheres.radius.shape[0] > 0 else (inf, zero_i))
+    t_p, i_p = (intersect_planes(o, d, scene.planes)
+                if scene.planes.material.shape[0] > 0 else (inf, zero_i))
+    return t_s, i_s, t_p, i_p
+
+
+def closest_hit(scene: DeviceScene, o: Vec3, d: Vec3) -> Hit:
+    """The whole-trace kernel's nearest hit: every triangle densely, the
+    smooth normal at MT's (u, v)."""
+    t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
+    tr = scene.triangles
+    t_t = torch.full_like(o.x, math.inf)
+    i_t = u_t = v_t = None
+    if tr.material.shape[0] > 0:
+        t_t, i_t, u_t, v_t = intersect_triangles(o, d, tr)
+    return _resolve(scene, o, d, t_s, i_s, t_p, i_p, t_t,
+                    lambda position: (normalize(triangle_normal(
+                        tr, i_t, u_t, v_t)), tr.material[i_t]))
+
+
+def shade_from_position(rows: torch.Tensor, position: Vec3):
+    """A triangle winner's unit smooth normal and material from its
+    (R, TRI_COLS) table rows: the normals interpolated at the barycentric
+    weights of the hit position, from the edges in the row (columns 3-8),
+    as the JAX BVH route does with the kernel's winner attributes."""
+    col = lambda j: Vec3(rows[:, j], rows[:, j + 1], rows[:, j + 2])
+    wx, wy, wz = barycentric_weights_from_edges(col(3), col(6),
+                                                position - col(0))
+    n = col(9) * wx + col(12) * wy + col(15) * wz
+    return normalize(n), rows[:, 18].to(torch.int64)
+
+
+def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
+                      alive: torch.Tensor, compact: bool = False) -> Hit:
+    """The split path's nearest hit for the (R,) rays whose ``alive`` is
+    set (the other rays' results are not used).  A clustered mesh goes
+    through the BVH kernel with its far bound seeded by the nearest
+    sphere or plane hit (on the CPU, its plain version), behind the ray
+    compaction when ``compact``; a mesh without clusters through the dense
+    loop.  The winner's row is gathered by its index and shaded at the
+    hit position."""
+    t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
+    tr = scene.triangles
+    t_t = torch.full_like(o.x, math.inf)
+    i_t = None
+    if tr.material.shape[0] > 0 and tr.clusters is not None:
+        t_t, i_t = bvh_kernel.intersect_triangles_bvh(
+            o, d, alive, torch.minimum(t_s, t_p), tr.clusters, tr.table,
+            compact=compact)
+        i_t = i_t.clamp_min(0).long()   # -1 (no win): any row; t is +inf
+    elif tr.material.shape[0] > 0:
+        t_t, i_t, _, _ = intersect_triangles(o, d, tr)
+    return _resolve(scene, o, d, t_s, i_s, t_p, i_p, t_t,
+                    lambda position: shade_from_position(tr.rows[i_t],
+                                                         position))

@@ -5,8 +5,9 @@ as plain dataclasses of tensors instead of a pytree.  Each primitive
 category is padded to a bucket capacity; ``active`` marks the real slots.
 
 Triangles are world-space and, for a clustered mesh, already in BVH
-order.  ``from_numpy`` packs the whole-trace kernel's triangle table
-once per scene (``tri_table``), so no pass packs mesh tables again.
+order.  ``from_numpy`` packs the kernels' triangle tables once per scene
+(``tri_table``), and for a clustered mesh the BVH kernel's hierarchy of
+boxes (``ops/bvh.build_hierarchy``), so no pass packs mesh tables again.
 
 The sky parameters stay on the host as float32-rounded Python floats: the
 CUDA kernel takes them by value, so moving them costs no copy.
@@ -19,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .bvh import VMEM_TABLE_MAX_SLOTS, Hierarchy, build_hierarchy
 from .vec import Vec3
 
 
@@ -47,7 +49,10 @@ class Clusters:
     centers: np.ndarray      # (C, 3) f32 box centers, on the host: the
                              # wrapper orders the groups by them per pass
     extent: float            # the largest |coordinate| of a real box: the
-                             # kernel scales its slab-test margin by it
+                             # whole-trace kernel scales its slab-test
+                             # margin by it
+    hierarchy: Hierarchy     # the BVH kernel's supers, groups, admission
+                             # boxes and int32 slot indices
 
     @property
     def k(self) -> int:
@@ -64,9 +69,12 @@ class Triangles:
     n2: torch.Tensor
     material: torch.Tensor   # (Nt,) int64
     active: torch.Tensor     # (Nt,) bool
-    # the kernel's rows of TRI_COLS f32: the Nt triangles in order, or for
+    # the kernels' rows of TRI_COLS f32: the Nt triangles in order, or for
     # a clustered mesh the C * K cluster slots (see tri_table)
     table: torch.Tensor
+    # one row per triangle, by index: the split path gathers a winner's
+    # row here (the same tensor as ``table`` without clusters)
+    rows: torch.Tensor
     clusters: Optional[Clusters] = None
 
 
@@ -121,7 +129,7 @@ TRI_VECTORS = ("v0", "v1", "v2", "n0", "n1", "n2")
 TRI_COLS = 20
 # the largest cluster table (C * K slots) the whole-trace kernel serves; it
 # also sets the scene build's choice of K (the TPU's VMEM_TABLE_MAX_SLOTS)
-TABLE_MAX_SLOTS = 8192
+TABLE_MAX_SLOTS = VMEM_TABLE_MAX_SLOTS
 
 
 def tri_table(tris: dict, slots: Optional[np.ndarray] = None) -> np.ndarray:
@@ -209,11 +217,15 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
             centers = (aabb[:, 0:3] + aabb[:, 3:6]) * np.float32(0.5)
         real = aabb[:, 0] < 1.0e38
         extent = float(np.abs(aabb[real, 0:6]).max()) if real.any() else 0.0
-        clusters = Clusters(aabb=t(aabb), slots=t(slots), centers=centers,
-                            extent=extent)
+        aabb_t, slots_t = t(aabb), t(slots)
+        clusters = Clusters(aabb=aabb_t, slots=slots_t, centers=centers,
+                            extent=extent,
+                            hierarchy=build_hierarchy(aabb_t, slots_t))
+    rows = t(tri_table(tris))
     triangles = Triangles(
         **{k: t(tris[k]) for k in TRI_VECTORS + ("material", "active")},
-        table=t(tri_table(tris, slots)), clusters=clusters)
+        table=rows if slots is None else t(tri_table(tris, slots)),
+        rows=rows, clusters=clusters)
 
     return DeviceScene(
         spheres=Spheres(center=f32("spheres.center", (3,)),

@@ -3,8 +3,9 @@
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``jaxlib`` and ``simple_raytracer_tpu`` (exact top-level names, so
 ``simple_raytracer_tpu_torch`` still imports), then imports the port and
-chip_smoke and renders config 2 and the clustered mesh of config 4 (its
-BVH built by the port's own builder) at 32x16 on the CPU.  chip_smoke.py itself
+chip_smoke and renders config 2, the clustered mesh of config 4 (its
+BVH built by the port's own builder) and config 6 through the split
+per-bounce path at 32x16 on the CPU.  chip_smoke.py itself
 must fail, printing no result, without CUDA and outside the repository.
 """
 import os
@@ -41,7 +42,8 @@ import chip_smoke   # main() stays behind its __name__ guard
 from simple_raytracer_tpu_torch.engine import Renderer, RenderOptions
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
 
-for n in (2, 4):
+renderers = {}
+for n in (2, 4, 6):
     scene, camera, opt = CONFIGS[n](width=32, height=16)
     r = Renderer(RenderOptions(width=32, height=16,
                                num_samples=opt.num_samples,
@@ -49,7 +51,10 @@ for n in (2, 4):
                  device="cpu")
     img = r.render(camera, num_steps=2)
     assert img.shape == (16, 32, 3) and img.std() > 0, img.shape
-assert r.device_scene.triangles.clusters.slots.shape == (32, 64)
+    renderers[n] = r
+assert renderers[4].device_scene.triangles.clusters.slots.shape == (32, 64)
+# config 6 takes the split per-bounce path (the BVH kernel's plain version)
+assert renderers[6].device_scene.triangles.clusters.slots.shape == (768, 128)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 try:

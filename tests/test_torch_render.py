@@ -127,3 +127,127 @@ def test_no_cuda_means_no_default_device():
             Renderer(opt, scene)
     with pytest.raises(ValueError, match="unsupported device"):
         Renderer(opt, scene, device="meta")
+
+
+def test_config6_split_path_matches_golden():
+    """Config 6 (81,920 triangles, 768 clusters of 128) renders through the
+    split per-bounce path, the BVH kernel's plain version on the CPU,
+    within the golden bound of tests/goldens/config6.npz (64x36; measured
+    here: RMSE 2.7e-7)."""
+    from simple_raytracer_tpu_torch.ops.trace import takes_whole_trace
+    scene, camera, opt = CONFIGS[6](width=64, height=36)
+    r = Renderer(RenderOptions(width=64, height=36,
+                               num_samples=opt.num_samples,
+                               num_bounces=opt.num_bounces), scene=scene,
+                 device="cpu")
+    assert r.device_scene.triangles.clusters.slots.shape == (768, 128)
+    assert not takes_whole_trace(r.device_scene)
+    for i in range(STEPS):
+        r.step(camera, time=TIME0 + i)
+    canvas = r.canvas.numpy()
+    assert np.isfinite(canvas).all()
+    golden = np.load(os.path.join(GOLDEN_DIR, "config6.npz"))["canvas"]
+    assert _rmse(canvas, golden) < BOUND
+
+
+def test_config4_bvh_backend_matches_jax(monkeypatch):
+    """tri_backend="bvh" sends config 4 down the split path in both
+    packages (JAX's BVH kernel in interpret mode, as
+    tests/test_bvh_kernel.py:426 runs it): the canvases agree within the
+    golden bound (measured here: RMSE 2.6e-7), and the port's split path
+    agrees with its own whole-trace plain version (RMSE 1.4e-9)."""
+    import simple_raytracer_tpu.accel
+    import simple_raytracer_tpu.ops.pallas.bvh_kernel as jbvh
+    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
+                        lambda: None)
+    orig = jbvh.intersect_triangles_bvh
+
+    def interp(o, d, alive, t_init, aabb, table_t, block_r=1536,
+               interpret=False, **kw):
+        return orig(o, d, alive, t_init, aabb, table_t, block_r=128,
+                    interpret=True, **kw)
+
+    monkeypatch.setattr(jbvh, "intersect_triangles_bvh", interp)
+    jscene, jcamera, _ = JCONFIGS[4](width=48, height=32)
+    camera = CONFIGS[4](width=48, height=32)[1]
+    kw = dict(width=48, height=32, num_samples=1, num_bounces=3)
+    jr = JRenderer(JOptions(tri_backend="bvh", **kw), scene=jscene)
+    jr.step(jcamera, time=9)
+    carried = from_numpy(jax_scene_arrays(jscene.build()), "cpu")
+    canvases = []
+    for backend in ("bvh", "auto"):
+        r = Renderer(RenderOptions(tri_backend=backend, **kw), device="cpu")
+        r.set_device_scene(carried)
+        r.step(camera, time=9)
+        canvases.append(r.canvas.numpy())
+    assert np.isfinite(canvases[0]).all()
+    assert _rmse(canvases[0], jr.canvas) < BOUND
+    assert _rmse(canvases[0], canvases[1]) < BOUND
+
+
+def test_routing_and_backends():
+    """Under "auto" the scenes the whole-trace kernel serves (configs 1 to
+    5) take it, config 6 the split path; under "bvh" every scene takes the
+    split path.  A triangle-free scene gives the same canvas both ways.
+    The JAX package's other backends raise NotImplementedError, unknown
+    names ValueError."""
+    from simple_raytracer_tpu_torch.ops.trace import (TRI_BACKENDS_TO_PORT,
+                                                      takes_whole_trace)
+    scenes = {n: CONFIGS[n](width=32, height=16, **KWARGS.get(n, {}))
+              for n in CONFIGS}
+    built = {n: s.build("cpu") for n, (s, _, _) in scenes.items()}
+    assert [n for n in built if takes_whole_trace(built[n])] == [1, 2, 3, 4,
+                                                                 5]
+    assert not any(takes_whole_trace(b, "bvh") for b in built.values())
+    _, camera, opt = scenes[2]
+    kw = dict(width=32, height=16, num_samples=2, num_bounces=4)
+    cam = camera.state(2.0)
+    a, b = (render_pass(built[2], cam, torch.zeros(16, 32, 3), 5,
+                        tri_backend=t, **kw) for t in ("auto", "bvh"))
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    for name in TRI_BACKENDS_TO_PORT:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            RenderOptions(tri_backend=name)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render_pass(built[2], cam, torch.zeros(16, 32, 3), 5,
+                        tri_backend=name, **kw)
+    with pytest.raises(ValueError, match="unknown tri_backend"):
+        RenderOptions(tri_backend="bogus")
+
+
+def test_cuda_split_path_never_takes_the_plain_version(monkeypatch):
+    """A device scene on the split path goes to the BVH kernel, which
+    raises off the card; no bounce reaches the plain version."""
+    import simple_raytracer_tpu_torch.ops.bvh as tbvh
+    calls = []
+    monkeypatch.setattr(tbvh, "intersect_triangles_bvh_plain",
+                        lambda *a, **k: calls.append(a))
+    scene, camera, _ = CONFIGS[6](width=16, height=8)
+    meta = from_numpy(scene.arrays(), "meta")
+    with pytest.raises(ValueError, match="BVH kernel: unsupported device"):
+        render_pass(meta, camera.state(2.0), torch.zeros(8, 16, 3,
+                                                         device="meta"),
+                    5, width=16, height=8, num_samples=1, num_bounces=2)
+    assert not calls
+
+
+def test_benchmark_passes_leave_the_state():
+    """benchmark_step's passes run on a scratch canvas: the accumulated
+    canvas and step count are what they were (the JAX benchmark_step
+    leaves them alone too)."""
+    r, camera = _port_renderer(2)
+    r.step(camera)
+    r.step(camera)
+    canvas, steps = r.canvas.clone(), r.num_steps
+    ran = []
+    orig = r.step
+    r.step = lambda cam, time=None: (ran.append(1), orig(cam, time))
+
+    def seconds(run):
+        run()
+        return 0.25
+
+    assert r._time_passes(camera, 3, 2, seconds) == 0.25
+    assert len(ran) == 5
+    assert r.num_steps == steps
+    np.testing.assert_array_equal(r.canvas.numpy(), canvas.numpy())

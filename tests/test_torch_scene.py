@@ -58,14 +58,16 @@ def _flat(ts) -> dict:
     return out
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6])
 def test_scene_build_matches_jax(n, numpy_bvh):
     jscene, jcam, jopt = JCONFIGS[n](**KWARGS.get(n, {}))
     tscene, tcam, topt = TCONFIGS[n](**KWARGS.get(n, {}))
     want = jax_scene_arrays(jscene.build())
-    n_tris = {1: 0, 2: 0, 3: 16, 4: 2048, 5: 4096}[n]
+    n_tris = {1: 0, 2: 0, 3: 16, 4: 2048, 5: 4096, 6: 131072}[n]
     assert want["triangles.material"].shape == (n_tris,)
     assert ("clusters.slots" in want) == (n >= 4)
+    if n == 6:   # K = 128, 640 clusters padded to a multiple of 128
+        assert want["clusters.slots"].shape == (768, 128)
     got = _flat(tscene.build("cpu"))
     assert sorted(got) == sorted(want)
     for k, w in want.items():
@@ -175,3 +177,20 @@ def test_bad_material_index_is_refused():
     s.add_box((0, 0, 0), material=4)
     with pytest.raises(ValueError, match="triangles.material"):
         s.build("cpu")
+
+
+def test_auto_skybox_raises_when_the_reference_texture_exists(monkeypatch,
+                                                              tmp_path):
+    """Config 3's "auto" loads the reference skybox texture in the JAX
+    package when it exists (SRT_REFERENCE_SKYBOX, else the reference
+    checkout's); the port cannot render it yet, so it raises instead of
+    quietly rendering the gradient.  Without the file it is the gradient
+    sky, and "gradient" always is."""
+    tex = tmp_path / "skybox.png"
+    tex.write_bytes(b"\x89PNG\r\n")
+    monkeypatch.setenv("SRT_REFERENCE_SKYBOX", str(tex))
+    with pytest.raises(NotImplementedError, match="skybox"):
+        TCONFIGS[3](skybox="auto")
+    assert TCONFIGS[3](skybox="gradient")[0].skybox is None
+    monkeypatch.setenv("SRT_REFERENCE_SKYBOX", str(tmp_path / "missing.png"))
+    assert TCONFIGS[3](skybox="auto")[0].skybox is None

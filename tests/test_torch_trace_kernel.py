@@ -132,10 +132,15 @@ def test_envelope(monkeypatch):
     from simple_raytracer_tpu_torch.models.meshgen import icosphere
     from simple_raytracer_tpu_torch.models.presets import CONFIGS
     from simple_raytracer_tpu_torch.models.scene import Scene
-    variants = {n: tk.tri_variant(CONFIGS[n](width=64, height=16)[0]
-                                  .build("cpu")) for n in CONFIGS}
+    scenes = {n: CONFIGS[n](width=64, height=16)[0].build("cpu")
+              for n in CONFIGS}
+    variants = {n: tk.tri_variant(scenes[n]) for n in range(1, 6)}
     assert variants == {1: "none", 2: "none", 3: "small", 4: "clustered",
                         5: "clustered"}
+    # config 6's 98,304 slots take the split per-bounce path
+    assert [n for n in CONFIGS if not tk.whole_trace_serves(scenes[n])] == [6]
+    with pytest.raises(NotImplementedError, match="split per-bounce"):
+        tk.tri_variant(scenes[6])
     s = Scene()
     pos, nrm = icosphere(subdivisions=2)                 # 320 triangles
     s.add_model(s.pool.append(pos[:100], nrm[:100]))
@@ -148,7 +153,7 @@ def test_envelope(monkeypatch):
     calls, before = [], tk.KERNEL.launches
     with monkeypatch.context() as m:
         m.setattr(tk, "trace_full_plain", lambda *a, **k: calls.append(a))
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(NotImplementedError, match="split per-bounce"):
             tk.trace_full(*args, **kw)
     assert not calls and tk.KERNEL.launches == before
     # the CPU renders it with the plain version
@@ -164,11 +169,15 @@ def test_launch_struct_matches_cuda_source():
     src = Path(tk.SOURCE).read_text()
     body = re.search(r"struct TraceParams \{(.*?)\};", src, re.S).group(1)
     fields = re.findall(
-        r"^\s*(float|int32_t|uint32_t|uint8_t) (\w+)(?:\[(\d+)\])?;",
+        r"^\s*(float|int32_t|uint32_t|uint16_t) (\w+)(?:\[(\w+)\])?;",
         body, re.M)
+    # the group order's length comes from the wrapper, through nvcc -D
+    assert f"-DSRT_MAX_GROUPS={tk.MAX_GROUPS}" in tk.KERNEL.flags
+    fields = [(t, n, str(tk.MAX_GROUPS) if k == "SRT_MAX_GROUPS" else k)
+              for t, n, k in fields]
     ctypes_of = {"float": "c_float", "int32_t": "c_int", "uint32_t": "c_uint",
-                 "uint8_t": "c_ubyte"}
-    size_of = {"float": 4, "int32_t": 4, "uint32_t": 4, "uint8_t": 1}
+                 "uint16_t": "c_ushort"}
+    size_of = {"float": 4, "int32_t": 4, "uint32_t": 4, "uint16_t": 2}
     got = []
     for name, ct in tk.TraceParams._fields_:
         length = getattr(ct, "_length_", None)
@@ -181,3 +190,26 @@ def test_launch_struct_matches_cuda_source():
     sig = re.search(r"int srt_trace_launch\((.*?)\)", src, re.S).group(1)
     assert sig.count("*") == tk.LAUNCH_ARGTYPES.count(ctypes.c_void_p)
     assert tk.LAUNCH_ARGTYPES[-2] is tk.TraceParams
+
+
+def test_shared_memory_rule_at_the_boundary():
+    """Tables above the default 48 KB of shared memory launch (the kernel
+    opts in) up to the device's opt-in limit, and raise one 4-byte word
+    above it.  A 1,025-sphere scene (2,048 slots of 32 B) is such a scene
+    on an H100 (232,448 B per block).  The launch parameters hold every
+    group order a table within the envelope can have."""
+    from simple_raytracer_tpu_torch.models.scene import Scene
+    h100 = 232448
+    tk.check_shared_bytes(h100, h100)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.check_shared_bytes(h100 + 4, h100)
+    s = Scene()
+    for i in range(1025):
+        s.add_sphere((i * 0.1, 0.0, -5.0), 0.05)
+    ts = s.build("cpu")
+    words = sum(t.numel() for t in tk.prim_tables(ts))
+    assert tk.DEFAULT_SHARED_BYTES < 4 * words <= h100
+    tk.check_shared_bytes(4 * words, h100)
+    assert (ctypes.sizeof(tk.TraceParams) + 8 * tk.LAUNCH_POINTERS
+            <= tk.PARAM_LIMIT_BYTES)
+    assert tk.MAX_GROUPS >= tk.TABLE_MAX_SLOTS // 8
