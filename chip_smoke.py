@@ -17,7 +17,9 @@ flat variant).  Phases, one line each on stdout:
      just after the cell; the scene build's seconds;
   4. each kernel against its plain PyTorch version on the card, one pass
      of each cell at full size: the whole-trace canvas, and for the split
-     cells every BVH launch's (t, idx) on live rays and the canvas;
+     cells every BVH launch's (t, slot) on live rays and the canvas; then
+     the per-ray gate against a gate-free dense Moller-Trumbore over every
+     triangle, on every launch of a pass of one full-width band of rows;
   5. the golden-size renders (tests/test_golden.py) against
      tests/goldens/config{1..6}.npz; a 1,025-sphere scene (tables above
      48 KB of shared memory) against the plain version; benchmark_step
@@ -51,6 +53,8 @@ from simple_raytracer_tpu_torch.ops.camera import camera_rotation
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.camera import generate_rays
+from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
+from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
 from simple_raytracer_tpu_torch.ops.trace import trace_rays
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
@@ -72,11 +76,12 @@ GOLDEN_RMSE = 2e-3             # tests/test_golden.py's bound
 # difference (a Bernoulli draw at its threshold, the one fma the plain
 # version emulates in f64) can move a whole path, so the bound is on the
 # RMSE and on the share of pixels that differ, not on the maximum.  The
-# BVH kernel's (t, idx) must equal its plain version's on every live ray.
+# BVH kernel's (t, slot) must equal its plain version's on every live ray.
 KERNEL_RMSE = 1e-4
 KERNEL_DIFF_SHARE = 1e-3       # share of pixels more than 1e-3 apart
 HAZARD_MAX = 8                 # non-finite pixels allowed (ln(0) draws)
 N_SPHERES = 1025               # 2,048 sphere slots: 64 KB of shared memory
+GATE_ROWS = 16                 # the band of the gate check, centred
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 FP32_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -176,7 +181,7 @@ INV_DIR_FLOPS = 3          # the reciprocal direction of the traversal
 SHADE_FLOPS = 30           # position, normal, front flip, emission
 BSDF_FLOPS = 275           # 3 normals (log, cos), 3 uniforms, mixes
 SKY_FLOPS = 54             # the gradient sky and the final add
-BVH_RAY_BYTES = 32 + 8     # a ray in (o, d, alive, t_init), (t, idx) out
+BVH_RAY_BYTES = 32 + 8     # a ray in (o, d, alive, t_init), (t, slot) out
 TRI_ROW_BYTES = 80 + 4     # a slot row of the table and its index
 
 
@@ -192,7 +197,7 @@ def kernel_flops(scene, n_rays: int, segments: list) -> float:
     n_s = int(scene.spheres.active.sum())
     n_p = int(scene.planes.active.sum())
     tris = scene.triangles
-    variant = tk.tri_variant(scene)
+    variant = whole_trace_variant(scene)
     flops = n_rays * (RAYGEN_FLOPS + SKY_FLOPS)
     for i, (live, hits, tri_hits) in enumerate(segments):
         flops += live * (n_s * SPHERE_FLOPS + n_p * PLANE_FLOPS)
@@ -263,12 +268,15 @@ def plain_bvh(o, d, alive, t_init, clusters, table, compact=False):
                                              table)
 
 
-def split_pass(r: Renderer, camera, time_seed: int, plain: bool = False):
+def split_pass(r: Renderer, camera, time_seed: int, plain: bool = False,
+               band=None):
     """One pass of the split path's per-ray radiance, (3, R), by the steps
     render_pass takes (generate_rays, the split trace_rays); returns it
-    and the BVH launches it made ([(Prepared, (t, idx))]).  ``plain``
-    swaps the BVH kernel for its plain version."""
+    and the BVH launches it made ([(Prepared, (t, slot))]).  ``plain``
+    swaps the BVH kernel for its plain version; ``band`` = (row0, rows)
+    traces only those rows."""
     o = r.options
+    row0, rows = band if band is not None else (0, None)
     recorded = []
     launch, wrapper = bk.launch, bk.intersect_triangles_bvh
 
@@ -285,7 +293,8 @@ def split_pass(r: Renderer, camera, time_seed: int, plain: bool = False):
         orig, dirs, seed = generate_rays(
             o.width, o.height, o.num_samples, time_seed, cam.position,
             camera_rotation(cam.yaw, cam.pitch), cam.aspect_ratio,
-            cam.fov_scale, tile=r.ray_tile, device=r.device)
+            cam.fov_scale, row0=row0, tile_height=rows,
+            tile=r.ray_tile if band is None else None, device=r.device)
         color = trace_rays(r.device_scene, orig, dirs, seed, o.num_bounces,
                            split=True)
     finally:
@@ -297,6 +306,32 @@ def bvh_inputs(prep):
     rays = prep.rays
     return (Vec3(rays[0], rays[1], rays[2]), Vec3(rays[3], rays[4], rays[5]),
             rays[6], rays[7])
+
+
+def gate_check(r: Renderer, camera):
+    """The per-ray gate (kernel and plain version alike) against a
+    gate-free dense Moller-Trumbore over every triangle, on the live rays
+    of every BVH launch of one pass of GATE_ROWS full-width rows at the
+    image's centre.  The TPU gates a 128-ray sub-block, which admits at
+    least what each of its rays admits, so a hit the dense loop finds and
+    the gate loses is the most by which the two can differ.  Both run the
+    same float operations, so a gate hit the dense loop lacks is a fault.
+    Returns (row0, launches, dense hits, rays lost or farther, extra)."""
+    row0 = (r.options.height - GATE_ROWS) // 2
+    _, recorded = split_pass(r, camera, 4243, band=(row0, GATE_ROWS))
+    tris = r.device_scene.triangles
+    hits = lost = extra = 0
+    for prep, (t_k, s_k) in recorded:
+        o_, d_, alive, t_init = bvh_inputs(prep)
+        live = alive > 0
+        sub = lambda v: Vec3(v.x[live], v.y[live], v.z[live])
+        t_d, _, _, _ = intersect_triangles(sub(o_), sub(d_), tris)
+        dense = t_d < t_init[live]
+        gate = s_k[live] >= 0
+        hits += int(dense.sum())
+        lost += int((dense & ~(gate & (t_k[live] == t_d))).sum())
+        extra += int((gate & ~dense).sum())
+    return row0, len(recorded), hits, lost, extra
 
 
 def sphere_scene() -> Scene:
@@ -406,41 +441,44 @@ def main() -> int:
         # version on the same rays, then the whole canvas
         k, recorded = split_pass(r, camera, 4242)
         torch.cuda.synchronize()
-        cl, table = r.device_scene.triangles.clusters, r.device_scene.triangles.table
-        max_abs, stats, plain_s, bounces = 0.0, [], 0.0, []
-        for b, (prep, (t_k, i_k)) in enumerate(recorded):
+        tris = r.device_scene.triangles
+        cl, table = tris.clusters, tris.table
+        max_abs, work, plain_s, bounces = 0.0, [], 0.0, []
+        for b, (prep, (t_k, s_k)) in enumerate(recorded):
             o_, d_, alive, t_init = bvh_inputs(prep)
-            st = bvh.TraversalStats()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            t_p, i_p = bvh.intersect_triangles_bvh_plain(
-                o_, d_, alive, t_init, cl, table, stats=st)
+            t_p, s_p = bvh.intersect_triangles_bvh_plain(
+                o_, d_, alive, t_init, cl, table)
             torch.cuda.synchronize()
             plain_s += time.perf_counter() - t1
             live = alive > 0
-            idx_diff = int((i_k[live] != i_p[live]).sum())
+            slot_diff = int((s_k[live] != s_p[live]).sum())
             fin = live & torch.isfinite(t_p) & torch.isfinite(t_k)
             t_same = bool(torch.equal(torch.isinf(t_k[live]),
                                       torch.isinf(t_p[live])))
             diff = (t_k[fin] - t_p[fin]).abs()
             m = float(diff.max()) if diff.numel() else 0.0
             max_abs = max(max_abs, m)
-            stats.append((st, int(live.sum()), prep.params.n_rays,
-                          prep.perm is not None))
+            compact = prep.perm is not None
+            # the rays the kernel walks: the admitted prefix when compacted
+            walked = int(prep.count) if compact else int(live.sum())
+            tri_hits = int((s_k[live] >= 0).sum())
+            work.append((walked, tri_hits, prep.params.n_rays, compact))
             bounces.append(f"b{b}: live {int(live.sum())} "
-                           f"{'compact ' + str(int(prep.count)) if prep.perm is not None else 'dense'} "
-                           f"hits {int((i_k[live] >= 0).sum())} pairs "
-                           f"{st.pairs} idx diff {idx_diff} max|dt| {m:.3e}")
-            if idx_diff or m != 0.0 or not t_same:
-                fail(f"cell {label} bounce {b}: the BVH kernel's (t, idx) "
-                     f"differ from the plain version on {idx_diff} live "
+                           f"{'compact' if compact else 'dense'}, walked "
+                           f"{walked}, triangle hits {tri_hits}, slot diff "
+                           f"{slot_diff}, max|dt| {m:.3e}")
+            if slot_diff or m != 0.0 or not t_same:
+                fail(f"cell {label} bounce {b}: the BVH kernel's (t, slot) "
+                     f"differ from the plain version on {slot_diff} live "
                      f"rays (max |dt| {m})")
         p, _ = split_pass(r, camera, 4242, plain=True)
         torch.cuda.synchronize()
         rmse, share, same_bad = canvas_diff(k, p, s)
         bitexact = bool(torch.equal(k[torch.isfinite(k)],
                                     p[torch.isfinite(k)])) and same_bad
-        results[label] = dict(max_abs=max_abs, stats=stats,
+        results[label] = dict(max_abs=max_abs, work=work,
                               plain_ms=plain_s * 1e3, recorded=recorded,
                               n_rays=k.shape[1])
         say(f"[4] cell {label} BVH kernel vs plain, every launch of one "
@@ -452,6 +490,15 @@ def main() -> int:
                 and same_bad):
             fail(f"cell {label}: the split path's canvas disagrees with its "
                  "plain version")
+        row0, n_launch, hits, lost, extra = gate_check(r, camera)
+        say(f"[4] cell {label} per-ray gate vs dense MT over all "
+            f"{int(r.device_scene.triangles.active.sum())} triangles, rows "
+            f"{row0}-{row0 + GATE_ROWS - 1} x {r.options.width}, "
+            f"{n_launch} launches: {hits} dense hits, {lost} lost or "
+            f"farther under the gate, {extra} gate hits the dense loop "
+            f"lacks  [{card}]")
+        if extra:
+            fail(f"cell {label}: {extra} BVH hits that no triangle gives")
 
     # ---- 5: goldens, the 1,025-sphere scene, benchmark_step's state ----
     for label, (w, h) in GOLDEN_SIZES.items():
@@ -536,15 +583,18 @@ def main() -> int:
             k_ms, p_ms = float(np.median(k_all)), res["plain_ms"]
             cl = r.device_scene.triangles.clusters
             n_slots = cl.slots.numel()
-            flops = sum(st.slab_tests * SLAB_FLOPS + live * INV_DIR_FLOPS
-                        + st.pairs * cl.k * MT_FLOPS
-                        for st, live, _, _ in res["stats"])
+            # the least work of this run's data: each walked ray slab-tests
+            # the hierarchy's root boxes, and a ray whose nearest hit is a
+            # triangle runs MT over the K slots of that triangle's cluster
+            roots = int((cl.hierarchy.groups[:, 0] < 1.0e37).sum())
+            flops = sum(walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
+                        + tri_hits * cl.k * MT_FLOPS
+                        for walked, tri_hits, _, _ in res["work"])
             nbytes = sum(n * (BVH_RAY_BYTES + (4 if compact else 0))
                          + n_slots * TRI_ROW_BYTES + 32 * cl.aabb.shape[0]
-                         for _, _, n, compact in res["stats"])
-            pairs = [st.pairs for st, _, _, _ in res["stats"]]
-            work = (f"{len(preps)} launches; admitted (ray, cluster) pairs "
-                    f"per bounce {pairs}")
+                         for _, _, n, compact in res["work"])
+            work = (f"{len(preps)} launches; walked rays per launch "
+                    f"{[w[0] for w in res['work']]}, {roots} root boxes")
             p_note = "plain BVH (sum over the pass's launches, one run)"
             w_note = ""
         else:

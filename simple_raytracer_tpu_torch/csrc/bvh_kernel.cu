@@ -12,9 +12,9 @@
 //     super boxes, then each of their 16 cluster boxes slab-tested against
 //     the live best t, then MT over the admitted cluster's slots.
 // For each ray in its list it finds the nearest triangle strictly closer
-// than the ray's t_init and writes (t, global index), or (+inf, -1) when
-// none is; a dead ray (alive == 0) is a miss.  Shading is not here: the
-// wrapper's caller gathers the winner's table row by its index.
+// than the ray's t_init and writes (t, table slot), or (+inf, -1) when none
+// is; a dead ray (alive == 0) is a miss.  Shading is not here: the
+// wrapper's caller gathers the winner's table row at its slot.
 //
 // Design: one thread per ray, a 1-D grid over the ray list.  The slot table
 // (C * K rows of 20 f32, 7.9 MB at config 6) and the boxes are read from
@@ -28,14 +28,15 @@
 //
 // Ray compaction: with a permutation, thread i takes ray perm[i]; threads at
 // or past *count (read from device memory, so the host never waits) write a
-// miss to their ray and exit.  Every result goes to its own ray's slot, so
-// no scatter follows.
+// miss to their ray and exit.  Every result goes to its own ray's place in
+// the output, so no scatter follows.
 //
-// Bound on the H100: FP32 arithmetic, the slab tests and MT of every
-// admitted (ray, cluster) pair; the bytes it must move are 32 per ray in, 8
-// out, and the table once.  Left for later: warp divergence (the rays of a
-// warp admit different clusters), the table's 80-byte rows of which MT reads
-// 40, and staging boxes in shared memory.
+// Bound on the H100 (chip_smoke.py): the bytes it must move, 32 per ray in,
+// 8 out and the table once, which outweigh the least arithmetic a walked
+// ray needs (the root boxes' slab tests, and K MT tests for a ray whose
+// nearest hit is a triangle).  Left for later: warp divergence (the rays of
+// a warp admit different clusters), the table's 80-byte rows of which MT
+// reads 40, and staging boxes in shared memory.
 //
 // Arithmetic: built with --fmad=false and no fast math, in the operation
 // order of the plain version (ops/bvh.py: slab_maybe, _mt), so it gives the
@@ -96,7 +97,8 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b,
 
 struct Best {
   float t;
-  int32_t idx;
+  int32_t idx;   // global triangle index: decides exact ties
+  int32_t slot;  // its table slot: the result
 };
 
 // Moller-Trumbore over the K slots of cluster c; the least (t, index) wins
@@ -129,6 +131,7 @@ __device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
       if (t < best.t || g < best.idx) {
         best.t = t;
         best.idx = g;
+        best.slot = row0 + s;
       }
     }
   }
@@ -141,7 +144,7 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
            const float* __restrict__ supers, const float* __restrict__ groups,
            const int32_t* __restrict__ order, const int32_t* __restrict__ perm,
            const int32_t* __restrict__ count, float* __restrict__ t_out,
-           int32_t* __restrict__ idx_out, const BvhParams p) {
+           int32_t* __restrict__ slot_out, const BvhParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n_rays) return;
   const int ray = perm != nullptr ? perm[i] : i;
@@ -149,6 +152,7 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
   Best best;
   best.t = rays[7 * n + ray];
   best.idx = -1;
+  best.slot = -1;
   const bool listed = perm == nullptr || i < *count;
   if (listed && rays[6 * n + ray] > 0.0f) {
     Ray r;
@@ -185,7 +189,7 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
     }
   }
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
-  idx_out[ray] = best.idx;
+  slot_out[ray] = best.idx < 0 ? -1 : best.slot;
 }
 
 }  // namespace
@@ -195,7 +199,7 @@ extern "C" int srt_bvh_launch(const float* rays, const float* table,
                               const float* supers, const float* groups,
                               const int32_t* order, const int32_t* perm,
                               const int32_t* count, float* t_out,
-                              int32_t* idx_out, BvhParams p, void* stream) {
+                              int32_t* slot_out, BvhParams p, void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
   if (p.k <= 0 || p.n_clusters <= 0 || (perm == nullptr) != (count == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -205,12 +209,12 @@ extern "C" int srt_bvh_launch(const float* rays, const float* table,
     case kFlat:
       bvh_kernel<kFlat><<<blocks, kBlock, 0, st>>>(
           rays, table, gidx, boxes, supers, groups, order, perm, count, t_out,
-          idx_out, p);
+          slot_out, p);
       break;
     case kTwoLevel:
       bvh_kernel<kTwoLevel><<<blocks, kBlock, 0, st>>>(
           rays, table, gidx, boxes, supers, groups, order, perm, count, t_out,
-          idx_out, p);
+          slot_out, p);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -19,7 +19,8 @@ slab test of every (live ray, cluster) pair against the ray's ``t_init``,
 Moller-Trumbore on every slot of every admitted cluster, and the commit
 rule of ``_mt_update``: the lexicographic least (t, global index) wins,
 seeded with (t_init, -1), so only triangle hits strictly closer than
-t_init are reported.  It is culled per pair, not dense, and chunked.
+t_init are reported.  It is culled per pair, not dense, and chunked.  It
+reports the winner's table slot, whose row the caller shades from.
 
 ``compact_order`` is ``_compact_prefix`` with the "super" key: the rays
 sorted by the front-to-back rank of the first admission box they enter
@@ -50,7 +51,7 @@ BLOCK_R = 1536       # the TPU wrapper's ray block, compact_cap_auto's unit
 # (ray, cluster) pairs x K slots per chunk of the plain version, by device
 # type (as intersect.TRI_CHUNK_ELEMS)
 PAIR_CHUNK_ELEMS = {"cpu": 2 ** 22, "cuda": 2 ** 26}
-_NO_INDEX = 2 ** 31 - 1
+_NO_KEY = 2 ** 62
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,15 +209,6 @@ def compact_order(o: Vec3, d: Vec3, alive: torch.Tensor,
     return order, admitted.sum()
 
 
-@dataclasses.dataclass
-class TraversalStats:
-    """The work the plain version counts, for the kernel's bound: slab
-    tests (live rays x real clusters) and admitted (ray, cluster) pairs,
-    each of which runs K Moller-Trumbore tests."""
-    slab_tests: int = 0
-    pairs: int = 0
-
-
 def _mt(ox, oy, oz, dx, dy, dz, col):
     """Moller-Trumbore in _mt_update's operation order; ``col(j)`` is
     table column j at each (pair, slot).  Returns (t, valid)."""
@@ -243,26 +235,27 @@ def _mt(ox, oy, oz, dx, dy, dz, col):
 
 def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
                                   t_init: torch.Tensor, clusters,
-                                  table: torch.Tensor,
-                                  stats: Optional[TraversalStats] = None):
-    """(R,) rays x a clustered mesh -> (t (R,) f32, idx (R,) int32): the
-    nearest triangle hit strictly closer than ``t_init``, (+inf, -1) when
-    none is.  ``clusters`` carries the (C, 8) boxes and the hierarchy's
-    slot indices, ``table`` the (C * K, 20) slot rows."""
+                                  table: torch.Tensor):
+    """(R,) rays x a clustered mesh -> (t (R,) f32, slot (R,) int32): the
+    nearest triangle hit strictly closer than ``t_init`` and the table slot
+    of its triangle, (+inf, -1) when none is (``triangle_index`` maps a
+    slot to the triangle's index).  ``clusters`` carries the (C, 8) boxes
+    and the hierarchy's slot indices, ``table`` the (C * K, 20) slot
+    rows."""
     n_rays = o.x.shape[0]
     n_cl, k = clusters.slots.shape
     dev = o.x.device
     live = alive > 0
     inv = inverse(d)
     cols = table.reshape(n_cl, k, table.shape[1])
-    gidx = clusters.hierarchy.gidx.reshape(n_cl, k)
+    # a candidate's key: (global index << 32) | slot, so the least key is
+    # the least index and carries its slot
+    gidx = clusters.hierarchy.gidx.to(torch.int64)
+    key = ((gidx << 32) | torch.arange(n_cl * k, device=dev)).reshape(n_cl, k)
     best_t = t_init.clone()
-    best_i = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
+    best_key = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
     elems = PAIR_CHUNK_ELEMS.get(dev.type, 2 ** 22)
     ray_chunk = max(1, elems // max(n_cl, 1))
-    if stats is not None:
-        real = int((clusters.aabb[:, 0] < 1.0e37).sum())
-        stats.slab_tests += int(live.sum()) * real
     for r0 in range(0, n_rays, ray_chunk):
         rs = slice(r0, r0 + ray_chunk)
         maybe = slab_maybe(clusters.aabb, Vec3(o.x[rs], o.y[rs], o.z[rs]),
@@ -270,8 +263,6 @@ def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
                            t_init[rs], live[rs])
         c_all, r_all = maybe.nonzero(as_tuple=True)
         r_all = r_all + r0
-        if stats is not None:
-            stats.pairs += int(c_all.shape[0])
         pair_chunk = max(1, elems // k)
         for p0 in range(0, c_all.shape[0], pair_chunk):
             c_idx = c_all[p0:p0 + pair_chunk]
@@ -281,19 +272,24 @@ def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
                            ray(d.z), lambda j: cols[:, :, j][c_idx])
             t = torch.where(valid, t, math.inf)
             local_t = t.amin(dim=1)
-            g = gidx[c_idx].to(torch.int64)
-            local_i = torch.where(valid & (t == local_t[:, None]), g,
-                                  _NO_INDEX).amin(dim=1)
+            local_key = torch.where(valid & (t == local_t[:, None]),
+                                    key[c_idx], _NO_KEY).amin(dim=1)
             # the lexicographic least (t, index) per ray; the seed's -1
             # keeps an exact tie with t_init
             new_t = best_t.scatter_reduce(0, r_idx, local_t, "amin")
-            cand = torch.where(local_t == new_t[r_idx], local_i, _NO_INDEX)
-            keep = torch.where(best_t == new_t, best_i, _NO_INDEX)
-            best_i = keep.scatter_reduce(0, r_idx, cand, "amin")
+            cand = torch.where(local_t == new_t[r_idx], local_key, _NO_KEY)
+            keep = torch.where(best_t == new_t, best_key, _NO_KEY)
+            best_key = keep.scatter_reduce(0, r_idx, cand, "amin")
             best_t = new_t
-    won = best_i >= 0
+    won = best_key >= 0
     return (torch.where(won, best_t, math.inf),
-            torch.where(won, best_i, -1).to(torch.int32))
+            torch.where(won, best_key & 0xFFFFFFFF, -1).to(torch.int32))
+
+
+def triangle_index(clusters, slot: torch.Tensor) -> torch.Tensor:
+    """The global triangle index (int32) of each table slot, -1 for -1."""
+    gidx = clusters.hierarchy.gidx
+    return torch.where(slot >= 0, gidx[slot.clamp_min(0).long()], -1)
 
 
 def intersect_compacted_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
@@ -305,10 +301,10 @@ def intersect_compacted_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
     does."""
     sel = order[:count]
     pick = lambda v: Vec3(v.x[sel], v.y[sel], v.z[sel])
-    t_c, i_c = intersect_triangles_bvh_plain(pick(o), pick(d), alive[sel],
+    t_c, s_c = intersect_triangles_bvh_plain(pick(o), pick(d), alive[sel],
                                              t_init[sel], clusters, table)
     t = torch.full_like(o.x, math.inf)
-    idx = torch.full(o.x.shape, -1, dtype=torch.int32, device=o.x.device)
+    slot = torch.full(o.x.shape, -1, dtype=torch.int32, device=o.x.device)
     t[sel] = t_c
-    idx[sel] = i_c
-    return t, idx
+    slot[sel] = s_c
+    return t, slot

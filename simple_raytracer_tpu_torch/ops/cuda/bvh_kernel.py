@@ -45,7 +45,7 @@ class BvhParams(ctypes.Structure):
 
 
 # srt_bvh_launch(rays, table, gidx, boxes, supers, groups, order, perm,
-#                count, t_out, idx_out, params, stream)
+#                count, t_out, slot_out, params, stream)
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 11 + [BvhParams, ctypes.c_void_p]
 
 
@@ -133,12 +133,16 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
 
 def launch(prep: Prepared, out=None):
     """Launch on the current stream into ``out`` ((R,) f32 t, (R,) int32
-    idx; allocated when not given) and count the launch."""
+    slot; allocated when not given) and count the launch."""
     n = prep.params.n_rays
     device = prep.rays.device
     if out is None:
         out = (torch.empty(n, dtype=torch.float32, device=device),
                torch.empty(n, dtype=torch.int32, device=device))
+    elif any(t.shape != (n,) or t.dtype != dtype or t.device != device
+             or not t.is_contiguous()
+             for t, dtype in zip(out, (torch.float32, torch.int32))):
+        raise ValueError("BVH kernel: bad output tensors")
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = KERNEL.library()
     with torch.cuda.device(device):
@@ -155,10 +159,12 @@ def launch(prep: Prepared, out=None):
 def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
                             t_init: torch.Tensor, clusters,
                             table: torch.Tensor, compact: bool = False):
-    """(R,) rays x a clustered mesh -> (t f32, idx int32): the nearest
-    triangle hit strictly closer than ``t_init`` per live ray, (+inf, -1)
-    where none is.  ``compact`` walks only the rays that enter an
-    admission box; it changes no live ray's result."""
+    """(R,) rays x a clustered mesh -> (t f32, slot int32): the nearest
+    triangle hit strictly closer than ``t_init`` per live ray and the
+    table slot of its triangle, (+inf, -1) where none is
+    (``ops/bvh.triangle_index`` maps a slot to the triangle's index).
+    ``compact`` walks only the rays that enter an admission box; it
+    changes no live ray's result."""
     order = count = None
     if compact:
         order, count = bvh.compact_order(o, d, alive, t_init,

@@ -4,7 +4,7 @@ sky in one CUDA launch (``csrc/trace_kernel.cu``).
 It replaces the TPU megakernel ``_trace_kernel`` of
 ``simple_raytracer_tpu/ops/pallas/bounce_kernel.py`` with the sky
 evaluated in the kernel, including its two triangle forms: ``_tris_small``
-(a dense loop over at most ``SMALL_TRIS_MAX`` triangles) and
+(a dense loop over at most ``scene_types.SMALL_TRIS_MAX`` triangles) and
 ``_tris_clustered`` (a BVH-clustered mesh of at most ``TABLE_MAX_SLOTS``
 slots).  Its plain PyTorch version, ``trace_full_plain``, is
 ``generate_rays`` followed by ``trace_rays`` in its whole-trace form
@@ -12,9 +12,10 @@ slots).  Its plain PyTorch version, ``trace_full_plain``, is
 
 ``trace_full`` takes the plain version only for a scene on the CPU.  For
 a scene on a CUDA device it launches the kernel or raises: there is no
-fallback, and a mesh outside the kernel's envelope (see ``tri_variant``)
-raises too; ``ops/trace.render_pass`` sends such scenes to the split
-per-bounce path instead.  The tables sit in shared memory, and the launch
+fallback, and a mesh outside the kernel's envelope
+(``scene_types.whole_trace_variant`` is None) raises too;
+``ops/trace.render_pass`` sends such scenes to the split per-bounce path
+instead.  The tables sit in shared memory, and the launch
 opts in to more than the default 48 KB, up to the device's limit.  The
 kernel is built on first use (``ops/cuda/build.py``).
 """
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 
 from ..camera import generate_rays
-from ..scene_types import TABLE_MAX_SLOTS, Clusters, DeviceScene
+from ..scene_types import (TABLE_MAX_SLOTS, Clusters, DeviceScene,
+                           whole_trace_variant)
 from ..vec import Vec3
 from .build import PACKAGE_DIR, Kernel
 
@@ -37,9 +39,6 @@ BLOCK = 256
 # dynamic shared memory a block gets without opting in; above it the
 # launch opts in, up to the device's limit (227 KB on an H100)
 DEFAULT_SHARED_BYTES = 48 * 1024
-# meshes of at most this many triangles (padded) and no clusters take the
-# dense in-kernel loop (bounce_kernel.SMALL_TRIS_MAX)
-SMALL_TRIS_MAX = 64
 # the kernel's triangle variants, as the CUDA source's TriMode
 TRI_MODES = {"none": 0, "small": 1, "clustered": 2}
 # bytes of parameters a kernel takes on every architecture; the launch
@@ -150,38 +149,6 @@ def prim_tables(scene: DeviceScene):
     return sph.contiguous(), pln.contiguous(), mat.contiguous()
 
 
-def tri_variant(scene: DeviceScene) -> str:
-    """The kernel's triangle variant for a scene: "none", "small" (at most
-    SMALL_TRIS_MAX triangles, no clusters) or "clustered" (at most
-    TABLE_MAX_SLOTS cluster slots), as the TPU's whole-trace rule
-    (ops/trace.py ``mega_tris``).  Any other mesh raises."""
-    tris = scene.triangles
-    n = tris.material.shape[0]
-    cl = tris.clusters
-    if cl is None and n == 0:
-        return "none"
-    if cl is None and n <= SMALL_TRIS_MAX:
-        return "small"
-    if cl is not None and cl.slots.numel() <= TABLE_MAX_SLOTS:
-        return "clustered"
-    raise NotImplementedError(
-        f"trace kernel: a mesh of {n} triangles "
-        + ("with %d cluster slots" % cl.slots.numel() if cl is not None
-           else "without clusters")
-        + " is outside the whole-trace kernel; ops/trace.render_pass "
-        "sends it to the split per-bounce path (ops/cuda/bvh_kernel.py "
-        "for clustered meshes)")
-
-
-def whole_trace_serves(scene: DeviceScene) -> bool:
-    """Does the whole-trace kernel serve this scene (``tri_variant``)?"""
-    try:
-        tri_variant(scene)
-    except NotImplementedError:
-        return False
-    return True
-
-
 def group_order(clusters: Clusters, position) -> np.ndarray:
     """Front-to-back order of the groups of 8 clusters from the camera
     position: by the squared distance of each group's nearest box center,
@@ -229,7 +196,7 @@ class Prepared:
     """One pass's launch, checked and packed: tables and parameters."""
     tables: tuple            # spheres, planes, materials (device f32)
     tri_tables: tuple        # triangle rows, cluster boxes
-    variant: str             # tri_variant
+    variant: str             # scene_types.whole_trace_variant
     params: TraceParams
     n_rays: int
     device: torch.device
@@ -241,7 +208,16 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     """Check a CUDA pass's arguments and pack its launch."""
     if tile_height is None:
         tile_height = height
-    variant = tri_variant(scene)
+    variant = whole_trace_variant(scene)
+    if variant is None:
+        tris = scene.triangles
+        raise NotImplementedError(
+            f"trace kernel: a mesh of {tris.material.shape[0]} triangles "
+            + ("with %d cluster slots" % tris.clusters.slots.numel()
+               if tris.clusters is not None else "without clusters")
+            + " is outside the whole-trace kernel; ops/trace.render_pass "
+            "sends it to the split per-bounce path (ops/cuda/bvh_kernel.py "
+            "for clustered meshes)")
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"trace kernel: unsupported device {device}")

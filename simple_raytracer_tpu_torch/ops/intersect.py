@@ -12,8 +12,9 @@ first minimum t per ray.  The nearest hit comes in two forms:
   ``closest_hit`` with ``tri_backend="bvh"``): a clustered mesh goes
   through the BVH kernel (``ops/cuda/bvh_kernel.py``), seeded with the
   nearest sphere or plane hit, a mesh without clusters through the dense
-  loop; the winner's row is gathered by its index and the smooth normal
-  interpolated at the barycentric weights of the hit position
+  loop; the winner's table row is gathered (at the BVH kernel's slot, or
+  the dense loop's index) and the smooth normal interpolated at the
+  barycentric weights of the hit position
   (``barycentric_weights_from_edges``).
 
 The two normals differ by float rounding only.
@@ -235,8 +236,8 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
     through the BVH kernel with its far bound seeded by the nearest
     sphere or plane hit (on the CPU, its plain version), behind the ray
     compaction when ``compact``; a mesh without clusters through the dense
-    loop.  The winner's row is gathered by its index and shaded at the
-    hit position."""
+    loop.  The winner's table row (at its slot, or for a mesh without
+    clusters its index) is gathered and shaded at the hit position."""
     t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
     tr = scene.triangles
     t_t = torch.full_like(o.x, math.inf)
@@ -245,9 +246,9 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
         t_t, i_t = bvh_kernel.intersect_triangles_bvh(
             o, d, alive, torch.minimum(t_s, t_p), tr.clusters, tr.table,
             compact=compact)
-        i_t = i_t.clamp_min(0).long()   # -1 (no win): any row; t is +inf
+        i_t = i_t.clamp_min(0).long()   # slot -1 (no win): any row; t is +inf
     elif tr.material.shape[0] > 0:
         t_t, i_t, _, _ = intersect_triangles(o, d, tr)
     return _resolve(scene, o, d, t_s, i_s, t_p, i_p, t_t,
-                    lambda position: shade_from_position(tr.rows[i_t],
+                    lambda position: shade_from_position(tr.table[i_t],
                                                          position))

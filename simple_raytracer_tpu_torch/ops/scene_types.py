@@ -72,9 +72,6 @@ class Triangles:
     # the kernels' rows of TRI_COLS f32: the Nt triangles in order, or for
     # a clustered mesh the C * K cluster slots (see tri_table)
     table: torch.Tensor
-    # one row per triangle, by index: the split path gathers a winner's
-    # row here (the same tensor as ``table`` without clusters)
-    rows: torch.Tensor
     clusters: Optional[Clusters] = None
 
 
@@ -130,6 +127,23 @@ TRI_COLS = 20
 # the largest cluster table (C * K slots) the whole-trace kernel serves; it
 # also sets the scene build's choice of K (the TPU's VMEM_TABLE_MAX_SLOTS)
 TABLE_MAX_SLOTS = VMEM_TABLE_MAX_SLOTS
+# meshes of at most this many triangles (padded) and no clusters take the
+# whole-trace kernel's dense in-kernel loop (bounce_kernel.SMALL_TRIS_MAX)
+SMALL_TRIS_MAX = 64
+
+
+def whole_trace_variant(scene: DeviceScene) -> Optional[str]:
+    """The whole-trace kernel's triangle variant for a scene, as the TPU's
+    whole-trace rule (ops/trace.py ``mega_tris``): "none", "small" (at
+    most SMALL_TRIS_MAX triangles, no clusters) or "clustered" (at most
+    TABLE_MAX_SLOTS cluster slots); None for any other mesh, which takes
+    the split per-bounce path."""
+    tris = scene.triangles
+    n = tris.material.shape[0]
+    cl = tris.clusters
+    if cl is None:
+        return "none" if n == 0 else "small" if n <= SMALL_TRIS_MAX else None
+    return "clustered" if cl.slots.numel() <= TABLE_MAX_SLOTS else None
 
 
 def tri_table(tris: dict, slots: Optional[np.ndarray] = None) -> np.ndarray:
@@ -221,11 +235,9 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
         clusters = Clusters(aabb=aabb_t, slots=slots_t, centers=centers,
                             extent=extent,
                             hierarchy=build_hierarchy(aabb_t, slots_t))
-    rows = t(tri_table(tris))
     triangles = Triangles(
         **{k: t(tris[k]) for k in TRI_VECTORS + ("material", "active")},
-        table=rows if slots is None else t(tri_table(tris, slots)),
-        rows=rows, clusters=clusters)
+        table=t(tri_table(tris, slots)), clusters=clusters)
 
     return DeviceScene(
         spheres=Spheres(center=f32("spheres.center", (3,)),

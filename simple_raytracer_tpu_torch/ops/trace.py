@@ -35,7 +35,7 @@ from . import bvh
 from .bsdf import gather_materials, sample_material
 from .camera import camera_rotation, generate_rays, untile_pixels
 from .intersect import closest_hit, closest_hit_split
-from .scene_types import DeviceScene
+from .scene_types import DeviceScene, whole_trace_variant
 from .sky import sky_gradient
 from .vec import Vec3, where as vwhere
 
@@ -125,9 +125,8 @@ def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
 def takes_whole_trace(scene: DeviceScene, tri_backend: str = "auto") -> bool:
     """Does render_pass trace this scene with the whole-trace kernel (or
     its plain version), rather than the split per-bounce path?"""
-    from .cuda.trace_kernel import whole_trace_serves
     check_tri_backend(tri_backend)
-    return tri_backend == "auto" and whole_trace_serves(scene)
+    return tri_backend == "auto" and whole_trace_variant(scene) is not None
 
 
 def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,

@@ -92,10 +92,17 @@ def _jax_bvh(ds, o, d, alive, t_init, route):
 
 
 def _port_bvh(ts, o, d, alive, t_init):
-    cl = ts.triangles.clusters
-    t, i = bvh.intersect_triangles_bvh_plain(
+    """The plain version's t and the winners' triangle indices; each
+    winner's slot holds its triangle's table row."""
+    tr = ts.triangles
+    t, slot = bvh.intersect_triangles_bvh_plain(
         tvec(o), tvec(d), torch.from_numpy(alive), torch.from_numpy(t_init),
-        cl, ts.triangles.table)
+        tr.clusters, tr.table)
+    assert slot.dtype == torch.int32
+    i = bvh.triangle_index(tr.clusters, slot)
+    won = slot >= 0
+    np.testing.assert_array_equal(tr.table[slot[won].long(), 0:3].numpy(),
+                                  tr.v0[i[won].long()].numpy())
     return t.numpy(), i.numpy()
 
 
@@ -179,9 +186,11 @@ def test_equal_t_tie_across_clusters_picks_lowest_index():
         jnp.asarray(aabb), jnp.asarray(table), block_r=128, interpret=True)
     cl = _clusters(aabb, slots)
     tab = torch.from_numpy(np.ascontiguousarray(table[:, :20]))
-    pt, pi = bvh.intersect_triangles_bvh_plain(
+    pt, ps = bvh.intersect_triangles_bvh_plain(
         tvec(o), tvec(d), torch.from_numpy(alive), torch.from_numpy(t_init),
         cl, tab)
+    assert (ps.numpy()[8:] == 8).all()            # slot 8 holds index 2
+    pi = bvh.triangle_index(cl, ps)
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
     assert (pi.numpy()[8:] == 2).all() and (pi.numpy()[:8] == -1).all()
     np.testing.assert_array_equal(pt.numpy()[8:], 2.0)
@@ -301,13 +310,13 @@ def test_compacted_route_equals_dense_route(every_ray_admits):
         assert count == n
     else:
         assert 0 < count < n
-    tc, ic = bk.intersect_triangles_bvh(*args, cl, ts.triangles.table,
+    tc, sc = bk.intersect_triangles_bvh(*args, cl, ts.triangles.table,
                                         compact=True)
-    td, idd = bk.intersect_triangles_bvh(*args, cl, ts.triangles.table)
+    td, sd = bk.intersect_triangles_bvh(*args, cl, ts.triangles.table)
     live = alive > 0
-    np.testing.assert_array_equal(ic.numpy()[live], idd.numpy()[live])
+    np.testing.assert_array_equal(sc.numpy()[live], sd.numpy()[live])
     np.testing.assert_array_equal(tc.numpy()[live], td.numpy()[live])
-    assert (idd.numpy()[live] >= 0).sum() > 100
+    assert (sd.numpy()[live] >= 0).sum() > 100
 
 
 def test_barycentric_weights_match_jax():

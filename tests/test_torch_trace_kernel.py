@@ -28,7 +28,8 @@ from simple_raytracer_tpu.ops.camera import camera_rotation as jrotation
 from simple_raytracer_tpu.ops.pallas import bounce_kernel
 from simple_raytracer_tpu_torch.ops.camera import camera_rotation
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
-from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
+from simple_raytracer_tpu_torch.ops.scene_types import (from_numpy,
+                                                     whole_trace_variant)
 
 from torch_port_helpers import jax_scene_arrays, to_np
 
@@ -134,13 +135,10 @@ def test_envelope(monkeypatch):
     from simple_raytracer_tpu_torch.models.scene import Scene
     scenes = {n: CONFIGS[n](width=64, height=16)[0].build("cpu")
               for n in CONFIGS}
-    variants = {n: tk.tri_variant(scenes[n]) for n in range(1, 6)}
-    assert variants == {1: "none", 2: "none", 3: "small", 4: "clustered",
-                        5: "clustered"}
+    variants = {n: whole_trace_variant(scenes[n]) for n in CONFIGS}
     # config 6's 98,304 slots take the split per-bounce path
-    assert [n for n in CONFIGS if not tk.whole_trace_serves(scenes[n])] == [6]
-    with pytest.raises(NotImplementedError, match="split per-bounce"):
-        tk.tri_variant(scenes[6])
+    assert variants == {1: "none", 2: "none", 3: "small", 4: "clustered",
+                        5: "clustered", 6: None}
     s = Scene()
     pos, nrm = icosphere(subdivisions=2)                 # 320 triangles
     s.add_model(s.pool.append(pos[:100], nrm[:100]))
