@@ -5,26 +5,34 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-The paths: the whole-trace kernel (configs 1 to 5 under
-tri_backend="auto") and the split per-bounce path with the BVH kernel
-(config 6 under "auto": the two_level variant; config 5 under "bvh": the
-flat variant).  Phases, one line each on stdout:
+The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
+tri_backend="auto", and config 6's 98,304-slot table under "fused": the
+TPU's packed form), the split per-bounce path with the BVH kernel (config
+6 under "auto": the two_level variant; config 5 under "bvh": flat; config
+7's 1.31M triangles under "auto": streamed), and the fused per-bounce
+path (config 7 under "fused": the streamed BVH variant and the per-bounce
+shade kernel, each bounce).  Phases, one line each on stdout:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of both kernels, one nvcc each, started together;
+  2. the build of the three kernels, one nvcc each, started together;
   3. the main paths: each cell at its preset size through
      Renderer(device="cuda"), 4 progressive steps, with every kernel's
      launch counts (in all and per variant) reset just before and read
-     just after the cell; the scene build's seconds;
+     just after the cell; the scene build's seconds (once per config);
   4. each kernel against its plain PyTorch version on the card, one pass
-     of each cell at full size: the whole-trace canvas, and for the split
-     cells every BVH launch's (t, slot) on live rays and the canvas; then
-     the per-ray gate against a gate-free dense Moller-Trumbore over every
-     triangle, on every launch of a pass of one full-width band of rows;
+     of each cell at full size: the whole-trace canvas (config 6 under
+     "fused": a full-width band of rows, the plain version being a dense
+     loop over 81,920 triangles); for the per-bounce cells every BVH
+     launch's (t, slot) on live rays, every shade launch's 20 state rows,
+     and the canvas; then, for configs 6 and 5 "bvh", the per-ray gate
+     against a gate-free dense Moller-Trumbore over every triangle, on
+     every launch of a pass of one full-width band of rows;
   5. the golden-size renders (tests/test_golden.py) against
-     tests/goldens/config{1..6}.npz; a 1,025-sphere scene (tables above
-     48 KB of shared memory) against the plain version; benchmark_step
-     leaves the canvas and step count as they were;
-  6. timings with CUDA events, and each kernel's bound;
+     tests/goldens/config{1..6}.npz (config 6 also under "fused"; config
+     7 has none); a 1,025-sphere scene (tables above 48 KB of shared
+     memory) against the plain version; benchmark_step leaves the canvas
+     and step count as they were;
+  6. timings with CUDA events, and each kernel's bound; benchmark_step of
+     configs 6 and 7 under "auto" and "fused" side by side;
   7. where a Renderer.step's time goes (torch.profiler).
 Then one JSON line per the kernel table, the card line again, and the
 last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -49,13 +57,16 @@ from simple_raytracer_tpu_torch.models.materials import Material
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
 from simple_raytracer_tpu_torch.models.scene import Scene
 from simple_raytracer_tpu_torch.ops import bvh
+from simple_raytracer_tpu_torch.ops import trace as trace_mod
+from simple_raytracer_tpu_torch.ops.bounce import bounce_step_plain
 from simple_raytracer_tpu_torch.ops.camera import camera_rotation
+from simple_raytracer_tpu_torch.ops.camera import generate_rays
+from simple_raytracer_tpu_torch.ops.cuda import bounce_kernel as sk
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
-from simple_raytracer_tpu_torch.ops.camera import generate_rays
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
 from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
-from simple_raytracer_tpu_torch.ops.trace import trace_rays
+from simple_raytracer_tpu_torch.ops.trace import trace_rays, trace_rays_fused
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
 STEPS = 4                      # progressive steps on the main path
@@ -64,10 +75,19 @@ KWARGS = {3: {"skybox": "gradient"}}        # as tests/test_golden.py
 CELLS = {"1": (1, "auto", "none"), "2": (2, "auto", "none"),
          "3": (3, "auto", "small"), "4": (4, "auto", "clustered"),
          "5": (5, "auto", "clustered"), "6": (6, "auto", "two_level"),
-         "5/bvh": (5, "bvh", "flat")}
-SPLIT = ("6", "5/bvh")         # the cells of the split per-bounce path
+         "5/bvh": (5, "bvh", "flat"), "6/fused": (6, "fused", "clustered"),
+         "7": (7, "auto", "streamed"), "7/fused": (7, "fused", "streamed")}
+SPLIT = ("6", "5/bvh", "7")    # the cells of the split per-bounce path
+FUSED = ("7/fused",)           # the cells of the fused per-bounce path
+# the cells whose per-ray gate is held against a dense loop over every
+# triangle (config 7's 2,097,152 triangle slots make that loop minutes)
+GATE_CELLS = ("6", "5/bvh")
+# whole-trace cells held to their plain version on a band of rows: the
+# plain version loops densely over config 6's 81,920 triangles
+BAND_CELLS = ("6/fused",)
 GOLDEN_SIZES = {"1": (64, 64), "2": (96, 54), "3": (96, 54), "4": (96, 54),
-                "5": (96, 54), "6": (64, 36), "5/bvh": (96, 54)}
+                "5": (96, 54), "6": (64, 36), "5/bvh": (96, 54),
+                "6/fused": (64, 36)}
 GOLDEN_STEPS, GOLDEN_TIME0 = 2, 1000
 GOLDEN_RMSE = 2e-3             # tests/test_golden.py's bound
 # Kernel vs plain version: the kernels repeat the plain versions' float
@@ -76,15 +96,38 @@ GOLDEN_RMSE = 2e-3             # tests/test_golden.py's bound
 # difference (a Bernoulli draw at its threshold, the one fma the plain
 # version emulates in f64) can move a whole path, so the bound is on the
 # RMSE and on the share of pixels that differ, not on the maximum.  The
-# BVH kernel's (t, slot) must equal its plain version's on every live ray.
+# BVH kernel's (t, slot) must equal its plain version's on every live ray;
+# the shade kernel's state rows its plain version's, or the canvas must
+# keep to the bound above.
 KERNEL_RMSE = 1e-4
 KERNEL_DIFF_SHARE = 1e-3       # share of pixels more than 1e-3 apart
 HAZARD_MAX = 8                 # non-finite pixels allowed (ln(0) draws)
 N_SPHERES = 1025               # 2,048 sphere slots: 64 KB of shared memory
-GATE_ROWS = 16                 # the band of the gate check, centred
+BAND_ROWS = 16                 # the band of the gate and band checks
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 FP32_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# the kernel rows of the JSON line: (name, kernel, TPU kernel, the cell
+# timed, the cells whose launches it counts, the variant counted (None:
+# every variant))
+WHOLE = ("1", "2", "3", "4", "5", "6/fused")
+ALL = tuple(CELLS)
+ROWS = (
+    ("trace_kernel", "trace", "bounce_kernel.py:659", "2", WHOLE, None),
+    ("tris_small", "trace", "bounce_kernel.py:238", "3", ("3",), "small"),
+    ("tris_clustered", "trace", "bounce_kernel.py:291", "5", ("4", "5"),
+     "clustered"),
+    ("tris_clustered_packed", "trace", "bounce_kernel.py:376", "6/fused",
+     ("6/fused",), "clustered"),
+    ("bvh_flat", "bvh", "bvh_kernel.py:201", "5/bvh", ALL, "flat"),
+    ("bvh_two_level", "bvh", "bvh_kernel.py:1040", "6", ALL, "two_level"),
+    ("bvh_streamed", "bvh", "bvh_kernel.py:678", "7", ALL, "streamed"),
+    ("bounce_kernel", "bounce", "bounce_kernel.py:584", "7/fused", ALL,
+     "bounce"),
+)
+SOURCES = {"trace": "trace_kernel.cu", "bvh": "bvh_kernel.cu",
+           "bounce": "bounce_kernel.cu"}
+KERNELS = {"trace": tk.KERNEL, "bvh": bk.KERNEL, "bounce": sk.KERNEL}
 
 
 def say(msg: str) -> None:
@@ -135,7 +178,7 @@ def trace_args(renderer: Renderer, camera, time_seed: int) -> tuple:
 
 
 def build_kernels() -> str:
-    """Build both kernels at once (one nvcc each) and report ptxas's
+    """Build the three kernels at once (one nvcc each) and report ptxas's
     registers and spills per variant."""
     errors = []
 
@@ -146,7 +189,7 @@ def build_kernels() -> str:
             errors.append(str(exc))
 
     threads = [threading.Thread(target=build, args=(k,))
-               for k in (tk.KERNEL, bk.KERNEL)]
+               for k in KERNELS.values()]
     for t in threads:
         t.start()
     for t in threads:
@@ -155,14 +198,15 @@ def build_kernels() -> str:
         fail("kernel build: " + "\n".join(errors))
     parts = []
     for kernel, entry, names in ((tk.KERNEL, "trace_kernel", tk.TRI_MODES),
-                                 (bk.KERNEL, "bvh_kernel", bk.VARIANTS)):
-        # ptxas reports each template instance after its "entry function"
+                                 (bk.KERNEL, "bvh_kernel", bk.VARIANTS),
+                                 (sk.KERNEL, "bounce_kernel", {})):
+        # ptxas reports each entry (template instance) after its name
         modes = {str(v): k for k, v in names.items()}
         variant = None
         for line in kernel.build_log.splitlines():
-            m = re.search(rf"entry function '.*{entry}ILi(\d)E", line)
+            m = re.search(rf"entry function '.*{entry}(?:ILi(\d)E)?", line)
             if m:
-                variant = modes.get(m.group(1), m.group(1))
+                variant = modes.get(m.group(1), m.group(1) or entry)
             elif "registers" in line or "spill" in line:
                 parts.append(f"{variant}: "
                              + line.split("ptxas info    : ")[-1].strip())
@@ -179,13 +223,17 @@ MT_FLOPS = 46              # one Moller-Trumbore test (mt_update)
 SLAB_FLOPS = 24            # one box's slab test, without the margin
 INV_DIR_FLOPS = 3          # the reciprocal direction of the traversal
 SHADE_FLOPS = 30           # position, normal, front flip, emission
+BARY_FLOPS = 44            # barycentric weights and the normal (bounce)
 BSDF_FLOPS = 275           # 3 normals (log, cos), 3 uniforms, mixes
 SKY_FLOPS = 54             # the gradient sky and the final add
 BVH_RAY_BYTES = 32 + 8     # a ray in (o, d, alive, t_init), (t, slot) out
 TRI_ROW_BYTES = 80 + 4     # a slot row of the table and its index
+# the shade kernel: 20 state rows in and out, the winner's (t, slot) in
+BOUNCE_RAY_BYTES = (20 + 20 + 2) * 4
 
 
-def kernel_flops(scene, n_rays: int, segments: list) -> float:
+def kernel_flops(scene, tri_backend: str, n_rays: int,
+                 segments: list) -> float:
     """Float operations this pass's data needs (``segments`` from the plain
     version: live rays, hits, triangle hits per bounce): every live ray
     tests each active sphere and plane, every hit shades, and every hit
@@ -197,7 +245,7 @@ def kernel_flops(scene, n_rays: int, segments: list) -> float:
     n_s = int(scene.spheres.active.sum())
     n_p = int(scene.planes.active.sum())
     tris = scene.triangles
-    variant = whole_trace_variant(scene)
+    variant = whole_trace_variant(scene, tri_backend)
     flops = n_rays * (RAYGEN_FLOPS + SKY_FLOPS)
     for i, (live, hits, tri_hits) in enumerate(segments):
         flops += live * (n_s * SPHERE_FLOPS + n_p * PLANE_FLOPS)
@@ -257,7 +305,8 @@ def canvas_diff(k: torch.Tensor, p: torch.Tensor, s: int):
     return rmse, share, same_bad
 
 
-def plain_bvh(o, d, alive, t_init, clusters, table, compact=False):
+def plain_bvh(o, d, alive, t_init, clusters, table, compact=False,
+              force_streamed=False):
     """The BVH kernel's wrapper with its plain version on the card."""
     if compact:
         order, count = bvh.compact_order(o, d, alive, t_init,
@@ -268,38 +317,71 @@ def plain_bvh(o, d, alive, t_init, clusters, table, compact=False):
                                              table)
 
 
-def split_pass(r: Renderer, camera, time_seed: int, plain: bool = False,
-               band=None):
-    """One pass of the split path's per-ray radiance, (3, R), by the steps
-    render_pass takes (generate_rays, the split trace_rays); returns it
-    and the BVH launches it made ([(Prepared, (t, slot))]).  ``plain``
-    swaps the BVH kernel for its plain version; ``band`` = (row0, rows)
-    traces only those rows."""
+def plain_bounce(state, is_last, scene, tri=None, tables=None):
+    """ops/bounce.bounce_step with its plain version on the card."""
+    return bounce_step_plain(state, is_last, scene, tri)
+
+
+class Recorder:
+    """Swaps the kernels' launches (and, with ``plain``, the BVH and shade
+    wrappers for their plain versions) for one pass, recording each
+    launch's prepared arguments and result."""
+
+    def __init__(self, plain: bool = False):
+        self.plain = plain
+        self.bvh, self.shade = [], []
+
+    def __enter__(self):
+        self.saved = (bk.launch, sk.launch, bk.intersect_triangles_bvh,
+                      trace_mod.bounce_step)
+        launch_b, launch_s = bk.launch, sk.launch
+
+        def rec_b(prep, out=None):
+            res = launch_b(prep, out)
+            self.bvh.append((prep, res))
+            return res
+
+        def rec_s(prep, out=None):
+            res = launch_s(prep, out)
+            self.shade.append((prep, res))
+            return res
+
+        bk.launch, sk.launch = rec_b, rec_s
+        if self.plain:
+            bk.intersect_triangles_bvh = plain_bvh
+            trace_mod.bounce_step = plain_bounce
+        return self
+
+    def __exit__(self, *exc):
+        (bk.launch, sk.launch, bk.intersect_triangles_bvh,
+         trace_mod.bounce_step) = self.saved
+        return False
+
+
+def per_bounce_pass(r: Renderer, camera, time_seed: int, plain: bool = False,
+                    band=None):
+    """One pass of a per-bounce cell's per-ray radiance, (3, R), by the
+    steps render_pass takes (generate_rays, then the split trace_rays or
+    trace_rays_fused); returns it and the Recorder of its launches.
+    ``plain`` swaps the kernels for their plain versions; ``band`` =
+    (row0, rows) traces only those rows."""
     o = r.options
     row0, rows = band if band is not None else (0, None)
-    recorded = []
-    launch, wrapper = bk.launch, bk.intersect_triangles_bvh
-
-    def record(prep, out=None):
-        res = launch(prep, out)
-        recorded.append((prep, res))
-        return res
-
-    bk.launch = record
-    if plain:
-        bk.intersect_triangles_bvh = plain_bvh
-    try:
+    with Recorder(plain) as rec:
         cam = camera.state(o.width / o.height)
         orig, dirs, seed = generate_rays(
             o.width, o.height, o.num_samples, time_seed, cam.position,
             camera_rotation(cam.yaw, cam.pitch), cam.aspect_ratio,
             cam.fov_scale, row0=row0, tile_height=rows,
             tile=r.ray_tile if band is None else None, device=r.device)
-        color = trace_rays(r.device_scene, orig, dirs, seed, o.num_bounces,
-                           split=True)
-    finally:
-        bk.launch, bk.intersect_triangles_bvh = launch, wrapper
-    return torch.stack(list(color)), recorded
+        if trace_mod.fused_ok(r.device_scene, o.tri_backend):
+            color = trace_rays_fused(r.device_scene, orig, dirs, seed,
+                                     o.num_bounces)
+        else:
+            color = trace_rays(r.device_scene, orig, dirs, seed,
+                               o.num_bounces, split=True,
+                               tri_backend=o.tri_backend)
+    return torch.stack(list(color)), rec
 
 
 def bvh_inputs(prep):
@@ -308,20 +390,88 @@ def bvh_inputs(prep):
             rays[6], rays[7])
 
 
+def check_bvh_launches(label: str, recorded, clusters, table):
+    """Every recorded BVH launch against its plain version on the same
+    rays: (t, slot) equal on every live ray.  Returns (max |dt|, work per
+    launch (walked rays, triangle hits, rays, compacted), plain seconds,
+    one report per launch)."""
+    max_abs, work, plain_s, lines = 0.0, [], 0.0, []
+    for b, (prep, (t_k, s_k)) in enumerate(recorded):
+        o_, d_, alive, t_init = bvh_inputs(prep)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        t_p, s_p = bvh.intersect_triangles_bvh_plain(o_, d_, alive, t_init,
+                                                     clusters, table)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t1
+        live = alive > 0
+        slot_diff = int((s_k[live] != s_p[live]).sum())
+        fin = live & torch.isfinite(t_p) & torch.isfinite(t_k)
+        t_same = bool(torch.equal(torch.isinf(t_k[live]),
+                                  torch.isinf(t_p[live])))
+        diff = (t_k[fin] - t_p[fin]).abs()
+        m = float(diff.max()) if diff.numel() else 0.0
+        max_abs = max(max_abs, m)
+        compact = prep.perm is not None
+        # the rays the kernel walks: the admitted prefix when compacted
+        walked = int(prep.count) if compact else int(live.sum())
+        tri_hits = int((s_k[live] >= 0).sum())
+        work.append((walked, tri_hits, prep.params.n_rays, compact))
+        lines.append(f"b{b}: live {int(live.sum())} "
+                     f"{'compact' if compact else 'dense'}, walked "
+                     f"{walked}, triangle hits {tri_hits}, slot diff "
+                     f"{slot_diff}, max|dt| {m:.3e}")
+        if slot_diff or m != 0.0 or not t_same:
+            fail(f"cell {label} bounce {b}: the BVH kernel's (t, slot) "
+                 f"differ from the plain version on {slot_diff} live "
+                 f"rays (max |dt| {m})")
+    return max_abs, work, plain_s, lines
+
+
+def check_shade_launches(scene, recorded):
+    """Every recorded shade launch against its plain version on the same
+    state and winners: the rays whose 20 rows differ in any bit.  Returns
+    (rays that differ, max |difference| over finite rows, work per launch
+    (live rays, rays that go on, Rp, last), plain seconds, reports)."""
+    differ, max_abs, work, plain_s, lines = 0, 0.0, [], 0.0, []
+    for b, (prep, out) in enumerate(recorded):
+        t, slot, _ = prep.tri
+        tri = None if t is None else (t, slot)
+        last = bool(prep.params.is_last)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = bounce_step_plain(prep.state, last, scene, tri)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t1
+        bad = int((out.view(torch.int32) != ref.view(torch.int32)).any(0)
+                  .sum())
+        fin = torch.isfinite(out) & torch.isfinite(ref)
+        diff = (out - ref).abs()[fin]
+        m = float(diff.max()) if diff.numel() else 0.0
+        differ += bad
+        max_abs = max(max_abs, m)
+        live = int((prep.state[7] > 0).sum())
+        went_on = int((out[7] > 0).sum())
+        work.append((live, went_on, prep.params.n_rays, last))
+        lines.append(f"b{b}: live {live}, on {went_on}, rays whose rows "
+                     f"differ {bad}, max|d| {m:.3e}")
+    return differ, max_abs, work, plain_s, lines
+
+
 def gate_check(r: Renderer, camera):
     """The per-ray gate (kernel and plain version alike) against a
     gate-free dense Moller-Trumbore over every triangle, on the live rays
-    of every BVH launch of one pass of GATE_ROWS full-width rows at the
+    of every BVH launch of one pass of BAND_ROWS full-width rows at the
     image's centre.  The TPU gates a 128-ray sub-block, which admits at
     least what each of its rays admits, so a hit the dense loop finds and
     the gate loses is the most by which the two can differ.  Both run the
     same float operations, so a gate hit the dense loop lacks is a fault.
     Returns (row0, launches, dense hits, rays lost or farther, extra)."""
-    row0 = (r.options.height - GATE_ROWS) // 2
-    _, recorded = split_pass(r, camera, 4243, band=(row0, GATE_ROWS))
+    row0 = (r.options.height - BAND_ROWS) // 2
+    _, rec = per_bounce_pass(r, camera, 4243, band=(row0, BAND_ROWS))
     tris = r.device_scene.triangles
     hits = lost = extra = 0
-    for prep, (t_k, s_k) in recorded:
+    for prep, (t_k, s_k) in rec.bvh:
         o_, d_, alive, t_init = bvh_inputs(prep)
         live = alive > 0
         sub = lambda v: Vec3(v.x[live], v.y[live], v.z[live])
@@ -331,7 +481,7 @@ def gate_check(r: Renderer, camera):
         hits += int(dense.sum())
         lost += int((dense & ~(gate & (t_k[live] == t_d))).sum())
         extra += int((gate & ~dense).sum())
-    return row0, len(recorded), hits, lost, extra
+    return row0, len(rec.bvh), hits, lost, extra
 
 
 def sphere_scene() -> Scene:
@@ -349,6 +499,60 @@ def sphere_scene() -> Scene:
     return s
 
 
+def bvh_bound(clusters, work) -> tuple:
+    """(FLOP, bytes) the least a pass's BVH launches need: each walked ray
+    slab-tests the hierarchy's root boxes, a ray whose nearest hit is a
+    triangle runs MT over the K slots of that triangle's cluster; each ray
+    is read and written once (its order index too when compacted), the
+    slot table and boxes once a launch."""
+    roots = int((clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
+    flops = sum(walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
+                + tri_hits * clusters.k * MT_FLOPS
+                for walked, tri_hits, _, _ in work)
+    nbytes = sum(n * (BVH_RAY_BYTES + (4 if compact else 0))
+                 + clusters.slots.numel() * TRI_ROW_BYTES
+                 + 32 * clusters.aabb.shape[0]
+                 for _, _, n, compact in work)
+    return float(flops), float(nbytes), roots
+
+
+def shade_bound(scene, work) -> tuple:
+    """(FLOP, bytes) the least a pass's shade launches need: each live ray
+    tests every active sphere and plane, each ray that goes on shades and
+    samples the BSDF (a floor: the last bounce's hits and the triangle
+    normals are not counted); 168 bytes per state column."""
+    n_s = int(scene.spheres.active.sum())
+    n_p = int(scene.planes.active.sum())
+    flops = sum(live * (n_s * SPHERE_FLOPS + n_p * PLANE_FLOPS)
+                + went_on * (SHADE_FLOPS + BSDF_FLOPS)
+                for live, went_on, _, _ in work)
+    nbytes = sum(n * BOUNCE_RAY_BYTES for _, _, n, _ in work)
+    return float(flops), float(nbytes)
+
+
+def unstaged(preps, outs, staged_ms: float) -> str:
+    """The streamed variant's launches of one pass replayed on the
+    two_level variant, which walks the same gates per ray and reads each
+    slot from global memory: what the warp's staging changes, on the same
+    inputs in the same call.  The results must be the same."""
+    alt = []
+    for pp, (t, s) in zip(preps, outs):
+        q = pp.params
+        params = bk.BvhParams(q.n_rays, q.n_order, q.n_clusters, q.k,
+                              bk.VARIANTS["two_level"])
+        alt.append((dataclasses.replace(pp, variant="two_level",
+                                        params=params),
+                    (torch.empty_like(t), torch.empty_like(s))))
+    ms = float(np.median(cuda_ms(lambda: [bk.launch(q, o) for q, o in alt],
+                                 iters=5)))
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for (_, a), b in zip(alt, outs))
+    if not same:
+        fail("the streamed and two_level variants disagree")
+    return (f"the same launches on two_level (no staging) {ms:.4f} ms/pass, "
+            f"streamed / two_level {staged_ms / ms:.3f}, results equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -359,48 +563,67 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ptxas = build_kernels()
-    say(f"[2] build: {time.perf_counter() - t0:.2f} s for both kernels "
+    say(f"[2] build: {time.perf_counter() - t0:.2f} s for the three kernels "
         f"(nvcc sm_90a, ctypes; trace_kernel.cu "
         f"{tk.KERNEL.build_seconds:.2f} s, bvh_kernel.cu "
-        f"{bk.KERNEL.build_seconds:.2f} s); ptxas: {ptxas}")
+        f"{bk.KERNEL.build_seconds:.2f} s, bounce_kernel.cu "
+        f"{sk.KERNEL.build_seconds:.2f} s); ptxas: {ptxas}")
 
     # ---- 3: the main paths, each cell's counts reset just before it ----
-    renderers = {}
-    for label, (n, backend, _) in CELLS.items():
-        scene, camera, options = CONFIGS[n](**KWARGS.get(n, {}))
-        options = dataclasses.replace(options, tri_backend=backend)
-        t0 = time.perf_counter()
-        r = Renderer(options, scene, device="cuda")
-        torch.cuda.synchronize()
-        renderers[label] = (r, camera, time.perf_counter() - t0)
-    totals = {"trace": {}, "bvh": {}}
-    for label, (r, camera, build_s) in renderers.items():
+    scenes, renderers = {}, {}
+    for label in CELLS:
+        n, backend, _ = CELLS[label]
+        if n not in scenes:
+            # one scene build per config, shared by its cells
+            t0 = time.perf_counter()
+            scene, camera, options = CONFIGS[n](**KWARGS.get(n, {}))
+            t1 = time.perf_counter()
+            ds = scene.build("cuda")
+            torch.cuda.synchronize()
+            scenes[n] = (ds, camera, options, t1 - t0,
+                         time.perf_counter() - t1)
+            tris = ds.triangles
+            say(f"[3] config {n}: preset {t1 - t0:.3f} s (its procedural "
+                f"mesh), build {scenes[n][4]:.3f} s (clusters, tables, "
+                f"upload): {int(tris.active.sum())} triangles"
+                + (f", {tris.clusters.slots.shape[0]} clusters of "
+                   f"{tris.clusters.k} ({tris.clusters.slots.numel()} slots"
+                   f", {tris.table.numel() * 4 / 1e6:.1f} MB table)"
+                   if tris.clusters is not None else ""))
+        ds, camera, options, _, _ = scenes[n]
+        r = Renderer(dataclasses.replace(options, tri_backend=backend),
+                     device="cuda")
+        r.set_device_scene(ds)
+        renderers[label] = (r, camera)
+    totals = {}
+    for label, (r, camera) in renderers.items():
         want_variant = CELLS[label][2]
         o = r.options
-        tk.KERNEL.reset_counts()
-        bk.KERNEL.reset_counts()
+        for kernel in KERNELS.values():
+            kernel.reset_counts()
         for _ in range(STEPS):
             r.step(camera)
         torch.cuda.synchronize()
-        got = {"trace": dict(tk.KERNEL.variant_launches),
-               "bvh": dict(bk.KERNEL.variant_launches)}
+        got = {kind: dict(k.variant_launches) for kind, k in KERNELS.items()}
+        per_pass = STEPS * o.num_bounces
+        want = {"trace": {}, "bvh": {}, "bounce": {}}
         if label in SPLIT:
-            want = {"trace": {}, "bvh": {want_variant: STEPS * o.num_bounces}}
+            want["bvh"] = {want_variant: per_pass}
+        elif label in FUSED:
+            want["bvh"] = {want_variant: per_pass}
+            want["bounce"] = {"bounce": per_pass}
         else:
-            want = {"trace": {want_variant: STEPS}, "bvh": {}}
-        for kind in totals:
-            for v, c in got[kind].items():
-                totals[kind][v] = totals[kind].get(v, 0) + c
+            want["trace"] = {want_variant: STEPS}
+        totals[label] = got
         canvas = r.canvas
         bad = int((~torch.isfinite(canvas).all(dim=-1)).sum())
         img = r.image()
         say(f"[3] cell {label} (config {CELLS[label][0]}, tri_backend="
             f"{o.tri_backend}) {o.width}x{o.height} spp={o.num_samples} "
-            f"bounces={o.num_bounces}: scene build {build_s:.3f} s; "
-            f"{STEPS} steps, launches {got} (want {want}); non-finite "
-            f"(ln 0 hazard) pixels={bad}, image {img.shape} {img.dtype} "
-            f"min={img.min()} max={img.max()} mean={img.mean():.3f}  "
-            f"[{card}]")
+            f"bounces={o.num_bounces}: {STEPS} steps, launches {got} (want "
+            f"{want}); non-finite (ln 0 hazard) pixels={bad}, image "
+            f"{img.shape} {img.dtype} min={img.min()} max={img.max()} "
+            f"mean={img.mean():.3f}  [{card}]")
         if got != want:
             fail(f"cell {label}: launches {got}, want {want}")
         if bad > HAZARD_MAX:
@@ -409,96 +632,107 @@ def main() -> int:
             fail(f"cell {label}: image {img.shape} {img.dtype}")
         if img.min() == img.max():
             fail(f"cell {label}: constant image")
-    say(f"[3] launches in all: {totals}")
+    say(f"[3] launches per cell: {totals}")
 
     # ---- 4: kernels vs plain versions, full size, one pass ----
     results = {}
-    for label, (r, camera, _) in renderers.items():
+    for label, (r, camera) in renderers.items():
         s = r.options.num_samples
-        if label not in SPLIT:
+        backend = r.options.tri_backend
+        ds = r.device_scene
+        if label not in SPLIT + FUSED:
             args, kw = trace_args(r, camera, 4242)
-            k = torch.stack(list(tk.trace_full(*args, **kw)))
+            if label in BAND_CELLS:
+                # a full-width band of rows at the image's centre
+                row0 = (r.options.height - BAND_ROWS) // 2
+                run_kw = dict(kw, row0=row0, tile_height=BAND_ROWS,
+                              ray_tile=None)
+                where = (f"rows {row0}-{row0 + BAND_ROWS - 1} x "
+                         f"{r.options.width}")
+            else:
+                run_kw, where = kw, "the full pass"
+            k = torch.stack(list(tk.trace_full(*args, **run_kw,
+                                               tri_backend=backend)))
             segments = []
-            p = torch.stack(list(tk.trace_full_plain(*args, **kw,
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p = torch.stack(list(tk.trace_full_plain(*args, **run_kw,
                                                      segments=segments)))
             torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
             both = torch.isfinite(k) & torch.isfinite(p)
             err = (k - p).abs()[both]
             max_abs = float(err.max()) if err.numel() else 0.0
             rmse, share, same_bad = canvas_diff(k, p, s)
             bitexact = bool(torch.equal(k[both], p[both]))
             results[label] = dict(max_abs=max_abs, segments=segments,
-                                  args=args, kw=kw, n_rays=k.shape[1])
-            say(f"[4] cell {label} kernel vs plain: rmse={rmse:.3e} "
-                f"share>1e-3={share:.3e} max_abs={max_abs:.3e} "
-                f"bit-identical={bitexact} non-finite masks agree={same_bad} "
-                f"segments(live,hit,triangle hit)={segments}  [{card}]")
+                                  args=args, kw=kw,
+                                  n_rays=(r.options.width * r.options.height
+                                          * s), plain_s=plain_s, where=where)
+            say(f"[4] cell {label} kernel vs plain on {where}: "
+                f"rmse={rmse:.3e} share>1e-3={share:.3e} max_abs="
+                f"{max_abs:.3e} bit-identical={bitexact} non-finite masks "
+                f"agree={same_bad} segments(live,hit,triangle hit)="
+                f"{segments}; plain {plain_s:.2f} s  [{card}]")
             if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
                     and same_bad):
                 fail(f"cell {label}: kernel disagrees with the plain version")
             continue
-        # the split path: every BVH launch of one pass against the plain
-        # version on the same rays, then the whole canvas
-        k, recorded = split_pass(r, camera, 4242)
+        # a per-bounce path: every BVH launch of one pass (and every shade
+        # launch) against the plain version on the same inputs, then the
+        # whole canvas
+        k, rec = per_bounce_pass(r, camera, 4242)
         torch.cuda.synchronize()
-        tris = r.device_scene.triangles
+        tris = ds.triangles
         cl, table = tris.clusters, tris.table
-        max_abs, work, plain_s, bounces = 0.0, [], 0.0, []
-        for b, (prep, (t_k, s_k)) in enumerate(recorded):
-            o_, d_, alive, t_init = bvh_inputs(prep)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            t_p, s_p = bvh.intersect_triangles_bvh_plain(
-                o_, d_, alive, t_init, cl, table)
-            torch.cuda.synchronize()
-            plain_s += time.perf_counter() - t1
-            live = alive > 0
-            slot_diff = int((s_k[live] != s_p[live]).sum())
-            fin = live & torch.isfinite(t_p) & torch.isfinite(t_k)
-            t_same = bool(torch.equal(torch.isinf(t_k[live]),
-                                      torch.isinf(t_p[live])))
-            diff = (t_k[fin] - t_p[fin]).abs()
-            m = float(diff.max()) if diff.numel() else 0.0
-            max_abs = max(max_abs, m)
-            compact = prep.perm is not None
-            # the rays the kernel walks: the admitted prefix when compacted
-            walked = int(prep.count) if compact else int(live.sum())
-            tri_hits = int((s_k[live] >= 0).sum())
-            work.append((walked, tri_hits, prep.params.n_rays, compact))
-            bounces.append(f"b{b}: live {int(live.sum())} "
-                           f"{'compact' if compact else 'dense'}, walked "
-                           f"{walked}, triangle hits {tri_hits}, slot diff "
-                           f"{slot_diff}, max|dt| {m:.3e}")
-            if slot_diff or m != 0.0 or not t_same:
-                fail(f"cell {label} bounce {b}: the BVH kernel's (t, slot) "
-                     f"differ from the plain version on {slot_diff} live "
-                     f"rays (max |dt| {m})")
-        p, _ = split_pass(r, camera, 4242, plain=True)
+        max_abs, work, plain_s, lines = check_bvh_launches(label, rec.bvh,
+                                                           cl, table)
+        res = dict(max_abs=max_abs, work=work, plain_ms=plain_s * 1e3,
+                   recorded=rec.bvh, n_rays=k.shape[1], canvas=k)
+        shade_ok = True
+        if label in FUSED:
+            differ, s_abs, s_work, s_plain, s_lines = check_shade_launches(
+                ds, rec.shade)
+            shade_ok = differ == 0
+            res.update(shade_max_abs=s_abs, shade_work=s_work,
+                       shade_plain_ms=s_plain * 1e3, shade=rec.shade)
+            say(f"[4] cell {label} shade kernel vs plain, every launch of "
+                f"one full pass: {'; '.join(s_lines)}; state rows "
+                f"bit-identical={shade_ok}; plain shade {s_plain:.2f} "
+                f"s/pass  [{card}]")
+        p, _ = per_bounce_pass(r, camera, 4242, plain=True)
         torch.cuda.synchronize()
         rmse, share, same_bad = canvas_diff(k, p, s)
         bitexact = bool(torch.equal(k[torch.isfinite(k)],
                                     p[torch.isfinite(k)])) and same_bad
-        results[label] = dict(max_abs=max_abs, work=work,
-                              plain_ms=plain_s * 1e3, recorded=recorded,
-                              n_rays=k.shape[1])
+        results[label] = res
         say(f"[4] cell {label} BVH kernel vs plain, every launch of one "
-            f"full pass ({bk.bvh_variant(cl)}): {'; '.join(bounces)}; "
-            f"canvas rmse={rmse:.3e} share>1e-3={share:.3e} "
-            f"bit-identical={bitexact} non-finite masks agree={same_bad}; "
-            f"plain BVH {plain_s:.2f} s/pass  [{card}]")
+            f"full pass ({bk.bvh_variant(cl, backend == 'clustered')}): "
+            f"{'; '.join(lines)}; canvas rmse={rmse:.3e} share>1e-3="
+            f"{share:.3e} bit-identical={bitexact} non-finite masks agree="
+            f"{same_bad}; plain BVH {plain_s:.2f} s/pass  [{card}]")
         if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
                 and same_bad):
-            fail(f"cell {label}: the split path's canvas disagrees with its "
+            fail(f"cell {label}: the per-bounce canvas disagrees with its "
                  "plain version")
-        row0, n_launch, hits, lost, extra = gate_check(r, camera)
-        say(f"[4] cell {label} per-ray gate vs dense MT over all "
-            f"{int(r.device_scene.triangles.active.sum())} triangles, rows "
-            f"{row0}-{row0 + GATE_ROWS - 1} x {r.options.width}, "
-            f"{n_launch} launches: {hits} dense hits, {lost} lost or "
-            f"farther under the gate, {extra} gate hits the dense loop "
-            f"lacks  [{card}]")
-        if extra:
-            fail(f"cell {label}: {extra} BVH hits that no triangle gives")
+        if not shade_ok:
+            say(f"[4] cell {label}: the shade kernel's rows differ from the "
+                "plain version's on some rays; the canvas keeps to the "
+                "bound above")
+        if label in FUSED:
+            same = bool(torch.equal(k, results["7"]["canvas"]))
+            say(f"[4] cell {label} vs cell 7 (the split path, the same "
+                f"rays): canvases bit-identical={same}")
+        if label in GATE_CELLS:
+            row0, n_launch, hits, lost, extra = gate_check(r, camera)
+            say(f"[4] cell {label} per-ray gate vs dense MT over all "
+                f"{int(tris.active.sum())} triangles, rows "
+                f"{row0}-{row0 + BAND_ROWS - 1} x {r.options.width}, "
+                f"{n_launch} launches: {hits} dense hits, {lost} lost or "
+                f"farther under the gate, {extra} gate hits the dense loop "
+                f"lacks  [{card}]")
+            if extra:
+                fail(f"cell {label}: {extra} BVH hits that no triangle gives")
 
     # ---- 5: goldens, the 1,025-sphere scene, benchmark_step's state ----
     for label, (w, h) in GOLDEN_SIZES.items():
@@ -520,9 +754,9 @@ def main() -> int:
         if canvas.shape != golden.shape or not np.isfinite(canvas).all() \
                 or not rmse < GOLDEN_RMSE:
             fail(f"cell {label}: golden rmse {rmse}")
-    spheres = Renderer(RenderOptions(width=256, height=144, num_samples=1,
-                                     num_bounces=4), sphere_scene(),
-                       device="cuda")
+    spheres = Renderer(RenderOptions(width=256, height=144,
+                                     num_samples=1, num_bounces=4),
+                       sphere_scene(), device="cuda")
     cam = Camera(position=(0.0, 1.0, 4.0))
     tk.KERNEL.reset_counts()
     spheres.step(cam)
@@ -535,127 +769,166 @@ def main() -> int:
     p = torch.stack(list(tk.trace_full_plain(*args, **kw)))
     rmse, share, same_bad = canvas_diff(k, p, 1)
     img = spheres.image()
-    say(f"[5] {N_SPHERES} spheres ({spheres.device_scene.spheres.radius.shape[0]} "
-        f"slots, {shared_kb:.1f} KB of shared tables, the device allows "
-        f"{tk.shared_limit(torch.cuda.current_device()) / 1024:.1f} KB): "
-        f"launches {sph_launches}, image mean {img.mean():.3f}; kernel vs "
-        f"plain rmse={rmse:.3e} share>1e-3={share:.3e} bit-identical="
+    say(f"[5] {N_SPHERES} spheres "
+        f"({spheres.device_scene.spheres.radius.shape[0]} slots, "
+        f"{shared_kb:.1f} KB of shared tables, the device allows "
+        f"{tk.shared_limit(torch.cuda.current_device()) / 1024:.1f} KB):"
+        f" launches {sph_launches}, image mean {img.mean():.3f}; kernel "
+        f"vs plain rmse={rmse:.3e} share>1e-3={share:.3e} bit-identical="
         f"{bool(torch.equal(k, p))}  [{card}]")
     if sph_launches != {"none": 1} or shared_kb <= 48 or img.std() == 0 \
             or not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
                     and same_bad):
         fail("the 1,025-sphere scene")
-    r, camera, _ = renderers["6"]
+    r, camera = renderers["6"]
     before, steps = r.canvas.clone(), r.num_steps
     bench = r.benchmark_step(camera, iters=3, warmup=1)
     kept = bool(torch.equal(before, r.canvas)) and r.num_steps == steps
-    say(f"[5] benchmark_step on cell 6 ({bench['seconds_per_step'] * 1e3:.3f} "
-        f"ms/step) left the canvas and step count ({steps}) as they were: "
-        f"{kept}")
+    say(f"[5] benchmark_step on cell 6 "
+        f"({bench['seconds_per_step'] * 1e3:.3f} ms/step) left the canvas "
+        f"and step count ({steps}) as they were: {kept}")
     if not kept:
         fail("benchmark_step changed the accumulation state")
 
     # ---- 6: timings ----
-    entries = {}
-    timed = {"2": ("trace_kernel", "bounce_kernel.py:659", "trace",
-                   sum(totals["trace"].values())),
-             "3": ("tris_small", "bounce_kernel.py:238", "trace",
-                   totals["trace"].get("small", 0)),
-             "5": ("tris_clustered", "bounce_kernel.py:291", "trace",
-                   totals["trace"].get("clustered", 0)),
-             "5/bvh": ("bvh_flat", "bvh_kernel.py:201", "bvh",
-                       totals["bvh"].get("flat", 0)),
-             "6": ("bvh_two_level", "bvh_kernel.py:1040", "bvh",
-                   totals["bvh"].get("two_level", 0))}
-    for label, (r, camera, _) in renderers.items():
+    timing, steps_ms = {}, {}
+    for label, (r, camera) in renderers.items():
         res = results[label]
         o = r.options
+        ds = r.device_scene
         n_rays = res["n_rays"]
-        s_all = [r.benchmark_step(camera, iters=20)["seconds_per_step"] * 1e3
-                 for _ in range(5)]
-        step_ms = float(np.median(s_all))
-        if label in SPLIT:
+        iters = 5 if CELLS[label][0] == 7 else 20
+        s_all = [r.benchmark_step(camera, iters=iters)["seconds_per_step"]
+                 * 1e3 for _ in range(5)]
+        step_ms = steps_ms[label] = float(np.median(s_all))
+        extra = ""
+        if label in SPLIT + FUSED:
+            cl = ds.triangles.clusters
             # the BVH kernel's launches of one pass, replayed as recorded
             preps = [prep for prep, _ in res["recorded"]]
             outs = [out for _, out in res["recorded"]]
-            k_all = cuda_ms(lambda: [bk.launch(pp, oo)
+            b_all = cuda_ms(lambda: [bk.launch(pp, oo)
                                      for pp, oo in zip(preps, outs)], iters=5)
-            k_ms, p_ms = float(np.median(k_all)), res["plain_ms"]
-            cl = r.device_scene.triangles.clusters
-            n_slots = cl.slots.numel()
-            # the least work of this run's data: each walked ray slab-tests
-            # the hierarchy's root boxes, and a ray whose nearest hit is a
-            # triangle runs MT over the K slots of that triangle's cluster
-            roots = int((cl.hierarchy.groups[:, 0] < 1.0e37).sum())
-            flops = sum(walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
-                        + tri_hits * cl.k * MT_FLOPS
-                        for walked, tri_hits, _, _ in res["work"])
-            nbytes = sum(n * (BVH_RAY_BYTES + (4 if compact else 0))
-                         + n_slots * TRI_ROW_BYTES + 32 * cl.aabb.shape[0]
-                         for _, _, n, compact in res["work"])
-            work = (f"{len(preps)} launches; walked rays per launch "
-                    f"{[w[0] for w in res['work']]}, {roots} root boxes")
-            p_note = "plain BVH (sum over the pass's launches, one run)"
-            w_note = ""
+            b_ms = float(np.median(b_all))
+            flops, nbytes, roots = bvh_bound(cl, res["work"])
+            b_bound = max(flops / FP32_PEAK, nbytes / HBM_BYTES_PER_S) * 1e3
+            bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
+                        f"{len(preps)} launches, walked rays per launch "
+                        f"{[w[0] for w in res['work']]}, {roots} root "
+                        f"boxes; bound {b_bound:.4f} ms, "
+                        f"{b_bound / b_ms * 100:.1f}% of it); plain BVH "
+                        f"{res['plain_ms']:.3f} ms/pass (sum over the "
+                        "pass's launches, one run)")
+            if label in FUSED:
+                s_preps = [prep for prep, _ in res["shade"]]
+                s_outs = [out for _, out in res["shade"]]
+                k_all = cuda_ms(lambda: [sk.launch(pp, oo) for pp, oo
+                                         in zip(s_preps, s_outs)], iters=5)
+                flops, nbytes = shade_bound(ds, res["shade_work"])
+                p_ms = res["shade_plain_ms"]
+                p_note = ("plain shade (sum over the pass's launches, one "
+                          "run)")
+                work = f"{len(s_preps)} shade launches; {bvh_line}"
+                timing[label] = ("bounce", res["shade_max_abs"])
+            else:
+                k_all, p_ms = b_all, res["plain_ms"]
+                flops, nbytes, _ = bvh_bound(cl, res["work"])
+                p_note = "plain BVH (sum over the pass's launches, one run)"
+                work = (f"{len(preps)} launches; walked rays per launch "
+                        f"{[w[0] for w in res['work']]}, {roots} root boxes")
+                if CELLS[label][2] == "streamed":
+                    work += "; " + unstaged(preps, outs, b_ms)
+                timing[label] = ("bvh", res["max_abs"])
+            k_ms = float(np.median(k_all))
         else:
             args, kw = res["args"], res["kw"]
             # the kernel alone: arguments packed once, 50 launches a batch
-            prep = tk.prepare(*args, **kw)
+            prep = tk.prepare(*args, **kw, tri_backend=o.tri_backend)
             out = torch.empty((3, n_rays), dtype=torch.float32,
                               device="cuda")
             k_all = cuda_ms(lambda: tk.launch(prep, out), iters=50)
-            w_all = cuda_ms(lambda: tk.trace_full(*args, **kw), iters=20)
-            dense_mesh = r.device_scene.triangles.material.shape[0] > 64
-            p_all = cuda_ms(lambda: tk.trace_full_plain(*args, **kw),
-                            iters=1 if dense_mesh else 2, repeats=3,
-                            warmup=1)
-            k_ms, p_ms = float(np.median(k_all)), float(np.median(p_all))
-            flops = kernel_flops(r.device_scene, n_rays, res["segments"])
+            w_all = cuda_ms(lambda: tk.trace_full(
+                *args, **kw, tri_backend=o.tri_backend), iters=20)
+            segments = res["segments"]
+            if label in BAND_CELLS:
+                # the plain version ran on the band only; the work of the
+                # full pass is counted on the split path's pass over the
+                # same rays (the same scene; the two shading forms differ
+                # by rounding)
+                p_ms = res["plain_s"] * 1e3
+                p_note = f"plain on {res['where']} (one run)"
+                segments = []
+                cam = camera.state(o.width / o.height)
+                orig, dirs, seed = generate_rays(
+                    o.width, o.height, o.num_samples, 4242, cam.position,
+                    camera_rotation(cam.yaw, cam.pitch), cam.aspect_ratio,
+                    cam.fov_scale, tile=r.ray_tile, device=r.device)
+                trace_rays(ds, orig, dirs, seed, o.num_bounces, segments,
+                           split=True)
+                extra = f"; work counted on the split path: {segments}"
+            else:
+                dense_mesh = ds.triangles.material.shape[0] > 64
+                p_all = cuda_ms(lambda: tk.trace_full_plain(*args, **kw),
+                                iters=1 if dense_mesh else 2, repeats=3,
+                                warmup=1)
+                p_ms = float(np.median(p_all))
+                p_note = f"plain ({spread(p_all)})"
+            k_ms = float(np.median(k_all))
+            flops = kernel_flops(ds, o.tri_backend, n_rays, segments)
             nbytes = 12.0 * n_rays
-            segs = sum(seg[0] for seg in res["segments"])
+            segs = sum(seg[0] for seg in segments)
             work = (f"{n_rays / k_ms / 1e3:.1f} Mrays/s primary, "
-                    f"{segs / k_ms / 1e3:.1f} M segments/s")
-            p_note = f"plain ({spread(p_all)})"
-            w_note = (f"; with the wrapper's per-pass packing "
-                      f"{float(np.median(w_all)):.4f} ms ({spread(w_all)})")
+                    f"{segs / k_ms / 1e3:.1f} M segments/s; with the "
+                    f"wrapper's per-pass packing "
+                    f"{float(np.median(w_all)):.4f} ms ({spread(w_all)})")
+            timing[label] = ("trace", res["max_abs"])
         t_ops = flops / FP32_PEAK * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
+        timing[label] += (k_ms, p_ms, bound_ms,
+                          "operations" if t_ops >= t_bytes else "bytes", o)
         say(f"[6] cell {label} {o.width}x{o.height}: kernel {k_ms:.4f} "
-            f"ms/pass ({spread(k_all)}; {work}){w_note}; {p_note} "
-            f"{p_ms:.3f} ms/pass; Renderer.benchmark_step {step_ms:.4f} "
-            f"ms/pass ({spread(s_all)}); bound {bound_ms:.4f} ms "
-            f"({flops:.4g} FLOP / 67 TFLOP/s = {t_ops:.4f} ms; {nbytes:.4g} "
-            f"B / 3.35 TB/s = {t_bytes:.4f} ms), {bound_ms / k_ms * 100:.1f}% "
-            f"of bound  [{card}]")
-        if label in timed:
-            name, line, kind, count = timed[label]
-            if kind == "trace":
-                errs = [v["max_abs"] for m, v in results.items()
-                        if m not in SPLIT and (name == "trace_kernel"
-                                               or CELLS[m][2] == CELLS[label][2])]
-            else:
-                errs = [res["max_abs"]]
-            src = "trace_kernel.cu" if kind == "trace" else "bvh_kernel.cu"
-            entries[label] = {
-                "name": name, "route": "cuda",
-                "source": f"simple_raytracer_tpu_torch/csrc/{src}",
-                "replaces": f"simple_raytracer_tpu/ops/pallas/{line}",
-                "launches": count, "max_abs_err": max(errs),
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None,
-                "shape": f"config {CELLS[label][0]} (tri_backend="
-                         f"{o.tri_backend}), {o.width}x{o.height}, "
-                         f"{o.num_samples} spp, {o.num_bounces} bounces",
-            }
+            f"ms/pass ({spread(k_all)}; {work}); {p_note} {p_ms:.3f} "
+            f"ms/pass; Renderer.benchmark_step {step_ms:.4f} ms/pass "
+            f"({spread(s_all)}); bound {bound_ms:.4f} ms ({flops:.4g} FLOP "
+            f"/ 67 TFLOP/s = {t_ops:.4f} ms; {nbytes:.4g} B / 3.35 TB/s = "
+            f"{t_bytes:.4f} ms), {bound_ms / k_ms * 100:.1f}% of bound"
+            f"{extra}  [{card}]")
+    side = [f"config {n}: auto {steps_ms[str(n)]:.4f} ms, fused "
+            f"{steps_ms[f'{n}/fused']:.4f} ms (fused / auto "
+            f"{steps_ms[f'{n}/fused'] / steps_ms[str(n)]:.3f})"
+            for n in (6, 7)]
+    say(f"[6] benchmark_step, tri_backend auto against fused: "
+        f"{'; '.join(side)}  [{card}]")
 
     # ---- 7: where a step's time goes ----
-    for label, (r, camera, _) in renderers.items():
-        say(f"[7] cell {label}: {step_breakdown(r, camera)}  [{card}]")
+    for label, (r, camera) in renderers.items():
+        iters = 5 if CELLS[label][0] == 7 else 20
+        say(f"[7] cell {label}: {step_breakdown(r, camera, iters)}  [{card}]")
 
-    order = ("2", "3", "5", "5/bvh", "6")
-    print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
+    entries = []
+    for name, kind, line, cell, covered, variant in ROWS:
+        _, max_abs, k_ms, p_ms, bound_ms, bound_by, o = timing[cell]
+        launches = sum(c for label in covered
+                       for v, c in totals[label][kind].items()
+                       if variant is None or v == variant)
+        if kind == "trace":
+            errs = [results[c]["max_abs"] for c in covered]
+            max_abs = max(errs + [max_abs])
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"simple_raytracer_tpu_torch/csrc/{SOURCES[kind]}",
+            "replaces": f"simple_raytracer_tpu/ops/pallas/{line}",
+            "launches": launches, "max_abs_err": max_abs,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": f"config {CELLS[cell][0]} (tri_backend="
+                     f"{o.tri_backend}), {o.width}x{o.height}, "
+                     f"{o.num_samples} spp, {o.num_bounces} bounces"
+                     + (f"; plain_ms on {results[cell]['where']} only"
+                        if cell in BAND_CELLS else ""),
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
-// BVH nearest-hit kernel for Hopper (sm_90a): the split per-bounce path's
+// BVH nearest-hit kernel for Hopper (sm_90a): the per-bounce paths'
 // triangle intersection.
 //
-// Replaces two TPU kernels of simple_raytracer_tpu/ops/pallas/bvh_kernel.py,
-// as two compile-time variants of one kernel (Variant):
+// Replaces three TPU kernels of simple_raytracer_tpu/ops/pallas/
+// bvh_kernel.py, as three compile-time variants of one kernel (Variant):
 //   - kFlat (bvh_kernel.py:201 _kernel, tables of at most 8192 slots): the
 //     clusters in the wrapper's front-to-back order, each box slab-tested
 //     against the ray's live best t (_reslab_flag), then Moller-Trumbore
@@ -10,21 +10,33 @@
 //   - kTwoLevel (bvh_kernel.py:1040 _kernel_packed, config 6): the groups of
 //     16 supers in front-to-back order, each group box, then each of its 16
 //     super boxes, then each of their 16 cluster boxes slab-tested against
-//     the live best t, then MT over the admitted cluster's slots.
+//     the live best t, then MT over the admitted cluster's slots;
+//   - kStreamed (bvh_kernel.py:678 _kernel_hbm, config 7 and
+//     tri_backend="clustered"): the same three gates per ray, walked by the
+//     warp together: a gate is passed when any of the warp's 32 rays admits
+//     it, and each cluster that some ray admits is staged once into the
+//     warp's slice of shared memory (the 40 bytes of each slot that MT
+//     reads, and its index), where the rays that admitted it run MT.  It is
+//     the counterpart of the TPU's DMA ring, which stages each visited
+//     cluster's tile from HBM into VMEM: config 7's table (1,409,024 slots,
+//     112.7 MB) is beyond the 50 MB L2, so each admitted cluster is read
+//     from device memory once per warp, not once per ray.
 // For each ray in its list it finds the nearest triangle strictly closer
 // than the ray's t_init and writes (t, table slot), or (+inf, -1) when none
 // is; a dead ray (alive == 0) is a miss.  Shading is not here: the
 // wrapper's caller gathers the winner's table row at its slot.
 //
 // Design: one thread per ray, a 1-D grid over the ray list.  The slot table
-// (C * K rows of 20 f32, 7.9 MB at config 6) and the boxes are read from
-// global memory through the read-only path; the table fits the 50 MB L2.
-// The TPU gates a cluster for a 128-ray sub-block and reads a packed table
-// through one-hot MXU transposes; here each ray gates alone and reads its
-// slots directly.  The global triangle index of each slot comes as an int32
-// table (it never rides in an f32 row), and decides exact ties: the least
-// (t, index) wins, seeded with (t_init, -1), so the visiting order never
-// changes a result (_mt_update's commit).
+// (C * K rows of 20 f32) and the boxes are read from global memory through
+// the read-only path.  The TPU gates a cluster for a 128-ray sub-block and
+// reads a packed table through one-hot MXU transposes; here each ray gates
+// alone (in kStreamed the warp only shares the walk and the staging, every
+// ray keeps its own gates) and reads its slots directly.  The global
+// triangle index of each slot comes as an int32 table (it never rides in
+// an f32 row), and decides exact ties: the least (t, index) wins, seeded
+// with (t_init, -1), so the visiting order never changes a result
+// (_mt_update's commit).  Every index product is taken in size_t or stays
+// below 2^31: at config 7, 1,409,024 slots x 20 columns is 28.2M words.
 //
 // Ray compaction: with a permutation, thread i takes ray perm[i]; threads at
 // or past *count (read from device memory, so the host never waits) write a
@@ -55,7 +67,7 @@ struct BvhParams {
   int32_t variant;     // Variant
 };
 
-enum Variant { kFlat = 0, kTwoLevel = 1 };
+enum Variant { kFlat = 0, kTwoLevel = 1, kStreamed = 2 };
 
 namespace {
 
@@ -65,6 +77,12 @@ constexpr int kGroup = 16;   // supers per group (ops/bvh.py: GROUP)
 // a slot row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5), e2 (6-8),
 // n0 n1 n2 (9-17), material (18), active (19)
 constexpr int kTriCols = 20;
+constexpr int kWarps = kBlock / 32;
+constexpr unsigned kAll = 0xffffffffu;
+// kStreamed: the most slots per cluster it stages, and the columns it
+// stages per slot: v0 (0-2), e1 (3-5), e2 (6-8) and active (from 19)
+constexpr int kMaxK = 128;
+constexpr int kMtCols = 10;
 
 __device__ __forceinline__ bool is_nan(float a) { return a != a; }
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -101,7 +119,38 @@ struct Best {
   int32_t slot;  // its table slot: the result
 };
 
-// Moller-Trumbore over the K slots of cluster c; the least (t, index) wins
+// Moller-Trumbore against one slot (v0, e1, e2, active; its global index
+// g and table slot); the least (t, index) wins
+__device__ __forceinline__ void mt_slot(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        float active, int32_t g, int slot,
+                                        const Ray& r, Best& best) {
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.0f / a;
+  const float sx = r.ox - v0x;
+  const float sy = r.oy - v0y;
+  const float sz = r.oz - v0z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  if (a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
+      && t > 0.0f && active > 0.0f && t <= best.t) {
+    if (t < best.t || g < best.idx) {
+      best.t = t;
+      best.idx = g;
+      best.slot = slot;
+    }
+  }
+}
+
+// Moller-Trumbore over the K slots of cluster c, read from global memory
 __device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
                                            const int32_t* __restrict__ gidx,
                                            int c, int k, const Ray& r,
@@ -109,29 +158,59 @@ __device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
   const int row0 = c * k;
   for (int s = 0; s < k; ++s) {
     const float* q = table + (size_t)kTriCols * (row0 + s);
-    const float e1x = __ldg(q + 3), e1y = __ldg(q + 4), e1z = __ldg(q + 5);
-    const float e2x = __ldg(q + 6), e2y = __ldg(q + 7), e2z = __ldg(q + 8);
-    const float hx = r.dy * e2z - r.dz * e2y;
-    const float hy = r.dz * e2x - r.dx * e2z;
-    const float hz = r.dx * e2y - r.dy * e2x;
-    const float a = e1x * hx + e1y * hy + e1z * hz;
-    const float f = 1.0f / a;
-    const float sx = r.ox - __ldg(q + 0);
-    const float sy = r.oy - __ldg(q + 1);
-    const float sz = r.oz - __ldg(q + 2);
-    const float u = f * (sx * hx + sy * hy + sz * hz);
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-    const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-    if (a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
-        && t > 0.0f && __ldg(q + 19) > 0.0f && t <= best.t) {
-      const int32_t g = __ldg(gidx + row0 + s);
-      if (t < best.t || g < best.idx) {
-        best.t = t;
-        best.idx = g;
-        best.slot = row0 + s;
+    mt_slot(__ldg(q + 0), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3),
+            __ldg(q + 4), __ldg(q + 5), __ldg(q + 6), __ldg(q + 7),
+            __ldg(q + 8), __ldg(q + 19), __ldg(gidx + row0 + s), row0 + s, r,
+            best);
+  }
+}
+
+// kStreamed's walk: the groups in front-to-back order, then supers, then
+// clusters, each gate passed by the warp when any of its rays admits it;
+// an admitted cluster is staged into the warp's shared slice once, and
+// every ray that admitted it runs MT there.  Each ray's own gates and
+// commits are those of kTwoLevel, in the same order, so it writes the
+// same result.  Called by the whole warp (control flow is warp-uniform).
+__device__ __forceinline__ void streamed_walk(
+    const float* __restrict__ table, const int32_t* __restrict__ gidx,
+    const float* __restrict__ boxes, const float* __restrict__ supers,
+    const float* __restrict__ groups, const int32_t* __restrict__ order,
+    bool listed, const Ray& r, Best& best, const BvhParams& p) {
+  __shared__ float s_rows[kWarps][kMaxK * kMtCols];
+  __shared__ int32_t s_gidx[kWarps][kMaxK];
+  const int lane = threadIdx.x & 31;
+  float* rows = s_rows[threadIdx.x >> 5];
+  int32_t* gx = s_gidx[threadIdx.x >> 5];
+  const int words = p.k * kMtCols;
+  for (int j = 0; j < p.n_order; ++j) {
+    const int g = order[j];
+    const bool g_ok = listed && slab(groups + 8 * g, r, best.t);
+    if (!__any_sync(kAll, g_ok)) continue;
+    for (int s = g * kGroup; s < (g + 1) * kGroup; ++s) {
+      const bool s_ok = g_ok && slab(supers + 8 * s, r, best.t);
+      if (!__any_sync(kAll, s_ok)) continue;
+      for (int c = s * kSuper; c < (s + 1) * kSuper; ++c) {
+        const bool c_ok = s_ok && slab(boxes + 8 * c, r, best.t);
+        if (!__any_sync(kAll, c_ok)) continue;
+        // a NaN ray admits the sentinel boxes past the table too;
+        // visiting the last cluster again changes nothing
+        const int row0 = min(c, p.n_clusters - 1) * p.k;
+        __syncwarp();   // every lane is done with the last staged cluster
+        for (int e = lane; e < words; e += 32) {
+          const int slot = e / kMtCols;
+          const int col = e - slot * kMtCols;
+          rows[e] = __ldg(table + (size_t)kTriCols * (row0 + slot)
+                          + (col < 9 ? col : 19));
+        }
+        for (int e = lane; e < p.k; e += 32) gx[e] = __ldg(gidx + row0 + e);
+        __syncwarp();
+        if (c_ok) {
+          for (int sl = 0; sl < p.k; ++sl) {
+            const float* q = rows + kMtCols * sl;
+            mt_slot(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8],
+                    q[9], gx[sl], row0 + sl, r, best);
+          }
+        }
       }
     }
   }
@@ -146,16 +225,19 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
            const int32_t* __restrict__ count, float* __restrict__ t_out,
            int32_t* __restrict__ slot_out, const BvhParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n_rays) return;
-  const int ray = perm != nullptr ? perm[i] : i;
+  const bool in_range = i < p.n_rays;
+  // kStreamed keeps every lane of the warp to the end: its walk is shared
+  if (VARIANT != kStreamed && !in_range) return;
+  const int ray = !in_range ? 0 : (perm != nullptr ? perm[i] : i);
   const int n = p.n_rays;
   Best best;
-  best.t = rays[7 * n + ray];
+  best.t = in_range ? rays[7 * n + ray] : 0.0f;
   best.idx = -1;
   best.slot = -1;
-  const bool listed = perm == nullptr || i < *count;
-  if (listed && rays[6 * n + ray] > 0.0f) {
-    Ray r;
+  const bool listed = in_range && (perm == nullptr || i < *count)
+                      && rays[6 * n + ray] > 0.0f;
+  Ray r = {};
+  if (listed) {
     r.ox = rays[ray];
     r.oy = rays[n + ray];
     r.oz = rays[2 * n + ray];
@@ -165,7 +247,13 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
     r.inx = 1.0f / r.dx;
     r.iny = 1.0f / r.dy;
     r.inz = 1.0f / r.dz;
-    if (VARIANT == kFlat) {
+  }
+  if constexpr (VARIANT == kStreamed) {
+    if (__any_sync(kAll, listed))
+      streamed_walk(table, gidx, boxes, supers, groups, order, listed, r,
+                    best, p);
+  } else if (listed) {
+    if constexpr (VARIANT == kFlat) {
       for (int j = 0; j < p.n_order; ++j) {
         const int c = order[j];
         if (slab(boxes + 8 * c, r, best.t))
@@ -188,6 +276,7 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
       }
     }
   }
+  if (!in_range) return;
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
   slot_out[ray] = best.idx < 0 ? -1 : best.slot;
 }
@@ -213,6 +302,12 @@ extern "C" int srt_bvh_launch(const float* rays, const float* table,
       break;
     case kTwoLevel:
       bvh_kernel<kTwoLevel><<<blocks, kBlock, 0, st>>>(
+          rays, table, gidx, boxes, supers, groups, order, perm, count, t_out,
+          slot_out, p);
+      break;
+    case kStreamed:
+      if (p.k > kMaxK) return (int)cudaErrorInvalidValue;
+      bvh_kernel<kStreamed><<<blocks, kBlock, 0, st>>>(
           rays, table, gidx, boxes, supers, groups, order, perm, count, t_out,
           slot_out, p);
       break;

@@ -35,7 +35,10 @@ class RenderOptions:
     ray_tile: object = "auto"
     # "auto": the whole-trace kernel for the scenes it serves, the split
     # per-bounce path for the others; "bvh": the split path for every
-    # scene.  The JAX package's other values raise (ops/trace.py:
+    # scene; "clustered": the split path with the BVH kernel's streamed
+    # variant; "fused": the whole-trace kernel up to config 6's table,
+    # the fused per-bounce path (the per-bounce shade kernel) beyond.  The
+    # JAX package's other values raise (ops/trace.py:
     # TRI_BACKENDS_TO_PORT).
     tri_backend: str = "auto"
 
@@ -60,6 +63,10 @@ def _resolve_device(device=None) -> torch.device:
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None \
+            and torch.cuda.is_available():
+        # "cuda" names the current card, as a tensor built there reports it
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

@@ -1,10 +1,10 @@
-"""The preset scenes of the port: configs 1 to 6.
+"""The preset scenes of the port: configs 1 to 7.
 
-Copies of ``config1_red_green`` to ``config6_large_mesh`` from
+Copies of ``config1_red_green`` to ``config7_mega_mesh`` from
 ``simple_raytracer_tpu.models.presets``.  Each builder returns
 ``(scene, camera, options)``.  The mesh configs use the procedural
-``organic_blob``; loading a model file, a texture skybox and config 7's
-1.31M-triangle mesh are later slices.
+``organic_blob``; loading a model file and a texture skybox are later
+slices.
 """
 from __future__ import annotations
 
@@ -194,6 +194,27 @@ def config6_large_mesh(width: int = 960, height: int = 540,
     return scene, camera, options
 
 
+def config7_mega_mesh(width: int = 960, height: int = 540,
+                      mesh_path: Optional[str] = None,
+                      subdivisions: int = 8) -> tuple:
+    """Production-asset stress config: one 1,310,720-triangle organic
+    sculpt (``organic_blob(subdivisions=8)``) on a ground plane, 11,008
+    clusters of 128 slots: a table the TPU streams from HBM
+    (``_kernel_hbm``); here the BVH kernel's ``streamed`` variant.
+    ``subdivisions`` scales it down for tests."""
+    scene = Scene()
+    scene.add_plane((0, -1.2, 0), (0, 1, 0), material=0)
+    m = scene.add_material(
+        Material(color=(0.8, 0.7, 0.6), smoothness=0.3), "Clay")
+    span = _add_mesh(scene, mesh_path, subdivisions=subdivisions)
+    scene.add_model(span, material=m,
+                    transform=transform_trs((0, 0, -2.5)))
+    camera = Camera(position=(0.0, 0.3, 2.5))
+    options = RenderOptions(width=width, height=height, num_samples=2,
+                            num_bounces=6)
+    return scene, camera, options
+
+
 CONFIGS = {
     1: config1_red_green,
     2: config2_four_spheres,
@@ -201,4 +222,5 @@ CONFIGS = {
     4: config4_mesh_glass,
     5: config5_two_meshes,
     6: config6_large_mesh,
+    7: config7_mega_mesh,
 }

@@ -1,13 +1,13 @@
-"""BVH clusters on the split per-bounce path: the host side of
+"""BVH clusters on the per-bounce paths: the host side of
 ``simple_raytracer_tpu/ops/pallas/bvh_kernel.py`` and the plain version of
 the Hopper BVH kernel (``csrc/bvh_kernel.cu``, wrapped by
 ``ops/cuda/bvh_kernel.py``).
 
 A clustered mesh is C clusters of K triangle slots, each with its box.
-``build_hierarchy`` adds, once per scene, the coarser levels the two
-kernel variants gate with: supers of ``SUPER`` clusters and groups of
-``GROUP`` supers (sentinel-aware unions, ``union_boxes8``), and the
-admission boxes of the ray compaction.
+``build_hierarchy`` adds, once per scene, the coarser levels the kernel
+variants and the plain version gate with: supers of ``SUPER`` clusters
+and groups of ``GROUP`` supers (sentinel-aware unions, ``union_boxes8``),
+and the admission boxes of the ray compaction.
 
 Every gate is the slab test of ``_visit_prepass`` (``slab_maybe``): the
 interval [near, far] is closed, far is capped by the ray's bound, the
@@ -15,12 +15,17 @@ interval [near, far] is closed, far is capped by the ray's bound, the
 on a box plane) counts as a hit.  There is no margin.
 
 ``intersect_triangles_bvh_plain`` is the plain version of the kernel: the
-slab test of every (live ray, cluster) pair against the ray's ``t_init``,
-Moller-Trumbore on every slot of every admitted cluster, and the commit
-rule of ``_mt_update``: the lexicographic least (t, global index) wins,
-seeded with (t_init, -1), so only triangle hits strictly closer than
-t_init are reported.  It is culled per pair, not dense, and chunked.  It
-reports the winner's table slot, whose row the caller shades from.
+slab test of every admitted (live ray, cluster) pair against the ray's
+``t_init``, Moller-Trumbore on every slot of every admitted cluster, and
+the commit rule of ``_mt_update``: the lexicographic least (t, global
+index) wins, seeded with (t_init, -1), so only triangle hits strictly
+closer than t_init are reported.  The pairs come through the hierarchy's
+gates, groups, then supers, then clusters, each the same closed slab
+test against t_init; a union box contains its members, so the coarse
+gates reject no pair the cluster's own test admits, and the result is
+that of testing every (ray, cluster) pair.  It is chunked, so config 7's
+11,008 clusters stay within memory.  It reports the winner's table slot,
+whose row the caller shades from.
 
 ``compact_order`` is ``_compact_prefix`` with the "super" key: the rays
 sorted by the front-to-back rank of the first admission box they enter
@@ -149,23 +154,36 @@ def inverse(d: Vec3) -> Vec3:
     return Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
 
 
+def _slab(col, o: Vec3, inv: Vec3, t_far: torch.Tensor) -> torch.Tensor:
+    """_visit_prepass's slab test in its operation order, for box columns
+    ``col(j)`` and rays that broadcast against each other;
+    torch.minimum/maximum propagate NaN as jnp's do."""
+    t1x = (col(0) - o.x) * inv.x
+    t2x = (col(3) - o.x) * inv.x
+    t1y = (col(1) - o.y) * inv.y
+    t2y = (col(4) - o.y) * inv.y
+    t1z = (col(2) - o.z) * inv.z
+    t2z = (col(5) - o.z) * inv.z
+    mn, mx = torch.minimum, torch.maximum
+    near = mx(mx(mn(t1x, t2x), mn(t1y, t2y)), mn(t1z, t2z).clamp_min(0.0))
+    far = mn(mn(mx(t1x, t2x), mx(t1y, t2y)), mn(mx(t1z, t2z), t_far))
+    return ~((near > far) | (near >= 1.0e38))
+
+
 def slab_maybe(boxes: torch.Tensor, o: Vec3, inv: Vec3,
                t_far: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     """(N, 8) boxes x (R,) rays -> (N, R) bool: may the live ray meet the
-    box before ``t_far``?  _visit_prepass's slab test, in its operation
-    order; torch.minimum/maximum propagate NaN as jnp's do."""
-    col = lambda j: boxes[:, j, None]
-    t1x = (col(0) - o.x[None]) * inv.x[None]
-    t2x = (col(3) - o.x[None]) * inv.x[None]
-    t1y = (col(1) - o.y[None]) * inv.y[None]
-    t2y = (col(4) - o.y[None]) * inv.y[None]
-    t1z = (col(2) - o.z[None]) * inv.z[None]
-    t2z = (col(5) - o.z[None]) * inv.z[None]
-    mn, mx = torch.minimum, torch.maximum
-    near = mx(mx(mn(t1x, t2x), mn(t1y, t2y)), mn(t1z, t2z).clamp_min(0.0))
-    far = mn(mn(mx(t1x, t2x), mx(t1y, t2y)),
-             mn(mx(t1z, t2z), t_far[None]))
-    return ~((near > far) | (near >= 1.0e38)) & live[None]
+    box before ``t_far``?"""
+    row = lambda v: Vec3(v.x[None], v.y[None], v.z[None])
+    return _slab(lambda j: boxes[:, j, None], row(o), row(inv),
+                 t_far[None]) & live[None]
+
+
+def slab_pairs(boxes: torch.Tensor, o: Vec3, inv: Vec3,
+               t_far: torch.Tensor) -> torch.Tensor:
+    """(P, 8) boxes and (P,) rays, pair by pair -> (P,) bool: the same
+    test as ``slab_maybe``."""
+    return _slab(lambda j: boxes[:, j], o, inv, t_far)
 
 
 def front_to_back(boxes: torch.Tensor, o: Vec3,
@@ -233,6 +251,43 @@ def _mt(ox, oy, oz, dx, dy, dz, col):
     return t, valid
 
 
+def admitted_pairs(o: Vec3, inv: Vec3, live: torch.Tensor,
+                   t_init: torch.Tensor, clusters, elems: int):
+    """The (cluster, ray) pairs whose cluster box the live ray may meet
+    before its ``t_init``, in chunks of at most about ``elems`` slab tests:
+    the groups are tested against every ray, each admitted group's SUPER
+    supers against its rays, each admitted super's SUPER clusters against
+    theirs.  Yields (cluster index, ray index) int64 pairs."""
+    hier = clusters.hierarchy
+    n_rays, n_cl = o.x.shape[0], clusters.slots.shape[0]
+    dev = o.x.device
+    lanes = torch.arange(SUPER, device=dev)   # SUPER == GROUP
+    ray_chunk = max(1, elems // max(hier.groups.shape[0], 1))
+    group_chunk = max(1, elems // (GROUP * SUPER))
+    pick = lambda v, r: Vec3(v.x[r], v.y[r], v.z[r])
+
+    def children(parent, ray, boxes, width):
+        """Expand each (parent, ray) pair to the parent's ``width``
+        children and keep those whose box the ray may meet."""
+        child = (parent[:, None] * width + lanes[None, :width]).reshape(-1)
+        ray = ray.repeat_interleave(width)
+        keep = slab_pairs(boxes[child], pick(o, ray), pick(inv, ray),
+                          t_init[ray])
+        return child[keep], ray[keep]
+
+    for r0 in range(0, n_rays, ray_chunk):
+        rs = slice(r0, r0 + ray_chunk)
+        g, r = slab_maybe(hier.groups, pick(o, rs), pick(inv, rs),
+                          t_init[rs], live[rs]).nonzero(as_tuple=True)
+        r = r + r0
+        for p0 in range(0, g.shape[0], group_chunk):
+            sl = slice(p0, p0 + group_chunk)
+            s, rs_ = children(g[sl], r[sl], hier.supers, GROUP)
+            c, rc = children(s, rs_, hier.boxes, SUPER)
+            real = c < n_cl           # the hierarchy's own padding boxes
+            yield c[real], rc[real]
+
+
 def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
                                   t_init: torch.Tensor, clusters,
                                   table: torch.Tensor):
@@ -240,8 +295,7 @@ def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
     nearest triangle hit strictly closer than ``t_init`` and the table slot
     of its triangle, (+inf, -1) when none is (``triangle_index`` maps a
     slot to the triangle's index).  ``clusters`` carries the (C, 8) boxes
-    and the hierarchy's slot indices, ``table`` the (C * K, 20) slot
-    rows."""
+    and the hierarchy, ``table`` the (C * K, 20) slot rows."""
     n_rays = o.x.shape[0]
     n_cl, k = clusters.slots.shape
     dev = o.x.device
@@ -255,15 +309,9 @@ def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
     best_t = t_init.clone()
     best_key = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
     elems = PAIR_CHUNK_ELEMS.get(dev.type, 2 ** 22)
-    ray_chunk = max(1, elems // max(n_cl, 1))
-    for r0 in range(0, n_rays, ray_chunk):
-        rs = slice(r0, r0 + ray_chunk)
-        maybe = slab_maybe(clusters.aabb, Vec3(o.x[rs], o.y[rs], o.z[rs]),
-                           Vec3(inv.x[rs], inv.y[rs], inv.z[rs]),
-                           t_init[rs], live[rs])
-        c_all, r_all = maybe.nonzero(as_tuple=True)
-        r_all = r_all + r0
-        pair_chunk = max(1, elems // k)
+    pair_chunk = max(1, elems // k)
+    for c_all, r_all in admitted_pairs(o, inv, live, t_init, clusters,
+                                       elems):
         for p0 in range(0, c_all.shape[0], pair_chunk):
             c_idx = c_all[p0:p0 + pair_chunk]
             r_idx = r_all[p0:p0 + pair_chunk]

@@ -2,7 +2,8 @@
 
 Each kernel source under ``csrc/`` is compiled on first use into a shared
 library with a plain C interface under ``build/srt_torch_kernels/``,
-named by a hash of the source and the flags, and loaded with ``ctypes``.
+named by a hash of the source, the headers beside it and the flags, and
+loaded with ``ctypes``.
 No PyTorch header is compiled, so a build takes seconds.  A ``Kernel``
 also counts its launches, in all and per variant.
 """
@@ -61,7 +62,8 @@ class Kernel:
     def _build(self) -> ctypes.CDLL:
         import time
         t0 = time.perf_counter()
-        src = self.source.read_bytes()
+        headers = sorted(self.source.parent.glob("*.cuh"))
+        src = b"".join(p.read_bytes() for p in [self.source, *headers])
         digest = hashlib.sha256(src + " ".join(self.flags).encode()
                                 ).hexdigest()[:16]
         out = BUILD_DIR / f"{self.source.stem}-{digest}.so"

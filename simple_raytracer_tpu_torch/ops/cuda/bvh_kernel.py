@@ -1,12 +1,15 @@
-"""The BVH nearest-hit kernel of the split per-bounce path
+"""The BVH nearest-hit kernel of the per-bounce paths
 (``csrc/bvh_kernel.cu``).
 
-It replaces two TPU kernels of
+It replaces three TPU kernels of
 ``simple_raytracer_tpu/ops/pallas/bvh_kernel.py``: ``_kernel`` (a row
 table of at most ``VMEM_TABLE_MAX_SLOTS`` slots) as the ``flat`` variant,
-and ``_kernel_packed`` (group -> super -> cluster gates, config 6) as the
-``two_level`` variant.  Its plain PyTorch version is
-``ops/bvh.intersect_triangles_bvh_plain``.
+``_kernel_packed`` (group -> super -> cluster gates, config 6) as the
+``two_level`` variant, and ``_kernel_hbm`` (the same gates over a table
+the TPU streams from HBM: config 7, and every clustered mesh under
+``tri_backend="clustered"``) as the ``streamed`` variant, which stages
+each admitted cluster in shared memory once per warp.  Its plain PyTorch
+version is ``ops/bvh.intersect_triangles_bvh_plain``.
 
 ``intersect_triangles_bvh`` takes the plain version only for rays on the
 CPU.  For rays on a CUDA device it launches the kernel or raises: there
@@ -29,7 +32,9 @@ from .build import PACKAGE_DIR, Kernel
 
 SOURCE = PACKAGE_DIR / "csrc" / "bvh_kernel.cu"
 # the kernel's variants, as the CUDA source's Variant
-VARIANTS = {"flat": 0, "two_level": 1}
+VARIANTS = {"flat": 0, "two_level": 1, "streamed": 2}
+# the most slots per cluster the streamed variant stages (kMaxK)
+STREAMED_MAX_K = 128
 
 
 class BvhParams(ctypes.Structure):
@@ -57,20 +62,19 @@ def _bind(lib: ctypes.CDLL) -> None:
 KERNEL = Kernel(SOURCE, _bind)
 
 
-def bvh_variant(clusters) -> str:
-    """The kernel variant for a cluster table: "flat" for at most
-    VMEM_TABLE_MAX_SLOTS slots (the TPU's ``_kernel``), "two_level" for a
-    table the TPU keeps resident packed (``_kernel_packed``).  A table the
-    TPU streams from HBM (``_kernel_hbm``, config 7) is the next slice and
-    raises."""
+def bvh_variant(clusters, force_streamed: bool = False) -> str:
+    """The kernel variant for a cluster table, by the TPU's residency rule
+    (``intersect_triangles_bvh``): "streamed" for a table the TPU streams
+    from HBM (``_kernel_hbm``: ``bvh.table_streams_hbm``, or any table
+    when ``force_streamed``, as ``hbm_table=True`` under
+    ``tri_backend="clustered"``), else "flat" for at most
+    VMEM_TABLE_MAX_SLOTS slots (``_kernel``), else "two_level" for a table
+    the TPU keeps resident packed (``_kernel_packed``)."""
+    if force_streamed or bvh.table_streams_hbm(clusters):
+        return "streamed"
     if clusters.slots.numel() <= bvh.VMEM_TABLE_MAX_SLOTS:
         return "flat"
-    if not bvh.table_streams_hbm(clusters):
-        return "two_level"
-    raise NotImplementedError(
-        f"BVH kernel: a table of {clusters.slots.shape[0]} clusters streams "
-        "from HBM on the TPU (bvh_kernel._kernel_hbm, config 7): not "
-        "ported yet (ROADMAP Queue B 2)")
+    return "two_level"
 
 
 @dataclasses.dataclass
@@ -85,19 +89,22 @@ class Prepared:
 
 
 def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
-            clusters, table: torch.Tensor, order=None,
-            count=None) -> Prepared:
+            clusters, table: torch.Tensor, order=None, count=None,
+            force_streamed: bool = False) -> Prepared:
     """Check a CUDA launch's arguments and pack them; ``order``/``count``
     are a compaction's (``ops/bvh.compact_order``)."""
     device = o.x.device
     if device.type != "cuda":
         raise ValueError(f"BVH kernel: unsupported device {device}")
-    variant = bvh_variant(clusters)
+    variant = bvh_variant(clusters, force_streamed)
     n_rays = o.x.shape[0]
     if n_rays >= 2 ** 31 - 1024:
         raise ValueError(f"BVH kernel: {n_rays} rays overflow int32")
     hier = clusters.hierarchy
     n_cl, k = clusters.slots.shape
+    if variant == "streamed" and k > STREAMED_MAX_K:
+        raise ValueError(f"BVH kernel: the streamed variant stages at most "
+                         f"{STREAMED_MAX_K} slots per cluster, not {k}")
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z,
                         alive.to(torch.float32), t_init])
     if variant == "flat":
@@ -158,13 +165,15 @@ def launch(prep: Prepared, out=None):
 
 def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
                             t_init: torch.Tensor, clusters,
-                            table: torch.Tensor, compact: bool = False):
+                            table: torch.Tensor, compact: bool = False,
+                            force_streamed: bool = False):
     """(R,) rays x a clustered mesh -> (t f32, slot int32): the nearest
     triangle hit strictly closer than ``t_init`` per live ray and the
     table slot of its triangle, (+inf, -1) where none is
     (``ops/bvh.triangle_index`` maps a slot to the triangle's index).
-    ``compact`` walks only the rays that enter an admission box; it
-    changes no live ray's result."""
+    ``compact`` walks only the rays that enter an admission box, and
+    ``force_streamed`` takes the streamed variant for any table; neither
+    changes a live ray's result."""
     order = count = None
     if compact:
         order, count = bvh.compact_order(o, d, alive, t_init,
@@ -177,4 +186,4 @@ def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
         return bvh.intersect_triangles_bvh_plain(o, d, alive, t_init,
                                                  clusters, table)
     return launch(prepare(o, d, alive, t_init, clusters, table, order,
-                          count))
+                          count, force_streamed))

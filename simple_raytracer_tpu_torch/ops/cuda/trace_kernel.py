@@ -3,10 +3,12 @@ sky in one CUDA launch (``csrc/trace_kernel.cu``).
 
 It replaces the TPU megakernel ``_trace_kernel`` of
 ``simple_raytracer_tpu/ops/pallas/bounce_kernel.py`` with the sky
-evaluated in the kernel, including its two triangle forms: ``_tris_small``
+evaluated in the kernel, including its triangle forms: ``_tris_small``
 (a dense loop over at most ``scene_types.SMALL_TRIS_MAX`` triangles) and
 ``_tris_clustered`` (a BVH-clustered mesh of at most ``TABLE_MAX_SLOTS``
-slots).  Its plain PyTorch version, ``trace_full_plain``, is
+slots, or under ``tri_backend="fused"`` the TPU's packed form of it, at
+most ``MEGA_PACKED_MAX_CLUSTERS`` clusters of at most 128 slots: config
+6's 98,304 slots).  Its plain PyTorch version, ``trace_full_plain``, is
 ``generate_rays`` followed by ``trace_rays`` in its whole-trace form
 (triangles shaded at MT's (u, v)).
 
@@ -14,7 +16,7 @@ slots).  Its plain PyTorch version, ``trace_full_plain``, is
 a scene on a CUDA device it launches the kernel or raises: there is no
 fallback, and a mesh outside the kernel's envelope
 (``scene_types.whole_trace_variant`` is None) raises too;
-``ops/trace.render_pass`` sends such scenes to the split per-bounce path
+``ops/trace.render_pass`` sends such scenes to a per-bounce path
 instead.  The tables sit in shared memory, and the launch
 opts in to more than the default 48 KB, up to the device's limit.  The
 kernel is built on first use (``ops/cuda/build.py``).
@@ -28,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from ..bounce import prim_tables
 from ..camera import generate_rays
 from ..scene_types import (TABLE_MAX_SLOTS, Clusters, DeviceScene,
                            whole_trace_variant)
@@ -81,7 +84,9 @@ class _TraceParamsHead(ctypes.Structure):
 
 
 # the groups of 8 clusters whose order fits the parameter block, as
-# uint16 entries (an even count keeps the struct's size a multiple of 4)
+# uint16 entries (an even count keeps the struct's size a multiple of 4);
+# every table of the envelope fits (TABLE_MAX_SLOTS slots, or
+# MEGA_PACKED_MAX_CLUSTERS clusters under tri_backend="fused")
 MAX_GROUPS = (PARAM_LIMIT_BYTES - 8 * LAUNCH_POINTERS
               - ctypes.sizeof(_TraceParamsHead)) // 4 * 2
 
@@ -129,26 +134,6 @@ def check_shared_bytes(n_bytes: int, limit: int) -> None:
                          "per block")
 
 
-def prim_tables(scene: DeviceScene):
-    """The kernel's f32 tables: spheres (Ns, 8) [center, radius, material,
-    active, 0, 0], planes (Np, 8) [position, normal, material, active],
-    materials (M, 16) [smoothness, metallic, specular, emission_strength,
-    transmittance, ior, color, emission, 0 x4]."""
-    sp, pl, m = scene.spheres, scene.planes, scene.materials
-    f = lambda t: t.to(torch.float32)
-    sph = torch.cat([sp.center, sp.radius[:, None], f(sp.material)[:, None],
-                     f(sp.active)[:, None],
-                     torch.zeros_like(sp.center[:, :2])], dim=1)
-    pln = torch.cat([pl.position, pl.normal, f(pl.material)[:, None],
-                     f(pl.active)[:, None]], dim=1)
-    mat = torch.cat([torch.stack([m.smoothness, m.metallic, m.specular,
-                                  m.emission_strength, m.transmittance,
-                                  m.refraction_index], dim=1),
-                     m.color, m.emission,
-                     torch.zeros_like(m.color[:, :1]).expand(-1, 4)], dim=1)
-    return sph.contiguous(), pln.contiguous(), mat.contiguous()
-
-
 def group_order(clusters: Clusters, position) -> np.ndarray:
     """Front-to-back order of the groups of 8 clusters from the camera
     position: by the squared distance of each group's nearest box center,
@@ -177,10 +162,12 @@ def trace_full_plain(scene: DeviceScene, rot, position, aspect_ratio,
 
 def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
                time, *, width, height, num_samples, num_bounces, row0=0,
-               tile_height=None, ray_tile=None) -> Vec3:
+               tile_height=None, ray_tile=None,
+               tri_backend: str = "auto") -> Vec3:
     """Per-ray radiance of the (tile_height * W * S,) rays of one pass
     (ray i is local_pixel * S + sample, pixels in ray-tile order when
-    ``ray_tile`` is set)."""
+    ``ray_tile`` is set).  ``tri_backend`` sets the envelope
+    (``whole_trace_variant``)."""
     kw = dict(width=width, height=height, num_samples=num_samples,
               num_bounces=num_bounces, row0=row0, tile_height=tile_height,
               ray_tile=ray_tile)
@@ -188,7 +175,7 @@ def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
         return trace_full_plain(scene, rot, position, aspect_ratio,
                                 fov_scale, time, **kw)
     return launch(prepare(scene, rot, position, aspect_ratio, fov_scale,
-                          time, **kw))
+                          time, tri_backend=tri_backend, **kw))
 
 
 @dataclasses.dataclass
@@ -204,20 +191,22 @@ class Prepared:
 
 def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
             time, *, width, height, num_samples, num_bounces, row0=0,
-            tile_height=None, ray_tile=None) -> Prepared:
+            tile_height=None, ray_tile=None,
+            tri_backend: str = "auto") -> Prepared:
     """Check a CUDA pass's arguments and pack its launch."""
     if tile_height is None:
         tile_height = height
-    variant = whole_trace_variant(scene)
+    variant = whole_trace_variant(scene, tri_backend)
     if variant is None:
         tris = scene.triangles
         raise NotImplementedError(
             f"trace kernel: a mesh of {tris.material.shape[0]} triangles "
             + ("with %d cluster slots" % tris.clusters.slots.numel()
                if tris.clusters is not None else "without clusters")
-            + " is outside the whole-trace kernel; ops/trace.render_pass "
-            "sends it to the split per-bounce path (ops/cuda/bvh_kernel.py "
-            "for clustered meshes)")
+            + f" is outside the whole-trace kernel under tri_backend="
+            f"{tri_backend!r}; ops/trace.render_pass sends it to the split "
+            "per-bounce path (a clustered mesh under \"fused\" to the fused "
+            "one; ops/cuda/bvh_kernel.py for clustered meshes)")
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"trace kernel: unsupported device {device}")

@@ -230,14 +230,17 @@ def shade_from_position(rows: torch.Tensor, position: Vec3):
 
 
 def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
-                      alive: torch.Tensor, compact: bool = False) -> Hit:
+                      alive: torch.Tensor, compact: bool = False,
+                      tri_backend: str = "auto") -> Hit:
     """The split path's nearest hit for the (R,) rays whose ``alive`` is
     set (the other rays' results are not used).  A clustered mesh goes
     through the BVH kernel with its far bound seeded by the nearest
     sphere or plane hit (on the CPU, its plain version), behind the ray
-    compaction when ``compact``; a mesh without clusters through the dense
-    loop.  The winner's table row (at its slot, or for a mesh without
-    clusters its index) is gathered and shaded at the hit position."""
+    compaction when ``compact``; ``tri_backend="clustered"`` forces its
+    streamed variant, as the JAX ``closest_hit`` forces ``hbm_table``.  A
+    mesh without clusters goes through the dense loop.  The winner's table
+    row (at its slot, or for a mesh without clusters its index) is
+    gathered and shaded at the hit position."""
     t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
     tr = scene.triangles
     t_t = torch.full_like(o.x, math.inf)
@@ -245,7 +248,7 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
     if tr.material.shape[0] > 0 and tr.clusters is not None:
         t_t, i_t = bvh_kernel.intersect_triangles_bvh(
             o, d, alive, torch.minimum(t_s, t_p), tr.clusters, tr.table,
-            compact=compact)
+            compact=compact, force_streamed=tri_backend == "clustered")
         i_t = i_t.clamp_min(0).long()   # slot -1 (no win): any row; t is +inf
     elif tr.material.shape[0] > 0:
         t_t, i_t, _, _ = intersect_triangles(o, d, tr)

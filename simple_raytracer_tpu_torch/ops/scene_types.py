@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .bvh import VMEM_TABLE_MAX_SLOTS, Hierarchy, build_hierarchy
+from .bvh import PACKET, VMEM_TABLE_MAX_SLOTS, Hierarchy, build_hierarchy
 from .vec import Vec3
 
 
@@ -130,20 +130,33 @@ TABLE_MAX_SLOTS = VMEM_TABLE_MAX_SLOTS
 # meshes of at most this many triangles (padded) and no clusters take the
 # whole-trace kernel's dense in-kernel loop (bounce_kernel.SMALL_TRIS_MAX)
 SMALL_TRIS_MAX = 64
+# under tri_backend="fused" the whole-trace kernel also serves a table of
+# at most this many single-packet clusters (K <= PACKET), which the TPU
+# keeps resident in its packed form (bounce_kernel.py:119
+# MEGA_PACKED_MAX_CLUSTERS, the rule of ops/trace.py:283-293)
+MEGA_PACKED_MAX_CLUSTERS = 853
 
 
-def whole_trace_variant(scene: DeviceScene) -> Optional[str]:
+def whole_trace_variant(scene: DeviceScene,
+                        tri_backend: str = "auto") -> Optional[str]:
     """The whole-trace kernel's triangle variant for a scene, as the TPU's
     whole-trace rule (ops/trace.py ``mega_tris``): "none", "small" (at
     most SMALL_TRIS_MAX triangles, no clusters) or "clustered" (at most
-    TABLE_MAX_SLOTS cluster slots); None for any other mesh, which takes
-    the split per-bounce path."""
+    TABLE_MAX_SLOTS cluster slots, or under ``tri_backend="fused"`` at
+    most MEGA_PACKED_MAX_CLUSTERS clusters of at most PACKET slots: the
+    TPU's packed table, which the card reads from global memory like any
+    other); None for any other mesh, which takes the per-bounce path."""
     tris = scene.triangles
     n = tris.material.shape[0]
     cl = tris.clusters
     if cl is None:
         return "none" if n == 0 else "small" if n <= SMALL_TRIS_MAX else None
-    return "clustered" if cl.slots.numel() <= TABLE_MAX_SLOTS else None
+    if cl.slots.numel() <= TABLE_MAX_SLOTS:
+        return "clustered"
+    if (tri_backend == "fused" and cl.k <= PACKET
+            and cl.slots.shape[0] <= MEGA_PACKED_MAX_CLUSTERS):
+        return "clustered"
+    return None
 
 
 def tri_table(tris: dict, slots: Optional[np.ndarray] = None) -> np.ndarray:

@@ -19,11 +19,23 @@ TPU would stream the cluster table from HBM, while every later bounce
 takes the ray compaction when the batch is large enough
 (``bvh.compacts``), the policy of the JAX ``trace_rays``.
 
+``trace_rays_fused`` is the fused per-bounce path (the JAX
+``trace_rays_fused``): the (20, Rp) ray state of ``ops/bounce.py``, and
+per bounce the nearest sphere and plane as the BVH's far bound, the BVH
+kernel, and the per-bounce shade kernel (``ops/cuda/bounce_kernel.py``);
+the sky once at the end.
+
 ``render_pass`` traces one progressive pass and adds its per-pixel sample
-mean to the canvas.  A scene inside the whole-trace kernel's envelope,
-under ``tri_backend="auto"``, takes that kernel (its plain version on the
-CPU); every other scene, and every scene under ``tri_backend="bvh"``,
-takes ``generate_rays`` and the split ``trace_rays``.
+mean to the canvas, routed as the JAX ``render_pass`` routes on the TPU:
+
+  - a scene inside the whole-trace kernel's envelope (under "auto" or
+    "fused"; "fused" widens it to config 6's packed table) takes that
+    kernel, its plain version on the CPU;
+  - else, under "fused", a scene without triangles or with clusters
+    (``fused_ok``) takes ``trace_rays_fused``: config 7;
+  - every other scene takes the split ``trace_rays``: configs 6 and 7
+    under "auto", every scene under "bvh" and under "clustered" (which
+    forces the BVH kernel's streamed variant).
 """
 from __future__ import annotations
 
@@ -32,9 +44,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import bvh
+from .bounce import bounce_step, make_state, prim_tables, unpack_state
 from .bsdf import gather_materials, sample_material
 from .camera import camera_rotation, generate_rays, untile_pixels
-from .intersect import closest_hit, closest_hit_split
+from .cuda import bvh_kernel
+from .intersect import _spheres_planes, closest_hit, closest_hit_split
 from .scene_types import DeviceScene, whole_trace_variant
 from .sky import sky_gradient
 from .vec import Vec3, where as vwhere
@@ -49,20 +63,18 @@ class CameraState(NamedTuple):
     fov_scale: float
 
 
-# the triangle backends of the JAX RenderOptions; the port runs "auto"
-# and "bvh", the others raise naming the ROADMAP item that ports them
+# the triangle backends of the JAX RenderOptions that the port runs; the
+# others raise naming the ROADMAP item that ports them
+TRI_BACKENDS = ("auto", "bvh", "clustered", "fused")
 TRI_BACKENDS_TO_PORT = {
-    "jnp": "ROADMAP Queue A 5 (the dense triangle route for clustered "
+    "jnp": "ROADMAP Queue A 2 (the dense triangle route for clustered "
            "meshes)",
-    "pallas": "ROADMAP Queue B 6 (triangle_kernel._kernel)",
-    "clustered": "ROADMAP Queue B 2 (bvh_kernel._kernel_hbm)",
-    "fused": "ROADMAP Queue B 4 and 5 (_bounce_kernel, the packed "
-             "in-kernel traversal)",
+    "pallas": "ROADMAP Queue A 2 and Queue B 2 (triangle_kernel._kernel)",
 }
 
 
 def check_tri_backend(tri_backend: str) -> None:
-    if tri_backend in ("auto", "bvh"):
+    if tri_backend in TRI_BACKENDS:
         return
     if tri_backend in TRI_BACKENDS_TO_PORT:
         raise NotImplementedError(
@@ -73,13 +85,15 @@ def check_tri_backend(tri_backend: str) -> None:
 
 def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
                num_bounces: int, segments: Optional[list] = None,
-               split: bool = False) -> Vec3:
+               split: bool = False, tri_backend: str = "auto") -> Vec3:
     """Trace the (R,) ray batch to completion; returns per-ray radiance.
 
     ``segments``, when given, receives one (live rays, rays that hit,
     rays whose nearest hit is a triangle) triple per bounce: the work the
     kernel does, which depends on the data.  ``split`` selects the split
-    per-bounce path's nearest hit and its compaction policy."""
+    per-bounce path's nearest hit and its compaction policy, where
+    ``tri_backend="clustered"`` forces the BVH kernel's streamed
+    variant."""
     zeros = torch.zeros_like(o.x)
     ones = torch.ones_like(o.x)
     color = Vec3(zeros, zeros, zeros)
@@ -96,7 +110,8 @@ def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
         if split:
             hit = closest_hit_split(
                 scene, o, d, alive,
-                compact=compact_first if i == 0 else compact_later)
+                compact=compact_first if i == 0 else compact_later,
+                tri_backend=tri_backend)
         else:
             hit = closest_hit(scene, o, d)
         h_alive = alive & hit.hit
@@ -122,11 +137,54 @@ def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
     return color + sky_mask * sky_gradient(sky_dir, scene.sky)
 
 
+def trace_rays_fused(scene: DeviceScene, o: Vec3, d: Vec3,
+                     seed: torch.Tensor, num_bounces: int) -> Vec3:
+    """``trace_rays`` with each bounce's body in one launch of the
+    per-bounce shade kernel (its plain version on the CPU), over the
+    (20, Rp) ray state.  Per bounce: the nearest sphere and plane seed the
+    BVH's far bound, the BVH kernel gives each live ray's nearest triangle
+    (compacted whenever ``bvh.compacts`` allows, bounce 0 included, which
+    changes no live ray's result), and ``bounce_step`` shades, samples and
+    advances every ray; the gradient sky once after the last bounce.  It
+    makes the split ``trace_rays``'s float operations in the same order,
+    so it gives the same radiance."""
+    n = o.x.shape[0]
+    state = make_state(o, d, seed)
+    tables = prim_tables(scene)
+    tr = scene.triangles
+    compact = bvh.compacts(n)
+    for i in range(num_bounces):
+        tri = None
+        if tr.material.shape[0] > 0:
+            ro = Vec3(state[0], state[1], state[2])
+            rd = Vec3(state[3], state[4], state[5])
+            t_s, _, t_p, _ = _spheres_planes(scene, ro, rd)
+            tri = bvh_kernel.intersect_triangles_bvh(
+                ro, rd, state[7], torch.minimum(t_s, t_p), tr.clusters,
+                tr.table, compact=compact)
+        state = bounce_step(state, i == num_bounces - 1, scene, tri, tables)
+    color, sky_mask, sky_dir = unpack_state(state, n)
+    return color + sky_mask * sky_gradient(sky_dir, scene.sky)
+
+
 def takes_whole_trace(scene: DeviceScene, tri_backend: str = "auto") -> bool:
     """Does render_pass trace this scene with the whole-trace kernel (or
-    its plain version), rather than the split per-bounce path?"""
+    its plain version), rather than a per-bounce path?"""
     check_tri_backend(tri_backend)
-    return tri_backend == "auto" and whole_trace_variant(scene) is not None
+    return (tri_backend in ("auto", "fused")
+            and whole_trace_variant(scene, tri_backend) is not None)
+
+
+def fused_ok(scene: DeviceScene, tri_backend: str) -> bool:
+    """Does a scene outside the whole-trace envelope take the fused
+    per-bounce path?  The JAX ``_fused_ok`` on the TPU: under "fused" a
+    scene without triangles or with clusters (a mid-size mesh without
+    them takes the split path's dense loop).  Under "auto" it declines
+    every scene that reaches it (a clustered table above
+    VMEM_TABLE_MAX_SLOTS slots, or a mesh without clusters)."""
+    tris = scene.triangles
+    return tri_backend == "fused" and (tris.material.shape[0] == 0
+                                       or tris.clusters is not None)
 
 
 def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
@@ -136,10 +194,11 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
                 tri_backend: str = "auto") -> torch.Tensor:
     """One progressive pass: trace S jittered samples per pixel and add the
     per-pixel mean to the (tile_height, W, 3) canvas.  A scene inside the
-    whole-trace kernel's envelope (under ``tri_backend="auto"``) is one
-    launch of that kernel on a CUDA device and its plain version on the
-    CPU; any other scene takes the split per-bounce path, whose clustered
-    meshes launch the BVH kernel on a CUDA device.
+    whole-trace kernel's envelope (under ``tri_backend`` "auto" or
+    "fused") is one launch of that kernel on a CUDA device and its plain
+    version on the CPU; any other scene takes a per-bounce path (the
+    module's docstring gives the rule), whose clustered meshes launch the
+    BVH kernel on a CUDA device.
 
     ``canvas_tiled=True`` keeps the canvas in the ray-tile pixel order (the
     engine's convention: tonemapping is per pixel, so the untile waits
@@ -154,14 +213,19 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
             scene, rot, camera.position, camera.aspect_ratio,
             camera.fov_scale, time, width=width, height=height,
             num_samples=num_samples, num_bounces=num_bounces, row0=row0,
-            tile_height=tile_height, ray_tile=ray_tile)
+            tile_height=tile_height, ray_tile=ray_tile,
+            tri_backend=tri_backend)
     else:
         o, d, seed = generate_rays(width, height, num_samples, time,
                                    camera.position, rot,
                                    camera.aspect_ratio, camera.fov_scale,
                                    row0=row0, tile_height=tile_height,
                                    tile=ray_tile, device=scene.device)
-        color = trace_rays(scene, o, d, seed, num_bounces, split=True)
+        if fused_ok(scene, tri_backend):
+            color = trace_rays_fused(scene, o, d, seed, num_bounces)
+        else:
+            color = trace_rays(scene, o, d, seed, num_bounces, split=True,
+                               tri_backend=tri_backend)
 
     inv_s = 1.0 / num_samples
 

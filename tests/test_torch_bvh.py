@@ -1,14 +1,17 @@
-"""The split per-bounce path's BVH pieces (ops/bvh.py, ops/cuda/bvh_kernel.py,
+"""The per-bounce paths' BVH pieces (ops/bvh.py, ops/cuda/bvh_kernel.py,
 intersect.closest_hit_split) against simple_raytracer_tpu's
 ops/pallas/bvh_kernel.py.
 
 The CUDA kernel runs only on the card (chip_smoke.py holds it against its
 plain version there).  Here the plain version is held to the TPU kernels
-``_kernel`` and ``_kernel_packed``, run in Pallas interpret mode with
-block_r=128 as tests/test_bvh_kernel.py runs them, on a 320-triangle
-icosphere: the same hit masks and winner indices, and t within
-rtol=1e-5, the JAX test's own tolerance (interpret mode runs under jit,
-where XLA:CPU contracts multiply-adds, so t may differ by an ulp).  The
+``_kernel``, ``_kernel_packed`` and ``_kernel_hbm`` (the streamed table,
+row or packed), run in Pallas interpret mode with block_r=128 as
+tests/test_bvh_kernel.py runs them, on a 320-triangle icosphere: the same
+hit masks and winner indices, and t within rtol=1e-5, the JAX test's own
+tolerance (interpret mode runs under jit, where XLA:CPU contracts
+multiply-adds, so t may differ by an ulp).  The plain version's coarse
+gates (groups, supers) give the results of testing every (ray, cluster)
+pair, bit for bit, on configs 5 and 6.  The
 TPU gates Moller-Trumbore for a 128-ray sub-block, the port for each ray
 alone; on these sets no hit differs (a grazing hit that MT accepts just
 outside a box its ray's own slab test rejects would show here).
@@ -85,6 +88,10 @@ def _jax_bvh(ds, o, d, alive, t_init, route):
     kw = dict(block_r=128, interpret=True)
     if route == "packed_vmem":
         kw.update(table_tr=cl.table_tr, packed_vmem=True)
+    elif route in ("hbm", "hbm_packed"):
+        # _kernel_hbm, as tri_backend="clustered" forces it
+        kw.update(hbm_table=True,
+                  table_tr=cl.table_tr if route == "hbm_packed" else None)
     t, i = jbvh.intersect_triangles_bvh(
         jvec(o), jvec(d), jnp.asarray(alive), jnp.asarray(t_init), cl.aabb,
         cl.table_t, **kw)
@@ -117,13 +124,16 @@ def _assert_same_hits(jt, ji, pt, pi, live):
 
 
 @pytest.mark.parametrize("k", [64, 128])
-@pytest.mark.parametrize("route", ["kernel", "packed_vmem"])
+@pytest.mark.parametrize("route", ["kernel", "packed_vmem", "hbm",
+                                   "hbm_packed"])
 def test_plain_matches_tpu_kernels(route, k):
-    """The plain version against _kernel and _kernel_packed on random rays
-    with t_init seeds and dead rays."""
+    """The plain version against _kernel, _kernel_packed and _kernel_hbm
+    (streaming the row table or the packed one) on random rays with
+    t_init seeds and dead rays."""
     ds, ts = _ico_scene(k)
     assert ts.triangles.clusters.k == k
-    o, d, alive, t_init = _ray_set(640, seed=k + (route == "kernel"))
+    offset = {"kernel": 1, "packed_vmem": 0, "hbm": 2, "hbm_packed": 3}
+    o, d, alive, t_init = _ray_set(640, seed=k + offset[route])
     jt, ji = _jax_bvh(ds, o, d, alive, t_init, route)
     pt, pi = _port_bvh(ts, o, d, alive, t_init)
     live = alive > 0
@@ -407,7 +417,8 @@ def test_residency_and_compaction_rules_match_jax(numpy_bvh):
     """table_streams_hbm, compact_cap_auto and the variant choice follow
     the TPU's rules: configs 4 and 5 fit the row table (flat), config 6
     the packed one (two_level, bounce 0 dense), config 7's 11,008
-    clusters of 128 stream (the next slice: the variant raises)."""
+    clusters of 128 stream (the streamed variant), and "clustered" forces
+    the streamed variant on any table, as hbm_table=True does."""
     for n in (4, 5, 6):
         ds = JCONFIGS[n](width=64, height=36)[0].build()
         ts = from_numpy(jax_scene_arrays(ds), "cpu")
@@ -415,6 +426,7 @@ def test_residency_and_compaction_rules_match_jax(numpy_bvh):
         assert bvh.table_streams_hbm(cl) == jbvh.table_streams_hbm(
             ds.triangles.clusters) is False
         assert bk.bvh_variant(cl) == ("two_level" if n == 6 else "flat")
+        assert bk.bvh_variant(cl, force_streamed=True) == "streamed"
     assert cl.slots.shape == (768, 128)
     shape = lambda *s: types.SimpleNamespace(shape=s)
     for c, k in ((11008, 128), (801, 128), (800, 128), (400, 256)):
@@ -423,9 +435,8 @@ def test_residency_and_compaction_rules_match_jax(numpy_bvh):
             table_tr=shape(c, 24 * (-(-k // 128)), 128))
         tcl = types.SimpleNamespace(slots=torch.zeros(c, k), k=k)
         assert bvh.table_streams_hbm(tcl) == jbvh.table_streams_hbm(jcl)
-    with pytest.raises(NotImplementedError, match="Queue B 2"):
-        bk.bvh_variant(types.SimpleNamespace(slots=torch.zeros(11008, 128),
-                                             k=128))
+    assert bk.bvh_variant(types.SimpleNamespace(
+        slots=torch.zeros(11008, 128), k=128)) == "streamed"
     for n in (4608, 98303, 98304, 1036800, 2073600):
         assert bvh.compact_cap_auto(n) == jbvh.compact_cap_auto(n)
     assert not bvh.compacts(4608) and bvh.compacts(1036800)
@@ -469,3 +480,69 @@ def test_launch_struct_matches_cuda_source():
     for name, value in bk.VARIANTS.items():
         camel = "k" + "".join(w.title() for w in name.split("_"))
         assert re.search(rf"{camel} = {value}\b", src), name
+
+
+def _every_pair_plain(o, d, alive, t_init, clusters, table):
+    """The plain version without the coarse gates: the slab test of every
+    (live ray, cluster) pair, then the same MT and commit."""
+    n_rays = o.x.shape[0]
+    n_cl, k = clusters.slots.shape
+    live = alive > 0
+    inv = bvh.inverse(d)
+    cols = table.reshape(n_cl, k, table.shape[1])
+    gidx = clusters.hierarchy.gidx.to(torch.int64)
+    key = ((gidx << 32) | torch.arange(n_cl * k)).reshape(n_cl, k)
+    best_t = t_init.clone()
+    best_key = torch.full((n_rays,), -1, dtype=torch.int64)
+    c_idx, r_idx = bvh.slab_maybe(clusters.aabb, o, inv, t_init,
+                                  live).nonzero(as_tuple=True)
+    ray = lambda v: v[r_idx][:, None]
+    t, valid = bvh._mt(ray(o.x), ray(o.y), ray(o.z), ray(d.x), ray(d.y),
+                       ray(d.z), lambda j: cols[:, :, j][c_idx])
+    t = torch.where(valid, t, float("inf"))
+    local_t = t.amin(dim=1)
+    local_key = torch.where(valid & (t == local_t[:, None]), key[c_idx],
+                            bvh._NO_KEY).amin(dim=1)
+    new_t = best_t.scatter_reduce(0, r_idx, local_t, "amin")
+    cand = torch.where(local_t == new_t[r_idx], local_key, bvh._NO_KEY)
+    keep = torch.where(best_t == new_t, best_key, bvh._NO_KEY)
+    best_key = keep.scatter_reduce(0, r_idx, cand, "amin")
+    won = best_key >= 0
+    return (torch.where(won, new_t, float("inf")),
+            torch.where(won, best_key & 0xFFFFFFFF, -1).to(torch.int32))
+
+
+@pytest.mark.parametrize("n_cfg", [5, 6])
+def test_coarse_gates_equal_every_pair(n_cfg):
+    """The plain version walks groups, then supers, then clusters; a union
+    box contains its members, so it gives, bit for bit, the results of
+    testing every (ray, cluster) pair: on config 5 (64 clusters, one
+    group) and config 6 (768 clusters, three groups), for camera rays and
+    rays at the mesh with t_init seeds and dead rays."""
+    from simple_raytracer_tpu_torch.models.presets import CONFIGS
+    from simple_raytracer_tpu_torch.ops.camera import (camera_rotation,
+                                                       generate_rays)
+    scene, camera, _ = CONFIGS[n_cfg](width=64, height=36)
+    ts = scene.build("cpu")
+    cl = ts.triangles.clusters
+    cam = camera.state(64 / 36)
+    o1, d1, _ = generate_rays(64, 36, 1, 3, cam.position,
+                              camera_rotation(cam.yaw, cam.pitch),
+                              cam.aspect_ratio, cam.fov_scale)
+    o2, d2 = _mesh_rays(ts, 3000, 50 + n_cfg)
+    o = type(o1)(*(torch.cat([a, torch.from_numpy(b)])
+                   for a, b in zip(o1, o2.T)))
+    d = type(d1)(*(torch.cat([a, torch.from_numpy(b)])
+                   for a, b in zip(d1, d2.T)))
+    n = o.x.shape[0]
+    r = np.random.default_rng(n_cfg)
+    t_init = torch.from_numpy(np.where(r.uniform(size=n) < 0.5, np.inf,
+                                       r.uniform(0.5, 6.0, n)
+                                       ).astype(np.float32))
+    alive = torch.from_numpy((r.uniform(size=n) > 0.1).astype(np.float32))
+    t_a, s_a = bvh.intersect_triangles_bvh_plain(o, d, alive, t_init, cl,
+                                                 ts.triangles.table)
+    t_b, s_b = _every_pair_plain(o, d, alive, t_init, cl,
+                                 ts.triangles.table)
+    assert torch.equal(s_a, s_b) and torch.equal(t_a, t_b)
+    assert int((s_a >= 0).sum()) > 1000

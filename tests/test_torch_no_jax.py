@@ -5,8 +5,10 @@ A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``simple_raytracer_tpu_torch`` still imports), then imports the port and
 chip_smoke and renders config 2, the clustered mesh of config 4 (its
 BVH built by the port's own builder) and config 6 through the split
-per-bounce path at 32x16 on the CPU.  chip_smoke.py itself
-must fail, printing no result, without CUDA and outside the repository.
+per-bounce path at 32x16 on the CPU, and traces config 7 (cut to 5,120
+triangles) through the fused per-bounce path (ops/bounce.py) and under
+tri_backend="clustered".  chip_smoke.py itself must fail, printing no
+result, without CUDA and outside the repository.
 """
 import os
 import shutil
@@ -55,6 +57,24 @@ for n in (2, 4, 6):
 assert renderers[4].device_scene.triangles.clusters.slots.shape == (32, 64)
 # config 6 takes the split per-bounce path (the BVH kernel's plain version)
 assert renderers[6].device_scene.triangles.clusters.slots.shape == (768, 128)
+# config 7, cut down: the fused per-bounce path and the "clustered" backend
+from simple_raytracer_tpu_torch.ops import bounce
+from simple_raytracer_tpu_torch.ops.cuda import bounce_kernel
+from simple_raytracer_tpu_torch.ops.camera import (camera_rotation,
+                                                   generate_rays)
+from simple_raytracer_tpu_torch.ops.trace import trace_rays_fused
+scene, camera, opt = CONFIGS[7](width=32, height=16, subdivisions=4)
+ts = scene.build("cpu")
+cam = camera.state(2.0)
+o, d, seed = generate_rays(32, 16, 2, 3, cam.position,
+                           camera_rotation(cam.yaw, cam.pitch),
+                           cam.aspect_ratio, cam.fov_scale)
+col = trace_rays_fused(ts, o, d, seed, opt.num_bounces)
+assert float(col.x.std()) > 0
+r = Renderer(RenderOptions(width=32, height=16, num_samples=2,
+                           num_bounces=opt.num_bounces,
+                           tri_backend="clustered"), scene, device="cpu")
+assert r.render(camera, num_steps=1).std() > 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 try:

@@ -187,24 +187,33 @@ def test_config4_bvh_backend_matches_jax(monkeypatch):
 
 def test_routing_and_backends():
     """Under "auto" the scenes the whole-trace kernel serves (configs 1 to
-    5) take it, config 6 the split path; under "bvh" every scene takes the
-    split path.  A triangle-free scene gives the same canvas both ways.
-    The JAX package's other backends raise NotImplementedError, unknown
-    names ValueError."""
+    5) take it, configs 6 and 7 (here 20,480 triangles, 256 clusters of
+    128) the split path; under "bvh" and "clustered" every scene takes the
+    split path; under "fused" the whole-trace kernel serves configs 6 and
+    7's packed tables too.  A triangle-free scene gives the same canvas
+    every way.  The JAX package's other backends raise
+    NotImplementedError, unknown names ValueError."""
     from simple_raytracer_tpu_torch.ops.trace import (TRI_BACKENDS_TO_PORT,
                                                       takes_whole_trace)
-    scenes = {n: CONFIGS[n](width=32, height=16, **KWARGS.get(n, {}))
+    kwargs = {**KWARGS, 7: {"subdivisions": 5}}
+    scenes = {n: CONFIGS[n](width=32, height=16, **kwargs.get(n, {}))
               for n in CONFIGS}
     built = {n: s.build("cpu") for n, (s, _, _) in scenes.items()}
+    assert list(built) == [1, 2, 3, 4, 5, 6, 7]
     assert [n for n in built if takes_whole_trace(built[n])] == [1, 2, 3, 4,
                                                                  5]
-    assert not any(takes_whole_trace(b, "bvh") for b in built.values())
+    assert [n for n in built if takes_whole_trace(built[n], "fused")] == [
+        1, 2, 3, 4, 5, 6, 7]
+    for backend in ("bvh", "clustered"):
+        assert not any(takes_whole_trace(b, backend) for b in built.values())
     _, camera, opt = scenes[2]
     kw = dict(width=32, height=16, num_samples=2, num_bounces=4)
     cam = camera.state(2.0)
-    a, b = (render_pass(built[2], cam, torch.zeros(16, 32, 3), 5,
-                        tri_backend=t, **kw) for t in ("auto", "bvh"))
-    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    a, *others = (render_pass(built[2], cam, torch.zeros(16, 32, 3), 5,
+                              tri_backend=t, **kw)
+                  for t in ("auto", "bvh", "clustered", "fused"))
+    for b in others:
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     for name in TRI_BACKENDS_TO_PORT:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RenderOptions(tri_backend=name)
@@ -251,3 +260,146 @@ def test_benchmark_passes_leave_the_state():
     assert len(ran) == 5
     assert r.num_steps == steps
     np.testing.assert_array_equal(r.canvas.numpy(), canvas.numpy())
+
+
+class _Route(Exception):
+    """Raised where the JAX render_pass commits to a path."""
+
+
+def _jax_route(monkeypatch, ds, tri_backend):
+    """(path, BVH residency) that the JAX render_pass takes on the TPU:
+    "whole" (trace_full_fused), "fused" (trace_rays_fused) or "split" (the
+    scan path), and "flat", "two_level" or "streamed" for the BVH kernel
+    it calls (_kernel, _kernel_packed, _kernel_hbm: intersect_triangles_bvh's
+    residency rule), None when it calls none."""
+    import jax
+    import simple_raytracer_tpu.ops.intersect as jint
+    import simple_raytracer_tpu.ops.pallas.bounce_kernel as jbk
+    import simple_raytracer_tpu.ops.pallas.bvh_kernel as jbvh
+    import simple_raytracer_tpu.ops.trace as jtrace
+    from simple_raytracer_tpu.ops.trace import CameraState
+    from simple_raytracer_tpu.ops.vec import Vec3 as JVec3
+    path = []
+
+    def bvh_call(o, d, alive, t_init, aabb, table_t, hbm_table=None,
+                 table_tr=None, **kw):
+        packets = table_tr.shape[1] // 24 if table_tr is not None else 1
+        packed = (hbm_table is not True
+                  and table_t.shape[0] > jbvh.VMEM_TABLE_MAX_SLOTS
+                  and table_tr is not None
+                  and table_tr.shape[0] * packets
+                  <= jbvh.PACKED_VMEM_MAX_CLUSTERS)
+        hbm = not packed and (hbm_table if hbm_table is not None
+                              else table_t.shape[0]
+                              > jbvh.VMEM_TABLE_MAX_SLOTS)
+        raise _Route(path[-1], "streamed" if hbm else
+                     "two_level" if packed else "flat")
+
+    def whole(*a, **k):
+        raise _Route("whole", None)
+
+    fused_orig, hit_orig = jtrace.trace_rays_fused, jtrace.closest_hit
+
+    def fused(*a, **k):
+        path.append("fused")
+        return fused_orig(*a, **k)
+
+    def split_hit(scene, *a, **k):
+        path.append("split")
+        hit_orig(scene, *a, **k)
+        raise _Route("split", None)
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jbk, "trace_full_fused", whole)
+    monkeypatch.setattr(jbvh, "intersect_triangles_bvh", bvh_call)
+    monkeypatch.setattr(jtrace, "trace_rays_fused", fused)
+    monkeypatch.setattr(jtrace, "closest_hit", split_hit)
+    cam = CameraState(position=JVec3(0.0, 0.3, 2.5), yaw=0.0,
+                      pitch=0.0, aspect_ratio=2.0, fov_scale=0.5)
+    try:
+        jtrace.render_pass(ds, cam, np.zeros((8, 16, 3), np.float32), 3,
+                           width=16, height=8, num_samples=1,
+                           num_bounces=2, tri_backend=tri_backend)
+    except _Route as r:
+        return r.args
+    raise AssertionError("the JAX render_pass took no path")
+
+
+def _port_route(ts, tri_backend):
+    from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
+    from simple_raytracer_tpu_torch.ops.trace import (fused_ok,
+                                                      takes_whole_trace)
+    cl = ts.triangles.clusters
+    if takes_whole_trace(ts, tri_backend):
+        return "whole", None
+    path = "fused" if fused_ok(ts, tri_backend) else "split"
+    if cl is None or ts.triangles.material.shape[0] == 0:
+        return path, None
+    return path, bk.bvh_variant(cl, tri_backend == "clustered")
+
+
+def test_routing_matches_jax(monkeypatch):
+    """render_pass's path and BVH variant for configs 1 to 7 (config 7
+    with 20,480 triangles) under "auto", "fused" and "clustered" are the
+    JAX render_pass's on the TPU; then again with the packed tables' VMEM
+    limits (PACKED_VMEM_MAX_CLUSTERS, MEGA_PACKED_MAX_CLUSTERS) lowered
+    in both packages so that config 7 streams, as at full size.  Under
+    "auto" the port's routes are those of PR 6: configs 1 to 5 whole,
+    6 and 7 split."""
+    import simple_raytracer_tpu.accel
+    import simple_raytracer_tpu.ops.pallas.bounce_kernel as jbk
+    import simple_raytracer_tpu.ops.pallas.bvh_kernel as jbvh
+    import simple_raytracer_tpu_torch.ops.bvh as tbvh
+    import simple_raytracer_tpu_torch.ops.scene_types as tst
+    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
+                        lambda: None)
+    kwargs = {**KWARGS, 7: {"subdivisions": 5}}
+    scenes = {}
+    for n in range(1, 8):
+        ds = JCONFIGS[n](width=16, height=8, **kwargs.get(n, {}))[0].build()
+        scenes[n] = (ds, from_numpy(jax_scene_arrays(ds), "cpu"))
+    assert scenes[7][1].triangles.clusters.slots.shape == (256, 128)
+    auto = {n: _port_route(ts, "auto") for n, (_, ts) in scenes.items()}
+    assert auto == {1: ("whole", None), 2: ("whole", None),
+                    3: ("whole", None), 4: ("whole", None),
+                    5: ("whole", None), 6: ("split", "two_level"),
+                    7: ("split", "two_level")}
+    for lowered in (False, True):
+        with monkeypatch.context() as m:
+            if lowered:
+                for mod, name in ((jbvh, "PACKED_VMEM_MAX_CLUSTERS"),
+                                  (tbvh, "PACKED_VMEM_MAX_CLUSTERS"),
+                                  (jbk, "MEGA_PACKED_MAX_CLUSTERS"),
+                                  (tst, "MEGA_PACKED_MAX_CLUSTERS")):
+                    m.setattr(mod, name, 100)
+            for n, (ds, ts) in scenes.items():
+                for backend in ("auto", "fused", "clustered"):
+                    want = _jax_route(m, ds, backend)
+                    assert _port_route(ts, backend) == want, (n, backend,
+                                                              lowered)
+            if lowered:
+                ts = scenes[7][1]
+                assert _port_route(ts, "auto") == ("split", "streamed")
+                assert _port_route(ts, "fused") == ("fused", "streamed")
+
+
+def test_config6_fused_matches_golden():
+    """Config 6 under tri_backend="fused" is served by the whole-trace
+    kernel (768 single-packet clusters, within the TPU's 853), here its
+    plain version, a dense loop over the 81,920 triangles: within the
+    golden bound of tests/goldens/config6.npz at 64x36 (measured here:
+    RMSE 2.674e-7)."""
+    from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
+    scene, camera, opt = CONFIGS[6](width=64, height=36)
+    r = Renderer(RenderOptions(width=64, height=36,
+                               num_samples=opt.num_samples,
+                               num_bounces=opt.num_bounces,
+                               tri_backend="fused"), scene=scene,
+                 device="cpu")
+    assert whole_trace_variant(r.device_scene, "fused") == "clustered"
+    for i in range(STEPS):
+        r.step(camera, time=TIME0 + i)
+    canvas = r.canvas.numpy()
+    assert np.isfinite(canvas).all()
+    golden = np.load(os.path.join(GOLDEN_DIR, "config6.npz"))["canvas"]
+    assert _rmse(canvas, golden) < BOUND

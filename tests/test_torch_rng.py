@@ -88,8 +88,12 @@ def test_direction_hemisphere_bit_exact():
 
 def test_kernel_source_constants_match():
     """The CUDA source spells the cos and log constants as hex floats; they
-    must be exactly the plain version's."""
-    src = Path(trace_kernel.SOURCE).read_text()
+    must be exactly the plain version's.  They sit in the header the
+    kernels include (csrc/path_common.cuh), which both kernels read."""
+    path = Path(trace_kernel.SOURCE)
+    src = path.read_text()
+    for header in re.findall(r'#include "(\w+\.cuh)"', src):
+        src += (path.parent / header).read_text()
     const = {name: float.fromhex(val) for name, val in re.findall(
         r"constexpr float (k\w+) = (-?0x[0-9a-fA-Fp.+-]+)f;", src)}
     assert [const[f"kCos{i}"] for i in range(8)] == trng.COS2PI_C

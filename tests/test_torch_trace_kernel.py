@@ -22,14 +22,15 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
 from simple_raytracer_tpu.ops.camera import camera_rotation as jrotation
 from simple_raytracer_tpu.ops.pallas import bounce_kernel
 from simple_raytracer_tpu_torch.ops.camera import camera_rotation
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
-from simple_raytracer_tpu_torch.ops.scene_types import (from_numpy,
-                                                     whole_trace_variant)
+from simple_raytracer_tpu_torch.ops.scene_types import (
+    MEGA_PACKED_MAX_CLUSTERS, from_numpy, whole_trace_variant)
 
 from torch_port_helpers import jax_scene_arrays, to_np
 
@@ -129,16 +130,28 @@ def test_cluster_tables_and_order_match_tpu_kernel(n):
 def test_envelope(monkeypatch):
     """The kernel's variants follow the TPU's whole-trace rule; a mesh
     outside it (here 100 triangles without clusters) raises for a device
-    scene and never reaches the plain version."""
+    scene and never reaches the plain version.  Under "fused" the envelope
+    takes tables of up to MEGA_PACKED_MAX_CLUSTERS single-packet clusters
+    (config 6, and config 7 cut to 20,480 triangles), not config 7's
+    11,008 clusters."""
+    import types
     from simple_raytracer_tpu_torch.models.meshgen import icosphere
     from simple_raytracer_tpu_torch.models.presets import CONFIGS
     from simple_raytracer_tpu_torch.models.scene import Scene
-    scenes = {n: CONFIGS[n](width=64, height=16)[0].build("cpu")
+    kwargs = {7: {"subdivisions": 5}}
+    scenes = {n: CONFIGS[n](width=64, height=16,
+                            **kwargs.get(n, {}))[0].build("cpu")
               for n in CONFIGS}
     variants = {n: whole_trace_variant(scenes[n]) for n in CONFIGS}
-    # config 6's 98,304 slots take the split per-bounce path
+    # configs 6 and 7 (98,304 and 32,768 slots) take a per-bounce path
     assert variants == {1: "none", 2: "none", 3: "small", 4: "clustered",
-                        5: "clustered", 6: None}
+                        5: "clustered", 6: None, 7: None}
+    fused = {n: whole_trace_variant(scenes[n], "fused") for n in CONFIGS}
+    assert fused == {**variants, 6: "clustered", 7: "clustered"}
+    full7 = types.SimpleNamespace(triangles=types.SimpleNamespace(
+        material=torch.zeros(2 ** 21), clusters=types.SimpleNamespace(
+            slots=torch.zeros(11008, 128), k=128)))
+    assert whole_trace_variant(full7, "fused") is None
     s = Scene()
     pos, nrm = icosphere(subdivisions=2)                 # 320 triangles
     s.add_model(s.pool.append(pos[:100], nrm[:100]))
@@ -211,3 +224,4 @@ def test_shared_memory_rule_at_the_boundary():
     assert (ctypes.sizeof(tk.TraceParams) + 8 * tk.LAUNCH_POINTERS
             <= tk.PARAM_LIMIT_BYTES)
     assert tk.MAX_GROUPS >= tk.TABLE_MAX_SLOTS // 8
+    assert tk.MAX_GROUPS >= MEGA_PACKED_MAX_CLUSTERS // 8
