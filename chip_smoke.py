@@ -66,7 +66,7 @@ from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
 from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
-from simple_raytracer_tpu_torch.ops.trace import trace_rays, trace_rays_fused
+from simple_raytracer_tpu_torch.ops.trace import trace_rays
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
 STEPS = 4                      # progressive steps on the main path
@@ -226,8 +226,10 @@ SHADE_FLOPS = 30           # position, normal, front flip, emission
 BARY_FLOPS = 44            # barycentric weights and the normal (bounce)
 BSDF_FLOPS = 275           # 3 normals (log, cos), 3 uniforms, mixes
 SKY_FLOPS = 54             # the gradient sky and the final add
-BVH_RAY_BYTES = 32 + 8     # a ray in (o, d, alive, t_init), (t, slot) out
-TRI_ROW_BYTES = 80 + 4     # a slot row of the table and its index
+RAY_IN_BYTES = 32          # a walked ray in: o, d, alive, t_init
+HIT_OUT_BYTES = 8          # (t, slot) out, for every ray
+SLOT_BYTES = 40 + 4        # a slot's MT columns (v0, e1, e2, active), index
+BOX_BYTES = 32             # a box row of the hierarchy
 # the shade kernel: 20 state rows in and out, the winner's (t, slot) in
 BOUNCE_RAY_BYTES = (20 + 20 + 2) * 4
 
@@ -361,8 +363,8 @@ class Recorder:
 def per_bounce_pass(r: Renderer, camera, time_seed: int, plain: bool = False,
                     band=None):
     """One pass of a per-bounce cell's per-ray radiance, (3, R), by the
-    steps render_pass takes (generate_rays, then the split trace_rays or
-    trace_rays_fused); returns it and the Recorder of its launches.
+    steps render_pass takes (generate_rays, then trace_per_bounce);
+    returns it and the Recorder of its launches.
     ``plain`` swaps the kernels for their plain versions; ``band`` =
     (row0, rows) traces only those rows."""
     o = r.options
@@ -374,13 +376,8 @@ def per_bounce_pass(r: Renderer, camera, time_seed: int, plain: bool = False,
             camera_rotation(cam.yaw, cam.pitch), cam.aspect_ratio,
             cam.fov_scale, row0=row0, tile_height=rows,
             tile=r.ray_tile if band is None else None, device=r.device)
-        if trace_mod.fused_ok(r.device_scene, o.tri_backend):
-            color = trace_rays_fused(r.device_scene, orig, dirs, seed,
-                                     o.num_bounces)
-        else:
-            color = trace_rays(r.device_scene, orig, dirs, seed,
-                               o.num_bounces, split=True,
-                               tri_backend=o.tri_backend)
+        color = trace_mod.trace_per_bounce(r.device_scene, orig, dirs, seed,
+                                           o.num_bounces, o.tri_backend)
     return torch.stack(list(color)), rec
 
 
@@ -390,11 +387,31 @@ def bvh_inputs(prep):
             rays[6], rays[7])
 
 
+def admitted(o_, d_, walked, t_final, clusters) -> tuple:
+    """What one launch's walked rays must open: the clusters whose box a
+    walked ray may meet before its result t (its nearest hit, else its
+    t_init), by the plain version's gates.  Any traversal of these boxes
+    must test every real slot of such a cluster to know that its hit is
+    the nearest.  Returns (real slots over the admitted (cluster, ray)
+    pairs, real slots of the distinct admitted clusters, those clusters,
+    the supers that hold them)."""
+    real = (clusters.slots >= 0).sum(dim=1)
+    seen = torch.zeros(real.shape[0], dtype=torch.bool, device=real.device)
+    pair_slots = 0
+    for c, _ in bvh.admitted_pairs(o_, bvh.inverse(d_), walked, t_final,
+                                   clusters, bvh.PAIR_CHUNK_ELEMS["cuda"]):
+        pair_slots += int(real[c].sum())
+        seen[c] = True
+    opened = seen.nonzero()[:, 0]
+    return (pair_slots, int(real[opened].sum()), int(opened.numel()),
+            int(torch.unique(opened // bvh.SUPER).numel()))
+
+
 def check_bvh_launches(label: str, recorded, clusters, table):
     """Every recorded BVH launch against its plain version on the same
     rays: (t, slot) equal on every live ray.  Returns (max |dt|, work per
-    launch (walked rays, triangle hits, rays, compacted), plain seconds,
-    one report per launch)."""
+    launch (walked rays, rays, compacted, ``admitted``'s four counts),
+    plain seconds, one report per launch)."""
     max_abs, work, plain_s, lines = 0.0, [], 0.0, []
     for b, (prep, (t_k, s_k)) in enumerate(recorded):
         o_, d_, alive, t_init = bvh_inputs(prep)
@@ -414,13 +431,19 @@ def check_bvh_launches(label: str, recorded, clusters, table):
         max_abs = max(max_abs, m)
         compact = prep.perm is not None
         # the rays the kernel walks: the admitted prefix when compacted
-        walked = int(prep.count) if compact else int(live.sum())
+        walk = live
+        if compact:
+            walk = live & torch.zeros_like(live).index_fill_(
+                0, prep.perm[:int(prep.count)].long(), True)
+        walked = int(walk.sum())
         tri_hits = int((s_k[live] >= 0).sum())
-        work.append((walked, tri_hits, prep.params.n_rays, compact))
+        opened = admitted(o_, d_, walk, torch.where(s_k >= 0, t_k, t_init),
+                          clusters)
+        work.append((walked, prep.params.n_rays, compact) + opened)
         lines.append(f"b{b}: live {int(live.sum())} "
                      f"{'compact' if compact else 'dense'}, walked "
-                     f"{walked}, triangle hits {tri_hits}, slot diff "
-                     f"{slot_diff}, max|dt| {m:.3e}")
+                     f"{walked}, triangle hits {tri_hits}, clusters opened "
+                     f"{opened[2]}, slot diff {slot_diff}, max|dt| {m:.3e}")
         if slot_diff or m != 0.0 or not t_same:
             fail(f"cell {label} bounce {b}: the BVH kernel's (t, slot) "
                  f"differ from the plain version on {slot_diff} live "
@@ -500,19 +523,24 @@ def sphere_scene() -> Scene:
 
 
 def bvh_bound(clusters, work) -> tuple:
-    """(FLOP, bytes) the least a pass's BVH launches need: each walked ray
-    slab-tests the hierarchy's root boxes, a ray whose nearest hit is a
-    triangle runs MT over the K slots of that triangle's cluster; each ray
-    is read and written once (its order index too when compacted), the
-    slot table and boxes once a launch."""
+    """(FLOP, bytes) the least a pass's BVH launches need, from what each
+    launch's walked rays open (``admitted``): each walked ray slab-tests
+    the hierarchy's root boxes, and runs MT over the real slots of every
+    cluster it opens.  Each walked ray is read once and every ray's
+    (t, slot) written once; a ray not walked costs its alive flag (dense)
+    or, compacted, every ray its order index.  A launch reads the root
+    boxes, the boxes of the opened clusters and of their supers, and the
+    opened clusters' MT columns and slot indices once."""
     roots = int((clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
-    flops = sum(walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
-                + tri_hits * clusters.k * MT_FLOPS
-                for walked, tri_hits, _, _ in work)
-    nbytes = sum(n * (BVH_RAY_BYTES + (4 if compact else 0))
-                 + clusters.slots.numel() * TRI_ROW_BYTES
-                 + 32 * clusters.aabb.shape[0]
-                 for _, _, n, compact in work)
+    flops = nbytes = 0
+    for walked, n, compact, pair_slots, slots, opened, supers in work:
+        flops += (walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
+                  + pair_slots * MT_FLOPS)
+        nbytes += (walked * RAY_IN_BYTES + n * HIT_OUT_BYTES
+                   + 4 * (n if compact else n - walked))
+        if walked:
+            nbytes += (slots * SLOT_BYTES
+                       + (roots + supers + opened) * BOX_BYTES)
     return float(flops), float(nbytes), roots
 
 
@@ -812,13 +840,15 @@ def main() -> int:
             b_ms = float(np.median(b_all))
             flops, nbytes, roots = bvh_bound(cl, res["work"])
             b_bound = max(flops / FP32_PEAK, nbytes / HBM_BYTES_PER_S) * 1e3
+            walk_note = (f"{len(preps)} launches; walked rays per launch "
+                         f"{[w[0] for w in res['work']]}, clusters opened "
+                         f"per launch {[w[5] for w in res['work']]}, "
+                         f"{roots} root boxes")
             bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
-                        f"{len(preps)} launches, walked rays per launch "
-                        f"{[w[0] for w in res['work']]}, {roots} root "
-                        f"boxes; bound {b_bound:.4f} ms, "
-                        f"{b_bound / b_ms * 100:.1f}% of it); plain BVH "
-                        f"{res['plain_ms']:.3f} ms/pass (sum over the "
-                        "pass's launches, one run)")
+                        f"{walk_note}; bound {b_bound:.4f} ms ({flops:.4g} "
+                        f"FLOP, {nbytes:.4g} B), {b_bound / b_ms * 100:.1f}% "
+                        f"of it); plain BVH {res['plain_ms']:.3f} ms/pass "
+                        "(sum over the pass's launches, one run)")
             if label in FUSED:
                 s_preps = [prep for prep, _ in res["shade"]]
                 s_outs = [out for _, out in res["shade"]]
@@ -832,10 +862,8 @@ def main() -> int:
                 timing[label] = ("bounce", res["shade_max_abs"])
             else:
                 k_all, p_ms = b_all, res["plain_ms"]
-                flops, nbytes, _ = bvh_bound(cl, res["work"])
                 p_note = "plain BVH (sum over the pass's launches, one run)"
-                work = (f"{len(preps)} launches; walked rays per launch "
-                        f"{[w[0] for w in res['work']]}, {roots} root boxes")
+                work = walk_note
                 if CELLS[label][2] == "streamed":
                     work += "; " + unstaged(preps, outs, b_ms)
                 timing[label] = ("bvh", res["max_abs"])

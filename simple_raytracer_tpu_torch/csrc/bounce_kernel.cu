@@ -53,7 +53,7 @@
 struct BounceParams {
   int32_t n_rays;       // Rp: the state's columns
   int32_t n_spheres;    // table rows: spheres (n, 8), planes (n, 8),
-  int32_t n_planes;     // materials (n, 16), as ops/bounce.py prim_tables
+  int32_t n_planes;     // materials (n, 16), as ops/scene_types.py prim_tables
   int32_t n_materials;  // packs them
   int32_t has_tris;     // the BVH winner (tri_t, tri_slot) and the table
   int32_t is_last;      // the final bounce: emission only, no new ray

@@ -43,12 +43,13 @@
 // miss to their ray and exit.  Every result goes to its own ray's place in
 // the output, so no scatter follows.
 //
-// Bound on the H100 (chip_smoke.py): the bytes it must move, 32 per ray in,
-// 8 out and the table once, which outweigh the least arithmetic a walked
-// ray needs (the root boxes' slab tests, and K MT tests for a ray whose
-// nearest hit is a triangle).  Left for later: warp divergence (the rays of
-// a warp admit different clusters), the table's 80-byte rows of which MT
-// reads 40, and staging boxes in shared memory.
+// Bound on the H100 (chip_smoke.py): counted from what a launch's walked
+// rays open, the clusters whose box they may meet before their result t:
+// the MT tests of those clusters' real slots and the root boxes' slab tests
+// of every walked ray; 32 bytes per walked ray in, 8 out per ray, and the
+// opened clusters' 44 bytes a slot once.  Left for later: warp divergence
+// (the rays of a warp admit different clusters), the table's 80-byte rows
+// of which MT reads 40, and staging boxes in shared memory.
 //
 // Arithmetic: built with --fmad=false and no fast math, in the operation
 // order of the plain version (ops/bvh.py: slab_maybe, _mt), so it gives the

@@ -1,8 +1,7 @@
 """The ray state of the fused per-bounce path, and one bounce over it.
 
 The XLA side of ``simple_raytracer_tpu/ops/pallas/bounce_kernel.py``: the
-(20, Rp) f32 ray state (``make_state``, ``unpack_state``), the sphere,
-plane and material tables the kernels read (``prim_tables``), and
+(20, Rp) f32 ray state (``make_state``, ``unpack_state``) and
 ``bounce_step``, one bounce of every ray: the kernel
 ``ops/cuda/bounce_kernel.py`` (``csrc/bounce_kernel.cu``) for a state on a
 CUDA device, its plain version ``bounce_step_plain`` for one on the CPU.
@@ -35,7 +34,7 @@ import torch
 from . import rng
 from .bsdf import gather_materials, sample_material
 from .intersect import _resolve, _spheres_planes, shade_from_position
-from .scene_types import DeviceScene
+from .scene_types import DeviceScene, prim_tables
 from .vec import Vec3, where as vwhere
 
 ST_ROWS = 20
@@ -78,27 +77,6 @@ def unpack_state(state: torch.Tensor, n: int):
     r = lambda i: state[i, :n]
     return (Vec3(r(11), r(12), r(13)), Vec3(r(14), r(15), r(16)),
             Vec3(r(17), r(18), r(19)))
-
-
-def prim_tables(scene: DeviceScene):
-    """The kernels' f32 tables: spheres (Ns, 8) [center, radius, material,
-    active, 0, 0], planes (Np, 8) [position, normal, material, active],
-    materials (M, 16) [smoothness, metallic, specular, emission_strength,
-    transmittance, ior, color, emission, 0 x4] (bounce_kernel.prim_tables,
-    without its padding to 8 rows)."""
-    sp, pl, m = scene.spheres, scene.planes, scene.materials
-    f = lambda t: t.to(torch.float32)
-    sph = torch.cat([sp.center, sp.radius[:, None], f(sp.material)[:, None],
-                     f(sp.active)[:, None],
-                     torch.zeros_like(sp.center[:, :2])], dim=1)
-    pln = torch.cat([pl.position, pl.normal, f(pl.material)[:, None],
-                     f(pl.active)[:, None]], dim=1)
-    mat = torch.cat([torch.stack([m.smoothness, m.metallic, m.specular,
-                                  m.emission_strength, m.transmittance,
-                                  m.refraction_index], dim=1),
-                     m.color, m.emission,
-                     torch.zeros_like(m.color[:, :1]).expand(-1, 4)], dim=1)
-    return sph.contiguous(), pln.contiguous(), mat.contiguous()
 
 
 def bounce_step_plain(state: torch.Tensor, is_last: bool,

@@ -67,7 +67,7 @@ def prepare(state: torch.Tensor, is_last: bool, scene, tri,
             tables: tuple) -> Prepared:
     """Check a CUDA launch's arguments and pack them: the state, the BVH
     winner ``tri`` = (t, slot) (None for a scene without triangles) and
-    ``tables`` = ``ops/bounce.prim_tables(scene)``."""
+    ``tables`` = ``ops/scene_types.prim_tables(scene)``."""
     device = state.device
     if device.type != "cuda":
         raise ValueError(f"bounce kernel: unsupported device {device}")

@@ -30,10 +30,9 @@ import functools
 import numpy as np
 import torch
 
-from ..bounce import prim_tables
 from ..camera import generate_rays
 from ..scene_types import (TABLE_MAX_SLOTS, Clusters, DeviceScene,
-                           whole_trace_variant)
+                           prim_tables, whole_trace_variant)
 from ..vec import Vec3
 from .build import PACKAGE_DIR, Kernel
 

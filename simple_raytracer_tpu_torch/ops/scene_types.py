@@ -8,6 +8,8 @@ Triangles are world-space and, for a clustered mesh, already in BVH
 order.  ``from_numpy`` packs the kernels' triangle tables once per scene
 (``tri_table``), and for a clustered mesh the BVH kernel's hierarchy of
 boxes (``ops/bvh.build_hierarchy``), so no pass packs mesh tables again.
+``prim_tables`` packs the sphere, plane and material tables that the
+whole-trace and per-bounce shade kernels read.
 
 The sky parameters stay on the host as float32-rounded Python floats: the
 CUDA kernel takes them by value, so moving them costs no copy.
@@ -175,6 +177,27 @@ def tri_table(tris: dict, slots: Optional[np.ndarray] = None) -> np.ndarray:
     out = np.zeros((flat.shape[0], TRI_COLS), np.float32)
     out[flat >= 0] = rows[flat[flat >= 0]]
     return out
+
+
+def prim_tables(scene: DeviceScene):
+    """The kernels' f32 tables: spheres (Ns, 8) [center, radius, material,
+    active, 0, 0], planes (Np, 8) [position, normal, material, active],
+    materials (M, 16) [smoothness, metallic, specular, emission_strength,
+    transmittance, ior, color, emission, 0 x4] (bounce_kernel.prim_tables,
+    without its padding to 8 rows)."""
+    sp, pl, m = scene.spheres, scene.planes, scene.materials
+    f = lambda t: t.to(torch.float32)
+    sph = torch.cat([sp.center, sp.radius[:, None], f(sp.material)[:, None],
+                     f(sp.active)[:, None],
+                     torch.zeros_like(sp.center[:, :2])], dim=1)
+    pln = torch.cat([pl.position, pl.normal, f(pl.material)[:, None],
+                     f(pl.active)[:, None]], dim=1)
+    mat = torch.cat([torch.stack([m.smoothness, m.metallic, m.specular,
+                                  m.emission_strength, m.transmittance,
+                                  m.refraction_index], dim=1),
+                     m.color, m.emission,
+                     torch.zeros_like(m.color[:, :1]).expand(-1, 4)], dim=1)
+    return sph.contiguous(), pln.contiguous(), mat.contiguous()
 
 
 def from_numpy(arrays: dict, device) -> DeviceScene:

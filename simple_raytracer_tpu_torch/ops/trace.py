@@ -31,7 +31,7 @@ mean to the canvas, routed as the JAX ``render_pass`` routes on the TPU:
   - a scene inside the whole-trace kernel's envelope (under "auto" or
     "fused"; "fused" widens it to config 6's packed table) takes that
     kernel, its plain version on the CPU;
-  - else, under "fused", a scene without triangles or with clusters
+  - else ``trace_per_bounce``: under "fused" a clustered mesh
     (``fused_ok``) takes ``trace_rays_fused``: config 7;
   - every other scene takes the split ``trace_rays``: configs 6 and 7
     under "auto", every scene under "bvh" and under "clustered" (which
@@ -44,12 +44,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import bvh
-from .bounce import bounce_step, make_state, prim_tables, unpack_state
+from .bounce import bounce_step, make_state, unpack_state
 from .bsdf import gather_materials, sample_material
 from .camera import camera_rotation, generate_rays, untile_pixels
 from .cuda import bvh_kernel
 from .intersect import _spheres_planes, closest_hit, closest_hit_split
-from .scene_types import DeviceScene, whole_trace_variant
+from .scene_types import DeviceScene, prim_tables, whole_trace_variant
 from .sky import sky_gradient
 from .vec import Vec3, where as vwhere
 
@@ -177,14 +177,24 @@ def takes_whole_trace(scene: DeviceScene, tri_backend: str = "auto") -> bool:
 
 def fused_ok(scene: DeviceScene, tri_backend: str) -> bool:
     """Does a scene outside the whole-trace envelope take the fused
-    per-bounce path?  The JAX ``_fused_ok`` on the TPU: under "fused" a
-    scene without triangles or with clusters (a mid-size mesh without
-    them takes the split path's dense loop).  Under "auto" it declines
-    every scene that reaches it (a clustered table above
-    VMEM_TABLE_MAX_SLOTS slots, or a mesh without clusters)."""
-    tris = scene.triangles
-    return tri_backend == "fused" and (tris.material.shape[0] == 0
-                                       or tris.clusters is not None)
+    per-bounce path?  The JAX ``_fused_ok`` on the TPU, asked only of
+    such scenes (``takes_whole_trace`` is false): under "fused" a
+    clustered mesh does (a mid-size mesh without clusters takes the split
+    path's dense loop; a scene without triangles never gets here).  Under
+    "auto" it declines every scene that reaches it."""
+    return tri_backend == "fused" and scene.triangles.clusters is not None
+
+
+def trace_per_bounce(scene: DeviceScene, o: Vec3, d: Vec3,
+                     seed: torch.Tensor, num_bounces: int,
+                     tri_backend: str = "auto") -> Vec3:
+    """The per-ray radiance of a scene outside the whole-trace envelope:
+    ``trace_rays_fused`` where ``fused_ok`` allows it, else the split
+    ``trace_rays``."""
+    if fused_ok(scene, tri_backend):
+        return trace_rays_fused(scene, o, d, seed, num_bounces)
+    return trace_rays(scene, o, d, seed, num_bounces, split=True,
+                      tri_backend=tri_backend)
 
 
 def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
@@ -221,11 +231,8 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
                                    camera.aspect_ratio, camera.fov_scale,
                                    row0=row0, tile_height=tile_height,
                                    tile=ray_tile, device=scene.device)
-        if fused_ok(scene, tri_backend):
-            color = trace_rays_fused(scene, o, d, seed, num_bounces)
-        else:
-            color = trace_rays(scene, o, d, seed, num_bounces, split=True,
-                               tri_backend=tri_backend)
+        color = trace_per_bounce(scene, o, d, seed, num_bounces,
+                                 tri_backend)
 
     inv_s = 1.0 / num_samples
 
