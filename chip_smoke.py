@@ -7,32 +7,43 @@ Run from the repository root:
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
-TPU's packed form), the split per-bounce path with the BVH kernel (config
-6 under "auto": the two_level variant; config 5 under "bvh": flat; config
-7's 1.31M triangles under "auto": streamed), and the fused per-bounce
+TPU's packed form), its nine-row form for a texture skybox (config 3 with
+a 2048x1024 RGBE texture, written as an .hdr and read back), the split
+per-bounce path with the BVH kernel (config 6 under "auto": the two_level
+variant, also with a 2048x1024 8-bit texture; config 5 under "bvh": flat;
+config 7's 1.31M triangles under "auto": streamed), the fused per-bounce
 path (config 7 under "fused": the streamed BVH variant and the per-bounce
-shade kernel, each bounce).  Phases, one line each on stdout:
-  1. the card's name and power limit (nvidia-smi);
-  2. the build of the three kernels, one nvcc each, started together;
+shade kernel, each bounce), the split path with the brute-force triangle
+kernel (configs 5 and 6 under "pallas") and with the dense PyTorch loop
+(config 4 under "jnp", no kernel).  Phases, one line each on stdout:
+  1. the card's name and power limit (nvidia-smi), and whether PIL (the
+     8-bit skybox loader's dependency) is installed;
+  2. the build of the four kernels, one nvcc each, started together;
   3. the main paths: each cell at its preset size through
      Renderer(device="cuda"), 4 progressive steps, with every kernel's
      launch counts (in all and per variant) reset just before and read
-     just after the cell; the scene build's seconds (once per config);
+     just after the cell; the scene build's seconds (once per scene);
   4. each kernel against its plain PyTorch version on the card, one pass
      of each cell at full size: the whole-trace canvas (config 6 under
      "fused": a full-width band of rows, the plain version being a dense
-     loop over 81,920 triangles); for the per-bounce cells every BVH
-     launch's (t, slot) on live rays, every shade launch's 20 state rows,
-     and the canvas; then, for configs 6 and 5 "bvh", the per-ray gate
-     against a gate-free dense Moller-Trumbore over every triangle, on
-     every launch of a pass of one full-width band of rows;
+     loop over 81,920 triangles), and for the texture the nine rows before
+     the sample; for the per-bounce cells every BVH launch's (t, slot) on
+     live rays, every shade launch's 20 state rows, every triangle
+     launch's (t, index) on every ray (config 6 under "pallas": a band of
+     rows), and the canvas; config 4 under "jnp" against the "pallas"
+     route on the same rays; then, for configs 6 and 5 "bvh", the per-ray
+     gate against a gate-free dense Moller-Trumbore over every triangle,
+     on every launch of a pass of one full-width band of rows; and the
+     nine rows of configs 2, 3 and 4 with the texture at the golden size;
   5. the golden-size renders (tests/test_golden.py) against
-     tests/goldens/config{1..6}.npz (config 6 also under "fused"; config
-     7 has none); a 1,025-sphere scene (tables above 48 KB of shared
-     memory) against the plain version; benchmark_step leaves the canvas
-     and step count as they were;
-  6. timings with CUDA events, and each kernel's bound; benchmark_step of
-     configs 6 and 7 under "auto" and "fused" side by side;
+     tests/goldens/config{1..6}.npz (config 6 also under "fused" and
+     "pallas", config 5 under "pallas", config 4 under "jnp"; config 7 has
+     none); a 1,025-sphere scene (tables above 48 KB of shared memory)
+     against the plain version; benchmark_step leaves the canvas and step
+     count as they were;
+  6. timings with CUDA events, and each kernel's bound (and the texture's
+     sample beside the nine-row kernel); benchmark_step of configs 6 and 7
+     under "auto" and "fused" side by side;
   7. where a Renderer.step's time goes (torch.profiler).
 Then one JSON line per the kernel table, the card line again, and the
 last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -41,17 +52,21 @@ before the last line.  Without CUDA it exits 1 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from simple_raytracer_tpu_torch.engine import Renderer, RenderOptions
+from simple_raytracer_tpu_torch.io.image import load_skybox, save_hdr
 from simple_raytracer_tpu_torch.models.camera import Camera
 from simple_raytracer_tpu_torch.models.materials import Material
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
@@ -64,30 +79,54 @@ from simple_raytracer_tpu_torch.ops.camera import generate_rays
 from simple_raytracer_tpu_torch.ops.cuda import bounce_kernel as sk
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
+from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
 from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
-from simple_raytracer_tpu_torch.ops.trace import trace_rays
+from simple_raytracer_tpu_torch.ops.trace import add_sky, trace_rays
+from simple_raytracer_tpu_torch.ops.triangle import intersect_packed_plain
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
 STEPS = 4                      # progressive steps on the main path
 KWARGS = {3: {"skybox": "gradient"}}        # as tests/test_golden.py
-# the cells: label -> (config, tri_backend, the kernel variant it takes)
-CELLS = {"1": (1, "auto", "none"), "2": (2, "auto", "none"),
-         "3": (3, "auto", "small"), "4": (4, "auto", "clustered"),
-         "5": (5, "auto", "clustered"), "6": (6, "auto", "two_level"),
-         "5/bvh": (5, "bvh", "flat"), "6/fused": (6, "fused", "clustered"),
-         "7": (7, "auto", "streamed"), "7/fused": (7, "fused", "streamed")}
-SPLIT = ("6", "5/bvh", "7")    # the cells of the split per-bounce path
+# the cells: label -> (config, tri_backend, the kernel variant it takes,
+# the environment: None for the preset's sky, else a texture of TEXTURES)
+CELLS = {"1": (1, "auto", "none", None), "2": (2, "auto", "none", None),
+         "3": (3, "auto", "small", None),
+         "4": (4, "auto", "clustered", None),
+         "5": (5, "auto", "clustered", None),
+         "6": (6, "auto", "two_level", None),
+         "5/bvh": (5, "bvh", "flat", None),
+         "6/fused": (6, "fused", "clustered", None),
+         "7": (7, "auto", "streamed", None),
+         "7/fused": (7, "fused", "streamed", None),
+         "3/texture": (3, "auto", "small/texture", "rgbe"),
+         "6/texture": (6, "auto", "two_level", "ldr"),
+         "5/pallas": (5, "pallas", "triangle", None),
+         "6/pallas": (6, "pallas", "triangle", None),
+         "4/jnp": (4, "jnp", None, None)}
+# the cells of the split per-bounce path with the BVH kernel
+SPLIT = ("6", "5/bvh", "7", "6/texture")
 FUSED = ("7/fused",)           # the cells of the fused per-bounce path
+PALLAS = ("5/pallas", "6/pallas")   # the split path, the triangle kernel
+DENSE = ("4/jnp",)             # the split path, the dense PyTorch loop
 # the cells whose per-ray gate is held against a dense loop over every
 # triangle (config 7's 2,097,152 triangle slots make that loop minutes)
 GATE_CELLS = ("6", "5/bvh")
-# whole-trace cells held to their plain version on a band of rows: the
-# plain version loops densely over config 6's 81,920 triangles
-BAND_CELLS = ("6/fused",)
+# cells held to their plain version on a band of rows: the plain version
+# loops densely over config 6's 81,920 triangles
+BAND_CELLS = ("6/fused", "6/pallas")
+# benchmark_step iterations (and profiled steps) of the slow cells; 20
+# for the others
+ITERS = {"7": 5, "7/fused": 5, "6/pallas": 1, "4/jnp": 1}
+# the environment textures, at the reference skybox's size (2048 x 1024):
+# "rgbe" an HDR image written with save_hdr and read back with
+# load_skybox, "ldr" 8-bit values linearized as (u8 / 255)^2.2
+TEXTURE_SHAPE = (1024, 2048, 3)
+TEXTURE_SEED = 0
 GOLDEN_SIZES = {"1": (64, 64), "2": (96, 54), "3": (96, 54), "4": (96, 54),
                 "5": (96, 54), "6": (64, 36), "5/bvh": (96, 54),
-                "6/fused": (64, 36)}
+                "6/fused": (64, 36), "5/pallas": (96, 54),
+                "6/pallas": (64, 36), "4/jnp": (96, 54)}
 GOLDEN_STEPS, GOLDEN_TIME0 = 2, 1000
 GOLDEN_RMSE = 2e-3             # tests/test_golden.py's bound
 # Kernel vs plain version: the kernels repeat the plain versions' float
@@ -96,9 +135,10 @@ GOLDEN_RMSE = 2e-3             # tests/test_golden.py's bound
 # difference (a Bernoulli draw at its threshold, the one fma the plain
 # version emulates in f64) can move a whole path, so the bound is on the
 # RMSE and on the share of pixels that differ, not on the maximum.  The
-# BVH kernel's (t, slot) must equal its plain version's on every live ray;
-# the shade kernel's state rows its plain version's, or the canvas must
-# keep to the bound above.
+# BVH kernel's (t, slot) must equal its plain version's on every live ray,
+# the triangle kernel's (t, index) on every ray; the shade kernel's state
+# rows and the whole-trace kernel's nine rows their plain version's, or
+# the canvas must keep to the bound above.
 KERNEL_RMSE = 1e-4
 KERNEL_DIFF_SHARE = 1e-3       # share of pixels more than 1e-3 apart
 HAZARD_MAX = 8                 # non-finite pixels allowed (ln(0) draws)
@@ -119,15 +159,20 @@ ROWS = (
      "clustered"),
     ("tris_clustered_packed", "trace", "bounce_kernel.py:376", "6/fused",
      ("6/fused",), "clustered"),
+    ("trace_kernel_texture", "trace", "bounce_kernel.py:811", "3/texture",
+     ("3/texture",), "small/texture"),
     ("bvh_flat", "bvh", "bvh_kernel.py:201", "5/bvh", ALL, "flat"),
     ("bvh_two_level", "bvh", "bvh_kernel.py:1040", "6", ALL, "two_level"),
     ("bvh_streamed", "bvh", "bvh_kernel.py:678", "7", ALL, "streamed"),
     ("bounce_kernel", "bounce", "bounce_kernel.py:584", "7/fused", ALL,
      "bounce"),
+    ("triangle_kernel", "triangle", "triangle_kernel.py:34", "5/pallas", ALL,
+     "triangle"),
 )
 SOURCES = {"trace": "trace_kernel.cu", "bvh": "bvh_kernel.cu",
-           "bounce": "bounce_kernel.cu"}
-KERNELS = {"trace": tk.KERNEL, "bvh": bk.KERNEL, "bounce": sk.KERNEL}
+           "bounce": "bounce_kernel.cu", "triangle": "triangle_kernel.cu"}
+KERNELS = {"trace": tk.KERNEL, "bvh": bk.KERNEL, "bounce": sk.KERNEL,
+           "triangle": trk.KERNEL}
 
 
 def say(msg: str) -> None:
@@ -178,7 +223,7 @@ def trace_args(renderer: Renderer, camera, time_seed: int) -> tuple:
 
 
 def build_kernels() -> str:
-    """Build the three kernels at once (one nvcc each) and report ptxas's
+    """Build the four kernels at once (one nvcc each) and report ptxas's
     registers and spills per variant."""
     errors = []
 
@@ -199,7 +244,8 @@ def build_kernels() -> str:
     parts = []
     for kernel, entry, names in ((tk.KERNEL, "trace_kernel", tk.TRI_MODES),
                                  (bk.KERNEL, "bvh_kernel", bk.VARIANTS),
-                                 (sk.KERNEL, "bounce_kernel", {})):
+                                 (sk.KERNEL, "bounce_kernel", {}),
+                                 (trk.KERNEL, "triangle_kernel", {})):
         # ptxas reports each entry (template instance) after its name
         modes = {str(v): k for k, v in names.items()}
         variant = None
@@ -232,10 +278,19 @@ SLOT_BYTES = 40 + 4        # a slot's MT columns (v0, e1, e2, active), index
 BOX_BYTES = 32             # a box row of the hierarchy
 # the shade kernel: 20 state rows in and out, the winner's (t, slot) in
 BOUNCE_RAY_BYTES = (20 + 20 + 2) * 4
+# the triangle kernel: a ray's o, d in and (t, index) out; a triangle's
+# v0, e1, e2 and active flag in
+TRI_RAY_BYTES = 24 + 8
+TRI_COL_BYTES = 40
+# the texture's sample (ops/trace.add_sky on the nine rows): atan2 and the
+# coordinates, the taps' set-up and mix, the sun, the final multiply-add;
+# the nine rows in and the radiance out per ray, the texture once
+SAMPLE_FLOPS = 96
+SAMPLE_RAY_BYTES = 36 + 12
 
 
-def kernel_flops(scene, tri_backend: str, n_rays: int,
-                 segments: list) -> float:
+def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
+                 sky: bool = True) -> float:
     """Float operations this pass's data needs (``segments`` from the plain
     version: live rays, hits, triangle hits per bounce): every live ray
     tests each active sphere and plane, every hit shades, and every hit
@@ -243,12 +298,13 @@ def kernel_flops(scene, tri_backend: str, n_rays: int,
     tested whole (live rays x active triangles x MT); a clustered mesh at
     least slab-tests every real cluster box per live ray, and each ray
     whose nearest hit is a triangle runs MT over the K slots of that
-    triangle's cluster."""
+    triangle's cluster.  ``sky``: the kernel evaluates the gradient sky
+    (not in the nine-row form, whose texture is sampled outside)."""
     n_s = int(scene.spheres.active.sum())
     n_p = int(scene.planes.active.sum())
     tris = scene.triangles
     variant = whole_trace_variant(scene, tri_backend)
-    flops = n_rays * (RAYGEN_FLOPS + SKY_FLOPS)
+    flops = n_rays * (RAYGEN_FLOPS + (SKY_FLOPS if sky else 0))
     for i, (live, hits, tri_hits) in enumerate(segments):
         flops += live * (n_s * SPHERE_FLOPS + n_p * PLANE_FLOPS)
         if variant == "small":
@@ -331,42 +387,43 @@ class Recorder:
 
     def __init__(self, plain: bool = False):
         self.plain = plain
-        self.bvh, self.shade = [], []
+        self.bvh, self.shade, self.tri = [], [], []
 
     def __enter__(self):
-        self.saved = (bk.launch, sk.launch, bk.intersect_triangles_bvh,
-                      trace_mod.bounce_step)
-        launch_b, launch_s = bk.launch, sk.launch
+        self.saved = (bk.launch, sk.launch, trk.launch,
+                      bk.intersect_triangles_bvh, trace_mod.bounce_step,
+                      trk.intersect_triangles_packed)
 
-        def rec_b(prep, out=None):
-            res = launch_b(prep, out)
-            self.bvh.append((prep, res))
-            return res
+        def recorder(launch, into):
+            def rec(prep, out=None):
+                res = launch(prep, out)
+                into.append((prep, res))
+                return res
+            return rec
 
-        def rec_s(prep, out=None):
-            res = launch_s(prep, out)
-            self.shade.append((prep, res))
-            return res
-
-        bk.launch, sk.launch = rec_b, rec_s
+        bk.launch = recorder(bk.launch, self.bvh)
+        sk.launch = recorder(sk.launch, self.shade)
+        trk.launch = recorder(trk.launch, self.tri)
         if self.plain:
             bk.intersect_triangles_bvh = plain_bvh
             trace_mod.bounce_step = plain_bounce
+            trk.intersect_triangles_packed = intersect_packed_plain
         return self
 
     def __exit__(self, *exc):
-        (bk.launch, sk.launch, bk.intersect_triangles_bvh,
-         trace_mod.bounce_step) = self.saved
+        (bk.launch, sk.launch, trk.launch, bk.intersect_triangles_bvh,
+         trace_mod.bounce_step, trk.intersect_triangles_packed) = self.saved
         return False
 
 
 def per_bounce_pass(r: Renderer, camera, time_seed: int, plain: bool = False,
-                    band=None):
+                    band=None, tri_backend=None):
     """One pass of a per-bounce cell's per-ray radiance, (3, R), by the
     steps render_pass takes (generate_rays, then trace_per_bounce);
     returns it and the Recorder of its launches.
     ``plain`` swaps the kernels for their plain versions; ``band`` =
-    (row0, rows) traces only those rows."""
+    (row0, rows) traces only those rows; ``tri_backend`` replaces the
+    cell's."""
     o = r.options
     row0, rows = band if band is not None else (0, None)
     with Recorder(plain) as rec:
@@ -377,7 +434,8 @@ def per_bounce_pass(r: Renderer, camera, time_seed: int, plain: bool = False,
             cam.fov_scale, row0=row0, tile_height=rows,
             tile=r.ray_tile if band is None else None, device=r.device)
         color = trace_mod.trace_per_bounce(r.device_scene, orig, dirs, seed,
-                                           o.num_bounces, o.tri_backend)
+                                           o.num_bounces,
+                                           tri_backend or o.tri_backend)
     return torch.stack(list(color)), rec
 
 
@@ -481,6 +539,76 @@ def check_shade_launches(scene, recorded):
     return differ, max_abs, work, plain_s, lines
 
 
+def check_triangle_launches(label: str, recorded):
+    """Every recorded triangle launch against its plain version on the
+    same rays: (t, index) equal on every ray.  Returns (max |dt|, work per
+    launch (rays, active triangles, table columns), plain seconds, one
+    report per launch)."""
+    max_abs, work, plain_s, lines = 0.0, [], 0.0, []
+    for b, (prep, (t_k, i_k)) in enumerate(recorded):
+        rays = prep.rays
+        o_, d_ = Vec3(rays[0], rays[1], rays[2]), Vec3(rays[3], rays[4],
+                                                       rays[5])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        t_p, i_p = intersect_packed_plain(o_, d_, prep.packed)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t1
+        idx_diff = int((i_k != i_p).sum())
+        t_same = bool(torch.equal(torch.isinf(t_k), torch.isinf(t_p)))
+        fin = torch.isfinite(t_k) & torch.isfinite(t_p)
+        diff = (t_k[fin] - t_p[fin]).abs()
+        m = float(diff.max()) if diff.numel() else 0.0
+        max_abs = max(max_abs, m)
+        active = int((prep.packed[9] > 0).sum())
+        work.append((prep.params.n_rays, active, prep.params.n_tris))
+        lines.append(f"b{b}: rays {prep.params.n_rays}, hits "
+                     f"{int(torch.isfinite(t_k).sum())}, index diff "
+                     f"{idx_diff}, max|dt| {m:.3e}")
+        if idx_diff or m != 0.0 or not t_same:
+            fail(f"cell {label} bounce {b}: the triangle kernel's (t, index) "
+                 f"differ from the plain version on {idx_diff} rays (max "
+                 f"|dt| {m})")
+    return max_abs, work, plain_s, lines
+
+
+def rows_check(args, kw, tri_backend: str):
+    """The nine-row form (a scene with a texture) against the plain
+    version's rows on the same pass: (bit-identical, rays whose rows
+    differ, same non-finite rows, max |difference|)."""
+    prep = tk.prepare(*args, **kw, tri_backend=tri_backend)
+    if prep.n_out != 9:
+        fail("a scene with a texture took the three-row form")
+    k = tk.launch(prep)
+    p = torch.cat([torch.stack(list(v))
+                   for v in tk.trace_full_plain(*args, **kw, rows=True)])
+    same_bad = bool(torch.equal(torch.isfinite(k), torch.isfinite(p)))
+    fin = torch.isfinite(k) & torch.isfinite(p)
+    differ = int(((k != p) & fin).any(0).sum())
+    diff = (k - p).abs()[fin]
+    m = float(diff.max()) if diff.numel() else 0.0
+    return differ == 0 and same_bad, differ, same_bad, m
+
+
+def make_textures(directory: Path) -> dict:
+    """The cells' environment textures at the reference skybox's size,
+    from TEXTURE_SEED: "rgbe", an HDR sky (a vertical gradient times
+    log-normal noise) written with save_hdr into ``directory`` and read
+    back with load_skybox (no PIL), and "ldr", 8-bit values linearized as
+    (u8 / 255)^2.2."""
+    rng = np.random.default_rng(TEXTURE_SEED)
+    h, w, _ = TEXTURE_SHAPE
+    ramp = np.linspace(0.2, 1.5, h, dtype=np.float32)[:, None, None]
+    hdr = (ramp * np.exp(rng.normal(0.0, 0.5, TEXTURE_SHAPE))
+           ).astype(np.float32)
+    path = directory / "sky.hdr"
+    save_hdr(path, hdr)
+    u8 = rng.integers(0, 256, TEXTURE_SHAPE, np.uint8)
+    return {"rgbe": load_skybox(path),
+            "ldr": np.power(u8.astype(np.float32) / 255.0, np.float32(2.2),
+                            dtype=np.float32)}
+
+
 def gate_check(r: Renderer, camera):
     """The per-ray gate (kernel and plain version alike) against a
     gate-free dense Moller-Trumbore over every triangle, on the live rays
@@ -581,44 +709,111 @@ def unstaged(preps, outs, staged_ms: float) -> str:
             f"streamed / two_level {staged_ms / ms:.3f}, results equal")
 
 
+def brute_force_cell(label: str, r: Renderer, camera, card: str) -> dict:
+    """Phase 4 of a cell of the "pallas" or "jnp" route.  "pallas": every
+    triangle launch of one pass (config 6: of a band of rows, the plain
+    loop being dense over 81,920 triangles) against the plain version, and
+    the canvas against a plain pass.  "jnp" (no kernel: the route is the
+    plain loop itself): the canvas against the "pallas" route's on the same
+    rays, which is the same function."""
+    s = r.options.num_samples
+    band, where = None, "the full pass"
+    if label in BAND_CELLS:
+        row0 = (r.options.height - BAND_ROWS) // 2
+        band = (row0, BAND_ROWS)
+        where = f"rows {row0}-{row0 + BAND_ROWS - 1} x {r.options.width}"
+    k, rec = per_bounce_pass(r, camera, 4242, band=band)
+    torch.cuda.synchronize()
+    if label in DENSE:
+        p, rec = per_bounce_pass(r, camera, 4242, tri_backend="pallas")
+        what = f"the \"pallas\" route ({len(rec.tri)} triangle launches)"
+        res = dict(n_rays=k.shape[1])
+    else:
+        max_abs, work, plain_s, lines = check_triangle_launches(label,
+                                                                rec.tri)
+        say(f"[4] cell {label} triangle kernel vs plain, every launch of one "
+            f"pass on {where}: {'; '.join(lines)}; plain {plain_s:.2f} "
+            f"s/pass  [{card}]")
+        p, _ = per_bounce_pass(r, camera, 4242, plain=True, band=band)
+        what = "the plain version"
+        # phase 6 times the launches of a full pass
+        full = rec.tri
+        if band is not None:
+            full = per_bounce_pass(r, camera, 4242)[1].tri
+            work = [(pp.params.n_rays, int((pp.packed[9] > 0).sum()),
+                     pp.params.n_tris) for pp, _ in full]
+        res = dict(max_abs=max_abs, work=work, plain_ms=plain_s * 1e3,
+                   recorded=full, n_rays=full[0][0].params.n_rays,
+                   where=where)
+    torch.cuda.synchronize()
+    rmse, share, same_bad = canvas_diff(k, p, s)
+    fin = torch.isfinite(k)
+    bitexact = bool(torch.equal(k[fin], p[fin])) and same_bad
+    say(f"[4] cell {label} canvas on {where} vs {what}: rmse={rmse:.3e} "
+        f"share>1e-3={share:.3e} bit-identical={bitexact} non-finite masks "
+        f"agree={same_bad}  [{card}]")
+    if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
+            and same_bad):
+        fail(f"cell {label}: the canvas disagrees with {what}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 1
     card = card_line()
-    say(f"[1] card: {card}")
+    pil = importlib.util.find_spec("PIL") is not None
+    say(f"[1] card: {card}; PIL (the 8-bit skybox loader's) installed: "
+        f"{pil}")
 
     t0 = time.perf_counter()
     ptxas = build_kernels()
-    say(f"[2] build: {time.perf_counter() - t0:.2f} s for the three kernels "
-        f"(nvcc sm_90a, ctypes; trace_kernel.cu "
-        f"{tk.KERNEL.build_seconds:.2f} s, bvh_kernel.cu "
-        f"{bk.KERNEL.build_seconds:.2f} s, bounce_kernel.cu "
-        f"{sk.KERNEL.build_seconds:.2f} s); ptxas: {ptxas}")
+    say(f"[2] build: {time.perf_counter() - t0:.2f} s for the four kernels "
+        f"(nvcc sm_90a, ctypes; "
+        + ", ".join(f"{SOURCES[kind]} {k.build_seconds:.2f} s"
+                    for kind, k in KERNELS.items())
+        + f"); ptxas: {ptxas}")
 
     # ---- 3: the main paths, each cell's counts reset just before it ----
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        textures = make_textures(Path(tmp))
+    say(f"[3] textures {TEXTURE_SHAPE[1]}x{TEXTURE_SHAPE[0]} from seed "
+        f"{TEXTURE_SEED}: rgbe through save_hdr/load_skybox, ldr (u8/255)^2.2"
+        f"; {time.perf_counter() - t0:.3f} s")
     scenes, renderers = {}, {}
     for label in CELLS:
-        n, backend, _ = CELLS[label]
-        if n not in scenes:
-            # one scene build per config, shared by its cells
+        n, backend, _, sky = CELLS[label]
+        if (n, sky) not in scenes:
+            # one scene build per config and environment, shared by cells
             t0 = time.perf_counter()
-            scene, camera, options = CONFIGS[n](**KWARGS.get(n, {}))
+            kw = dict(KWARGS.get(n, {}))
+            if sky is not None and n == 3:
+                kw["skybox"] = textures[sky]     # config 3's own argument
+            scene, camera, options = CONFIGS[n](**kw)
+            if sky is not None:
+                scene.skybox = textures[sky]
             t1 = time.perf_counter()
             ds = scene.build("cuda")
             torch.cuda.synchronize()
-            scenes[n] = (ds, camera, options, t1 - t0,
-                         time.perf_counter() - t1)
+            scenes[n, sky] = (ds, camera, options, t1 - t0,
+                              time.perf_counter() - t1)
             tris = ds.triangles
-            say(f"[3] config {n}: preset {t1 - t0:.3f} s (its procedural "
-                f"mesh), build {scenes[n][4]:.3f} s (clusters, tables, "
-                f"upload): {int(tris.active.sum())} triangles"
+            say(f"[3] config {n}{'' if sky is None else ' with ' + sky}: "
+                f"preset {t1 - t0:.3f} s (its procedural mesh), build "
+                f"{scenes[n, sky][4]:.3f} s (clusters, tables, upload): "
+                f"{int(tris.active.sum())} triangles"
                 + (f", {tris.clusters.slots.shape[0]} clusters of "
                    f"{tris.clusters.k} ({tris.clusters.slots.numel()} slots"
                    f", {tris.table.numel() * 4 / 1e6:.1f} MB table)"
-                   if tris.clusters is not None else ""))
-        ds, camera, options, _, _ = scenes[n]
+                   if tris.clusters is not None else "")
+                + ("" if ds.skybox is None else
+                   f"; texture {tuple(ds.skybox.shape)} on {ds.skybox.device}"))
+        ds, camera, options, _, _ = scenes[n, sky]
         r = Renderer(dataclasses.replace(options, tri_backend=backend),
                      device="cuda")
         r.set_device_scene(ds)
@@ -634,13 +829,15 @@ def main() -> int:
         torch.cuda.synchronize()
         got = {kind: dict(k.variant_launches) for kind, k in KERNELS.items()}
         per_pass = STEPS * o.num_bounces
-        want = {"trace": {}, "bvh": {}, "bounce": {}}
+        want = {kind: {} for kind in KERNELS}
         if label in SPLIT:
             want["bvh"] = {want_variant: per_pass}
         elif label in FUSED:
             want["bvh"] = {want_variant: per_pass}
             want["bounce"] = {"bounce": per_pass}
-        else:
+        elif label in PALLAS:
+            want["triangle"] = {want_variant: per_pass}
+        elif label not in DENSE:
             want["trace"] = {want_variant: STEPS}
         totals[label] = got
         canvas = r.canvas
@@ -668,6 +865,9 @@ def main() -> int:
         s = r.options.num_samples
         backend = r.options.tri_backend
         ds = r.device_scene
+        if label in PALLAS + DENSE:
+            results[label] = brute_force_cell(label, r, camera, card)
+            continue
         if label not in SPLIT + FUSED:
             args, kw = trace_args(r, camera, 4242)
             if label in BAND_CELLS:
@@ -705,6 +905,16 @@ def main() -> int:
             if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
                     and same_bad):
                 fail(f"cell {label}: kernel disagrees with the plain version")
+            if ds.skybox is not None:
+                rows_ok, differ, same_bad, m = rows_check(args, kw, backend)
+                results[label]["max_abs"] = max(max_abs, m)
+                say(f"[4] cell {label} nine rows (color, sky_mask, sky_dir) "
+                    f"vs plain on the full pass: bit-identical={rows_ok}, "
+                    f"rays whose rows differ {differ}, max|d| {m:.3e}, "
+                    f"non-finite masks agree={same_bad}  [{card}]")
+                if not same_bad:
+                    fail(f"cell {label}: the nine rows' non-finite rays "
+                         "differ")
             continue
         # a per-bounce path: every BVH launch of one pass (and every shade
         # launch) against the plain version on the same inputs, then the
@@ -761,10 +971,31 @@ def main() -> int:
                 f"lacks  [{card}]")
             if extra:
                 fail(f"cell {label}: {extra} BVH hits that no triangle gives")
+    # the nine-row form of every triangle variant at the golden size
+    for n in (2, 3, 4):
+        w, h = GOLDEN_SIZES[str(n)]
+        scene, camera, options = CONFIGS[n](width=w, height=h,
+                                            **KWARGS.get(n, {}))
+        scene.skybox = textures["rgbe"]
+        r = Renderer(options, scene, device="cuda")
+        args, kw = trace_args(r, camera, 4244)
+        variant = whole_trace_variant(r.device_scene)
+        rows_ok, differ, same_bad, m = rows_check(args, kw, "auto")
+        k = torch.stack(list(tk.trace_full(*args, **kw)))
+        p = torch.stack(list(tk.trace_full_plain(*args, **kw)))
+        rmse, share, same = canvas_diff(k, p, options.num_samples)
+        say(f"[4] config {n} ({variant}) {w}x{h} with the rgbe texture: "
+            f"nine rows bit-identical={rows_ok} (rays whose rows differ "
+            f"{differ}, max|d| {m:.3e}); radiance after the sample rmse="
+            f"{rmse:.3e} share>1e-3={share:.3e}  [{card}]")
+        if not (same_bad and same and rmse <= KERNEL_RMSE
+                and share <= KERNEL_DIFF_SHARE):
+            fail(f"config {n} with a texture: the nine-row form disagrees "
+                 "with the plain version")
 
     # ---- 5: goldens, the 1,025-sphere scene, benchmark_step's state ----
     for label, (w, h) in GOLDEN_SIZES.items():
-        n, backend, _ = CELLS[label]
+        n, backend, _, _ = CELLS[label]
         scene, camera, options = CONFIGS[n](width=w, height=h,
                                             **KWARGS.get(n, {}))
         r = Renderer(RenderOptions(width=w, height=h,
@@ -825,12 +1056,40 @@ def main() -> int:
         o = r.options
         ds = r.device_scene
         n_rays = res["n_rays"]
-        iters = 5 if CELLS[label][0] == 7 else 20
-        s_all = [r.benchmark_step(camera, iters=iters)["seconds_per_step"]
-                 * 1e3 for _ in range(5)]
+        iters = ITERS.get(label, 20)
+        slow = iters < 5       # passes of seconds: warm after phase 3
+        s_all = [r.benchmark_step(camera, iters=iters,
+                                  warmup=1 if slow else 2)["seconds_per_step"]
+                 * 1e3 for _ in range(3 if slow else 5)]
         step_ms = steps_ms[label] = float(np.median(s_all))
         extra = ""
-        if label in SPLIT + FUSED:
+        if label in DENSE:
+            say(f"[6] cell {label} {o.width}x{o.height} (no kernel: the dense "
+                f"PyTorch loop): Renderer.benchmark_step {step_ms:.4f} "
+                f"ms/pass ({spread(s_all)})  [{card}]")
+            continue
+        if label in PALLAS:
+            # the triangle kernel's launches of one pass, replayed
+            preps = [prep for prep, _ in res["recorded"]]
+            outs = [out for _, out in res["recorded"]]
+            k_all = cuda_ms(lambda: [trk.launch(pp, oo)
+                                     for pp, oo in zip(preps, outs)],
+                            iters=1, repeats=3, warmup=1)
+            k_ms = float(np.median(k_all))
+            flops = float(sum(n * act * MT_FLOPS
+                              for n, act, _ in res["work"]))
+            nbytes = float(sum(n * TRI_RAY_BYTES + cols * TRI_COL_BYTES
+                               for n, _, cols in res["work"]))
+            p_ms = res["plain_ms"]
+            p_note = (f"plain on {res['where']} (sum over the pass's "
+                      "launches, one run)")
+            work = (f"{len(preps)} launches of "
+                    f"{res['work'][0][0]} rays x {res['work'][0][1]} "
+                    f"active triangles ({res['work'][0][2]} columns); "
+                    f"{sum(n * act for n, act, _ in res['work']) / k_ms / 1e6:.2f}"
+                    " G ray-triangle tests/s")
+            timing[label] = ("triangle", res["max_abs"])
+        elif label in SPLIT + FUSED:
             cl = ds.triangles.clusters
             # the BVH kernel's launches of one pass, replayed as recorded
             preps = [prep for prep, _ in res["recorded"]]
@@ -872,9 +1131,26 @@ def main() -> int:
             args, kw = res["args"], res["kw"]
             # the kernel alone: arguments packed once, 50 launches a batch
             prep = tk.prepare(*args, **kw, tri_backend=o.tri_backend)
-            out = torch.empty((3, n_rays), dtype=torch.float32,
+            out = torch.empty((prep.n_out, n_rays), dtype=torch.float32,
                               device="cuda")
             k_all = cuda_ms(lambda: tk.launch(prep, out), iters=50)
+            if ds.skybox is not None:
+                # the texture's sample on the nine rows, as trace_full
+                # runs it after the kernel
+                rows = tk.split_rows(out)
+                x_all = cuda_ms(lambda: add_sky(ds, *rows), iters=20)
+                x_ms = float(np.median(x_all))
+                texels = ds.skybox.numel() * 4
+                x_bound = max(n_rays * SAMPLE_FLOPS / FP32_PEAK,
+                              (n_rays * SAMPLE_RAY_BYTES + texels)
+                              / HBM_BYTES_PER_S) * 1e3
+                extra = (f"; the texture's sample (PyTorch, "
+                         f"{tuple(ds.skybox.shape)}) {x_ms:.4f} ms/pass "
+                         f"({spread(x_all)}), bound {x_bound:.4f} ms (bytes: "
+                         f"{SAMPLE_RAY_BYTES} B a ray and the texture's "
+                         f"{texels / 1e6:.1f} MB once), "
+                         f"{x_bound / x_ms * 100:.1f}% of it")
+                res["sample"] = (x_ms, x_bound)
             w_all = cuda_ms(lambda: tk.trace_full(
                 *args, **kw, tri_backend=o.tri_backend), iters=20)
             segments = res["segments"]
@@ -902,8 +1178,9 @@ def main() -> int:
                 p_ms = float(np.median(p_all))
                 p_note = f"plain ({spread(p_all)})"
             k_ms = float(np.median(k_all))
-            flops = kernel_flops(ds, o.tri_backend, n_rays, segments)
-            nbytes = 12.0 * n_rays
+            flops = kernel_flops(ds, o.tri_backend, n_rays, segments,
+                                 sky=prep.n_out == 3)
+            nbytes = 4.0 * prep.n_out * n_rays
             segs = sum(seg[0] for seg in segments)
             work = (f"{n_rays / k_ms / 1e3:.1f} Mrays/s primary, "
                     f"{segs / k_ms / 1e3:.1f} M segments/s; with the "
@@ -931,7 +1208,7 @@ def main() -> int:
 
     # ---- 7: where a step's time goes ----
     for label, (r, camera) in renderers.items():
-        iters = 5 if CELLS[label][0] == 7 else 20
+        iters = ITERS.get(label, 20)
         say(f"[7] cell {label}: {step_breakdown(r, camera, iters)}  [{card}]")
 
     entries = []
@@ -943,6 +1220,8 @@ def main() -> int:
         if kind == "trace":
             errs = [results[c]["max_abs"] for c in covered]
             max_abs = max(errs + [max_abs])
+        if launches == 0:
+            fail(f"kernel row {name}: no launch on the main path")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"simple_raytracer_tpu_torch/csrc/{SOURCES[kind]}",

@@ -1,11 +1,20 @@
 // Whole-trace path-tracing kernel for Hopper (sm_90a).
 //
 // Replaces the TPU megakernel simple_raytracer_tpu/ops/pallas/bounce_kernel.py
-// :_trace_kernel with the gradient sky evaluated in the kernel: ray
-// generation (inverting the ray-tile order), every bounce (nearest sphere,
-// plane or triangle, emission, the BSDF sample) and the environment term, in
-// one launch that writes 3 radiance floats per ray.  Triangles come in one of
-// three compile-time variants of the same kernel (TriMode):
+// :_trace_kernel in both its output forms: ray generation (inverting the
+// ray-tile order) and every bounce (nearest sphere, plane or triangle,
+// emission, the BSDF sample) in one launch, which then either
+//   - evaluates the gradient sky on each ray's miss (fold_sky=True) and
+//     writes 3 radiance floats per ray, or
+//   - for a scene with a texture skybox (fold_sky=False, bounce_kernel.py
+//     :811-836) writes 9 rows per ray: the emission gathered, and the
+//     throughput and direction at the miss; the wrapper then samples the
+//     texture once on them in PyTorch (ops/sky.py: sky_color) and adds
+//     sky_mask * sky, as bounce_kernel.py:981-988 does.  The kernel never
+//     samples the texture: a texture fetch's hardware filter has 8-bit
+//     fixed-point weights, which cannot match the f32 taps.
+// Triangles come in one of three compile-time variants of the same kernel
+// (TriMode):
 //   - kNoTris: a triangle-free scene;
 //   - kSmallTris (bounce_kernel.py:_tris_small): at most 64 triangles, a
 //     dense Moller-Trumbore loop over a table staged in shared memory;
@@ -39,8 +48,8 @@
 //
 // Bound on the H100: per-ray FP32 arithmetic (every primitive tested per
 // segment, every slot of an admitted cluster, the hash RNG, the BSDF); the
-// only device-memory traffic it must make is the 12 bytes written per ray
-// (the cluster table, 7.9 MB at most, stays in L2).  Left for later:
+// only device-memory traffic it must make is the 12 bytes written per ray,
+// 36 in the nine-row form (the cluster table, 7.9 MB at most, stays in L2).  Left for later:
 // divergence across the warp (rays that die early idle their lanes, and
 // secondary rays admit different clusters) and register pressure.
 //
@@ -93,6 +102,7 @@ struct TraceParams {
   int32_t n_clusters;     // kClusteredTris: clusters (a multiple of 8)
   int32_t cluster_k;      // kClusteredTris: slots per cluster
   float cluster_extent;   // kClusteredTris: largest |coordinate| of a box
+  int32_t sky_rows;       // 1: write the 9 rows, no sky (a texture skybox)
   // kClusteredTris: the groups of 8 clusters, front to back; as many as
   // the parameter block holds beside the rest
   uint16_t group_order[SRT_MAX_GROUPS];
@@ -364,10 +374,19 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
     mask = mul(mask, sc.mask_mul);
   }
 
+  const size_t n = (size_t)p.n_rays;
+  if (p.sky_rows) {
+    // color, sky_mask, sky_dir: the sky is the wrapper's
+    const float rows[9] = {color.x, color.y, color.z, sky_mask.x,
+                           sky_mask.y, sky_mask.z, sky_dir.x, sky_dir.y,
+                           sky_dir.z};
+    for (int k = 0; k < 9; ++k) out[k * n + g] = rows[k];
+    return;
+  }
   color = add(color, mul(sky_mask, sky_gradient(sky_dir, p)));
   out[g] = color.x;
-  out[p.n_rays + g] = color.y;
-  out[2 * p.n_rays + g] = color.z;
+  out[n + g] = color.y;
+  out[2 * n + g] = color.z;
 }
 
 // launch one variant, opting in to more than the default dynamic shared

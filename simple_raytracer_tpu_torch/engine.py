@@ -37,9 +37,9 @@ class RenderOptions:
     # per-bounce path for the others; "bvh": the split path for every
     # scene; "clustered": the split path with the BVH kernel's streamed
     # variant; "fused": the whole-trace kernel up to config 6's table,
-    # the fused per-bounce path (the per-bounce shade kernel) beyond.  The
-    # JAX package's other values raise (ops/trace.py:
-    # TRI_BACKENDS_TO_PORT).
+    # the fused per-bounce path (the per-bounce shade kernel) beyond;
+    # "pallas": the split path with the brute-force triangle kernel for
+    # every mesh; "jnp": the split path with the dense PyTorch loop.
     tri_backend: str = "auto"
 
     def __post_init__(self):

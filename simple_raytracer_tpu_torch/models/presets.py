@@ -3,8 +3,8 @@
 Copies of ``config1_red_green`` to ``config7_mega_mesh`` from
 ``simple_raytracer_tpu.models.presets``.  Each builder returns
 ``(scene, camera, options)``.  The mesh configs use the procedural
-``organic_blob``; loading a model file and a texture skybox are later
-slices.
+``organic_blob``; loading a model file is a later slice.  Config 3 lights
+with the reference's skybox texture where it is found.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import os
 from typing import Optional
 
 from ..engine import RenderOptions
+from ..io.image import load_skybox
 from .camera import Camera
 from .materials import Material
 from .meshgen import organic_blob
@@ -92,23 +93,19 @@ def config3_skybox_emissive(width: int = 960, height: int = 540,
                             skybox="auto") -> tuple:
     """Environment lighting + an emissive area light, 8-bounce.
 
-    ``skybox="gradient"`` gives the analytic gradient sky.  "auto" gives
-    it too when the reference skybox texture is absent; when it is there
-    (``reference_skybox_path``), the JAX package renders with it, which
-    the port cannot yet, so "auto" raises, as an explicit texture does.
-    An (H, W, 3) texture is kept on the scene, whose build then raises:
-    texture skyboxes are a later slice (ROADMAP Queue A 3)."""
+    With ``skybox="auto"`` the reference's skybox texture is loaded
+    (``io/image.load_skybox``) when it is found
+    (``reference_skybox_path``), as the JAX package does, else the
+    analytic gradient sky stands in.  ``"gradient"`` (or None) always
+    gives the gradient sky, the form the golden tests use; an (H, W, 3)
+    array is the texture itself."""
     scene = Scene()
     if isinstance(skybox, str):
         if skybox not in ("auto", "gradient"):
             raise ValueError(f"unknown skybox mode {skybox!r}")
         found = reference_skybox_path() if skybox == "auto" else None
-        if found is not None:
-            raise NotImplementedError(
-                f"texture skybox ({found}, which config 3's \"auto\" "
-                "loads): a later slice (ROADMAP Queue A 3); pass "
-                "skybox=\"gradient\"")
-    elif skybox is not None:
+        skybox = load_skybox(found) if found is not None else None
+    if skybox is not None:
         scene.skybox = skybox
     scene.add_plane((0, -1, 0), (0, 1, 0), material=0)
     area = scene.add_material(

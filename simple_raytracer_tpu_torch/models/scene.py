@@ -6,8 +6,9 @@ each category to the same power-of-two buckets with inactive slots, so
 both packages hand their renderers identical arrays.  Mesh instances
 point into a shared triangle pool and are flattened to world space at
 build; a mesh of at least ``cluster_threshold`` triangles is reordered
-into BVH clusters (``accel.py``).  Model files and texture skyboxes are
-later slices and raise.
+into BVH clusters (``accel.py``).  A texture skybox (``Scene.skybox``, an
+(H, W, 3) f32 image, row 0 the bottom) is uploaded once per image object
+and device (``_build_skybox``).  Model files are a later slice and raise.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import accel
 from ..ops.scene_types import (MATERIAL_FIELDS, SKY_VECTORS, TABLE_MAX_SLOTS,
@@ -91,7 +93,10 @@ class Scene:
         self._box_span: Optional[Tuple[int, int]] = None
         self.materials = MaterialSet()
         self.sky = SkySettings()
+        # (H, W, 3) f32 equirect texture, bottom-up; None: the gradient sky
         self.skybox: Optional[np.ndarray] = None
+        # (image, device, texture tensor) of the last skybox built
+        self._skybox_dev = None
         # a hint: False declares the scene enclosed (no ray reaches the
         # sky); results never depend on it
         self.sky_reachable: bool = True
@@ -171,10 +176,9 @@ class Scene:
         return out
 
     def arrays(self) -> dict:
-        """The padded scene as flat numpy arrays (``from_numpy`` names)."""
-        if self.skybox is not None:
-            raise NotImplementedError("texture skybox: a later slice")
-        out = {}
+        """The padded scene as flat numpy arrays (``from_numpy`` names),
+        with the skybox image as it is, when there is one."""
+        out = {} if self.skybox is None else {"skybox": self.skybox}
         n = len(self.spheres)
         cap = _bucket(n)
         out["spheres.center"] = np.zeros((cap, 3), np.float32)
@@ -220,4 +224,29 @@ class Scene:
 
     def build(self, device) -> DeviceScene:
         """The device scene on ``device``."""
-        return from_numpy(self.arrays(), device)
+        arrays = self.arrays()
+        arrays["skybox"] = self._build_skybox(device)
+        return from_numpy(arrays, device)
+
+    def _build_skybox(self, device):
+        """The skybox as a tensor on ``device``, or None for the gradient
+        sky, which also drops the cache (it holds the old image and its
+        texture).  Memoized per image object and device, as the JAX
+        ``Scene._build_skybox`` is: uploading tens of MB again for edits
+        that do not touch the skybox would cost every build.  The cache
+        holds the image itself and compares with ``is`` (an id() alone can
+        be reused by a new array at a freed one's address).  Replace
+        ``scene.skybox`` to change the environment; an image changed in
+        place keeps its identity and the cached texture."""
+        if self.skybox is None:
+            self._skybox_dev = None
+            return None
+        device = torch.device(device)
+        cached = self._skybox_dev
+        if (cached is not None and cached[0] is self.skybox
+                and cached[1] == device):
+            return cached[2]
+        tex = torch.tensor(np.asarray(self.skybox, np.float32),
+                           device=device)
+        self._skybox_dev = (self.skybox, device, tex)
+        return tex

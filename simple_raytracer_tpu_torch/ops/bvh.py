@@ -54,7 +54,7 @@ PACKED_VMEM_MAX_CLUSTERS = 800
 PACKET = 128         # triangles per packed tile
 BLOCK_R = 1536       # the TPU wrapper's ray block, compact_cap_auto's unit
 # (ray, cluster) pairs x K slots per chunk of the plain version, by device
-# type (as intersect.TRI_CHUNK_ELEMS)
+# type (as triangle.TRI_CHUNK_ELEMS)
 PAIR_CHUNK_ELEMS = {"cpu": 2 ** 22, "cuda": 2 ** 26}
 _NO_KEY = 2 ** 62
 

@@ -2,15 +2,20 @@
 sky in one CUDA launch (``csrc/trace_kernel.cu``).
 
 It replaces the TPU megakernel ``_trace_kernel`` of
-``simple_raytracer_tpu/ops/pallas/bounce_kernel.py`` with the sky
-evaluated in the kernel, including its triangle forms: ``_tris_small``
+``simple_raytracer_tpu/ops/pallas/bounce_kernel.py`` in both its forms:
+with the gradient sky evaluated in the kernel (3 rows per ray), and, for
+a scene with a texture skybox, without it (``fold_sky=False``): the
+kernel writes 9 rows per ray (the emission gathered, the throughput and
+direction at the miss) and the wrapper samples the texture on them once
+(``ops/trace.add_sky``), as ``trace_full_fused`` does.  Its triangle
+forms: ``_tris_small``
 (a dense loop over at most ``scene_types.SMALL_TRIS_MAX`` triangles) and
 ``_tris_clustered`` (a BVH-clustered mesh of at most ``TABLE_MAX_SLOTS``
 slots, or under ``tri_backend="fused"`` the TPU's packed form of it, at
 most ``MEGA_PACKED_MAX_CLUSTERS`` clusters of at most 128 slots: config
 6's 98,304 slots).  Its plain PyTorch version, ``trace_full_plain``, is
-``generate_rays`` followed by ``trace_rays`` in its whole-trace form
-(triangles shaded at MT's (u, v)).
+``generate_rays`` followed by ``trace_rays_rows`` in its whole-trace form
+(triangles shaded at MT's (u, v)), then the same ``add_sky``.
 
 ``trace_full`` takes the plain version only for a scene on the CPU.  For
 a scene on a CUDA device it launches the kernel or raises: there is no
@@ -79,6 +84,7 @@ class _TraceParamsHead(ctypes.Structure):
         ("n_clusters", ctypes.c_int32),
         ("cluster_k", ctypes.c_int32),
         ("cluster_extent", ctypes.c_float),
+        ("sky_rows", ctypes.c_int32),
     ]
 
 
@@ -149,14 +155,17 @@ def group_order(clusters: Clusters, position) -> np.ndarray:
 def trace_full_plain(scene: DeviceScene, rot, position, aspect_ratio,
                      fov_scale, time, *, width, height, num_samples,
                      num_bounces, row0=0, tile_height=None, ray_tile=None,
-                     segments=None) -> Vec3:
-    """The plain PyTorch version: generate_rays, then trace_rays."""
-    from ..trace import trace_rays
+                     segments=None, rows: bool = False):
+    """The plain PyTorch version: generate_rays, then trace_rays_rows and
+    add_sky; with ``rows``, the nine rows (color, sky_mask, sky_dir)
+    before the environment instead."""
+    from ..trace import add_sky, trace_rays_rows
     o, d, seed = generate_rays(width, height, num_samples, time, position,
                                rot, aspect_ratio, fov_scale, row0=row0,
                                tile_height=tile_height, tile=ray_tile,
                                device=scene.device)
-    return trace_rays(scene, o, d, seed, num_bounces, segments)
+    out = trace_rays_rows(scene, o, d, seed, num_bounces, segments)
+    return out if rows else add_sky(scene, *out)
 
 
 def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
@@ -166,15 +175,25 @@ def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     """Per-ray radiance of the (tile_height * W * S,) rays of one pass
     (ray i is local_pixel * S + sample, pixels in ray-tile order when
     ``ray_tile`` is set).  ``tri_backend`` sets the envelope
-    (``whole_trace_variant``)."""
+    (``whole_trace_variant``).  A scene with a texture skybox takes the
+    nine-row form, then the texture's sample."""
+    from ..trace import add_sky
     kw = dict(width=width, height=height, num_samples=num_samples,
               num_bounces=num_bounces, row0=row0, tile_height=tile_height,
               ray_tile=ray_tile)
     if scene.device.type == "cpu":
         return trace_full_plain(scene, rot, position, aspect_ratio,
                                 fov_scale, time, **kw)
-    return launch(prepare(scene, rot, position, aspect_ratio, fov_scale,
-                          time, tri_backend=tri_backend, **kw))
+    out = launch(prepare(scene, rot, position, aspect_ratio, fov_scale,
+                         time, tri_backend=tri_backend, **kw))
+    if out.shape[0] == 9:
+        return add_sky(scene, *split_rows(out))
+    return Vec3(out[0], out[1], out[2])
+
+
+def split_rows(out: torch.Tensor):
+    """The nine-row output -> (color, sky_mask, sky_dir) Vec3s."""
+    return tuple(Vec3(out[i], out[i + 1], out[i + 2]) for i in (0, 3, 6))
 
 
 @dataclasses.dataclass
@@ -186,6 +205,16 @@ class Prepared:
     params: TraceParams
     n_rays: int
     device: torch.device
+
+    @property
+    def n_out(self) -> int:
+        """Rows written per ray: 9 without the sky (a texture), else 3."""
+        return 9 if self.params.sky_rows else 3
+
+    @property
+    def label(self) -> str:
+        """The variant as counted: "<variant>/texture" for the 9 rows."""
+        return self.variant + ("/texture" if self.params.sky_rows else "")
 
 
 def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
@@ -261,6 +290,7 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     p.n_spheres, p.n_planes, p.n_materials = (sph.shape[0], pln.shape[0],
                                               mat.shape[0])
     p.tri_mode = TRI_MODES[variant]
+    p.sky_rows = int(scene.skybox is not None)
     if variant == "small":
         p.n_tris = tri.shape[0]
     elif variant == "clustered":
@@ -276,13 +306,14 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     return Prepared((sph, pln, mat), (tri, box), variant, p, n_rays, device)
 
 
-def launch(prep: Prepared, out: torch.Tensor = None) -> Vec3:
-    """Launch the kernel on the current stream into ``out`` ((3, n_rays)
-    f32, allocated when not given) and count the launch."""
+def launch(prep: Prepared, out: torch.Tensor = None) -> torch.Tensor:
+    """Launch the kernel on the current stream into ``out`` ((n_out,
+    n_rays) f32, allocated when not given), count the launch and return
+    ``out``."""
+    shape = (prep.n_out, prep.n_rays)
     if out is None:
-        out = torch.empty((3, prep.n_rays), dtype=torch.float32,
-                          device=prep.device)
-    elif (out.shape != (3, prep.n_rays) or out.dtype != torch.float32
+        out = torch.empty(shape, dtype=torch.float32, device=prep.device)
+    elif (out.shape != shape or out.dtype != torch.float32
           or out.device != prep.device or not out.is_contiguous()):
         raise ValueError("trace kernel: bad output tensor")
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -292,5 +323,5 @@ def launch(prep: Prepared, out: torch.Tensor = None) -> Vec3:
         err = lib.srt_trace_launch(*map(ptr, prep.tables + prep.tri_tables),
                                    out.data_ptr(), prep.params, stream)
     KERNEL.check(err, "trace kernel")
-    KERNEL.count(prep.variant)
-    return Vec3(out[0], out[1], out[2])
+    KERNEL.count(prep.label)
+    return out

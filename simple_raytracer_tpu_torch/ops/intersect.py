@@ -9,13 +9,15 @@ first minimum t per ray.  The nearest hit comes in two forms:
   (``bounce_kernel._tris_small``): Moller-Trumbore dense over every
   triangle, with the smooth normal interpolated from MT's own (u, v).
 - ``closest_hit_split``, the split per-bounce path's form (the JAX
-  ``closest_hit`` with ``tri_backend="bvh"``): a clustered mesh goes
-  through the BVH kernel (``ops/cuda/bvh_kernel.py``), seeded with the
-  nearest sphere or plane hit, a mesh without clusters through the dense
-  loop; the winner's table row is gathered (at the BVH kernel's slot, or
-  the dense loop's index) and the smooth normal interpolated at the
-  barycentric weights of the hit position
-  (``barycentric_weights_from_edges``).
+  ``closest_hit`` with ``tri_backend`` "bvh", "clustered", "jnp" or
+  "pallas"): a clustered mesh goes through the BVH kernel
+  (``ops/cuda/bvh_kernel.py``), seeded with the nearest sphere or plane
+  hit, a mesh without clusters through the dense loop; under "pallas"
+  every mesh goes through the brute-force triangle kernel
+  (``ops/cuda/triangle_kernel.py``), under "jnp" through the dense loop.
+  The winner's table row is gathered (at the BVH kernel's slot, or the
+  triangle's index) and the smooth normal interpolated at the barycentric
+  weights of the hit position (``barycentric_weights_from_edges``).
 
 The two normals differ by float rounding only.
 """
@@ -26,14 +28,10 @@ from typing import NamedTuple
 
 import torch
 
-from .cuda import bvh_kernel
+from .cuda import bvh_kernel, triangle_kernel
 from .scene_types import DeviceScene, Planes, Spheres, Triangles
+from .triangle import nearest_triangle
 from .vec import Vec3, dot, normalize, sqrt, where as vwhere
-
-# rays x triangles per chunk of the dense triangle loop, by device type:
-# on the CPU a chunk's f32 intermediates (16 MB each) stay near the
-# caches, on a card (256 MB each) there are fewer, larger launches
-TRI_CHUNK_ELEMS = {"cpu": 2 ** 22, "cuda": 2 ** 26}
 
 
 class Hit(NamedTuple):
@@ -84,43 +82,14 @@ def intersect_planes(o: Vec3, d: Vec3, p: Planes):
 
 
 def intersect_triangles(o: Vec3, d: Vec3, tr: Triangles):
-    """(R,) rays x (Nt,) triangles -> (t_best, idx_best, u, v): MT with the
-    a == 0 test, u in [0, 1], v >= 0, u + v <= 1 and t > 0 strictly; the
-    first index wins an exact tie, and (u, v) are MT's at the winner.  The
-    triangles are taken in chunks of at most TRI_CHUNK_ELEMS ray-triangle
-    pairs."""
-    max_elems = TRI_CHUNK_ELEMS.get(o.x.device.type, 2 ** 22)
-    n_rays, n = o.x.shape[0], tr.material.shape[0]
-    e1, e2 = tr.v1 - tr.v0, tr.v2 - tr.v0
-    ro, rd = _rays(o), _rays(d)
-    t_best = torch.full_like(o.x, math.inf)
-    i_best = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
-    u_best = torch.zeros_like(o.x)
-    v_best = torch.zeros_like(o.x)
-    chunk = max(1, max_elems // max(n_rays, 1))
-    for c0 in range(0, n, chunk):
-        sl = slice(c0, c0 + chunk)
-        a1, a2 = _table(e1[sl]), _table(e2[sl])
-        h = Vec3(rd.y * a2.z - rd.z * a2.y, rd.z * a2.x - rd.x * a2.z,
-                 rd.x * a2.y - rd.y * a2.x)
-        a = dot(a1, h)
-        f = 1.0 / a
-        s = ro - _table(tr.v0[sl])
-        u = f * dot(s, h)
-        q = Vec3(s.y * a1.z - s.z * a1.y, s.z * a1.x - s.x * a1.z,
-                 s.x * a1.y - s.y * a1.x)
-        v = f * dot(rd, q)
-        t = f * dot(a2, q)
-        valid = ((a != 0.0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-                 & (u + v <= 1.0) & (t > 0.0) & tr.active[None, sl])
-        t_c, i_c = torch.min(torch.where(valid, t, math.inf), dim=1)
-        better = t_c < t_best
-        pick = lambda x: torch.gather(x, 1, i_c[:, None])[:, 0]
-        t_best = torch.where(better, t_c, t_best)
-        i_best = torch.where(better, i_c + c0, i_best)
-        u_best = torch.where(better, pick(u), u_best)
-        v_best = torch.where(better, pick(v), v_best)
-    return t_best, i_best, u_best, v_best
+    """(R,) rays x (Nt,) triangles -> (t_best, idx_best, u, v): the dense
+    loop ``triangle.nearest_triangle`` (MT under the reference's rules,
+    the first index winning an exact tie, in chunks of at most
+    TRI_CHUNK_ELEMS ray-triangle pairs), with MT's (u, v) at the
+    winner."""
+    cols = lambda t: Vec3(t[:, 0], t[:, 1], t[:, 2])
+    return nearest_triangle(o, d, cols(tr.v0), cols(tr.v1 - tr.v0),
+                            cols(tr.v2 - tr.v0), tr.active)
 
 
 def triangle_normal(tr: Triangles, idx: torch.Tensor, u: torch.Tensor,
@@ -233,25 +202,37 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
                       alive: torch.Tensor, compact: bool = False,
                       tri_backend: str = "auto") -> Hit:
     """The split path's nearest hit for the (R,) rays whose ``alive`` is
-    set (the other rays' results are not used).  A clustered mesh goes
-    through the BVH kernel with its far bound seeded by the nearest
-    sphere or plane hit (on the CPU, its plain version), behind the ray
-    compaction when ``compact``; ``tri_backend="clustered"`` forces its
-    streamed variant, as the JAX ``closest_hit`` forces ``hbm_table``.  A
-    mesh without clusters goes through the dense loop.  The winner's table
-    row (at its slot, or for a mesh without clusters its index) is
-    gathered and shaded at the hit position."""
+    set (the other rays' results are not used).
+
+    Under ``tri_backend`` "pallas" every mesh goes through the triangle
+    kernel over its packed table (on the CPU, its plain version), under
+    "jnp" through the dense loop, over every ray and triangle, clustered
+    or not, as the JAX ``closest_hit`` routes them; the winner's row comes
+    from the triangle-indexed table ``Triangles.rows``.  Otherwise a
+    clustered mesh goes through the BVH kernel with its far bound seeded
+    by the nearest sphere or plane hit (on the CPU, its plain version),
+    behind the ray compaction when ``compact``; ``tri_backend="clustered"``
+    forces its streamed variant, as the JAX ``closest_hit`` forces
+    ``hbm_table``.  Its winner's row is the slot table's, at the slot it
+    reports.  A mesh without clusters goes through the dense loop.  The
+    winner is shaded at the hit position."""
     t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
     tr = scene.triangles
     t_t = torch.full_like(o.x, math.inf)
-    i_t = None
-    if tr.material.shape[0] > 0 and tr.clusters is not None:
-        t_t, i_t = bvh_kernel.intersect_triangles_bvh(
-            o, d, alive, torch.minimum(t_s, t_p), tr.clusters, tr.table,
-            compact=compact, force_streamed=tri_backend == "clustered")
-        i_t = i_t.clamp_min(0).long()   # slot -1 (no win): any row; t is +inf
-    elif tr.material.shape[0] > 0:
-        t_t, i_t, _, _ = intersect_triangles(o, d, tr)
+    i_t, rows = None, tr.rows
+    if tr.material.shape[0] > 0:
+        if tri_backend == "pallas":
+            t_t, i_t = triangle_kernel.intersect_triangles_packed(o, d,
+                                                                  tr.packed)
+            i_t = i_t.long()
+        elif tri_backend != "jnp" and tr.clusters is not None:
+            t_t, i_t = bvh_kernel.intersect_triangles_bvh(
+                o, d, alive, torch.minimum(t_s, t_p), tr.clusters, tr.table,
+                compact=compact, force_streamed=tri_backend == "clustered")
+            i_t = i_t.clamp_min(0).long()   # slot -1 (no win): t is +inf
+            rows = tr.table
+        else:
+            t_t, i_t, _, _ = intersect_triangles(o, d, tr)
     return _resolve(scene, o, d, t_s, i_s, t_p, i_p, t_t,
-                    lambda position: shade_from_position(tr.table[i_t],
+                    lambda position: shade_from_position(rows[i_t],
                                                          position))

@@ -6,8 +6,10 @@ category is padded to a bucket capacity; ``active`` marks the real slots.
 
 Triangles are world-space and, for a clustered mesh, already in BVH
 order.  ``from_numpy`` packs the kernels' triangle tables once per scene
-(``tri_table``), and for a clustered mesh the BVH kernel's hierarchy of
-boxes (``ops/bvh.build_hierarchy``), so no pass packs mesh tables again.
+(``tri_table``, ``triangle.pack_triangles``), and for a clustered mesh
+the BVH kernel's hierarchy of boxes (``ops/bvh.build_hierarchy``), so no
+pass packs mesh tables again.  The environment texture, when the scene
+has one, is uploaded as an f32 tensor.
 ``prim_tables`` packs the sphere, plane and material tables that the
 whole-trace and per-bounce shade kernels read.
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .bvh import PACKET, VMEM_TABLE_MAX_SLOTS, Hierarchy, build_hierarchy
+from .triangle import pack_triangles
 from .vec import Vec3
 
 
@@ -74,6 +77,12 @@ class Triangles:
     # the kernels' rows of TRI_COLS f32: the Nt triangles in order, or for
     # a clustered mesh the C * K cluster slots (see tri_table)
     table: torch.Tensor
+    # the Nt triangles' rows in order, whatever the mesh: ``table`` itself
+    # without clusters; the routes that find a triangle's index (not its
+    # slot) shade from it
+    rows: torch.Tensor
+    # the triangle kernel's (16, Nt) table (triangle.pack_triangles)
+    packed: torch.Tensor
     clusters: Optional[Clusters] = None
 
 
@@ -111,6 +120,9 @@ class DeviceScene:
     # a hint only: False declares an enclosed scene (no ray reaches the
     # sky); results never depend on it
     sky_reachable: bool = True
+    # the equirect environment texture, (H, W, 3) f32 with row 0 at the
+    # bottom, or None for the gradient sky (ops/sky.sky_color)
+    skybox: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -210,7 +222,9 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
     ``triangles.{v0,v1,v2,n0,n1,n2}`` (Nt, 3), ``triangles.material``,
     ``triangles.active``, and for a clustered mesh ``clusters.aabb``
     (C, 8) and ``clusters.slots`` (C, K) (-1 for an empty slot).  A scene
-    without ``triangles.v0`` has no triangles."""
+    without ``triangles.v0`` has no triangles.  ``skybox``, when present
+    and not None, is the (H, W, 3) environment texture: an array, or a
+    tensor already on ``device`` (kept as it is)."""
 
     def f32(name, shape_tail=()):
         a = np.asarray(arrays[name], np.float32)
@@ -271,9 +285,13 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
         clusters = Clusters(aabb=aabb_t, slots=slots_t, centers=centers,
                             extent=extent,
                             hierarchy=build_hierarchy(aabb_t, slots_t))
+    table = t(tri_table(tris, slots))
     triangles = Triangles(
         **{k: t(tris[k]) for k in TRI_VECTORS + ("material", "active")},
-        table=t(tri_table(tris, slots)), clusters=clusters)
+        table=table, rows=table if slots is None else t(tri_table(tris)),
+        packed=t(pack_triangles(tris["v0"], tris["v1"], tris["v2"],
+                                tris["active"])),
+        clusters=clusters)
 
     return DeviceScene(
         spheres=Spheres(center=f32("spheres.center", (3,)),
@@ -293,4 +311,18 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
                       sun_intensity=scalar("sky.sun_intensity"),
                       **{k: vec(f"sky.{k}") for k in SKY_VECTORS}),
         sky_reachable=bool(arrays.get("sky_reachable", True)),
+        skybox=_skybox(arrays.get("skybox"), device),
     )
+
+
+def _skybox(image, device) -> Optional[torch.Tensor]:
+    """The texture as an (H, W, 3) f32 tensor on ``device``, or None; an
+    array is copied, a tensor moved only where it is elsewhere."""
+    if image is None:
+        return None
+    if not isinstance(image, torch.Tensor):
+        image = torch.tensor(np.asarray(image, np.float32))
+    tex = image.to(device=device, dtype=torch.float32).contiguous()
+    if tex.ndim != 3 or tex.shape[2] != 3 or tex.shape[0] * tex.shape[1] == 0:
+        raise ValueError(f"skybox: shape {tuple(tex.shape)}, want (H, W, 3)")
+    return tex

@@ -5,15 +5,18 @@ mask, as ``simple_raytracer_tpu.ops.trace.trace_rays`` runs it:
 
   - emission is added on every hit;
   - the last bounce adds emission only, with no BSDF sample;
-  - a miss records the throughput and direction for the sky, which is
-    evaluated once after the loop, and the ray dies.
+  - a miss records the throughput and direction for the environment,
+    which is evaluated once after the loop (``add_sky``: the scene's
+    texture, else the gradient sky), and the ray dies.
 
 It comes in two forms.  With ``split=False`` it is the plain version of
 the whole-trace kernel (``ops/cuda/trace_kernel.py``), whose nearest hit
 (``intersect.closest_hit``) shades triangles at MT's (u, v).  With
 ``split=True`` it is the split per-bounce path: each bounce's nearest hit
 is ``intersect.closest_hit_split``, which sends a clustered mesh through
-the BVH kernel (``ops/cuda/bvh_kernel.py``) and shades at the barycentric
+the BVH kernel (``ops/cuda/bvh_kernel.py``), or under "pallas" every mesh
+through the brute-force triangle kernel (``ops/cuda/triangle_kernel.py``)
+and under "jnp" through the dense loop, and shades at the barycentric
 weights of the hit position.  Its bounce 0 is peeled: dense unless the
 TPU would stream the cluster table from HBM, while every later bounce
 takes the ray compaction when the batch is large enough
@@ -23,7 +26,7 @@ takes the ray compaction when the batch is large enough
 ``trace_rays_fused``): the (20, Rp) ray state of ``ops/bounce.py``, and
 per bounce the nearest sphere and plane as the BVH's far bound, the BVH
 kernel, and the per-bounce shade kernel (``ops/cuda/bounce_kernel.py``);
-the sky once at the end.
+the environment once at the end.
 
 ``render_pass`` traces one progressive pass and adds its per-pixel sample
 mean to the canvas, routed as the JAX ``render_pass`` routes on the TPU:
@@ -34,8 +37,8 @@ mean to the canvas, routed as the JAX ``render_pass`` routes on the TPU:
   - else ``trace_per_bounce``: under "fused" a clustered mesh
     (``fused_ok``) takes ``trace_rays_fused``: config 7;
   - every other scene takes the split ``trace_rays``: configs 6 and 7
-    under "auto", every scene under "bvh" and under "clustered" (which
-    forces the BVH kernel's streamed variant).
+    under "auto", every scene under "bvh", "clustered" (which forces the
+    BVH kernel's streamed variant), "jnp" and "pallas".
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from .camera import camera_rotation, generate_rays, untile_pixels
 from .cuda import bvh_kernel
 from .intersect import _spheres_planes, closest_hit, closest_hit_split
 from .scene_types import DeviceScene, prim_tables, whole_trace_variant
-from .sky import sky_gradient
+from .sky import sky_color
 from .vec import Vec3, where as vwhere
 
 
@@ -63,37 +66,47 @@ class CameraState(NamedTuple):
     fov_scale: float
 
 
-# the triangle backends of the JAX RenderOptions that the port runs; the
-# others raise naming the ROADMAP item that ports them
-TRI_BACKENDS = ("auto", "bvh", "clustered", "fused")
-TRI_BACKENDS_TO_PORT = {
-    "jnp": "ROADMAP Queue A 2 (the dense triangle route for clustered "
-           "meshes)",
-    "pallas": "ROADMAP Queue A 2 and Queue B 2 (triangle_kernel._kernel)",
-}
+# the triangle backends of the JAX RenderOptions
+TRI_BACKENDS = ("auto", "bvh", "clustered", "fused", "jnp", "pallas")
 
 
 def check_tri_backend(tri_backend: str) -> None:
-    if tri_backend in TRI_BACKENDS:
-        return
-    if tri_backend in TRI_BACKENDS_TO_PORT:
-        raise NotImplementedError(
-            f"tri_backend={tri_backend!r} is not ported yet: "
-            + TRI_BACKENDS_TO_PORT[tri_backend])
-    raise ValueError(f"unknown tri_backend {tri_backend!r}")
+    if tri_backend not in TRI_BACKENDS:
+        raise ValueError(f"unknown tri_backend {tri_backend!r}")
+
+
+def add_sky(scene: DeviceScene, color: Vec3, sky_mask: Vec3,
+            sky_dir: Vec3) -> Vec3:
+    """The per-ray radiance from a trace's rows: the emission gathered,
+    plus the throughput at the miss times the environment along the miss
+    direction (``sky.sky_color``: the scene's texture, else the gradient
+    sky), evaluated once for every ray."""
+    return color + sky_mask * sky_color(sky_dir, scene.sky, scene.skybox)
 
 
 def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
                num_bounces: int, segments: Optional[list] = None,
                split: bool = False, tri_backend: str = "auto") -> Vec3:
-    """Trace the (R,) ray batch to completion; returns per-ray radiance.
+    """Trace the (R,) ray batch to completion; returns per-ray radiance
+    (``trace_rays_rows``, then ``add_sky``)."""
+    return add_sky(scene, *trace_rays_rows(scene, o, d, seed, num_bounces,
+                                           segments, split, tri_backend))
+
+
+def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
+                    seed: torch.Tensor, num_bounces: int,
+                    segments: Optional[list] = None, split: bool = False,
+                    tri_backend: str = "auto"):
+    """Trace the (R,) ray batch to completion, without the environment:
+    (color, sky_mask, sky_dir), the emission gathered and the throughput
+    and direction at each ray's miss ((0, 0, 0) and (0, 0, 1) for a ray
+    that never misses), the whole-trace kernel's nine rows.
 
     ``segments``, when given, receives one (live rays, rays that hit,
     rays whose nearest hit is a triangle) triple per bounce: the work the
     kernel does, which depends on the data.  ``split`` selects the split
     per-bounce path's nearest hit and its compaction policy, where
-    ``tri_backend="clustered"`` forces the BVH kernel's streamed
-    variant."""
+    ``tri_backend`` picks the triangle route (``closest_hit_split``)."""
     zeros = torch.zeros_like(o.x)
     ones = torch.ones_like(o.x)
     color = Vec3(zeros, zeros, zeros)
@@ -134,7 +147,7 @@ def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
         mask = vwhere(alive, mask * ms.mask_mul, mask)
         seed = torch.where(alive, ms.seed, seed)
 
-    return color + sky_mask * sky_gradient(sky_dir, scene.sky)
+    return color, sky_mask, sky_dir
 
 
 def trace_rays_fused(scene: DeviceScene, o: Vec3, d: Vec3,
@@ -145,7 +158,7 @@ def trace_rays_fused(scene: DeviceScene, o: Vec3, d: Vec3,
     BVH's far bound, the BVH kernel gives each live ray's nearest triangle
     (compacted whenever ``bvh.compacts`` allows, bounce 0 included, which
     changes no live ray's result), and ``bounce_step`` shades, samples and
-    advances every ray; the gradient sky once after the last bounce.  It
+    advances every ray; the environment once after the last bounce.  It
     makes the split ``trace_rays``'s float operations in the same order,
     so it gives the same radiance."""
     n = o.x.shape[0]
@@ -163,8 +176,7 @@ def trace_rays_fused(scene: DeviceScene, o: Vec3, d: Vec3,
                 ro, rd, state[7], torch.minimum(t_s, t_p), tr.clusters,
                 tr.table, compact=compact)
         state = bounce_step(state, i == num_bounces - 1, scene, tri, tables)
-    color, sky_mask, sky_dir = unpack_state(state, n)
-    return color + sky_mask * sky_gradient(sky_dir, scene.sky)
+    return add_sky(scene, *unpack_state(state, n))
 
 
 def takes_whole_trace(scene: DeviceScene, tri_backend: str = "auto") -> bool:

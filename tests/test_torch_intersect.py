@@ -17,6 +17,7 @@ from simple_raytracer_tpu.ops import intersect as jint
 from simple_raytracer_tpu.ops.pallas import bounce_kernel
 from simple_raytracer_tpu.ops.vec import Vec3 as JVec3
 from simple_raytracer_tpu_torch.ops import intersect as tint
+from simple_raytracer_tpu_torch.ops import triangle
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 
 from torch_port_helpers import jax_scene_arrays, jvec, to_np, tvec, unit_vectors
@@ -133,7 +134,7 @@ def test_triangle_chunks_compose(monkeypatch):
     o, d = _mesh_rays(ts, 500, 7)
     whole = tint.intersect_triangles(tvec(o), tvec(d), ts.triangles)
     for chunk in (1, 7, 256):
-        monkeypatch.setitem(tint.TRI_CHUNK_ELEMS, "cpu", 500 * chunk)
+        monkeypatch.setitem(triangle.TRI_CHUNK_ELEMS, "cpu", 500 * chunk)
         part = tint.intersect_triangles(tvec(o), tvec(d), ts.triangles)
         for a, b in zip(whole, part):
             np.testing.assert_array_equal(a.numpy(), b.numpy())

@@ -7,7 +7,9 @@ chip_smoke and renders config 2, the clustered mesh of config 4 (its
 BVH built by the port's own builder) and config 6 through the split
 per-bounce path at 32x16 on the CPU, and traces config 7 (cut to 5,120
 triangles) through the fused per-bounce path (ops/bounce.py) and under
-tri_backend="clustered".  chip_smoke.py itself must fail, printing no
+tri_backend="clustered"; then renders with a texture skybox written and
+read back as an .hdr (the whole-trace form and the split path), and
+under the "pallas" and "jnp" triangle routes.  chip_smoke.py itself must fail, printing no
 result, without CUDA and outside the repository.
 """
 import os
@@ -75,6 +77,26 @@ r = Renderer(RenderOptions(width=32, height=16, num_samples=2,
                            num_bounces=opt.num_bounces,
                            tri_backend="clustered"), scene, device="cpu")
 assert r.render(camera, num_steps=1).std() > 0
+# a texture skybox, from an .hdr the port writes, through the whole-trace
+# form (config 3) and the split path (config 4 under "bvh"); the "pallas"
+# and "jnp" triangle routes
+import os
+import tempfile
+import numpy as np
+from simple_raytracer_tpu_torch.io.image import load_skybox, save_hdr
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "sky.hdr")
+    save_hdr(path, np.random.default_rng(0).random((16, 32, 3),
+                                                   np.float32) * 2)
+    sky = load_skybox(path)
+for n, backend in ((3, "auto"), (4, "bvh"), (5, "pallas"), (4, "jnp")):
+    scene, camera, opt = CONFIGS[n](width=32, height=16)
+    scene.skybox = sky
+    r = Renderer(RenderOptions(width=32, height=16, num_samples=1,
+                               num_bounces=3, tri_backend=backend), scene,
+                 device="cpu")
+    assert r.device_scene.skybox.shape == (16, 32, 3)
+    assert r.render(camera, num_steps=1).std() > 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 try:

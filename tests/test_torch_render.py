@@ -188,12 +188,13 @@ def test_config4_bvh_backend_matches_jax(monkeypatch):
 def test_routing_and_backends():
     """Under "auto" the scenes the whole-trace kernel serves (configs 1 to
     5) take it, configs 6 and 7 (here 20,480 triangles, 256 clusters of
-    128) the split path; under "bvh" and "clustered" every scene takes the
-    split path; under "fused" the whole-trace kernel serves configs 6 and
-    7's packed tables too.  A triangle-free scene gives the same canvas
-    every way.  The JAX package's other backends raise
-    NotImplementedError, unknown names ValueError."""
-    from simple_raytracer_tpu_torch.ops.trace import (TRI_BACKENDS_TO_PORT,
+    128) the split path; under "bvh", "clustered", "jnp" and "pallas"
+    every scene takes the split path; under "fused" the whole-trace
+    kernel serves configs 6 and 7's packed tables too.  A triangle-free
+    scene gives the same canvas every way.  Every backend of the JAX
+    package is accepted (the last two raised NotImplementedError before
+    their port); unknown names raise ValueError."""
+    from simple_raytracer_tpu_torch.ops.trace import (TRI_BACKENDS,
                                                       takes_whole_trace)
     kwargs = {**KWARGS, 7: {"subdivisions": 5}}
     scenes = {n: CONFIGS[n](width=32, height=16, **kwargs.get(n, {}))
@@ -204,24 +205,25 @@ def test_routing_and_backends():
                                                                  5]
     assert [n for n in built if takes_whole_trace(built[n], "fused")] == [
         1, 2, 3, 4, 5, 6, 7]
-    for backend in ("bvh", "clustered"):
+    for backend in ("bvh", "clustered", "jnp", "pallas"):
         assert not any(takes_whole_trace(b, backend) for b in built.values())
+    assert set(TRI_BACKENDS) == {"auto", "bvh", "clustered", "fused", "jnp",
+                                 "pallas"}
     _, camera, opt = scenes[2]
     kw = dict(width=32, height=16, num_samples=2, num_bounces=4)
     cam = camera.state(2.0)
     a, *others = (render_pass(built[2], cam, torch.zeros(16, 32, 3), 5,
                               tri_backend=t, **kw)
-                  for t in ("auto", "bvh", "clustered", "fused"))
+                  for t in TRI_BACKENDS)
     for b in others:
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    for name in TRI_BACKENDS_TO_PORT:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RenderOptions(tri_backend=name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_pass(built[2], cam, torch.zeros(16, 32, 3), 5,
-                        tri_backend=name, **kw)
+    for name in ("jnp", "pallas"):
+        assert RenderOptions(tri_backend=name).tri_backend == name
     with pytest.raises(ValueError, match="unknown tri_backend"):
         RenderOptions(tri_backend="bogus")
+    with pytest.raises(ValueError, match="unknown tri_backend"):
+        render_pass(built[2], cam, torch.zeros(16, 32, 3), 5,
+                    tri_backend="bogus", **kw)
 
 
 def test_cuda_split_path_never_takes_the_plain_version(monkeypatch):

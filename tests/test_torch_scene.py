@@ -109,18 +109,21 @@ def test_padding_buckets():
 
 
 def test_meshes_and_skyboxes_are_a_later_slice():
-    """Model files and texture skyboxes are later slices and raise."""
+    """Model files are a later slice and raise; a texture skybox builds
+    (it was a later slice until the texture's port): the scene's, and
+    config 3's explicit array, as an (H, W, 3) f32 tensor."""
     s = Scene()
     with pytest.raises(NotImplementedError, match="model files"):
         s.import_model("suzanne.obj")
     with pytest.raises(NotImplementedError, match="model files"):
         TCONFIGS[4](mesh_path="suzanne.obj")
-    s.skybox = np.zeros((4, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="skybox"):
-        s.build("cpu")
-    scene, _, _ = TCONFIGS[3](skybox=np.zeros((4, 8, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="skybox"):
-        scene.build("cpu")
+    tex = np.random.default_rng(2).random((4, 8, 3)).astype(np.float32)
+    s.skybox = tex
+    built = s.build("cpu").skybox
+    assert built.dtype == torch.float32
+    np.testing.assert_array_equal(built.numpy(), tex)
+    scene, _, _ = TCONFIGS[3](skybox=tex)
+    np.testing.assert_array_equal(scene.build("cpu").skybox.numpy(), tex)
     for mode in ("auto", "gradient"):   # both are the gradient sky here
         assert TCONFIGS[3](skybox=mode)[0].skybox is None
 
@@ -181,16 +184,19 @@ def test_bad_material_index_is_refused():
 
 def test_auto_skybox_raises_when_the_reference_texture_exists(monkeypatch,
                                                               tmp_path):
-    """Config 3's "auto" loads the reference skybox texture in the JAX
-    package when it exists (SRT_REFERENCE_SKYBOX, else the reference
-    checkout's); the port cannot render it yet, so it raises instead of
-    quietly rendering the gradient.  Without the file it is the gradient
+    """Config 3's "auto" loads the reference skybox texture when it exists
+    (SRT_REFERENCE_SKYBOX, else the reference checkout's), as the JAX
+    package does; it raised before the texture's port, and now loads it
+    through the port's load_skybox.  Without the file it is the gradient
     sky, and "gradient" always is."""
-    tex = tmp_path / "skybox.png"
-    tex.write_bytes(b"\x89PNG\r\n")
+    from simple_raytracer_tpu_torch.io.image import save_hdr
+    tex = tmp_path / "skybox.hdr"
+    img = np.full((4, 8, 3), 0.5, np.float32)
+    img[0] = 2.0
+    save_hdr(tex, img)
     monkeypatch.setenv("SRT_REFERENCE_SKYBOX", str(tex))
-    with pytest.raises(NotImplementedError, match="skybox"):
-        TCONFIGS[3](skybox="auto")
+    np.testing.assert_array_equal(TCONFIGS[3](skybox="auto")[0].skybox,
+                                  img[::-1])
     assert TCONFIGS[3](skybox="gradient")[0].skybox is None
     monkeypatch.setenv("SRT_REFERENCE_SKYBOX", str(tmp_path / "missing.png"))
     assert TCONFIGS[3](skybox="auto")[0].skybox is None

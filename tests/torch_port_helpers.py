@@ -51,7 +51,27 @@ def jax_scene_arrays(ds) -> dict:
     for k in ("sun_color", "sun_direction", "horizon_color", "zenith_color",
               "ground_color"):
         out[f"sky.{k}"] = v3(getattr(ds.sky, k))
+    if ds.skybox is not None:
+        out["skybox"] = jax_skybox_image(ds.skybox)
     return out
+
+
+def jax_skybox_image(skybox) -> np.ndarray:
+    """A JAX DeviceScene's skybox as the (H, W, 3) f32 image it was built
+    from.  A quad-packed ``SkyboxTex`` is decoded from its anchor texels
+    (``quad[..., 0]``) with numpy, by the expressions ``pack_skybox_quad``
+    accepted it with, so the image comes back bit for bit."""
+    from simple_raytracer_tpu.io.image import _rgbe_to_float
+    from simple_raytracer_tpu.ops.scene_types import SkyboxTex
+    if not isinstance(skybox, SkyboxTex):
+        return np.stack([np.asarray(c) for c in skybox], axis=-1)
+    q = np.asarray(skybox.quad)[..., 0]
+    channels = np.stack([(q >> (8 * c)) & 0xFF for c in range(4)],
+                        axis=-1).astype(np.uint8)
+    if skybox.mode == "rgb8":
+        return np.power(channels[..., :3].astype(np.float32) / 255.0,
+                        np.float32(2.2), dtype=np.float32)
+    return _rgbe_to_float(channels)
 
 
 def unit_vectors(rng: np.random.Generator, n: int) -> np.ndarray:
