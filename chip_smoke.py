@@ -15,14 +15,22 @@ config 7's 1.31M triangles under "auto": streamed), the fused per-bounce
 path (config 7 under "fused": the streamed BVH variant and the per-bounce
 shade kernel, each bounce), the split path with the brute-force triangle
 kernel (configs 5 and 6 under "pallas") and with the dense PyTorch loop
-(config 4 under "jnp", no kernel).  Phases, one line each on stdout:
+(config 4 under "jnp", no kernel), and the BVH kernel's Plucker form
+(SRT_BVH_MT=plucker, set for the cell and restored after it: config 6
+"auto", two_level; config 7 "auto", streamed; config 6 clustered at
+Scene.cluster_size=256, streamed at K = 256, in both forms).  The
+lowering probes (simple_raytracer_tpu_torch/scripts/probe_kernel_ops.py)
+are a path of their own.  Phases, one line each on stdout:
   1. the card's name and power limit (nvidia-smi), and whether PIL (the
      8-bit skybox loader's dependency) is installed;
-  2. the build of the four kernels, one nvcc each, started together;
+  2. the build of the five kernel sources, one nvcc each, started
+     together;
   3. the main paths: each cell at its preset size through
      Renderer(device="cuda"), 4 progressive steps, with every kernel's
      launch counts (in all and per variant) reset just before and read
-     just after the cell; the scene build's seconds (once per scene);
+     just after the cell; the scene build's seconds (once per scene) and
+     the Plucker coefficient table's; then the probes' run(), its counts
+     reset just before it;
   4. each kernel against its plain PyTorch version on the card, one pass
      of each cell at full size: the whole-trace canvas (config 6 under
      "fused": a full-width band of rows, the plain version being a dense
@@ -35,25 +43,38 @@ kernel (configs 5 and 6 under "pallas") and with the dense PyTorch loop
      gate against a gate-free dense Moller-Trumbore over every triangle,
      on every launch of a pass of one full-width band of rows; and the
      nine rows of configs 2, 3 and 4 with the texture at the golden size;
+     config 7 "fused" under the Plucker form, every BVH launch against the
+     plain version; each Plucker launch replayed in the MT form (a report:
+     winners changed, largest relative t difference) and, where it was
+     compacted, without compaction against the plain version (the first
+     such launch of a pass); the probes'
+     outputs against their plain versions;
   5. the golden-size renders (tests/test_golden.py) against
      tests/goldens/config{1..6}.npz (config 6 also under "fused" and
-     "pallas", config 5 under "pallas", config 4 under "jnp"; config 7 has
-     none); a 1,025-sphere scene (tables above 48 KB of shared memory)
+     "pallas", in the Plucker form, and at cluster_size=256 in both forms,
+     config 5 under "pallas" and at cluster_size=256 (the whole-trace
+     kernel), config 4 under "jnp"; config 7 has none); a 1,025-sphere
+     scene (tables above 48 KB of shared memory)
      against the plain version; benchmark_step leaves the canvas and step
      count as they were;
   6. timings with CUDA events, and each kernel's bound (and the texture's
      sample beside the nine-row kernel); benchmark_step of configs 6 and 7
-     under "auto" and "fused" side by side;
-  7. where a Renderer.step's time goes (torch.profiler).
+     under "auto" and "fused" side by side; the BVH kernel's Plucker form
+     against its MT form on the same launches, in turns; the probes' time
+     per call and per loop iteration;
+  7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
+     a per-bounce cell).
 Then one JSON line per the kernel table, the card line again, and the
 last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
 before the last line.  Without CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -85,6 +106,7 @@ from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
 from simple_raytracer_tpu_torch.ops.trace import add_sky, trace_rays
 from simple_raytracer_tpu_torch.ops.triangle import intersect_packed_plain
 from simple_raytracer_tpu_torch.ops.vec import Vec3
+from simple_raytracer_tpu_torch.scripts import probe_kernel_ops as probe
 
 STEPS = 4                      # progressive steps on the main path
 KWARGS = {3: {"skybox": "gradient"}}        # as tests/test_golden.py
@@ -103,9 +125,19 @@ CELLS = {"1": (1, "auto", "none", None), "2": (2, "auto", "none", None),
          "6/texture": (6, "auto", "two_level", "ldr"),
          "5/pallas": (5, "pallas", "triangle", None),
          "6/pallas": (6, "pallas", "triangle", None),
-         "4/jnp": (4, "jnp", None, None)}
+         "4/jnp": (4, "jnp", None, None),
+         "6/plucker": (6, "auto", "two_level/plucker", None),
+         "7/plucker": (7, "auto", "streamed/plucker", None),
+         "6/k256": (6, "auto", "streamed", None),
+         "6/k256/plucker": (6, "auto", "streamed/plucker", None)}
+# the MT form of each cell (SRT_BVH_MT, "mt" where not listed) and the
+# scene's Scene.cluster_size (None: the automatic rule)
+FORMS = {"6/plucker": "plucker", "7/plucker": "plucker",
+         "6/k256/plucker": "plucker"}
+CLUSTER_SIZES = {"6/k256": 256, "6/k256/plucker": 256, "5/k256": 256}
 # the cells of the split per-bounce path with the BVH kernel
-SPLIT = ("6", "5/bvh", "7", "6/texture")
+SPLIT = ("6", "5/bvh", "7", "6/texture", "6/plucker", "7/plucker", "6/k256",
+         "6/k256/plucker")
 FUSED = ("7/fused",)           # the cells of the fused per-bounce path
 PALLAS = ("5/pallas", "6/pallas")   # the split path, the triangle kernel
 DENSE = ("4/jnp",)             # the split path, the dense PyTorch loop
@@ -117,7 +149,11 @@ GATE_CELLS = ("6", "5/bvh")
 BAND_CELLS = ("6/fused", "6/pallas")
 # benchmark_step iterations (and profiled steps) of the slow cells; 20
 # for the others
-ITERS = {"7": 5, "7/fused": 5, "6/pallas": 1, "4/jnp": 1}
+ITERS = {"7": 5, "7/fused": 5, "6/pallas": 1, "4/jnp": 1, "7/plucker": 5,
+         "6/plucker": 10, "6/k256": 10, "6/k256/plucker": 10}
+# profiled steps (phase 7) of a per-bounce cell, at most: the profiler's
+# own cost per event dominates their hundreds of launches a step
+PROFILE_STEPS = 5
 # the environment textures, at the reference skybox's size (2048 x 1024):
 # "rgbe" an HDR image written with save_hdr and read back with
 # load_skybox, "ldr" 8-bit values linearized as (u8 / 255)^2.2
@@ -126,7 +162,12 @@ TEXTURE_SEED = 0
 GOLDEN_SIZES = {"1": (64, 64), "2": (96, 54), "3": (96, 54), "4": (96, 54),
                 "5": (96, 54), "6": (64, 36), "5/bvh": (96, 54),
                 "6/fused": (64, 36), "5/pallas": (96, 54),
-                "6/pallas": (64, 36), "4/jnp": (96, 54)}
+                "6/pallas": (64, 36), "4/jnp": (96, 54),
+                "6/plucker": (64, 36), "6/k256": (64, 36),
+                "6/k256/plucker": (64, 36), "5/k256": (96, 54)}
+# golden renders that are no cell: label -> (config, tri_backend, the
+# whole-trace variant it must take); cluster_size from CLUSTER_SIZES
+GOLDEN_ONLY = {"5/k256": (5, "auto", "clustered")}
 GOLDEN_STEPS, GOLDEN_TIME0 = 2, 1000
 GOLDEN_RMSE = 2e-3             # tests/test_golden.py's bound
 # Kernel vs plain version: the kernels repeat the plain versions' float
@@ -147,9 +188,11 @@ BAND_ROWS = 16                 # the band of the gate and band checks
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 FP32_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# the kernel rows of the JSON line: (name, kernel, TPU kernel, the cell
-# timed, the cells whose launches it counts, the variant counted (None:
-# every variant))
+PROBE_CALLS = 100              # probe launches timed per probe
+# the kernel rows of the JSON line: (name, kernel, TPU kernel (under
+# simple_raytracer_tpu/ops/pallas/ unless a path), the cell timed, the
+# cells whose launches it counts, the variants counted (None: every
+# variant))
 WHOLE = ("1", "2", "3", "4", "5", "6/fused")
 ALL = tuple(CELLS)
 ROWS = (
@@ -164,19 +207,54 @@ ROWS = (
     ("bvh_flat", "bvh", "bvh_kernel.py:201", "5/bvh", ALL, "flat"),
     ("bvh_two_level", "bvh", "bvh_kernel.py:1040", "6", ALL, "two_level"),
     ("bvh_streamed", "bvh", "bvh_kernel.py:678", "7", ALL, "streamed"),
+    ("bvh_plucker", "bvh", "bvh_kernel.py:629", "6/plucker", ALL,
+     ("two_level/plucker", "streamed/plucker")),
     ("bounce_kernel", "bounce", "bounce_kernel.py:584", "7/fused", ALL,
      "bounce"),
     ("triangle_kernel", "triangle", "triangle_kernel.py:34", "5/pallas", ALL,
      "triangle"),
+    ("probe_column_sum", "probe", "scripts/probe_kernel_ops.py:18",
+     "probe/A", ("probes",), "A"),
+    ("probe_scalar_sum", "probe", "scripts/probe_kernel_ops.py:29",
+     "probe/B", ("probes",), "B"),
+    ("probe_gated_loop", "probe", "scripts/probe_kernel_ops.py:38",
+     "probe/C", ("probes",), "C"),
 )
 SOURCES = {"trace": "trace_kernel.cu", "bvh": "bvh_kernel.cu",
-           "bounce": "bounce_kernel.cu", "triangle": "triangle_kernel.cu"}
+           "bounce": "bounce_kernel.cu", "triangle": "triangle_kernel.cu",
+           "probe": "probe_kernel.cu"}
 KERNELS = {"trace": tk.KERNEL, "bvh": bk.KERNEL, "bounce": sk.KERNEL,
-           "triangle": trk.KERNEL}
+           "triangle": trk.KERNEL, "probe": probe.KERNEL}
+
+
+@contextlib.contextmanager
+def form_env(label: str):
+    """SRT_BVH_MT set to the cell's MT form, restored after."""
+    saved = os.environ.get("SRT_BVH_MT")
+    os.environ["SRT_BVH_MT"] = FORMS.get(label, "mt")
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["SRT_BVH_MT"]
+        else:
+            os.environ["SRT_BVH_MT"] = saved
+
+
+def in_form(renderers: dict):
+    """The cells' (label, (renderer, camera)), each with SRT_BVH_MT set
+    to its MT form while the caller's loop body runs."""
+    for label, cell in renderers.items():
+        with form_env(label):
+            yield label, cell
+
+
+T0 = time.perf_counter()
 
 
 def say(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the report, with the script's seconds so far."""
+    print(f"{msg}  (+{time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -223,8 +301,8 @@ def trace_args(renderer: Renderer, camera, time_seed: int) -> tuple:
 
 
 def build_kernels() -> str:
-    """Build the four kernels at once (one nvcc each) and report ptxas's
-    registers and spills per variant."""
+    """Build the five kernel sources at once (one nvcc each) and report
+    ptxas's registers and spills per variant."""
     errors = []
 
     def build(kernel):
@@ -245,14 +323,19 @@ def build_kernels() -> str:
     for kernel, entry, names in ((tk.KERNEL, "trace_kernel", tk.TRI_MODES),
                                  (bk.KERNEL, "bvh_kernel", bk.VARIANTS),
                                  (sk.KERNEL, "bounce_kernel", {}),
-                                 (trk.KERNEL, "triangle_kernel", {})):
+                                 (trk.KERNEL, "triangle_kernel", {}),
+                                 (probe.KERNEL,
+                                  "(?:column_sum|scalar_sum|gated_loop)",
+                                  {})):
         # ptxas reports each entry (template instance) after its name
         modes = {str(v): k for k, v in names.items()}
         variant = None
         for line in kernel.build_log.splitlines():
-            m = re.search(rf"entry function '.*{entry}(?:ILi(\d)E)?", line)
+            m = re.search(rf"entry function '.*?({entry})(?:ILi(\d)E"
+                          rf"(Lb1E)?)?", line)
             if m:
-                variant = modes.get(m.group(1), m.group(1) or entry)
+                variant = (modes.get(m.group(2), m.group(2) or m.group(1))
+                           + ("/plucker" if m.group(3) else ""))
             elif "registers" in line or "spill" in line:
                 parts.append(f"{variant}: "
                              + line.split("ptxas info    : ")[-1].strip())
@@ -266,6 +349,8 @@ RAYGEN_FLOPS = 42          # 2 uniforms, NDC, screen, rotate, normalize
 SPHERE_FLOPS = 21          # one sphere test
 PLANE_FLOPS = 14           # one plane test
 MT_FLOPS = 46              # one Moller-Trumbore test (mt_update)
+PLUCKER_FLOPS = 38         # one Plucker-form test (plucker_slot)
+PLUCKER_RAY_FLOPS = 9      # a walked ray's m = o x d (the Plucker form)
 SLAB_FLOPS = 24            # one box's slab test, without the margin
 INV_DIR_FLOPS = 3          # the reciprocal direction of the traversal
 SHADE_FLOPS = 30           # position, normal, front flip, emission
@@ -275,6 +360,7 @@ SKY_FLOPS = 54             # the gradient sky and the final add
 RAY_IN_BYTES = 32          # a walked ray in: o, d, alive, t_init
 HIT_OUT_BYTES = 8          # (t, slot) out, for every ray
 SLOT_BYTES = 40 + 4        # a slot's MT columns (v0, e1, e2, active), index
+PLUCKER_SLOT_BYTES = 80 + 4   # a slot's Plucker coefficients, index
 BOX_BYTES = 32             # a box row of the hierarchy
 # the shade kernel: 20 state rows in and out, the winner's (t, slot) in
 BOUNCE_RAY_BYTES = (20 + 20 + 2) * 4
@@ -287,6 +373,8 @@ TRI_COL_BYTES = 40
 # the nine rows in and the radiance out per ray, the texture once
 SAMPLE_FLOPS = 96
 SAMPLE_RAY_BYTES = 36 + 12
+# a probe: the (512, 128) f32 array read once and written once
+PROBE_BYTES = 2 * probe.ROWS * probe.COLS * 4
 
 
 def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
@@ -365,14 +453,17 @@ def canvas_diff(k: torch.Tensor, p: torch.Tensor, s: int):
 
 def plain_bvh(o, d, alive, t_init, clusters, table, compact=False,
               force_streamed=False):
-    """The BVH kernel's wrapper with its plain version on the card."""
+    """The BVH kernel's wrapper with its plain version on the card, in the
+    MT form the wrapper resolves."""
+    form = ("plucker" if bvh.resolve_plucker(
+        clusters, bk.bvh_variant(clusters, force_streamed)) else "mt")
     if compact:
         order, count = bvh.compact_order(o, d, alive, t_init,
                                          clusters.hierarchy.admission)
         return bvh.intersect_compacted_plain(o, d, alive, t_init, clusters,
-                                             table, order, int(count))
+                                             table, order, int(count), form)
     return bvh.intersect_triangles_bvh_plain(o, d, alive, t_init, clusters,
-                                             table)
+                                             table, form)
 
 
 def plain_bounce(state, is_last, scene, tri=None, tables=None):
@@ -465,18 +556,21 @@ def admitted(o_, d_, walked, t_final, clusters) -> tuple:
             int(torch.unique(opened // bvh.SUPER).numel()))
 
 
-def check_bvh_launches(label: str, recorded, clusters, table):
-    """Every recorded BVH launch against its plain version on the same
-    rays: (t, slot) equal on every live ray.  Returns (max |dt|, work per
-    launch (walked rays, rays, compacted, ``admitted``'s four counts),
-    plain seconds, one report per launch)."""
+def check_bvh_launches(label: str, recorded, clusters, table,
+                       count_work: bool = True):
+    """Every recorded BVH launch against its plain version, in the
+    launch's MT form, on the same rays: (t, slot) equal on every live ray.
+    Returns (max |dt|, work per launch (walked rays, rays, compacted,
+    ``admitted``'s four counts; not counted without ``count_work``), plain
+    seconds, one report per launch)."""
     max_abs, work, plain_s, lines = 0.0, [], 0.0, []
     for b, (prep, (t_k, s_k)) in enumerate(recorded):
         o_, d_, alive, t_init = bvh_inputs(prep)
+        form = "plucker" if prep.params.plucker else "mt"
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         t_p, s_p = bvh.intersect_triangles_bvh_plain(o_, d_, alive, t_init,
-                                                     clusters, table)
+                                                     clusters, table, form)
         torch.cuda.synchronize()
         plain_s += time.perf_counter() - t1
         live = alive > 0
@@ -495,13 +589,16 @@ def check_bvh_launches(label: str, recorded, clusters, table):
                 0, prep.perm[:int(prep.count)].long(), True)
         walked = int(walk.sum())
         tri_hits = int((s_k[live] >= 0).sum())
-        opened = admitted(o_, d_, walk, torch.where(s_k >= 0, t_k, t_init),
-                          clusters)
-        work.append((walked, prep.params.n_rays, compact) + opened)
-        lines.append(f"b{b}: live {int(live.sum())} "
+        opened = ""
+        if count_work:
+            counts = admitted(o_, d_, walk, torch.where(s_k >= 0, t_k,
+                                                        t_init), clusters)
+            work.append((walked, prep.params.n_rays, compact) + counts)
+            opened = f", clusters opened {counts[2]}"
+        lines.append(f"b{b} {prep.label}: live {int(live.sum())} "
                      f"{'compact' if compact else 'dense'}, walked "
-                     f"{walked}, triangle hits {tri_hits}, clusters opened "
-                     f"{opened[2]}, slot diff {slot_diff}, max|dt| {m:.3e}")
+                     f"{walked}, triangle hits {tri_hits}{opened}, slot diff "
+                     f"{slot_diff}, max|dt| {m:.3e}")
         if slot_diff or m != 0.0 or not t_same:
             fail(f"cell {label} bounce {b}: the BVH kernel's (t, slot) "
                  f"differ from the plain version on {slot_diff} live "
@@ -650,7 +747,7 @@ def sphere_scene() -> Scene:
     return s
 
 
-def bvh_bound(clusters, work) -> tuple:
+def bvh_bound(clusters, work, plucker: bool = False) -> tuple:
     """(FLOP, bytes) the least a pass's BVH launches need, from what each
     launch's walked rays open (``admitted``): each walked ray slab-tests
     the hierarchy's root boxes, and runs MT over the real slots of every
@@ -658,16 +755,21 @@ def bvh_bound(clusters, work) -> tuple:
     (t, slot) written once; a ray not walked costs its alive flag (dense)
     or, compacted, every ray its order index.  A launch reads the root
     boxes, the boxes of the opened clusters and of their supers, and the
-    opened clusters' MT columns and slot indices once."""
+    opened clusters' MT columns (``plucker``: Plucker coefficients) and
+    slot indices once.  The Plucker form also costs each walked ray its
+    moment m = o x d."""
     roots = int((clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
+    pair_flops, slot_bytes = ((PLUCKER_FLOPS, PLUCKER_SLOT_BYTES) if plucker
+                              else (MT_FLOPS, SLOT_BYTES))
+    ray_flops = INV_DIR_FLOPS + (PLUCKER_RAY_FLOPS if plucker else 0)
     flops = nbytes = 0
     for walked, n, compact, pair_slots, slots, opened, supers in work:
-        flops += (walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
-                  + pair_slots * MT_FLOPS)
+        flops += (walked * (roots * SLAB_FLOPS + ray_flops)
+                  + pair_slots * pair_flops)
         nbytes += (walked * RAY_IN_BYTES + n * HIT_OUT_BYTES
                    + 4 * (n if compact else n - walked))
         if walked:
-            nbytes += (slots * SLOT_BYTES
+            nbytes += (slots * slot_bytes
                        + (roots + supers + opened) * BOX_BYTES)
     return float(flops), float(nbytes), roots
 
@@ -695,7 +797,7 @@ def unstaged(preps, outs, staged_ms: float) -> str:
     for pp, (t, s) in zip(preps, outs):
         q = pp.params
         params = bk.BvhParams(q.n_rays, q.n_order, q.n_clusters, q.k,
-                              bk.VARIANTS["two_level"])
+                              bk.VARIANTS["two_level"], q.plucker)
         alt.append((dataclasses.replace(pp, variant="two_level",
                                         params=params),
                     (torch.empty_like(t), torch.empty_like(s))))
@@ -707,6 +809,87 @@ def unstaged(preps, outs, staged_ms: float) -> str:
         fail("the streamed and two_level variants disagree")
     return (f"the same launches on two_level (no staging) {ms:.4f} ms/pass, "
             f"streamed / two_level {staged_ms / ms:.3f}, results equal")
+
+
+def as_mt(prep):
+    """A recorded BVH launch in the MT form: the same rays, gates and
+    variant; only the slot test differs."""
+    q = prep.params
+    params = bk.BvhParams(q.n_rays, q.n_order, q.n_clusters, q.k, q.variant,
+                          0)
+    return dataclasses.replace(prep, params=params, coeffs=None)
+
+
+def form_report(recorded) -> tuple:
+    """Each recorded Plucker launch replayed in the MT form on the card:
+    (live rays whose winning slot changed, largest relative t difference
+    over the live rays both forms hit, live rays).  A report, not a
+    gate: the two forms round differently."""
+    changed, rel, live_n = 0, 0.0, 0
+    for prep, (t_p, s_p) in recorded:
+        t_m, s_m = bk.launch(as_mt(prep))
+        live = prep.rays[6] > 0
+        live_n += int(live.sum())
+        changed += int((s_p[live] != s_m[live]).sum())
+        both = live & (s_p >= 0) & (s_m >= 0)
+        if both.any():
+            rel = max(rel, float(((t_p[both] - t_m[both]).abs()
+                                  / t_m[both].abs()).max()))
+    return changed, rel, live_n
+
+
+def dense_replay(label: str, recorded, clusters, table) -> str:
+    """A pass's first compacted launch replayed without compaction (every
+    live ray walked), against the plain version: (t, slot) equal on every
+    live ray."""
+    for b, (prep, _) in enumerate(recorded):
+        if prep.perm is None:
+            continue
+        dense = dataclasses.replace(prep, perm=None, count=None)
+        t_k, s_k = bk.launch(dense)
+        o_, d_, alive, t_init = bvh_inputs(prep)
+        t_p, s_p = bvh.intersect_triangles_bvh_plain(
+            o_, d_, alive, t_init, clusters, table,
+            "plucker" if prep.params.plucker else "mt")
+        live = alive > 0
+        if not (torch.equal(s_k[live], s_p[live])
+                and torch.equal(t_k[live], t_p[live])):
+            fail(f"cell {label}: a dense replay of a compacted launch "
+                 "differs from the plain version")
+        return (f"b{b} replayed dense ({int(live.sum())} live rays): "
+                "(t, slot) equal to the plain version")
+    return "no compacted launch"
+
+
+def form_ab(preps, outs) -> tuple:
+    """ms per pass of the recorded Plucker launches and of the same
+    launches in the MT form, timed in turns (Plucker, MT, MT, Plucker,
+    ...); each a list of batch medians."""
+    alt = [as_mt(pp) for pp in preps]
+    run = lambda ps: cuda_ms(lambda: [bk.launch(q, o)
+                                      for q, o in zip(ps, outs)],
+                             iters=3, repeats=1, warmup=1)[0]
+    pl_ms, mt_ms = [], []
+    for turn in ((preps, alt), (alt, preps)) * 2:
+        for ps in turn:
+            (pl_ms if ps is preps else mt_ms).append(run(ps))
+    return pl_ms, mt_ms
+
+
+def plucker_checks(label: str, recorded, clusters, table, card: str):
+    """A Plucker cell's launches beyond the check against the plain
+    version: every one took the form, the first compacted one replayed
+    dense against the plain version, and each replayed in the MT form (a
+    report)."""
+    labels = {prep.label for prep, _ in recorded}
+    if not all(prep.params.plucker for prep, _ in recorded):
+        fail(f"cell {label}: launches {labels} outside the Plucker form")
+    dense = dense_replay(label, recorded, clusters, table)
+    changed, rel, live = form_report(recorded)
+    say(f"[4] cell {label} ({', '.join(sorted(labels))}): {dense}; the same "
+        f"launches in the MT form: {changed} of {live} live rays changed "
+        f"winner, largest relative t difference {rel:.3e} (a report, not a "
+        f"gate)  [{card}]")
 
 
 def brute_force_cell(label: str, r: Renderer, camera, card: str) -> dict:
@@ -770,7 +953,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ptxas = build_kernels()
-    say(f"[2] build: {time.perf_counter() - t0:.2f} s for the four kernels "
+    say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
+        "sources "
         f"(nvcc sm_90a, ctypes; "
         + ", ".join(f"{SOURCES[kind]} {k.build_seconds:.2f} s"
                     for kind, k in KERNELS.items())
@@ -788,8 +972,11 @@ def main() -> int:
     scenes, renderers = {}, {}
     for label in CELLS:
         n, backend, _, sky = CELLS[label]
-        if (n, sky) not in scenes:
-            # one scene build per config and environment, shared by cells
+        k_forced = CLUSTER_SIZES.get(label)
+        key = (n, sky, k_forced)
+        if key not in scenes:
+            # one scene build per config, environment and cluster size,
+            # shared by cells
             t0 = time.perf_counter()
             kw = dict(KWARGS.get(n, {}))
             if sky is not None and n == 3:
@@ -797,15 +984,17 @@ def main() -> int:
             scene, camera, options = CONFIGS[n](**kw)
             if sky is not None:
                 scene.skybox = textures[sky]
+            scene.cluster_size = k_forced
             t1 = time.perf_counter()
             ds = scene.build("cuda")
             torch.cuda.synchronize()
-            scenes[n, sky] = (ds, camera, options, t1 - t0,
-                              time.perf_counter() - t1)
+            scenes[key] = (ds, camera, options, t1 - t0,
+                           time.perf_counter() - t1)
             tris = ds.triangles
-            say(f"[3] config {n}{'' if sky is None else ' with ' + sky}: "
-                f"preset {t1 - t0:.3f} s (its procedural mesh), build "
-                f"{scenes[n, sky][4]:.3f} s (clusters, tables, upload): "
+            say(f"[3] config {n}{'' if sky is None else ' with ' + sky}"
+                + ("" if k_forced is None else f", cluster_size={k_forced}")
+                + f": preset {t1 - t0:.3f} s (its procedural mesh), build "
+                f"{scenes[key][4]:.3f} s (clusters, tables, upload): "
                 f"{int(tris.active.sum())} triangles"
                 + (f", {tris.clusters.slots.shape[0]} clusters of "
                    f"{tris.clusters.k} ({tris.clusters.slots.numel()} slots"
@@ -813,15 +1002,25 @@ def main() -> int:
                    if tris.clusters is not None else "")
                 + ("" if ds.skybox is None else
                    f"; texture {tuple(ds.skybox.shape)} on {ds.skybox.device}"))
-        ds, camera, options, _, _ = scenes[n, sky]
+        ds, camera, options, _, _ = scenes[key]
         r = Renderer(dataclasses.replace(options, tri_backend=backend),
                      device="cuda")
         r.set_device_scene(ds)
         renderers[label] = (r, camera)
     totals = {}
-    for label, (r, camera) in renderers.items():
+    for label, (r, camera) in in_form(renderers):
         want_variant = CELLS[label][2]
         o = r.options
+        cl = r.device_scene.triangles.clusters
+        if FORMS.get(label) == "plucker" and "plucker" not in cl.cache:
+            # the coefficient table, built once per scene on first use
+            t0 = time.perf_counter()
+            coeffs = bvh.plucker_coefficients(cl, r.device_scene.triangles
+                                              .table)
+            torch.cuda.synchronize()
+            say(f"[3] cell {label}: the Plucker coefficient table "
+                f"{tuple(coeffs.shape)} ({coeffs.numel() * 4 / 1e6:.1f} MB) "
+                f"built in {time.perf_counter() - t0:.4f} s  [{card}]")
         for kernel in KERNELS.values():
             kernel.reset_counts()
         for _ in range(STEPS):
@@ -857,11 +1056,27 @@ def main() -> int:
             fail(f"cell {label}: image {img.shape} {img.dtype}")
         if img.min() == img.max():
             fail(f"cell {label}: constant image")
+    # the probes' own path: their run(), counts reset just before it
+    for kernel in KERNELS.values():
+        kernel.reset_counts()
+    probes = probe.run(calls=PROBE_CALLS)
+    torch.cuda.synchronize()
+    got = {kind: dict(k.variant_launches) for kind, k in KERNELS.items()}
+    n_probe = 1 + 3 + PROBE_CALLS          # run(): check, warm-up, timed
+    want = {kind: {} for kind in KERNELS}
+    want["probe"] = {name: n_probe for name in probe.PROBES}
+    totals["probes"] = got
+    say(f"[3] probes (probe_kernel_ops.run): launches {got} (want {want}); "
+        + "; ".join(f"{name} value[0,0]={res['value']:.1f} equal to plain="
+                    f"{res['equal']}" for name, res in probes.items())
+        + f"  [{card}]")
+    if got != want:
+        fail(f"probes: launches {got}, want {want}")
     say(f"[3] launches per cell: {totals}")
 
     # ---- 4: kernels vs plain versions, full size, one pass ----
     results = {}
-    for label, (r, camera) in renderers.items():
+    for label, (r, camera) in in_form(renderers):
         s = r.options.num_samples
         backend = r.options.tri_backend
         ds = r.device_scene
@@ -971,6 +1186,38 @@ def main() -> int:
                 f"lacks  [{card}]")
             if extra:
                 fail(f"cell {label}: {extra} BVH hits that no triangle gives")
+        if FORMS.get(label) == "plucker":
+            plucker_checks(label, rec.bvh, cl, table, card)
+    # config 7 under "fused" in the Plucker form: every BVH launch of a
+    # pass against the plain version, and the split path's canvas
+    r, camera = renderers["7/fused"]
+    with form_env("7/plucker"):
+        k, rec = per_bounce_pass(r, camera, 4242)
+        torch.cuda.synchronize()
+        tris = r.device_scene.triangles
+        _, _, plain_s, lines = check_bvh_launches(
+            "7/fused/plucker", rec.bvh, tris.clusters, tris.table,
+            count_work=False)
+        same = bool(torch.equal(k, results["7/plucker"]["canvas"]))
+        say(f"[4] cell 7/fused in the Plucker form, BVH kernel vs plain, "
+            f"every launch of one full pass: {'; '.join(lines)}; canvas vs "
+            f"cell 7/plucker (the split path, the same rays) bit-identical="
+            f"{same}; plain BVH {plain_s:.2f} s/pass  [{card}]")
+        plucker_checks("7/fused/plucker", rec.bvh, tris.clusters, tris.table,
+                       card)
+    # the probes' outputs against their plain versions
+    x = torch.ones((probe.ROWS, probe.COLS), device="cuda")
+    outs = {name: probe.launch(name, x, torch.empty_like(x))
+            for name in probe.PROBES}
+    equal = {name: bool(torch.equal(out, probe.probe_plain(name, x)))
+             for name, out in outs.items()}
+    probe_err = {name: float((out - probe.probe_plain(name, x)).abs().max())
+                 for name, out in outs.items()}
+    say(f"[4] probes vs plain (torch.full_like(x, x.sum()) for A and B, "
+        f"zeros for C) on the (512, 128) ones: equal {equal}  [{card}]")
+    if not (all(equal.values()) and all(res["equal"]
+                                        for res in probes.values())):
+        fail(f"probes: outputs differ from the plain versions: {equal}")
     # the nine-row form of every triangle variant at the golden size
     for n in (2, 3, 4):
         w, h = GOLDEN_SIZES[str(n)]
@@ -995,21 +1242,36 @@ def main() -> int:
 
     # ---- 5: goldens, the 1,025-sphere scene, benchmark_step's state ----
     for label, (w, h) in GOLDEN_SIZES.items():
-        n, backend, _, _ = CELLS[label]
+        n, backend, variant = (GOLDEN_ONLY[label] if label in GOLDEN_ONLY
+                               else CELLS[label][:3])
         scene, camera, options = CONFIGS[n](width=w, height=h,
                                             **KWARGS.get(n, {}))
-        r = Renderer(RenderOptions(width=w, height=h,
-                                   num_samples=options.num_samples,
-                                   num_bounces=options.num_bounces,
-                                   tri_backend=backend),
-                     scene, device="cuda")
-        for i in range(GOLDEN_STEPS):
-            r.step(camera, time=GOLDEN_TIME0 + i)
+        scene.cluster_size = CLUSTER_SIZES.get(label)
+        with form_env(label):
+            r = Renderer(RenderOptions(width=w, height=h,
+                                       num_samples=options.num_samples,
+                                       num_bounces=options.num_bounces,
+                                       tri_backend=backend),
+                         scene, device="cuda")
+            for kernel in KERNELS.values():
+                kernel.reset_counts()
+            for i in range(GOLDEN_STEPS):
+                r.step(camera, time=GOLDEN_TIME0 + i)
+            torch.cuda.synchronize()
+        # the route the new goldens must take
+        route = ""
+        if label in GOLDEN_ONLY or label in FORMS or label in CLUSTER_SIZES:
+            kind = "bvh" if label in SPLIT else "trace"
+            route = dict(KERNELS[kind].variant_launches)
+            if set(route) != {variant}:
+                fail(f"golden {label}: launches {route}, want {variant}")
+            route = (f" (K={r.device_scene.triangles.clusters.k}, "
+                     f"launches {route})")
         canvas = r.canvas.cpu().numpy()
         golden = np.load(f"tests/goldens/config{n}.npz")["canvas"]
         rmse = float(np.sqrt(np.mean((canvas - golden) ** 2)))
-        say(f"[5] cell {label} {w}x{h} vs tests/goldens/config{n}.npz: "
-            f"rmse={rmse:.3e} (bound {GOLDEN_RMSE})")
+        say(f"[5] cell {label} {w}x{h}{route} vs tests/goldens/config{n}.npz"
+            f": rmse={rmse:.3e} (bound {GOLDEN_RMSE})")
         if canvas.shape != golden.shape or not np.isfinite(canvas).all() \
                 or not rmse < GOLDEN_RMSE:
             fail(f"cell {label}: golden rmse {rmse}")
@@ -1050,8 +1312,8 @@ def main() -> int:
         fail("benchmark_step changed the accumulation state")
 
     # ---- 6: timings ----
-    timing, steps_ms = {}, {}
-    for label, (r, camera) in renderers.items():
+    timing, steps_ms, ab = {}, {}, {}
+    for label, (r, camera) in in_form(renderers):
         res = results[label]
         o = r.options
         ds = r.device_scene
@@ -1097,7 +1359,8 @@ def main() -> int:
             b_all = cuda_ms(lambda: [bk.launch(pp, oo)
                                      for pp, oo in zip(preps, outs)], iters=5)
             b_ms = float(np.median(b_all))
-            flops, nbytes, roots = bvh_bound(cl, res["work"])
+            plucker = FORMS.get(label) == "plucker"
+            flops, nbytes, roots = bvh_bound(cl, res["work"], plucker)
             b_bound = max(flops / FP32_PEAK, nbytes / HBM_BYTES_PER_S) * 1e3
             walk_note = (f"{len(preps)} launches; walked rays per launch "
                          f"{[w[0] for w in res['work']]}, clusters opened "
@@ -1125,6 +1388,14 @@ def main() -> int:
                 work = walk_note
                 if CELLS[label][2] == "streamed":
                     work += "; " + unstaged(preps, outs, b_ms)
+                if plucker:
+                    pl_ms, mt_ms = form_ab(preps, outs)
+                    ab[label] = (float(np.median(pl_ms)),
+                                 float(np.median(mt_ms)))
+                    work += (f"; the same launches in the MT form, in turns "
+                             f"(Plucker {[round(v, 4) for v in pl_ms]}, MT "
+                             f"{[round(v, 4) for v in mt_ms]} ms): Plucker / "
+                             f"MT {ab[label][0] / ab[label][1]:.3f}")
                 timing[label] = ("bvh", res["max_abs"])
             k_ms = float(np.median(k_all))
         else:
@@ -1205,18 +1476,48 @@ def main() -> int:
             for n in (6, 7)]
     say(f"[6] benchmark_step, tri_backend auto against fused: "
         f"{'; '.join(side)}  [{card}]")
+    side = [f"{mt}: MT {timing[mt][2]:.4f} ms, {pl}: Plucker "
+            f"{timing[pl][2]:.4f} ms (Plucker / MT "
+            f"{timing[pl][2] / timing[mt][2]:.3f}; the Plucker cell's own "
+            f"launches in both forms, in turns: {ab[pl][0] / ab[pl][1]:.3f}"
+            f"); benchmark_step {steps_ms[mt]:.4f} against "
+            f"{steps_ms[pl]:.4f} ms"
+            for mt, pl in (("6", "6/plucker"), ("7", "7/plucker"),
+                           ("6/k256", "6/k256/plucker"))]
+    say(f"[6] BVH kernel per pass, the MT form against the Plucker form: "
+        f"{'; '.join(side)}  [{card}]")
+    # the probes: time per call and per loop iteration (phase 3's run),
+    # the plain versions on the same array
+    x = torch.ones((probe.ROWS, probe.COLS), device="cuda")
+    for name, (_, trips, what) in probe.PROBES.items():
+        res = probes[name]
+        k_ms = res["us_per_call"] / 1e3
+        p_ms = float(np.median(cuda_ms(lambda: probe.probe_plain(name, x),
+                                       iters=PROBE_CALLS)))
+        bound_ms = PROBE_BYTES / HBM_BYTES_PER_S * 1e3
+        timing[f"probe/{name}"] = ("probe", probe_err[name], k_ms, p_ms,
+                                   bound_ms, "bytes", None)
+        say(f"[6] probe {name} ({what}): {res['us_per_call']:.3f} us/call "
+            f"({PROBE_CALLS} calls), {res['us_per_iter']:.4f} us per loop "
+            f"iteration ({trips} a call); plain {p_ms * 1e3:.3f} us; bound "
+            f"{bound_ms * 1e3:.4f} us ({PROBE_BYTES} B / 3.35 TB/s), "
+            f"{bound_ms / k_ms * 100:.2f}% of it  [{card}]")
 
     # ---- 7: where a step's time goes ----
-    for label, (r, camera) in renderers.items():
+    for label, (r, camera) in in_form(renderers):
         iters = ITERS.get(label, 20)
-        say(f"[7] cell {label}: {step_breakdown(r, camera, iters)}  [{card}]")
+        if label in SPLIT + FUSED + PALLAS:
+            iters = min(iters, PROFILE_STEPS)
+        say(f"[7] cell {label}: {step_breakdown(r, camera, iters)}  "
+            f"[{card}]")
 
     entries = []
     for name, kind, line, cell, covered, variant in ROWS:
         _, max_abs, k_ms, p_ms, bound_ms, bound_by, o = timing[cell]
+        counted = (variant,) if isinstance(variant, str) else variant
         launches = sum(c for label in covered
                        for v, c in totals[label][kind].items()
-                       if variant is None or v == variant)
+                       if counted is None or v in counted)
         if kind == "trace":
             errs = [results[c]["max_abs"] for c in covered]
             max_abs = max(errs + [max_abs])
@@ -1225,15 +1526,21 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"simple_raytracer_tpu_torch/csrc/{SOURCES[kind]}",
-            "replaces": f"simple_raytracer_tpu/ops/pallas/{line}",
+            "replaces": (line if line.startswith("scripts/")
+                         else f"simple_raytracer_tpu/ops/pallas/{line}"),
             "launches": launches, "max_abs_err": max_abs,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "shape": f"config {CELLS[cell][0]} (tri_backend="
-                     f"{o.tri_backend}), {o.width}x{o.height}, "
-                     f"{o.num_samples} spp, {o.num_bounces} bounces"
-                     + (f"; plain_ms on {results[cell]['where']} only"
-                        if cell in BAND_CELLS else ""),
+            "shape": (f"({probe.ROWS}, {probe.COLS}) f32 ones, one thread "
+                      "block" if o is None else
+                      f"config {CELLS[cell][0]} (tri_backend="
+                      f"{o.tri_backend}"
+                      + (f", SRT_BVH_MT={FORMS[cell]}" if cell in FORMS
+                         else "")
+                      + f"), {o.width}x{o.height}, {o.num_samples} spp, "
+                      f"{o.num_bounces} bounces"
+                      + (f"; plain_ms on {results[cell]['where']} only"
+                         if cell in BAND_CELLS else "")),
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -6,7 +6,8 @@ each category to the same power-of-two buckets with inactive slots, so
 both packages hand their renderers identical arrays.  Mesh instances
 point into a shared triangle pool and are flattened to world space at
 build; a mesh of at least ``cluster_threshold`` triangles is reordered
-into BVH clusters (``accel.py``).  A texture skybox (``Scene.skybox``, an
+into BVH clusters (``accel.py``) of ``cluster_size`` slots, or of 64 or
+128 by the automatic rule.  A texture skybox (``Scene.skybox``, an
 (H, W, 3) f32 image, row 0 the bottom) is uploaded once per image object
 and device (``_build_skybox``).  Model files are a later slice and raise.
 """
@@ -57,15 +58,20 @@ def _padded_clusters(c_raw: int) -> int:
     return ((c_raw + 127) // 128) * 128
 
 
-def _clusters(pos: np.ndarray) -> accel.Clusters:
-    """BVH clusters of K = 64 triangles, or 128 when the padded K = 64
-    table would exceed TABLE_MAX_SLOTS; padding clusters (every box plane
-    at 3e38, no slots) fill the count up to _padded_clusters."""
+def _clusters(pos: np.ndarray, k: Optional[int] = None) -> accel.Clusters:
+    """BVH clusters of ``k`` triangles or, for None, of K = 64 triangles,
+    or 128 when the padded K = 64 table would exceed TABLE_MAX_SLOTS;
+    padding clusters (every box plane at 3e38, no slots) fill the count up
+    to _padded_clusters."""
     n = pos.shape[0]
-    k = 128 if n > TABLE_MAX_SLOTS else 64
-    cl = accel.build_clusters(pos, k=k)
-    if k == 64 and _padded_clusters(cl.slots.shape[0]) * 64 > TABLE_MAX_SLOTS:
-        cl = accel.build_clusters(pos, k=128)
+    if k:
+        cl = accel.build_clusters(pos, k=k)
+    else:
+        k = 128 if n > TABLE_MAX_SLOTS else 64
+        cl = accel.build_clusters(pos, k=k)
+        if (k == 64 and _padded_clusters(cl.slots.shape[0]) * 64
+                > TABLE_MAX_SLOTS):
+            cl = accel.build_clusters(pos, k=128)
     c_raw, k = cl.slots.shape
     c_cap = _padded_clusters(c_raw)
     pad_aabb = np.zeros((c_cap - c_raw, 8), np.float32)
@@ -84,6 +90,9 @@ class Scene:
     # meshes of at least this many triangles are BVH-clustered; smaller
     # ones are intersected densely
     cluster_threshold: int = 512
+    # slots per cluster: None for the automatic rule (64 while the padded
+    # table has at most TABLE_MAX_SLOTS slots, else 128); an int forces K
+    cluster_size: Optional[int] = None
 
     def __init__(self, default_material: bool = True):
         self.spheres: List[Sphere] = []
@@ -158,7 +167,7 @@ class Scene:
         n = pos.shape[0]
         out = {}
         if n >= self.cluster_threshold:
-            cl = _clusters(pos)
+            cl = _clusters(pos, self.cluster_size)
             pos, nrm, mat = pos[cl.order], nrm[cl.order], mat[cl.order]
             out["clusters.aabb"] = cl.aabb
             out["clusters.slots"] = cl.slots

@@ -16,16 +16,24 @@ on a box plane) counts as a hit.  There is no margin.
 
 ``intersect_triangles_bvh_plain`` is the plain version of the kernel: the
 slab test of every admitted (live ray, cluster) pair against the ray's
-``t_init``, Moller-Trumbore on every slot of every admitted cluster, and
-the commit rule of ``_mt_update``: the lexicographic least (t, global
-index) wins, seeded with (t_init, -1), so only triangle hits strictly
-closer than t_init are reported.  The pairs come through the hierarchy's
-gates, groups, then supers, then clusters, each the same closed slab
-test against t_init; a union box contains its members, so the coarse
-gates reject no pair the cluster's own test admits, and the result is
-that of testing every (ray, cluster) pair.  It is chunked, so config 7's
+``t_init``, Moller-Trumbore on every slot of every admitted cluster (in
+the broadcast form of ``_mt_update``, or under ``form="plucker"`` in the
+Plucker form of ``_mt_update_sub_mxu``), and the commit rule of
+``_mt_update``: the lexicographic least (t, global index) wins, seeded
+with (t_init, -1), so only triangle hits strictly closer than t_init are
+reported.  The pairs come through the hierarchy's gates, groups, then
+supers, then clusters, each the same closed slab test against t_init; a
+union box contains its members, so the coarse gates reject no pair the
+cluster's own test admits, and the result is that of testing every
+(ray, cluster) pair.  It is chunked, so config 7's
 11,008 clusters stay within memory.  It reports the winner's table slot,
 whose row the caller shades from.
+
+The Plucker form (``SRT_BVH_MT=plucker``, ``mt_form``) evaluates the
+same predicate from per-slot coefficients (``plucker_table``, built once
+per scene and cached on the clusters) dotted with the per-ray vector
+[d, o x d, o, 1]; ``resolve_plucker`` decides, by the JAX package's
+``_resolve_plucker`` rule, whether a launch takes it.
 
 ``compact_order`` is ``_compact_prefix`` with the "super" key: the rays
 sorted by the front-to-back rank of the first admission box they enter
@@ -36,6 +44,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import warnings
 from typing import Optional
 
 import torch
@@ -57,6 +67,12 @@ BLOCK_R = 1536       # the TPU wrapper's ray block, compact_cap_auto's unit
 # type (as triangle.TRI_CHUNK_ELEMS)
 PAIR_CHUNK_ELEMS = {"cpu": 2 ** 22, "cuda": 2 ** 26}
 _NO_KEY = 2 ** 62
+# a slot's Plucker coefficients (plucker_table): the nonzero entries of
+# the JAX package's LT planes, in its order
+PLUCKER_COLS = 20
+# the launches (or plain calls) that took the Plucker form, counted where
+# resolve_plucker grants it, as bvh_kernel._PLUCKER_TRACES counts traces
+PLUCKER_CALLS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,10 +141,64 @@ def table_streams_hbm(clusters) -> bool:
     if clusters.slots.numel() <= VMEM_TABLE_MAX_SLOTS:
         return False
     k = clusters.k
-    if not (k <= PACKET or k % PACKET == 0):
-        return True       # no packed table (Scene.build's table_tr rule)
+    if not packable(k):
+        return True       # no packed table
     packets = (k + PACKET - 1) // PACKET
     return clusters.slots.shape[0] * packets > PACKED_VMEM_MAX_CLUSTERS
+
+
+def packable(k: int) -> bool:
+    """Does the TPU pack a table of K-slot clusters into (24, 128) tiles
+    (Scene.build's table_tr rule)?"""
+    return k <= PACKET or k % PACKET == 0
+
+
+def mt_form() -> str:
+    """The Moller-Trumbore form SRT_BVH_MT asks for, read at each call
+    (bvh_kernel._mt_form): "plucker", or else "mt"."""
+    return ("plucker" if os.environ.get("SRT_BVH_MT", "mt") == "plucker"
+            else "mt")
+
+
+def _sub_box_rows(k: int) -> int:
+    """The slots per sub-box the JAX package would gate with, 0 for none:
+    SRT_BVH_SUBBOX set (maybe_sub_aabb), sub-boxes built for K % 64 == 0
+    (Scene.build), a single packet and K % (8 * div) == 0
+    (intersect_triangles_bvh).  The port has no sub-box gating; it reads
+    the knob only to resolve the MT form as the JAX package does."""
+    v = os.environ.get("SRT_BVH_SUBBOX", "0")
+    if v == "0" or k % 64:
+        return 0
+    if v not in ("1", "2", "4", "8"):
+        raise ValueError(f"SRT_BVH_SUBBOX must be 0/1/2/4/8, got {v!r}")
+    div = 8 if v == "1" else int(v)
+    packets = -(-k // PACKET) if packable(k) else 1
+    return k // div if k % (8 * div) == 0 and packets == 1 else 0
+
+
+def resolve_plucker(clusters, variant: str) -> bool:
+    """Does a launch of kernel ``variant`` over ``clusters`` take the
+    Plucker form?  bvh_kernel._resolve_plucker's rule: only when
+    SRT_BVH_MT asks for it, in "two_level" (_kernel_packed) and in
+    "streamed" over a table the TPU packs (_kernel_hbm over table_tr),
+    and only where the JAX package would not gate sub-boxes.  "flat"
+    (_kernel, which never asks) quietly keeps MT; every other refusal
+    warns in _resolve_plucker's words and keeps MT.  A grant is counted
+    in PLUCKER_CALLS."""
+    global PLUCKER_CALLS
+    if mt_form() != "plucker" or variant == "flat":
+        return False
+    packed = variant == "two_level" or packable(clusters.k)
+    sub_rows = _sub_box_rows(clusters.k)
+    if packed and sub_rows == 0:
+        PLUCKER_CALLS += 1
+        return True
+    why = [] if packed else ["the triangle table is not packed"]
+    if sub_rows != 0:
+        why.append("sub-box gating is on (SRT_BVH_SUBBOX)")
+    warnings.warn("SRT_BVH_MT=plucker ignored: " + " and ".join(why)
+                  + "; tracing the VPU 'mt' form instead", stacklevel=3)
+    return False
 
 
 def compact_cap_auto(n_rays: int, block_r: int = BLOCK_R) -> Optional[int]:
@@ -251,6 +321,67 @@ def _mt(ox, oy, oz, dx, dy, dz, col):
     return t, valid
 
 
+def plucker_table(table: torch.Tensor) -> torch.Tensor:
+    """(N, 20) slot rows -> (N, PLUCKER_COLS) f32 Plucker coefficients,
+    _plucker_lt's in its operation order: with n = e1 x e2, w1 = v0 x e1,
+    w2 = v0 x e2 and pd = n . v0, a row is [w2, e2 | -w1, -e1 | -n |
+    n, -pd | active], the coefficients of u*a and v*a on [d, o x d], of a
+    on d and of t*a on [o, 1] (LT's nonzero entries), and the active
+    flag.  An empty slot (a zero row) gives a = 0: never a hit."""
+    col = lambda j: table[:, j]
+    v0x, v0y, v0z = col(0), col(1), col(2)
+    e1x, e1y, e1z = col(3), col(4), col(5)
+    e2x, e2y, e2z = col(6), col(7), col(8)
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
+    w1x = v0y * e1z - v0z * e1y            # v0 x e1
+    w1y = v0z * e1x - v0x * e1z
+    w1z = v0x * e1y - v0y * e1x
+    w2x = v0y * e2z - v0z * e2y            # v0 x e2
+    w2y = v0z * e2x - v0x * e2z
+    w2z = v0x * e2y - v0y * e2x
+    pd = nx * v0x + ny * v0y + nz * v0z    # n . v0
+    return torch.stack([w2x, w2y, w2z, e2x, e2y, e2z,
+                        -w1x, -w1y, -w1z, -e1x, -e1y, -e1z,
+                        -nx, -ny, -nz, nx, ny, nz, -pd, col(19)], dim=1)
+
+
+def plucker_coefficients(clusters, table: torch.Tensor) -> torch.Tensor:
+    """``plucker_table(table)``, built on first use and cached on the
+    clusters beside the hierarchy (once per scene)."""
+    cached = clusters.cache.get("plucker")
+    if cached is None or cached[0] is not table:
+        cached = (table, plucker_table(table))
+        clusters.cache["plucker"] = cached
+    return cached[1]
+
+
+def _mt_plucker(ox, oy, oz, dx, dy, dz, col):
+    """_mt_update_sub_mxu's arithmetic; ``col(j)`` is Plucker column j
+    (plucker_table) at each (pair, slot).  Each numerator is the dot
+    product of the coefficients with the ray vector [d, m = o x d, o, 1]
+    in its index order, over the nonzero coefficients only (an x * 0 term
+    of a finite ray adds a zero and changes no sum).  The same tests as
+    ``_mt``.  Returns (t, valid)."""
+    mx = oy * dz - oz * dy
+    my = oz * dx - ox * dz
+    mz = ox * dy - oy * dx
+    unum = (col(0) * dx + col(1) * dy + col(2) * dz + col(3) * mx
+            + col(4) * my + col(5) * mz)
+    vnum = (col(6) * dx + col(7) * dy + col(8) * dz + col(9) * mx
+            + col(10) * my + col(11) * mz)
+    a = col(12) * dx + col(13) * dy + col(14) * dz
+    tnum = col(15) * ox + col(16) * oy + col(17) * oz + col(18)
+    f = 1.0 / a
+    u = f * unum
+    v = f * vnum
+    t = f * tnum
+    valid = ((a != 0.0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t > 0.0) & (col(19) > 0.0))
+    return t, valid
+
+
 def admitted_pairs(o: Vec3, inv: Vec3, live: torch.Tensor,
                    t_init: torch.Tensor, clusters, elems: int):
     """The (cluster, ray) pairs whose cluster box the live ray may meet
@@ -290,18 +421,27 @@ def admitted_pairs(o: Vec3, inv: Vec3, live: torch.Tensor,
 
 def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
                                   t_init: torch.Tensor, clusters,
-                                  table: torch.Tensor):
+                                  table: torch.Tensor, form: str = "mt"):
     """(R,) rays x a clustered mesh -> (t (R,) f32, slot (R,) int32): the
     nearest triangle hit strictly closer than ``t_init`` and the table slot
     of its triangle, (+inf, -1) when none is (``triangle_index`` maps a
     slot to the triangle's index).  ``clusters`` carries the (C, 8) boxes
-    and the hierarchy, ``table`` the (C * K, 20) slot rows."""
+    and the hierarchy, ``table`` the (C * K, 20) slot rows; ``form`` is
+    the MT form, "mt" or "plucker" (the form only, never the commit)."""
     n_rays = o.x.shape[0]
     n_cl, k = clusters.slots.shape
     dev = o.x.device
     live = alive > 0
     inv = inverse(d)
-    cols = table.reshape(n_cl, k, table.shape[1])
+    if form == "plucker":
+        mt = _mt_plucker
+        cols = plucker_coefficients(clusters, table).reshape(
+            n_cl, k, PLUCKER_COLS)
+    elif form == "mt":
+        mt = _mt
+        cols = table.reshape(n_cl, k, table.shape[1])
+    else:
+        raise ValueError(f"unknown MT form {form!r}")
     # a candidate's key: (global index << 32) | slot, so the least key is
     # the least index and carries its slot
     gidx = clusters.hierarchy.gidx.to(torch.int64)
@@ -316,8 +456,8 @@ def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
             c_idx = c_all[p0:p0 + pair_chunk]
             r_idx = r_all[p0:p0 + pair_chunk]
             ray = lambda v: v[r_idx][:, None]
-            t, valid = _mt(ray(o.x), ray(o.y), ray(o.z), ray(d.x), ray(d.y),
-                           ray(d.z), lambda j: cols[:, :, j][c_idx])
+            t, valid = mt(ray(o.x), ray(o.y), ray(o.z), ray(d.x), ray(d.y),
+                          ray(d.z), lambda j: cols[:, :, j][c_idx])
             t = torch.where(valid, t, math.inf)
             local_t = t.amin(dim=1)
             local_key = torch.where(valid & (t == local_t[:, None]),
@@ -343,14 +483,15 @@ def triangle_index(clusters, slot: torch.Tensor) -> torch.Tensor:
 def intersect_compacted_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
                               t_init: torch.Tensor, clusters,
                               table: torch.Tensor, order: torch.Tensor,
-                              count: int):
+                              count: int, form: str = "mt"):
     """The plain version over the first ``count`` rays of ``order`` only;
     every other ray reports a miss, as the kernel's compacted launch
     does."""
     sel = order[:count]
     pick = lambda v: Vec3(v.x[sel], v.y[sel], v.z[sel])
     t_c, s_c = intersect_triangles_bvh_plain(pick(o), pick(d), alive[sel],
-                                             t_init[sel], clusters, table)
+                                             t_init[sel], clusters, table,
+                                             form)
     t = torch.full_like(o.x, math.inf)
     slot = torch.full(o.x.shape, -1, dtype=torch.int32, device=o.x.device)
     t[sel] = t_c

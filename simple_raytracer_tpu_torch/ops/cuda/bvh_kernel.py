@@ -8,8 +8,15 @@ table of at most ``VMEM_TABLE_MAX_SLOTS`` slots) as the ``flat`` variant,
 ``two_level`` variant, and ``_kernel_hbm`` (the same gates over a table
 the TPU streams from HBM: config 7, and every clustered mesh under
 ``tri_backend="clustered"``) as the ``streamed`` variant, which stages
-each admitted cluster in shared memory once per warp.  Its plain PyTorch
+each admitted cluster in shared memory once per warp, 128 slots at a
+time, so a cluster may hold any number of slots.  Its plain PyTorch
 version is ``ops/bvh.intersect_triangles_bvh_plain``.
+
+Under ``SRT_BVH_MT=plucker`` the ``two_level`` and ``streamed`` variants
+take the Plucker form of Moller-Trumbore (``_mt_update_sub_mxu`` and
+``_plucker_lt``, row 5a) where ``ops/bvh.resolve_plucker`` grants it:
+each slot's coefficients come from ``ops/bvh.plucker_coefficients``, built
+once per scene, and a launch is counted as "<variant>/plucker".
 
 ``intersect_triangles_bvh`` takes the plain version only for rays on the
 CPU.  For rays on a CUDA device it launches the kernel or raises: there
@@ -33,8 +40,6 @@ from .build import PACKAGE_DIR, Kernel
 SOURCE = PACKAGE_DIR / "csrc" / "bvh_kernel.cu"
 # the kernel's variants, as the CUDA source's Variant
 VARIANTS = {"flat": 0, "two_level": 1, "streamed": 2}
-# the most slots per cluster the streamed variant stages (kMaxK)
-STREAMED_MAX_K = 128
 
 
 class BvhParams(ctypes.Structure):
@@ -46,12 +51,13 @@ class BvhParams(ctypes.Structure):
         ("n_clusters", ctypes.c_int32),
         ("k", ctypes.c_int32),
         ("variant", ctypes.c_int32),
+        ("plucker", ctypes.c_int32),
     ]
 
 
-# srt_bvh_launch(rays, table, gidx, boxes, supers, groups, order, perm,
-#                count, t_out, slot_out, params, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 11 + [BvhParams, ctypes.c_void_p]
+# srt_bvh_launch(rays, table, coeffs, gidx, boxes, supers, groups, order,
+#                perm, count, t_out, slot_out, params, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 12 + [BvhParams, ctypes.c_void_p]
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -86,13 +92,20 @@ class Prepared:
     count: Optional[torch.Tensor]  # 0-d int32 admitted rays, or None
     variant: str
     params: BvhParams
+    coeffs: Optional[torch.Tensor] = None   # the Plucker form's table
+
+    @property
+    def label(self) -> str:
+        """The variant as counted: "<variant>/plucker" for that form."""
+        return self.variant + ("/plucker" if self.params.plucker else "")
 
 
 def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
             clusters, table: torch.Tensor, order=None, count=None,
             force_streamed: bool = False) -> Prepared:
     """Check a CUDA launch's arguments and pack them; ``order``/``count``
-    are a compaction's (``ops/bvh.compact_order``)."""
+    are a compaction's (``ops/bvh.compact_order``).  The MT form is
+    resolved here (``ops/bvh.resolve_plucker``)."""
     device = o.x.device
     if device.type != "cuda":
         raise ValueError(f"BVH kernel: unsupported device {device}")
@@ -102,9 +115,13 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
         raise ValueError(f"BVH kernel: {n_rays} rays overflow int32")
     hier = clusters.hierarchy
     n_cl, k = clusters.slots.shape
-    if variant == "streamed" and k > STREAMED_MAX_K:
-        raise ValueError(f"BVH kernel: the streamed variant stages at most "
-                         f"{STREAMED_MAX_K} slots per cluster, not {k}")
+    coeffs = None
+    if bvh.resolve_plucker(clusters, variant):
+        coeffs = bvh.plucker_coefficients(clusters, table)
+        if (coeffs.device != device or coeffs.dtype != torch.float32
+                or coeffs.shape != (n_cl * k, bvh.PLUCKER_COLS)
+                or not coeffs.is_contiguous() or coeffs.data_ptr() % 16):
+            raise ValueError("BVH kernel: bad Plucker coefficient table")
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z,
                         alive.to(torch.float32), t_init])
     if variant == "flat":
@@ -135,7 +152,8 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     p = BvhParams()
     p.n_rays, p.n_order, p.n_clusters, p.k = n_rays, visit.shape[0], n_cl, k
     p.variant = VARIANTS[variant]
-    return Prepared(rays, tensors, perm, cnt, variant, p)
+    p.plucker = int(coeffs is not None)
+    return Prepared(rays, tensors, perm, cnt, variant, p, coeffs)
 
 
 def launch(prep: Prepared, out=None):
@@ -154,12 +172,13 @@ def launch(prep: Prepared, out=None):
     lib = KERNEL.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.srt_bvh_launch(prep.rays.data_ptr(),
-                                 *map(ptr, prep.tensors), ptr(prep.perm),
+        table, *rest = map(ptr, prep.tensors)
+        err = lib.srt_bvh_launch(prep.rays.data_ptr(), table,
+                                 ptr(prep.coeffs), *rest, ptr(prep.perm),
                                  ptr(prep.count), out[0].data_ptr(),
                                  out[1].data_ptr(), prep.params, stream)
     KERNEL.check(err, "BVH kernel")
-    KERNEL.count(prep.variant)
+    KERNEL.count(prep.label)
     return out
 
 
@@ -173,17 +192,20 @@ def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
     (``ops/bvh.triangle_index`` maps a slot to the triangle's index).
     ``compact`` walks only the rays that enter an admission box, and
     ``force_streamed`` takes the streamed variant for any table; neither
-    changes a live ray's result."""
+    changes a live ray's result.  The MT form follows SRT_BVH_MT
+    (``ops/bvh.resolve_plucker``), on the CPU as on the card."""
     order = count = None
     if compact:
         order, count = bvh.compact_order(o, d, alive, t_init,
                                          clusters.hierarchy.admission)
     if o.x.device.type == "cpu":
+        form = ("plucker" if bvh.resolve_plucker(
+            clusters, bvh_variant(clusters, force_streamed)) else "mt")
         if compact:
             return bvh.intersect_compacted_plain(o, d, alive, t_init,
                                                  clusters, table, order,
-                                                 int(count))
+                                                 int(count), form)
         return bvh.intersect_triangles_bvh_plain(o, d, alive, t_init,
-                                                 clusters, table)
+                                                 clusters, table, form)
     return launch(prepare(o, d, alive, t_init, clusters, table, order,
                           count, force_streamed))

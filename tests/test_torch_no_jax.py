@@ -9,8 +9,11 @@ per-bounce path at 32x16 on the CPU, and traces config 7 (cut to 5,120
 triangles) through the fused per-bounce path (ops/bounce.py) and under
 tri_backend="clustered"; then renders with a texture skybox written and
 read back as an .hdr (the whole-trace form and the split path), and
-under the "pallas" and "jnp" triangle routes.  chip_smoke.py itself must fail, printing no
-result, without CUDA and outside the repository.
+under the "pallas" and "jnp" triangle routes; renders config 6 clustered
+at Scene.cluster_size=256 in the BVH kernel's Plucker form
+(SRT_BVH_MT=plucker) and runs the lowering probes' plain versions.
+chip_smoke.py itself must fail, printing no result, without CUDA and
+outside the repository.
 """
 import os
 import shutil
@@ -97,6 +100,23 @@ for n, backend in ((3, "auto"), (4, "bvh"), (5, "pallas"), (4, "jnp")):
                  device="cpu")
     assert r.device_scene.skybox.shape == (16, 32, 3)
     assert r.render(camera, num_steps=1).std() > 0
+# the Plucker form at K = 256 (the streamed variant's plain version) and
+# the probes
+from simple_raytracer_tpu_torch.ops import bvh
+from simple_raytracer_tpu_torch.scripts import probe_kernel_ops
+scene, camera, opt = CONFIGS[6](width=32, height=16)
+scene.cluster_size = 256
+os.environ["SRT_BVH_MT"] = "plucker"
+before = bvh.PLUCKER_CALLS
+r = Renderer(RenderOptions(width=32, height=16, num_samples=1,
+                           num_bounces=3), scene, device="cpu")
+assert r.device_scene.triangles.clusters.k == 256
+assert r.render(camera, num_steps=1).std() > 0
+assert bvh.PLUCKER_CALLS - before == 3, bvh.PLUCKER_CALLS - before
+del os.environ["SRT_BVH_MT"]
+probes = probe_kernel_ops.run("cpu")
+assert probes["A"]["value"] == 65536.0, probes
+assert all(p["equal"] for p in probes.values()), probes
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 try:
