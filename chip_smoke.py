@@ -207,8 +207,10 @@ ROWS = (
     ("bvh_flat", "bvh", "bvh_kernel.py:201", "5/bvh", ALL, "flat"),
     ("bvh_two_level", "bvh", "bvh_kernel.py:1040", "6", ALL, "two_level"),
     ("bvh_streamed", "bvh", "bvh_kernel.py:678", "7", ALL, "streamed"),
-    ("bvh_plucker", "bvh", "bvh_kernel.py:629", "6/plucker", ALL,
-     ("two_level/plucker", "streamed/plucker")),
+    ("bvh_two_level_plucker", "bvh", "bvh_kernel.py:629", "6/plucker", ALL,
+     "two_level/plucker"),
+    ("bvh_streamed_plucker", "bvh", "bvh_kernel.py:629", "7/plucker", ALL,
+     "streamed/plucker"),
     ("bounce_kernel", "bounce", "bounce_kernel.py:584", "7/fused", ALL,
      "bounce"),
     ("triangle_kernel", "triangle", "triangle_kernel.py:34", "5/pallas", ALL,
@@ -360,7 +362,6 @@ SKY_FLOPS = 54             # the gradient sky and the final add
 RAY_IN_BYTES = 32          # a walked ray in: o, d, alive, t_init
 HIT_OUT_BYTES = 8          # (t, slot) out, for every ray
 SLOT_BYTES = 40 + 4        # a slot's MT columns (v0, e1, e2, active), index
-PLUCKER_SLOT_BYTES = 80 + 4   # a slot's Plucker coefficients, index
 BOX_BYTES = 32             # a box row of the hierarchy
 # the shade kernel: 20 state rows in and out, the winner's (t, slot) in
 BOUNCE_RAY_BYTES = (20 + 20 + 2) * 4
@@ -747,29 +748,31 @@ def sphere_scene() -> Scene:
     return s
 
 
-def bvh_bound(clusters, work, plucker: bool = False) -> tuple:
+def bvh_bound(clusters, work) -> tuple:
     """(FLOP, bytes) the least a pass's BVH launches need, from what each
-    launch's walked rays open (``admitted``): each walked ray slab-tests
-    the hierarchy's root boxes, and runs MT over the real slots of every
-    cluster it opens.  Each walked ray is read once and every ray's
-    (t, slot) written once; a ray not walked costs its alive flag (dense)
-    or, compacted, every ray its order index.  A launch reads the root
-    boxes, the boxes of the opened clusters and of their supers, and the
-    opened clusters' MT columns (``plucker``: Plucker coefficients) and
-    slot indices once.  The Plucker form also costs each walked ray its
-    moment m = o x d."""
+    launch's walked rays open (``admitted``), in either MT form: each
+    walked ray slab-tests the hierarchy's root boxes, and tests the real
+    slots of every cluster it opens in the cheaper form of the launch
+    (MT_FLOPS a pair, or PLUCKER_FLOPS a pair and the walked ray's moment
+    m = o x d).  Each walked ray is read once and every ray's (t, slot)
+    written once; a ray not walked costs its alive flag (dense) or,
+    compacted, every ray its order index.  A launch reads the root boxes,
+    the boxes of the opened clusters and of their supers, and the opened
+    clusters' MT columns and slot indices once: the Plucker coefficients
+    derive from those columns (the TPU kernel derives them per cluster),
+    so the port's per-scene table of them is its own choice, not a need
+    of the function."""
     roots = int((clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
-    pair_flops, slot_bytes = ((PLUCKER_FLOPS, PLUCKER_SLOT_BYTES) if plucker
-                              else (MT_FLOPS, SLOT_BYTES))
-    ray_flops = INV_DIR_FLOPS + (PLUCKER_RAY_FLOPS if plucker else 0)
     flops = nbytes = 0
     for walked, n, compact, pair_slots, slots, opened, supers in work:
-        flops += (walked * (roots * SLAB_FLOPS + ray_flops)
-                  + pair_slots * pair_flops)
+        flops += (walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
+                  + min(pair_slots * MT_FLOPS,
+                        pair_slots * PLUCKER_FLOPS
+                        + walked * PLUCKER_RAY_FLOPS))
         nbytes += (walked * RAY_IN_BYTES + n * HIT_OUT_BYTES
                    + 4 * (n if compact else n - walked))
         if walked:
-            nbytes += (slots * slot_bytes
+            nbytes += (slots * SLOT_BYTES
                        + (roots + supers + opened) * BOX_BYTES)
     return float(flops), float(nbytes), roots
 
@@ -1012,7 +1015,7 @@ def main() -> int:
         want_variant = CELLS[label][2]
         o = r.options
         cl = r.device_scene.triangles.clusters
-        if FORMS.get(label) == "plucker" and "plucker" not in cl.cache:
+        if FORMS.get(label) == "plucker" and cl.plucker is None:
             # the coefficient table, built once per scene on first use
             t0 = time.perf_counter()
             coeffs = bvh.plucker_coefficients(cl, r.device_scene.triangles
@@ -1312,7 +1315,7 @@ def main() -> int:
         fail("benchmark_step changed the accumulation state")
 
     # ---- 6: timings ----
-    timing, steps_ms, ab = {}, {}, {}
+    timing, steps_ms, ab, library = {}, {}, {}, {}
     for label, (r, camera) in in_form(renderers):
         res = results[label]
         o = r.options
@@ -1360,7 +1363,7 @@ def main() -> int:
                                      for pp, oo in zip(preps, outs)], iters=5)
             b_ms = float(np.median(b_all))
             plucker = FORMS.get(label) == "plucker"
-            flops, nbytes, roots = bvh_bound(cl, res["work"], plucker)
+            flops, nbytes, roots = bvh_bound(cl, res["work"])
             b_bound = max(flops / FP32_PEAK, nbytes / HBM_BYTES_PER_S) * 1e3
             walk_note = (f"{len(preps)} launches; walked rays per launch "
                          f"{[w[0] for w in res['work']]}, clusters opened "
@@ -1497,6 +1500,9 @@ def main() -> int:
         bound_ms = PROBE_BYTES / HBM_BYTES_PER_S * 1e3
         timing[f"probe/{name}"] = ("probe", probe_err[name], k_ms, p_ms,
                                    bound_ms, "bytes", None)
+        # the plain version is one PyTorch call's output (zeros_like, or
+        # full_like of the sum): it is the library time too
+        library[f"probe/{name}"] = p_ms
         say(f"[6] probe {name} ({what}): {res['us_per_call']:.3f} us/call "
             f"({PROBE_CALLS} calls), {res['us_per_iter']:.4f} us per loop "
             f"iteration ({trips} a call); plain {p_ms * 1e3:.3f} us; bound "
@@ -1530,7 +1536,7 @@ def main() -> int:
                          else f"simple_raytracer_tpu/ops/pallas/{line}"),
             "launches": launches, "max_abs_err": max_abs,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": library.get(cell),
             "shape": (f"({probe.ROWS}, {probe.COLS}) f32 ones, one thread "
                       "block" if o is None else
                       f"config {CELLS[cell][0]} (tri_backend="

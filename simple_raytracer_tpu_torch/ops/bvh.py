@@ -70,8 +70,9 @@ _NO_KEY = 2 ** 62
 # a slot's Plucker coefficients (plucker_table): the nonzero entries of
 # the JAX package's LT planes, in its order
 PLUCKER_COLS = 20
-# the launches (or plain calls) that took the Plucker form, counted where
-# resolve_plucker grants it, as bvh_kernel._PLUCKER_TRACES counts traces
+# the plain version's calls in the Plucker form, as
+# bvh_kernel._PLUCKER_TRACES counts traces (the kernel counts its launches
+# in that form as "<variant>/plucker")
 PLUCKER_CALLS = 0
 
 
@@ -183,15 +184,12 @@ def resolve_plucker(clusters, variant: str) -> bool:
     "streamed" over a table the TPU packs (_kernel_hbm over table_tr),
     and only where the JAX package would not gate sub-boxes.  "flat"
     (_kernel, which never asks) quietly keeps MT; every other refusal
-    warns in _resolve_plucker's words and keeps MT.  A grant is counted
-    in PLUCKER_CALLS."""
-    global PLUCKER_CALLS
+    warns in _resolve_plucker's words and keeps MT."""
     if mt_form() != "plucker" or variant == "flat":
         return False
     packed = variant == "two_level" or packable(clusters.k)
     sub_rows = _sub_box_rows(clusters.k)
     if packed and sub_rows == 0:
-        PLUCKER_CALLS += 1
         return True
     why = [] if packed else ["the triangle table is not packed"]
     if sub_rows != 0:
@@ -348,13 +346,12 @@ def plucker_table(table: torch.Tensor) -> torch.Tensor:
 
 
 def plucker_coefficients(clusters, table: torch.Tensor) -> torch.Tensor:
-    """``plucker_table(table)``, built on first use and cached on the
-    clusters beside the hierarchy (once per scene)."""
-    cached = clusters.cache.get("plucker")
-    if cached is None or cached[0] is not table:
-        cached = (table, plucker_table(table))
-        clusters.cache["plucker"] = cached
-    return cached[1]
+    """``plucker_table(table)`` of the clusters' slot table, built on first
+    use and kept on the clusters (once per scene)."""
+    if clusters.plucker is None:
+        # the dataclass is frozen; the field is a cache of its table
+        object.__setattr__(clusters, "plucker", plucker_table(table))
+    return clusters.plucker
 
 
 def _mt_plucker(ox, oy, oz, dx, dy, dz, col):
@@ -427,13 +424,16 @@ def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
     of its triangle, (+inf, -1) when none is (``triangle_index`` maps a
     slot to the triangle's index).  ``clusters`` carries the (C, 8) boxes
     and the hierarchy, ``table`` the (C * K, 20) slot rows; ``form`` is
-    the MT form, "mt" or "plucker" (the form only, never the commit)."""
+    the MT form, "mt" or "plucker" (the form only, never the commit); a
+    call in the Plucker form is counted in PLUCKER_CALLS."""
+    global PLUCKER_CALLS
     n_rays = o.x.shape[0]
     n_cl, k = clusters.slots.shape
     dev = o.x.device
     live = alive > 0
     inv = inverse(d)
     if form == "plucker":
+        PLUCKER_CALLS += 1
         mt = _mt_plucker
         cols = plucker_coefficients(clusters, table).reshape(
             n_cl, k, PLUCKER_COLS)

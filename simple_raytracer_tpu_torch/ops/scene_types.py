@@ -58,10 +58,10 @@ class Clusters:
                              # margin by it
     hierarchy: Hierarchy     # the BVH kernel's supers, groups, admission
                              # boxes and int32 slot indices
-    # tables derived on first use, once per scene: "plucker" holds
-    # (slot table, its ops/bvh.plucker_table)
-    cache: dict = dataclasses.field(default_factory=dict, repr=False,
-                                    compare=False)
+    # the slot table's ops/bvh.plucker_table, built on first use (once per
+    # scene) by ops/bvh.plucker_coefficients
+    plucker: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def k(self) -> int:

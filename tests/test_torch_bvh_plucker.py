@@ -222,8 +222,10 @@ def _record(fn):
 def test_resolve_plucker_matches_jax(subbox, monkeypatch):
     """resolve_plucker against _resolve_plucker for every variant, K in
     {64, 128, 192, 256} and SRT_BVH_SUBBOX unset or 8: the same decision
-    and the same warnings; "flat" never asks and never warns."""
+    and the same warnings; "flat" never asks and never warns.  Resolving
+    counts nothing: only a call in the form is counted."""
     monkeypatch.setenv("SRT_BVH_MT", "plucker")
+    before = bvh.PLUCKER_CALLS
     if subbox is not None:
         monkeypatch.setenv("SRT_BVH_SUBBOX", subbox)
     seen = set()
@@ -238,6 +240,7 @@ def test_resolve_plucker_matches_jax(subbox, monkeypatch):
             seen.add((want[0], len(want[1])))
     # both outcomes, and refusals that warn, occur
     assert (True, 0) in seen and (False, 1) in seen
+    assert bvh.PLUCKER_CALLS == before
     monkeypatch.setenv("SRT_BVH_MT", "mt")
     assert bvh.mt_form() == "mt" and not bvh.resolve_plucker(
         ts.triangles.clusters, "two_level")
