@@ -37,8 +37,11 @@ are a path of their own.  Phases, one line each on stdout:
      loop over 81,920 triangles), and for the texture the nine rows before
      the sample; for the per-bounce cells every BVH launch's (t, slot) on
      live rays, every shade launch's 20 state rows, every triangle
-     launch's (t, index) on every ray (config 6 under "pallas": a band of
-     rows), and the canvas; config 4 under "jnp" against the "pallas"
+     launch's (t, index) on every ray, dead rays (+inf, 0) included, with
+     each launch's live rays (config 6 under "pallas": a band of rows;
+     the kernel visits live rays only), and the canvas, and every
+     instance of the triangle kernel on ragged random tables and ray
+     batches (RAGGED); config 4 under "jnp" against the "pallas"
      route on the same rays; then, for configs 6 and 5 "bvh", the per-ray
      gate against a gate-free dense Moller-Trumbore over every triangle,
      on every launch of a pass of one full-width band of rows; and the
@@ -58,24 +61,33 @@ are a path of their own.  Phases, one line each on stdout:
      against the plain version; benchmark_step leaves the canvas and step
      count as they were;
   6. timings with CUDA events, and each kernel's bound (and the texture's
-     sample beside the nine-row kernel); benchmark_step of configs 6 and 7
-     under "auto" and "fused" side by side; the BVH kernel's Plucker form
-     against its MT form on the same launches, in turns; the probes' time
-     per call and per loop iteration;
+     sample beside the nine-row kernel); the triangle kernel's launches
+     of a pass one by one (per bounce, with its live rays, what its
+     early-out keeps, and without the split of triangle ranges), its
+     bound over the live (ray, triangle) pairs and over every ray, and a
+     sweep of its instances (threads a block x rays a thread), each
+     instance's (t, index) equal to the route's; benchmark_step of
+     configs 6 and 7 under "auto" and "fused" side by side; the BVH
+     kernel's Plucker form against its MT form on the same launches, in
+     turns; the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell).
-Then one JSON line per the kernel table, the card line again, and the
+Then one JSON line per the kernel table (the triangle kernel's row also
+carries its all-ray bound and its 6/pallas numbers), the card line again,
+and the
 last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
 before the last line.  Without CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -104,7 +116,11 @@ from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
 from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
 from simple_raytracer_tpu_torch.ops.trace import add_sky, trace_rays
-from simple_raytracer_tpu_torch.ops.triangle import intersect_packed_plain
+from simple_raytracer_tpu_torch.ops.triangle import (intersect_packed_plain,
+                                                     moller_trumbore,
+                                                     pack_triangles,
+                                                     pretest_rejects,
+                                                     stage_triangles)
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 from simple_raytracer_tpu_torch.scripts import probe_kernel_ops as probe
 
@@ -149,7 +165,7 @@ GATE_CELLS = ("6", "5/bvh")
 BAND_CELLS = ("6/fused", "6/pallas")
 # benchmark_step iterations (and profiled steps) of the slow cells; 20
 # for the others
-ITERS = {"7": 5, "7/fused": 5, "6/pallas": 1, "4/jnp": 1, "7/plucker": 5,
+ITERS = {"7": 5, "7/fused": 5, "6/pallas": 5, "4/jnp": 1, "7/plucker": 5,
          "6/plucker": 10, "6/k256": 10, "6/k256/plucker": 10}
 # profiled steps (phase 7) of a per-bounce cell, at most: the profiler's
 # own cost per event dominates their hundreds of launches a step
@@ -333,15 +349,45 @@ def build_kernels() -> str:
         modes = {str(v): k for k, v in names.items()}
         variant = None
         for line in kernel.build_log.splitlines():
-            m = re.search(rf"entry function '.*?({entry})(?:ILi(\d)E"
-                          rf"(Lb1E)?)?", line)
+            m = re.search(rf"entry function '.*({entry})(?:ILi(\d+)E"
+                          rf"(?:(Lb1E)|Li(\d)E)?)?", line)
             if m:
                 variant = (modes.get(m.group(2), m.group(2) or m.group(1))
-                           + ("/plucker" if m.group(3) else ""))
+                           + ("/plucker" if m.group(3) else "")
+                           + (f"x{m.group(4)}" if m.group(4) else ""))
             elif "registers" in line or "spill" in line:
                 parts.append(f"{variant}: "
                              + line.split("ptxas info    : ")[-1].strip())
     return "; ".join(parts) or "no ptxas report"
+
+
+def triangle_sass() -> str:
+    """The route's instance of the triangle kernel as compiled: the
+    instructions from a triangle's first shared load to the warp vote
+    and its branch (the path of a triangle that no lane keeps), by
+    opcode, from cuobjdump -sass of the built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "not measured (no cuobjdump)"
+    out = subprocess.run([tool, "-sass", trk.KERNEL.library()._name],
+                         capture_output=True, text=True).stdout
+    threads, rays = trk.SHAPE
+    for func in out.split("Function : ")[1:]:
+        if f"triangle_kernelILi{threads}ELi{rays}E" not in func.split()[0]:
+            continue
+        ops = [m.group(1) for m in re.finditer(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", func)]
+        first = ops.index("LDS")
+        last = len(ops) - 1 - ops[::-1].index("VOTE")
+        body = collections.Counter(ops[first:last + 2])
+        n = sum(body.values())
+        fp = body["FMUL"] + body["FADD"] + body["FFMA"]
+        return (f"{n} instructions for {rays} rays ({n / rays:.2f} a pair): "
+                f"{fp} FP32 (FMUL {body['FMUL']}, FADD {body['FADD']}, FFMA "
+                f"{body['FFMA']}), " + ", ".join(
+                    f"{k} {v}" for k, v in body.most_common()
+                    if k not in ("FMUL", "FADD", "FFMA")))
+    return "not measured (instance not found)"
 
 
 # Float operations of the kernels, counted from the CUDA sources (adds,
@@ -365,9 +411,10 @@ SLOT_BYTES = 40 + 4        # a slot's MT columns (v0, e1, e2, active), index
 BOX_BYTES = 32             # a box row of the hierarchy
 # the shade kernel: 20 state rows in and out, the winner's (t, slot) in
 BOUNCE_RAY_BYTES = (20 + 20 + 2) * 4
-# the triangle kernel: a ray's o, d in and (t, index) out; a triangle's
-# v0, e1, e2 and active flag in
-TRI_RAY_BYTES = 24 + 8
+# the triangle kernel: every ray's alive flag in and (t, index) out, a
+# live ray's o, d in; an active triangle's v0, e1, e2 and index in
+TRI_RAY_BYTES = 1 + 8
+TRI_LIVE_BYTES = 24
 TRI_COL_BYTES = 40
 # the texture's sample (ops/trace.add_sky on the nine rows): atan2 and the
 # coordinates, the taps' set-up and mix, the sun, the final multiply-add;
@@ -467,6 +514,11 @@ def plain_bvh(o, d, alive, t_init, clusters, table, compact=False,
                                              table, form)
 
 
+def plain_triangles(o, d, packed, alive=None, staged=None):
+    """The triangle kernel's wrapper with its plain version on the card."""
+    return intersect_packed_plain(o, d, packed, alive)
+
+
 def plain_bounce(state, is_last, scene, tri=None, tables=None):
     """ops/bounce.bounce_step with its plain version on the card."""
     return bounce_step_plain(state, is_last, scene, tri)
@@ -499,7 +551,7 @@ class Recorder:
         if self.plain:
             bk.intersect_triangles_bvh = plain_bvh
             trace_mod.bounce_step = plain_bounce
-            trk.intersect_triangles_packed = intersect_packed_plain
+            trk.intersect_triangles_packed = plain_triangles
         return self
 
     def __exit__(self, *exc):
@@ -637,11 +689,20 @@ def check_shade_launches(scene, recorded):
     return differ, max_abs, work, plain_s, lines
 
 
+def triangle_work(prep) -> tuple:
+    """One triangle launch's work: (rays, live rays, active triangles,
+    packed table columns)."""
+    n = prep.params.n_rays
+    live = n if prep.alive is None else int(prep.alive.sum())
+    return n, live, prep.params.n_tris, prep.packed.shape[1]
+
+
 def check_triangle_launches(label: str, recorded):
     """Every recorded triangle launch against its plain version on the
-    same rays: (t, index) equal on every ray.  Returns (max |dt|, work per
-    launch (rays, active triangles, table columns), plain seconds, one
-    report per launch)."""
+    same rays and alive mask: (t, index) equal on every ray, a dead ray's
+    (+inf, 0) included.  Returns (max |dt|, work per launch (rays, live
+    rays, active triangles, table columns), plain seconds, one report per
+    launch)."""
     max_abs, work, plain_s, lines = 0.0, [], 0.0, []
     for b, (prep, (t_k, i_k)) in enumerate(recorded):
         rays = prep.rays
@@ -649,7 +710,7 @@ def check_triangle_launches(label: str, recorded):
                                                        rays[5])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        t_p, i_p = intersect_packed_plain(o_, d_, prep.packed)
+        t_p, i_p = intersect_packed_plain(o_, d_, prep.packed, prep.alive)
         torch.cuda.synchronize()
         plain_s += time.perf_counter() - t1
         idx_diff = int((i_k != i_p).sum())
@@ -658,16 +719,122 @@ def check_triangle_launches(label: str, recorded):
         diff = (t_k[fin] - t_p[fin]).abs()
         m = float(diff.max()) if diff.numel() else 0.0
         max_abs = max(max_abs, m)
-        active = int((prep.packed[9] > 0).sum())
-        work.append((prep.params.n_rays, active, prep.params.n_tris))
-        lines.append(f"b{b}: rays {prep.params.n_rays}, hits "
+        work.append(triangle_work(prep))
+        dead = (~prep.alive if prep.alive is not None
+                else torch.zeros_like(i_k, dtype=torch.bool))
+        dead_ok = bool(torch.isinf(t_k[dead]).all() and not i_k[dead].any())
+        lines.append(f"b{b}: rays {prep.params.n_rays}, live {work[-1][1]},"
+                     f" dead (+inf, 0) {dead_ok}, hits "
                      f"{int(torch.isfinite(t_k).sum())}, index diff "
                      f"{idx_diff}, max|dt| {m:.3e}")
-        if idx_diff or m != 0.0 or not t_same:
+        if idx_diff or m != 0.0 or not t_same or not dead_ok:
             fail(f"cell {label} bounce {b}: the triangle kernel's (t, index) "
                  f"differ from the plain version on {idx_diff} rays (max "
                  f"|dt| {m})")
     return max_abs, work, plain_s, lines
+
+
+VOTE_WARPS = 128     # warps sampled a launch for the early-out's shares
+
+
+def early_out_shares(prep) -> tuple:
+    """What the triangle kernel's early-out leaves on one launch, over
+    VOTE_WARPS of the route's warps spread evenly over the live rays (a
+    warp: 32 lanes x R rays of the live-first order, as the kernel takes
+    them) against every active triangle: the shares of (live ray,
+    triangle) pairs that survive ops/triangle.pretest_rejects, of (warp,
+    triangle) pairs whose vote passes, and of pairs that MT accepts."""
+    threads, rays = trk.SHAPE
+    n_live = (prep.params.n_rays if prep.count is None
+              else int(prep.count))
+    if n_live == 0:
+        return 0.0, 0.0, 0.0
+    device = prep.rays.device
+    order = (torch.arange(prep.params.n_rays, device=device)
+             if prep.order is None else prep.order)
+    per_warp = threads // 32
+    n_warps = -(-n_live // (threads * rays)) * per_warp
+    pick = torch.linspace(0, n_warps - 1, min(VOTE_WARPS, n_warps),
+                          device=device).long().unique()
+    lane = torch.arange(32, device=device)[None, :, None]
+    ray = torch.arange(rays, device=device)[None, None, :]
+    pos = ((pick // per_warp * threads * rays + pick % per_warp * 32)
+           [:, None, None] + lane + ray * threads).reshape(len(pick), -1)
+    real = pos < n_live
+    src = order[pos.clamp_max(n_live - 1)].reshape(-1)
+    o_ = Vec3(*(prep.rays[i, src][:, None] for i in range(3)))
+    d_ = Vec3(*(prep.rays[i, src][:, None] for i in range(3, 6)))
+    st = prep.staged
+    kept = votes = hits = 0
+    for c0 in range(0, st.shape[0], 2048):
+        col = lambda j: Vec3(*(st[None, c0:c0 + 2048, j + i]
+                               for i in range(3)))
+        a, x, u, v, t = moller_trumbore(o_, d_, col(0), col(4), col(8))
+        # a slot past the live rays repeats the last live ray and votes
+        may = ~pretest_rejects(a, x)
+        ok = ((a != 0) & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
+              & (t > 0) & real.reshape(-1, 1))
+        kept += int((may & real.reshape(-1, 1)).sum())
+        votes += int(may.view(len(pick), -1, may.shape[1]).any(1).sum())
+        hits += int(ok.sum())
+    pairs = int(real.sum()) * st.shape[0]
+    return kept / pairs, votes / (len(pick) * st.shape[0]), hits / pairs
+
+
+def triangle_timing(res: dict) -> dict:
+    """Phase 6 of a "pallas" cell: the recorded launches of a pass, all
+    together (the kernel's time a pass, ``k_all``) and one by one
+    (``per``), the live and all-ray (ray, active triangle) pairs and the
+    bytes, each instance of ``trk.SHAPES`` on the same launches
+    (``sweep``, ms a pass), and the route's instance without the split of
+    triangle ranges, one launch at a time (``per_unsplit``), whose (t,
+    index) must equal the route's, and the same launches with every ray
+    live (``every_ray``, the TPU route's work), whose live rays must keep
+    their (t, index)."""
+    rec, work = res["recorded"], res["work"]
+    preps = [pp for pp, _ in rec]
+    outs = [oo for _, oo in rec]
+    keys = [torch.empty(pp.params.n_rays, dtype=torch.int64, device="cuda")
+            for pp in preps]
+    run = lambda ps: [trk.launch(pp, kk) for pp, kk in zip(ps, keys)]
+    each = lambda ps: [float(np.median(cuda_ms(
+        lambda pp=pp, kk=kk: trk.launch(pp, kk), iters=1, repeats=3,
+        warmup=1))) for pp, kk in zip(ps, keys)]
+    variant = lambda shape, split: [dataclasses.replace(
+        pp, params=trk.TriParams(pp.params.n_rays, pp.params.n_tris, *shape,
+                                 split)) for pp in preps]
+
+    def same(what):
+        if not all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for a, b in zip(map(trk.split_key, keys), outs)):
+            fail(f"the triangle kernel's {what} differs from the route")
+
+    k_all = cuda_ms(lambda: run(preps), iters=1, repeats=3, warmup=1)
+    per = each(preps)
+    sweep = {}
+    for shape in trk.SHAPES:
+        ms = cuda_ms(lambda ps=variant(shape, 1): run(ps), iters=1,
+                     repeats=3, warmup=1)
+        same(f"instance {shape}")
+        sweep[f"{shape[0]}x{shape[1]}"] = round(float(np.median(ms)), 4)
+    per_unsplit = each(variant(trk.SHAPE, 0))
+    same("launch without the split")
+    every = [dataclasses.replace(pp, alive=None, order=None, count=None)
+             for pp in preps]
+    every_ms = cuda_ms(lambda: run(every), iters=1, repeats=3, warmup=1)
+    for pp, kk, (t_r, i_r) in zip(preps, keys, outs):
+        t_e, i_e = trk.split_key(kk)
+        if not (torch.equal(t_e[pp.alive], t_r[pp.alive])
+                and torch.equal(i_e[pp.alive], i_r[pp.alive])):
+            fail("the triangle kernel over every ray differs on live rays")
+    return dict(
+        k_all=k_all, per=per, sweep=sweep, per_unsplit=per_unsplit,
+        every_ray=float(np.median(every_ms)),
+        shares=[early_out_shares(pp) for pp in preps],
+        live_pairs=sum(live * act for _, live, act, _ in work),
+        all_pairs=sum(n * act for n, _, act, _ in work),
+        nbytes=sum(n * TRI_RAY_BYTES + live * TRI_LIVE_BYTES
+                   + act * TRI_COL_BYTES for n, live, act, _ in work))
 
 
 def rows_check(args, kw, tri_backend: str):
@@ -895,6 +1062,51 @@ def plucker_checks(label: str, recorded, clusters, table, card: str):
         f"gate)  [{card}]")
 
 
+# ragged triangle tables (rows not a multiple of the kernel's 256-row
+# tile, none, one) and ray batches (live shares down to a few rays, which
+# split the triangle range across blocks): (triangles, rays, live share)
+RAGGED = ((1000, 3000, 0.6), (1, 77, 0.6), (0, 50, 0.6), (257, 513, 0.6),
+          (20000, 100000, 0.005), (20000, 100000, 0.2))
+
+
+def ragged_triangle_check(card: str) -> None:
+    """Every instance of the triangle kernel (trk.SHAPES), and the
+    route's without the split of triangle ranges, on seeded random
+    tables and rays of RAGGED, with and without an alive mask, against
+    the plain version: (t, index) equal on every ray."""
+    g = np.random.default_rng(0)
+    cases = 0
+    for n_tris, n_rays, share in RAGGED:
+        v0 = g.uniform(-3, 3, (n_tris, 3)).astype(np.float32)
+        v1 = (v0 + g.normal(0, 0.8, (n_tris, 3))).astype(np.float32)
+        v2 = (v0 + g.normal(0, 0.8, (n_tris, 3))).astype(np.float32)
+        packed = pack_triangles(v0, v1, v2, g.random(n_tris) < 0.9)
+        staged = torch.from_numpy(stage_triangles(packed)).cuda()
+        packed = torch.from_numpy(packed).cuda()
+        o = torch.from_numpy(g.normal(0, 5, (n_rays, 3)).astype(np.float32))
+        d = torch.from_numpy(g.normal(0, 1, (n_rays, 3)).astype(np.float32))
+        o, d = o.cuda(), (d / d.norm(dim=1, keepdim=True)).cuda()
+        o_, d_ = Vec3(*o.unbind(1)), Vec3(*d.unbind(1))
+        alive = torch.from_numpy(g.random(n_rays) < share).cuda()
+        for mask in (None, alive):
+            t_p, i_p = intersect_packed_plain(o_, d_, packed, mask)
+            for shape, split in ([(sh, True) for sh in trk.SHAPES]
+                                 + [(trk.SHAPE, False)]):
+                t_k, i_k = trk.launch(trk.prepare(o_, d_, packed, mask,
+                                                  staged, shape, split))
+                if not (torch.equal(t_k, t_p) and torch.equal(i_k, i_p)):
+                    fail(f"the triangle kernel {shape} (split {split}) on a "
+                         f"ragged table "
+                         f"({n_tris} triangles, {n_rays} rays, alive "
+                         f"{mask is not None}) differs from the plain "
+                         "version")
+                cases += 1
+    say(f"[4] triangle kernel on ragged tables {RAGGED} (triangles, rays, "
+        f"live share), every instance {trk.SHAPES} and {trk.SHAPE} without "
+        f"the split, with and without an alive mask: {cases} cases, (t, index) equal to the plain version "
+        f"on every ray  [{card}]")
+
+
 def brute_force_cell(label: str, r: Renderer, camera, card: str) -> dict:
     """Phase 4 of a cell of the "pallas" or "jnp" route.  "pallas": every
     triangle launch of one pass (config 6: of a band of rows, the plain
@@ -926,8 +1138,7 @@ def brute_force_cell(label: str, r: Renderer, camera, card: str) -> dict:
         full = rec.tri
         if band is not None:
             full = per_bounce_pass(r, camera, 4242)[1].tri
-            work = [(pp.params.n_rays, int((pp.packed[9] > 0).sum()),
-                     pp.params.n_tris) for pp, _ in full]
+            work = [triangle_work(pp) for pp, _ in full]
         res = dict(max_abs=max_abs, work=work, plain_ms=plain_s * 1e3,
                    recorded=full, n_rays=full[0][0].params.n_rays,
                    where=where)
@@ -962,6 +1173,8 @@ def main() -> int:
         + ", ".join(f"{SOURCES[kind]} {k.build_seconds:.2f} s"
                     for kind, k in KERNELS.items())
         + f"); ptxas: {ptxas}")
+    say(f"[2] triangle kernel {trk.SHAPE[0]}x{trk.SHAPE[1]}, the fast path "
+        f"of one triangle (cuobjdump): {triangle_sass()}")
 
     # ---- 3: the main paths, each cell's counts reset just before it ----
     build_dir = Path(__file__).resolve().parent / "build"
@@ -1084,6 +1297,8 @@ def main() -> int:
         backend = r.options.tri_backend
         ds = r.device_scene
         if label in PALLAS + DENSE:
+            if label == PALLAS[0]:
+                ragged_triangle_check(card)
             results[label] = brute_force_cell(label, r, camera, card)
             continue
         if label not in SPLIT + FUSED:
@@ -1315,7 +1530,7 @@ def main() -> int:
         fail("benchmark_step changed the accumulation state")
 
     # ---- 6: timings ----
-    timing, steps_ms, ab, library = {}, {}, {}, {}
+    timing, steps_ms, ab, library, tri_cells = {}, {}, {}, {}, {}
     for label, (r, camera) in in_form(renderers):
         res = results[label]
         o = r.options
@@ -1335,25 +1550,46 @@ def main() -> int:
             continue
         if label in PALLAS:
             # the triangle kernel's launches of one pass, replayed
-            preps = [prep for prep, _ in res["recorded"]]
-            outs = [out for _, out in res["recorded"]]
-            k_all = cuda_ms(lambda: [trk.launch(pp, oo)
-                                     for pp, oo in zip(preps, outs)],
-                            iters=1, repeats=3, warmup=1)
+            tt = triangle_timing(res)
+            k_all = tt["k_all"]
             k_ms = float(np.median(k_all))
-            flops = float(sum(n * act * MT_FLOPS
-                              for n, act, _ in res["work"]))
-            nbytes = float(sum(n * TRI_RAY_BYTES + cols * TRI_COL_BYTES
-                               for n, _, cols in res["work"]))
+            flops = float(tt["live_pairs"] * MT_FLOPS)
+            nbytes = float(tt["nbytes"])
+            all_bound = tt["all_pairs"] * MT_FLOPS / FP32_PEAK * 1e3
             p_ms = res["plain_ms"]
             p_note = (f"plain on {res['where']} (sum over the pass's "
                       "launches, one run)")
-            work = (f"{len(preps)} launches of "
-                    f"{res['work'][0][0]} rays x {res['work'][0][1]} "
-                    f"active triangles ({res['work'][0][2]} columns); "
-                    f"{sum(n * act for n, act, _ in res['work']) / k_ms / 1e6:.2f}"
-                    " G ray-triangle tests/s")
+            n, _, act, cols = res["work"][0]
+            per_b = ", ".join(
+                f"b{b} {ms:.4f} ms ({w[1]} live; without the split "
+                f"{ms0:.4f} ms; early-out keeps {sh[0]:.3e} of pairs, vote "
+                f"passes {sh[1]:.3e} of (warp, triangle), MT accepts "
+                f"{sh[2]:.3e})"
+                for b, (ms, ms0, w, sh) in enumerate(zip(
+                    tt["per"], tt["per_unsplit"], res["work"],
+                    tt["shares"])))
+            work = (f"{len(tt['per'])} launches of {n} rays x {act} active "
+                    f"triangles ({cols} columns); per launch: {per_b}; "
+                    f"live pairs {tt['live_pairs']:.6g} of "
+                    f"{tt['all_pairs']:.6g}; instances (threads x rays a "
+                    f"thread, SHAPE "
+                    f"{trk.SHAPE[0]}x{trk.SHAPE[1]}), ms a pass: "
+                    f"{tt['sweep']}, each equal to the route's (t, index); "
+                    f"{tt['live_pairs'] / k_ms / 1e6:.2f} G live pairs/s; "
+                    f"the same launches with every ray live (the TPU "
+                    f"route's work) {tt['every_ray']:.4f} ms a pass, "
+                    f"{tt['all_pairs'] / tt['every_ray'] / 1e6:.2f} G "
+                    f"pairs/s, against the bound over every ray "
+                    f"{all_bound:.4f} ms: "
+                    f"{all_bound / tt['every_ray'] * 100:.1f}% of it")
             timing[label] = ("triangle", res["max_abs"])
+            tri_cells[label] = dict(
+                bound_all_rays_ms=all_bound, per_launch_ms=tt["per"],
+                per_launch_unsplit_ms=tt["per_unsplit"],
+                every_ray_ms=tt["every_ray"],
+                early_out_shares=tt["shares"],
+                live_per_launch=[w[1] for w in res["work"]],
+                shapes_ms=tt["sweep"])
         elif label in SPLIT + FUSED:
             cl = ds.triangles.clusters
             # the BVH kernel's launches of one pass, replayed as recorded
@@ -1466,6 +1702,11 @@ def main() -> int:
         bound_ms = max(t_ops, t_bytes)
         timing[label] += (k_ms, p_ms, bound_ms,
                           "operations" if t_ops >= t_bytes else "bytes", o)
+        if label in tri_cells:
+            tri_cells[label].update(ms=k_ms, bound_ms=bound_ms)
+        if bound_ms > k_ms:
+            fail(f"cell {label}: the kernel's {k_ms:.4f} ms is under its "
+                 f"bound {bound_ms:.4f} ms: the bound miscounts the work")
         say(f"[6] cell {label} {o.width}x{o.height}: kernel {k_ms:.4f} "
             f"ms/pass ({spread(k_all)}; {work}); {p_note} {p_ms:.3f} "
             f"ms/pass; Renderer.benchmark_step {step_ms:.4f} ms/pass "
@@ -1500,9 +1741,13 @@ def main() -> int:
         bound_ms = PROBE_BYTES / HBM_BYTES_PER_S * 1e3
         timing[f"probe/{name}"] = ("probe", probe_err[name], k_ms, p_ms,
                                    bound_ms, "bytes", None)
-        # the plain version is one PyTorch call's output (zeros_like, or
-        # full_like of the sum): it is the library time too
-        library[f"probe/{name}"] = p_ms
+        # A's and B's function is one PyTorch call, full_like of the sum,
+        # their plain version: it is their library time too.  C adds each
+        # column with an entry above 2 into the output; zeros_like, its
+        # plain version, equals that only on the all-ones input, so C has
+        # no library call
+        if name != "C":
+            library[f"probe/{name}"] = p_ms
         say(f"[6] probe {name} ({what}): {res['us_per_call']:.3f} us/call "
             f"({PROBE_CALLS} calls), {res['us_per_iter']:.4f} us per loop "
             f"iteration ({trips} a call); plain {p_ms * 1e3:.3f} us; bound "
@@ -1548,6 +1793,12 @@ def main() -> int:
                       + (f"; plain_ms on {results[cell]['where']} only"
                          if cell in BAND_CELLS else "")),
         })
+        if kind == "triangle":
+            # its bound over every ray (the TPU route's work) and each
+            # "pallas" cell's numbers
+            entries[-1]["bound_all_rays_ms"] = \
+                tri_cells[cell]["bound_all_rays_ms"]
+            entries[-1]["cells"] = tri_cells
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

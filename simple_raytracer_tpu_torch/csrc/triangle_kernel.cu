@@ -2,131 +2,348 @@
 // tri_backend="pallas" route of the split per-bounce path.
 //
 // Replaces simple_raytracer_tpu/ops/pallas/triangle_kernel.py:_kernel
-// (through intersect_triangles_pallas): for every ray of the batch, over
-// every triangle of the packed (16, T) table (rows v0, e1 = v1 - v0,
-// e2 = v2 - v0, active, 6 rows of zeros; ops/triangle.py:pack_triangles),
-// the nearest Moller-Trumbore hit under the reference's rules (a == 0
-// rejected, u in [0, 1], v >= 0, u + v <= 1, t > 0 strictly, inactive
-// triangles skipped).  It writes t (+inf on a miss) and the triangle's
-// index as int32 (0 on a miss); the earliest triangle wins an exact tie.
-// There is no alive mask and no far bound: every ray is tested against
-// every triangle, as the TPU kernel does.  Shading is not here: the caller
-// gathers the winner's row from the triangle-indexed table.
+// (pallas_call at :138, through intersect_triangles_pallas): for each live
+// ray, over every active triangle, the nearest Moller-Trumbore hit under
+// the reference's rules (a == 0 rejected, u in [0, 1], v >= 0,
+// u + v <= 1, t > 0 strictly, inactive triangles skipped).  It writes t
+// (+inf on a miss) and the triangle's column index in the packed (16, T)
+// table as int32 (0 on a miss); the earliest triangle wins an exact tie.
+// A dead ray gets (+inf, 0), which its caller never reads.  No culling and
+// no far bound: every live ray meets every active triangle.  Shading is
+// not here: the caller gathers the winner's row from the triangle-indexed
+// table.  The plain version is ops/triangle.py:intersect_packed_plain.
 //
-// Design: one thread per ray, a 1-D grid over the rays; the TPU's grid of
-// (ray blocks x triangle blocks) with a running (t, argmin) carried across
-// the triangle blocks in VMEM becomes a loop inside the block over tiles of
-// kTile triangles.  Each tile is staged once per block into shared memory
-// (coalesced along T: thread j loads column base + j of each of the 10 rows
-// MT reads) as three float4s per triangle, which every thread of the block
-// then reads at the same address (a broadcast).  Each ray keeps its
-// running (t, index) in registers and replaces it only on a strictly
-// nearer hit, so the triangles' index order decides ties, as the first
-// minimum (jnp.argmin, torch.min) does in the plain version.  An inactive
-// triangle is skipped before MT: the branch is the same for the whole warp.
+// Bound on the H100: FP32 arithmetic, 46 operations per (live ray, active
+// triangle) pair over 67 TFLOP/s (the TPU route tests dead rays too; the
+// bound counts the pairs whose result is read): 89.91 ms a pass on config
+// 6 under "pallas" (1.31e11 live pairs; 349.88 ms over every ray slot),
+// 2.94 ms on config 5.  The bytes (a ray's 24 in and 8 out, a triangle's
+// 48) are far below.
 //
-// Bound on the H100 (chip_smoke.py): FP32 arithmetic, 46 operations per
-// (ray, active triangle) pair; the bytes (the rays' 24 in and 8 out, the
-// table's 40 a triangle) are far below.  Left for later: tensor cores
-// (a Plucker-form product), skipping dead rays, and culling: the route is
-// brute force by definition.
+// Design, in the order of its gains (all four built):
+// 1. Live rays only.  The wrapper (ops/cuda/triangle_kernel.py:live_order)
+//    hands a live-first stable order of the rays and a 0-d count on the
+//    device; a block takes B consecutive positions of the order.  Every
+//    ray's key is the miss (+inf, 0) before the launch, so a dead ray
+//    needs no work; a block past the live positions exits at once.
+// 2. An exact early-out.  A pair first runs MT up to a = e1.h and
+//    x = s.h (22 operations, the plain version's own intermediates), then
+//    the division-free reject test mt_may_hit, the kernel's form of
+//    ops/triangle.py:pretest_rejects (tests/test_torch_triangle_live.py
+//    proves its margins).  With xs = x * sign(a), exact:
+//    - xs > RN(|a| * (1 + 2^-20)): RN(1/a) and RN(|a| * c) each err by
+//      at most 2^-22 relatively (2^-24 where normal; a subnormal one is
+//      2^-150 absolute on a value of at least 2^-128), so the exact
+//      product RN(1/a) * x exceeds (1 + 2^-20)(1 - 2^-22)(1 - 2^-24) >
+//      1 + 2^-22 and u = RN(.) > 1 (or +inf where 1/a overflows);
+//    - xs <= -2^-64 with |a| <= 2^64: |RN(1/a)| >= 2^-64, so
+//      |RN(1/a) * x| >= 2^-128 cannot round to -0.0 and u < 0.
+//    A NaN rejects nothing.  a == 0 needs no test of its own: 1/a is then
+//    +-inf and u is +-inf or NaN, which the u test rejects (MT's a != 0
+//    rule changes no result).  A warp skips a triangle when none of its
+//    lanes survives (__any_sync); survivors run the rest of MT in the
+//    plain version's order, f = 1/a, u, then q and v, then t, leaving as
+//    soon as a test fails.
+// 3. Asynchronous tile staging.  The per-scene staged table
+//    (ops/triangle.py:stage_triangles: active triangles only, 48 bytes
+//    each, three float4s: v0 and the column index, e1, e2) is read in
+//    tiles of kTile triangles, each one 1-D bulk copy (TMA, cp.async.bulk)
+//    into one of two shared buffers, completed on that buffer's mbarrier:
+//    tile k + 1 arrives while tile k is tested.  Every thread reads a
+//    triangle at the same address (a broadcast).  A block of T threads
+//    takes T * R rays (R rays a thread: one triangle's loads, vote and
+//    loop serve R pairs), the instances of SHAPES in the wrapper;
+//    chip_smoke.py's phase 6 sweeps them, and the route takes 128 x 4.
+// 4. Split triangle ranges.  A late bounce has few live rays, so few
+//    blocks, each walking the whole table; and a full bounce ends in a
+//    part-filled last wave.  Each live block's tile range is cut into
+//    parts, one block each, about kWaves waves of the card's resident
+//    blocks in all (at most one part a tile); the parts of a ray merge
+//    with a 64-bit atomicMin on (t bits << 32) | index, which keeps the
+//    nearest hit and, on a tie, the first triangle.
+//
+// Measured (chip_smoke.py phase 6; H100 80GB HBM3, 700 W; config 6 under
+// "pallas", 960x540 at 2 spp, 6 bounces, a pass's six launches): 135.09 ms
+// a pass, 66.6% of the live-pair bound (the design before this one took
+// 1352.97 ms).  Item by item, on the same launches:
+// 1. every ray live: 523.61 ms, 3.88x;
+// 2. the early-out keeps 0.14% of bounce 0's pairs, the vote passes on
+//    4.7% of (warp, triangle) pairs; a triangle no lane keeps costs 117
+//    instructions for 4 rays (29.25 a pair, cuobjdump), about 75 before;
+// 3. 1 ray a thread: 180.93 ms (4: 135.00); the asynchronous copies were
+//    not timed apart;
+// 4. without the split: 213.62 ms, bounces 2 to 5 68.31 ms (with it, 3.58).
+// What holds it back is the instruction stream: with --fmad=false each of
+// a pair's 23 FP32 operations on the fast path issues alone.
 //
 // Arithmetic: built with --fmad=false and no fast math, in the operation
-// order of the plain version (ops/triangle.py: nearest_triangle), so each
-// float operation rounds as the plain version's does.
+// order of the plain version (ops/triangle.py:moller_trumbore), so each
+// float operation of a surviving pair rounds as the plain version's does.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 struct TriParams {
-  int32_t n_rays;   // rays: the (6, n_rays) f32 origins and directions
-  int32_t n_tris;   // columns of the (16, n_tris) f32 packed table
+  int32_t n_rays;            // rays: the (6, n_rays) f32 origins, directions
+  int32_t n_tris;            // rows of the (n_tris, 12) f32 staged table
+  int32_t threads;           // threads a block (an instance of SHAPES)
+  int32_t rays_per_thread;   // rays a thread
+  int32_t split;             // 1: split triangle ranges (item 4), 0: not
 };
 
 namespace {
 
-constexpr int kBlock = 128;
-constexpr int kTile = 256;   // triangles per shared tile: 12 KB
+constexpr int kTile = 256;                  // triangles a tile: 12 KB
+constexpr int kRowFloat4 = 3;               // a staged row: three float4s
+constexpr uint32_t kRowBytes = 16 * kRowFloat4;
+constexpr float kUpper = 1.0f + 0x1p-20f;   // the u > 1 margin
+constexpr float kXMin = 0x1p-64f;           // the u < 0 margins
+constexpr float kAMax = 0x1p64f;
+// an mbarrier wait that outlasts this many polls traps instead of hanging
+constexpr uint32_t kSpinLimit = 1u << 24;
+// the split aims at this many waves of the card's resident blocks, so the
+// last wave's idle share stays near 1 / (kWaves + 1) at most
+constexpr int kWaves = 8;
 
-__global__ void __launch_bounds__(kBlock)
-triangle_kernel(const float* __restrict__ rays, const float* __restrict__ tri,
-                float* __restrict__ t_out, int32_t* __restrict__ idx_out,
-                const TriParams p) {
-  __shared__ float4 s_tri[3 * kTile];
-  const int g = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = g < p.n_rays;
-  const size_t nr = (size_t)p.n_rays;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  if (live) {
-    ox = rays[g];
-    oy = rays[nr + g];
-    oz = rays[2 * nr + g];
-    dx = rays[3 * nr + g];
-    dy = rays[4 * nr + g];
-    dz = rays[5 * nr + g];
+// MT certainly rejects (a, x) unless this holds (ops/triangle.py:
+// pretest_rejects, negated): the margins are argued above.
+__device__ __forceinline__ bool mt_may_hit(float a, float x) {
+  const float aa = fabsf(a);
+  const float xs = __uint_as_float(__float_as_uint(x)
+                                   ^ (__float_as_uint(a) & 0x80000000u));
+  return !(xs > aa * kUpper) && !(xs <= -kXMin && aa <= kAMax);
+}
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar))
+               : "memory");
+}
+
+// thread 0: the tile of n rows at src into dst, completing on bar
+__device__ __forceinline__ void tile_load(float4* dst, const float4* src,
+                                          int n, uint64_t* bar) {
+  const uint32_t bytes = static_cast<uint32_t>(n) * kRowBytes;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      ::"r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (spin == kSpinLimit) __trap();
   }
-  float best_t = INFINITY;
-  int best_i = 0;
-  const size_t nt = (size_t)p.n_tris;
-  for (int base = 0; base < p.n_tris; base += kTile) {
-    const int n = min(kTile, p.n_tris - base);
-    __syncthreads();   // the previous tile is no longer read
-    for (int j = threadIdx.x; j < n; j += kBlock) {
-      const float* q = tri + base + j;   // row r of this column at q[r * nt]
-      s_tri[3 * j] = make_float4(q[0], q[nt], q[2 * nt], q[3 * nt]);
-      s_tri[3 * j + 1] = make_float4(q[4 * nt], q[5 * nt], q[6 * nt],
-                                     q[7 * nt]);
-      s_tri[3 * j + 2] = make_float4(q[8 * nt], q[9 * nt], 0.0f, 0.0f);
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      const float4 c = s_tri[3 * j + 2];
-      if (!(c.y > 0.0f)) continue;   // inactive: the whole warp skips it
-      const float4 a0 = s_tri[3 * j];
-      const float4 a1 = s_tri[3 * j + 1];
-      // v0 = a0.xyz, e1 = (a0.w, a1.x, a1.y), e2 = (a1.z, a1.w, c.x)
-      const float e1x = a0.w, e1y = a1.x, e1z = a1.y;
-      const float e2x = a1.z, e2y = a1.w, e2z = c.x;
-      const float hx = dy * e2z - dz * e2y;
-      const float hy = dz * e2x - dx * e2z;
-      const float hz = dx * e2y - dy * e2x;
-      const float a = e1x * hx + e1y * hy + e1z * hz;
-      const float f = 1.0f / a;
-      const float sx = ox - a0.x;
-      const float sy = oy - a0.y;
-      const float sz = oz - a0.z;
-      const float u = f * (sx * hx + sy * hy + sz * hz);
-      const float qx = sy * e1z - sz * e1y;
-      const float qy = sz * e1x - sx * e1z;
-      const float qz = sx * e1y - sy * e1x;
-      const float v = f * (dx * qx + dy * qy + dz * qz);
-      const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-      if (a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
-          && t > 0.0f && t < best_t) {
-        best_t = t;
-        best_i = base + j;
+}
+
+template <int kThreads, int kRays>
+__global__ void __launch_bounds__(kThreads)
+triangle_kernel(const float* __restrict__ rays,
+                const float4* __restrict__ tri,
+                const int64_t* __restrict__ order,
+                const int64_t* __restrict__ count,
+                unsigned long long* __restrict__ key_out, const TriParams p,
+                const int fill) {
+  __shared__ __align__(128) float4 s_tri[2][kRowFloat4 * kTile];
+  __shared__ __align__(8) uint64_t s_bar[2];
+  constexpr int kBlockRays = kThreads * kRays;
+  const int64_t n_live = count != nullptr ? *count : p.n_rays;
+  const int64_t n_tiles = (p.n_tris + kTile - 1) / kTile;
+  // the live rays' blocks, each over `splits` parts of the triangle range:
+  // about kWaves * fill blocks in all (fill: the card's resident blocks),
+  // within the grid and at most one part a tile
+  const int64_t live_blocks = (n_live + kBlockRays - 1) / kBlockRays;
+  if (live_blocks == 0) return;
+  const int64_t want = p.split ? (int64_t)kWaves * fill : 0;
+  const int64_t splits = max((int64_t)1, min(min(
+      (want + live_blocks - 1) / live_blocks,
+      (int64_t)gridDim.x / live_blocks), n_tiles));
+  if (blockIdx.x >= live_blocks * splits) return;   // uniform: exits at once
+  const int64_t first = blockIdx.x / splits * kBlockRays;
+  const int64_t part = blockIdx.x % splits;
+  const int64_t k0 = part * n_tiles / splits;
+  const int64_t k1 = (part + 1) * n_tiles / splits;
+  const size_t nr = (size_t)p.n_rays;
+  float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
+  float best_t[kRays];
+  int best_i[kRays], ray[kRays];
+  bool live[kRays];
+  bool any_live = false;
+#pragma unroll
+  for (int r = 0; r < kRays; ++r) {
+    // a slot past the live rays repeats the last live ray, so its lanes
+    // reject what a live ray rejects; its result is not written
+    const int64_t pos = first + threadIdx.x + r * kThreads;
+    live[r] = pos < n_live;
+    const int64_t src = live[r] ? pos : n_live - 1;
+    ray[r] = order != nullptr ? (int)order[src] : (int)src;
+    const int g = ray[r];
+    ox[r] = rays[g];
+    oy[r] = rays[nr + g];
+    oz[r] = rays[2 * nr + g];
+    dx[r] = rays[3 * nr + g];
+    dy[r] = rays[4 * nr + g];
+    dz[r] = rays[5 * nr + g];
+    best_t[r] = INFINITY;
+    best_i[r] = 0;
+    any_live |= live[r];
+  }
+  const bool warp_live = __any_sync(0xffffffffu, any_live);
+
+  if (threadIdx.x == 0) {
+    bar_init(&s_bar[0]);
+    bar_init(&s_bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int64_t k) {   // thread 0: tile k into buffer (k - k0) & 1
+    tile_load(s_tri[(k - k0) & 1], tri + k * kTile * kRowFloat4,
+              (int)min((int64_t)kTile, p.n_tris - k * kTile),
+              &s_bar[(k - k0) & 1]);
+  };
+  if (threadIdx.x == 0 && k0 < k1) issue(k0);
+  for (int64_t k = k0; k < k1; ++k) {
+    const int b = (int)((k - k0) & 1);
+    // buffer b ^ 1 was last read in tile k - 1, before the barrier that
+    // closed it
+    if (threadIdx.x == 0 && k + 1 < k1) issue(k + 1);
+    bar_wait(&s_bar[b], (uint32_t)(((k - k0) >> 1) & 1));
+    const float4* s = s_tri[b];
+    const int n = (int)min((int64_t)kTile, p.n_tris - k * kTile);
+    if (warp_live) {
+      for (int j = 0; j < n; ++j) {
+        const float4 c0 = s[kRowFloat4 * j];       // v0, column index
+        const float4 c1 = s[kRowFloat4 * j + 1];   // e1
+        const float4 c2 = s[kRowFloat4 * j + 2];   // e2
+        float a[kRays], sx[kRays], sy[kRays], sz[kRays], x[kRays];
+        bool may[kRays];
+        bool any_may = false;
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+          const float hx = dy[r] * c2.z - dz[r] * c2.y;
+          const float hy = dz[r] * c2.x - dx[r] * c2.z;
+          const float hz = dx[r] * c2.y - dy[r] * c2.x;
+          a[r] = c1.x * hx + c1.y * hy + c1.z * hz;
+          sx[r] = ox[r] - c0.x;
+          sy[r] = oy[r] - c0.y;
+          sz[r] = oz[r] - c0.z;
+          x[r] = sx[r] * hx + sy[r] * hy + sz[r] * hz;
+          may[r] = mt_may_hit(a[r], x[r]);
+          any_may |= may[r];
+        }
+        if (!__any_sync(0xffffffffu, any_may)) continue;
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+          if (!may[r]) continue;
+          const float f = 1.0f / a[r];
+          const float u = f * x[r];
+          if (!(u >= 0.0f && u <= 1.0f)) continue;   // a == 0 too
+          const float qx = sy[r] * c1.z - sz[r] * c1.y;
+          const float qy = sz[r] * c1.x - sx[r] * c1.z;
+          const float qz = sx[r] * c1.y - sy[r] * c1.x;
+          const float v = f * (dx[r] * qx + dy[r] * qy + dz[r] * qz);
+          if (!(v >= 0.0f && u + v <= 1.0f)) continue;
+          const float t = f * (c2.x * qx + c2.y * qy + c2.z * qz);
+          if (t > 0.0f && t < best_t[r]) {
+            best_t[r] = t;
+            best_i[r] = __float_as_int(c0.w);
+          }
+        }
       }
     }
+    __syncthreads();   // buffer b is free for tile k + 2
   }
-  if (live) {
-    t_out[g] = best_t;
-    idx_out[g] = best_i;
+  // (t, index) as one key: t > 0, so its bits order as the floats do, and
+  // the least key is the nearest hit, the first triangle on a tie
+#pragma unroll
+  for (int r = 0; r < kRays; ++r) {
+    if (live[r] && best_t[r] < INFINITY) {
+      atomicMin(&key_out[ray[r]],
+                ((unsigned long long)__float_as_uint(best_t[r]) << 32)
+                    | (unsigned int)best_i[r]);
+    }
   }
+}
+
+constexpr int kMaxDevices = 64;
+
+template <int kThreads, int kRays>
+cudaError_t launch(const float* rays, const float* tri, const int64_t* order,
+                   const int64_t* count, unsigned long long* key_out,
+                   const TriParams& p, cudaStream_t stream) {
+  // the card's resident blocks of this instance, once per device
+  static int fill[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (fill[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, triangle_kernel<kThreads, kRays>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    fill[dev] = sms * max(per_sm, 1);
+  }
+  // every ray's block, and room for kWaves * fill more: live_blocks *
+  // splits < kWaves * fill + live_blocks
+  constexpr int per_block = kThreads * kRays;
+  const int blocks = (p.n_rays + per_block - 1) / per_block
+                     + kWaves * fill[dev];
+  triangle_kernel<kThreads, kRays><<<blocks, kThreads, 0, stream>>>(
+      rays, reinterpret_cast<const float4*>(tri), order, count, key_out, p,
+      fill[dev]);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// key_out: (n_rays,) u64, (t bits << 32) | index, set by the caller to the
+// miss (+inf, 0) before the launch; the kernel lowers a live ray's key to
+// its nearest hit with atomicMin (the triangle range may be split across
+// blocks), so a dead ray keeps the miss.
 extern "C" int srt_triangle_launch(const float* rays, const float* tri,
-                                   float* t_out, int32_t* idx_out,
-                                   TriParams p, void* stream) {
+                                   const int64_t* order, const int64_t* count,
+                                   unsigned long long* key_out, TriParams p,
+                                   void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
-  if (p.n_tris < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (p.n_rays + kBlock - 1) / kBlock;
-  triangle_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      rays, tri, t_out, idx_out, p);
-  return (int)cudaGetLastError();
+  if (p.n_tris < 0 || reinterpret_cast<uintptr_t>(tri) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int shape = p.threads * 10 + p.rays_per_thread;
+  switch (shape) {
+    case 1281: return (int)launch<128, 1>(rays, tri, order, count, key_out,
+                                          p, s);
+    case 2561: return (int)launch<256, 1>(rays, tri, order, count, key_out,
+                                          p, s);
+    case 1282: return (int)launch<128, 2>(rays, tri, order, count, key_out,
+                                          p, s);
+    case 2562: return (int)launch<256, 2>(rays, tri, order, count, key_out,
+                                          p, s);
+    case 1284: return (int)launch<128, 4>(rays, tri, order, count, key_out,
+                                          p, s);
+    case 644: return (int)launch<64, 4>(rays, tri, order, count, key_out,
+                                        p, s);
+    case 648: return (int)launch<64, 8>(rays, tri, order, count, key_out,
+                                        p, s);
+    case 1288: return (int)launch<128, 8>(rays, tri, order, count, key_out,
+                                          p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* srt_error_string(int err) {

@@ -3,10 +3,20 @@ route (``csrc/triangle_kernel.cu``).
 
 It replaces the TPU kernel ``_kernel`` of
 ``simple_raytracer_tpu/ops/pallas/triangle_kernel.py`` (through
-``intersect_triangles_pallas``): every ray against every triangle of the
-packed (16, T) table (``ops/triangle.pack_triangles``), the nearest
-Moller-Trumbore hit as (t, index int32).  Its plain PyTorch version is
+``intersect_triangles_pallas``): each live ray against every active
+triangle, the nearest Moller-Trumbore hit as (t, index int32), (+inf, 0)
+for a dead ray.  It reads the scene's staged table
+(``ops/triangle.stage_triangles``, built once per scene beside the packed
+(16, T) table).  Its plain PyTorch version is
 ``ops/triangle.intersect_packed_plain``.
+
+The live rays are compacted on the device (``live_order``: a live-first
+stable order and a 0-d count, never read back to the host); the kernel's
+blocks past the count exit at once.  The result is one (R,) int64 key a
+ray, (t bits << 32) | index, set to the miss (+inf, 0) before the launch
+and lowered with atomicMin by the blocks that share a ray (the kernel
+splits the triangle range across blocks when few rays are live); t and
+index are views of it.
 
 ``intersect_triangles_packed`` takes the plain version only for rays on
 the CPU.  For rays on a CUDA device it launches the kernel or raises:
@@ -17,14 +27,20 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
-from ..triangle import PACKED_ROWS, intersect_packed_plain
+from ..triangle import PACKED_ROWS, STAGED_COLS, intersect_packed_plain
 from ..vec import Vec3
 from .build import PACKAGE_DIR, Kernel
 
 SOURCE = PACKAGE_DIR / "csrc" / "triangle_kernel.cu"
+# the kernel's (threads a block, rays a thread) instances; SHAPE is the
+# one the route launches (chip_smoke.py's phase 6 sweeps them all)
+SHAPES = ((128, 1), (256, 1), (128, 2), (256, 2), (128, 4), (64, 4),
+          (64, 8), (128, 8))
+SHAPE = (128, 4)
 
 
 class TriParams(ctypes.Structure):
@@ -33,11 +49,16 @@ class TriParams(ctypes.Structure):
     _fields_ = [
         ("n_rays", ctypes.c_int32),
         ("n_tris", ctypes.c_int32),
+        ("threads", ctypes.c_int32),
+        ("rays_per_thread", ctypes.c_int32),
+        ("split", ctypes.c_int32),
     ]
 
 
-# srt_triangle_launch(rays, tri, t_out, idx_out, params, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [TriParams, ctypes.c_void_p]
+# srt_triangle_launch(rays, staged, order, count, key_out, params, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [TriParams, ctypes.c_void_p]
+# a ray's key before the launch: the miss, (+inf, 0)
+MISS_KEY = 0x7F800000 << 32
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -52,12 +73,29 @@ KERNEL = Kernel(SOURCE, _bind)
 class Prepared:
     """One launch, checked and packed."""
     rays: torch.Tensor       # (6, R) f32: o, d
-    packed: torch.Tensor     # (16, T) f32
+    packed: torch.Tensor     # (16, T) f32, the plain version's table
+    staged: torch.Tensor     # (Ta, STAGED_COLS) f32, the kernel's
+    alive: Optional[torch.Tensor]   # (R,) bool, None: every ray
+    order: Optional[torch.Tensor]   # (R,) int64, live rays first
+    count: Optional[torch.Tensor]   # 0-d int64: live rays
     params: TriParams
 
 
-def prepare(o: Vec3, d: Vec3, packed: torch.Tensor) -> Prepared:
-    """Check a CUDA launch's arguments and pack the rays."""
+def live_order(alive: torch.Tensor):
+    """(R,) bool -> (order (R,) int64, count 0-d int64): the ray indices,
+    live rays first, each part in index order, and the number of live
+    rays; nothing is read back to the host."""
+    order = torch.sort((~alive).to(torch.uint8), stable=True).indices
+    return order, alive.sum()
+
+
+def prepare(o: Vec3, d: Vec3, packed: torch.Tensor, alive, staged,
+            shape=SHAPE, split=True) -> Prepared:
+    """Check a CUDA launch's arguments (``staged``: the table's
+    ``stage_triangles``, on the card), pack the rays and order the live
+    ones first.  ``shape`` and ``split`` (the triangle range split across
+    blocks when few rays are live) differ from the route's only where
+    chip_smoke.py measures the kernel's design."""
     device = o.x.device
     if device.type != "cuda":
         raise ValueError(f"triangle kernel: unsupported device {device}")
@@ -71,39 +109,68 @@ def prepare(o: Vec3, d: Vec3, packed: torch.Tensor) -> Prepared:
         raise ValueError(f"triangle kernel: bad packed table "
                          f"{tuple(packed.shape)} {packed.dtype} on "
                          f"{packed.device}")
+    if (staged is None or staged.ndim != 2 or staged.shape[1] != STAGED_COLS
+            or staged.shape[0] > packed.shape[1] or staged.device != device
+            or staged.dtype != torch.float32 or not staged.is_contiguous()
+            or staged.data_ptr() % 16):
+        raise ValueError("triangle kernel: bad staged table "
+                         + ("None" if staged is None else
+                            f"{tuple(staged.shape)} {staged.dtype} on "
+                            f"{staged.device}"))
+    if shape not in SHAPES:
+        raise ValueError(f"triangle kernel: no instance {shape}")
+    order = count = None
+    if alive is not None:
+        if alive.shape != (n_rays,) or alive.dtype != torch.bool \
+                or alive.device != device:
+            raise ValueError(f"triangle kernel: bad alive mask "
+                             f"{tuple(alive.shape)} {alive.dtype}")
+        order, count = live_order(alive)
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z]).to(torch.float32)
-    return Prepared(rays.contiguous(), packed,
-                    TriParams(n_rays, packed.shape[1]))
+    return Prepared(rays.contiguous(), packed, staged, alive, order, count,
+                    TriParams(n_rays, staged.shape[0], *shape, int(split)))
 
 
-def launch(prep: Prepared, out=None):
-    """Launch on the current stream into ``out`` ((R,) f32 t, (R,) int32
-    index; allocated when not given) and count the launch."""
+def split_key(key: torch.Tensor):
+    """(R,) int64 keys -> (t f32, idx int32), views of the key's high and
+    low words."""
+    n = key.shape[0]
+    return (key.view(torch.float32).view(n, 2)[:, 1],
+            key.view(torch.int32).view(n, 2)[:, 0])
+
+
+def launch(prep: Prepared, key=None):
+    """Set ``key`` ((R,) int64, allocated when not given) to the miss,
+    launch on the current stream, count the launch and return (t, idx),
+    views of ``key``."""
     n = prep.params.n_rays
     device = prep.rays.device
-    if out is None:
-        out = (torch.empty(n, dtype=torch.float32, device=device),
-               torch.empty(n, dtype=torch.int32, device=device))
-    elif any(t.shape != (n,) or t.dtype != dtype or t.device != device
-             or not t.is_contiguous()
-             for t, dtype in zip(out, (torch.float32, torch.int32))):
-        raise ValueError("triangle kernel: bad output tensors")
+    if key is None:
+        key = torch.empty(n, dtype=torch.int64, device=device)
+    elif (key.shape != (n,) or key.dtype != torch.int64
+          or key.device != device or not key.is_contiguous()):
+        raise ValueError("triangle kernel: bad key tensor")
+    key.fill_(MISS_KEY)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     lib = KERNEL.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.srt_triangle_launch(prep.rays.data_ptr(),
-                                      prep.packed.data_ptr(),
-                                      out[0].data_ptr(), out[1].data_ptr(),
-                                      prep.params, stream)
+                                      prep.staged.data_ptr(),
+                                      ptr(prep.order), ptr(prep.count),
+                                      key.data_ptr(), prep.params, stream)
     KERNEL.check(err, "triangle kernel")
     KERNEL.count("triangle")
-    return out
+    return split_key(key)
 
 
-def intersect_triangles_packed(o: Vec3, d: Vec3, packed: torch.Tensor):
+def intersect_triangles_packed(o: Vec3, d: Vec3, packed: torch.Tensor,
+                               alive=None, staged=None):
     """(R,) rays x the packed (16, T) table -> (t f32, idx int32): each
-    ray's nearest triangle hit, (+inf, 0) where there is none; the first
-    triangle wins an exact tie."""
+    live ray's nearest triangle hit, (+inf, 0) where there is none and for
+    a dead ray (``alive`` (R,) bool; None: every ray is live); the first
+    triangle wins an exact tie.  On the card ``staged``, the scene's
+    ``Triangles.staged``, is the kernel's table."""
     if o.x.device.type == "cpu":
-        return intersect_packed_plain(o, d, packed)
-    return launch(prepare(o, d, packed))
+        return intersect_packed_plain(o, d, packed, alive)
+    return launch(prepare(o, d, packed, alive, staged))

@@ -205,8 +205,9 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
     set (the other rays' results are not used).
 
     Under ``tri_backend`` "pallas" every mesh goes through the triangle
-    kernel over its packed table (on the CPU, its plain version), under
-    "jnp" through the dense loop, over every ray and triangle, clustered
+    kernel over every active triangle of its staged table, for the live
+    rays only (on the CPU, its plain version over the packed table), under
+    "jnp" through the dense loop over every ray and triangle, clustered
     or not, as the JAX ``closest_hit`` routes them; the winner's row comes
     from the triangle-indexed table ``Triangles.rows``.  Otherwise a
     clustered mesh goes through the BVH kernel with its far bound seeded
@@ -222,8 +223,8 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
     i_t, rows = None, tr.rows
     if tr.material.shape[0] > 0:
         if tri_backend == "pallas":
-            t_t, i_t = triangle_kernel.intersect_triangles_packed(o, d,
-                                                                  tr.packed)
+            t_t, i_t = triangle_kernel.intersect_triangles_packed(
+                o, d, tr.packed, alive, tr.staged)
             i_t = i_t.long()
         elif tri_backend != "jnp" and tr.clusters is not None:
             t_t, i_t = bvh_kernel.intersect_triangles_bvh(

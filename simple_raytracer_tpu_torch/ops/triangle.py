@@ -15,7 +15,13 @@ rejected, u in [0, 1], v >= 0, u + v <= 1, t > 0 strictly, inactive
 triangles skipped), in chunks of at most ``TRI_CHUNK_ELEMS`` ray-triangle
 pairs; the first index wins an exact tie (``torch.min`` within a chunk, a
 strict ``<`` across chunks), and a miss gives (+inf, 0).
-``intersect_packed_plain`` runs it over the packed table.
+``intersect_packed_plain`` runs it over the packed table, on the live rays
+only when given an ``alive`` mask (a dead ray gets (+inf, 0)).
+
+``stage_triangles`` is the kernel's own layout of the same table, built
+once per scene beside it: one 48-byte row per active triangle.
+``pretest_rejects`` is the kernel's division-free early-out, repeated in
+its operation order; only the tests call it.
 """
 from __future__ import annotations
 
@@ -31,6 +37,15 @@ from .vec import Vec3, dot
 # caches, on a card (256 MB each) there are fewer, larger launches
 TRI_CHUNK_ELEMS = {"cpu": 2 ** 22, "cuda": 2 ** 26}
 PACKED_ROWS = 16
+# the staged table's row: v0 and the column index (int32 bits), e1 and 0,
+# e2 and 0 (three float4s)
+STAGED_COLS = 12
+# the kernel's early-out (pretest_rejects): u is certainly above 1 when
+# x * sign(a) > |a| * PRETEST_UPPER, certainly below 0 when
+# x * sign(a) <= -PRETEST_X_MIN while |a| <= PRETEST_A_MAX
+PRETEST_UPPER = 1.0 + 2.0 ** -20
+PRETEST_X_MIN = 2.0 ** -64
+PRETEST_A_MAX = 2.0 ** 64
 
 
 def pack_triangles(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
@@ -44,6 +59,58 @@ def pack_triangles(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     out[6:9] = (np.asarray(v2, np.float32) - v0).T
     out[9] = np.asarray(active, bool)
     return out
+
+
+def stage_triangles(packed: np.ndarray) -> np.ndarray:
+    """The kernel's staged table from the packed (16, T) one: the active
+    columns in order, one (STAGED_COLS,) f32 row each: v0 and the column
+    index (its int32 bits), e1 and 0, e2 and 0.  A tile of rows is one
+    contiguous copy."""
+    packed = np.asarray(packed, np.float32)
+    act = np.flatnonzero(packed[9] > 0.0)
+    out = np.zeros((act.size, STAGED_COLS), np.float32)
+    out[:, 0:3] = packed[0:3, act].T
+    out[:, 3] = act.astype(np.int32).view(np.float32)
+    out[:, 4:7] = packed[3:6, act].T
+    out[:, 8:11] = packed[6:9, act].T
+    return out
+
+
+def moller_trumbore(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3):
+    """Moller-Trumbore's terms, elementwise (broadcasting), in the kernels'
+    operation order: (a = e1.h, x = s.h, u, v, t) with h = d x e2,
+    s = o - v0, q = s x e1 and f = 1 / a."""
+    h = Vec3(d.y * e2.z - d.z * e2.y, d.z * e2.x - d.x * e2.z,
+             d.x * e2.y - d.y * e2.x)
+    a = dot(e1, h)
+    f = 1.0 / a
+    s = o - v0
+    x = dot(s, h)
+    q = Vec3(s.y * e1.z - s.z * e1.y, s.z * e1.x - s.x * e1.z,
+             s.x * e1.y - s.y * e1.x)
+    return a, x, f * x, f * dot(d, q), f * dot(e2, q)
+
+
+def pretest_rejects(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's early-out on MT's a = e1.h and x = s.h (f32), in its
+    operation order: True where Moller-Trumbore certainly rejects the
+    pair, from u = RN(RN(1 / a) * x) certainly outside [0, 1].  With
+    xs = x * sign(a) (a sign flip, exact):
+
+    - xs > RN(|a| * (1 + 2^-20)): u > 1, or u = inf;
+    - xs <= -2^-64 with |a| <= 2^64: RN(1 / a) is at least 2^-64 in
+      magnitude, so |RN(1 / a) * x| >= 2^-128 does not round to -0.0,
+      and u < 0 (or -inf).
+
+    A NaN never rejects.  a == 0 is left to MT: u is then +-inf or NaN,
+    outside [0, 1].  tests/test_torch_triangle_live.py proves the margins
+    on adversarial floats."""
+    sign = a.view(torch.int32) & -2 ** 31
+    xs = (x.view(torch.int32) ^ sign).view(torch.float32)
+    aa = a.abs()
+    upper = torch.tensor(PRETEST_UPPER, dtype=torch.float32, device=a.device)
+    return (xs > aa * upper) | ((xs <= -PRETEST_X_MIN)
+                                & (aa <= PRETEST_A_MAX))
 
 
 def nearest_triangle(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3,
@@ -63,17 +130,7 @@ def nearest_triangle(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3,
     for c0 in range(0, n, chunk):
         sl = slice(c0, c0 + chunk)
         row = lambda v: Vec3(v.x[None, sl], v.y[None, sl], v.z[None, sl])
-        a1, a2 = row(e1), row(e2)
-        h = Vec3(rd.y * a2.z - rd.z * a2.y, rd.z * a2.x - rd.x * a2.z,
-                 rd.x * a2.y - rd.y * a2.x)
-        a = dot(a1, h)
-        f = 1.0 / a
-        s = ro - row(v0)
-        u = f * dot(s, h)
-        q = Vec3(s.y * a1.z - s.z * a1.y, s.z * a1.x - s.x * a1.z,
-                 s.x * a1.y - s.y * a1.x)
-        v = f * dot(rd, q)
-        t = f * dot(a2, q)
+        a, _, u, v, t = moller_trumbore(ro, rd, row(v0), row(e1), row(e2))
         valid = ((a != 0.0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
                  & (u + v <= 1.0) & (t > 0.0) & active[None, sl])
         t_c, i_c = torch.min(torch.where(valid, t, math.inf), dim=1)
@@ -86,10 +143,21 @@ def nearest_triangle(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3,
     return t_best, i_best, u_best, v_best
 
 
-def intersect_packed_plain(o: Vec3, d: Vec3, packed: torch.Tensor):
+def intersect_packed_plain(o: Vec3, d: Vec3, packed: torch.Tensor,
+                           alive=None):
     """The plain version of the triangle kernel: (R,) rays x the (16, T)
     packed table -> (t f32, idx int32), the kernel's contract
-    (``intersect_triangles_pallas``)."""
+    (``intersect_triangles_pallas``) on every ray whose (R,) bool
+    ``alive`` is set (None: every ray); a dead ray gets (+inf, 0)."""
+    if alive is not None:
+        live = torch.nonzero(alive)[:, 0]
+        sub = lambda v: Vec3(v.x[live], v.y[live], v.z[live])
+        t_live, i_live = intersect_packed_plain(sub(o), sub(d), packed)
+        t = torch.full_like(o.x, math.inf)
+        idx = torch.zeros(o.x.shape, dtype=torch.int32, device=o.x.device)
+        t[live] = t_live
+        idx[live] = i_live
+        return t, idx
     rows = lambda i: Vec3(packed[i], packed[i + 1], packed[i + 2])
     t, idx, _, _ = nearest_triangle(o, d, rows(0), rows(3), rows(6),
                                     packed[9] > 0.0)
