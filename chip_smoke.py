@@ -28,8 +28,9 @@ are a path of their own.  Phases, one line each on stdout:
   3. the main paths: each cell at its preset size through
      Renderer(device="cuda"), 4 progressive steps, with every kernel's
      launch counts (in all and per variant) reset just before and read
-     just after the cell; the scene build's seconds (once per scene) and
-     the Plucker coefficient table's; then the probes' run(), its counts
+     just after the cell; the scene build's seconds (once per scene), the
+     Plucker coefficient table's and the triangle kernel's staged
+     table's (once per scene, on first use); then the probes' run(), its counts
      reset just before it;
   4. each kernel against its plain PyTorch version on the card, one pass
      of each cell at full size: the whole-trace canvas (config 6 under
@@ -39,9 +40,9 @@ are a path of their own.  Phases, one line each on stdout:
      live rays, every shade launch's 20 state rows, every triangle
      launch's (t, index) on every ray, dead rays (+inf, 0) included, with
      each launch's live rays (config 6 under "pallas": a band of rows;
-     the kernel visits live rays only), and the canvas, and every
-     instance of the triangle kernel on ragged random tables and ray
-     batches (RAGGED); config 4 under "jnp" against the "pallas"
+     the kernel visits live rays only), and the canvas, and the
+     triangle kernel on ragged random tables and ray batches (RAGGED);
+     config 4 under "jnp" against the "pallas"
      route on the same rays; then, for configs 6 and 5 "bvh", the per-ray
      gate against a gate-free dense Moller-Trumbore over every triangle,
      on every launch of a pass of one full-width band of rows; and the
@@ -62,20 +63,21 @@ are a path of their own.  Phases, one line each on stdout:
      count as they were;
   6. timings with CUDA events, and each kernel's bound (and the texture's
      sample beside the nine-row kernel); the triangle kernel's launches
-     of a pass one by one (per bounce, with its live rays, what its
-     early-out keeps, and without the split of triangle ranges), its
-     bound over the live (ray, triangle) pairs and over every ray, and a
-     sweep of its instances (threads a block x rays a thread), each
-     instance's (t, index) equal to the route's; benchmark_step of
+     of a pass one by one (per bounce, with its live rays and what its
+     early-out keeps), the pass with every ray dead (the live-ray
+     compaction and an empty grid) and with every ray live, its bound
+     over the live (ray, triangle) pairs in its early-out form (the
+     pairs each test of the form keeps, counted on sampled warps of
+     each launch), and full MT over the live pairs and over every ray
+     beside it; benchmark_step of
      configs 6 and 7 under "auto" and "fused" side by side; the BVH
      kernel's Plucker form against its MT form on the same launches, in
      turns; the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell).
 Then one JSON line per the kernel table (the triangle kernel's row also
-carries its all-ray bound and its 6/pallas numbers), the card line again,
-and the
-last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
+carries its full-MT bounds over the live pairs and over every ray, and
+its 6/pallas numbers), the card line again, and the last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
 before the last line.  Without CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
@@ -120,7 +122,8 @@ from simple_raytracer_tpu_torch.ops.triangle import (intersect_packed_plain,
                                                      moller_trumbore,
                                                      pack_triangles,
                                                      pretest_rejects,
-                                                     stage_triangles)
+                                                     stage_triangles,
+                                                     staged_table)
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 from simple_raytracer_tpu_torch.scripts import probe_kernel_ops as probe
 
@@ -341,7 +344,8 @@ def build_kernels() -> str:
     for kernel, entry, names in ((tk.KERNEL, "trace_kernel", tk.TRI_MODES),
                                  (bk.KERNEL, "bvh_kernel", bk.VARIANTS),
                                  (sk.KERNEL, "bounce_kernel", {}),
-                                 (trk.KERNEL, "triangle_kernel", {}),
+                                 (trk.KERNEL,
+                                  "triangle_kernel(?=E)|compact_live", {}),
                                  (probe.KERNEL,
                                   "(?:column_sum|scalar_sum|gated_loop)",
                                   {})):
@@ -362,7 +366,7 @@ def build_kernels() -> str:
 
 
 def triangle_sass() -> str:
-    """The route's instance of the triangle kernel as compiled: the
+    """The triangle kernel as compiled: the
     instructions from a triangle's first shared load to the warp vote
     and its branch (the path of a triangle that no lane keeps), by
     opcode, from cuobjdump -sass of the built library."""
@@ -371,9 +375,9 @@ def triangle_sass() -> str:
         return "not measured (no cuobjdump)"
     out = subprocess.run([tool, "-sass", trk.KERNEL.library()._name],
                          capture_output=True, text=True).stdout
-    threads, rays = trk.SHAPE
+    rays = trk.SHAPE[1]
     for func in out.split("Function : ")[1:]:
-        if f"triangle_kernelILi{threads}ELi{rays}E" not in func.split()[0]:
+        if "triangle_kernelE" not in func.split()[0]:
             continue
         ops = [m.group(1) for m in re.finditer(
             r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", func)]
@@ -387,7 +391,7 @@ def triangle_sass() -> str:
                 f"{body['FFMA']}), " + ", ".join(
                     f"{k} {v}" for k, v in body.most_common()
                     if k not in ("FMUL", "FADD", "FFMA")))
-    return "not measured (instance not found)"
+    return "not measured (kernel not found)"
 
 
 # Float operations of the kernels, counted from the CUDA sources (adds,
@@ -397,6 +401,13 @@ RAYGEN_FLOPS = 42          # 2 uniforms, NDC, screen, rotate, normalize
 SPHERE_FLOPS = 21          # one sphere test
 PLANE_FLOPS = 14           # one plane test
 MT_FLOPS = 46              # one Moller-Trumbore test (mt_update)
+# the triangle kernel's early-out form of it: MT to a and x and the margin
+# multiply on every pair, then f and u where the early-out keeps the pair,
+# q, v and u + v where u passes, t where v passes (47: MT and the margin)
+EARLY_OUT_FLOPS = 23
+KEPT_FLOPS = 2
+U_PASS_FLOPS = 16
+V_PASS_FLOPS = 6
 PLUCKER_FLOPS = 38         # one Plucker-form test (plucker_slot)
 PLUCKER_RAY_FLOPS = 9      # a walked ray's m = o x d (the Plucker form)
 SLAB_FLOPS = 24            # one box's slab test, without the margin
@@ -739,19 +750,20 @@ VOTE_WARPS = 128     # warps sampled a launch for the early-out's shares
 
 def early_out_shares(prep) -> tuple:
     """What the triangle kernel's early-out leaves on one launch, over
-    VOTE_WARPS of the route's warps spread evenly over the live rays (a
-    warp: 32 lanes x R rays of the live-first order, as the kernel takes
+    VOTE_WARPS of its warps spread evenly over the live rays (a warp: 32
+    lanes x R rays of the launch's live-ray list, as the kernel takes
     them) against every active triangle: the shares of (live ray,
     triangle) pairs that survive ops/triangle.pretest_rejects, of (warp,
-    triangle) pairs whose vote passes, and of pairs that MT accepts."""
+    triangle) pairs whose vote passes, of pairs whose u passes, whose v
+    passes too, and that MT accepts."""
     threads, rays = trk.SHAPE
     n_live = (prep.params.n_rays if prep.count is None
               else int(prep.count))
     if n_live == 0:
-        return 0.0, 0.0, 0.0
+        return 0.0, 0.0, 0.0, 0.0, 0.0
     device = prep.rays.device
     order = (torch.arange(prep.params.n_rays, device=device)
-             if prep.order is None else prep.order)
+             if prep.order is None else prep.order.long())
     per_warp = threads // 32
     n_warps = -(-n_live // (threads * rays)) * per_warp
     pick = torch.linspace(0, n_warps - 1, min(VOTE_WARPS, n_warps),
@@ -765,32 +777,36 @@ def early_out_shares(prep) -> tuple:
     o_ = Vec3(*(prep.rays[i, src][:, None] for i in range(3)))
     d_ = Vec3(*(prep.rays[i, src][:, None] for i in range(3, 6)))
     st = prep.staged
-    kept = votes = hits = 0
+    kept = votes = u_ok = v_ok = hits = 0
     for c0 in range(0, st.shape[0], 2048):
         col = lambda j: Vec3(*(st[None, c0:c0 + 2048, j + i]
                                for i in range(3)))
         a, x, u, v, t = moller_trumbore(o_, d_, col(0), col(4), col(8))
         # a slot past the live rays repeats the last live ray and votes
         may = ~pretest_rejects(a, x)
-        ok = ((a != 0) & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
-              & (t > 0) & real.reshape(-1, 1))
-        kept += int((may & real.reshape(-1, 1)).sum())
+        r_ = real.reshape(-1, 1)
+        # the early-out never drops a pair whose u passes (a == 0 fails)
+        u_pass = (u >= 0) & (u <= 1) & r_
+        v_pass = u_pass & (v >= 0) & (u + v <= 1)
+        kept += int((may & r_).sum())
         votes += int(may.view(len(pick), -1, may.shape[1]).any(1).sum())
-        hits += int(ok.sum())
+        u_ok += int(u_pass.sum())
+        v_ok += int(v_pass.sum())
+        hits += int((v_pass & (a != 0) & (t > 0)).sum())
     pairs = int(real.sum()) * st.shape[0]
-    return kept / pairs, votes / (len(pick) * st.shape[0]), hits / pairs
+    return (kept / pairs, votes / (len(pick) * st.shape[0]), u_ok / pairs,
+            v_ok / pairs, hits / pairs)
 
 
 def triangle_timing(res: dict) -> dict:
     """Phase 6 of a "pallas" cell: the recorded launches of a pass, all
-    together (the kernel's time a pass, ``k_all``) and one by one
-    (``per``), the live and all-ray (ray, active triangle) pairs and the
-    bytes, each instance of ``trk.SHAPES`` on the same launches
-    (``sweep``, ms a pass), and the route's instance without the split of
-    triangle ranges, one launch at a time (``per_unsplit``), whose (t,
-    index) must equal the route's, and the same launches with every ray
-    live (``every_ray``, the TPU route's work), whose live rays must keep
-    their (t, index)."""
+    together (the kernel's time a pass, ``k_all``, the live-ray compaction
+    in each launch included) and one by one (``per``); the same launches
+    with every ray dead (``dead``: the compaction and a grid whose blocks
+    exit at once) and with every ray live (``every_ray``, the TPU route's
+    work), whose live rays must keep their (t, index); each launch's
+    early-out shares; the live and all-ray (ray, active triangle) pairs,
+    the early-out form's FLOPs and the bytes."""
     rec, work = res["recorded"], res["work"]
     preps = [pp for pp, _ in rec]
     outs = [oo for _, oo in rec]
@@ -800,25 +816,20 @@ def triangle_timing(res: dict) -> dict:
     each = lambda ps: [float(np.median(cuda_ms(
         lambda pp=pp, kk=kk: trk.launch(pp, kk), iters=1, repeats=3,
         warmup=1))) for pp, kk in zip(ps, keys)]
-    variant = lambda shape, split: [dataclasses.replace(
-        pp, params=trk.TriParams(pp.params.n_rays, pp.params.n_tris, *shape,
-                                 split)) for pp in preps]
-
-    def same(what):
-        if not all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                   for a, b in zip(map(trk.split_key, keys), outs)):
-            fail(f"the triangle kernel's {what} differs from the route")
-
     k_all = cuda_ms(lambda: run(preps), iters=1, repeats=3, warmup=1)
     per = each(preps)
-    sweep = {}
-    for shape in trk.SHAPES:
-        ms = cuda_ms(lambda ps=variant(shape, 1): run(ps), iters=1,
-                     repeats=3, warmup=1)
-        same(f"instance {shape}")
-        sweep[f"{shape[0]}x{shape[1]}"] = round(float(np.median(ms)), 4)
-    per_unsplit = each(variant(trk.SHAPE, 0))
-    same("launch without the split")
+    if not all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(map(trk.split_key, keys), outs)):
+        fail("the triangle kernel's replayed launches differ from the route")
+    # read while each launch's live-ray list is the one just replayed
+    shares = [early_out_shares(pp) for pp in preps]
+    dead = [dataclasses.replace(pp, alive=torch.zeros_like(pp.alive),
+                                order=torch.empty_like(pp.order),
+                                count=torch.empty_like(pp.count))
+            for pp in preps]
+    dead_ms = cuda_ms(lambda: run(dead), iters=1, repeats=3, warmup=1)
+    if not all(bool((kk == trk.MISS_KEY).all()) for kk in keys):
+        fail("the triangle kernel wrote a key for a dead ray")
     every = [dataclasses.replace(pp, alive=None, order=None, count=None)
              for pp in preps]
     every_ms = cuda_ms(lambda: run(every), iters=1, repeats=3, warmup=1)
@@ -827,10 +838,12 @@ def triangle_timing(res: dict) -> dict:
         if not (torch.equal(t_e[pp.alive], t_r[pp.alive])
                 and torch.equal(i_e[pp.alive], i_r[pp.alive])):
             fail("the triangle kernel over every ray differs on live rays")
+    flops = sum(live * act * (EARLY_OUT_FLOPS + KEPT_FLOPS * sh[0]
+                              + U_PASS_FLOPS * sh[2] + V_PASS_FLOPS * sh[3])
+                for (_, live, act, _), sh in zip(work, shares))
     return dict(
-        k_all=k_all, per=per, sweep=sweep, per_unsplit=per_unsplit,
-        every_ray=float(np.median(every_ms)),
-        shares=[early_out_shares(pp) for pp in preps],
+        k_all=k_all, per=per, dead=float(np.median(dead_ms)),
+        every_ray=float(np.median(every_ms)), shares=shares, flops=flops,
         live_pairs=sum(live * act for _, live, act, _ in work),
         all_pairs=sum(n * act for n, _, act, _ in work),
         nbytes=sum(n * TRI_RAY_BYTES + live * TRI_LIVE_BYTES
@@ -1070,19 +1083,18 @@ RAGGED = ((1000, 3000, 0.6), (1, 77, 0.6), (0, 50, 0.6), (257, 513, 0.6),
 
 
 def ragged_triangle_check(card: str) -> None:
-    """Every instance of the triangle kernel (trk.SHAPES), and the
-    route's without the split of triangle ranges, on seeded random
-    tables and rays of RAGGED, with and without an alive mask, against
-    the plain version: (t, index) equal on every ray."""
+    """The triangle kernel on seeded random tables and rays of RAGGED,
+    with and without an alive mask, against the plain version: (t,
+    index) equal on every ray."""
     g = np.random.default_rng(0)
     cases = 0
     for n_tris, n_rays, share in RAGGED:
         v0 = g.uniform(-3, 3, (n_tris, 3)).astype(np.float32)
         v1 = (v0 + g.normal(0, 0.8, (n_tris, 3))).astype(np.float32)
         v2 = (v0 + g.normal(0, 0.8, (n_tris, 3))).astype(np.float32)
-        packed = pack_triangles(v0, v1, v2, g.random(n_tris) < 0.9)
-        staged = torch.from_numpy(stage_triangles(packed)).cuda()
-        packed = torch.from_numpy(packed).cuda()
+        packed = torch.from_numpy(
+            pack_triangles(v0, v1, v2, g.random(n_tris) < 0.9)).cuda()
+        staged = stage_triangles(packed)
         o = torch.from_numpy(g.normal(0, 5, (n_rays, 3)).astype(np.float32))
         d = torch.from_numpy(g.normal(0, 1, (n_rays, 3)).astype(np.float32))
         o, d = o.cuda(), (d / d.norm(dim=1, keepdim=True)).cuda()
@@ -1090,21 +1102,15 @@ def ragged_triangle_check(card: str) -> None:
         alive = torch.from_numpy(g.random(n_rays) < share).cuda()
         for mask in (None, alive):
             t_p, i_p = intersect_packed_plain(o_, d_, packed, mask)
-            for shape, split in ([(sh, True) for sh in trk.SHAPES]
-                                 + [(trk.SHAPE, False)]):
-                t_k, i_k = trk.launch(trk.prepare(o_, d_, packed, mask,
-                                                  staged, shape, split))
-                if not (torch.equal(t_k, t_p) and torch.equal(i_k, i_p)):
-                    fail(f"the triangle kernel {shape} (split {split}) on a "
-                         f"ragged table "
-                         f"({n_tris} triangles, {n_rays} rays, alive "
-                         f"{mask is not None}) differs from the plain "
-                         "version")
-                cases += 1
+            t_k, i_k = trk.launch(trk.prepare(o_, d_, packed, mask, staged))
+            if not (torch.equal(t_k, t_p) and torch.equal(i_k, i_p)):
+                fail(f"the triangle kernel on a ragged table ({n_tris} "
+                     f"triangles, {n_rays} rays, alive {mask is not None}) "
+                     "differs from the plain version")
+            cases += 1
     say(f"[4] triangle kernel on ragged tables {RAGGED} (triangles, rays, "
-        f"live share), every instance {trk.SHAPES} and {trk.SHAPE} without "
-        f"the split, with and without an alive mask: {cases} cases, (t, index) equal to the plain version "
-        f"on every ray  [{card}]")
+        f"live share), with and without an alive mask: {cases} cases, (t, "
+        f"index) equal to the plain version on every ray  [{card}]")
 
 
 def brute_force_cell(label: str, r: Renderer, camera, card: str) -> dict:
@@ -1237,6 +1243,16 @@ def main() -> int:
             say(f"[3] cell {label}: the Plucker coefficient table "
                 f"{tuple(coeffs.shape)} ({coeffs.numel() * 4 / 1e6:.1f} MB) "
                 f"built in {time.perf_counter() - t0:.4f} s  [{card}]")
+        tris = r.device_scene.triangles
+        if label in PALLAS and tris.staged is None:
+            # the triangle kernel's staged table, built once per scene on
+            # its first launch
+            t0 = time.perf_counter()
+            staged = staged_table(tris)
+            torch.cuda.synchronize()
+            say(f"[3] cell {label}: the triangle kernel's staged table "
+                f"{tuple(staged.shape)} ({staged.numel() * 4 / 1e6:.1f} MB)"
+                f" built in {time.perf_counter() - t0:.4f} s  [{card}]")
         for kernel in KERNELS.values():
             kernel.reset_counts()
         for _ in range(STEPS):
@@ -1553,43 +1569,45 @@ def main() -> int:
             tt = triangle_timing(res)
             k_all = tt["k_all"]
             k_ms = float(np.median(k_all))
-            flops = float(tt["live_pairs"] * MT_FLOPS)
+            # the bound counts the early-out form's operations; full MT
+            # over the live pairs and over every ray beside it
+            flops = float(tt["flops"])
             nbytes = float(tt["nbytes"])
+            mt_bound = tt["live_pairs"] * MT_FLOPS / FP32_PEAK * 1e3
             all_bound = tt["all_pairs"] * MT_FLOPS / FP32_PEAK * 1e3
             p_ms = res["plain_ms"]
             p_note = (f"plain on {res['where']} (sum over the pass's "
                       "launches, one run)")
             n, _, act, cols = res["work"][0]
             per_b = ", ".join(
-                f"b{b} {ms:.4f} ms ({w[1]} live; without the split "
-                f"{ms0:.4f} ms; early-out keeps {sh[0]:.3e} of pairs, vote "
-                f"passes {sh[1]:.3e} of (warp, triangle), MT accepts "
-                f"{sh[2]:.3e})"
-                for b, (ms, ms0, w, sh) in enumerate(zip(
-                    tt["per"], tt["per_unsplit"], res["work"],
-                    tt["shares"])))
+                f"b{b} {ms:.4f} ms ({w[1]} live; early-out keeps "
+                f"{sh[0]:.3e} of pairs, vote passes {sh[1]:.3e} of (warp, "
+                f"triangle), u passes {sh[2]:.3e}, v {sh[3]:.3e}, MT "
+                f"accepts {sh[4]:.3e})"
+                for b, (ms, w, sh) in enumerate(zip(
+                    tt["per"], res["work"], tt["shares"])))
             work = (f"{len(tt['per'])} launches of {n} rays x {act} active "
-                    f"triangles ({cols} columns); per launch: {per_b}; "
+                    f"triangles ({cols} columns), {trk.SHAPE[0]} threads x "
+                    f"{trk.SHAPE[1]} rays a block; per launch: {per_b}; "
                     f"live pairs {tt['live_pairs']:.6g} of "
-                    f"{tt['all_pairs']:.6g}; instances (threads x rays a "
-                    f"thread, SHAPE "
-                    f"{trk.SHAPE[0]}x{trk.SHAPE[1]}), ms a pass: "
-                    f"{tt['sweep']}, each equal to the route's (t, index); "
+                    f"{tt['all_pairs']:.6g}, "
+                    f"{flops / tt['live_pairs']:.4f} FLOP a live pair in "
+                    f"the early-out form; "
                     f"{tt['live_pairs'] / k_ms / 1e6:.2f} G live pairs/s; "
-                    f"the same launches with every ray live (the TPU "
+                    f"full MT over the live pairs {mt_bound:.4f} ms; "
+                    f"every ray dead "
+                    f"(the compaction, an empty grid) {tt['dead']:.4f} ms a "
+                    f"pass; the same launches with every ray live (the TPU "
                     f"route's work) {tt['every_ray']:.4f} ms a pass, "
                     f"{tt['all_pairs'] / tt['every_ray'] / 1e6:.2f} G "
-                    f"pairs/s, against the bound over every ray "
-                    f"{all_bound:.4f} ms: "
-                    f"{all_bound / tt['every_ray'] * 100:.1f}% of it")
+                    f"pairs/s; full MT over every ray {all_bound:.4f} ms")
             timing[label] = ("triangle", res["max_abs"])
             tri_cells[label] = dict(
-                bound_all_rays_ms=all_bound, per_launch_ms=tt["per"],
-                per_launch_unsplit_ms=tt["per_unsplit"],
+                bound_mt_live_ms=mt_bound, bound_all_rays_ms=all_bound,
+                per_launch_ms=tt["per"], dead_ms=tt["dead"],
                 every_ray_ms=tt["every_ray"],
                 early_out_shares=tt["shares"],
-                live_per_launch=[w[1] for w in res["work"]],
-                shapes_ms=tt["sweep"])
+                live_per_launch=[w[1] for w in res["work"]])
         elif label in SPLIT + FUSED:
             cl = ds.triangles.clusters
             # the BVH kernel's launches of one pass, replayed as recorded
@@ -1794,10 +1812,10 @@ def main() -> int:
                          if cell in BAND_CELLS else "")),
         })
         if kind == "triangle":
-            # its bound over every ray (the TPU route's work) and each
-            # "pallas" cell's numbers
-            entries[-1]["bound_all_rays_ms"] = \
-                tri_cells[cell]["bound_all_rays_ms"]
+            # its full-MT bounds over the live pairs and over every ray
+            # (the TPU route's work), and each "pallas" cell's numbers
+            for key in ("bound_mt_live_ms", "bound_all_rays_ms"):
+                entries[-1][key] = tri_cells[cell][key]
             entries[-1]["cells"] = tri_cells
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -13,19 +13,26 @@
 // not here: the caller gathers the winner's row from the triangle-indexed
 // table.  The plain version is ops/triangle.py:intersect_packed_plain.
 //
-// Bound on the H100: FP32 arithmetic, 46 operations per (live ray, active
-// triangle) pair over 67 TFLOP/s (the TPU route tests dead rays too; the
-// bound counts the pairs whose result is read): 89.91 ms a pass on config
-// 6 under "pallas" (1.31e11 live pairs; 349.88 ms over every ray slot),
-// 2.94 ms on config 5.  The bytes (a ray's 24 in and 8 out, a triangle's
-// 48) are far below.
+// Bound on the H100: FP32 arithmetic over 67 TFLOP/s, counted over the
+// (live ray, active triangle) pairs (the TPU route tests dead rays too;
+// the bound counts the pairs whose result is read) in this kernel's exact
+// form: 23 operations a pair to the early-out (MT to a and x, the margin
+// multiply), then 2 (f, u) for a pair it keeps, 16 (q, v, u + v) where u
+// passes and 6 (t) where v passes, the shares counted on sampled warps
+// of each launch (chip_smoke.py phase 6): 45.00 ms a pass on config 6
+// under "pallas" (1.31e11 live pairs, 23.03 operations each), 1.48 ms on
+// config 5.  Full MT on every live pair (46 operations; 89.91 and 2.94
+// ms) and on every ray slot are printed beside it.  The bytes (a ray's 24
+// in and 8 out, a triangle's 48) are far below.
 //
 // Design, in the order of its gains (all four built):
-// 1. Live rays only.  The wrapper (ops/cuda/triangle_kernel.py:live_order)
-//    hands a live-first stable order of the rays and a 0-d count on the
-//    device; a block takes B consecutive positions of the order.  Every
-//    ray's key is the miss (+inf, 0) before the launch, so a dead ray
-//    needs no work; a block past the live positions exits at once.
+// 1. Live rays only.  With an alive mask, compact_live first writes the
+//    live rays' indices and their count on the device (a ballot and one
+//    atomicAdd a block; nothing is read back to the host; the blocks land
+//    in any order, which changes no ray's result); a triangle_kernel block
+//    takes kBlockRays consecutive positions of that list.  Every ray's key
+//    is the miss (+inf, 0) before the launch, so a dead ray needs no work;
+//    a block past the live positions exits at once.
 // 2. An exact early-out.  A pair first runs MT up to a = e1.h and
 //    x = s.h (22 operations, the plain version's own intermediates), then
 //    the division-free reject test mt_may_hit, the kernel's form of
@@ -50,10 +57,9 @@
 //    tiles of kTile triangles, each one 1-D bulk copy (TMA, cp.async.bulk)
 //    into one of two shared buffers, completed on that buffer's mbarrier:
 //    tile k + 1 arrives while tile k is tested.  Every thread reads a
-//    triangle at the same address (a broadcast).  A block of T threads
-//    takes T * R rays (R rays a thread: one triangle's loads, vote and
-//    loop serve R pairs), the instances of SHAPES in the wrapper;
-//    chip_smoke.py's phase 6 sweeps them, and the route takes 128 x 4.
+//    triangle at the same address (a broadcast).  A block of kThreads
+//    threads takes kRays rays a thread (one triangle's loads, vote and
+//    loop serve kRays pairs).
 // 4. Split triangle ranges.  A late bounce has few live rays, so few
 //    blocks, each walking the whole table; and a full bounce ends in a
 //    part-filled last wave.  Each live block's tile range is cut into
@@ -63,18 +69,23 @@
 //    nearest hit and, on a tie, the first triangle.
 //
 // Measured (chip_smoke.py phase 6; H100 80GB HBM3, 700 W; config 6 under
-// "pallas", 960x540 at 2 spp, 6 bounces, a pass's six launches): 135.09 ms
-// a pass, 66.6% of the live-pair bound (the design before this one took
-// 1352.97 ms).  Item by item, on the same launches:
+// "pallas", 960x540 at 2 spp, 6 bounces, a pass's six launches): 135.11 ms
+// a pass, the compaction included, 33.3% of the bound (45.00 ms; full MT
+// over the live pairs 89.91 ms); the design before this one took 1352.97
+// ms.  Item by item, on the same launches (phase 6 of an earlier
+// chip_smoke.py, which also swept block shapes and turned the split off):
 // 1. every ray live: 523.61 ms, 3.88x;
-// 2. the early-out keeps 0.14% of bounce 0's pairs, the vote passes on
-//    4.7% of (warp, triangle) pairs; a triangle no lane keeps costs 117
+// 2. the early-out keeps 0.15% of bounce 0's pairs, the vote passes on
+//    about 5% of (warp, triangle) pairs; a triangle no lane keeps costs 117
 //    instructions for 4 rays (29.25 a pair, cuobjdump), about 75 before;
-// 3. 1 ray a thread: 180.93 ms (4: 135.00); the asynchronous copies were
-//    not timed apart;
+// 3. block shapes (threads x rays a thread) 128x1 180.93 ms, 256x1
+//    179.76, 128x2 152.32, 256x2 138.05, 128x4 135.00, 64x4 144.80, 64x8
+//    147.16, 128x8 148.11; the asynchronous copies were not timed apart;
 // 4. without the split: 213.62 ms, bounces 2 to 5 68.31 ms (with it, 3.58).
 // What holds it back is the instruction stream: with --fmad=false each of
-// a pair's 23 FP32 operations on the fast path issues alone.
+// a pair's 23 FP32 operations on the fast path issues alone, at most half
+// the FMA rate the 67 TFLOP/s counts, and 6.25 more instructions a pair
+// (loads, compares, the vote) issue beside them.
 //
 // Arithmetic: built with --fmad=false and no fast math, in the operation
 // order of the plain version (ops/triangle.py:moller_trumbore), so each
@@ -87,13 +98,14 @@
 struct TriParams {
   int32_t n_rays;            // rays: the (6, n_rays) f32 origins, directions
   int32_t n_tris;            // rows of the (n_tris, 12) f32 staged table
-  int32_t threads;           // threads a block (an instance of SHAPES)
-  int32_t rays_per_thread;   // rays a thread
-  int32_t split;             // 1: split triangle ranges (item 4), 0: not
 };
 
 namespace {
 
+constexpr int kThreads = 128;               // threads a block
+constexpr int kRays = 4;                    // rays a thread
+constexpr int kBlockRays = kThreads * kRays;
+constexpr int kCompactThreads = 256;        // compact_live's block
 constexpr int kTile = 256;                  // triangles a tile: 12 KB
 constexpr int kRowFloat4 = 3;               // a staged row: three float4s
 constexpr uint32_t kRowBytes = 16 * kRowFloat4;
@@ -113,6 +125,33 @@ __device__ __forceinline__ bool mt_may_hit(float a, float x) {
   const float xs = __uint_as_float(__float_as_uint(x)
                                    ^ (__float_as_uint(a) & 0x80000000u));
   return !(xs > aa * kUpper) && !(xs <= -kXMin && aa <= kAMax);
+}
+
+// The live rays' indices into order[0, *count), each block's in index
+// order at the offset one atomicAdd on *count (zero before) gives it.
+__global__ void __launch_bounds__(kCompactThreads)
+compact_live(const uint8_t* __restrict__ alive, const int n,
+             int32_t* __restrict__ order, int32_t* __restrict__ count) {
+  __shared__ int s_warp[kCompactThreads / 32];
+  __shared__ int s_base;
+  const int i = blockIdx.x * kCompactThreads + threadIdx.x;
+  const bool live = i < n && alive[i] != 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t vote = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) s_warp[warp] = __popc(vote);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kCompactThreads / 32; ++w) {
+      const int c = s_warp[w];
+      s_warp[w] = total;
+      total += c;
+    }
+    s_base = total > 0 ? atomicAdd(count, total) : 0;
+  }
+  __syncthreads();
+  if (live)
+    order[s_base + s_warp[warp] + __popc(vote & ((1u << lane) - 1u))] = i;
 }
 
 __device__ __forceinline__ uint32_t smem(const void* p) {
@@ -149,17 +188,16 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-template <int kThreads, int kRays>
+// order and count: compact_live's list, or null for every ray
 __global__ void __launch_bounds__(kThreads)
 triangle_kernel(const float* __restrict__ rays,
                 const float4* __restrict__ tri,
-                const int64_t* __restrict__ order,
-                const int64_t* __restrict__ count,
+                const int32_t* __restrict__ order,
+                const int32_t* __restrict__ count,
                 unsigned long long* __restrict__ key_out, const TriParams p,
                 const int fill) {
   __shared__ __align__(128) float4 s_tri[2][kRowFloat4 * kTile];
   __shared__ __align__(8) uint64_t s_bar[2];
-  constexpr int kBlockRays = kThreads * kRays;
   const int64_t n_live = count != nullptr ? *count : p.n_rays;
   const int64_t n_tiles = (p.n_tris + kTile - 1) / kTile;
   // the live rays' blocks, each over `splits` parts of the triangle range:
@@ -167,7 +205,7 @@ triangle_kernel(const float* __restrict__ rays,
   // within the grid and at most one part a tile
   const int64_t live_blocks = (n_live + kBlockRays - 1) / kBlockRays;
   if (live_blocks == 0) return;
-  const int64_t want = p.split ? (int64_t)kWaves * fill : 0;
+  const int64_t want = (int64_t)kWaves * fill;
   const int64_t splits = max((int64_t)1, min(min(
       (want + live_blocks - 1) / live_blocks,
       (int64_t)gridDim.x / live_blocks), n_tiles));
@@ -189,7 +227,7 @@ triangle_kernel(const float* __restrict__ rays,
     const int64_t pos = first + threadIdx.x + r * kThreads;
     live[r] = pos < n_live;
     const int64_t src = live[r] ? pos : n_live - 1;
-    ray[r] = order != nullptr ? (int)order[src] : (int)src;
+    ray[r] = order != nullptr ? order[src] : (int)src;
     const int g = ray[r];
     ox[r] = rays[g];
     oy[r] = rays[nr + g];
@@ -280,70 +318,55 @@ triangle_kernel(const float* __restrict__ rays,
 
 constexpr int kMaxDevices = 64;
 
-template <int kThreads, int kRays>
-cudaError_t launch(const float* rays, const float* tri, const int64_t* order,
-                   const int64_t* count, unsigned long long* key_out,
-                   const TriParams& p, cudaStream_t stream) {
-  // the card's resident blocks of this instance, once per device
-  static int fill[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (fill[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, triangle_kernel<kThreads, kRays>, kThreads, 0);
-    if (err != cudaSuccess) return err;
-    fill[dev] = sms * max(per_sm, 1);
-  }
-  // every ray's block, and room for kWaves * fill more: live_blocks *
-  // splits < kWaves * fill + live_blocks
-  constexpr int per_block = kThreads * kRays;
-  const int blocks = (p.n_rays + per_block - 1) / per_block
-                     + kWaves * fill[dev];
-  triangle_kernel<kThreads, kRays><<<blocks, kThreads, 0, stream>>>(
-      rays, reinterpret_cast<const float4*>(tri), order, count, key_out, p,
-      fill[dev]);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // key_out: (n_rays,) u64, (t bits << 32) | index, set by the caller to the
 // miss (+inf, 0) before the launch; the kernel lowers a live ray's key to
 // its nearest hit with atomicMin (the triangle range may be split across
-// blocks), so a dead ray keeps the miss.
+// blocks), so a dead ray keeps the miss.  alive: (n_rays,) bytes, or null
+// for every ray; with it, order ((n_rays,) int32) and count (one int32)
+// are the device scratch of the live-ray list.
 extern "C" int srt_triangle_launch(const float* rays, const float* tri,
-                                   const int64_t* order, const int64_t* count,
+                                   const uint8_t* alive, int32_t* order,
+                                   int32_t* count,
                                    unsigned long long* key_out, TriParams p,
                                    void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
-  if (p.n_tris < 0 || reinterpret_cast<uintptr_t>(tri) % 16 != 0)
+  if (p.n_tris < 0 || reinterpret_cast<uintptr_t>(tri) % 16 != 0
+      || (alive != nullptr && (order == nullptr || count == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int shape = p.threads * 10 + p.rays_per_thread;
-  switch (shape) {
-    case 1281: return (int)launch<128, 1>(rays, tri, order, count, key_out,
-                                          p, s);
-    case 2561: return (int)launch<256, 1>(rays, tri, order, count, key_out,
-                                          p, s);
-    case 1282: return (int)launch<128, 2>(rays, tri, order, count, key_out,
-                                          p, s);
-    case 2562: return (int)launch<256, 2>(rays, tri, order, count, key_out,
-                                          p, s);
-    case 1284: return (int)launch<128, 4>(rays, tri, order, count, key_out,
-                                          p, s);
-    case 644: return (int)launch<64, 4>(rays, tri, order, count, key_out,
-                                        p, s);
-    case 648: return (int)launch<64, 8>(rays, tri, order, count, key_out,
-                                        p, s);
-    case 1288: return (int)launch<128, 8>(rays, tri, order, count, key_out,
-                                          p, s);
-    default: return (int)cudaErrorInvalidValue;
+  // the card's resident blocks, once per device
+  static int fill[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (fill[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, triangle_kernel, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    fill[dev] = sms * max(per_sm, 1);
   }
+  if (alive != nullptr) {
+    err = cudaMemsetAsync(count, 0, sizeof(int32_t), s);
+    if (err != cudaSuccess) return (int)err;
+    compact_live<<<(p.n_rays + kCompactThreads - 1) / kCompactThreads,
+                   kCompactThreads, 0, s>>>(alive, p.n_rays, order, count);
+  } else {
+    order = count = nullptr;
+  }
+  // every ray's block, and room for kWaves * fill more: live_blocks *
+  // splits < kWaves * fill + live_blocks
+  const int blocks = (p.n_rays + kBlockRays - 1) / kBlockRays
+                     + kWaves * fill[dev];
+  triangle_kernel<<<blocks, kThreads, 0, s>>>(
+      rays, reinterpret_cast<const float4*>(tri), order, count, key_out, p,
+      fill[dev]);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* srt_error_string(int err) {

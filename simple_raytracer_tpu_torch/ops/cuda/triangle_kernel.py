@@ -6,17 +6,18 @@ It replaces the TPU kernel ``_kernel`` of
 ``intersect_triangles_pallas``): each live ray against every active
 triangle, the nearest Moller-Trumbore hit as (t, index int32), (+inf, 0)
 for a dead ray.  It reads the scene's staged table
-(``ops/triangle.stage_triangles``, built once per scene beside the packed
-(16, T) table).  Its plain PyTorch version is
+(``ops/triangle.staged_table``, built from the packed (16, T) table on
+the first launch and kept on the scene).  Its plain PyTorch version is
 ``ops/triangle.intersect_packed_plain``.
 
-The live rays are compacted on the device (``live_order``: a live-first
-stable order and a 0-d count, never read back to the host); the kernel's
-blocks past the count exit at once.  The result is one (R,) int64 key a
-ray, (t bits << 32) | index, set to the miss (+inf, 0) before the launch
-and lowered with atomicMin by the blocks that share a ray (the kernel
-splits the triangle range across blocks when few rays are live); t and
-index are views of it.
+With an alive mask the live rays are compacted on the device, in the
+same launch (the kernel's ``compact_live``: their indices and count in
+scratch tensors, never read back to the host); the kernel's blocks past
+the count exit at once.  The result is one (R,) int64 key a ray, (t bits
+<< 32) | index, set to the miss (+inf, 0) before the launch and lowered
+with atomicMin by the blocks that share a ray (the kernel splits the
+triangle range across blocks when few rays are live); t and index are
+views of it.
 
 ``intersect_triangles_packed`` takes the plain version only for rays on
 the CPU.  For rays on a CUDA device it launches the kernel or raises:
@@ -36,10 +37,7 @@ from ..vec import Vec3
 from .build import PACKAGE_DIR, Kernel
 
 SOURCE = PACKAGE_DIR / "csrc" / "triangle_kernel.cu"
-# the kernel's (threads a block, rays a thread) instances; SHAPE is the
-# one the route launches (chip_smoke.py's phase 6 sweeps them all)
-SHAPES = ((128, 1), (256, 1), (128, 2), (256, 2), (128, 4), (64, 4),
-          (64, 8), (128, 8))
+# the kernel's block: (kThreads, kRays), threads and rays a thread
 SHAPE = (128, 4)
 
 
@@ -49,14 +47,12 @@ class TriParams(ctypes.Structure):
     _fields_ = [
         ("n_rays", ctypes.c_int32),
         ("n_tris", ctypes.c_int32),
-        ("threads", ctypes.c_int32),
-        ("rays_per_thread", ctypes.c_int32),
-        ("split", ctypes.c_int32),
     ]
 
 
-# srt_triangle_launch(rays, staged, order, count, key_out, params, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [TriParams, ctypes.c_void_p]
+# srt_triangle_launch(rays, staged, alive, order, count, key_out, params,
+#                     stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 6 + [TriParams, ctypes.c_void_p]
 # a ray's key before the launch: the miss, (+inf, 0)
 MISS_KEY = 0x7F800000 << 32
 
@@ -76,26 +72,18 @@ class Prepared:
     packed: torch.Tensor     # (16, T) f32, the plain version's table
     staged: torch.Tensor     # (Ta, STAGED_COLS) f32, the kernel's
     alive: Optional[torch.Tensor]   # (R,) bool, None: every ray
-    order: Optional[torch.Tensor]   # (R,) int64, live rays first
-    count: Optional[torch.Tensor]   # 0-d int64: live rays
+    # the launch's scratch with a mask: the live rays' indices ((R,)
+    # int32, the first ``count`` set) and their count ((1,) int32)
+    order: Optional[torch.Tensor]
+    count: Optional[torch.Tensor]
     params: TriParams
 
 
-def live_order(alive: torch.Tensor):
-    """(R,) bool -> (order (R,) int64, count 0-d int64): the ray indices,
-    live rays first, each part in index order, and the number of live
-    rays; nothing is read back to the host."""
-    order = torch.sort((~alive).to(torch.uint8), stable=True).indices
-    return order, alive.sum()
-
-
-def prepare(o: Vec3, d: Vec3, packed: torch.Tensor, alive, staged,
-            shape=SHAPE, split=True) -> Prepared:
+def prepare(o: Vec3, d: Vec3, packed: torch.Tensor, alive,
+            staged) -> Prepared:
     """Check a CUDA launch's arguments (``staged``: the table's
-    ``stage_triangles``, on the card), pack the rays and order the live
-    ones first.  ``shape`` and ``split`` (the triangle range split across
-    blocks when few rays are live) differ from the route's only where
-    chip_smoke.py measures the kernel's design."""
+    ``stage_triangles``, on the card), pack the rays and, with a mask,
+    allocate the scratch of the live-ray list."""
     device = o.x.device
     if device.type != "cuda":
         raise ValueError(f"triangle kernel: unsupported device {device}")
@@ -117,18 +105,18 @@ def prepare(o: Vec3, d: Vec3, packed: torch.Tensor, alive, staged,
                          + ("None" if staged is None else
                             f"{tuple(staged.shape)} {staged.dtype} on "
                             f"{staged.device}"))
-    if shape not in SHAPES:
-        raise ValueError(f"triangle kernel: no instance {shape}")
     order = count = None
     if alive is not None:
         if alive.shape != (n_rays,) or alive.dtype != torch.bool \
                 or alive.device != device:
             raise ValueError(f"triangle kernel: bad alive mask "
                              f"{tuple(alive.shape)} {alive.dtype}")
-        order, count = live_order(alive)
+        alive = alive.contiguous()
+        order = torch.empty(n_rays, dtype=torch.int32, device=device)
+        count = torch.empty(1, dtype=torch.int32, device=device)
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z]).to(torch.float32)
     return Prepared(rays.contiguous(), packed, staged, alive, order, count,
-                    TriParams(n_rays, staged.shape[0], *shape, int(split)))
+                    TriParams(n_rays, staged.shape[0]))
 
 
 def split_key(key: torch.Tensor):
@@ -157,7 +145,8 @@ def launch(prep: Prepared, key=None):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.srt_triangle_launch(prep.rays.data_ptr(),
                                       prep.staged.data_ptr(),
-                                      ptr(prep.order), ptr(prep.count),
+                                      ptr(prep.alive), ptr(prep.order),
+                                      ptr(prep.count),
                                       key.data_ptr(), prep.params, stream)
     KERNEL.check(err, "triangle kernel")
     KERNEL.count("triangle")
@@ -170,7 +159,7 @@ def intersect_triangles_packed(o: Vec3, d: Vec3, packed: torch.Tensor,
     live ray's nearest triangle hit, (+inf, 0) where there is none and for
     a dead ray (``alive`` (R,) bool; None: every ray is live); the first
     triangle wins an exact tie.  On the card ``staged``, the scene's
-    ``Triangles.staged``, is the kernel's table."""
+    ``triangle.staged_table``, is the kernel's table."""
     if o.x.device.type == "cpu":
         return intersect_packed_plain(o, d, packed, alive)
     return launch(prepare(o, d, packed, alive, staged))

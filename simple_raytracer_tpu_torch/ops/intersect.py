@@ -30,7 +30,7 @@ import torch
 
 from .cuda import bvh_kernel, triangle_kernel
 from .scene_types import DeviceScene, Planes, Spheres, Triangles
-from .triangle import nearest_triangle
+from .triangle import nearest_triangle, staged_table
 from .vec import Vec3, dot, normalize, sqrt, where as vwhere
 
 
@@ -223,8 +223,10 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
     i_t, rows = None, tr.rows
     if tr.material.shape[0] > 0:
         if tri_backend == "pallas":
+            staged = (None if o.x.device.type == "cpu"
+                      else staged_table(tr))
             t_t, i_t = triangle_kernel.intersect_triangles_packed(
-                o, d, tr.packed, alive, tr.staged)
+                o, d, tr.packed, alive, staged)
             i_t = i_t.long()
         elif tri_backend != "jnp" and tr.clusters is not None:
             t_t, i_t = bvh_kernel.intersect_triangles_bvh(

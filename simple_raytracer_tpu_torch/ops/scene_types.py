@@ -6,8 +6,7 @@ category is padded to a bucket capacity; ``active`` marks the real slots.
 
 Triangles are world-space and, for a clustered mesh, already in BVH
 order.  ``from_numpy`` packs the kernels' triangle tables once per scene
-(``tri_table``, ``triangle.pack_triangles`` and the triangle kernel's
-``triangle.stage_triangles``), and for a clustered mesh
+(``tri_table``, ``triangle.pack_triangles``), and for a clustered mesh
 the BVH kernel's hierarchy of boxes (``ops/bvh.build_hierarchy``), so no
 pass packs mesh tables again.  The environment texture, when the scene
 has one, is uploaded as an f32 tensor.
@@ -26,7 +25,7 @@ import numpy as np
 import torch
 
 from .bvh import PACKET, VMEM_TABLE_MAX_SLOTS, Hierarchy, build_hierarchy
-from .triangle import pack_triangles, stage_triangles
+from .triangle import pack_triangles
 from .vec import Vec3
 
 
@@ -87,11 +86,13 @@ class Triangles:
     # slot) shade from it
     rows: torch.Tensor
     # the (16, Nt) table of the triangle kernel's plain version
-    # (triangle.pack_triangles) and the kernel's own layout of it, one
-    # 48-byte row per active triangle (triangle.stage_triangles)
+    # (triangle.pack_triangles)
     packed: torch.Tensor
-    staged: torch.Tensor
     clusters: Optional[Clusters] = None
+    # the kernel's own layout of it, one 48-byte row per active triangle,
+    # built on the kernel's first launch (triangle.staged_table)
+    staged: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,12 +295,11 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
                             extent=extent,
                             hierarchy=build_hierarchy(aabb_t, slots_t))
     table = t(tri_table(tris, slots))
-    packed = pack_triangles(tris["v0"], tris["v1"], tris["v2"],
-                            tris["active"])
     triangles = Triangles(
         **{k: t(tris[k]) for k in TRI_VECTORS + ("material", "active")},
         table=table, rows=table if slots is None else t(tri_table(tris)),
-        packed=t(packed), staged=t(stage_triangles(packed)),
+        packed=t(pack_triangles(tris["v0"], tris["v1"], tris["v2"],
+                                tris["active"])),
         clusters=clusters)
 
     return DeviceScene(

@@ -18,8 +18,9 @@ strict ``<`` across chunks), and a miss gives (+inf, 0).
 ``intersect_packed_plain`` runs it over the packed table, on the live rays
 only when given an ``alive`` mask (a dead ray gets (+inf, 0)).
 
-``stage_triangles`` is the kernel's own layout of the same table, built
-once per scene beside it: one 48-byte row per active triangle.
+``stage_triangles`` is the kernel's own layout of the same table: one
+48-byte row per active triangle, built on the kernel's first launch and
+kept on the scene (``staged_table``).
 ``pretest_rejects`` is the kernel's division-free early-out, repeated in
 its operation order; only the tests call it.
 """
@@ -61,19 +62,29 @@ def pack_triangles(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     return out
 
 
-def stage_triangles(packed: np.ndarray) -> np.ndarray:
-    """The kernel's staged table from the packed (16, T) one: the active
-    columns in order, one (STAGED_COLS,) f32 row each: v0 and the column
-    index (its int32 bits), e1 and 0, e2 and 0.  A tile of rows is one
-    contiguous copy."""
-    packed = np.asarray(packed, np.float32)
-    act = np.flatnonzero(packed[9] > 0.0)
-    out = np.zeros((act.size, STAGED_COLS), np.float32)
+def stage_triangles(packed: torch.Tensor) -> torch.Tensor:
+    """The kernel's staged table from the packed (16, T) one, on its
+    device: the active columns in order, one (STAGED_COLS,) f32 row each:
+    v0 and the column index (its int32 bits), e1 and 0, e2 and 0.  A tile
+    of rows is one contiguous copy."""
+    act = torch.nonzero(packed[9] > 0.0)[:, 0]
+    out = packed.new_zeros((act.numel(), STAGED_COLS))
     out[:, 0:3] = packed[0:3, act].T
-    out[:, 3] = act.astype(np.int32).view(np.float32)
+    out[:, 3] = act.to(torch.int32).view(torch.float32)
     out[:, 4:7] = packed[3:6, act].T
     out[:, 8:11] = packed[6:9, act].T
     return out
+
+
+def staged_table(triangles) -> torch.Tensor:
+    """``stage_triangles`` of a scene's ``Triangles.packed``, built on
+    first use and kept on the Triangles (once per scene): only the
+    triangle kernel reads it."""
+    if triangles.staged is None:
+        # the dataclass is frozen; the field is a cache of its table
+        object.__setattr__(triangles, "staged",
+                           stage_triangles(triangles.packed))
+    return triangles.staged
 
 
 def moller_trumbore(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3):

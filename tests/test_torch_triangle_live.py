@@ -10,9 +10,11 @@ every ray, dead rays included.  Here:
   live rays give its (t, index) (index equal, t at rtol 1e-5, as
   tests/test_torch_triangle.py holds the dense route), dead rays
   (+inf, 0); ``alive=None`` gives exactly the maskless result;
-- the wrapper's live-first order and count (``live_order``);
 - the staged table: the active columns in order, bit for bit, and a
-  nearest-hit loop over it that equals the plain version;
+  nearest-hit loop over it that equals the plain version; built on the
+  kernel's first use only (``staged_table``), never by the CPU route;
+- the kernel's block shape and early-out margins: the CUDA source's
+  constants are the wrapper's and the plain predicate's;
 - the kernel's division-free early-out (``pretest_rejects``, repeated in
   the kernel's order): no pair it rejects passes Moller-Trumbore, on
   adversarial floats (hypothesis: zeros of either sign, subnormals,
@@ -23,6 +25,9 @@ every ray, dead rays included.  Here:
 - the split path's nearest hit under "pallas" with dead rays against the
   dense "jnp" route and the JAX ``closest_hit`` on the live rays.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,18 +101,6 @@ def test_alive_none_is_every_ray(numpy_bvh):
     assert torch.isfinite(t0).float().mean() > 0.5
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_live_order_puts_live_rays_first(seed):
-    """live_order: the live rays in index order, then the dead ones in
-    index order, and the count of live rays as a 0-d tensor."""
-    alive = _alive(1000, seed, share=[0.0, 0.25, 1.0][seed])
-    order, count = trk.live_order(alive)
-    live = torch.nonzero(alive)[:, 0]
-    dead = torch.nonzero(~alive)[:, 0]
-    assert count.ndim == 0 and int(count) == live.numel()
-    assert torch.equal(order, torch.cat([live, dead]))
-
-
 def test_key_orders_as_t_then_index():
     """The kernel's (R,) int64 key, (t bits << 32) | index: split_key
     gives (t, index) back as views; the miss key is (+inf, 0); for t > 0
@@ -138,9 +131,7 @@ def test_staged_table(n, numpy_bvh):
     hit over its rows (the kernel's reading) equals the plain version's."""
     _, ts = _scenes(n)
     tr = ts.triangles
-    packed, staged = tr.packed, tr.staged
-    assert torch.equal(staged, torch.from_numpy(
-        triangle.stage_triangles(packed.numpy())))
+    packed, staged = tr.packed, triangle.staged_table(tr)
     act = torch.nonzero(packed[9] > 0)[:, 0]
     assert staged.shape == (act.numel(), triangle.STAGED_COLS)
     assert staged.dtype == torch.float32 and staged.is_contiguous()
@@ -162,6 +153,44 @@ def test_staged_table(n, numpy_bvh):
     hit = torch.isfinite(t_p)
     assert torch.equal(t_s, t_p) and torch.equal(index[hit], i_p[hit])
     assert hit.float().mean() > 0.5
+
+
+@pytest.mark.parametrize("n", [3, 4, 5])
+def test_staged_table_built_on_first_use(n, numpy_bvh):
+    """from_numpy builds no staged table; the CPU route under "pallas"
+    (the plain version over the packed table) builds none either;
+    staged_table builds it once and keeps it on the scene's Triangles."""
+    _, ts = _scenes(n)
+    tr = ts.triangles
+    assert tr.staged is None
+    o, d = _mesh_rays(ts, 100, n)
+    tint.closest_hit_split(ts, tvec(o), tvec(d),
+                           torch.ones(100, dtype=torch.bool),
+                           tri_backend="pallas")
+    assert tr.staged is None
+    staged = triangle.staged_table(tr)
+    assert tr.staged is staged and triangle.staged_table(tr) is staged
+    assert torch.equal(staged, triangle.stage_triangles(tr.packed))
+    assert staged.shape == (int(tr.active.sum()), triangle.STAGED_COLS)
+
+
+def test_kernel_constants_match_the_wrapper():
+    """The CUDA source's block shape is the wrapper's SHAPE (chip_smoke.py
+    models the kernel's warps by it), its early-out margins are the plain
+    predicate's, and a staged row is STAGED_COLS floats."""
+    src = Path(trk.SOURCE).read_text()
+
+    def const(name):
+        return re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
+
+    assert (int(const("kThreads")), int(const("kRays"))) == trk.SHAPE
+    assert const("kUpper") == "1.0f + 0x1p-20f"
+    assert triangle.PRETEST_UPPER == 1.0 + float.fromhex("0x1p-20")
+    assert float.fromhex(const("kXMin").rstrip("f")) == \
+        triangle.PRETEST_X_MIN
+    assert float.fromhex(const("kAMax").rstrip("f")) == \
+        triangle.PRETEST_A_MAX
+    assert 4 * int(const("kRowFloat4")) == triangle.STAGED_COLS
 
 
 # ---- the early-out ----
