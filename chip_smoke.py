@@ -607,17 +607,18 @@ def admitted(o_, d_, walked, t_final, clusters) -> tuple:
     must test every real slot of such a cluster to know that its hit is
     the nearest.  Returns (real slots over the admitted (cluster, ray)
     pairs, real slots of the distinct admitted clusters, those clusters,
-    the supers that hold them)."""
+    the supers that hold them, the admitted (cluster, ray) pairs)."""
     real = (clusters.slots >= 0).sum(dim=1)
     seen = torch.zeros(real.shape[0], dtype=torch.bool, device=real.device)
-    pair_slots = 0
+    pair_slots = pairs = 0
     for c, _ in bvh.admitted_pairs(o_, bvh.inverse(d_), walked, t_final,
                                    clusters, bvh.PAIR_CHUNK_ELEMS["cuda"]):
         pair_slots += int(real[c].sum())
+        pairs += c.numel()
         seen[c] = True
     opened = seen.nonzero()[:, 0]
     return (pair_slots, int(real[opened].sum()), int(opened.numel()),
-            int(torch.unique(opened // bvh.SUPER).numel()))
+            int(torch.unique(opened // bvh.SUPER).numel()), pairs)
 
 
 def check_bvh_launches(label: str, recorded, clusters, table,
@@ -944,7 +945,7 @@ def bvh_bound(clusters, work) -> tuple:
     of the function."""
     roots = int((clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
     flops = nbytes = 0
-    for walked, n, compact, pair_slots, slots, opened, supers in work:
+    for walked, n, compact, pair_slots, slots, opened, supers, _ in work:
         flops += (walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
                   + min(pair_slots * MT_FLOPS,
                         pair_slots * PLUCKER_FLOPS
@@ -992,6 +993,59 @@ def unstaged(preps, outs, staged_ms: float) -> str:
         fail("the streamed and two_level variants disagree")
     return (f"the same launches on two_level (no staging) {ms:.4f} ms/pass, "
             f"streamed / two_level {staged_ms / ms:.3f}, results equal")
+
+
+def streamed_launches(label: str, res: dict, clusters, table) -> dict:
+    """Phase 6 of a cell whose BVH launches take the streamed variant, one
+    launch at a time: the launch's time; ops/bvh.compact_order's on the
+    same rays (a compacted launch), and ``prepare``'s (the group order and
+    the (8, R) ray stack), the PyTorch work around it; and what the walk
+    did, from the variant's counting instance (whose (t, slot) must be the
+    route's), beside what the plain version's gates admit under each
+    ray's final t (``admitted``)."""
+    per, lines = [], []
+    adm = clusters.hierarchy.admission
+    for b, ((pp, oo), w) in enumerate(zip(res["recorded"], res["work"])):
+        o_, d_, alive, t_init = bvh_inputs(pp)
+        med = lambda fn: float(np.median(cuda_ms(fn, iters=3, repeats=3,
+                                                 warmup=1)))
+        k_ms = med(lambda: bk.launch(pp, oo))
+        compact = pp.perm is not None
+        c_ms = (med(lambda: bvh.compact_order(o_, d_, alive, t_init, adm))
+                if compact else 0.0)
+        order, count = ((pp.perm, pp.count) if compact else (None, None))
+        prep_ms = med(lambda: bk.prepare(o_, d_, alive, t_init, clusters,
+                                         table, order, count,
+                                         pp.variant == "streamed"))
+        (t_c, s_c), cnt = bk.launch_counted(pp)
+        if not (torch.equal(t_c, oo[0]) and torch.equal(s_c, oo[1])):
+            fail(f"cell {label} bounce {b}: the counting instance's (t, "
+                 "slot) differ from the route's")
+        walked, pairs_adm, opened = w[0], w[7], w[5]
+        st = max(cnt["stagings"], 1)
+        per.append(dict(kernel_ms=k_ms, compact_order_ms=c_ms,
+                        prepare_ms=prep_ms, compact=compact,
+                        admitted_pairs=pairs_adm, opened=opened, **cnt))
+        lines.append(
+            f"b{b} {'compact' if compact else 'dense'} walked {walked}: "
+            f"kernel {k_ms:.4f} ms, compact_order {c_ms:.4f} ms, prepare "
+            f"{prep_ms:.4f} ms; stagings {cnt['stagings']} (chunks "
+            f"{cnt['chunks']}, slots {cnt['slots']}), admitting lanes mean "
+            f"{cnt['pairs'] / st:.2f}, by lanes {cnt['hist']}, split "
+            f"{cnt['split']}, wasted {cnt['wasted']}; MT pairs (ray, "
+            f"cluster) {cnt['pairs']} against {pairs_adm} admitted under "
+            f"the final t ({opened} clusters opened); warp MT steps "
+            f"{cnt['mt_steps']}; warp slab tests groups "
+            f"{cnt['group_tests']}, supers {cnt['super_tests']}, clusters "
+            f"{cnt['cluster_tests']}")
+    tot = lambda key: sum(x[key] for x in per)
+    say(f"[6] cell {label} streamed launches one by one: "
+        f"{'; '.join(lines)}; a pass: kernel {tot('kernel_ms'):.4f} ms, "
+        f"compact_order {tot('compact_order_ms'):.4f} ms, prepare "
+        f"{tot('prepare_ms'):.4f} ms, together "
+        f"{tot('kernel_ms') + tot('compact_order_ms') + tot('prepare_ms'):.4f}"
+        f" ms")
+    return dict(per_launch=per)
 
 
 def as_mt(prep):
@@ -1547,6 +1601,7 @@ def main() -> int:
 
     # ---- 6: timings ----
     timing, steps_ms, ab, library, tri_cells = {}, {}, {}, {}, {}
+    streamed_cells = {}
     for label, (r, camera) in in_form(renderers):
         res = results[label]
         o = r.options
@@ -1623,6 +1678,9 @@ def main() -> int:
                          f"{[w[0] for w in res['work']]}, clusters opened "
                          f"per launch {[w[5] for w in res['work']]}, "
                          f"{roots} root boxes")
+            if preps[0].variant == "streamed":
+                streamed_cells[label] = streamed_launches(
+                    label, res, cl, ds.triangles.table)
             bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
                         f"{walk_note}; bound {b_bound:.4f} ms ({flops:.4g} "
                         f"FLOP, {nbytes:.4g} B), {b_bound / b_ms * 100:.1f}% "
@@ -1817,6 +1875,11 @@ def main() -> int:
             for key in ("bound_mt_live_ms", "bound_all_rays_ms"):
                 entries[-1][key] = tri_cells[cell][key]
             entries[-1]["cells"] = tri_cells
+        if variant in ("streamed", "streamed/plucker"):
+            # the streamed cells' launches one by one (phase 6)
+            entries[-1]["cells"] = {
+                c: v for c, v in streamed_cells.items()
+                if (FORMS.get(c) == "plucker") == variant.endswith("plucker")}
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

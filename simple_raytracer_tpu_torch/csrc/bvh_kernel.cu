@@ -108,6 +108,53 @@ constexpr int kPluckerCols = 20;
 constexpr int kChunk = 128;
 constexpr int kMtCols = 10;
 
+// The counting instance of kStreamed (srt_bvh_count_launch, which only
+// chip_smoke.py calls; the route never launches it): what the walk did,
+// summed over the launch's warps into (kCounters,) int64 counters.
+enum Count {
+  kCountWalked = 0,    // rays walked (listed lanes)
+  kCountStagings,      // (warp, cluster) stagings
+  kCountChunks,        // chunk copies
+  kCountSlots,         // slots staged
+  kCountPairs,         // (ray, cluster) pairs that ran MT
+  kCountMtSteps,       // warp-wide MT steps issued (32 lanes x one slot)
+  kCountGroupTests,    // warp-wide slab tests of groups
+  kCountSuperTests,    // of supers
+  kCountClusterTests,  // of clusters
+  kCountSplit,         // stagings whose MT the lanes split pair by pair
+  kCountWasted,        // chunks staged that no lane admitted at their turn
+  kCountHist,          // stagings by admitting lanes: 1, 2, 3-4, 5-8,
+                       // 9-16, 17-24, 25-31, 32 (kHistBins)
+  kCounters = kCountHist + 8
+};
+
+// the histogram bin of a staging that n lanes admit (1 <= n <= 32)
+__device__ __forceinline__ int hist_bin(int n) {
+  return n <= 2 ? n - 1 : n <= 4 ? 2 : n <= 8 ? 3 : n <= 16 ? 4
+         : n <= 24 ? 5 : n < 32 ? 6 : 7;
+}
+
+// a warp's counts, kept alike by every lane (every count is warp-uniform)
+// and added to the launch's counters by lane 0 at the end of the walk
+template <bool COUNT>
+struct WarpCounts {
+  __device__ __forceinline__ void add(int, unsigned long long) {}
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+
+template <>
+struct WarpCounts<true> {
+  unsigned long long v[kCounters] = {};
+  __device__ __forceinline__ void add(int i, unsigned long long n) {
+    v[i] += n;
+  }
+  __device__ __forceinline__ void flush(unsigned long long* out) {
+    if ((threadIdx.x & 31) == 0)
+      for (int i = 0; i < kCounters; ++i)
+        if (v[i]) atomicAdd(out + i, v[i]);
+  }
+};
+
 __device__ __forceinline__ bool is_nan(float a) { return a != a; }
 __device__ __forceinline__ float max_nan(float a, float b) {
   return is_nan(a) ? a : (is_nan(b) ? b : (a > b ? a : b));
@@ -242,13 +289,16 @@ __device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
 // Each ray's own gates and commits are those of kTwoLevel, in the same
 // order, so it writes the same result.  Called by the whole warp (control
 // flow is warp-uniform).
-template <bool PLUCKER>
+template <bool PLUCKER, bool COUNT>
 __device__ __forceinline__ void streamed_walk(
     const float* __restrict__ table, const float* __restrict__ coeffs,
     const int32_t* __restrict__ gidx, const float* __restrict__ boxes,
     const float* __restrict__ supers, const float* __restrict__ groups,
     const int32_t* __restrict__ order, bool listed, const Ray& r, Best& best,
-    const BvhParams& p) {
+    const BvhParams& p, unsigned long long* counters) {
+  WarpCounts<COUNT> cnt;
+  if constexpr (COUNT)
+    cnt.add(kCountWalked, __popc(__ballot_sync(kAll, listed)));
   constexpr int kCols = PLUCKER ? kPluckerCols : kMtCols;
   __shared__ float s_rows[kWarps][kChunk * kCols];
   __shared__ int32_t s_gidx[kWarps][kChunk];
@@ -258,19 +308,31 @@ __device__ __forceinline__ void streamed_walk(
   for (int j = 0; j < p.n_order; ++j) {
     const int g = order[j];
     const bool g_ok = listed && slab(groups + 8 * g, r, best.t);
+    cnt.add(kCountGroupTests, 1);
     if (!__any_sync(kAll, g_ok)) continue;
     for (int s = g * kGroup; s < (g + 1) * kGroup; ++s) {
       const bool s_ok = g_ok && slab(supers + 8 * s, r, best.t);
+      cnt.add(kCountSuperTests, 1);
       if (!__any_sync(kAll, s_ok)) continue;
       for (int c = s * kSuper; c < (s + 1) * kSuper; ++c) {
         const bool c_ok = s_ok && slab(boxes + 8 * c, r, best.t);
-        if (!__any_sync(kAll, c_ok)) continue;
+        cnt.add(kCountClusterTests, 1);
+        const unsigned admit = __ballot_sync(kAll, c_ok);
+        if (!admit) continue;
+        if constexpr (COUNT) {
+          cnt.add(kCountStagings, 1);
+          cnt.add(kCountPairs, __popc(admit));
+          cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
+        }
         // a NaN ray admits the sentinel boxes past the table too;
         // visiting the last cluster again changes nothing
         const int row0 = min(c, p.n_clusters - 1) * p.k;
         for (int base = 0; base < p.k; base += kChunk) {
           const int n = min(kChunk, p.k - base);
           const int first = row0 + base;
+          cnt.add(kCountChunks, 1);
+          cnt.add(kCountSlots, n);
+          cnt.add(kCountMtSteps, n);
           __syncwarp();   // every lane is done with the last staged chunk
           for (int e = lane; e < n * kCols; e += 32) {
             if constexpr (PLUCKER) {
@@ -298,9 +360,10 @@ __device__ __forceinline__ void streamed_walk(
       }
     }
   }
+  cnt.flush(counters);
 }
 
-template <int VARIANT, bool PLUCKER>
+template <int VARIANT, bool PLUCKER, bool COUNT = false>
 __global__ void __launch_bounds__(kBlock)
 bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
            const float* __restrict__ coeffs,
@@ -308,7 +371,8 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
            const float* __restrict__ supers, const float* __restrict__ groups,
            const int32_t* __restrict__ order, const int32_t* __restrict__ perm,
            const int32_t* __restrict__ count, float* __restrict__ t_out,
-           int32_t* __restrict__ slot_out, const BvhParams p) {
+           int32_t* __restrict__ slot_out, const BvhParams p,
+           unsigned long long* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < p.n_rays;
   // kStreamed keeps every lane of the warp to the end: its walk is shared
@@ -340,8 +404,9 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
   }
   if constexpr (VARIANT == kStreamed) {
     if (__any_sync(kAll, listed))
-      streamed_walk<PLUCKER>(table, coeffs, gidx, boxes, supers, groups,
-                             order, listed, r, best, p);
+      streamed_walk<PLUCKER, COUNT>(table, coeffs, gidx, boxes, supers,
+                                    groups, order, listed, r, best, p,
+                                    counters);
   } else if (listed) {
     if constexpr (VARIANT == kFlat) {
       for (int j = 0; j < p.n_order; ++j) {
@@ -373,13 +438,13 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
 
 }  // namespace
 
-extern "C" int srt_bvh_launch(const float* rays, const float* table,
-                              const float* coeffs, const int32_t* gidx,
-                              const float* boxes, const float* supers,
-                              const float* groups, const int32_t* order,
-                              const int32_t* perm, const int32_t* count,
-                              float* t_out, int32_t* slot_out, BvhParams p,
-                              void* stream) {
+namespace {
+
+int launch_bvh(const float* rays, const float* table, const float* coeffs,
+               const int32_t* gidx, const float* boxes, const float* supers,
+               const float* groups, const int32_t* order, const int32_t* perm,
+               const int32_t* count, float* t_out, int32_t* slot_out,
+               BvhParams p, unsigned long long* counters, void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
   if (p.k <= 0 || p.n_clusters <= 0 || (perm == nullptr) != (count == nullptr)
       || (p.plucker != 0) != (coeffs != nullptr)
@@ -387,31 +452,70 @@ extern "C" int srt_bvh_launch(const float* rays, const float* table,
     return (int)cudaErrorInvalidValue;
   const int blocks = (p.n_rays + kBlock - 1) / kBlock;
   cudaStream_t st = (cudaStream_t)stream;
-#define SRT_BVH_LAUNCH(VARIANT, PLUCKER)                                  \
-  bvh_kernel<VARIANT, PLUCKER><<<blocks, kBlock, 0, st>>>(                \
+#define SRT_BVH_LAUNCH(VARIANT, PLUCKER, COUNT)                           \
+  bvh_kernel<VARIANT, PLUCKER, COUNT><<<blocks, kBlock, 0, st>>>(         \
       rays, table, coeffs, gidx, boxes, supers, groups, order, perm, count, \
-      t_out, slot_out, p)
+      t_out, slot_out, p, counters)
+  if (counters != nullptr) {
+    // the counting instance: kStreamed only
+    if (p.variant != kStreamed) return (int)cudaErrorInvalidValue;
+    if (p.plucker)
+      SRT_BVH_LAUNCH(kStreamed, true, true);
+    else
+      SRT_BVH_LAUNCH(kStreamed, false, true);
+    return (int)cudaGetLastError();
+  }
   switch (p.variant) {
     case kFlat:
-      SRT_BVH_LAUNCH(kFlat, false);
+      SRT_BVH_LAUNCH(kFlat, false, false);
       break;
     case kTwoLevel:
       if (p.plucker)
-        SRT_BVH_LAUNCH(kTwoLevel, true);
+        SRT_BVH_LAUNCH(kTwoLevel, true, false);
       else
-        SRT_BVH_LAUNCH(kTwoLevel, false);
+        SRT_BVH_LAUNCH(kTwoLevel, false, false);
       break;
     case kStreamed:
       if (p.plucker)
-        SRT_BVH_LAUNCH(kStreamed, true);
+        SRT_BVH_LAUNCH(kStreamed, true, false);
       else
-        SRT_BVH_LAUNCH(kStreamed, false);
+        SRT_BVH_LAUNCH(kStreamed, false, false);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef SRT_BVH_LAUNCH
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int srt_bvh_launch(const float* rays, const float* table,
+                              const float* coeffs, const int32_t* gidx,
+                              const float* boxes, const float* supers,
+                              const float* groups, const int32_t* order,
+                              const int32_t* perm, const int32_t* count,
+                              float* t_out, int32_t* slot_out, BvhParams p,
+                              void* stream) {
+  return launch_bvh(rays, table, coeffs, gidx, boxes, supers, groups, order,
+                    perm, count, t_out, slot_out, p, nullptr, stream);
+}
+
+// kStreamed's counting instance, which adds what the walk did to
+// counters ((kCounters,) int64, Count); chip_smoke.py's only
+extern "C" int srt_bvh_count_launch(const float* rays, const float* table,
+                                    const float* coeffs, const int32_t* gidx,
+                                    const float* boxes, const float* supers,
+                                    const float* groups,
+                                    const int32_t* order,
+                                    const int32_t* perm,
+                                    const int32_t* count, float* t_out,
+                                    int32_t* slot_out,
+                                    unsigned long long* counters,
+                                    BvhParams p, void* stream) {
+  if (counters == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_bvh(rays, table, coeffs, gidx, boxes, supers, groups, order,
+                    perm, count, t_out, slot_out, p, counters, stream);
 }
 
 extern "C" const char* srt_error_string(int err) {

@@ -58,11 +58,21 @@ class BvhParams(ctypes.Structure):
 # srt_bvh_launch(rays, table, coeffs, gidx, boxes, supers, groups, order,
 #                perm, count, t_out, slot_out, params, stream)
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 12 + [BvhParams, ctypes.c_void_p]
+# srt_bvh_count_launch: the same, and the counters before the params
+COUNT_ARGTYPES = [ctypes.c_void_p] * 13 + [BvhParams, ctypes.c_void_p]
+# the counting instance's int64 counters, in the CUDA source's Count order
+# (the last eight: stagings by admitting lanes, 1, 2, 3-4, 5-8, 9-16,
+# 17-24, 25-31, 32)
+COUNTERS = ("walked", "stagings", "chunks", "slots", "pairs", "mt_steps",
+            "group_tests", "super_tests", "cluster_tests", "split", "wasted")
+HIST_BINS = ("1", "2", "3-4", "5-8", "9-16", "17-24", "25-31", "32")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.srt_bvh_launch.argtypes = LAUNCH_ARGTYPES
     lib.srt_bvh_launch.restype = ctypes.c_int
+    lib.srt_bvh_count_launch.argtypes = COUNT_ARGTYPES
+    lib.srt_bvh_count_launch.restype = ctypes.c_int
 
 
 KERNEL = Kernel(SOURCE, _bind)
@@ -180,6 +190,35 @@ def launch(prep: Prepared, out=None):
     KERNEL.check(err, "BVH kernel")
     KERNEL.count(prep.label)
     return out
+
+
+def launch_counted(prep: Prepared):
+    """One launch of the streamed variant's counting instance (a kernel of
+    its own, which the route never launches; it is not counted with the
+    route's launches): ((t, slot), what the walk did by ``COUNTERS`` name,
+    with the stagings by admitting lanes under "hist")."""
+    if prep.variant != "streamed":
+        raise ValueError("BVH kernel: only the streamed variant counts")
+    n = prep.params.n_rays
+    device = prep.rays.device
+    out = (torch.empty(n, dtype=torch.float32, device=device),
+           torch.empty(n, dtype=torch.int32, device=device))
+    counters = torch.zeros(len(COUNTERS) + len(HIST_BINS),
+                           dtype=torch.int64, device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = KERNEL.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        table, *rest = map(ptr, prep.tensors)
+        err = lib.srt_bvh_count_launch(
+            prep.rays.data_ptr(), table, ptr(prep.coeffs), *rest,
+            ptr(prep.perm), ptr(prep.count), out[0].data_ptr(),
+            out[1].data_ptr(), counters.data_ptr(), prep.params, stream)
+    KERNEL.check(err, "BVH kernel (counting)")
+    values = counters.tolist()
+    res = dict(zip(COUNTERS, values))
+    res["hist"] = dict(zip(HIST_BINS, values[len(COUNTERS):]))
+    return out, res
 
 
 def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
