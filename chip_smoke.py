@@ -39,7 +39,9 @@ are a path of their own.  Phases, one line each on stdout:
      the sample; for the per-bounce cells every BVH launch's (t, slot) on
      live rays, every shade launch's 20 state rows, every triangle
      launch's (t, index) on every ray, dead rays (+inf, 0) included, with
-     each launch's live rays (config 6 under "pallas": a band of rows;
+     each launch's live rays; every compacted BVH launch's ray order, made
+     inside the launch, against ops/bvh.compact_order (the same count and
+     admitted rays) (config 6 under "pallas": a band of rows;
      the kernel visits live rays only), and the canvas, and the
      triangle kernel on ragged random tables and ray batches (RAGGED);
      config 4 under "jnp" against the "pallas"
@@ -72,7 +74,12 @@ are a path of their own.  Phases, one line each on stdout:
      beside it; benchmark_step of
      configs 6 and 7 under "auto" and "fused" side by side; the BVH
      kernel's Plucker form against its MT form on the same launches, in
-     turns; the probes' time per call and per loop iteration;
+     turns; the streamed variant's launches one by one (each launch's
+     time and its kernels' device times, the compaction's beside the
+     walk's; compact_order's and prepare's time on the same rays; what
+     the walk did, from its counting instance, against the (ray, cluster)
+     pairs the plain version's gates admit) and its split points swept;
+     the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell).
 Then one JSON line per the kernel table (the triangle kernel's row also
@@ -342,7 +349,9 @@ def build_kernels() -> str:
         fail("kernel build: " + "\n".join(errors))
     parts = []
     for kernel, entry, names in ((tk.KERNEL, "trace_kernel", tk.TRI_MODES),
-                                 (bk.KERNEL, "bvh_kernel", bk.VARIANTS),
+                                 (bk.KERNEL, "bvh_kernel|ray_partials|"
+                                  "rank_boxes|bucket_rays|scan_buckets|"
+                                  "scatter_rays", bk.VARIANTS),
                                  (sk.KERNEL, "bounce_kernel", {}),
                                  (trk.KERNEL,
                                   "triangle_kernel(?=E)|compact_live", {}),
@@ -354,11 +363,12 @@ def build_kernels() -> str:
         variant = None
         for line in kernel.build_log.splitlines():
             m = re.search(rf"entry function '.*({entry})(?:ILi(\d+)E"
-                          rf"(?:(Lb1E)|Li(\d)E)?)?", line)
+                          rf"(?:(Lb1E)|Lb0E|Li(\d)E)?(Lb1E)?)?", line)
             if m:
                 variant = (modes.get(m.group(2), m.group(2) or m.group(1))
                            + ("/plucker" if m.group(3) else "")
-                           + (f"x{m.group(4)}" if m.group(4) else ""))
+                           + (f"x{m.group(4)}" if m.group(4) else "")
+                           + ("/counting" if m.group(5) else ""))
             elif "registers" in line or "spill" in line:
                 parts.append(f"{variant}: "
                              + line.split("ptxas info    : ")[-1].strip())
@@ -418,6 +428,8 @@ BSDF_FLOPS = 275           # 3 normals (log, cos), 3 uniforms, mixes
 SKY_FLOPS = 54             # the gradient sky and the final add
 RAY_IN_BYTES = 32          # a walked ray in: o, d, alive, t_init
 HIT_OUT_BYTES = 8          # (t, slot) out, for every ray
+ALIVE_BYTES = 4            # a ray's alive flag in
+ORDER_BYTES = 4            # a ray's place in the compaction's order out
 SLOT_BYTES = 40 + 4        # a slot's MT columns (v0, e1, e2, active), index
 BOX_BYTES = 32             # a box row of the hierarchy
 # the shade kernel: 20 state rows in and out, the winner's (t, slot) in
@@ -594,6 +606,14 @@ def per_bounce_pass(r: Renderer, camera, time_seed: int, plain: bool = False,
     return torch.stack(list(color)), rec
 
 
+def with_params(prep, **fields):
+    """A recorded BVH launch with some launch parameters replaced."""
+    q = bk.BvhParams()
+    for name, _ in bk.BvhParams._fields_:
+        setattr(q, name, fields.get(name, getattr(prep.params, name)))
+    return dataclasses.replace(prep, params=q)
+
+
 def bvh_inputs(prep):
     rays = prep.rays
     return (Vec3(rays[0], rays[1], rays[2]), Vec3(rays[3], rays[4], rays[5]),
@@ -619,6 +639,23 @@ def admitted(o_, d_, walked, t_final, clusters) -> tuple:
     opened = seen.nonzero()[:, 0]
     return (pair_slots, int(real[opened].sum()), int(opened.numel()),
             int(torch.unique(opened // bvh.SUPER).numel()), pairs)
+
+
+def compaction_check(label: str, b: int, prep, clusters) -> None:
+    """A compacted launch's ray order, made on the card inside the launch,
+    against ops/bvh.compact_order on the same rays: the same count, the
+    same admitted rays first, and every ray listed once."""
+    o_, d_, alive, t_init = bvh_inputs(prep)
+    order, count = bvh.compact_order(o_, d_, alive, t_init,
+                                     clusters.hierarchy.admission)
+    n = int(count)
+    perm = prep.perm.long()
+    if not (int(prep.count) == n
+            and torch.equal(perm[:n].sort().values, order[:n].sort().values)
+            and torch.equal(perm.sort().values,
+                            torch.arange(perm.numel(), device=perm.device))):
+        fail(f"cell {label} bounce {b}: the card's compaction admits "
+             f"{int(prep.count)} rays, compact_order {n}, or other rays")
 
 
 def check_bvh_launches(label: str, recorded, clusters, table,
@@ -652,6 +689,7 @@ def check_bvh_launches(label: str, recorded, clusters, table,
         if compact:
             walk = live & torch.zeros_like(live).index_fill_(
                 0, prep.perm[:int(prep.count)].long(), True)
+            compaction_check(label, b, prep, clusters)
         walked = int(walk.sum())
         tri_hits = int((s_k[live] >= 0).sum())
         opened = ""
@@ -935,14 +973,15 @@ def bvh_bound(clusters, work) -> tuple:
     walked ray slab-tests the hierarchy's root boxes, and tests the real
     slots of every cluster it opens in the cheaper form of the launch
     (MT_FLOPS a pair, or PLUCKER_FLOPS a pair and the walked ray's moment
-    m = o x d).  Each walked ray is read once and every ray's (t, slot)
-    written once; a ray not walked costs its alive flag (dense) or,
-    compacted, every ray its order index.  A launch reads the root boxes,
-    the boxes of the opened clusters and of their supers, and the opened
-    clusters' MT columns and slot indices once: the Plucker coefficients
-    derive from those columns (the TPU kernel derives them per cluster),
-    so the port's per-scene table of them is its own choice, not a need
-    of the function."""
+    m = o x d).  Every ray's (t, slot) is written once.  A dense launch
+    reads each walked ray once and a ray not walked its alive flag; a
+    compacted one reads every ray once (the compaction tests each) and
+    writes its ray order.  A launch reads the root boxes, the boxes of the
+    opened clusters and of their supers, and the opened clusters' MT
+    columns and slot indices once: the Plucker coefficients derive from
+    those columns (the TPU kernel derives them per cluster), so the port's
+    per-scene table of them is its own choice, not a need of the
+    function."""
     roots = int((clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
     flops = nbytes = 0
     for walked, n, compact, pair_slots, slots, opened, supers, _ in work:
@@ -950,8 +989,9 @@ def bvh_bound(clusters, work) -> tuple:
                   + min(pair_slots * MT_FLOPS,
                         pair_slots * PLUCKER_FLOPS
                         + walked * PLUCKER_RAY_FLOPS))
-        nbytes += (walked * RAY_IN_BYTES + n * HIT_OUT_BYTES
-                   + 4 * (n if compact else n - walked))
+        nbytes += n * HIT_OUT_BYTES + (
+            n * (RAY_IN_BYTES + ORDER_BYTES) if compact
+            else walked * RAY_IN_BYTES + (n - walked) * ALIVE_BYTES)
         if walked:
             nbytes += (slots * SLOT_BYTES
                        + (roots + supers + opened) * BOX_BYTES)
@@ -979,12 +1019,9 @@ def unstaged(preps, outs, staged_ms: float) -> str:
     inputs in the same call.  The results must be the same."""
     alt = []
     for pp, (t, s) in zip(preps, outs):
-        q = pp.params
-        params = bk.BvhParams(q.n_rays, q.n_order, q.n_clusters, q.k,
-                              bk.VARIANTS["two_level"], q.plucker)
-        alt.append((dataclasses.replace(pp, variant="two_level",
-                                        params=params),
-                    (torch.empty_like(t), torch.empty_like(s))))
+        alt.append((dataclasses.replace(
+            with_params(pp, variant=bk.VARIANTS["two_level"]),
+            variant="two_level"), (torch.empty_like(t), torch.empty_like(s))))
     ms = float(np.median(cuda_ms(lambda: [bk.launch(q, o) for q, o in alt],
                                  iters=5)))
     same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -995,14 +1032,38 @@ def unstaged(preps, outs, staged_ms: float) -> str:
             f"streamed / two_level {staged_ms / ms:.3f}, results equal")
 
 
+def device_ms_by_kernel(fn, reps: int = 3) -> dict:
+    """Device ms per call of each kernel name that ``fn`` launches
+    (torch.profiler over ``reps`` calls, after one unprofiled call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0) or 0
+        if dev_us > 0 and str(evt.device_type).endswith("CUDA"):
+            name = evt.key.replace("(anonymous namespace)::", "")
+            name = re.sub(r"^void ", "", name).split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + dev_us / 1e3 / reps
+    return out
+
+
 def streamed_launches(label: str, res: dict, clusters, table) -> dict:
     """Phase 6 of a cell whose BVH launches take the streamed variant, one
-    launch at a time: the launch's time; ops/bvh.compact_order's on the
-    same rays (a compacted launch), and ``prepare``'s (the group order and
-    the (8, R) ray stack), the PyTorch work around it; and what the walk
-    did, from the variant's counting instance (whose (t, slot) must be the
-    route's), beside what the plain version's gates admit under each
-    ray's final t (``admitted``)."""
+    launch at a time: the launch's time (the visiting order, the ray
+    compaction and the walk, all on the card), and the device time of
+    each of its kernels (torch.profiler: the compaction's four kernels
+    beside the walk); ops/bvh.compact_order's time on the same rays (the
+    compaction's plain version, in PyTorch) and ``prepare``'s; and what
+    the walk did, from the
+    variant's counting instance (whose (t, slot) must be the route's),
+    beside what the plain version's gates admit under each ray's final t
+    (``admitted``)."""
     per, lines = [], []
     adm = clusters.hierarchy.admission
     for b, ((pp, oo), w) in enumerate(zip(res["recorded"], res["work"])):
@@ -1010,12 +1071,13 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
         med = lambda fn: float(np.median(cuda_ms(fn, iters=3, repeats=3,
                                                  warmup=1)))
         k_ms = med(lambda: bk.launch(pp, oo))
+        parts = device_ms_by_kernel(lambda: bk.launch(pp, oo))
+        walk_ms = sum(v for k, v in parts.items() if "bvh_kernel" in k)
         compact = pp.perm is not None
         c_ms = (med(lambda: bvh.compact_order(o_, d_, alive, t_init, adm))
                 if compact else 0.0)
-        order, count = ((pp.perm, pp.count) if compact else (None, None))
         prep_ms = med(lambda: bk.prepare(o_, d_, alive, t_init, clusters,
-                                         table, order, count,
+                                         table, compact,
                                          pp.variant == "streamed"))
         (t_c, s_c), cnt = bk.launch_counted(pp)
         if not (torch.equal(t_c, oo[0]) and torch.equal(s_c, oo[1])):
@@ -1023,12 +1085,16 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
                  "slot) differ from the route's")
         walked, pairs_adm, opened = w[0], w[7], w[5]
         st = max(cnt["stagings"], 1)
-        per.append(dict(kernel_ms=k_ms, compact_order_ms=c_ms,
-                        prepare_ms=prep_ms, compact=compact,
-                        admitted_pairs=pairs_adm, opened=opened, **cnt))
+        per.append(dict(kernel_ms=k_ms, walk_ms=walk_ms,
+                        order_ms=sum(parts.values()) - walk_ms,
+                        compact_order_ms=c_ms, prepare_ms=prep_ms,
+                        compact=compact, admitted_pairs=pairs_adm,
+                        opened=opened, **cnt))
         lines.append(
             f"b{b} {'compact' if compact else 'dense'} walked {walked}: "
-            f"kernel {k_ms:.4f} ms, compact_order {c_ms:.4f} ms, prepare "
+            f"launch {k_ms:.4f} ms (device: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(parts.items()))
+            + f"), compact_order (PyTorch) {c_ms:.4f} ms, prepare "
             f"{prep_ms:.4f} ms; stagings {cnt['stagings']} (chunks "
             f"{cnt['chunks']}, slots {cnt['slots']}), admitting lanes mean "
             f"{cnt['pairs'] / st:.2f}, by lanes {cnt['hist']}, split "
@@ -1040,31 +1106,85 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
             f"{cnt['cluster_tests']}")
     tot = lambda key: sum(x[key] for x in per)
     say(f"[6] cell {label} streamed launches one by one: "
-        f"{'; '.join(lines)}; a pass: kernel {tot('kernel_ms'):.4f} ms, "
-        f"compact_order {tot('compact_order_ms'):.4f} ms, prepare "
-        f"{tot('prepare_ms'):.4f} ms, together "
-        f"{tot('kernel_ms') + tot('compact_order_ms') + tot('prepare_ms'):.4f}"
-        f" ms")
+        f"{'; '.join(lines)}; a pass: launches {tot('kernel_ms'):.4f} ms "
+        f"(the walk {tot('walk_ms'):.4f} ms, the order and compaction "
+        f"kernels {tot('order_ms'):.4f} ms), compact_order (PyTorch) "
+        f"{tot('compact_order_ms'):.4f} ms, prepare {tot('prepare_ms'):.4f}"
+        " ms")
     return dict(per_launch=per)
 
 
-def as_mt(prep):
+SPLIT_SWEEP = (0, 4, 8, 16, 24, 32)
+# the streamed walk's ring of buffers and chunk, as built with
+# -DSRT_BVH_STAGES / -DSRT_BVH_CHUNK (the route's: 2 buffers of 64 slots)
+RING_SWEEP = ((3, 64), (4, 64), (4, 32))
+RING_KERNELS = {}
+
+
+def split_sweep(label: str, res: dict) -> dict:
+    """The streamed launches of a pass at each split point of SPLIT_SWEEP
+    (the most admitting lanes for which a chunk's MT is split pair by
+    pair; 0: never split, 32: always), then the route's split point with
+    each ring of RING_SWEEP, in turns, twice: ms a pass, and (t, slot)
+    equal to the route's."""
+    if not RING_KERNELS:
+        RING_KERNELS.update({rs: bk.Kernel(
+            bk.SOURCE, bk._bind, [f"-DSRT_BVH_STAGES={rs[0]}",
+                                  f"-DSRT_BVH_CHUNK={rs[1]}"])
+            for rs in RING_SWEEP})
+        threads = [threading.Thread(target=k.library)
+                   for k in RING_KERNELS.values()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    preps = [pp for pp, _ in res["recorded"]]
+    outs = [oo for _, oo in res["recorded"]]
+    cases = [(f"split {sm}", None, sm) for sm in SPLIT_SWEEP] + [
+        (f"ring {rs[0]}x{rs[1]}", RING_KERNELS[rs], bk.SPLIT_MAX)
+        for rs in RING_SWEEP]
+    ms = {name: [] for name, _, _ in cases}
+    route = bk.KERNEL
+    try:
+        for _ in range(2):
+            for name, kernel, sm in cases:
+                bk.KERNEL = kernel or route
+                alt = [with_params(pp, split_max=sm) for pp in preps]
+                got = [(torch.empty_like(t), torch.empty_like(s))
+                       for t, s in outs]
+                ms[name].append(float(np.median(cuda_ms(
+                    lambda: [bk.launch(q, o) for q, o in zip(alt, got)],
+                    iters=2, repeats=3, warmup=1))))
+                if not all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                           for a, b in zip(got, outs)):
+                    fail(f"cell {label}: {name} changes a result")
+    finally:
+        bk.KERNEL = route
+    say(f"[6] cell {label} streamed split points and rings (ms a pass, two "
+        f"turns): " + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}"
+                                for k, v in ms.items())
+        + f"; the route's: split {bk.SPLIT_MAX}, ring 2x64; results equal")
+    return ms
+
+
+def as_mt(prep, clusters):
     """A recorded BVH launch in the MT form: the same rays, gates and
     variant; only the slot test differs."""
-    q = prep.params
-    params = bk.BvhParams(q.n_rays, q.n_order, q.n_clusters, q.k, q.variant,
-                          0)
-    return dataclasses.replace(prep, params=params, coeffs=None)
+    table, _, _, *rest = prep.tensors
+    staged = (bvh.staged_slots(clusters, table) if prep.variant == "streamed"
+              else None)
+    return dataclasses.replace(with_params(prep, plucker=0),
+                               tensors=(table, staged, None, *rest))
 
 
-def form_report(recorded) -> tuple:
+def form_report(recorded, clusters) -> tuple:
     """Each recorded Plucker launch replayed in the MT form on the card:
     (live rays whose winning slot changed, largest relative t difference
     over the live rays both forms hit, live rays).  A report, not a
     gate: the two forms round differently."""
     changed, rel, live_n = 0, 0.0, 0
     for prep, (t_p, s_p) in recorded:
-        t_m, s_m = bk.launch(as_mt(prep))
+        t_m, s_m = bk.launch(as_mt(prep, clusters))
         live = prep.rays[6] > 0
         live_n += int(live.sum())
         changed += int((s_p[live] != s_m[live]).sum())
@@ -1082,7 +1202,9 @@ def dense_replay(label: str, recorded, clusters, table) -> str:
     for b, (prep, _) in enumerate(recorded):
         if prep.perm is None:
             continue
-        dense = dataclasses.replace(prep, perm=None, count=None)
+        dense = dataclasses.replace(
+            with_params(prep, n_admission=0), perm=None, count=None,
+            tensors=prep.tensors[:-1] + (None,))
         t_k, s_k = bk.launch(dense)
         o_, d_, alive, t_init = bvh_inputs(prep)
         t_p, s_p = bvh.intersect_triangles_bvh_plain(
@@ -1098,11 +1220,11 @@ def dense_replay(label: str, recorded, clusters, table) -> str:
     return "no compacted launch"
 
 
-def form_ab(preps, outs) -> tuple:
+def form_ab(preps, outs, clusters) -> tuple:
     """ms per pass of the recorded Plucker launches and of the same
     launches in the MT form, timed in turns (Plucker, MT, MT, Plucker,
     ...); each a list of batch medians."""
-    alt = [as_mt(pp) for pp in preps]
+    alt = [as_mt(pp, clusters) for pp in preps]
     run = lambda ps: cuda_ms(lambda: [bk.launch(q, o)
                                       for q, o in zip(ps, outs)],
                              iters=3, repeats=1, warmup=1)[0]
@@ -1122,7 +1244,7 @@ def plucker_checks(label: str, recorded, clusters, table, card: str):
     if not all(prep.params.plucker for prep, _ in recorded):
         fail(f"cell {label}: launches {labels} outside the Plucker form")
     dense = dense_replay(label, recorded, clusters, table)
-    changed, rel, live = form_report(recorded)
+    changed, rel, live = form_report(recorded, clusters)
     say(f"[4] cell {label} ({', '.join(sorted(labels))}): {dense}; the same "
         f"launches in the MT form: {changed} of {live} live rays changed "
         f"winner, largest relative t difference {rel:.3e} (a report, not a "
@@ -1681,6 +1803,9 @@ def main() -> int:
             if preps[0].variant == "streamed":
                 streamed_cells[label] = streamed_launches(
                     label, res, cl, ds.triangles.table)
+                if label not in FUSED:
+                    streamed_cells[label]["split_sweep"] = split_sweep(
+                        label, res)
             bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
                         f"{walk_note}; bound {b_bound:.4f} ms ({flops:.4g} "
                         f"FLOP, {nbytes:.4g} B), {b_bound / b_ms * 100:.1f}% "
@@ -1704,7 +1829,7 @@ def main() -> int:
                 if CELLS[label][2] == "streamed":
                     work += "; " + unstaged(preps, outs, b_ms)
                 if plucker:
-                    pl_ms, mt_ms = form_ab(preps, outs)
+                    pl_ms, mt_ms = form_ab(preps, outs, cl)
                     ab[label] = (float(np.median(pl_ms)),
                                  float(np.median(mt_ms)))
                     work += (f"; the same launches in the MT form, in turns "

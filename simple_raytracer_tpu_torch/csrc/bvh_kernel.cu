@@ -4,25 +4,17 @@
 // Replaces three TPU kernels of simple_raytracer_tpu/ops/pallas/
 // bvh_kernel.py, as three compile-time variants of one kernel (Variant):
 //   - kFlat (bvh_kernel.py:201 _kernel, tables of at most 8192 slots): the
-//     clusters in the wrapper's front-to-back order, each box slab-tested
-//     against the ray's live best t (_reslab_flag), then Moller-Trumbore
-//     over the cluster's K slots;
+//     clusters in front-to-back order, each box slab-tested against the
+//     ray's live best t (_reslab_flag), then Moller-Trumbore over the
+//     cluster's K slots;
 //   - kTwoLevel (bvh_kernel.py:1040 _kernel_packed, config 6): the groups of
 //     16 supers in front-to-back order, each group box, then each of its 16
 //     super boxes, then each of their 16 cluster boxes slab-tested against
 //     the live best t, then MT over the admitted cluster's slots;
 //   - kStreamed (bvh_kernel.py:678 _kernel_hbm, config 7 and
 //     tri_backend="clustered"): the same three gates per ray, walked by the
-//     warp together: a gate is passed when any of the warp's 32 rays admits
-//     it, and each cluster that some ray admits is staged into the warp's
-//     slice of shared memory (the 40 bytes of each slot that MT reads, and
-//     its index), kChunk slots at a time, where the rays that admitted it
-//     run MT.  It is the counterpart of the TPU's DMA ring, which stages
-//     each visited cluster's tile (one (24, 128) packet after another)
-//     from HBM into VMEM: config 7's table (1,409,024 slots, 112.7 MB) is
-//     beyond the 50 MB L2, so each admitted cluster is read from device
-//     memory once per warp, not once per ray.  The chunks let a cluster
-//     hold any number of slots (K = 256: two chunks, as two packets).
+//     warp together, each cluster that some lane admits staged from device
+//     memory into the warp's shared buffers (below).
 // Each of kTwoLevel and kStreamed has a second, Plucker form (PLUCKER,
 // params.plucker; bvh_kernel.py:629 _mt_update_sub_mxu and :582
 // _plucker_lt, row 5a, SRT_BVH_MT=plucker): the same predicate from the
@@ -32,42 +24,77 @@
 // [o, 1], each a dot product in that index order over the nonzero
 // coefficients, then f = 1/a and the same tests and commit.  A row of
 // the coefficient table: [w2, e2 | -w1, -e1 | -n | n, -pd | active] with
-// n = e1 x e2, w1 = v0 x e1, w2 = v0 x e2, pd = n . v0 (80 bytes: five
-// float4 loads in kTwoLevel; kStreamed stages the 80 bytes in place of
-// the 40 MT bytes).  The TPU evaluates the dot products on its MXU; here
-// they are FP32 on the CUDA cores, in the plain version's order (no
-// tensor cores: TF32 keeps too few bits for the t and u/v tests).
+// n = e1 x e2, w1 = v0 x e1, w2 = v0 x e2, pd = n . v0 (80 bytes, five
+// float4s).  The TPU evaluates the dot products on its MXU; here they are
+// FP32 on the CUDA cores, in the plain version's order (no tensor cores:
+// TF32 keeps too few bits for the t and u/v tests).
 // For each ray in its list it finds the nearest triangle strictly closer
 // than the ray's t_init and writes (t, table slot), or (+inf, -1) when none
 // is; a dead ray (alive == 0) is a miss.  Shading is not here: the
 // wrapper's caller gathers the winner's table row at its slot.
 //
-// Design: one thread per ray, a 1-D grid over the ray list.  The slot table
-// (C * K rows of 20 f32) and the boxes are read from global memory through
-// the read-only path.  The TPU gates a cluster for a 128-ray sub-block and
-// reads a packed table through one-hot MXU transposes; here each ray gates
-// alone (in kStreamed the warp only shares the walk and the staging, every
-// ray keeps its own gates) and reads its slots directly.  The global
-// triangle index of each slot comes as an int32 table (it never rides in
-// an f32 row), and decides exact ties: the least (t, index) wins, seeded
-// with (t_init, -1), so the visiting order never changes a result
+// One launch (srt_bvh_launch) is a few kernels on the stream, nothing read
+// back to the host:
+//   1. ray_partials and rank_boxes: the visiting order, the boxes by
+//      ascending squared distance of their centers from the mean live-ray
+//      origin (ops/bvh.py: front_to_back; the order changes no result);
+//   2. with admission boxes, the ray compaction (the plain version is
+//      ops/bvh.py: compact_order, which admits the same rays; compact_buckets
+//      transcribes these kernels): bucket_rays gives each live ray the
+//      bucket 8 x (rank of the first admission box it may meet before its
+//      t_init) + its direction octant, or the last bucket, and counts the
+//      buckets; scan_buckets places them; scatter_rays writes each ray to
+//      its bucket's next place (any order within a bucket) and leaves the
+//      admitted rays first, their count in device memory;
+//   3. the walk, one thread a ray of the list: thread i takes ray perm[i]
+//      (or ray i), a thread at or past the count writes a miss.  Every
+//      result goes to its own ray's place in the output.
+//
+// The walk: one thread per ray.  The TPU gates a cluster for a 128-ray
+// sub-block and reads a packed table through one-hot MXU transposes; here
+// each ray gates alone and its result does not depend on its neighbours.
+// The global triangle index of each slot comes as an int32 (it never rides
+// in an f32 value) and decides exact ties: the least (t, index) wins,
+// seeded with (t_init, -1), so the visiting order never changes a result
 // (_mt_update's commit).  Every index product is taken in size_t or stays
 // below 2^31: at config 7, 1,409,024 slots x 20 columns is 28.2M words.
 //
-// Ray compaction: with a permutation, thread i takes ray perm[i]; threads at
-// or past *count (read from device memory, so the host never waits) write a
-// miss to their ray and exit.  Every result goes to its own ray's place in
-// the output, so no scatter follows.
+// kStreamed, designed for this card.  Config 7's table (1,409,024 slots,
+// 112.7 MB) is beyond the 50 MB L2, and the rays of a secondary bounce
+// admit different clusters, so what costs is (a) reading each admitted
+// cluster from device memory, (b) issuing MT for lanes that did not admit
+// it and (c) few warps (a secondary bounce walks 2-45 thousand rays) each
+// waiting on a long chain of dependent loads.  The warp walks the gates
+// together (a gate passes when any lane admits it; each lane keeps its
+// own gates), tests a level's boxes as one batch when it enters their
+// parent (next_item: 16 groups of the order, a group's 16 supers, a
+// super's 16 clusters, all loads issued at once), and
+//   - stages each admitted cluster, kChunk slots at a time, from a
+//     per-scene table of exactly the bytes MT reads (ops/bvh.py:
+//     stage_slots: v0 and the index, e1 and active, e2, 48 bytes a slot;
+//     the Plucker form its 80-byte coefficient rows) with one 1-D bulk copy
+//     (TMA) into one of the warp's two shared buffers, on an mbarrier whose
+//     wait traps if it outlasts kSpinLimit polls; the next chunk is found
+//     and its copy issued before the current chunk's MT, so the copy runs
+//     under it (the lookahead gates with the t from before that MT, which
+//     admits at least what the walk would; each lane tests the box again
+//     at the chunk's turn);
+//   - splits MT pair by pair when few lanes admit a chunk (at most
+//     kSplitMax): for each admitting ray in turn the 32 lanes test every
+//     32nd slot with that ray and merge their least (t, index) by a warp
+//     minimum over one 64-bit key, which the ray's lane commits.  When more
+//     lanes admit, each admitting lane tests every slot, all reading one
+//     address.
+// Shared memory: 2 buffers x kChunk slots x 48 (80) bytes a warp, 24 KB
+// (40 KB) a block of 4 warps in the MT (Plucker) form.
 //
 // Bound on the H100 (chip_smoke.py): counted from what a launch's walked
 // rays open, the clusters whose box they may meet before their result t:
 // the MT tests of those clusters' real slots (46 FLOP a pair, the Plucker
 // form 38 and 9 a walked ray for m) and the root boxes' slab tests of
-// every walked ray; 32 bytes per walked ray in, 8 out per ray, and the
-// opened clusters' 44 bytes a slot once (the Plucker form 84).  Left for
-// later: warp divergence (the rays of a warp admit different clusters),
-// the table's 80-byte rows of which MT reads 40, and staging boxes in
-// shared memory.
+// every walked ray; 32 bytes a walked ray in and 8 out a ray (a compacted
+// launch: 32 in and 4 of order out for every ray, which the compaction
+// reads), and the opened clusters' 44 bytes a slot once in either form.
 //
 // Arithmetic: built with --fmad=false and no fast math, in the operation
 // order of the plain version (ops/bvh.py: slab_maybe, _mt, _mt_plucker),
@@ -79,16 +106,35 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 struct BvhParams {
-  int32_t n_rays;      // length of the ray list (the grid)
-  int32_t n_order;     // entries of the visiting order: clusters or groups
-  int32_t n_clusters;  // clusters of the slot table
-  int32_t k;           // slots per cluster
-  int32_t variant;     // Variant
-  int32_t plucker;     // 1: the Plucker form (kTwoLevel, kStreamed)
+  int32_t n_rays;       // rays: the grid
+  int32_t n_order;      // boxes of the visiting order: groups, or clusters
+                        // (kFlat)
+  int32_t n_clusters;   // clusters of the slot table
+  int32_t k;            // slots per cluster
+  int32_t variant;      // Variant
+  int32_t plucker;      // 1: the Plucker form (kTwoLevel, kStreamed)
+  int32_t n_admission;  // admission boxes of the ray compaction; 0: none
+  int32_t alive_u8;     // 1: alive is one byte a ray (bool), 0: f32
+  int32_t split_max;    // kStreamed: the most admitting lanes for which a
+                        // chunk's MT is split pair by pair
 };
 
 enum Variant { kFlat = 0, kTwoLevel = 1, kStreamed = 2 };
+
+// the rays of a launch, one (R,) array each
+struct RayIn {
+  const float* ox;
+  const float* oy;
+  const float* oz;
+  const float* dx;
+  const float* dy;
+  const float* dz;
+  const float* t_init;
+  const void* alive;   // bytes (BvhParams.alive_u8) or f32
+};
 
 namespace {
 
@@ -102,11 +148,29 @@ constexpr int kWarps = kBlock / 32;
 constexpr unsigned kAll = 0xffffffffu;
 // a slot's Plucker coefficients (ops/bvh.py: PLUCKER_COLS)
 constexpr int kPluckerCols = 20;
-// kStreamed: the slots it stages at a time, and the columns it stages per
-// slot: v0 (0-2), e1 (3-5), e2 (6-8) and active (from 19), or the Plucker
-// coefficients
-constexpr int kChunk = 128;
-constexpr int kMtCols = 10;
+// kStreamed's staged rows, in float4s a slot: the MT table (ops/bvh.py:
+// staged_slots, STAGED_COLS = 12: v0 and the global index's bits, e1 and
+// active, e2 and 0) or the Plucker coefficients
+constexpr int kMtRowF4 = 3;
+constexpr int kPluckerRowF4 = kPluckerCols / 4;
+// kStreamed: the slots a staged chunk holds, and the most lanes admitting
+// a chunk for which the warp splits each admitting ray's MT across its
+// lanes (above it each admitting lane tests every slot itself)
+#ifndef SRT_BVH_CHUNK
+#define SRT_BVH_CHUNK 64
+#endif
+#ifndef SRT_BVH_STAGES
+#define SRT_BVH_STAGES 2
+#endif
+constexpr int kChunk = SRT_BVH_CHUNK;
+constexpr int kStages = SRT_BVH_STAGES;   // the warp's ring of buffers
+// the ray compaction and the visiting orders (ops/bvh.py: ADMISSION_MAX;
+// ops/cuda/bvh_kernel.py: RANK_MAX)
+constexpr int kAdmissionMax = 256;
+constexpr int kBuckets = 8 * kAdmissionMax + 1;
+constexpr int kRankMax = 8192;
+constexpr int kThreads = 256;      // the compaction kernels' blocks
+constexpr int kPartials = 512;     // ray_partials' blocks, at most
 
 // The counting instance of kStreamed (srt_bvh_count_launch, which only
 // chip_smoke.py calls; the route never launches it): what the walk did,
@@ -121,10 +185,10 @@ enum Count {
   kCountGroupTests,    // warp-wide slab tests of groups
   kCountSuperTests,    // of supers
   kCountClusterTests,  // of clusters
-  kCountSplit,         // stagings whose MT the lanes split pair by pair
+  kCountSplit,         // chunks whose MT the lanes split pair by pair
   kCountWasted,        // chunks staged that no lane admitted at their turn
   kCountHist,          // stagings by admitting lanes: 1, 2, 3-4, 5-8,
-                       // 9-16, 17-24, 25-31, 32 (kHistBins)
+                       // 9-16, 17-24, 25-31, 32
   kCounters = kCountHist + 8
 };
 
@@ -169,20 +233,34 @@ struct Ray {
   float mx, my, mz;  // o x d, the Plucker form's moment
 };
 
-// may the ray meet box b before t_far?  (_visit_prepass's slab test)
-__device__ __forceinline__ bool slab(const float* __restrict__ b,
-                                     const Ray& r, float t_far) {
-  const float t1x = (__ldg(b + 0) - r.ox) * r.inx;
-  const float t2x = (__ldg(b + 3) - r.ox) * r.inx;
-  const float t1y = (__ldg(b + 1) - r.oy) * r.iny;
-  const float t2y = (__ldg(b + 4) - r.oy) * r.iny;
-  const float t1z = (__ldg(b + 2) - r.oz) * r.inz;
-  const float t2z = (__ldg(b + 5) - r.oz) * r.inz;
+__device__ __forceinline__ bool ray_alive(const RayIn& in, int i, int u8) {
+  return u8 ? static_cast<const uint8_t*>(in.alive)[i] != 0
+            : static_cast<const float*>(in.alive)[i] > 0.0f;
+}
+
+// may the ray meet the box [lo, hi] before t_far?  (_visit_prepass's slab
+// test)
+__device__ __forceinline__ bool slab6(float lx, float ly, float lz,
+                                      float hx, float hy, float hz,
+                                      const Ray& r, float t_far) {
+  const float t1x = (lx - r.ox) * r.inx;
+  const float t2x = (hx - r.ox) * r.inx;
+  const float t1y = (ly - r.oy) * r.iny;
+  const float t2y = (hy - r.oy) * r.iny;
+  const float t1z = (lz - r.oz) * r.inz;
+  const float t2z = (hz - r.oz) * r.inz;
   const float near = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
                              max_nan(min_nan(t1z, t2z), 0.0f));
   const float far = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
                             min_nan(max_nan(t1z, t2z), t_far));
   return !((near > far) || (near >= 1.0e38f));
+}
+
+// the slab test of box row b (8 floats: lo, hi, 0, 0) in device memory
+__device__ __forceinline__ bool slab(const float* __restrict__ b,
+                                     const Ray& r, float t_far) {
+  return slab6(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
+               __ldg(b + 4), __ldg(b + 5), r, t_far);
 }
 
 struct Best {
@@ -202,13 +280,13 @@ __device__ __forceinline__ void commit(float t, int32_t g, int slot,
   }
 }
 
-// Moller-Trumbore against one slot (v0, e1, e2, active; its global index
-// g and table slot)
-__device__ __forceinline__ void mt_slot(float v0x, float v0y, float v0z,
-                                        float e1x, float e1y, float e1z,
-                                        float e2x, float e2y, float e2z,
-                                        float active, int32_t g, int slot,
-                                        const Ray& r, Best& best) {
+// Moller-Trumbore against one slot (v0, e1, e2, active): is it a valid
+// hit, at t?
+__device__ __forceinline__ bool mt_hit(float v0x, float v0y, float v0z,
+                                       float e1x, float e1y, float e1z,
+                                       float e2x, float e2y, float e2z,
+                                       float active, const Ray& r,
+                                       float& t) {
   const float hx = r.dy * e2z - r.dz * e2y;
   const float hy = r.dz * e2x - r.dx * e2z;
   const float hz = r.dx * e2y - r.dy * e2x;
@@ -222,17 +300,15 @@ __device__ __forceinline__ void mt_slot(float v0x, float v0y, float v0z,
   const float qy = sz * e1x - sx * e1z;
   const float qz = sx * e1y - sy * e1x;
   const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-  if (a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
-      && t > 0.0f && active > 0.0f)
-    commit(t, g, slot, best);
+  t = f * (e2x * qx + e2y * qy + e2z * qz);
+  return a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
+         && t > 0.0f && active > 0.0f;
 }
 
 // The Plucker form against one slot, from its kPluckerCols coefficients q
 // (_mt_update_sub_mxu: the dot products in the ray vector's index order)
-__device__ __forceinline__ void plucker_slot(const float* q, int32_t g,
-                                             int slot, const Ray& r,
-                                             Best& best) {
+__device__ __forceinline__ bool plucker_hit(const float* q, const Ray& r,
+                                            float& t) {
   const float unum = q[0] * r.dx + q[1] * r.dy + q[2] * r.dz + q[3] * r.mx
                      + q[4] * r.my + q[5] * r.mz;
   const float vnum = q[6] * r.dx + q[7] * r.dy + q[8] * r.dz + q[9] * r.mx
@@ -242,15 +318,14 @@ __device__ __forceinline__ void plucker_slot(const float* q, int32_t g,
   const float f = 1.0f / a;
   const float u = f * unum;
   const float v = f * vnum;
-  const float t = f * tnum;
-  if (a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
-      && t > 0.0f && q[19] > 0.0f)
-    commit(t, g, slot, best);
+  t = f * tnum;
+  return a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
+         && t > 0.0f && q[19] > 0.0f;
 }
 
-// Moller-Trumbore over the K slots of cluster c, read from global memory:
+// Moller-Trumbore over the K slots of cluster c, read from device memory:
 // the MT columns of the slot table, or each slot's Plucker coefficients
-// as five float4 loads
+// as five float4 loads (kFlat, kTwoLevel)
 template <bool PLUCKER>
 __device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
                                            const float* __restrict__ coeffs,
@@ -259,6 +334,8 @@ __device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
                                            Best& best) {
   const int row0 = c * k;
   for (int s = 0; s < k; ++s) {
+    float t;
+    bool hit;
     if constexpr (PLUCKER) {
       const float4* q4 = reinterpret_cast<const float4*>(
           coeffs + (size_t)kPluckerCols * (row0 + s));
@@ -271,101 +348,531 @@ __device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
         q[4 * j + 2] = w.z;
         q[4 * j + 3] = w.w;
       }
-      plucker_slot(q, __ldg(gidx + row0 + s), row0 + s, r, best);
+      hit = plucker_hit(q, r, t);
     } else {
       const float* q = table + (size_t)kTriCols * (row0 + s);
-      mt_slot(__ldg(q + 0), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3),
-              __ldg(q + 4), __ldg(q + 5), __ldg(q + 6), __ldg(q + 7),
-              __ldg(q + 8), __ldg(q + 19), __ldg(gidx + row0 + s), row0 + s,
-              r, best);
+      hit = mt_hit(__ldg(q + 0), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3),
+                   __ldg(q + 4), __ldg(q + 5), __ldg(q + 6), __ldg(q + 7),
+                   __ldg(q + 8), __ldg(q + 19), r, t);
     }
+    if (hit) commit(t, __ldg(gidx + row0 + s), row0 + s, best);
   }
 }
 
-// kStreamed's walk: the groups in front-to-back order, then supers, then
-// clusters, each gate passed by the warp when any of its rays admits it;
-// an admitted cluster is staged into the warp's shared slice kChunk slots
-// at a time, and every ray that admitted it runs MT there on each chunk.
-// Each ray's own gates and commits are those of kTwoLevel, in the same
-// order, so it writes the same result.  Called by the whole warp (control
-// flow is warp-uniform).
-template <bool PLUCKER, bool COUNT>
-__device__ __forceinline__ void streamed_walk(
-    const float* __restrict__ table, const float* __restrict__ coeffs,
-    const int32_t* __restrict__ gidx, const float* __restrict__ boxes,
-    const float* __restrict__ supers, const float* __restrict__ groups,
-    const int32_t* __restrict__ order, bool listed, const Ray& r, Best& best,
-    const BvhParams& p, unsigned long long* counters) {
-  WarpCounts<COUNT> cnt;
-  if constexpr (COUNT)
-    cnt.add(kCountWalked, __popc(__ballot_sync(kAll, listed)));
-  constexpr int kCols = PLUCKER ? kPluckerCols : kMtCols;
-  __shared__ float s_rows[kWarps][kChunk * kCols];
-  __shared__ int32_t s_gidx[kWarps][kChunk];
-  const int lane = threadIdx.x & 31;
-  float* rows = s_rows[threadIdx.x >> 5];
-  int32_t* gx = s_gidx[threadIdx.x >> 5];
-  for (int j = 0; j < p.n_order; ++j) {
-    const int g = order[j];
-    const bool g_ok = listed && slab(groups + 8 * g, r, best.t);
-    cnt.add(kCountGroupTests, 1);
-    if (!__any_sync(kAll, g_ok)) continue;
-    for (int s = g * kGroup; s < (g + 1) * kGroup; ++s) {
-      const bool s_ok = g_ok && slab(supers + 8 * s, r, best.t);
-      cnt.add(kCountSuperTests, 1);
-      if (!__any_sync(kAll, s_ok)) continue;
-      for (int c = s * kSuper; c < (s + 1) * kSuper; ++c) {
-        const bool c_ok = s_ok && slab(boxes + 8 * c, r, best.t);
-        cnt.add(kCountClusterTests, 1);
-        const unsigned admit = __ballot_sync(kAll, c_ok);
-        if (!admit) continue;
-        if constexpr (COUNT) {
-          cnt.add(kCountStagings, 1);
-          cnt.add(kCountPairs, __popc(admit));
-          cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
-        }
-        // a NaN ray admits the sentinel boxes past the table too;
-        // visiting the last cluster again changes nothing
-        const int row0 = min(c, p.n_clusters - 1) * p.k;
-        for (int base = 0; base < p.k; base += kChunk) {
-          const int n = min(kChunk, p.k - base);
-          const int first = row0 + base;
-          cnt.add(kCountChunks, 1);
-          cnt.add(kCountSlots, n);
-          cnt.add(kCountMtSteps, n);
-          __syncwarp();   // every lane is done with the last staged chunk
-          for (int e = lane; e < n * kCols; e += 32) {
-            if constexpr (PLUCKER) {
-              rows[e] = __ldg(coeffs + (size_t)kPluckerCols * first + e);
-            } else {
-              const int slot = e / kMtCols;
-              const int col = e - slot * kMtCols;
-              rows[e] = __ldg(table + (size_t)kTriCols * (first + slot)
-                              + (col < 9 ? col : 19));
-            }
-          }
-          for (int e = lane; e < n; e += 32) gx[e] = __ldg(gidx + first + e);
-          __syncwarp();
-          if (c_ok) {
-            for (int sl = 0; sl < n; ++sl) {
-              const float* q = rows + kCols * sl;
-              if constexpr (PLUCKER)
-                plucker_slot(q, gx[sl], first + sl, r, best);
-              else
-                mt_slot(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8],
-                        q[9], gx[sl], first + sl, r, best);
-            }
-          }
+// ---- the ray compaction and the visiting orders, before the walk ----
+
+// Per block, the sums over its rays (a grid-stride loop) of o * w and of w
+// (w: alive as 0 or 1): the mean live-ray origin's parts, summed again in
+// a fixed order by rank_boxes, so every block of it gets the same origin.
+__global__ void __launch_bounds__(kThreads)
+ray_partials(const RayIn in, const BvhParams p, float4* __restrict__ part) {
+  __shared__ float4 s_sum[kThreads];
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.n_rays;
+       i += gridDim.x * kThreads) {
+    if (ray_alive(in, i, p.alive_u8)) {
+      acc.x += in.ox[i];
+      acc.y += in.oy[i];
+      acc.z += in.oz[i];
+      acc.w += 1.0f;
+    }
+  }
+  s_sum[threadIdx.x] = acc;
+  __syncthreads();
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) {
+      const float4 b = s_sum[threadIdx.x + h];
+      float4& a = s_sum[threadIdx.x];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) part[blockIdx.x] = s_sum[0];
+}
+
+// the squared distance of box row b's center from the origin; a NaN sorts
+// last, as +inf does (front_to_back's key)
+__device__ __forceinline__ float center_d2(const float* __restrict__ b,
+                                           const float* o) {
+  const float cx = (__ldg(b + 0) + __ldg(b + 3)) * 0.5f - o[0];
+  const float cy = (__ldg(b + 1) + __ldg(b + 4)) * 0.5f - o[1];
+  const float cz = (__ldg(b + 2) + __ldg(b + 5)) * 0.5f - o[2];
+  const float d2 = cx * cx + cy * cy + cz * cz;
+  return is_nan(d2) ? INFINITY : d2;
+}
+
+// The visiting order of the visit boxes (groups, or kFlat's clusters) and
+// the admission boxes in their front-to-back rank (ops/bvh.py:
+// front_to_back: ascending squared distance of the centers from the mean
+// live-ray origin, ties by index): thread t < n_visit places visit box t,
+// the next n_admission threads admission box t - n_visit.
+__global__ void __launch_bounds__(kThreads)
+rank_boxes(const float4* __restrict__ part, const int n_part,
+           const float* __restrict__ visit, const int n_visit,
+           const float* __restrict__ adm, const int n_adm,
+           int32_t* __restrict__ visit_order,
+           int32_t* __restrict__ adm_order) {
+  __shared__ float s_d2[kRankMax + kAdmissionMax];
+  __shared__ float s_origin[3];
+  if (threadIdx.x < 32) {
+    // warp 0: the partial sums, in a fixed order
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j = threadIdx.x; j < n_part; j += 32) {
+      const float4 b = part[j];
+      acc.x += b.x;
+      acc.y += b.y;
+      acc.z += b.z;
+      acc.w += b.w;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      acc.x += __shfl_xor_sync(kAll, acc.x, off);
+      acc.y += __shfl_xor_sync(kAll, acc.y, off);
+      acc.z += __shfl_xor_sync(kAll, acc.z, off);
+      acc.w += __shfl_xor_sync(kAll, acc.w, off);
+    }
+    if (threadIdx.x == 0) {
+      const float w = fmaxf(acc.w, 1.0f);
+      s_origin[0] = acc.x / w;
+      s_origin[1] = acc.y / w;
+      s_origin[2] = acc.z / w;
+    }
+  }
+  __syncthreads();
+  const int n_all = n_visit + n_adm;
+  for (int j = threadIdx.x; j < n_all; j += kThreads)
+    s_d2[j] = j < n_visit ? center_d2(visit + 8 * j, s_origin)
+                          : center_d2(adm + 8 * (j - n_visit), s_origin);
+  __syncthreads();
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n_all) return;
+  const int lo = t < n_visit ? 0 : n_visit;
+  const int hi = t < n_visit ? n_visit : n_all;
+  const float d = s_d2[t];
+  int rank = 0;
+  for (int j = lo; j < hi; ++j) {
+    const float e = s_d2[j];
+    rank += (e < d) || (e == d && j < t);
+  }
+  if (t < n_visit)
+    visit_order[rank] = t;
+  else
+    adm_order[rank] = t - n_visit;
+}
+
+// Each ray's bucket: 8 x the rank of the first admission box (in
+// front-to-back order) that the live ray may meet before its t_init, plus
+// its direction octant, or kNone = 8 x n_admission when it meets none or
+// is dead (ops/bvh.py: compact_buckets); the buckets' sizes into counts.
+__global__ void __launch_bounds__(kThreads)
+bucket_rays(const RayIn in, const BvhParams p, const float* __restrict__ adm,
+            const int32_t* __restrict__ adm_order,
+            int32_t* __restrict__ bucket, int32_t* __restrict__ counts) {
+  __shared__ float s_box[kAdmissionMax * 6];
+  __shared__ int32_t s_hist[kBuckets];
+  const int n_adm = p.n_admission;
+  const int none = 8 * n_adm;
+  for (int j = threadIdx.x; j < n_adm * 6; j += kThreads)
+    s_box[j] = __ldg(adm + 8 * adm_order[j / 6] + j % 6);
+  for (int j = threadIdx.x; j <= none; j += kThreads) s_hist[j] = 0;
+  __syncthreads();
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < p.n_rays) {
+    int b = none;
+    if (ray_alive(in, i, p.alive_u8)) {
+      Ray r;
+      r.ox = in.ox[i];
+      r.oy = in.oy[i];
+      r.oz = in.oz[i];
+      r.dx = in.dx[i];
+      r.dy = in.dy[i];
+      r.dz = in.dz[i];
+      r.inx = 1.0f / r.dx;
+      r.iny = 1.0f / r.dy;
+      r.inz = 1.0f / r.dz;
+      const float t_far = in.t_init[i];
+      for (int j = 0; j < n_adm; ++j) {
+        const float* q = s_box + 6 * j;
+        if (slab6(q[0], q[1], q[2], q[3], q[4], q[5], r, t_far)) {
+          b = 8 * j + (r.dx < 0.0f) * 4 + (r.dy < 0.0f) * 2
+              + (r.dz < 0.0f);
+          break;
         }
       }
     }
+    bucket[i] = b;
+    atomicAdd(&s_hist[b], 1);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j <= none; j += kThreads)
+    if (s_hist[j]) atomicAdd(&counts[j], s_hist[j]);
+}
+
+// One block: the exclusive scan of the bucket sizes into each bucket's
+// first place in the order (cursor), and the admitted rays' count, the
+// place of kNone.
+__global__ void __launch_bounds__(1024)
+scan_buckets(const int32_t* __restrict__ counts, const int n_buckets,
+             int32_t* __restrict__ cursor, int32_t* __restrict__ count) {
+  constexpr int kPer = (kBuckets + 1023) / 1024;
+  __shared__ int32_t s_warp[32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int own[kPer];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int b = t * kPer + j;
+    own[j] = b < n_buckets ? counts[b] : 0;
+    sum += own[j];
+  }
+  int incl = sum;   // the warp's inclusive scan of the threads' sums
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kAll, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = s_warp[lane];
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kAll, w, off);
+      if (lane >= off) w += v;
+    }
+    s_warp[lane] = w;   // inclusive over warps
+  }
+  __syncthreads();
+  int at = incl - sum + (warp > 0 ? s_warp[warp - 1] : 0);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int b = t * kPer + j;
+    if (b < n_buckets) {
+      cursor[b] = at;
+      if (b == n_buckets - 1) *count = at;
+    }
+    at += own[j];
+  }
+}
+
+// Each ray to its place: the next free place of its bucket, taken with one
+// atomicAdd per bucket a warp holds (the places within a bucket come in
+// any order, which changes no result).
+__global__ void __launch_bounds__(kThreads)
+scatter_rays(const int32_t* __restrict__ bucket, const int n,
+             int32_t* __restrict__ cursor, int32_t* __restrict__ perm) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int b = i < n ? bucket[i] : -1;
+  const unsigned peers = __match_any_sync(kAll, b);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (lane == leader && b >= 0) base = atomicAdd(&cursor[b], __popc(peers));
+  base = __shfl_sync(kAll, base, leader);
+  if (b >= 0) perm[base + __popc(peers & ((1u << lane) - 1u))] = i;
+}
+
+// ---- kStreamed's walk ----
+
+// the lane's gates of n consecutive boxes (rows of 8 floats: lo, hi, 0, 0,
+// read as two float4s) against t_far, bit i for box i: all loads issued
+// together, so a batch costs one trip to memory
+template <int N>
+__device__ __forceinline__ unsigned slab_mask(const float* __restrict__ b,
+                                              const Ray& r, float t_far) {
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  unsigned m = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float4 lo = __ldg(b4 + 2 * i);       // lo.xyz, hi.x
+    const float4 hi = __ldg(b4 + 2 * i + 1);   // hi.yz, 0, 0
+    m |= (unsigned)slab6(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, t_far) << i;
+  }
+  return m;
+}
+
+// the walk's place: a batch of up to kBatch groups from order[j0], the
+// current group g's supers and the current super s's clusters, each as
+// this lane's gates (bit i: member i admitted) and the warp's union, less
+// the members visited
+constexpr int kBatch = 16;
+struct Walk {
+  int j0 = -kBatch;
+  unsigned g_mask = 0, g_any = 0;
+  int g = 0;
+  unsigned s_mask = 0, s_any = 0;
+  int s = 0;
+  unsigned c_mask = 0, c_any = 0;
+};
+
+// one staged chunk: slots [base, base + kChunk) of cluster c (padded
+// index), and whether this lane admitted the cluster when it was found
+struct Item {
+  int c;
+  int base;
+  bool ok;
+};
+
+// The next chunk to stage: the current cluster's next chunk, else the
+// next cluster some lane admits, through the group, super and cluster
+// gates in order.  A level's gates are tested together when the walk
+// enters its parent (the next kBatch groups of the order; a group's 16
+// supers; a super's 16 clusters), each against the lane's best t then: a
+// t can only fall, so that admits at least what gating each box at its
+// turn would, and the chunk's own turn tests its cluster's box again.
+// Called by the whole warp (control flow is warp-uniform); false at the
+// end of the walk.
+template <bool COUNT>
+__device__ __forceinline__ bool next_item(
+    Walk& w, Item& it, const float* __restrict__ boxes,
+    const float* __restrict__ supers, const float* __restrict__ groups,
+    const int32_t* __restrict__ order, bool listed, const Ray& r,
+    float best_t, const BvhParams& p, WarpCounts<COUNT>& cnt) {
+  if (it.c >= 0 && it.base + kChunk < p.k) {
+    it.base += kChunk;
+    return true;
+  }
+  for (;;) {
+    if (w.c_any) {
+      const int i = __ffs(w.c_any) - 1;
+      w.c_any &= w.c_any - 1;
+      it.c = w.s * kSuper + i;
+      it.base = 0;
+      it.ok = (w.c_mask >> i) & 1u;
+      return true;
+    }
+    if (w.s_any) {
+      const int i = __ffs(w.s_any) - 1;
+      w.s_any &= w.s_any - 1;
+      w.s = w.g * kGroup + i;
+      w.c_mask = (w.s_mask >> i) & 1u
+                 ? slab_mask<kSuper>(boxes + 8 * kSuper * w.s, r, best_t)
+                 : 0u;
+      w.c_any = __reduce_or_sync(kAll, w.c_mask);
+      cnt.add(kCountClusterTests, kSuper);
+      continue;
+    }
+    if (w.g_any) {
+      const int i = __ffs(w.g_any) - 1;
+      w.g_any &= w.g_any - 1;
+      w.g = order[w.j0 + i];
+      w.s_mask = (w.g_mask >> i) & 1u
+                 ? slab_mask<kGroup>(supers + 8 * kGroup * w.g, r, best_t)
+                 : 0u;
+      w.s_any = __reduce_or_sync(kAll, w.s_mask);
+      cnt.add(kCountSuperTests, kGroup);
+      continue;
+    }
+    w.j0 += kBatch;
+    if (w.j0 >= p.n_order) return false;
+    const int n = min(kBatch, p.n_order - w.j0);
+    w.g_mask = 0;
+    if (listed) {
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (i < n && slab(groups + 8 * order[w.j0 + i], r, best_t))
+          w.g_mask |= 1u << i;
+    }
+    w.g_any = __reduce_or_sync(kAll, w.g_mask);
+    cnt.add(kCountGroupTests, n);
+  }
+}
+
+// the staged slot sl's test for ray q: (valid, t, global index, read from
+// the staged row, or for the Plucker form from gidx only on a valid hit)
+template <bool PLUCKER>
+__device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
+                                           int sl, const Ray& q,
+                                           const int32_t* __restrict__ gidx,
+                                           int row, float& t, int32_t& g) {
+  if constexpr (PLUCKER) {
+    float c[kPluckerCols];
+#pragma unroll
+    for (int j = 0; j < kPluckerRowF4; ++j) {
+      const float4 w = buf[kPluckerRowF4 * sl + j];
+      c[4 * j] = w.x;
+      c[4 * j + 1] = w.y;
+      c[4 * j + 2] = w.z;
+      c[4 * j + 3] = w.w;
+    }
+    const bool hit = plucker_hit(c, q, t);
+    g = hit ? __ldg(gidx + row) : -1;
+    return hit;
+  } else {
+    const float4 a = buf[kMtRowF4 * sl];       // v0, global index
+    const float4 b = buf[kMtRowF4 * sl + 1];   // e1, active
+    const float4 e = buf[kMtRowF4 * sl + 2];   // e2
+    g = __float_as_int(a.w);
+    return mt_hit(a.x, a.y, a.z, b.x, b.y, b.z, e.x, e.y, e.z, b.w, q, t);
+  }
+}
+
+// The admitting lanes' MT over one staged chunk of n slots (first: its
+// first table slot).  Few lanes admitting (at most kSplitMax): for each
+// admitting ray in turn every lane tests every 32nd slot with that ray,
+// and the lexicographic least (t, index) of the warp is committed by the
+// ray's own lane.  Many: each admitting lane tests every slot (the chunk
+// is read at one address by the whole warp).
+template <bool PLUCKER, bool COUNT>
+__device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
+                                         int n, int first, unsigned admit,
+                                         bool ok, const Ray& r, Best& best,
+                                         const int32_t* __restrict__ gidx,
+                                         int split_max,
+                                         WarpCounts<COUNT>& cnt) {
+  const int lane = threadIdx.x & 31;
+  if (__popc(admit) > split_max) {
+    cnt.add(kCountMtSteps, n);
+    if (ok) {
+      for (int sl = 0; sl < n; ++sl) {
+        float t;
+        int32_t g;
+        if (staged_hit<PLUCKER>(buf, sl, r, gidx, first + sl, t, g))
+          commit(t, g, first + sl, best);
+      }
+    }
+    return;
+  }
+  cnt.add(kCountSplit, 1);
+  for (unsigned m = admit; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    Ray q;
+    q.ox = __shfl_sync(kAll, r.ox, src);
+    q.oy = __shfl_sync(kAll, r.oy, src);
+    q.oz = __shfl_sync(kAll, r.oz, src);
+    q.dx = __shfl_sync(kAll, r.dx, src);
+    q.dy = __shfl_sync(kAll, r.dy, src);
+    q.dz = __shfl_sync(kAll, r.dz, src);
+    if constexpr (PLUCKER) {
+      q.mx = __shfl_sync(kAll, r.mx, src);
+      q.my = __shfl_sync(kAll, r.my, src);
+      q.mz = __shfl_sync(kAll, r.mz, src);
+    }
+    cnt.add(kCountMtSteps, (n + 31) / 32);
+    // this lane's least candidate as one key: t > 0, so its bits order
+    // as the floats do, then the global index (>= 0 for an active slot)
+    unsigned long long key = ~0ull;
+    int slot = -1;
+    for (int sl = lane; sl < n; sl += 32) {
+      float t;
+      int32_t g;
+      if (staged_hit<PLUCKER>(buf, sl, q, gidx, first + sl, t, g)) {
+        const unsigned long long k2 =
+            ((unsigned long long)__float_as_uint(t) << 32) | (uint32_t)g;
+        if (k2 < key) {
+          key = k2;
+          slot = first + sl;
+        }
+      }
+    }
+    const unsigned any = __ballot_sync(kAll, key != ~0ull);
+    if (!any) continue;
+    unsigned long long least = key;
+    int from = __ffs(any) - 1;
+    if (any & (any - 1)) {
+      for (int off = 16; off > 0; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(kAll, least, off);
+        least = o < least ? o : least;
+      }
+      from = __ffs(__ballot_sync(kAll, key == least)) - 1;
+    } else {
+      least = __shfl_sync(kAll, key, from);
+    }
+    const int won = __shfl_sync(kAll, slot, from);
+    if (lane == src)
+      commit(__uint_as_float((uint32_t)(least >> 32)),
+             (int32_t)(uint32_t)least, won, best);
+  }
+}
+
+// kStreamed's walk: the warp visits, in order, every chunk of every
+// cluster that some lane's gates admit (next_item); each chunk is one 1-D
+// bulk copy from the staged table (rows: kMtRowF4 or kPluckerRowF4 float4s
+// a slot) into one of the warp's kStages shared buffers, a ring: while a
+// chunk's MT runs, the copies of the next kStages - 1 chunks are in
+// flight.  A chunk is found (and its copy issued) with the lanes' best t
+// of that moment, before the MT of the chunks ahead of it (a t can only
+// fall, so that admits at least what the walk would); at its turn each
+// lane tests the cluster's box again with its t then, and the lanes that
+// still admit it run MT (mt_chunk).  Each ray's gates and commits are
+// those of kTwoLevel, so it writes the same result.  Called by the whole
+// warp (control flow is warp-uniform).
+template <bool PLUCKER, bool COUNT>
+__device__ __forceinline__ void streamed_walk(
+    const float4* __restrict__ rows, const int32_t* __restrict__ gidx,
+    const float* __restrict__ boxes, const float* __restrict__ supers,
+    const float* __restrict__ groups, const int32_t* __restrict__ order,
+    bool listed, const Ray& r, Best& best, const BvhParams& p,
+    float4* __restrict__ s_buf, uint64_t* __restrict__ s_bar,
+    unsigned long long* counters) {
+  constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
+  WarpCounts<COUNT> cnt;
+  if constexpr (COUNT)
+    cnt.add(kCountWalked, __popc(__ballot_sync(kAll, listed)));
+  const int lane = threadIdx.x & 31;
+  Walk w;
+  Item last = {-1, 0, false};   // the chunk found last
+  Item q[kStages];              // the chunks staged, oldest first
+  int n_q = 0;
+  bool more = true;
+  uint32_t issued = 0, phase = 0;   // phase bit b: buffer b's next parity
+  // find the next chunk and copy it into the next buffer of the ring (a
+  // NaN ray admits the sentinel boxes past the table too; staging the
+  // last cluster again changes nothing)
+  auto stage_next = [&]() {
+    more = next_item<COUNT>(w, last, boxes, supers, groups, order, listed,
+                            r, best.t, p, cnt);
+    if (!more) return;
+#pragma unroll
+    for (int i = 0; i < kStages; ++i)
+      if (i == n_q) q[i] = last;
+    ++n_q;
+    const int b = issued++ % kStages;
+    const int first = min(last.c, p.n_clusters - 1) * p.k + last.base;
+    const int n = min(kChunk, p.k - last.base);
+    cnt.add(kCountChunks, 1);
+    cnt.add(kCountSlots, n);
+    __syncwarp();   // every lane is done with buffer b's last chunk
+    if (lane == 0)
+      bulk_load(s_buf + b * kChunk * kRowF4, rows + (size_t)first * kRowF4,
+                static_cast<uint32_t>(n * kRowF4 * 16), &s_bar[b]);
+  };
+  while (more && n_q < kStages) stage_next();
+  for (uint32_t done = 0; n_q > 0; ++done) {
+    const Item cur = q[0];
+#pragma unroll
+    for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
+    --n_q;
+    const int b = done % kStages;
+    bar_wait(&s_bar[b], (phase >> b) & 1u);
+    phase ^= 1u << b;
+    const bool ok = cur.ok && slab(boxes + 8 * cur.c, r, best.t);
+    const unsigned admit = __ballot_sync(kAll, ok);
+    if (admit) {
+      if (cur.base == 0) {
+        cnt.add(kCountStagings, 1);
+        cnt.add(kCountPairs, __popc(admit));
+        cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
+      }
+      const int first = min(cur.c, p.n_clusters - 1) * p.k + cur.base;
+      mt_chunk<PLUCKER, COUNT>(s_buf + b * kChunk * kRowF4,
+                               min(kChunk, p.k - cur.base), first, admit, ok,
+                               r, best, gidx, p.split_max, cnt);
+    } else {
+      cnt.add(kCountWasted, 1);
+    }
+    if (more) stage_next();   // into buffer b, just read
   }
   cnt.flush(counters);
 }
 
+// The walk over the ray list: ray perm[i] for thread i (perm and count
+// from the compaction, or ray i), a miss for a ray past the admitted count
+// or dead.
 template <int VARIANT, bool PLUCKER, bool COUNT = false>
 __global__ void __launch_bounds__(kBlock)
-bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
+bvh_kernel(const RayIn in, const float* __restrict__ table,
+           const float4* __restrict__ staged,
            const float* __restrict__ coeffs,
            const int32_t* __restrict__ gidx, const float* __restrict__ boxes,
            const float* __restrict__ supers, const float* __restrict__ groups,
@@ -373,26 +880,34 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
            const int32_t* __restrict__ count, float* __restrict__ t_out,
            int32_t* __restrict__ slot_out, const BvhParams p,
            unsigned long long* __restrict__ counters) {
+  extern __shared__ __align__(128) float4 s_dyn[];
+  __shared__ __align__(8) uint64_t s_bar[kWarps][kStages];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < p.n_rays;
-  // kStreamed keeps every lane of the warp to the end: its walk is shared
-  if (VARIANT != kStreamed && !in_range) return;
+  if constexpr (VARIANT == kStreamed) {
+    // every lane of the block stays to the end: the walk is the warp's
+    if (threadIdx.x < kWarps * kStages)
+      bar_init(&s_bar[0][0] + threadIdx.x);
+    bar_init_fence();
+    __syncthreads();
+  } else if (!in_range) {
+    return;
+  }
   const int ray = !in_range ? 0 : (perm != nullptr ? perm[i] : i);
-  const int n = p.n_rays;
   Best best;
-  best.t = in_range ? rays[7 * n + ray] : 0.0f;
+  best.t = in_range ? in.t_init[ray] : 0.0f;
   best.idx = -1;
   best.slot = -1;
   const bool listed = in_range && (perm == nullptr || i < *count)
-                      && rays[6 * n + ray] > 0.0f;
+                      && ray_alive(in, ray, p.alive_u8);
   Ray r = {};
   if (listed) {
-    r.ox = rays[ray];
-    r.oy = rays[n + ray];
-    r.oz = rays[2 * n + ray];
-    r.dx = rays[3 * n + ray];
-    r.dy = rays[4 * n + ray];
-    r.dz = rays[5 * n + ray];
+    r.ox = in.ox[ray];
+    r.oy = in.oy[ray];
+    r.oz = in.oz[ray];
+    r.dx = in.dx[ray];
+    r.dy = in.dy[ray];
+    r.dz = in.dz[ray];
     r.inx = 1.0f / r.dx;
     r.iny = 1.0f / r.dy;
     r.inz = 1.0f / r.dz;
@@ -403,10 +918,13 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
     }
   }
   if constexpr (VARIANT == kStreamed) {
+    constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
+    const int warp = threadIdx.x >> 5;
     if (__any_sync(kAll, listed))
-      streamed_walk<PLUCKER, COUNT>(table, coeffs, gidx, boxes, supers,
-                                    groups, order, listed, r, best, p,
-                                    counters);
+      streamed_walk<PLUCKER, COUNT>(
+          PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
+          boxes, supers, groups, order, listed, r, best, p,
+          s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
   } else if (listed) {
     if constexpr (VARIANT == kFlat) {
       for (int j = 0; j < p.n_order; ++j) {
@@ -436,86 +954,176 @@ bvh_kernel(const float* __restrict__ rays, const float* __restrict__ table,
   slot_out[ray] = best.idx < 0 ? -1 : best.slot;
 }
 
-}  // namespace
+// kStreamed's dynamic shared memory a block: each warp's ring of buffers
+template <bool PLUCKER>
+constexpr int streamed_smem() {
+  return kWarps * kStages * kChunk * (PLUCKER ? kPluckerRowF4 : kMtRowF4)
+         * 16;
+}
 
-namespace {
+// the work scratch's int32 words: partial sums, the two visiting orders,
+// the bucket sizes and cursors, and each ray's bucket
+size_t work_words(const BvhParams& p) {
+  return (size_t)kPartials * 4 + kRankMax + kAdmissionMax + 2 * kBuckets
+         + (p.n_admission > 0 ? (size_t)p.n_rays : 0);
+}
 
-int launch_bvh(const float* rays, const float* table, const float* coeffs,
-               const int32_t* gidx, const float* boxes, const float* supers,
-               const float* groups, const int32_t* order, const int32_t* perm,
-               const int32_t* count, float* t_out, int32_t* slot_out,
-               BvhParams p, unsigned long long* counters, void* stream) {
+constexpr int kMaxDevices = 64;
+
+int launch_bvh(const RayIn& in, const float* table, const float* staged,
+               const float* coeffs, const int32_t* gidx, const float* boxes,
+               const float* supers, const float* groups,
+               const float* admission, int32_t* work, int32_t* perm,
+               int32_t* count, float* t_out, int32_t* slot_out,
+               const BvhParams& p, unsigned long long* counters,
+               void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
-  if (p.k <= 0 || p.n_clusters <= 0 || (perm == nullptr) != (count == nullptr)
+  const bool streamed = p.variant == kStreamed;
+  const bool compact = p.n_admission > 0;
+  if (p.k <= 0 || p.n_clusters <= 0 || p.n_order <= 0
+      || p.n_order > kRankMax || p.n_admission < 0
+      || p.n_admission > kAdmissionMax || work == nullptr
+      || compact != (perm != nullptr) || compact != (count != nullptr)
+      || (compact && admission == nullptr)
       || (p.plucker != 0) != (coeffs != nullptr)
-      || (p.plucker && p.variant == kFlat))
+      || (p.plucker && p.variant == kFlat)
+      || (streamed && !p.plucker
+          && (staged == nullptr
+              || reinterpret_cast<uintptr_t>(staged) % 16 != 0))
+      || (streamed && p.plucker
+          && reinterpret_cast<uintptr_t>(coeffs) % 16 != 0)
+      || (counters != nullptr && !streamed))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (p.n_rays + kBlock - 1) / kBlock;
   cudaStream_t st = (cudaStream_t)stream;
-#define SRT_BVH_LAUNCH(VARIANT, PLUCKER, COUNT)                           \
-  bvh_kernel<VARIANT, PLUCKER, COUNT><<<blocks, kBlock, 0, st>>>(         \
-      rays, table, coeffs, gidx, boxes, supers, groups, order, perm, count, \
-      t_out, slot_out, p, counters)
-  if (counters != nullptr) {
-    // the counting instance: kStreamed only
-    if (p.variant != kStreamed) return (int)cudaErrorInvalidValue;
-    if (p.plucker)
-      SRT_BVH_LAUNCH(kStreamed, true, true);
-    else
-      SRT_BVH_LAUNCH(kStreamed, false, true);
-    return (int)cudaGetLastError();
+  // the work scratch (work_words)
+  float4* part = reinterpret_cast<float4*>(work);
+  int32_t* visit_order = work + kPartials * 4;
+  int32_t* adm_order = visit_order + kRankMax;
+  int32_t* counts = adm_order + kAdmissionMax;
+  int32_t* cursor = counts + kBuckets;
+  int32_t* bucket = cursor + kBuckets;
+  const int ray_blocks = (p.n_rays + kThreads - 1) / kThreads;
+  const int n_part = min(ray_blocks, kPartials);
+  ray_partials<<<n_part, kThreads, 0, st>>>(in, p, part);
+  const int n_rank = p.n_order + p.n_admission;
+  rank_boxes<<<(n_rank + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      part, n_part, p.variant == kFlat ? boxes : groups, p.n_order,
+      admission, p.n_admission, visit_order, adm_order);
+  if (compact) {
+    cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * kBuckets,
+                                      st);
+    if (err != cudaSuccess) return (int)err;
+    bucket_rays<<<ray_blocks, kThreads, 0, st>>>(in, p, admission, adm_order,
+                                                 bucket, counts);
+    scan_buckets<<<1, 1024, 0, st>>>(counts, 8 * p.n_admission + 1, cursor,
+                                     count);
+    scatter_rays<<<ray_blocks, kThreads, 0, st>>>(bucket, p.n_rays, cursor,
+                                                  perm);
   }
+  // kStreamed's instances take more than the default 48 KB of dynamic
+  // shared memory; allowed once per device and instance
+  static bool allowed[kMaxDevices][4] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const int blocks = (p.n_rays + kBlock - 1) / kBlock;
+  const float4* st4 = reinterpret_cast<const float4*>(staged);
+#define SRT_BVH_LAUNCH(VARIANT, PLUCKER, COUNT, SMEM)                        \
+  bvh_kernel<VARIANT, PLUCKER, COUNT><<<blocks, kBlock, SMEM, st>>>(         \
+      in, table, st4, coeffs, gidx, boxes, supers, groups, visit_order,      \
+      compact ? perm : nullptr, compact ? count : nullptr, t_out, slot_out, \
+      p, counters)
+#define SRT_BVH_STREAMED(PLUCKER, COUNT)                                     \
+  do {                                                                       \
+    constexpr int smem_bytes = streamed_smem<PLUCKER>();                     \
+    bool& ok = allowed[dev][2 * PLUCKER + COUNT];                            \
+    if (!ok) {                                                               \
+      err = cudaFuncSetAttribute(bvh_kernel<kStreamed, PLUCKER, COUNT>,      \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                 smem_bytes);                                \
+      if (err != cudaSuccess) return (int)err;                               \
+      ok = true;                                                             \
+    }                                                                        \
+    SRT_BVH_LAUNCH(kStreamed, PLUCKER, COUNT, smem_bytes);                   \
+  } while (0)
   switch (p.variant) {
     case kFlat:
-      SRT_BVH_LAUNCH(kFlat, false, false);
+      SRT_BVH_LAUNCH(kFlat, false, false, 0);
       break;
     case kTwoLevel:
       if (p.plucker)
-        SRT_BVH_LAUNCH(kTwoLevel, true, false);
+        SRT_BVH_LAUNCH(kTwoLevel, true, false, 0);
       else
-        SRT_BVH_LAUNCH(kTwoLevel, false, false);
+        SRT_BVH_LAUNCH(kTwoLevel, false, false, 0);
       break;
     case kStreamed:
-      if (p.plucker)
-        SRT_BVH_LAUNCH(kStreamed, true, false);
-      else
-        SRT_BVH_LAUNCH(kStreamed, false, false);
+      if (counters != nullptr) {
+        if (p.plucker)
+          SRT_BVH_STREAMED(true, true);
+        else
+          SRT_BVH_STREAMED(false, true);
+      } else {
+        if (p.plucker)
+          SRT_BVH_STREAMED(true, false);
+        else
+          SRT_BVH_STREAMED(false, false);
+      }
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef SRT_BVH_STREAMED
 #undef SRT_BVH_LAUNCH
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int srt_bvh_launch(const float* rays, const float* table,
-                              const float* coeffs, const int32_t* gidx,
-                              const float* boxes, const float* supers,
-                              const float* groups, const int32_t* order,
-                              const int32_t* perm, const int32_t* count,
-                              float* t_out, int32_t* slot_out, BvhParams p,
-                              void* stream) {
-  return launch_bvh(rays, table, coeffs, gidx, boxes, supers, groups, order,
-                    perm, count, t_out, slot_out, p, nullptr, stream);
+// The int32 words of the work scratch a launch with these parameters
+// needs (the wrapper allocates it).
+extern "C" long long srt_bvh_work_words(BvhParams p) {
+  return (long long)work_words(p);
 }
 
-// kStreamed's counting instance, which adds what the walk did to
-// counters ((kCounters,) int64, Count); chip_smoke.py's only
-extern "C" int srt_bvh_count_launch(const float* rays, const float* table,
-                                    const float* coeffs, const int32_t* gidx,
-                                    const float* boxes, const float* supers,
-                                    const float* groups,
-                                    const int32_t* order,
-                                    const int32_t* perm,
-                                    const int32_t* count, float* t_out,
-                                    int32_t* slot_out,
-                                    unsigned long long* counters,
-                                    BvhParams p, void* stream) {
+// One launch: the visiting order (and, with admission boxes, the ray
+// compaction into perm and count) on the stream, then the walk.  Rays:
+// (R,) f32 o, d, alive (bytes or f32) and t_init; table: (C * K, 20) slot
+// rows; staged: kStreamed's MT table ((C * K, 12) f32, else null); coeffs:
+// the Plucker form's (C * K, 20) table, or null; work: srt_bvh_work_words
+// int32 words; perm (R,) and count (1,) int32 with admission boxes.
+extern "C" int srt_bvh_launch(const float* ox, const float* oy,
+                              const float* oz, const float* dx,
+                              const float* dy, const float* dz,
+                              const void* alive, const float* t_init,
+                              const float* table, const float* staged,
+                              const float* coeffs, const int32_t* gidx,
+                              const float* boxes, const float* supers,
+                              const float* groups, const float* admission,
+                              int32_t* work, int32_t* perm, int32_t* count,
+                              float* t_out, int32_t* slot_out, BvhParams p,
+                              void* stream) {
+  const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
+  return launch_bvh(in, table, staged, coeffs, gidx, boxes, supers, groups,
+                    admission, work, perm, count, t_out, slot_out, p,
+                    nullptr, stream);
+}
+
+// kStreamed's counting instance: the same launch, which also adds what the
+// walk did to counters ((kCounters,) int64, Count); chip_smoke.py's only
+extern "C" int srt_bvh_count_launch(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const void* alive, const float* t_init,
+    const float* table, const float* staged, const float* coeffs,
+    const int32_t* gidx, const float* boxes, const float* supers,
+    const float* groups, const float* admission, int32_t* work,
+    int32_t* perm, int32_t* count, float* t_out, int32_t* slot_out,
+    unsigned long long* counters, BvhParams p, void* stream) {
   if (counters == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_bvh(rays, table, coeffs, gidx, boxes, supers, groups, order,
-                    perm, count, t_out, slot_out, p, counters, stream);
+  const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
+  return launch_bvh(in, table, staged, coeffs, gidx, boxes, supers, groups,
+                    admission, work, perm, count, t_out, slot_out, p,
+                    counters, stream);
 }
 
 extern "C" const char* srt_error_string(int err) {

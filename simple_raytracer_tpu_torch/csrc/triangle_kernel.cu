@@ -95,6 +95,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 struct TriParams {
   int32_t n_rays;            // rays: the (6, n_rays) f32 origins, directions
   int32_t n_tris;            // rows of the (n_tris, 12) f32 staged table
@@ -112,8 +114,6 @@ constexpr uint32_t kRowBytes = 16 * kRowFloat4;
 constexpr float kUpper = 1.0f + 0x1p-20f;   // the u > 1 margin
 constexpr float kXMin = 0x1p-64f;           // the u < 0 margins
 constexpr float kAMax = 0x1p64f;
-// an mbarrier wait that outlasts this many polls traps instead of hanging
-constexpr uint32_t kSpinLimit = 1u << 24;
 // the split aims at this many waves of the card's resident blocks, so the
 // last wave's idle share stays near 1 / (kWaves + 1) at most
 constexpr int kWaves = 8;
@@ -154,38 +154,10 @@ compact_live(const uint8_t* __restrict__ alive, const int n,
     order[s_base + s_warp[warp] + __popc(vote & ((1u << lane) - 1u))] = i;
 }
 
-__device__ __forceinline__ uint32_t smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar))
-               : "memory");
-}
-
 // thread 0: the tile of n rows at src into dst, completing on bar
 __device__ __forceinline__ void tile_load(float4* dst, const float4* src,
                                           int n, uint64_t* bar) {
-  const uint32_t bytes = static_cast<uint32_t>(n) * kRowBytes;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];"
-      ::"r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (spin == kSpinLimit) __trap();
-  }
+  bulk_load(dst, src, static_cast<uint32_t>(n) * kRowBytes, bar);
 }
 
 // order and count: compact_live's list, or null for every ray
@@ -244,7 +216,7 @@ triangle_kernel(const float* __restrict__ rays,
   if (threadIdx.x == 0) {
     bar_init(&s_bar[0]);
     bar_init(&s_bar[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
   auto issue = [&](int64_t k) {   // thread 0: tile k into buffer (k - k0) & 1

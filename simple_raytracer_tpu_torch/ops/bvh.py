@@ -38,7 +38,13 @@ per scene and cached on the clusters) dotted with the per-ray vector
 ``compact_order`` is ``_compact_prefix`` with the "super" key: the rays
 sorted by the front-to-back rank of the first admission box they enter
 and their direction octant, the rays that enter none last, and the count
-of those that enter one.  No order changes a result.
+of those that enter one.  No order changes a result.  It is the plain
+version of the card's compaction, which runs inside the kernel's launch
+(``compact_buckets`` transcribes it) and admits the same rays.
+
+``stage_slots`` is the streamed variant's own layout of the slot table
+(48 bytes a slot, the columns Moller-Trumbore reads), kept per scene by
+``staged_slots``.
 """
 from __future__ import annotations
 
@@ -70,6 +76,8 @@ _NO_KEY = 2 ** 62
 # a slot's Plucker coefficients (plucker_table): the nonzero entries of
 # the JAX package's LT planes, in its order
 PLUCKER_COLS = 20
+# a slot's row in the streamed variant's staged table (stage_slots)
+STAGED_COLS = 12
 # the plain version's calls in the Plucker form, as
 # bvh_kernel._PLUCKER_TRACES counts traces (the kernel counts its launches
 # in that form as "<variant>/plucker")
@@ -293,6 +301,59 @@ def compact_order(o: Vec3, d: Vec3, alive: torch.Tensor,
     key = (bucket << idx_bits) | torch.arange(n_rays, device=bucket.device)
     order = torch.sort(key).values & ((1 << idx_bits) - 1)
     return order, admitted.sum()
+
+
+def compact_buckets(o: Vec3, d: Vec3, alive: torch.Tensor,
+                    t_init: torch.Tensor, admission: torch.Tensor):
+    """The card's ray compaction (``csrc/bvh_kernel.cu``: ``rank_boxes``,
+    ``bucket_rays``, ``scan_buckets``, ``scatter_rays``) in PyTorch ->
+    (order (R,) int64, count 0-d int64, bucket (R,) int64).  A ray's
+    bucket is 8 x the rank of the first admission box, in front-to-back
+    order, that the live ray may meet before ``t_init``, plus its direction
+    octant, or ``8 * N`` (the last) when it meets none or is dead; the
+    order holds the buckets in turn from each bucket's first place (the
+    exclusive sum of the sizes before it), and ``count`` is the last
+    bucket's first place.  Within a bucket the kernel places rays in any
+    order, this version in index order.  The admitted rays and their count
+    are ``compact_order``'s."""
+    n_box = admission.shape[0]
+    live = alive > 0
+    by_rank = front_to_back(admission, o, live).long()
+    maybe = slab_maybe(admission[by_rank], o, inverse(d), t_init, live)
+    first = torch.where(maybe.any(dim=0), maybe.to(torch.int8).argmax(dim=0),
+                        n_box)
+    octant = ((d.x < 0).long() * 4 + (d.y < 0).long() * 2
+              + (d.z < 0).long())
+    bucket = torch.where(first < n_box, first * 8 + octant, 8 * n_box)
+    sizes = torch.bincount(bucket, minlength=8 * n_box + 1)
+    cursor = torch.cumsum(sizes, 0) - sizes
+    order = torch.argsort(bucket, stable=True)
+    return order, cursor[8 * n_box], bucket
+
+
+def stage_slots(table: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """(N, 20) slot rows and their (N,) int32 global indices ->
+    (N, STAGED_COLS) f32, the streamed variant's MT rows in the slot
+    table's order (a cluster's slots are one contiguous copy): v0 and the
+    index's int32 bits, e1 and the active flag, e2 and 0, three float4s."""
+    out = table.new_zeros((table.shape[0], STAGED_COLS))
+    out[:, 0:3] = table[:, 0:3]
+    out[:, 3] = gidx.to(torch.int32).view(torch.float32)
+    out[:, 4:7] = table[:, 3:6]
+    out[:, 7] = table[:, 19]
+    out[:, 8:11] = table[:, 6:9]
+    return out
+
+
+def staged_slots(clusters, table: torch.Tensor) -> torch.Tensor:
+    """``stage_slots`` of the clusters' slot table, built on first use and
+    kept on the clusters (once per scene): only the streamed variant's MT
+    form reads it."""
+    if clusters.staged is None:
+        # the dataclass is frozen; the field is a cache of its table
+        object.__setattr__(clusters, "staged",
+                           stage_slots(table, clusters.hierarchy.gidx))
+    return clusters.staged
 
 
 def _mt(ox, oy, oz, dx, dy, dz, col):

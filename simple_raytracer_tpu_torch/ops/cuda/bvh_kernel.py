@@ -8,9 +8,10 @@ table of at most ``VMEM_TABLE_MAX_SLOTS`` slots) as the ``flat`` variant,
 ``two_level`` variant, and ``_kernel_hbm`` (the same gates over a table
 the TPU streams from HBM: config 7, and every clustered mesh under
 ``tri_backend="clustered"``) as the ``streamed`` variant, which stages
-each admitted cluster in shared memory once per warp, 128 slots at a
-time, so a cluster may hold any number of slots.  Its plain PyTorch
-version is ``ops/bvh.intersect_triangles_bvh_plain``.
+each cluster its warp admits from a per-scene table of the bytes MT reads
+(``ops/bvh.staged_slots``) with asynchronous bulk copies, and splits MT
+pair by pair across the warp's lanes when few of them admit a cluster.
+Its plain PyTorch version is ``ops/bvh.intersect_triangles_bvh_plain``.
 
 Under ``SRT_BVH_MT=plucker`` the ``two_level`` and ``streamed`` variants
 take the Plucker form of Moller-Trumbore (``_mt_update_sub_mxu`` and
@@ -20,10 +21,12 @@ once per scene, and a launch is counted as "<variant>/plucker".
 
 ``intersect_triangles_bvh`` takes the plain version only for rays on the
 CPU.  For rays on a CUDA device it launches the kernel or raises: there
-is no fallback.  With ``compact``, the rays are first sorted by
-``ops/bvh.compact_order`` and the kernel walks them in that order, with
-the count of admitted rays read from device memory, so no bounce waits on
-the host.  The kernel is built on first use (``ops/cuda/build.py``).
+is no fallback.  A launch orders the groups front to back and, with
+``compact``, compacts the rays (those that enter an admission box first,
+as ``ops/bvh.compact_order`` orders them, their count left in device
+memory) on the card before the walk, so no bounce waits on the host and
+no ray is sorted in PyTorch.  The kernel is built on first use
+(``ops/cuda/build.py``).
 """
 from __future__ import annotations
 
@@ -52,17 +55,26 @@ class BvhParams(ctypes.Structure):
         ("k", ctypes.c_int32),
         ("variant", ctypes.c_int32),
         ("plucker", ctypes.c_int32),
+        ("n_admission", ctypes.c_int32),
+        ("alive_u8", ctypes.c_int32),
+        ("split_max", ctypes.c_int32),
     ]
 
 
-# srt_bvh_launch(rays, table, coeffs, gidx, boxes, supers, groups, order,
+# the most boxes a visiting order ranks (the CUDA source's kRankMax):
+# kFlat's clusters (at most VMEM_TABLE_MAX_SLOTS slots) or the groups
+RANK_MAX = 8192
+# the streamed variant splits a staged chunk's MT pair by pair across the
+# warp's lanes when at most this many lanes admit it
+SPLIT_MAX = 16
+# srt_bvh_launch(ox, oy, oz, dx, dy, dz, alive, t_init, table, staged,
+#                coeffs, gidx, boxes, supers, groups, admission, work,
 #                perm, count, t_out, slot_out, params, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 12 + [BvhParams, ctypes.c_void_p]
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 21 + [BvhParams, ctypes.c_void_p]
 # srt_bvh_count_launch: the same, and the counters before the params
-COUNT_ARGTYPES = [ctypes.c_void_p] * 13 + [BvhParams, ctypes.c_void_p]
-# the counting instance's int64 counters, in the CUDA source's Count order
-# (the last eight: stagings by admitting lanes, 1, 2, 3-4, 5-8, 9-16,
-# 17-24, 25-31, 32)
+COUNT_ARGTYPES = [ctypes.c_void_p] * 22 + [BvhParams, ctypes.c_void_p]
+# the counting instance's int64 counters, in the CUDA source's Count order,
+# then HIST_BINS: the stagings by the lanes that admit them
 COUNTERS = ("walked", "stagings", "chunks", "slots", "pairs", "mt_steps",
             "group_tests", "super_tests", "cluster_tests", "split", "wasted")
 HIST_BINS = ("1", "2", "3-4", "5-8", "9-16", "17-24", "25-31", "32")
@@ -73,6 +85,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srt_bvh_launch.restype = ctypes.c_int
     lib.srt_bvh_count_launch.argtypes = COUNT_ARGTYPES
     lib.srt_bvh_count_launch.restype = ctypes.c_int
+    lib.srt_bvh_work_words.argtypes = [BvhParams]
+    lib.srt_bvh_work_words.restype = ctypes.c_longlong
 
 
 KERNEL = Kernel(SOURCE, _bind)
@@ -96,26 +110,45 @@ def bvh_variant(clusters, force_streamed: bool = False) -> str:
 @dataclasses.dataclass
 class Prepared:
     """One launch, checked and packed."""
-    rays: torch.Tensor           # (8, R) f32: o, d, alive, t_init
-    tensors: tuple               # table, gidx, boxes, supers, groups, order
-    perm: Optional[torch.Tensor]   # (R,) int32 ray order, or None
-    count: Optional[torch.Tensor]  # 0-d int32 admitted rays, or None
+    # (R,) o.x, o.y, o.z, d.x, d.y, d.z, alive (bool or f32), t_init
+    rays: tuple
+    # table, staged (or None), coeffs (or None), gidx, boxes, supers,
+    # groups, admission (or None): the kernel's tables
+    tensors: tuple
+    work: torch.Tensor               # int32 scratch (srt_bvh_work_words)
+    # with a compaction, written by each launch: the (R,) int32 ray order
+    # (the admitted rays first) and the (1,) int32 count of admitted rays
+    perm: Optional[torch.Tensor]
+    count: Optional[torch.Tensor]
     variant: str
     params: BvhParams
-    coeffs: Optional[torch.Tensor] = None   # the Plucker form's table
 
     @property
     def label(self) -> str:
         """The variant as counted: "<variant>/plucker" for that form."""
         return self.variant + ("/plucker" if self.params.plucker else "")
 
+    @property
+    def device(self) -> torch.device:
+        return self.rays[0].device
+
+
+def _ray(t: torch.Tensor, n: int, device, dtype=torch.float32):
+    if t.shape != (n,) or t.device != device:
+        raise ValueError(f"BVH kernel: a ray array {tuple(t.shape)} on "
+                         f"{t.device}, want ({n},) on {device}")
+    return t.to(dtype).contiguous()
+
 
 def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
-            clusters, table: torch.Tensor, order=None, count=None,
+            clusters, table: torch.Tensor, compact: bool = False,
             force_streamed: bool = False) -> Prepared:
-    """Check a CUDA launch's arguments and pack them; ``order``/``count``
-    are a compaction's (``ops/bvh.compact_order``).  The MT form is
-    resolved here (``ops/bvh.resolve_plucker``)."""
+    """Check a CUDA launch's arguments and pack them; with ``compact``
+    the launch first orders the rays by the compaction (admitted rays
+    first, ``perm`` and ``count``), on the card.  The MT form is resolved
+    here (``ops/bvh.resolve_plucker``); the streamed variant's MT form
+    reads ``bvh.staged_slots`` and the Plucker form
+    ``bvh.plucker_coefficients``, each built on first use."""
     device = o.x.device
     if device.type != "cuda":
         raise ValueError(f"BVH kernel: unsupported device {device}")
@@ -125,68 +158,93 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
         raise ValueError(f"BVH kernel: {n_rays} rays overflow int32")
     hier = clusters.hierarchy
     n_cl, k = clusters.slots.shape
-    coeffs = None
+    coeffs = staged = None
     if bvh.resolve_plucker(clusters, variant):
         coeffs = bvh.plucker_coefficients(clusters, table)
         if (coeffs.device != device or coeffs.dtype != torch.float32
                 or coeffs.shape != (n_cl * k, bvh.PLUCKER_COLS)
                 or not coeffs.is_contiguous() or coeffs.data_ptr() % 16):
             raise ValueError("BVH kernel: bad Plucker coefficient table")
-    rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z,
-                        alive.to(torch.float32), t_init])
-    if variant == "flat":
-        boxes = clusters.aabb
-        visit = bvh.front_to_back(boxes, o, alive > 0)
-    else:
-        boxes = hier.boxes
-        visit = bvh.front_to_back(hier.groups, o, alive > 0)
-    tensors = (table, hier.gidx, boxes, hier.supers, hier.groups, visit)
+    elif variant == "streamed":
+        staged = bvh.staged_slots(clusters, table)
+        if (staged.device != device or staged.dtype != torch.float32
+                or staged.shape != (n_cl * k, bvh.STAGED_COLS)
+                or not staged.is_contiguous() or staged.data_ptr() % 16):
+            raise ValueError("BVH kernel: bad staged slot table")
+    alive_u8 = alive.dtype == torch.bool
+    rays = tuple(_ray(t, n_rays, device) for t in (o.x, o.y, o.z, d.x, d.y,
+                                                     d.z))
+    rays += (_ray(alive, n_rays, device,
+                  torch.bool if alive_u8 else torch.float32),
+             _ray(t_init, n_rays, device))
+    boxes = clusters.aabb if variant == "flat" else hier.boxes
+    admission = hier.admission if compact else None
+    tensors = (table, staged, coeffs, hier.gidx, boxes, hier.supers,
+               hier.groups, admission)
     for name, t, dtype in zip(
-            ("table", "slot indices", "boxes", "supers", "groups", "order"),
-            tensors, (torch.float32, torch.int32, torch.float32,
-                      torch.float32, torch.float32, torch.int32)):
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            ("table", "slot indices", "boxes", "supers", "groups",
+             "admission boxes"),
+            (table, hier.gidx, boxes, hier.supers, hier.groups, admission),
+            (torch.float32, torch.int32, torch.float32, torch.float32,
+             torch.float32, torch.float32)):
+        if t is not None and (t.device != device or t.dtype != dtype
+                              or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"BVH kernel: bad {name} {t.dtype} on "
                              f"{t.device}")
     if table.shape != (n_cl * k, 20) or hier.gidx.shape != (n_cl * k,):
         raise ValueError(f"BVH kernel: table {tuple(table.shape)} for "
                          f"{n_cl} clusters of {k}")
-    if (order is None) != (count is None):
-        raise ValueError("BVH kernel: a compaction needs order and count")
-    perm = cnt = None
-    if order is not None:
-        perm = order.to(device=device, dtype=torch.int32).contiguous()
-        cnt = count.to(device=device, dtype=torch.int32).reshape(())
-        if perm.shape != (n_rays,):
-            raise ValueError("BVH kernel: the order must list every ray")
+    n_order = boxes.shape[0] if variant == "flat" else hier.groups.shape[0]
+    if n_order > RANK_MAX:
+        raise ValueError(f"BVH kernel: {n_order} boxes to order, at most "
+                         f"{RANK_MAX}")
     p = BvhParams()
-    p.n_rays, p.n_order, p.n_clusters, p.k = n_rays, visit.shape[0], n_cl, k
+    p.n_rays, p.n_order, p.n_clusters, p.k = n_rays, n_order, n_cl, k
     p.variant = VARIANTS[variant]
     p.plucker = int(coeffs is not None)
-    return Prepared(rays, tensors, perm, cnt, variant, p, coeffs)
+    p.n_admission = admission.shape[0] if compact else 0
+    p.alive_u8 = int(alive_u8)
+    p.split_max = SPLIT_MAX
+    if not 0 < p.n_admission <= bvh.ADMISSION_MAX and compact:
+        raise ValueError(f"BVH kernel: {p.n_admission} admission boxes")
+    work = torch.empty(KERNEL.library().srt_bvh_work_words(p),
+                       dtype=torch.int32, device=device)
+    perm = cnt = None
+    if compact:
+        perm = torch.empty(n_rays, dtype=torch.int32, device=device)
+        cnt = torch.empty(1, dtype=torch.int32, device=device)
+    return Prepared(rays, tensors, work, perm, cnt, variant, p)
+
+
+def _outputs(prep: Prepared, out):
+    n = prep.params.n_rays
+    device = prep.device
+    if out is None:
+        return (torch.empty(n, dtype=torch.float32, device=device),
+                torch.empty(n, dtype=torch.int32, device=device))
+    if any(t.shape != (n,) or t.dtype != dtype or t.device != device
+           or not t.is_contiguous()
+           for t, dtype in zip(out, (torch.float32, torch.int32))):
+        raise ValueError("BVH kernel: bad output tensors")
+    return out
+
+
+def _args(prep: Prepared, out) -> list:
+    ptr = lambda t: None if t is None else t.data_ptr()
+    return ([t.data_ptr() for t in prep.rays] + [ptr(t) for t in prep.tensors]
+            + [prep.work.data_ptr(), ptr(prep.perm), ptr(prep.count),
+               out[0].data_ptr(), out[1].data_ptr()])
 
 
 def launch(prep: Prepared, out=None):
     """Launch on the current stream into ``out`` ((R,) f32 t, (R,) int32
-    slot; allocated when not given) and count the launch."""
-    n = prep.params.n_rays
-    device = prep.rays.device
-    if out is None:
-        out = (torch.empty(n, dtype=torch.float32, device=device),
-               torch.empty(n, dtype=torch.int32, device=device))
-    elif any(t.shape != (n,) or t.dtype != dtype or t.device != device
-             or not t.is_contiguous()
-             for t, dtype in zip(out, (torch.float32, torch.int32))):
-        raise ValueError("BVH kernel: bad output tensors")
-    ptr = lambda t: None if t is None else t.data_ptr()
+    slot; allocated when not given) and count the launch: the visiting
+    order (and the compaction) on the card, then the walk."""
+    out = _outputs(prep, out)
     lib = KERNEL.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        table, *rest = map(ptr, prep.tensors)
-        err = lib.srt_bvh_launch(prep.rays.data_ptr(), table,
-                                 ptr(prep.coeffs), *rest, ptr(prep.perm),
-                                 ptr(prep.count), out[0].data_ptr(),
-                                 out[1].data_ptr(), prep.params, stream)
+    with torch.cuda.device(prep.device):
+        stream = torch.cuda.current_stream(prep.device).cuda_stream
+        err = lib.srt_bvh_launch(*_args(prep, out), prep.params, stream)
     KERNEL.check(err, "BVH kernel")
     KERNEL.count(prep.label)
     return out
@@ -199,21 +257,15 @@ def launch_counted(prep: Prepared):
     with the stagings by admitting lanes under "hist")."""
     if prep.variant != "streamed":
         raise ValueError("BVH kernel: only the streamed variant counts")
-    n = prep.params.n_rays
-    device = prep.rays.device
-    out = (torch.empty(n, dtype=torch.float32, device=device),
-           torch.empty(n, dtype=torch.int32, device=device))
+    out = _outputs(prep, None)
     counters = torch.zeros(len(COUNTERS) + len(HIST_BINS),
-                           dtype=torch.int64, device=device)
-    ptr = lambda t: None if t is None else t.data_ptr()
+                           dtype=torch.int64, device=prep.device)
     lib = KERNEL.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        table, *rest = map(ptr, prep.tensors)
-        err = lib.srt_bvh_count_launch(
-            prep.rays.data_ptr(), table, ptr(prep.coeffs), *rest,
-            ptr(prep.perm), ptr(prep.count), out[0].data_ptr(),
-            out[1].data_ptr(), counters.data_ptr(), prep.params, stream)
+    with torch.cuda.device(prep.device):
+        stream = torch.cuda.current_stream(prep.device).cuda_stream
+        err = lib.srt_bvh_count_launch(*_args(prep, out),
+                                       counters.data_ptr(), prep.params,
+                                       stream)
     KERNEL.check(err, "BVH kernel (counting)")
     values = counters.tolist()
     res = dict(zip(COUNTERS, values))
@@ -233,18 +285,16 @@ def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
     ``force_streamed`` takes the streamed variant for any table; neither
     changes a live ray's result.  The MT form follows SRT_BVH_MT
     (``ops/bvh.resolve_plucker``), on the CPU as on the card."""
-    order = count = None
-    if compact:
-        order, count = bvh.compact_order(o, d, alive, t_init,
-                                         clusters.hierarchy.admission)
     if o.x.device.type == "cpu":
         form = ("plucker" if bvh.resolve_plucker(
             clusters, bvh_variant(clusters, force_streamed)) else "mt")
         if compact:
+            order, count = bvh.compact_order(o, d, alive, t_init,
+                                             clusters.hierarchy.admission)
             return bvh.intersect_compacted_plain(o, d, alive, t_init,
                                                  clusters, table, order,
                                                  int(count), form)
         return bvh.intersect_triangles_bvh_plain(o, d, alive, t_init,
                                                  clusters, table, form)
-    return launch(prepare(o, d, alive, t_init, clusters, table, order,
-                          count, force_streamed))
+    return launch(prepare(o, d, alive, t_init, clusters, table, compact,
+                          force_streamed))

@@ -62,6 +62,11 @@ class Clusters:
     # scene) by ops/bvh.plucker_coefficients
     plucker: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # the streamed BVH variant's MT rows of the slot table
+    # (ops/bvh.stage_slots), built on its first launch (once per scene)
+    # by ops/bvh.staged_slots
+    staged: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def k(self) -> int:
