@@ -78,7 +78,7 @@ are a path of their own.  Phases, one line each on stdout:
      time and its kernels' device times, the compaction's beside the
      walk's; compact_order's and prepare's time on the same rays; what
      the walk did, from its counting instance, against the (ray, cluster)
-     pairs the plain version's gates admit) and its split points swept;
+     pairs the plain version's gates admit);
      the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell).
@@ -478,6 +478,20 @@ def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
     return float(flops)
 
 
+def kernel_device_us(prof) -> dict:
+    """Device microseconds by kernel name (the last 40 characters of its
+    plain name) over a torch.profiler run: kernels only, since the aten
+    ops that launch them carry the same time."""
+    per_kernel = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0) or 0
+        if dev_us > 0 and str(evt.device_type).endswith("CUDA"):
+            name = evt.key.replace("(anonymous namespace)::", "")
+            name = re.sub(r"^void ", "", name).split("(")[0].split("<")[0]
+            per_kernel[name[-40:]] = per_kernel.get(name[-40:], 0.0) + dev_us
+    return per_kernel
+
+
 def step_breakdown(r: Renderer, camera, iters: int = 20) -> str:
     """Host wall time per Renderer.step against the device time of each
     kernel name in it, from torch.profiler over ``iters`` steps."""
@@ -491,14 +505,7 @@ def step_breakdown(r: Renderer, camera, iters: int = 20) -> str:
             r.step(camera)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    per_kernel = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", 0) or 0
-        # kernels only: the aten ops that launch them carry the same time
-        if dev_us > 0 and str(evt.device_type).endswith("CUDA"):
-            name = evt.key.replace("(anonymous namespace)::", "")
-            name = re.sub(r"^void ", "", name).split("(")[0].split("<")[0]
-            per_kernel[name[-40:]] = per_kernel.get(name[-40:], 0.0) + dev_us
+    per_kernel = kernel_device_us(prof)
     if not per_kernel:
         return (f"host {wall_ms:.4f} ms/step (profiled); device time not "
                 "measured: the profiler recorded no device events")
@@ -1043,14 +1050,7 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", 0) or 0
-        if dev_us > 0 and str(evt.device_type).endswith("CUDA"):
-            name = evt.key.replace("(anonymous namespace)::", "")
-            name = re.sub(r"^void ", "", name).split("(")[0].split("<")[0]
-            out[name] = out.get(name, 0.0) + dev_us / 1e3 / reps
-    return out
+    return {k: v / 1e3 / reps for k, v in kernel_device_us(prof).items()}
 
 
 def streamed_launches(label: str, res: dict, clusters, table) -> dict:
@@ -1085,11 +1085,16 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
                  "slot) differ from the route's")
         walked, pairs_adm, opened = w[0], w[7], w[5]
         st = max(cnt["stagings"], 1)
+        # the work done: the bytes staged (a slot's staged row) and the
+        # lane-slot MT tests issued (32 lanes a warp-wide step)
+        row_bytes = 4 * (bvh.PLUCKER_COLS if pp.params.plucker
+                         else bvh.STAGED_COLS)
         per.append(dict(kernel_ms=k_ms, walk_ms=walk_ms,
                         order_ms=sum(parts.values()) - walk_ms,
                         compact_order_ms=c_ms, prepare_ms=prep_ms,
                         compact=compact, admitted_pairs=pairs_adm,
-                        opened=opened, **cnt))
+                        opened=opened, staged_bytes=cnt["slots"] * row_bytes,
+                        mt_issued=32 * cnt["mt_steps"], **cnt))
         lines.append(
             f"b{b} {'compact' if compact else 'dense'} walked {walked}: "
             f"launch {k_ms:.4f} ms (device: "
@@ -1098,10 +1103,12 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
             f"{prep_ms:.4f} ms; stagings {cnt['stagings']} (chunks "
             f"{cnt['chunks']}, slots {cnt['slots']}), admitting lanes mean "
             f"{cnt['pairs'] / st:.2f}, by lanes {cnt['hist']}, split "
-            f"{cnt['split']}, wasted {cnt['wasted']}; MT pairs (ray, "
+            f"{cnt['split']}, wasted {cnt['wasted']}; staged "
+            f"{per[-1]['staged_bytes'] / 1e6:.3f} MB; MT pairs (ray, "
             f"cluster) {cnt['pairs']} against {pairs_adm} admitted under "
             f"the final t ({opened} clusters opened); warp MT steps "
-            f"{cnt['mt_steps']}; warp slab tests groups "
+            f"{cnt['mt_steps']} ({per[-1]['mt_issued']} lane-slot tests "
+            f"issued); warp slab tests groups "
             f"{cnt['group_tests']}, supers {cnt['super_tests']}, clusters "
             f"{cnt['cluster_tests']}")
     tot = lambda key: sum(x[key] for x in per)
@@ -1110,61 +1117,10 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
         f"(the walk {tot('walk_ms'):.4f} ms, the order and compaction "
         f"kernels {tot('order_ms'):.4f} ms), compact_order (PyTorch) "
         f"{tot('compact_order_ms'):.4f} ms, prepare {tot('prepare_ms'):.4f}"
-        " ms")
+        f" ms; staged {tot('staged_bytes') / 1e6:.3f} MB, MT pairs "
+        f"{tot('pairs')} ({tot('mt_issued')} lane-slot tests issued), "
+        f"admitted pairs {tot('admitted_pairs')}")
     return dict(per_launch=per)
-
-
-SPLIT_SWEEP = (0, 4, 8, 16, 24, 32)
-# the streamed walk's ring of buffers and chunk, as built with
-# -DSRT_BVH_STAGES / -DSRT_BVH_CHUNK (the route's: 2 buffers of 64 slots)
-RING_SWEEP = ((3, 64), (4, 64), (4, 32))
-RING_KERNELS = {}
-
-
-def split_sweep(label: str, res: dict) -> dict:
-    """The streamed launches of a pass at each split point of SPLIT_SWEEP
-    (the most admitting lanes for which a chunk's MT is split pair by
-    pair; 0: never split, 32: always), then the route's split point with
-    each ring of RING_SWEEP, in turns, twice: ms a pass, and (t, slot)
-    equal to the route's."""
-    if not RING_KERNELS:
-        RING_KERNELS.update({rs: bk.Kernel(
-            bk.SOURCE, bk._bind, [f"-DSRT_BVH_STAGES={rs[0]}",
-                                  f"-DSRT_BVH_CHUNK={rs[1]}"])
-            for rs in RING_SWEEP})
-        threads = [threading.Thread(target=k.library)
-                   for k in RING_KERNELS.values()]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-    preps = [pp for pp, _ in res["recorded"]]
-    outs = [oo for _, oo in res["recorded"]]
-    cases = [(f"split {sm}", None, sm) for sm in SPLIT_SWEEP] + [
-        (f"ring {rs[0]}x{rs[1]}", RING_KERNELS[rs], bk.SPLIT_MAX)
-        for rs in RING_SWEEP]
-    ms = {name: [] for name, _, _ in cases}
-    route = bk.KERNEL
-    try:
-        for _ in range(2):
-            for name, kernel, sm in cases:
-                bk.KERNEL = kernel or route
-                alt = [with_params(pp, split_max=sm) for pp in preps]
-                got = [(torch.empty_like(t), torch.empty_like(s))
-                       for t, s in outs]
-                ms[name].append(float(np.median(cuda_ms(
-                    lambda: [bk.launch(q, o) for q, o in zip(alt, got)],
-                    iters=2, repeats=3, warmup=1))))
-                if not all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                           for a, b in zip(got, outs)):
-                    fail(f"cell {label}: {name} changes a result")
-    finally:
-        bk.KERNEL = route
-    say(f"[6] cell {label} streamed split points and rings (ms a pass, two "
-        f"turns): " + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}"
-                                for k, v in ms.items())
-        + f"; the route's: split {bk.SPLIT_MAX}, ring 2x64; results equal")
-    return ms
 
 
 def as_mt(prep, clusters):
@@ -1803,9 +1759,6 @@ def main() -> int:
             if preps[0].variant == "streamed":
                 streamed_cells[label] = streamed_launches(
                     label, res, cl, ds.triangles.table)
-                if label not in FUSED:
-                    streamed_cells[label]["split_sweep"] = split_sweep(
-                        label, res)
             bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
                         f"{walk_note}; bound {b_bound:.4f} ms ({flops:.4g} "
                         f"FLOP, {nbytes:.4g} B), {b_bound / b_ms * 100:.1f}% "

@@ -118,8 +118,6 @@ struct BvhParams {
   int32_t plucker;      // 1: the Plucker form (kTwoLevel, kStreamed)
   int32_t n_admission;  // admission boxes of the ray compaction; 0: none
   int32_t alive_u8;     // 1: alive is one byte a ray (bool), 0: f32
-  int32_t split_max;    // kStreamed: the most admitting lanes for which a
-                        // chunk's MT is split pair by pair
 };
 
 enum Variant { kFlat = 0, kTwoLevel = 1, kStreamed = 2 };
@@ -153,17 +151,13 @@ constexpr int kPluckerCols = 20;
 // active, e2 and 0) or the Plucker coefficients
 constexpr int kMtRowF4 = 3;
 constexpr int kPluckerRowF4 = kPluckerCols / 4;
-// kStreamed: the slots a staged chunk holds, and the most lanes admitting
-// a chunk for which the warp splits each admitting ray's MT across its
-// lanes (above it each admitting lane tests every slot itself)
-#ifndef SRT_BVH_CHUNK
-#define SRT_BVH_CHUNK 64
-#endif
-#ifndef SRT_BVH_STAGES
-#define SRT_BVH_STAGES 2
-#endif
-constexpr int kChunk = SRT_BVH_CHUNK;
-constexpr int kStages = SRT_BVH_STAGES;   // the warp's ring of buffers
+// kStreamed: the slots a staged chunk holds, the warp's ring of chunk
+// buffers, and the most lanes admitting a chunk for which the warp splits
+// each admitting ray's MT across its lanes (above it each admitting lane
+// tests every slot itself); chosen by a sweep on the card (PERF.md)
+constexpr int kChunk = 64;
+constexpr int kStages = 2;
+constexpr int kSplitMax = 16;
 // the ray compaction and the visiting orders (ops/bvh.py: ADMISSION_MAX;
 // ops/cuda/bvh_kernel.py: RANK_MAX)
 constexpr int kAdmissionMax = 256;
@@ -718,10 +712,9 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
                                          int n, int first, unsigned admit,
                                          bool ok, const Ray& r, Best& best,
                                          const int32_t* __restrict__ gidx,
-                                         int split_max,
                                          WarpCounts<COUNT>& cnt) {
   const int lane = threadIdx.x & 31;
-  if (__popc(admit) > split_max) {
+  if (__popc(admit) > kSplitMax) {
     cnt.add(kCountMtSteps, n);
     if (ok) {
       for (int sl = 0; sl < n; ++sl) {
@@ -857,7 +850,7 @@ __device__ __forceinline__ void streamed_walk(
       const int first = min(cur.c, p.n_clusters - 1) * p.k + cur.base;
       mt_chunk<PLUCKER, COUNT>(s_buf + b * kChunk * kRowF4,
                                min(kChunk, p.k - cur.base), first, admit, ok,
-                               r, best, gidx, p.split_max, cnt);
+                               r, best, gidx, cnt);
     } else {
       cnt.add(kCountWasted, 1);
     }
@@ -954,12 +947,14 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
   slot_out[ray] = best.idx < 0 ? -1 : best.slot;
 }
 
-// kStreamed's dynamic shared memory a block: each warp's ring of buffers
+// kStreamed's dynamic shared memory a block: each warp's ring of buffers,
+// within the 48 KB a launch may take without opting in
 template <bool PLUCKER>
 constexpr int streamed_smem() {
   return kWarps * kStages * kChunk * (PLUCKER ? kPluckerRowF4 : kMtRowF4)
          * 16;
 }
+static_assert(streamed_smem<true>() <= 48 * 1024, "ring too large");
 
 // the work scratch's int32 words: partial sums, the two visiting orders,
 // the bucket sizes and cursors, and each ray's bucket
@@ -967,8 +962,6 @@ size_t work_words(const BvhParams& p) {
   return (size_t)kPartials * 4 + kRankMax + kAdmissionMax + 2 * kBuckets
          + (p.n_admission > 0 ? (size_t)p.n_rays : 0);
 }
-
-constexpr int kMaxDevices = 64;
 
 int launch_bvh(const RayIn& in, const float* table, const float* staged,
                const float* coeffs, const int32_t* gidx, const float* boxes,
@@ -1020,13 +1013,6 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
     scatter_rays<<<ray_blocks, kThreads, 0, st>>>(bucket, p.n_rays, cursor,
                                                   perm);
   }
-  // kStreamed's instances take more than the default 48 KB of dynamic
-  // shared memory; allowed once per device and instance
-  static bool allowed[kMaxDevices][4] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   const int blocks = (p.n_rays + kBlock - 1) / kBlock;
   const float4* st4 = reinterpret_cast<const float4*>(staged);
 #define SRT_BVH_LAUNCH(VARIANT, PLUCKER, COUNT, SMEM)                        \
@@ -1034,19 +1020,8 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
       in, table, st4, coeffs, gidx, boxes, supers, groups, visit_order,      \
       compact ? perm : nullptr, compact ? count : nullptr, t_out, slot_out, \
       p, counters)
-#define SRT_BVH_STREAMED(PLUCKER, COUNT)                                     \
-  do {                                                                       \
-    constexpr int smem_bytes = streamed_smem<PLUCKER>();                     \
-    bool& ok = allowed[dev][2 * PLUCKER + COUNT];                            \
-    if (!ok) {                                                               \
-      err = cudaFuncSetAttribute(bvh_kernel<kStreamed, PLUCKER, COUNT>,      \
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                                 smem_bytes);                                \
-      if (err != cudaSuccess) return (int)err;                               \
-      ok = true;                                                             \
-    }                                                                        \
-    SRT_BVH_LAUNCH(kStreamed, PLUCKER, COUNT, smem_bytes);                   \
-  } while (0)
+#define SRT_BVH_STREAMED(PLUCKER, COUNT) \
+  SRT_BVH_LAUNCH(kStreamed, PLUCKER, COUNT, streamed_smem<PLUCKER>())
   switch (p.variant) {
     case kFlat:
       SRT_BVH_LAUNCH(kFlat, false, false, 0);

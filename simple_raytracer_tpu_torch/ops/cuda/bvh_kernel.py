@@ -57,16 +57,12 @@ class BvhParams(ctypes.Structure):
         ("plucker", ctypes.c_int32),
         ("n_admission", ctypes.c_int32),
         ("alive_u8", ctypes.c_int32),
-        ("split_max", ctypes.c_int32),
     ]
 
 
 # the most boxes a visiting order ranks (the CUDA source's kRankMax):
 # kFlat's clusters (at most VMEM_TABLE_MAX_SLOTS slots) or the groups
 RANK_MAX = 8192
-# the streamed variant splits a staged chunk's MT pair by pair across the
-# warp's lanes when at most this many lanes admit it
-SPLIT_MAX = 16
 # srt_bvh_launch(ox, oy, oz, dx, dy, dz, alive, t_init, table, staged,
 #                coeffs, gidx, boxes, supers, groups, admission, work,
 #                perm, count, t_out, slot_out, params, stream)
@@ -204,7 +200,6 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     p.plucker = int(coeffs is not None)
     p.n_admission = admission.shape[0] if compact else 0
     p.alive_u8 = int(alive_u8)
-    p.split_max = SPLIT_MAX
     if not 0 < p.n_admission <= bvh.ADMISSION_MAX and compact:
         raise ValueError(f"BVH kernel: {p.n_admission} admission boxes")
     work = torch.empty(KERNEL.library().srt_bvh_work_words(p),

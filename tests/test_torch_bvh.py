@@ -480,6 +480,18 @@ def test_launch_struct_matches_cuda_source():
     for name, value in bk.VARIANTS.items():
         camel = "k" + "".join(w.title() for w in name.split("_"))
         assert re.search(rf"{camel} = {value}\b", src), name
+    # the counting instance takes the same arguments and its counters; the
+    # ray arrays come in Prepared.rays' order (o, d, alive, t_init)
+    sig_c = re.search(r"int srt_bvh_count_launch\((.*?)\)", src,
+                      re.S).group(1)
+    assert sig_c.count("*") == bk.COUNT_ARGTYPES.count(ctypes.c_void_p)
+    assert sig_c.count("*") == sig.count("*") + 1
+    assert bk.COUNT_ARGTYPES[-2] is bk.BvhParams
+    for s in (sig, sig_c):
+        names = re.findall(r"\*\s*(\w+)", s)
+        assert names[:8] == ["ox", "oy", "oz", "dx", "dy", "dz", "alive",
+                             "t_init"]
+    assert re.search(r"long long srt_bvh_work_words\(BvhParams p\)", src)
 
 
 def _every_pair_plain(o, d, alive, t_init, clusters, table):

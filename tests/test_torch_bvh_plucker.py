@@ -308,6 +308,11 @@ def test_cuda_sources_match_the_wrappers():
     src = Path(bk.SOURCE).read_text()
     assert re.search(rf"kPluckerCols = {bvh.PLUCKER_COLS};", src)
     assert "STREAMED_MAX_K" not in vars(bk) and "kMaxK" not in src
+    # the streamed variant stages whole rows: five float4s a Plucker row,
+    # three a staged MT row
+    assert re.search(r"kPluckerRowF4 = kPluckerCols / 4;", src)
+    assert bvh.PLUCKER_COLS % 4 == 0
+    assert re.search(rf"kMtRowF4 = {bvh.STAGED_COLS // 4};", src)
     src = Path(probe.SOURCE).read_text()
     body = re.search(r"struct ProbeParams \{(.*?)\};", src, re.S).group(1)
     fields = re.findall(r"^\s*int32_t (\w+);", body, re.M)

@@ -363,6 +363,7 @@ def test_streamed_constants_match_the_cuda_source():
                                        src).group(1))
     assert const("kMtRowF4") * 4 == bvh.STAGED_COLS
     assert const("kChunk") == CHUNK
+    assert const("kStages") >= 2 and 0 < const("kSplitMax") <= LANES
     assert const("kAdmissionMax") == bvh.ADMISSION_MAX
     assert const("kRankMax") == bk.RANK_MAX
     body = re.search(r"enum Count \{(.*?)\};", src, re.S).group(1)
