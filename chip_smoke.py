@@ -426,10 +426,8 @@ SHADE_FLOPS = 30           # position, normal, front flip, emission
 BARY_FLOPS = 44            # barycentric weights and the normal (bounce)
 BSDF_FLOPS = 275           # 3 normals (log, cos), 3 uniforms, mixes
 SKY_FLOPS = 54             # the gradient sky and the final add
-RAY_IN_BYTES = 32          # a walked ray in: o, d, alive, t_init
+LIVE_RAY_BYTES = 28        # a live ray's o, d and t_init in
 HIT_OUT_BYTES = 8          # (t, slot) out, for every ray
-ALIVE_BYTES = 4            # a ray's alive flag in
-ORDER_BYTES = 4            # a ray's place in the compaction's order out
 SLOT_BYTES = 40 + 4        # a slot's MT columns (v0, e1, e2, active), index
 BOX_BYTES = 32             # a box row of the hierarchy
 # the shade kernel: 20 state rows in and out, the winner's (t, slot) in
@@ -670,8 +668,9 @@ def check_bvh_launches(label: str, recorded, clusters, table,
     """Every recorded BVH launch against its plain version, in the
     launch's MT form, on the same rays: (t, slot) equal on every live ray.
     Returns (max |dt|, work per launch (walked rays, rays, compacted,
-    ``admitted``'s four counts; not counted without ``count_work``), plain
-    seconds, one report per launch)."""
+    ``admitted``'s five counts, live rays, the alive flag's bytes; not
+    counted without ``count_work``), plain seconds, one report per
+    launch)."""
     max_abs, work, plain_s, lines = 0.0, [], 0.0, []
     for b, (prep, (t_k, s_k)) in enumerate(recorded):
         o_, d_, alive, t_init = bvh_inputs(prep)
@@ -703,7 +702,8 @@ def check_bvh_launches(label: str, recorded, clusters, table,
         if count_work:
             counts = admitted(o_, d_, walk, torch.where(s_k >= 0, t_k,
                                                         t_init), clusters)
-            work.append((walked, prep.params.n_rays, compact) + counts)
+            work.append((walked, prep.params.n_rays, compact) + counts
+                        + (int(live.sum()), alive.element_size()))
             opened = f", clusters opened {counts[2]}"
         lines.append(f"b{b} {prep.label}: live {int(live.sum())} "
                      f"{'compact' if compact else 'dense'}, walked "
@@ -980,25 +980,26 @@ def bvh_bound(clusters, work) -> tuple:
     walked ray slab-tests the hierarchy's root boxes, and tests the real
     slots of every cluster it opens in the cheaper form of the launch
     (MT_FLOPS a pair, or PLUCKER_FLOPS a pair and the walked ray's moment
-    m = o x d).  Every ray's (t, slot) is written once.  A dense launch
-    reads each walked ray once and a ray not walked its alive flag; a
-    compacted one reads every ray once (the compaction tests each) and
-    writes its ray order.  A launch reads the root boxes, the boxes of the
-    opened clusters and of their supers, and the opened clusters' MT
-    columns and slot indices once: the Plucker coefficients derive from
-    those columns (the TPU kernel derives them per cluster), so the port's
-    per-scene table of them is its own choice, not a need of the
-    function."""
+    m = o x d).  Every ray's (t, slot) is written once and its alive flag
+    read once, at its dtype (1 B bool on the split path, 4 B f32); a live
+    ray's o, d and t_init are read once (a dense launch walks every live
+    ray, a compacted one tests every live ray against the admission boxes;
+    neither reads a dead ray's).  The compaction's ray order is this
+    design's own, not a need of the function.  A launch reads the root
+    boxes, the boxes of the opened clusters and of their supers, and the
+    opened clusters' MT columns and slot indices once: the Plucker
+    coefficients derive from those columns (the TPU kernel derives them
+    per cluster), so the port's per-scene table of them is its own choice,
+    not a need of the function."""
     roots = int((clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
     flops = nbytes = 0
-    for walked, n, compact, pair_slots, slots, opened, supers, _ in work:
+    for (walked, n, _, pair_slots, slots, opened, supers, _, live,
+         alive_bytes) in work:
         flops += (walked * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
                   + min(pair_slots * MT_FLOPS,
                         pair_slots * PLUCKER_FLOPS
                         + walked * PLUCKER_RAY_FLOPS))
-        nbytes += n * HIT_OUT_BYTES + (
-            n * (RAY_IN_BYTES + ORDER_BYTES) if compact
-            else walked * RAY_IN_BYTES + (n - walked) * ALIVE_BYTES)
+        nbytes += n * (HIT_OUT_BYTES + alive_bytes) + live * LIVE_RAY_BYTES
         if walked:
             nbytes += (slots * SLOT_BYTES
                        + (roots + supers + opened) * BOX_BYTES)
@@ -1059,9 +1060,10 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
     compaction and the walk, all on the card), and the device time of
     each of its kernels (torch.profiler: the compaction's four kernels
     beside the walk); ops/bvh.compact_order's time on the same rays (the
-    compaction's plain version, in PyTorch) and ``prepare``'s; and what
-    the walk did, from the
-    variant's counting instance (whose (t, slot) must be the route's),
+    compaction's plain version, in PyTorch) and ``prepare``'s, with the
+    route's whole cost a pass (launches + ``prepare``, the parent's being
+    kernel + ``compact_order`` + ``prepare``); and what the walk did, from
+    the variant's counting instance (whose (t, slot) must be the route's),
     beside what the plain version's gates admit under each ray's final t
     (``admitted``)."""
     per, lines = [], []
@@ -1117,7 +1119,9 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
         f"(the walk {tot('walk_ms'):.4f} ms, the order and compaction "
         f"kernels {tot('order_ms'):.4f} ms), compact_order (PyTorch) "
         f"{tot('compact_order_ms'):.4f} ms, prepare {tot('prepare_ms'):.4f}"
-        f" ms; staged {tot('staged_bytes') / 1e6:.3f} MB, MT pairs "
+        f" ms, launches + prepare "
+        f"{tot('kernel_ms') + tot('prepare_ms'):.4f} ms; staged "
+        f"{tot('staged_bytes') / 1e6:.3f} MB, MT pairs "
         f"{tot('pairs')} ({tot('mt_issued')} lane-slot tests issued), "
         f"admitted pairs {tot('admitted_pairs')}")
     return dict(per_launch=per)

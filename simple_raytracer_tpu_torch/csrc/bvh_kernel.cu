@@ -39,12 +39,13 @@
 //      ascending squared distance of their centers from the mean live-ray
 //      origin (ops/bvh.py: front_to_back; the order changes no result);
 //   2. with admission boxes, the ray compaction (the plain version is
-//      ops/bvh.py: compact_order, which admits the same rays; compact_buckets
-//      transcribes these kernels): bucket_rays gives each live ray the
-//      bucket 8 x (rank of the first admission box it may meet before its
-//      t_init) + its direction octant, or the last bucket, and counts the
-//      buckets; scan_buckets places them; scatter_rays writes each ray to
-//      its bucket's next place (any order within a bucket) and leaves the
+//      ops/bvh.py: compact_order, which admits the same rays;
+//      tests/test_torch_bvh_streamed.py: compact_buckets transcribes these
+//      kernels): bucket_rays gives each live ray the bucket 8 x (rank of
+//      the first admission box it may meet before its t_init) + its
+//      direction octant, or the last bucket, and counts the buckets;
+//      scan_buckets places them; scatter_rays writes each ray to its
+//      bucket's next place (any order within a bucket) and leaves the
 //      admitted rays first, their count in device memory;
 //   3. the walk, one thread a ray of the list: thread i takes ray perm[i]
 //      (or ray i), a thread at or past the count writes a miss.  Every
@@ -459,7 +460,8 @@ rank_boxes(const float4* __restrict__ part, const int n_part,
 // Each ray's bucket: 8 x the rank of the first admission box (in
 // front-to-back order) that the live ray may meet before its t_init, plus
 // its direction octant, or kNone = 8 x n_admission when it meets none or
-// is dead (ops/bvh.py: compact_buckets); the buckets' sizes into counts.
+// is dead (tests/test_torch_bvh_streamed.py: compact_buckets); the
+// buckets' sizes into counts.
 __global__ void __launch_bounds__(kThreads)
 bucket_rays(const RayIn in, const BvhParams p, const float* __restrict__ adm,
             const int32_t* __restrict__ adm_order,

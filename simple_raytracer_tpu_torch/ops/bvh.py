@@ -40,7 +40,7 @@ sorted by the front-to-back rank of the first admission box they enter
 and their direction octant, the rays that enter none last, and the count
 of those that enter one.  No order changes a result.  It is the plain
 version of the card's compaction, which runs inside the kernel's launch
-(``compact_buckets`` transcribes it) and admits the same rays.
+and admits the same rays.
 
 ``stage_slots`` is the streamed variant's own layout of the slot table
 (48 bytes a slot, the columns Moller-Trumbore reads), kept per scene by
@@ -301,34 +301,6 @@ def compact_order(o: Vec3, d: Vec3, alive: torch.Tensor,
     key = (bucket << idx_bits) | torch.arange(n_rays, device=bucket.device)
     order = torch.sort(key).values & ((1 << idx_bits) - 1)
     return order, admitted.sum()
-
-
-def compact_buckets(o: Vec3, d: Vec3, alive: torch.Tensor,
-                    t_init: torch.Tensor, admission: torch.Tensor):
-    """The card's ray compaction (``csrc/bvh_kernel.cu``: ``rank_boxes``,
-    ``bucket_rays``, ``scan_buckets``, ``scatter_rays``) in PyTorch ->
-    (order (R,) int64, count 0-d int64, bucket (R,) int64).  A ray's
-    bucket is 8 x the rank of the first admission box, in front-to-back
-    order, that the live ray may meet before ``t_init``, plus its direction
-    octant, or ``8 * N`` (the last) when it meets none or is dead; the
-    order holds the buckets in turn from each bucket's first place (the
-    exclusive sum of the sizes before it), and ``count`` is the last
-    bucket's first place.  Within a bucket the kernel places rays in any
-    order, this version in index order.  The admitted rays and their count
-    are ``compact_order``'s."""
-    n_box = admission.shape[0]
-    live = alive > 0
-    by_rank = front_to_back(admission, o, live).long()
-    maybe = slab_maybe(admission[by_rank], o, inverse(d), t_init, live)
-    first = torch.where(maybe.any(dim=0), maybe.to(torch.int8).argmax(dim=0),
-                        n_box)
-    octant = ((d.x < 0).long() * 4 + (d.y < 0).long() * 2
-              + (d.z < 0).long())
-    bucket = torch.where(first < n_box, first * 8 + octant, 8 * n_box)
-    sizes = torch.bincount(bucket, minlength=8 * n_box + 1)
-    cursor = torch.cumsum(sizes, 0) - sizes
-    order = torch.argsort(bucket, stable=True)
-    return order, cursor[8 * n_box], bucket
 
 
 def stage_slots(table: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:

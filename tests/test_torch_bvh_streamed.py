@@ -6,7 +6,7 @@ The CUDA kernel runs only on the card (chip_smoke.py holds every streamed
 launch, and the card's compaction, to the plain versions there).  Here:
 
 - the ray compaction the launch runs on the card, transcribed in PyTorch
-  (``bvh.compact_buckets``), admits exactly the rays of the plain version
+  (``compact_buckets``), admits exactly the rays of the plain version
   ``bvh.compact_order`` and counts them as the JAX ``_compact_prefix``
   does, on configs 5 and 6 at 64x36: camera and mesh rays, every ray
   admitting, none admitting, dead rays and NaN rays;
@@ -108,6 +108,35 @@ def _compaction_rays(ts, camera, case, seed):
     return f32(o), f32(d), alive, f32(t_init)
 
 
+def compact_buckets(o: Vec3, d: Vec3, alive: torch.Tensor,
+                    t_init: torch.Tensor, admission: torch.Tensor):
+    """The card's ray compaction (``csrc/bvh_kernel.cu``: ``rank_boxes``,
+    ``bucket_rays``, ``scan_buckets``, ``scatter_rays``) in PyTorch ->
+    (order (R,) int64, count 0-d int64, bucket (R,) int64).  A ray's
+    bucket is 8 x the rank of the first admission box, in front-to-back
+    order, that the live ray may meet before ``t_init``, plus its direction
+    octant, or ``8 * N`` (the last) when it meets none or is dead; the
+    order holds the buckets in turn from each bucket's first place (the
+    exclusive sum of the sizes before it), and ``count`` is the last
+    bucket's first place.  Within a bucket the kernel places rays in any
+    order, this version in index order.  The admitted rays and their count
+    are ``bvh.compact_order``'s."""
+    n_box = admission.shape[0]
+    live = alive > 0
+    by_rank = bvh.front_to_back(admission, o, live).long()
+    maybe = bvh.slab_maybe(admission[by_rank], o, bvh.inverse(d), t_init,
+                           live)
+    first = torch.where(maybe.any(dim=0), maybe.to(torch.int8).argmax(dim=0),
+                        n_box)
+    octant = ((d.x < 0).long() * 4 + (d.y < 0).long() * 2
+              + (d.z < 0).long())
+    bucket = torch.where(first < n_box, first * 8 + octant, 8 * n_box)
+    sizes = torch.bincount(bucket, minlength=8 * n_box + 1)
+    cursor = torch.cumsum(sizes, 0) - sizes
+    order = torch.argsort(bucket, stable=True)
+    return order, cursor[8 * n_box], bucket
+
+
 @pytest.mark.parametrize("case", ["mixed", "every", "none", "dead", "nan"])
 @pytest.mark.parametrize("n_cfg", [5, 6])
 def test_card_compaction_admits_compact_orders_rays(config_scenes, n_cfg,
@@ -124,7 +153,7 @@ def test_card_compaction_admits_compact_orders_rays(config_scenes, n_cfg,
     args = (tvec(o), tvec(d), torch.from_numpy(alive),
             torch.from_numpy(t_init))
     order_p, count_p = bvh.compact_order(*args, adm)
-    order, count, bucket = bvh.compact_buckets(*args, adm)
+    order, count, bucket = compact_buckets(*args, adm)
     count = int(count)
     assert count == int(count_p)
     assert set(order[:count].tolist()) == set(order_p[:count].tolist())
@@ -340,7 +369,7 @@ def test_card_route_leaves_the_compaction_to_the_launch(monkeypatch):
     PyTorch compaction (compact_order, front_to_back): the launch does it
     on the card, and prepare refuses any device but CUDA."""
     calls = []
-    for name in ("compact_order", "compact_buckets", "front_to_back",
+    for name in ("compact_order", "front_to_back",
                  "intersect_compacted_plain"):
         monkeypatch.setattr(bvh, name, lambda *a, _n=name, **k:
                             calls.append(_n))
