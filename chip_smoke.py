@@ -3,7 +3,10 @@
 
 Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(``--parent``: a checkout of an earlier commit; phase 6 also times its
+BVH kernel on the same launches, one by one.)
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
@@ -41,7 +44,9 @@ are a path of their own.  Phases, one line each on stdout:
      launch's (t, index) on every ray, dead rays (+inf, 0) included, with
      each launch's live rays; every compacted BVH launch's ray order, made
      inside the launch, against ops/bvh.compact_order (the same count and
-     admitted rays) (config 6 under "pallas": a band of rows;
+     admitted rays), and every two_level and streamed launch replayed
+     on the warp walk's counting instance, its (t, slot) the route's
+     (config 6 under "pallas": a band of rows;
      the kernel visits live rays only), and the canvas, and the
      triangle kernel on ragged random tables and ray batches (RAGGED);
      config 4 under "jnp" against the "pallas"
@@ -74,11 +79,15 @@ are a path of their own.  Phases, one line each on stdout:
      beside it; benchmark_step of
      configs 6 and 7 under "auto" and "fused" side by side; the BVH
      kernel's Plucker form against its MT form on the same launches, in
-     turns; the streamed variant's launches one by one (each launch's
-     time and its kernels' device times, the compaction's beside the
-     walk's; compact_order's and prepare's time on the same rays; what
+     turns; the two_level and streamed variants' launches one by one
+     (each launch's time and its kernels' device times, the compaction's
+     beside the walk's; with --parent the parent's kernel on the same
+     launch; compact_order's and prepare's time on the same rays; what
      the walk did, from its counting instance, against the (ray, cluster)
-     pairs the plain version's gates admit);
+     pairs the plain version's gates admit); the streamed launches
+     replayed on two_level (no ring); two_level's launches on builds of
+     the kernel with the warp walk's constants swept (the split point,
+     the feed, the ring);
      the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell).
@@ -89,6 +98,7 @@ before the last line.  Without CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import dataclasses
@@ -328,9 +338,10 @@ def trace_args(renderer: Renderer, camera, time_seed: int) -> tuple:
     return args, kw
 
 
-def build_kernels() -> str:
-    """Build the five kernel sources at once (one nvcc each) and report
-    ptxas's registers and spills per variant."""
+def build_kernels(extra=()) -> str:
+    """Build the five kernel sources and the ``extra`` kernels at once
+    (one nvcc each) and report ptxas's registers and spills per variant of
+    the five."""
     errors = []
 
     def build(kernel):
@@ -340,7 +351,7 @@ def build_kernels() -> str:
             errors.append(str(exc))
 
     threads = [threading.Thread(target=build, args=(k,))
-               for k in KERNELS.values()]
+               for k in (*KERNELS.values(), *extra)]
     for t in threads:
         t.start()
     for t in threads:
@@ -666,12 +677,14 @@ def compaction_check(label: str, b: int, prep, clusters) -> None:
 def check_bvh_launches(label: str, recorded, clusters, table,
                        count_work: bool = True):
     """Every recorded BVH launch against its plain version, in the
-    launch's MT form, on the same rays: (t, slot) equal on every live ray.
+    launch's MT form, on the same rays: (t, slot) equal on every live ray;
+    and a warp walk's launch (two_level, streamed) replayed on its
+    counting instance, whose (t, slot) must be the route's on every ray.
     Returns (max |dt|, work per launch (walked rays, rays, compacted,
     ``admitted``'s five counts, live rays, the alive flag's bytes; not
     counted without ``count_work``), plain seconds, one report per
-    launch)."""
-    max_abs, work, plain_s, lines = 0.0, [], 0.0, []
+    launch, the counting instance's counts per launch (None for flat))."""
+    max_abs, work, plain_s, lines, counted = 0.0, [], 0.0, [], []
     for b, (prep, (t_k, s_k)) in enumerate(recorded):
         o_, d_, alive, t_init = bvh_inputs(prep)
         form = "plucker" if prep.params.plucker else "mt"
@@ -713,7 +726,14 @@ def check_bvh_launches(label: str, recorded, clusters, table,
             fail(f"cell {label} bounce {b}: the BVH kernel's (t, slot) "
                  f"differ from the plain version on {slot_diff} live "
                  f"rays (max |dt| {m})")
-    return max_abs, work, plain_s, lines
+        cnt = None
+        if prep.variant != "flat":
+            (t_c, s_c), cnt = bk.launch_counted(prep)
+            if not (torch.equal(t_c, t_k) and torch.equal(s_c, s_k)):
+                fail(f"cell {label} bounce {b}: the counting instance's "
+                     "(t, slot) differ from the route's")
+        counted.append(cnt)
+    return max_abs, work, plain_s, lines, counted
 
 
 def check_shade_launches(scene, recorded):
@@ -1020,24 +1040,50 @@ def shade_bound(scene, work) -> tuple:
     return float(flops), float(nbytes)
 
 
-def unstaged(preps, outs, staged_ms: float) -> str:
-    """The streamed variant's launches of one pass replayed on the
-    two_level variant, which walks the same gates per ray and reads each
-    slot from global memory: what the warp's staging changes, on the same
-    inputs in the same call.  The results must be the same."""
-    alt = []
-    for pp, (t, s) in zip(preps, outs):
-        alt.append((dataclasses.replace(
-            with_params(pp, variant=bk.VARIANTS["two_level"]),
-            variant="two_level"), (torch.empty_like(t), torch.empty_like(s))))
-    ms = float(np.median(cuda_ms(lambda: [bk.launch(q, o) for q, o in alt],
-                                 iters=5)))
+@contextlib.contextmanager
+def bvh_kernel_as(kernel):
+    """bk.launch through another build of the BVH kernel (the same C
+    interface) while the body runs; its launches are counted on it, not
+    on the route's kernel."""
+    route = bk.KERNEL
+    bk.KERNEL = kernel
+    try:
+        yield
+    finally:
+        bk.KERNEL = route
+
+
+def replay(preps, outs, kernel=None, **fields) -> tuple:
+    """ms a pass of recorded BVH launches (with launch parameters replaced
+    by ``fields``, on ``kernel`` where given), and whether every (t, slot)
+    equals the recorded one."""
+    alt = [(with_params(pp, **fields), (torch.empty_like(t),
+                                        torch.empty_like(s)))
+           for pp, (t, s) in zip(preps, outs)]
+    if "variant" in fields:
+        names = {v: k for k, v in bk.VARIANTS.items()}
+        alt = [(dataclasses.replace(q, variant=names[fields["variant"]]), o)
+               for q, o in alt]
+    with bvh_kernel_as(kernel or bk.KERNEL):
+        ms = float(np.median(cuda_ms(lambda: [bk.launch(q, o)
+                                              for q, o in alt],
+                                     iters=2, repeats=3, warmup=1)))
     same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
                for (_, a), b in zip(alt, outs))
+    return ms, same
+
+
+def ring_report(preps, outs, ring_ms: float) -> str:
+    """The streamed variant's launches of one pass replayed on the
+    two_level variant: the same warp walk, each chunk's rows read where
+    they lie in device memory instead of copied into the ring: what the
+    ring changes, on the same inputs in the same call.  The results must
+    be the same."""
+    ms, same = replay(preps, outs, variant=bk.VARIANTS["two_level"])
     if not same:
         fail("the streamed and two_level variants disagree")
-    return (f"the same launches on two_level (no staging) {ms:.4f} ms/pass, "
-            f"streamed / two_level {staged_ms / ms:.3f}, results equal")
+    return (f"the same launches on two_level (no ring) {ms:.4f} ms/pass, "
+            f"streamed / two_level {ring_ms / ms:.3f}, results equal")
 
 
 def device_ms_by_kernel(fn, reps: int = 3) -> dict:
@@ -1054,21 +1100,23 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     return {k: v / 1e3 / reps for k, v in kernel_device_us(prof).items()}
 
 
-def streamed_launches(label: str, res: dict, clusters, table) -> dict:
-    """Phase 6 of a cell whose BVH launches take the streamed variant, one
-    launch at a time: the launch's time (the visiting order, the ray
-    compaction and the walk, all on the card), and the device time of
-    each of its kernels (torch.profiler: the compaction's four kernels
-    beside the walk); ops/bvh.compact_order's time on the same rays (the
+def walk_launches(label: str, res: dict, clusters, table,
+                  parent=None) -> dict:
+    """Phase 6 of a cell whose BVH launches take the warp walk (two_level
+    or streamed), one launch at a time: the launch's time (the visiting
+    order, the ray compaction and the walk, all on the card), and the
+    device time of each of its kernels (torch.profiler: the compaction's
+    four kernels beside the walk); with ``parent`` (an earlier build of
+    the kernel), the same launch on it, whose (t, slot) must be the
+    route's; ops/bvh.compact_order's time on the same rays (the
     compaction's plain version, in PyTorch) and ``prepare``'s, with the
-    route's whole cost a pass (launches + ``prepare``, the parent's being
-    kernel + ``compact_order`` + ``prepare``); and what the walk did, from
-    the variant's counting instance (whose (t, slot) must be the route's),
-    beside what the plain version's gates admit under each ray's final t
-    (``admitted``)."""
+    route's whole cost a pass (launches + ``prepare``); and what the walk
+    did, from the counting instance (phase 4), beside what the plain
+    version's gates admit under each ray's final t (``admitted``)."""
     per, lines = [], []
     adm = clusters.hierarchy.admission
-    for b, ((pp, oo), w) in enumerate(zip(res["recorded"], res["work"])):
+    for b, ((pp, oo), w, cnt) in enumerate(zip(res["recorded"], res["work"],
+                                               res["counts"])):
         o_, d_, alive, t_init = bvh_inputs(pp)
         med = lambda fn: float(np.median(cuda_ms(fn, iters=3, repeats=3,
                                                  warmup=1)))
@@ -1081,32 +1129,41 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
         prep_ms = med(lambda: bk.prepare(o_, d_, alive, t_init, clusters,
                                          table, compact,
                                          pp.variant == "streamed"))
-        (t_c, s_c), cnt = bk.launch_counted(pp)
-        if not (torch.equal(t_c, oo[0]) and torch.equal(s_c, oo[1])):
-            fail(f"cell {label} bounce {b}: the counting instance's (t, "
-                 "slot) differ from the route's")
+        parent_ms, parent_note = None, ""
+        if parent is not None:
+            got = (torch.empty_like(oo[0]), torch.empty_like(oo[1]))
+            with bvh_kernel_as(parent):
+                parent_ms = med(lambda: bk.launch(pp, got))
+            if not (torch.equal(got[0], oo[0]) and torch.equal(got[1],
+                                                               oo[1])):
+                fail(f"cell {label} bounce {b}: the parent's kernel and "
+                     "this one differ")
+            parent_note = (f", the parent's kernel {parent_ms:.4f} ms "
+                           f"(parent / this {parent_ms / k_ms:.2f}x)")
         walked, pairs_adm, opened = w[0], w[7], w[5]
         st = max(cnt["stagings"], 1)
-        # the work done: the bytes staged (a slot's staged row) and the
+        # the work done: the bytes fed to MT (a slot's row) and the
         # lane-slot MT tests issued (32 lanes a warp-wide step)
         row_bytes = 4 * (bvh.PLUCKER_COLS if pp.params.plucker
                          else bvh.STAGED_COLS)
         per.append(dict(kernel_ms=k_ms, walk_ms=walk_ms,
                         order_ms=sum(parts.values()) - walk_ms,
-                        compact_order_ms=c_ms, prepare_ms=prep_ms,
-                        compact=compact, admitted_pairs=pairs_adm,
-                        opened=opened, staged_bytes=cnt["slots"] * row_bytes,
+                        parent_ms=parent_ms, compact_order_ms=c_ms,
+                        prepare_ms=prep_ms, compact=compact,
+                        admitted_pairs=pairs_adm, opened=opened,
+                        fed_bytes=cnt["slots"] * row_bytes,
                         mt_issued=32 * cnt["mt_steps"], **cnt))
         lines.append(
             f"b{b} {'compact' if compact else 'dense'} walked {walked}: "
             f"launch {k_ms:.4f} ms (device: "
             + ", ".join(f"{k} {v:.4f}" for k, v in sorted(parts.items()))
-            + f"), compact_order (PyTorch) {c_ms:.4f} ms, prepare "
-            f"{prep_ms:.4f} ms; stagings {cnt['stagings']} (chunks "
-            f"{cnt['chunks']}, slots {cnt['slots']}), admitting lanes mean "
+            + f"){parent_note}, compact_order (PyTorch) {c_ms:.4f} ms, "
+            f"prepare {prep_ms:.4f} ms; (warp, cluster) visits "
+            f"{cnt['stagings']} (chunks fed {cnt['chunks']}, slots "
+            f"{cnt['slots']}), admitting lanes mean "
             f"{cnt['pairs'] / st:.2f}, by lanes {cnt['hist']}, split "
-            f"{cnt['split']}, wasted {cnt['wasted']}; staged "
-            f"{per[-1]['staged_bytes'] / 1e6:.3f} MB; MT pairs (ray, "
+            f"{cnt['split']}, wasted {cnt['wasted']}; fed "
+            f"{per[-1]['fed_bytes'] / 1e6:.3f} MB; MT pairs (ray, "
             f"cluster) {cnt['pairs']} against {pairs_adm} admitted under "
             f"the final t ({opened} clusters opened); warp MT steps "
             f"{cnt['mt_steps']} ({per[-1]['mt_issued']} lane-slot tests "
@@ -1114,24 +1171,107 @@ def streamed_launches(label: str, res: dict, clusters, table) -> dict:
             f"{cnt['group_tests']}, supers {cnt['super_tests']}, clusters "
             f"{cnt['cluster_tests']}")
     tot = lambda key: sum(x[key] for x in per)
-    say(f"[6] cell {label} streamed launches one by one: "
-        f"{'; '.join(lines)}; a pass: launches {tot('kernel_ms'):.4f} ms "
-        f"(the walk {tot('walk_ms'):.4f} ms, the order and compaction "
-        f"kernels {tot('order_ms'):.4f} ms), compact_order (PyTorch) "
-        f"{tot('compact_order_ms'):.4f} ms, prepare {tot('prepare_ms'):.4f}"
-        f" ms, launches + prepare "
-        f"{tot('kernel_ms') + tot('prepare_ms'):.4f} ms; staged "
-        f"{tot('staged_bytes') / 1e6:.3f} MB, MT pairs "
+    parent_note = ""
+    if parent is not None:
+        parent_note = (f", the parent's kernel {tot('parent_ms'):.4f} ms "
+                       f"(parent / this "
+                       f"{tot('parent_ms') / tot('kernel_ms'):.2f}x)")
+    say(f"[6] cell {label} {res['recorded'][0][0].variant} launches one by "
+        f"one: {'; '.join(lines)}; a pass: launches {tot('kernel_ms'):.4f} "
+        f"ms (the walk {tot('walk_ms'):.4f} ms, the order and compaction "
+        f"kernels {tot('order_ms'):.4f} ms){parent_note}, compact_order "
+        f"(PyTorch) {tot('compact_order_ms'):.4f} ms, prepare "
+        f"{tot('prepare_ms'):.4f} ms, launches + prepare "
+        f"{tot('kernel_ms') + tot('prepare_ms'):.4f} ms; fed "
+        f"{tot('fed_bytes') / 1e6:.3f} MB, MT pairs "
         f"{tot('pairs')} ({tot('mt_issued')} lane-slot tests issued), "
         f"admitted pairs {tot('admitted_pairs')}")
     return dict(per_launch=per)
+
+
+# The warp walk's constants swept on two_level's launches of a pass (phase
+# 6), each a build of the BVH kernel with -D flags of the source's names:
+# the split point (SRT_BVH_SPLIT_MAX; 0: never split, 32: always split),
+# with two_level reading each chunk where it lies (SRT_BVH_TWO_LEVEL_RING=0)
+# and fed by the ring of 2 x 64 slots (=1), then the ring's buffers and
+# chunk (SRT_BVH_STAGES x SRT_BVH_CHUNK) at the route's split point.
+SWEEP_SPLITS = (0, 4, 8, 16, 24, 32)
+SWEEP_RINGS = ((3, 64), (4, 64), (4, 32))
+SWEEP_KERNELS = {}
+
+
+def route_constant(name: str) -> int:
+    """The default of one of the BVH kernel's -D constants, in its
+    source."""
+    src = Path(bk.SOURCE).read_text()
+    return int(re.search(rf"#define {name} (\d+)", src).group(1))
+
+
+def sweep_kernels() -> dict:
+    """The sweep's builds of the BVH kernel, by case name, built at once
+    (one nvcc each) on first use."""
+    if not SWEEP_KERNELS:
+        cases = {}
+        for sm in SWEEP_SPLITS:
+            for ring in (0, 1):
+                cases[f"{'ring 2x64' if ring else 'in place'} split {sm}"] = [
+                    f"-DSRT_BVH_SPLIT_MAX={sm}",
+                    f"-DSRT_BVH_TWO_LEVEL_RING={ring}", "-DSRT_BVH_STAGES=2",
+                    "-DSRT_BVH_CHUNK=64"]
+        for stages, chunk in SWEEP_RINGS:
+            cases[f"ring {stages}x{chunk} split route"] = [
+                "-DSRT_BVH_TWO_LEVEL_RING=1", f"-DSRT_BVH_STAGES={stages}",
+                f"-DSRT_BVH_CHUNK={chunk}"]
+        SWEEP_KERNELS.update({name: bk.Kernel(bk.SOURCE, bk._bind, flags)
+                              for name, flags in cases.items()})
+        errors = []
+
+        def build(kernel):
+            try:
+                kernel.library()
+            except RuntimeError as exc:       # nvcc failed: reported below
+                errors.append(str(exc))
+
+        threads = [threading.Thread(target=build, args=(k,))
+                   for k in SWEEP_KERNELS.values()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            fail("the sweep's kernel builds: " + "\n".join(errors))
+    return SWEEP_KERNELS
+
+
+def walk_sweep(label: str, res: dict) -> dict:
+    """two_level's launches of a pass on each build of ``sweep_kernels``,
+    in turns, twice: ms a pass, and (t, slot) equal to the route's."""
+    preps = [pp for pp, _ in res["recorded"]]
+    outs = [oo for _, oo in res["recorded"]]
+    ms = collections.defaultdict(list)
+    for _ in range(2):
+        for name, kernel in sweep_kernels().items():
+            try:
+                t, same = replay(preps, outs, kernel)
+            except RuntimeError as exc:     # the launch was refused
+                fail(f"cell {label}: the sweep's {name}: {exc}")
+            if not same:
+                fail(f"cell {label}: the sweep's {name} changes a result")
+            ms[name].append(t)
+    say(f"[6] cell {label} two_level sweep (ms a pass, two turns; the "
+        f"route: split {route_constant('SRT_BVH_SPLIT_MAX')}, "
+        f"{'ring' if route_constant('SRT_BVH_TWO_LEVEL_RING') else 'in place'}"
+        f"): " + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}"
+                            for k, v in ms.items())
+        + "; results equal")
+    return dict(ms)
 
 
 def as_mt(prep, clusters):
     """A recorded BVH launch in the MT form: the same rays, gates and
     variant; only the slot test differs."""
     table, _, _, *rest = prep.tensors
-    staged = (bvh.staged_slots(clusters, table) if prep.variant == "streamed"
+    staged = (bvh.staged_slots(clusters, table) if prep.variant != "flat"
               else None)
     return dataclasses.replace(with_params(prep, plucker=0),
                                tensors=(table, staged, None, *rest))
@@ -1297,7 +1437,19 @@ def brute_force_cell(label: str, r: Renderer, camera, card: str) -> dict:
     return res
 
 
-def main() -> int:
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--parent", type=Path, default=None,
+        help="a checkout of an earlier commit of this repository: its BVH "
+             "kernel (simple_raytracer_tpu_torch/csrc/bvh_kernel.cu, with "
+             "the same C interface) is built beside this one's, and phase "
+             "6 times every two_level and streamed launch on it too")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -1308,12 +1460,18 @@ def main() -> int:
         f"{pil}")
 
     t0 = time.perf_counter()
-    ptxas = build_kernels()
+    parent = None
+    if args.parent is not None:
+        parent = bk.Kernel(args.parent / "simple_raytracer_tpu_torch" / "csrc"
+                           / "bvh_kernel.cu", bk._bind)
+    ptxas = build_kernels(() if parent is None else (parent,))
     say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
         "sources "
         f"(nvcc sm_90a, ctypes; "
         + ", ".join(f"{SOURCES[kind]} {k.build_seconds:.2f} s"
                     for kind, k in KERNELS.items())
+        + ("" if parent is None else
+           f"; the parent's {parent.source} {parent.build_seconds:.2f} s")
         + f"); ptxas: {ptxas}")
     say(f"[2] triangle kernel {trk.SHAPE[0]}x{trk.SHAPE[1]}, the fast path "
         f"of one triangle (cuobjdump): {triangle_sass()}")
@@ -1508,10 +1666,11 @@ def main() -> int:
         torch.cuda.synchronize()
         tris = ds.triangles
         cl, table = tris.clusters, tris.table
-        max_abs, work, plain_s, lines = check_bvh_launches(label, rec.bvh,
-                                                           cl, table)
+        max_abs, work, plain_s, lines, counts = check_bvh_launches(
+            label, rec.bvh, cl, table)
         res = dict(max_abs=max_abs, work=work, plain_ms=plain_s * 1e3,
-                   recorded=rec.bvh, n_rays=k.shape[1], canvas=k)
+                   recorded=rec.bvh, n_rays=k.shape[1], canvas=k,
+                   counts=counts)
         shade_ok = True
         if label in FUSED:
             differ, s_abs, s_work, s_plain, s_lines = check_shade_launches(
@@ -1533,7 +1692,9 @@ def main() -> int:
             f"full pass ({bk.bvh_variant(cl, backend == 'clustered')}): "
             f"{'; '.join(lines)}; canvas rmse={rmse:.3e} share>1e-3="
             f"{share:.3e} bit-identical={bitexact} non-finite masks agree="
-            f"{same_bad}; plain BVH {plain_s:.2f} s/pass  [{card}]")
+            f"{same_bad}; plain BVH {plain_s:.2f} s/pass; counting "
+            f"instance equal to the route on "
+            f"{sum(c is not None for c in counts)} launches  [{card}]")
         if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
                 and same_bad):
             fail(f"cell {label}: the per-bounce canvas disagrees with its "
@@ -1565,7 +1726,7 @@ def main() -> int:
         k, rec = per_bounce_pass(r, camera, 4242)
         torch.cuda.synchronize()
         tris = r.device_scene.triangles
-        _, _, plain_s, lines = check_bvh_launches(
+        _, _, plain_s, lines, _ = check_bvh_launches(
             "7/fused/plucker", rec.bvh, tris.clusters, tris.table,
             count_work=False)
         same = bool(torch.equal(k, results["7/plucker"]["canvas"]))
@@ -1683,7 +1844,7 @@ def main() -> int:
 
     # ---- 6: timings ----
     timing, steps_ms, ab, library, tri_cells = {}, {}, {}, {}, {}
-    streamed_cells = {}
+    walk_cells = {}
     for label, (r, camera) in in_form(renderers):
         res = results[label]
         o = r.options
@@ -1760,9 +1921,11 @@ def main() -> int:
                          f"{[w[0] for w in res['work']]}, clusters opened "
                          f"per launch {[w[5] for w in res['work']]}, "
                          f"{roots} root boxes")
-            if preps[0].variant == "streamed":
-                streamed_cells[label] = streamed_launches(
-                    label, res, cl, ds.triangles.table)
+            if preps[0].variant != "flat":
+                walk_cells[label] = walk_launches(
+                    label, res, cl, ds.triangles.table, parent)
+                if preps[0].variant == "two_level":
+                    walk_cells[label]["sweep"] = walk_sweep(label, res)
             bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
                         f"{walk_note}; bound {b_bound:.4f} ms ({flops:.4g} "
                         f"FLOP, {nbytes:.4g} B), {b_bound / b_ms * 100:.1f}% "
@@ -1784,7 +1947,7 @@ def main() -> int:
                 p_note = "plain BVH (sum over the pass's launches, one run)"
                 work = walk_note
                 if CELLS[label][2] == "streamed":
-                    work += "; " + unstaged(preps, outs, b_ms)
+                    work += "; " + ring_report(preps, outs, b_ms)
                 if plucker:
                     pl_ms, mt_ms = form_ab(preps, outs, cl)
                     ab[label] = (float(np.median(pl_ms)),
@@ -1957,11 +2120,12 @@ def main() -> int:
             for key in ("bound_mt_live_ms", "bound_all_rays_ms"):
                 entries[-1][key] = tri_cells[cell][key]
             entries[-1]["cells"] = tri_cells
-        if variant in ("streamed", "streamed/plucker"):
-            # the streamed cells' launches one by one (phase 6)
+        if kind == "bvh" and variant != "flat":
+            # the warp walk's cells of this variant and form, launch by
+            # launch (phase 6)
             entries[-1]["cells"] = {
-                c: v for c, v in streamed_cells.items()
-                if (FORMS.get(c) == "plucker") == variant.endswith("plucker")}
+                c: v for c, v in walk_cells.items()
+                if CELLS[c][2] == variant}
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

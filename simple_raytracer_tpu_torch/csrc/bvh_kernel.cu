@@ -6,17 +6,18 @@
 //   - kFlat (bvh_kernel.py:201 _kernel, tables of at most 8192 slots): the
 //     clusters in front-to-back order, each box slab-tested against the
 //     ray's live best t (_reslab_flag), then Moller-Trumbore over the
-//     cluster's K slots;
-//   - kTwoLevel (bvh_kernel.py:1040 _kernel_packed, config 6): the groups of
-//     16 supers in front-to-back order, each group box, then each of its 16
-//     super boxes, then each of their 16 cluster boxes slab-tested against
-//     the live best t, then MT over the admitted cluster's slots;
+//     cluster's K slots, one thread a ray;
+//   - kTwoLevel (bvh_kernel.py:1040 _kernel_packed, config 6, a table the
+//     TPU keeps resident): the groups of 16 supers in front-to-back order,
+//     each group box, then each of its 16 super boxes, then each of their
+//     16 cluster boxes slab-tested against the live best t, then MT over
+//     the admitted cluster's slots;
 //   - kStreamed (bvh_kernel.py:678 _kernel_hbm, config 7 and
-//     tri_backend="clustered"): the same three gates per ray, walked by the
-//     warp together, each cluster that some lane admits staged from device
-//     memory into the warp's shared buffers (below).
-// Each of kTwoLevel and kStreamed has a second, Plucker form (PLUCKER,
-// params.plucker; bvh_kernel.py:629 _mt_update_sub_mxu and :582
+//     tri_backend="clustered", a table the TPU streams from HBM): the same
+//     gates and MT.
+// kTwoLevel and kStreamed are one warp walk (below), which differs only in
+// how a cluster's slots reach MT.  Each has a second, Plucker form
+// (PLUCKER, params.plucker; bvh_kernel.py:629 _mt_update_sub_mxu and :582
 // _plucker_lt, row 5a, SRT_BVH_MT=plucker): the same predicate from the
 // slot's 20 Plucker coefficients (ops/bvh.py: plucker_table, built once
 // per scene; the TPU builds LT per visited cluster) dotted with the ray's
@@ -47,55 +48,59 @@
 //      scan_buckets places them; scatter_rays writes each ray to its
 //      bucket's next place (any order within a bucket) and leaves the
 //      admitted rays first, their count in device memory;
-//   3. the walk, one thread a ray of the list: thread i takes ray perm[i]
-//      (or ray i), a thread at or past the count writes a miss.  Every
-//      result goes to its own ray's place in the output.
+//   3. the walk over the ray list: lane i takes ray perm[i] (or ray i), a
+//      lane at or past the count writes a miss.  Every result goes to its
+//      own ray's place in the output.
 //
-// The walk: one thread per ray.  The TPU gates a cluster for a 128-ray
-// sub-block and reads a packed table through one-hot MXU transposes; here
-// each ray gates alone and its result does not depend on its neighbours.
-// The global triangle index of each slot comes as an int32 (it never rides
-// in an f32 value) and decides exact ties: the least (t, index) wins,
-// seeded with (t_init, -1), so the visiting order never changes a result
-// (_mt_update's commit).  Every index product is taken in size_t or stays
-// below 2^31: at config 7, 1,409,024 slots x 20 columns is 28.2M words.
+// The TPU gates a cluster for a 128-ray sub-block and reads a packed table
+// through one-hot MXU transposes; here each ray keeps its own gates and its
+// result does not depend on its neighbours.  The global triangle index of
+// each slot comes as an int32 (it never rides in an f32 value) and decides
+// exact ties: the least (t, index) wins, seeded with (t_init, -1), so the
+// visiting order never changes a result (_mt_update's commit).  Every
+// index product is taken in size_t or stays below 2^31: at config 7,
+// 1,409,024 slots x 20 columns is 28.2M words.
 //
-// kStreamed, designed for this card.  Config 7's table (1,409,024 slots,
-// 112.7 MB) is beyond the 50 MB L2, and the rays of a secondary bounce
-// admit different clusters, so what costs is (a) reading each admitted
-// cluster from device memory, (b) issuing MT for lanes that did not admit
-// it and (c) few warps (a secondary bounce walks 2-45 thousand rays) each
-// waiting on a long chain of dependent loads.  The warp walks the gates
-// together (a gate passes when any lane admits it; each lane keeps its
-// own gates), tests a level's boxes as one batch when it enters their
-// parent (next_item: 16 groups of the order, a group's 16 supers, a
-// super's 16 clusters, all loads issued at once), and
-//   - stages each admitted cluster, kChunk slots at a time, from a
-//     per-scene table of exactly the bytes MT reads (ops/bvh.py:
-//     stage_slots: v0 and the index, e1 and active, e2, 48 bytes a slot;
-//     the Plucker form its 80-byte coefficient rows) with one 1-D bulk copy
-//     (TMA) into one of the warp's two shared buffers, on an mbarrier whose
-//     wait traps if it outlasts kSpinLimit polls; the next chunk is found
-//     and its copy issued before the current chunk's MT, so the copy runs
-//     under it (the lookahead gates with the t from before that MT, which
-//     admits at least what the walk would; each lane tests the box again
-//     at the chunk's turn);
+// The warp walk (kTwoLevel, kStreamed), designed for this card.  One
+// thread a ray walking alone leaves a warp running the union of its lanes'
+// clusters with most lanes masked off, each gate one dependent load and
+// each cluster a chain of K dependent MT steps; a secondary bounce walks
+// only 2-45 thousand rays (60-1,400 warps on 132 SMs), so what costs is
+// (a) issuing MT for lanes that did not admit a cluster, (b) the chains of
+// dependent loads and (c) for kStreamed, config 7's table (1,409,024
+// slots, 112.7 MB) beyond the 50 MB L2.  The warp walks the gates together
+// (a gate passes when any lane admits it; each lane keeps its own gates),
+// tests a level's boxes as one batch when it enters their parent
+// (next_item: 16 groups of the order, a group's 16 supers, a super's 16
+// clusters, all loads issued at once), and
+//   - feeds MT a cluster kChunk slots at a time from a per-scene table of
+//     exactly the bytes MT reads (ops/bvh.py: stage_slots: v0 and the
+//     index, e1 and active, e2, 48 bytes a slot; the Plucker form its
+//     80-byte coefficient rows).  kStreamed copies each chunk with one 1-D
+//     bulk copy (TMA) into one of the warp's two shared buffers, on an
+//     mbarrier whose wait traps if it outlasts kSpinLimit polls; the next
+//     chunk is found and its copy issued before the current chunk's MT,
+//     so the copy runs under it (the lookahead gates with the t from
+//     before that MT, which admits at least what the walk would; each lane
+//     tests the box again at the chunk's turn).  kTwoLevel's table (config
+//     6: 98,304 slots, 4.7 MB, or 7.9 MB of Plucker coefficients) stays in
+//     L2, and MT reads each chunk's rows where they lie (kTwoLevelRing);
 //   - splits MT pair by pair when few lanes admit a chunk (at most
 //     kSplitMax): for each admitting ray in turn the 32 lanes test every
-//     32nd slot with that ray and merge their least (t, index) by a warp
-//     minimum over one 64-bit key, which the ray's lane commits.  When more
-//     lanes admit, each admitting lane tests every slot, all reading one
-//     address.
-// Shared memory: 2 buffers x kChunk slots x 48 (80) bytes a warp, 24 KB
-// (40 KB) a block of 4 warps in the MT (Plucker) form.
+//     32nd slot with that ray (neighbouring lanes on neighbouring rows)
+//     and merge their least (t, index) by a warp minimum over one 64-bit
+//     key, which the ray's lane commits.  When more lanes admit, each
+//     admitting lane tests every slot, all reading one address.
+// Shared memory of the ring: 2 buffers x kChunk slots x 48 (80) bytes a
+// warp, 24 KB (40 KB) a block of 4 warps in the MT (Plucker) form.
 //
 // Bound on the H100 (chip_smoke.py): counted from what a launch's walked
 // rays open, the clusters whose box they may meet before their result t:
 // the MT tests of those clusters' real slots (46 FLOP a pair, the Plucker
 // form 38 and 9 a walked ray for m) and the root boxes' slab tests of
-// every walked ray; 32 bytes a walked ray in and 8 out a ray (a compacted
-// launch: 32 in and 4 of order out for every ray, which the compaction
-// reads), and the opened clusters' 44 bytes a slot once in either form.
+// every walked ray; a live ray's o, d and t_init read once, every ray's
+// alive flag read and (t, slot) written once, and the opened clusters' 44
+// bytes a slot once in either form.
 //
 // Arithmetic: built with --fmad=false and no fast math, in the operation
 // order of the plain version (ops/bvh.py: slab_maybe, _mt, _mt_plucker),
@@ -147,18 +152,34 @@ constexpr int kWarps = kBlock / 32;
 constexpr unsigned kAll = 0xffffffffu;
 // a slot's Plucker coefficients (ops/bvh.py: PLUCKER_COLS)
 constexpr int kPluckerCols = 20;
-// kStreamed's staged rows, in float4s a slot: the MT table (ops/bvh.py:
+// the warp walk's rows, in float4s a slot: the MT table (ops/bvh.py:
 // staged_slots, STAGED_COLS = 12: v0 and the global index's bits, e1 and
 // active, e2 and 0) or the Plucker coefficients
 constexpr int kMtRowF4 = 3;
 constexpr int kPluckerRowF4 = kPluckerCols / 4;
-// kStreamed: the slots a staged chunk holds, the warp's ring of chunk
-// buffers, and the most lanes admitting a chunk for which the warp splits
-// each admitting ray's MT across its lanes (above it each admitting lane
-// tests every slot itself); chosen by a sweep on the card (PERF.md)
-constexpr int kChunk = 64;
-constexpr int kStages = 2;
-constexpr int kSplitMax = 16;
+// The warp walk's constants, chosen by chip_smoke.py's sweep on the card
+// (PERF.md section 6; a -D flag of the same name sets each for the
+// sweep): the slots of a chunk, kStreamed's ring of chunk buffers, the
+// most lanes admitting a chunk for which the warp splits each admitting
+// ray's MT across its lanes (above it each admitting lane tests every slot
+// itself), and kTwoLevel's feed (1: the ring, as kStreamed; 0: each slot
+// read from the resident table where MT needs it).
+#ifndef SRT_BVH_CHUNK
+#define SRT_BVH_CHUNK 64
+#endif
+#ifndef SRT_BVH_STAGES
+#define SRT_BVH_STAGES 2
+#endif
+#ifndef SRT_BVH_SPLIT_MAX
+#define SRT_BVH_SPLIT_MAX 16
+#endif
+#ifndef SRT_BVH_TWO_LEVEL_RING
+#define SRT_BVH_TWO_LEVEL_RING 0
+#endif
+constexpr int kChunk = SRT_BVH_CHUNK;
+constexpr int kStages = SRT_BVH_STAGES;
+constexpr int kSplitMax = SRT_BVH_SPLIT_MAX;
+constexpr bool kTwoLevelRing = SRT_BVH_TWO_LEVEL_RING != 0;
 // the ray compaction and the visiting orders (ops/bvh.py: ADMISSION_MAX;
 // ops/cuda/bvh_kernel.py: RANK_MAX)
 constexpr int kAdmissionMax = 256;
@@ -167,22 +188,24 @@ constexpr int kRankMax = 8192;
 constexpr int kThreads = 256;      // the compaction kernels' blocks
 constexpr int kPartials = 512;     // ray_partials' blocks, at most
 
-// The counting instance of kStreamed (srt_bvh_count_launch, which only
+// The counting instance of the warp walk (srt_bvh_count_launch, which only
 // chip_smoke.py calls; the route never launches it): what the walk did,
 // summed over the launch's warps into (kCounters,) int64 counters.
 enum Count {
   kCountWalked = 0,    // rays walked (listed lanes)
-  kCountStagings,      // (warp, cluster) stagings
-  kCountChunks,        // chunk copies
-  kCountSlots,         // slots staged
+  kCountStagings,      // (warp, cluster) visits that ran MT
+  kCountChunks,        // chunks fed to MT: copied into the ring, or read
+                       // from the table where no ring
+  kCountSlots,         // their slots
   kCountPairs,         // (ray, cluster) pairs that ran MT
   kCountMtSteps,       // warp-wide MT steps issued (32 lanes x one slot)
   kCountGroupTests,    // warp-wide slab tests of groups
   kCountSuperTests,    // of supers
   kCountClusterTests,  // of clusters
   kCountSplit,         // chunks whose MT the lanes split pair by pair
-  kCountWasted,        // chunks staged that no lane admitted at their turn
-  kCountHist,          // stagings by admitting lanes: 1, 2, 3-4, 5-8,
+  kCountWasted,        // chunks found that no lane admitted at their turn
+                       // (copied for nothing into a ring; else skipped)
+  kCountHist,          // visits by admitting lanes: 1, 2, 3-4, 5-8,
                        // 9-16, 17-24, 25-31, 32
   kCounters = kCountHist + 8
 };
@@ -318,39 +341,20 @@ __device__ __forceinline__ bool plucker_hit(const float* q, const Ray& r,
          && t > 0.0f && q[19] > 0.0f;
 }
 
-// Moller-Trumbore over the K slots of cluster c, read from device memory:
-// the MT columns of the slot table, or each slot's Plucker coefficients
-// as five float4 loads (kFlat, kTwoLevel)
-template <bool PLUCKER>
+// Moller-Trumbore over the K slots of cluster c, read from the MT columns
+// of the slot table in device memory (kFlat)
 __device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
-                                           const float* __restrict__ coeffs,
                                            const int32_t* __restrict__ gidx,
                                            int c, int k, const Ray& r,
                                            Best& best) {
   const int row0 = c * k;
   for (int s = 0; s < k; ++s) {
+    const float* q = table + (size_t)kTriCols * (row0 + s);
     float t;
-    bool hit;
-    if constexpr (PLUCKER) {
-      const float4* q4 = reinterpret_cast<const float4*>(
-          coeffs + (size_t)kPluckerCols * (row0 + s));
-      float q[kPluckerCols];
-#pragma unroll
-      for (int j = 0; j < kPluckerCols / 4; ++j) {
-        const float4 w = __ldg(q4 + j);
-        q[4 * j] = w.x;
-        q[4 * j + 1] = w.y;
-        q[4 * j + 2] = w.z;
-        q[4 * j + 3] = w.w;
-      }
-      hit = plucker_hit(q, r, t);
-    } else {
-      const float* q = table + (size_t)kTriCols * (row0 + s);
-      hit = mt_hit(__ldg(q + 0), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3),
-                   __ldg(q + 4), __ldg(q + 5), __ldg(q + 6), __ldg(q + 7),
-                   __ldg(q + 8), __ldg(q + 19), r, t);
-    }
-    if (hit) commit(t, __ldg(gidx + row0 + s), row0 + s, best);
+    if (mt_hit(__ldg(q + 0), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3),
+               __ldg(q + 4), __ldg(q + 5), __ldg(q + 6), __ldg(q + 7),
+               __ldg(q + 8), __ldg(q + 19), r, t))
+      commit(t, __ldg(gidx + row0 + s), row0 + s, best);
   }
 }
 
@@ -568,7 +572,7 @@ scatter_rays(const int32_t* __restrict__ bucket, const int n,
   if (b >= 0) perm[base + __popc(peers & ((1u << lane) - 1u))] = i;
 }
 
-// ---- kStreamed's walk ----
+// ---- the warp walk (kTwoLevel, kStreamed) ----
 
 // the lane's gates of n consecutive boxes (rows of 8 floats: lo, hi, 0, 0,
 // read as two float4s) against t_far, bit i for box i: all loads issued
@@ -601,7 +605,7 @@ struct Walk {
   unsigned c_mask = 0, c_any = 0;
 };
 
-// one staged chunk: slots [base, base + kChunk) of cluster c (padded
+// one chunk: slots [base, base + kChunk) of cluster c (padded
 // index), and whether this lane admitted the cluster when it was found
 struct Item {
   int c;
@@ -609,7 +613,7 @@ struct Item {
   bool ok;
 };
 
-// The next chunk to stage: the current cluster's next chunk, else the
+// The next chunk: the current cluster's next chunk, else the
 // next cluster some lane admits, through the group, super and cluster
 // gates in order.  A level's gates are tested together when the walk
 // enters its parent (the next kBatch groups of the order; a group's 16
@@ -674,10 +678,11 @@ __device__ __forceinline__ bool next_item(
   }
 }
 
-// the staged slot sl's test for ray q: (valid, t, global index, read from
-// the staged row, or for the Plucker form from gidx only on a valid hit)
+// slot sl of a chunk's rows (in shared memory, or the table's own in
+// device memory) tested with ray q: (valid, t, global index, read from the
+// MT row, or for the Plucker form from gidx only on a valid hit)
 template <bool PLUCKER>
-__device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
+__device__ __forceinline__ bool row_hit(const float4* __restrict__ buf,
                                            int sl, const Ray& q,
                                            const int32_t* __restrict__ gidx,
                                            int row, float& t, int32_t& g) {
@@ -703,7 +708,7 @@ __device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
   }
 }
 
-// The admitting lanes' MT over one staged chunk of n slots (first: its
+// The admitting lanes' MT over one chunk of n slots at buf (first: its
 // first table slot).  Few lanes admitting (at most kSplitMax): for each
 // admitting ray in turn every lane tests every 32nd slot with that ray,
 // and the lexicographic least (t, index) of the warp is committed by the
@@ -722,7 +727,7 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
       for (int sl = 0; sl < n; ++sl) {
         float t;
         int32_t g;
-        if (staged_hit<PLUCKER>(buf, sl, r, gidx, first + sl, t, g))
+        if (row_hit<PLUCKER>(buf, sl, r, gidx, first + sl, t, g))
           commit(t, g, first + sl, best);
       }
     }
@@ -751,7 +756,7 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
     for (int sl = lane; sl < n; sl += 32) {
       float t;
       int32_t g;
-      if (staged_hit<PLUCKER>(buf, sl, q, gidx, first + sl, t, g)) {
+      if (row_hit<PLUCKER>(buf, sl, q, gidx, first + sl, t, g)) {
         const unsigned long long k2 =
             ((unsigned long long)__float_as_uint(t) << 32) | (uint32_t)g;
         if (k2 < key) {
@@ -780,20 +785,23 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
   }
 }
 
-// kStreamed's walk: the warp visits, in order, every chunk of every
-// cluster that some lane's gates admit (next_item); each chunk is one 1-D
-// bulk copy from the staged table (rows: kMtRowF4 or kPluckerRowF4 float4s
-// a slot) into one of the warp's kStages shared buffers, a ring: while a
-// chunk's MT runs, the copies of the next kStages - 1 chunks are in
-// flight.  A chunk is found (and its copy issued) with the lanes' best t
-// of that moment, before the MT of the chunks ahead of it (a t can only
-// fall, so that admits at least what the walk would); at its turn each
-// lane tests the cluster's box again with its t then, and the lanes that
-// still admit it run MT (mt_chunk).  Each ray's gates and commits are
-// those of kTwoLevel, so it writes the same result.  Called by the whole
-// warp (control flow is warp-uniform).
-template <bool PLUCKER, bool COUNT>
-__device__ __forceinline__ void streamed_walk(
+// The warp walk (kTwoLevel, kStreamed): the warp visits, in order, every
+// chunk of every cluster that some lane's gates admit (next_item).  At a
+// chunk's turn each lane tests the cluster's box again with its t then,
+// and the lanes that still admit it run MT over the chunk's slots
+// (mt_chunk).  RING: each chunk is one 1-D bulk copy from the table (rows:
+// kMtRowF4 or kPluckerRowF4 float4s a slot) into one of the warp's kStages
+// shared buffers, a ring: while a chunk's MT runs, the copies of the next
+// kStages - 1 chunks are in flight.  A chunk is then found (and its copy
+// issued) with the lanes' best t of that moment, before the MT of the
+// chunks ahead of it (a t can only fall, so that admits at least what the
+// walk would).  Without RING, MT reads the chunk's rows where they lie in
+// device memory (the table resident in L2), and a chunk is found just
+// before its turn.  Each ray's gates and commits are those of the plain
+// version, so it writes the same result.  Called by the whole warp
+// (control flow is warp-uniform).
+template <bool PLUCKER, bool RING, bool COUNT>
+__device__ __forceinline__ void warp_walk(
     const float4* __restrict__ rows, const int32_t* __restrict__ gidx,
     const float* __restrict__ boxes, const float* __restrict__ supers,
     const float* __restrict__ groups, const int32_t* __restrict__ order,
@@ -804,61 +812,86 @@ __device__ __forceinline__ void streamed_walk(
   WarpCounts<COUNT> cnt;
   if constexpr (COUNT)
     cnt.add(kCountWalked, __popc(__ballot_sync(kAll, listed)));
-  const int lane = threadIdx.x & 31;
   Walk w;
-  Item last = {-1, 0, false};   // the chunk found last
-  Item q[kStages];              // the chunks staged, oldest first
-  int n_q = 0;
-  bool more = true;
-  uint32_t issued = 0, phase = 0;   // phase bit b: buffer b's next parity
-  // find the next chunk and copy it into the next buffer of the ring (a
-  // NaN ray admits the sentinel boxes past the table too; staging the
-  // last cluster again changes nothing)
-  auto stage_next = [&]() {
-    more = next_item<COUNT>(w, last, boxes, supers, groups, order, listed,
-                            r, best.t, p, cnt);
-    if (!more) return;
-#pragma unroll
-    for (int i = 0; i < kStages; ++i)
-      if (i == n_q) q[i] = last;
-    ++n_q;
-    const int b = issued++ % kStages;
-    const int first = min(last.c, p.n_clusters - 1) * p.k + last.base;
-    const int n = min(kChunk, p.k - last.base);
-    cnt.add(kCountChunks, 1);
-    cnt.add(kCountSlots, n);
-    __syncwarp();   // every lane is done with buffer b's last chunk
-    if (lane == 0)
-      bulk_load(s_buf + b * kChunk * kRowF4, rows + (size_t)first * kRowF4,
-                static_cast<uint32_t>(n * kRowF4 * 16), &s_bar[b]);
+  // a chunk's first table slot (a NaN ray admits the sentinel boxes past
+  // the table too; testing the last cluster again changes nothing) and
+  // its slots
+  auto first_of = [&](const Item& it) {
+    return min(it.c, p.n_clusters - 1) * p.k + it.base;
   };
-  while (more && n_q < kStages) stage_next();
-  for (uint32_t done = 0; n_q > 0; ++done) {
-    const Item cur = q[0];
-#pragma unroll
-    for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
-    --n_q;
-    const int b = done % kStages;
-    bar_wait(&s_bar[b], (phase >> b) & 1u);
-    phase ^= 1u << b;
+  auto size_of = [&](const Item& it) { return min(kChunk, p.k - it.base); };
+  // a chunk's turn, its rows at buf
+  auto turn = [&](const Item& cur, const float4* buf) {
     const bool ok = cur.ok && slab(boxes + 8 * cur.c, r, best.t);
     const unsigned admit = __ballot_sync(kAll, ok);
-    if (admit) {
-      if (cur.base == 0) {
-        cnt.add(kCountStagings, 1);
-        cnt.add(kCountPairs, __popc(admit));
-        cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
-      }
-      const int first = min(cur.c, p.n_clusters - 1) * p.k + cur.base;
-      mt_chunk<PLUCKER, COUNT>(s_buf + b * kChunk * kRowF4,
-                               min(kChunk, p.k - cur.base), first, admit, ok,
-                               r, best, gidx, cnt);
-    } else {
+    if (!admit) {
       cnt.add(kCountWasted, 1);
+      return;
     }
-    if (more) stage_next();   // into buffer b, just read
+    if (cur.base == 0) {
+      cnt.add(kCountStagings, 1);
+      cnt.add(kCountPairs, __popc(admit));
+      cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
+    }
+    if constexpr (!RING) {
+      cnt.add(kCountChunks, 1);
+      cnt.add(kCountSlots, size_of(cur));
+    }
+    mt_chunk<PLUCKER, COUNT>(buf, size_of(cur), first_of(cur), admit, ok, r,
+                             best, gidx, cnt);
+  };
+  if constexpr (!RING) {
+    Item it = {-1, 0, false};
+    while (next_item<COUNT>(w, it, boxes, supers, groups, order, listed, r,
+                            best.t, p, cnt))
+      turn(it, rows + (size_t)first_of(it) * kRowF4);
+  } else {
+    const int lane = threadIdx.x & 31;
+    Item last = {-1, 0, false};   // the chunk found last
+    Item q[kStages];              // the chunks staged, oldest first
+    int n_q = 0;
+    bool more = true;
+    uint32_t issued = 0, phase = 0;   // phase bit b: buffer b's next parity
+    // find the next chunk and copy it into the next buffer of the ring
+    auto stage_next = [&]() {
+      more = next_item<COUNT>(w, last, boxes, supers, groups, order, listed,
+                              r, best.t, p, cnt);
+      if (!more) return;
+#pragma unroll
+      for (int i = 0; i < kStages; ++i)
+        if (i == n_q) q[i] = last;
+      ++n_q;
+      const int b = issued++ % kStages;
+      cnt.add(kCountChunks, 1);
+      cnt.add(kCountSlots, size_of(last));
+      __syncwarp();   // every lane is done with buffer b's last chunk
+      if (lane == 0)
+        bulk_load(s_buf + b * kChunk * kRowF4,
+                  rows + (size_t)first_of(last) * kRowF4,
+                  static_cast<uint32_t>(size_of(last) * kRowF4 * 16),
+                  &s_bar[b]);
+    };
+    while (more && n_q < kStages) stage_next();
+    for (uint32_t done = 0; n_q > 0; ++done) {
+      const Item cur = q[0];
+#pragma unroll
+      for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
+      --n_q;
+      const int b = done % kStages;
+      bar_wait(&s_bar[b], (phase >> b) & 1u);
+      phase ^= 1u << b;
+      turn(cur, s_buf + b * kChunk * kRowF4);
+      if (more) stage_next();   // into buffer b, just read
+    }
   }
   cnt.flush(counters);
+}
+
+// Does this variant's walk stage chunks into a ring (kStreamed, and
+// kTwoLevel where SRT_BVH_TWO_LEVEL_RING says so)?
+template <int VARIANT>
+__host__ __device__ constexpr bool uses_ring() {
+  return VARIANT == kStreamed || (VARIANT == kTwoLevel && kTwoLevelRing);
 }
 
 // The walk over the ray list: ray perm[i] for thread i (perm and count
@@ -875,18 +908,19 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
            const int32_t* __restrict__ count, float* __restrict__ t_out,
            int32_t* __restrict__ slot_out, const BvhParams p,
            unsigned long long* __restrict__ counters) {
+  constexpr bool kRing = uses_ring<VARIANT>();
   extern __shared__ __align__(128) float4 s_dyn[];
-  __shared__ __align__(8) uint64_t s_bar[kWarps][kStages];
+  __shared__ __align__(8) uint64_t s_bar[kWarps][kRing ? kStages : 1];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < p.n_rays;
-  if constexpr (VARIANT == kStreamed) {
+  if constexpr (VARIANT == kFlat) {
+    if (!in_range) return;
+  } else if constexpr (kRing) {
     // every lane of the block stays to the end: the walk is the warp's
     if (threadIdx.x < kWarps * kStages)
       bar_init(&s_bar[0][0] + threadIdx.x);
     bar_init_fence();
     __syncthreads();
-  } else if (!in_range) {
-    return;
   }
   const int ray = !in_range ? 0 : (perm != nullptr ? perm[i] : i);
   Best best;
@@ -912,51 +946,38 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
       r.mz = r.ox * r.dy - r.oy * r.dx;
     }
   }
-  if constexpr (VARIANT == kStreamed) {
-    constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
-    const int warp = threadIdx.x >> 5;
-    if (__any_sync(kAll, listed))
-      streamed_walk<PLUCKER, COUNT>(
-          PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
-          boxes, supers, groups, order, listed, r, best, p,
-          s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
-  } else if (listed) {
-    if constexpr (VARIANT == kFlat) {
+  if constexpr (VARIANT == kFlat) {
+    if (listed) {
       for (int j = 0; j < p.n_order; ++j) {
         const int c = order[j];
         if (slab(boxes + 8 * c, r, best.t))
-          mt_cluster<false>(table, coeffs, gidx, c, p.k, r, best);
-      }
-    } else {
-      for (int j = 0; j < p.n_order; ++j) {
-        const int g = order[j];
-        if (!slab(groups + 8 * g, r, best.t)) continue;
-        for (int s = g * kGroup; s < (g + 1) * kGroup; ++s) {
-          if (!slab(supers + 8 * s, r, best.t)) continue;
-          for (int c = s * kSuper; c < (s + 1) * kSuper; ++c) {
-            // a NaN ray admits the sentinel boxes past the table too;
-            // visiting the last cluster again changes nothing
-            if (slab(boxes + 8 * c, r, best.t))
-              mt_cluster<PLUCKER>(table, coeffs, gidx,
-                                  min(c, p.n_clusters - 1), p.k, r, best);
-          }
-        }
+          mt_cluster(table, gidx, c, p.k, r, best);
       }
     }
+  } else {
+    constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
+    const int warp = threadIdx.x >> 5;
+    if (__any_sync(kAll, listed))
+      warp_walk<PLUCKER, kRing, COUNT>(
+          PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
+          boxes, supers, groups, order, listed, r, best, p,
+          s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
   }
   if (!in_range) return;
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
   slot_out[ray] = best.idx < 0 ? -1 : best.slot;
 }
 
-// kStreamed's dynamic shared memory a block: each warp's ring of buffers,
-// within the 48 KB a launch may take without opting in
-template <bool PLUCKER>
-constexpr int streamed_smem() {
-  return kWarps * kStages * kChunk * (PLUCKER ? kPluckerRowF4 : kMtRowF4)
-         * 16;
+// the dynamic shared memory a block of the warp walk takes: each warp's
+// ring of buffers (the route's fit, with the mbarriers, the 48 KB a launch
+// may take without opting in; a larger ring of the sweep opts in)
+template <int VARIANT, bool PLUCKER>
+constexpr int walk_smem() {
+  return uses_ring<VARIANT>()
+             ? kWarps * kStages * kChunk
+                   * (PLUCKER ? kPluckerRowF4 : kMtRowF4) * 16
+             : 0;
 }
-static_assert(streamed_smem<true>() <= 48 * 1024, "ring too large");
 
 // the work scratch's int32 words: partial sums, the two visiting orders,
 // the bucket sizes and cursors, and each ray's bucket
@@ -973,7 +994,9 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
                const BvhParams& p, unsigned long long* counters,
                void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
-  const bool streamed = p.variant == kStreamed;
+  // kTwoLevel and kStreamed: the warp walk, over the staged MT table or
+  // the Plucker coefficients
+  const bool warp = p.variant != kFlat;
   const bool compact = p.n_admission > 0;
   if (p.k <= 0 || p.n_clusters <= 0 || p.n_order <= 0
       || p.n_order > kRankMax || p.n_admission < 0
@@ -981,13 +1004,13 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
       || compact != (perm != nullptr) || compact != (count != nullptr)
       || (compact && admission == nullptr)
       || (p.plucker != 0) != (coeffs != nullptr)
-      || (p.plucker && p.variant == kFlat)
-      || (streamed && !p.plucker
+      || (p.plucker && !warp)
+      || (warp && !p.plucker
           && (staged == nullptr
               || reinterpret_cast<uintptr_t>(staged) % 16 != 0))
-      || (streamed && p.plucker
+      || (warp && p.plucker
           && reinterpret_cast<uintptr_t>(coeffs) % 16 != 0)
-      || (counters != nullptr && !streamed))
+      || (counters != nullptr && !warp))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // the work scratch (work_words)
@@ -1017,40 +1040,46 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
   }
   const int blocks = (p.n_rays + kBlock - 1) / kBlock;
   const float4* st4 = reinterpret_cast<const float4*>(staged);
-#define SRT_BVH_LAUNCH(VARIANT, PLUCKER, COUNT, SMEM)                        \
-  bvh_kernel<VARIANT, PLUCKER, COUNT><<<blocks, kBlock, SMEM, st>>>(         \
-      in, table, st4, coeffs, gidx, boxes, supers, groups, visit_order,      \
-      compact ? perm : nullptr, compact ? count : nullptr, t_out, slot_out, \
-      p, counters)
-#define SRT_BVH_STREAMED(PLUCKER, COUNT) \
-  SRT_BVH_LAUNCH(kStreamed, PLUCKER, COUNT, streamed_smem<PLUCKER>())
+#define SRT_BVH_LAUNCH(VARIANT, PLUCKER, COUNT)                              \
+  do {                                                                       \
+    constexpr int smem = walk_smem<VARIANT, PLUCKER>();                      \
+    if (smem + kWarps * kStages * 8 > 48 * 1024) {                           \
+      const cudaError_t e = cudaFuncSetAttribute(                            \
+          bvh_kernel<VARIANT, PLUCKER, COUNT>,                               \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);                \
+      if (e != cudaSuccess) return (int)e;                                   \
+    }                                                                        \
+    bvh_kernel<VARIANT, PLUCKER, COUNT><<<blocks, kBlock, smem, st>>>(       \
+        in, table, st4, coeffs, gidx, boxes, supers, groups, visit_order,    \
+        compact ? perm : nullptr, compact ? count : nullptr, t_out,          \
+        slot_out, p, counters);                                              \
+  } while (0)
+#define SRT_BVH_WALK(VARIANT)                 \
+  if (counters != nullptr) {                  \
+    if (p.plucker)                            \
+      SRT_BVH_LAUNCH(VARIANT, true, true);    \
+    else                                      \
+      SRT_BVH_LAUNCH(VARIANT, false, true);   \
+  } else {                                    \
+    if (p.plucker)                            \
+      SRT_BVH_LAUNCH(VARIANT, true, false);   \
+    else                                      \
+      SRT_BVH_LAUNCH(VARIANT, false, false);  \
+  }
   switch (p.variant) {
     case kFlat:
-      SRT_BVH_LAUNCH(kFlat, false, false, 0);
+      SRT_BVH_LAUNCH(kFlat, false, false);
       break;
     case kTwoLevel:
-      if (p.plucker)
-        SRT_BVH_LAUNCH(kTwoLevel, true, false, 0);
-      else
-        SRT_BVH_LAUNCH(kTwoLevel, false, false, 0);
+      SRT_BVH_WALK(kTwoLevel);
       break;
     case kStreamed:
-      if (counters != nullptr) {
-        if (p.plucker)
-          SRT_BVH_STREAMED(true, true);
-        else
-          SRT_BVH_STREAMED(false, true);
-      } else {
-        if (p.plucker)
-          SRT_BVH_STREAMED(true, false);
-        else
-          SRT_BVH_STREAMED(false, false);
-      }
+      SRT_BVH_WALK(kStreamed);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef SRT_BVH_STREAMED
+#undef SRT_BVH_WALK
 #undef SRT_BVH_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -1066,8 +1095,9 @@ extern "C" long long srt_bvh_work_words(BvhParams p) {
 // One launch: the visiting order (and, with admission boxes, the ray
 // compaction into perm and count) on the stream, then the walk.  Rays:
 // (R,) f32 o, d, alive (bytes or f32) and t_init; table: (C * K, 20) slot
-// rows; staged: kStreamed's MT table ((C * K, 12) f32, else null); coeffs:
-// the Plucker form's (C * K, 20) table, or null; work: srt_bvh_work_words
+// rows (kFlat's); staged: the warp walk's MT table ((C * K, 12) f32; null
+// for kFlat and the Plucker form); coeffs: the Plucker form's (C * K, 20)
+// table, or null; work: srt_bvh_work_words
 // int32 words; perm (R,) and count (1,) int32 with admission boxes.
 extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                               const float* oz, const float* dx,
@@ -1086,8 +1116,9 @@ extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                     nullptr, stream);
 }
 
-// kStreamed's counting instance: the same launch, which also adds what the
-// walk did to counters ((kCounters,) int64, Count); chip_smoke.py's only
+// The warp walk's counting instance (kTwoLevel, kStreamed): the same
+// launch, which also adds what the walk did to counters ((kCounters,)
+// int64, Count); chip_smoke.py's only
 extern "C" int srt_bvh_count_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const void* alive, const float* t_init,

@@ -42,7 +42,7 @@ of those that enter one.  No order changes a result.  It is the plain
 version of the card's compaction, which runs inside the kernel's launch
 and admits the same rays.
 
-``stage_slots`` is the streamed variant's own layout of the slot table
+``stage_slots`` is the kernel's warp walk's own layout of the slot table
 (48 bytes a slot, the columns Moller-Trumbore reads), kept per scene by
 ``staged_slots``.
 """
@@ -76,7 +76,7 @@ _NO_KEY = 2 ** 62
 # a slot's Plucker coefficients (plucker_table): the nonzero entries of
 # the JAX package's LT planes, in its order
 PLUCKER_COLS = 20
-# a slot's row in the streamed variant's staged table (stage_slots)
+# a slot's row in the warp walk's staged table (stage_slots)
 STAGED_COLS = 12
 # the plain version's calls in the Plucker form, as
 # bvh_kernel._PLUCKER_TRACES counts traces (the kernel counts its launches
@@ -305,7 +305,7 @@ def compact_order(o: Vec3, d: Vec3, alive: torch.Tensor,
 
 def stage_slots(table: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
     """(N, 20) slot rows and their (N,) int32 global indices ->
-    (N, STAGED_COLS) f32, the streamed variant's MT rows in the slot
+    (N, STAGED_COLS) f32, the warp walk's MT rows in the slot
     table's order (a cluster's slots are one contiguous copy): v0 and the
     index's int32 bits, e1 and the active flag, e2 and 0, three float4s."""
     out = table.new_zeros((table.shape[0], STAGED_COLS))
@@ -319,8 +319,9 @@ def stage_slots(table: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
 
 def staged_slots(clusters, table: torch.Tensor) -> torch.Tensor:
     """``stage_slots`` of the clusters' slot table, built on first use and
-    kept on the clusters (once per scene): only the streamed variant's MT
-    form reads it."""
+    kept on the clusters (once per scene): only the kernel's warp walk
+    (the ``two_level`` and ``streamed`` variants) reads it, in the MT
+    form."""
     if clusters.staged is None:
         # the dataclass is frozen; the field is a cache of its table
         object.__setattr__(clusters, "staged",

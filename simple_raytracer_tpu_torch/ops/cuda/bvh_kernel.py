@@ -7,11 +7,14 @@ table of at most ``VMEM_TABLE_MAX_SLOTS`` slots) as the ``flat`` variant,
 ``_kernel_packed`` (group -> super -> cluster gates, config 6) as the
 ``two_level`` variant, and ``_kernel_hbm`` (the same gates over a table
 the TPU streams from HBM: config 7, and every clustered mesh under
-``tri_backend="clustered"``) as the ``streamed`` variant, which stages
-each cluster its warp admits from a per-scene table of the bytes MT reads
-(``ops/bvh.staged_slots``) with asynchronous bulk copies, and splits MT
-pair by pair across the warp's lanes when few of them admit a cluster.
-Its plain PyTorch version is ``ops/bvh.intersect_triangles_bvh_plain``.
+``tri_backend="clustered"``) as the ``streamed`` variant.  Both are one
+warp walk: the warp tests each level's gates together, feeds MT each
+cluster some lane admits from a per-scene table of the bytes MT reads
+(``ops/bvh.staged_slots``; ``streamed`` with asynchronous bulk copies
+into shared memory, ``two_level`` from its table where it lies in L2),
+and splits MT pair by pair across the lanes when few of them admit a
+cluster.  Its plain PyTorch version is
+``ops/bvh.intersect_triangles_bvh_plain``.
 
 Under ``SRT_BVH_MT=plucker`` the ``two_level`` and ``streamed`` variants
 take the Plucker form of Moller-Trumbore (``_mt_update_sub_mxu`` and
@@ -142,9 +145,10 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     """Check a CUDA launch's arguments and pack them; with ``compact``
     the launch first orders the rays by the compaction (admitted rays
     first, ``perm`` and ``count``), on the card.  The MT form is resolved
-    here (``ops/bvh.resolve_plucker``); the streamed variant's MT form
-    reads ``bvh.staged_slots`` and the Plucker form
-    ``bvh.plucker_coefficients``, each built on first use."""
+    here (``ops/bvh.resolve_plucker``); the warp walk (``two_level`` and
+    ``streamed``) reads ``bvh.staged_slots`` in the MT form and
+    ``bvh.plucker_coefficients`` in the Plucker form, each built on first
+    use."""
     device = o.x.device
     if device.type != "cuda":
         raise ValueError(f"BVH kernel: unsupported device {device}")
@@ -161,7 +165,7 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
                 or coeffs.shape != (n_cl * k, bvh.PLUCKER_COLS)
                 or not coeffs.is_contiguous() or coeffs.data_ptr() % 16):
             raise ValueError("BVH kernel: bad Plucker coefficient table")
-    elif variant == "streamed":
+    elif variant != "flat":
         staged = bvh.staged_slots(clusters, table)
         if (staged.device != device or staged.dtype != torch.float32
                 or staged.shape != (n_cl * k, bvh.STAGED_COLS)
@@ -246,12 +250,14 @@ def launch(prep: Prepared, out=None):
 
 
 def launch_counted(prep: Prepared):
-    """One launch of the streamed variant's counting instance (a kernel of
-    its own, which the route never launches; it is not counted with the
-    route's launches): ((t, slot), what the walk did by ``COUNTERS`` name,
-    with the stagings by admitting lanes under "hist")."""
-    if prep.variant != "streamed":
-        raise ValueError("BVH kernel: only the streamed variant counts")
+    """One launch of the warp walk's counting instance (``two_level`` or
+    ``streamed``; a kernel of its own, which the route never launches; it
+    is not counted with the route's launches): ((t, slot), what the walk
+    did by ``COUNTERS`` name, with the (warp, cluster) visits by admitting
+    lanes under "hist")."""
+    if prep.variant == "flat":
+        raise ValueError("BVH kernel: the flat variant has no counting "
+                         "instance")
     out = _outputs(prep, None)
     counters = torch.zeros(len(COUNTERS) + len(HIST_BINS),
                            dtype=torch.int64, device=prep.device)

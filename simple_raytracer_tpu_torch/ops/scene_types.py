@@ -62,9 +62,9 @@ class Clusters:
     # scene) by ops/bvh.plucker_coefficients
     plucker: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
-    # the streamed BVH variant's MT rows of the slot table
-    # (ops/bvh.stage_slots), built on its first launch (once per scene)
-    # by ops/bvh.staged_slots
+    # the BVH kernel's warp-walk MT rows of the slot table
+    # (ops/bvh.stage_slots), built on the first two_level or streamed MT
+    # launch (once per scene) by ops/bvh.staged_slots
     staged: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
 

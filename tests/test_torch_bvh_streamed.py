@@ -388,8 +388,13 @@ def test_streamed_constants_match_the_cuda_source():
     the visiting order's limits and the counting instance's counters are
     the wrapper's and the plain version's."""
     src = Path(bk.SOURCE).read_text()
-    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                       src).group(1))
+
+    def const(name):
+        value = re.search(rf"constexpr int {name} = (\w+);", src).group(1)
+        if not value.isdigit():    # a constant the sweep sets: its default
+            value = re.search(rf"#define {value} (\d+)\n", src).group(1)
+        return int(value)
+
     assert const("kMtRowF4") * 4 == bvh.STAGED_COLS
     assert const("kChunk") == CHUNK
     assert const("kStages") >= 2 and 0 < const("kSplitMax") <= LANES
