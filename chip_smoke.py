@@ -32,8 +32,9 @@ are a path of their own.  Phases, one line each on stdout:
      Renderer(device="cuda"), 4 progressive steps, with every kernel's
      launch counts (in all and per variant) reset just before and read
      just after the cell; the scene build's seconds (once per scene), the
-     Plucker coefficient table's and the triangle kernel's staged
-     table's (once per scene, on first use); then the probes' run(), its counts
+     Plucker coefficient table's, the BVH kernel's staged MT table's and
+     the triangle kernel's staged table's (once per scene, on first use);
+     then the probes' run(), its counts
      reset just before it;
   4. each kernel against its plain PyTorch version on the card, one pass
      of each cell at full size: the whole-trace canvas (config 6 under
@@ -85,9 +86,9 @@ are a path of their own.  Phases, one line each on stdout:
      launch; compact_order's and prepare's time on the same rays; what
      the walk did, from its counting instance, against the (ray, cluster)
      pairs the plain version's gates admit); the streamed launches
-     replayed on two_level (no ring); two_level's launches on builds of
-     the kernel with the warp walk's constants swept (the split point,
-     the feed, the ring);
+     replayed on two_level (the same walk); two_level's launches on
+     builds of the kernel with the warp walk's constants swept (the split
+     point, the ring);
      the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell).
@@ -1073,17 +1074,15 @@ def replay(preps, outs, kernel=None, **fields) -> tuple:
     return ms, same
 
 
-def ring_report(preps, outs, ring_ms: float) -> str:
+def two_level_report(preps, outs, streamed_ms: float) -> str:
     """The streamed variant's launches of one pass replayed on the
-    two_level variant: the same warp walk, each chunk's rows read where
-    they lie in device memory instead of copied into the ring: what the
-    ring changes, on the same inputs in the same call.  The results must
-    be the same."""
+    two_level variant, which launches the same warp walk: the same
+    results, and the time beside the streamed launches'."""
     ms, same = replay(preps, outs, variant=bk.VARIANTS["two_level"])
     if not same:
         fail("the streamed and two_level variants disagree")
-    return (f"the same launches on two_level (no ring) {ms:.4f} ms/pass, "
-            f"streamed / two_level {ring_ms / ms:.3f}, results equal")
+    return (f"the same launches on two_level {ms:.4f} ms/pass, streamed / "
+            f"two_level {streamed_ms / ms:.3f}, results equal")
 
 
 def device_ms_by_kernel(fn, reps: int = 3) -> dict:
@@ -1191,10 +1190,9 @@ def walk_launches(label: str, res: dict, clusters, table,
 
 # The warp walk's constants swept on two_level's launches of a pass (phase
 # 6), each a build of the BVH kernel with -D flags of the source's names:
-# the split point (SRT_BVH_SPLIT_MAX; 0: never split, 32: always split),
-# with two_level reading each chunk where it lies (SRT_BVH_TWO_LEVEL_RING=0)
-# and fed by the ring of 2 x 64 slots (=1), then the ring's buffers and
-# chunk (SRT_BVH_STAGES x SRT_BVH_CHUNK) at the route's split point.
+# the split point (SRT_BVH_SPLIT_MAX; 0: never split, 32: always split)
+# with the route's ring, then the ring's buffers and chunk (SRT_BVH_STAGES
+# x SRT_BVH_CHUNK) at the route's split point.
 SWEEP_SPLITS = (0, 4, 8, 16, 24, 32)
 SWEEP_RINGS = ((3, 64), (4, 64), (4, 32))
 SWEEP_KERNELS = {}
@@ -1211,17 +1209,11 @@ def sweep_kernels() -> dict:
     """The sweep's builds of the BVH kernel, by case name, built at once
     (one nvcc each) on first use."""
     if not SWEEP_KERNELS:
-        cases = {}
-        for sm in SWEEP_SPLITS:
-            for ring in (0, 1):
-                cases[f"{'ring 2x64' if ring else 'in place'} split {sm}"] = [
-                    f"-DSRT_BVH_SPLIT_MAX={sm}",
-                    f"-DSRT_BVH_TWO_LEVEL_RING={ring}", "-DSRT_BVH_STAGES=2",
-                    "-DSRT_BVH_CHUNK=64"]
+        cases = {f"split {sm}": [f"-DSRT_BVH_SPLIT_MAX={sm}"]
+                 for sm in SWEEP_SPLITS}
         for stages, chunk in SWEEP_RINGS:
-            cases[f"ring {stages}x{chunk} split route"] = [
-                "-DSRT_BVH_TWO_LEVEL_RING=1", f"-DSRT_BVH_STAGES={stages}",
-                f"-DSRT_BVH_CHUNK={chunk}"]
+            cases[f"ring {stages}x{chunk}"] = [f"-DSRT_BVH_STAGES={stages}",
+                                               f"-DSRT_BVH_CHUNK={chunk}"]
         SWEEP_KERNELS.update({name: bk.Kernel(bk.SOURCE, bk._bind, flags)
                               for name, flags in cases.items()})
         errors = []
@@ -1259,10 +1251,10 @@ def walk_sweep(label: str, res: dict) -> dict:
                 fail(f"cell {label}: the sweep's {name} changes a result")
             ms[name].append(t)
     say(f"[6] cell {label} two_level sweep (ms a pass, two turns; the "
-        f"route: split {route_constant('SRT_BVH_SPLIT_MAX')}, "
-        f"{'ring' if route_constant('SRT_BVH_TWO_LEVEL_RING') else 'in place'}"
-        f"): " + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}"
-                            for k, v in ms.items())
+        f"route: split {route_constant('SRT_BVH_SPLIT_MAX')}, ring "
+        f"{route_constant('SRT_BVH_STAGES')}x"
+        f"{route_constant('SRT_BVH_CHUNK')}): "
+        + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
         + "; results equal")
     return dict(ms)
 
@@ -1538,6 +1530,16 @@ def main(argv=None) -> int:
                 f"{tuple(coeffs.shape)} ({coeffs.numel() * 4 / 1e6:.1f} MB) "
                 f"built in {time.perf_counter() - t0:.4f} s  [{card}]")
         tris = r.device_scene.triangles
+        if (label in SPLIT + FUSED and FORMS.get(label) != "plucker"
+                and CELLS[label][2] != "flat" and cl.staged is None):
+            # the warp walk's staged MT table, built once per scene on the
+            # first two_level or streamed launch in the MT form
+            t0 = time.perf_counter()
+            staged = bvh.staged_slots(cl, tris.table)
+            torch.cuda.synchronize()
+            say(f"[3] cell {label}: the BVH kernel's staged MT table "
+                f"{tuple(staged.shape)} ({staged.numel() * 4 / 1e6:.1f} MB) "
+                f"built in {time.perf_counter() - t0:.4f} s  [{card}]")
         if label in PALLAS and tris.staged is None:
             # the triangle kernel's staged table, built once per scene on
             # its first launch
@@ -1947,7 +1949,7 @@ def main(argv=None) -> int:
                 p_note = "plain BVH (sum over the pass's launches, one run)"
                 work = walk_note
                 if CELLS[label][2] == "streamed":
-                    work += "; " + ring_report(preps, outs, b_ms)
+                    work += "; " + two_level_report(preps, outs, b_ms)
                 if plucker:
                     pl_ms, mt_ms = form_ab(preps, outs, cl)
                     ab[label] = (float(np.median(pl_ms)),

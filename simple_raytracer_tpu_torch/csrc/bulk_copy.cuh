@@ -1,8 +1,9 @@
 // 1-D bulk copies from device memory into shared memory (TMA,
 // cp.async.bulk) completed on an mbarrier, shared by the triangle kernel
-// (triangle_kernel.cu) and the BVH kernel's warp walk (bvh_kernel.cu).  A copy's source and destination are 16-byte aligned
-// and its size a multiple of 16 bytes.  A wait that outlasts kSpinLimit
-// polls traps instead of hanging the card.
+// (triangle_kernel.cu) and the BVH kernel's warp walk (bvh_kernel.cu).  A
+// copy's source and destination are 16-byte aligned and its size a
+// multiple of 16 bytes.  A wait that outlasts kSpinLimit polls traps
+// instead of hanging the card.
 
 #pragma once
 

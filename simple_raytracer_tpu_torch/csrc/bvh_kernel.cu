@@ -15,10 +15,10 @@
 //   - kStreamed (bvh_kernel.py:678 _kernel_hbm, config 7 and
 //     tri_backend="clustered", a table the TPU streams from HBM): the same
 //     gates and MT.
-// kTwoLevel and kStreamed are one warp walk (below), which differs only in
-// how a cluster's slots reach MT.  Each has a second, Plucker form
-// (PLUCKER, params.plucker; bvh_kernel.py:629 _mt_update_sub_mxu and :582
-// _plucker_lt, row 5a, SRT_BVH_MT=plucker): the same predicate from the
+// kTwoLevel and kStreamed launch one warp walk (below); the two names keep
+// the TPU's route and the kernels they replace.  Each has a second, Plucker
+// form (PLUCKER, params.plucker; bvh_kernel.py:629 _mt_update_sub_mxu and
+// :582 _plucker_lt, row 5a, SRT_BVH_MT=plucker): the same predicate from the
 // slot's 20 Plucker coefficients (ops/bvh.py: plucker_table, built once
 // per scene; the TPU builds LT per visited cluster) dotted with the ray's
 // [d, m = o x d, o, 1]: u*a and v*a over [d, m], a over d, t*a over
@@ -76,15 +76,19 @@
 //   - feeds MT a cluster kChunk slots at a time from a per-scene table of
 //     exactly the bytes MT reads (ops/bvh.py: stage_slots: v0 and the
 //     index, e1 and active, e2, 48 bytes a slot; the Plucker form its
-//     80-byte coefficient rows).  kStreamed copies each chunk with one 1-D
-//     bulk copy (TMA) into one of the warp's two shared buffers, on an
-//     mbarrier whose wait traps if it outlasts kSpinLimit polls; the next
-//     chunk is found and its copy issued before the current chunk's MT,
-//     so the copy runs under it (the lookahead gates with the t from
-//     before that MT, which admits at least what the walk would; each lane
-//     tests the box again at the chunk's turn).  kTwoLevel's table (config
-//     6: 98,304 slots, 4.7 MB, or 7.9 MB of Plucker coefficients) stays in
-//     L2, and MT reads each chunk's rows where they lie (kTwoLevelRing);
+//     80-byte coefficient rows), each chunk one 1-D bulk copy (TMA) into
+//     one of the warp's two shared buffers, on an mbarrier whose wait
+//     traps if it outlasts kSpinLimit polls; the next chunk is found and
+//     its copy issued before the current chunk's MT, so the copy runs
+//     under it (the lookahead gates with the t from before that MT, which
+//     admits at least what the walk would; each lane tests the box again
+//     at the chunk's turn).  kTwoLevel's table stays in L2 (config 6:
+//     98,304 slots, 4.7 MB, or 7.9 MB of Plucker coefficients), and MT
+//     could read each chunk's rows where they lie instead, but the sweep
+//     on config 6 (PERF.md section 6) found that 13% (MT) and 24%
+//     (Plucker) slower a pass than the ring, whose copy runs ahead of the
+//     MT steps that read it.  So both variants take the ring, with the
+//     same constants;
 //   - splits MT pair by pair when few lanes admit a chunk (at most
 //     kSplitMax): for each admitting ray in turn the 32 lanes test every
 //     32nd slot with that ray (neighbouring lanes on neighbouring rows)
@@ -159,11 +163,10 @@ constexpr int kMtRowF4 = 3;
 constexpr int kPluckerRowF4 = kPluckerCols / 4;
 // The warp walk's constants, chosen by chip_smoke.py's sweep on the card
 // (PERF.md section 6; a -D flag of the same name sets each for the
-// sweep): the slots of a chunk, kStreamed's ring of chunk buffers, the
+// sweep): the slots of a chunk, the warp's ring of chunk buffers, and the
 // most lanes admitting a chunk for which the warp splits each admitting
 // ray's MT across its lanes (above it each admitting lane tests every slot
-// itself), and kTwoLevel's feed (1: the ring, as kStreamed; 0: each slot
-// read from the resident table where MT needs it).
+// itself).
 #ifndef SRT_BVH_CHUNK
 #define SRT_BVH_CHUNK 64
 #endif
@@ -173,13 +176,9 @@ constexpr int kPluckerRowF4 = kPluckerCols / 4;
 #ifndef SRT_BVH_SPLIT_MAX
 #define SRT_BVH_SPLIT_MAX 16
 #endif
-#ifndef SRT_BVH_TWO_LEVEL_RING
-#define SRT_BVH_TWO_LEVEL_RING 0
-#endif
 constexpr int kChunk = SRT_BVH_CHUNK;
 constexpr int kStages = SRT_BVH_STAGES;
 constexpr int kSplitMax = SRT_BVH_SPLIT_MAX;
-constexpr bool kTwoLevelRing = SRT_BVH_TWO_LEVEL_RING != 0;
 // the ray compaction and the visiting orders (ops/bvh.py: ADMISSION_MAX;
 // ops/cuda/bvh_kernel.py: RANK_MAX)
 constexpr int kAdmissionMax = 256;
@@ -194,17 +193,15 @@ constexpr int kPartials = 512;     // ray_partials' blocks, at most
 enum Count {
   kCountWalked = 0,    // rays walked (listed lanes)
   kCountStagings,      // (warp, cluster) visits that ran MT
-  kCountChunks,        // chunks fed to MT: copied into the ring, or read
-                       // from the table where no ring
-  kCountSlots,         // their slots
+  kCountChunks,        // chunk copies
+  kCountSlots,         // slots copied
   kCountPairs,         // (ray, cluster) pairs that ran MT
   kCountMtSteps,       // warp-wide MT steps issued (32 lanes x one slot)
   kCountGroupTests,    // warp-wide slab tests of groups
   kCountSuperTests,    // of supers
   kCountClusterTests,  // of clusters
   kCountSplit,         // chunks whose MT the lanes split pair by pair
-  kCountWasted,        // chunks found that no lane admitted at their turn
-                       // (copied for nothing into a ring; else skipped)
+  kCountWasted,        // chunks copied that no lane admitted at their turn
   kCountHist,          // visits by admitting lanes: 1, 2, 3-4, 5-8,
                        // 9-16, 17-24, 25-31, 32
   kCounters = kCountHist + 8
@@ -605,7 +602,7 @@ struct Walk {
   unsigned c_mask = 0, c_any = 0;
 };
 
-// one chunk: slots [base, base + kChunk) of cluster c (padded
+// one staged chunk: slots [base, base + kChunk) of cluster c (padded
 // index), and whether this lane admitted the cluster when it was found
 struct Item {
   int c;
@@ -613,7 +610,7 @@ struct Item {
   bool ok;
 };
 
-// The next chunk: the current cluster's next chunk, else the
+// The next chunk to stage: the current cluster's next chunk, else the
 // next cluster some lane admits, through the group, super and cluster
 // gates in order.  A level's gates are tested together when the walk
 // enters its parent (the next kBatch groups of the order; a group's 16
@@ -678,11 +675,10 @@ __device__ __forceinline__ bool next_item(
   }
 }
 
-// slot sl of a chunk's rows (in shared memory, or the table's own in
-// device memory) tested with ray q: (valid, t, global index, read from the
-// MT row, or for the Plucker form from gidx only on a valid hit)
+// the staged slot sl's test for ray q: (valid, t, global index, read from
+// the staged row, or for the Plucker form from gidx only on a valid hit)
 template <bool PLUCKER>
-__device__ __forceinline__ bool row_hit(const float4* __restrict__ buf,
+__device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
                                            int sl, const Ray& q,
                                            const int32_t* __restrict__ gidx,
                                            int row, float& t, int32_t& g) {
@@ -708,7 +704,7 @@ __device__ __forceinline__ bool row_hit(const float4* __restrict__ buf,
   }
 }
 
-// The admitting lanes' MT over one chunk of n slots at buf (first: its
+// The admitting lanes' MT over one staged chunk of n slots (first: its
 // first table slot).  Few lanes admitting (at most kSplitMax): for each
 // admitting ray in turn every lane tests every 32nd slot with that ray,
 // and the lexicographic least (t, index) of the warp is committed by the
@@ -727,7 +723,7 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
       for (int sl = 0; sl < n; ++sl) {
         float t;
         int32_t g;
-        if (row_hit<PLUCKER>(buf, sl, r, gidx, first + sl, t, g))
+        if (staged_hit<PLUCKER>(buf, sl, r, gidx, first + sl, t, g))
           commit(t, g, first + sl, best);
       }
     }
@@ -756,7 +752,7 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
     for (int sl = lane; sl < n; sl += 32) {
       float t;
       int32_t g;
-      if (row_hit<PLUCKER>(buf, sl, q, gidx, first + sl, t, g)) {
+      if (staged_hit<PLUCKER>(buf, sl, q, gidx, first + sl, t, g)) {
         const unsigned long long k2 =
             ((unsigned long long)__float_as_uint(t) << 32) | (uint32_t)g;
         if (k2 < key) {
@@ -786,21 +782,18 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
 }
 
 // The warp walk (kTwoLevel, kStreamed): the warp visits, in order, every
-// chunk of every cluster that some lane's gates admit (next_item).  At a
-// chunk's turn each lane tests the cluster's box again with its t then,
-// and the lanes that still admit it run MT over the chunk's slots
-// (mt_chunk).  RING: each chunk is one 1-D bulk copy from the table (rows:
-// kMtRowF4 or kPluckerRowF4 float4s a slot) into one of the warp's kStages
-// shared buffers, a ring: while a chunk's MT runs, the copies of the next
-// kStages - 1 chunks are in flight.  A chunk is then found (and its copy
-// issued) with the lanes' best t of that moment, before the MT of the
-// chunks ahead of it (a t can only fall, so that admits at least what the
-// walk would).  Without RING, MT reads the chunk's rows where they lie in
-// device memory (the table resident in L2), and a chunk is found just
-// before its turn.  Each ray's gates and commits are those of the plain
-// version, so it writes the same result.  Called by the whole warp
-// (control flow is warp-uniform).
-template <bool PLUCKER, bool RING, bool COUNT>
+// chunk of every cluster that some lane's gates admit (next_item); each
+// chunk is one 1-D bulk copy from the staged table (rows: kMtRowF4 or
+// kPluckerRowF4 float4s a slot) into one of the warp's kStages shared
+// buffers, a ring: while a chunk's MT runs, the copies of the next kStages
+// - 1 chunks are in flight.  A chunk is found (and its copy issued) with
+// the lanes' best t of that moment, before the MT of the chunks ahead of
+// it (a t can only fall, so that admits at least what the walk would); at
+// its turn each lane tests the cluster's box again with its t then, and
+// the lanes that still admit it run MT (mt_chunk).  Each ray's gates and
+// commits are the plain version's, so it writes the same result.  Called
+// by the whole warp (control flow is warp-uniform).
+template <bool PLUCKER, bool COUNT>
 __device__ __forceinline__ void warp_walk(
     const float4* __restrict__ rows, const int32_t* __restrict__ gidx,
     const float* __restrict__ boxes, const float* __restrict__ supers,
@@ -812,86 +805,61 @@ __device__ __forceinline__ void warp_walk(
   WarpCounts<COUNT> cnt;
   if constexpr (COUNT)
     cnt.add(kCountWalked, __popc(__ballot_sync(kAll, listed)));
+  const int lane = threadIdx.x & 31;
   Walk w;
-  // a chunk's first table slot (a NaN ray admits the sentinel boxes past
-  // the table too; testing the last cluster again changes nothing) and
-  // its slots
-  auto first_of = [&](const Item& it) {
-    return min(it.c, p.n_clusters - 1) * p.k + it.base;
+  Item last = {-1, 0, false};   // the chunk found last
+  Item q[kStages];              // the chunks staged, oldest first
+  int n_q = 0;
+  bool more = true;
+  uint32_t issued = 0, phase = 0;   // phase bit b: buffer b's next parity
+  // find the next chunk and copy it into the next buffer of the ring (a
+  // NaN ray admits the sentinel boxes past the table too; staging the
+  // last cluster again changes nothing)
+  auto stage_next = [&]() {
+    more = next_item<COUNT>(w, last, boxes, supers, groups, order, listed,
+                            r, best.t, p, cnt);
+    if (!more) return;
+#pragma unroll
+    for (int i = 0; i < kStages; ++i)
+      if (i == n_q) q[i] = last;
+    ++n_q;
+    const int b = issued++ % kStages;
+    const int first = min(last.c, p.n_clusters - 1) * p.k + last.base;
+    const int n = min(kChunk, p.k - last.base);
+    cnt.add(kCountChunks, 1);
+    cnt.add(kCountSlots, n);
+    __syncwarp();   // every lane is done with buffer b's last chunk
+    if (lane == 0)
+      bulk_load(s_buf + b * kChunk * kRowF4, rows + (size_t)first * kRowF4,
+                static_cast<uint32_t>(n * kRowF4 * 16), &s_bar[b]);
   };
-  auto size_of = [&](const Item& it) { return min(kChunk, p.k - it.base); };
-  // a chunk's turn, its rows at buf
-  auto turn = [&](const Item& cur, const float4* buf) {
+  while (more && n_q < kStages) stage_next();
+  for (uint32_t done = 0; n_q > 0; ++done) {
+    const Item cur = q[0];
+#pragma unroll
+    for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
+    --n_q;
+    const int b = done % kStages;
+    bar_wait(&s_bar[b], (phase >> b) & 1u);
+    phase ^= 1u << b;
     const bool ok = cur.ok && slab(boxes + 8 * cur.c, r, best.t);
     const unsigned admit = __ballot_sync(kAll, ok);
-    if (!admit) {
+    if (admit) {
+      if (cur.base == 0) {
+        cnt.add(kCountStagings, 1);
+        cnt.add(kCountPairs, __popc(admit));
+        cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
+      }
+      const int first = min(cur.c, p.n_clusters - 1) * p.k + cur.base;
+      mt_chunk<PLUCKER, COUNT>(s_buf + b * kChunk * kRowF4,
+                               min(kChunk, p.k - cur.base), first, admit, ok,
+                               r, best, gidx, cnt);
+    } else {
       cnt.add(kCountWasted, 1);
-      return;
     }
-    if (cur.base == 0) {
-      cnt.add(kCountStagings, 1);
-      cnt.add(kCountPairs, __popc(admit));
-      cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
-    }
-    if constexpr (!RING) {
-      cnt.add(kCountChunks, 1);
-      cnt.add(kCountSlots, size_of(cur));
-    }
-    mt_chunk<PLUCKER, COUNT>(buf, size_of(cur), first_of(cur), admit, ok, r,
-                             best, gidx, cnt);
-  };
-  if constexpr (!RING) {
-    Item it = {-1, 0, false};
-    while (next_item<COUNT>(w, it, boxes, supers, groups, order, listed, r,
-                            best.t, p, cnt))
-      turn(it, rows + (size_t)first_of(it) * kRowF4);
-  } else {
-    const int lane = threadIdx.x & 31;
-    Item last = {-1, 0, false};   // the chunk found last
-    Item q[kStages];              // the chunks staged, oldest first
-    int n_q = 0;
-    bool more = true;
-    uint32_t issued = 0, phase = 0;   // phase bit b: buffer b's next parity
-    // find the next chunk and copy it into the next buffer of the ring
-    auto stage_next = [&]() {
-      more = next_item<COUNT>(w, last, boxes, supers, groups, order, listed,
-                              r, best.t, p, cnt);
-      if (!more) return;
-#pragma unroll
-      for (int i = 0; i < kStages; ++i)
-        if (i == n_q) q[i] = last;
-      ++n_q;
-      const int b = issued++ % kStages;
-      cnt.add(kCountChunks, 1);
-      cnt.add(kCountSlots, size_of(last));
-      __syncwarp();   // every lane is done with buffer b's last chunk
-      if (lane == 0)
-        bulk_load(s_buf + b * kChunk * kRowF4,
-                  rows + (size_t)first_of(last) * kRowF4,
-                  static_cast<uint32_t>(size_of(last) * kRowF4 * 16),
-                  &s_bar[b]);
-    };
-    while (more && n_q < kStages) stage_next();
-    for (uint32_t done = 0; n_q > 0; ++done) {
-      const Item cur = q[0];
-#pragma unroll
-      for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
-      --n_q;
-      const int b = done % kStages;
-      bar_wait(&s_bar[b], (phase >> b) & 1u);
-      phase ^= 1u << b;
-      turn(cur, s_buf + b * kChunk * kRowF4);
-      if (more) stage_next();   // into buffer b, just read
-    }
+    if (more) stage_next();   // into buffer b, just read
   }
   cnt.flush(counters);
-}
-
-// Does this variant's walk stage chunks into a ring (kStreamed, and
-// kTwoLevel where SRT_BVH_TWO_LEVEL_RING says so)?
-template <int VARIANT>
-__host__ __device__ constexpr bool uses_ring() {
-  return VARIANT == kStreamed || (VARIANT == kTwoLevel && kTwoLevelRing);
 }
 
 // The walk over the ray list: ray perm[i] for thread i (perm and count
@@ -908,19 +876,18 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
            const int32_t* __restrict__ count, float* __restrict__ t_out,
            int32_t* __restrict__ slot_out, const BvhParams p,
            unsigned long long* __restrict__ counters) {
-  constexpr bool kRing = uses_ring<VARIANT>();
   extern __shared__ __align__(128) float4 s_dyn[];
-  __shared__ __align__(8) uint64_t s_bar[kWarps][kRing ? kStages : 1];
+  __shared__ __align__(8) uint64_t s_bar[kWarps][kStages];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < p.n_rays;
-  if constexpr (VARIANT == kFlat) {
-    if (!in_range) return;
-  } else if constexpr (kRing) {
+  if constexpr (VARIANT != kFlat) {
     // every lane of the block stays to the end: the walk is the warp's
     if (threadIdx.x < kWarps * kStages)
       bar_init(&s_bar[0][0] + threadIdx.x);
     bar_init_fence();
     __syncthreads();
+  } else if (!in_range) {
+    return;
   }
   const int ray = !in_range ? 0 : (perm != nullptr ? perm[i] : i);
   Best best;
@@ -946,22 +913,20 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
       r.mz = r.ox * r.dy - r.oy * r.dx;
     }
   }
-  if constexpr (VARIANT == kFlat) {
-    if (listed) {
-      for (int j = 0; j < p.n_order; ++j) {
-        const int c = order[j];
-        if (slab(boxes + 8 * c, r, best.t))
-          mt_cluster(table, gidx, c, p.k, r, best);
-      }
-    }
-  } else {
+  if constexpr (VARIANT != kFlat) {
     constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
     const int warp = threadIdx.x >> 5;
     if (__any_sync(kAll, listed))
-      warp_walk<PLUCKER, kRing, COUNT>(
+      warp_walk<PLUCKER, COUNT>(
           PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
           boxes, supers, groups, order, listed, r, best, p,
           s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
+  } else if (listed) {
+    for (int j = 0; j < p.n_order; ++j) {
+      const int c = order[j];
+      if (slab(boxes + 8 * c, r, best.t))
+        mt_cluster(table, gidx, c, p.k, r, best);
+    }
   }
   if (!in_range) return;
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
@@ -973,10 +938,9 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
 // may take without opting in; a larger ring of the sweep opts in)
 template <int VARIANT, bool PLUCKER>
 constexpr int walk_smem() {
-  return uses_ring<VARIANT>()
-             ? kWarps * kStages * kChunk
-                   * (PLUCKER ? kPluckerRowF4 : kMtRowF4) * 16
-             : 0;
+  return VARIANT == kFlat ? 0
+                          : kWarps * kStages * kChunk
+                                * (PLUCKER ? kPluckerRowF4 : kMtRowF4) * 16;
 }
 
 // the work scratch's int32 words: partial sums, the two visiting orders,
@@ -1070,9 +1034,7 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
     case kFlat:
       SRT_BVH_LAUNCH(kFlat, false, false);
       break;
-    case kTwoLevel:
-      SRT_BVH_WALK(kTwoLevel);
-      break;
+    case kTwoLevel:   // the same warp walk
     case kStreamed:
       SRT_BVH_WALK(kStreamed);
       break;

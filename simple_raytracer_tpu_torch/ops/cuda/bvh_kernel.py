@@ -7,13 +7,12 @@ table of at most ``VMEM_TABLE_MAX_SLOTS`` slots) as the ``flat`` variant,
 ``_kernel_packed`` (group -> super -> cluster gates, config 6) as the
 ``two_level`` variant, and ``_kernel_hbm`` (the same gates over a table
 the TPU streams from HBM: config 7, and every clustered mesh under
-``tri_backend="clustered"``) as the ``streamed`` variant.  Both are one
-warp walk: the warp tests each level's gates together, feeds MT each
+``tri_backend="clustered"``) as the ``streamed`` variant.  Both launch
+one warp walk: the warp tests each level's gates together, stages each
 cluster some lane admits from a per-scene table of the bytes MT reads
-(``ops/bvh.staged_slots``; ``streamed`` with asynchronous bulk copies
-into shared memory, ``two_level`` from its table where it lies in L2),
-and splits MT pair by pair across the lanes when few of them admit a
-cluster.  Its plain PyTorch version is
+(``ops/bvh.staged_slots``) with asynchronous bulk copies into shared
+memory, and splits MT pair by pair across the lanes when few of them
+admit a cluster.  Its plain PyTorch version is
 ``ops/bvh.intersect_triangles_bvh_plain``.
 
 Under ``SRT_BVH_MT=plucker`` the ``two_level`` and ``streamed`` variants

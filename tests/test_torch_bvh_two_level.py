@@ -13,9 +13,12 @@ there).  Here ``warp_walk_emulation`` transcribes the walk in PyTorch:
   supers when the warp enters it, a super's 16 clusters when it enters
   that; a gate passes when any lane admits the box, and each lane keeps
   its own gates;
+- the ring of STAGES chunk buffers: each chunk (CHUNK slots) is found,
+  and its gates tested, before the MT of the chunks ahead of it, right
+  after the turn of the chunk whose buffer it takes (with the lanes' t of
+  that moment);
 - each lane's test of the cluster's box again, with its t then, at each
-  chunk's turn (CHUNK slots a chunk), the chunk's rows read where they lie
-  (the route's feed for ``two_level``);
+  chunk's turn;
 - MT split pair by pair when at most SPLIT_MAX lanes admit the chunk (lane
   l tests slots l, l + 32, ... of each admitting ray in turn, keeps its
   least (t bits << 32 | global index) key, the warp takes the least key
@@ -27,12 +30,14 @@ there).  Here ``warp_walk_emulation`` transcribes the walk in PyTorch:
 It gives ``intersect_triangles_bvh_plain``'s (t, slot) bit for bit on
 config 6's K = 128 hierarchy (768 clusters, 3 groups) in both MT forms,
 dense and compacted, with dead rays, NaN rays and finite t_init, with the
-route's constants and with a batch of 2 groups and the split point at 0
-and 32 (so that a batch boundary and both MT paths run), and on exact ties
+route's constants and with a batch of 2 groups, the split point at 0 and
+32 and rings of 1 and 4 chunks (so that a batch boundary and both MT
+paths run, and chunks are found with older and newer t), and on exact ties
 across lanes and clusters; the JAX ``_kernel_packed`` (Pallas interpret
 mode) gives the same winners on an icosphere at K = 128.
 """
 import collections
+import itertools
 import math
 import re
 from pathlib import Path
@@ -56,9 +61,9 @@ from test_torch_bvh_streamed import _tie_clusters
 from torch_port_helpers import jax_scene_arrays, jvec, tvec, unit_vectors
 
 # the kernel's constants (test_constants_match_the_cuda_source): a warp,
-# the slots of a chunk, the most admitting lanes that split a chunk's MT,
-# the groups of a gate batch
-LANES, CHUNK, SPLIT_MAX, BATCH = 32, 64, 16, 16
+# the slots of a chunk, the warp's ring of chunk buffers, the most
+# admitting lanes that split a chunk's MT, the groups of a gate batch
+LANES, CHUNK, STAGES, SPLIT_MAX, BATCH = 32, 64, 2, 16, 16
 NO_KEY = torch.iinfo(torch.int64).max
 
 
@@ -77,11 +82,12 @@ def _feed(clusters, table, form):
 
 def warp_walk_emulation(o: Vec3, d: Vec3, alive, t_init, clusters, table,
                         form="mt", perm=None, count=None, batch=BATCH,
-                        split_max=SPLIT_MAX):
+                        split_max=SPLIT_MAX, stages=STAGES):
     """The warp walk of one launch in PyTorch (see the module docstring):
     rays ``perm`` (a compacted launch's order, the first ``count`` listed)
-    or every ray in index order, in warps of LANES -> ((t, slot) as the
-    kernel writes them, counts of what the walk did)."""
+    or every ray in index order, in warps of LANES, with a ring of
+    ``stages`` chunk buffers (1: each chunk found just before its turn) ->
+    ((t, slot) as the kernel writes them, counts of what the walk did)."""
     n_rays = o.x.shape[0]
     n_cl, k = clusters.slots.shape
     hier = clusters.hierarchy
@@ -163,22 +169,36 @@ def warp_walk_emulation(o: Vec3, d: Vec3, alive, t_init, clusters, table,
             slot = first + j * LANES + src
             commit(admit, least, torch.where(least != NO_KEY, slot, -1))
 
-        for j0 in range(0, order.numel(), batch):
-            groups = order[j0:j0 + batch]
-            g_mask = gates(hier.groups[groups], True)
-            cnt["group_tests"] += groups.numel()
-            for gi in g_mask.any(dim=1).nonzero()[:, 0].tolist():
-                g = int(groups[gi])
-                s_mask = gates(hier.supers[g * bvh.GROUP:(g + 1) * bvh.GROUP],
-                               g_mask[gi])
-                for si in s_mask.any(dim=1).nonzero()[:, 0].tolist():
-                    s = g * bvh.GROUP + si
-                    c_mask = gates(
-                        hier.boxes[s * bvh.SUPER:(s + 1) * bvh.SUPER],
-                        s_mask[si])
-                    for ci in c_mask.any(dim=1).nonzero()[:, 0].tolist():
-                        for base in range(0, k, CHUNK):
-                            chunk_turn(s * bvh.SUPER + ci, base, c_mask[ci])
+        def next_item():
+            """The warp's chunks in order, each found (its gates tested)
+            only when the walk asks for it: (cluster, first slot, each
+            lane's gate of the cluster when it was tested)."""
+            for j0 in range(0, order.numel(), batch):
+                groups = order[j0:j0 + batch]
+                g_mask = gates(hier.groups[groups], True)
+                cnt["group_tests"] += groups.numel()
+                for gi in g_mask.any(dim=1).nonzero()[:, 0].tolist():
+                    g = int(groups[gi])
+                    s_mask = gates(
+                        hier.supers[g * bvh.GROUP:(g + 1) * bvh.GROUP],
+                        g_mask[gi])
+                    for si in s_mask.any(dim=1).nonzero()[:, 0].tolist():
+                        s = g * bvh.GROUP + si
+                        c_mask = gates(
+                            hier.boxes[s * bvh.SUPER:(s + 1) * bvh.SUPER],
+                            s_mask[si])
+                        for ci in c_mask.any(dim=1).nonzero()[:, 0].tolist():
+                            for base in range(0, k, CHUNK):
+                                yield s * bvh.SUPER + ci, base, c_mask[ci]
+
+        # the ring: the next chunks are found before the MT of the chunks
+        # ahead of them, each after the turn of the chunk whose buffer it
+        # takes
+        items = next_item()
+        ring = collections.deque(itertools.islice(items, stages))
+        while ring:
+            chunk_turn(*ring.popleft())
+            ring.extend(itertools.islice(items, 1))
         won = best_i >= 0
         t_out[ray] = torch.where(won, best_t, math.inf)
         slot_out[ray] = torch.where(won, best_s, -1).to(torch.int32)
@@ -264,16 +284,17 @@ def test_warp_walk_matches_plain(config6, form, compact):
     assert 0 < cnt["split"] < cnt["chunks"]    # both MT paths
 
 
-@pytest.mark.parametrize("split_max", [0, LANES])
+@pytest.mark.parametrize("split_max,stages", [(0, 1), (LANES, 4)])
 @pytest.mark.parametrize("form", ["mt", "plucker"])
-def test_warp_walk_batches_and_split_points(config6, form, split_max):
+def test_warp_walk_batches_and_split_points(config6, form, split_max,
+                                            stages):
     """A batch of 2 of the 3 groups (a batch boundary), never splitting
-    MT (split point 0) or always (32): the same (t, slot) as the plain
-    version."""
+    MT (split point 0) or always (32), each chunk found just before its
+    turn or 3 chunks ahead: the same (t, slot) as the plain version."""
     cl, table = config6
     rays = _mesh_rays(cl, table, 6, seed=11 + (form == "plucker"))
     (t_e, s_e), cnt = warp_walk_emulation(*rays, cl, table, form, batch=2,
-                                          split_max=split_max)
+                                          split_max=split_max, stages=stages)
     t_p, s_p = bvh.intersect_triangles_bvh_plain(*rays, cl, table, form)
     assert torch.equal(s_e, s_p) and torch.equal(t_e, t_p)
     assert cnt["split"] == (cnt["chunks"] if split_max else 0)
@@ -346,23 +367,23 @@ def test_warp_walk_matches_jax_packed_kernel():
 
 
 def test_constants_match_the_cuda_source():
-    """The emulation's warp, chunk, split point and gate batch are the
-    kernel's (a constant the sweep sets: its default), the hierarchy's
-    widths are ops/bvh's, and the route's two_level reads its chunks
-    where they lie, as the emulation does; the counting instance counts
-    two_level."""
+    """The emulation's warp, chunk, ring, split point and gate batch are
+    the kernel's (a constant the sweep sets: its default), the
+    hierarchy's widths are ops/bvh's, and two_level launches the warp
+    walk, which the counting instance counts."""
     src = Path(bk.SOURCE).read_text()
 
     def const(name):
-        value = re.search(rf"constexpr (?:int|bool) {name} = (\w+)[^;]*;",
+        value = re.search(rf"constexpr int {name} = (\w+);",
                           src).group(1)
         if not value.isdigit():
             value = re.search(rf"#define {value} (\d+)\n", src).group(1)
         return int(value)
 
-    assert const("kChunk") == CHUNK
+    assert const("kChunk") == CHUNK and const("kStages") == STAGES
     assert const("kSplitMax") == SPLIT_MAX
     assert const("kBatch") == BATCH
     assert const("kSuper") == bvh.SUPER and const("kGroup") == bvh.GROUP
-    assert const("kTwoLevelRing") == 0
+    assert re.search(r"case kTwoLevel:[^\n]*\n\s+case kStreamed:\s+"
+                     r"SRT_BVH_WALK\(kStreamed\);", src)
     assert re.search(r"\(counters != nullptr && !warp\)", src)
