@@ -360,16 +360,16 @@ def build_kernels(extra=()) -> str:
     if errors:
         fail("kernel build: " + "\n".join(errors))
     parts = []
-    for kernel, entry, names in ((tk.KERNEL, "trace_kernel", tk.TRI_MODES),
-                                 (bk.KERNEL, "bvh_kernel|ray_partials|"
-                                  "rank_boxes|bucket_rays|scan_buckets|"
-                                  "scatter_rays", bk.VARIANTS),
-                                 (sk.KERNEL, "bounce_kernel", {}),
-                                 (trk.KERNEL,
-                                  "triangle_kernel(?=E)|compact_live", {}),
-                                 (probe.KERNEL,
-                                  "(?:column_sum|scalar_sum|gated_loop)",
-                                  {})):
+    # each entry's template arguments: the variant, then a first bool (the
+    # trace kernel's counting instance, the BVH kernel's Plucker form), a
+    # count of rays a thread, and a second bool (the counting instance)
+    for kernel, entry, names, flag in (
+            (tk.KERNEL, "trace_kernel", tk.TRI_MODES, "counting"),
+            (bk.KERNEL, "bvh_kernel|ray_partials|rank_boxes|bucket_rays|"
+             "scan_buckets|scatter_rays", bk.VARIANTS, "plucker"),
+            (sk.KERNEL, "bounce_kernel", {}, ""),
+            (trk.KERNEL, "triangle_kernel(?=E)|compact_live", {}, ""),
+            (probe.KERNEL, "(?:column_sum|scalar_sum|gated_loop)", {}, "")):
         # ptxas reports each entry (template instance) after its name
         modes = {str(v): k for k, v in names.items()}
         variant = None
@@ -378,7 +378,7 @@ def build_kernels(extra=()) -> str:
                           rf"(?:(Lb1E)|Lb0E|Li(\d)E)?(Lb1E)?)?", line)
             if m:
                 variant = (modes.get(m.group(2), m.group(2) or m.group(1))
-                           + ("/plucker" if m.group(3) else "")
+                           + (f"/{flag}" if m.group(3) else "")
                            + (f"x{m.group(4)}" if m.group(4) else "")
                            + ("/counting" if m.group(5) else ""))
             elif "registers" in line or "spill" in line:
@@ -459,16 +459,21 @@ PROBE_BYTES = 2 * probe.ROWS * probe.COLS * 4
 
 
 def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
-                 sky: bool = True) -> float:
+                 sky: bool = True, work=None) -> float:
     """Float operations this pass's data needs (``segments`` from the plain
     version: live rays, hits, triangle hits per bounce): every live ray
     tests each active sphere and plane, every hit shades, and every hit
     before the last bounce samples the BSDF.  Triangles: a small mesh is
-    tested whole (live rays x active triangles x MT); a clustered mesh at
-    least slab-tests every real cluster box per live ray, and each ray
-    whose nearest hit is a triangle runs MT over the K slots of that
-    triangle's cluster.  ``sky``: the kernel evaluates the gradient sky
-    (not in the nine-row form, whose texture is sampled outside)."""
+    tested whole (live rays x active triangles x MT); a clustered mesh by
+    the rule of the BVH rows, from ``work`` (``clustered_work`` of the
+    plain version's rays): every live ray slab-tests the hierarchy's root
+    boxes, and MT runs over the real slots of every cluster whose box the
+    ray may meet before its final t.  Without ``work``, the flat gate's
+    count (every live ray slab-tests every real cluster box, and each ray
+    whose nearest hit is a triangle runs MT over the K slots of its
+    cluster), which counts the flat gate's own work, not the data's.
+    ``sky``: the kernel evaluates the gradient sky (not in the nine-row
+    form, whose texture is sampled outside)."""
     n_s = int(scene.spheres.active.sum())
     n_p = int(scene.planes.active.sum())
     tris = scene.triangles
@@ -478,6 +483,10 @@ def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
         flops += live * (n_s * SPHERE_FLOPS + n_p * PLANE_FLOPS)
         if variant == "small":
             flops += live * int(tris.active.sum()) * MT_FLOPS
+        elif variant == "clustered" and work is not None:
+            roots = int((tris.clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
+            flops += (live * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
+                      + work[i][1] * MT_FLOPS)
         elif variant == "clustered":
             real = int((tris.clusters.slots[:, 0] >= 0).sum())
             flops += live * (real * SLAB_FLOPS + INV_DIR_FLOPS)
@@ -933,6 +942,77 @@ def rows_check(args, kw, tri_backend: str):
     diff = (k - p).abs()[fin]
     m = float(diff.max()) if diff.numel() else 0.0
     return differ == 0 and same_bad, differ, same_bad, m
+
+
+@contextlib.contextmanager
+def nearest_hits():
+    """Each bounce's rays and nearest hit while the body runs
+    trace_rays_rows (either form of the nearest hit): a list of (o, d,
+    hit, t) per bounce, yielded."""
+    rec = []
+    saved = (trace_mod.closest_hit, trace_mod.closest_hit_split)
+
+    def recording(fn):
+        def hit_of(scene, o, d, *args, **kw):
+            hit = fn(scene, o, d, *args, **kw)
+            rec.append((o, d, hit.hit, hit.t))
+            return hit
+        return hit_of
+
+    trace_mod.closest_hit, trace_mod.closest_hit_split = map(recording,
+                                                             saved)
+    try:
+        yield rec
+    finally:
+        trace_mod.closest_hit, trace_mod.closest_hit_split = saved
+
+
+def clustered_work(hits, clusters) -> list:
+    """What each bounce of a plain pass (``nearest_hits``) needs of a
+    clustered traversal: (live rays, the real slots over the (cluster,
+    ray) pairs whose box the live ray may meet before its final t, those
+    pairs).  A ray is live at bounce 0 and after each hit."""
+    work, alive = [], None
+    for o_, d_, hit, t in hits:
+        if alive is None:
+            alive = torch.ones_like(hit)
+        counts = admitted(o_, d_, alive, t, clusters)
+        work.append((int(alive.sum()), counts[0], counts[4]))
+        alive = alive & hit
+    return work
+
+
+def trace_counts(label: str, args, kw, tri_backend: str) -> list:
+    """The whole-trace clustered variant's counting instance on a full
+    pass, held to the route's launch on the same pass (every output bit
+    equal); its counts per bounce."""
+    prep = tk.prepare(*args, **kw, tri_backend=tri_backend)
+    k = tk.launch(prep)
+    c, counts = tk.launch_counted(prep)
+    if not torch.equal(k.view(torch.int32), c.view(torch.int32)):
+        fail(f"cell {label}: the counting instance's output differs from "
+             "the route's")
+    return counts
+
+
+def trace_walk_report(label: str, counts, work) -> str:
+    """A clustered cell's counts per bounce (the counting instance) beside
+    what the plain version's rays need (``clustered_work``)."""
+    parts = []
+    for b, (cnt, (live, pair_slots, pairs)) in enumerate(zip(counts, work)):
+        n = max(cnt["live"], 1)
+        steps = max(cnt["mt_steps"], 1)
+        parts.append(
+            f"b{b} live {cnt['live']} (plain {live}) in {cnt['warps']} "
+            f"warps: boxes tested a live ray {cnt['box_tests'] / n:.2f}, "
+            f"clusters admitted a live ray {cnt['admitted'] / n:.3f} "
+            f"({cnt['admitted']} pairs against {pairs} under the final t), "
+            f"union a warp {cnt['union'] / max(cnt['warps'], 1):.3f}, MT "
+            f"lane-steps issued {32 * cnt['mt_steps']} against "
+            f"{pair_slots} real slots of the needed pairs, active lanes a "
+            f"MT step {cnt['lane_steps'] / steps:.2f}")
+    return f"cell {label} whole-trace traversal per bounce: " + "; ".join(
+        parts)
 
 
 def make_textures(directory: Path) -> dict:
@@ -1629,17 +1709,40 @@ def main(argv=None) -> int:
             segments = []
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            p = torch.stack(list(tk.trace_full_plain(*args, **run_kw,
-                                                     segments=segments)))
+            with nearest_hits() as hits:
+                p = torch.stack(list(tk.trace_full_plain(
+                    *args, **run_kw, segments=segments)))
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t1
+            counts = work = None
+            full_segments = segments
+            if label in BAND_CELLS:
+                # the work of the full pass, on the split path's pass over
+                # the same rays (the same scene; the two shading forms
+                # differ by rounding)
+                o = r.options
+                full_segments = []
+                cam = camera.state(o.width / o.height)
+                orig, dirs, seed = generate_rays(
+                    o.width, o.height, o.num_samples, 4242, cam.position,
+                    camera_rotation(cam.yaw, cam.pitch), cam.aspect_ratio,
+                    cam.fov_scale, tile=r.ray_tile, device=r.device)
+                with nearest_hits() as hits:
+                    trace_rays(ds, orig, dirs, seed, o.num_bounces,
+                               full_segments, split=True)
+            if CELLS[label][2] == "clustered":
+                counts = trace_counts(label, args, kw, backend)
+                work = clustered_work(hits, ds.triangles.clusters)
+                say(f"[4] {trace_walk_report(label, counts, work)}; the "
+                    f"counting instance's output equal to the route's  "
+                    f"[{card}]")
             both = torch.isfinite(k) & torch.isfinite(p)
             err = (k - p).abs()[both]
             max_abs = float(err.max()) if err.numel() else 0.0
             rmse, share, same_bad = canvas_diff(k, p, s)
             bitexact = bool(torch.equal(k[both], p[both]))
-            results[label] = dict(max_abs=max_abs, segments=segments,
-                                  args=args, kw=kw,
+            results[label] = dict(max_abs=max_abs, segments=full_segments,
+                                  args=args, kw=kw, counts=counts, work=work,
                                   n_rays=(r.options.width * r.options.height
                                           * s), plain_s=plain_s, where=where)
             say(f"[4] cell {label} kernel vs plain on {where}: "
@@ -1989,19 +2092,9 @@ def main(argv=None) -> int:
             segments = res["segments"]
             if label in BAND_CELLS:
                 # the plain version ran on the band only; the work of the
-                # full pass is counted on the split path's pass over the
-                # same rays (the same scene; the two shading forms differ
-                # by rounding)
+                # full pass was counted on the split path's pass (phase 4)
                 p_ms = res["plain_s"] * 1e3
                 p_note = f"plain on {res['where']} (one run)"
-                segments = []
-                cam = camera.state(o.width / o.height)
-                orig, dirs, seed = generate_rays(
-                    o.width, o.height, o.num_samples, 4242, cam.position,
-                    camera_rotation(cam.yaw, cam.pitch), cam.aspect_ratio,
-                    cam.fov_scale, tile=r.ray_tile, device=r.device)
-                trace_rays(ds, orig, dirs, seed, o.num_bounces, segments,
-                           split=True)
                 extra = f"; work counted on the split path: {segments}"
             else:
                 dense_mesh = ds.triangles.material.shape[0] > 64
@@ -2012,7 +2105,13 @@ def main(argv=None) -> int:
                 p_note = f"plain ({spread(p_all)})"
             k_ms = float(np.median(k_all))
             flops = kernel_flops(ds, o.tri_backend, n_rays, segments,
-                                 sky=prep.n_out == 3)
+                                 sky=prep.n_out == 3, work=res["work"])
+            if res["work"] is not None:
+                flat = kernel_flops(ds, o.tri_backend, n_rays, segments,
+                                    sky=prep.n_out == 3)
+                extra += (f"; the flat gate's count (the parent's rule) "
+                          f"{flat:.4g} FLOP, {flat / FP32_PEAK * 1e3:.4f} ms"
+                          f"; {trace_walk_report(label, res['counts'], res['work'])}")
             nbytes = 4.0 * prep.n_out * n_rays
             segs = sum(seg[0] for seg in segments)
             work = (f"{n_rays / k_ms / 1e3:.1f} Mrays/s primary, "

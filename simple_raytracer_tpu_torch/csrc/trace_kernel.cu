@@ -115,9 +115,24 @@ static_assert(6 * sizeof(void*) + sizeof(TraceParams) <= 4096,
 
 enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
 
+// The counting instance of kClusteredTris (srt_trace_count_launch, which
+// only chip_smoke.py calls; the route never launches it): what the
+// traversal did, per bounce, into (num_bounces, kCounters) int64 counters.
+enum Count {
+  kCountLive = 0,    // live rays that entered the bounce
+  kCountWarps,       // warps with a live lane
+  kCountBoxTests,    // cluster boxes slab-tested by live lanes
+  kCountAdmitted,    // (ray, cluster) pairs that ran MT
+  kCountUnion,       // (warp, cluster) pairs some lane ran MT on
+  kCountMtSteps,     // warp-wide MT steps issued (32 lanes x one slot)
+  kCountLaneSteps,   // lane-slot MT tests of admitting lanes
+  kCounters
+};
+
 namespace {
 
 constexpr int kBlock = 256;
+constexpr unsigned kAll = 0xffffffffu;
 // a triangle row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5),
 // e2 (6-8), n0 n1 n2 (9-17), material (18), active (19)
 constexpr int kTriCols = 20;
@@ -205,9 +220,12 @@ __device__ __forceinline__ void mt_update(const float* q, int row, V3 o, V3 d,
 // the boxes' largest coordinate magnitude: in t that is `pad` times the
 // largest |1 / d|, which widens each axis's slab at least as much.  A zero
 // direction component makes pad infinite and admits every real box.
+// The counting instance is called by every lane of the warp (a dead lane
+// with live false admits nothing) and adds to the bounce's counters.
+template <bool COUNT>
 __device__ __forceinline__ void tris_clustered(
     const float* __restrict__ table, const float* s_box, const TraceParams& p,
-    V3 o, V3 d, TriHit& best) {
+    V3 o, V3 d, TriHit& best, bool live, unsigned long long* cnt) {
   const float inx = 1.0f / d.x;
   const float iny = 1.0f / d.y;
   const float inz = 1.0f / d.z;
@@ -235,6 +253,22 @@ __device__ __forceinline__ void tris_clustered(
       // (every plane at 3e38) fall to the b[0] >= 1e38 term
       if (!((near - pad > far + pad) || (b[0] >= 1.0e38f))) word |= 1u << k;
     }
+    if constexpr (COUNT) {
+      if (!live) word = 0;
+      const unsigned any = __reduce_or_sync(kAll, word);
+      const unsigned most = __reduce_max_sync(kAll, __popc(word));
+      if ((threadIdx.x & 31) == 0) {
+        atomicAdd(cnt + kCountUnion, (unsigned long long)__popc(any));
+        atomicAdd(cnt + kCountMtSteps,
+                  (unsigned long long)most * p.cluster_k);
+      }
+      if (live) {
+        atomicAdd(cnt + kCountBoxTests, 8ull);
+        atomicAdd(cnt + kCountAdmitted, (unsigned long long)__popc(word));
+        atomicAdd(cnt + kCountLaneSteps,
+                  (unsigned long long)__popc(word) * p.cluster_k);
+      }
+    }
     while (word) {
       const int c = g * 8 + __ffs(word) - 1;
       word &= word - 1;
@@ -245,12 +279,12 @@ __device__ __forceinline__ void tris_clustered(
   }
 }
 
-template <int TRI>
+template <int TRI, bool COUNT = false>
 __global__ void __launch_bounds__(kBlock)
 trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
              const float* __restrict__ mat, const float* __restrict__ tri,
              const float* __restrict__ box, float* __restrict__ out,
-             const TraceParams p) {
+             const TraceParams p, unsigned long long* __restrict__ counters) {
   extern __shared__ float smem[];
   float* s_sph = smem;
   float* s_pln = s_sph + 8 * p.n_spheres;
@@ -274,7 +308,12 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
   __syncthreads();
 
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= p.n_rays) return;
+  // the counting instance keeps every lane of the warp in the bounce loop
+  // (a lane past the rays, or whose ray died, as a dead lane), so that its
+  // warp-wide counts see the lanes of each bounce together
+  const bool in_range = g < p.n_rays;
+  if (!COUNT && !in_range) return;
+  bool live = in_range;
 
   // ---- ray generation (ops/camera.py: generate_rays) ----
   const int s = g % p.num_samples;
@@ -310,11 +349,23 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
   V3 sky_mask = mk(0.0f, 0.0f, 0.0f);
   V3 sky_dir = mk(0.0f, 0.0f, 1.0f);
   for (int bounce = 0; bounce < p.num_bounces; ++bounce) {
+    unsigned long long* cnt = nullptr;
+    if constexpr (COUNT) {
+      const unsigned lanes = __ballot_sync(kAll, live);
+      if (!lanes) break;
+      cnt = counters + (size_t)bounce * kCounters;
+      if ((threadIdx.x & 31) == 0) {
+        atomicAdd(cnt + kCountLive, (unsigned long long)__popc(lanes));
+        atomicAdd(cnt + kCountWarps, 1ull);
+      }
+    }
     // the nearest sphere and plane (path_common.cuh)
-    float t_s, t_p;
-    int i_s, i_p;
-    nearest_sphere(s_sph, p.n_spheres, o, d, t_s, i_s);
-    nearest_plane(s_pln, p.n_planes, o, d, t_p, i_p);
+    float t_s = INFINITY, t_p = INFINITY;
+    int i_s = 0, i_p = 0;
+    if (live) {
+      nearest_sphere(s_sph, p.n_spheres, o, d, t_s, i_s);
+      nearest_plane(s_pln, p.n_planes, o, d, t_p, i_p);
+    }
     // nearest triangle (+inf when none beats the sphere/plane seed)
     TriHit th;
     th.t = INFINITY;
@@ -328,14 +379,19 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
     }
     if (TRI == kClusteredTris) {
       th.t = min_nan(t_s, t_p);
-      tris_clustered(tri, s_box, p, o, d, th);
+      tris_clustered<COUNT>(tri, s_box, p, o, d, th, live, cnt);
       if (th.row >= 0) t_t = th.t;
     }
+    if (COUNT && !live) continue;
     const float t = min_nan(min_nan(t_s, t_p), t_t);  // never NaN
     if (t == INFINITY) {
       // a miss: the sky is evaluated once after the loop, and the ray dies
       sky_mask = mask;
       sky_dir = d;
+      if constexpr (COUNT) {
+        live = false;
+        continue;
+      }
       break;
     }
     // closest_hit: ties go to the sphere, then the plane
@@ -374,6 +430,7 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
     mask = mul(mask, sc.mask_mul);
   }
 
+  if (COUNT && !in_range) return;
   const size_t n = (size_t)p.n_rays;
   if (p.sky_rows) {
     // color, sky_mask, sky_dir: the sky is the wrapper's
@@ -391,20 +448,21 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
 
 // launch one variant, opting in to more than the default dynamic shared
 // memory when its tables need it
-template <int TRI>
+template <int TRI, bool COUNT = false>
 cudaError_t launch_variant(int blocks, size_t bytes, cudaStream_t st,
                            const float* sph, const float* pln,
                            const float* mat, const float* tri,
                            const float* box, float* out,
-                           const TraceParams& p) {
+                           const TraceParams& p,
+                           unsigned long long* counters = nullptr) {
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        trace_kernel<TRI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        trace_kernel<TRI, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  trace_kernel<TRI><<<blocks, kBlock, bytes, st>>>(sph, pln, mat, tri, box,
-                                                    out, p);
+  trace_kernel<TRI, COUNT><<<blocks, kBlock, bytes, st>>>(
+      sph, pln, mat, tri, box, out, p, counters);
   return cudaGetLastError();
 }
 
@@ -437,6 +495,26 @@ extern "C" int srt_trace_launch(const float* sph, const float* pln,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The counting instance of kClusteredTris: the same launch, which also adds
+// what the traversal did to counters ((num_bounces, kCounters) int64,
+// Count); chip_smoke.py's only
+extern "C" int srt_trace_count_launch(const float* sph, const float* pln,
+                                      const float* mat, const float* tri,
+                                      const float* box, float* out,
+                                      unsigned long long* counters,
+                                      TraceParams p, void* stream) {
+  if (p.tri_mode != kClusteredTris || counters == nullptr
+      || p.n_clusters > 8 * SRT_MAX_GROUPS)
+    return (int)cudaErrorInvalidValue;
+  if (p.n_rays <= 0) return (int)cudaSuccess;
+  const int blocks = (p.n_rays + kBlock - 1) / kBlock;
+  const size_t words = 8 * (size_t)p.n_spheres + 8 * (size_t)p.n_planes
+                       + 16 * (size_t)p.n_materials + 8 * (size_t)p.n_clusters;
+  return (int)launch_variant<kClusteredTris, true>(
+      blocks, sizeof(float) * words, (cudaStream_t)stream, sph, pln, mat, tri,
+      box, out, p, counters);
 }
 
 // the dynamic shared memory a block of the device may opt in to

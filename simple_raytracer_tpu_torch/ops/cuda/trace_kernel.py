@@ -107,11 +107,19 @@ class TraceParams(ctypes.Structure):
 # srt_trace_launch(sph, pln, mat, tri, box, out, params, stream)
 LAUNCH_ARGTYPES = ([ctypes.c_void_p] * LAUNCH_POINTERS
                    + [TraceParams, ctypes.c_void_p])
+# srt_trace_count_launch: the same, and the counters before the params
+COUNT_ARGTYPES = ([ctypes.c_void_p] * (LAUNCH_POINTERS + 1)
+                  + [TraceParams, ctypes.c_void_p])
+# the counting instance's counters of a bounce (the CUDA source's Count)
+COUNTERS = ("live", "warps", "box_tests", "admitted", "union", "mt_steps",
+            "lane_steps")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.srt_trace_launch.argtypes = LAUNCH_ARGTYPES
     lib.srt_trace_launch.restype = ctypes.c_int
+    lib.srt_trace_count_launch.argtypes = COUNT_ARGTYPES
+    lib.srt_trace_count_launch.restype = ctypes.c_int
     lib.srt_shared_optin.argtypes = [ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)]
     lib.srt_shared_optin.restype = ctypes.c_int
@@ -325,3 +333,26 @@ def launch(prep: Prepared, out: torch.Tensor = None) -> torch.Tensor:
     KERNEL.check(err, "trace kernel")
     KERNEL.count(prep.label)
     return out
+
+
+def launch_counted(prep: Prepared):
+    """One launch of the ``clustered`` variant's counting instance (a
+    kernel of its own, which the route never launches; not counted with
+    the route's launches): (the output, as ``launch``'s, and one dict of
+    ``COUNTERS`` per bounce)."""
+    if prep.variant != "clustered":
+        raise ValueError("trace kernel: only the clustered variant has a "
+                         "counting instance")
+    out = torch.empty((prep.n_out, prep.n_rays), dtype=torch.float32,
+                      device=prep.device)
+    counters = torch.zeros((prep.params.num_bounces, len(COUNTERS)),
+                           dtype=torch.int64, device=prep.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = KERNEL.library()
+    with torch.cuda.device(prep.device):
+        stream = torch.cuda.current_stream(prep.device).cuda_stream
+        err = lib.srt_trace_count_launch(
+            *map(ptr, prep.tables + prep.tri_tables), out.data_ptr(),
+            counters.data_ptr(), prep.params, stream)
+    KERNEL.check(err, "trace kernel (counting)")
+    return out, [dict(zip(COUNTERS, row)) for row in counters.tolist()]
