@@ -6,7 +6,8 @@ Run from the repository root:
     python3 chip_smoke.py [--parent DIR]
 
 (``--parent``: a checkout of an earlier commit; phase 6 also times its
-BVH kernel on the same launches, one by one.)
+BVH kernel on the same launches, one by one, and its whole-trace kernel
+on the same pass of each clustered whole-trace cell.)
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
@@ -50,6 +51,11 @@ are a path of their own.  Phases, one line each on stdout:
      (config 6 under "pallas": a band of rows;
      the kernel visits live rays only), and the canvas, and the
      triangle kernel on ragged random tables and ray batches (RAGGED);
+     the whole-trace kernel's clustered cells (configs 4, 5 and 6
+     "fused") on its counting instance, whose output must be the
+     route's, its counts per bounce beside the (cluster, ray) pairs that
+     the plain version's rays need (6 "fused": a full pass of the split
+     path over the same rays);
      config 4 under "jnp" against the "pallas"
      route on the same rays; then, for configs 6 and 5 "bvh", the per-ray
      gate against a gate-free dense Moller-Trumbore over every triangle,
@@ -70,7 +76,12 @@ are a path of their own.  Phases, one line each on stdout:
      against the plain version; benchmark_step leaves the canvas and step
      count as they were;
   6. timings with CUDA events, and each kernel's bound (and the texture's
-     sample beside the nine-row kernel); the triangle kernel's launches
+     sample beside the nine-row kernel; the clustered whole-trace cells
+     bounded by the BVH rows' rule, the flat gate's count beside it; with
+     --parent the parent's kernel on the same pass, in turns; the walk's
+     constants swept: the split point, the ring, the block and the flat
+     gate, each a build of its own, every output the route's); the
+     triangle kernel's launches
      of a pass one by one (per bounce, with its live rays and what its
      early-out keeps), the pass with every ray dead (the live-ray
      compaction and an empty grid) and with every ray live, its bound
@@ -102,6 +113,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -339,26 +351,30 @@ def trace_args(renderer: Renderer, camera, time_seed: int) -> tuple:
     return args, kw
 
 
-def build_kernels(extra=()) -> str:
-    """Build the five kernel sources and the ``extra`` kernels at once
-    (one nvcc each) and report ptxas's registers and spills per variant of
-    the five."""
+def build_all(what: str, kernels) -> None:
+    """Build every kernel at once (one nvcc each); fail on any error."""
     errors = []
 
     def build(kernel):
         try:
             kernel.library()
-        except RuntimeError as exc:       # nvcc failed: reported below
-            errors.append(str(exc))
+        except Exception as exc:          # reported below, for any cause
+            errors.append(f"{kernel.source}: {exc!r}")
 
-    threads = [threading.Thread(target=build, args=(k,))
-               for k in (*KERNELS.values(), *extra)]
+    threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
-        fail("kernel build: " + "\n".join(errors))
+        fail(f"{what}: " + "\n".join(errors))
+
+
+def build_kernels(extra=()) -> str:
+    """Build the five kernel sources and the ``extra`` kernels at once
+    (one nvcc each) and report ptxas's registers and spills per variant of
+    the five."""
+    build_all("kernel build", (*KERNELS.values(), *extra))
     parts = []
     # each entry's template arguments: the variant, then a first bool (the
     # trace kernel's counting instance, the BVH kernel's Plucker form), a
@@ -1010,7 +1026,10 @@ def trace_walk_report(label: str, counts, work) -> str:
             f"union a warp {cnt['union'] / max(cnt['warps'], 1):.3f}, MT "
             f"lane-steps issued {32 * cnt['mt_steps']} against "
             f"{pair_slots} real slots of the needed pairs, active lanes a "
-            f"MT step {cnt['lane_steps'] / steps:.2f}")
+            f"MT step {cnt['lane_steps'] / steps:.2f}"
+            + ("" if "chunks" not in cnt else
+               f", chunks {cnt['chunks']} (split {cnt['split']}, wasted "
+               f"{cnt['wasted']})"))
     return f"cell {label} whole-trace traversal per bounce: " + "; ".join(
         parts)
 
@@ -1296,22 +1315,7 @@ def sweep_kernels() -> dict:
                                                f"-DSRT_BVH_CHUNK={chunk}"]
         SWEEP_KERNELS.update({name: bk.Kernel(bk.SOURCE, bk._bind, flags)
                               for name, flags in cases.items()})
-        errors = []
-
-        def build(kernel):
-            try:
-                kernel.library()
-            except RuntimeError as exc:       # nvcc failed: reported below
-                errors.append(str(exc))
-
-        threads = [threading.Thread(target=build, args=(k,))
-                   for k in SWEEP_KERNELS.values()]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        if errors:
-            fail("the sweep's kernel builds: " + "\n".join(errors))
+        build_all("the sweep's kernel builds", SWEEP_KERNELS.values())
     return SWEEP_KERNELS
 
 
@@ -1334,6 +1338,125 @@ def walk_sweep(label: str, res: dict) -> dict:
         f"route: split {route_constant('SRT_BVH_SPLIT_MAX')}, ring "
         f"{route_constant('SRT_BVH_STAGES')}x"
         f"{route_constant('SRT_BVH_CHUNK')}): "
+        + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
+        + "; results equal")
+    return dict(ms)
+
+
+@contextlib.contextmanager
+def trace_kernel_as(kernel):
+    """tk.launch through another build of the whole-trace kernel (the same
+    C interface) while the body runs; its launches are counted on it."""
+    route = tk.KERNEL
+    tk.KERNEL = kernel
+    try:
+        yield
+    finally:
+        tk.KERNEL = route
+
+
+# The parent's whole-trace kernel (--parent: the kernel before its warp
+# walk): 6 table pointers, and its TraceParams without n_groups but with
+# the front-to-back order of the groups of 8 clusters from the camera, as
+# uint16 entries, as many as fit the 4 KB parameter block.
+class _ParentHead(ctypes.Structure):
+    _fields_ = [f for f in tk.TraceParams._fields_ if f[0] != "n_groups"]
+
+
+PARENT_MAX_GROUPS = (tk.PARAM_LIMIT_BYTES - 8 * 6
+                     - ctypes.sizeof(_ParentHead)) // 4 * 2
+
+
+class ParentParams(ctypes.Structure):
+    _fields_ = _ParentHead._fields_ + [
+        ("group_order", ctypes.c_uint16 * PARENT_MAX_GROUPS)]
+
+
+def parent_trace_kernel(parent: Path):
+    """The parent checkout's whole-trace kernel, bound to its interface."""
+    def bind(lib):
+        lib.srt_trace_launch.argtypes = ([ctypes.c_void_p] * 6
+                                         + [ParentParams, ctypes.c_void_p])
+        lib.srt_trace_launch.restype = ctypes.c_int
+    return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
+                     / "trace_kernel.cu", bind,
+                     [f"-DSRT_MAX_GROUPS={PARENT_MAX_GROUPS}"])
+
+
+def parent_trace_launch(kernel, prep, clusters, out) -> None:
+    """A prepared clustered pass on the parent's kernel into ``out``: its
+    parameters, with its wrapper's group order (the groups of 8 clusters
+    by the squared distance of their nearest box centre from the camera,
+    stably), and the cluster boxes in place of the hierarchy."""
+    q = ParentParams()
+    for name, _ in _ParentHead._fields_:
+        setattr(q, name, getattr(prep.params, name))
+    aabb = clusters.aabb.cpu().numpy()
+    cam = np.asarray(list(prep.params.cam_pos), np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        diff = (aabb[:, 0:3] + aabb[:, 3:6]) * np.float32(0.5) - cam
+        d2 = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
+              + diff[:, 2] * diff[:, 2])
+    order = np.argsort(d2.reshape(-1, 8).min(axis=1), kind="stable")
+    q.group_order[:order.shape[0]] = order.tolist()
+    sph, pln, mat = prep.tables
+    with torch.cuda.device(prep.device):
+        stream = torch.cuda.current_stream(prep.device).cuda_stream
+        err = kernel.library().srt_trace_launch(
+            sph.data_ptr(), pln.data_ptr(), mat.data_ptr(),
+            prep.tri_tables[0].data_ptr(), clusters.aabb.data_ptr(),
+            out.data_ptr(), q, stream)
+    kernel.check(err, "the parent's trace kernel")
+
+
+# The whole-trace walk's constants swept on the clustered cells' passes
+# (phase 6), each a build of the kernel with -D flags of the source's
+# names: the split point (0: never split, 32: always), the ring (buffers x
+# chunk), the block, and the flat gate (every cluster box, no hierarchy)
+TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
+               "split 8": ["-DSRT_TRACE_SPLIT_MAX=8"],
+               "split 32": ["-DSRT_TRACE_SPLIT_MAX=32"],
+               "ring 3x64": ["-DSRT_TRACE_STAGES=3"],
+               "ring 4x32": ["-DSRT_TRACE_STAGES=4",
+                             "-DSRT_TRACE_CHUNK=32"],
+               "block 64": ["-DSRT_TRACE_BLOCK=64"],
+               "block 256": ["-DSRT_TRACE_BLOCK=256"],
+               "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
+TRACE_SWEEP_KERNELS = {}
+
+
+def trace_sweep_kernels() -> dict:
+    """The sweep's builds of the whole-trace kernel, by case name."""
+    if not TRACE_SWEEP_KERNELS:
+        TRACE_SWEEP_KERNELS.update({
+            name: bk.Kernel(tk.SOURCE, tk._bind, flags)
+            for name, flags in TRACE_SWEEP.items()})
+        build_all("the trace sweep's kernel builds",
+                  TRACE_SWEEP_KERNELS.values())
+    return TRACE_SWEEP_KERNELS
+
+
+def trace_sweep(label: str, prep, ref, iters: int) -> dict:
+    """A clustered cell's pass on each build of ``trace_sweep_kernels`` and
+    on the route's, in turns, twice: ms a pass; every output bit equal to
+    the route's (no constant changes a result)."""
+    ms = collections.defaultdict(list)
+    out = torch.empty_like(ref)
+    for _ in range(2):
+        for name, kernel in {"route": tk.KERNEL,
+                             **trace_sweep_kernels()}.items():
+            with trace_kernel_as(kernel):
+                try:
+                    ms[name].append(float(np.median(cuda_ms(
+                        lambda: tk.launch(prep, out), iters=iters,
+                        repeats=3, warmup=1))))
+                except RuntimeError as exc:     # the launch was refused
+                    fail(f"cell {label}: the sweep's {name}: {exc}")
+            if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+                fail(f"cell {label}: the sweep's {name} changes a result")
+    say(f"[6] cell {label} whole-trace sweep (ms a pass, two turns; the "
+        f"route: block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
+        f"{tk.SPLIT_MAX}, hierarchy): "
         + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
         + "; results equal")
     return dict(ms)
@@ -1515,8 +1638,11 @@ def parse_args(argv):
         "--parent", type=Path, default=None,
         help="a checkout of an earlier commit of this repository: its BVH "
              "kernel (simple_raytracer_tpu_torch/csrc/bvh_kernel.cu, with "
-             "the same C interface) is built beside this one's, and phase "
-             "6 times every two_level and streamed launch on it too")
+             "the same C interface) and its whole-trace kernel "
+             "(trace_kernel.cu, the interface from before the warp walk) "
+             "are built beside this one's, and phase 6 times every "
+             "two_level and streamed launch, and the pass of each "
+             "clustered whole-trace cell, on them too")
     return ap.parse_args(argv)
 
 
@@ -1532,18 +1658,20 @@ def main(argv=None) -> int:
         f"{pil}")
 
     t0 = time.perf_counter()
-    parent = None
+    parent = parent_trace = None
     if args.parent is not None:
         parent = bk.Kernel(args.parent / "simple_raytracer_tpu_torch" / "csrc"
                            / "bvh_kernel.cu", bk._bind)
-    ptxas = build_kernels(() if parent is None else (parent,))
+        parent_trace = parent_trace_kernel(args.parent)
+    ptxas = build_kernels(() if parent is None else (parent, parent_trace))
     say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
         "sources "
         f"(nvcc sm_90a, ctypes; "
         + ", ".join(f"{SOURCES[kind]} {k.build_seconds:.2f} s"
                     for kind, k in KERNELS.items())
         + ("" if parent is None else
-           f"; the parent's {parent.source} {parent.build_seconds:.2f} s")
+           f"; the parent's {parent.source} {parent.build_seconds:.2f} s, "
+           f"{parent_trace.source} {parent_trace.build_seconds:.2f} s")
         + f"); ptxas: {ptxas}")
     say(f"[2] triangle kernel {trk.SHAPE[0]}x{trk.SHAPE[1]}, the fast path "
         f"of one triangle (cuobjdump): {triangle_sass()}")
@@ -2070,6 +2198,36 @@ def main(argv=None) -> int:
             out = torch.empty((prep.n_out, n_rays), dtype=torch.float32,
                               device="cuda")
             k_all = cuda_ms(lambda: tk.launch(prep, out), iters=50)
+            if prep.variant == "clustered":
+                # the parent's kernel on the same pass, in turns (parent,
+                # this, this, parent), and the walk's constants swept
+                cl = ds.triangles.clusters
+                iters = 5 if label in BAND_CELLS else 20
+                ref = out.clone()
+                if parent_trace is not None:
+                    got = torch.empty_like(out)
+                    run_p = lambda: cuda_ms(lambda: parent_trace_launch(
+                        parent_trace, prep, cl, got), iters=iters, repeats=3,
+                        warmup=1)
+                    run_k = lambda: cuda_ms(lambda: tk.launch(prep, out),
+                                            iters=iters, repeats=3,
+                                            warmup=1)
+                    turns = [run_p(), run_k(), run_k(), run_p()]
+                    par = [float(np.median(t)) for t in turns[::3]]
+                    this = [float(np.median(t)) for t in turns[1:3]]
+                    rmse, share, same_bad = canvas_diff(got, ref, o.num_samples)
+                    differ = int((got.view(torch.int32) != ref.view(torch.int32)
+                                  ).any(0).sum())
+                    extra += (f"; the parent's kernel on the same pass "
+                              f"{par[0]:.4f}, {par[1]:.4f} ms against this "
+                              f"{this[0]:.4f}, {this[1]:.4f} ms in turns "
+                              f"(parent / this "
+                              f"{sum(par) / sum(this):.2f}x); its output: "
+                              f"{differ} rays differ, rmse {rmse:.3e}, "
+                              f"share>1e-3 {share:.3e}, non-finite masks "
+                              f"agree {same_bad}")
+                    res["parent_ms"] = par
+                res["sweep"] = trace_sweep(label, prep, ref, iters)
             if ds.skybox is not None:
                 # the texture's sample on the nine rows, as trace_full
                 # runs it after the kernel
@@ -2080,7 +2238,7 @@ def main(argv=None) -> int:
                 x_bound = max(n_rays * SAMPLE_FLOPS / FP32_PEAK,
                               (n_rays * SAMPLE_RAY_BYTES + texels)
                               / HBM_BYTES_PER_S) * 1e3
-                extra = (f"; the texture's sample (PyTorch, "
+                extra += (f"; the texture's sample (PyTorch, "
                          f"{tuple(ds.skybox.shape)}) {x_ms:.4f} ms/pass "
                          f"({spread(x_all)}), bound {x_bound:.4f} ms (bytes: "
                          f"{SAMPLE_RAY_BYTES} B a ray and the texture's "
@@ -2095,7 +2253,7 @@ def main(argv=None) -> int:
                 # full pass was counted on the split path's pass (phase 4)
                 p_ms = res["plain_s"] * 1e3
                 p_note = f"plain on {res['where']} (one run)"
-                extra = f"; work counted on the split path: {segments}"
+                extra += f"; work counted on the split path: {segments}"
             else:
                 dense_mesh = ds.triangles.material.shape[0] > 64
                 p_all = cuda_ms(lambda: tk.trace_full_plain(*args, **kw),

@@ -18,40 +18,80 @@
 //   - kNoTris: a triangle-free scene;
 //   - kSmallTris (bounce_kernel.py:_tris_small): at most 64 triangles, a
 //     dense Moller-Trumbore loop over a table staged in shared memory;
-//   - kClusteredTris (bounce_kernel.py:_tris_clustered): a BVH-clustered mesh
-//     of at most 8192 slots, or under tri_backend="fused" at most 853
-//     clusters of at most 128 slots (config 6's 98,304: the TPU's packed
-//     form of the table, bounce_kernel.py:376, which the card needs no
-//     layout for); the cluster boxes sit in shared memory (24.6 KB at 768
-//     clusters), the front-to-back order of their groups of 8 comes by value
-//     in the launch parameters, the slot table stays in global memory
-//     (read-only path), and each ray slab-tests a group's 8 boxes against
-//     its own live best t and runs MT over the K slots of each admitted
-//     cluster.
+//   - kClusteredTris (bounce_kernel.py:_tris_clustered, and its packed form
+//     :376 under tri_backend="fused"): a BVH-clustered mesh of at most 8192
+//     slots, or under "fused" at most 853 clusters of at most 128 slots
+//     (config 6's 98,304), walked by the warp over the clusters' hierarchy
+//     (below).
 //
-// Design: one thread per ray, because the per-ray bounce loop diverges; a
-// 1-D grid of ceil(n_rays / 256) blocks, one launch for all rays.  The
-// sphere, plane and material tables (a few hundred bytes) and the small
-// triangle table or the cluster boxes are staged into shared memory once per
-// block; above the default 48 KB the launch opts in to more, up to the
-// device's limit (227 KB on an H100), which the wrapper checks first.  A ray
-// that dies leaves its loop at once, which changes no result.  The RNG, the
-// sphere and plane loops and the BSDF sample are path_common.cuh's, which
-// the per-bounce shade kernel (bounce_kernel.cu) shares.
-// The TPU gates a cluster for a whole 1536-ray block; here each ray gates
-// alone, so its slab test carries a margin (kSlabMargin, see tris_clustered)
-// that only adds MT work: it covers the slab test's own rounding and MT's
-// acceptance of a ray that passes within the margin of a triangle's edge.
-// A hit that MT finds farther outside the triangle than that (a ray almost
-// parallel to its plane) can still be dropped where the dense plain version
-// keeps it; chip_smoke.py phase 4 bounds the difference.
+// Design: one thread per ray, one launch for all rays, the per-ray bounce
+// loop inside it.  The sphere, plane and material tables (a few hundred
+// bytes) and the small triangle table are staged into shared memory once
+// per block; above the default 48 KB the launch opts in to more, up to the
+// device's limit (227 KB on an H100), which the wrapper checks first.  The
+// RNG, the sphere and plane loops and the BSDF sample are path_common.cuh's,
+// which the per-bounce shade kernel (bounce_kernel.cu) shares.  kNoTris and
+// kSmallTris run 256-thread blocks, and a ray that dies leaves its loop.
 //
-// Bound on the H100: per-ray FP32 arithmetic (every primitive tested per
-// segment, every slot of an admitted cluster, the hash RNG, the BSDF); the
-// only device-memory traffic it must make is the 12 bytes written per ray,
-// 36 in the nine-row form (the cluster table, 7.9 MB at most, stays in L2).  Left for later:
-// divergence across the warp (rays that die early idle their lanes, and
-// secondary rays admit different clusters) and register pressure.
+// The clustered traversal: a warp walk.  One thread a ray walking alone
+// left each warp running the union of its lanes' clusters, one dependent
+// 80-byte row load after another, most lanes masked off (1.5-2.4% of its
+// FP32 floor; its counts per bounce in PERF.md section 6).  Here the 32
+// lanes of a warp walk each bounce together, as the BVH kernel's warp walk
+// does (bvh_kernel.cu, which it copies rather than shares: its gates carry
+// the margin below, its walk runs once a bounce inside the bounce loop with
+// the ring's barrier phases carried from one walk to the next, and rows 4,
+// 5 and 5a keep the build they were measured on):
+//   - every lane stays in the bounce loop until no lane of its warp is
+//     alive (__ballot_sync over the full warp; a lane past the rays or
+//     whose ray died is a dead lane, which gates nothing but lends its lane
+//     to the split MT below, and writes its own rows as before);
+//   - the gates go down the scene's hierarchy (ops/bvh.py: build_hierarchy:
+//     groups of 16 supers, supers of 16 clusters), in index order: each
+//     level's boxes are slab-tested as one batch (loads issued together)
+//     when the walk enters their parent, a gate passing when any lane
+//     admits it; each lane keeps its own gates and tests a cluster's box
+//     again, with its t then, at the turn of each of its chunks.  A parent
+//     box is the min/max of its children's planes and (b - o) * inv rounds
+//     monotonically in b, so a parent admits whatever a child admits;
+//   - Moller-Trumbore reads the 48-byte rows of the staged table
+//     (ops/bvh.py: stage_slots: v0 and the global triangle index, e1 and the
+//     active flag, e2), kChunk slots at a time, each chunk one bulk copy
+//     (TMA) into one of the warp's kStages shared buffers, a ring: the
+//     next chunk is found, and its copy issued, before the current chunk's
+//     MT (the lookahead gates with the t of that moment, which admits at
+//     least what the walk would);
+//   - when at most kSplitMax lanes admit a chunk, the 32 lanes split each
+//     admitting ray's MT slot by slot and merge their least (t, index) by a
+//     warp minimum over one 64-bit key (t bits << 32 | index: t > 0, so its
+//     bits order as the floats do); otherwise each admitting lane tests
+//     every slot;
+//   - the least (t, global triangle index) wins, seeded with (the nearest
+//     sphere or plane's t, -1), so a triangle must be strictly nearer and
+//     an exact tie goes to the lowest index, as in the dense plain version
+//     (ops/intersect.py: closest_hit): the visiting order changes no result;
+//   - the walk carries (t, index, slot) only: MT runs once more on the
+//     winner's 80-byte row for the (u, v) of the smooth normal, the same
+//     operations on the same values, so the same bits.
+// The plain version has no gate at all, so each slab test carries a margin
+// (kSlabMargin, see slab_pad) that only adds MT work: it covers the slab
+// test's own rounding and MT's acceptance of a ray that passes within the
+// margin of a triangle's edge.  A hit that MT finds farther outside the
+// triangle than that (a ray almost parallel to its plane) can still be
+// dropped where the dense plain version keeps it; chip_smoke.py phase 4
+// reports every pixel that differs.
+// Shared memory of the walk: each warp's ring, kStages x kChunk x 48 bytes
+// (12 KB a 128-thread block at 2 x 64), and its barriers, before the
+// tables.  Its constants (the block, the ring, the split point, and the
+// flat gate that skips the hierarchy) are -D defaults that chip_smoke.py's
+// sweep sets on extra builds (PERF.md section 6).
+//
+// Bound on the H100 (chip_smoke.py): per-ray FP32 arithmetic (every sphere
+// and plane tested per segment, the root boxes of the hierarchy, MT over
+// the real slots of each cluster whose box the ray may meet before its
+// final t, the hash RNG, the BSDF); the only device-memory traffic it must
+// make is the 12 bytes written per ray, 36 in the nine-row form (the slot
+// tables, 4.7 and 7.9 MB at most, stay in L2).
 //
 // Arithmetic: built with --fmad=false and no fast math, and written in the
 // operation order of the plain PyTorch version (ops/camera.py, ops/rng.py,
@@ -65,13 +105,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "path_common.cuh"
-
-// the wrapper derives it from the parameter block (ops/cuda/trace_kernel.py:
-// MAX_GROUPS) and passes it with -D
-#ifndef SRT_MAX_GROUPS
-#error "SRT_MAX_GROUPS must be defined"
-#endif
 
 struct TraceParams {
   float rot[9];           // camera rotation, row-major
@@ -99,39 +134,51 @@ struct TraceParams {
   int32_t n_materials;    // prim_tables packs them
   int32_t tri_mode;       // TriMode
   int32_t n_tris;         // kSmallTris: rows of the triangle table
-  int32_t n_clusters;     // kClusteredTris: clusters (a multiple of 8)
+  int32_t n_clusters;     // kClusteredTris: clusters of the slot table
   int32_t cluster_k;      // kClusteredTris: slots per cluster
+  int32_t n_groups;       // kClusteredTris: groups of the hierarchy
   float cluster_extent;   // kClusteredTris: largest |coordinate| of a box
   int32_t sky_rows;       // 1: write the 9 rows, no sky (a texture skybox)
-  // kClusteredTris: the groups of 8 clusters, front to back; as many as
-  // the parameter block holds beside the rest
-  uint16_t group_order[SRT_MAX_GROUPS];
 };
 
-// the launch's parameters: 6 pointers and TraceParams, within the 4 KB that
-// a kernel takes on every architecture
-static_assert(6 * sizeof(void*) + sizeof(TraceParams) <= 4096,
-              "TraceParams overflows the kernel parameter block");
+// the tables of a launch: spheres, planes, materials, the triangle rows
+// (kSmallTris; kClusteredTris: the slot table), and for kClusteredTris the
+// staged MT rows, the cluster boxes padded to whole groups, the supers and
+// the groups; the output rows
+struct TraceArgs {
+  const float* sph;
+  const float* pln;
+  const float* mat;
+  const float* tri;
+  const float4* staged;
+  const float* boxes;
+  const float* supers;
+  const float* groups;
+  float* out;
+};
 
 enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
 
 // The counting instance of kClusteredTris (srt_trace_count_launch, which
-// only chip_smoke.py calls; the route never launches it): what the
-// traversal did, per bounce, into (num_bounces, kCounters) int64 counters.
+// only chip_smoke.py calls; the route never launches it): what the walk
+// did, per bounce, into (num_bounces, kCounters) int64 counters.
 enum Count {
   kCountLive = 0,    // live rays that entered the bounce
   kCountWarps,       // warps with a live lane
-  kCountBoxTests,    // cluster boxes slab-tested by live lanes
+  kCountBoxTests,    // boxes slab-tested by live lanes (every level)
   kCountAdmitted,    // (ray, cluster) pairs that ran MT
-  kCountUnion,       // (warp, cluster) pairs some lane ran MT on
+  kCountUnion,       // (warp, cluster) visits that ran MT
   kCountMtSteps,     // warp-wide MT steps issued (32 lanes x one slot)
-  kCountLaneSteps,   // lane-slot MT tests of admitting lanes
+  kCountLaneSteps,   // lane-slot MT tests of an admitting ray
+  kCountChunks,      // chunk copies
+  kCountSplit,       // chunks whose MT the lanes split slot by slot
+  kCountWasted,      // chunks copied that no lane admitted at their turn
   kCounters
 };
 
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kBlock = 256;   // kNoTris and kSmallTris
 constexpr unsigned kAll = 0xffffffffu;
 // a triangle row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5),
 // e2 (6-8), n0 n1 n2 (9-17), material (18), active (19)
@@ -140,6 +187,49 @@ constexpr int kTriCols = 20;
 // meets: 2^-16 is 256 ulps, against the at most 6 ulps of rounding in
 // t = (b - o) / d
 constexpr float kSlabMargin = 0x1p-16f;
+// The warp walk's constants, chosen by chip_smoke.py's sweep on the card
+// (PERF.md section 6; a -D flag of the same name sets each for the
+// sweep): the block (kClusteredTris), the slots of a chunk, the warp's
+// ring of chunk buffers, the most lanes admitting a chunk for which the
+// warp splits each admitting ray's MT across its lanes, and the flat gate
+// (1: every cluster box in batches of 16, no groups or supers).
+#ifndef SRT_TRACE_BLOCK
+#define SRT_TRACE_BLOCK 128
+#endif
+#ifndef SRT_TRACE_CHUNK
+#define SRT_TRACE_CHUNK 64
+#endif
+#ifndef SRT_TRACE_STAGES
+#define SRT_TRACE_STAGES 2
+#endif
+#ifndef SRT_TRACE_SPLIT_MAX
+#define SRT_TRACE_SPLIT_MAX 16
+#endif
+#ifndef SRT_TRACE_FLAT_GATE
+#define SRT_TRACE_FLAT_GATE 0
+#endif
+constexpr int kWalkBlock = SRT_TRACE_BLOCK;
+constexpr int kWalkWarps = kWalkBlock / 32;
+constexpr int kChunk = SRT_TRACE_CHUNK;
+constexpr int kStages = SRT_TRACE_STAGES;
+constexpr int kSplitMax = SRT_TRACE_SPLIT_MAX;
+constexpr bool kFlatGate = SRT_TRACE_FLAT_GATE != 0;
+constexpr int kSuper = 16;   // clusters per super (ops/bvh.py: SUPER)
+constexpr int kGroup = 16;   // supers per group (ops/bvh.py: GROUP)
+constexpr int kBatch = 16;   // groups slab-tested together
+// a staged slot (ops/bvh.py: STAGED_COLS = 12), in float4s
+constexpr int kRowF4 = 3;
+static_assert(kWalkBlock % 32 == 0 && kWalkBlock <= 1024, "bad block");
+static_assert(kChunk % 32 == 0 && kStages >= 1, "bad ring");
+
+// the block of each variant
+#define SRT_TRACE_BLOCK_OF(TRI) ((TRI) == kClusteredTris ? kWalkBlock : kBlock)
+
+// the walk's dynamic shared memory before the tables: each warp's ring of
+// chunk buffers, then its barriers
+constexpr size_t kRingFloat4s = (size_t)kWalkWarps * kStages * kChunk * kRowF4;
+constexpr size_t kWalkBytes =
+    kRingFloat4s * 16 + (size_t)kWalkWarps * kStages * 8;
 
 // ---- sky (ops/sky.py) -----------------------------------------------------
 
@@ -211,109 +301,424 @@ __device__ __forceinline__ void mt_update(const float* q, int row, V3 o, V3 d,
   }
 }
 
-// The clustered mesh (bounce_kernel.py:_tris_clustered): groups of 8
-// clusters in the wrapper's front-to-back order; a group's 8 boxes are
-// slab-tested against the live best t (seeded with the nearest sphere or
-// plane), then MT runs over every slot of each admitted cluster.  The first
-// cluster visited wins an exact tie, the lowest slot within a cluster.
-// Each box is grown by kSlabMargin times the larger of the ray origin's and
-// the boxes' largest coordinate magnitude: in t that is `pad` times the
-// largest |1 / d|, which widens each axis's slab at least as much.  A zero
-// direction component makes pad infinite and admits every real box.
-// The counting instance is called by every lane of the warp (a dead lane
-// with live false admits nothing) and adds to the bounce's counters.
-template <bool COUNT>
-__device__ __forceinline__ void tris_clustered(
-    const float* __restrict__ table, const float* s_box, const TraceParams& p,
-    V3 o, V3 d, TriHit& best, bool live, unsigned long long* cnt) {
-  const float inx = 1.0f / d.x;
-  const float iny = 1.0f / d.y;
-  const float inz = 1.0f / d.z;
+
+// ---- the clustered traversal: the warp walk (kClusteredTris) ------------
+
+// a lane's ray for the walk: o, d, 1 / d and its slab margin in t
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float inx, iny, inz;
+  float pad;
+};
+
+// The lane's ray.  Its slab margin is kSlabMargin times the larger of the
+// ray origin's and the boxes' largest coordinate magnitude: in t that is
+// `pad` times the largest |1 / d|, which widens each axis's slab at least
+// as much.  A zero direction component makes pad infinite and admits every
+// real box.
+__device__ __forceinline__ Ray walk_ray(V3 o, V3 d, float extent) {
+  Ray r;
+  r.ox = o.x;
+  r.oy = o.y;
+  r.oz = o.z;
+  r.dx = d.x;
+  r.dy = d.y;
+  r.dz = d.z;
+  r.inx = 1.0f / d.x;
+  r.iny = 1.0f / d.y;
+  r.inz = 1.0f / d.z;
   const float mag = fmaxf(fmaxf(fabsf(o.x), fabsf(o.y)),
-                          fmaxf(fabsf(o.z), p.cluster_extent));
-  const float pad = kSlabMargin * mag
-                    * fmaxf(fmaxf(fabsf(inx), fabsf(iny)), fabsf(inz));
-  const int n_groups = p.n_clusters / 8;
-  for (int gi = 0; gi < n_groups; ++gi) {
-    const int g = p.group_order[gi];
-    unsigned word = 0;
-    for (int k = 0; k < 8; ++k) {
-      const float* b = s_box + 8 * (g * 8 + k);
-      const float t1x = (b[0] - o.x) * inx;
-      const float t2x = (b[3] - o.x) * inx;
-      const float t1y = (b[1] - o.y) * iny;
-      const float t2y = (b[4] - o.y) * iny;
-      const float t1z = (b[2] - o.z) * inz;
-      const float t2z = (b[5] - o.z) * inz;
-      const float near = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
-                                 max_nan(min_nan(t1z, t2z), 0.0f));
-      const float far = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
-                                min_nan(max_nan(t1z, t2z), best.t));
-      // NaN (0 * inf on a box plane) keeps the cluster; padding clusters
-      // (every plane at 3e38) fall to the b[0] >= 1e38 term
-      if (!((near - pad > far + pad) || (b[0] >= 1.0e38f))) word |= 1u << k;
-    }
-    if constexpr (COUNT) {
-      if (!live) word = 0;
-      const unsigned any = __reduce_or_sync(kAll, word);
-      const unsigned most = __reduce_max_sync(kAll, __popc(word));
-      if ((threadIdx.x & 31) == 0) {
-        atomicAdd(cnt + kCountUnion, (unsigned long long)__popc(any));
-        atomicAdd(cnt + kCountMtSteps,
-                  (unsigned long long)most * p.cluster_k);
+                          fmaxf(fabsf(o.z), extent));
+  r.pad = kSlabMargin * mag
+          * fmaxf(fmaxf(fabsf(r.inx), fabsf(r.iny)), fabsf(r.inz));
+  return r;
+}
+
+// May the ray meet the box [lo, hi] before t_far, within the margin?  NaN
+// (0 * inf on a box plane) admits the box; a padding box (every plane at
+// 3e38) falls to the lo.x >= 1e38 term.
+__device__ __forceinline__ bool slab_pad(float lx, float ly, float lz,
+                                         float hx, float hy, float hz,
+                                         const Ray& r, float t_far) {
+  const float t1x = (lx - r.ox) * r.inx;
+  const float t2x = (hx - r.ox) * r.inx;
+  const float t1y = (ly - r.oy) * r.iny;
+  const float t2y = (hy - r.oy) * r.iny;
+  const float t1z = (lz - r.oz) * r.inz;
+  const float t2z = (hz - r.oz) * r.inz;
+  const float near = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                             max_nan(min_nan(t1z, t2z), 0.0f));
+  const float far = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                            min_nan(max_nan(t1z, t2z), t_far));
+  return !((near - r.pad > far + r.pad) || (lx >= 1.0e38f));
+}
+
+// the test of box row b (8 floats: lo, hi, 0, 0, read as two float4s)
+__device__ __forceinline__ bool slab_box(const float* __restrict__ b,
+                                         const Ray& r, float t_far) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(b));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(b) + 1);
+  return slab_pad(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, t_far);
+}
+
+// the lane's gates of N consecutive box rows against t_far, bit i for box
+// i: all loads issued together, so a batch costs one trip to memory
+template <int N>
+__device__ __forceinline__ unsigned slab_mask(const float* __restrict__ b,
+                                              const Ray& r, float t_far) {
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  unsigned m = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float4 lo = __ldg(b4 + 2 * i);       // lo.xyz, hi.x
+    const float4 hi = __ldg(b4 + 2 * i + 1);   // hi.yz, 0, 0
+    m |= (unsigned)slab_pad(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, t_far)
+         << i;
+  }
+  return m;
+}
+
+// a warp-uniform count of the counting instance, added by lane 0
+template <bool COUNT>
+__device__ __forceinline__ void count(unsigned long long* cnt, int i,
+                                      unsigned long long n) {
+  if constexpr (COUNT) {
+    if ((threadIdx.x & 31) == 0 && n) atomicAdd(cnt + i, n);
+  }
+}
+
+// the best triangle of the walk: t, its global index (decides exact ties)
+// and its table slot
+struct Best {
+  float t;
+  int32_t idx;
+  int32_t slot;
+};
+
+// the commit of a valid hit at t (global index g, table slot): the least
+// (t, index) wins
+__device__ __forceinline__ void commit(float t, int32_t g, int slot,
+                                       Best& best) {
+  if (t <= best.t && (t < best.t || g < best.idx)) {
+    best.t = t;
+    best.idx = g;
+    best.slot = slot;
+  }
+}
+
+// Moller-Trumbore against one staged slot: is it a valid hit, at t?  The
+// operations of mt_update, in its order.
+__device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
+                                           int sl, const Ray& r, float& t,
+                                           int32_t& g) {
+  const float4 a = buf[kRowF4 * sl];       // v0, global index
+  const float4 b = buf[kRowF4 * sl + 1];   // e1, active
+  const float4 e = buf[kRowF4 * sl + 2];   // e2
+  g = __float_as_int(a.w);
+  const float hx = r.dy * e.z - r.dz * e.y;
+  const float hy = r.dz * e.x - r.dx * e.z;
+  const float hz = r.dx * e.y - r.dy * e.x;
+  const float aa = b.x * hx + b.y * hy + b.z * hz;
+  const float f = 1.0f / aa;
+  const float sx = r.ox - a.x;
+  const float sy = r.oy - a.y;
+  const float sz = r.oz - a.z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * b.z - sz * b.y;
+  const float qy = sz * b.x - sx * b.z;
+  const float qz = sx * b.y - sy * b.x;
+  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  t = f * (e.x * qx + e.y * qy + e.z * qz);
+  return aa != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f
+         && t > 0.0f && b.w > 0.0f;
+}
+
+// The admitting lanes' MT over one staged chunk of n slots (first: its
+// first table slot).  Few lanes admitting (at most kSplitMax): for each
+// admitting ray in turn every lane tests every 32nd slot with that ray,
+// and the least (t, index) of the warp is committed by the ray's own lane.
+// Many: each admitting lane tests every slot (the whole warp reads one
+// address).  Called by the whole warp.
+template <bool COUNT>
+__device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
+                                         int n, int first, unsigned admit,
+                                         bool ok, const Ray& r, Best& best,
+                                         unsigned long long* cnt) {
+  const int lane = threadIdx.x & 31;
+  const int n_admit = __popc(admit);
+  count<COUNT>(cnt, kCountLaneSteps, (unsigned long long)n_admit * n);
+  if (n_admit > kSplitMax) {
+    count<COUNT>(cnt, kCountMtSteps, n);
+    if (ok) {
+      for (int sl = 0; sl < n; ++sl) {
+        float t;
+        int32_t g;
+        if (staged_hit(buf, sl, r, t, g)) commit(t, g, first + sl, best);
       }
-      if (live) {
-        atomicAdd(cnt + kCountBoxTests, 8ull);
-        atomicAdd(cnt + kCountAdmitted, (unsigned long long)__popc(word));
-        atomicAdd(cnt + kCountLaneSteps,
-                  (unsigned long long)__popc(word) * p.cluster_k);
+    }
+    return;
+  }
+  count<COUNT>(cnt, kCountSplit, 1);
+  count<COUNT>(cnt, kCountMtSteps,
+               (unsigned long long)n_admit * ((n + 31) / 32));
+  for (unsigned m = admit; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    Ray q;
+    q.ox = __shfl_sync(kAll, r.ox, src);
+    q.oy = __shfl_sync(kAll, r.oy, src);
+    q.oz = __shfl_sync(kAll, r.oz, src);
+    q.dx = __shfl_sync(kAll, r.dx, src);
+    q.dy = __shfl_sync(kAll, r.dy, src);
+    q.dz = __shfl_sync(kAll, r.dz, src);
+    // this lane's least candidate as one key: t > 0, so its bits order
+    // as the floats do, then the global index (>= 0 for an active slot)
+    unsigned long long key = ~0ull;
+    int slot = -1;
+    for (int sl = lane; sl < n; sl += 32) {
+      float t;
+      int32_t g;
+      if (staged_hit(buf, sl, q, t, g)) {
+        const unsigned long long k2 =
+            ((unsigned long long)__float_as_uint(t) << 32) | (uint32_t)g;
+        if (k2 < key) {
+          key = k2;
+          slot = first + sl;
+        }
       }
     }
-    while (word) {
-      const int c = g * 8 + __ffs(word) - 1;
-      word &= word - 1;
-      const int row0 = c * p.cluster_k;
-      for (int s = 0; s < p.cluster_k; ++s)
-        mt_update<true>(table + kTriCols * (row0 + s), row0 + s, o, d, best);
+    const unsigned any = __ballot_sync(kAll, key != ~0ull);
+    if (!any) continue;
+    unsigned long long least = key;
+    int from = __ffs(any) - 1;
+    if (any & (any - 1)) {
+      for (int off = 16; off > 0; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(kAll, least, off);
+        least = o < least ? o : least;
+      }
+      from = __ffs(__ballot_sync(kAll, key == least)) - 1;
+    } else {
+      least = __shfl_sync(kAll, key, from);
     }
+    const int won = __shfl_sync(kAll, slot, from);
+    if (lane == src)
+      commit(__uint_as_float((uint32_t)(least >> 32)),
+             (int32_t)(uint32_t)least, won, best);
+  }
+}
+
+// the walk's place: a batch of up to kBatch groups from j0, the current
+// group g's supers and the current super s's clusters, each as this lane's
+// gates (bit i: member i admitted) and the warp's union, less the members
+// visited
+struct Walk {
+  int j0 = -kBatch;
+  unsigned g_mask = 0, g_any = 0;
+  int g = 0;
+  unsigned s_mask = 0, s_any = 0;
+  int s = -1;
+  unsigned c_mask = 0, c_any = 0;
+};
+
+// one staged chunk: slots [base, base + kChunk) of cluster c, and whether
+// this lane admitted the cluster when it was found
+struct Item {
+  int c;
+  int base;
+  bool ok;
+};
+
+// the ring's place, carried from one walk of the warp to the next: chunks
+// copied, chunks consumed (equal between walks) and each buffer's next
+// barrier parity (bit b)
+struct Ring {
+  uint32_t issued = 0, done = 0, phase = 0;
+};
+
+// The next chunk to stage: the current cluster's next chunk, else the next
+// cluster some lane admits, through the group, super and cluster gates in
+// index order (kFlatGate: every cluster box, 16 at a time).  A level's
+// gates are tested together when the walk enters its parent, each against
+// the lane's best t then: a t can only fall, so that admits at least what
+// gating each box at its turn would, and the chunk's own turn tests its
+// cluster's box again.  Called by the whole warp; false at the end.
+template <bool COUNT>
+__device__ __forceinline__ bool next_item(
+    Walk& w, Item& it, const TraceArgs& a, const TraceParams& p, bool live,
+    const Ray& r, float best_t, unsigned long long* cnt) {
+  if (it.c >= 0 && it.base + kChunk < p.cluster_k) {
+    it.base += kChunk;
+    return true;
+  }
+  for (;;) {
+    if (w.c_any) {
+      const int i = __ffs(w.c_any) - 1;
+      w.c_any &= w.c_any - 1;
+      it.c = w.s * kSuper + i;
+      it.base = 0;
+      it.ok = (w.c_mask >> i) & 1u;
+      return true;
+    }
+    if constexpr (kFlatGate) {
+      if (++w.s >= p.n_groups * kGroup) return false;
+      w.c_mask = live ? slab_mask<kSuper>(a.boxes + 8 * kSuper * w.s, r,
+                                          best_t)
+                      : 0u;
+      w.c_any = __reduce_or_sync(kAll, w.c_mask);
+      if constexpr (COUNT)
+        count<COUNT>(cnt, kCountBoxTests,
+                     kSuper * __popc(__ballot_sync(kAll, live)));
+      continue;
+    }
+    if (w.s_any) {
+      const int i = __ffs(w.s_any) - 1;
+      w.s_any &= w.s_any - 1;
+      w.s = w.g * kGroup + i;
+      const bool in = (w.s_mask >> i) & 1u;
+      w.c_mask = in ? slab_mask<kSuper>(a.boxes + 8 * kSuper * w.s, r, best_t)
+                    : 0u;
+      w.c_any = __reduce_or_sync(kAll, w.c_mask);
+      if constexpr (COUNT)
+        count<COUNT>(cnt, kCountBoxTests,
+                     kSuper * __popc(__ballot_sync(kAll, in)));
+      continue;
+    }
+    if (w.g_any) {
+      const int i = __ffs(w.g_any) - 1;
+      w.g_any &= w.g_any - 1;
+      w.g = w.j0 + i;
+      const bool in = (w.g_mask >> i) & 1u;
+      w.s_mask = in ? slab_mask<kGroup>(a.supers + 8 * kGroup * w.g, r,
+                                        best_t)
+                    : 0u;
+      w.s_any = __reduce_or_sync(kAll, w.s_mask);
+      if constexpr (COUNT)
+        count<COUNT>(cnt, kCountBoxTests,
+                     kGroup * __popc(__ballot_sync(kAll, in)));
+      continue;
+    }
+    w.j0 += kBatch;
+    if (w.j0 >= p.n_groups) return false;
+    const int n = min(kBatch, p.n_groups - w.j0);
+    w.g_mask = 0;
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (i < n && slab_box(a.groups + 8 * (w.j0 + i), r, best_t))
+          w.g_mask |= 1u << i;
+    }
+    w.g_any = __reduce_or_sync(kAll, w.g_mask);
+    if constexpr (COUNT)
+      count<COUNT>(cnt, kCountBoxTests,
+                   (unsigned long long)n * __popc(__ballot_sync(kAll, live)));
+  }
+}
+
+// The warp walk of one bounce: the warp visits, in order, every chunk of
+// every cluster that some lane's gates admit (next_item); each chunk is one
+// bulk copy of its staged rows into the next buffer of the warp's ring, so
+// that while a chunk's MT runs the copies of the next kStages - 1 are in
+// flight.  At a chunk's turn each lane tests the cluster's box again with
+// its t then, and the lanes that still admit it run MT (mt_chunk).  Called
+// by the whole warp, live lanes or not.
+template <bool COUNT>
+__device__ __forceinline__ void walk(const TraceArgs& a, const TraceParams& p,
+                                     bool live, const Ray& r, Best& best,
+                                     float4* __restrict__ s_ring,
+                                     uint64_t* __restrict__ s_bar, Ring& ring,
+                                     unsigned long long* cnt) {
+  const int lane = threadIdx.x & 31;
+  Walk w;
+  Item last = {-1, 0, false};   // the chunk found last
+  Item q[kStages];              // the chunks staged, oldest first
+  int n_q = 0;
+  bool more = true;
+  // find the next chunk and copy it into the next buffer of the ring
+  auto stage_next = [&]() {
+    more = next_item<COUNT>(w, last, a, p, live, r, best.t, cnt);
+    if (!more) return;
+#pragma unroll
+    for (int i = 0; i < kStages; ++i)
+      if (i == n_q) q[i] = last;
+    ++n_q;
+    const int b = ring.issued++ % kStages;
+    const int first = min(last.c, p.n_clusters - 1) * p.cluster_k + last.base;
+    const int n = min(kChunk, p.cluster_k - last.base);
+    count<COUNT>(cnt, kCountChunks, 1);
+    __syncwarp();   // every lane is done with buffer b's last chunk
+    if (lane == 0)
+      bulk_load(s_ring + b * kChunk * kRowF4,
+                a.staged + (size_t)first * kRowF4,
+                static_cast<uint32_t>(n * kRowF4 * 16), &s_bar[b]);
+  };
+  while (more && n_q < kStages) stage_next();
+  while (n_q > 0) {
+    const Item cur = q[0];
+#pragma unroll
+    for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
+    --n_q;
+    const int b = ring.done++ % kStages;
+    bar_wait(&s_bar[b], (ring.phase >> b) & 1u);
+    ring.phase ^= 1u << b;
+    const bool ok = cur.ok && slab_box(a.boxes + 8 * cur.c, r, best.t);
+    if constexpr (COUNT)
+      count<COUNT>(cnt, kCountBoxTests, __popc(__ballot_sync(kAll, cur.ok)));
+    const unsigned admit = __ballot_sync(kAll, ok);
+    if (admit) {
+      if (cur.base == 0) {
+        count<COUNT>(cnt, kCountUnion, 1);
+        count<COUNT>(cnt, kCountAdmitted, __popc(admit));
+      }
+      const int first = min(cur.c, p.n_clusters - 1) * p.cluster_k + cur.base;
+      mt_chunk<COUNT>(s_ring + b * kChunk * kRowF4,
+                      min(kChunk, p.cluster_k - cur.base), first, admit, ok,
+                      r, best, cnt);
+    } else {
+      count<COUNT>(cnt, kCountWasted, 1);
+    }
+    if (more) stage_next();   // into buffer b, just read
   }
 }
 
 template <int TRI, bool COUNT = false>
-__global__ void __launch_bounds__(kBlock)
-trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
-             const float* __restrict__ mat, const float* __restrict__ tri,
-             const float* __restrict__ box, float* __restrict__ out,
-             const TraceParams p, unsigned long long* __restrict__ counters) {
-  extern __shared__ float smem[];
-  float* s_sph = smem;
+__global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI))
+trace_kernel(const TraceArgs a, const TraceParams p,
+             unsigned long long* __restrict__ counters) {
+  constexpr bool kWalk = TRI == kClusteredTris;
+  extern __shared__ __align__(128) float4 s_dyn[];
+  // kClusteredTris: the warps' rings (16-byte aligned for the bulk copies)
+  // and barriers come first
+  float4* s_ring = s_dyn;
+  uint64_t* s_bars = reinterpret_cast<uint64_t*>(s_dyn + kRingFloat4s);
+  float* s_sph = kWalk ? reinterpret_cast<float*>(
+                             reinterpret_cast<char*>(s_dyn) + kWalkBytes)
+                       : reinterpret_cast<float*>(s_dyn);
   float* s_pln = s_sph + 8 * p.n_spheres;
   float* s_mat = s_pln + 8 * p.n_planes;
   float* s_tri = s_mat + 16 * p.n_materials;   // kSmallTris
-  float* s_box = s_tri;                        // kClusteredTris
   for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
-    s_sph[k] = sph[k];
+    s_sph[k] = a.sph[k];
   for (int k = threadIdx.x; k < 8 * p.n_planes; k += blockDim.x)
-    s_pln[k] = pln[k];
+    s_pln[k] = a.pln[k];
   for (int k = threadIdx.x; k < 16 * p.n_materials; k += blockDim.x)
-    s_mat[k] = mat[k];
+    s_mat[k] = a.mat[k];
   if (TRI == kSmallTris) {
     for (int k = threadIdx.x; k < kTriCols * p.n_tris; k += blockDim.x)
-      s_tri[k] = tri[k];
+      s_tri[k] = a.tri[k];
   }
-  if (TRI == kClusteredTris) {
-    for (int k = threadIdx.x; k < 8 * p.n_clusters; k += blockDim.x)
-      s_box[k] = box[k];
+  if constexpr (kWalk) {
+    if (threadIdx.x < kWalkWarps * kStages) bar_init(s_bars + threadIdx.x);
+    bar_init_fence();
   }
   __syncthreads();
 
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  // the counting instance keeps every lane of the warp in the bounce loop
-  // (a lane past the rays, or whose ray died, as a dead lane), so that its
-  // warp-wide counts see the lanes of each bounce together
+  // kClusteredTris keeps every lane of the block to the end: the walk is
+  // the warp's, and a lane past the rays walks as a dead lane
   const bool in_range = g < p.n_rays;
-  if (!COUNT && !in_range) return;
-  bool live = in_range;
+  if (!kWalk && !in_range) return;
+  bool alive = in_range;
+  const int warp = threadIdx.x >> 5;
+  Ring ring;
 
   // ---- ray generation (ops/camera.py: generate_rays) ----
   const int s = g % p.num_samples;
@@ -350,19 +755,20 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
   V3 sky_dir = mk(0.0f, 0.0f, 1.0f);
   for (int bounce = 0; bounce < p.num_bounces; ++bounce) {
     unsigned long long* cnt = nullptr;
-    if constexpr (COUNT) {
-      const unsigned lanes = __ballot_sync(kAll, live);
+    if constexpr (kWalk) {
+      // the warp goes on while any of its lanes is alive
+      const unsigned lanes = __ballot_sync(kAll, alive);
       if (!lanes) break;
-      cnt = counters + (size_t)bounce * kCounters;
-      if ((threadIdx.x & 31) == 0) {
-        atomicAdd(cnt + kCountLive, (unsigned long long)__popc(lanes));
-        atomicAdd(cnt + kCountWarps, 1ull);
+      if constexpr (COUNT) {
+        cnt = counters + (size_t)bounce * kCounters;
+        count<COUNT>(cnt, kCountLive, __popc(lanes));
+        count<COUNT>(cnt, kCountWarps, 1);
       }
     }
     // the nearest sphere and plane (path_common.cuh)
     float t_s = INFINITY, t_p = INFINITY;
     int i_s = 0, i_p = 0;
-    if (live) {
+    if (alive) {
       nearest_sphere(s_sph, p.n_spheres, o, d, t_s, i_s);
       nearest_plane(s_pln, p.n_planes, o, d, t_p, i_p);
     }
@@ -377,19 +783,28 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
         mt_update<false>(s_tri + kTriCols * j, j, o, d, th);
       t_t = th.t;
     }
-    if (TRI == kClusteredTris) {
-      th.t = min_nan(t_s, t_p);
-      tris_clustered<COUNT>(tri, s_box, p, o, d, th, live, cnt);
-      if (th.row >= 0) t_t = th.t;
+    if constexpr (kWalk) {
+      Best best = {min_nan(t_s, t_p), -1, -1};
+      walk<COUNT>(a, p, alive, walk_ray(o, d, p.cluster_extent), best,
+                  s_ring + (size_t)warp * kStages * kChunk * kRowF4,
+                  s_bars + warp * kStages, ring, cnt);
+      if (best.idx >= 0) {
+        // the winner's (u, v): MT again on its row, the same operations
+        // on the same values, so the same bits as the walk's test
+        mt_update<true>(a.tri + (size_t)kTriCols * best.slot, best.slot, o,
+                        d, th);
+        th.row = best.slot;
+        t_t = best.t;
+      }
+      if (!alive) continue;
     }
-    if (COUNT && !live) continue;
     const float t = min_nan(min_nan(t_s, t_p), t_t);  // never NaN
     if (t == INFINITY) {
       // a miss: the sky is evaluated once after the loop, and the ray dies
       sky_mask = mask;
       sky_dir = d;
-      if constexpr (COUNT) {
-        live = false;
+      if constexpr (kWalk) {
+        alive = false;
         continue;
       }
       break;
@@ -409,7 +824,8 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
     } else {
       // the smooth normal from MT's own (u, v) (ops/intersect.py:
       // triangle_normal), then normalized
-      const float* q = (TRI == kSmallTris ? s_tri : tri) + kTriCols * th.row;
+      const float* q = (TRI == kSmallTris ? s_tri : a.tri)
+                       + (size_t)kTriCols * th.row;
       const float w0 = 1.0f - th.u - th.v;
       normal = normalize(add(add(scale(load3(q + 9), w0),
                                  scale(load3(q + 12), th.u)),
@@ -430,91 +846,110 @@ trace_kernel(const float* __restrict__ sph, const float* __restrict__ pln,
     mask = mul(mask, sc.mask_mul);
   }
 
-  if (COUNT && !in_range) return;
+  if (!in_range) return;
   const size_t n = (size_t)p.n_rays;
   if (p.sky_rows) {
     // color, sky_mask, sky_dir: the sky is the wrapper's
     const float rows[9] = {color.x, color.y, color.z, sky_mask.x,
                            sky_mask.y, sky_mask.z, sky_dir.x, sky_dir.y,
                            sky_dir.z};
-    for (int k = 0; k < 9; ++k) out[k * n + g] = rows[k];
+    for (int k = 0; k < 9; ++k) a.out[k * n + g] = rows[k];
     return;
   }
   color = add(color, mul(sky_mask, sky_gradient(sky_dir, p)));
-  out[g] = color.x;
-  out[n + g] = color.y;
-  out[2 * n + g] = color.z;
+  a.out[g] = color.x;
+  a.out[n + g] = color.y;
+  a.out[2 * n + g] = color.z;
+}
+
+// the dynamic shared memory of a launch: the walk's rings and barriers
+// (kClusteredTris), then the tables
+size_t shared_bytes(const TraceParams& p) {
+  size_t words = 8 * (size_t)p.n_spheres + 8 * (size_t)p.n_planes
+                 + 16 * (size_t)p.n_materials;
+  if (p.tri_mode == kSmallTris) words += kTriCols * (size_t)p.n_tris;
+  return sizeof(float) * words
+         + (p.tri_mode == kClusteredTris ? kWalkBytes : 0);
 }
 
 // launch one variant, opting in to more than the default dynamic shared
 // memory when its tables need it
 template <int TRI, bool COUNT = false>
-cudaError_t launch_variant(int blocks, size_t bytes, cudaStream_t st,
-                           const float* sph, const float* pln,
-                           const float* mat, const float* tri,
-                           const float* box, float* out,
+cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
                            const TraceParams& p,
                            unsigned long long* counters = nullptr) {
+  constexpr int block = SRT_TRACE_BLOCK_OF(TRI);
+  const int blocks = (p.n_rays + block - 1) / block;
+  const size_t bytes = shared_bytes(p);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         trace_kernel<TRI, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  trace_kernel<TRI, COUNT><<<blocks, kBlock, bytes, st>>>(
-      sph, pln, mat, tri, box, out, p, counters);
+  trace_kernel<TRI, COUNT><<<blocks, block, bytes, st>>>(a, p, counters);
   return cudaGetLastError();
+}
+
+// a kClusteredTris launch's tables and parameters, as the walk reads them
+bool clustered_ok(const TraceArgs& a, const TraceParams& p) {
+  return a.tri != nullptr && a.staged != nullptr && a.boxes != nullptr
+         && a.supers != nullptr && a.groups != nullptr
+         && reinterpret_cast<uintptr_t>(a.staged) % 16 == 0
+         && p.cluster_k > 0 && p.n_clusters > 0 && p.n_groups > 0
+         && p.n_clusters <= p.n_groups * kGroup * kSuper;
 }
 
 }  // namespace
 
+// One launch on the stream.  Tables: (n, 8) spheres and planes, (n, 16)
+// materials; tri: the (n_tris, 20) triangle rows (kSmallTris) or the
+// (C * K, 20) slot table (kClusteredTris); kClusteredTris also takes the
+// staged MT rows ((C * K, 12) f32, 16-byte aligned), the cluster boxes
+// padded to whole groups ((n_groups * 256, 8)), the supers and the groups;
+// out: (3 or 9, n_rays) f32.
 extern "C" int srt_trace_launch(const float* sph, const float* pln,
                                 const float* mat, const float* tri,
-                                const float* box, float* out, TraceParams p,
-                                void* stream) {
+                                const float* staged, const float* boxes,
+                                const float* supers, const float* groups,
+                                float* out, TraceParams p, void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
-  const int blocks = (p.n_rays + kBlock - 1) / kBlock;
-  size_t words = 8 * (size_t)p.n_spheres + 8 * (size_t)p.n_planes
-                 + 16 * (size_t)p.n_materials;
+  const TraceArgs a = {sph, pln, mat, tri,
+                       reinterpret_cast<const float4*>(staged), boxes, supers,
+                       groups, out};
   cudaStream_t st = (cudaStream_t)stream;
   switch (p.tri_mode) {
     case kNoTris:
-      return (int)launch_variant<kNoTris>(blocks, sizeof(float) * words, st,
-                                          sph, pln, mat, tri, box, out, p);
+      return (int)launch_variant<kNoTris>(st, a, p);
     case kSmallTris:
-      words += kTriCols * (size_t)p.n_tris;
-      return (int)launch_variant<kSmallTris>(blocks, sizeof(float) * words,
-                                             st, sph, pln, mat, tri, box, out,
-                                             p);
+      return (int)launch_variant<kSmallTris>(st, a, p);
     case kClusteredTris:
-      if (p.n_clusters > 8 * SRT_MAX_GROUPS)
-        return (int)cudaErrorInvalidValue;
-      words += 8 * (size_t)p.n_clusters;
-      return (int)launch_variant<kClusteredTris>(
-          blocks, sizeof(float) * words, st, sph, pln, mat, tri, box, out, p);
+      if (!clustered_ok(a, p)) return (int)cudaErrorInvalidValue;
+      return (int)launch_variant<kClusteredTris>(st, a, p);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // The counting instance of kClusteredTris: the same launch, which also adds
-// what the traversal did to counters ((num_bounces, kCounters) int64,
-// Count); chip_smoke.py's only
+// what the walk did to counters ((num_bounces, kCounters) int64, Count);
+// chip_smoke.py's only
 extern "C" int srt_trace_count_launch(const float* sph, const float* pln,
                                       const float* mat, const float* tri,
-                                      const float* box, float* out,
+                                      const float* staged, const float* boxes,
+                                      const float* supers,
+                                      const float* groups, float* out,
                                       unsigned long long* counters,
                                       TraceParams p, void* stream) {
+  const TraceArgs a = {sph, pln, mat, tri,
+                       reinterpret_cast<const float4*>(staged), boxes, supers,
+                       groups, out};
   if (p.tri_mode != kClusteredTris || counters == nullptr
-      || p.n_clusters > 8 * SRT_MAX_GROUPS)
+      || !clustered_ok(a, p))
     return (int)cudaErrorInvalidValue;
   if (p.n_rays <= 0) return (int)cudaSuccess;
-  const int blocks = (p.n_rays + kBlock - 1) / kBlock;
-  const size_t words = 8 * (size_t)p.n_spheres + 8 * (size_t)p.n_planes
-                       + 16 * (size_t)p.n_materials + 8 * (size_t)p.n_clusters;
-  return (int)launch_variant<kClusteredTris, true>(
-      blocks, sizeof(float) * words, (cudaStream_t)stream, sph, pln, mat, tri,
-      box, out, p, counters);
+  return (int)launch_variant<kClusteredTris, true>((cudaStream_t)stream, a, p,
+                                                   counters);
 }
 
 // the dynamic shared memory a block of the device may opt in to

@@ -73,7 +73,8 @@ class Kernel:
                 raise RuntimeError("nvcc not found: the CUDA toolkit is "
                                    f"needed to build {self.source.name}")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            # two Kernels of one source and flags may build at once
+            tmp = out.with_suffix(f".{os.getpid()}.{id(self)}.tmp")
             proc = subprocess.run(
                 [nvcc, *self.flags, "-o", str(tmp), str(self.source)],
                 capture_output=True, text=True)

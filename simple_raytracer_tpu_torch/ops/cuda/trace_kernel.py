@@ -8,23 +8,30 @@ a scene with a texture skybox, without it (``fold_sky=False``): the
 kernel writes 9 rows per ray (the emission gathered, the throughput and
 direction at the miss) and the wrapper samples the texture on them once
 (``ops/trace.add_sky``), as ``trace_full_fused`` does.  Its triangle
-forms: ``_tris_small``
-(a dense loop over at most ``scene_types.SMALL_TRIS_MAX`` triangles) and
-``_tris_clustered`` (a BVH-clustered mesh of at most ``TABLE_MAX_SLOTS``
-slots, or under ``tri_backend="fused"`` the TPU's packed form of it, at
-most ``MEGA_PACKED_MAX_CLUSTERS`` clusters of at most 128 slots: config
-6's 98,304 slots).  Its plain PyTorch version, ``trace_full_plain``, is
-``generate_rays`` followed by ``trace_rays_rows`` in its whole-trace form
-(triangles shaded at MT's (u, v)), then the same ``add_sky``.
+forms: ``_tris_small`` (a dense loop over at most
+``scene_types.SMALL_TRIS_MAX`` triangles) and ``_tris_clustered`` (a
+BVH-clustered mesh of at most ``TABLE_MAX_SLOTS`` slots, or under
+``tri_backend="fused"`` the TPU's packed form of it, at most
+``MEGA_PACKED_MAX_CLUSTERS`` clusters of at most 128 slots: config 6's
+98,304 slots).  The kernel walks a clustered mesh warp by warp down the
+scene's hierarchy (``ops/bvh.build_hierarchy``), feeding Moller-Trumbore
+from the staged MT table (``ops/bvh.staged_slots``, built on the first
+launch, once per scene) through a ring of bulk copies in shared memory;
+the least (t, global triangle index) wins, so the visiting order changes
+no result, and the winner's (u, v) are recomputed on its row.  Its plain
+PyTorch version, ``trace_full_plain``, is ``generate_rays`` followed by
+``trace_rays_rows`` in its whole-trace form (every triangle tested
+densely, the lowest index winning an exact tie, triangles shaded at MT's
+(u, v)), then the same ``add_sky``.
 
 ``trace_full`` takes the plain version only for a scene on the CPU.  For
 a scene on a CUDA device it launches the kernel or raises: there is no
 fallback, and a mesh outside the kernel's envelope
 (``scene_types.whole_trace_variant`` is None) raises too;
 ``ops/trace.render_pass`` sends such scenes to a per-bounce path
-instead.  The tables sit in shared memory, and the launch
-opts in to more than the default 48 KB, up to the device's limit.  The
-kernel is built on first use (``ops/cuda/build.py``).
+instead.  The tables and the walk's rings sit in shared memory, and the
+launch opts in to more than the default 48 KB, up to the device's limit.
+The kernel is built on first use (``ops/cuda/build.py``).
 """
 from __future__ import annotations
 
@@ -32,29 +39,44 @@ import ctypes
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 
+from .. import bvh
 from ..camera import generate_rays
-from ..scene_types import (TABLE_MAX_SLOTS, Clusters, DeviceScene,
-                           prim_tables, whole_trace_variant)
+from ..scene_types import DeviceScene, prim_tables, whole_trace_variant
 from ..vec import Vec3
 from .build import PACKAGE_DIR, Kernel
 
 SOURCE = PACKAGE_DIR / "csrc" / "trace_kernel.cu"
-BLOCK = 256
+BLOCK = 256          # the "none" and "small" variants' block
+# The clustered variant's warp walk (the CUDA source's defaults, which
+# chip_smoke.py's sweep sets on extra builds): its block, the slots of a
+# chunk, the warp's ring of chunk buffers, the most admitting lanes for
+# which a chunk's MT is split across the warp, and the flat gate (every
+# cluster box, no hierarchy)
+WALK_BLOCK = 128
+CHUNK = 64
+STAGES = 2
+SPLIT_MAX = 16
+FLAT_GATE = 0
+# shared memory of the walk a block: each warp's ring of staged rows and
+# one 8-byte barrier a buffer
+WALK_SHARED_BYTES = (WALK_BLOCK // 32) * STAGES * (
+    CHUNK * 4 * bvh.STAGED_COLS + 8)
 # dynamic shared memory a block gets without opting in; above it the
 # launch opts in, up to the device's limit (227 KB on an H100)
 DEFAULT_SHARED_BYTES = 48 * 1024
 # the kernel's triangle variants, as the CUDA source's TriMode
 TRI_MODES = {"none": 0, "small": 1, "clustered": 2}
 # bytes of parameters a kernel takes on every architecture; the launch
-# passes 6 pointers beside TraceParams
+# passes 9 pointers (TraceArgs) beside TraceParams
 PARAM_LIMIT_BYTES = 4096
-LAUNCH_POINTERS = 6
+LAUNCH_POINTERS = 9
 
 
-class _TraceParamsHead(ctypes.Structure):
+class TraceParams(ctypes.Structure):
+    """By-value launch parameters; the layout of ``TraceParams`` in the
+    CUDA source."""
     _fields_ = [
         ("rot", ctypes.c_float * 9),
         ("cam_pos", ctypes.c_float * 3),
@@ -83,28 +105,14 @@ class _TraceParamsHead(ctypes.Structure):
         ("n_tris", ctypes.c_int32),
         ("n_clusters", ctypes.c_int32),
         ("cluster_k", ctypes.c_int32),
+        ("n_groups", ctypes.c_int32),
         ("cluster_extent", ctypes.c_float),
         ("sky_rows", ctypes.c_int32),
     ]
 
 
-# the groups of 8 clusters whose order fits the parameter block, as
-# uint16 entries (an even count keeps the struct's size a multiple of 4);
-# every table of the envelope fits (TABLE_MAX_SLOTS slots, or
-# MEGA_PACKED_MAX_CLUSTERS clusters under tri_backend="fused")
-MAX_GROUPS = (PARAM_LIMIT_BYTES - 8 * LAUNCH_POINTERS
-              - ctypes.sizeof(_TraceParamsHead)) // 4 * 2
-
-
-class TraceParams(ctypes.Structure):
-    """By-value launch parameters; the layout of ``TraceParams`` in the
-    CUDA source (which takes MAX_GROUPS as SRT_MAX_GROUPS)."""
-    _fields_ = _TraceParamsHead._fields_ + [
-        ("group_order", ctypes.c_uint16 * MAX_GROUPS),
-    ]
-
-
-# srt_trace_launch(sph, pln, mat, tri, box, out, params, stream)
+# srt_trace_launch(sph, pln, mat, tri, staged, boxes, supers, groups, out,
+# params, stream)
 LAUNCH_ARGTYPES = ([ctypes.c_void_p] * LAUNCH_POINTERS
                    + [TraceParams, ctypes.c_void_p])
 # srt_trace_count_launch: the same, and the counters before the params
@@ -112,7 +120,7 @@ COUNT_ARGTYPES = ([ctypes.c_void_p] * (LAUNCH_POINTERS + 1)
                   + [TraceParams, ctypes.c_void_p])
 # the counting instance's counters of a bounce (the CUDA source's Count)
 COUNTERS = ("live", "warps", "box_tests", "admitted", "union", "mt_steps",
-            "lane_steps")
+            "lane_steps", "chunks", "split", "wasted")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -125,7 +133,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srt_shared_optin.restype = ctypes.c_int
 
 
-KERNEL = Kernel(SOURCE, _bind, extra_flags=[f"-DSRT_MAX_GROUPS={MAX_GROUPS}"])
+KERNEL = Kernel(SOURCE, _bind)
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,19 +153,6 @@ def check_shared_bytes(n_bytes: int, limit: int) -> None:
         raise ValueError(f"trace kernel: the scene tables need {n_bytes} B "
                          f"of shared memory, above the device's {limit} B "
                          "per block")
-
-
-def group_order(clusters: Clusters, position) -> np.ndarray:
-    """Front-to-back order of the groups of 8 clusters from the camera
-    position: by the squared distance of each group's nearest box center,
-    stably (bounce_kernel.trace_full_fused).  Padding groups sort last."""
-    cam = np.asarray(position, np.float32)
-    with np.errstate(invalid="ignore", over="ignore"):
-        diff = clusters.centers - cam[None, :]
-        d2 = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
-              + diff[:, 2] * diff[:, 2])
-    return np.argsort(d2.reshape(-1, 8).min(axis=1),
-                      kind="stable").astype(np.int32)
 
 
 def trace_full_plain(scene: DeviceScene, rot, position, aspect_ratio,
@@ -208,7 +203,8 @@ def split_rows(out: torch.Tensor):
 class Prepared:
     """One pass's launch, checked and packed: tables and parameters."""
     tables: tuple            # spheres, planes, materials (device f32)
-    tri_tables: tuple        # triangle rows, cluster boxes
+    tri_tables: tuple        # triangle rows; clustered: staged MT rows,
+                             # cluster boxes, supers, groups (else None)
     variant: str             # scene_types.whole_trace_variant
     params: TraceParams
     n_rays: int
@@ -255,28 +251,28 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
 
     sph, pln, mat = prim_tables(scene)
     tris = scene.triangles
-    tri, box = tris.table, None
-    shared = sph.numel() + pln.numel() + mat.numel()
+    tri_tables = (tris.table, None, None, None, None)
+    shared = 4 * (sph.numel() + pln.numel() + mat.numel())
     if variant == "small":
-        shared += tri.numel()
+        shared += 4 * tris.table.numel()
     elif variant == "clustered":
         cl = tris.clusters
-        if cl.slots.shape[0] % 8:
-            raise ValueError("trace kernel: the cluster count must be a "
-                             "multiple of 8")
-        box = cl.aabb
-        shared += box.numel()
-    for name, t in (("spheres", sph), ("planes", pln), ("materials", mat),
-                    ("triangles", tri), ("cluster boxes", box)):
+        hier = cl.hierarchy
+        tri_tables = (tris.table, bvh.staged_slots(cl, tris.table),
+                      hier.boxes, hier.supers, hier.groups)
+        shared += WALK_SHARED_BYTES
+    for name, t in zip(("spheres", "planes", "materials", "triangles",
+                        "staged MT rows", "cluster boxes", "supers",
+                        "groups"), (sph, pln, mat) + tri_tables):
         if t is not None and (t.device != device or t.dtype != torch.float32
                               or not t.is_contiguous()):
             raise ValueError(f"trace kernel: bad {name} table {t.dtype} "
                              f"on {t.device}")
-    check_shared_bytes(4 * shared, shared_limit(
+    check_shared_bytes(shared, shared_limit(
         device.index if device.index is not None
         else torch.cuda.current_device()))
     n_rays = width * tile_height * num_samples
-    if n_rays >= 2 ** 31 - BLOCK:
+    if n_rays >= 2 ** 31 - max(BLOCK, WALK_BLOCK):
         raise ValueError(f"trace kernel: {n_rays} rays overflow int32")
 
     sky = scene.sky
@@ -300,18 +296,13 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     p.tri_mode = TRI_MODES[variant]
     p.sky_rows = int(scene.skybox is not None)
     if variant == "small":
-        p.n_tris = tri.shape[0]
+        p.n_tris = tris.table.shape[0]
     elif variant == "clustered":
         cl = tris.clusters
         p.n_clusters, p.cluster_k = cl.slots.shape
+        p.n_groups = cl.hierarchy.groups.shape[0]
         p.cluster_extent = cl.extent
-        order = group_order(cl, position)
-        if order.shape[0] > MAX_GROUPS:
-            raise ValueError(f"trace kernel: {order.shape[0]} cluster groups "
-                             f"exceed the {MAX_GROUPS} the launch "
-                             "parameters hold")
-        p.group_order[:order.shape[0]] = order.tolist()
-    return Prepared((sph, pln, mat), (tri, box), variant, p, n_rays, device)
+    return Prepared((sph, pln, mat), tri_tables, variant, p, n_rays, device)
 
 
 def launch(prep: Prepared, out: torch.Tensor = None) -> torch.Tensor:

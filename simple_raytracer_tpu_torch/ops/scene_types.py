@@ -51,8 +51,6 @@ class Clusters:
     aabb: torch.Tensor       # (C, 8) f32 [min.xyz, max.xyz, 0, 0]; the
                              # padding clusters have every plane at 3e38
     slots: torch.Tensor      # (C, K) int64 triangle index, -1 = empty slot
-    centers: np.ndarray      # (C, 3) f32 box centers, on the host: the
-                             # wrapper orders the groups by them per pass
     extent: float            # the largest |coordinate| of a real box: the
                              # whole-trace kernel scales its slab-test
                              # margin by it
@@ -62,9 +60,10 @@ class Clusters:
     # scene) by ops/bvh.plucker_coefficients
     plucker: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
-    # the BVH kernel's warp-walk MT rows of the slot table
-    # (ops/bvh.stage_slots), built on the first two_level or streamed MT
-    # launch (once per scene) by ops/bvh.staged_slots
+    # the warp walks' MT rows of the slot table (ops/bvh.stage_slots),
+    # built on the first two_level or streamed MT launch of the BVH kernel
+    # or clustered launch of the whole-trace kernel (once per scene) by
+    # ops/bvh.staged_slots
     staged: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -291,12 +290,10 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
                 or slots.min() < -1 or slots.max() >= n_tris):
             raise ValueError(f"clusters: aabb {aabb.shape}, slots "
                              f"{slots.shape} over {n_tris} triangles")
-        with np.errstate(over="ignore"):   # padding boxes: inf centers
-            centers = (aabb[:, 0:3] + aabb[:, 3:6]) * np.float32(0.5)
         real = aabb[:, 0] < 1.0e38
         extent = float(np.abs(aabb[real, 0:6]).max()) if real.any() else 0.0
         aabb_t, slots_t = t(aabb), t(slots)
-        clusters = Clusters(aabb=aabb_t, slots=slots_t, centers=centers,
+        clusters = Clusters(aabb=aabb_t, slots=slots_t,
                             extent=extent,
                             hierarchy=build_hierarchy(aabb_t, slots_t))
     table = t(tri_table(tris, slots))

@@ -5,7 +5,7 @@ against its plain version there).  Here: the wrapper's dispatch (the
 plain version for a CPU scene, an error for any other non-CUDA device,
 no launch counted), its envelope (which meshes the kernel serves, and an
 error, not the plain version, for any other), the launch ABI against the
-CUDA source, the kernel's tables and cluster group order against the TPU
+CUDA source, the kernel's tables and cluster hierarchy against the TPU
 kernel's, and the plain version against the TPU kernel ``_trace_kernel``
 itself, run in Pallas interpret mode at 64x16 with 1 sample, for every
 triangle variant (configs 1 and 2 without triangles, 3 small, 4 and 5
@@ -29,8 +29,8 @@ from simple_raytracer_tpu.ops.camera import camera_rotation as jrotation
 from simple_raytracer_tpu.ops.pallas import bounce_kernel
 from simple_raytracer_tpu_torch.ops.camera import camera_rotation
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
-from simple_raytracer_tpu_torch.ops.scene_types import (
-    MEGA_PACKED_MAX_CLUSTERS, from_numpy, whole_trace_variant)
+from simple_raytracer_tpu_torch.ops.scene_types import (from_numpy,
+                                                       whole_trace_variant)
 
 from torch_port_helpers import jax_scene_arrays, to_np
 
@@ -106,7 +106,10 @@ def test_cluster_tables_and_order_match_tpu_kernel(n):
     """The slot table equals the TPU row table's first 20 columns on every
     filled slot (an empty slot is all zero, inactive); the kernel's boxes
     are the TPU boxes, and its slab margin scales with their largest real
-    coordinate; the group order is the TPU kernel's."""
+    coordinate.  (The kernel visits the clusters in the hierarchy's index
+    order and breaks exact ties by the global triangle index, so no
+    visiting order reaches the launch: tests/test_torch_trace_walk.py
+    holds the walk to the dense plain version.)"""
     ds, ts, camera, _ = _scene(n)
     cl, tcl = ds.triangles.clusters, ts.triangles.clusters
     jt, tt = np.asarray(cl.table_t)[:, :20], ts.triangles.table.numpy()
@@ -117,14 +120,16 @@ def test_cluster_tables_and_order_match_tpu_kernel(n):
     np.testing.assert_array_equal(tcl.aabb.numpy(), aabb)
     real = aabb[:, 0] < 1e38
     assert tcl.extent == np.abs(aabb[real, :6]).max() > 0
-    for pos in (camera.position, (0.0, 5.0, -10.0), (3.0, 0.0, -2.8)):
-        cam = jnp.asarray(pos, jnp.float32)
-        centers = (cl.aabb[:, 0:3] + cl.aabb[:, 3:6]) * 0.5
-        d2 = jnp.sum((centers - cam[None, :]) ** 2, axis=1)
-        want = np.asarray(jnp.argsort(d2.reshape(-1, 8).min(axis=1)))
-        got = tk.group_order(tcl, pos)
-        np.testing.assert_array_equal(got, want)
-        assert got.dtype == np.int32
+    # the hierarchy the walk reads: the boxes padded to whole groups of
+    # 256, and every real box inside its super's and group's boxes
+    hier = tcl.hierarchy
+    assert hier.boxes.shape[0] == hier.groups.shape[0] * 256
+    np.testing.assert_array_equal(hier.boxes[:aabb.shape[0]].numpy(), aabb)
+    for parents, width in ((hier.supers, 16), (hier.groups, 256)):
+        up = parents.numpy()[np.arange(hier.boxes.shape[0]) // width]
+        box = hier.boxes.numpy()
+        inside = ((up[:, 0:3] <= box[:, 0:3]) & (box[:, 3:6] <= up[:, 3:6]))
+        assert inside.all(axis=1)[box[:, 0] < 1e37].all()
 
 
 def test_envelope(monkeypatch):
@@ -182,10 +187,6 @@ def test_launch_struct_matches_cuda_source():
     fields = re.findall(
         r"^\s*(float|int32_t|uint32_t|uint16_t) (\w+)(?:\[(\w+)\])?;",
         body, re.M)
-    # the group order's length comes from the wrapper, through nvcc -D
-    assert f"-DSRT_MAX_GROUPS={tk.MAX_GROUPS}" in tk.KERNEL.flags
-    fields = [(t, n, str(tk.MAX_GROUPS) if k == "SRT_MAX_GROUPS" else k)
-              for t, n, k in fields]
     ctypes_of = {"float": "c_float", "int32_t": "c_int", "uint32_t": "c_uint",
                  "uint16_t": "c_ushort"}
     size_of = {"float": 4, "int32_t": 4, "uint32_t": 4, "uint16_t": 2}
@@ -201,14 +202,24 @@ def test_launch_struct_matches_cuda_source():
     sig = re.search(r"int srt_trace_launch\((.*?)\)", src, re.S).group(1)
     assert sig.count("*") == tk.LAUNCH_ARGTYPES.count(ctypes.c_void_p)
     assert tk.LAUNCH_ARGTYPES[-2] is tk.TraceParams
+    # the kernel's table pointers, in the launch's order
+    args = re.search(r"struct TraceArgs \{(.*?)\};", src, re.S).group(1)
+    assert len(re.findall(r"\*\s*\w+;", args)) == tk.LAUNCH_POINTERS
+    # the counting instance: the same pointers, then the counters
+    sig = re.search(r"int srt_trace_count_launch\((.*?)\)", src,
+                    re.S).group(1)
+    assert sig.count("*") == tk.COUNT_ARGTYPES.count(ctypes.c_void_p)
+    assert re.search(r"kCountLive = 0,", src)
+    count = re.search(r"enum Count \{(.*?)kCounters", src, re.S).group(1)
+    assert len(re.findall(r"kCount\w+", count)) == len(tk.COUNTERS)
 
 
 def test_shared_memory_rule_at_the_boundary():
     """Tables above the default 48 KB of shared memory launch (the kernel
     opts in) up to the device's opt-in limit, and raise one 4-byte word
     above it.  A 1,025-sphere scene (2,048 slots of 32 B) is such a scene
-    on an H100 (232,448 B per block).  The launch parameters hold every
-    group order a table within the envelope can have."""
+    on an H100 (232,448 B per block); the clustered variant's rule counts
+    the warp walk's rings and barriers beside the tables."""
     from simple_raytracer_tpu_torch.models.scene import Scene
     h100 = 232448
     tk.check_shared_bytes(h100, h100)
@@ -223,5 +234,8 @@ def test_shared_memory_rule_at_the_boundary():
     tk.check_shared_bytes(4 * words, h100)
     assert (ctypes.sizeof(tk.TraceParams) + 8 * tk.LAUNCH_POINTERS
             <= tk.PARAM_LIMIT_BYTES)
-    assert tk.MAX_GROUPS >= tk.TABLE_MAX_SLOTS // 8
-    assert tk.MAX_GROUPS >= MEGA_PACKED_MAX_CLUSTERS // 8
+    # the rings of the route's block: 4 warps x 2 x 64 slots x 48 B, and a
+    # barrier a buffer; with the 1,025 spheres' tables still under the
+    # limit
+    assert tk.WALK_SHARED_BYTES == 4 * 2 * (64 * 48 + 8)
+    assert 4 * words + tk.WALK_SHARED_BYTES <= h100
