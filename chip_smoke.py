@@ -1029,9 +1029,20 @@ def trace_walk_report(label: str, counts, work) -> str:
             f"MT step {cnt['lane_steps'] / steps:.2f}"
             + ("" if "chunks" not in cnt else
                f", chunks {cnt['chunks']} (split {cnt['split']}, wasted "
-               f"{cnt['wasted']})"))
-    return f"cell {label} whole-trace traversal per bounce: " + "; ".join(
-        parts)
+               f"{cnt['wasted']}), SM cycles a warp "
+               f"{cnt['cycles_bounce'] / max(cnt['warps'], 1):.0f} ("
+               f"{cnt['cycles_walk'] / max(cnt['cycles_bounce'], 1):.3f} "
+               "of them in the walk)"))
+    life = ""
+    if "cycles_warp" in counts[0]:
+        c0 = counts[0]
+        life = (f"; a warp lives {c0['cycles_warp'] / max(c0['warps'], 1):.0f}"
+                f" SM cycles on average, its block holds its SM slots "
+                f"{c0['cycles_block'] / max(c0['warps'], 1):.0f} (the warps "
+                f"live {c0['cycles_warp'] / max(c0['cycles_block'], 1):.3f} "
+                "of the slot time)")
+    return (f"cell {label} whole-trace traversal per bounce: "
+            + "; ".join(parts) + life)
 
 
 def make_textures(directory: Path) -> dict:
@@ -1339,7 +1350,9 @@ def walk_sweep(label: str, res: dict) -> dict:
         f"{route_constant('SRT_BVH_STAGES')}x"
         f"{route_constant('SRT_BVH_CHUNK')}): "
         + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
-        + "; results equal")
+        + "; results equal; ptxas of each build's clustered variant: "
+        + ", ".join(f"{k}: {walk_registers(kernel)}" for k, kernel in
+                    trace_sweep_kernels().items()))
     return dict(ms)
 
 
@@ -1412,15 +1425,22 @@ def parent_trace_launch(kernel, prep, clusters, out) -> None:
 # The whole-trace walk's constants swept on the clustered cells' passes
 # (phase 6), each a build of the kernel with -D flags of the source's
 # names: the split point (0: never split, 32: always), the ring (buffers x
-# chunk), the block, and the flat gate (every cluster box, no hierarchy)
+# chunk), the block, the resident blocks an SM asked for (which caps the
+# registers), the persistent grid (each warp looping over 32-ray batches)
+# and the flat gate (every cluster box, no hierarchy)
 TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "split 8": ["-DSRT_TRACE_SPLIT_MAX=8"],
-               "split 32": ["-DSRT_TRACE_SPLIT_MAX=32"],
+               "split 16": ["-DSRT_TRACE_SPLIT_MAX=16"],
+               "split 24": ["-DSRT_TRACE_SPLIT_MAX=24"],
                "ring 3x64": ["-DSRT_TRACE_STAGES=3"],
                "ring 4x32": ["-DSRT_TRACE_STAGES=4",
                              "-DSRT_TRACE_CHUNK=32"],
                "block 64": ["-DSRT_TRACE_BLOCK=64"],
                "block 256": ["-DSRT_TRACE_BLOCK=256"],
+               "min blocks 5": ["-DSRT_TRACE_MIN_BLOCKS=5"],
+               "persistent": ["-DSRT_TRACE_PERSIST=1"],
+               "persistent, block 256": ["-DSRT_TRACE_PERSIST=1",
+                                         "-DSRT_TRACE_BLOCK=256"],
                "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
 TRACE_SWEEP_KERNELS = {}
 
@@ -1434,6 +1454,18 @@ def trace_sweep_kernels() -> dict:
         build_all("the trace sweep's kernel builds",
                   TRACE_SWEEP_KERNELS.values())
     return TRACE_SWEEP_KERNELS
+
+
+def walk_registers(kernel) -> str:
+    """ptxas's registers and spills of a build's clustered variant (the
+    route's instance, not the counting one)."""
+    out, on = [], False
+    for line in kernel.build_log.splitlines():
+        if "entry function" in line:
+            on = "trace_kernelILi2ELb0E" in line
+        elif on and ("registers" in line or "spill" in line):
+            out.append(line.split("ptxas info    : ")[-1].strip())
+    return "; ".join(out) or "no ptxas report"
 
 
 def trace_sweep(label: str, prep, ref, iters: int) -> dict:
@@ -1456,9 +1488,13 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
                 fail(f"cell {label}: the sweep's {name} changes a result")
     say(f"[6] cell {label} whole-trace sweep (ms a pass, two turns; the "
         f"route: block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
-        f"{tk.SPLIT_MAX}, hierarchy): "
+        f"{tk.SPLIT_MAX}, "
+        f"{'persistent' if tk.PERSIST else 'a block of rays a block'}, "
+        "hierarchy): "
         + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
-        + "; results equal")
+        + "; results equal; ptxas of each build's clustered variant: "
+        + ", ".join(f"{k}: {walk_registers(kernel)}" for k, kernel in
+                    trace_sweep_kernels().items()))
     return dict(ms)
 
 
@@ -2215,9 +2251,10 @@ def main(argv=None) -> int:
                     turns = [run_p(), run_k(), run_k(), run_p()]
                     par = [float(np.median(t)) for t in turns[::3]]
                     this = [float(np.median(t)) for t in turns[1:3]]
-                    rmse, share, same_bad = canvas_diff(got, ref, o.num_samples)
-                    differ = int((got.view(torch.int32) != ref.view(torch.int32)
-                                  ).any(0).sum())
+                    rmse, share, same_bad = canvas_diff(got, ref,
+                                                        o.num_samples)
+                    differ = int((got.view(torch.int32)
+                                  != ref.view(torch.int32)).any(0).sum())
                     extra += (f"; the parent's kernel on the same pass "
                               f"{par[0]:.4f}, {par[1]:.4f} ms against this "
                               f"{this[0]:.4f}, {this[1]:.4f} ms in turns "
@@ -2269,7 +2306,8 @@ def main(argv=None) -> int:
                                     sky=prep.n_out == 3)
                 extra += (f"; the flat gate's count (the parent's rule) "
                           f"{flat:.4g} FLOP, {flat / FP32_PEAK * 1e3:.4f} ms"
-                          f"; {trace_walk_report(label, res['counts'], res['work'])}")
+                          "; " + trace_walk_report(label, res["counts"],
+                                                   res["work"]))
             nbytes = 4.0 * prep.n_out * n_rays
             segs = sum(seg[0] for seg in segments)
             work = (f"{n_rays / k_ms / 1e3:.1f} Mrays/s primary, "

@@ -61,11 +61,13 @@
 //     next chunk is found, and its copy issued, before the current chunk's
 //     MT (the lookahead gates with the t of that moment, which admits at
 //     least what the walk would);
-//   - when at most kSplitMax lanes admit a chunk, the 32 lanes split each
-//     admitting ray's MT slot by slot and merge their least (t, index) by a
-//     warp minimum over one 64-bit key (t bits << 32 | index: t > 0, so its
-//     bits order as the floats do); otherwise each admitting lane tests
-//     every slot;
+//   - MT is split across the warp: for each admitting ray in turn the 32
+//     lanes test every 32nd slot of the chunk with that ray and merge their
+//     least (t, index) by a warp minimum over one 64-bit key (t bits << 32
+//     | index: t > 0, so its bits order as the floats do).  The sweep found
+//     splitting always (kSplitMax = 32) the fastest; a build with a lower
+//     kSplitMax lets each admitting lane test every slot itself when more
+//     lanes admit a chunk;
 //   - the least (t, global triangle index) wins, seeded with (the nearest
 //     sphere or plane's t, -1), so a triangle must be strictly nearer and
 //     an exact tie goes to the lowest index, as in the dense plain version
@@ -173,6 +175,12 @@ enum Count {
   kCountChunks,      // chunk copies
   kCountSplit,       // chunks whose MT the lanes split slot by slot
   kCountWasted,      // chunks copied that no lane admitted at their turn
+  kCountCyclesWalk,  // SM cycles the warps spent in the walk
+  kCountCyclesBounce,  // SM cycles the warps spent in the bounce
+  kCountCyclesWarp,  // bounce 0's row only: SM cycles from each warp's
+                     // start to its end, summed over the warps
+  kCountCyclesBlock,   // bounce 0's row only: each block's warps times
+                       // its longest warp's cycles, summed over blocks
   kCounters
 };
 
@@ -203,10 +211,13 @@ constexpr float kSlabMargin = 0x1p-16f;
 #define SRT_TRACE_STAGES 2
 #endif
 #ifndef SRT_TRACE_SPLIT_MAX
-#define SRT_TRACE_SPLIT_MAX 16
+#define SRT_TRACE_SPLIT_MAX 32
 #endif
 #ifndef SRT_TRACE_FLAT_GATE
 #define SRT_TRACE_FLAT_GATE 0
+#endif
+#ifndef SRT_TRACE_PERSIST
+#define SRT_TRACE_PERSIST 0
 #endif
 constexpr int kWalkBlock = SRT_TRACE_BLOCK;
 constexpr int kWalkWarps = kWalkBlock / 32;
@@ -214,6 +225,9 @@ constexpr int kChunk = SRT_TRACE_CHUNK;
 constexpr int kStages = SRT_TRACE_STAGES;
 constexpr int kSplitMax = SRT_TRACE_SPLIT_MAX;
 constexpr bool kFlatGate = SRT_TRACE_FLAT_GATE != 0;
+// 1: a grid of the blocks the SMs hold at once, each warp looping over
+// 32-ray batches; 0: a block of rays a block
+constexpr bool kPersist = SRT_TRACE_PERSIST != 0;
 constexpr int kSuper = 16;   // clusters per super (ops/bvh.py: SUPER)
 constexpr int kGroup = 16;   // supers per group (ops/bvh.py: GROUP)
 constexpr int kBatch = 16;   // groups slab-tested together
@@ -222,8 +236,17 @@ constexpr int kRowF4 = 3;
 static_assert(kWalkBlock % 32 == 0 && kWalkBlock <= 1024, "bad block");
 static_assert(kChunk % 32 == 0 && kStages >= 1, "bad ring");
 
-// the block of each variant
+// the block of each variant, and its launch bounds: SRT_TRACE_MIN_BLOCKS
+// (a sweep's) asks for that many resident blocks of the walk an SM, which
+// caps its registers
 #define SRT_TRACE_BLOCK_OF(TRI) ((TRI) == kClusteredTris ? kWalkBlock : kBlock)
+#ifdef SRT_TRACE_MIN_BLOCKS
+#define SRT_TRACE_BOUNDS(TRI)                          \
+  __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI),          \
+                    (TRI) == kClusteredTris ? SRT_TRACE_MIN_BLOCKS : 1)
+#else
+#define SRT_TRACE_BOUNDS(TRI) __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI))
+#endif
 
 // the walk's dynamic shared memory before the tables: each warp's ring of
 // chunk buffers, then its barriers
@@ -679,47 +702,29 @@ __device__ __forceinline__ void walk(const TraceArgs& a, const TraceParams& p,
   }
 }
 
-template <int TRI, bool COUNT = false>
-__global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI))
-trace_kernel(const TraceArgs a, const TraceParams p,
-             unsigned long long* __restrict__ counters) {
+// the counting instance's cycles of one bounce of the warp, from t0; every
+// lane of the warp ends the bounce here, live or not
+template <bool COUNT>
+__device__ __forceinline__ void bounce_cycles(unsigned long long* cnt,
+                                              long long t0) {
+  if constexpr (COUNT) {
+    __syncwarp();
+    count<COUNT>(cnt, kCountCyclesBounce, clock64() - t0);
+  }
+}
+
+// One ray's whole path, its rows written: ray g of the launch (a lane
+// past the rays walks as a dead lane of its warp and writes nothing).
+// kClusteredTris: called by the whole warp, whose ring it uses.
+template <int TRI, bool COUNT>
+__device__ __forceinline__ void trace_ray(
+    const TraceArgs& a, const TraceParams& p, int g, const float* s_sph,
+    const float* s_pln, const float* s_mat, const float* s_tri,
+    float4* __restrict__ s_ring, uint64_t* __restrict__ s_bar, Ring& ring,
+    unsigned long long* __restrict__ counters) {
   constexpr bool kWalk = TRI == kClusteredTris;
-  extern __shared__ __align__(128) float4 s_dyn[];
-  // kClusteredTris: the warps' rings (16-byte aligned for the bulk copies)
-  // and barriers come first
-  float4* s_ring = s_dyn;
-  uint64_t* s_bars = reinterpret_cast<uint64_t*>(s_dyn + kRingFloat4s);
-  float* s_sph = kWalk ? reinterpret_cast<float*>(
-                             reinterpret_cast<char*>(s_dyn) + kWalkBytes)
-                       : reinterpret_cast<float*>(s_dyn);
-  float* s_pln = s_sph + 8 * p.n_spheres;
-  float* s_mat = s_pln + 8 * p.n_planes;
-  float* s_tri = s_mat + 16 * p.n_materials;   // kSmallTris
-  for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
-    s_sph[k] = a.sph[k];
-  for (int k = threadIdx.x; k < 8 * p.n_planes; k += blockDim.x)
-    s_pln[k] = a.pln[k];
-  for (int k = threadIdx.x; k < 16 * p.n_materials; k += blockDim.x)
-    s_mat[k] = a.mat[k];
-  if (TRI == kSmallTris) {
-    for (int k = threadIdx.x; k < kTriCols * p.n_tris; k += blockDim.x)
-      s_tri[k] = a.tri[k];
-  }
-  if constexpr (kWalk) {
-    if (threadIdx.x < kWalkWarps * kStages) bar_init(s_bars + threadIdx.x);
-    bar_init_fence();
-  }
-  __syncthreads();
-
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  // kClusteredTris keeps every lane of the block to the end: the walk is
-  // the warp's, and a lane past the rays walks as a dead lane
   const bool in_range = g < p.n_rays;
-  if (!kWalk && !in_range) return;
   bool alive = in_range;
-  const int warp = threadIdx.x >> 5;
-  Ring ring;
-
   // ---- ray generation (ops/camera.py: generate_rays) ----
   const int s = g % p.num_samples;
   const int pix = g / p.num_samples;
@@ -755,6 +760,7 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   V3 sky_dir = mk(0.0f, 0.0f, 1.0f);
   for (int bounce = 0; bounce < p.num_bounces; ++bounce) {
     unsigned long long* cnt = nullptr;
+    long long t_bounce = 0;
     if constexpr (kWalk) {
       // the warp goes on while any of its lanes is alive
       const unsigned lanes = __ballot_sync(kAll, alive);
@@ -763,6 +769,7 @@ trace_kernel(const TraceArgs a, const TraceParams p,
         cnt = counters + (size_t)bounce * kCounters;
         count<COUNT>(cnt, kCountLive, __popc(lanes));
         count<COUNT>(cnt, kCountWarps, 1);
+        t_bounce = clock64();
       }
     }
     // the nearest sphere and plane (path_common.cuh)
@@ -785,9 +792,13 @@ trace_kernel(const TraceArgs a, const TraceParams p,
     }
     if constexpr (kWalk) {
       Best best = {min_nan(t_s, t_p), -1, -1};
+      const long long t_walk = COUNT ? clock64() : 0;
       walk<COUNT>(a, p, alive, walk_ray(o, d, p.cluster_extent), best,
-                  s_ring + (size_t)warp * kStages * kChunk * kRowF4,
-                  s_bars + warp * kStages, ring, cnt);
+                  s_ring, s_bar, ring, cnt);
+      if constexpr (COUNT) {
+        __syncwarp();
+        count<COUNT>(cnt, kCountCyclesWalk, clock64() - t_walk);
+      }
       if (best.idx >= 0) {
         // the winner's (u, v): MT again on its row, the same operations
         // on the same values, so the same bits as the walk's test
@@ -796,7 +807,10 @@ trace_kernel(const TraceArgs a, const TraceParams p,
         th.row = best.slot;
         t_t = best.t;
       }
-      if (!alive) continue;
+      if (!alive) {
+        bounce_cycles<COUNT>(cnt, t_bounce);
+        continue;
+      }
     }
     const float t = min_nan(min_nan(t_s, t_p), t_t);  // never NaN
     if (t == INFINITY) {
@@ -805,6 +819,7 @@ trace_kernel(const TraceArgs a, const TraceParams p,
       sky_dir = d;
       if constexpr (kWalk) {
         alive = false;
+        bounce_cycles<COUNT>(cnt, t_bounce);
         continue;
       }
       break;
@@ -837,13 +852,17 @@ trace_kernel(const TraceArgs a, const TraceParams p,
 
     const float* mt = s_mat + 16 * m;
     color = add(color, scale(mul(mask, load3(mt + 9)), mt[3]));
-    if (bounce == p.num_bounces - 1) break;  // emission only, no new ray
+    if (bounce == p.num_bounces - 1) {  // emission only, no new ray
+      bounce_cycles<COUNT>(cnt, t_bounce);
+      break;
+    }
 
     // ---- the BSDF sample (path_common.cuh: sample_bsdf) ----
     const Scatter sc = sample_bsdf(normal, front, d, mt, seed);
     o = scatter_origin(pos, normal, sc.dir);
     d = sc.dir;
     mask = mul(mask, sc.mask_mul);
+    bounce_cycles<COUNT>(cnt, t_bounce);
   }
 
   if (!in_range) return;
@@ -860,6 +879,75 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   a.out[g] = color.x;
   a.out[n + g] = color.y;
   a.out[2 * n + g] = color.z;
+}
+
+template <int TRI, bool COUNT = false>
+__global__ void SRT_TRACE_BOUNDS(TRI)
+trace_kernel(const TraceArgs a, const TraceParams p,
+             unsigned long long* __restrict__ counters) {
+  constexpr bool kWalk = TRI == kClusteredTris;
+  extern __shared__ __align__(128) float4 s_dyn[];
+  // kClusteredTris: the warps' rings (16-byte aligned for the bulk copies)
+  // and barriers come first
+  float4* s_ring = s_dyn;
+  uint64_t* s_bars = reinterpret_cast<uint64_t*>(s_dyn + kRingFloat4s);
+  float* s_sph = kWalk ? reinterpret_cast<float*>(
+                             reinterpret_cast<char*>(s_dyn) + kWalkBytes)
+                       : reinterpret_cast<float*>(s_dyn);
+  float* s_pln = s_sph + 8 * p.n_spheres;
+  float* s_mat = s_pln + 8 * p.n_planes;
+  float* s_tri = s_mat + 16 * p.n_materials;   // kSmallTris
+  for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
+    s_sph[k] = a.sph[k];
+  for (int k = threadIdx.x; k < 8 * p.n_planes; k += blockDim.x)
+    s_pln[k] = a.pln[k];
+  for (int k = threadIdx.x; k < 16 * p.n_materials; k += blockDim.x)
+    s_mat[k] = a.mat[k];
+  if (TRI == kSmallTris) {
+    for (int k = threadIdx.x; k < kTriCols * p.n_tris; k += blockDim.x)
+      s_tri[k] = a.tri[k];
+  }
+  __shared__ unsigned long long s_longest;   // the counting instance's
+  if constexpr (kWalk) {
+    if (threadIdx.x < kWalkWarps * kStages) bar_init(s_bars + threadIdx.x);
+    bar_init_fence();
+    if (COUNT && threadIdx.x == 0) s_longest = 0;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  Ring ring;
+  const long long t_start = COUNT ? clock64() : 0;
+  float4* ring_w = s_ring + (size_t)warp * kStages * kChunk * kRowF4;
+  uint64_t* bar_w = s_bars + warp * kStages;
+  if constexpr (kWalk && kPersist) {
+    // each warp takes the launch's 32-ray batches warp, warp + W, ... (W:
+    // the grid's warps), its lanes one ray each
+    for (int base = (blockIdx.x * kWalkWarps + warp) * 32; base < p.n_rays;
+         base += gridDim.x * kWalkBlock)
+      trace_ray<TRI, COUNT>(a, p, base + (threadIdx.x & 31), s_sph, s_pln,
+                            s_mat, s_tri, ring_w, bar_w, ring, counters);
+  } else {
+    // kClusteredTris keeps every lane of the block to the end: the walk is
+    // the warp's
+    const int g = blockIdx.x * blockDim.x + threadIdx.x;
+    if (!kWalk && g >= p.n_rays) return;
+    trace_ray<TRI, COUNT>(a, p, g, s_sph, s_pln, s_mat, s_tri, ring_w, bar_w,
+                          ring, counters);
+  }
+  if constexpr (COUNT) {
+    // the warp's life, and the block's: its warps hold their SM slots
+    // until its longest warp ends
+    __syncwarp();
+    const unsigned long long life = clock64() - t_start;
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(counters + kCountCyclesWarp, life);
+      atomicMax(&s_longest, life);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      atomicAdd(counters + kCountCyclesBlock, s_longest * kWalkWarps);
+  }
 }
 
 // the dynamic shared memory of a launch: the walk's rings and barriers
@@ -879,13 +967,26 @@ cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
                            const TraceParams& p,
                            unsigned long long* counters = nullptr) {
   constexpr int block = SRT_TRACE_BLOCK_OF(TRI);
-  const int blocks = (p.n_rays + block - 1) / block;
+  int blocks = (p.n_rays + block - 1) / block;
   const size_t bytes = shared_bytes(p);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         trace_kernel<TRI, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return e;
+  }
+  if (TRI == kClusteredTris && kPersist) {
+    // as many blocks as the SMs hold at once
+    int device, sms, per_sm;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, trace_kernel<TRI, COUNT>, block, bytes);
+    if (e != cudaSuccess) return e;
+    blocks = min(blocks, max(per_sm, 1) * sms);
   }
   trace_kernel<TRI, COUNT><<<blocks, block, bytes, st>>>(a, p, counters);
   return cudaGetLastError();

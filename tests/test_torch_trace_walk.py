@@ -21,18 +21,19 @@ its counting instance, to the plain version there).  Here
   before the MT of the chunks ahead of it, and at its turn each lane tests
   the cluster's box again with its t then;
 - MT from the staged table (ops/bvh.stage_slots), split slot by slot over
-  the 32 lanes when at most SPLIT_MAX lanes admit a chunk (the warp's least
-  (t bits << 32 | global index) key, the lowest lane holding it), else
-  each admitting lane over every slot; the least (t, global index) wins,
-  seeded with (the sphere or plane t, -1);
+  the 32 lanes when at most SPLIT_MAX lanes admit a chunk (the route's 32:
+  always; the warp's least (t bits << 32 | global index) key, the lowest
+  lane holding it), else each admitting lane over every slot; the least
+  (t, global index) wins, seeded with (the sphere or plane t, -1);
 - the winner's (u, v), from MT run again on its 80-byte slot row.
 
 It gives the dense plain version's triangle (t, index, u, v) bit for bit
 on the bounces of a config 4 pass and on rays at a reduced config 6 mesh
 and the full one, with the route's constants and with a batch of one
-group, the split point at 0 and 32, rings of 1 and 4 chunks and the flat
-gate; exact ties go to the lowest index; a parent box built as the min and
-max of its children's planes admits whatever they admit (hypothesis); and
+group, the split point at 0 and 16, rings of 1 and 4 chunks and the
+flat gate; exact ties go to the lowest index, on either MT path; a
+parent box built as the min and max of its children's planes admits
+whatever they admit (hypothesis); and
 a whole trace through the walk is the plain version's, bit for bit, and
 within test_torch_trace_kernel.py's bounds of JAX's ``_tris_clustered``
 (``trace_full_fused`` in Pallas interpret mode).
@@ -69,7 +70,7 @@ from torch_port_helpers import jax_scene_arrays, to_np, tvec, unit_vectors
 # the slots of a chunk, the warp's ring of chunk buffers, the most
 # admitting lanes that split a chunk's MT, the groups of a gate batch, the
 # slab margin
-LANES, CHUNK, STAGES, SPLIT_MAX, BATCH = 32, 64, 2, 16, 16
+LANES, CHUNK, STAGES, SPLIT_MAX, BATCH = 32, 64, 2, 32, 16
 MARGIN = 2.0 ** -16
 NO_KEY = torch.iinfo(torch.int64).max
 # the staged table's columns of each slot-table column MT reads
@@ -225,10 +226,9 @@ def trace_walk_emulation(o: Vec3, d: Vec3, alive, t_seed, clusters, table,
                     yield from clusters_of(s, True)
                 return
             for j0 in range(0, n_groups, batch):
-                groups = torch.arange(j0, min(j0 + batch, n_groups))
-                g_mask = gates(hier.groups[groups], True)
+                g_mask = gates(hier.groups[j0:j0 + batch], True)
                 for gi in g_mask.any(dim=1).nonzero()[:, 0].tolist():
-                    g = int(groups[gi])
+                    g = j0 + gi
                     s_mask = gates(
                         hier.supers[g * bvh.GROUP:(g + 1) * bvh.GROUP],
                         g_mask[gi])
@@ -387,16 +387,17 @@ def mesh6():
 
 # the walk's constants of each case (the route's, then one changed)
 CASES = {"route": {}, "batch1": dict(batch=1), "split0": dict(split_max=0),
-         "split32": dict(split_max=LANES), "ring1": dict(stages=1),
+         "split16": dict(split_max=16), "ring1": dict(stages=1),
          "ring4": dict(stages=4), "flat": dict(flat=True)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_walk_matches_dense_on_config6_mesh(mesh6, case):
-    """Rays at the reduced config 6 mesh with the route's constants, and at
-    the full mesh with a batch of one group, the split point at 0 (never
-    split) and 32 (always), rings of 1 and 4 chunks and the flat gate: the
-    dense plain version's (t, index, u, v) on every ray."""
+    """Rays at the reduced config 6 mesh with the route's constants (MT
+    always split), and at the full mesh with a batch of one group, the
+    split point at 0 (never split) and 16 (both paths), rings of 1 and 4
+    chunks and the flat gate: the dense plain version's (t, index, u, v)
+    on every ray."""
     kw = CASES[case]
     tris = mesh6[5 if case == "route" else 6]
     o, d, alive, seed = mesh_rays(tris, 8, seed=sorted(CASES).index(case))
@@ -409,18 +410,20 @@ def test_walk_matches_dense_on_config6_mesh(mesh6, case):
     assert int((walked[1] >= 0).sum()) > 20
     if case == "split0":
         assert cnt["split"] == 0
-    elif case == "split32":
-        assert cnt["split"] == cnt["chunks"]
-    elif case == "route":
+    elif case == "split16":
         assert 0 < cnt["split"] < cnt["chunks"]       # both MT paths
+    else:
+        assert cnt["split"] == cnt["chunks"]          # always split
 
 
+@pytest.mark.parametrize("split_max", [SPLIT_MAX, 16])
 @pytest.mark.parametrize("second", [False, True])
-def test_walk_ties_pick_lowest_index(second):
+def test_walk_ties_pick_lowest_index(second, split_max):
     """An exact tie across the lanes of a chunk (slots 3 and 40, indices 9
     and 4) and across clusters (index 2) goes to the lowest global index,
-    through the split path (a warp of one live ray) and the per-lane path
-    (a full warp), as the dense loop's first index; a tie with the sphere
+    as the dense loop's first index: split across the warp (the route's
+    MT; at split point 16, a warp of one live ray) and tested by each
+    admitting lane (a full warp, at split point 16); a tie with the sphere
     or plane seed keeps the seed."""
     cl, table = _tie_clusters(second)
     cl.extent = 2.0
@@ -431,13 +434,16 @@ def test_walk_ties_pick_lowest_index(second):
     seed[:8] = 2.0
     alive = torch.ones(n, dtype=torch.bool)
     alive[33:] = False                # the second warp: one live ray
-    (t, idx, slot, u, v), cnt = trace_walk_emulation(o, d, alive, seed, cl,
-                                                     table)
+    (t, idx, slot, u, v), cnt = trace_walk_emulation(
+        o, d, alive, seed, cl, table, split_max=split_max)
     assert (idx[8:33] == (2 if second else 4)).all()
     assert (slot[8:33] == (69 if second else 40)).all()
     assert (t[8:33] == 2.0).all() and (u[8:33] == 0.5).all()
     assert (idx[:8] == -1).all() and (idx[33:] == -1).all()
-    assert cnt["union"] > cnt["split"] > 0
+    if split_max == LANES:
+        assert cnt["split"] == cnt["chunks"] > 0
+    else:
+        assert cnt["union"] > cnt["split"] > 0
     # the dense loop over the triangles by index: the same winner
     rows = torch.zeros(10, 20)
     gidx = cl.slots.reshape(-1)
@@ -571,8 +577,10 @@ def test_constants_match_the_cuda_source():
     assert const("kSplitMax") == SPLIT_MAX == tk.SPLIT_MAX
     assert const("kBatch") == BATCH
     assert const("kWalkBlock") == tk.WALK_BLOCK
-    assert re.search(r"#define SRT_TRACE_FLAT_GATE (\d+)\n",
-                     src).group(1) == str(tk.FLAT_GATE)
+    for name, value in (("FLAT_GATE", tk.FLAT_GATE),
+                        ("PERSIST", tk.PERSIST)):
+        assert re.search(rf"#define SRT_TRACE_{name} (\d+)\n",
+                         src).group(1) == str(value)
     assert const("kSuper") == bvh.SUPER and const("kGroup") == bvh.GROUP
     assert const("kRowF4") * 4 == bvh.STAGED_COLS
     assert const("kBlock") == tk.BLOCK
