@@ -1032,7 +1032,9 @@ def trace_walk_report(label: str, counts, work) -> str:
                f"{cnt['wasted']}), SM cycles a warp "
                f"{cnt['cycles_bounce'] / max(cnt['warps'], 1):.0f} ("
                f"{cnt['cycles_walk'] / max(cnt['cycles_bounce'], 1):.3f} "
-               "of them in the walk)"))
+               "of them in the walk: waiting for copies "
+               f"{cnt['cycles_wait'] / max(cnt['cycles_bounce'], 1):.3f}, "
+               f"MT {cnt['cycles_mt'] / max(cnt['cycles_bounce'], 1):.3f})"))
     life = ""
     if "cycles_warp" in counts[0]:
         c0 = counts[0]
@@ -1425,9 +1427,7 @@ def parent_trace_launch(kernel, prep, clusters, out) -> None:
 # The whole-trace walk's constants swept on the clustered cells' passes
 # (phase 6), each a build of the kernel with -D flags of the source's
 # names: the split point (0: never split, 32: always), the ring (buffers x
-# chunk), the block, the resident blocks an SM asked for (which caps the
-# registers), the persistent grid (each warp looping over 32-ray batches)
-# and the flat gate (every cluster box, no hierarchy)
+# chunk), the block and the flat gate (every cluster box, no hierarchy)
 TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "split 8": ["-DSRT_TRACE_SPLIT_MAX=8"],
                "split 16": ["-DSRT_TRACE_SPLIT_MAX=16"],
@@ -1437,10 +1437,6 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                              "-DSRT_TRACE_CHUNK=32"],
                "block 64": ["-DSRT_TRACE_BLOCK=64"],
                "block 256": ["-DSRT_TRACE_BLOCK=256"],
-               "min blocks 5": ["-DSRT_TRACE_MIN_BLOCKS=5"],
-               "persistent": ["-DSRT_TRACE_PERSIST=1"],
-               "persistent, block 256": ["-DSRT_TRACE_PERSIST=1",
-                                         "-DSRT_TRACE_BLOCK=256"],
                "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
 TRACE_SWEEP_KERNELS = {}
 
@@ -1488,9 +1484,7 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
                 fail(f"cell {label}: the sweep's {name} changes a result")
     say(f"[6] cell {label} whole-trace sweep (ms a pass, two turns; the "
         f"route: block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
-        f"{tk.SPLIT_MAX}, "
-        f"{'persistent' if tk.PERSIST else 'a block of rays a block'}, "
-        "hierarchy): "
+        f"{tk.SPLIT_MAX}, hierarchy): "
         + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
         + "; results equal; ptxas of each build's clustered variant: "
         + ", ".join(f"{k}: {walk_registers(kernel)}" for k, kernel in

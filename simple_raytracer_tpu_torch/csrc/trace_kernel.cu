@@ -176,6 +176,8 @@ enum Count {
   kCountSplit,       // chunks whose MT the lanes split slot by slot
   kCountWasted,      // chunks copied that no lane admitted at their turn
   kCountCyclesWalk,  // SM cycles the warps spent in the walk
+  kCountCyclesWait,  // of them, waiting for a chunk's copy
+  kCountCyclesMt,    // of them, in MT (mt_chunk)
   kCountCyclesBounce,  // SM cycles the warps spent in the bounce
   kCountCyclesWarp,  // bounce 0's row only: SM cycles from each warp's
                      // start to its end, summed over the warps
@@ -216,18 +218,12 @@ constexpr float kSlabMargin = 0x1p-16f;
 #ifndef SRT_TRACE_FLAT_GATE
 #define SRT_TRACE_FLAT_GATE 0
 #endif
-#ifndef SRT_TRACE_PERSIST
-#define SRT_TRACE_PERSIST 0
-#endif
 constexpr int kWalkBlock = SRT_TRACE_BLOCK;
 constexpr int kWalkWarps = kWalkBlock / 32;
 constexpr int kChunk = SRT_TRACE_CHUNK;
 constexpr int kStages = SRT_TRACE_STAGES;
 constexpr int kSplitMax = SRT_TRACE_SPLIT_MAX;
 constexpr bool kFlatGate = SRT_TRACE_FLAT_GATE != 0;
-// 1: a grid of the blocks the SMs hold at once, each warp looping over
-// 32-ray batches; 0: a block of rays a block
-constexpr bool kPersist = SRT_TRACE_PERSIST != 0;
 constexpr int kSuper = 16;   // clusters per super (ops/bvh.py: SUPER)
 constexpr int kGroup = 16;   // supers per group (ops/bvh.py: GROUP)
 constexpr int kBatch = 16;   // groups slab-tested together
@@ -236,17 +232,8 @@ constexpr int kRowF4 = 3;
 static_assert(kWalkBlock % 32 == 0 && kWalkBlock <= 1024, "bad block");
 static_assert(kChunk % 32 == 0 && kStages >= 1, "bad ring");
 
-// the block of each variant, and its launch bounds: SRT_TRACE_MIN_BLOCKS
-// (a sweep's) asks for that many resident blocks of the walk an SM, which
-// caps its registers
+// the block of each variant
 #define SRT_TRACE_BLOCK_OF(TRI) ((TRI) == kClusteredTris ? kWalkBlock : kBlock)
-#ifdef SRT_TRACE_MIN_BLOCKS
-#define SRT_TRACE_BOUNDS(TRI)                          \
-  __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI),          \
-                    (TRI) == kClusteredTris ? SRT_TRACE_MIN_BLOCKS : 1)
-#else
-#define SRT_TRACE_BOUNDS(TRI) __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI))
-#endif
 
 // the walk's dynamic shared memory before the tables: each warp's ring of
 // chunk buffers, then its barriers
@@ -357,9 +344,15 @@ __device__ __forceinline__ Ray walk_ray(V3 o, V3 d, float extent) {
   return r;
 }
 
-// May the ray meet the box [lo, hi] before t_far, within the margin?  NaN
-// (0 * inf on a box plane) admits the box; a padding box (every plane at
-// 3e38) falls to the lo.x >= 1e38 term.
+// May the ray meet the box [lo, hi] before t_far, within the margin?  A
+// padding box (every plane at 3e38) falls to the lo.x >= 1e38 term.  The
+// min and max are fminf and fmaxf, one instruction each, which drop a NaN
+// operand; that changes no admission that matters: with 1 / d finite and
+// o and the planes finite no t here is NaN (a product of finite values,
+// or an overflow to +-inf); a zero (or denormal) direction component
+// makes 1 / d infinite and pad infinite, and near - pad > far + pad is
+// then false (or NaN) for every box, which admits it; and a ray with a
+// NaN in o or d, which a box may now refuse, has no valid MT hit anywhere.
 __device__ __forceinline__ bool slab_pad(float lx, float ly, float lz,
                                          float hx, float hy, float hz,
                                          const Ray& r, float t_far) {
@@ -369,10 +362,10 @@ __device__ __forceinline__ bool slab_pad(float lx, float ly, float lz,
   const float t2y = (hy - r.oy) * r.iny;
   const float t1z = (lz - r.oz) * r.inz;
   const float t2z = (hz - r.oz) * r.inz;
-  const float near = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
-                             max_nan(min_nan(t1z, t2z), 0.0f));
-  const float far = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
-                            min_nan(max_nan(t1z, t2z), t_far));
+  const float near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                           fmaxf(fminf(t1z, t2z), 0.0f));
+  const float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                          fminf(fmaxf(t1z, t2z), t_far));
   return !((near - r.pad > far + r.pad) || (lx >= 1.0e38f));
 }
 
@@ -680,8 +673,13 @@ __device__ __forceinline__ void walk(const TraceArgs& a, const TraceParams& p,
     for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
     --n_q;
     const int b = ring.done++ % kStages;
+    const long long t_wait = COUNT ? clock64() : 0;
     bar_wait(&s_bar[b], (ring.phase >> b) & 1u);
     ring.phase ^= 1u << b;
+    if constexpr (COUNT) {
+      __syncwarp();
+      count<COUNT>(cnt, kCountCyclesWait, clock64() - t_wait);
+    }
     const bool ok = cur.ok && slab_box(a.boxes + 8 * cur.c, r, best.t);
     if constexpr (COUNT)
       count<COUNT>(cnt, kCountBoxTests, __popc(__ballot_sync(kAll, cur.ok)));
@@ -692,9 +690,14 @@ __device__ __forceinline__ void walk(const TraceArgs& a, const TraceParams& p,
         count<COUNT>(cnt, kCountAdmitted, __popc(admit));
       }
       const int first = min(cur.c, p.n_clusters - 1) * p.cluster_k + cur.base;
+      const long long t_mt = COUNT ? clock64() : 0;
       mt_chunk<COUNT>(s_ring + b * kChunk * kRowF4,
                       min(kChunk, p.cluster_k - cur.base), first, admit, ok,
                       r, best, cnt);
+      if constexpr (COUNT) {
+        __syncwarp();
+        count<COUNT>(cnt, kCountCyclesMt, clock64() - t_mt);
+      }
     } else {
       count<COUNT>(cnt, kCountWasted, 1);
     }
@@ -882,7 +885,7 @@ __device__ __forceinline__ void trace_ray(
 }
 
 template <int TRI, bool COUNT = false>
-__global__ void SRT_TRACE_BOUNDS(TRI)
+__global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI))
 trace_kernel(const TraceArgs a, const TraceParams p,
              unsigned long long* __restrict__ counters) {
   constexpr bool kWalk = TRI == kClusteredTris;
@@ -918,23 +921,13 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   const int warp = threadIdx.x >> 5;
   Ring ring;
   const long long t_start = COUNT ? clock64() : 0;
-  float4* ring_w = s_ring + (size_t)warp * kStages * kChunk * kRowF4;
-  uint64_t* bar_w = s_bars + warp * kStages;
-  if constexpr (kWalk && kPersist) {
-    // each warp takes the launch's 32-ray batches warp, warp + W, ... (W:
-    // the grid's warps), its lanes one ray each
-    for (int base = (blockIdx.x * kWalkWarps + warp) * 32; base < p.n_rays;
-         base += gridDim.x * kWalkBlock)
-      trace_ray<TRI, COUNT>(a, p, base + (threadIdx.x & 31), s_sph, s_pln,
-                            s_mat, s_tri, ring_w, bar_w, ring, counters);
-  } else {
-    // kClusteredTris keeps every lane of the block to the end: the walk is
-    // the warp's
-    const int g = blockIdx.x * blockDim.x + threadIdx.x;
-    if (!kWalk && g >= p.n_rays) return;
-    trace_ray<TRI, COUNT>(a, p, g, s_sph, s_pln, s_mat, s_tri, ring_w, bar_w,
-                          ring, counters);
-  }
+  // kClusteredTris keeps every lane of the block to the end: the walk is
+  // the warp's
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kWalk && g >= p.n_rays) return;
+  trace_ray<TRI, COUNT>(a, p, g, s_sph, s_pln, s_mat, s_tri,
+                        s_ring + (size_t)warp * kStages * kChunk * kRowF4,
+                        s_bars + warp * kStages, ring, counters);
   if constexpr (COUNT) {
     // the warp's life, and the block's: its warps hold their SM slots
     // until its longest warp ends
@@ -967,26 +960,13 @@ cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
                            const TraceParams& p,
                            unsigned long long* counters = nullptr) {
   constexpr int block = SRT_TRACE_BLOCK_OF(TRI);
-  int blocks = (p.n_rays + block - 1) / block;
+  const int blocks = (p.n_rays + block - 1) / block;
   const size_t bytes = shared_bytes(p);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         trace_kernel<TRI, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return e;
-  }
-  if (TRI == kClusteredTris && kPersist) {
-    // as many blocks as the SMs hold at once
-    int device, sms, per_sm;
-    cudaError_t e = cudaGetDevice(&device);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, trace_kernel<TRI, COUNT>, block, bytes);
-    if (e != cudaSuccess) return e;
-    blocks = min(blocks, max(per_sm, 1) * sms);
   }
   trace_kernel<TRI, COUNT><<<blocks, block, bytes, st>>>(a, p, counters);
   return cudaGetLastError();

@@ -52,15 +52,13 @@ BLOCK = 256          # the "none" and "small" variants' block
 # The clustered variant's warp walk (the CUDA source's defaults, which
 # chip_smoke.py's sweep sets on extra builds): its block, the slots of a
 # chunk, the warp's ring of chunk buffers, the most admitting lanes for
-# which a chunk's MT is split across the warp (32: always), the flat gate
-# (every cluster box, no hierarchy) and the persistent grid (each warp
-# looping over 32-ray batches)
+# which a chunk's MT is split across the warp (32: always) and the flat
+# gate (every cluster box, no hierarchy)
 WALK_BLOCK = 128
 CHUNK = 64
 STAGES = 2
 SPLIT_MAX = 32
 FLAT_GATE = 0
-PERSIST = 0
 # shared memory of the walk a block: each warp's ring of staged rows and
 # one 8-byte barrier a buffer
 WALK_SHARED_BYTES = (WALK_BLOCK // 32) * STAGES * (
@@ -123,7 +121,8 @@ COUNT_ARGTYPES = ([ctypes.c_void_p] * (LAUNCH_POINTERS + 1)
 # the counting instance's counters of a bounce (the CUDA source's Count)
 COUNTERS = ("live", "warps", "box_tests", "admitted", "union", "mt_steps",
             "lane_steps", "chunks", "split", "wasted", "cycles_walk",
-            "cycles_bounce", "cycles_warp", "cycles_block")
+            "cycles_wait", "cycles_mt", "cycles_bounce", "cycles_warp",
+            "cycles_block")
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -33,7 +33,8 @@ and the full one, with the route's constants and with a batch of one
 group, the split point at 0 and 16, rings of 1 and 4 chunks and the
 flat gate; exact ties go to the lowest index, on either MT path; a
 parent box built as the min and max of its children's planes admits
-whatever they admit (hypothesis); and
+whatever they admit, and the gate's NaN-dropping min and max admit what
+NaN-propagating ones would for every ray without a NaN (hypothesis); and
 a whole trace through the walk is the plain version's, bit for bit, and
 within test_torch_trace_kernel.py's bounds of JAX's ``_tris_clustered``
 (``trace_full_fused`` in Pallas interpret mode).
@@ -90,8 +91,8 @@ def walk_ray(o: Vec3, d: Vec3, extent: float):
 
 def slab_pad(boxes, o: Vec3, inv: Vec3, pad, t_far, live):
     """(N, 8) boxes x (L,) rays -> (N, L) bool: the kernel's slab_pad in
-    its operation order (NaN propagating min and max), for the live
-    lanes."""
+    its operation order (min and max that drop a NaN operand, as fminf and
+    fmaxf do), for the live lanes."""
     col = lambda j: boxes[:, j, None]
     row = lambda v: v[None]
     t1x = (col(0) - row(o.x)) * row(inv.x)
@@ -100,7 +101,7 @@ def slab_pad(boxes, o: Vec3, inv: Vec3, pad, t_far, live):
     t2y = (col(4) - row(o.y)) * row(inv.y)
     t1z = (col(2) - row(o.z)) * row(inv.z)
     t2z = (col(5) - row(o.z)) * row(inv.z)
-    mn, mx = torch.minimum, torch.maximum
+    mn, mx = torch.fmin, torch.fmax
     near = mx(mx(mn(t1x, t2x), mn(t1y, t2y)),
               mx(mn(t1z, t2z), torch.zeros_like(t1z)))
     far = mn(mn(mx(t1x, t2x), mx(t1y, t2y)), mn(mx(t1z, t2z), row(t_far)))
@@ -502,6 +503,53 @@ def test_parent_box_admits_what_its_children_admit(seed, scale, axis_rays):
     assert bool(child.any())
 
 
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1), zeros=st.booleans(),
+       on_planes=st.booleans())
+def test_gate_admits_what_a_nan_propagating_gate_admits(seed, zeros,
+                                                        on_planes):
+    """The gate's min and max drop a NaN operand (fminf, fmaxf); the
+    NaN-propagating ones (torch.minimum, torch.maximum: the parent
+    kernel's gate) admit exactly the same boxes for every ray without a
+    NaN: with zero and denormal direction components (1 / d infinite, so
+    the margin is infinite), origins on box planes (0 * inf), padding
+    boxes, finite and infinite bounds."""
+    r = np.random.default_rng(seed)
+    n_box, n_ray = 64, 128
+    boxes = np.zeros((n_box, 8), np.float32)
+    boxes[:, 0:3] = r.normal(0, 2, (n_box, 3))
+    boxes[:, 3:6] = boxes[:, 0:3] + np.abs(r.normal(0, 1, (n_box, 3)))
+    boxes[::7, 0:6] = bvh.SENTINEL
+    o = r.normal(0, 4, (n_ray, 3)).astype(np.float32)
+    if on_planes:                      # origins on box planes
+        pick = r.integers(0, n_box, n_ray)
+        axis = r.integers(0, 3, n_ray)
+        o[np.arange(n_ray), axis] = boxes[pick, axis + 3 * (pick % 2)]
+    d = unit_vectors(r, n_ray).astype(np.float32)
+    if zeros:
+        d[::3, r.integers(0, 3)] = 0.0
+        d[1::5, r.integers(0, 3)] = np.float32(1e-40)     # denormal
+    t_far = np.where(np.arange(n_ray) % 3 == 0, np.inf,
+                     r.uniform(0, 8, n_ray)).astype(np.float32)
+    boxes, t_far = torch.from_numpy(boxes), torch.from_numpy(t_far)
+    o_, d_ = tvec(o), tvec(d)
+    inv, pad = walk_ray(o_, d_, 10.0)
+    live = torch.ones(n_ray, dtype=torch.bool)
+    got = slab_pad(boxes, o_, inv, pad, t_far, live)
+    col = lambda j: boxes[:, j, None]
+    t = [(col(j) - v[None]) * w[None] for j, v, w in
+         ((0, o_.x, inv.x), (3, o_.x, inv.x), (1, o_.y, inv.y),
+          (4, o_.y, inv.y), (2, o_.z, inv.z), (5, o_.z, inv.z))]
+    mn, mx = torch.minimum, torch.maximum
+    near = mx(mx(mn(t[0], t[1]), mn(t[2], t[3])),
+              mx(mn(t[4], t[5]), torch.zeros_like(t[4])))
+    far = mn(mn(mx(t[0], t[1]), mx(t[2], t[3])),
+             mn(mx(t[4], t[5]), t_far[None]))
+    want = ~((near - pad[None] > far + pad[None]) | (col(0) >= 1.0e38))
+    assert torch.equal(got, want)
+    assert bool(want.any()) and not bool(want.all())
+
+
 def walk_closest_hit(scene, o, d, alive):
     """closest_hit with its triangles from the warp walk: the sphere and
     plane t seed the walk, and a triangle winner is shaded at the (u, v)
@@ -577,10 +625,8 @@ def test_constants_match_the_cuda_source():
     assert const("kSplitMax") == SPLIT_MAX == tk.SPLIT_MAX
     assert const("kBatch") == BATCH
     assert const("kWalkBlock") == tk.WALK_BLOCK
-    for name, value in (("FLAT_GATE", tk.FLAT_GATE),
-                        ("PERSIST", tk.PERSIST)):
-        assert re.search(rf"#define SRT_TRACE_{name} (\d+)\n",
-                         src).group(1) == str(value)
+    assert re.search(r"#define SRT_TRACE_FLAT_GATE (\d+)\n",
+                     src).group(1) == str(tk.FLAT_GATE)
     assert const("kSuper") == bvh.SUPER and const("kGroup") == bvh.GROUP
     assert const("kRowF4") * 4 == bvh.STAGED_COLS
     assert const("kBlock") == tk.BLOCK
