@@ -1432,9 +1432,12 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "split 8": ["-DSRT_TRACE_SPLIT_MAX=8"],
                "split 16": ["-DSRT_TRACE_SPLIT_MAX=16"],
                "split 24": ["-DSRT_TRACE_SPLIT_MAX=24"],
-               "ring 3x64": ["-DSRT_TRACE_STAGES=3"],
+               "ring 2x64": ["-DSRT_TRACE_CHUNK=64"],
+               "ring 3x64": ["-DSRT_TRACE_STAGES=3",
+                             "-DSRT_TRACE_CHUNK=64"],
                "ring 4x32": ["-DSRT_TRACE_STAGES=4",
                              "-DSRT_TRACE_CHUNK=32"],
+               "ring 3x128": ["-DSRT_TRACE_STAGES=3"],
                "block 64": ["-DSRT_TRACE_BLOCK=64"],
                "block 256": ["-DSRT_TRACE_BLOCK=256"],
                "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}

@@ -53,7 +53,9 @@
 //     admits it; each lane keeps its own gates and tests a cluster's box
 //     again, with its t then, at the turn of each of its chunks.  A parent
 //     box is the min/max of its children's planes and (b - o) * inv rounds
-//     monotonically in b, so a parent admits whatever a child admits;
+//     monotonically in b, so a parent admits whatever a child admits.  The
+//     slab test's min and max are one instruction each (slab_pad says why
+//     that changes no result);
 //   - Moller-Trumbore reads the 48-byte rows of the staged table
 //     (ops/bvh.py: stage_slots: v0 and the global triangle index, e1 and the
 //     active flag, e2), kChunk slots at a time, each chunk one bulk copy
@@ -83,10 +85,11 @@
 // dropped where the dense plain version keeps it; chip_smoke.py phase 4
 // reports every pixel that differs.
 // Shared memory of the walk: each warp's ring, kStages x kChunk x 48 bytes
-// (12 KB a 128-thread block at 2 x 64), and its barriers, before the
-// tables.  Its constants (the block, the ring, the split point, and the
-// flat gate that skips the hierarchy) are -D defaults that chip_smoke.py's
-// sweep sets on extra builds (PERF.md section 6).
+// (48 KB a 128-thread block at 2 x 128: a chunk holds a whole cluster of up
+// to 128 slots, one copy), and its barriers, before the tables; the launch
+// opts in above the default 48 KB.  Its constants (the block, the ring, the
+// split point, and the flat gate that skips the hierarchy) are -D defaults
+// that chip_smoke.py's sweep sets on extra builds (PERF.md section 6).
 //
 // Bound on the H100 (chip_smoke.py): per-ray FP32 arithmetic (every sphere
 // and plane tested per segment, the root boxes of the hierarchy, MT over
@@ -101,7 +104,8 @@
 // operation rounds as the plain version's does.  The only fused
 // multiply-adds are the reference log's (ops/rng.py:log), written out as
 // __fmaf_rn.  min/max/clamp propagate NaN, as torch.minimum and torch.clamp
-// do, and sign() returns its argument for +-0 and NaN, as jnp.sign does.
+// do (but in the walk's gates, slab_pad), and sign() returns its argument
+// for +-0 and NaN, as jnp.sign does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -207,7 +211,7 @@ constexpr float kSlabMargin = 0x1p-16f;
 #define SRT_TRACE_BLOCK 128
 #endif
 #ifndef SRT_TRACE_CHUNK
-#define SRT_TRACE_CHUNK 64
+#define SRT_TRACE_CHUNK 128
 #endif
 #ifndef SRT_TRACE_STAGES
 #define SRT_TRACE_STAGES 2

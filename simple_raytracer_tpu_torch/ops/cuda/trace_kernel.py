@@ -55,7 +55,7 @@ BLOCK = 256          # the "none" and "small" variants' block
 # which a chunk's MT is split across the warp (32: always) and the flat
 # gate (every cluster box, no hierarchy)
 WALK_BLOCK = 128
-CHUNK = 64
+CHUNK = 128
 STAGES = 2
 SPLIT_MAX = 32
 FLAT_GATE = 0

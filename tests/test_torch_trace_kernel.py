@@ -234,8 +234,8 @@ def test_shared_memory_rule_at_the_boundary():
     tk.check_shared_bytes(4 * words, h100)
     assert (ctypes.sizeof(tk.TraceParams) + 8 * tk.LAUNCH_POINTERS
             <= tk.PARAM_LIMIT_BYTES)
-    # the rings of the route's block: 4 warps x 2 x 64 slots x 48 B, and a
-    # barrier a buffer; with the 1,025 spheres' tables still under the
+    # the rings of the route's block: 4 warps x 2 x 128 slots x 48 B, and
+    # a barrier a buffer; with the 1,025 spheres' tables still under the
     # limit
-    assert tk.WALK_SHARED_BYTES == 4 * 2 * (64 * 48 + 8)
+    assert tk.WALK_SHARED_BYTES == 4 * 2 * (128 * 48 + 8)
     assert 4 * words + tk.WALK_SHARED_BYTES <= h100

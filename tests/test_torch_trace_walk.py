@@ -30,8 +30,8 @@ its counting instance, to the plain version there).  Here
 It gives the dense plain version's triangle (t, index, u, v) bit for bit
 on the bounces of a config 4 pass and on rays at a reduced config 6 mesh
 and the full one, with the route's constants and with a batch of one
-group, the split point at 0 and 16, rings of 1 and 4 chunks and the
-flat gate; exact ties go to the lowest index, on either MT path; a
+group, the split point at 0 and 16, rings of 1 and 4 chunks, chunks of
+half a cluster and the flat gate; exact ties go to the lowest index, on either MT path; a
 parent box built as the min and max of its children's planes admits
 whatever they admit, and the gate's NaN-dropping min and max admit what
 NaN-propagating ones would for every ray without a NaN (hypothesis); and
@@ -71,7 +71,7 @@ from torch_port_helpers import jax_scene_arrays, to_np, tvec, unit_vectors
 # the slots of a chunk, the warp's ring of chunk buffers, the most
 # admitting lanes that split a chunk's MT, the groups of a gate batch, the
 # slab margin
-LANES, CHUNK, STAGES, SPLIT_MAX, BATCH = 32, 64, 2, 32, 16
+LANES, CHUNK, STAGES, SPLIT_MAX, BATCH = 32, 128, 2, 32, 16
 MARGIN = 2.0 ** -16
 NO_KEY = torch.iinfo(torch.int64).max
 # the staged table's columns of each slot-table column MT reads
@@ -135,7 +135,7 @@ def mt_rows(o: Vec3, d: Vec3, col):
 
 def trace_walk_emulation(o: Vec3, d: Vec3, alive, t_seed, clusters, table,
                          batch=BATCH, split_max=SPLIT_MAX, stages=STAGES,
-                         flat=False):
+                         flat=False, chunk=CHUNK):
     """One bounce's warp walk of the whole-trace kernel in PyTorch (see the
     module docstring): (R,) rays, their alive mask and sphere or plane t
     -> ((t, global index, slot, u, v): the nearest triangle strictly
@@ -188,7 +188,7 @@ def trace_walk_emulation(o: Vec3, d: Vec3, alive, t_seed, clusters, table,
                 cnt["union"] += 1
                 cnt["admitted"] += int(ok.sum())
             first = min(c, n_cl - 1) * k + base
-            n = min(CHUNK, k - base)
+            n = min(chunk, k - base)
             slots = torch.arange(first, first + n)
             admit = ok.nonzero()[:, 0]
             q = lambda v: v[admit][:, None]
@@ -218,7 +218,7 @@ def trace_walk_emulation(o: Vec3, d: Vec3, alive, t_seed, clusters, table,
             c_mask = gates(hier.boxes[s * bvh.SUPER:(s + 1) * bvh.SUPER],
                            parent)
             for ci in c_mask.any(dim=1).nonzero()[:, 0].tolist():
-                for base in range(0, k, CHUNK):
+                for base in range(0, k, chunk):
                     yield s * bvh.SUPER + ci, base, c_mask[ci]
 
         def next_item():
@@ -389,7 +389,8 @@ def mesh6():
 # the walk's constants of each case (the route's, then one changed)
 CASES = {"route": {}, "batch1": dict(batch=1), "split0": dict(split_max=0),
          "split16": dict(split_max=16), "ring1": dict(stages=1),
-         "ring4": dict(stages=4), "flat": dict(flat=True)}
+         "ring4": dict(stages=4), "chunk64": dict(chunk=64),
+         "flat": dict(flat=True)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -397,11 +398,11 @@ def test_walk_matches_dense_on_config6_mesh(mesh6, case):
     """Rays at the reduced config 6 mesh with the route's constants (MT
     always split), and at the full mesh with a batch of one group, the
     split point at 0 (never split) and 16 (both paths), rings of 1 and 4
-    chunks and the flat gate: the dense plain version's (t, index, u, v)
-    on every ray."""
+    chunks, chunks of 64 slots (two a cluster) and the flat gate: the
+    dense plain version's (t, index, u, v) on every ray."""
     kw = CASES[case]
     tris = mesh6[5 if case == "route" else 6]
-    o, d, alive, seed = mesh_rays(tris, 8, seed=sorted(CASES).index(case))
+    o, d, alive, seed = mesh_rays(tris, 8, seed=list(CASES).index(case))
     walked, cnt = trace_walk_emulation(o, d, alive, seed, tris.clusters,
                                        tris.table, **kw)
     dense = dense_triangles(o, d, seed, tris)
