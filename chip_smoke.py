@@ -14,7 +14,8 @@ tri_backend="auto", and config 6's 98,304-slot table under "fused": the
 TPU's packed form), its nine-row form for a texture skybox (config 3 with
 a 2048x1024 RGBE texture, written as an .hdr and read back), the split
 per-bounce path with the BVH kernel (config 6 under "auto": the two_level
-variant, also with a 2048x1024 8-bit texture; config 5 under "bvh": flat;
+variant, also with a 2048x1024 8-bit texture; configs 5 and 4 under "bvh":
+flat;
 config 7's 1.31M triangles under "auto": streamed), the fused per-bounce
 path (config 7 under "fused": the streamed BVH variant and the per-bounce
 shade kernel, each bounce), the split path with the brute-force triangle
@@ -46,8 +47,8 @@ are a path of their own.  Phases, one line each on stdout:
      launch's (t, index) on every ray, dead rays (+inf, 0) included, with
      each launch's live rays; every compacted BVH launch's ray order, made
      inside the launch, against ops/bvh.compact_order (the same count and
-     admitted rays), and every two_level and streamed launch replayed
-     on the warp walk's counting instance, its (t, slot) the route's
+     admitted rays), and every BVH launch replayed on the kernel's
+     counting instance, its (t, slot) the route's
      (config 6 under "pallas": a band of rows;
      the kernel visits live rays only), and the canvas, and the
      triangle kernel on ragged random tables and ray batches (RAGGED);
@@ -57,8 +58,8 @@ are a path of their own.  Phases, one line each on stdout:
      the plain version's rays need (6 "fused": a full pass of the split
      path over the same rays);
      config 4 under "jnp" against the "pallas"
-     route on the same rays; then, for configs 6 and 5 "bvh", the per-ray
-     gate against a gate-free dense Moller-Trumbore over every triangle,
+     route on the same rays; then, for config 6 and configs 5 and 4
+     under "bvh", the per-ray gate against a gate-free dense Moller-Trumbore over every triangle,
      on every launch of a pass of one full-width band of rows; and the
      nine rows of configs 2, 3 and 4 with the texture at the golden size;
      config 7 "fused" under the Plucker form, every BVH launch against the
@@ -91,10 +92,10 @@ are a path of their own.  Phases, one line each on stdout:
      beside it; benchmark_step of
      configs 6 and 7 under "auto" and "fused" side by side; the BVH
      kernel's Plucker form against its MT form on the same launches, in
-     turns; the two_level and streamed variants' launches one by one
-     (each launch's time and its kernels' device times, the compaction's
-     beside the walk's; with --parent the parent's kernel on the same
-     launch; compact_order's and prepare's time on the same rays; what
+     turns; every BVH cell's launches one by one (each launch's time and
+     its kernels' device times, the order's and compaction's beside the
+     walk's; with --parent the parent's kernel on the same launch, in
+     turns; compact_order's and prepare's time on the same rays; what
      the walk did, from its counting instance, against the (ray, cluster)
      pairs the plain version's gates admit); the streamed launches
      replayed on two_level (the same walk); two_level's launches on
@@ -167,6 +168,7 @@ CELLS = {"1": (1, "auto", "none", None), "2": (2, "auto", "none", None),
          "5": (5, "auto", "clustered", None),
          "6": (6, "auto", "two_level", None),
          "5/bvh": (5, "bvh", "flat", None),
+         "4/bvh": (4, "bvh", "flat", None),
          "6/fused": (6, "fused", "clustered", None),
          "7": (7, "auto", "streamed", None),
          "7/fused": (7, "fused", "streamed", None),
@@ -185,14 +187,14 @@ FORMS = {"6/plucker": "plucker", "7/plucker": "plucker",
          "6/k256/plucker": "plucker"}
 CLUSTER_SIZES = {"6/k256": 256, "6/k256/plucker": 256, "5/k256": 256}
 # the cells of the split per-bounce path with the BVH kernel
-SPLIT = ("6", "5/bvh", "7", "6/texture", "6/plucker", "7/plucker", "6/k256",
-         "6/k256/plucker")
+SPLIT = ("6", "5/bvh", "4/bvh", "7", "6/texture", "6/plucker", "7/plucker",
+         "6/k256", "6/k256/plucker")
 FUSED = ("7/fused",)           # the cells of the fused per-bounce path
 PALLAS = ("5/pallas", "6/pallas")   # the split path, the triangle kernel
 DENSE = ("4/jnp",)             # the split path, the dense PyTorch loop
 # the cells whose per-ray gate is held against a dense loop over every
 # triangle (config 7's 2,097,152 triangle slots make that loop minutes)
-GATE_CELLS = ("6", "5/bvh")
+GATE_CELLS = ("6", "5/bvh", "4/bvh")
 # cells held to their plain version on a band of rows: the plain version
 # loops densely over config 6's 81,920 triangles
 BAND_CELLS = ("6/fused", "6/pallas")
@@ -210,6 +212,7 @@ TEXTURE_SHAPE = (1024, 2048, 3)
 TEXTURE_SEED = 0
 GOLDEN_SIZES = {"1": (64, 64), "2": (96, 54), "3": (96, 54), "4": (96, 54),
                 "5": (96, 54), "6": (64, 36), "5/bvh": (96, 54),
+                "4/bvh": (96, 54),
                 "6/fused": (64, 36), "5/pallas": (96, 54),
                 "6/pallas": (64, 36), "4/jnp": (96, 54),
                 "6/plucker": (64, 36), "6/k256": (64, 36),
@@ -704,12 +707,12 @@ def check_bvh_launches(label: str, recorded, clusters, table,
                        count_work: bool = True):
     """Every recorded BVH launch against its plain version, in the
     launch's MT form, on the same rays: (t, slot) equal on every live ray;
-    and a warp walk's launch (two_level, streamed) replayed on its
-    counting instance, whose (t, slot) must be the route's on every ray.
-    Returns (max |dt|, work per launch (walked rays, rays, compacted,
-    ``admitted``'s five counts, live rays, the alive flag's bytes; not
-    counted without ``count_work``), plain seconds, one report per
-    launch, the counting instance's counts per launch (None for flat))."""
+    and every launch replayed on the kernel's counting instance, whose (t,
+    slot) must be the route's on every ray.  Returns (max |dt|, work per
+    launch (walked rays, rays, compacted, ``admitted``'s five counts, live
+    rays, the alive flag's bytes; not counted without ``count_work``),
+    plain seconds, one report per launch, the counting instance's counts
+    per launch)."""
     max_abs, work, plain_s, lines, counted = 0.0, [], 0.0, [], []
     for b, (prep, (t_k, s_k)) in enumerate(recorded):
         o_, d_, alive, t_init = bvh_inputs(prep)
@@ -752,12 +755,10 @@ def check_bvh_launches(label: str, recorded, clusters, table,
             fail(f"cell {label} bounce {b}: the BVH kernel's (t, slot) "
                  f"differ from the plain version on {slot_diff} live "
                  f"rays (max |dt| {m})")
-        cnt = None
-        if prep.variant != "flat":
-            (t_c, s_c), cnt = bk.launch_counted(prep)
-            if not (torch.equal(t_c, t_k) and torch.equal(s_c, s_k)):
-                fail(f"cell {label} bounce {b}: the counting instance's "
-                     "(t, slot) differ from the route's")
+        (t_c, s_c), cnt = bk.launch_counted(prep)
+        if not (torch.equal(t_c, t_k) and torch.equal(s_c, s_k)):
+            fail(f"cell {label} bounce {b}: the counting instance's "
+                 "(t, slot) differ from the route's")
         counted.append(cnt)
     return max_abs, work, plain_s, lines, counted
 
@@ -1211,19 +1212,32 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     return {k: v / 1e3 / reps for k, v in kernel_device_us(prof).items()}
 
 
+def parent_prep(parent, pp):
+    """A recorded launch as the parent's kernel takes it: a parent whose
+    flat variant is the one-thread loop from before the warp walk
+    (``mt_cluster`` in its source) visits the cluster boxes themselves,
+    ranked front to back (the first n_clusters rows of the padded
+    hierarchy's boxes), not the groups."""
+    if pp.variant == "flat" and "mt_cluster(" in parent.source.read_text():
+        return with_params(pp, n_order=pp.params.n_clusters)
+    return pp
+
+
 def walk_launches(label: str, res: dict, clusters, table,
                   parent=None) -> dict:
-    """Phase 6 of a cell whose BVH launches take the warp walk (two_level
-    or streamed), one launch at a time: the launch's time (the visiting
-    order, the ray compaction and the walk, all on the card), and the
-    device time of each of its kernels (torch.profiler: the compaction's
-    four kernels beside the walk); with ``parent`` (an earlier build of
-    the kernel), the same launch on it, whose (t, slot) must be the
-    route's; ops/bvh.compact_order's time on the same rays (the
-    compaction's plain version, in PyTorch) and ``prepare``'s, with the
-    route's whole cost a pass (launches + ``prepare``); and what the walk
-    did, from the counting instance (phase 4), beside what the plain
-    version's gates admit under each ray's final t (``admitted``)."""
+    """Phase 6 of a BVH cell, one launch at a time: the launch's time (the
+    visiting order, the ray compaction and the walk, all on the card), and
+    the device time of each of its kernels (torch.profiler: the order's and
+    the compaction's kernels beside the walk); with ``parent`` (an earlier
+    build of the kernel), the same launch on it in turns (parent, this,
+    this, parent), whose (t, slot) must be the route's;
+    ops/bvh.compact_order's time on the same rays (the compaction's plain
+    version, in PyTorch) and ``prepare``'s, with the route's whole cost a
+    pass (launches + ``prepare``); and what the walk did, from the counting
+    instance (phase 4), beside what the plain version's gates admit under
+    each ray's final t (``admitted``): pairs run against those needed, the
+    clusters a warp runs, boxes tested a walked ray, MT lane-steps issued
+    against the needed pairs' real slots, active lanes a MT step."""
     per, lines = [], []
     adm = clusters.hierarchy.admission
     for b, ((pp, oo), w, cnt) in enumerate(zip(res["recorded"], res["work"],
@@ -1231,7 +1245,28 @@ def walk_launches(label: str, res: dict, clusters, table,
         o_, d_, alive, t_init = bvh_inputs(pp)
         med = lambda fn: float(np.median(cuda_ms(fn, iters=3, repeats=3,
                                                  warmup=1)))
-        k_ms = med(lambda: bk.launch(pp, oo))
+        run_k = lambda: med(lambda: bk.launch(pp, oo))
+        parent_ms, parent_note = None, ""
+        if parent is None:
+            k_ms = run_k()
+        else:
+            got = (torch.empty_like(oo[0]), torch.empty_like(oo[1]))
+            pq = parent_prep(parent, pp)
+
+            def run_p():
+                with bvh_kernel_as(parent):
+                    return med(lambda: bk.launch(pq, got))
+
+            turns = [run_p(), run_k(), run_k(), run_p()]
+            if not (torch.equal(got[0], oo[0]) and torch.equal(got[1],
+                                                               oo[1])):
+                fail(f"cell {label} bounce {b}: the parent's kernel and "
+                     "this one differ")
+            parent_ms = (turns[0] + turns[3]) / 2
+            k_ms = (turns[1] + turns[2]) / 2
+            parent_note = (f", the parent's kernel {parent_ms:.4f} ms in "
+                           f"turns ({', '.join(f'{t:.4f}' for t in turns)}; "
+                           f"parent / this {parent_ms / k_ms:.2f}x)")
         parts = device_ms_by_kernel(lambda: bk.launch(pp, oo))
         walk_ms = sum(v for k, v in parts.items() if "bvh_kernel" in k)
         compact = pp.perm is not None
@@ -1240,19 +1275,10 @@ def walk_launches(label: str, res: dict, clusters, table,
         prep_ms = med(lambda: bk.prepare(o_, d_, alive, t_init, clusters,
                                          table, compact,
                                          pp.variant == "streamed"))
-        parent_ms, parent_note = None, ""
-        if parent is not None:
-            got = (torch.empty_like(oo[0]), torch.empty_like(oo[1]))
-            with bvh_kernel_as(parent):
-                parent_ms = med(lambda: bk.launch(pp, got))
-            if not (torch.equal(got[0], oo[0]) and torch.equal(got[1],
-                                                               oo[1])):
-                fail(f"cell {label} bounce {b}: the parent's kernel and "
-                     "this one differ")
-            parent_note = (f", the parent's kernel {parent_ms:.4f} ms "
-                           f"(parent / this {parent_ms / k_ms:.2f}x)")
-        walked, pairs_adm, opened = w[0], w[7], w[5]
+        walked, pair_slots, pairs_adm, opened = w[0], w[3], w[7], w[5]
         st = max(cnt["stagings"], 1)
+        warps = max(cnt["warps"], 1)
+        steps = max(cnt["mt_steps"], 1)
         # the work done: the bytes fed to MT (a slot's row) and the
         # lane-slot MT tests issued (32 lanes a warp-wide step)
         row_bytes = 4 * (bvh.PLUCKER_COLS if pp.params.plucker
@@ -1261,26 +1287,29 @@ def walk_launches(label: str, res: dict, clusters, table,
                         order_ms=sum(parts.values()) - walk_ms,
                         parent_ms=parent_ms, compact_order_ms=c_ms,
                         prepare_ms=prep_ms, compact=compact,
-                        admitted_pairs=pairs_adm, opened=opened,
-                        fed_bytes=cnt["slots"] * row_bytes,
+                        admitted_pairs=pairs_adm, needed_slots=pair_slots,
+                        opened=opened, fed_bytes=cnt["slots"] * row_bytes,
                         mt_issued=32 * cnt["mt_steps"], **cnt))
         lines.append(
-            f"b{b} {'compact' if compact else 'dense'} walked {walked}: "
-            f"launch {k_ms:.4f} ms (device: "
+            f"b{b} {'compact' if compact else 'dense'} walked {walked} in "
+            f"{cnt['warps']} warps: launch {k_ms:.4f} ms (device: "
             + ", ".join(f"{k} {v:.4f}" for k, v in sorted(parts.items()))
             + f"){parent_note}, compact_order (PyTorch) {c_ms:.4f} ms, "
-            f"prepare {prep_ms:.4f} ms; (warp, cluster) visits "
-            f"{cnt['stagings']} (chunks fed {cnt['chunks']}, slots "
-            f"{cnt['slots']}), admitting lanes mean "
-            f"{cnt['pairs'] / st:.2f}, by lanes {cnt['hist']}, split "
-            f"{cnt['split']}, wasted {cnt['wasted']}; fed "
-            f"{per[-1]['fed_bytes'] / 1e6:.3f} MB; MT pairs (ray, "
+            f"prepare {prep_ms:.4f} ms; boxes tested a walked ray "
+            f"{cnt['box_tests'] / max(walked, 1):.2f}; (warp, cluster) "
+            f"visits {cnt['stagings']} ({cnt['stagings'] / warps:.3f} a "
+            f"warp; chunks fed {cnt['chunks']}, slots {cnt['slots']}), "
+            f"admitting lanes mean {cnt['pairs'] / st:.2f}, by lanes "
+            f"{cnt['hist']}, split {cnt['split']}, wasted {cnt['wasted']}; "
+            f"fed {per[-1]['fed_bytes'] / 1e6:.3f} MB; MT pairs (ray, "
             f"cluster) {cnt['pairs']} against {pairs_adm} admitted under "
             f"the final t ({opened} clusters opened); warp MT steps "
             f"{cnt['mt_steps']} ({per[-1]['mt_issued']} lane-slot tests "
-            f"issued); warp slab tests groups "
-            f"{cnt['group_tests']}, supers {cnt['super_tests']}, clusters "
-            f"{cnt['cluster_tests']}")
+            f"issued against {pair_slots} real slots of the needed pairs; "
+            f"active lanes a MT step "
+            f"{cnt['pairs'] * pp.params.k / steps:.2f}); warp slab tests "
+            f"groups {cnt['group_tests']}, supers {cnt['super_tests']}, "
+            f"clusters {cnt['cluster_tests']}")
     tot = lambda key: sum(x[key] for x in per)
     parent_note = ""
     if parent is not None:
@@ -1295,8 +1324,9 @@ def walk_launches(label: str, res: dict, clusters, table,
         f"{tot('prepare_ms'):.4f} ms, launches + prepare "
         f"{tot('kernel_ms') + tot('prepare_ms'):.4f} ms; fed "
         f"{tot('fed_bytes') / 1e6:.3f} MB, MT pairs "
-        f"{tot('pairs')} ({tot('mt_issued')} lane-slot tests issued), "
-        f"admitted pairs {tot('admitted_pairs')}")
+        f"{tot('pairs')} ({tot('mt_issued')} lane-slot tests issued "
+        f"against {tot('needed_slots')} needed), admitted pairs "
+        f"{tot('admitted_pairs')}")
     return dict(per_launch=per)
 
 
@@ -1673,9 +1703,9 @@ def parse_args(argv):
              "kernel (simple_raytracer_tpu_torch/csrc/bvh_kernel.cu, with "
              "the same C interface) and its whole-trace kernel "
              "(trace_kernel.cu, the interface from before the warp walk) "
-             "are built beside this one's, and phase 6 times every "
-             "two_level and streamed launch, and the pass of each "
-             "clustered whole-trace cell, on them too")
+             "are built beside this one's, and phase 6 times every BVH "
+             "launch, and the pass of each clustered whole-trace cell, on "
+             "them too, in turns")
     return ap.parse_args(argv)
 
 
@@ -1959,8 +1989,8 @@ def main(argv=None) -> int:
             f"{'; '.join(lines)}; canvas rmse={rmse:.3e} share>1e-3="
             f"{share:.3e} bit-identical={bitexact} non-finite masks agree="
             f"{same_bad}; plain BVH {plain_s:.2f} s/pass; counting "
-            f"instance equal to the route on "
-            f"{sum(c is not None for c in counts)} launches  [{card}]")
+            f"instance equal to the route on {len(counts)} launches  "
+            f"[{card}]")
         if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
                 and same_bad):
             fail(f"cell {label}: the per-bounce canvas disagrees with its "
@@ -2187,11 +2217,10 @@ def main(argv=None) -> int:
                          f"{[w[0] for w in res['work']]}, clusters opened "
                          f"per launch {[w[5] for w in res['work']]}, "
                          f"{roots} root boxes")
-            if preps[0].variant != "flat":
-                walk_cells[label] = walk_launches(
-                    label, res, cl, ds.triangles.table, parent)
-                if preps[0].variant == "two_level":
-                    walk_cells[label]["sweep"] = walk_sweep(label, res)
+            walk_cells[label] = walk_launches(label, res, cl,
+                                              ds.triangles.table, parent)
+            if preps[0].variant == "two_level":
+                walk_cells[label]["sweep"] = walk_sweep(label, res)
             bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
                         f"{walk_note}; bound {b_bound:.4f} ms ({flops:.4g} "
                         f"FLOP, {nbytes:.4g} B), {b_bound / b_ms * 100:.1f}% "
@@ -2414,9 +2443,9 @@ def main(argv=None) -> int:
             for key in ("bound_mt_live_ms", "bound_all_rays_ms"):
                 entries[-1][key] = tri_cells[cell][key]
             entries[-1]["cells"] = tri_cells
-        if kind == "bvh" and variant != "flat":
-            # the warp walk's cells of this variant and form, launch by
-            # launch (phase 6)
+        if kind == "bvh":
+            # the cells of this variant and form, launch by launch (phase
+            # 6)
             entries[-1]["cells"] = {
                 c: v for c, v in walk_cells.items()
                 if CELLS[c][2] == variant}

@@ -187,9 +187,11 @@ constexpr int kRankMax = 8192;
 constexpr int kThreads = 256;      // the compaction kernels' blocks
 constexpr int kPartials = 512;     // ray_partials' blocks, at most
 
-// The counting instance of the warp walk (srt_bvh_count_launch, which only
+// The counting instance of each walk (srt_bvh_count_launch, which only
 // chip_smoke.py calls; the route never launches it): what the walk did,
-// summed over the launch's warps into (kCounters,) int64 counters.
+// summed over the launch's warps into (kCounters,) int64 counters.  kFlat's
+// one-thread loop counts what its warp runs: a (warp, cluster) visit for
+// each cluster some lane admits, K warp-wide MT steps each.
 enum Count {
   kCountWalked = 0,    // rays walked (listed lanes)
   kCountStagings,      // (warp, cluster) visits that ran MT
@@ -202,6 +204,9 @@ enum Count {
   kCountClusterTests,  // of clusters
   kCountSplit,         // chunks whose MT the lanes split pair by pair
   kCountWasted,        // chunks copied that no lane admitted at their turn
+  kCountWarps,         // warps that walked (some lane listed)
+  kCountBoxTests,      // slab tests of walking lanes (each box whose parent
+                       // the lane admitted; kFlat: every box of the order)
   kCountHist,          // visits by admitting lanes: 1, 2, 3-4, 5-8,
                        // 9-16, 17-24, 25-31, 32
   kCounters = kCountHist + 8
@@ -218,6 +223,7 @@ __device__ __forceinline__ int hist_bin(int n) {
 template <bool COUNT>
 struct WarpCounts {
   __device__ __forceinline__ void add(int, unsigned long long) {}
+  __device__ __forceinline__ void add_lanes(int, unsigned) {}
   __device__ __forceinline__ void flush(unsigned long long*) {}
 };
 
@@ -226,6 +232,10 @@ struct WarpCounts<true> {
   unsigned long long v[kCounters] = {};
   __device__ __forceinline__ void add(int i, unsigned long long n) {
     v[i] += n;
+  }
+  // a count that differs by lane: the warp's sum (called by every lane)
+  __device__ __forceinline__ void add_lanes(int i, unsigned n) {
+    v[i] += __reduce_add_sync(kAll, n);
   }
   __device__ __forceinline__ void flush(unsigned long long* out) {
     if ((threadIdx.x & 31) == 0)
@@ -647,6 +657,7 @@ __device__ __forceinline__ bool next_item(
                  : 0u;
       w.c_any = __reduce_or_sync(kAll, w.c_mask);
       cnt.add(kCountClusterTests, kSuper);
+      cnt.add_lanes(kCountBoxTests, (w.s_mask >> i) & 1u ? kSuper : 0u);
       continue;
     }
     if (w.g_any) {
@@ -658,6 +669,7 @@ __device__ __forceinline__ bool next_item(
                  : 0u;
       w.s_any = __reduce_or_sync(kAll, w.s_mask);
       cnt.add(kCountSuperTests, kGroup);
+      cnt.add_lanes(kCountBoxTests, (w.g_mask >> i) & 1u ? kGroup : 0u);
       continue;
     }
     w.j0 += kBatch;
@@ -672,6 +684,7 @@ __device__ __forceinline__ bool next_item(
     }
     w.g_any = __reduce_or_sync(kAll, w.g_mask);
     cnt.add(kCountGroupTests, n);
+    cnt.add_lanes(kCountBoxTests, listed ? n : 0);
   }
 }
 
@@ -803,8 +816,10 @@ __device__ __forceinline__ void warp_walk(
     unsigned long long* counters) {
   constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
   WarpCounts<COUNT> cnt;
-  if constexpr (COUNT)
+  if constexpr (COUNT) {
     cnt.add(kCountWalked, __popc(__ballot_sync(kAll, listed)));
+    cnt.add(kCountWarps, 1);
+  }
   const int lane = threadIdx.x & 31;
   Walk w;
   Item last = {-1, 0, false};   // the chunk found last
@@ -844,6 +859,7 @@ __device__ __forceinline__ void warp_walk(
     phase ^= 1u << b;
     const bool ok = cur.ok && slab(boxes + 8 * cur.c, r, best.t);
     const unsigned admit = __ballot_sync(kAll, ok);
+    cnt.add_lanes(kCountBoxTests, cur.ok);
     if (admit) {
       if (cur.base == 0) {
         cnt.add(kCountStagings, 1);
@@ -886,8 +902,8 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
       bar_init(&s_bar[0][0] + threadIdx.x);
     bar_init_fence();
     __syncthreads();
-  } else if (!in_range) {
-    return;
+  } else if (!COUNT && !in_range) {
+    return;   // (the counting instance keeps every lane for its ballots)
   }
   const int ray = !in_range ? 0 : (perm != nullptr ? perm[i] : i);
   Best best;
@@ -921,6 +937,30 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
           PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
           boxes, supers, groups, order, listed, r, best, p,
           s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
+  } else if constexpr (COUNT) {
+    // the same loop, each lane as the route runs it, and what the warp
+    // runs: a visit for each cluster some lane admits, K MT steps each
+    WarpCounts<true> cnt;
+    const unsigned walkers = __ballot_sync(kAll, listed);
+    if (walkers) {
+      cnt.add(kCountWalked, __popc(walkers));
+      cnt.add(kCountWarps, 1);
+      for (int j = 0; j < p.n_order; ++j) {
+        const int c = order[j];
+        const bool ok = listed && slab(boxes + 8 * c, r, best.t);
+        const unsigned admit = __ballot_sync(kAll, ok);
+        cnt.add(kCountClusterTests, 1);
+        cnt.add(kCountBoxTests, __popc(walkers));
+        if (admit) {
+          cnt.add(kCountStagings, 1);
+          cnt.add(kCountPairs, __popc(admit));
+          cnt.add(kCountMtSteps, p.k);
+          cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
+        }
+        if (ok) mt_cluster(table, gidx, c, p.k, r, best);
+      }
+    }
+    cnt.flush(counters);
   } else if (listed) {
     for (int j = 0; j < p.n_order; ++j) {
       const int c = order[j];
@@ -973,8 +1013,7 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
           && (staged == nullptr
               || reinterpret_cast<uintptr_t>(staged) % 16 != 0))
       || (warp && p.plucker
-          && reinterpret_cast<uintptr_t>(coeffs) % 16 != 0)
-      || (counters != nullptr && !warp))
+          && reinterpret_cast<uintptr_t>(coeffs) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // the work scratch (work_words)
@@ -1032,7 +1071,10 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
   }
   switch (p.variant) {
     case kFlat:
-      SRT_BVH_LAUNCH(kFlat, false, false);
+      if (counters != nullptr)
+        SRT_BVH_LAUNCH(kFlat, false, true);
+      else
+        SRT_BVH_LAUNCH(kFlat, false, false);
       break;
     case kTwoLevel:   // the same warp walk
     case kStreamed:
@@ -1078,9 +1120,9 @@ extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                     nullptr, stream);
 }
 
-// The warp walk's counting instance (kTwoLevel, kStreamed): the same
-// launch, which also adds what the walk did to counters ((kCounters,)
-// int64, Count); chip_smoke.py's only
+// The counting instance (every variant): the same launch, which also adds
+// what the walk did to counters ((kCounters,) int64, Count);
+// chip_smoke.py's only
 extern "C" int srt_bvh_count_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const void* alive, const float* t_init,

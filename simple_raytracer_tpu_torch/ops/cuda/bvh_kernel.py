@@ -74,7 +74,8 @@ COUNT_ARGTYPES = [ctypes.c_void_p] * 22 + [BvhParams, ctypes.c_void_p]
 # the counting instance's int64 counters, in the CUDA source's Count order,
 # then HIST_BINS: the stagings by the lanes that admit them
 COUNTERS = ("walked", "stagings", "chunks", "slots", "pairs", "mt_steps",
-            "group_tests", "super_tests", "cluster_tests", "split", "wasted")
+            "group_tests", "super_tests", "cluster_tests", "split", "wasted",
+            "warps", "box_tests")
 HIST_BINS = ("1", "2", "3-4", "5-8", "9-16", "17-24", "25-31", "32")
 
 
@@ -249,14 +250,10 @@ def launch(prep: Prepared, out=None):
 
 
 def launch_counted(prep: Prepared):
-    """One launch of the warp walk's counting instance (``two_level`` or
-    ``streamed``; a kernel of its own, which the route never launches; it
-    is not counted with the route's launches): ((t, slot), what the walk
-    did by ``COUNTERS`` name, with the (warp, cluster) visits by admitting
-    lanes under "hist")."""
-    if prep.variant == "flat":
-        raise ValueError("BVH kernel: the flat variant has no counting "
-                         "instance")
+    """One launch of the kernel's counting instance (a kernel of its own,
+    which the route never launches; it is not counted with the route's
+    launches): ((t, slot), what the walk did by ``COUNTERS`` name, with
+    the (warp, cluster) visits by admitting lanes under "hist")."""
     out = _outputs(prep, None)
     counters = torch.zeros(len(COUNTERS) + len(HIST_BINS),
                            dtype=torch.int64, device=prep.device)

@@ -386,4 +386,5 @@ def test_constants_match_the_cuda_source():
     assert const("kSuper") == bvh.SUPER and const("kGroup") == bvh.GROUP
     assert re.search(r"case kTwoLevel:[^\n]*\n\s+case kStreamed:\s+"
                      r"SRT_BVH_WALK\(kStreamed\);", src)
-    assert re.search(r"\(counters != nullptr && !warp\)", src)
+    assert re.search(r"case kFlat:\s+if \(counters != nullptr\)\s+"
+                     r"SRT_BVH_LAUNCH\(kFlat, false, true\);", src)
