@@ -59,8 +59,9 @@ are a path of their own.  Phases, one line each on stdout:
      path over the same rays);
      config 4 under "jnp" against the "pallas"
      route on the same rays; then, for config 6 and configs 5 and 4
-     under "bvh", the per-ray gate against a gate-free dense Moller-Trumbore over every triangle,
-     on every launch of a pass of one full-width band of rows; and the
+     under "bvh", the per-ray gate against a gate-free dense
+     Moller-Trumbore over every triangle, on every launch of a pass of
+     one full-width band of rows; and the
      nine rows of configs 2, 3 and 4 with the texture at the golden size;
      config 7 "fused" under the Plucker form, every BVH launch against the
      plain version; each Plucker launch replayed in the MT form (a report:
@@ -98,9 +99,11 @@ are a path of their own.  Phases, one line each on stdout:
      turns; compact_order's and prepare's time on the same rays; what
      the walk did, from its counting instance, against the (ray, cluster)
      pairs the plain version's gates admit); the streamed launches
-     replayed on two_level (the same walk); two_level's launches on
-     builds of the kernel with the warp walk's constants swept (the split
-     point, the ring);
+     replayed on two_level (the same walk); two_level's and flat's
+     launches on builds of the kernel with the warp walk's constants and
+     layouts swept (the split point, the ring, MT reading the staged rows
+     in place; for flat, its clusters in front-to-back order without the
+     hierarchy), in turns with the route;
      the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell).
@@ -1330,13 +1333,18 @@ def walk_launches(label: str, res: dict, clusters, table,
     return dict(per_launch=per)
 
 
-# The warp walk's constants swept on two_level's launches of a pass (phase
-# 6), each a build of the BVH kernel with -D flags of the source's names:
-# the split point (SRT_BVH_SPLIT_MAX; 0: never split, 32: always split)
-# with the route's ring, then the ring's buffers and chunk (SRT_BVH_STAGES
-# x SRT_BVH_CHUNK) at the route's split point.
+# The warp walk's constants and layouts swept on the launches of a pass
+# of two_level and flat (phase 6), each a build of the BVH kernel with -D
+# flags of the source's names: the split point (SRT_BVH_SPLIT_MAX; 0:
+# never split, 32: always split) with the route's ring, the ring's buffers
+# and chunk (SRT_BVH_STAGES x SRT_BVH_CHUNK) at the route's split point,
+# MT reading the staged rows where they lie (SRT_BVH_IN_PLACE, no copy),
+# and, on flat's launches only, flat's clusters in front-to-back order
+# without the hierarchy (SRT_BVH_FLAT_ORDER).
 SWEEP_SPLITS = (0, 4, 8, 16, 24, 32)
-SWEEP_RINGS = ((3, 64), (4, 64), (4, 32))
+SWEEP_RINGS = ((3, 64), (4, 64), (2, 32), (4, 32))
+SWEEP_LAYOUTS = {"in place": ["-DSRT_BVH_IN_PLACE=1"],
+                 "flat order": ["-DSRT_BVH_FLAT_ORDER=1"]}
 SWEEP_KERNELS = {}
 
 
@@ -1356,20 +1364,39 @@ def sweep_kernels() -> dict:
         for stages, chunk in SWEEP_RINGS:
             cases[f"ring {stages}x{chunk}"] = [f"-DSRT_BVH_STAGES={stages}",
                                                f"-DSRT_BVH_CHUNK={chunk}"]
+        cases.update(SWEEP_LAYOUTS)
         SWEEP_KERNELS.update({name: bk.Kernel(bk.SOURCE, bk._bind, flags)
                               for name, flags in cases.items()})
         build_all("the sweep's kernel builds", SWEEP_KERNELS.values())
     return SWEEP_KERNELS
 
 
+def bvh_registers(kernel, variant: int) -> str:
+    """ptxas's registers and spills of a build's walk in the MT form (the
+    route's instance of ``variant``'s kernel, not the counting one)."""
+    out, on = [], False
+    for line in kernel.build_log.splitlines():
+        if "entry function" in line:
+            on = f"bvh_kernelILi{variant}ELb0ELb0E" in line
+        elif on and ("registers" in line or "spill" in line):
+            out.append(line.split("ptxas info    : ")[-1].strip())
+    return "; ".join(out) or "no ptxas report"
+
+
 def walk_sweep(label: str, res: dict) -> dict:
-    """two_level's launches of a pass on each build of ``sweep_kernels``,
-    in turns, twice: ms a pass, and (t, slot) equal to the route's."""
+    """The launches of a pass (two_level or flat) on each build of
+    ``sweep_kernels`` and on the route's (the flat-order build on flat's
+    only), in turns, twice: ms a pass, and (t, slot) equal to the
+    route's."""
     preps = [pp for pp, _ in res["recorded"]]
     outs = [oo for _, oo in res["recorded"]]
+    variant = preps[0].variant
+    builds = {"route": bk.KERNEL, **{
+        k: v for k, v in sweep_kernels().items()
+        if variant == "flat" or k not in ("flat order",)}}
     ms = collections.defaultdict(list)
     for _ in range(2):
-        for name, kernel in sweep_kernels().items():
+        for name, kernel in builds.items():
             try:
                 t, same = replay(preps, outs, kernel)
             except RuntimeError as exc:     # the launch was refused
@@ -1377,14 +1404,15 @@ def walk_sweep(label: str, res: dict) -> dict:
             if not same:
                 fail(f"cell {label}: the sweep's {name} changes a result")
             ms[name].append(t)
-    say(f"[6] cell {label} two_level sweep (ms a pass, two turns; the "
+    say(f"[6] cell {label} {variant} sweep (ms a pass, two turns; the "
         f"route: split {route_constant('SRT_BVH_SPLIT_MAX')}, ring "
         f"{route_constant('SRT_BVH_STAGES')}x"
-        f"{route_constant('SRT_BVH_CHUNK')}): "
+        f"{route_constant('SRT_BVH_CHUNK')}, the hierarchy): "
         + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
-        + "; results equal; ptxas of each build's clustered variant: "
-        + ", ".join(f"{k}: {walk_registers(kernel)}" for k, kernel in
-                    trace_sweep_kernels().items()))
+        + "; results equal; ptxas of each build's walk (MT): "
+        + ", ".join(f"{k}: " + bvh_registers(
+            kernel, bk.VARIANTS["flat"] if k == "flat order"
+            else bk.VARIANTS["streamed"]) for k, kernel in builds.items()))
     return dict(ms)
 
 
@@ -1529,10 +1557,9 @@ def as_mt(prep, clusters):
     """A recorded BVH launch in the MT form: the same rays, gates and
     variant; only the slot test differs."""
     table, _, _, *rest = prep.tensors
-    staged = (bvh.staged_slots(clusters, table) if prep.variant != "flat"
-              else None)
-    return dataclasses.replace(with_params(prep, plucker=0),
-                               tensors=(table, staged, None, *rest))
+    return dataclasses.replace(
+        with_params(prep, plucker=0),
+        tensors=(table, bvh.staged_slots(clusters, table), None, *rest))
 
 
 def form_report(recorded, clusters) -> tuple:
@@ -1802,9 +1829,9 @@ def main(argv=None) -> int:
                 f"built in {time.perf_counter() - t0:.4f} s  [{card}]")
         tris = r.device_scene.triangles
         if (label in SPLIT + FUSED and FORMS.get(label) != "plucker"
-                and CELLS[label][2] != "flat" and cl.staged is None):
+                and cl.staged is None):
             # the warp walk's staged MT table, built once per scene on the
-            # first two_level or streamed launch in the MT form
+            # first BVH launch in the MT form
             t0 = time.perf_counter()
             staged = bvh.staged_slots(cl, tris.table)
             torch.cuda.synchronize()
@@ -2219,7 +2246,7 @@ def main(argv=None) -> int:
                          f"{roots} root boxes")
             walk_cells[label] = walk_launches(label, res, cl,
                                               ds.triangles.table, parent)
-            if preps[0].variant == "two_level":
+            if preps[0].variant in ("two_level", "flat"):
                 walk_cells[label]["sweep"] = walk_sweep(label, res)
             bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
                         f"{walk_note}; bound {b_bound:.4f} ms ({flops:.4g} "

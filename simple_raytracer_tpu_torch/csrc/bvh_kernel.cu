@@ -2,11 +2,11 @@
 // triangle intersection.
 //
 // Replaces three TPU kernels of simple_raytracer_tpu/ops/pallas/
-// bvh_kernel.py, as three compile-time variants of one kernel (Variant):
-//   - kFlat (bvh_kernel.py:201 _kernel, tables of at most 8192 slots): the
-//     clusters in front-to-back order, each box slab-tested against the
-//     ray's live best t (_reslab_flag), then Moller-Trumbore over the
-//     cluster's K slots, one thread a ray;
+// bvh_kernel.py, as three variants of one kernel (Variant):
+//   - kFlat (bvh_kernel.py:201 _kernel, tables of at most 8192 slots,
+//     configs 4 and 5 under tri_backend="bvh"): on the TPU the clusters in
+//     front-to-back order, each box slab-tested against the ray's live best
+//     t (_reslab_flag), then Moller-Trumbore over the cluster's K slots;
 //   - kTwoLevel (bvh_kernel.py:1040 _kernel_packed, config 6, a table the
 //     TPU keeps resident): the groups of 16 supers in front-to-back order,
 //     each group box, then each of its 16 super boxes, then each of their
@@ -15,8 +15,9 @@
 //   - kStreamed (bvh_kernel.py:678 _kernel_hbm, config 7 and
 //     tri_backend="clustered", a table the TPU streams from HBM): the same
 //     gates and MT.
-// kTwoLevel and kStreamed launch one warp walk (below); the two names keep
-// the TPU's route and the kernels they replace.  Each has a second, Plucker
+// All three launch one warp walk (below), down the hierarchy of groups,
+// supers and clusters; the three names keep the TPU's routes and the
+// kernels they replace.  kTwoLevel and kStreamed have a second, Plucker
 // form (PLUCKER, params.plucker; bvh_kernel.py:629 _mt_update_sub_mxu and
 // :582 _plucker_lt, row 5a, SRT_BVH_MT=plucker): the same predicate from the
 // slot's 20 Plucker coefficients (ops/bvh.py: plucker_table, built once
@@ -61,7 +62,7 @@
 // index product is taken in size_t or stays below 2^31: at config 7,
 // 1,409,024 slots x 20 columns is 28.2M words.
 //
-// The warp walk (kTwoLevel, kStreamed), designed for this card.  One
+// The warp walk (every variant), designed for this card.  One
 // thread a ray walking alone leaves a warp running the union of its lanes'
 // clusters with most lanes masked off, each gate one dependent load and
 // each cluster a chain of K dependent MT steps; a secondary bounce walks
@@ -120,12 +121,11 @@
 
 struct BvhParams {
   int32_t n_rays;       // rays: the grid
-  int32_t n_order;      // boxes of the visiting order: groups, or clusters
-                        // (kFlat)
+  int32_t n_order;      // boxes of the visiting order: the groups
   int32_t n_clusters;   // clusters of the slot table
   int32_t k;            // slots per cluster
   int32_t variant;      // Variant
-  int32_t plucker;      // 1: the Plucker form (kTwoLevel, kStreamed)
+  int32_t plucker;      // 1: the Plucker form (not kFlat)
   int32_t n_admission;  // admission boxes of the ray compaction; 0: none
   int32_t alive_u8;     // 1: alive is one byte a ray (bool), 0: f32
 };
@@ -149,9 +149,6 @@ namespace {
 constexpr int kBlock = 128;
 constexpr int kSuper = 16;   // clusters per super (ops/bvh.py: SUPER)
 constexpr int kGroup = 16;   // supers per group (ops/bvh.py: GROUP)
-// a slot row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5), e2 (6-8),
-// n0 n1 n2 (9-17), material (18), active (19)
-constexpr int kTriCols = 20;
 constexpr int kWarps = kBlock / 32;
 constexpr unsigned kAll = 0xffffffffu;
 // a slot's Plucker coefficients (ops/bvh.py: PLUCKER_COLS)
@@ -179,6 +176,18 @@ constexpr int kPluckerRowF4 = kPluckerCols / 4;
 constexpr int kChunk = SRT_BVH_CHUNK;
 constexpr int kStages = SRT_BVH_STAGES;
 constexpr int kSplitMax = SRT_BVH_SPLIT_MAX;
+// Two layouts of the walk that only the sweep builds: MT reading each
+// chunk's staged rows where they lie in device memory, with no copy
+// (SRT_BVH_IN_PLACE), and kFlat visiting its clusters in front-to-back
+// order, kBatch at a time, without the hierarchy (SRT_BVH_FLAT_ORDER).
+#ifndef SRT_BVH_IN_PLACE
+#define SRT_BVH_IN_PLACE 0
+#endif
+#ifndef SRT_BVH_FLAT_ORDER
+#define SRT_BVH_FLAT_ORDER 0
+#endif
+constexpr bool kInPlace = SRT_BVH_IN_PLACE;
+constexpr bool kFlatOrder = SRT_BVH_FLAT_ORDER;
 // the ray compaction and the visiting orders (ops/bvh.py: ADMISSION_MAX;
 // ops/cuda/bvh_kernel.py: RANK_MAX)
 constexpr int kAdmissionMax = 256;
@@ -189,9 +198,7 @@ constexpr int kPartials = 512;     // ray_partials' blocks, at most
 
 // The counting instance of each walk (srt_bvh_count_launch, which only
 // chip_smoke.py calls; the route never launches it): what the walk did,
-// summed over the launch's warps into (kCounters,) int64 counters.  kFlat's
-// one-thread loop counts what its warp runs: a (warp, cluster) visit for
-// each cluster some lane admits, K warp-wide MT steps each.
+// summed over the launch's warps into (kCounters,) int64 counters.
 enum Count {
   kCountWalked = 0,    // rays walked (listed lanes)
   kCountStagings,      // (warp, cluster) visits that ran MT
@@ -206,7 +213,7 @@ enum Count {
   kCountWasted,        // chunks copied that no lane admitted at their turn
   kCountWarps,         // warps that walked (some lane listed)
   kCountBoxTests,      // slab tests of walking lanes (each box whose parent
-                       // the lane admitted; kFlat: every box of the order)
+                       // the lane admitted, and each chunk's re-test)
   kCountHist,          // visits by admitting lanes: 1, 2, 3-4, 5-8,
                        // 9-16, 17-24, 25-31, 32
   kCounters = kCountHist + 8
@@ -348,23 +355,6 @@ __device__ __forceinline__ bool plucker_hit(const float* q, const Ray& r,
          && t > 0.0f && q[19] > 0.0f;
 }
 
-// Moller-Trumbore over the K slots of cluster c, read from the MT columns
-// of the slot table in device memory (kFlat)
-__device__ __forceinline__ void mt_cluster(const float* __restrict__ table,
-                                           const int32_t* __restrict__ gidx,
-                                           int c, int k, const Ray& r,
-                                           Best& best) {
-  const int row0 = c * k;
-  for (int s = 0; s < k; ++s) {
-    const float* q = table + (size_t)kTriCols * (row0 + s);
-    float t;
-    if (mt_hit(__ldg(q + 0), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3),
-               __ldg(q + 4), __ldg(q + 5), __ldg(q + 6), __ldg(q + 7),
-               __ldg(q + 8), __ldg(q + 19), r, t))
-      commit(t, __ldg(gidx + row0 + s), row0 + s, best);
-  }
-}
-
 // ---- the ray compaction and the visiting orders, before the walk ----
 
 // Per block, the sums over its rays (a grid-stride loop) of o * w and of w
@@ -410,11 +400,11 @@ __device__ __forceinline__ float center_d2(const float* __restrict__ b,
   return is_nan(d2) ? INFINITY : d2;
 }
 
-// The visiting order of the visit boxes (groups, or kFlat's clusters) and
-// the admission boxes in their front-to-back rank (ops/bvh.py:
-// front_to_back: ascending squared distance of the centers from the mean
-// live-ray origin, ties by index): thread t < n_visit places visit box t,
-// the next n_admission threads admission box t - n_visit.
+// The visiting order of the visit boxes (groups, or the flat-order
+// build's clusters) and the admission boxes in their front-to-back rank
+// (ops/bvh.py: front_to_back: ascending squared distance of the centers
+// from the mean live-ray origin, ties by index): thread t < n_visit places
+// visit box t, the next n_admission threads admission box t - n_visit.
 __global__ void __launch_bounds__(kThreads)
 rank_boxes(const float4* __restrict__ part, const int n_part,
            const float* __restrict__ visit, const int n_visit,
@@ -627,9 +617,11 @@ struct Item {
 // supers; a super's 16 clusters), each against the lane's best t then: a
 // t can only fall, so that admits at least what gating each box at its
 // turn would, and the chunk's own turn tests its cluster's box again.
+// FLAT (the sweep's SRT_BVH_FLAT_ORDER build of kFlat): no hierarchy, the
+// next kBatch clusters of the front-to-back order tested together.
 // Called by the whole warp (control flow is warp-uniform); false at the
 // end of the walk.
-template <bool COUNT>
+template <bool FLAT, bool COUNT>
 __device__ __forceinline__ bool next_item(
     Walk& w, Item& it, const float* __restrict__ boxes,
     const float* __restrict__ supers, const float* __restrict__ groups,
@@ -638,6 +630,31 @@ __device__ __forceinline__ bool next_item(
   if (it.c >= 0 && it.base + kChunk < p.k) {
     it.base += kChunk;
     return true;
+  }
+  if constexpr (FLAT) {
+    for (;;) {
+      if (w.c_any) {
+        const int i = __ffs(w.c_any) - 1;
+        w.c_any &= w.c_any - 1;
+        it.c = order[w.j0 + i];
+        it.base = 0;
+        it.ok = (w.c_mask >> i) & 1u;
+        return true;
+      }
+      w.j0 += kBatch;
+      if (w.j0 >= p.n_order) return false;
+      const int n = min(kBatch, p.n_order - w.j0);
+      w.c_mask = 0;
+      if (listed) {
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+          if (i < n && slab(boxes + 8 * order[w.j0 + i], r, best_t))
+            w.c_mask |= 1u << i;
+      }
+      w.c_any = __reduce_or_sync(kAll, w.c_mask);
+      cnt.add(kCountClusterTests, n);
+      cnt.add_lanes(kCountBoxTests, listed ? n : 0);
+    }
   }
   for (;;) {
     if (w.c_any) {
@@ -688,6 +705,15 @@ __device__ __forceinline__ bool next_item(
   }
 }
 
+// a staged row's float4: from the ring's shared buffer, or where it lies
+// in device memory (the sweep's SRT_BVH_IN_PLACE build)
+__device__ __forceinline__ float4 row_f4(const float4* __restrict__ q) {
+  if constexpr (kInPlace)
+    return __ldg(q);
+  else
+    return *q;
+}
+
 // the staged slot sl's test for ray q: (valid, t, global index, read from
 // the staged row, or for the Plucker form from gidx only on a valid hit)
 template <bool PLUCKER>
@@ -699,7 +725,7 @@ __device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
     float c[kPluckerCols];
 #pragma unroll
     for (int j = 0; j < kPluckerRowF4; ++j) {
-      const float4 w = buf[kPluckerRowF4 * sl + j];
+      const float4 w = row_f4(buf + kPluckerRowF4 * sl + j);
       c[4 * j] = w.x;
       c[4 * j + 1] = w.y;
       c[4 * j + 2] = w.z;
@@ -709,9 +735,9 @@ __device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
     g = hit ? __ldg(gidx + row) : -1;
     return hit;
   } else {
-    const float4 a = buf[kMtRowF4 * sl];       // v0, global index
-    const float4 b = buf[kMtRowF4 * sl + 1];   // e1, active
-    const float4 e = buf[kMtRowF4 * sl + 2];   // e2
+    const float4 a = row_f4(buf + kMtRowF4 * sl);       // v0, index
+    const float4 b = row_f4(buf + kMtRowF4 * sl + 1);   // e1, active
+    const float4 e = row_f4(buf + kMtRowF4 * sl + 2);   // e2
     g = __float_as_int(a.w);
     return mt_hit(a.x, a.y, a.z, b.x, b.y, b.z, e.x, e.y, e.z, b.w, q, t);
   }
@@ -794,7 +820,7 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
   }
 }
 
-// The warp walk (kTwoLevel, kStreamed): the warp visits, in order, every
+// The warp walk (every variant): the warp visits, in order, every
 // chunk of every cluster that some lane's gates admit (next_item); each
 // chunk is one 1-D bulk copy from the staged table (rows: kMtRowF4 or
 // kPluckerRowF4 float4s a slot) into one of the warp's kStages shared
@@ -805,8 +831,10 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
 // its turn each lane tests the cluster's box again with its t then, and
 // the lanes that still admit it run MT (mt_chunk).  Each ray's gates and
 // commits are the plain version's, so it writes the same result.  Called
-// by the whole warp (control flow is warp-uniform).
-template <bool PLUCKER, bool COUNT>
+// by the whole warp (control flow is warp-uniform).  FLAT: next_item's
+// flat order (the sweep's build).  In place (the sweep's build): no copy,
+// MT reads each chunk's rows where they lie.
+template <bool FLAT, bool PLUCKER, bool COUNT>
 __device__ __forceinline__ void warp_walk(
     const float4* __restrict__ rows, const int32_t* __restrict__ gidx,
     const float* __restrict__ boxes, const float* __restrict__ supers,
@@ -831,8 +859,8 @@ __device__ __forceinline__ void warp_walk(
   // NaN ray admits the sentinel boxes past the table too; staging the
   // last cluster again changes nothing)
   auto stage_next = [&]() {
-    more = next_item<COUNT>(w, last, boxes, supers, groups, order, listed,
-                            r, best.t, p, cnt);
+    more = next_item<FLAT, COUNT>(w, last, boxes, supers, groups, order,
+                                  listed, r, best.t, p, cnt);
     if (!more) return;
 #pragma unroll
     for (int i = 0; i < kStages; ++i)
@@ -843,10 +871,12 @@ __device__ __forceinline__ void warp_walk(
     const int n = min(kChunk, p.k - last.base);
     cnt.add(kCountChunks, 1);
     cnt.add(kCountSlots, n);
-    __syncwarp();   // every lane is done with buffer b's last chunk
-    if (lane == 0)
-      bulk_load(s_buf + b * kChunk * kRowF4, rows + (size_t)first * kRowF4,
-                static_cast<uint32_t>(n * kRowF4 * 16), &s_bar[b]);
+    if constexpr (!kInPlace) {
+      __syncwarp();   // every lane is done with buffer b's last chunk
+      if (lane == 0)
+        bulk_load(s_buf + b * kChunk * kRowF4, rows + (size_t)first * kRowF4,
+                  static_cast<uint32_t>(n * kRowF4 * 16), &s_bar[b]);
+    }
   };
   while (more && n_q < kStages) stage_next();
   for (uint32_t done = 0; n_q > 0; ++done) {
@@ -855,8 +885,10 @@ __device__ __forceinline__ void warp_walk(
     for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
     --n_q;
     const int b = done % kStages;
-    bar_wait(&s_bar[b], (phase >> b) & 1u);
-    phase ^= 1u << b;
+    if constexpr (!kInPlace) {
+      bar_wait(&s_bar[b], (phase >> b) & 1u);
+      phase ^= 1u << b;
+    }
     const bool ok = cur.ok && slab(boxes + 8 * cur.c, r, best.t);
     const unsigned admit = __ballot_sync(kAll, ok);
     cnt.add_lanes(kCountBoxTests, cur.ok);
@@ -867,9 +899,10 @@ __device__ __forceinline__ void warp_walk(
         cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
       }
       const int first = min(cur.c, p.n_clusters - 1) * p.k + cur.base;
-      mt_chunk<PLUCKER, COUNT>(s_buf + b * kChunk * kRowF4,
-                               min(kChunk, p.k - cur.base), first, admit, ok,
-                               r, best, gidx, cnt);
+      const float4* buf = kInPlace ? rows + (size_t)first * kRowF4
+                                   : s_buf + b * kChunk * kRowF4;
+      mt_chunk<PLUCKER, COUNT>(buf, min(kChunk, p.k - cur.base), first,
+                               admit, ok, r, best, gidx, cnt);
     } else {
       cnt.add(kCountWasted, 1);
     }
@@ -883,8 +916,7 @@ __device__ __forceinline__ void warp_walk(
 // or dead.
 template <int VARIANT, bool PLUCKER, bool COUNT = false>
 __global__ void __launch_bounds__(kBlock)
-bvh_kernel(const RayIn in, const float* __restrict__ table,
-           const float4* __restrict__ staged,
+bvh_kernel(const RayIn in, const float4* __restrict__ staged,
            const float* __restrict__ coeffs,
            const int32_t* __restrict__ gidx, const float* __restrict__ boxes,
            const float* __restrict__ supers, const float* __restrict__ groups,
@@ -896,15 +928,11 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
   __shared__ __align__(8) uint64_t s_bar[kWarps][kStages];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < p.n_rays;
-  if constexpr (VARIANT != kFlat) {
-    // every lane of the block stays to the end: the walk is the warp's
-    if (threadIdx.x < kWarps * kStages)
-      bar_init(&s_bar[0][0] + threadIdx.x);
-    bar_init_fence();
-    __syncthreads();
-  } else if (!COUNT && !in_range) {
-    return;   // (the counting instance keeps every lane for its ballots)
-  }
+  // every lane of the block stays to the end: the walk is the warp's
+  if (threadIdx.x < kWarps * kStages)
+    bar_init(&s_bar[0][0] + threadIdx.x);
+  bar_init_fence();
+  __syncthreads();
   const int ray = !in_range ? 0 : (perm != nullptr ? perm[i] : i);
   Best best;
   best.t = in_range ? in.t_init[ray] : 0.0f;
@@ -929,45 +957,13 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
       r.mz = r.ox * r.dy - r.oy * r.dx;
     }
   }
-  if constexpr (VARIANT != kFlat) {
-    constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
-    const int warp = threadIdx.x >> 5;
-    if (__any_sync(kAll, listed))
-      warp_walk<PLUCKER, COUNT>(
-          PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
-          boxes, supers, groups, order, listed, r, best, p,
-          s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
-  } else if constexpr (COUNT) {
-    // the same loop, each lane as the route runs it, and what the warp
-    // runs: a visit for each cluster some lane admits, K MT steps each
-    WarpCounts<true> cnt;
-    const unsigned walkers = __ballot_sync(kAll, listed);
-    if (walkers) {
-      cnt.add(kCountWalked, __popc(walkers));
-      cnt.add(kCountWarps, 1);
-      for (int j = 0; j < p.n_order; ++j) {
-        const int c = order[j];
-        const bool ok = listed && slab(boxes + 8 * c, r, best.t);
-        const unsigned admit = __ballot_sync(kAll, ok);
-        cnt.add(kCountClusterTests, 1);
-        cnt.add(kCountBoxTests, __popc(walkers));
-        if (admit) {
-          cnt.add(kCountStagings, 1);
-          cnt.add(kCountPairs, __popc(admit));
-          cnt.add(kCountMtSteps, p.k);
-          cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
-        }
-        if (ok) mt_cluster(table, gidx, c, p.k, r, best);
-      }
-    }
-    cnt.flush(counters);
-  } else if (listed) {
-    for (int j = 0; j < p.n_order; ++j) {
-      const int c = order[j];
-      if (slab(boxes + 8 * c, r, best.t))
-        mt_cluster(table, gidx, c, p.k, r, best);
-    }
-  }
+  constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
+  const int warp = threadIdx.x >> 5;
+  if (__any_sync(kAll, listed))
+    warp_walk<VARIANT == kFlat, PLUCKER, COUNT>(
+        PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
+        boxes, supers, groups, order, listed, r, best, p,
+        s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
   if (!in_range) return;
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
   slot_out[ray] = best.idx < 0 ? -1 : best.slot;
@@ -975,12 +971,13 @@ bvh_kernel(const RayIn in, const float* __restrict__ table,
 
 // the dynamic shared memory a block of the warp walk takes: each warp's
 // ring of buffers (the route's fit, with the mbarriers, the 48 KB a launch
-// may take without opting in; a larger ring of the sweep opts in)
-template <int VARIANT, bool PLUCKER>
+// may take without opting in; a larger ring of the sweep opts in; none in
+// place)
+template <bool PLUCKER>
 constexpr int walk_smem() {
-  return VARIANT == kFlat ? 0
-                          : kWarps * kStages * kChunk
-                                * (PLUCKER ? kPluckerRowF4 : kMtRowF4) * 16;
+  return kInPlace ? 0
+                  : kWarps * kStages * kChunk
+                        * (PLUCKER ? kPluckerRowF4 : kMtRowF4) * 16;
 }
 
 // the work scratch's int32 words: partial sums, the two visiting orders,
@@ -990,7 +987,7 @@ size_t work_words(const BvhParams& p) {
          + (p.n_admission > 0 ? (size_t)p.n_rays : 0);
 }
 
-int launch_bvh(const RayIn& in, const float* table, const float* staged,
+int launch_bvh(const RayIn& in, const float* staged,
                const float* coeffs, const int32_t* gidx, const float* boxes,
                const float* supers, const float* groups,
                const float* admission, int32_t* work, int32_t* perm,
@@ -998,22 +995,23 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
                const BvhParams& p, unsigned long long* counters,
                void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
-  // kTwoLevel and kStreamed: the warp walk, over the staged MT table or
-  // the Plucker coefficients
-  const bool warp = p.variant != kFlat;
+  // the warp walk, over the staged MT table or (not kFlat) the Plucker
+  // coefficients; the sweep's flat-order build visits kFlat's clusters
+  BvhParams q = p;
+  const bool flat_order = kFlatOrder && p.variant == kFlat;
+  if (flat_order) q.n_order = p.n_clusters;
   const bool compact = p.n_admission > 0;
-  if (p.k <= 0 || p.n_clusters <= 0 || p.n_order <= 0
-      || p.n_order > kRankMax || p.n_admission < 0
+  if (p.k <= 0 || p.n_clusters <= 0 || q.n_order <= 0
+      || q.n_order > kRankMax || p.n_admission < 0
       || p.n_admission > kAdmissionMax || work == nullptr
       || compact != (perm != nullptr) || compact != (count != nullptr)
       || (compact && admission == nullptr)
       || (p.plucker != 0) != (coeffs != nullptr)
-      || (p.plucker && !warp)
-      || (warp && !p.plucker
+      || (p.plucker && p.variant == kFlat)
+      || (!p.plucker
           && (staged == nullptr
               || reinterpret_cast<uintptr_t>(staged) % 16 != 0))
-      || (warp && p.plucker
-          && reinterpret_cast<uintptr_t>(coeffs) % 16 != 0))
+      || (p.plucker && reinterpret_cast<uintptr_t>(coeffs) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // the work scratch (work_words)
@@ -1026,10 +1024,10 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
   const int ray_blocks = (p.n_rays + kThreads - 1) / kThreads;
   const int n_part = min(ray_blocks, kPartials);
   ray_partials<<<n_part, kThreads, 0, st>>>(in, p, part);
-  const int n_rank = p.n_order + p.n_admission;
+  const int n_rank = q.n_order + p.n_admission;
   rank_boxes<<<(n_rank + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      part, n_part, p.variant == kFlat ? boxes : groups, p.n_order,
-      admission, p.n_admission, visit_order, adm_order);
+      part, n_part, flat_order ? boxes : groups, q.n_order, admission,
+      p.n_admission, visit_order, adm_order);
   if (compact) {
     cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * kBuckets,
                                       st);
@@ -1045,7 +1043,7 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
   const float4* st4 = reinterpret_cast<const float4*>(staged);
 #define SRT_BVH_LAUNCH(VARIANT, PLUCKER, COUNT)                              \
   do {                                                                       \
-    constexpr int smem = walk_smem<VARIANT, PLUCKER>();                      \
+    constexpr int smem = walk_smem<PLUCKER>();                               \
     if (smem + kWarps * kStages * 8 > 48 * 1024) {                           \
       const cudaError_t e = cudaFuncSetAttribute(                            \
           bvh_kernel<VARIANT, PLUCKER, COUNT>,                               \
@@ -1053,9 +1051,9 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
       if (e != cudaSuccess) return (int)e;                                   \
     }                                                                        \
     bvh_kernel<VARIANT, PLUCKER, COUNT><<<blocks, kBlock, smem, st>>>(       \
-        in, table, st4, coeffs, gidx, boxes, supers, groups, visit_order,    \
+        in, st4, coeffs, gidx, boxes, supers, groups, visit_order,           \
         compact ? perm : nullptr, compact ? count : nullptr, t_out,          \
-        slot_out, p, counters);                                              \
+        slot_out, q, counters);                                              \
   } while (0)
 #define SRT_BVH_WALK(VARIANT)                 \
   if (counters != nullptr) {                  \
@@ -1071,11 +1069,10 @@ int launch_bvh(const RayIn& in, const float* table, const float* staged,
   }
   switch (p.variant) {
     case kFlat:
-      if (counters != nullptr)
-        SRT_BVH_LAUNCH(kFlat, false, true);
-      else
-        SRT_BVH_LAUNCH(kFlat, false, false);
+#if SRT_BVH_FLAT_ORDER
+      SRT_BVH_WALK(kFlat);
       break;
+#endif
     case kTwoLevel:   // the same warp walk
     case kStreamed:
       SRT_BVH_WALK(kStreamed);
@@ -1098,11 +1095,12 @@ extern "C" long long srt_bvh_work_words(BvhParams p) {
 
 // One launch: the visiting order (and, with admission boxes, the ray
 // compaction into perm and count) on the stream, then the walk.  Rays:
-// (R,) f32 o, d, alive (bytes or f32) and t_init; table: (C * K, 20) slot
-// rows (kFlat's); staged: the warp walk's MT table ((C * K, 12) f32; null
-// for kFlat and the Plucker form); coeffs: the Plucker form's (C * K, 20)
-// table, or null; work: srt_bvh_work_words
-// int32 words; perm (R,) and count (1,) int32 with admission boxes.
+// (R,) f32 o, d, alive (bytes or f32) and t_init; table: the (C * K, 20)
+// slot rows, which no variant reads (the interface keeps its place, which
+// builds before kFlat took the warp walk read); staged: the warp walk's MT
+// table ((C * K, 12) f32; null for the Plucker form); coeffs: the Plucker
+// form's (C * K, 20) table, or null; work: srt_bvh_work_words int32 words;
+// perm (R,) and count (1,) int32 with admission boxes.
 extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                               const float* oz, const float* dx,
                               const float* dy, const float* dz,
@@ -1115,7 +1113,7 @@ extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                               float* t_out, int32_t* slot_out, BvhParams p,
                               void* stream) {
   const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
-  return launch_bvh(in, table, staged, coeffs, gidx, boxes, supers, groups,
+  return launch_bvh(in, staged, coeffs, gidx, boxes, supers, groups,
                     admission, work, perm, count, t_out, slot_out, p,
                     nullptr, stream);
 }
@@ -1133,7 +1131,7 @@ extern "C" int srt_bvh_count_launch(
     unsigned long long* counters, BvhParams p, void* stream) {
   if (counters == nullptr) return (int)cudaErrorInvalidValue;
   const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
-  return launch_bvh(in, table, staged, coeffs, gidx, boxes, supers, groups,
+  return launch_bvh(in, staged, coeffs, gidx, boxes, supers, groups,
                     admission, work, perm, count, t_out, slot_out, p,
                     counters, stream);
 }

@@ -320,8 +320,8 @@ def stage_slots(table: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
 def staged_slots(clusters, table: torch.Tensor) -> torch.Tensor:
     """``stage_slots`` of the clusters' slot table, built on first use and
     kept on the clusters (once per scene): only the warp walks read it,
-    the BVH kernel's (the ``two_level`` and ``streamed`` variants, in the
-    MT form) and the whole-trace kernel's (its ``clustered`` variant)."""
+    the BVH kernel's (every variant, in the MT form) and the whole-trace
+    kernel's (its ``clustered`` variant)."""
     if clusters.staged is None:
         # the dataclass is frozen; the field is a cache of its table
         object.__setattr__(clusters, "staged",

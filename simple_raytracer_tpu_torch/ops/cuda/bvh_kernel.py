@@ -3,16 +3,17 @@
 
 It replaces three TPU kernels of
 ``simple_raytracer_tpu/ops/pallas/bvh_kernel.py``: ``_kernel`` (a row
-table of at most ``VMEM_TABLE_MAX_SLOTS`` slots) as the ``flat`` variant,
-``_kernel_packed`` (group -> super -> cluster gates, config 6) as the
-``two_level`` variant, and ``_kernel_hbm`` (the same gates over a table
-the TPU streams from HBM: config 7, and every clustered mesh under
-``tri_backend="clustered"``) as the ``streamed`` variant.  Both launch
-one warp walk: the warp tests each level's gates together, stages each
-cluster some lane admits from a per-scene table of the bytes MT reads
-(``ops/bvh.staged_slots``) with asynchronous bulk copies into shared
-memory, and splits MT pair by pair across the lanes when few of them
-admit a cluster.  Its plain PyTorch version is
+table of at most ``VMEM_TABLE_MAX_SLOTS`` slots: configs 4 and 5 under
+``tri_backend="bvh"``) as the ``flat`` variant, ``_kernel_packed``
+(group -> super -> cluster gates, config 6) as the ``two_level`` variant,
+and ``_kernel_hbm`` (the same gates over a table the TPU streams from
+HBM: config 7, and every clustered mesh under ``tri_backend="clustered"``)
+as the ``streamed`` variant.  All three launch one warp walk down the
+hierarchy (``clusters.hierarchy``): the warp tests each level's gates
+together, stages each cluster some lane admits from a per-scene table of
+the bytes MT reads (``ops/bvh.staged_slots``) with asynchronous bulk
+copies into shared memory, and splits MT pair by pair across the lanes
+when few of them admit a cluster.  Its plain PyTorch version is
 ``ops/bvh.intersect_triangles_bvh_plain``.
 
 Under ``SRT_BVH_MT=plucker`` the ``two_level`` and ``streamed`` variants
@@ -62,8 +63,9 @@ class BvhParams(ctypes.Structure):
     ]
 
 
-# the most boxes a visiting order ranks (the CUDA source's kRankMax):
-# kFlat's clusters (at most VMEM_TABLE_MAX_SLOTS slots) or the groups
+# the most boxes a visiting order ranks (the CUDA source's kRankMax): the
+# groups, or the clusters of a flat table (at most VMEM_TABLE_MAX_SLOTS
+# slots) in the sweep's flat-order build
 RANK_MAX = 8192
 # srt_bvh_launch(ox, oy, oz, dx, dy, dz, alive, t_init, table, staged,
 #                coeffs, gidx, boxes, supers, groups, admission, work,
@@ -139,16 +141,35 @@ def _ray(t: torch.Tensor, n: int, device, dtype=torch.float32):
     return t.to(dtype).contiguous()
 
 
+def launch_tables(clusters, table: torch.Tensor, variant: str,
+                  compact: bool):
+    """The tables a launch of ``variant`` reads: ((table, staged, coeffs,
+    gidx, boxes, supers, groups, admission), the visiting order's boxes
+    (the groups), whether it takes the Plucker form).  The MT form is
+    resolved here (``ops/bvh.resolve_plucker``): the warp walk reads
+    ``bvh.staged_slots`` in the MT form and ``bvh.plucker_coefficients``
+    in the Plucker form (never ``flat``), each built on first use (the
+    other None), and the hierarchy's boxes (padded with sentinels to whole
+    groups), supers and groups; the admission boxes with ``compact``, else
+    None."""
+    hier = clusters.hierarchy
+    coeffs = staged = None
+    plucker = bvh.resolve_plucker(clusters, variant)
+    if plucker:
+        coeffs = bvh.plucker_coefficients(clusters, table)
+    else:
+        staged = bvh.staged_slots(clusters, table)
+    return ((table, staged, coeffs, hier.gidx, hier.boxes, hier.supers,
+             hier.groups, hier.admission if compact else None),
+            hier.groups.shape[0], plucker)
+
+
 def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
             clusters, table: torch.Tensor, compact: bool = False,
             force_streamed: bool = False) -> Prepared:
-    """Check a CUDA launch's arguments and pack them; with ``compact``
-    the launch first orders the rays by the compaction (admitted rays
-    first, ``perm`` and ``count``), on the card.  The MT form is resolved
-    here (``ops/bvh.resolve_plucker``); the warp walk (``two_level`` and
-    ``streamed``) reads ``bvh.staged_slots`` in the MT form and
-    ``bvh.plucker_coefficients`` in the Plucker form, each built on first
-    use."""
+    """Check a CUDA launch's arguments and pack them (``launch_tables``);
+    with ``compact`` the launch first orders the rays by the compaction
+    (admitted rays first, ``perm`` and ``count``), on the card."""
     device = o.x.device
     if device.type != "cuda":
         raise ValueError(f"BVH kernel: unsupported device {device}")
@@ -156,52 +177,44 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     n_rays = o.x.shape[0]
     if n_rays >= 2 ** 31 - 1024:
         raise ValueError(f"BVH kernel: {n_rays} rays overflow int32")
-    hier = clusters.hierarchy
     n_cl, k = clusters.slots.shape
-    coeffs = staged = None
-    if bvh.resolve_plucker(clusters, variant):
-        coeffs = bvh.plucker_coefficients(clusters, table)
-        if (coeffs.device != device or coeffs.dtype != torch.float32
-                or coeffs.shape != (n_cl * k, bvh.PLUCKER_COLS)
-                or not coeffs.is_contiguous() or coeffs.data_ptr() % 16):
-            raise ValueError("BVH kernel: bad Plucker coefficient table")
-    elif variant != "flat":
-        staged = bvh.staged_slots(clusters, table)
-        if (staged.device != device or staged.dtype != torch.float32
-                or staged.shape != (n_cl * k, bvh.STAGED_COLS)
-                or not staged.is_contiguous() or staged.data_ptr() % 16):
-            raise ValueError("BVH kernel: bad staged slot table")
+    tensors, n_order, plucker = launch_tables(clusters, table, variant,
+                                              compact)
+    _, staged, coeffs, gidx, boxes, supers, groups, admission = tensors
+    rows = coeffs if plucker else staged
+    if (rows.device != device or rows.dtype != torch.float32
+            or rows.shape != (n_cl * k, bvh.PLUCKER_COLS if plucker
+                              else bvh.STAGED_COLS)
+            or not rows.is_contiguous() or rows.data_ptr() % 16):
+        raise ValueError("BVH kernel: bad "
+                         + ("Plucker coefficient" if plucker
+                            else "staged slot") + " table")
     alive_u8 = alive.dtype == torch.bool
     rays = tuple(_ray(t, n_rays, device) for t in (o.x, o.y, o.z, d.x, d.y,
                                                      d.z))
     rays += (_ray(alive, n_rays, device,
                   torch.bool if alive_u8 else torch.float32),
              _ray(t_init, n_rays, device))
-    boxes = clusters.aabb if variant == "flat" else hier.boxes
-    admission = hier.admission if compact else None
-    tensors = (table, staged, coeffs, hier.gidx, boxes, hier.supers,
-               hier.groups, admission)
     for name, t, dtype in zip(
             ("table", "slot indices", "boxes", "supers", "groups",
              "admission boxes"),
-            (table, hier.gidx, boxes, hier.supers, hier.groups, admission),
+            (table, gidx, boxes, supers, groups, admission),
             (torch.float32, torch.int32, torch.float32, torch.float32,
              torch.float32, torch.float32)):
         if t is not None and (t.device != device or t.dtype != dtype
                               or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"BVH kernel: bad {name} {t.dtype} on "
                              f"{t.device}")
-    if table.shape != (n_cl * k, 20) or hier.gidx.shape != (n_cl * k,):
+    if table.shape != (n_cl * k, 20) or gidx.shape != (n_cl * k,):
         raise ValueError(f"BVH kernel: table {tuple(table.shape)} for "
                          f"{n_cl} clusters of {k}")
-    n_order = boxes.shape[0] if variant == "flat" else hier.groups.shape[0]
     if n_order > RANK_MAX:
         raise ValueError(f"BVH kernel: {n_order} boxes to order, at most "
                          f"{RANK_MAX}")
     p = BvhParams()
     p.n_rays, p.n_order, p.n_clusters, p.k = n_rays, n_order, n_cl, k
     p.variant = VARIANTS[variant]
-    p.plucker = int(coeffs is not None)
+    p.plucker = int(plucker)
     p.n_admission = admission.shape[0] if compact else 0
     p.alive_u8 = int(alive_u8)
     if not 0 < p.n_admission <= bvh.ADMISSION_MAX and compact:

@@ -61,9 +61,8 @@ class Clusters:
     plucker: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
     # the warp walks' MT rows of the slot table (ops/bvh.stage_slots),
-    # built on the first two_level or streamed MT launch of the BVH kernel
-    # or clustered launch of the whole-trace kernel (once per scene) by
-    # ops/bvh.staged_slots
+    # built on the first MT launch of the BVH kernel or clustered launch
+    # of the whole-trace kernel (once per scene) by ops/bvh.staged_slots
     staged: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
 

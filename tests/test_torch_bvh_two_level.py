@@ -4,7 +4,8 @@ CPU can check it, against the plain version and simple_raytracer_tpu.
 
 The CUDA kernel runs only on the card (chip_smoke.py holds every
 ``two_level`` launch, and its counting instance, to the plain version
-there).  Here ``warp_walk_emulation`` transcribes the walk in PyTorch:
+there).  Here ``warp_walk_emulation`` (tests/torch_port_helpers.py, which
+tests/test_torch_bvh_flat.py shares) transcribes the walk in PyTorch:
 
 - the rays in warps of 32, in the launch's order (dense, or a compacted
   launch's ray order with its count);
@@ -36,8 +37,6 @@ paths run, and chunks are found with older and newer t), and on exact ties
 across lanes and clusters; the JAX ``_kernel_packed`` (Pallas interpret
 mode) gives the same winners on an icosphere at K = 128.
 """
-import collections
-import itertools
 import math
 import re
 from pathlib import Path
@@ -58,152 +57,9 @@ from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
 from test_torch_bvh_streamed import _tie_clusters
-from torch_port_helpers import jax_scene_arrays, jvec, tvec, unit_vectors
-
-# the kernel's constants (test_constants_match_the_cuda_source): a warp,
-# the slots of a chunk, the warp's ring of chunk buffers, the most
-# admitting lanes that split a chunk's MT, the groups of a gate batch
-LANES, CHUNK, STAGES, SPLIT_MAX, BATCH = 32, 64, 2, 16, 16
-NO_KEY = torch.iinfo(torch.int64).max
-
-
-def _feed(clusters, table, form):
-    """The rows the walk reads, as ``col(rows)(j)`` of the plain version's
-    arithmetic (``bvh._mt``'s slot-table columns from the staged MT table,
-    or the Plucker coefficients), and each slot's global index."""
-    if form == "plucker":
-        coeffs = bvh.plucker_table(table)
-        return (lambda s: lambda j: coeffs[s, j]), clusters.hierarchy.gidx
-    st = bvh.stage_slots(table, clusters.hierarchy.gidx)
-    where = {0: 0, 1: 1, 2: 2, 3: 4, 4: 5, 5: 6, 6: 8, 7: 9, 8: 10, 19: 7}
-    return ((lambda s: lambda j: st[s, where[j]]),
-            st[:, 3].contiguous().view(torch.int32))
-
-
-def warp_walk_emulation(o: Vec3, d: Vec3, alive, t_init, clusters, table,
-                        form="mt", perm=None, count=None, batch=BATCH,
-                        split_max=SPLIT_MAX, stages=STAGES):
-    """The warp walk of one launch in PyTorch (see the module docstring):
-    rays ``perm`` (a compacted launch's order, the first ``count`` listed)
-    or every ray in index order, in warps of LANES, with a ring of
-    ``stages`` chunk buffers (1: each chunk found just before its turn) ->
-    ((t, slot) as the kernel writes them, counts of what the walk did)."""
-    n_rays = o.x.shape[0]
-    n_cl, k = clusters.slots.shape
-    hier = clusters.hierarchy
-    cols, gidx = _feed(clusters, table, form)
-    mt = bvh._mt_plucker if form == "plucker" else bvh._mt
-    live = alive > 0
-    inv = bvh.inverse(d)
-    order = bvh.front_to_back(hier.groups, o, live).long()
-    ray_list = torch.arange(n_rays) if perm is None else perm.long()
-    n_listed = n_rays if perm is None else int(count)
-    t_out = torch.full((n_rays,), math.inf)
-    slot_out = torch.full((n_rays,), -1, dtype=torch.int32)
-    cnt = collections.Counter()
-    for w0 in range(0, n_rays, LANES):
-        ray = ray_list[w0:w0 + LANES]
-        lanes = torch.arange(ray.numel())
-        listed = (w0 + lanes < n_listed) & live[ray]
-        if not listed.any():
-            continue       # the warp skips the walk: every lane a miss
-        pick = lambda v: Vec3(v.x[ray], v.y[ray], v.z[ray])
-        ro, rd, ri = pick(o), pick(d), pick(inv)
-        best_t = t_init[ray].clone()
-        best_i = torch.full_like(ray, -1)
-        best_s = torch.full_like(ray, -1)
-        cnt["walked"] += int(listed.sum())
-
-        def gates(boxes, parent):
-            """(N, lanes): each lane's slab tests of N boxes against its
-            best t now, where its parent gate passed."""
-            return bvh.slab_maybe(boxes, ro, ri, best_t, listed) & parent
-
-        def commit(lane, key, slot):
-            """The commit rule at ``lane`` of a candidate key (t bits << 32
-            | index; NO_KEY: none): the least (t, index) wins."""
-            has = key != NO_KEY
-            lane, key, slot = lane[has], key[has], slot[has]
-            t = (key >> 32).to(torch.int32).view(torch.float32)
-            g = key & 0xFFFFFFFF
-            bt, bi = best_t[lane], best_i[lane]
-            win = (t <= bt) & ((t < bt) | (g < bi))
-            best_t[lane] = torch.where(win, t, bt)
-            best_i[lane] = torch.where(win, g, bi)
-            best_s[lane] = torch.where(win, slot, best_s[lane])
-
-        def chunk_turn(c, base, found):
-            ok = found & gates(hier.boxes[c:c + 1], True)[0]
-            if not ok.any():
-                cnt["wasted"] += 1
-                return
-            if base == 0:
-                cnt["visits"] += 1
-                cnt["pairs"] += int(ok.sum())
-            cnt["chunks"] += 1
-            first = min(c, n_cl - 1) * k + base
-            n = min(CHUNK, k - base)
-            slots = torch.arange(first, first + n)
-            admit = ok.nonzero()[:, 0]
-            q = lambda v: v[admit][:, None]
-            t, valid = mt(q(ro.x), q(ro.y), q(ro.z), q(rd.x), q(rd.y),
-                          q(rd.z), cols(slots[None, :]))          # (A, n)
-            key = torch.where(valid, (t.view(torch.int32).long() << 32)
-                              | gidx[slots].long()[None, :], NO_KEY)
-            if admit.numel() > split_max:
-                # each admitting lane alone, every slot in order
-                least, at = key.min(dim=1)
-                commit(admit, least, slots[at])
-                return
-            # split: lane l holds slots l, l + 32, ...; its least key (its
-            # first slot on a tie), then the warp's least key and the
-            # lowest lane holding it
-            cnt["split"] += 1
-            pad = -n % LANES
-            keys = torch.cat([key, torch.full((key.shape[0], pad), NO_KEY)],
-                             1).view(key.shape[0], -1, LANES)  # (A, j, l)
-            lane_key, lane_j = keys.min(dim=1)                  # (A, l)
-            least = lane_key.min(dim=1).values                  # (A,)
-            src = (lane_key == least[:, None]).long().argmax(dim=1)
-            j = lane_j.gather(1, src[:, None])[:, 0]
-            slot = first + j * LANES + src
-            commit(admit, least, torch.where(least != NO_KEY, slot, -1))
-
-        def next_item():
-            """The warp's chunks in order, each found (its gates tested)
-            only when the walk asks for it: (cluster, first slot, each
-            lane's gate of the cluster when it was tested)."""
-            for j0 in range(0, order.numel(), batch):
-                groups = order[j0:j0 + batch]
-                g_mask = gates(hier.groups[groups], True)
-                cnt["group_tests"] += groups.numel()
-                for gi in g_mask.any(dim=1).nonzero()[:, 0].tolist():
-                    g = int(groups[gi])
-                    s_mask = gates(
-                        hier.supers[g * bvh.GROUP:(g + 1) * bvh.GROUP],
-                        g_mask[gi])
-                    for si in s_mask.any(dim=1).nonzero()[:, 0].tolist():
-                        s = g * bvh.GROUP + si
-                        c_mask = gates(
-                            hier.boxes[s * bvh.SUPER:(s + 1) * bvh.SUPER],
-                            s_mask[si])
-                        for ci in c_mask.any(dim=1).nonzero()[:, 0].tolist():
-                            for base in range(0, k, CHUNK):
-                                yield s * bvh.SUPER + ci, base, c_mask[ci]
-
-        # the ring: the next chunks are found before the MT of the chunks
-        # ahead of them, each after the turn of the chunk whose buffer it
-        # takes
-        items = next_item()
-        ring = collections.deque(itertools.islice(items, stages))
-        while ring:
-            chunk_turn(*ring.popleft())
-            ring.extend(itertools.islice(items, 1))
-        won = best_i >= 0
-        t_out[ray] = torch.where(won, best_t, math.inf)
-        slot_out[ray] = torch.where(won, best_s, -1).to(torch.int32)
-    return (t_out, slot_out), cnt
-
+from torch_port_helpers import (BATCH, CHUNK, LANES, SPLIT_MAX, STAGES,
+                               jax_scene_arrays, jvec, tvec, unit_vectors,
+                               warp_walk_emulation)
 
 @pytest.fixture(scope="module")
 def config6():
@@ -386,5 +242,5 @@ def test_constants_match_the_cuda_source():
     assert const("kSuper") == bvh.SUPER and const("kGroup") == bvh.GROUP
     assert re.search(r"case kTwoLevel:[^\n]*\n\s+case kStreamed:\s+"
                      r"SRT_BVH_WALK\(kStreamed\);", src)
-    assert re.search(r"case kFlat:\s+if \(counters != nullptr\)\s+"
-                     r"SRT_BVH_LAUNCH\(kFlat, false, true\);", src)
+    assert re.search(r"#define SRT_BVH_WALK\(VARIANT\)\s*\\\n\s*"
+                     r"if \(counters != nullptr\)", src)
