@@ -1446,21 +1446,35 @@ class ParentParams(ctypes.Structure):
 
 
 def parent_trace_kernel(parent: Path):
-    """The parent checkout's whole-trace kernel, bound to its interface."""
+    """The parent checkout's whole-trace kernel, bound to its interface:
+    this one's (``walk_interface``, launched by tk.launch) or, for a
+    kernel from before the warp walk (``SRT_MAX_GROUPS`` in its source),
+    that one's (``parent_trace_launch``)."""
+    source = parent / "simple_raytracer_tpu_torch" / "csrc" / "trace_kernel.cu"
+    if "SRT_MAX_GROUPS" not in source.read_text():
+        kernel = bk.Kernel(source, tk._bind)
+        kernel.walk_interface = True
+        return kernel
+
     def bind(lib):
         lib.srt_trace_launch.argtypes = ([ctypes.c_void_p] * 6
                                          + [ParentParams, ctypes.c_void_p])
         lib.srt_trace_launch.restype = ctypes.c_int
-    return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
-                     / "trace_kernel.cu", bind,
-                     [f"-DSRT_MAX_GROUPS={PARENT_MAX_GROUPS}"])
+    kernel = bk.Kernel(source, bind, [f"-DSRT_MAX_GROUPS={PARENT_MAX_GROUPS}"])
+    kernel.walk_interface = False
+    return kernel
 
 
 def parent_trace_launch(kernel, prep, clusters, out) -> None:
-    """A prepared clustered pass on the parent's kernel into ``out``: its
-    parameters, with its wrapper's group order (the groups of 8 clusters
-    by the squared distance of their nearest box centre from the camera,
-    stably), and the cluster boxes in place of the hierarchy."""
+    """A prepared clustered pass on the parent's kernel into ``out``: for
+    a kernel from before the warp walk its parameters, with its wrapper's
+    group order (the groups of 8 clusters by the squared distance of their
+    nearest box centre from the camera, stably), and the cluster boxes in
+    place of the hierarchy."""
+    if kernel.walk_interface:
+        with trace_kernel_as(kernel):
+            tk.launch(prep, out)
+        return
     q = ParentParams()
     for name, _ in _ParentHead._fields_:
         setattr(q, name, getattr(prep.params, name))
@@ -1729,7 +1743,8 @@ def parse_args(argv):
         help="a checkout of an earlier commit of this repository: its BVH "
              "kernel (simple_raytracer_tpu_torch/csrc/bvh_kernel.cu, with "
              "the same C interface) and its whole-trace kernel "
-             "(trace_kernel.cu, the interface from before the warp walk) "
+             "(trace_kernel.cu, with this interface or the one from before "
+             "its warp walk) "
              "are built beside this one's, and phase 6 times every BVH "
              "launch, and the pass of each clustered whole-trace cell, on "
              "them too, in turns")
