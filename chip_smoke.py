@@ -1393,7 +1393,7 @@ def walk_sweep(label: str, res: dict) -> dict:
     variant = preps[0].variant
     builds = {"route": bk.KERNEL, **{
         k: v for k, v in sweep_kernels().items()
-        if variant == "flat" or k not in ("flat order",)}}
+        if variant == "flat" or k != "flat order"}}
     ms = collections.defaultdict(list)
     for _ in range(2):
         for name, kernel in builds.items():

@@ -84,12 +84,17 @@
 //     under it (the lookahead gates with the t from before that MT, which
 //     admits at least what the walk would; each lane tests the box again
 //     at the chunk's turn).  kTwoLevel's table stays in L2 (config 6:
-//     98,304 slots, 4.7 MB, or 7.9 MB of Plucker coefficients), and MT
-//     could read each chunk's rows where they lie instead, but the sweep
-//     on config 6 (PERF.md section 6) found that 13% (MT) and 24%
-//     (Plucker) slower a pass than the ring, whose copy runs ahead of the
-//     MT steps that read it.  So both variants take the ring, with the
-//     same constants;
+//     98,304 slots, 4.7 MB, or 7.9 MB of Plucker coefficients), and so
+//     do kFlat's (configs 4 and 5: 2,048 and 4,096 slots, 0.1 and 0.2
+//     MB), and MT could read each chunk's rows where they lie instead,
+//     but the sweep (PERF.md section 6) found that 13-20% (MT) and 24-44%
+//     (Plucker) slower a pass than the ring on config 6 and 11-14% slower
+//     on configs 4 and 5, whose copy runs ahead of the MT steps that read
+//     it.  So every variant takes the ring, with the same constants (each
+//     variant's best split point and ring within the spread of its own
+//     turns), and kFlat walks the hierarchy too (one group of 16 supers,
+//     2 to 4 of them real): its clusters in front-to-back order without
+//     the hierarchy, 16 gates a batch, were 1-12% slower;
 //   - splits MT pair by pair when few lanes admit a chunk (at most
 //     kSplitMax): for each admitting ray in turn the 32 lanes test every
 //     32nd slot with that ray (neighbouring lanes on neighbouring rows)
