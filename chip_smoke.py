@@ -7,7 +7,8 @@ Run from the repository root:
 
 (``--parent``: a checkout of an earlier commit; phase 6 also times its
 BVH kernel on the same launches, one by one, and its whole-trace kernel
-on the same pass of each clustered whole-trace cell.)
+on the same pass of each clustered whole-trace cell, each bound by the C
+interface its build reports.)
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
@@ -100,10 +101,8 @@ are a path of their own.  Phases, one line each on stdout:
      the walk did, from its counting instance, against the (ray, cluster)
      pairs the plain version's gates admit); the streamed launches
      replayed on two_level (the same walk); two_level's and flat's
-     launches on builds of the kernel with the warp walk's constants and
-     layouts swept (the split point, the ring, MT reading the staged rows
-     in place; for flat, its clusters in front-to-back order without the
-     hierarchy), in turns with the route;
+     launches on builds of the kernel with the warp walk's constants
+     swept (the split point, the ring), in turns with the route;
      the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell).
@@ -149,6 +148,7 @@ from simple_raytracer_tpu_torch.ops.cuda import bounce_kernel as sk
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
+from simple_raytracer_tpu_torch.ops.cuda.build import interface
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
 from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
 from simple_raytracer_tpu_torch.ops.trace import add_sky, trace_rays
@@ -1215,15 +1215,56 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     return {k: v / 1e3 / reps for k, v in kernel_device_us(prof).items()}
 
 
-def parent_prep(parent, pp):
-    """A recorded launch as the parent's kernel takes it: a parent whose
-    flat variant is the one-thread loop from before the warp walk
-    (``mt_cluster`` in its source) visits the cluster boxes themselves,
-    ranked front to back (the first n_clusters rows of the padded
-    hierarchy's boxes), not the groups."""
-    if pp.variant == "flat" and "mt_cluster(" in parent.source.read_text():
-        return with_params(pp, n_order=pp.params.n_clusters)
-    return pp
+# The C interfaces of the BVH kernel that --parent binds: this one, and
+# version 1, which srt_bvh_launch took with a (C * K, 20) slot table
+# pointer after t_init and whose flat variant visited the cluster boxes
+# (n_order = n_clusters) one thread a ray.
+PARENT_BVH_INTERFACES = (bk.INTERFACE, 1)
+V1_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 21 + [bk.BvhParams, ctypes.c_void_p]
+
+
+def parent_bvh_kernel(parent: Path):
+    """The parent checkout's BVH kernel, bound by the C interface its
+    build reports (``build.interface``; one of PARENT_BVH_INTERFACES,
+    else the build is refused)."""
+    def bind(lib):
+        kernel.interface = interface(lib, "srt_bvh_interface")
+        if kernel.interface == bk.INTERFACE:
+            bk._bind(lib)
+        elif kernel.interface in PARENT_BVH_INTERFACES:
+            lib.srt_bvh_launch.argtypes = V1_LAUNCH_ARGTYPES
+            lib.srt_bvh_launch.restype = ctypes.c_int
+        else:
+            raise RuntimeError(f"the parent's BVH kernel has C interface "
+                               f"{kernel.interface}; this script binds "
+                               f"{PARENT_BVH_INTERFACES}")
+
+    kernel = bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
+                       / "bvh_kernel.cu", bind)
+    return kernel
+
+
+def parent_launcher(kernel, pp, table, out):
+    """A recorded BVH launch on the parent's kernel into ``out``, as a
+    callable: through bk.launch on this interface, else with version 1's
+    arguments (the slot table; for flat the cluster boxes ranked front to
+    back, the first n_clusters rows of the padded hierarchy's boxes)."""
+    if kernel.interface == bk.INTERFACE:
+        def run():
+            with bvh_kernel_as(kernel):
+                bk.launch(pp, out)
+        return run
+    q = (with_params(pp, n_order=pp.params.n_clusters)
+         if pp.variant == "flat" else pp)
+    args = bk._args(q, out)
+    args.insert(8, table.data_ptr())
+
+    def run():
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = kernel.library().srt_bvh_launch(*args, q.params, stream)
+        kernel.check(err, "the parent's BVH kernel")
+    return run
 
 
 def walk_launches(label: str, res: dict, clusters, table,
@@ -1254,11 +1295,8 @@ def walk_launches(label: str, res: dict, clusters, table,
             k_ms = run_k()
         else:
             got = (torch.empty_like(oo[0]), torch.empty_like(oo[1]))
-            pq = parent_prep(parent, pp)
-
-            def run_p():
-                with bvh_kernel_as(parent):
-                    return med(lambda: bk.launch(pq, got))
+            launch_p = parent_launcher(parent, pp, table, got)
+            run_p = lambda: med(launch_p)
 
             turns = [run_p(), run_k(), run_k(), run_p()]
             if not (torch.equal(got[0], oo[0]) and torch.equal(got[1],
@@ -1333,18 +1371,13 @@ def walk_launches(label: str, res: dict, clusters, table,
     return dict(per_launch=per)
 
 
-# The warp walk's constants and layouts swept on the launches of a pass
-# of two_level and flat (phase 6), each a build of the BVH kernel with -D
-# flags of the source's names: the split point (SRT_BVH_SPLIT_MAX; 0:
-# never split, 32: always split) with the route's ring, the ring's buffers
-# and chunk (SRT_BVH_STAGES x SRT_BVH_CHUNK) at the route's split point,
-# MT reading the staged rows where they lie (SRT_BVH_IN_PLACE, no copy),
-# and, on flat's launches only, flat's clusters in front-to-back order
-# without the hierarchy (SRT_BVH_FLAT_ORDER).
+# The warp walk's constants swept on the launches of a pass of two_level
+# and flat (phase 6), each a build of the BVH kernel with -D flags of the
+# source's names: the split point (SRT_BVH_SPLIT_MAX; 0: never split, 32:
+# always split) with the route's ring, and the ring's buffers and chunk
+# (SRT_BVH_STAGES x SRT_BVH_CHUNK) at the route's split point.
 SWEEP_SPLITS = (0, 4, 8, 16, 24, 32)
 SWEEP_RINGS = ((3, 64), (4, 64), (2, 32), (4, 32))
-SWEEP_LAYOUTS = {"in place": ["-DSRT_BVH_IN_PLACE=1"],
-                 "flat order": ["-DSRT_BVH_FLAT_ORDER=1"]}
 SWEEP_KERNELS = {}
 
 
@@ -1364,16 +1397,17 @@ def sweep_kernels() -> dict:
         for stages, chunk in SWEEP_RINGS:
             cases[f"ring {stages}x{chunk}"] = [f"-DSRT_BVH_STAGES={stages}",
                                                f"-DSRT_BVH_CHUNK={chunk}"]
-        cases.update(SWEEP_LAYOUTS)
         SWEEP_KERNELS.update({name: bk.Kernel(bk.SOURCE, bk._bind, flags)
                               for name, flags in cases.items()})
         build_all("the sweep's kernel builds", SWEEP_KERNELS.values())
     return SWEEP_KERNELS
 
 
-def bvh_registers(kernel, variant: int) -> str:
+def bvh_registers(kernel) -> str:
     """ptxas's registers and spills of a build's walk in the MT form (the
-    route's instance of ``variant``'s kernel, not the counting one)."""
+    route's instance, which every variant launches, not the counting
+    one)."""
+    variant = bk.VARIANTS["streamed"]
     out, on = [], False
     for line in kernel.build_log.splitlines():
         if "entry function" in line:
@@ -1385,15 +1419,12 @@ def bvh_registers(kernel, variant: int) -> str:
 
 def walk_sweep(label: str, res: dict) -> dict:
     """The launches of a pass (two_level or flat) on each build of
-    ``sweep_kernels`` and on the route's (the flat-order build on flat's
-    only), in turns, twice: ms a pass, and (t, slot) equal to the
-    route's."""
+    ``sweep_kernels`` and on the route's, in turns, twice: ms a pass, and
+    (t, slot) equal to the route's."""
     preps = [pp for pp, _ in res["recorded"]]
     outs = [oo for _, oo in res["recorded"]]
     variant = preps[0].variant
-    builds = {"route": bk.KERNEL, **{
-        k: v for k, v in sweep_kernels().items()
-        if variant == "flat" or k != "flat order"}}
+    builds = {"route": bk.KERNEL, **sweep_kernels()}
     ms = collections.defaultdict(list)
     for _ in range(2):
         for name, kernel in builds.items():
@@ -1407,12 +1438,11 @@ def walk_sweep(label: str, res: dict) -> dict:
     say(f"[6] cell {label} {variant} sweep (ms a pass, two turns; the "
         f"route: split {route_constant('SRT_BVH_SPLIT_MAX')}, ring "
         f"{route_constant('SRT_BVH_STAGES')}x"
-        f"{route_constant('SRT_BVH_CHUNK')}, the hierarchy): "
+        f"{route_constant('SRT_BVH_CHUNK')}): "
         + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
         + "; results equal; ptxas of each build's walk (MT): "
-        + ", ".join(f"{k}: " + bvh_registers(
-            kernel, bk.VARIANTS["flat"] if k == "flat order"
-            else bk.VARIANTS["streamed"]) for k, kernel in builds.items()))
+        + ", ".join(f"{k}: {bvh_registers(kernel)}"
+                    for k, kernel in builds.items()))
     return dict(ms)
 
 
@@ -1428,72 +1458,18 @@ def trace_kernel_as(kernel):
         tk.KERNEL = route
 
 
-# The parent's whole-trace kernel (--parent: the kernel before its warp
-# walk): 6 table pointers, and its TraceParams without n_groups but with
-# the front-to-back order of the groups of 8 clusters from the camera, as
-# uint16 entries, as many as fit the 4 KB parameter block.
-class _ParentHead(ctypes.Structure):
-    _fields_ = [f for f in tk.TraceParams._fields_ if f[0] != "n_groups"]
-
-
-PARENT_MAX_GROUPS = (tk.PARAM_LIMIT_BYTES - 8 * 6
-                     - ctypes.sizeof(_ParentHead)) // 4 * 2
-
-
-class ParentParams(ctypes.Structure):
-    _fields_ = _ParentHead._fields_ + [
-        ("group_order", ctypes.c_uint16 * PARENT_MAX_GROUPS)]
-
-
 def parent_trace_kernel(parent: Path):
-    """The parent checkout's whole-trace kernel, bound to its interface:
-    this one's (``walk_interface``, launched by tk.launch) or, for a
-    kernel from before the warp walk (``SRT_MAX_GROUPS`` in its source),
-    that one's (``parent_trace_launch``)."""
-    source = parent / "simple_raytracer_tpu_torch" / "csrc" / "trace_kernel.cu"
-    if "SRT_MAX_GROUPS" not in source.read_text():
-        kernel = bk.Kernel(source, tk._bind)
-        kernel.walk_interface = True
-        return kernel
-
-    def bind(lib):
-        lib.srt_trace_launch.argtypes = ([ctypes.c_void_p] * 6
-                                         + [ParentParams, ctypes.c_void_p])
-        lib.srt_trace_launch.restype = ctypes.c_int
-    kernel = bk.Kernel(source, bind, [f"-DSRT_MAX_GROUPS={PARENT_MAX_GROUPS}"])
-    kernel.walk_interface = False
-    return kernel
+    """The parent checkout's whole-trace kernel, bound to this C interface
+    (tk._bind refuses a build that reports another)."""
+    return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
+                     / "trace_kernel.cu", tk._bind)
 
 
-def parent_trace_launch(kernel, prep, clusters, out) -> None:
-    """A prepared clustered pass on the parent's kernel into ``out``: for
-    a kernel from before the warp walk its parameters, with its wrapper's
-    group order (the groups of 8 clusters by the squared distance of their
-    nearest box centre from the camera, stably), and the cluster boxes in
-    place of the hierarchy."""
-    if kernel.walk_interface:
-        with trace_kernel_as(kernel):
-            tk.launch(prep, out)
-        return
-    q = ParentParams()
-    for name, _ in _ParentHead._fields_:
-        setattr(q, name, getattr(prep.params, name))
-    aabb = clusters.aabb.cpu().numpy()
-    cam = np.asarray(list(prep.params.cam_pos), np.float32)
-    with np.errstate(invalid="ignore", over="ignore"):
-        diff = (aabb[:, 0:3] + aabb[:, 3:6]) * np.float32(0.5) - cam
-        d2 = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
-              + diff[:, 2] * diff[:, 2])
-    order = np.argsort(d2.reshape(-1, 8).min(axis=1), kind="stable")
-    q.group_order[:order.shape[0]] = order.tolist()
-    sph, pln, mat = prep.tables
-    with torch.cuda.device(prep.device):
-        stream = torch.cuda.current_stream(prep.device).cuda_stream
-        err = kernel.library().srt_trace_launch(
-            sph.data_ptr(), pln.data_ptr(), mat.data_ptr(),
-            prep.tri_tables[0].data_ptr(), clusters.aabb.data_ptr(),
-            out.data_ptr(), q, stream)
-    kernel.check(err, "the parent's trace kernel")
+def parent_trace_launch(kernel, prep, out) -> None:
+    """A prepared clustered pass on the parent's whole-trace kernel into
+    ``out``."""
+    with trace_kernel_as(kernel):
+        tk.launch(prep, out)
 
 
 # The whole-trace walk's constants swept on the clustered cells' passes
@@ -1567,23 +1543,23 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
     return dict(ms)
 
 
-def as_mt(prep, clusters):
+def as_mt(prep, clusters, table):
     """A recorded BVH launch in the MT form: the same rays, gates and
     variant; only the slot test differs."""
-    table, _, _, *rest = prep.tensors
+    _, _, *rest = prep.tensors
     return dataclasses.replace(
         with_params(prep, plucker=0),
-        tensors=(table, bvh.staged_slots(clusters, table), None, *rest))
+        tensors=(bvh.staged_slots(clusters, table), None, *rest))
 
 
-def form_report(recorded, clusters) -> tuple:
+def form_report(recorded, clusters, table) -> tuple:
     """Each recorded Plucker launch replayed in the MT form on the card:
     (live rays whose winning slot changed, largest relative t difference
     over the live rays both forms hit, live rays).  A report, not a
     gate: the two forms round differently."""
     changed, rel, live_n = 0, 0.0, 0
     for prep, (t_p, s_p) in recorded:
-        t_m, s_m = bk.launch(as_mt(prep, clusters))
+        t_m, s_m = bk.launch(as_mt(prep, clusters, table))
         live = prep.rays[6] > 0
         live_n += int(live.sum())
         changed += int((s_p[live] != s_m[live]).sum())
@@ -1619,11 +1595,11 @@ def dense_replay(label: str, recorded, clusters, table) -> str:
     return "no compacted launch"
 
 
-def form_ab(preps, outs, clusters) -> tuple:
+def form_ab(preps, outs, clusters, table) -> tuple:
     """ms per pass of the recorded Plucker launches and of the same
     launches in the MT form, timed in turns (Plucker, MT, MT, Plucker,
     ...); each a list of batch medians."""
-    alt = [as_mt(pp, clusters) for pp in preps]
+    alt = [as_mt(pp, clusters, table) for pp in preps]
     run = lambda ps: cuda_ms(lambda: [bk.launch(q, o)
                                       for q, o in zip(ps, outs)],
                              iters=3, repeats=1, warmup=1)[0]
@@ -1643,7 +1619,7 @@ def plucker_checks(label: str, recorded, clusters, table, card: str):
     if not all(prep.params.plucker for prep, _ in recorded):
         fail(f"cell {label}: launches {labels} outside the Plucker form")
     dense = dense_replay(label, recorded, clusters, table)
-    changed, rel, live = form_report(recorded, clusters)
+    changed, rel, live = form_report(recorded, clusters, table)
     say(f"[4] cell {label} ({', '.join(sorted(labels))}): {dense}; the same "
         f"launches in the MT form: {changed} of {live} live rays changed "
         f"winner, largest relative t difference {rel:.3e} (a report, not a "
@@ -1740,14 +1716,13 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--parent", type=Path, default=None,
-        help="a checkout of an earlier commit of this repository: its BVH "
-             "kernel (simple_raytracer_tpu_torch/csrc/bvh_kernel.cu, with "
-             "the same C interface) and its whole-trace kernel "
-             "(trace_kernel.cu, with this interface or the one from before "
-             "its warp walk) "
-             "are built beside this one's, and phase 6 times every BVH "
-             "launch, and the pass of each clustered whole-trace cell, on "
-             "them too, in turns")
+        help="a checkout of an earlier commit of this repository, from "
+             "the whole-trace kernel's warp walk on: its BVH kernel "
+             "(simple_raytracer_tpu_torch/csrc/bvh_kernel.cu, with this C "
+             "interface or version 1) and its whole-trace kernel "
+             "(trace_kernel.cu, with this interface) are built beside this "
+             "one's, and phase 6 times every BVH launch, and the pass of "
+             "each clustered whole-trace cell, on them too, in turns")
     return ap.parse_args(argv)
 
 
@@ -1765,8 +1740,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parent = parent_trace = None
     if args.parent is not None:
-        parent = bk.Kernel(args.parent / "simple_raytracer_tpu_torch" / "csrc"
-                           / "bvh_kernel.cu", bk._bind)
+        parent = parent_bvh_kernel(args.parent)
         parent_trace = parent_trace_kernel(args.parent)
     ptxas = build_kernels(() if parent is None else (parent, parent_trace))
     say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
@@ -2286,7 +2260,8 @@ def main(argv=None) -> int:
                 if CELLS[label][2] == "streamed":
                     work += "; " + two_level_report(preps, outs, b_ms)
                 if plucker:
-                    pl_ms, mt_ms = form_ab(preps, outs, cl)
+                    pl_ms, mt_ms = form_ab(preps, outs, cl,
+                                           ds.triangles.table)
                     ab[label] = (float(np.median(pl_ms)),
                                  float(np.median(mt_ms)))
                     work += (f"; the same launches in the MT form, in turns "
@@ -2311,7 +2286,7 @@ def main(argv=None) -> int:
                 if parent_trace is not None:
                     got = torch.empty_like(out)
                     run_p = lambda: cuda_ms(lambda: parent_trace_launch(
-                        parent_trace, prep, cl, got), iters=iters, repeats=3,
+                        parent_trace, prep, got), iters=iters, repeats=3,
                         warmup=1)
                     run_k = lambda: cuda_ms(lambda: tk.launch(prep, out),
                                             iters=iters, repeats=3,

@@ -94,7 +94,8 @@
 //     variant's best split point and ring within the spread of its own
 //     turns), and kFlat walks the hierarchy too (one group of 16 supers,
 //     2 to 4 of them real): its clusters in front-to-back order without
-//     the hierarchy, 16 gates a batch, were 1-12% slower;
+//     the hierarchy, 16 gates a batch, were 1-12% slower (PERF.md names
+//     the commit whose source builds both layouts);
 //   - splits MT pair by pair when few lanes admit a chunk (at most
 //     kSplitMax): for each admitting ray in turn the 32 lanes test every
 //     32nd slot with that ray (neighbouring lanes on neighbouring rows)
@@ -181,18 +182,6 @@ constexpr int kPluckerRowF4 = kPluckerCols / 4;
 constexpr int kChunk = SRT_BVH_CHUNK;
 constexpr int kStages = SRT_BVH_STAGES;
 constexpr int kSplitMax = SRT_BVH_SPLIT_MAX;
-// Two layouts of the walk that only the sweep builds: MT reading each
-// chunk's staged rows where they lie in device memory, with no copy
-// (SRT_BVH_IN_PLACE), and kFlat visiting its clusters in front-to-back
-// order, kBatch at a time, without the hierarchy (SRT_BVH_FLAT_ORDER).
-#ifndef SRT_BVH_IN_PLACE
-#define SRT_BVH_IN_PLACE 0
-#endif
-#ifndef SRT_BVH_FLAT_ORDER
-#define SRT_BVH_FLAT_ORDER 0
-#endif
-constexpr bool kInPlace = SRT_BVH_IN_PLACE;
-constexpr bool kFlatOrder = SRT_BVH_FLAT_ORDER;
 // the ray compaction and the visiting orders (ops/bvh.py: ADMISSION_MAX;
 // ops/cuda/bvh_kernel.py: RANK_MAX)
 constexpr int kAdmissionMax = 256;
@@ -405,11 +394,11 @@ __device__ __forceinline__ float center_d2(const float* __restrict__ b,
   return is_nan(d2) ? INFINITY : d2;
 }
 
-// The visiting order of the visit boxes (groups, or the flat-order
-// build's clusters) and the admission boxes in their front-to-back rank
-// (ops/bvh.py: front_to_back: ascending squared distance of the centers
-// from the mean live-ray origin, ties by index): thread t < n_visit places
-// visit box t, the next n_admission threads admission box t - n_visit.
+// The visiting order of the visit boxes (the groups) and the admission
+// boxes in their front-to-back rank (ops/bvh.py: front_to_back: ascending
+// squared distance of the centers from the mean live-ray origin, ties by
+// index): thread t < n_visit places visit box t, the next n_admission
+// threads admission box t - n_visit.
 __global__ void __launch_bounds__(kThreads)
 rank_boxes(const float4* __restrict__ part, const int n_part,
            const float* __restrict__ visit, const int n_visit,
@@ -622,11 +611,9 @@ struct Item {
 // supers; a super's 16 clusters), each against the lane's best t then: a
 // t can only fall, so that admits at least what gating each box at its
 // turn would, and the chunk's own turn tests its cluster's box again.
-// FLAT (the sweep's SRT_BVH_FLAT_ORDER build of kFlat): no hierarchy, the
-// next kBatch clusters of the front-to-back order tested together.
 // Called by the whole warp (control flow is warp-uniform); false at the
 // end of the walk.
-template <bool FLAT, bool COUNT>
+template <bool COUNT>
 __device__ __forceinline__ bool next_item(
     Walk& w, Item& it, const float* __restrict__ boxes,
     const float* __restrict__ supers, const float* __restrict__ groups,
@@ -635,31 +622,6 @@ __device__ __forceinline__ bool next_item(
   if (it.c >= 0 && it.base + kChunk < p.k) {
     it.base += kChunk;
     return true;
-  }
-  if constexpr (FLAT) {
-    for (;;) {
-      if (w.c_any) {
-        const int i = __ffs(w.c_any) - 1;
-        w.c_any &= w.c_any - 1;
-        it.c = order[w.j0 + i];
-        it.base = 0;
-        it.ok = (w.c_mask >> i) & 1u;
-        return true;
-      }
-      w.j0 += kBatch;
-      if (w.j0 >= p.n_order) return false;
-      const int n = min(kBatch, p.n_order - w.j0);
-      w.c_mask = 0;
-      if (listed) {
-#pragma unroll
-        for (int i = 0; i < kBatch; ++i)
-          if (i < n && slab(boxes + 8 * order[w.j0 + i], r, best_t))
-            w.c_mask |= 1u << i;
-      }
-      w.c_any = __reduce_or_sync(kAll, w.c_mask);
-      cnt.add(kCountClusterTests, n);
-      cnt.add_lanes(kCountBoxTests, listed ? n : 0);
-    }
   }
   for (;;) {
     if (w.c_any) {
@@ -710,15 +672,6 @@ __device__ __forceinline__ bool next_item(
   }
 }
 
-// a staged row's float4: from the ring's shared buffer, or where it lies
-// in device memory (the sweep's SRT_BVH_IN_PLACE build)
-__device__ __forceinline__ float4 row_f4(const float4* __restrict__ q) {
-  if constexpr (kInPlace)
-    return __ldg(q);
-  else
-    return *q;
-}
-
 // the staged slot sl's test for ray q: (valid, t, global index, read from
 // the staged row, or for the Plucker form from gidx only on a valid hit)
 template <bool PLUCKER>
@@ -730,7 +683,7 @@ __device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
     float c[kPluckerCols];
 #pragma unroll
     for (int j = 0; j < kPluckerRowF4; ++j) {
-      const float4 w = row_f4(buf + kPluckerRowF4 * sl + j);
+      const float4 w = buf[kPluckerRowF4 * sl + j];
       c[4 * j] = w.x;
       c[4 * j + 1] = w.y;
       c[4 * j + 2] = w.z;
@@ -740,9 +693,9 @@ __device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
     g = hit ? __ldg(gidx + row) : -1;
     return hit;
   } else {
-    const float4 a = row_f4(buf + kMtRowF4 * sl);       // v0, index
-    const float4 b = row_f4(buf + kMtRowF4 * sl + 1);   // e1, active
-    const float4 e = row_f4(buf + kMtRowF4 * sl + 2);   // e2
+    const float4 a = buf[kMtRowF4 * sl];       // v0, global index
+    const float4 b = buf[kMtRowF4 * sl + 1];   // e1, active
+    const float4 e = buf[kMtRowF4 * sl + 2];   // e2
     g = __float_as_int(a.w);
     return mt_hit(a.x, a.y, a.z, b.x, b.y, b.z, e.x, e.y, e.z, b.w, q, t);
   }
@@ -836,10 +789,8 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
 // its turn each lane tests the cluster's box again with its t then, and
 // the lanes that still admit it run MT (mt_chunk).  Each ray's gates and
 // commits are the plain version's, so it writes the same result.  Called
-// by the whole warp (control flow is warp-uniform).  FLAT: next_item's
-// flat order (the sweep's build).  In place (the sweep's build): no copy,
-// MT reads each chunk's rows where they lie.
-template <bool FLAT, bool PLUCKER, bool COUNT>
+// by the whole warp (control flow is warp-uniform).
+template <bool PLUCKER, bool COUNT>
 __device__ __forceinline__ void warp_walk(
     const float4* __restrict__ rows, const int32_t* __restrict__ gidx,
     const float* __restrict__ boxes, const float* __restrict__ supers,
@@ -864,8 +815,8 @@ __device__ __forceinline__ void warp_walk(
   // NaN ray admits the sentinel boxes past the table too; staging the
   // last cluster again changes nothing)
   auto stage_next = [&]() {
-    more = next_item<FLAT, COUNT>(w, last, boxes, supers, groups, order,
-                                  listed, r, best.t, p, cnt);
+    more = next_item<COUNT>(w, last, boxes, supers, groups, order, listed,
+                            r, best.t, p, cnt);
     if (!more) return;
 #pragma unroll
     for (int i = 0; i < kStages; ++i)
@@ -876,12 +827,10 @@ __device__ __forceinline__ void warp_walk(
     const int n = min(kChunk, p.k - last.base);
     cnt.add(kCountChunks, 1);
     cnt.add(kCountSlots, n);
-    if constexpr (!kInPlace) {
-      __syncwarp();   // every lane is done with buffer b's last chunk
-      if (lane == 0)
-        bulk_load(s_buf + b * kChunk * kRowF4, rows + (size_t)first * kRowF4,
-                  static_cast<uint32_t>(n * kRowF4 * 16), &s_bar[b]);
-    }
+    __syncwarp();   // every lane is done with buffer b's last chunk
+    if (lane == 0)
+      bulk_load(s_buf + b * kChunk * kRowF4, rows + (size_t)first * kRowF4,
+                static_cast<uint32_t>(n * kRowF4 * 16), &s_bar[b]);
   };
   while (more && n_q < kStages) stage_next();
   for (uint32_t done = 0; n_q > 0; ++done) {
@@ -890,10 +839,8 @@ __device__ __forceinline__ void warp_walk(
     for (int i = 0; i + 1 < kStages; ++i) q[i] = q[i + 1];
     --n_q;
     const int b = done % kStages;
-    if constexpr (!kInPlace) {
-      bar_wait(&s_bar[b], (phase >> b) & 1u);
-      phase ^= 1u << b;
-    }
+    bar_wait(&s_bar[b], (phase >> b) & 1u);
+    phase ^= 1u << b;
     const bool ok = cur.ok && slab(boxes + 8 * cur.c, r, best.t);
     const unsigned admit = __ballot_sync(kAll, ok);
     cnt.add_lanes(kCountBoxTests, cur.ok);
@@ -904,10 +851,9 @@ __device__ __forceinline__ void warp_walk(
         cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
       }
       const int first = min(cur.c, p.n_clusters - 1) * p.k + cur.base;
-      const float4* buf = kInPlace ? rows + (size_t)first * kRowF4
-                                   : s_buf + b * kChunk * kRowF4;
-      mt_chunk<PLUCKER, COUNT>(buf, min(kChunk, p.k - cur.base), first,
-                               admit, ok, r, best, gidx, cnt);
+      mt_chunk<PLUCKER, COUNT>(s_buf + b * kChunk * kRowF4,
+                               min(kChunk, p.k - cur.base), first, admit, ok,
+                               r, best, gidx, cnt);
     } else {
       cnt.add(kCountWasted, 1);
     }
@@ -965,7 +911,7 @@ bvh_kernel(const RayIn in, const float4* __restrict__ staged,
   constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
   const int warp = threadIdx.x >> 5;
   if (__any_sync(kAll, listed))
-    warp_walk<VARIANT == kFlat, PLUCKER, COUNT>(
+    warp_walk<PLUCKER, COUNT>(
         PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
         boxes, supers, groups, order, listed, r, best, p,
         s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
@@ -976,13 +922,11 @@ bvh_kernel(const RayIn in, const float4* __restrict__ staged,
 
 // the dynamic shared memory a block of the warp walk takes: each warp's
 // ring of buffers (the route's fit, with the mbarriers, the 48 KB a launch
-// may take without opting in; a larger ring of the sweep opts in; none in
-// place)
+// may take without opting in; a larger ring of the sweep opts in)
 template <bool PLUCKER>
 constexpr int walk_smem() {
-  return kInPlace ? 0
-                  : kWarps * kStages * kChunk
-                        * (PLUCKER ? kPluckerRowF4 : kMtRowF4) * 16;
+  return kWarps * kStages * kChunk * (PLUCKER ? kPluckerRowF4 : kMtRowF4)
+         * 16;
 }
 
 // the work scratch's int32 words: partial sums, the two visiting orders,
@@ -1001,13 +945,10 @@ int launch_bvh(const RayIn& in, const float* staged,
                void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
   // the warp walk, over the staged MT table or (not kFlat) the Plucker
-  // coefficients; the sweep's flat-order build visits kFlat's clusters
-  BvhParams q = p;
-  const bool flat_order = kFlatOrder && p.variant == kFlat;
-  if (flat_order) q.n_order = p.n_clusters;
+  // coefficients
   const bool compact = p.n_admission > 0;
-  if (p.k <= 0 || p.n_clusters <= 0 || q.n_order <= 0
-      || q.n_order > kRankMax || p.n_admission < 0
+  if (p.k <= 0 || p.n_clusters <= 0 || p.n_order <= 0
+      || p.n_order > kRankMax || p.n_admission < 0
       || p.n_admission > kAdmissionMax || work == nullptr
       || compact != (perm != nullptr) || compact != (count != nullptr)
       || (compact && admission == nullptr)
@@ -1029,10 +970,10 @@ int launch_bvh(const RayIn& in, const float* staged,
   const int ray_blocks = (p.n_rays + kThreads - 1) / kThreads;
   const int n_part = min(ray_blocks, kPartials);
   ray_partials<<<n_part, kThreads, 0, st>>>(in, p, part);
-  const int n_rank = q.n_order + p.n_admission;
+  const int n_rank = p.n_order + p.n_admission;
   rank_boxes<<<(n_rank + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      part, n_part, flat_order ? boxes : groups, q.n_order, admission,
-      p.n_admission, visit_order, adm_order);
+      part, n_part, groups, p.n_order, admission, p.n_admission,
+      visit_order, adm_order);
   if (compact) {
     cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * kBuckets,
                                       st);
@@ -1058,7 +999,7 @@ int launch_bvh(const RayIn& in, const float* staged,
     bvh_kernel<VARIANT, PLUCKER, COUNT><<<blocks, kBlock, smem, st>>>(       \
         in, st4, coeffs, gidx, boxes, supers, groups, visit_order,           \
         compact ? perm : nullptr, compact ? count : nullptr, t_out,          \
-        slot_out, q, counters);                                              \
+        slot_out, p, counters);                                              \
   } while (0)
 #define SRT_BVH_WALK(VARIANT)                 \
   if (counters != nullptr) {                  \
@@ -1073,12 +1014,8 @@ int launch_bvh(const RayIn& in, const float* staged,
       SRT_BVH_LAUNCH(VARIANT, false, false);  \
   }
   switch (p.variant) {
-    case kFlat:
-#if SRT_BVH_FLAT_ORDER
-      SRT_BVH_WALK(kFlat);
-      break;
-#endif
-    case kTwoLevel:   // the same warp walk
+    case kFlat:       // the same warp walk
+    case kTwoLevel:
     case kStreamed:
       SRT_BVH_WALK(kStreamed);
       break;
@@ -1092,6 +1029,11 @@ int launch_bvh(const RayIn& in, const float* staged,
 
 }  // namespace
 
+// The version of this C interface (ops/cuda/bvh_kernel.py: INTERFACE),
+// raised whenever an argument or BvhParams changes, so a caller can tell
+// which interface a build has (ops/cuda/build.py: interface).
+extern "C" int srt_bvh_interface() { return 2; }
+
 // The int32 words of the work scratch a launch with these parameters
 // needs (the wrapper allocates it).
 extern "C" long long srt_bvh_work_words(BvhParams p) {
@@ -1100,23 +1042,20 @@ extern "C" long long srt_bvh_work_words(BvhParams p) {
 
 // One launch: the visiting order (and, with admission boxes, the ray
 // compaction into perm and count) on the stream, then the walk.  Rays:
-// (R,) f32 o, d, alive (bytes or f32) and t_init; table: the (C * K, 20)
-// slot rows, which no variant reads (the interface keeps its place, which
-// builds before kFlat took the warp walk read); staged: the warp walk's MT
-// table ((C * K, 12) f32; null for the Plucker form); coeffs: the Plucker
-// form's (C * K, 20) table, or null; work: srt_bvh_work_words int32 words;
-// perm (R,) and count (1,) int32 with admission boxes.
+// (R,) f32 o, d, alive (bytes or f32) and t_init; staged: the warp walk's
+// MT table ((C * K, 12) f32; null for the Plucker form); coeffs: the
+// Plucker form's (C * K, 20) table, or null; work: srt_bvh_work_words int32
+// words; perm (R,) and count (1,) int32 with admission boxes.
 extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                               const float* oz, const float* dx,
                               const float* dy, const float* dz,
                               const void* alive, const float* t_init,
-                              const float* table, const float* staged,
-                              const float* coeffs, const int32_t* gidx,
-                              const float* boxes, const float* supers,
-                              const float* groups, const float* admission,
-                              int32_t* work, int32_t* perm, int32_t* count,
-                              float* t_out, int32_t* slot_out, BvhParams p,
-                              void* stream) {
+                              const float* staged, const float* coeffs,
+                              const int32_t* gidx, const float* boxes,
+                              const float* supers, const float* groups,
+                              const float* admission, int32_t* work,
+                              int32_t* perm, int32_t* count, float* t_out,
+                              int32_t* slot_out, BvhParams p, void* stream) {
   const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
   return launch_bvh(in, staged, coeffs, gidx, boxes, supers, groups,
                     admission, work, perm, count, t_out, slot_out, p,
@@ -1129,11 +1068,11 @@ extern "C" int srt_bvh_launch(const float* ox, const float* oy,
 extern "C" int srt_bvh_count_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const void* alive, const float* t_init,
-    const float* table, const float* staged, const float* coeffs,
-    const int32_t* gidx, const float* boxes, const float* supers,
-    const float* groups, const float* admission, int32_t* work,
-    int32_t* perm, int32_t* count, float* t_out, int32_t* slot_out,
-    unsigned long long* counters, BvhParams p, void* stream) {
+    const float* staged, const float* coeffs, const int32_t* gidx,
+    const float* boxes, const float* supers, const float* groups,
+    const float* admission, int32_t* work, int32_t* perm, int32_t* count,
+    float* t_out, int32_t* slot_out, unsigned long long* counters,
+    BvhParams p, void* stream) {
   if (counters == nullptr) return (int)cudaErrorInvalidValue;
   const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
   return launch_bvh(in, staged, coeffs, gidx, boxes, supers, groups,

@@ -987,6 +987,11 @@ bool clustered_ok(const TraceArgs& a, const TraceParams& p) {
 
 }  // namespace
 
+// The version of this C interface (ops/cuda/trace_kernel.py: INTERFACE),
+// raised whenever an argument or TraceParams changes, so a caller can tell
+// which interface a build has (ops/cuda/build.py: interface).
+extern "C" int srt_trace_interface() { return 1; }
+
 // One launch on the stream.  Tables: (n, 8) spheres and planes, (n, 16)
 // materials; tri: the (n_tris, 20) triangle rows (kSmallTris) or the
 // (C * K, 20) slot table (kClusteredTris); kClusteredTris also takes the

@@ -26,6 +26,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 
+def interface(lib: ctypes.CDLL, name: str) -> int:
+    """The version of a build's C interface, which its source exports as
+    the int function ``name``; a build of a source from before the export
+    has version 1."""
+    if not hasattr(lib, name):
+        return 1
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 class Kernel:
     """One CUDA source: its built library, nvcc's output and counts of
     launches, in all (``launches``) and per variant

@@ -41,7 +41,7 @@ import torch
 
 from .. import bvh
 from ..vec import Vec3
-from .build import PACKAGE_DIR, Kernel
+from .build import PACKAGE_DIR, Kernel, interface
 
 SOURCE = PACKAGE_DIR / "csrc" / "bvh_kernel.cu"
 # the kernel's variants, as the CUDA source's Variant
@@ -64,15 +64,16 @@ class BvhParams(ctypes.Structure):
 
 
 # the most boxes a visiting order ranks (the CUDA source's kRankMax): the
-# groups, or the clusters of a flat table (at most VMEM_TABLE_MAX_SLOTS
-# slots) in the sweep's flat-order build
+# groups
 RANK_MAX = 8192
-# srt_bvh_launch(ox, oy, oz, dx, dy, dz, alive, t_init, table, staged,
-#                coeffs, gidx, boxes, supers, groups, admission, work,
-#                perm, count, t_out, slot_out, params, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 21 + [BvhParams, ctypes.c_void_p]
+# the C interface's version (srt_bvh_interface in the CUDA source)
+INTERFACE = 2
+# srt_bvh_launch(ox, oy, oz, dx, dy, dz, alive, t_init, staged, coeffs,
+#                gidx, boxes, supers, groups, admission, work, perm, count,
+#                t_out, slot_out, params, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 20 + [BvhParams, ctypes.c_void_p]
 # srt_bvh_count_launch: the same, and the counters before the params
-COUNT_ARGTYPES = [ctypes.c_void_p] * 22 + [BvhParams, ctypes.c_void_p]
+COUNT_ARGTYPES = [ctypes.c_void_p] * 21 + [BvhParams, ctypes.c_void_p]
 # the counting instance's int64 counters, in the CUDA source's Count order,
 # then HIST_BINS: the stagings by the lanes that admit them
 COUNTERS = ("walked", "stagings", "chunks", "slots", "pairs", "mt_steps",
@@ -82,6 +83,10 @@ HIST_BINS = ("1", "2", "3-4", "5-8", "9-16", "17-24", "25-31", "32")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
+    version = interface(lib, "srt_bvh_interface")
+    if version != INTERFACE:
+        raise RuntimeError(f"BVH kernel: the build has C interface "
+                           f"{version}, want {INTERFACE}")
     lib.srt_bvh_launch.argtypes = LAUNCH_ARGTYPES
     lib.srt_bvh_launch.restype = ctypes.c_int
     lib.srt_bvh_count_launch.argtypes = COUNT_ARGTYPES
@@ -113,8 +118,8 @@ class Prepared:
     """One launch, checked and packed."""
     # (R,) o.x, o.y, o.z, d.x, d.y, d.z, alive (bool or f32), t_init
     rays: tuple
-    # table, staged (or None), coeffs (or None), gidx, boxes, supers,
-    # groups, admission (or None): the kernel's tables
+    # staged (or None), coeffs (or None), gidx, boxes, supers, groups,
+    # admission (or None): the kernel's tables
     tensors: tuple
     work: torch.Tensor               # int32 scratch (srt_bvh_work_words)
     # with a compaction, written by each launch: the (R,) int32 ray order
@@ -143,9 +148,9 @@ def _ray(t: torch.Tensor, n: int, device, dtype=torch.float32):
 
 def launch_tables(clusters, table: torch.Tensor, variant: str,
                   compact: bool):
-    """The tables a launch of ``variant`` reads: ((table, staged, coeffs,
-    gidx, boxes, supers, groups, admission), the visiting order's boxes
-    (the groups), whether it takes the Plucker form).  The MT form is
+    """The tables a launch of ``variant`` reads: ((staged, coeffs, gidx,
+    boxes, supers, groups, admission), the visiting order's boxes (the
+    groups), whether it takes the Plucker form).  The MT form is
     resolved here (``ops/bvh.resolve_plucker``): the warp walk reads
     ``bvh.staged_slots`` in the MT form and ``bvh.plucker_coefficients``
     in the Plucker form (never ``flat``), each built on first use (the
@@ -159,7 +164,7 @@ def launch_tables(clusters, table: torch.Tensor, variant: str,
         coeffs = bvh.plucker_coefficients(clusters, table)
     else:
         staged = bvh.staged_slots(clusters, table)
-    return ((table, staged, coeffs, hier.gidx, hier.boxes, hier.supers,
+    return ((staged, coeffs, hier.gidx, hier.boxes, hier.supers,
              hier.groups, hier.admission if compact else None),
             hier.groups.shape[0], plucker)
 
@@ -180,7 +185,7 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     n_cl, k = clusters.slots.shape
     tensors, n_order, plucker = launch_tables(clusters, table, variant,
                                               compact)
-    _, staged, coeffs, gidx, boxes, supers, groups, admission = tensors
+    staged, coeffs, gidx, boxes, supers, groups, admission = tensors
     rows = coeffs if plucker else staged
     if (rows.device != device or rows.dtype != torch.float32
             or rows.shape != (n_cl * k, bvh.PLUCKER_COLS if plucker
@@ -196,11 +201,10 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
                   torch.bool if alive_u8 else torch.float32),
              _ray(t_init, n_rays, device))
     for name, t, dtype in zip(
-            ("table", "slot indices", "boxes", "supers", "groups",
-             "admission boxes"),
-            (table, gidx, boxes, supers, groups, admission),
-            (torch.float32, torch.int32, torch.float32, torch.float32,
-             torch.float32, torch.float32)):
+            ("slot indices", "boxes", "supers", "groups", "admission boxes"),
+            (gidx, boxes, supers, groups, admission),
+            (torch.int32, torch.float32, torch.float32, torch.float32,
+             torch.float32)):
         if t is not None and (t.device != device or t.dtype != dtype
                               or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"BVH kernel: bad {name} {t.dtype} on "

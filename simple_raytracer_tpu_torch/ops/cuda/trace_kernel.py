@@ -45,7 +45,7 @@ from .. import bvh
 from ..camera import generate_rays
 from ..scene_types import DeviceScene, prim_tables, whole_trace_variant
 from ..vec import Vec3
-from .build import PACKAGE_DIR, Kernel
+from .build import PACKAGE_DIR, Kernel, interface
 
 SOURCE = PACKAGE_DIR / "csrc" / "trace_kernel.cu"
 BLOCK = 256          # the "none" and "small" variants' block
@@ -111,6 +111,8 @@ class TraceParams(ctypes.Structure):
     ]
 
 
+# the C interface's version (srt_trace_interface in the CUDA source)
+INTERFACE = 1
 # srt_trace_launch(sph, pln, mat, tri, staged, boxes, supers, groups, out,
 # params, stream)
 LAUNCH_ARGTYPES = ([ctypes.c_void_p] * LAUNCH_POINTERS
@@ -126,6 +128,10 @@ COUNTERS = ("live", "warps", "box_tests", "admitted", "union", "mt_steps",
 
 
 def _bind(lib: ctypes.CDLL) -> None:
+    version = interface(lib, "srt_trace_interface")
+    if version != INTERFACE:
+        raise RuntimeError(f"whole-trace kernel: the build has C interface "
+                           f"{version}, want {INTERFACE}")
     lib.srt_trace_launch.argtypes = LAUNCH_ARGTYPES
     lib.srt_trace_launch.restype = ctypes.c_int
     lib.srt_trace_count_launch.argtypes = COUNT_ARGTYPES

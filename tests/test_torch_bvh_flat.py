@@ -22,8 +22,13 @@ walk in PyTorch, and:
   index, through the split MT and the per-lane MT;
 - ``prepare``'s tables hand ``flat`` the padded hierarchy and the staged
   MT table, and keep the MT form under SRT_BVH_MT=plucker;
-- the CUDA source sends ``flat`` to the walk and refuses its Plucker form.
+- the CUDA source sends ``flat`` to the walk and refuses its Plucker form;
+- each kernel source exports its C interface's version, the wrapper's, and
+  the BVH launch takes no slot table (chip_smoke.py --parent binds the
+  version before, which did, with one pointer more).
 """
+import ctypes
+import importlib.util
 import math
 import re
 import types
@@ -41,7 +46,9 @@ from simple_raytracer_tpu_torch.models.presets import CONFIGS
 from simple_raytracer_tpu_torch.ops import bvh
 from simple_raytracer_tpu_torch.ops.camera import (camera_rotation,
                                                    generate_rays)
+from simple_raytracer_tpu_torch.ops.cuda import build
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
+from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
@@ -242,7 +249,7 @@ def test_prepare_hands_flat_the_hierarchy_and_staged_table(
     variant = bk.bvh_variant(cl)
     tensors, n_order, plucker = bk.launch_tables(cl, table, variant,
                                                  compact=True)
-    t_tab, staged, coeffs, gidx, boxes, supers, groups, adm = tensors
+    staged, coeffs, gidx, boxes, supers, groups, adm = tensors
     hier = cl.hierarchy
     n_cl = cl.slots.shape[0]
     assert variant == "flat" and not plucker and coeffs is None
@@ -250,28 +257,26 @@ def test_prepare_hands_flat_the_hierarchy_and_staged_table(
     assert staged is cl.staged and staged is bvh.staged_slots(cl, table)
     assert torch.equal(staged.view(torch.int32),           # NaN bits too
                        bvh.stage_slots(table, hier.gidx).view(torch.int32))
-    assert t_tab is table and gidx is hier.gidx and adm is hier.admission
+    assert all(t is not table for t in tensors)     # no variant reads it
+    assert gidx is hier.gidx and adm is hier.admission
     assert boxes is hier.boxes and supers is hier.supers
     assert groups is hier.groups and n_order == 1
     assert boxes.shape == (bvh.SUPER * bvh.GROUP, 8)
     assert torch.equal(boxes[:n_cl], cl.aabb)
     assert (boxes[n_cl:, :6] == bvh.SENTINEL).all()
     assert not boxes[:, 6:].any()
-    _, _, _, _, _, _, _, none = bk.launch_tables(cl, table, variant,
-                                                 compact=False)[0]
+    *_, none = bk.launch_tables(cl, table, variant, compact=False)[0]
     assert none is None
 
 
 def test_cuda_source_sends_flat_to_the_walk():
-    """In the CUDA source every variant launches the warp walk (the flat
-    one through the hierarchy unless the sweep's flat-order build asks
-    otherwise), the one-thread loop is gone, and flat's Plucker form is
-    refused."""
+    """In the CUDA source every variant launches the one warp walk (kFlat
+    falls through to kTwoLevel and kStreamed, down the hierarchy), the
+    one-thread loop is gone, and flat's Plucker form is refused."""
     src = Path(bk.SOURCE).read_text()
-    assert re.search(r"case kFlat:\n#if SRT_BVH_FLAT_ORDER\n\s+"
-                     r"SRT_BVH_WALK\(kFlat\);\n\s+break;\n#endif\n\s+"
-                     r"case kTwoLevel:", src)
-    assert re.search(r"#define SRT_BVH_FLAT_ORDER 0\n", src)
+    assert re.search(r"case kFlat:[^\n]*\n\s+case kTwoLevel:\n\s+"
+                     r"case kStreamed:\n\s+SRT_BVH_WALK\(kStreamed\);",
+                     src)
     assert "mt_cluster" not in src
     assert re.search(r"\(p\.plucker && p\.variant == kFlat\)", src)
 
@@ -292,3 +297,45 @@ def test_flat_walk_constants_change_no_result(flat_configs, split_max,
     assert torch.equal(s_e, s_p) and torch.equal(t_e, t_p)
     assert int((s_p >= 0).sum()) > 50
     assert cnt["split"] == (cnt["chunks"] if split_max else 0)
+
+
+@pytest.mark.parametrize("kernel,name", [(bk, "srt_bvh_interface"),
+                                         (tk, "srt_trace_interface")])
+def test_c_interface_version_matches_the_wrapper(kernel, name):
+    """Each kernel source exports its C interface's version as ``name``,
+    the wrapper's INTERFACE (its binding refuses a build of another)."""
+    src = Path(kernel.SOURCE).read_text()
+    m = re.search(rf'extern "C" int {name}\(\) \{{ return (\d+); \}}',
+                  src)
+    assert m and int(m.group(1)) == kernel.INTERFACE
+
+
+def test_interface_of_a_build_without_the_export_is_1():
+    """``build.interface``: a build of a source from before the export has
+    version 1; one with it, what its function returns."""
+    lib = types.SimpleNamespace()
+    assert build.interface(lib, "srt_bvh_interface") == 1
+    lib.srt_bvh_interface = lambda: 7
+    assert build.interface(lib, "srt_bvh_interface") == 7
+
+
+def test_bvh_launch_takes_no_slot_table():
+    """srt_bvh_launch's pointers after the rays are ``Prepared.tensors``
+    (staged, coeffs, gidx, boxes, supers, groups, admission), then the
+    work scratch, the compaction's order and count and the outputs: no
+    variant reads the slot table, so it is not passed.  chip_smoke.py
+    binds a parent of version 1, which took it after t_init, with one
+    pointer more."""
+    src = Path(bk.SOURCE).read_text()
+    sig = re.search(r"int srt_bvh_launch\((.*?)\)", src, re.S).group(1)
+    assert re.findall(r"\*\s*(\w+)", sig)[8:] == [
+        "staged", "coeffs", "gidx", "boxes", "supers", "groups",
+        "admission", "work", "perm", "count", "t_out", "slot_out",
+        "stream"]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.V1_LAUNCH_ARGTYPES == ([ctypes.c_void_p]
+                                        + bk.LAUNCH_ARGTYPES)
+    assert smoke.PARENT_BVH_INTERFACES == (bk.INTERFACE, 1)
