@@ -7,8 +7,8 @@ Run from the repository root:
 
 (``--parent``: a checkout of an earlier commit; phase 6 also times its
 BVH kernel on the same launches, one by one, and its whole-trace kernel
-on the same pass of each clustered whole-trace cell, each bound by the C
-interface its build reports.)
+on the same pass of each whole-trace cell, each bound by the C interface
+its build reports.)
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
@@ -116,7 +116,6 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
-import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -148,7 +147,6 @@ from simple_raytracer_tpu_torch.ops.cuda import bounce_kernel as sk
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
-from simple_raytracer_tpu_torch.ops.cuda.build import interface
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
 from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
 from simple_raytracer_tpu_torch.ops.trace import add_sky, trace_rays
@@ -436,6 +434,110 @@ def triangle_sass() -> str:
                     f"{k} {v}" for k, v in body.most_common()
                     if k not in ("FMUL", "FADD", "FFMA")))
     return "not measured (kernel not found)"
+
+
+# The whole-trace kernel's sections as compiled: each in a kernel of its
+# own, built from the kernel's source (included whole) with its flags, so
+# the same device code: one sphere test, one plane test, one MT, one BSDF
+# sample, one uniform of the RNG and the gradient sky, each on rays loaded
+# from memory and its result stored; "frame" only loads and stores.
+SASS_PROBES = r"""
+#include "trace_kernel.cu"
+#define RAY const float* q = in + 64 * threadIdx.x; \
+  const V3 o = mk(q[0], q[1], q[2]), d = mk(q[3], q[4], q[5])
+extern "C" __global__ void probe_frame(const float* in, float* out) {
+  RAY; out[threadIdx.x] = o.x + o.y + o.z + d.x + d.y + d.z;
+}
+extern "C" __global__ void probe_sphere(const float* in, float* out) {
+  RAY; float t; int i;
+  nearest_sphere(q + 8, 1, o, d, t, i);
+  out[threadIdx.x] = t + (float)i;
+}
+extern "C" __global__ void probe_plane(const float* in, float* out) {
+  RAY; float t; int i;
+  nearest_plane(q + 8, 1, o, d, t, i);
+  out[threadIdx.x] = t + (float)i;
+}
+extern "C" __global__ void probe_mt(const float* in, float* out) {
+  RAY; TriHit th = {INFINITY, -1, 0.0f, 0.0f};
+  mt_update<false>(q + 8, 0, o, d, th);
+  out[threadIdx.x] = th.t + th.u + th.v + (float)th.row;
+}
+extern "C" __global__ void probe_bsdf(const float* in, float* out) {
+  RAY; uint32_t seed = __float_as_uint(q[6]);
+  const Scatter sc = sample_bsdf(o, q[7] > 0.0f, d, q + 8, seed);
+  out[threadIdx.x] = sc.dir.x + sc.dir.y + sc.dir.z + sc.mask_mul.x
+                     + sc.mask_mul.y + sc.mask_mul.z + __uint_as_float(seed);
+}
+extern "C" __global__ void probe_uniform(const float* in, float* out) {
+  RAY; uint32_t seed = __float_as_uint(q[6]);
+  out[threadIdx.x] = next_uniform(seed) + o.x + d.x;
+}
+extern "C" __global__ void probe_sky(const float* in, float* out) {
+  RAY; const V3 c = sky_gradient(d, *reinterpret_cast<const TraceParams*>(
+      q + 8));
+  out[threadIdx.x] = c.x + c.y + c.z + o.x;
+}
+"""
+SASS_OPS = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
+
+
+def sass_histograms(cubin: Path) -> dict:
+    """Instructions by opcode of each function of a cubin (cuobjdump -sass;
+    NOPs left out), by function name."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs = {}
+    for func in out.split("Function : ")[1:]:
+        ops = [m.group(1) for m in SASS_OPS.finditer(func)]
+        funcs[func.split()[0]] = collections.Counter(
+            op for op in ops if op != "NOP")
+    return funcs
+
+
+def trace_sass(kernel=None) -> str:
+    """The whole-trace kernel's sections as compiled (SASS_PROBES) and each
+    variant's whole route instance, by opcode; the build of ``kernel``
+    (the route's source and flags by default)."""
+    kernel = kernel or tk.KERNEL
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not (os.path.exists(nvcc) and os.path.exists(tool)):
+        return "not measured (no nvcc or cuobjdump)"
+    flags = [f for f in kernel.flags
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    out_dir = Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        src = Path(tmp) / "sass_probes.cu"
+        src.write_text(SASS_PROBES)
+        cubin = Path(tmp) / "sass_probes.cubin"
+        proc = subprocess.run(
+            [nvcc, *flags, "-cubin", "-I", str(kernel.source.parent), "-o",
+             str(cubin), str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            fail(f"the SASS probes' build: {proc.stderr}")
+        funcs = sass_histograms(cubin)
+    parts = []
+    frame = sum(funcs["probe_frame"].values())
+    for name in ("sphere", "plane", "mt", "bsdf", "uniform", "sky"):
+        ops = funcs[f"probe_{name}"]
+        fp = ops["FMUL"] + ops["FADD"] + ops["FFMA"]
+        parts.append(
+            f"{name} {sum(ops.values()) - frame} ({fp} FP32; "
+            + ", ".join(f"{k} {v}" for k, v in ops.most_common(12)) + ")")
+    for mode, value in tk.TRI_MODES.items():
+        key = next((k for k in funcs
+                    if re.search(rf"trace_kernelILi{value}ELb0E", k)), None)
+        if key is not None:
+            ops = funcs[key]
+            parts.append(f"route {mode}: {sum(ops.values())} instructions "
+                         "(MUFU " + str(ops["MUFU"]) + ", CALL "
+                         + str(ops["CALL"]) + ", BRA " + str(ops["BRA"])
+                         + ")")
+    return (f"instructions a section, less the frame's {frame} (loads of "
+            "the ray and table, the store): " + "; ".join(parts))
 
 
 # Float operations of the kernels, counted from the CUDA sources (adds,
@@ -1003,9 +1105,9 @@ def clustered_work(hits, clusters) -> list:
 
 
 def trace_counts(label: str, args, kw, tri_backend: str) -> list:
-    """The whole-trace clustered variant's counting instance on a full
-    pass, held to the route's launch on the same pass (every output bit
-    equal); its counts per bounce."""
+    """The whole-trace kernel's counting instance on a full pass, held to
+    the route's launch on the same pass (every output bit equal); its
+    counts per bounce."""
     prep = tk.prepare(*args, **kw, tri_backend=tri_backend)
     k = tk.launch(prep)
     c, counts = tk.launch_counted(prep)
@@ -1049,6 +1151,45 @@ def trace_walk_report(label: str, counts, work) -> str:
                 "of the slot time)")
     return (f"cell {label} whole-trace traversal per bounce: "
             + "; ".join(parts) + life)
+
+
+def trace_path_report(label: str, counts, segments, prep) -> str:
+    """A ``none`` or ``small`` cell's counts per bounce (the counting
+    instance) beside the plain version's live rays: the warps with a live
+    lane, the lanes of a warp-step that carry a live ray, and a warp's SM
+    cycles in the sphere and plane tests, in MT and in the BSDF sample;
+    then over the launch: a warp's life, in ray generation and in the sky
+    and writes, against its block's slot time, and the blocks an SM
+    holds."""
+    parts = []
+    for b, (cnt, seg) in enumerate(zip(counts, segments)):
+        w = max(cnt["warps"], 1)
+        parts.append(
+            f"b{b} live {cnt['live']} (plain {seg[0]}) in {cnt['warps']} "
+            f"warps, lanes live a warp-step {cnt['live'] / (32 * w):.3f}; "
+            f"SM cycles a warp: spheres and planes "
+            f"{cnt['cycles_prims'] / w:.0f}, MT {cnt['cycles_tris'] / w:.0f}"
+            f", BSDF {cnt['cycles_bsdf'] / w:.0f}")
+    c0 = counts[0]
+    warps = max(c0["warps"], 1)
+    life = c0["cycles_warp"]
+    live = sum(c["live"] for c in counts)
+    steps = sum(c["warps"] for c in counts)
+    share = lambda key: sum(c[key] for c in counts) / max(life, 1)
+    return (f"cell {label} whole-trace {prep.label} per bounce: "
+            + "; ".join(parts)
+            + f"; over the launch: lanes live a warp-step {live / (32 * max(steps, 1)):.3f}"
+            f" ({live} live ray-bounces in {steps} warp-steps), a warp "
+            f"lives {life / warps:.0f} SM cycles, of them ray generation "
+            f"{share('cycles_gen'):.3f}, spheres and planes "
+            f"{share('cycles_prims'):.3f}, MT {share('cycles_tris'):.3f}, "
+            f"BSDF {share('cycles_bsdf'):.3f}, the sky and writes "
+            f"{share('cycles_finish'):.3f}; its block holds its SM slots "
+            f"{c0['cycles_block'] / warps:.0f} (the warps live "
+            f"{life / max(c0['cycles_block'], 1):.3f} of the slot time); "
+            f"an SM holds {tk.occupancy(prep)} blocks of the route "
+            f"({tk.occupancy(prep, counting=True)} of the counting "
+            "instance)")
 
 
 def make_textures(directory: Path) -> dict:
@@ -1215,55 +1356,19 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     return {k: v / 1e3 / reps for k, v in kernel_device_us(prof).items()}
 
 
-# The C interfaces of the BVH kernel that --parent binds: this one, and
-# version 1, which srt_bvh_launch took with a (C * K, 20) slot table
-# pointer after t_init and whose flat variant visited the cluster boxes
-# (n_order = n_clusters) one thread a ray.
-PARENT_BVH_INTERFACES = (bk.INTERFACE, 1)
-V1_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 21 + [bk.BvhParams, ctypes.c_void_p]
-
-
 def parent_bvh_kernel(parent: Path):
-    """The parent checkout's BVH kernel, bound by the C interface its
-    build reports (``build.interface``; one of PARENT_BVH_INTERFACES,
-    else the build is refused)."""
-    def bind(lib):
-        kernel.interface = interface(lib, "srt_bvh_interface")
-        if kernel.interface == bk.INTERFACE:
-            bk._bind(lib)
-        elif kernel.interface in PARENT_BVH_INTERFACES:
-            lib.srt_bvh_launch.argtypes = V1_LAUNCH_ARGTYPES
-            lib.srt_bvh_launch.restype = ctypes.c_int
-        else:
-            raise RuntimeError(f"the parent's BVH kernel has C interface "
-                               f"{kernel.interface}; this script binds "
-                               f"{PARENT_BVH_INTERFACES}")
-
-    kernel = bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
-                       / "bvh_kernel.cu", bind)
-    return kernel
+    """The parent checkout's BVH kernel, bound to this C interface
+    (bk._bind refuses a build that reports another)."""
+    return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
+                     / "bvh_kernel.cu", bk._bind)
 
 
-def parent_launcher(kernel, pp, table, out):
+def parent_launcher(kernel, pp, out):
     """A recorded BVH launch on the parent's kernel into ``out``, as a
-    callable: through bk.launch on this interface, else with version 1's
-    arguments (the slot table; for flat the cluster boxes ranked front to
-    back, the first n_clusters rows of the padded hierarchy's boxes)."""
-    if kernel.interface == bk.INTERFACE:
-        def run():
-            with bvh_kernel_as(kernel):
-                bk.launch(pp, out)
-        return run
-    q = (with_params(pp, n_order=pp.params.n_clusters)
-         if pp.variant == "flat" else pp)
-    args = bk._args(q, out)
-    args.insert(8, table.data_ptr())
-
+    callable."""
     def run():
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = kernel.library().srt_bvh_launch(*args, q.params, stream)
-        kernel.check(err, "the parent's BVH kernel")
+        with bvh_kernel_as(kernel):
+            bk.launch(pp, out)
     return run
 
 
@@ -1295,7 +1400,7 @@ def walk_launches(label: str, res: dict, clusters, table,
             k_ms = run_k()
         else:
             got = (torch.empty_like(oo[0]), torch.empty_like(oo[1]))
-            launch_p = parent_launcher(parent, pp, table, got)
+            launch_p = parent_launcher(parent, pp, got)
             run_p = lambda: med(launch_p)
 
             turns = [run_p(), run_k(), run_k(), run_p()]
@@ -1466,8 +1571,7 @@ def parent_trace_kernel(parent: Path):
 
 
 def parent_trace_launch(kernel, prep, out) -> None:
-    """A prepared clustered pass on the parent's whole-trace kernel into
-    ``out``."""
+    """A prepared pass on the parent's whole-trace kernel into ``out``."""
     with trace_kernel_as(kernel):
         tk.launch(prep, out)
 
@@ -1754,6 +1858,7 @@ def main(argv=None) -> int:
         + f"); ptxas: {ptxas}")
     say(f"[2] triangle kernel {trk.SHAPE[0]}x{trk.SHAPE[1]}, the fast path "
         f"of one triangle (cuobjdump): {triangle_sass()}")
+    say(f"[2] whole-trace kernel (cuobjdump): {trace_sass()}")
 
     # ---- 3: the main paths, each cell's counts reset just before it ----
     build_dir = Path(__file__).resolve().parent / "build"
@@ -1943,6 +2048,12 @@ def main(argv=None) -> int:
                 say(f"[4] {trace_walk_report(label, counts, work)}; the "
                     f"counting instance's output equal to the route's  "
                     f"[{card}]")
+            else:
+                counts = trace_counts(label, args, kw, backend)
+                prep = tk.prepare(*args, **kw, tri_backend=backend)
+                say(f"[4] {trace_path_report(label, counts, segments, prep)}"
+                    f"; the counting instance's output equal to the "
+                    f"route's  [{card}]")
             both = torch.isfinite(k) & torch.isfinite(p)
             err = (k - p).abs()[both]
             max_abs = float(err.max()) if err.numel() else 0.0
@@ -2277,36 +2388,34 @@ def main(argv=None) -> int:
             out = torch.empty((prep.n_out, n_rays), dtype=torch.float32,
                               device="cuda")
             k_all = cuda_ms(lambda: tk.launch(prep, out), iters=50)
+            # the parent's kernel on the same pass, in turns (parent,
+            # this, this, parent), whose every output bit must be this
+            # one's; the variant's constants swept
+            iters = 5 if label in BAND_CELLS else 20
+            ref = out.clone()
+            if parent_trace is not None:
+                got = torch.empty_like(out)
+                run_p = lambda: cuda_ms(lambda: parent_trace_launch(
+                    parent_trace, prep, got), iters=iters, repeats=3,
+                    warmup=1)
+                run_k = lambda: cuda_ms(lambda: tk.launch(prep, out),
+                                        iters=iters, repeats=3, warmup=1)
+                turns = [run_p(), run_k(), run_k(), run_p()]
+                par = [float(np.median(t)) for t in turns[::3]]
+                this = [float(np.median(t)) for t in turns[1:3]]
+                differ = int((got.view(torch.int32)
+                              != ref.view(torch.int32)).any(0).sum())
+                extra += (f"; the parent's kernel on the same pass "
+                          f"{par[0]:.4f}, {par[1]:.4f} ms against this "
+                          f"{this[0]:.4f}, {this[1]:.4f} ms in turns "
+                          f"(parent / this {sum(par) / sum(this):.2f}x); "
+                          f"its output: {differ} rays differ")
+                res["parent_ms"] = par
+                res["this_ms"] = this
+                if differ:
+                    fail(f"cell {label}: the parent's whole-trace kernel "
+                         "and this one differ")
             if prep.variant == "clustered":
-                # the parent's kernel on the same pass, in turns (parent,
-                # this, this, parent), and the walk's constants swept
-                cl = ds.triangles.clusters
-                iters = 5 if label in BAND_CELLS else 20
-                ref = out.clone()
-                if parent_trace is not None:
-                    got = torch.empty_like(out)
-                    run_p = lambda: cuda_ms(lambda: parent_trace_launch(
-                        parent_trace, prep, got), iters=iters, repeats=3,
-                        warmup=1)
-                    run_k = lambda: cuda_ms(lambda: tk.launch(prep, out),
-                                            iters=iters, repeats=3,
-                                            warmup=1)
-                    turns = [run_p(), run_k(), run_k(), run_p()]
-                    par = [float(np.median(t)) for t in turns[::3]]
-                    this = [float(np.median(t)) for t in turns[1:3]]
-                    rmse, share, same_bad = canvas_diff(got, ref,
-                                                        o.num_samples)
-                    differ = int((got.view(torch.int32)
-                                  != ref.view(torch.int32)).any(0).sum())
-                    extra += (f"; the parent's kernel on the same pass "
-                              f"{par[0]:.4f}, {par[1]:.4f} ms against this "
-                              f"{this[0]:.4f}, {this[1]:.4f} ms in turns "
-                              f"(parent / this "
-                              f"{sum(par) / sum(this):.2f}x); its output: "
-                              f"{differ} rays differ, rmse {rmse:.3e}, "
-                              f"share>1e-3 {share:.3e}, non-finite masks "
-                              f"agree {same_bad}")
-                    res["parent_ms"] = par
                 res["sweep"] = trace_sweep(label, prep, ref, iters)
             if ds.skybox is not None:
                 # the texture's sample on the nine rows, as trace_full

@@ -165,9 +165,12 @@ struct TraceArgs {
 
 enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
 
-// The counting instance of kClusteredTris (srt_trace_count_launch, which
-// only chip_smoke.py calls; the route never launches it): what the walk
-// did, per bounce, into (num_bounces, kCounters) int64 counters.
+// The counting instance of each variant (srt_trace_count_launch, which
+// only chip_smoke.py calls; the route never launches it): what a launch
+// did, per bounce, into (num_bounces, kCounters) int64 counters.  The walk
+// counters are kClusteredTris's; kNoTris and kSmallTris count the live
+// rays, the warps and the cycles of their sections, each added once for
+// the lanes that run it together.
 enum Count {
   kCountLive = 0,    // live rays that entered the bounce
   kCountWarps,       // warps with a live lane
@@ -182,13 +185,22 @@ enum Count {
   kCountCyclesWalk,  // SM cycles the warps spent in the walk
   kCountCyclesWait,  // of them, waiting for a chunk's copy
   kCountCyclesMt,    // of them, in MT (mt_chunk)
-  kCountCyclesBounce,  // SM cycles the warps spent in the bounce
+  kCountCyclesBounce,  // SM cycles the warps spent in the bounce (walk)
+  kCountCyclesPrims,   // SM cycles in the sphere and plane tests
+  kCountCyclesTris,    // SM cycles in kSmallTris's MT loop
+  kCountCyclesBsdf,    // SM cycles in the BSDF sample
+  kCountCyclesGen,     // bounce 0's row only: SM cycles in ray generation
+  kCountCyclesFinish,  // bounce 0's row only: SM cycles in the sky and
+                       // the writes after the loop
   kCountCyclesWarp,  // bounce 0's row only: SM cycles from each warp's
                      // start to its end, summed over the warps
   kCountCyclesBlock,   // bounce 0's row only: each block's warps times
                        // its longest warp's cycles, summed over blocks
   kCounters
 };
+// the most bounces a counting launch counts (its counters sit in shared
+// memory until the block ends)
+constexpr int kCountBounces = 16;
 
 namespace {
 
@@ -404,6 +416,28 @@ __device__ __forceinline__ void count(unsigned long long* cnt, int i,
                                       unsigned long long n) {
   if constexpr (COUNT) {
     if ((threadIdx.x & 31) == 0 && n) atomicAdd(cnt + i, n);
+  }
+}
+
+// The counting instance's span of a section: its start, once the lanes
+// that run it together are at it, and its SM cycles, added once for them
+// by the lowest (kNoTris and kSmallTris leave their lanes free to part)
+template <bool COUNT>
+__device__ __forceinline__ long long span_start() {
+  if constexpr (COUNT) {
+    __syncwarp(__activemask());
+    return clock64();
+  }
+  return 0;
+}
+template <bool COUNT>
+__device__ __forceinline__ void span_end(unsigned long long* cnt, int i,
+                                         long long t0) {
+  if constexpr (COUNT) {
+    const unsigned m = __activemask();
+    __syncwarp(m);
+    if ((threadIdx.x & 31) == __ffs(m) - 1)
+      atomicAdd(cnt + i, (unsigned long long)(clock64() - t0));
   }
 }
 
@@ -722,9 +756,11 @@ __device__ __forceinline__ void bounce_cycles(unsigned long long* cnt,
 
 // One ray's whole path, its rows written: ray g of the launch (a lane
 // past the rays walks as a dead lane of its warp and writes nothing).
-// kClusteredTris: called by the whole warp, whose ring it uses.
+// kClusteredTris: called by the whole warp, whose ring it uses.  The
+// counting instance of kNoTris and kSmallTris returns the bounces the ray
+// was live in (bit b: bounce b).
 template <int TRI, bool COUNT>
-__device__ __forceinline__ void trace_ray(
+__device__ __forceinline__ unsigned trace_ray(
     const TraceArgs& a, const TraceParams& p, int g, const float* s_sph,
     const float* s_pln, const float* s_mat, const float* s_tri,
     float4* __restrict__ s_ring, uint64_t* __restrict__ s_bar, Ring& ring,
@@ -732,7 +768,9 @@ __device__ __forceinline__ void trace_ray(
   constexpr bool kWalk = TRI == kClusteredTris;
   const bool in_range = g < p.n_rays;
   bool alive = in_range;
+  unsigned seen = 0;
   // ---- ray generation (ops/camera.py: generate_rays) ----
+  const long long t_gen = span_start<COUNT>();
   const int s = g % p.num_samples;
   const int pix = g / p.num_samples;
   int px, py;
@@ -759,33 +797,46 @@ __device__ __forceinline__ void trace_ray(
                       p.rot[3] * sx + p.rot[4] * sy + p.rot[5] * -1.0f,
                       p.rot[6] * sx + p.rot[7] * sy + p.rot[8] * -1.0f));
   V3 o = load3(p.cam_pos);
+  span_end<COUNT>(counters, kCountCyclesGen, t_gen);
 
   // ---- the bounce loop (ops/trace.py: trace_rays) ----
   V3 color = mk(0.0f, 0.0f, 0.0f);
   V3 mask = mk(1.0f, 1.0f, 1.0f);
   V3 sky_mask = mk(0.0f, 0.0f, 0.0f);
   V3 sky_dir = mk(0.0f, 0.0f, 1.0f);
+  constexpr bool kWalkCount = kWalk && COUNT;
   for (int bounce = 0; bounce < p.num_bounces; ++bounce) {
-    unsigned long long* cnt = nullptr;
+    unsigned long long* cnt =
+        COUNT ? counters + (size_t)bounce * kCounters : nullptr;
     long long t_bounce = 0;
     if constexpr (kWalk) {
       // the warp goes on while any of its lanes is alive
       const unsigned lanes = __ballot_sync(kAll, alive);
       if (!lanes) break;
       if constexpr (COUNT) {
-        cnt = counters + (size_t)bounce * kCounters;
         count<COUNT>(cnt, kCountLive, __popc(lanes));
         count<COUNT>(cnt, kCountWarps, 1);
         t_bounce = clock64();
       }
+    } else if constexpr (COUNT) {
+      // the lanes still in the loop (the kernel's epilogue counts the
+      // warps from `seen`); a lane past the rays leaves at once
+      const unsigned m = __activemask();
+      const unsigned lanes = __ballot_sync(m, alive);
+      if ((threadIdx.x & 31) == __ffs(m) - 1 && lanes)
+        atomicAdd(cnt + kCountLive, (unsigned long long)__popc(lanes));
+      if (!alive) break;
+      seen |= 1u << bounce;
     }
     // the nearest sphere and plane (path_common.cuh)
     float t_s = INFINITY, t_p = INFINITY;
     int i_s = 0, i_p = 0;
+    const long long t_prims = span_start<COUNT>();
     if (alive) {
       nearest_sphere(s_sph, p.n_spheres, o, d, t_s, i_s);
       nearest_plane(s_pln, p.n_planes, o, d, t_p, i_p);
     }
+    span_end<COUNT>(cnt, kCountCyclesPrims, t_prims);
     // nearest triangle (+inf when none beats the sphere/plane seed)
     TriHit th;
     th.t = INFINITY;
@@ -793,8 +844,10 @@ __device__ __forceinline__ void trace_ray(
     th.u = th.v = 0.0f;
     float t_t = INFINITY;
     if (TRI == kSmallTris) {
+      const long long t_tris = span_start<COUNT>();
       for (int j = 0; j < p.n_tris; ++j)
         mt_update<false>(s_tri + kTriCols * j, j, o, d, th);
+      span_end<COUNT>(cnt, kCountCyclesTris, t_tris);
       t_t = th.t;
     }
     if constexpr (kWalk) {
@@ -815,7 +868,7 @@ __device__ __forceinline__ void trace_ray(
         t_t = best.t;
       }
       if (!alive) {
-        bounce_cycles<COUNT>(cnt, t_bounce);
+        bounce_cycles<kWalkCount>(cnt, t_bounce);
         continue;
       }
     }
@@ -826,7 +879,7 @@ __device__ __forceinline__ void trace_ray(
       sky_dir = d;
       if constexpr (kWalk) {
         alive = false;
-        bounce_cycles<COUNT>(cnt, t_bounce);
+        bounce_cycles<kWalkCount>(cnt, t_bounce);
         continue;
       }
       break;
@@ -860,19 +913,22 @@ __device__ __forceinline__ void trace_ray(
     const float* mt = s_mat + 16 * m;
     color = add(color, scale(mul(mask, load3(mt + 9)), mt[3]));
     if (bounce == p.num_bounces - 1) {  // emission only, no new ray
-      bounce_cycles<COUNT>(cnt, t_bounce);
+      bounce_cycles<kWalkCount>(cnt, t_bounce);
       break;
     }
 
     // ---- the BSDF sample (path_common.cuh: sample_bsdf) ----
+    const long long t_bsdf = span_start<COUNT>();
     const Scatter sc = sample_bsdf(normal, front, d, mt, seed);
     o = scatter_origin(pos, normal, sc.dir);
     d = sc.dir;
     mask = mul(mask, sc.mask_mul);
-    bounce_cycles<COUNT>(cnt, t_bounce);
+    span_end<COUNT>(cnt, kCountCyclesBsdf, t_bsdf);
+    bounce_cycles<kWalkCount>(cnt, t_bounce);
   }
 
-  if (!in_range) return;
+  if (!in_range) return seen;
+  const long long t_finish = span_start<COUNT>();
   const size_t n = (size_t)p.n_rays;
   if (p.sky_rows) {
     // color, sky_mask, sky_dir: the sky is the wrapper's
@@ -880,12 +936,14 @@ __device__ __forceinline__ void trace_ray(
                            sky_mask.y, sky_mask.z, sky_dir.x, sky_dir.y,
                            sky_dir.z};
     for (int k = 0; k < 9; ++k) a.out[k * n + g] = rows[k];
-    return;
+  } else {
+    color = add(color, mul(sky_mask, sky_gradient(sky_dir, p)));
+    a.out[g] = color.x;
+    a.out[n + g] = color.y;
+    a.out[2 * n + g] = color.z;
   }
-  color = add(color, mul(sky_mask, sky_gradient(sky_dir, p)));
-  a.out[g] = color.x;
-  a.out[n + g] = color.y;
-  a.out[2 * n + g] = color.z;
+  span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
+  return seen;
 }
 
 template <int TRI, bool COUNT = false>
@@ -914,36 +972,51 @@ trace_kernel(const TraceArgs a, const TraceParams p,
     for (int k = threadIdx.x; k < kTriCols * p.n_tris; k += blockDim.x)
       s_tri[k] = a.tri[k];
   }
-  __shared__ unsigned long long s_longest;   // the counting instance's
+  // the counting instance's counters, added up in shared memory and then
+  // into `counters` once a block, and its longest warp
+  __shared__ unsigned long long s_cnt[COUNT ? kCountBounces * kCounters : 1];
+  __shared__ unsigned long long s_longest;
+  if constexpr (COUNT) {
+    for (int k = threadIdx.x; k < kCountBounces * kCounters; k += blockDim.x)
+      s_cnt[k] = 0;
+    if (threadIdx.x == 0) s_longest = 0;
+  }
   if constexpr (kWalk) {
     if (threadIdx.x < kWalkWarps * kStages) bar_init(s_bars + threadIdx.x);
     bar_init_fence();
-    if (COUNT && threadIdx.x == 0) s_longest = 0;
   }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   Ring ring;
   const long long t_start = COUNT ? clock64() : 0;
-  // kClusteredTris keeps every lane of the block to the end: the walk is
-  // the warp's
+  // kClusteredTris (and every counting instance) keeps every lane of the
+  // block to the end: the walk is the warp's
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!kWalk && g >= p.n_rays) return;
-  trace_ray<TRI, COUNT>(a, p, g, s_sph, s_pln, s_mat, s_tri,
-                        s_ring + (size_t)warp * kStages * kChunk * kRowF4,
-                        s_bars + warp * kStages, ring, counters);
+  if (!kWalk && !COUNT && g >= p.n_rays) return;
+  const unsigned seen = trace_ray<TRI, COUNT>(
+      a, p, g, s_sph, s_pln, s_mat, s_tri,
+      s_ring + (size_t)warp * kStages * kChunk * kRowF4,
+      s_bars + warp * kStages, ring, COUNT ? s_cnt : nullptr);
   if constexpr (COUNT) {
-    // the warp's life, and the block's: its warps hold their SM slots
-    // until its longest warp ends
+    // the warps with a live lane, per bounce (kNoTris, kSmallTris); the
+    // warp's life, and the block's: its warps hold their SM slots until
+    // its longest warp ends
     __syncwarp();
     const unsigned long long life = clock64() - t_start;
+    const unsigned bounces = __reduce_or_sync(kAll, seen);
     if ((threadIdx.x & 31) == 0) {
-      atomicAdd(counters + kCountCyclesWarp, life);
+      for (unsigned b = bounces; b; b &= b - 1)
+        atomicAdd(s_cnt + (__ffs(b) - 1) * kCounters + kCountWarps, 1ull);
+      atomicAdd(s_cnt + kCountCyclesWarp, life);
       atomicMax(&s_longest, life);
     }
     __syncthreads();
     if (threadIdx.x == 0)
-      atomicAdd(counters + kCountCyclesBlock, s_longest * kWalkWarps);
+      s_cnt[kCountCyclesBlock] += s_longest * (blockDim.x / 32);
+    __syncthreads();
+    for (int k = threadIdx.x; k < p.num_bounces * kCounters; k += blockDim.x)
+      if (s_cnt[k]) atomicAdd(counters + k, s_cnt[k]);
   }
 }
 
@@ -974,6 +1047,19 @@ cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
   }
   trace_kernel<TRI, COUNT><<<blocks, block, bytes, st>>>(a, p, counters);
   return cudaGetLastError();
+}
+
+// the blocks of one instance an SM holds at once
+template <int TRI, bool COUNT>
+cudaError_t occupancy(int shared, int* blocks) {
+  if (shared > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        trace_kernel<TRI, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        shared);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, trace_kernel<TRI, COUNT>, SRT_TRACE_BLOCK_OF(TRI), shared);
 }
 
 // a kClusteredTris launch's tables and parameters, as the walk reads them
@@ -1021,9 +1107,9 @@ extern "C" int srt_trace_launch(const float* sph, const float* pln,
   }
 }
 
-// The counting instance of kClusteredTris: the same launch, which also adds
-// what the walk did to counters ((num_bounces, kCounters) int64, Count);
-// chip_smoke.py's only
+// The counting instance of a variant: the same launch, which also adds
+// what it did to counters ((num_bounces, kCounters) int64, Count; at most
+// kCountBounces bounces); chip_smoke.py's only
 extern "C" int srt_trace_count_launch(const float* sph, const float* pln,
                                       const float* mat, const float* tri,
                                       const float* staged, const float* boxes,
@@ -1034,12 +1120,37 @@ extern "C" int srt_trace_count_launch(const float* sph, const float* pln,
   const TraceArgs a = {sph, pln, mat, tri,
                        reinterpret_cast<const float4*>(staged), boxes, supers,
                        groups, out};
-  if (p.tri_mode != kClusteredTris || counters == nullptr
-      || !clustered_ok(a, p))
+  if (counters == nullptr || p.num_bounces > kCountBounces)
     return (int)cudaErrorInvalidValue;
   if (p.n_rays <= 0) return (int)cudaSuccess;
-  return (int)launch_variant<kClusteredTris, true>((cudaStream_t)stream, a, p,
-                                                   counters);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (p.tri_mode) {
+    case kNoTris:
+      return (int)launch_variant<kNoTris, true>(st, a, p, counters);
+    case kSmallTris:
+      return (int)launch_variant<kSmallTris, true>(st, a, p, counters);
+    case kClusteredTris:
+      if (!clustered_ok(a, p)) return (int)cudaErrorInvalidValue;
+      return (int)launch_variant<kClusteredTris, true>(st, a, p, counters);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The blocks of a variant's route (counting: 0) or counting instance (1)
+// that one SM holds at once with `shared` bytes of dynamic shared memory
+// (the occupancy chip_smoke.py reports)
+extern "C" int srt_trace_occupancy(int tri_mode, int counting, int shared,
+                                   int* blocks) {
+  switch (tri_mode * 2 + (counting != 0)) {
+    case 0: return (int)occupancy<kNoTris, false>(shared, blocks);
+    case 1: return (int)occupancy<kNoTris, true>(shared, blocks);
+    case 2: return (int)occupancy<kSmallTris, false>(shared, blocks);
+    case 3: return (int)occupancy<kSmallTris, true>(shared, blocks);
+    case 4: return (int)occupancy<kClusteredTris, false>(shared, blocks);
+    case 5: return (int)occupancy<kClusteredTris, true>(shared, blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // the dynamic shared memory a block of the device may opt in to

@@ -123,8 +123,11 @@ COUNT_ARGTYPES = ([ctypes.c_void_p] * (LAUNCH_POINTERS + 1)
 # the counting instance's counters of a bounce (the CUDA source's Count)
 COUNTERS = ("live", "warps", "box_tests", "admitted", "union", "mt_steps",
             "lane_steps", "chunks", "split", "wasted", "cycles_walk",
-            "cycles_wait", "cycles_mt", "cycles_bounce", "cycles_warp",
-            "cycles_block")
+            "cycles_wait", "cycles_mt", "cycles_bounce", "cycles_prims",
+            "cycles_tris", "cycles_bsdf", "cycles_gen", "cycles_finish",
+            "cycles_warp", "cycles_block")
+# the most bounces a counting launch counts (kCountBounces)
+COUNT_BOUNCES = 16
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -139,6 +142,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srt_shared_optin.argtypes = [ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)]
     lib.srt_shared_optin.restype = ctypes.c_int
+    lib.srt_trace_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.srt_trace_occupancy.restype = ctypes.c_int
 
 
 KERNEL = Kernel(SOURCE, _bind)
@@ -217,6 +223,7 @@ class Prepared:
     params: TraceParams
     n_rays: int
     device: torch.device
+    shared_bytes: int        # dynamic shared memory a block
 
     @property
     def n_out(self) -> int:
@@ -310,7 +317,8 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
         p.n_clusters, p.cluster_k = cl.slots.shape
         p.n_groups = cl.hierarchy.groups.shape[0]
         p.cluster_extent = cl.extent
-    return Prepared((sph, pln, mat), tri_tables, variant, p, n_rays, device)
+    return Prepared((sph, pln, mat), tri_tables, variant, p, n_rays, device,
+                    shared)
 
 
 def launch(prep: Prepared, out: torch.Tensor = None) -> torch.Tensor:
@@ -335,13 +343,13 @@ def launch(prep: Prepared, out: torch.Tensor = None) -> torch.Tensor:
 
 
 def launch_counted(prep: Prepared):
-    """One launch of the ``clustered`` variant's counting instance (a
-    kernel of its own, which the route never launches; not counted with
-    the route's launches): (the output, as ``launch``'s, and one dict of
-    ``COUNTERS`` per bounce)."""
-    if prep.variant != "clustered":
-        raise ValueError("trace kernel: only the clustered variant has a "
-                         "counting instance")
+    """One launch of the variant's counting instance (a kernel of its own,
+    which the route never launches; not counted with the route's
+    launches): (the output, as ``launch``'s, and one dict of ``COUNTERS``
+    per bounce)."""
+    if prep.params.num_bounces > COUNT_BOUNCES:
+        raise ValueError(f"trace kernel: the counting instance counts at "
+                         f"most {COUNT_BOUNCES} bounces")
     out = torch.empty((prep.n_out, prep.n_rays), dtype=torch.float32,
                       device=prep.device)
     counters = torch.zeros((prep.params.num_bounces, len(COUNTERS)),
@@ -355,3 +363,13 @@ def launch_counted(prep: Prepared):
             counters.data_ptr(), prep.params, stream)
     KERNEL.check(err, "trace kernel (counting)")
     return out, [dict(zip(COUNTERS, row)) for row in counters.tolist()]
+
+
+def occupancy(prep: Prepared, counting: bool = False) -> int:
+    """Blocks of the pass's variant (its route, or its counting instance)
+    that one SM holds at once."""
+    out = ctypes.c_int(0)
+    KERNEL.check(KERNEL.library().srt_trace_occupancy(
+        prep.params.tri_mode, int(counting), prep.shared_bytes,
+        ctypes.byref(out)), "occupancy query")
+    return out.value

@@ -27,7 +27,6 @@ walk in PyTorch, and:
   the BVH launch takes no slot table (chip_smoke.py --parent binds the
   version before, which did, with one pointer more).
 """
-import ctypes
 import importlib.util
 import math
 import re
@@ -324,8 +323,8 @@ def test_bvh_launch_takes_no_slot_table():
     (staged, coeffs, gidx, boxes, supers, groups, admission), then the
     work scratch, the compaction's order and count and the outputs: no
     variant reads the slot table, so it is not passed.  chip_smoke.py
-    binds a parent of version 1, which took it after t_init, with one
-    pointer more."""
+    binds a parent's build to this interface only (bk._bind, which refuses
+    version 1, the one that took the slot table)."""
     src = Path(bk.SOURCE).read_text()
     sig = re.search(r"int srt_bvh_launch\((.*?)\)", src, re.S).group(1)
     assert re.findall(r"\*\s*(\w+)", sig)[8:] == [
@@ -336,6 +335,7 @@ def test_bvh_launch_takes_no_slot_table():
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.V1_LAUNCH_ARGTYPES == ([ctypes.c_void_p]
-                                        + bk.LAUNCH_ARGTYPES)
-    assert smoke.PARENT_BVH_INTERFACES == (bk.INTERFACE, 1)
+    parent = smoke.parent_bvh_kernel(Path("parent"))
+    assert parent._bind is bk._bind
+    with pytest.raises(RuntimeError, match="interface 1, want 2"):
+        parent._bind(types.SimpleNamespace(srt_bvh_interface=lambda: 1))
