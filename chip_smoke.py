@@ -1154,42 +1154,41 @@ def trace_walk_report(label: str, counts, work) -> str:
 
 
 def trace_path_report(label: str, counts, segments, prep) -> str:
-    """A ``none`` or ``small`` cell's counts per bounce (the counting
-    instance) beside the plain version's live rays: the warps with a live
-    lane, the lanes of a warp-step that carry a live ray, and a warp's SM
-    cycles in the sphere and plane tests, in MT and in the BSDF sample;
-    then over the launch: a warp's life, in ray generation and in the sky
-    and writes, against its block's slot time, and the blocks an SM
+    """A ``none`` or ``small`` cell's counts (the counting instance of its
+    persistent warps) beside the plain version's live rays: per bounce the
+    live rays and the warp-steps that carried a lane at that bounce; over
+    the launch the warp-steps, the share of their lanes that carried a
+    path, the fetches of path indices, and a warp's SM cycles (its share
+    in ray generation, the sphere and plane tests, MT, the BSDF sample and
+    the sky and writes) against its block's slot time; the blocks an SM
     holds."""
-    parts = []
-    for b, (cnt, seg) in enumerate(zip(counts, segments)):
-        w = max(cnt["warps"], 1)
-        parts.append(
-            f"b{b} live {cnt['live']} (plain {seg[0]}) in {cnt['warps']} "
-            f"warps, lanes live a warp-step {cnt['live'] / (32 * w):.3f}; "
-            f"SM cycles a warp: spheres and planes "
-            f"{cnt['cycles_prims'] / w:.0f}, MT {cnt['cycles_tris'] / w:.0f}"
-            f", BSDF {cnt['cycles_bsdf'] / w:.0f}")
+    parts = [f"b{b} live {cnt['live']} (plain {seg[0]}) in {cnt['warps']} "
+             "warp-steps" for b, (cnt, seg) in enumerate(zip(counts,
+                                                             segments))]
     c0 = counts[0]
-    warps = max(c0["warps"], 1)
-    life = c0["cycles_warp"]
-    live = sum(c["live"] for c in counts)
-    steps = sum(c["warps"] for c in counts)
-    share = lambda key: sum(c[key] for c in counts) / max(life, 1)
+    sms = torch.cuda.get_device_properties(prep.device).multi_processor_count
+    held, held_count = tk.occupancy(prep), tk.occupancy(prep, counting=True)
+    warps = min(-(-prep.n_rays // tk.BLOCK), held_count * sms) * (
+        tk.BLOCK // 32)
+    life = max(c0["cycles_warp"], 1)
+    share = lambda key: f"{c0[key] / life:.3f}"
+    steps = max(c0["steps"], 1)
     return (f"cell {label} whole-trace {prep.label} per bounce: "
             + "; ".join(parts)
-            + f"; over the launch: lanes live a warp-step {live / (32 * max(steps, 1)):.3f}"
-            f" ({live} live ray-bounces in {steps} warp-steps), a warp "
-            f"lives {life / warps:.0f} SM cycles, of them ray generation "
-            f"{share('cycles_gen'):.3f}, spheres and planes "
-            f"{share('cycles_prims'):.3f}, MT {share('cycles_tris'):.3f}, "
-            f"BSDF {share('cycles_bsdf'):.3f}, the sky and writes "
-            f"{share('cycles_finish'):.3f}; its block holds its SM slots "
-            f"{c0['cycles_block'] / warps:.0f} (the warps live "
-            f"{life / max(c0['cycles_block'], 1):.3f} of the slot time); "
-            f"an SM holds {tk.occupancy(prep)} blocks of the route "
-            f"({tk.occupancy(prep, counting=True)} of the counting "
-            "instance)")
+            + f"; over the launch: {c0['steps']} warp-steps carried "
+            f"{c0['step_lanes']} lanes with a path ("
+            f"{c0['step_lanes'] / (32 * steps):.3f} of their lanes) for "
+            f"{sum(c['live'] for c in counts)} live ray-bounces, "
+            f"{c0['fetches']} fetches of path indices; {warps} warps, each "
+            f"living {life / warps:.0f} SM cycles: ray generation "
+            f"{share('cycles_gen')}, spheres and planes "
+            f"{share('cycles_prims')}, MT {share('cycles_tris')}, BSDF "
+            f"{share('cycles_bsdf')}, the sky and writes "
+            f"{share('cycles_finish')}; the blocks hold their SM slots "
+            f"{c0['cycles_block'] / warps:.0f} cycles a warp (the warps live"
+            f" {life / max(c0['cycles_block'], 1):.3f} of the slot time); an"
+            f" SM holds {held} blocks of the route ({held_count} of the "
+            "counting instance)")
 
 
 def make_textures(directory: Path) -> dict:
@@ -1593,41 +1592,58 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "block 64": ["-DSRT_TRACE_BLOCK=64"],
                "block 256": ["-DSRT_TRACE_BLOCK=256"],
                "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
+# The path variants' constants (none, small) swept on the passes of
+# configs 1, 2, 3 and 3/texture (phase 6): the block, the fewest waiting
+# lanes for which a warp refills, the path indices a warp fetches at once
+PATH_SWEEP = {"path block 128": ["-DSRT_TRACE_PATH_BLOCK=128"],
+              "path block 512": ["-DSRT_TRACE_PATH_BLOCK=512"],
+              "refill 4": ["-DSRT_TRACE_REFILL=4"],
+              "refill 8": ["-DSRT_TRACE_REFILL=8"],
+              "refill 16": ["-DSRT_TRACE_REFILL=16"],
+              "fetch 32": ["-DSRT_TRACE_FETCH=32"],
+              "fetch 128": ["-DSRT_TRACE_FETCH=128"]}
 TRACE_SWEEP_KERNELS = {}
 
 
-def trace_sweep_kernels() -> dict:
-    """The sweep's builds of the whole-trace kernel, by case name."""
+def trace_sweep_kernels(cases: dict) -> dict:
+    """The sweeps' builds of the whole-trace kernel (every case of both
+    sweeps, built at once on first use), those of ``cases`` by name."""
     if not TRACE_SWEEP_KERNELS:
         TRACE_SWEEP_KERNELS.update({
             name: bk.Kernel(tk.SOURCE, tk._bind, flags)
-            for name, flags in TRACE_SWEEP.items()})
+            for name, flags in {**TRACE_SWEEP, **PATH_SWEEP}.items()})
         build_all("the trace sweep's kernel builds",
                   TRACE_SWEEP_KERNELS.values())
-    return TRACE_SWEEP_KERNELS
+    return {name: TRACE_SWEEP_KERNELS[name] for name in cases}
 
 
-def walk_registers(kernel) -> str:
-    """ptxas's registers and spills of a build's clustered variant (the
-    route's instance, not the counting one)."""
+def trace_registers(kernel, variant: str) -> str:
+    """ptxas's registers and spills of a build's variant (the route's
+    instance, not the counting one)."""
+    entry = f"trace_kernelILi{tk.TRI_MODES[variant]}ELb0E"
     out, on = [], False
     for line in kernel.build_log.splitlines():
         if "entry function" in line:
-            on = "trace_kernelILi2ELb0E" in line
+            on = entry in line
         elif on and ("registers" in line or "spill" in line):
             out.append(line.split("ptxas info    : ")[-1].strip())
     return "; ".join(out) or "no ptxas report"
 
 
 def trace_sweep(label: str, prep, ref, iters: int) -> dict:
-    """A clustered cell's pass on each build of ``trace_sweep_kernels`` and
-    on the route's, in turns, twice: ms a pass; every output bit equal to
-    the route's (no constant changes a result)."""
+    """A cell's pass on each build of its variant's sweep (TRACE_SWEEP for
+    the clustered walk, PATH_SWEEP for the path variants) and on the
+    route's, in turns, twice: ms a pass; every output bit equal to the
+    route's (no constant changes a result)."""
+    walk = prep.variant == "clustered"
+    builds = trace_sweep_kernels(TRACE_SWEEP if walk else PATH_SWEEP)
+    route = (f"block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
+             f"{tk.SPLIT_MAX}, hierarchy" if walk else
+             f"block {tk.BLOCK}, refill {tk.REFILL}, fetch {tk.FETCH}")
     ms = collections.defaultdict(list)
     out = torch.empty_like(ref)
     for _ in range(2):
-        for name, kernel in {"route": tk.KERNEL,
-                             **trace_sweep_kernels()}.items():
+        for name, kernel in {"route": tk.KERNEL, **builds}.items():
             with trace_kernel_as(kernel):
                 try:
                     ms[name].append(float(np.median(cuda_ms(
@@ -1638,12 +1654,11 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
             if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
                 fail(f"cell {label}: the sweep's {name} changes a result")
     say(f"[6] cell {label} whole-trace sweep (ms a pass, two turns; the "
-        f"route: block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
-        f"{tk.SPLIT_MAX}, hierarchy): "
+        f"route: {route}): "
         + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
-        + "; results equal; ptxas of each build's clustered variant: "
-        + ", ".join(f"{k}: {walk_registers(kernel)}" for k, kernel in
-                    trace_sweep_kernels().items()))
+        + f"; results equal; ptxas of each build's {prep.variant} variant: "
+        + ", ".join(f"{k}: {trace_registers(kernel, prep.variant)}"
+                    for k, kernel in builds.items()))
     return dict(ms)
 
 
@@ -2415,8 +2430,7 @@ def main(argv=None) -> int:
                 if differ:
                     fail(f"cell {label}: the parent's whole-trace kernel "
                          "and this one differ")
-            if prep.variant == "clustered":
-                res["sweep"] = trace_sweep(label, prep, ref, iters)
+            res["sweep"] = trace_sweep(label, prep, ref, iters)
             if ds.skybox is not None:
                 # the texture's sample on the nine rows, as trace_full
                 # runs it after the kernel

@@ -24,14 +24,25 @@
 //     (config 6's 98,304), walked by the warp over the clusters' hierarchy
 //     (below).
 //
-// Design: one thread per ray, one launch for all rays, the per-ray bounce
-// loop inside it.  The sphere, plane and material tables (a few hundred
-// bytes) and the small triangle table are staged into shared memory once
-// per block; above the default 48 KB the launch opts in to more, up to the
-// device's limit (227 KB on an H100), which the wrapper checks first.  The
-// RNG, the sphere and plane loops and the BSDF sample are path_common.cuh's,
-// which the per-bounce shade kernel (bounce_kernel.cu) shares.  kNoTris and
-// kSmallTris run 256-thread blocks, and a ray that dies leaves its loop.
+// Design: one launch for all rays, each path's bounce loop inside it.  The
+// sphere, plane and material tables (a few hundred bytes) and the small
+// triangle table are staged into shared memory once per block; above the
+// default 48 KB the launch opts in to more, up to the device's limit (227
+// KB on an H100), which the wrapper checks first.  The RNG, the sphere and
+// plane loops and the BSDF sample are path_common.cuh's, which the
+// per-bounce shade kernel (bounce_kernel.cu) shares.
+//
+// kNoTris and kSmallTris: persistent warps with path regeneration
+// (trace_paths; Aila and Laine, "Understanding the Efficiency of Ray
+// Traversal on GPUs", HPG 2009).  One thread a ray, each leaving its loop
+// when its path ended, kept a warp (and its block's SM slots) until its
+// longest path ended: on config 3 after bounce 1 only 6-19% of a
+// warp-step's lanes carried a ray (PERF.md section 6).  Here the grid is
+// the blocks the SMs hold at once; each lane traces one path at a time and,
+// when it ends, writes its rows and takes the next path index at the
+// warp's next refill, the warp fetching kFetch indices at a time from a
+// counter of the launch.  A path's seed comes from its index and its rows
+// go to its index, so no result depends on which lane takes it.
 //
 // The clustered traversal: a warp walk.  One thread a ray walking alone
 // left each warp running the union of its lanes' clusters, one dependent
@@ -173,7 +184,8 @@ enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
 // the lanes that run it together.
 enum Count {
   kCountLive = 0,    // live rays that entered the bounce
-  kCountWarps,       // warps with a live lane
+  kCountWarps,       // warps with a live lane (the path variants:
+                     // warp-steps with a lane at the bounce)
   kCountBoxTests,    // boxes slab-tested by live lanes (every level)
   kCountAdmitted,    // (ray, cluster) pairs that ran MT
   kCountUnion,       // (warp, cluster) visits that ran MT
@@ -188,10 +200,15 @@ enum Count {
   kCountCyclesBounce,  // SM cycles the warps spent in the bounce (walk)
   kCountCyclesPrims,   // SM cycles in the sphere and plane tests
   kCountCyclesTris,    // SM cycles in kSmallTris's MT loop
-  kCountCyclesBsdf,    // SM cycles in the BSDF sample
+  kCountCyclesBsdf,    // SM cycles in the BSDF sample (these three: in
+                       // bounce 0's row over the launch for the path
+                       // variants, whose warp-steps mix bounces)
   kCountCyclesGen,     // bounce 0's row only: SM cycles in ray generation
   kCountCyclesFinish,  // bounce 0's row only: SM cycles in the sky and
-                       // the writes after the loop
+                       // the writes after a path
+  kCountSteps,       // bounce 0's row only: warp-steps of the path loop
+  kCountStepLanes,   // bounce 0's row only: their lanes with a path
+  kCountFetches,     // bounce 0's row only: fetches of path indices
   kCountCyclesWarp,  // bounce 0's row only: SM cycles from each warp's
                      // start to its end, summed over the warps
   kCountCyclesBlock,   // bounce 0's row only: each block's warps times
@@ -204,7 +221,26 @@ constexpr int kCountBounces = 16;
 
 namespace {
 
-constexpr int kBlock = 256;   // kNoTris and kSmallTris
+// The path variants' constants (kNoTris, kSmallTris), chosen by
+// chip_smoke.py's sweep on the card (PERF.md section 6; a -D flag of the
+// same name sets each): the block, the fewest waiting lanes for which a
+// warp refills (1: as soon as one waits), and the path indices a warp
+// takes from the launch's counter at a time.
+#ifndef SRT_TRACE_PATH_BLOCK
+#define SRT_TRACE_PATH_BLOCK 256
+#endif
+#ifndef SRT_TRACE_REFILL
+#define SRT_TRACE_REFILL 1
+#endif
+#ifndef SRT_TRACE_FETCH
+#define SRT_TRACE_FETCH 64
+#endif
+constexpr int kBlock = SRT_TRACE_PATH_BLOCK;
+constexpr int kRefill = SRT_TRACE_REFILL;
+constexpr unsigned kFetch = SRT_TRACE_FETCH;
+static_assert(kBlock % 32 == 0 && kBlock <= 1024, "bad path block");
+static_assert(kRefill >= 1 && kRefill <= 32 && kFetch >= 32,
+              "a refill must fit one fetch");
 constexpr unsigned kAll = 0xffffffffu;
 // a triangle row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5),
 // e2 (6-8), n0 n1 n2 (9-17), material (18), active (19)
@@ -754,23 +790,18 @@ __device__ __forceinline__ void bounce_cycles(unsigned long long* cnt,
   }
 }
 
-// One ray's whole path, its rows written: ray g of the launch (a lane
-// past the rays walks as a dead lane of its warp and writes nothing).
-// kClusteredTris: called by the whole warp, whose ring it uses.  The
-// counting instance of kNoTris and kSmallTris returns the bounces the ray
-// was live in (bit b: bounce b).
-template <int TRI, bool COUNT>
-__device__ __forceinline__ unsigned trace_ray(
-    const TraceArgs& a, const TraceParams& p, int g, const float* s_sph,
-    const float* s_pln, const float* s_mat, const float* s_tri,
-    float4* __restrict__ s_ring, uint64_t* __restrict__ s_bar, Ring& ring,
-    unsigned long long* __restrict__ counters) {
-  constexpr bool kWalk = TRI == kClusteredTris;
-  const bool in_range = g < p.n_rays;
-  bool alive = in_range;
-  unsigned seen = 0;
-  // ---- ray generation (ops/camera.py: generate_rays) ----
-  const long long t_gen = span_start<COUNT>();
+// ---- one path: its ray, a bounce's shading, its rows -------------------
+
+// a path's state between bounces (ops/trace.py: trace_rays_rows)
+struct Path {
+  V3 o, d;
+  V3 color, mask, sky_mask, sky_dir;
+  uint32_t seed;
+};
+
+// Ray g of the launch (ops/camera.py: generate_rays) and its path before
+// the first bounce
+__device__ __forceinline__ Path path_start(const TraceParams& p, int g) {
   const int s = g % p.num_samples;
   const int pix = g / p.num_samples;
   int px, py;
@@ -785,165 +816,271 @@ __device__ __forceinline__ unsigned trace_ray(
   }
   const uint32_t pixel_id = (uint32_t)(py * p.width + px)
                             + (uint32_t)p.row0 * (uint32_t)p.width;
-  uint32_t seed = ((uint32_t)s + pixel_id * (uint32_t)p.num_samples)
-                  * p.time * 5304u;
-  const float u1 = next_uniform(seed);
-  const float u2 = next_uniform(seed);
+  Path q;
+  q.seed = ((uint32_t)s + pixel_id * (uint32_t)p.num_samples) * p.time
+           * 5304u;
+  const float u1 = next_uniform(q.seed);
+  const float u2 = next_uniform(q.seed);
   const float ndc_x = ((float)px + u1) / (float)p.width;
   const float ndc_y = ((float)(py + p.row0) + u2) / p.height;
   const float sx = (2.0f * ndc_x - 1.0f) * p.aspect_ratio * p.fov_scale;
   const float sy = (1.0f - 2.0f * ndc_y) * p.fov_scale;
-  V3 d = normalize(mk(p.rot[0] * sx + p.rot[1] * sy + p.rot[2] * -1.0f,
-                      p.rot[3] * sx + p.rot[4] * sy + p.rot[5] * -1.0f,
-                      p.rot[6] * sx + p.rot[7] * sy + p.rot[8] * -1.0f));
-  V3 o = load3(p.cam_pos);
-  span_end<COUNT>(counters, kCountCyclesGen, t_gen);
+  q.d = normalize(mk(p.rot[0] * sx + p.rot[1] * sy + p.rot[2] * -1.0f,
+                     p.rot[3] * sx + p.rot[4] * sy + p.rot[5] * -1.0f,
+                     p.rot[6] * sx + p.rot[7] * sy + p.rot[8] * -1.0f));
+  q.o = load3(p.cam_pos);
+  q.color = mk(0.0f, 0.0f, 0.0f);
+  q.mask = mk(1.0f, 1.0f, 1.0f);
+  q.sky_mask = mk(0.0f, 0.0f, 0.0f);
+  q.sky_dir = mk(0.0f, 0.0f, 1.0f);
+  return q;
+}
 
-  // ---- the bounce loop (ops/trace.py: trace_rays) ----
-  V3 color = mk(0.0f, 0.0f, 0.0f);
-  V3 mask = mk(1.0f, 1.0f, 1.0f);
-  V3 sky_mask = mk(0.0f, 0.0f, 0.0f);
-  V3 sky_dir = mk(0.0f, 0.0f, 1.0f);
-  constexpr bool kWalkCount = kWalk && COUNT;
+// One bounce's shading (ops/trace.py: trace_rays_rows) from the nearest
+// sphere (t_s, i_s), plane (t_p, i_p) and triangle (t_t and th; t_t =
+// +inf when no triangle beats the sphere and plane) of the path's ray,
+// the triangle rows at `tri`: a miss keeps the throughput and direction
+// for the sky after the path; a hit adds its emission and, before the last
+// bounce, samples the BSDF for the next ray.  False when the path ends.
+template <int TRI, bool COUNT>
+__device__ __forceinline__ bool path_bounce(
+    Path& q, int bounce, const TraceParams& p, float t_s, int i_s, float t_p,
+    int i_p, float t_t, const TriHit& th, const float* s_sph,
+    const float* s_pln, const float* s_mat, const float* tri,
+    unsigned long long* cnt) {
+  const float t = min_nan(min_nan(t_s, t_p), t_t);  // never NaN
+  if (t == INFINITY) {
+    q.sky_mask = q.mask;
+    q.sky_dir = q.d;
+    return false;
+  }
+  // closest_hit: ties go to the sphere, then the plane
+  const V3 pos = add(q.o, scale(q.d, t));
+  V3 normal;
+  int m;
+  if (t_s == t) {
+    const float* r = s_sph + 8 * i_s;
+    normal = sphere_normal(r, pos);
+    m = (int)r[4];
+  } else if (TRI == kNoTris || t_p == t) {
+    const float* r = s_pln + 8 * i_p;
+    normal = mk(r[3], r[4], r[5]);
+    m = (int)r[6];
+  } else {
+    // the smooth normal from MT's own (u, v) (ops/intersect.py:
+    // triangle_normal), then normalized
+    const float* r = tri + (size_t)kTriCols * th.row;
+    const float w0 = 1.0f - th.u - th.v;
+    normal = normalize(add(add(scale(load3(r + 9), w0),
+                               scale(load3(r + 12), th.u)),
+                           scale(load3(r + 15), th.v)));
+    m = (int)r[18];
+  }
+  const bool front = dot(normal, q.d) < 0.0f;
+  normal = scale(normal, front ? 1.0f : -1.0f);
+
+  const float* mt = s_mat + 16 * m;
+  q.color = add(q.color, scale(mul(q.mask, load3(mt + 9)), mt[3]));
+  if (bounce == p.num_bounces - 1) return false;  // emission only
+
+  // ---- the BSDF sample (path_common.cuh: sample_bsdf) ----
+  const long long t_bsdf = span_start<COUNT>();
+  const Scatter sc = sample_bsdf(normal, front, q.d, mt, q.seed);
+  q.o = scatter_origin(pos, normal, sc.dir);
+  q.d = sc.dir;
+  q.mask = mul(q.mask, sc.mask_mul);
+  span_end<COUNT>(cnt, kCountCyclesBsdf, t_bsdf);
+  return true;
+}
+
+// Path g's rows: its radiance with the gradient sky, or for a texture
+// skybox the nine the wrapper samples it from (color, sky_mask, sky_dir)
+__device__ __forceinline__ void path_finish(const TraceArgs& a,
+                                            const TraceParams& p, int g,
+                                            Path& q) {
+  const size_t n = (size_t)p.n_rays;
+  if (p.sky_rows) {
+    const float rows[9] = {q.color.x, q.color.y, q.color.z, q.sky_mask.x,
+                           q.sky_mask.y, q.sky_mask.z, q.sky_dir.x,
+                           q.sky_dir.y, q.sky_dir.z};
+    for (int k = 0; k < 9; ++k) a.out[k * n + g] = rows[k];
+    return;
+  }
+  const V3 c = add(q.color, mul(q.sky_mask, sky_gradient(q.sky_dir, p)));
+  a.out[g] = c.x;
+  a.out[n + g] = c.y;
+  a.out[2 * n + g] = c.z;
+}
+
+// ---- kClusteredTris: a warp's paths through the walk --------------------
+
+// One ray's whole path through the warp walk, its rows written: ray g of
+// the launch (a lane past the rays walks as a dead lane of its warp and
+// writes nothing).  Called by the whole warp, whose ring it uses.
+template <bool COUNT>
+__device__ __forceinline__ void trace_walk(
+    const TraceArgs& a, const TraceParams& p, int g, const float* s_sph,
+    const float* s_pln, const float* s_mat, float4* __restrict__ s_ring,
+    uint64_t* __restrict__ s_bar, Ring& ring,
+    unsigned long long* __restrict__ counters) {
+  const bool in_range = g < p.n_rays;
+  bool alive = in_range;
+  const long long t_gen = span_start<COUNT>();
+  Path q = path_start(p, g);
+  span_end<COUNT>(counters, kCountCyclesGen, t_gen);
   for (int bounce = 0; bounce < p.num_bounces; ++bounce) {
     unsigned long long* cnt =
         COUNT ? counters + (size_t)bounce * kCounters : nullptr;
+    // the warp goes on while any of its lanes is alive
+    const unsigned lanes = __ballot_sync(kAll, alive);
+    if (!lanes) break;
     long long t_bounce = 0;
-    if constexpr (kWalk) {
-      // the warp goes on while any of its lanes is alive
-      const unsigned lanes = __ballot_sync(kAll, alive);
-      if (!lanes) break;
-      if constexpr (COUNT) {
-        count<COUNT>(cnt, kCountLive, __popc(lanes));
-        count<COUNT>(cnt, kCountWarps, 1);
-        t_bounce = clock64();
-      }
-    } else if constexpr (COUNT) {
-      // the lanes still in the loop (the kernel's epilogue counts the
-      // warps from `seen`); a lane past the rays leaves at once
-      const unsigned m = __activemask();
-      const unsigned lanes = __ballot_sync(m, alive);
-      if ((threadIdx.x & 31) == __ffs(m) - 1 && lanes)
-        atomicAdd(cnt + kCountLive, (unsigned long long)__popc(lanes));
-      if (!alive) break;
-      seen |= 1u << bounce;
+    if constexpr (COUNT) {
+      count<COUNT>(cnt, kCountLive, __popc(lanes));
+      count<COUNT>(cnt, kCountWarps, 1);
+      t_bounce = clock64();
     }
     // the nearest sphere and plane (path_common.cuh)
     float t_s = INFINITY, t_p = INFINITY;
     int i_s = 0, i_p = 0;
     const long long t_prims = span_start<COUNT>();
     if (alive) {
-      nearest_sphere(s_sph, p.n_spheres, o, d, t_s, i_s);
-      nearest_plane(s_pln, p.n_planes, o, d, t_p, i_p);
+      nearest_sphere(s_sph, p.n_spheres, q.o, q.d, t_s, i_s);
+      nearest_plane(s_pln, p.n_planes, q.o, q.d, t_p, i_p);
     }
     span_end<COUNT>(cnt, kCountCyclesPrims, t_prims);
-    // nearest triangle (+inf when none beats the sphere/plane seed)
-    TriHit th;
-    th.t = INFINITY;
-    th.row = -1;
-    th.u = th.v = 0.0f;
+    // the nearest triangle (+inf when none beats the sphere/plane seed)
+    TriHit th = {INFINITY, -1, 0.0f, 0.0f};
     float t_t = INFINITY;
+    Best best = {min_nan(t_s, t_p), -1, -1};
+    const long long t_walk = COUNT ? clock64() : 0;
+    walk<COUNT>(a, p, alive, walk_ray(q.o, q.d, p.cluster_extent), best,
+                s_ring, s_bar, ring, cnt);
+    if constexpr (COUNT) {
+      __syncwarp();
+      count<COUNT>(cnt, kCountCyclesWalk, clock64() - t_walk);
+    }
+    if (best.idx >= 0) {
+      // the winner's (u, v): MT again on its row, the same operations on
+      // the same values, so the same bits as the walk's test
+      mt_update<true>(a.tri + (size_t)kTriCols * best.slot, best.slot, q.o,
+                      q.d, th);
+      th.row = best.slot;
+      t_t = best.t;
+    }
+    if (alive)
+      alive = path_bounce<kClusteredTris, COUNT>(
+          q, bounce, p, t_s, i_s, t_p, i_p, t_t, th, s_sph, s_pln, s_mat,
+          a.tri, cnt);
+    bounce_cycles<COUNT>(cnt, t_bounce);
+  }
+  if (in_range) {
+    const long long t_finish = span_start<COUNT>();
+    path_finish(a, p, g, q);
+    span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
+  }
+}
+
+// ---- kNoTris and kSmallTris: persistent warps that refill their lanes ---
+
+// The next path index to hand out, and the blocks of the launch done; the
+// launch's last block zeroes both for the next launch (launches of this
+// build run one at a time on a device: PyTorch's current stream)
+__device__ unsigned int g_next_path = 0;
+__device__ unsigned int g_blocks_done = 0;
+
+// The warp's paths, each lane one at a time, until the launch has none
+// left: a lane whose path ends writes its rows and takes a new index at
+// the next refill, when at least kRefill lanes (or every lane) want one;
+// the warp takes kFetch indices at a time from g_next_path (one atomic)
+// and hands them to its waiting lanes in lane order.  Ray g's path makes
+// the same float operations as in any other order, its seed from g, its
+// rows written at g: no result depends on which lane or warp takes it.
+// Called by the whole warp.
+template <int TRI, bool COUNT>
+__device__ __forceinline__ void trace_paths(
+    const TraceArgs& a, const TraceParams& p, const float* s_sph,
+    const float* s_pln, const float* s_mat, const float* s_tri,
+    unsigned long long* __restrict__ counters) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned n = (unsigned)p.n_rays;
+  Path q;
+  int g = -1;          // the lane's path, -1 for none
+  int bounce = 0;      // its bounce
+  // the warp's indices fetched and not yet handed out, [pool, pool_end),
+  // and whether every index of the launch is handed out (warp-uniform)
+  unsigned pool = 0, pool_end = 0;
+  bool drained = false;
+  for (;;) {
+    const unsigned idle = __ballot_sync(kAll, g < 0);
+    if (!drained && (idle == kAll || __popc(idle) >= kRefill)) {
+      const unsigned k = __popc(idle);
+      const unsigned avail = pool_end - pool;
+      unsigned base = 0;
+      if (avail < k) {
+        if (lane == 0) base = atomicAdd(&g_next_path, (unsigned)kFetch);
+        base = __shfl_sync(kAll, base, 0);
+        count<COUNT>(counters, kCountFetches, 1);
+      }
+      if (g < 0) {
+        const unsigned r = __popc(idle & ((1u << lane) - 1u));
+        const unsigned i = r < avail ? pool + r : base + (r - avail);
+        if (i < n) {
+          const long long t_gen = span_start<COUNT>();
+          g = (int)i;
+          bounce = 0;
+          q = path_start(p, g);
+          span_end<COUNT>(counters, kCountCyclesGen, t_gen);
+        }
+      }
+      if (avail < k) {
+        pool = base + (k - avail);
+        pool_end = base + kFetch;
+      } else {
+        pool += k;
+      }
+      drained = pool >= n;
+    }
+    const unsigned live = __ballot_sync(kAll, g >= 0);
+    if (!live) break;   // drained, and every path of the warp done
+    count<COUNT>(counters, kCountSteps, 1);
+    count<COUNT>(counters, kCountStepLanes, __popc(live));
+    if (g < 0) continue;
+    if constexpr (COUNT) {
+      // the live rays and the warp-steps of each bounce
+      const unsigned same = __match_any_sync(live, bounce);
+      if (lane == __ffs(same) - 1) {
+        unsigned long long* row = counters + (size_t)bounce * kCounters;
+        atomicAdd(row + kCountLive, (unsigned long long)__popc(same));
+        atomicAdd(row + kCountWarps, 1ull);
+      }
+    }
+    // the nearest sphere and plane (path_common.cuh)
+    float t_s, t_p;
+    int i_s, i_p;
+    const long long t_prims = span_start<COUNT>();
+    nearest_sphere(s_sph, p.n_spheres, q.o, q.d, t_s, i_s);
+    nearest_plane(s_pln, p.n_planes, q.o, q.d, t_p, i_p);
+    span_end<COUNT>(counters, kCountCyclesPrims, t_prims);
+    // kSmallTris: the nearest triangle, MT over every row (+inf when none
+    // beats the sphere/plane seed)
+    TriHit th = {INFINITY, -1, 0.0f, 0.0f};
     if (TRI == kSmallTris) {
       const long long t_tris = span_start<COUNT>();
       for (int j = 0; j < p.n_tris; ++j)
-        mt_update<false>(s_tri + kTriCols * j, j, o, d, th);
-      span_end<COUNT>(cnt, kCountCyclesTris, t_tris);
-      t_t = th.t;
+        mt_update<false>(s_tri + kTriCols * j, j, q.o, q.d, th);
+      span_end<COUNT>(counters, kCountCyclesTris, t_tris);
     }
-    if constexpr (kWalk) {
-      Best best = {min_nan(t_s, t_p), -1, -1};
-      const long long t_walk = COUNT ? clock64() : 0;
-      walk<COUNT>(a, p, alive, walk_ray(o, d, p.cluster_extent), best,
-                  s_ring, s_bar, ring, cnt);
-      if constexpr (COUNT) {
-        __syncwarp();
-        count<COUNT>(cnt, kCountCyclesWalk, clock64() - t_walk);
-      }
-      if (best.idx >= 0) {
-        // the winner's (u, v): MT again on its row, the same operations
-        // on the same values, so the same bits as the walk's test
-        mt_update<true>(a.tri + (size_t)kTriCols * best.slot, best.slot, o,
-                        d, th);
-        th.row = best.slot;
-        t_t = best.t;
-      }
-      if (!alive) {
-        bounce_cycles<kWalkCount>(cnt, t_bounce);
-        continue;
-      }
-    }
-    const float t = min_nan(min_nan(t_s, t_p), t_t);  // never NaN
-    if (t == INFINITY) {
-      // a miss: the sky is evaluated once after the loop, and the ray dies
-      sky_mask = mask;
-      sky_dir = d;
-      if constexpr (kWalk) {
-        alive = false;
-        bounce_cycles<kWalkCount>(cnt, t_bounce);
-        continue;
-      }
-      break;
-    }
-    // closest_hit: ties go to the sphere, then the plane
-    const V3 pos = add(o, scale(d, t));
-    V3 normal;
-    int m;
-    if (t_s == t) {
-      const float* q = s_sph + 8 * i_s;
-      normal = sphere_normal(q, pos);
-      m = (int)q[4];
-    } else if (TRI == kNoTris || t_p == t) {
-      const float* q = s_pln + 8 * i_p;
-      normal = mk(q[3], q[4], q[5]);
-      m = (int)q[6];
+    if (path_bounce<TRI, COUNT>(q, bounce, p, t_s, i_s, t_p, i_p, th.t, th,
+                                s_sph, s_pln, s_mat, s_tri, counters)) {
+      ++bounce;
     } else {
-      // the smooth normal from MT's own (u, v) (ops/intersect.py:
-      // triangle_normal), then normalized
-      const float* q = (TRI == kSmallTris ? s_tri : a.tri)
-                       + (size_t)kTriCols * th.row;
-      const float w0 = 1.0f - th.u - th.v;
-      normal = normalize(add(add(scale(load3(q + 9), w0),
-                                 scale(load3(q + 12), th.u)),
-                             scale(load3(q + 15), th.v)));
-      m = (int)q[18];
+      const long long t_finish = span_start<COUNT>();
+      path_finish(a, p, g, q);
+      span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
+      g = -1;
     }
-    const bool front = dot(normal, d) < 0.0f;
-    normal = scale(normal, front ? 1.0f : -1.0f);
-
-    const float* mt = s_mat + 16 * m;
-    color = add(color, scale(mul(mask, load3(mt + 9)), mt[3]));
-    if (bounce == p.num_bounces - 1) {  // emission only, no new ray
-      bounce_cycles<kWalkCount>(cnt, t_bounce);
-      break;
-    }
-
-    // ---- the BSDF sample (path_common.cuh: sample_bsdf) ----
-    const long long t_bsdf = span_start<COUNT>();
-    const Scatter sc = sample_bsdf(normal, front, d, mt, seed);
-    o = scatter_origin(pos, normal, sc.dir);
-    d = sc.dir;
-    mask = mul(mask, sc.mask_mul);
-    span_end<COUNT>(cnt, kCountCyclesBsdf, t_bsdf);
-    bounce_cycles<kWalkCount>(cnt, t_bounce);
   }
-
-  if (!in_range) return seen;
-  const long long t_finish = span_start<COUNT>();
-  const size_t n = (size_t)p.n_rays;
-  if (p.sky_rows) {
-    // color, sky_mask, sky_dir: the sky is the wrapper's
-    const float rows[9] = {color.x, color.y, color.z, sky_mask.x,
-                           sky_mask.y, sky_mask.z, sky_dir.x, sky_dir.y,
-                           sky_dir.z};
-    for (int k = 0; k < 9; ++k) a.out[k * n + g] = rows[k];
-  } else {
-    color = add(color, mul(sky_mask, sky_gradient(sky_dir, p)));
-    a.out[g] = color.x;
-    a.out[n + g] = color.y;
-    a.out[2 * n + g] = color.z;
-  }
-  span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
-  return seen;
 }
 
 template <int TRI, bool COUNT = false>
@@ -987,27 +1124,27 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  Ring ring;
   const long long t_start = COUNT ? clock64() : 0;
-  // kClusteredTris (and every counting instance) keeps every lane of the
-  // block to the end: the walk is the warp's
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!kWalk && !COUNT && g >= p.n_rays) return;
-  const unsigned seen = trace_ray<TRI, COUNT>(
-      a, p, g, s_sph, s_pln, s_mat, s_tri,
-      s_ring + (size_t)warp * kStages * kChunk * kRowF4,
-      s_bars + warp * kStages, ring, COUNT ? s_cnt : nullptr);
+  // every lane of the block stays to the end: the walk and the refills
+  // are the warp's
+  if constexpr (kWalk) {
+    const int warp = threadIdx.x >> 5;
+    Ring ring;
+    trace_walk<COUNT>(a, p, blockIdx.x * blockDim.x + threadIdx.x, s_sph,
+                      s_pln, s_mat,
+                      s_ring + (size_t)warp * kStages * kChunk * kRowF4,
+                      s_bars + warp * kStages, ring,
+                      COUNT ? s_cnt : nullptr);
+  } else {
+    trace_paths<TRI, COUNT>(a, p, s_sph, s_pln, s_mat, s_tri,
+                            COUNT ? s_cnt : nullptr);
+  }
   if constexpr (COUNT) {
-    // the warps with a live lane, per bounce (kNoTris, kSmallTris); the
-    // warp's life, and the block's: its warps hold their SM slots until
-    // its longest warp ends
+    // the warp's life, and the block's: its warps hold their SM slots
+    // until its longest warp ends
     __syncwarp();
     const unsigned long long life = clock64() - t_start;
-    const unsigned bounces = __reduce_or_sync(kAll, seen);
     if ((threadIdx.x & 31) == 0) {
-      for (unsigned b = bounces; b; b &= b - 1)
-        atomicAdd(s_cnt + (__ffs(b) - 1) * kCounters + kCountWarps, 1ull);
       atomicAdd(s_cnt + kCountCyclesWarp, life);
       atomicMax(&s_longest, life);
     }
@@ -1017,6 +1154,18 @@ trace_kernel(const TraceArgs a, const TraceParams p,
     __syncthreads();
     for (int k = threadIdx.x; k < p.num_bounces * kCounters; k += blockDim.x)
       if (s_cnt[k]) atomicAdd(counters + k, s_cnt[k]);
+  }
+  if constexpr (!kWalk) {
+    // every warp of the block is done taking paths; the launch's last
+    // block zeroes the counter for the next launch
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(&g_blocks_done, 1u) == gridDim.x - 1) {
+        atomicExch(&g_next_path, 0u);
+        atomicExch(&g_blocks_done, 0u);
+      }
+    }
   }
 }
 
@@ -1030,25 +1179,6 @@ size_t shared_bytes(const TraceParams& p) {
          + (p.tri_mode == kClusteredTris ? kWalkBytes : 0);
 }
 
-// launch one variant, opting in to more than the default dynamic shared
-// memory when its tables need it
-template <int TRI, bool COUNT = false>
-cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
-                           const TraceParams& p,
-                           unsigned long long* counters = nullptr) {
-  constexpr int block = SRT_TRACE_BLOCK_OF(TRI);
-  const int blocks = (p.n_rays + block - 1) / block;
-  const size_t bytes = shared_bytes(p);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        trace_kernel<TRI, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return e;
-  }
-  trace_kernel<TRI, COUNT><<<blocks, block, bytes, st>>>(a, p, counters);
-  return cudaGetLastError();
-}
-
 // the blocks of one instance an SM holds at once
 template <int TRI, bool COUNT>
 cudaError_t occupancy(int shared, int* blocks) {
@@ -1060,6 +1190,56 @@ cudaError_t occupancy(int shared, int* blocks) {
   }
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, trace_kernel<TRI, COUNT>, SRT_TRACE_BLOCK_OF(TRI), shared);
+}
+
+// the blocks of an instance that the device's SMs hold at once with
+// `shared` bytes of dynamic shared memory (cached for the last device and
+// size)
+template <int TRI, bool COUNT>
+cudaError_t resident_blocks(int shared, int* blocks) {
+  static int cached_dev = -1, cached_shared = -1, cached = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev != cached_dev || shared != cached_shared) {
+    int per_sm = 0, sms = 0;
+    e = occupancy<TRI, COUNT>(shared, &per_sm);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cached = per_sm * sms;
+    cached_dev = dev;
+    cached_shared = shared;
+  }
+  *blocks = cached;
+  return cudaSuccess;
+}
+
+// launch one variant, opting in to more than the default dynamic shared
+// memory when its tables need it
+template <int TRI, bool COUNT = false>
+cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
+                           const TraceParams& p,
+                           unsigned long long* counters = nullptr) {
+  constexpr int block = SRT_TRACE_BLOCK_OF(TRI);
+  int blocks = (p.n_rays + block - 1) / block;
+  const size_t bytes = shared_bytes(p);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        trace_kernel<TRI, COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return e;
+  }
+  if constexpr (TRI != kClusteredTris) {
+    // the path variants' persistent grid: the blocks the SMs hold at once,
+    // at most one a block of paths
+    int resident = 0;
+    const cudaError_t e = resident_blocks<TRI, COUNT>((int)bytes, &resident);
+    if (e != cudaSuccess) return e;
+    blocks = min(blocks, max(resident, 1));
+  }
+  trace_kernel<TRI, COUNT><<<blocks, block, bytes, st>>>(a, p, counters);
+  return cudaGetLastError();
 }
 
 // a kClusteredTris launch's tables and parameters, as the walk reads them

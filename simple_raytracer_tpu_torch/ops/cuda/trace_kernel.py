@@ -18,7 +18,11 @@ scene's hierarchy (``ops/bvh.build_hierarchy``), feeding Moller-Trumbore
 from the staged MT table (``ops/bvh.staged_slots``, built on the first
 launch, once per scene) through a ring of bulk copies in shared memory;
 the least (t, global triangle index) wins, so the visiting order changes
-no result, and the winner's (u, v) are recomputed on its row.  Its plain
+no result, and the winner's (u, v) are recomputed on its row.  The other
+variants run persistent warps: each lane traces one path at a time and,
+when it ends, takes the next path index from a counter of the launch, so
+no lane idles while its warp's longest path runs; each path keeps its
+seed and its rows, so no result depends on which lane takes it.  Its plain
 PyTorch version, ``trace_full_plain``, is ``generate_rays`` followed by
 ``trace_rays_rows`` in its whole-trace form (every triangle tested
 densely, the lowest index winning an exact tie, triangles shaded at MT's
@@ -48,7 +52,13 @@ from ..vec import Vec3
 from .build import PACKAGE_DIR, Kernel, interface
 
 SOURCE = PACKAGE_DIR / "csrc" / "trace_kernel.cu"
-BLOCK = 256          # the "none" and "small" variants' block
+# The "none" and "small" variants' persistent warps (the CUDA source's
+# defaults, which chip_smoke.py's sweep sets on extra builds): the block,
+# the fewest waiting lanes for which a warp refills, and the path indices
+# a warp takes from the launch's counter at a time
+BLOCK = 256
+REFILL = 1
+FETCH = 64
 # The clustered variant's warp walk (the CUDA source's defaults, which
 # chip_smoke.py's sweep sets on extra builds): its block, the slots of a
 # chunk, the warp's ring of chunk buffers, the most admitting lanes for
@@ -125,7 +135,7 @@ COUNTERS = ("live", "warps", "box_tests", "admitted", "union", "mt_steps",
             "lane_steps", "chunks", "split", "wasted", "cycles_walk",
             "cycles_wait", "cycles_mt", "cycles_bounce", "cycles_prims",
             "cycles_tris", "cycles_bsdf", "cycles_gen", "cycles_finish",
-            "cycles_warp", "cycles_block")
+            "steps", "step_lanes", "fetches", "cycles_warp", "cycles_block")
 # the most bounces a counting launch counts (kCountBounces)
 COUNT_BOUNCES = 16
 
@@ -142,9 +152,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srt_shared_optin.argtypes = [ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)]
     lib.srt_shared_optin.restype = ctypes.c_int
-    lib.srt_trace_occupancy.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.POINTER(ctypes.c_int)]
-    lib.srt_trace_occupancy.restype = ctypes.c_int
 
 
 KERNEL = Kernel(SOURCE, _bind)
@@ -368,8 +375,10 @@ def launch_counted(prep: Prepared):
 def occupancy(prep: Prepared, counting: bool = False) -> int:
     """Blocks of the pass's variant (its route, or its counting instance)
     that one SM holds at once."""
+    fn = KERNEL.library().srt_trace_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
-    KERNEL.check(KERNEL.library().srt_trace_occupancy(
-        prep.params.tri_mode, int(counting), prep.shared_bytes,
-        ctypes.byref(out)), "occupancy query")
+    KERNEL.check(fn(prep.params.tri_mode, int(counting), prep.shared_bytes,
+                    ctypes.byref(out)), "occupancy query")
     return out.value
