@@ -1154,31 +1154,37 @@ def trace_walk_report(label: str, counts, work) -> str:
 
 
 def trace_path_report(label: str, counts, segments, prep) -> str:
-    """A ``none`` or ``small`` cell's counts (the counting instance of its
-    persistent warps) beside the plain version's live rays: per bounce the
-    live rays and the warp-steps that carried a lane at that bounce; over
-    the launch the warp-steps, the share of their lanes that carried a
-    path, the fetches of path indices, and a warp's SM cycles (its share
-    in ray generation, the sphere and plane tests, MT, the BSDF sample and
-    the sky and writes) against its block's slot time; the blocks an SM
-    holds."""
-    parts = [f"b{b} live {cnt['live']} (plain {seg[0]}) in {cnt['warps']} "
-             "warp-steps" for b, (cnt, seg) in enumerate(zip(counts,
-                                                             segments))]
+    """A ``none`` or ``small`` cell's counts (the counting instance)
+    beside the plain version's live rays: per bounce the live rays and the
+    warp-steps that carried them (persistent warps; one thread a ray: the
+    warps with a live lane, and the share of their lanes live); over the
+    launch the warp-steps, the share of their lanes that carried a path,
+    the fetches of path indices, and a warp's SM cycles (its share in ray
+    generation, the sphere and plane tests, MT, the BSDF sample and the sky
+    and writes) against its block's slot time; the blocks an SM holds."""
     c0 = counts[0]
+    persistent = c0["steps"] > 0
+    parts = [f"b{b} live {cnt['live']} (plain {seg[0]}) in {cnt['warps']} "
+             + ("warp-steps" if persistent else
+                f"warps ({cnt['live'] / (32 * max(cnt['warps'], 1)):.3f} "
+                "of their lanes live)")
+             for b, (cnt, seg) in enumerate(zip(counts, segments))]
     sms = torch.cuda.get_device_properties(prep.device).multi_processor_count
     held, held_count = tk.occupancy(prep), tk.occupancy(prep, counting=True)
-    warps = min(-(-prep.n_rays // tk.BLOCK), held_count * sms) * (
-        tk.BLOCK // 32)
+    blocks = -(-prep.n_rays // tk.BLOCK)
+    if persistent:
+        blocks = min(blocks, held_count * sms)
+    warps = blocks * (tk.BLOCK // 32)
+    steps = c0["steps"] or sum(c["warps"] for c in counts)
+    lanes = c0["step_lanes"] or sum(c["live"] for c in counts)
     life = max(c0["cycles_warp"], 1)
     share = lambda key: f"{c0[key] / life:.3f}"
-    steps = max(c0["steps"], 1)
-    return (f"cell {label} whole-trace {prep.label} per bounce: "
-            + "; ".join(parts)
-            + f"; over the launch: {c0['steps']} warp-steps carried "
-            f"{c0['step_lanes']} lanes with a path ("
-            f"{c0['step_lanes'] / (32 * steps):.3f} of their lanes) for "
-            f"{sum(c['live'] for c in counts)} live ray-bounces, "
+    return (f"cell {label} whole-trace {prep.label} ("
+            + ("persistent warps" if persistent else "one thread a ray")
+            + ") per bounce: " + "; ".join(parts)
+            + f"; over the launch: {steps} warp-steps carried {lanes} lanes "
+            f"with a path ({lanes / (32 * max(steps, 1)):.3f} of their "
+            f"lanes) for {sum(c['live'] for c in counts)} live ray-bounces, "
             f"{c0['fetches']} fetches of path indices; {warps} warps, each "
             f"living {life / warps:.0f} SM cycles: ray generation "
             f"{share('cycles_gen')}, spheres and planes "
@@ -1594,14 +1600,16 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
 # The path variants' constants (none, small) swept on the passes of
 # configs 1, 2, 3 and 3/texture (phase 6): the block, the fewest waiting
-# lanes for which a warp refills, the path indices a warp fetches at once
+# lanes for which a warp refills, the path indices a warp fetches at once,
+# the blocks an SM must hold (a register cap)
 PATH_SWEEP = {"path block 128": ["-DSRT_TRACE_PATH_BLOCK=128"],
               "path block 512": ["-DSRT_TRACE_PATH_BLOCK=512"],
               "refill 4": ["-DSRT_TRACE_REFILL=4"],
               "refill 8": ["-DSRT_TRACE_REFILL=8"],
-              "refill 16": ["-DSRT_TRACE_REFILL=16"],
-              "fetch 32": ["-DSRT_TRACE_FETCH=32"],
-              "fetch 128": ["-DSRT_TRACE_FETCH=128"]}
+              "fetch 64": ["-DSRT_TRACE_FETCH=64"],
+              "min blocks 5": ["-DSRT_TRACE_PATH_MIN_BLOCKS=5"],
+              "min blocks 6": ["-DSRT_TRACE_PATH_MIN_BLOCKS=6"],
+              "one thread a ray": ["-DSRT_TRACE_PATHS=0"]}
 TRACE_SWEEP_KERNELS = {}
 
 
@@ -1639,7 +1647,8 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
     builds = trace_sweep_kernels(TRACE_SWEEP if walk else PATH_SWEEP)
     route = (f"block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
              f"{tk.SPLIT_MAX}, hierarchy" if walk else
-             f"block {tk.BLOCK}, refill {tk.REFILL}, fetch {tk.FETCH}")
+             f"block {tk.BLOCK}, refill {tk.REFILL}, fetch {tk.FETCH}, "
+             f"min blocks {tk.MIN_BLOCKS}")
     ms = collections.defaultdict(list)
     out = torch.empty_like(ref)
     for _ in range(2):

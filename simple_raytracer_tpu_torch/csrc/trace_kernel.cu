@@ -224,8 +224,9 @@ namespace {
 // The path variants' constants (kNoTris, kSmallTris), chosen by
 // chip_smoke.py's sweep on the card (PERF.md section 6; a -D flag of the
 // same name sets each): the block, the fewest waiting lanes for which a
-// warp refills (1: as soon as one waits), and the path indices a warp
-// takes from the launch's counter at a time.
+// warp refills (1: as soon as one waits), the path indices a warp takes
+// from the launch's counter at a time, and the blocks an SM must hold
+// (__launch_bounds__; 1: no register cap beyond the block's).
 #ifndef SRT_TRACE_PATH_BLOCK
 #define SRT_TRACE_PATH_BLOCK 256
 #endif
@@ -233,9 +234,18 @@ namespace {
 #define SRT_TRACE_REFILL 1
 #endif
 #ifndef SRT_TRACE_FETCH
-#define SRT_TRACE_FETCH 64
+#define SRT_TRACE_FETCH 32
+#endif
+#ifndef SRT_TRACE_PATH_MIN_BLOCKS
+#define SRT_TRACE_PATH_MIN_BLOCKS 1
+#endif
+// which path variants run persistent warps (bit TRI); the others one
+// thread a ray over a grid of every ray
+#ifndef SRT_TRACE_PATHS
+#define SRT_TRACE_PATHS 3
 #endif
 constexpr int kBlock = SRT_TRACE_PATH_BLOCK;
+constexpr int kMinBlocks = SRT_TRACE_PATH_MIN_BLOCKS;
 constexpr int kRefill = SRT_TRACE_REFILL;
 constexpr unsigned kFetch = SRT_TRACE_FETCH;
 static_assert(kBlock % 32 == 0 && kBlock <= 1024, "bad path block");
@@ -284,8 +294,9 @@ constexpr int kRowF4 = 3;
 static_assert(kWalkBlock % 32 == 0 && kWalkBlock <= 1024, "bad block");
 static_assert(kChunk % 32 == 0 && kStages >= 1, "bad ring");
 
-// the block of each variant
+// the block of each variant, and the blocks an SM must hold
 #define SRT_TRACE_BLOCK_OF(TRI) ((TRI) == kClusteredTris ? kWalkBlock : kBlock)
+#define SRT_TRACE_MIN_BLOCKS_OF(TRI) ((TRI) == kClusteredTris ? 1 : kMinBlocks)
 
 // the walk's dynamic shared memory before the tables: each warp's ring of
 // chunk buffers, then its barriers
@@ -792,37 +803,44 @@ __device__ __forceinline__ void bounce_cycles(unsigned long long* cnt,
 
 // ---- one path: its ray, a bounce's shading, its rows -------------------
 
-// a path's state between bounces (ops/trace.py: trace_rays_rows)
+// a path's state between bounces (ops/trace.py: trace_rays_rows); its
+// sky rows are the throughput and direction of its miss, which ends it,
+// so they are not kept apart (path_finish)
 struct Path {
   V3 o, d;
-  V3 color, mask, sky_mask, sky_dir;
+  V3 color, mask;
   uint32_t seed;
 };
+
+// how a bounce left its path
+enum Outcome { kGoesOn = 0, kMissed, kEnded };
 
 // Ray g of the launch (ops/camera.py: generate_rays) and its path before
 // the first bounce
 __device__ __forceinline__ Path path_start(const TraceParams& p, int g) {
-  const int s = g % p.num_samples;
-  const int pix = g / p.num_samples;
-  int px, py;
+  // the index arithmetic in unsigned ints (every operand is >= 0, so the
+  // same values; an unsigned division is the shorter sequence)
+  const uint32_t w = (uint32_t)p.width, ns = (uint32_t)p.num_samples;
+  const uint32_t s = (uint32_t)g % ns;
+  const uint32_t pix = (uint32_t)g / ns;
+  uint32_t px, py;
   if (p.tile_h > 0) {
     // invert tiled_pixel_order's (band/th, W/tw, th, tw) enumeration
-    const int th = p.tile_h, tw = p.tile_w, cc = p.width / tw;
+    const uint32_t th = (uint32_t)p.tile_h, tw = (uint32_t)p.tile_w,
+                   cc = w / tw;
     px = ((pix / (tw * th)) % cc) * tw + pix % tw;
     py = (pix / (tw * th * cc)) * th + (pix / tw) % th;
   } else {
-    px = pix % p.width;
-    py = pix / p.width;
+    px = pix % w;
+    py = pix / w;
   }
-  const uint32_t pixel_id = (uint32_t)(py * p.width + px)
-                            + (uint32_t)p.row0 * (uint32_t)p.width;
+  const uint32_t pixel_id = (py * w + px) + (uint32_t)p.row0 * w;
   Path q;
-  q.seed = ((uint32_t)s + pixel_id * (uint32_t)p.num_samples) * p.time
-           * 5304u;
+  q.seed = (s + pixel_id * ns) * p.time * 5304u;
   const float u1 = next_uniform(q.seed);
   const float u2 = next_uniform(q.seed);
-  const float ndc_x = ((float)px + u1) / (float)p.width;
-  const float ndc_y = ((float)(py + p.row0) + u2) / p.height;
+  const float ndc_x = ((float)(int)px + u1) / (float)p.width;
+  const float ndc_y = ((float)((int)py + p.row0) + u2) / p.height;
   const float sx = (2.0f * ndc_x - 1.0f) * p.aspect_ratio * p.fov_scale;
   const float sy = (1.0f - 2.0f * ndc_y) * p.fov_scale;
   q.d = normalize(mk(p.rot[0] * sx + p.rot[1] * sy + p.rot[2] * -1.0f,
@@ -831,29 +849,23 @@ __device__ __forceinline__ Path path_start(const TraceParams& p, int g) {
   q.o = load3(p.cam_pos);
   q.color = mk(0.0f, 0.0f, 0.0f);
   q.mask = mk(1.0f, 1.0f, 1.0f);
-  q.sky_mask = mk(0.0f, 0.0f, 0.0f);
-  q.sky_dir = mk(0.0f, 0.0f, 1.0f);
   return q;
 }
 
 // One bounce's shading (ops/trace.py: trace_rays_rows) from the nearest
 // sphere (t_s, i_s), plane (t_p, i_p) and triangle (t_t and th; t_t =
 // +inf when no triangle beats the sphere and plane) of the path's ray,
-// the triangle rows at `tri`: a miss keeps the throughput and direction
-// for the sky after the path; a hit adds its emission and, before the last
-// bounce, samples the BSDF for the next ray.  False when the path ends.
+// the triangle rows at `tri`: a miss ends the path (its throughput and
+// direction are the sky's); a hit adds its emission and, before the last
+// bounce, samples the BSDF for the next ray.
 template <int TRI, bool COUNT>
-__device__ __forceinline__ bool path_bounce(
+__device__ __forceinline__ Outcome path_bounce(
     Path& q, int bounce, const TraceParams& p, float t_s, int i_s, float t_p,
     int i_p, float t_t, const TriHit& th, const float* s_sph,
     const float* s_pln, const float* s_mat, const float* tri,
     unsigned long long* cnt) {
   const float t = min_nan(min_nan(t_s, t_p), t_t);  // never NaN
-  if (t == INFINITY) {
-    q.sky_mask = q.mask;
-    q.sky_dir = q.d;
-    return false;
-  }
+  if (t == INFINITY) return kMissed;
   // closest_hit: ties go to the sphere, then the plane
   const V3 pos = add(q.o, scale(q.d, t));
   V3 normal;
@@ -881,7 +893,7 @@ __device__ __forceinline__ bool path_bounce(
 
   const float* mt = s_mat + 16 * m;
   q.color = add(q.color, scale(mul(q.mask, load3(mt + 9)), mt[3]));
-  if (bounce == p.num_bounces - 1) return false;  // emission only
+  if (bounce == p.num_bounces - 1) return kEnded;  // emission only
 
   // ---- the BSDF sample (path_common.cuh: sample_bsdf) ----
   const long long t_bsdf = span_start<COUNT>();
@@ -890,23 +902,28 @@ __device__ __forceinline__ bool path_bounce(
   q.d = sc.dir;
   q.mask = mul(q.mask, sc.mask_mul);
   span_end<COUNT>(cnt, kCountCyclesBsdf, t_bsdf);
-  return true;
+  return kGoesOn;
 }
 
 // Path g's rows: its radiance with the gradient sky, or for a texture
-// skybox the nine the wrapper samples it from (color, sky_mask, sky_dir)
+// skybox the nine the wrapper samples it from (color, sky_mask, sky_dir).
+// A path that missed takes the sky through its last throughput and
+// direction; one that never missed has sky_mask (0, 0, 0) and sky_dir
+// (0, 0, 1), as trace_rays_rows starts them.
 __device__ __forceinline__ void path_finish(const TraceArgs& a,
                                             const TraceParams& p, int g,
-                                            Path& q) {
+                                            const Path& q, bool missed) {
   const size_t n = (size_t)p.n_rays;
+  const V3 sky_mask = missed ? q.mask : mk(0.0f, 0.0f, 0.0f);
+  const V3 sky_dir = missed ? q.d : mk(0.0f, 0.0f, 1.0f);
   if (p.sky_rows) {
-    const float rows[9] = {q.color.x, q.color.y, q.color.z, q.sky_mask.x,
-                           q.sky_mask.y, q.sky_mask.z, q.sky_dir.x,
-                           q.sky_dir.y, q.sky_dir.z};
+    const float rows[9] = {q.color.x,   q.color.y,  q.color.z,
+                           sky_mask.x,  sky_mask.y, sky_mask.z,
+                           sky_dir.x,   sky_dir.y,  sky_dir.z};
     for (int k = 0; k < 9; ++k) a.out[k * n + g] = rows[k];
     return;
   }
-  const V3 c = add(q.color, mul(q.sky_mask, sky_gradient(q.sky_dir, p)));
+  const V3 c = add(q.color, mul(sky_mask, sky_gradient(sky_dir, p)));
   a.out[g] = c.x;
   a.out[n + g] = c.y;
   a.out[2 * n + g] = c.z;
@@ -925,6 +942,7 @@ __device__ __forceinline__ void trace_walk(
     unsigned long long* __restrict__ counters) {
   const bool in_range = g < p.n_rays;
   bool alive = in_range;
+  bool missed = false;
   const long long t_gen = span_start<COUNT>();
   Path q = path_start(p, g);
   span_end<COUNT>(counters, kCountCyclesGen, t_gen);
@@ -968,15 +986,18 @@ __device__ __forceinline__ void trace_walk(
       th.row = best.slot;
       t_t = best.t;
     }
-    if (alive)
-      alive = path_bounce<kClusteredTris, COUNT>(
+    if (alive) {
+      const Outcome out = path_bounce<kClusteredTris, COUNT>(
           q, bounce, p, t_s, i_s, t_p, i_p, t_t, th, s_sph, s_pln, s_mat,
           a.tri, cnt);
+      alive = out == kGoesOn;
+      missed = out == kMissed;
+    }
     bounce_cycles<COUNT>(cnt, t_bounce);
   }
   if (in_range) {
     const long long t_finish = span_start<COUNT>();
-    path_finish(a, p, g, q);
+    path_finish(a, p, g, q, missed);
     span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
   }
 }
@@ -1071,20 +1092,81 @@ __device__ __forceinline__ void trace_paths(
         mt_update<false>(s_tri + kTriCols * j, j, q.o, q.d, th);
       span_end<COUNT>(counters, kCountCyclesTris, t_tris);
     }
-    if (path_bounce<TRI, COUNT>(q, bounce, p, t_s, i_s, t_p, i_p, th.t, th,
-                                s_sph, s_pln, s_mat, s_tri, counters)) {
+    const Outcome out = path_bounce<TRI, COUNT>(
+        q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, s_sph, s_pln, s_mat,
+        s_tri, counters);
+    if (out == kGoesOn) {
       ++bounce;
     } else {
       const long long t_finish = span_start<COUNT>();
-      path_finish(a, p, g, q);
+      path_finish(a, p, g, q, out == kMissed);
       span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
       g = -1;
     }
   }
 }
 
+// ---- kNoTris and kSmallTris without SRT_TRACE_PATHS: one thread a ray ---
+
+// Ray g's whole path, its rows written; a thread past the rays does
+// nothing.  The counting instance returns the bounces the ray was live in
+// (bit b: bounce b).
+template <int TRI, bool COUNT>
+__device__ __forceinline__ unsigned trace_one(
+    const TraceArgs& a, const TraceParams& p, int g, const float* s_sph,
+    const float* s_pln, const float* s_mat, const float* s_tri,
+    unsigned long long* __restrict__ counters) {
+  if (g >= p.n_rays) return 0;
+  unsigned seen = 0;
+  const long long t_gen = span_start<COUNT>();
+  Path q = path_start(p, g);
+  span_end<COUNT>(counters, kCountCyclesGen, t_gen);
+  for (int bounce = 0; bounce < p.num_bounces; ++bounce) {
+    unsigned long long* cnt =
+        COUNT ? counters + (size_t)bounce * kCounters : nullptr;
+    if constexpr (COUNT) {
+      // the lanes still in the loop; the kernel counts the warps from
+      // `seen`
+      const unsigned m = __activemask();
+      if ((threadIdx.x & 31) == __ffs(m) - 1)
+        atomicAdd(cnt + kCountLive, (unsigned long long)__popc(m));
+      seen |= 1u << bounce;
+    }
+    float t_s, t_p;
+    int i_s, i_p;
+    const long long t_prims = span_start<COUNT>();
+    nearest_sphere(s_sph, p.n_spheres, q.o, q.d, t_s, i_s);
+    nearest_plane(s_pln, p.n_planes, q.o, q.d, t_p, i_p);
+    span_end<COUNT>(cnt, kCountCyclesPrims, t_prims);
+    TriHit th = {INFINITY, -1, 0.0f, 0.0f};
+    if (TRI == kSmallTris) {
+      const long long t_tris = span_start<COUNT>();
+      for (int j = 0; j < p.n_tris; ++j)
+        mt_update<false>(s_tri + kTriCols * j, j, q.o, q.d, th);
+      span_end<COUNT>(cnt, kCountCyclesTris, t_tris);
+    }
+    const Outcome out = path_bounce<TRI, COUNT>(
+        q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, s_sph, s_pln, s_mat,
+        s_tri, cnt);
+    if (out != kGoesOn) {
+      const long long t_finish = span_start<COUNT>();
+      path_finish(a, p, g, q, out == kMissed);
+      span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
+      break;
+    }
+  }
+  return seen;
+}
+
+// does the variant run persistent warps?
+template <int TRI>
+constexpr bool persistent() {
+  return TRI != kClusteredTris && ((SRT_TRACE_PATHS >> TRI) & 1);
+}
+
 template <int TRI, bool COUNT = false>
-__global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI))
+__global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI),
+                                  SRT_TRACE_MIN_BLOCKS_OF(TRI))
 trace_kernel(const TraceArgs a, const TraceParams p,
              unsigned long long* __restrict__ counters) {
   constexpr bool kWalk = TRI == kClusteredTris;
@@ -1125,6 +1207,7 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   __syncthreads();
 
   const long long t_start = COUNT ? clock64() : 0;
+  unsigned seen = 0;
   // every lane of the block stays to the end: the walk and the refills
   // are the warp's
   if constexpr (kWalk) {
@@ -1135,16 +1218,24 @@ trace_kernel(const TraceArgs a, const TraceParams p,
                       s_ring + (size_t)warp * kStages * kChunk * kRowF4,
                       s_bars + warp * kStages, ring,
                       COUNT ? s_cnt : nullptr);
-  } else {
+  } else if constexpr (persistent<TRI>()) {
     trace_paths<TRI, COUNT>(a, p, s_sph, s_pln, s_mat, s_tri,
                             COUNT ? s_cnt : nullptr);
+  } else {
+    seen = trace_one<TRI, COUNT>(a, p, blockIdx.x * blockDim.x + threadIdx.x,
+                                 s_sph, s_pln, s_mat, s_tri,
+                                 COUNT ? s_cnt : nullptr);
   }
   if constexpr (COUNT) {
-    // the warp's life, and the block's: its warps hold their SM slots
-    // until its longest warp ends
+    // the warps with a live lane, per bounce (one thread a ray); the
+    // warp's life, and the block's: its warps hold their SM slots until
+    // its longest warp ends
     __syncwarp();
     const unsigned long long life = clock64() - t_start;
+    const unsigned bounces = __reduce_or_sync(kAll, seen);
     if ((threadIdx.x & 31) == 0) {
+      for (unsigned b = bounces; b; b &= b - 1)
+        atomicAdd(s_cnt + (__ffs(b) - 1) * kCounters + kCountWarps, 1ull);
       atomicAdd(s_cnt + kCountCyclesWarp, life);
       atomicMax(&s_longest, life);
     }
@@ -1155,7 +1246,7 @@ trace_kernel(const TraceArgs a, const TraceParams p,
     for (int k = threadIdx.x; k < p.num_bounces * kCounters; k += blockDim.x)
       if (s_cnt[k]) atomicAdd(counters + k, s_cnt[k]);
   }
-  if constexpr (!kWalk) {
+  if constexpr (persistent<TRI>()) {
     // every warp of the block is done taking paths; the launch's last
     // block zeroes the counter for the next launch
     __syncthreads();
@@ -1230,9 +1321,9 @@ cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
         (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  if constexpr (TRI != kClusteredTris) {
-    // the path variants' persistent grid: the blocks the SMs hold at once,
-    // at most one a block of paths
+  if constexpr (persistent<TRI>()) {
+    // the persistent grid: the blocks the SMs hold at once, at most one a
+    // block of paths
     int resident = 0;
     const cudaError_t e = resident_blocks<TRI, COUNT>((int)bytes, &resident);
     if (e != cudaSuccess) return e;

@@ -54,11 +54,13 @@ from .build import PACKAGE_DIR, Kernel, interface
 SOURCE = PACKAGE_DIR / "csrc" / "trace_kernel.cu"
 # The "none" and "small" variants' persistent warps (the CUDA source's
 # defaults, which chip_smoke.py's sweep sets on extra builds): the block,
-# the fewest waiting lanes for which a warp refills, and the path indices
-# a warp takes from the launch's counter at a time
+# the fewest waiting lanes for which a warp refills, the path indices a
+# warp takes from the launch's counter at a time, and the blocks an SM
+# must hold (the launch bound's; 1: no cap)
 BLOCK = 256
 REFILL = 1
-FETCH = 64
+FETCH = 32
+MIN_BLOCKS = 1
 # The clustered variant's warp walk (the CUDA source's defaults, which
 # chip_smoke.py's sweep sets on extra builds): its block, the slots of a
 # chunk, the warp's ring of chunk buffers, the most admitting lanes for

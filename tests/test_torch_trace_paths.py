@@ -60,7 +60,7 @@ LANES = 32
 # the kernel's constants (test_constants_match_the_cuda_source): the
 # block, the fewest waiting lanes for which a warp refills, the path
 # indices a warp fetches at once
-BLOCK, REFILL, FETCH = 256, 1, 64
+BLOCK, REFILL, FETCH = 256, 1, 32
 
 
 def _rows(v: torch.Tensor, idx) -> Vec3:
@@ -251,6 +251,7 @@ def test_constants_match_the_cuda_source():
     assert (const("SRT_TRACE_PATH_BLOCK"), const("SRT_TRACE_REFILL"),
             const("SRT_TRACE_FETCH")) == (BLOCK, REFILL, FETCH)
     assert (tk.BLOCK, tk.REFILL, tk.FETCH) == (BLOCK, REFILL, FETCH)
+    assert const("SRT_TRACE_PATH_MIN_BLOCKS") == tk.MIN_BLOCKS
     assert 1 <= REFILL <= LANES <= FETCH
     # the path variants take the persistent warps, the clustered one the
     # walk
