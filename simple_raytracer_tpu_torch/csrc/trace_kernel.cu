@@ -1160,9 +1160,8 @@ __device__ __forceinline__ unsigned trace_one(
 
 // does the variant run persistent warps?
 template <int TRI>
-constexpr bool persistent() {
-  return TRI != kClusteredTris && ((SRT_TRACE_PATHS >> TRI) & 1);
-}
+constexpr bool kPersistent =
+    TRI != kClusteredTris && ((SRT_TRACE_PATHS >> TRI) & 1);
 
 template <int TRI, bool COUNT = false>
 __global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI),
@@ -1218,7 +1217,7 @@ trace_kernel(const TraceArgs a, const TraceParams p,
                       s_ring + (size_t)warp * kStages * kChunk * kRowF4,
                       s_bars + warp * kStages, ring,
                       COUNT ? s_cnt : nullptr);
-  } else if constexpr (persistent<TRI>()) {
+  } else if constexpr (kPersistent<TRI>) {
     trace_paths<TRI, COUNT>(a, p, s_sph, s_pln, s_mat, s_tri,
                             COUNT ? s_cnt : nullptr);
   } else {
@@ -1246,7 +1245,7 @@ trace_kernel(const TraceArgs a, const TraceParams p,
     for (int k = threadIdx.x; k < p.num_bounces * kCounters; k += blockDim.x)
       if (s_cnt[k]) atomicAdd(counters + k, s_cnt[k]);
   }
-  if constexpr (persistent<TRI>()) {
+  if constexpr (kPersistent<TRI>) {
     // every warp of the block is done taking paths; the launch's last
     // block zeroes the counter for the next launch
     __syncthreads();
@@ -1321,7 +1320,7 @@ cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
         (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  if constexpr (persistent<TRI>()) {
+  if constexpr (kPersistent<TRI>) {
     // the persistent grid: the blocks the SMs hold at once, at most one a
     // block of paths
     int resident = 0;
