@@ -1599,17 +1599,14 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "block 256": ["-DSRT_TRACE_BLOCK=256"],
                "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
 # The path variants' constants (none, small) swept on the passes of
-# configs 1, 2, 3 and 3/texture (phase 6): the block, the fewest waiting
-# lanes for which a warp refills, the path indices a warp fetches at once,
-# the blocks an SM must hold (a register cap)
-PATH_SWEEP = {"path block 128": ["-DSRT_TRACE_PATH_BLOCK=128"],
+# configs 1, 2, 3 and 3/texture (phase 6): the block, the path indices a
+# persistent warp fetches at once, and which variants run persistent warps
+# (0: neither, one thread a ray; 3: both)
+PATH_SWEEP = {"path block 256": ["-DSRT_TRACE_PATH_BLOCK=256"],
               "path block 512": ["-DSRT_TRACE_PATH_BLOCK=512"],
-              "refill 4": ["-DSRT_TRACE_REFILL=4"],
-              "refill 8": ["-DSRT_TRACE_REFILL=8"],
               "fetch 64": ["-DSRT_TRACE_FETCH=64"],
-              "min blocks 5": ["-DSRT_TRACE_PATH_MIN_BLOCKS=5"],
-              "min blocks 6": ["-DSRT_TRACE_PATH_MIN_BLOCKS=6"],
-              "one thread a ray": ["-DSRT_TRACE_PATHS=0"]}
+              "paths 0": ["-DSRT_TRACE_PATHS=0"],
+              "paths 3": ["-DSRT_TRACE_PATHS=3"]}
 TRACE_SWEEP_KERNELS = {}
 
 
@@ -1647,8 +1644,7 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
     builds = trace_sweep_kernels(TRACE_SWEEP if walk else PATH_SWEEP)
     route = (f"block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
              f"{tk.SPLIT_MAX}, hierarchy" if walk else
-             f"block {tk.BLOCK}, refill {tk.REFILL}, fetch {tk.FETCH}, "
-             f"min blocks {tk.MIN_BLOCKS}")
+             f"block {tk.BLOCK}, fetch {tk.FETCH}, paths {tk.PATHS}")
     ms = collections.defaultdict(list)
     out = torch.empty_like(ref)
     for _ in range(2):

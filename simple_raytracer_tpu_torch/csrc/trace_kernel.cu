@@ -26,23 +26,27 @@
 //
 // Design: one launch for all rays, each path's bounce loop inside it.  The
 // sphere, plane and material tables (a few hundred bytes) and the small
-// triangle table are staged into shared memory once per block; above the
-// default 48 KB the launch opts in to more, up to the device's limit (227
-// KB on an H100), which the wrapper checks first.  The RNG, the sphere and
-// plane loops and the BSDF sample are path_common.cuh's, which the
-// per-bounce shade kernel (bounce_kernel.cu) shares.
+// triangle table are staged into shared memory once per block (kNoTris
+// and kSmallTris: only their active rows, which cut config 3's MT rows
+// from 16 to 12 and config 2's planes from 4 to 1; stage_active); above
+// the default 48 KB the launch opts in to more, up to the device's limit
+// (227 KB on an H100), which the wrapper checks first.  The RNG, the
+// sphere and plane loops and the BSDF sample are path_common.cuh's, which
+// the per-bounce shade kernel (bounce_kernel.cu) shares.
 //
-// kNoTris and kSmallTris: persistent warps with path regeneration
-// (trace_paths; Aila and Laine, "Understanding the Efficiency of Ray
-// Traversal on GPUs", HPG 2009).  One thread a ray, each leaving its loop
-// when its path ended, kept a warp (and its block's SM slots) until its
-// longest path ended: on config 3 after bounce 1 only 6-19% of a
-// warp-step's lanes carried a ray (PERF.md section 6).  Here the grid is
-// the blocks the SMs hold at once; each lane traces one path at a time and,
-// when it ends, writes its rows and takes the next path index at the
-// warp's next refill, the warp fetching kFetch indices at a time from a
-// counter of the launch.  A path's seed comes from its index and its rows
-// go to its index, so no result depends on which lane takes it.
+// kSmallTris: persistent warps with path regeneration (trace_paths; Aila
+// and Laine, "Understanding the Efficiency of Ray Traversal on GPUs", HPG
+// 2009).  One thread a ray, each leaving its loop when its path ended,
+// kept a warp (and its block's SM slots) until its longest path ended: on
+// config 3 after bounce 1 only 6-19% of a warp-step's lanes carried a ray
+// (PERF.md section 6).  Here the grid is the blocks the SMs hold at once;
+// each lane traces one path at a time and, when it ends, writes its rows
+// and takes the next path index at the warp's next refill, the warp
+// fetching kFetch indices at a time from a counter of the launch.  A
+// path's seed comes from its index and its rows go to its index, so no
+// result depends on which lane takes it.  kNoTris, whose lanes stay busy
+// to their warps' ends (configs 1 and 2), traces one thread a ray
+// (trace_one): the refills cost it more than they saved (the sweep).
 //
 // The clustered traversal: a warp walk.  One thread a ray walking alone
 // left each warp running the union of its lanes' clusters, one dependent
@@ -223,34 +227,23 @@ namespace {
 
 // The path variants' constants (kNoTris, kSmallTris), chosen by
 // chip_smoke.py's sweep on the card (PERF.md section 6; a -D flag of the
-// same name sets each): the block, the fewest waiting lanes for which a
-// warp refills (1: as soon as one waits), the path indices a warp takes
-// from the launch's counter at a time, and the blocks an SM must hold
-// (__launch_bounds__; 1: no register cap beyond the block's).
+// same name sets each): the block, the path indices a persistent warp
+// takes from the launch's counter at a time, and which variants run
+// persistent warps (bit TRI: kSmallTris; kNoTris, whose lanes stay busy
+// to the end of their warps, traces one thread a ray).
 #ifndef SRT_TRACE_PATH_BLOCK
-#define SRT_TRACE_PATH_BLOCK 256
-#endif
-#ifndef SRT_TRACE_REFILL
-#define SRT_TRACE_REFILL 1
+#define SRT_TRACE_PATH_BLOCK 128
 #endif
 #ifndef SRT_TRACE_FETCH
 #define SRT_TRACE_FETCH 32
 #endif
-#ifndef SRT_TRACE_PATH_MIN_BLOCKS
-#define SRT_TRACE_PATH_MIN_BLOCKS 1
-#endif
-// which path variants run persistent warps (bit TRI); the others one
-// thread a ray over a grid of every ray
 #ifndef SRT_TRACE_PATHS
-#define SRT_TRACE_PATHS 3
+#define SRT_TRACE_PATHS 2
 #endif
 constexpr int kBlock = SRT_TRACE_PATH_BLOCK;
-constexpr int kMinBlocks = SRT_TRACE_PATH_MIN_BLOCKS;
-constexpr int kRefill = SRT_TRACE_REFILL;
 constexpr unsigned kFetch = SRT_TRACE_FETCH;
 static_assert(kBlock % 32 == 0 && kBlock <= 1024, "bad path block");
-static_assert(kRefill >= 1 && kRefill <= 32 && kFetch >= 32,
-              "a refill must fit one fetch");
+static_assert(kFetch >= 32, "a refill must fit one fetch");
 constexpr unsigned kAll = 0xffffffffu;
 // a triangle row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5),
 // e2 (6-8), n0 n1 n2 (9-17), material (18), active (19)
@@ -294,9 +287,8 @@ constexpr int kRowF4 = 3;
 static_assert(kWalkBlock % 32 == 0 && kWalkBlock <= 1024, "bad block");
 static_assert(kChunk % 32 == 0 && kStages >= 1, "bad ring");
 
-// the block of each variant, and the blocks an SM must hold
+// the block of each variant
 #define SRT_TRACE_BLOCK_OF(TRI) ((TRI) == kClusteredTris ? kWalkBlock : kBlock)
-#define SRT_TRACE_MIN_BLOCKS_OF(TRI) ((TRI) == kClusteredTris ? 1 : kMinBlocks)
 
 // the walk's dynamic shared memory before the tables: each warp's ring of
 // chunk buffers, then its barriers
@@ -803,6 +795,38 @@ __device__ __forceinline__ void bounce_cycles(unsigned long long* cnt,
 
 // ---- one path: its ray, a bounce's shading, its rows -------------------
 
+// the tables in shared memory and their rows
+struct Tables {
+  const float* sph;
+  const float* pln;
+  const float* mat;
+  const float* tri;   // kSmallTris
+  int n_sph, n_pln, n_tri;
+};
+
+// Warp 0 copies the rows of an (n, cols) table whose column `flag` is > 0
+// into dst, in order, and returns their count.  A row whose flag fails
+// its test (intersect_spheres, intersect_planes, MT: `active > 0`) never
+// wins, so a loop over these rows finds what the loop over every row
+// finds, in the same order: the first of an exact tie stays first.
+__device__ __forceinline__ int stage_active(float* dst, const float* src,
+                                            int n, int cols, int flag) {
+  const int lane = threadIdx.x & 31;
+  int out = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int row = base + lane;
+    const bool keep = row < n && src[(size_t)row * cols + flag] > 0.0f;
+    const unsigned m = __ballot_sync(kAll, keep);
+    if (keep) {
+      const int at = out + __popc(m & ((1u << lane) - 1u));
+      for (int c = 0; c < cols; ++c)
+        dst[(size_t)at * cols + c] = src[(size_t)row * cols + c];
+    }
+    out += __popc(m);
+  }
+  return out;
+}
+
 // a path's state between bounces (ops/trace.py: trace_rays_rows); its
 // sky rows are the throughput and direction of its miss, which ends it,
 // so they are not kept apart (path_finish)
@@ -1012,16 +1036,15 @@ __device__ unsigned int g_blocks_done = 0;
 
 // The warp's paths, each lane one at a time, until the launch has none
 // left: a lane whose path ends writes its rows and takes a new index at
-// the next refill, when at least kRefill lanes (or every lane) want one;
-// the warp takes kFetch indices at a time from g_next_path (one atomic)
+// the warp's next refill (the next step, as soon as one lane waits); the
+// warp takes kFetch indices at a time from g_next_path (one atomic)
 // and hands them to its waiting lanes in lane order.  Ray g's path makes
 // the same float operations as in any other order, its seed from g, its
 // rows written at g: no result depends on which lane or warp takes it.
 // Called by the whole warp.
 template <int TRI, bool COUNT>
 __device__ __forceinline__ void trace_paths(
-    const TraceArgs& a, const TraceParams& p, const float* s_sph,
-    const float* s_pln, const float* s_mat, const float* s_tri,
+    const TraceArgs& a, const TraceParams& p, const Tables& tab,
     unsigned long long* __restrict__ counters) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned n = (unsigned)p.n_rays;
@@ -1034,7 +1057,7 @@ __device__ __forceinline__ void trace_paths(
   bool drained = false;
   for (;;) {
     const unsigned idle = __ballot_sync(kAll, g < 0);
-    if (!drained && (idle == kAll || __popc(idle) >= kRefill)) {
+    if (!drained && idle) {
       const unsigned k = __popc(idle);
       const unsigned avail = pool_end - pool;
       unsigned base = 0;
@@ -1080,21 +1103,21 @@ __device__ __forceinline__ void trace_paths(
     float t_s, t_p;
     int i_s, i_p;
     const long long t_prims = span_start<COUNT>();
-    nearest_sphere(s_sph, p.n_spheres, q.o, q.d, t_s, i_s);
-    nearest_plane(s_pln, p.n_planes, q.o, q.d, t_p, i_p);
+    nearest_sphere(tab.sph, tab.n_sph, q.o, q.d, t_s, i_s);
+    nearest_plane(tab.pln, tab.n_pln, q.o, q.d, t_p, i_p);
     span_end<COUNT>(counters, kCountCyclesPrims, t_prims);
     // kSmallTris: the nearest triangle, MT over every row (+inf when none
     // beats the sphere/plane seed)
     TriHit th = {INFINITY, -1, 0.0f, 0.0f};
     if (TRI == kSmallTris) {
       const long long t_tris = span_start<COUNT>();
-      for (int j = 0; j < p.n_tris; ++j)
-        mt_update<false>(s_tri + kTriCols * j, j, q.o, q.d, th);
+      for (int j = 0; j < tab.n_tri; ++j)
+        mt_update<false>(tab.tri + kTriCols * j, j, q.o, q.d, th);
       span_end<COUNT>(counters, kCountCyclesTris, t_tris);
     }
     const Outcome out = path_bounce<TRI, COUNT>(
-        q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, s_sph, s_pln, s_mat,
-        s_tri, counters);
+        q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, tab.sph, tab.pln,
+        tab.mat, tab.tri, counters);
     if (out == kGoesOn) {
       ++bounce;
     } else {
@@ -1113,8 +1136,7 @@ __device__ __forceinline__ void trace_paths(
 // (bit b: bounce b).
 template <int TRI, bool COUNT>
 __device__ __forceinline__ unsigned trace_one(
-    const TraceArgs& a, const TraceParams& p, int g, const float* s_sph,
-    const float* s_pln, const float* s_mat, const float* s_tri,
+    const TraceArgs& a, const TraceParams& p, int g, const Tables& tab,
     unsigned long long* __restrict__ counters) {
   if (g >= p.n_rays) return 0;
   unsigned seen = 0;
@@ -1135,19 +1157,19 @@ __device__ __forceinline__ unsigned trace_one(
     float t_s, t_p;
     int i_s, i_p;
     const long long t_prims = span_start<COUNT>();
-    nearest_sphere(s_sph, p.n_spheres, q.o, q.d, t_s, i_s);
-    nearest_plane(s_pln, p.n_planes, q.o, q.d, t_p, i_p);
+    nearest_sphere(tab.sph, tab.n_sph, q.o, q.d, t_s, i_s);
+    nearest_plane(tab.pln, tab.n_pln, q.o, q.d, t_p, i_p);
     span_end<COUNT>(cnt, kCountCyclesPrims, t_prims);
     TriHit th = {INFINITY, -1, 0.0f, 0.0f};
     if (TRI == kSmallTris) {
       const long long t_tris = span_start<COUNT>();
-      for (int j = 0; j < p.n_tris; ++j)
-        mt_update<false>(s_tri + kTriCols * j, j, q.o, q.d, th);
+      for (int j = 0; j < tab.n_tri; ++j)
+        mt_update<false>(tab.tri + kTriCols * j, j, q.o, q.d, th);
       span_end<COUNT>(cnt, kCountCyclesTris, t_tris);
     }
     const Outcome out = path_bounce<TRI, COUNT>(
-        q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, s_sph, s_pln, s_mat,
-        s_tri, cnt);
+        q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, tab.sph, tab.pln,
+        tab.mat, tab.tri, cnt);
     if (out != kGoesOn) {
       const long long t_finish = span_start<COUNT>();
       path_finish(a, p, g, q, out == kMissed);
@@ -1164,8 +1186,7 @@ constexpr bool kPersistent =
     TRI != kClusteredTris && ((SRT_TRACE_PATHS >> TRI) & 1);
 
 template <int TRI, bool COUNT = false>
-__global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI),
-                                  SRT_TRACE_MIN_BLOCKS_OF(TRI))
+__global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI))
 trace_kernel(const TraceArgs a, const TraceParams p,
              unsigned long long* __restrict__ counters) {
   constexpr bool kWalk = TRI == kClusteredTris;
@@ -1180,16 +1201,28 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   float* s_pln = s_sph + 8 * p.n_spheres;
   float* s_mat = s_pln + 8 * p.n_planes;
   float* s_tri = s_mat + 16 * p.n_materials;   // kSmallTris
-  for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
-    s_sph[k] = a.sph[k];
-  for (int k = threadIdx.x; k < 8 * p.n_planes; k += blockDim.x)
-    s_pln[k] = a.pln[k];
+  // the walk stages every sphere and plane row; the path variants only
+  // the active rows of the sphere, plane and triangle tables (warp 0)
+  __shared__ int s_rows[3];
+  if constexpr (kWalk) {
+    for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
+      s_sph[k] = a.sph[k];
+    for (int k = threadIdx.x; k < 8 * p.n_planes; k += blockDim.x)
+      s_pln[k] = a.pln[k];
+  } else if (threadIdx.x < 32) {
+    const int n_sph = stage_active(s_sph, a.sph, p.n_spheres, 8, 5);
+    const int n_pln = stage_active(s_pln, a.pln, p.n_planes, 8, 7);
+    const int n_tri = TRI == kSmallTris
+                          ? stage_active(s_tri, a.tri, p.n_tris, kTriCols, 19)
+                          : 0;
+    if (threadIdx.x == 0) {
+      s_rows[0] = n_sph;
+      s_rows[1] = n_pln;
+      s_rows[2] = n_tri;
+    }
+  }
   for (int k = threadIdx.x; k < 16 * p.n_materials; k += blockDim.x)
     s_mat[k] = a.mat[k];
-  if (TRI == kSmallTris) {
-    for (int k = threadIdx.x; k < kTriCols * p.n_tris; k += blockDim.x)
-      s_tri[k] = a.tri[k];
-  }
   // the counting instance's counters, added up in shared memory and then
   // into `counters` once a block, and its longest warp
   __shared__ unsigned long long s_cnt[COUNT ? kCountBounces * kCounters : 1];
@@ -1205,6 +1238,8 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   }
   __syncthreads();
 
+  const Tables tab = {s_sph, s_pln, s_mat, s_tri, kWalk ? 0 : s_rows[0],
+                      kWalk ? 0 : s_rows[1], kWalk ? 0 : s_rows[2]};
   const long long t_start = COUNT ? clock64() : 0;
   unsigned seen = 0;
   // every lane of the block stays to the end: the walk and the refills
@@ -1218,12 +1253,10 @@ trace_kernel(const TraceArgs a, const TraceParams p,
                       s_bars + warp * kStages, ring,
                       COUNT ? s_cnt : nullptr);
   } else if constexpr (kPersistent<TRI>) {
-    trace_paths<TRI, COUNT>(a, p, s_sph, s_pln, s_mat, s_tri,
-                            COUNT ? s_cnt : nullptr);
+    trace_paths<TRI, COUNT>(a, p, tab, COUNT ? s_cnt : nullptr);
   } else {
     seen = trace_one<TRI, COUNT>(a, p, blockIdx.x * blockDim.x + threadIdx.x,
-                                 s_sph, s_pln, s_mat, s_tri,
-                                 COUNT ? s_cnt : nullptr);
+                                 tab, COUNT ? s_cnt : nullptr);
   }
   if constexpr (COUNT) {
     // the warps with a live lane, per bounce (one thread a ray); the

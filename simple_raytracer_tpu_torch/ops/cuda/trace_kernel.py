@@ -19,10 +19,12 @@ from the staged MT table (``ops/bvh.staged_slots``, built on the first
 launch, once per scene) through a ring of bulk copies in shared memory;
 the least (t, global triangle index) wins, so the visiting order changes
 no result, and the winner's (u, v) are recomputed on its row.  The other
-variants run persistent warps: each lane traces one path at a time and,
-when it ends, takes the next path index from a counter of the launch, so
-no lane idles while its warp's longest path runs; each path keeps its
-seed and its rows, so no result depends on which lane takes it.  Its plain
+``small`` variant runs persistent warps: each lane traces one path at a
+time and, when it ends, takes the next path index from a counter of the
+launch, so no lane idles while its warp's longest path runs; each path
+keeps its seed and its rows, so no result depends on which lane takes it.
+``none`` traces one thread a ray.  Both loop over the active rows of their
+tables only.  Its plain
 PyTorch version, ``trace_full_plain``, is ``generate_rays`` followed by
 ``trace_rays_rows`` in its whole-trace form (every triangle tested
 densely, the lowest index winning an exact tie, triangles shaded at MT's
@@ -52,15 +54,14 @@ from ..vec import Vec3
 from .build import PACKAGE_DIR, Kernel, interface
 
 SOURCE = PACKAGE_DIR / "csrc" / "trace_kernel.cu"
-# The "none" and "small" variants' persistent warps (the CUDA source's
-# defaults, which chip_smoke.py's sweep sets on extra builds): the block,
-# the fewest waiting lanes for which a warp refills, the path indices a
-# warp takes from the launch's counter at a time, and the blocks an SM
-# must hold (the launch bound's; 1: no cap)
-BLOCK = 256
-REFILL = 1
+# The "none" and "small" variants' constants (the CUDA source's defaults,
+# which chip_smoke.py's sweep sets on extra builds): the block, the path
+# indices a persistent warp takes from the launch's counter at a time, and
+# the variants that run persistent warps (bit TRI_MODES[variant]: "small";
+# "none" traces one thread a ray)
+BLOCK = 128
 FETCH = 32
-MIN_BLOCKS = 1
+PATHS = 2
 # The clustered variant's warp walk (the CUDA source's defaults, which
 # chip_smoke.py's sweep sets on extra builds): its block, the slots of a
 # chunk, the warp's ring of chunk buffers, the most admitting lanes for

@@ -8,11 +8,11 @@ its counting instance's, to the plain version there).  Here
 PyTorch:
 
 - warps of 32 lanes, each lane one path at a time;
-- a warp refills when every lane waits for a path or at least REFILL do:
-  it takes FETCH path indices at a time from one counter of the launch
-  (the warps' fetches in turn) and hands the indices it holds to its
-  waiting lanes in lane order; an index past the rays is no path, and a
-  warp whose indices have passed the rays stops refilling;
+- a warp refills at each step at which a lane waits for a path: it takes
+  FETCH path indices at a time from one counter of the launch (the warps'
+  fetches in turn) and hands the indices it holds to its waiting lanes in
+  lane order; an index past the rays is no path, and a warp whose indices
+  have passed the rays stops refilling;
 - each warp-step, the lanes with a path run one bounce of the plain
   ``trace_rays_rows``'s body on their own ray, whatever bounce each is at
   (batched over the step's lanes: no float operation of a ray depends on
@@ -26,10 +26,14 @@ PyTorch:
 
 It hands every index out once, and gives the plain version's rows and
 radiance bit for bit on configs 1, 2 and 3 (and the nine rows on configs 2
-and 3 with a texture skybox), with the route's constants and with others
-(a refill threshold of 8, fetches of 32 and 128, one warp and five); and
-its radiance is within test_torch_trace_kernel.py's bounds of JAX's
-``trace_full_fused`` (``_trace_kernel`` in Pallas interpret mode).
+and 3 with a texture skybox), with the route's fetch and with others (64
+and 128, one warp and five); and its radiance is within
+test_torch_trace_kernel.py's bounds of JAX's ``trace_full_fused``
+(``_trace_kernel`` in Pallas interpret mode).  The route runs ``small``
+so (``none`` traces one thread a ray, the plain loop itself).  Both loop
+over the active rows of the sphere, plane and triangle tables only
+(``stage_active``): the plain version over the tables cut to their active
+rows gives every bit it gives over the whole tables.
 """
 import re
 from pathlib import Path
@@ -58,9 +62,9 @@ from torch_port_helpers import jax_scene_arrays, to_np
 
 LANES = 32
 # the kernel's constants (test_constants_match_the_cuda_source): the
-# block, the fewest waiting lanes for which a warp refills, the path
-# indices a warp fetches at once
-BLOCK, REFILL, FETCH = 256, 1, 32
+# block, the path indices a warp fetches at once, the variants that run
+# persistent warps (bit 1: "small")
+BLOCK, FETCH, PATHS = 128, 32, 2
 
 
 def _rows(v: torch.Tensor, idx) -> Vec3:
@@ -72,8 +76,7 @@ def _put(v: torch.Tensor, idx, x: Vec3, keep) -> None:
 
 
 def path_schedule_emulation(scene, o: Vec3, d: Vec3, seed, num_bounces,
-                            *, n_warps, refill=REFILL, fetch=FETCH,
-                            rows=False):
+                            *, n_warps, fetch=FETCH, rows=False):
     """The persistent warps' trace of rays (o, d, seed), the schedule of
     ``trace_paths``: (the nine rows (color, sky_mask, sky_dir) as a (9,
     R) tensor with ``rows``, else the (3, R) radiance with the scene's
@@ -99,7 +102,7 @@ def path_schedule_emulation(scene, o: Vec3, d: Vec3, seed, num_bounces,
                 continue
             idle = path[w] < 0
             k = int(idle.sum())
-            if not drained[w] and (k == LANES or k >= refill):
+            if not drained[w] and k:
                 avail = pool_end[w] - pool[w]
                 base = 0
                 if avail < k:
@@ -171,17 +174,16 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int32)
 
 
-@pytest.mark.parametrize("n,n_warps,refill,fetch", [
-    (1, 2, REFILL, FETCH), (2, 2, REFILL, FETCH), (3, 2, REFILL, FETCH),
-    (2, 5, 8, 32), (3, 1, 8, 128), (3, 5, 16, 32)])
-def test_schedule_matches_plain_version(n, n_warps, refill, fetch):
+@pytest.mark.parametrize("n,n_warps,fetch", [
+    (1, 2, FETCH), (2, 2, FETCH), (3, 2, FETCH), (2, 5, 64), (3, 1, 128),
+    (3, 5, 64)])
+def test_schedule_matches_plain_version(n, n_warps, fetch):
     """The radiance through the persistent warps equals the plain
     version's bit for bit, every index handed out once."""
     ts, args, kw, (o, d, seed), bounces = _pass(n)
     assert whole_trace_variant(ts) == ("small" if n == 3 else "none")
     got, taken, steps = path_schedule_emulation(
-        ts, o, d, seed, bounces, n_warps=n_warps, refill=refill,
-        fetch=fetch)
+        ts, o, d, seed, bounces, n_warps=n_warps, fetch=fetch)
     want = torch.stack(list(tk.trace_full_plain(*args, **kw)))
     assert sorted(taken) == list(range(o.x.shape[0]))
     assert torch.equal(_bits(got), _bits(want))
@@ -240,6 +242,57 @@ def test_schedule_matches_tpu_kernel(n):
     assert agree > 0.99, agree
 
 
+def _cut_to_active(arrays: dict, rng, drop: int):
+    """The scene arrays with ``drop`` more sphere, plane and triangle rows
+    made inactive, and the same arrays cut to their active rows."""
+    full = dict(arrays)
+    kinds = [k for k in ("spheres", "planes", "triangles")
+             if f"{k}.active" in full]
+    for kind in kinds:
+        act = np.asarray(full[f"{kind}.active"], bool).copy()
+        on = np.flatnonzero(act)
+        if min(drop, on.size - 1) > 0:
+            act[rng.choice(on, size=min(drop, on.size - 1),
+                           replace=False)] = False
+        full[f"{kind}.active"] = act
+    cut = {k: (v[np.asarray(full[k.split(".")[0] + ".active"], bool)]
+               if k.split(".")[0] in kinds else v) for k, v in full.items()}
+    return full, cut
+
+
+@pytest.mark.parametrize("n,drop", [(1, 0), (2, 0), (3, 0), (1, 2), (3, 3)])
+def test_active_rows_give_every_bit(n, drop):
+    """The path variants stage only the active rows of the sphere, plane
+    and triangle tables (``stage_active``): the plain version over the
+    tables cut to their active rows gives the radiance and the nine rows
+    of the whole tables bit for bit (padding rows, and rows made inactive,
+    never win)."""
+    kw = {"skybox": "gradient"} if n == 3 else {}
+    scene, camera, opt = CONFIGS[n](width=48, height=16, **kw)
+    full, cut = _cut_to_active(scene.arrays(), np.random.default_rng(n),
+                               drop)
+    ts, tc = from_numpy(full, "cpu"), from_numpy(cut, "cpu")
+    assert whole_trace_variant(ts) == whole_trace_variant(tc)
+    for kind in ("spheres", "planes"):
+        assert bool(getattr(tc, kind).active.all())
+    if n == 3:
+        assert tc.triangles.table.shape[0] < ts.triangles.table.shape[0]
+        assert bool((tc.triangles.table[:, 19] > 0).all())
+    cam = camera.state(48 / 16)
+    args = (camera_rotation(cam.yaw, cam.pitch), cam.position,
+            cam.aspect_ratio, cam.fov_scale, 1000)
+    kw = dict(width=48, height=16, num_samples=2,
+              num_bounces=opt.num_bounces)
+    for rows in (False, True):
+        a = tk.trace_full_plain(ts, *args, **kw, rows=rows)
+        b = tk.trace_full_plain(tc, *args, **kw, rows=rows)
+        a, b = (torch.stack(list(a)) if not rows else
+                torch.cat([torch.stack(list(v)) for v in a]),
+                torch.stack(list(b)) if not rows else
+                torch.cat([torch.stack(list(v)) for v in b]))
+        assert torch.equal(_bits(a), _bits(b))
+
+
 def test_constants_match_the_cuda_source():
     """The emulation's and the wrapper's constants are the CUDA source's
     -D defaults; a refill fits one fetch."""
@@ -248,11 +301,11 @@ def test_constants_match_the_cuda_source():
     def const(name):
         return int(re.search(rf"#define {name} (\d+)", src).group(1))
 
-    assert (const("SRT_TRACE_PATH_BLOCK"), const("SRT_TRACE_REFILL"),
-            const("SRT_TRACE_FETCH")) == (BLOCK, REFILL, FETCH)
-    assert (tk.BLOCK, tk.REFILL, tk.FETCH) == (BLOCK, REFILL, FETCH)
-    assert const("SRT_TRACE_PATH_MIN_BLOCKS") == tk.MIN_BLOCKS
-    assert 1 <= REFILL <= LANES <= FETCH
+    assert (const("SRT_TRACE_PATH_BLOCK"), const("SRT_TRACE_FETCH"),
+            const("SRT_TRACE_PATHS")) == (BLOCK, FETCH, PATHS)
+    assert (tk.BLOCK, tk.FETCH, tk.PATHS) == (BLOCK, FETCH, PATHS)
+    assert LANES <= FETCH
+    assert PATHS == 1 << tk.TRI_MODES["small"]
     # the path variants take the persistent warps, the clustered one the
     # walk
     assert re.search(r"trace_paths<TRI, COUNT>\(", src)
