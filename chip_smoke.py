@@ -1171,10 +1171,11 @@ def trace_path_report(label: str, counts, segments, prep) -> str:
              for b, (cnt, seg) in enumerate(zip(counts, segments))]
     sms = torch.cuda.get_device_properties(prep.device).multi_processor_count
     held, held_count = tk.occupancy(prep), tk.occupancy(prep, counting=True)
-    blocks = -(-prep.n_rays // tk.BLOCK)
+    block = tk.PATH_BLOCK if persistent else tk.RAY_BLOCK
+    blocks = -(-prep.n_rays // block)
     if persistent:
         blocks = min(blocks, held_count * sms)
-    warps = blocks * (tk.BLOCK // 32)
+    warps = blocks * (block // 32)
     steps = c0["steps"] or sum(c["warps"] for c in counts)
     lanes = c0["step_lanes"] or sum(c["live"] for c in counts)
     life = max(c0["cycles_warp"], 1)
@@ -1599,14 +1600,17 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "block 256": ["-DSRT_TRACE_BLOCK=256"],
                "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
 # The path variants' constants (none, small) swept on the passes of
-# configs 1, 2, 3 and 3/texture (phase 6): the block, the path indices a
-# persistent warp fetches at once, and which variants run persistent warps
-# (0: neither, one thread a ray; 3: both)
+# configs 1, 2, 3 and 3/texture (phase 6): the block of persistent warps
+# and of one thread a ray, the path indices a persistent warp fetches at
+# once, which variants run persistent warps (0: neither, one thread a ray;
+# 3: both), and the sky of a path that never missed evaluated per path
 PATH_SWEEP = {"path block 256": ["-DSRT_TRACE_PATH_BLOCK=256"],
-              "path block 512": ["-DSRT_TRACE_PATH_BLOCK=512"],
+              "ray block 128": ["-DSRT_TRACE_RAY_BLOCK=128"],
+              "ray block 512": ["-DSRT_TRACE_RAY_BLOCK=512"],
               "fetch 64": ["-DSRT_TRACE_FETCH=64"],
               "paths 0": ["-DSRT_TRACE_PATHS=0"],
-              "paths 3": ["-DSRT_TRACE_PATHS=3"]}
+              "paths 3": ["-DSRT_TRACE_PATHS=3"],
+              "sky per path": ["-DSRT_TRACE_SKY_UP=0"]}
 TRACE_SWEEP_KERNELS = {}
 
 
@@ -1644,7 +1648,8 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
     builds = trace_sweep_kernels(TRACE_SWEEP if walk else PATH_SWEEP)
     route = (f"block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
              f"{tk.SPLIT_MAX}, hierarchy" if walk else
-             f"block {tk.BLOCK}, fetch {tk.FETCH}, paths {tk.PATHS}")
+             f"path block {tk.PATH_BLOCK}, ray block {tk.RAY_BLOCK}, fetch "
+             f"{tk.FETCH}, paths {tk.PATHS}")
     ms = collections.defaultdict(list)
     out = torch.empty_like(ref)
     for _ in range(2):

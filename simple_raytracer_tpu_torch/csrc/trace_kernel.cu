@@ -227,12 +227,16 @@ namespace {
 
 // The path variants' constants (kNoTris, kSmallTris), chosen by
 // chip_smoke.py's sweep on the card (PERF.md section 6; a -D flag of the
-// same name sets each): the block, the path indices a persistent warp
-// takes from the launch's counter at a time, and which variants run
-// persistent warps (bit TRI: kSmallTris; kNoTris, whose lanes stay busy
-// to the end of their warps, traces one thread a ray).
+// same name sets each): the block of persistent warps and the block of
+// one thread a ray, the path indices a persistent warp takes from the
+// launch's counter at a time, and which variants run persistent warps
+// (bit TRI: kSmallTris; kNoTris, whose lanes stay busy to the end of their
+// warps, traces one thread a ray).
 #ifndef SRT_TRACE_PATH_BLOCK
 #define SRT_TRACE_PATH_BLOCK 128
+#endif
+#ifndef SRT_TRACE_RAY_BLOCK
+#define SRT_TRACE_RAY_BLOCK 256
 #endif
 #ifndef SRT_TRACE_FETCH
 #define SRT_TRACE_FETCH 32
@@ -240,9 +244,14 @@ namespace {
 #ifndef SRT_TRACE_PATHS
 #define SRT_TRACE_PATHS 2
 #endif
-constexpr int kBlock = SRT_TRACE_PATH_BLOCK;
+#ifndef SRT_TRACE_SKY_UP
+#define SRT_TRACE_SKY_UP 1
+#endif
+constexpr int kPathBlock = SRT_TRACE_PATH_BLOCK;
+constexpr int kRayBlock = SRT_TRACE_RAY_BLOCK;
 constexpr unsigned kFetch = SRT_TRACE_FETCH;
-static_assert(kBlock % 32 == 0 && kBlock <= 1024, "bad path block");
+static_assert(kPathBlock % 32 == 0 && kPathBlock <= 1024, "bad path block");
+static_assert(kRayBlock % 32 == 0 && kRayBlock <= 1024, "bad ray block");
 static_assert(kFetch >= 32, "a refill must fit one fetch");
 constexpr unsigned kAll = 0xffffffffu;
 // a triangle row (ops/scene_types.py: TRI_COLS): v0 (0-2), e1 (3-5),
@@ -287,8 +296,15 @@ constexpr int kRowF4 = 3;
 static_assert(kWalkBlock % 32 == 0 && kWalkBlock <= 1024, "bad block");
 static_assert(kChunk % 32 == 0 && kStages >= 1, "bad ring");
 
+// does the variant run persistent warps?
+template <int TRI>
+constexpr bool kPersistent =
+    TRI != kClusteredTris && ((SRT_TRACE_PATHS >> TRI) & 1);
+
 // the block of each variant
-#define SRT_TRACE_BLOCK_OF(TRI) ((TRI) == kClusteredTris ? kWalkBlock : kBlock)
+#define SRT_TRACE_BLOCK_OF(TRI)                                             \
+  ((TRI) == kClusteredTris ? kWalkBlock                                    \
+                           : (kPersistent<TRI> ? kPathBlock : kRayBlock))
 
 // the walk's dynamic shared memory before the tables: each warp's ring of
 // chunk buffers, then its barriers
@@ -795,13 +811,16 @@ __device__ __forceinline__ void bounce_cycles(unsigned long long* cnt,
 
 // ---- one path: its ray, a bounce's shading, its rows -------------------
 
-// the tables in shared memory and their rows
+// the tables in shared memory and their rows, and the gradient sky along
+// (0, 0, 1), the sky_dir of a path that never misses (3 floats; null: the
+// walk evaluates it per path)
 struct Tables {
   const float* sph;
   const float* pln;
   const float* mat;
   const float* tri;   // kSmallTris
   int n_sph, n_pln, n_tri;
+  const float* sky_up;
 };
 
 // Warp 0 copies the rows of an (n, cols) table whose column `flag` is > 0
@@ -930,27 +949,43 @@ __device__ __forceinline__ Outcome path_bounce(
 }
 
 // Path g's rows: its radiance with the gradient sky, or for a texture
-// skybox the nine the wrapper samples it from (color, sky_mask, sky_dir).
-// A path that missed takes the sky through its last throughput and
-// direction; one that never missed has sky_mask (0, 0, 0) and sky_dir
-// (0, 0, 1), as trace_rays_rows starts them.
+// skybox the nine the wrapper samples it from (color, sky_mask, sky_dir):
+// the throughput and direction of its miss, or for a path that never
+// missed (0, 0, 0) and (0, 0, 1), as trace_rays_rows starts them.  The sky
+// along sky_dir is `sky` where given (the sky along (0, 0, 1): the same
+// operations on the same values, once a block).
 __device__ __forceinline__ void path_finish(const TraceArgs& a,
                                             const TraceParams& p, int g,
-                                            const Path& q, bool missed) {
+                                            V3 color, V3 sky_mask,
+                                            V3 sky_dir,
+                                            const float* sky = nullptr) {
   const size_t n = (size_t)p.n_rays;
-  const V3 sky_mask = missed ? q.mask : mk(0.0f, 0.0f, 0.0f);
-  const V3 sky_dir = missed ? q.d : mk(0.0f, 0.0f, 1.0f);
   if (p.sky_rows) {
-    const float rows[9] = {q.color.x,   q.color.y,  q.color.z,
-                           sky_mask.x,  sky_mask.y, sky_mask.z,
-                           sky_dir.x,   sky_dir.y,  sky_dir.z};
+    const float rows[9] = {color.x,    color.y,    color.z,
+                           sky_mask.x, sky_mask.y, sky_mask.z,
+                           sky_dir.x,  sky_dir.y,  sky_dir.z};
     for (int k = 0; k < 9; ++k) a.out[k * n + g] = rows[k];
     return;
   }
-  const V3 c = add(q.color, mul(sky_mask, sky_gradient(sky_dir, p)));
+  const V3 c = add(color, mul(sky_mask, sky == nullptr
+                                            ? sky_gradient(sky_dir, p)
+                                            : load3(sky)));
   a.out[g] = c.x;
   a.out[n + g] = c.y;
   a.out[2 * n + g] = c.z;
+}
+
+// the rows of a path variant's path that ended at a bounce: its miss's
+// sky, or the sky along (0, 0, 1) of the block (tab.sky_up)
+__device__ __forceinline__ void path_end(const TraceArgs& a,
+                                         const TraceParams& p, int g,
+                                         const Path& q, bool missed,
+                                         const Tables& tab) {
+  if (missed)
+    path_finish(a, p, g, q.color, q.mask, q.d);
+  else
+    path_finish(a, p, g, q.color, mk(0.0f, 0.0f, 0.0f),
+                mk(0.0f, 0.0f, 1.0f), tab.sky_up);
 }
 
 // ---- kClusteredTris: a warp's paths through the walk --------------------
@@ -966,7 +1001,8 @@ __device__ __forceinline__ void trace_walk(
     unsigned long long* __restrict__ counters) {
   const bool in_range = g < p.n_rays;
   bool alive = in_range;
-  bool missed = false;
+  V3 sky_mask = mk(0.0f, 0.0f, 0.0f);
+  V3 sky_dir = mk(0.0f, 0.0f, 1.0f);
   const long long t_gen = span_start<COUNT>();
   Path q = path_start(p, g);
   span_end<COUNT>(counters, kCountCyclesGen, t_gen);
@@ -1015,13 +1051,16 @@ __device__ __forceinline__ void trace_walk(
           q, bounce, p, t_s, i_s, t_p, i_p, t_t, th, s_sph, s_pln, s_mat,
           a.tri, cnt);
       alive = out == kGoesOn;
-      missed = out == kMissed;
+      if (out == kMissed) {
+        sky_mask = q.mask;
+        sky_dir = q.d;
+      }
     }
     bounce_cycles<COUNT>(cnt, t_bounce);
   }
   if (in_range) {
     const long long t_finish = span_start<COUNT>();
-    path_finish(a, p, g, q, missed);
+    path_finish(a, p, g, q.color, sky_mask, sky_dir);
     span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
   }
 }
@@ -1122,7 +1161,7 @@ __device__ __forceinline__ void trace_paths(
       ++bounce;
     } else {
       const long long t_finish = span_start<COUNT>();
-      path_finish(a, p, g, q, out == kMissed);
+      path_end(a, p, g, q, out == kMissed, tab);
       span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
       g = -1;
     }
@@ -1172,18 +1211,13 @@ __device__ __forceinline__ unsigned trace_one(
         tab.mat, tab.tri, cnt);
     if (out != kGoesOn) {
       const long long t_finish = span_start<COUNT>();
-      path_finish(a, p, g, q, out == kMissed);
+      path_end(a, p, g, q, out == kMissed, tab);
       span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
       break;
     }
   }
   return seen;
 }
-
-// does the variant run persistent warps?
-template <int TRI>
-constexpr bool kPersistent =
-    TRI != kClusteredTris && ((SRT_TRACE_PATHS >> TRI) & 1);
 
 template <int TRI, bool COUNT = false>
 __global__ void __launch_bounds__(SRT_TRACE_BLOCK_OF(TRI))
@@ -1204,6 +1238,7 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   // the walk stages every sphere and plane row; the path variants only
   // the active rows of the sphere, plane and triangle tables (warp 0)
   __shared__ int s_rows[3];
+  __shared__ float s_sky_up[3];
   if constexpr (kWalk) {
     for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
       s_sph[k] = a.sph[k];
@@ -1219,6 +1254,10 @@ trace_kernel(const TraceArgs a, const TraceParams p,
       s_rows[0] = n_sph;
       s_rows[1] = n_pln;
       s_rows[2] = n_tri;
+      const V3 up = sky_gradient(mk(0.0f, 0.0f, 1.0f), p);
+      s_sky_up[0] = up.x;
+      s_sky_up[1] = up.y;
+      s_sky_up[2] = up.z;
     }
   }
   for (int k = threadIdx.x; k < 16 * p.n_materials; k += blockDim.x)
@@ -1238,8 +1277,12 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   }
   __syncthreads();
 
-  const Tables tab = {s_sph, s_pln, s_mat, s_tri, kWalk ? 0 : s_rows[0],
-                      kWalk ? 0 : s_rows[1], kWalk ? 0 : s_rows[2]};
+  const Tables tab = {s_sph,     s_pln,
+                      s_mat,     s_tri,
+                      kWalk ? 0 : s_rows[0],
+                      kWalk ? 0 : s_rows[1],
+                      kWalk ? 0 : s_rows[2],
+                      kWalk || !SRT_TRACE_SKY_UP ? nullptr : s_sky_up};
   const long long t_start = COUNT ? clock64() : 0;
   unsigned seen = 0;
   // every lane of the block stays to the end: the walk and the refills

@@ -55,11 +55,13 @@ from .build import PACKAGE_DIR, Kernel, interface
 
 SOURCE = PACKAGE_DIR / "csrc" / "trace_kernel.cu"
 # The "none" and "small" variants' constants (the CUDA source's defaults,
-# which chip_smoke.py's sweep sets on extra builds): the block, the path
-# indices a persistent warp takes from the launch's counter at a time, and
-# the variants that run persistent warps (bit TRI_MODES[variant]: "small";
+# which chip_smoke.py's sweep sets on extra builds): the block of
+# persistent warps and the block of one thread a ray, the path indices a
+# persistent warp takes from the launch's counter at a time, and the
+# variants that run persistent warps (bit TRI_MODES[variant]: "small";
 # "none" traces one thread a ray)
-BLOCK = 128
+PATH_BLOCK = 128
+RAY_BLOCK = 256
 FETCH = 32
 PATHS = 2
 # The clustered variant's warp walk (the CUDA source's defaults, which
@@ -297,7 +299,7 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
         device.index if device.index is not None
         else torch.cuda.current_device()))
     n_rays = width * tile_height * num_samples
-    if n_rays >= 2 ** 31 - max(BLOCK, WALK_BLOCK):
+    if n_rays >= 2 ** 31 - max(PATH_BLOCK, RAY_BLOCK, WALK_BLOCK):
         raise ValueError(f"trace kernel: {n_rays} rays overflow int32")
 
     sky = scene.sky

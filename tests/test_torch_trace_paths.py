@@ -62,9 +62,9 @@ from torch_port_helpers import jax_scene_arrays, to_np
 
 LANES = 32
 # the kernel's constants (test_constants_match_the_cuda_source): the
-# block, the path indices a warp fetches at once, the variants that run
-# persistent warps (bit 1: "small")
-BLOCK, FETCH, PATHS = 128, 32, 2
+# block of persistent warps, the path indices a warp fetches at once, the
+# variants that run persistent warps (bit 1: "small")
+PATH_BLOCK, FETCH, PATHS = 128, 32, 2
 
 
 def _rows(v: torch.Tensor, idx) -> Vec3:
@@ -302,8 +302,9 @@ def test_constants_match_the_cuda_source():
         return int(re.search(rf"#define {name} (\d+)", src).group(1))
 
     assert (const("SRT_TRACE_PATH_BLOCK"), const("SRT_TRACE_FETCH"),
-            const("SRT_TRACE_PATHS")) == (BLOCK, FETCH, PATHS)
-    assert (tk.BLOCK, tk.FETCH, tk.PATHS) == (BLOCK, FETCH, PATHS)
+            const("SRT_TRACE_PATHS")) == (PATH_BLOCK, FETCH, PATHS)
+    assert (tk.PATH_BLOCK, tk.FETCH, tk.PATHS) == (PATH_BLOCK, FETCH, PATHS)
+    assert const("SRT_TRACE_RAY_BLOCK") == tk.RAY_BLOCK
     assert LANES <= FETCH
     assert PATHS == 1 << tk.TRI_MODES["small"]
     # the path variants take the persistent warps, the clustered one the

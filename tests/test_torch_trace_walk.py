@@ -630,7 +630,8 @@ def test_constants_match_the_cuda_source():
                      src).group(1) == str(tk.FLAT_GATE)
     assert const("kSuper") == bvh.SUPER and const("kGroup") == bvh.GROUP
     assert const("kRowF4") * 4 == bvh.STAGED_COLS
-    assert const("kBlock") == tk.BLOCK
+    assert const("kRayBlock") == tk.RAY_BLOCK
+    assert const("kPathBlock") == tk.PATH_BLOCK
     assert "constexpr float kSlabMargin = 0x1p-16f;" in src
     assert MARGIN == float.fromhex("0x1p-16")
     assert tk.WALK_SHARED_BYTES == (tk.WALK_BLOCK // 32) * STAGES * (
