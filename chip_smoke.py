@@ -30,7 +30,9 @@ are a path of their own.  Phases, one line each on stdout:
   1. the card's name and power limit (nvidia-smi), and whether PIL (the
      8-bit skybox loader's dependency) is installed;
   2. the build of the five kernel sources, one nvcc each, started
-     together;
+     together; the whole-trace kernel's sections as compiled (a sphere
+     test, a plane test, MT, a BSDF sample, a uniform, the gradient sky;
+     cuobjdump of each built alone from the kernel's source);
   3. the main paths: each cell at its preset size through
      Renderer(device="cuda"), 4 progressive steps, with every kernel's
      launch counts (in all and per variant) reset just before and read
@@ -57,7 +59,13 @@ are a path of their own.  Phases, one line each on stdout:
      "fused") on its counting instance, whose output must be the
      route's, its counts per bounce beside the (cluster, ray) pairs that
      the plain version's rays need (6 "fused": a full pass of the split
-     path over the same rays);
+     path over the same rays); configs 1, 2, 3 and 3/texture on the same
+     counting instance, held to the route's output: per bounce the live
+     rays and the warps or warp-steps that carried them, over the launch
+     the lanes with a path a warp-step, the fetches of path indices, the
+     SM cycles in ray generation, the sphere and plane tests, MT, the
+     BSDF sample and the sky, against the blocks' slot time, and the
+     blocks an SM holds;
      config 4 under "jnp" against the "pallas"
      route on the same rays; then, for config 6 and configs 5 and 4
      under "bvh", the per-ray gate against a gate-free dense
@@ -81,9 +89,12 @@ are a path of their own.  Phases, one line each on stdout:
   6. timings with CUDA events, and each kernel's bound (and the texture's
      sample beside the nine-row kernel; the clustered whole-trace cells
      bounded by the BVH rows' rule, the flat gate's count beside it; with
-     --parent the parent's kernel on the same pass, in turns; the walk's
+     --parent the parent's kernel on the pass of every whole-trace cell,
+     in turns, every output bit equal to this one's; the walk's
      constants swept: the split point, the ring, the block and the flat
-     gate, each a build of its own, every output the route's); the
+     gate, and on configs 1, 2, 3 and 3/texture the path variants': the
+     blocks, the fetch and which variants run persistent warps, each a
+     build of its own, every output the route's); the
      triangle kernel's launches
      of a pass one by one (per bounce, with its live rays and what its
      early-out keeps), the pass with every ray dead (the live-ray
@@ -1602,15 +1613,14 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
 # The path variants' constants (none, small) swept on the passes of
 # configs 1, 2, 3 and 3/texture (phase 6): the block of persistent warps
 # and of one thread a ray, the path indices a persistent warp fetches at
-# once, which variants run persistent warps (0: neither, one thread a ray;
-# 3: both), and the sky of a path that never missed evaluated per path
+# once, and which variants run persistent warps (0: neither, one thread a
+# ray; 3: both)
 PATH_SWEEP = {"path block 256": ["-DSRT_TRACE_PATH_BLOCK=256"],
               "ray block 128": ["-DSRT_TRACE_RAY_BLOCK=128"],
               "ray block 512": ["-DSRT_TRACE_RAY_BLOCK=512"],
               "fetch 64": ["-DSRT_TRACE_FETCH=64"],
               "paths 0": ["-DSRT_TRACE_PATHS=0"],
-              "paths 3": ["-DSRT_TRACE_PATHS=3"],
-              "sky per path": ["-DSRT_TRACE_SKY_UP=0"]}
+              "paths 3": ["-DSRT_TRACE_PATHS=3"]}
 TRACE_SWEEP_KERNELS = {}
 
 
@@ -1846,12 +1856,11 @@ def parse_args(argv):
     ap.add_argument(
         "--parent", type=Path, default=None,
         help="a checkout of an earlier commit of this repository, from "
-             "the whole-trace kernel's warp walk on: its BVH kernel "
-             "(simple_raytracer_tpu_torch/csrc/bvh_kernel.cu, with this C "
-             "interface or version 1) and its whole-trace kernel "
-             "(trace_kernel.cu, with this interface) are built beside this "
-             "one's, and phase 6 times every BVH launch, and the pass of "
-             "each clustered whole-trace cell, on them too, in turns")
+             "e112b9c on: its BVH kernel (simple_raytracer_tpu_torch/csrc/"
+             "bvh_kernel.cu) and its whole-trace kernel (trace_kernel.cu), "
+             "each with this C interface, are built beside this one's, and "
+             "phase 6 times every BVH launch, and the pass of every "
+             "whole-trace cell, on them too, in turns")
     return ap.parse_args(argv)
 
 

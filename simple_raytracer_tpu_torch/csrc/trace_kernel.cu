@@ -244,9 +244,6 @@ namespace {
 #ifndef SRT_TRACE_PATHS
 #define SRT_TRACE_PATHS 2
 #endif
-#ifndef SRT_TRACE_SKY_UP
-#define SRT_TRACE_SKY_UP 1
-#endif
 constexpr int kPathBlock = SRT_TRACE_PATH_BLOCK;
 constexpr int kRayBlock = SRT_TRACE_RAY_BLOCK;
 constexpr unsigned kFetch = SRT_TRACE_FETCH;
@@ -811,16 +808,13 @@ __device__ __forceinline__ void bounce_cycles(unsigned long long* cnt,
 
 // ---- one path: its ray, a bounce's shading, its rows -------------------
 
-// the tables in shared memory and their rows, and the gradient sky along
-// (0, 0, 1), the sky_dir of a path that never misses (3 floats; null: the
-// walk evaluates it per path)
+// the tables in shared memory and their rows
 struct Tables {
   const float* sph;
   const float* pln;
   const float* mat;
   const float* tri;   // kSmallTris
   int n_sph, n_pln, n_tri;
-  const float* sky_up;
 };
 
 // Warp 0 copies the rows of an (n, cols) table whose column `flag` is > 0
@@ -951,14 +945,11 @@ __device__ __forceinline__ Outcome path_bounce(
 // Path g's rows: its radiance with the gradient sky, or for a texture
 // skybox the nine the wrapper samples it from (color, sky_mask, sky_dir):
 // the throughput and direction of its miss, or for a path that never
-// missed (0, 0, 0) and (0, 0, 1), as trace_rays_rows starts them.  The sky
-// along sky_dir is `sky` where given (the sky along (0, 0, 1): the same
-// operations on the same values, once a block).
+// missed (0, 0, 0) and (0, 0, 1), as trace_rays_rows starts them.
 __device__ __forceinline__ void path_finish(const TraceArgs& a,
                                             const TraceParams& p, int g,
                                             V3 color, V3 sky_mask,
-                                            V3 sky_dir,
-                                            const float* sky = nullptr) {
+                                            V3 sky_dir) {
   const size_t n = (size_t)p.n_rays;
   if (p.sky_rows) {
     const float rows[9] = {color.x,    color.y,    color.z,
@@ -967,25 +958,18 @@ __device__ __forceinline__ void path_finish(const TraceArgs& a,
     for (int k = 0; k < 9; ++k) a.out[k * n + g] = rows[k];
     return;
   }
-  const V3 c = add(color, mul(sky_mask, sky == nullptr
-                                            ? sky_gradient(sky_dir, p)
-                                            : load3(sky)));
+  const V3 c = add(color, mul(sky_mask, sky_gradient(sky_dir, p)));
   a.out[g] = c.x;
   a.out[n + g] = c.y;
   a.out[2 * n + g] = c.z;
 }
 
-// the rows of a path variant's path that ended at a bounce: its miss's
-// sky, or the sky along (0, 0, 1) of the block (tab.sky_up)
+// the rows of a path variant's path that ended at a bounce
 __device__ __forceinline__ void path_end(const TraceArgs& a,
                                          const TraceParams& p, int g,
-                                         const Path& q, bool missed,
-                                         const Tables& tab) {
-  if (missed)
-    path_finish(a, p, g, q.color, q.mask, q.d);
-  else
-    path_finish(a, p, g, q.color, mk(0.0f, 0.0f, 0.0f),
-                mk(0.0f, 0.0f, 1.0f), tab.sky_up);
+                                         const Path& q, bool missed) {
+  path_finish(a, p, g, q.color, missed ? q.mask : mk(0.0f, 0.0f, 0.0f),
+              missed ? q.d : mk(0.0f, 0.0f, 1.0f));
 }
 
 // ---- kClusteredTris: a warp's paths through the walk --------------------
@@ -1065,7 +1049,7 @@ __device__ __forceinline__ void trace_walk(
   }
 }
 
-// ---- kNoTris and kSmallTris: persistent warps that refill their lanes ---
+// ---- kSmallTris: persistent warps that refill their lanes ---------------
 
 // The next path index to hand out, and the blocks of the launch done; the
 // launch's last block zeroes both for the next launch (launches of this
@@ -1161,7 +1145,7 @@ __device__ __forceinline__ void trace_paths(
       ++bounce;
     } else {
       const long long t_finish = span_start<COUNT>();
-      path_end(a, p, g, q, out == kMissed, tab);
+      path_end(a, p, g, q, out == kMissed);
       span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
       g = -1;
     }
@@ -1211,7 +1195,7 @@ __device__ __forceinline__ unsigned trace_one(
         tab.mat, tab.tri, cnt);
     if (out != kGoesOn) {
       const long long t_finish = span_start<COUNT>();
-      path_end(a, p, g, q, out == kMissed, tab);
+      path_end(a, p, g, q, out == kMissed);
       span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
       break;
     }
@@ -1238,7 +1222,6 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   // the walk stages every sphere and plane row; the path variants only
   // the active rows of the sphere, plane and triangle tables (warp 0)
   __shared__ int s_rows[3];
-  __shared__ float s_sky_up[3];
   if constexpr (kWalk) {
     for (int k = threadIdx.x; k < 8 * p.n_spheres; k += blockDim.x)
       s_sph[k] = a.sph[k];
@@ -1254,10 +1237,6 @@ trace_kernel(const TraceArgs a, const TraceParams p,
       s_rows[0] = n_sph;
       s_rows[1] = n_pln;
       s_rows[2] = n_tri;
-      const V3 up = sky_gradient(mk(0.0f, 0.0f, 1.0f), p);
-      s_sky_up[0] = up.x;
-      s_sky_up[1] = up.y;
-      s_sky_up[2] = up.z;
     }
   }
   for (int k = threadIdx.x; k < 16 * p.n_materials; k += blockDim.x)
@@ -1277,12 +1256,8 @@ trace_kernel(const TraceArgs a, const TraceParams p,
   }
   __syncthreads();
 
-  const Tables tab = {s_sph,     s_pln,
-                      s_mat,     s_tri,
-                      kWalk ? 0 : s_rows[0],
-                      kWalk ? 0 : s_rows[1],
-                      kWalk ? 0 : s_rows[2],
-                      kWalk || !SRT_TRACE_SKY_UP ? nullptr : s_sky_up};
+  const Tables tab = {s_sph, s_pln, s_mat, s_tri, kWalk ? 0 : s_rows[0],
+                      kWalk ? 0 : s_rows[1], kWalk ? 0 : s_rows[2]};
   const long long t_start = COUNT ? clock64() : 0;
   unsigned seen = 0;
   // every lane of the block stays to the end: the walk and the refills
