@@ -188,7 +188,7 @@ enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
 // the lanes that run it together.
 enum Count {
   kCountLive = 0,    // live rays that entered the bounce
-  kCountWarps,       // warps with a live lane (the path variants:
+  kCountWarps,       // warps with a live lane (persistent warps:
                      // warp-steps with a lane at the bounce)
   kCountBoxTests,    // boxes slab-tested by live lanes (every level)
   kCountAdmitted,    // (ray, cluster) pairs that ran MT
@@ -205,8 +205,8 @@ enum Count {
   kCountCyclesPrims,   // SM cycles in the sphere and plane tests
   kCountCyclesTris,    // SM cycles in kSmallTris's MT loop
   kCountCyclesBsdf,    // SM cycles in the BSDF sample (these three: in
-                       // bounce 0's row over the launch for the path
-                       // variants, whose warp-steps mix bounces)
+                       // bounce 0's row over the launch for persistent
+                       // warps, whose warp-steps mix bounces)
   kCountCyclesGen,     // bounce 0's row only: SM cycles in ray generation
   kCountCyclesFinish,  // bounce 0's row only: SM cycles in the sky and
                        // the writes after a path
