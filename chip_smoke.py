@@ -6,9 +6,11 @@ Run from the repository root:
     python3 chip_smoke.py [--parent DIR]
 
 (``--parent``: a checkout of an earlier commit; phase 6 also times its
-BVH kernel on the same launches, one by one, and its whole-trace kernel
-on the same pass of each whole-trace cell, each bound by the C interface
-its build reports.)
+BVH kernel on the same launches, one by one, its whole-trace kernel on
+the same pass of each whole-trace cell and its shade kernel on 7/fused's
+shade launches, in turns, each bound by the C interface its build
+reports: the BVH kernel's must be this one, the whole-trace kernel's
+this one or 1.)
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
@@ -93,9 +95,9 @@ are a path of their own.  Phases, one line each on stdout:
      in turns, every output bit equal to this one's; the walk's
      constants swept: the split point, the ring, the block and the flat
      gate, and on configs 1, 2, 3 and 3/texture the path variants': the
-     blocks, the fetch and which variants run persistent warps, each a
-     build of its own, every output the route's); the
-     triangle kernel's launches
+     blocks and the fetch, each a build of its own, every output the
+     route's; with --parent also the parent's shade kernel on 7/fused's
+     launches, in turns); the triangle kernel's launches
      of a pass one by one (per bounce, with its live rays and what its
      early-out keeps), the pass with every ray dead (the live-ray
      compaction and an empty grid) and with every ray live, its bound
@@ -127,6 +129,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -156,6 +159,7 @@ from simple_raytracer_tpu_torch.ops.camera import camera_rotation
 from simple_raytracer_tpu_torch.ops.camera import generate_rays
 from simple_raytracer_tpu_torch.ops.cuda import bounce_kernel as sk
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
+from simple_raytracer_tpu_torch.ops.cuda.build import interface
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
@@ -1118,13 +1122,26 @@ def clustered_work(hits, clusters) -> list:
 def trace_counts(label: str, args, kw, tri_backend: str) -> list:
     """The whole-trace kernel's counting instance on a full pass, held to
     the route's launch on the same pass (every output bit equal); its
-    counts per bounce."""
+    counts per bounce.  Persistent warps: also the route and the counting
+    instance in flight at once on two streams, four times, each launch
+    with its own path counter, every output equal to the route's."""
     prep = tk.prepare(*args, **kw, tri_backend=tri_backend)
     k = tk.launch(prep)
     c, counts = tk.launch_counted(prep)
-    if not torch.equal(k.view(torch.int32), c.view(torch.int32)):
-        fail(f"cell {label}: the counting instance's output differs from "
-             "the route's")
+    outs = [c]
+    if prep.variant == tk.PERSISTENT:
+        streams = (torch.cuda.Stream(), torch.cuda.Stream())
+        torch.cuda.synchronize()
+        for _ in range(4):
+            with torch.cuda.stream(streams[0]):
+                outs.append(tk.launch(prep))
+            with torch.cuda.stream(streams[1]):
+                outs.append(tk.launch_counted(prep)[0])
+        torch.cuda.synchronize()
+    if any(not torch.equal(k.view(torch.int32), o.view(torch.int32))
+           for o in outs):
+        fail(f"cell {label}: the counting instance's output, or a launch "
+             "on a second stream, differs from the route's")
     return counts
 
 
@@ -1580,17 +1597,82 @@ def trace_kernel_as(kernel):
         tk.KERNEL = route
 
 
-def parent_trace_kernel(parent: Path):
-    """The parent checkout's whole-trace kernel, bound to this C interface
-    (tk._bind refuses a build that reports another)."""
+def parent_shade_kernel(parent: Path):
+    """The parent checkout's shade kernel (csrc/bounce_kernel.cu, whose
+    launch has not changed since the port began: sk._bind)."""
     return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
-                     / "trace_kernel.cu", tk._bind)
+                     / "bounce_kernel.cu", sk._bind)
+
+
+@contextlib.contextmanager
+def shade_kernel_as(kernel):
+    """sk.launch through another build of the shade kernel while the body
+    runs; its launches are counted on it."""
+    route = sk.KERNEL
+    sk.KERNEL = kernel
+    try:
+        yield
+    finally:
+        sk.KERNEL = route
+
+
+def shade_turns(preps, outs, parent) -> str:
+    """A pass's shade launches on the parent's build and on this one, in
+    turns (parent, this, this, parent), every output bit equal."""
+    got = [torch.empty_like(oo) for oo in outs]
+
+    def run(kernel, dst):
+        with shade_kernel_as(kernel):
+            return float(np.median(cuda_ms(
+                lambda: [sk.launch(pp, oo) for pp, oo in zip(preps, dst)],
+                iters=5, repeats=3, warmup=1)))
+
+    turns = [run(parent, got), run(sk.KERNEL, outs), run(sk.KERNEL, outs),
+             run(parent, got)]
+    if any(not torch.equal(g.view(torch.int32), o.view(torch.int32))
+           for g, o in zip(got, outs)):
+        fail("the parent's shade kernel and this one differ")
+    ratio = (turns[0] + turns[3]) / (turns[1] + turns[2])
+    return (f"the parent's shade kernel {turns[0]:.4f}, {turns[3]:.4f} ms a "
+            f"pass against this {turns[1]:.4f}, {turns[2]:.4f} in turns "
+            f"(parent / this {ratio:.3f}x), every output equal")
+
+
+# srt_trace_launch of the whole-trace kernel's C interface 1 (up to
+# e112b9c): this interface's pointers but the launch's path counter
+V1_TRACE_ARGTYPES = ([ctypes.c_void_p] * (tk.LAUNCH_POINTERS - 1)
+                     + [tk.TraceParams, ctypes.c_void_p])
+
+
+def bind_parent_trace(lib) -> None:
+    """A parent's whole-trace build bound to its C interface: this one
+    (tk._bind), or version 1, whose launch takes no path counter."""
+    if interface(lib, "srt_trace_interface") != 1:
+        tk._bind(lib)           # refuses any version but this one
+        return
+    lib.srt_trace_launch.argtypes = V1_TRACE_ARGTYPES
+    lib.srt_trace_launch.restype = ctypes.c_int
+
+
+def parent_trace_kernel(parent: Path):
+    """The parent checkout's whole-trace kernel (bind_parent_trace)."""
+    return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
+                     / "trace_kernel.cu", bind_parent_trace)
 
 
 def parent_trace_launch(kernel, prep, out) -> None:
-    """A prepared pass on the parent's whole-trace kernel into ``out``."""
-    with trace_kernel_as(kernel):
-        tk.launch(prep, out)
+    """A prepared pass on the parent's whole-trace kernel into ``out``
+    (not counted as a launch of either build)."""
+    fn = kernel.library().srt_trace_launch
+    ptrs = [None if t is None else t.data_ptr()
+            for t in prep.tables + prep.tri_tables] + [out.data_ptr()]
+    if len(fn.argtypes) == len(tk.LAUNCH_ARGTYPES):
+        counter = tk.next_path(prep)
+        ptrs.append(None if counter is None else counter.data_ptr())
+    with torch.cuda.device(prep.device):
+        stream = torch.cuda.current_stream(prep.device).cuda_stream
+        kernel.check(fn(*ptrs, prep.params, stream), "the parent's trace "
+                     "kernel")
 
 
 # The whole-trace walk's constants swept on the clustered cells' passes
@@ -1612,15 +1694,12 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
 # The path variants' constants (none, small) swept on the passes of
 # configs 1, 2, 3 and 3/texture (phase 6): the block of persistent warps
-# and of one thread a ray, the path indices a persistent warp fetches at
-# once, and which variants run persistent warps (0: neither, one thread a
-# ray; 3: both)
+# (small) and of one thread a ray (none), and the path indices a
+# persistent warp fetches at once
 PATH_SWEEP = {"path block 256": ["-DSRT_TRACE_PATH_BLOCK=256"],
               "ray block 128": ["-DSRT_TRACE_RAY_BLOCK=128"],
               "ray block 512": ["-DSRT_TRACE_RAY_BLOCK=512"],
-              "fetch 64": ["-DSRT_TRACE_FETCH=64"],
-              "paths 0": ["-DSRT_TRACE_PATHS=0"],
-              "paths 3": ["-DSRT_TRACE_PATHS=3"]}
+              "fetch 64": ["-DSRT_TRACE_FETCH=64"]}
 TRACE_SWEEP_KERNELS = {}
 
 
@@ -1659,7 +1738,7 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
     route = (f"block {tk.WALK_BLOCK}, ring {tk.STAGES}x{tk.CHUNK}, split "
              f"{tk.SPLIT_MAX}, hierarchy" if walk else
              f"path block {tk.PATH_BLOCK}, ray block {tk.RAY_BLOCK}, fetch "
-             f"{tk.FETCH}, paths {tk.PATHS}")
+             f"{tk.FETCH}")
     ms = collections.defaultdict(list)
     out = torch.empty_like(ref)
     for _ in range(2):
@@ -1876,11 +1955,13 @@ def main(argv=None) -> int:
         f"{pil}")
 
     t0 = time.perf_counter()
-    parent = parent_trace = None
+    parent = parent_trace = parent_shade = None
     if args.parent is not None:
         parent = parent_bvh_kernel(args.parent)
         parent_trace = parent_trace_kernel(args.parent)
-    ptxas = build_kernels(() if parent is None else (parent, parent_trace))
+        parent_shade = parent_shade_kernel(args.parent)
+    ptxas = build_kernels(() if parent is None
+                          else (parent, parent_trace, parent_shade))
     say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
         "sources "
         f"(nvcc sm_90a, ctypes; "
@@ -1888,7 +1969,8 @@ def main(argv=None) -> int:
                     for kind, k in KERNELS.items())
         + ("" if parent is None else
            f"; the parent's {parent.source} {parent.build_seconds:.2f} s, "
-           f"{parent_trace.source} {parent_trace.build_seconds:.2f} s")
+           f"{parent_trace.source} {parent_trace.build_seconds:.2f} s, "
+           f"{parent_shade.source} {parent_shade.build_seconds:.2f} s")
         + f"); ptxas: {ptxas}")
     say(f"[2] triangle kernel {trk.SHAPE[0]}x{trk.SHAPE[1]}, the fast path "
         f"of one triangle (cuobjdump): {triangle_sass()}")
@@ -2085,9 +2167,12 @@ def main(argv=None) -> int:
             else:
                 counts = trace_counts(label, args, kw, backend)
                 prep = tk.prepare(*args, **kw, tri_backend=backend)
+                both_streams = ("; the route and the counting instance "
+                                "on two streams at once equal too"
+                                if prep.variant == tk.PERSISTENT else "")
                 say(f"[4] {trace_path_report(label, counts, segments, prep)}"
                     f"; the counting instance's output equal to the "
-                    f"route's  [{card}]")
+                    f"route's{both_streams}  [{card}]")
             both = torch.isfinite(k) & torch.isfinite(p)
             err = (k - p).abs()[both]
             max_abs = float(err.max()) if err.numel() else 0.0
@@ -2397,6 +2482,8 @@ def main(argv=None) -> int:
                 p_note = ("plain shade (sum over the pass's launches, one "
                           "run)")
                 work = f"{len(s_preps)} shade launches; {bvh_line}"
+                if parent_shade is not None:
+                    work += "; " + shade_turns(s_preps, s_outs, parent_shade)
                 timing[label] = ("bounce", res["shade_max_abs"])
             else:
                 k_all, p_ms = b_all, res["plain_ms"]

@@ -42,11 +42,12 @@
 // (PERF.md section 6).  Here the grid is the blocks the SMs hold at once;
 // each lane traces one path at a time and, when it ends, writes its rows
 // and takes the next path index at the warp's next refill, the warp
-// fetching kFetch indices at a time from a counter of the launch.  A
-// path's seed comes from its index and its rows go to its index, so no
-// result depends on which lane takes it.  kNoTris, whose lanes stay busy
-// to their warps' ends (configs 1 and 2), traces one thread a ray
-// (trace_one): the refills cost it more than they saved (the sweep).
+// fetching kFetch indices at a time from the launch's own counter
+// (TraceArgs::next_path).  A path's seed comes from its index and its rows
+// go to its index, so no result depends on which lane takes it.  kNoTris,
+// whose lanes stay busy to their warps' ends (configs 1 and 2), traces one
+// thread a ray (trace_one): persistent warps cost it more than the refills
+// saved (PERF.md section 6).
 //
 // The clustered traversal: a warp walk.  One thread a ray walking alone
 // left each warp running the union of its lanes' clusters, one dependent
@@ -165,7 +166,9 @@ struct TraceParams {
 // the tables of a launch: spheres, planes, materials, the triangle rows
 // (kSmallTris; kClusteredTris: the slot table), and for kClusteredTris the
 // staged MT rows, the cluster boxes padded to whole groups, the supers and
-// the groups; the output rows
+// the groups; the output rows; for kSmallTris the launch's own counter of
+// the path indices handed out (one word, which the launch zeroes on its
+// stream first, so launches on other streams never share it)
 struct TraceArgs {
   const float* sph;
   const float* pln;
@@ -176,6 +179,7 @@ struct TraceArgs {
   const float* supers;
   const float* groups;
   float* out;
+  unsigned* next_path;
 };
 
 enum TriMode { kNoTris = 0, kSmallTris = 1, kClusteredTris = 2 };
@@ -227,11 +231,9 @@ namespace {
 
 // The path variants' constants (kNoTris, kSmallTris), chosen by
 // chip_smoke.py's sweep on the card (PERF.md section 6; a -D flag of the
-// same name sets each): the block of persistent warps and the block of
-// one thread a ray, the path indices a persistent warp takes from the
-// launch's counter at a time, and which variants run persistent warps
-// (bit TRI: kSmallTris; kNoTris, whose lanes stay busy to the end of their
-// warps, traces one thread a ray).
+// same name sets each): the block of persistent warps (kSmallTris) and the
+// block of one thread a ray (kNoTris), and the path indices a persistent
+// warp takes from the launch's counter at a time.
 #ifndef SRT_TRACE_PATH_BLOCK
 #define SRT_TRACE_PATH_BLOCK 128
 #endif
@@ -240,9 +242,6 @@ namespace {
 #endif
 #ifndef SRT_TRACE_FETCH
 #define SRT_TRACE_FETCH 32
-#endif
-#ifndef SRT_TRACE_PATHS
-#define SRT_TRACE_PATHS 2
 #endif
 constexpr int kPathBlock = SRT_TRACE_PATH_BLOCK;
 constexpr int kRayBlock = SRT_TRACE_RAY_BLOCK;
@@ -293,10 +292,10 @@ constexpr int kRowF4 = 3;
 static_assert(kWalkBlock % 32 == 0 && kWalkBlock <= 1024, "bad block");
 static_assert(kChunk % 32 == 0 && kStages >= 1, "bad ring");
 
-// does the variant run persistent warps?
+// does the variant run persistent warps?  kSmallTris does; kNoTris, whose
+// lanes stay busy to the end of their warps, traces one thread a ray.
 template <int TRI>
-constexpr bool kPersistent =
-    TRI != kClusteredTris && ((SRT_TRACE_PATHS >> TRI) & 1);
+constexpr bool kPersistent = TRI == kSmallTris;
 
 // the block of each variant
 #define SRT_TRACE_BLOCK_OF(TRI)                                             \
@@ -1049,21 +1048,53 @@ __device__ __forceinline__ void trace_walk(
   }
 }
 
-// ---- kSmallTris: persistent warps that refill their lanes ---------------
+// ---- kNoTris and kSmallTris: one bounce of a path ----------------------
 
-// The next path index to hand out, and the blocks of the launch done; the
-// launch's last block zeroes both for the next launch (launches of this
-// build run one at a time on a device: PyTorch's current stream)
-__device__ unsigned int g_next_path = 0;
-__device__ unsigned int g_blocks_done = 0;
+// One bounce of path g, its ray q at `bounce`: the nearest sphere and
+// plane, kSmallTris's nearest triangle (MT over every row, +inf when none
+// beats the sphere/plane seed), then the shading; a path that ended
+// writes its rows.  The counting instance adds the bounce's spans to
+// `cnt` and the rows' to `counters`.
+template <int TRI, bool COUNT>
+__device__ __forceinline__ Outcome path_step(
+    const TraceArgs& a, const TraceParams& p, const Tables& tab, Path& q,
+    int g, int bounce, unsigned long long* cnt,
+    unsigned long long* counters) {
+  // the nearest sphere and plane (path_common.cuh)
+  float t_s, t_p;
+  int i_s, i_p;
+  const long long t_prims = span_start<COUNT>();
+  nearest_sphere(tab.sph, tab.n_sph, q.o, q.d, t_s, i_s);
+  nearest_plane(tab.pln, tab.n_pln, q.o, q.d, t_p, i_p);
+  span_end<COUNT>(cnt, kCountCyclesPrims, t_prims);
+  TriHit th = {INFINITY, -1, 0.0f, 0.0f};
+  if (TRI == kSmallTris) {
+    const long long t_tris = span_start<COUNT>();
+    for (int j = 0; j < tab.n_tri; ++j)
+      mt_update<false>(tab.tri + kTriCols * j, j, q.o, q.d, th);
+    span_end<COUNT>(cnt, kCountCyclesTris, t_tris);
+  }
+  const Outcome out = path_bounce<TRI, COUNT>(
+      q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, tab.sph, tab.pln,
+      tab.mat, tab.tri, cnt);
+  if (out != kGoesOn) {
+    const long long t_finish = span_start<COUNT>();
+    path_end(a, p, g, q, out == kMissed);
+    span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
+  }
+  return out;
+}
+
+// ---- kSmallTris: persistent warps that refill their lanes ---------------
 
 // The warp's paths, each lane one at a time, until the launch has none
 // left: a lane whose path ends writes its rows and takes a new index at
 // the warp's next refill (the next step, as soon as one lane waits); the
-// warp takes kFetch indices at a time from g_next_path (one atomic)
-// and hands them to its waiting lanes in lane order.  Ray g's path makes
-// the same float operations as in any other order, its seed from g, its
-// rows written at g: no result depends on which lane or warp takes it.
+// warp takes kFetch indices at a time from the launch's own counter
+// a.next_path (one atomic; zeroed on the launch's stream before it) and
+// hands them to its waiting lanes in lane order.  Ray g's path makes the
+// same float operations as in any other order, its seed from g, its rows
+// written at g: no result depends on which lane or warp takes it.
 // Called by the whole warp.
 template <int TRI, bool COUNT>
 __device__ __forceinline__ void trace_paths(
@@ -1085,7 +1116,7 @@ __device__ __forceinline__ void trace_paths(
       const unsigned avail = pool_end - pool;
       unsigned base = 0;
       if (avail < k) {
-        if (lane == 0) base = atomicAdd(&g_next_path, (unsigned)kFetch);
+        if (lane == 0) base = atomicAdd(a.next_path, kFetch);
         base = __shfl_sync(kAll, base, 0);
         count<COUNT>(counters, kCountFetches, 1);
       }
@@ -1122,37 +1153,16 @@ __device__ __forceinline__ void trace_paths(
         atomicAdd(row + kCountWarps, 1ull);
       }
     }
-    // the nearest sphere and plane (path_common.cuh)
-    float t_s, t_p;
-    int i_s, i_p;
-    const long long t_prims = span_start<COUNT>();
-    nearest_sphere(tab.sph, tab.n_sph, q.o, q.d, t_s, i_s);
-    nearest_plane(tab.pln, tab.n_pln, q.o, q.d, t_p, i_p);
-    span_end<COUNT>(counters, kCountCyclesPrims, t_prims);
-    // kSmallTris: the nearest triangle, MT over every row (+inf when none
-    // beats the sphere/plane seed)
-    TriHit th = {INFINITY, -1, 0.0f, 0.0f};
-    if (TRI == kSmallTris) {
-      const long long t_tris = span_start<COUNT>();
-      for (int j = 0; j < tab.n_tri; ++j)
-        mt_update<false>(tab.tri + kTriCols * j, j, q.o, q.d, th);
-      span_end<COUNT>(counters, kCountCyclesTris, t_tris);
-    }
-    const Outcome out = path_bounce<TRI, COUNT>(
-        q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, tab.sph, tab.pln,
-        tab.mat, tab.tri, counters);
-    if (out == kGoesOn) {
+    // a warp-step mixes bounces: its spans go to bounce 0's row
+    if (path_step<TRI, COUNT>(a, p, tab, q, g, bounce, counters, counters)
+        == kGoesOn)
       ++bounce;
-    } else {
-      const long long t_finish = span_start<COUNT>();
-      path_end(a, p, g, q, out == kMissed);
-      span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
+    else
       g = -1;
-    }
   }
 }
 
-// ---- kNoTris and kSmallTris without SRT_TRACE_PATHS: one thread a ray ---
+// ---- kNoTris: one thread a ray -------------------------------------------
 
 // Ray g's whole path, its rows written; a thread past the rays does
 // nothing.  The counting instance returns the bounces the ray was live in
@@ -1177,28 +1187,9 @@ __device__ __forceinline__ unsigned trace_one(
         atomicAdd(cnt + kCountLive, (unsigned long long)__popc(m));
       seen |= 1u << bounce;
     }
-    float t_s, t_p;
-    int i_s, i_p;
-    const long long t_prims = span_start<COUNT>();
-    nearest_sphere(tab.sph, tab.n_sph, q.o, q.d, t_s, i_s);
-    nearest_plane(tab.pln, tab.n_pln, q.o, q.d, t_p, i_p);
-    span_end<COUNT>(cnt, kCountCyclesPrims, t_prims);
-    TriHit th = {INFINITY, -1, 0.0f, 0.0f};
-    if (TRI == kSmallTris) {
-      const long long t_tris = span_start<COUNT>();
-      for (int j = 0; j < tab.n_tri; ++j)
-        mt_update<false>(tab.tri + kTriCols * j, j, q.o, q.d, th);
-      span_end<COUNT>(cnt, kCountCyclesTris, t_tris);
-    }
-    const Outcome out = path_bounce<TRI, COUNT>(
-        q, bounce, p, t_s, i_s, t_p, i_p, th.t, th, tab.sph, tab.pln,
-        tab.mat, tab.tri, cnt);
-    if (out != kGoesOn) {
-      const long long t_finish = span_start<COUNT>();
-      path_end(a, p, g, q, out == kMissed);
-      span_end<COUNT>(counters, kCountCyclesFinish, t_finish);
+    if (path_step<TRI, COUNT>(a, p, tab, q, g, bounce, cnt, counters)
+        != kGoesOn)
       break;
-    }
   }
   return seen;
 }
@@ -1296,18 +1287,6 @@ trace_kernel(const TraceArgs a, const TraceParams p,
     for (int k = threadIdx.x; k < p.num_bounces * kCounters; k += blockDim.x)
       if (s_cnt[k]) atomicAdd(counters + k, s_cnt[k]);
   }
-  if constexpr (kPersistent<TRI>) {
-    // every warp of the block is done taking paths; the launch's last
-    // block zeroes the counter for the next launch
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      if (atomicAdd(&g_blocks_done, 1u) == gridDim.x - 1) {
-        atomicExch(&g_next_path, 0u);
-        atomicExch(&g_blocks_done, 0u);
-      }
-    }
-  }
 }
 
 // the dynamic shared memory of a launch: the walk's rings and barriers
@@ -1373,9 +1352,12 @@ cudaError_t launch_variant(cudaStream_t st, const TraceArgs& a,
   }
   if constexpr (kPersistent<TRI>) {
     // the persistent grid: the blocks the SMs hold at once, at most one a
-    // block of paths
+    // block of paths; the launch's counter starts at 0
+    if (a.next_path == nullptr) return cudaErrorInvalidValue;
     int resident = 0;
-    const cudaError_t e = resident_blocks<TRI, COUNT>((int)bytes, &resident);
+    cudaError_t e = resident_blocks<TRI, COUNT>((int)bytes, &resident);
+    if (e == cudaSuccess)
+      e = cudaMemsetAsync(a.next_path, 0, sizeof(unsigned), st);
     if (e != cudaSuccess) return e;
     blocks = min(blocks, max(resident, 1));
   }
@@ -1397,23 +1379,26 @@ bool clustered_ok(const TraceArgs& a, const TraceParams& p) {
 // The version of this C interface (ops/cuda/trace_kernel.py: INTERFACE),
 // raised whenever an argument or TraceParams changes, so a caller can tell
 // which interface a build has (ops/cuda/build.py: interface).
-extern "C" int srt_trace_interface() { return 1; }
+extern "C" int srt_trace_interface() { return 2; }
 
 // One launch on the stream.  Tables: (n, 8) spheres and planes, (n, 16)
 // materials; tri: the (n_tris, 20) triangle rows (kSmallTris) or the
 // (C * K, 20) slot table (kClusteredTris); kClusteredTris also takes the
 // staged MT rows ((C * K, 12) f32, 16-byte aligned), the cluster boxes
 // padded to whole groups ((n_groups * 256, 8)), the supers and the groups;
-// out: (3 or 9, n_rays) f32.
+// out: (3 or 9, n_rays) f32; next_path: kSmallTris's counter, one 4-byte
+// word of the device that no other launch uses while this one runs (the
+// launch zeroes it on its stream; other variants take null).
 extern "C" int srt_trace_launch(const float* sph, const float* pln,
                                 const float* mat, const float* tri,
                                 const float* staged, const float* boxes,
                                 const float* supers, const float* groups,
-                                float* out, TraceParams p, void* stream) {
+                                float* out, unsigned* next_path,
+                                TraceParams p, void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
   const TraceArgs a = {sph, pln, mat, tri,
                        reinterpret_cast<const float4*>(staged), boxes, supers,
-                       groups, out};
+                       groups, out, next_path};
   cudaStream_t st = (cudaStream_t)stream;
   switch (p.tri_mode) {
     case kNoTris:
@@ -1436,11 +1421,12 @@ extern "C" int srt_trace_count_launch(const float* sph, const float* pln,
                                       const float* staged, const float* boxes,
                                       const float* supers,
                                       const float* groups, float* out,
+                                      unsigned* next_path,
                                       unsigned long long* counters,
                                       TraceParams p, void* stream) {
   const TraceArgs a = {sph, pln, mat, tri,
                        reinterpret_cast<const float4*>(staged), boxes, supers,
-                       groups, out};
+                       groups, out, next_path};
   if (counters == nullptr || p.num_bounces > kCountBounces)
     return (int)cudaErrorInvalidValue;
   if (p.n_rays <= 0) return (int)cudaSuccess;

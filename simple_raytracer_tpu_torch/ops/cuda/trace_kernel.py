@@ -18,17 +18,17 @@ scene's hierarchy (``ops/bvh.build_hierarchy``), feeding Moller-Trumbore
 from the staged MT table (``ops/bvh.staged_slots``, built on the first
 launch, once per scene) through a ring of bulk copies in shared memory;
 the least (t, global triangle index) wins, so the visiting order changes
-no result, and the winner's (u, v) are recomputed on its row.  The other
+no result, and the winner's (u, v) are recomputed on its row.  The
 ``small`` variant runs persistent warps: each lane traces one path at a
-time and, when it ends, takes the next path index from a counter of the
-launch, so no lane idles while its warp's longest path runs; each path
-keeps its seed and its rows, so no result depends on which lane takes it.
-``none`` traces one thread a ray.  Both loop over the active rows of their
-tables only.  Its plain
-PyTorch version, ``trace_full_plain``, is ``generate_rays`` followed by
-``trace_rays_rows`` in its whole-trace form (every triangle tested
-densely, the lowest index winning an exact tie, triangles shaded at MT's
-(u, v)), then the same ``add_sky``.
+time and, when it ends, takes the next path index from the launch's own
+counter (``next_path``), so no lane idles while its warp's longest path
+runs; each path keeps its seed and its rows, so no result depends on
+which lane takes it.  ``none`` traces one thread a ray.  Both loop over
+the active rows of their tables only.  Its plain PyTorch version,
+``trace_full_plain``, is ``generate_rays`` followed by ``trace_rays_rows``
+in its whole-trace form (every triangle tested densely, the lowest index
+winning an exact tie, triangles shaded at MT's (u, v)), then the same
+``add_sky``.
 
 ``trace_full`` takes the plain version only for a scene on the CPU.  For
 a scene on a CUDA device it launches the kernel or raises: there is no
@@ -56,14 +56,12 @@ from .build import PACKAGE_DIR, Kernel, interface
 SOURCE = PACKAGE_DIR / "csrc" / "trace_kernel.cu"
 # The "none" and "small" variants' constants (the CUDA source's defaults,
 # which chip_smoke.py's sweep sets on extra builds): the block of
-# persistent warps and the block of one thread a ray, the path indices a
-# persistent warp takes from the launch's counter at a time, and the
-# variants that run persistent warps (bit TRI_MODES[variant]: "small";
-# "none" traces one thread a ray)
+# persistent warps ("small") and the block of one thread a ray ("none"),
+# and the path indices a persistent warp takes from the launch's counter
+# at a time
 PATH_BLOCK = 128
 RAY_BLOCK = 256
 FETCH = 32
-PATHS = 2
 # The clustered variant's warp walk (the CUDA source's defaults, which
 # chip_smoke.py's sweep sets on extra builds): its block, the slots of a
 # chunk, the warp's ring of chunk buffers, the most admitting lanes for
@@ -83,10 +81,13 @@ WALK_SHARED_BYTES = (WALK_BLOCK // 32) * STAGES * (
 DEFAULT_SHARED_BYTES = 48 * 1024
 # the kernel's triangle variants, as the CUDA source's TriMode
 TRI_MODES = {"none": 0, "small": 1, "clustered": 2}
+# the variant that runs persistent warps, which take path indices from a
+# counter of their launch
+PERSISTENT = "small"
 # bytes of parameters a kernel takes on every architecture; the launch
-# passes 9 pointers (TraceArgs) beside TraceParams
+# passes 10 pointers (TraceArgs) beside TraceParams
 PARAM_LIMIT_BYTES = 4096
-LAUNCH_POINTERS = 9
+LAUNCH_POINTERS = 10
 
 
 class TraceParams(ctypes.Structure):
@@ -127,9 +128,9 @@ class TraceParams(ctypes.Structure):
 
 
 # the C interface's version (srt_trace_interface in the CUDA source)
-INTERFACE = 1
+INTERFACE = 2
 # srt_trace_launch(sph, pln, mat, tri, staged, boxes, supers, groups, out,
-# params, stream)
+# next_path, params, stream)
 LAUNCH_ARGTYPES = ([ctypes.c_void_p] * LAUNCH_POINTERS
                    + [TraceParams, ctypes.c_void_p])
 # srt_trace_count_launch: the same, and the counters before the params
@@ -333,6 +334,17 @@ def prepare(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
                     shared)
 
 
+def next_path(prep: Prepared):
+    """A persistent launch's own counter of the path indices handed out:
+    one word allocated on the current stream, which the launch zeroes on
+    that stream before it runs (PyTorch reuses a freed block only for
+    work queued after it on the same stream, so no two launches in
+    flight share one); None for the other variants."""
+    if prep.variant != PERSISTENT:
+        return None
+    return torch.empty(1, dtype=torch.int32, device=prep.device)
+
+
 def launch(prep: Prepared, out: torch.Tensor = None) -> torch.Tensor:
     """Launch the kernel on the current stream into ``out`` ((n_out,
     n_rays) f32, allocated when not given), count the launch and return
@@ -348,7 +360,8 @@ def launch(prep: Prepared, out: torch.Tensor = None) -> torch.Tensor:
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
         err = lib.srt_trace_launch(*map(ptr, prep.tables + prep.tri_tables),
-                                   out.data_ptr(), prep.params, stream)
+                                   out.data_ptr(), ptr(next_path(prep)),
+                                   prep.params, stream)
     KERNEL.check(err, "trace kernel")
     KERNEL.count(prep.label)
     return out
@@ -372,7 +385,7 @@ def launch_counted(prep: Prepared):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
         err = lib.srt_trace_count_launch(
             *map(ptr, prep.tables + prep.tri_tables), out.data_ptr(),
-            counters.data_ptr(), prep.params, stream)
+            ptr(next_path(prep)), counters.data_ptr(), prep.params, stream)
     KERNEL.check(err, "trace kernel (counting)")
     return out, [dict(zip(COUNTERS, row)) for row in counters.tolist()]
 

@@ -9,7 +9,7 @@ PyTorch:
 
 - warps of 32 lanes, each lane one path at a time;
 - a warp refills at each step at which a lane waits for a path: it takes
-  FETCH path indices at a time from one counter of the launch (the warps'
+  FETCH path indices at a time from the launch's own counter (the warps'
   fetches in turn) and hands the indices it holds to its waiting lanes in
   lane order; an index past the rays is no path, and a warp whose indices
   have passed the rays stops refilling;
@@ -35,7 +35,9 @@ over the active rows of the sphere, plane and triangle tables only
 (``stage_active``): the plain version over the tables cut to their active
 rows gives every bit it gives over the whole tables.
 """
+import ctypes
 import re
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -62,9 +64,8 @@ from torch_port_helpers import jax_scene_arrays, to_np
 
 LANES = 32
 # the kernel's constants (test_constants_match_the_cuda_source): the
-# block of persistent warps, the path indices a warp fetches at once, the
-# variants that run persistent warps (bit 1: "small")
-PATH_BLOCK, FETCH, PATHS = 128, 32, 2
+# block of persistent warps and the path indices a warp fetches at once
+PATH_BLOCK, FETCH = 128, 32
 
 
 def _rows(v: torch.Tensor, idx) -> Vec3:
@@ -301,14 +302,80 @@ def test_constants_match_the_cuda_source():
     def const(name):
         return int(re.search(rf"#define {name} (\d+)", src).group(1))
 
-    assert (const("SRT_TRACE_PATH_BLOCK"), const("SRT_TRACE_FETCH"),
-            const("SRT_TRACE_PATHS")) == (PATH_BLOCK, FETCH, PATHS)
-    assert (tk.PATH_BLOCK, tk.FETCH, tk.PATHS) == (PATH_BLOCK, FETCH, PATHS)
+    assert (const("SRT_TRACE_PATH_BLOCK"),
+            const("SRT_TRACE_FETCH")) == (PATH_BLOCK, FETCH)
+    assert (tk.PATH_BLOCK, tk.FETCH) == (PATH_BLOCK, FETCH)
     assert const("SRT_TRACE_RAY_BLOCK") == tk.RAY_BLOCK
     assert LANES <= FETCH
-    assert PATHS == 1 << tk.TRI_MODES["small"]
-    # the path variants take the persistent warps, the clustered one the
-    # walk
+    # "small" alone runs persistent warps, "none" one thread a ray, the
+    # clustered variant the walk; no -D flag moves a variant to another
+    assert re.search(r"constexpr bool kPersistent = TRI == kSmallTris;", src)
+    assert tk.PERSISTENT == "small"
+    assert "SRT_TRACE_PATHS" not in src
     assert re.search(r"trace_paths<TRI, COUNT>\(", src)
     assert re.search(r"if constexpr \(kWalk\) \{.*?trace_walk<COUNT>\(",
                      src, re.S)
+
+
+def test_each_persistent_launch_owns_its_counter():
+    """The persistent warps take path indices from their launch's own word
+    (TraceArgs::next_path), which the launch zeroes on its stream before
+    the kernel: no global counter that two launches in flight (two
+    streams, the route and the counting instance) could split paths
+    through.  The wrapper hands each "small" launch a new word and the
+    other variants none."""
+    src = Path(tk.SOURCE).read_text()
+    assert not re.search(r"__device__\s+unsigned(\s+int)?\s+g_", src)
+    paths = re.search(r"void trace_paths\((.*?)\n\}\n", src, re.S).group(1)
+    # the fetch; every other atomic of the loop is the counting instance's
+    assert re.findall(r"base = atomicAdd\((.*?),", paths) == ["a.next_path"]
+    assert set(re.findall(r"atomicAdd\((.*?) ?[+,]", paths)) == {
+        "a.next_path", "row"}
+    launch = re.search(r"cudaError_t launch_variant\((.*?)\n\}\n", src,
+                       re.S).group(1)
+    zero = launch.index("cudaMemsetAsync(a.next_path, 0, sizeof(unsigned), "
+                        "st)")
+    assert zero < launch.index("<<<blocks, block, bytes, st>>>")
+    assert ("if (a.next_path == nullptr) return cudaErrorInvalidValue;"
+            in launch)
+    for fn in ("srt_trace_launch", "srt_trace_count_launch"):
+        sig = re.search(rf"int {fn}\((.*?)\)", src, re.S).group(1)
+        assert "unsigned* next_path" in sig
+    cpu = torch.device("cpu")
+    prep = lambda variant: types.SimpleNamespace(variant=variant, device=cpu)
+    a, b = tk.next_path(prep("small")), tk.next_path(prep("small"))
+    assert a.shape == (1,) and a.dtype == torch.int32
+    assert a.data_ptr() != b.data_ptr()
+    assert tk.next_path(prep("none")) is None
+    assert tk.next_path(prep("clustered")) is None
+
+
+def test_parent_trace_build_binds_its_interface():
+    """chip_smoke.py --parent binds a parent's whole-trace build to the C
+    interface it reports: this one through tk._bind, or version 1 (before
+    the launch's own path counter: its launch takes one pointer fewer);
+    any other version is refused."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.parent_trace_kernel(Path("parent"))._bind is (
+        smoke.bind_parent_trace)
+    fn = lambda: types.SimpleNamespace(argtypes=None, restype=None)
+
+    def lib(version):
+        return types.SimpleNamespace(
+            srt_trace_interface=lambda: version, srt_trace_launch=fn(),
+            srt_trace_count_launch=fn(), srt_shared_optin=fn())
+
+    old, new = lib(1), lib(tk.INTERFACE)
+    smoke.bind_parent_trace(old)
+    smoke.bind_parent_trace(new)
+    assert tk.INTERFACE == 2
+    assert (len(old.srt_trace_launch.argtypes) + 1
+            == len(new.srt_trace_launch.argtypes) == len(tk.LAUNCH_ARGTYPES))
+    assert old.srt_trace_launch.argtypes[-2:] == [tk.TraceParams,
+                                                  ctypes.c_void_p]
+    with pytest.raises(RuntimeError, match="interface 3, want 2"):
+        smoke.bind_parent_trace(lib(3))
