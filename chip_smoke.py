@@ -1333,16 +1333,16 @@ def shade_bound(scene, work) -> tuple:
 
 
 @contextlib.contextmanager
-def bvh_kernel_as(kernel):
-    """bk.launch through another build of the BVH kernel (the same C
-    interface) while the body runs; its launches are counted on it, not
-    on the route's kernel."""
-    route = bk.KERNEL
-    bk.KERNEL = kernel
+def kernel_as(module, kernel):
+    """``module``'s launches (bk, tk or sk: each launches ``module.KERNEL``)
+    through another build of its kernel, of the same C interface, while the
+    body runs; its launches are counted on it, not on the route's kernel."""
+    route = module.KERNEL
+    module.KERNEL = kernel
     try:
         yield
     finally:
-        bk.KERNEL = route
+        module.KERNEL = route
 
 
 def replay(preps, outs, kernel=None, **fields) -> tuple:
@@ -1356,7 +1356,7 @@ def replay(preps, outs, kernel=None, **fields) -> tuple:
         names = {v: k for k, v in bk.VARIANTS.items()}
         alt = [(dataclasses.replace(q, variant=names[fields["variant"]]), o)
                for q, o in alt]
-    with bvh_kernel_as(kernel or bk.KERNEL):
+    with kernel_as(bk, kernel or bk.KERNEL):
         ms = float(np.median(cuda_ms(lambda: [bk.launch(q, o)
                                               for q, o in alt],
                                      iters=2, repeats=3, warmup=1)))
@@ -1401,7 +1401,7 @@ def parent_launcher(kernel, pp, out):
     """A recorded BVH launch on the parent's kernel into ``out``, as a
     callable."""
     def run():
-        with bvh_kernel_as(kernel):
+        with kernel_as(bk, kernel):
             bk.launch(pp, out)
     return run
 
@@ -1585,35 +1585,11 @@ def walk_sweep(label: str, res: dict) -> dict:
     return dict(ms)
 
 
-@contextlib.contextmanager
-def trace_kernel_as(kernel):
-    """tk.launch through another build of the whole-trace kernel (the same
-    C interface) while the body runs; its launches are counted on it."""
-    route = tk.KERNEL
-    tk.KERNEL = kernel
-    try:
-        yield
-    finally:
-        tk.KERNEL = route
-
-
 def parent_shade_kernel(parent: Path):
     """The parent checkout's shade kernel (csrc/bounce_kernel.cu, whose
     launch has not changed since the port began: sk._bind)."""
     return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
                      / "bounce_kernel.cu", sk._bind)
-
-
-@contextlib.contextmanager
-def shade_kernel_as(kernel):
-    """sk.launch through another build of the shade kernel while the body
-    runs; its launches are counted on it."""
-    route = sk.KERNEL
-    sk.KERNEL = kernel
-    try:
-        yield
-    finally:
-        sk.KERNEL = route
 
 
 def shade_turns(preps, outs, parent) -> str:
@@ -1622,7 +1598,7 @@ def shade_turns(preps, outs, parent) -> str:
     got = [torch.empty_like(oo) for oo in outs]
 
     def run(kernel, dst):
-        with shade_kernel_as(kernel):
+        with kernel_as(sk, kernel):
             return float(np.median(cuda_ms(
                 lambda: [sk.launch(pp, oo) for pp, oo in zip(preps, dst)],
                 iters=5, repeats=3, warmup=1)))
@@ -1743,7 +1719,7 @@ def trace_sweep(label: str, prep, ref, iters: int) -> dict:
     out = torch.empty_like(ref)
     for _ in range(2):
         for name, kernel in {"route": tk.KERNEL, **builds}.items():
-            with trace_kernel_as(kernel):
+            with kernel_as(tk, kernel):
                 try:
                     ms[name].append(float(np.median(cuda_ms(
                         lambda: tk.launch(prep, out), iters=iters,
