@@ -118,7 +118,25 @@ are a path of their own.  Phases, one line each on stdout:
      swept (the split point, the ring), in turns with the route;
      the probes' time per call and per loop iteration;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
-     a per-bounce cell).
+     a per-bounce cell);
+  8. the command-line path: simple_raytracer_tpu_torch.cli.main in
+     process (--device cuda) at the presets' sizes, every kernel's counts
+     reset just before its runs and read just after: config 2 over 4
+     steps to a PNG and a PPM with --save-state, resumed for 4 more with
+     --load-state and held bit for bit to an uninterrupted 8-step run
+     (--time-seed 7), and --warm (which writes nothing); config 3 with
+     --skybox (phase 3's seeded 2048x1024 .hdr: rows 1a and 1c); config 4
+     with --mesh-path to an OBJ and an STL written by save_obj/save_stl
+     from organic_blob, and config 5 from --scene (save_scene; row 1b);
+     --aov normals, depth and albedo on configs 2, 5 and 6 (the split
+     path: rows 3 and 4); then config 5 with one model moved through
+     Renderer.update_scene(refit=True) and one pass (row 1b), the refit's
+     host seconds beside a full build's.  After the counts: every
+     whole-trace pass of those runs against its plain version on a band
+     of rows (the rule of phase 4), every AOV BVH launch against its
+     plain version ((t, slot) on every live ray) and each AOV canvas
+     against the plain BVH version's (the canvas rule), and each AOV pass
+     timed with CUDA events.
 Then one JSON line per the kernel table (the triangle kernel's row also
 carries its full-MT bounds over the live pairs and over every ray, and
 its 6/pallas numbers), the card line again, and the last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -133,25 +151,31 @@ import ctypes
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from simple_raytracer_tpu_torch import cli
 from simple_raytracer_tpu_torch.engine import Renderer, RenderOptions
-from simple_raytracer_tpu_torch.io.image import load_skybox, save_hdr
+from simple_raytracer_tpu_torch.io.image import load_ppm, load_skybox, save_hdr
+from simple_raytracer_tpu_torch.io.obj import save_obj
+from simple_raytracer_tpu_torch.io.scene_json import save_scene
+from simple_raytracer_tpu_torch.io.stl import save_stl
 from simple_raytracer_tpu_torch.models.camera import Camera
 from simple_raytracer_tpu_torch.models.materials import Material
+from simple_raytracer_tpu_torch.models.meshgen import organic_blob
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
 from simple_raytracer_tpu_torch.models.scene import Scene
+from simple_raytracer_tpu_torch.models.shapes import transform_trs
 from simple_raytracer_tpu_torch.ops import bvh
 from simple_raytracer_tpu_torch.ops import trace as trace_mod
 from simple_raytracer_tpu_torch.ops.bounce import bounce_step_plain
@@ -159,6 +183,7 @@ from simple_raytracer_tpu_torch.ops.camera import camera_rotation
 from simple_raytracer_tpu_torch.ops.camera import generate_rays
 from simple_raytracer_tpu_torch.ops.cuda import bounce_kernel as sk
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
+from simple_raytracer_tpu_torch.ops.cuda import build
 from simple_raytracer_tpu_torch.ops.cuda.build import interface
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
@@ -259,19 +284,20 @@ HBM_BYTES_PER_S = 3.35e12
 PROBE_CALLS = 100              # probe launches timed per probe
 # the kernel rows of the JSON line: (name, kernel, TPU kernel (under
 # simple_raytracer_tpu/ops/pallas/ unless a path), the cell timed, the
-# cells whose launches it counts, the variants counted (None: every
-# variant))
-WHOLE = ("1", "2", "3", "4", "5", "6/fused")
-ALL = tuple(CELLS)
+# cells whose launches it counts ("cli": phase 8's), the variants counted
+# (None: every variant))
+WHOLE = ("1", "2", "3", "4", "5", "6/fused", "cli")
+ALL = tuple(CELLS) + ("cli",)
 ROWS = (
     ("trace_kernel", "trace", "bounce_kernel.py:659", "2", WHOLE, None),
-    ("tris_small", "trace", "bounce_kernel.py:238", "3", ("3",), "small"),
-    ("tris_clustered", "trace", "bounce_kernel.py:291", "5", ("4", "5"),
-     "clustered"),
+    ("tris_small", "trace", "bounce_kernel.py:238", "3", ("3", "cli"),
+     ("small", "small/texture")),
+    ("tris_clustered", "trace", "bounce_kernel.py:291", "5",
+     ("4", "5", "cli"), "clustered"),
     ("tris_clustered_packed", "trace", "bounce_kernel.py:376", "6/fused",
      ("6/fused",), "clustered"),
     ("trace_kernel_texture", "trace", "bounce_kernel.py:811", "3/texture",
-     ("3/texture",), "small/texture"),
+     ("3/texture", "cli"), "small/texture"),
     ("bvh_flat", "bvh", "bvh_kernel.py:201", "5/bvh", ALL, "flat"),
     ("bvh_two_level", "bvh", "bvh_kernel.py:1040", "6", ALL, "two_level"),
     ("bvh_streamed", "bvh", "bvh_kernel.py:678", "7", ALL, "streamed"),
@@ -372,21 +398,10 @@ def trace_args(renderer: Renderer, camera, time_seed: int) -> tuple:
 
 def build_all(what: str, kernels) -> None:
     """Build every kernel at once (one nvcc each); fail on any error."""
-    errors = []
-
-    def build(kernel):
-        try:
-            kernel.library()
-        except Exception as exc:          # reported below, for any cause
-            errors.append(f"{kernel.source}: {exc!r}")
-
-    threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        fail(f"{what}: " + "\n".join(errors))
+    try:
+        build.build_all(kernels)
+    except RuntimeError as exc:
+        fail(f"{what}: {exc}")
 
 
 def build_kernels(extra=()) -> str:
@@ -1906,6 +1921,273 @@ def brute_force_cell(label: str, r: Renderer, camera, card: str) -> dict:
     return res
 
 
+# phase 8, the command-line path: the steps of each run, the time seed,
+# and the AOV runs' configs
+CLI_STEPS = 4                  # config 2: saved, resumed, and in one run
+CLI_MESH_STEPS = 2             # configs 3, 4, 5 and the AOVs
+CLI_SEED = 7
+AOV_CONFIGS = (2, 5, 6)
+AOV_MODES = ("normals", "depth", "albedo")
+
+
+class TraceRecorder:
+    """Records every ``trace_full`` call of the block (render_pass imports
+    it from its module at each pass): its arguments and per-ray radiance,
+    (3, R)."""
+
+    def __enter__(self):
+        self.calls = []
+        self.saved = tk.trace_full
+
+        def rec(*args, **kw):
+            out = self.saved(*args, **kw)
+            self.calls.append((args, kw, torch.stack(list(out))))
+            return out
+        tk.trace_full = rec
+        return self
+
+    def __exit__(self, *exc):
+        tk.trace_full = self.saved
+        return False
+
+
+def cli_run(argv: list) -> None:
+    """One in-process run of the port's CLI on the card."""
+    rc = cli.main(argv + ["--device", "cuda"])
+    if rc != 0:
+        fail(f"cli {' '.join(argv)}: exit {rc}")
+
+
+def trace_band_check(label: str, args, kw, out) -> tuple:
+    """A recorded whole-trace pass against its plain version on a band of
+    BAND_ROWS full-width rows at the image's centre (aligned to the ray
+    tile's rows, so that its rays are one slice of the pass's), under the
+    rule of phase 4.  Returns (max |d|, the rows, the variant)."""
+    th = kw["ray_tile"][0] if kw["ray_tile"] is not None else 1
+    height, width, s = kw["height"], kw["width"], kw["num_samples"]
+    row0 = (height - BAND_ROWS) // 2 // th * th
+    base = {k: v for k, v in kw.items()
+            if k not in ("tri_backend", "tri_chunk")}
+    p = torch.stack(list(tk.trace_full_plain(
+        *args, **dict(base, row0=row0, tile_height=BAND_ROWS),
+        tri_chunk=kw.get("tri_chunk"))))
+    k = out[:, row0 * width * s:(row0 + BAND_ROWS) * width * s]
+    rmse, share, same_bad = canvas_diff(k, p, s)
+    both = torch.isfinite(k) & torch.isfinite(p)
+    err = (k - p).abs()[both]
+    max_abs = float(err.max()) if err.numel() else 0.0
+    variant = (whole_trace_variant(args[0], kw["tri_backend"])
+               + ("" if args[0].skybox is None else "/texture"))
+    if not (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
+            and same_bad):
+        fail(f"cli {label} ({variant}): the whole-trace kernel disagrees "
+             f"with its plain version on rows {row0}-{row0 + BAND_ROWS - 1}"
+             f" (rmse {rmse:.3e}, share {share:.3e})")
+    return max_abs, row0, variant
+
+
+def cli_phase(card: str, scenes: dict, textures_dir: Path) -> tuple:
+    """Phase 8: the port's CLI (cli.main, in process) on the card at each
+    preset's own size, every kernel's counts reset just before and read
+    just after its runs (and the refit's pass); then every whole-trace
+    launch of those runs held to its plain version on a band, every BVH
+    launch (the AOVs of configs 5 and 6) to its plain version and the AOV
+    canvases to the plain BVH version's, and each AOV pass timed.
+    Returns (the counts, the largest whole-trace and BVH differences)."""
+    from PIL import Image
+    t_phase = time.perf_counter()
+    tmp = Path(textures_dir)
+    seed = ["--time-seed", str(CLI_SEED)]
+    mesh_steps = ["--steps", str(CLI_MESH_STEPS)]
+    runs = {}                        # label -> (trace calls, BVH launches)
+    hdr = tmp / "sky.hdr"            # make_textures' seeded 2048x1024 sky
+    pos, nrm = organic_blob(subdivisions=3)
+    save_obj(tmp / "blob.obj", pos, nrm)
+    save_stl(tmp / "blob.stl", pos)
+    scene5, camera5, _ = CONFIGS[5]()
+    save_scene(tmp / "config5.json", scene5, camera5)
+
+    def state(name):
+        with np.load(tmp / name) as f:
+            return f["canvas"], int(f["num_steps"])
+
+    for kernel in KERNELS.values():
+        kernel.reset_counts()
+    t0 = time.perf_counter()
+    c2 = ["--config", "2", "--steps", str(CLI_STEPS)] + seed
+    plan = [
+        ("2/png", c2 + ["--out", str(tmp / "a.png"), "--save-state",
+                        str(tmp / "a.npz")]),
+        ("2/ppm", c2 + ["--out", str(tmp / "a.ppm"), "--save-state",
+                        str(tmp / "b.npz")]),
+        ("2/resume", c2 + ["--out", str(tmp / "r.png"), "--load-state",
+                           str(tmp / "a.npz"), "--save-state",
+                           str(tmp / "r.npz")]),
+        ("2/once", ["--config", "2", "--steps", str(2 * CLI_STEPS)] + seed
+         + ["--out", str(tmp / "u.png"), "--save-state",
+            str(tmp / "u.npz")]),
+        ("2/warm", ["--config", "2", "--warm", "--out",
+                    str(tmp / "never.png")]),
+        ("3/skybox", ["--config", "3", "--skybox", str(hdr), "--out",
+                      str(tmp / "sky.png")] + mesh_steps + seed),
+        ("4/obj", ["--config", "4", "--mesh-path", str(tmp / "blob.obj"),
+                   "--out", str(tmp / "obj.png")] + mesh_steps + seed),
+        ("4/stl", ["--config", "4", "--mesh-path", str(tmp / "blob.stl"),
+                   "--out", str(tmp / "stl.png")] + mesh_steps + seed),
+        ("5/scene", ["--scene", str(tmp / "config5.json"), "--out",
+                     str(tmp / "scene.png")] + mesh_steps + seed),
+    ]
+    plan += [(f"{n}/{aov}", ["--config", str(n), "--aov", aov, "--out",
+                             str(tmp / f"aov{n}{aov}.png"), "--save-state",
+                             str(tmp / f"aov{n}{aov}.npz")]
+              + mesh_steps + seed)
+             for n in AOV_CONFIGS for aov in AOV_MODES]
+    seconds = {}
+    for label, argv in plan:
+        t1 = time.perf_counter()
+        with TraceRecorder() as tr, Recorder() as rec:
+            cli_run(argv)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t1
+        runs[label] = (tr.calls, rec.bvh)
+    # the refit: config 5, one model moved, refit=True, one pass
+    scene, camera, options = CONFIGS[5]()
+    r = Renderer(options, scene, device="cuda")
+    before = r.device_scene.triangles.clusters
+    scene.models[1].transform = transform_trs((1.1, 0.25, -2.6),
+                                              (-math.pi / 6, 0.3, 0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r.update_scene(scene, refit=True)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t1
+    with TraceRecorder() as tr:
+        r.step(camera, time=CLI_SEED)
+    torch.cuda.synchronize()
+    runs["5/refit"] = (tr.calls, [])
+    main_s = time.perf_counter() - t0
+    got = {kind: dict(k.variant_launches) for kind, k in KERNELS.items()}
+
+    want = {kind: {} for kind in KERNELS}
+    # config 2: three runs of CLI_STEPS, one of twice that, --warm's pass
+    want["trace"] = {"none": 5 * CLI_STEPS + 1,
+                     "small/texture": CLI_MESH_STEPS,
+                     "clustered": 3 * CLI_MESH_STEPS + 1}
+    want["bvh"] = {"flat": len(AOV_MODES) * CLI_MESH_STEPS,
+                   "two_level": len(AOV_MODES) * CLI_MESH_STEPS}
+    say(f"[8] the CLI (cli.main, in process, --device cuda) at the "
+        f"presets' sizes: {len(plan)} runs and a refit's pass in "
+        f"{main_s:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+        + f"); launches {got} (want {want})  [{card}]")
+    if got != want:
+        fail(f"cli: launches {got}, want {want}")
+    t_checks = time.perf_counter()
+
+    # checkpoints: a resumed render equals one uninterrupted run
+    a, na = state("a.npz")
+    b, nb = state("b.npz")
+    res_c, n_res = state("r.npz")
+    once, n_once = state("u.npz")
+    png = np.asarray(Image.open(tmp / "a.png"))
+    ppm = load_ppm(tmp / "a.ppm")
+    resumed_ok = (np.array_equal(res_c, once) and n_res == n_once
+                  == 2 * CLI_STEPS)
+    say(f"[8] config 2: {CLI_STEPS} steps to PNG and PPM (images equal: "
+        f"{np.array_equal(png, ppm)}, canvases equal: "
+        f"{np.array_equal(a, b)}, steps {na}, {nb}); resumed "
+        f"{CLI_STEPS} more from the checkpoint against {2 * CLI_STEPS} in "
+        f"one run (--time-seed {CLI_SEED}): canvas bit-identical="
+        f"{np.array_equal(res_c, once)}, steps {n_res} and {n_once}; "
+        f"--warm wrote nothing: {not (tmp / 'never.png').exists()}  "
+        f"[{card}]")
+    if not (resumed_ok and np.array_equal(png, ppm) and np.array_equal(a, b)
+            and na == nb == CLI_STEPS and not (tmp / "never.png").exists()):
+        fail("cli: config 2's checkpoints or images")
+    for name in ("sky.png", "obj.png", "stl.png", "scene.png"):
+        img = np.asarray(Image.open(tmp / name))
+        if img.shape != png.shape or img.min() == img.max():
+            fail(f"cli: {name} {img.shape}, min {img.min()} max {img.max()}")
+
+    # every whole-trace pass of the runs against its plain version
+    trace_max = 0.0
+    lines = []
+    for label, (calls, _) in runs.items():
+        for args, kw, out in calls:
+            m, row0, variant = trace_band_check(label, args, kw, out)
+            trace_max = max(trace_max, m)
+        if calls:
+            lines.append(f"{label} {len(calls)} x {variant}")
+    say(f"[8] every whole-trace pass of the CLI runs and the refit vs its "
+        f"plain version on rows {row0}-{row0 + BAND_ROWS - 1}: "
+        f"{'; '.join(lines)}; all within the rule of phase 4 (rmse <= "
+        f"{KERNEL_RMSE}, share <= {KERNEL_DIFF_SHARE}), max|d| "
+        f"{trace_max:.3e}  [{card}]")
+
+    # the refit: its topology kept, its boxes bound the moved model
+    after = r.device_scene.triangles.clusters
+    t2 = time.perf_counter()
+    scene.build(r.device)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t2
+    kept = (torch.equal(before.slots, after.slots)
+            and before.k == after.k == scene._cluster_topo[1].k)
+    say(f"[8] config 5 refit (models[1] moved): update_scene(refit=True) "
+        f"{refit_s:.4f} s against a full build {rebuild_s:.4f} s (host "
+        f"seconds, the upload included); K={after.k} and the slots kept: "
+        f"{kept}; boxes changed: {not torch.equal(before.aabb, after.aabb)}"
+        f"  [{card}]")
+    if not kept or torch.equal(before.aabb, after.aabb):
+        fail("cli: the refit changed the topology or kept the boxes")
+
+    # the AOVs: every BVH launch against its plain version, the canvases
+    # against the plain BVH version's, each pass timed
+    bvh_max = 0.0
+    aov_ms = {}
+    for n in AOV_CONFIGS:
+        ds, camera, options, _, _ = scenes[(n, None, None)]
+        for aov in AOV_MODES:
+            label = f"{n}/{aov}"
+            canvas, steps = state(f"aov{n}{aov}.npz")
+            _, recorded = runs[label]
+            detail = "no BVH launch"
+            if recorded:
+                cl, table = ds.triangles.clusters, ds.triangles.table
+                m, _, _, blines, _ = check_bvh_launches(
+                    f"cli {label}", recorded, cl, table, count_work=False)
+                bvh_max = max(bvh_max, m)
+                detail = "; ".join(blines)
+            r = Renderer(dataclasses.replace(options, aov=aov),
+                         device="cuda")
+            r.set_device_scene(ds)
+            with Recorder(plain=True):
+                for i in range(steps):
+                    r.step(camera, time=CLI_SEED + i)
+            torch.cuda.synchronize()
+            plain = r.canvas.cpu().numpy()
+            to_rays = lambda c: torch.from_numpy(c / steps).reshape(-1, 3).T
+            rmse, share, same_bad = canvas_diff(to_rays(canvas),
+                                                to_rays(plain), 1)
+            r.clear_canvas()
+            ms = cuda_ms(lambda: r.step(camera), iters=5, repeats=3,
+                         warmup=1)
+            aov_ms[label] = float(np.median(ms))
+            say(f"[8] AOV {aov} on config {n} {options.width}x"
+                f"{options.height} spp={options.num_samples} "
+                f"({CLI_MESH_STEPS} steps): {detail}; canvas vs the plain "
+                f"BVH version rmse={rmse:.3e} share>1e-3={share:.3e} "
+                f"bit-identical={np.array_equal(canvas, plain)}; a pass "
+                f"{aov_ms[label]:.4f} ms ({spread(ms)})  [{card}]")
+            if not (np.isfinite(canvas).all() and canvas.std() > 0
+                    and rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
+                    and same_bad):
+                fail(f"cli: the {aov} AOV of config {n}")
+    say(f"[8] the CLI phase: {time.perf_counter() - t_phase:.2f} s, of "
+        f"which the checks and timings {time.perf_counter() - t_checks:.2f}"
+        f" s  [{card}]")
+    return got, trace_max, bvh_max
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -2628,6 +2910,14 @@ def main(argv=None) -> int:
         say(f"[7] cell {label}: {step_breakdown(r, camera, iters)}  "
             f"[{card}]")
 
+    # ---- 8: the command-line path ----
+    build_dir = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        make_textures(Path(tmp))
+        totals["cli"], cli_trace_max, cli_bvh_max = cli_phase(card, scenes,
+                                                              Path(tmp))
+    results["cli"] = {"max_abs": cli_trace_max}
+
     entries = []
     for name, kind, line, cell, covered, variant in ROWS:
         _, max_abs, k_ms, p_ms, bound_ms, bound_by, o = timing[cell]
@@ -2638,6 +2928,9 @@ def main(argv=None) -> int:
         if kind == "trace":
             errs = [results[c]["max_abs"] for c in covered]
             max_abs = max(errs + [max_abs])
+        if kind == "bvh" and any(totals["cli"]["bvh"].get(v)
+                                 for v in counted):
+            max_abs = max(max_abs, cli_bvh_max)
         if launches == 0:
             fail(f"kernel row {name}: no launch on the main path")
         entries.append({

@@ -4,9 +4,10 @@ The port's own copy of ``simple_raytracer_tpu.accel``, limited to the
 NumPy median-split builder: the C++ SAH builder the JAX package prefers
 (``native/libsrt_native.so``) is not bound here, so a cluster layout
 equals the JAX package's only when that package uses its NumPy builder
-too.  The build runs on the host at scene build; the traversal runs in
-the whole-trace kernel (``csrc/trace_kernel.cu``) or, on the split
-per-bounce path, in the BVH kernel (``csrc/bvh_kernel.cu``).
+too.  ``refit_clusters`` recomputes the boxes of a cached topology for
+moved geometry.  The build runs on the host at scene build; the traversal
+runs in the whole-trace kernel (``csrc/trace_kernel.cu``) or, on the
+split per-bounce path, in the BVH kernel (``csrc/bvh_kernel.cu``).
 
 BVH layout:
   nodes:  (N, 8) f32 -- [min.xyz, max.xyz, pad, pad], DFS preorder
@@ -176,3 +177,31 @@ def build_clusters(positions: np.ndarray, k: int = 256,
             raise ValueError(f"cluster {ci}: count {count} > k {k}")
         slots[ci, :count] = np.arange(first, first + count, dtype=np.int32)
     return Clusters(aabb=aabb, slots=slots, order=bvh.order, k=k)
+
+
+def refit_clusters(cl: Clusters, positions: np.ndarray) -> Clusters:
+    """The cluster boxes recomputed for moved geometry, the topology kept.
+
+    The permutation and the slots built for the old positions stay valid
+    for any new positions (every triangle is still in exactly one cluster
+    and each new box bounds its triangles, so culling stays
+    conservative); only the boxes' tightness degrades as models move far
+    from where the tree was built.  A transform edit refits in O(T) and a
+    later full build restores the quality.
+
+    ``positions`` are the unreordered (T, 3, 3) world vertices, the array
+    ``build_clusters`` was given."""
+    t = positions.shape[0]
+    if t == 0 or cl.slots.shape[0] == 0:
+        return cl
+    rp = positions[cl.order]                      # (T, 3, 3) reordered
+    si = np.clip(cl.slots, 0, t - 1)              # (C, K)
+    v = rp[si]                                    # (C, K, 3, 3)
+    invalid = (cl.slots < 0)[:, :, None, None]
+    lo = np.where(invalid, np.inf, v).min(axis=(1, 2))
+    hi = np.where(invalid, -np.inf, v).max(axis=(1, 2))
+    aabb = np.zeros_like(cl.aabb)
+    aabb[:, 0:3] = lo
+    aabb[:, 3:6] = hi
+    return Clusters(aabb=aabb.astype(np.float32), slots=cl.slots,
+                    order=cl.order, k=cl.k)

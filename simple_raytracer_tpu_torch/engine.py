@@ -5,6 +5,8 @@ the device scene and the ``(canvas, num_steps)`` accumulation state.  Every
 ``step`` traces one more sample pass into the canvas; the image is the
 tonemapped mean of all passes since the last ``clear_canvas``.  The
 canvas is kept in ray-tile pixel order and untiled only when read.
+``state_dict``/``load_state_dict`` checkpoint the accumulation state in
+the JAX package's form (a row-major f32 canvas and the step count).
 """
 from __future__ import annotations
 
@@ -16,10 +18,10 @@ import torch
 
 from .models.camera import Camera
 from .models.scene import Scene
-from .ops.camera import untile_image
+from .ops.camera import tile_image, untile_image
 from .ops.scene_types import DeviceScene
 from .ops.tonemap import tonemap_u8
-from .ops.trace import check_tri_backend, render_pass
+from .ops.trace import check_aov, check_tri_backend, render_pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +32,15 @@ class RenderOptions:
     height: int = 540
     num_samples: int = 2
     num_bounces: int = 10
+    # the reference's normals view: the same as aov="normals"
+    show_normals: bool = False
+    # a first-hit AOV instead of the path-traced image: None, "normals"
+    # (n * 0.5 + 0.5), "depth" (1 / (1 + t) in grey, a miss 0) or "albedo"
+    # (the material's colour); one segment, accumulated and tonemapped
+    # as the image is
+    aov: object = None
+    # triangles a chunk of the dense loop, at most; no result depends on it
+    tri_chunk: int = 256
     # screen-tile ray order (th, tw); None = row-major; "auto" tiles 8x64
     # when the image divides evenly.  A permutation: results are the same.
     ray_tile: object = "auto"
@@ -44,6 +55,15 @@ class RenderOptions:
 
     def __post_init__(self):
         check_tri_backend(self.tri_backend)
+        check_aov(self.aov)
+        if self.tri_chunk < 1:
+            raise ValueError(f"tri_chunk must be >= 1, not {self.tri_chunk}")
+
+    @property
+    def aov_mode(self) -> Optional[str]:
+        """The AOV traced: ``aov``, else "normals" under ``show_normals``,
+        else None (the path-traced image)."""
+        return self.aov or ("normals" if self.show_normals else None)
 
 
 def _resolve_ray_tile(ray_tile, rows: int, width: int):
@@ -88,9 +108,11 @@ class Renderer:
         self.clear_canvas()
 
     # -- scene / state ----------------------------------------------------
-    def update_scene(self, scene: Scene) -> None:
-        """Build the whole scene onto the device again."""
-        self._device_scene = scene.build(self.device)
+    def update_scene(self, scene: Scene, refit: bool = False) -> None:
+        """Build the whole scene onto the device again.  ``refit=True``
+        keeps the scene's cached cluster topology and recomputes only the
+        cluster boxes, for an edit that moves models (``Scene.build``)."""
+        self._device_scene = scene.build(self.device, refit=refit)
 
     def set_device_scene(self, device_scene: DeviceScene) -> None:
         if device_scene.device != self.device:
@@ -134,7 +156,8 @@ class Renderer:
             self._canvas, time, width=o.width, height=o.height,
             num_samples=o.num_samples, num_bounces=o.num_bounces,
             ray_tile=self._tile, canvas_tiled=self._tile is not None,
-            tri_backend=o.tri_backend)
+            tri_backend=o.tri_backend, aov=o.aov_mode,
+            tri_chunk=o.tri_chunk)
         self.num_steps += 1
 
     def render(self, camera: Camera, num_steps: int = 1,
@@ -152,6 +175,28 @@ class Renderer:
         if self._tile is not None:
             img = untile_image(img, self._tile)
         return img.cpu().numpy()
+
+    # -- checkpoint / resume ---------------------------------------------
+    def state_dict(self) -> dict:
+        """The accumulation state: the row-major (H, W, 3) f32 canvas as
+        a numpy array and the step count.  With a scene file it is a
+        whole checkpoint, in the JAX package's form."""
+        return {"canvas": self.canvas.cpu().numpy(),
+                "num_steps": self.num_steps}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict``'s canvas (re-tiled when a ray tile is in
+        use) and step count; the canvas must be (height, width, 3)."""
+        canvas = np.asarray(state["canvas"], np.float32)
+        o = self.options
+        if canvas.shape != (o.height, o.width, 3):
+            raise ValueError(
+                f"canvas shape {canvas.shape} != {(o.height, o.width, 3)}")
+        canvas = torch.tensor(canvas, device=self.device)
+        if self._tile is not None:
+            canvas = tile_image(canvas, self._tile)
+        self._canvas = canvas
+        self.num_steps = int(state["num_steps"])
 
     # -- instrumentation --------------------------------------------------
     def benchmark_step(self, camera: Camera, iters: int = 10,

@@ -1,5 +1,5 @@
-"""Image files: PPM output and the skybox loaders (Radiance .hdr, and
-8-bit images through PIL).
+"""Image files: PPM and PNG output and the skybox loaders (Radiance .hdr,
+and 8-bit images through PIL).
 
 The counterpart of the pure-numpy parts of
 ``simple_raytracer_tpu.io.image``, copied so that the port imports
@@ -8,8 +8,8 @@ nothing of the JAX package.  PPM mirrors ``save_ppm`` (src/parser.cpp:
 usage (tracer.cpp:42-55): decode to float RGB, vertically flipped
 (stbi_set_flip_vertically_on_load) so image row 0 is the BOTTOM of the
 environment, matching the v = y*0.5+0.5 mapping in render.cl:391.  LDR
-images are converted like stbi_loadf: (x/255)^2.2 per channel; only they
-need PIL, which is imported in that branch alone.
+images are converted like stbi_loadf: (x/255)^2.2 per channel.  Only they
+and ``save_png`` need PIL, which each imports when called.
 """
 from __future__ import annotations
 
@@ -48,6 +48,13 @@ def load_ppm(path: os.PathLike) -> np.ndarray:
     if len(pixels) < w * h * 3:
         raise ValueError(f"{path}: truncated pixel data")
     return np.frombuffer(pixels, np.uint8).reshape(h, w, 3).copy()
+
+
+def save_png(path: os.PathLike, image: np.ndarray) -> None:
+    """Write an (H, W, 3) u8 RGB image as PNG (PIL)."""
+    from PIL import Image
+
+    Image.fromarray(np.asarray(image, np.uint8), "RGB").save(path)
 
 
 def load_skybox(path: os.PathLike, gamma: float = 2.2) -> np.ndarray:

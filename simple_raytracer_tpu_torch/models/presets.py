@@ -3,8 +3,8 @@
 Copies of ``config1_red_green`` to ``config7_mega_mesh`` from
 ``simple_raytracer_tpu.models.presets``.  Each builder returns
 ``(scene, camera, options)``.  The mesh configs use the procedural
-``organic_blob``; loading a model file is a later slice.  Config 3 lights
-with the reference's skybox texture where it is found.
+``organic_blob``, or the STL or OBJ file ``mesh_path`` (configs 4 to 7).
+Config 3 lights with the reference's skybox texture where it is found.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from ..io.image import load_skybox
 from .camera import Camera
 from .materials import Material
 from .meshgen import organic_blob
-from .scene import Scene
+from .scene import Scene, load_mesh
 from .shapes import transform_trs
 
 
@@ -124,9 +124,11 @@ def config3_skybox_emissive(width: int = 960, height: int = 540,
 
 
 def _add_mesh(scene: Scene, path: Optional[str], subdivisions: int = 3):
-    """The procedural stand-in mesh (1280 triangles at subdivision 3)."""
+    """The mesh file ``path`` (``scene.load_mesh``: STL or OBJ) into the
+    pool, or the procedural stand-in mesh (1280 triangles at subdivision
+    3); returns its span."""
     if path is not None:
-        raise NotImplementedError("model files (STL/OBJ): a later slice")
+        return load_mesh(path, scene.pool)
     pos, nrm = organic_blob(subdivisions=subdivisions)
     return scene.pool.append(pos, nrm)
 

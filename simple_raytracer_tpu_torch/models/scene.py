@@ -7,9 +7,13 @@ both packages hand their renderers identical arrays.  Mesh instances
 point into a shared triangle pool and are flattened to world space at
 build; a mesh of at least ``cluster_threshold`` triangles is reordered
 into BVH clusters (``accel.py``) of ``cluster_size`` slots, or of 64 or
-128 by the automatic rule.  A texture skybox (``Scene.skybox``, an
-(H, W, 3) f32 image, row 0 the bottom) is uploaded once per image object
-and device (``_build_skybox``).  Model files are a later slice and raise.
+128 by the automatic rule, decided once per mesh topology.  The topology
+is cached, so ``build(refit=True)`` after a transform edit recomputes
+only the cluster boxes (``accel.refit_clusters``) and never changes K.
+A texture skybox (``Scene.skybox``, an (H, W, 3) f32 image, row 0 the
+bottom) is uploaded once per image object and device
+(``_build_skybox``).  ``load_mesh`` and ``import_model`` read an STL or
+OBJ file into the pool (``io/stl.py``, ``io/obj.py``).
 """
 from __future__ import annotations
 
@@ -58,20 +62,19 @@ def _padded_clusters(c_raw: int) -> int:
     return ((c_raw + 127) // 128) * 128
 
 
-def _clusters(pos: np.ndarray, k: Optional[int] = None) -> accel.Clusters:
-    """BVH clusters of ``k`` triangles or, for None, of K = 64 triangles,
-    or 128 when the padded K = 64 table would exceed TABLE_MAX_SLOTS;
-    padding clusters (every box plane at 3e38, no slots) fill the count up
-    to _padded_clusters."""
-    n = pos.shape[0]
-    if k:
-        cl = accel.build_clusters(pos, k=k)
-    else:
-        k = 128 if n > TABLE_MAX_SLOTS else 64
-        cl = accel.build_clusters(pos, k=k)
-        if (k == 64 and _padded_clusters(cl.slots.shape[0]) * 64
-                > TABLE_MAX_SLOTS):
-            cl = accel.build_clusters(pos, k=128)
+def _auto_clusters(pos: np.ndarray) -> accel.Clusters:
+    """BVH clusters of K = 64 triangles, or 128 when the padded K = 64
+    table would exceed TABLE_MAX_SLOTS."""
+    k = 128 if pos.shape[0] > TABLE_MAX_SLOTS else 64
+    cl = accel.build_clusters(pos, k=k)
+    if k == 64 and _padded_clusters(cl.slots.shape[0]) * 64 > TABLE_MAX_SLOTS:
+        cl = accel.build_clusters(pos, k=128)
+    return cl
+
+
+def _pad_clusters(cl: accel.Clusters) -> accel.Clusters:
+    """Padding clusters (every box plane at 3e38, no slots) fill the count
+    up to _padded_clusters."""
     c_raw, k = cl.slots.shape
     c_cap = _padded_clusters(c_raw)
     pad_aabb = np.zeros((c_cap - c_raw, 8), np.float32)
@@ -81,6 +84,20 @@ def _clusters(pos: np.ndarray, k: Optional[int] = None) -> accel.Clusters:
         slots=np.concatenate([cl.slots,
                               np.full((c_cap - c_raw, k), -1, np.int32)]),
         order=cl.order, k=k)
+
+
+def load_mesh(path, pool: TrianglePool) -> Tuple[int, int]:
+    """Append the STL (by its extension) or OBJ file ``path`` to ``pool``;
+    returns its (start, count) span.  A file that cannot be opened raises
+    FileNotFoundError."""
+    from ..io.obj import load_obj_model
+    from ..io.stl import load_stl_model
+    loader = (load_stl_model if str(path).lower().endswith(".stl")
+              else load_obj_model)
+    span = loader(path, pool)
+    if span is None:
+        raise FileNotFoundError(path)
+    return span
 
 
 class Scene:
@@ -109,6 +126,10 @@ class Scene:
         # a hint: False declares the scene enclosed (no ray reaches the
         # sky); results never depend on it
         self.sky_reachable: bool = True
+        # (topology key, K) of the automatic rule, and ((K, topology key),
+        # unpadded clusters) of the last build: refits reuse both
+        self._auto_k = None
+        self._cluster_topo = None
         if default_material:
             self.materials.push(Material(), "Material0")
 
@@ -149,10 +170,37 @@ class Scene:
         self.models.append(m)
         return m
 
-    def import_model(self, *args, **kwargs):
-        raise NotImplementedError("model files (STL/OBJ): a later slice")
+    def import_model(self, path, material: int = 0,
+                     transform: Optional[np.ndarray] = None) -> Model:
+        """Load an STL or OBJ file into the pool (``load_mesh``) and add an
+        instance of it."""
+        return self.add_model(load_mesh(path, self.pool), material=material,
+                              transform=transform)
 
-    def _triangle_arrays(self) -> dict:
+    def _clusters(self, pos: np.ndarray, refit: bool) -> accel.Clusters:
+        """The padded clusters of the (T, 3, 3) world triangles.  K is
+        ``cluster_size``, else the automatic rule's, decided once per mesh
+        topology (the pool's size and the models' spans).  With ``refit``
+        and the topology of the last build, only the boxes are
+        recomputed."""
+        topo = (len(self.pool),
+                tuple((m.triangle_index, m.num_triangles)
+                      for m in self.models))
+        k = self.cluster_size
+        if not k and self._auto_k is not None and self._auto_k[0] == topo:
+            k = self._auto_k[1]
+        cached = self._cluster_topo
+        if refit and k and cached is not None and cached[0] == (k, *topo):
+            return _pad_clusters(accel.refit_clusters(cached[1], pos))
+        if k:
+            cl = accel.build_clusters(pos, k=k)
+        else:
+            cl = _auto_clusters(pos)
+            self._auto_k = (topo, cl.k)
+        self._cluster_topo = ((cl.k, *topo), cl)
+        return _pad_clusters(cl)
+
+    def _triangle_arrays(self, refit: bool = False) -> dict:
         """World-space triangles (BVH-reordered and clustered at or above
         cluster_threshold), padded to a power-of-two bucket."""
         pos = [np.zeros((0, 3, 3), np.float32)]
@@ -167,7 +215,7 @@ class Scene:
         n = pos.shape[0]
         out = {}
         if n >= self.cluster_threshold:
-            cl = _clusters(pos, self.cluster_size)
+            cl = self._clusters(pos, refit)
             pos, nrm, mat = pos[cl.order], nrm[cl.order], mat[cl.order]
             out["clusters.aabb"] = cl.aabb
             out["clusters.slots"] = cl.slots
@@ -184,9 +232,10 @@ class Scene:
         out["triangles.active"] = np.arange(n + pad) < n
         return out
 
-    def arrays(self) -> dict:
+    def arrays(self, refit: bool = False) -> dict:
         """The padded scene as flat numpy arrays (``from_numpy`` names),
-        with the skybox image as it is, when there is one."""
+        with the skybox image as it is, when there is one; ``refit`` as in
+        ``build``."""
         out = {} if self.skybox is None else {"skybox": self.skybox}
         n = len(self.spheres)
         cap = _bucket(n)
@@ -211,7 +260,7 @@ class Scene:
             out["planes.normal"][i] = p.normal
             out["planes.material"][i] = p.material
 
-        out.update(self._triangle_arrays())
+        out.update(self._triangle_arrays(refit))
 
         mats = self.materials.materials or [Material()]
         pad = _bucket(len(mats)) - len(mats)
@@ -231,9 +280,11 @@ class Scene:
         out["sky_reachable"] = self.sky_reachable
         return out
 
-    def build(self, device) -> DeviceScene:
-        """The device scene on ``device``."""
-        arrays = self.arrays()
+    def build(self, device, refit: bool = False) -> DeviceScene:
+        """The device scene on ``device``.  ``refit=True`` reuses the
+        cached cluster topology for moved geometry (O(T) instead of a new
+        BVH); a later full build restores the boxes' quality."""
+        arrays = self.arrays(refit)
         arrays["skybox"] = self._build_skybox(device)
         return from_numpy(arrays, device)
 

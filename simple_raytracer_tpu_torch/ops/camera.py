@@ -57,6 +57,15 @@ def untile_image(img: torch.Tensor, tile) -> torch.Tensor:
     return v.permute(0, 2, 1, 3, 4).reshape(h, w, c)
 
 
+def tile_image(img: torch.Tensor, tile) -> torch.Tensor:
+    """(H, W, C) row-major image -> tile-major flat pixel order: the
+    inverse of untile_image."""
+    h, w, c = img.shape
+    th, tw = tile
+    v = img.reshape(h // th, th, w // tw, tw, c)
+    return v.permute(0, 2, 1, 3, 4).reshape(h, w, c)
+
+
 def generate_rays(width: int, height: int, num_samples: int, time: int,
                   camera_pos, rot, aspect_ratio: float, fov_scale: float,
                   row0: int = 0, tile_height: int = None, tile=None,

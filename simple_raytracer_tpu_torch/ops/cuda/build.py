@@ -5,7 +5,8 @@ library with a plain C interface under ``build/srt_torch_kernels/``,
 named by a hash of the source, the headers beside it and the flags, and
 loaded with ``ctypes``.
 No PyTorch header is compiled, so a build takes seconds.  A ``Kernel``
-also counts its launches, in all and per variant.
+also counts its launches, in all and per variant.  ``build_all`` builds
+several at once, one nvcc each.
 """
 from __future__ import annotations
 
@@ -106,3 +107,23 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{what} launch failed: "
                                + self.library().srt_error_string(err).decode())
+
+
+def build_all(kernels: Sequence[Kernel]) -> None:
+    """Build every kernel at once (a thread and one nvcc each); raise
+    RuntimeError naming each source that failed, after all have ended."""
+    errors = []
+
+    def build(kernel):
+        try:
+            kernel.library()
+        except Exception as exc:          # reported below, for any cause
+            errors.append(f"{kernel.source}: {exc!r}")
+
+    threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError("\n".join(errors))

@@ -28,9 +28,18 @@ per bounce the nearest sphere and plane as the BVH's far bound, the BVH
 kernel, and the per-bounce shade kernel (``ops/cuda/bounce_kernel.py``);
 the environment once at the end.
 
+A first-hit AOV (``aov`` "normals", "depth" or "albedo", the JAX
+``show_normals`` modes) traces one segment: the hit's normal as
+n * 0.5 + 0.5, its depth as 1 / (1 + t) in grey (a miss exactly 0, its
+sky suppressed) or its material's colour; a miss keeps the sky, but for
+depth.
+
 ``render_pass`` traces one progressive pass and adds its per-pixel sample
 mean to the canvas, routed as the JAX ``render_pass`` routes on the TPU:
 
+  - an AOV pass always takes the split ``trace_rays``, as JAX's
+    ``use_mega`` and ``_fused_ok`` decline it: a clustered mesh launches
+    the BVH kernel;
   - a scene inside the whole-trace kernel's envelope (under "auto" or
     "fused"; "fused" widens it to config 6's packed table) takes that
     kernel, its plain version on the CPU;
@@ -68,11 +77,19 @@ class CameraState(NamedTuple):
 
 # the triangle backends of the JAX RenderOptions
 TRI_BACKENDS = ("auto", "bvh", "clustered", "fused", "jnp", "pallas")
+# the first-hit AOV modes (None: the path-traced image)
+AOVS = ("normals", "depth", "albedo")
 
 
 def check_tri_backend(tri_backend: str) -> None:
     if tri_backend not in TRI_BACKENDS:
         raise ValueError(f"unknown tri_backend {tri_backend!r}")
+
+
+def check_aov(aov) -> None:
+    if aov is not None and aov not in AOVS:
+        raise ValueError(f"unknown aov {aov!r} "
+                         "(None | 'normals' | 'depth' | 'albedo')")
 
 
 def add_sky(scene: DeviceScene, color: Vec3, sky_mask: Vec3,
@@ -86,17 +103,40 @@ def add_sky(scene: DeviceScene, color: Vec3, sky_mask: Vec3,
 
 def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
                num_bounces: int, segments: Optional[list] = None,
-               split: bool = False, tri_backend: str = "auto") -> Vec3:
+               split: bool = False, tri_backend: str = "auto",
+               aov: Optional[str] = None,
+               tri_chunk: Optional[int] = None) -> Vec3:
     """Trace the (R,) ray batch to completion; returns per-ray radiance
     (``trace_rays_rows``, then ``add_sky``)."""
     return add_sky(scene, *trace_rays_rows(scene, o, d, seed, num_bounces,
-                                           segments, split, tri_backend))
+                                           segments, split, tri_backend,
+                                           aov, tri_chunk))
+
+
+def first_hit_aov(scene: DeviceScene, aov: str, hit, h_alive: torch.Tensor,
+                  m_alive: torch.Tensor, color: Vec3, sky_mask: Vec3):
+    """(color, sky_mask) of a first-hit AOV segment: the hit rays' value
+    (the normal as n * 0.5 + 0.5, the depth as 1 / (1 + t) in grey, the
+    material's colour); "depth" also zeroes the misses' sky mask, so a
+    miss is exactly 0."""
+    check_aov(aov)
+    if aov == "normals":
+        val = hit.normal * 0.5 + 0.5
+    elif aov == "depth":
+        g = torch.ones_like(hit.t) / (1.0 + hit.t)
+        val = Vec3(g, g, g)
+        z = torch.zeros_like(hit.t)
+        sky_mask = vwhere(m_alive, Vec3(z, z, z), sky_mask)
+    else:
+        val = gather_materials(scene.materials, hit.material).color
+    return vwhere(h_alive, val, color), sky_mask
 
 
 def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
                     seed: torch.Tensor, num_bounces: int,
                     segments: Optional[list] = None, split: bool = False,
-                    tri_backend: str = "auto"):
+                    tri_backend: str = "auto", aov: Optional[str] = None,
+                    tri_chunk: Optional[int] = None):
     """Trace the (R,) ray batch to completion, without the environment:
     (color, sky_mask, sky_dir), the emission gathered and the throughput
     and direction at each ray's miss ((0, 0, 0) and (0, 0, 1) for a ray
@@ -106,7 +146,10 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
     rays whose nearest hit is a triangle) triple per bounce: the work the
     kernel does, which depends on the data.  ``split`` selects the split
     per-bounce path's nearest hit and its compaction policy, where
-    ``tri_backend`` picks the triangle route (``closest_hit_split``)."""
+    ``tri_backend`` picks the triangle route (``closest_hit_split``).
+    ``aov`` traces the first segment only and records that AOV
+    (``first_hit_aov``).  ``tri_chunk`` caps the dense loop's triangles
+    a chunk; no result depends on it."""
     zeros = torch.zeros_like(o.x)
     ones = torch.ones_like(o.x)
     color = Vec3(zeros, zeros, zeros)
@@ -119,14 +162,14 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
     compact_later = bvh.compacts(o.x.shape[0])
     compact_first = compact_later and bvh.table_streams_hbm(
         scene.triangles.clusters)
-    for i in range(num_bounces):
+    for i in range(1 if aov is not None else num_bounces):
         if split:
             hit = closest_hit_split(
                 scene, o, d, alive,
                 compact=compact_first if i == 0 else compact_later,
-                tri_backend=tri_backend)
+                tri_backend=tri_backend, tri_chunk=tri_chunk)
         else:
-            hit = closest_hit(scene, o, d)
+            hit = closest_hit(scene, o, d, tri_chunk=tri_chunk)
         h_alive = alive & hit.hit
         if segments is not None:
             segments.append((int(alive.sum()), int(h_alive.sum()),
@@ -134,6 +177,10 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
         m_alive = alive & ~hit.hit
         sky_mask = vwhere(m_alive, mask, sky_mask)
         sky_dir = vwhere(m_alive, d, sky_dir)
+        if aov is not None:
+            color, sky_mask = first_hit_aov(scene, aov, hit, h_alive,
+                                            m_alive, color, sky_mask)
+            break
 
         mat = gather_materials(scene.materials, hit.material)
         emission = mask * mat.emission * mat.emission_strength
@@ -199,28 +246,31 @@ def fused_ok(scene: DeviceScene, tri_backend: str) -> bool:
 
 def trace_per_bounce(scene: DeviceScene, o: Vec3, d: Vec3,
                      seed: torch.Tensor, num_bounces: int,
-                     tri_backend: str = "auto") -> Vec3:
-    """The per-ray radiance of a scene outside the whole-trace envelope:
-    ``trace_rays_fused`` where ``fused_ok`` allows it, else the split
-    ``trace_rays``."""
-    if fused_ok(scene, tri_backend):
+                     tri_backend: str = "auto", aov: Optional[str] = None,
+                     tri_chunk: Optional[int] = None) -> Vec3:
+    """The per-ray radiance of a scene outside the whole-trace envelope,
+    or of any AOV pass: ``trace_rays_fused`` where ``fused_ok`` allows it
+    (never for an AOV), else the split ``trace_rays``."""
+    if aov is None and fused_ok(scene, tri_backend):
         return trace_rays_fused(scene, o, d, seed, num_bounces)
     return trace_rays(scene, o, d, seed, num_bounces, split=True,
-                      tri_backend=tri_backend)
+                      tri_backend=tri_backend, aov=aov, tri_chunk=tri_chunk)
 
 
 def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
                 time: int, *, width: int, height: int, num_samples: int,
                 num_bounces: int, ray_tile=None, row0: int = 0,
                 tile_height: int = None, canvas_tiled: bool = False,
-                tri_backend: str = "auto") -> torch.Tensor:
+                tri_backend: str = "auto", aov: Optional[str] = None,
+                tri_chunk: Optional[int] = None) -> torch.Tensor:
     """One progressive pass: trace S jittered samples per pixel and add the
     per-pixel mean to the (tile_height, W, 3) canvas.  A scene inside the
     whole-trace kernel's envelope (under ``tri_backend`` "auto" or
     "fused") is one launch of that kernel on a CUDA device and its plain
-    version on the CPU; any other scene takes a per-bounce path (the
-    module's docstring gives the rule), whose clustered meshes launch the
-    BVH kernel on a CUDA device.
+    version on the CPU; any other scene, and any ``aov`` pass, takes a
+    per-bounce path (the module's docstring gives the rule), whose
+    clustered meshes launch the BVH kernel on a CUDA device.
+    ``tri_chunk`` caps the dense loop's triangles a chunk.
 
     ``canvas_tiled=True`` keeps the canvas in the ray-tile pixel order (the
     engine's convention: tonemapping is per pixel, so the untile waits
@@ -230,13 +280,13 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
     if tile_height is None:
         tile_height = height
     rot = camera_rotation(camera.yaw, camera.pitch)
-    if takes_whole_trace(scene, tri_backend):
+    if aov is None and takes_whole_trace(scene, tri_backend):
         color = trace_full(
             scene, rot, camera.position, camera.aspect_ratio,
             camera.fov_scale, time, width=width, height=height,
             num_samples=num_samples, num_bounces=num_bounces, row0=row0,
             tile_height=tile_height, ray_tile=ray_tile,
-            tri_backend=tri_backend)
+            tri_backend=tri_backend, tri_chunk=tri_chunk)
     else:
         o, d, seed = generate_rays(width, height, num_samples, time,
                                    camera.position, rot,
@@ -244,7 +294,7 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
                                    row0=row0, tile_height=tile_height,
                                    tile=ray_tile, device=scene.device)
         color = trace_per_bounce(scene, o, d, seed, num_bounces,
-                                 tri_backend)
+                                 tri_backend, aov, tri_chunk)
 
     inv_s = 1.0 / num_samples
 

@@ -11,7 +11,9 @@ tri_backend="clustered"; then renders with a texture skybox written and
 read back as an .hdr (the whole-trace form and the split path), and
 under the "pallas" and "jnp" triangle routes; renders config 6 clustered
 at Scene.cluster_size=256 in the BVH kernel's Plucker form
-(SRT_BVH_MT=plucker) and runs the lowering probes' plain versions.
+(SRT_BVH_MT=plucker) and runs the lowering probes' plain versions; then
+runs the port's CLI (--device cpu) on a scene file, on an OBJ mesh with
+a depth AOV, and with --save-state.
 chip_smoke.py itself must fail, printing no result, without CUDA and
 outside the repository.
 """
@@ -117,6 +119,26 @@ del os.environ["SRT_BVH_MT"]
 probes = probe_kernel_ops.run("cpu")
 assert probes["A"]["value"] == 65536.0, probes
 assert all(p["equal"] for p in probes.values()), probes
+# the CLI: a scene file, a mesh file with an AOV, a checkpoint
+from simple_raytracer_tpu_torch import cli
+from simple_raytracer_tpu_torch.io.obj import save_obj
+from simple_raytracer_tpu_torch.io.scene_json import save_scene
+from simple_raytracer_tpu_torch.models.meshgen import organic_blob
+with tempfile.TemporaryDirectory() as tmp:
+    scene, camera, _ = CONFIGS[5]()
+    save_scene(os.path.join(tmp, "s.json"), scene, camera)
+    save_obj(os.path.join(tmp, "m.obj"), *organic_blob(subdivisions=2))
+    small = ["--width", "32", "--height", "16", "--samples", "1",
+             "--bounces", "2", "--steps", "1", "--device", "cpu"]
+    for argv in (["--scene", os.path.join(tmp, "s.json")],
+                 ["--config", "4", "--mesh-path", os.path.join(tmp, "m.obj"),
+                  "--aov", "depth"],
+                 ["--config", "2", "--save-state",
+                  os.path.join(tmp, "st.npz")]):
+        out = os.path.join(tmp, "out.ppm")
+        assert cli.main(argv + small + ["--out", out]) == 0, argv
+        assert os.path.getsize(out) == len(b"P6 32 16 255\n") + 32 * 16 * 3
+    assert int(np.load(os.path.join(tmp, "st.npz"))["num_steps"]) == 1
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 try:

@@ -109,13 +109,15 @@ def test_padding_buckets():
 
 
 def test_meshes_and_skyboxes_are_a_later_slice():
-    """Model files are a later slice and raise; a texture skybox builds
-    (it was a later slice until the texture's port): the scene's, and
-    config 3's explicit array, as an (H, W, 3) f32 tensor."""
+    """Model files were a later slice until the CLI's (tests/
+    test_torch_io.py holds them to JAX): a file that cannot be opened
+    raises FileNotFoundError, as in JAX.  A texture skybox builds (it was
+    a later slice until the texture's port): the scene's, and config 3's
+    explicit array, as an (H, W, 3) f32 tensor."""
     s = Scene()
-    with pytest.raises(NotImplementedError, match="model files"):
+    with pytest.raises(FileNotFoundError, match="suzanne.obj"):
         s.import_model("suzanne.obj")
-    with pytest.raises(NotImplementedError, match="model files"):
+    with pytest.raises(FileNotFoundError, match="suzanne.obj"):
         TCONFIGS[4](mesh_path="suzanne.obj")
     tex = np.random.default_rng(2).random((4, 8, 3)).astype(np.float32)
     s.skybox = tex
