@@ -142,7 +142,7 @@ def main(argv=None) -> int:
     if args.skybox:
         scene.skybox = load_skybox(args.skybox)
 
-    # replace, not rebuild: the preset's other fields (tri_chunk, ray_tile)
+    # replace, not rebuild: the preset's other fields (ray_tile, tri_chunk)
     # carry over
     options = dataclasses.replace(
         options,

@@ -39,7 +39,8 @@ class RenderOptions:
     # (the material's colour); one segment, accumulated and tonemapped
     # as the image is
     aov: object = None
-    # triangles a chunk of the dense loop, at most; no result depends on it
+    # the JAX option's VMEM chunk, accepted so that the same options build
+    # in either package; the port's loops size their own chunks
     tri_chunk: int = 256
     # screen-tile ray order (th, tw); None = row-major; "auto" tiles 8x64
     # when the image divides evenly.  A permutation: results are the same.
@@ -56,8 +57,6 @@ class RenderOptions:
     def __post_init__(self):
         check_tri_backend(self.tri_backend)
         check_aov(self.aov)
-        if self.tri_chunk < 1:
-            raise ValueError(f"tri_chunk must be >= 1, not {self.tri_chunk}")
 
     @property
     def aov_mode(self) -> Optional[str]:
@@ -156,8 +155,7 @@ class Renderer:
             self._canvas, time, width=o.width, height=o.height,
             num_samples=o.num_samples, num_bounces=o.num_bounces,
             ray_tile=self._tile, canvas_tiled=self._tile is not None,
-            tri_backend=o.tri_backend, aov=o.aov_mode,
-            tri_chunk=o.tri_chunk)
+            tri_backend=o.tri_backend, aov=o.aov_mode)
         self.num_steps += 1
 
     def render(self, camera: Camera, num_steps: int = 1,

@@ -185,38 +185,35 @@ def check_shared_bytes(n_bytes: int, limit: int) -> None:
 def trace_full_plain(scene: DeviceScene, rot, position, aspect_ratio,
                      fov_scale, time, *, width, height, num_samples,
                      num_bounces, row0=0, tile_height=None, ray_tile=None,
-                     segments=None, rows: bool = False, tri_chunk=None):
+                     segments=None, rows: bool = False):
     """The plain PyTorch version: generate_rays, then trace_rays_rows and
     add_sky; with ``rows``, the nine rows (color, sky_mask, sky_dir)
-    before the environment instead.  ``tri_chunk`` caps the dense loop's
-    triangles a chunk."""
+    before the environment instead."""
     from ..trace import add_sky, trace_rays_rows
     o, d, seed = generate_rays(width, height, num_samples, time, position,
                                rot, aspect_ratio, fov_scale, row0=row0,
                                tile_height=tile_height, tile=ray_tile,
                                device=scene.device)
-    out = trace_rays_rows(scene, o, d, seed, num_bounces, segments,
-                          tri_chunk=tri_chunk)
+    out = trace_rays_rows(scene, o, d, seed, num_bounces, segments)
     return out if rows else add_sky(scene, *out)
 
 
 def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
                time, *, width, height, num_samples, num_bounces, row0=0,
                tile_height=None, ray_tile=None,
-               tri_backend: str = "auto", tri_chunk=None) -> Vec3:
+               tri_backend: str = "auto") -> Vec3:
     """Per-ray radiance of the (tile_height * W * S,) rays of one pass
     (ray i is local_pixel * S + sample, pixels in ray-tile order when
     ``ray_tile`` is set).  ``tri_backend`` sets the envelope
     (``whole_trace_variant``).  A scene with a texture skybox takes the
-    nine-row form, then the texture's sample.  ``tri_chunk`` reaches the
-    plain version's dense loop only."""
+    nine-row form, then the texture's sample."""
     from ..trace import add_sky
     kw = dict(width=width, height=height, num_samples=num_samples,
               num_bounces=num_bounces, row0=row0, tile_height=tile_height,
               ray_tile=ray_tile)
     if scene.device.type == "cpu":
         return trace_full_plain(scene, rot, position, aspect_ratio,
-                                fov_scale, time, tri_chunk=tri_chunk, **kw)
+                                fov_scale, time, **kw)
     out = launch(prepare(scene, rot, position, aspect_ratio, fov_scale,
                          time, tri_backend=tri_backend, **kw))
     if out.shape[0] == 9:

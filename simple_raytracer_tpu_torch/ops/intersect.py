@@ -81,15 +81,15 @@ def intersect_planes(o: Vec3, d: Vec3, p: Planes):
     return torch.min(torch.where(valid, t, math.inf), dim=1)
 
 
-def intersect_triangles(o: Vec3, d: Vec3, tr: Triangles, chunk=None):
+def intersect_triangles(o: Vec3, d: Vec3, tr: Triangles):
     """(R,) rays x (Nt,) triangles -> (t_best, idx_best, u, v): the dense
     loop ``triangle.nearest_triangle`` (MT under the reference's rules,
     the first index winning an exact tie, in chunks of at most
-    TRI_CHUNK_ELEMS ray-triangle pairs and at most ``chunk`` triangles),
-    with MT's (u, v) at the winner."""
+    TRI_CHUNK_ELEMS ray-triangle pairs), with MT's (u, v) at the
+    winner."""
     cols = lambda t: Vec3(t[:, 0], t[:, 1], t[:, 2])
     return nearest_triangle(o, d, cols(tr.v0), cols(tr.v1 - tr.v0),
-                            cols(tr.v2 - tr.v0), tr.active, chunk)
+                            cols(tr.v2 - tr.v0), tr.active)
 
 
 def triangle_normal(tr: Triangles, idx: torch.Tensor, u: torch.Tensor,
@@ -172,16 +172,15 @@ def _spheres_planes(scene: DeviceScene, o: Vec3, d: Vec3):
     return t_s, i_s, t_p, i_p
 
 
-def closest_hit(scene: DeviceScene, o: Vec3, d: Vec3,
-                tri_chunk=None) -> Hit:
-    """The whole-trace kernel's nearest hit: every triangle densely (at
-    most ``tri_chunk`` a chunk), the smooth normal at MT's (u, v)."""
+def closest_hit(scene: DeviceScene, o: Vec3, d: Vec3) -> Hit:
+    """The whole-trace kernel's nearest hit: every triangle densely, the
+    smooth normal at MT's (u, v)."""
     t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
     tr = scene.triangles
     t_t = torch.full_like(o.x, math.inf)
     i_t = u_t = v_t = None
     if tr.material.shape[0] > 0:
-        t_t, i_t, u_t, v_t = intersect_triangles(o, d, tr, tri_chunk)
+        t_t, i_t, u_t, v_t = intersect_triangles(o, d, tr)
     return _resolve(scene, o, d, t_s, i_s, t_p, i_p, t_t,
                     lambda position: (normalize(triangle_normal(
                         tr, i_t, u_t, v_t)), tr.material[i_t]))
@@ -201,7 +200,7 @@ def shade_from_position(rows: torch.Tensor, position: Vec3):
 
 def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
                       alive: torch.Tensor, compact: bool = False,
-                      tri_backend: str = "auto", tri_chunk=None) -> Hit:
+                      tri_backend: str = "auto") -> Hit:
     """The split path's nearest hit for the (R,) rays whose ``alive`` is
     set (the other rays' results are not used).
 
@@ -216,9 +215,8 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
     behind the ray compaction when ``compact``; ``tri_backend="clustered"``
     forces its streamed variant, as the JAX ``closest_hit`` forces
     ``hbm_table``.  Its winner's row is the slot table's, at the slot it
-    reports.  A mesh without clusters goes through the dense loop (at most
-    ``tri_chunk`` triangles a chunk).  The winner is shaded at the hit
-    position."""
+    reports.  A mesh without clusters goes through the dense loop.  The
+    winner is shaded at the hit position."""
     t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
     tr = scene.triangles
     t_t = torch.full_like(o.x, math.inf)
@@ -237,7 +235,7 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
             i_t = i_t.clamp_min(0).long()   # slot -1 (no win): t is +inf
             rows = tr.table
         else:
-            t_t, i_t, _, _ = intersect_triangles(o, d, tr, tri_chunk)
+            t_t, i_t, _, _ = intersect_triangles(o, d, tr)
     return _resolve(scene, o, d, t_s, i_s, t_p, i_p, t_t,
                     lambda position: shade_from_position(rows[i_t],
                                                          position))

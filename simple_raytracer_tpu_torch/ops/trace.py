@@ -104,13 +104,12 @@ def add_sky(scene: DeviceScene, color: Vec3, sky_mask: Vec3,
 def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
                num_bounces: int, segments: Optional[list] = None,
                split: bool = False, tri_backend: str = "auto",
-               aov: Optional[str] = None,
-               tri_chunk: Optional[int] = None) -> Vec3:
+               aov: Optional[str] = None) -> Vec3:
     """Trace the (R,) ray batch to completion; returns per-ray radiance
     (``trace_rays_rows``, then ``add_sky``)."""
     return add_sky(scene, *trace_rays_rows(scene, o, d, seed, num_bounces,
                                            segments, split, tri_backend,
-                                           aov, tri_chunk))
+                                           aov))
 
 
 def first_hit_aov(scene: DeviceScene, aov: str, hit, h_alive: torch.Tensor,
@@ -119,7 +118,6 @@ def first_hit_aov(scene: DeviceScene, aov: str, hit, h_alive: torch.Tensor,
     (the normal as n * 0.5 + 0.5, the depth as 1 / (1 + t) in grey, the
     material's colour); "depth" also zeroes the misses' sky mask, so a
     miss is exactly 0."""
-    check_aov(aov)
     if aov == "normals":
         val = hit.normal * 0.5 + 0.5
     elif aov == "depth":
@@ -135,8 +133,7 @@ def first_hit_aov(scene: DeviceScene, aov: str, hit, h_alive: torch.Tensor,
 def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
                     seed: torch.Tensor, num_bounces: int,
                     segments: Optional[list] = None, split: bool = False,
-                    tri_backend: str = "auto", aov: Optional[str] = None,
-                    tri_chunk: Optional[int] = None):
+                    tri_backend: str = "auto", aov: Optional[str] = None):
     """Trace the (R,) ray batch to completion, without the environment:
     (color, sky_mask, sky_dir), the emission gathered and the throughput
     and direction at each ray's miss ((0, 0, 0) and (0, 0, 1) for a ray
@@ -148,8 +145,7 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
     per-bounce path's nearest hit and its compaction policy, where
     ``tri_backend`` picks the triangle route (``closest_hit_split``).
     ``aov`` traces the first segment only and records that AOV
-    (``first_hit_aov``).  ``tri_chunk`` caps the dense loop's triangles
-    a chunk; no result depends on it."""
+    (``first_hit_aov``)."""
     zeros = torch.zeros_like(o.x)
     ones = torch.ones_like(o.x)
     color = Vec3(zeros, zeros, zeros)
@@ -167,9 +163,9 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
             hit = closest_hit_split(
                 scene, o, d, alive,
                 compact=compact_first if i == 0 else compact_later,
-                tri_backend=tri_backend, tri_chunk=tri_chunk)
+                tri_backend=tri_backend)
         else:
-            hit = closest_hit(scene, o, d, tri_chunk=tri_chunk)
+            hit = closest_hit(scene, o, d)
         h_alive = alive & hit.hit
         if segments is not None:
             segments.append((int(alive.sum()), int(h_alive.sum()),
@@ -246,23 +242,23 @@ def fused_ok(scene: DeviceScene, tri_backend: str) -> bool:
 
 def trace_per_bounce(scene: DeviceScene, o: Vec3, d: Vec3,
                      seed: torch.Tensor, num_bounces: int,
-                     tri_backend: str = "auto", aov: Optional[str] = None,
-                     tri_chunk: Optional[int] = None) -> Vec3:
+                     tri_backend: str = "auto",
+                     aov: Optional[str] = None) -> Vec3:
     """The per-ray radiance of a scene outside the whole-trace envelope,
     or of any AOV pass: ``trace_rays_fused`` where ``fused_ok`` allows it
     (never for an AOV), else the split ``trace_rays``."""
     if aov is None and fused_ok(scene, tri_backend):
         return trace_rays_fused(scene, o, d, seed, num_bounces)
     return trace_rays(scene, o, d, seed, num_bounces, split=True,
-                      tri_backend=tri_backend, aov=aov, tri_chunk=tri_chunk)
+                      tri_backend=tri_backend, aov=aov)
 
 
 def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
                 time: int, *, width: int, height: int, num_samples: int,
                 num_bounces: int, ray_tile=None, row0: int = 0,
                 tile_height: int = None, canvas_tiled: bool = False,
-                tri_backend: str = "auto", aov: Optional[str] = None,
-                tri_chunk: Optional[int] = None) -> torch.Tensor:
+                tri_backend: str = "auto",
+                aov: Optional[str] = None) -> torch.Tensor:
     """One progressive pass: trace S jittered samples per pixel and add the
     per-pixel mean to the (tile_height, W, 3) canvas.  A scene inside the
     whole-trace kernel's envelope (under ``tri_backend`` "auto" or
@@ -270,7 +266,6 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
     version on the CPU; any other scene, and any ``aov`` pass, takes a
     per-bounce path (the module's docstring gives the rule), whose
     clustered meshes launch the BVH kernel on a CUDA device.
-    ``tri_chunk`` caps the dense loop's triangles a chunk.
 
     ``canvas_tiled=True`` keeps the canvas in the ray-tile pixel order (the
     engine's convention: tonemapping is per pixel, so the untile waits
@@ -286,7 +281,7 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
             camera.fov_scale, time, width=width, height=height,
             num_samples=num_samples, num_bounces=num_bounces, row0=row0,
             tile_height=tile_height, ray_tile=ray_tile,
-            tri_backend=tri_backend, tri_chunk=tri_chunk)
+            tri_backend=tri_backend)
     else:
         o, d, seed = generate_rays(width, height, num_samples, time,
                                    camera.position, rot,
@@ -294,7 +289,7 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
                                    row0=row0, tile_height=tile_height,
                                    tile=ray_tile, device=scene.device)
         color = trace_per_bounce(scene, o, d, seed, num_bounces,
-                                 tri_backend, aov, tri_chunk)
+                                 tri_backend, aov)
 
     inv_s = 1.0 / num_samples
 

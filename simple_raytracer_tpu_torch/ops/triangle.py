@@ -125,12 +125,10 @@ def pretest_rejects(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def nearest_triangle(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3,
-                     active: torch.Tensor, max_chunk=None):
+                     active: torch.Tensor):
     """(R,) rays x (T,) triangles given as v0, e1, e2 ((T,) components)
     and bool ``active`` -> (t_best, idx_best int64, u, v): the nearest
-    valid hit, (+inf, 0) on a miss, and MT's (u, v) at the winner.  A
-    chunk holds at most ``max_chunk`` triangles (None: no cap but
-    TRI_CHUNK_ELEMS); no result depends on it."""
+    valid hit, (+inf, 0) on a miss, and MT's (u, v) at the winner."""
     max_elems = TRI_CHUNK_ELEMS.get(o.x.device.type, 2 ** 22)
     n = active.shape[0]
     col = lambda v: Vec3(v.x[:, None], v.y[:, None], v.z[:, None])
@@ -140,8 +138,6 @@ def nearest_triangle(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3,
     u_best = torch.zeros_like(o.x)
     v_best = torch.zeros_like(o.x)
     chunk = max(1, max_elems // max(o.x.shape[0], 1))
-    if max_chunk is not None:
-        chunk = min(chunk, max_chunk)
     for c0 in range(0, n, chunk):
         sl = slice(c0, c0 + chunk)
         row = lambda v: Vec3(v.x[None, sl], v.y[None, sl], v.z[None, sl])

@@ -1,7 +1,8 @@
 """The port's engine state against simple_raytracer_tpu: checkpoints
 (Renderer.state_dict / load_state_dict) across the two packages, a resume
 equal to an uninterrupted render, tile_image, refit_clusters and the
-scene's cluster-topology cache, and RenderOptions.tri_chunk."""
+scene's cluster-topology cache, and RenderOptions.tri_chunk (accepted,
+changing nothing)."""
 import numpy as np
 import pytest
 import torch
@@ -143,18 +144,13 @@ def test_scene_refit_keeps_k_and_topology_as_jax(monkeypatch):
     assert r.render(camera).std() > 0
 
 
-@pytest.mark.parametrize("n, backend", [(3, "auto"), (4, "jnp"),
-                                        (4, "auto")])
-def test_tri_chunk_changes_no_result(n, backend):
-    """The dense loop's chunk (the whole-trace plain version on config 3,
-    the split path's "jnp" loop on config 4, config 4's plain
-    whole-trace loop) changes no bit of the canvas."""
+def test_tri_chunk_changes_no_result():
+    """RenderOptions takes the JAX option tri_chunk, and no value of it
+    changes a bit of the canvas (config 3's whole-trace plain version,
+    whose dense loop sizes its own chunks)."""
     canvases = []
-    for chunk in (13, 256, 100000):
-        r, camera = _renderer(n, tri_chunk=chunk, tri_backend=backend)
+    for chunk in (13, 256):
+        r, camera = _renderer(3, tri_chunk=chunk)
         r.step(camera, time=2)
         canvases.append(r.canvas.numpy())
-    for c in canvases[1:]:
-        np.testing.assert_array_equal(c, canvases[0])
-    with pytest.raises(ValueError, match="tri_chunk"):
-        RenderOptions(tri_chunk=0)
+    np.testing.assert_array_equal(canvases[1], canvases[0])

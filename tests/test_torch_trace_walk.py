@@ -296,8 +296,8 @@ def record_bounces(scene, camera, opt, w, h, samples=1, time_seed=4242):
     rec = []
     saved = trace_mod.closest_hit
 
-    def hit_of(sc, o, d, tri_chunk=None):
-        hit = saved(sc, o, d, tri_chunk)
+    def hit_of(sc, o, d):
+        hit = saved(sc, o, d)
         t_s, _, t_p, _ = intersect._spheres_planes(sc, o, d)
         rec.append((o, d, hit.hit, torch.minimum(t_s, t_p)))
         return hit
@@ -589,7 +589,7 @@ def test_whole_trace_through_the_walk_matches_plain_and_tpu_kernel(
     plain = tk.trace_full_plain(*args, **kw)
     alive = [None]
 
-    def hit_of(sc, o, d, tri_chunk=None):
+    def hit_of(sc, o, d):
         live = (torch.ones_like(o.x, dtype=torch.bool) if alive[0] is None
                 else alive[0])
         hit = walk_closest_hit(sc, o, d, live)
