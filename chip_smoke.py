@@ -136,7 +136,18 @@ are a path of their own.  Phases, one line each on stdout:
      of rows (the rule of phase 4), every AOV BVH launch against its
      plain version ((t, slot) on every live ray) and each AOV canvas
      against the plain BVH version's (the canvas rule), and each AOV pass
-     timed with CUDA events.
+     timed with CUDA events;
+  9. multi-device bands on the one card (parallel/, the counts reset just
+     before each banded run and read just after): config 2 at 1920x1080
+     in 4 bands over ["cuda:0"] * 4, configs 2, 5 and 6 (the split path,
+     two_level) and the three showcase scenes at 960x540 in 2 bands, 2
+     steps each, every canvas bit for bit the single-device Renderer's
+     on the same device scene, with each case's launches, the host
+     syncs of a banded step (torch.cuda.set_sync_debug_mode) and
+     benchmark_step banded and single; the CLI's config 2 with
+     --all-devices --distributed in 2 processes on the card (gloo on
+     localhost), rank 0's PNG and checkpoint bit for bit the one-process
+     CLI's and no file from rank 1; dryrun_multichip(2).
 Then one JSON line per the kernel table (the triangle kernel's row also
 carries its full-MT bounds over the live pairs and over every ray, and
 its 6/pallas numbers), the card line again, and the last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -155,6 +166,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -174,6 +186,7 @@ from simple_raytracer_tpu_torch.models.camera import Camera
 from simple_raytracer_tpu_torch.models.materials import Material
 from simple_raytracer_tpu_torch.models.meshgen import organic_blob
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
+from simple_raytracer_tpu_torch.models import showcase
 from simple_raytracer_tpu_torch.models.scene import Scene
 from simple_raytracer_tpu_torch.models.shapes import transform_trs
 from simple_raytracer_tpu_torch.ops import bvh
@@ -197,6 +210,7 @@ from simple_raytracer_tpu_torch.ops.triangle import (intersect_packed_plain,
                                                      stage_triangles,
                                                      staged_table)
 from simple_raytracer_tpu_torch.ops.vec import Vec3
+from simple_raytracer_tpu_torch.parallel.dryrun import dryrun_multichip
 from simple_raytracer_tpu_torch.scripts import probe_kernel_ops as probe
 
 STEPS = 4                      # progressive steps on the main path
@@ -284,15 +298,16 @@ HBM_BYTES_PER_S = 3.35e12
 PROBE_CALLS = 100              # probe launches timed per probe
 # the kernel rows of the JSON line: (name, kernel, TPU kernel (under
 # simple_raytracer_tpu/ops/pallas/ unless a path), the cell timed, the
-# cells whose launches it counts ("cli": phase 8's), the variants counted
-# (None: every variant))
-WHOLE = ("1", "2", "3", "4", "5", "6/fused", "cli")
-ALL = tuple(CELLS) + ("cli",)
+# cells whose launches it counts ("cli": phase 8's, "par": phase 9's), the
+# variants counted (None: every variant))
+WHOLE = ("1", "2", "3", "4", "5", "6/fused", "cli", "par")
+ALL = tuple(CELLS) + ("cli", "par")
 ROWS = (
     ("trace_kernel", "trace", "bounce_kernel.py:659", "2", WHOLE, None),
-    ("tris_small", "trace", "bounce_kernel.py:238", "3", ("3",), "small"),
+    ("tris_small", "trace", "bounce_kernel.py:238", "3", ("3", "par"),
+     "small"),
     ("tris_clustered", "trace", "bounce_kernel.py:291", "5",
-     ("4", "5", "cli"), "clustered"),
+     ("4", "5", "cli", "par"), "clustered"),
     ("tris_clustered_packed", "trace", "bounce_kernel.py:376", "6/fused",
      ("6/fused",), "clustered"),
     ("trace_kernel_texture", "trace", "bounce_kernel.py:811", "3/texture",
@@ -2194,6 +2209,221 @@ def cli_phase(card: str, scenes: dict, textures_dir: Path) -> tuple:
     return got, trace_max, bvh_max
 
 
+# phase 9, multi-device bands on the one card: the in-process cases
+# (label, scene builder, band count), each PAR_STEPS progressive steps
+# from PAR_TIME0, banded and on one device; then the CLI in PAR_PROCS
+# processes on the card against one process, and the dry run
+PAR_STEPS = 2
+PAR_TIME0 = 11
+PAR_CASES = (
+    ("2 1920x1080", lambda: CONFIGS[2](width=1920, height=1080), 4),
+    ("2", CONFIGS[2], 2), ("5", CONFIGS[5], 2), ("6", CONFIGS[6], 2),
+    ("red_green", showcase.showcase_red_green, 2),
+    ("spheres", showcase.showcase_spheres, 2),
+    ("model", showcase.showcase_model, 2))
+PAR_PROCS = 2
+PAR_PROC_TIMEOUT = 120         # seconds each CLI process may take
+PAR_BENCH_ITERS = 5            # steps timed, banded and single
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_counts() -> dict:
+    return {kind: dict(k.variant_launches) for kind, k in KERNELS.items()}
+
+
+def add_counts(into: dict, counts: dict) -> None:
+    for kind, by_variant in counts.items():
+        for v, c in by_variant.items():
+            into[kind][v] = into[kind].get(v, 0) + c
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaN patterns included."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def host_syncs(fn) -> collections.Counter:
+    """The calls of ``fn`` that synchronise the host with the card
+    (torch.cuda.set_sync_debug_mode), by the Python line that made them
+    and the warning's first words."""
+    import warnings
+    # the mode's own first use may warn once; keep that out of the count
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno} "
+        f"({' '.join(str(w.message).split()[:6])})" for w in caught)
+
+
+def steps_seconds(r: Renderer, camera) -> float:
+    """Seconds a step of ``r`` over PAR_BENCH_ITERS steps, by the host
+    clock with the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_BENCH_ITERS):
+        r.step(camera)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / PAR_BENCH_ITERS
+
+
+def parallel_case(label: str, builder, n: int, card: str) -> dict:
+    """One in-process case: the banded canvas over ["cuda:0"] * n against
+    the single-device Renderer's on one device scene, bit for bit; the
+    banded steps' launches (returned), a banded step's host syncs, the
+    time of a step banded and single, and the banded benchmark_step."""
+    t0 = time.perf_counter()
+    scene, camera, options = builder()
+    ds = scene.build("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    single = Renderer(options, device="cuda")
+    banded = Renderer(dataclasses.replace(options, all_devices=True),
+                      device=["cuda:0"] * n)
+    for r in (single, banded):
+        r.set_device_scene(ds)
+    times = [PAR_TIME0 + i for i in range(PAR_STEPS)]
+    for t in times:
+        single.step(camera, time=t)
+    torch.cuda.synchronize()
+    for kernel in KERNELS.values():
+        kernel.reset_counts()
+    t1 = time.perf_counter()
+    for t in times:
+        banded.step(camera, time=t)
+    torch.cuda.synchronize()
+    banded_s = time.perf_counter() - t1
+    got = launch_counts()
+    a, b = banded.canvas, single.canvas
+    same = same_bits(a, b)
+    both = torch.isfinite(a) & torch.isfinite(b)
+    max_abs = float((a - b).abs()[both].max()) if bool(both.any()) else 0.0
+    variant = whole_trace_variant(ds, options.tri_backend)
+    per_step = 1 if variant is not None else options.num_bounces
+    kind = "trace" if variant is not None else "bvh"
+    want_n = n * PAR_STEPS * per_step
+    launched = sum(got[kind].values())
+    syncs = host_syncs(lambda: banded.step(camera, time=PAR_TIME0))
+    step_ms = {name: steps_seconds(r, camera) * 1e3
+               for name, r in (("banded", banded), ("single", single))}
+    bench_ms = banded.benchmark_step(camera, iters=PAR_BENCH_ITERS,
+                                     warmup=1)["seconds_per_step"] * 1e3
+    say(f"[9] {label} {options.width}x{options.height} spp="
+        f"{options.num_samples} b={options.num_bounces} in {n} bands over "
+        f"cuda:0 (ray tile {banded.ray_tile}; one device {single.ray_tile}):"
+        f" {PAR_STEPS} steps, canvas bit-identical to the single-device "
+        f"Renderer's: {same}, max|d| {max_abs}; launches {got} "
+        f"(want {want_n} {kind}); host syncs in a banded step "
+        f"{sum(syncs.values())} {dict(syncs)}; a step banded "
+        f"{step_ms['banded']:.4f} ms, single {step_ms['single']:.4f} ms "
+        f"(host clock over {PAR_BENCH_ITERS} steps, the card synchronised "
+        f"before and after), banded benchmark_step {bench_ms:.4f} ms; the "
+        f"first {PAR_STEPS} banded steps {banded_s:.3f} s; build "
+        f"{build_s:.3f} s. One card shows no scaling: the bands share it  "
+        f"[{card}]")
+    if not same:
+        fail(f"parallel {label}: the banded canvas differs from the single-"
+             f"device one (max|d| {max_abs})")
+    if launched != want_n:
+        fail(f"parallel {label}: {launched} {kind} launches, want {want_n}")
+    return got
+
+
+def parallel_cli(card: str, tmp: Path) -> None:
+    """The CLI's config 2 in PAR_PROCS processes on the one card against
+    the one-process CLI: rank 0's PNG and checkpoint bit for bit, no file
+    from the others, every exit 0."""
+    common = ["--config", "2", "--steps", "4", "--time-seed", "7"]
+    cli_run(common + ["--out", str(tmp / "one.png"), "--save-state",
+                      str(tmp / "one.npz")])
+    port = free_port()
+    env = dict(os.environ)
+    env.pop("LOCAL_RANK", None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "simple_raytracer_tpu_torch.cli", *common,
+         "--all-devices", "--distributed", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", str(PAR_PROCS),
+         "--process-id", str(i), "--out", str(tmp / f"p{i}.png"),
+         "--save-state", str(tmp / f"p{i}.npz")],
+        cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(PAR_PROCS)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=PAR_PROC_TIMEOUT))
+            except subprocess.TimeoutExpired:
+                fail(f"parallel cli: a process ran past "
+                     f"{PAR_PROC_TIMEOUT} s")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for i, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"parallel cli: process {i} exited {p.returncode}: "
+                 f"{se[-2000:]}")
+    from PIL import Image
+    png_same = np.array_equal(np.asarray(Image.open(tmp / "p0.png")),
+                              np.asarray(Image.open(tmp / "one.png")))
+    with np.load(tmp / "p0.npz") as p0, np.load(tmp / "one.npz") as one:
+        npz_same = (np.array_equal(p0["canvas"].view(np.int32),
+                                   one["canvas"].view(np.int32))
+                    and int(p0["num_steps"]) == int(one["num_steps"]))
+    others = [f"p{i}.{ext}" for i in range(1, PAR_PROCS)
+              for ext in ("png", "npz") if (tmp / f"p{i}.{ext}").exists()]
+    bands = [line for _, se in outs for line in se.splitlines()
+             if "band(s)" in line]
+    say(f"[9] the CLI, config 2 --all-devices --distributed in {PAR_PROCS} "
+        f"processes on cuda:0 (gloo over 127.0.0.1:{port}), each with a "
+        f"timeout of {PAR_PROC_TIMEOUT} s: exits "
+        f"{[p.returncode for p in procs]} in {wall:.2f} s; {bands}; rank "
+        f"0's PNG equal to the one-process CLI's: {png_same}, its "
+        f"checkpoint bit for bit: {npz_same}; files from the other ranks: "
+        f"{others or 'none'}  [{card}]")
+    if not (png_same and npz_same and not others):
+        fail("parallel cli: the multi-process files")
+
+
+def parallel_phase(card: str) -> dict:
+    """Phase 9: the bands on the one card, in process and across
+    processes, and the dry run.  Returns the banded launches."""
+    t0 = time.perf_counter()
+    totals = {kind: {} for kind in KERNELS}
+    for label, builder, n in PAR_CASES:
+        add_counts(totals, parallel_case(label, builder, n, card))
+    build_dir = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        parallel_cli(card, Path(tmp))
+    for kernel in KERNELS.values():
+        kernel.reset_counts()
+    dryrun_multichip(2)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    add_counts(totals, got)
+    say(f"[9] dryrun_multichip(2) on cuda:0 twice: config 2 at 64x16, 1 "
+        f"spp, 2 bounces, one step, the shape checked; launches {got}; the "
+        f"phase {time.perf_counter() - t0:.2f} s; its launches {totals}  "
+        f"[{card}]")
+    return totals
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -2924,6 +3154,9 @@ def main(argv=None) -> int:
         totals["cli"], cli_max["trace"], cli_max["bvh"] = cli_phase(
             card, scenes, Path(tmp))
 
+    # ---- 9: multi-device bands on the one card ----
+    totals["par"] = parallel_phase(card)
+
     entries = []
     for name, kind, line, cell, covered, variant in ROWS:
         _, max_abs, k_ms, p_ms, bound_ms, bound_by, o = timing[cell]
@@ -2935,7 +3168,8 @@ def main(argv=None) -> int:
         errs = [m for v, m in cli_max.get(kind, {}).items()
                 if "cli" in covered and (counted is None or v in counted)]
         if kind == "trace":
-            errs += [results[c]["max_abs"] for c in covered if c != "cli"]
+            errs += [results[c]["max_abs"] for c in covered
+                     if c not in ("cli", "par")]
         max_abs = max(errs + [max_abs])
         if launches == 0:
             fail(f"kernel row {name}: no launch on the main path")

@@ -4,16 +4,24 @@
     srt-render-torch --scene scene.json --device cpu --out out.ppm
 
 The port's counterpart of ``simple_raytracer_tpu.cli`` (``srt-render``),
-with its flags but those of the multi-device slice (``--all-devices``,
-``--distributed``, ``--coordinator``, ``--num-processes``,
-``--process-id``), which it does not accept yet.  ``--device`` (default
-``cuda``) takes the place of ``JAX_PLATFORMS``: without a card the CLI
-exits non-zero unless it is given ``--device cpu``, which renders with
-the kernels' plain PyTorch versions.  ``--warm`` builds the render
-path's kernels (``ops/cuda/build.py``) and runs one pass, writing
-nothing.  Checkpoints (``--save-state``, ``--load-state``) hold the JAX
-CLI's ``.npz`` keys, ``canvas`` and ``num_steps``, so either package
-resumes the other's.
+with its flags.  ``--device`` (default ``cuda``) takes the place of
+``JAX_PLATFORMS``: without a card the CLI exits non-zero unless it is
+given ``--device cpu``, which renders with the kernels' plain PyTorch
+versions.  ``--all-devices`` renders in horizontal bands over every local
+card (``parallel/``; with ``--device cpu``, one band on the CPU), and
+``--distributed`` joins a multi-process render before any device is used
+(``--coordinator host:port``, ``--num-processes``, ``--process-id``, or
+torchrun's environment): under both flags every process renders its
+bands on its own card, and only process 0 writes the image and the
+checkpoint, which hold the whole image:
+
+    srt-render-torch --config 2 --all-devices --distributed \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0 ...
+
+``--warm`` builds the render path's kernels (``ops/cuda/build.py``) and
+runs one pass, writing nothing.  Checkpoints (``--save-state``,
+``--load-state``) hold the JAX CLI's ``.npz`` keys, ``canvas`` and
+``num_steps``, so either package resumes the other's.
 """
 from __future__ import annotations
 
@@ -74,6 +82,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--time-seed", type=_positive_seed, default=None,
                    help="RNG time seed, >= 1 (default: deterministic "
                         "counter)")
+    p.add_argument("--all-devices", action="store_true",
+                   help="render in horizontal pixel bands over every local "
+                        "card (bit-identical output)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process render: join the process group "
+                        "before device use (with --all-devices the bands "
+                        "span every process's card; only process 0 writes "
+                        "files)")
+    p.add_argument("--coordinator", default=None,
+                   help="--distributed: process 0's host:port (default: "
+                        "torchrun's MASTER_ADDR and MASTER_PORT)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="--distributed: total process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="--distributed: this process's rank")
     p.add_argument("--wall-clock-seed", action="store_true",
                    help="seed from the ms clock like the reference app")
     p.add_argument("--save-state", default=None,
@@ -111,16 +134,31 @@ def _error(msg: str, rc: int) -> int:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    import numpy as np
     import torch
 
     if args.device.split(":")[0] == "cuda" and not torch.cuda.is_available():
         return _error("CUDA is not available; pass --device cpu to render "
                       "with the plain PyTorch versions", 1)
+    from .parallel import distributed
+    if args.distributed:
+        # before the first device is used in this process
+        distributed.initialize(args.coordinator, args.num_processes,
+                               args.process_id)
+    rc = _render(args)
+    if args.distributed:
+        distributed.shutdown()
+    return rc
+
+
+def _render(args) -> int:
+    """Build the scene and the renderer, render, write the files."""
+    import numpy as np
+    import torch
 
     from .engine import Renderer
     from .io.image import load_skybox, save_png, save_ppm
     from .models.camera import Camera
+    from .parallel import distributed
     from .utils.metrics import profiler_trace, ray_throughput
 
     if args.scene:
@@ -153,8 +191,20 @@ def main(argv=None) -> int:
         show_normals=args.show_normals,
         aov=args.aov,
         tri_backend=args.tri_backend,
+        all_devices=args.all_devices,
     )
-    r = Renderer(options, scene=scene, device=args.device)
+    device = args.device
+    if device == "cuda" and args.all_devices:
+        device = None           # every local card, or this process's
+    elif device == "cuda" and args.distributed:
+        device = distributed.process_device()
+    r = Renderer(options, scene=scene, device=device)
+    if args.all_devices:
+        print(f"{PROG}: {r.num_devices} band(s) over "
+              + ", ".join(str(d) for d in r.devices)
+              + ("" if not distributed.is_multiprocess() else
+                 f" in process {distributed.process_index()} of "
+                 f"{distributed.process_count()}"), file=sys.stderr)
 
     if args.warm:
         t0 = _time.perf_counter()
@@ -194,14 +244,19 @@ def main(argv=None) -> int:
         img = r.image()         # a copy to the host: the passes have ended
     dt = _time.perf_counter() - t0
 
-    if args.out.lower().endswith((".ppm", ".pnm")):
-        save_ppm(args.out, img)
-    else:
-        save_png(args.out, img)
+    write_files = distributed.should_write_output()
+    if write_files:
+        if args.out.lower().endswith((".ppm", ".pnm")):
+            save_ppm(args.out, img)
+        else:
+            save_png(args.out, img)
     if args.save_state:
+        # every process runs state_dict (a collective across processes);
+        # process 0 writes it
         st = r.state_dict()
-        np.savez_compressed(args.save_state, canvas=st["canvas"],
-                            num_steps=st["num_steps"])
+        if write_files:
+            np.savez_compressed(args.save_state, canvas=st["canvas"],
+                                num_steps=st["num_steps"])
     if args.metrics:
         m = ray_throughput(options.width, options.height,
                            options.num_samples * args.steps,
@@ -213,8 +268,9 @@ def main(argv=None) -> int:
         m["device"] = (torch.cuda.get_device_name(r.device)
                        if r.device.type == "cuda" else "cpu")
         print(json.dumps(m))
-    print(f"wrote {args.out} ({r.num_steps} accumulated steps)",
-          file=sys.stderr)
+    if write_files:
+        print(f"wrote {args.out} ({r.num_steps} accumulated steps)",
+              file=sys.stderr)
     return 0
 
 

@@ -127,6 +127,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "bulk_copy.cuh"
 #include "path_common.cuh"
 
@@ -1312,26 +1314,36 @@ cudaError_t occupancy(int shared, int* blocks) {
       blocks, trace_kernel<TRI, COUNT>, SRT_TRACE_BLOCK_OF(TRI), shared);
 }
 
-// the blocks of an instance that the device's SMs hold at once with
-// `shared` bytes of dynamic shared memory (cached for the last device and
-// size)
+// the devices a process may launch on (triangle_kernel.cu's bound)
+constexpr int kMaxDevices = 64;
+
+// the blocks of an instance that a device's SMs hold at once with
+// `shared` bytes of dynamic shared memory: cached per device (for the last
+// size asked there) under a lock, so that launches on several devices, from
+// one host thread or several, neither race nor recompute it in turn
 template <int TRI, bool COUNT>
 cudaError_t resident_blocks(int shared, int* blocks) {
-  static int cached_dev = -1, cached_shared = -1, cached = 0;
+  struct Entry {
+    int shared = -1, blocks = 0;
+  };
+  static Entry cache[kMaxDevices];
+  static std::mutex lock;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (dev != cached_dev || shared != cached_shared) {
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> guard(lock);
+  Entry& c = cache[dev];
+  if (c.shared != shared) {
     int per_sm = 0, sms = 0;
     e = occupancy<TRI, COUNT>(shared, &per_sm);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
-    cached = per_sm * sms;
-    cached_dev = dev;
-    cached_shared = shared;
+    c.shared = shared;
+    c.blocks = per_sm * sms;
   }
-  *blocks = cached;
+  *blocks = c.blocks;
   return cudaSuccess;
 }
 

@@ -121,7 +121,7 @@ class Scene:
         self.sky = SkySettings()
         # (H, W, 3) f32 equirect texture, bottom-up; None: the gradient sky
         self.skybox: Optional[np.ndarray] = None
-        # (image, device, texture tensor) of the last skybox built
+        # (image, {device: texture tensor}) of the last skybox built
         self._skybox_dev = None
         # a hint: False declares the scene enclosed (no ray reaches the
         # sky); results never depend on it
@@ -284,29 +284,34 @@ class Scene:
         """The device scene on ``device``.  ``refit=True`` reuses the
         cached cluster topology for moved geometry (O(T) instead of a new
         BVH); a later full build restores the boxes' quality."""
+        return self.build_replicas([device], refit)[0]
+
+    def build_replicas(self, devices, refit: bool = False) -> list:
+        """One device scene on each of ``devices`` (in their order), all
+        from one flattening and cluster build on the host: the replicas
+        of a render spread over several devices (``parallel/shard.py``)."""
         arrays = self.arrays(refit)
-        arrays["skybox"] = self._build_skybox(device)
-        return from_numpy(arrays, device)
+        return [from_numpy(dict(arrays, skybox=self._build_skybox(d)), d)
+                for d in devices]
 
     def _build_skybox(self, device):
         """The skybox as a tensor on ``device``, or None for the gradient
         sky, which also drops the cache (it holds the old image and its
-        texture).  Memoized per image object and device, as the JAX
+        textures).  Memoized per image object and device, as the JAX
         ``Scene._build_skybox`` is: uploading tens of MB again for edits
         that do not touch the skybox would cost every build.  The cache
         holds the image itself and compares with ``is`` (an id() alone can
         be reused by a new array at a freed one's address).  Replace
         ``scene.skybox`` to change the environment; an image changed in
-        place keeps its identity and the cached texture."""
+        place keeps its identity and the cached textures."""
         if self.skybox is None:
             self._skybox_dev = None
             return None
         device = torch.device(device)
-        cached = self._skybox_dev
-        if (cached is not None and cached[0] is self.skybox
-                and cached[1] == device):
-            return cached[2]
-        tex = torch.tensor(np.asarray(self.skybox, np.float32),
-                           device=device)
-        self._skybox_dev = (self.skybox, device, tex)
-        return tex
+        if self._skybox_dev is None or self._skybox_dev[0] is not self.skybox:
+            self._skybox_dev = (self.skybox, {})
+        textures = self._skybox_dev[1]
+        if device not in textures:
+            textures[device] = torch.tensor(
+                np.asarray(self.skybox, np.float32), device=device)
+        return textures[device]

@@ -56,13 +56,16 @@ class Kernel:
         self._lock = threading.Lock()
 
     def reset_counts(self) -> None:
-        self.launches = 0
-        self.variant_launches.clear()
+        with self._lock:
+            self.launches = 0
+            self.variant_launches.clear()
 
     def count(self, variant: str) -> None:
-        """Count one launch of ``variant``; called right after it."""
-        self.launches += 1
-        self.variant_launches[variant] += 1
+        """Count one launch of ``variant``; called right after it (under
+        the lock: launches may come from several threads)."""
+        with self._lock:
+            self.launches += 1
+            self.variant_launches[variant] += 1
 
     def library(self) -> ctypes.CDLL:
         """Build (once per source hash) and load the shared library."""

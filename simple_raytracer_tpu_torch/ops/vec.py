@@ -73,8 +73,10 @@ def length_squared(v: Vec3) -> torch.Tensor:
 def div(a: torch.Tensor, b: float) -> torch.Tensor:
     """a / b correctly rounded.  PyTorch's CUDA kernel turns a division by
     a Python scalar into a multiply by its reciprocal, which is an ulp off
-    for some inputs; a 0-d tensor divisor keeps the true division."""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+    for some inputs; a 0-d tensor divisor keeps the true division.  The
+    divisor is filled on the device: a copy from the host would wait for
+    the device's queued work."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -173,5 +173,10 @@ def test_no_card_without_device_cpu_fails(tmp_path, monkeypatch, capsys):
     assert rc != 0
     assert "--device cpu" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "x.png")
-    with pytest.raises(SystemExit):
-        main(_common(tmp_path / "x.png", ["--all-devices"]))
+    # the multi-device flags ask for the card as well (and, for
+    # --distributed, before the process group is joined)
+    for flags in (["--all-devices"], ["--all-devices", "--distributed",
+                                      "--num-processes", "2"]):
+        assert main(_common(tmp_path / "x.png", flags)) != 0
+        assert "--device cpu" in capsys.readouterr().err
+        assert not os.path.exists(tmp_path / "x.png")

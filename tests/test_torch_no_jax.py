@@ -13,7 +13,10 @@ under the "pallas" and "jnp" triangle routes; renders config 6 clustered
 at Scene.cluster_size=256 in the BVH kernel's Plucker form
 (SRT_BVH_MT=plucker) and runs the lowering probes' plain versions; then
 runs the port's CLI (--device cpu) on a scene file, on an OBJ mesh with
-a depth AOV, and with --save-state.
+a depth AOV, and with --save-state; then imports the multi-device modules
+(parallel.mesh, .shard, .distributed, .dryrun) and the showcase scenes,
+runs the dry run over 2 CPU bands, renders config 2 in 2 bands and the
+three showcase scenes, and runs the CLI with --all-devices.
 chip_smoke.py itself must fail, printing no result, without CUDA and
 outside the repository.
 """
@@ -139,6 +142,29 @@ with tempfile.TemporaryDirectory() as tmp:
         assert cli.main(argv + small + ["--out", out]) == 0, argv
         assert os.path.getsize(out) == len(b"P6 32 16 255\n") + 32 * 16 * 3
     assert int(np.load(os.path.join(tmp, "st.npz"))["num_steps"]) == 1
+# the multi-device slice and the showcase scenes
+from simple_raytracer_tpu_torch import parallel
+from simple_raytracer_tpu_torch.models import showcase
+from simple_raytracer_tpu_torch.parallel import distributed, mesh, shard
+from simple_raytracer_tpu_torch.parallel.dryrun import dryrun_multichip
+dryrun_multichip(2, device="cpu")
+scene, camera, opt = CONFIGS[2](width=32, height=16)
+r = Renderer(RenderOptions(width=32, height=16, num_samples=1,
+                           num_bounces=2, all_devices=True), scene,
+             device=["cpu"] * 2)
+assert r.num_devices == 2 and r.render(camera, num_steps=1).std() > 0
+assert not distributed.is_multiprocess()
+for build in showcase.SHOWCASES.values():
+    scene, camera, _ = build(subdivisions=1) if build is \
+        showcase.showcase_model else build()
+    r = Renderer(RenderOptions(width=32, height=16, num_samples=1,
+                               num_bounces=2), scene, device="cpu")
+    assert r.render(camera, num_steps=1).std() > 0
+with tempfile.TemporaryDirectory() as tmp:
+    out = os.path.join(tmp, "bands.ppm")
+    assert cli.main(["--config", "2", "--all-devices", "--out", out]
+                    + small) == 0
+    assert os.path.getsize(out) == len(b"P6 32 16 255\n") + 32 * 16 * 3
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 try:

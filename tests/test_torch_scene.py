@@ -17,12 +17,9 @@ from simple_raytracer_tpu_torch import accel
 from simple_raytracer_tpu_torch.models.meshgen import organic_blob
 from simple_raytracer_tpu_torch.models.presets import CONFIGS as TCONFIGS
 from simple_raytracer_tpu_torch.models.scene import Scene
-from simple_raytracer_tpu_torch.ops.scene_types import (MATERIAL_FIELDS,
-                                                        SKY_VECTORS,
-                                                        TRI_VECTORS,
-                                                        from_numpy)
+from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 
-from torch_port_helpers import jax_scene_arrays
+from torch_port_helpers import jax_scene_arrays, port_scene_arrays
 
 # the gradient sky, as tests/test_golden.py pins it
 KWARGS = {3: {"skybox": "gradient"}}
@@ -35,29 +32,6 @@ def numpy_bvh(monkeypatch):
                         lambda: None)
 
 
-def _flat(ts) -> dict:
-    """The port's DeviceScene back to the from_numpy names."""
-    out = {}
-    for cat, fields in (("spheres", ("center", "radius", "material",
-                                     "active")),
-                        ("planes", ("position", "normal", "material",
-                                    "active")),
-                        ("triangles", TRI_VECTORS + ("material", "active")),
-                        ("materials", MATERIAL_FIELDS + ("color",
-                                                         "emission"))):
-        for f in fields:
-            out[f"{cat}.{f}"] = getattr(getattr(ts, cat), f).numpy()
-    if ts.triangles.clusters is not None:
-        out["clusters.aabb"] = ts.triangles.clusters.aabb.numpy()
-        out["clusters.slots"] = ts.triangles.clusters.slots.numpy()
-    out["sky.sun_focus"] = ts.sky.sun_focus
-    out["sky.sun_intensity"] = ts.sky.sun_intensity
-    for k in SKY_VECTORS:
-        out[f"sky.{k}"] = np.array(getattr(ts.sky, k), np.float32)
-    out["sky_reachable"] = ts.sky_reachable
-    return out
-
-
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6])
 def test_scene_build_matches_jax(n, numpy_bvh):
     jscene, jcam, jopt = JCONFIGS[n](**KWARGS.get(n, {}))
@@ -68,7 +42,7 @@ def test_scene_build_matches_jax(n, numpy_bvh):
     assert ("clusters.slots" in want) == (n >= 4)
     if n == 6:   # K = 128, 640 clusters padded to a multiple of 128
         assert want["clusters.slots"].shape == (768, 128)
-    got = _flat(tscene.build("cpu"))
+    got = port_scene_arrays(tscene.build("cpu"))
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         g = got[k]
@@ -87,7 +61,7 @@ def test_scene_build_matches_jax(n, numpy_bvh):
         + [float(getattr(jcam.state(1.5), f)) for f in
            ("yaw", "pitch", "aspect_ratio", "fov_scale")])
     # the JAX scene carried across equals the port's own build
-    carried = _flat(from_numpy(jax_scene_arrays(jscene.build()), "cpu"))
+    carried = port_scene_arrays(from_numpy(jax_scene_arrays(jscene.build()), "cpu"))
     for k, g in got.items():
         np.testing.assert_array_equal(carried[k], g, err_msg=k)
 

@@ -13,6 +13,9 @@ import torch
 
 from simple_raytracer_tpu.ops.vec import Vec3 as JVec3
 from simple_raytracer_tpu_torch.ops import bvh
+from simple_raytracer_tpu_torch.ops.scene_types import (MATERIAL_FIELDS,
+                                                        SKY_VECTORS,
+                                                        TRI_VECTORS)
 from simple_raytracer_tpu_torch.ops.vec import Vec3 as TVec3
 
 
@@ -58,6 +61,29 @@ def jax_scene_arrays(ds) -> dict:
         out[f"sky.{k}"] = v3(getattr(ds.sky, k))
     if ds.skybox is not None:
         out["skybox"] = jax_skybox_image(ds.skybox)
+    return out
+
+
+def port_scene_arrays(ts) -> dict:
+    """The port's DeviceScene back to the from_numpy names (on the host)."""
+    out = {}
+    for cat, fields in (("spheres", ("center", "radius", "material",
+                                     "active")),
+                        ("planes", ("position", "normal", "material",
+                                    "active")),
+                        ("triangles", TRI_VECTORS + ("material", "active")),
+                        ("materials", MATERIAL_FIELDS + ("color",
+                                                         "emission"))):
+        for f in fields:
+            out[f"{cat}.{f}"] = getattr(getattr(ts, cat), f).cpu().numpy()
+    if ts.triangles.clusters is not None:
+        out["clusters.aabb"] = ts.triangles.clusters.aabb.numpy()
+        out["clusters.slots"] = ts.triangles.clusters.slots.numpy()
+    out["sky.sun_focus"] = ts.sky.sun_focus
+    out["sky.sun_intensity"] = ts.sky.sun_intensity
+    for k in SKY_VECTORS:
+        out[f"sky.{k}"] = np.array(getattr(ts.sky, k), np.float32)
+    out["sky_reachable"] = ts.sky_reachable
     return out
 
 
