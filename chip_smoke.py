@@ -147,7 +147,26 @@ are a path of their own.  Phases, one line each on stdout:
      benchmark_step banded and single; the CLI's config 2 with
      --all-devices --distributed in 2 processes on the card (gloo on
      localhost), rank 0's PNG and checkpoint bit for bit the one-process
-     CLI's and no file from rank 1; dryrun_multichip(2).
+     CLI's and no file from rank 1; dryrun_multichip(2);
+ 10. editing and the viewer on the card (viewer.py, editor.py; the counts
+     reset just before the phase and read just after): on configs 2 and 5
+     at their presets, a RenderLoop (its thread not started) takes
+     add_sphere, update_material (an emission), set_sky, duplicate_shape,
+     remove_shape of the original, on config 5 a translate drag_shape of
+     a model (a refit) and set_render (one more sample, after its swap),
+     each through handle_edit; after each the loop's renderer is cleared
+     and stepped at two fixed time seeds, bit for bit a fresh Renderer's
+     over a deep copy of the edited scene; the refit's canvas is held to
+     the settle rebuild's (update_scene) by the canvas rule of phase 4,
+     and the rebuild's canvas is bit for bit the fresh one's.  Then the
+     live viewer as serve() starts it, config 2 with the viewer's
+     defaults (1 spp, 6 bounces), fps_limit 0, wall-clock seeds, on
+     127.0.0.1: at 960x540 /frame.png's size, 3 s of /state (frames/s,
+     the FrameTimer's ms/frame, and the frame split into the step's
+     launches, image() and the PNG encode), /input "w" (a reset), /pick
+     at a sphere's centre pixel, /edit drag_shape, the p screenshot (a
+     960x540 PPM), and a set_render swap while the loop runs, /state's
+     error null throughout; at 480x272 the frame rate.  At most 40 s.
 Then one JSON line per the kernel table (the triangle kernel's row also
 carries its full-MT bounds over the live pairs and over every ray, and
 its 6/pallas numbers), the card line again, and the last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
@@ -158,9 +177,11 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import importlib.util
+import io
 import json
 import math
 import os
@@ -171,6 +192,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 from pathlib import Path
 
 import numpy as np
@@ -298,16 +320,16 @@ HBM_BYTES_PER_S = 3.35e12
 PROBE_CALLS = 100              # probe launches timed per probe
 # the kernel rows of the JSON line: (name, kernel, TPU kernel (under
 # simple_raytracer_tpu/ops/pallas/ unless a path), the cell timed, the
-# cells whose launches it counts ("cli": phase 8's, "par": phase 9's), the
-# variants counted (None: every variant))
-WHOLE = ("1", "2", "3", "4", "5", "6/fused", "cli", "par")
-ALL = tuple(CELLS) + ("cli", "par")
+# cells whose launches it counts ("cli": phase 8's, "par": phase 9's,
+# "view": phase 10's), the variants counted (None: every variant))
+WHOLE = ("1", "2", "3", "4", "5", "6/fused", "cli", "par", "view")
+ALL = tuple(CELLS) + ("cli", "par", "view")
 ROWS = (
     ("trace_kernel", "trace", "bounce_kernel.py:659", "2", WHOLE, None),
     ("tris_small", "trace", "bounce_kernel.py:238", "3", ("3", "par"),
      "small"),
     ("tris_clustered", "trace", "bounce_kernel.py:291", "5",
-     ("4", "5", "cli", "par"), "clustered"),
+     ("4", "5", "cli", "par", "view"), "clustered"),
     ("tris_clustered_packed", "trace", "bounce_kernel.py:376", "6/fused",
      ("6/fused",), "clustered"),
     ("trace_kernel_texture", "trace", "bounce_kernel.py:811", "3/texture",
@@ -2424,6 +2446,331 @@ def parallel_phase(card: str) -> dict:
         f"[{card}]")
     return totals
 
+# phase 10, editing and the viewer on the card.  The edit path: a
+# RenderLoop (its thread not started) on configs 2 and 5 at their presets,
+# each command through loop.handle_edit, then the loop's renderer cleared
+# and stepped at VIEW_TIMES, against a fresh Renderer over a deep copy of
+# the edited scene at the same seeds.  The live server: config 2 with the
+# viewer's own defaults (VIEW_SAMPLES spp, VIEW_BOUNCES bounces, as
+# `python -m simple_raytracer_tpu_torch.viewer --config 2` renders) at
+# 960x540 and at the viewer's default 480x272, fps_limit=0, wall-clock
+# seeds
+VIEW_TIMES = (21, 22)
+VIEW_CONFIGS = (2, 5)
+VIEW_SAMPLES, VIEW_BOUNCES = 1, 6
+VIEW_SIZES = ((960, 540), (480, 272))
+VIEW_POLL_S = 3.0              # seconds of /state polling at 960x540
+VIEW_RATE_S = 2.0              # seconds of frame counting at 480x272
+VIEW_WAIT_S = 60.0             # the longest wait for the render thread
+VIEW_SECONDS = 40.0            # the phase's budget
+
+
+def view_canvas(r: Renderer, camera) -> torch.Tensor:
+    """``r``'s canvas after a clear and a step at each of VIEW_TIMES."""
+    r.clear_canvas()
+    for t in VIEW_TIMES:
+        r.step(camera, time=t)
+    torch.cuda.synchronize()
+    return r.canvas.clone()
+
+
+def view_gate(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(passes, rmse, share of pixels more than 1e-3 apart, differing
+    pixels, max |d|, same non-finite pixels) of two accumulated canvases
+    over len(VIEW_TIMES) passes: the canvas rule of phase 4 (PERF.md
+    section 2)."""
+    a, b = a / len(VIEW_TIMES), b / len(VIEW_TIMES)
+    fa, fb = torch.isfinite(a).all(-1), torch.isfinite(b).all(-1)
+    same_bad = bool(torch.equal(fa, fb))
+    ok = fa & fb
+    d = (a - b).abs()[ok]
+    rmse = float(d.pow(2).mean().sqrt()) if d.numel() else 0.0
+    differ = int((d > 0).any(-1).sum())
+    share = float((d > 1e-3).any(-1).float().mean()) if d.numel() else 0.0
+    max_abs = float(d.max()) if d.numel() else 0.0
+    passes = (rmse <= KERNEL_RMSE and share <= KERNEL_DIFF_SHARE
+              and same_bad)
+    return passes, rmse, share, differ, max_abs, same_bad
+
+
+def wait_for(what: str, cond, loop=None, seconds: float = VIEW_WAIT_S):
+    deadline = time.perf_counter() + seconds
+    while not cond():
+        if loop is not None and loop.error is not None:
+            fail(f"viewer: {what}: the loop's error {loop.error!r}")
+        if time.perf_counter() > deadline:
+            fail(f"viewer: {what}: not within {seconds} s")
+        time.sleep(0.01)
+
+
+def view_commands(n: int, options) -> list:
+    """The edit path's commands on config ``n``: (label, command)."""
+    cmds = [
+        ("add_sphere", {"op": "add_sphere", "position": [1.6, 0.4, -1.0],
+                        "radius": 0.45}),
+        ("update_material", {"op": "update_material", "index": 0,
+                             "fields": {"emission": [1.0, 0.6, 0.3],
+                                        "emission_strength": 1.5}}),
+        ("set_sky", {"op": "set_sky", "fields": {
+            "sun_intensity": 2.0, "sun_direction": [0.3, -1.0, 0.2],
+            "zenith_color": [0.1, 0.2, 0.45]}}),
+        ("duplicate_shape", {"op": "duplicate_shape", "kind": "sphere",
+                             "index": 0}),
+        ("remove_shape", {"op": "remove_shape", "kind": "sphere",
+                          "index": 0}),
+    ]
+    if n == 5:
+        cmds.append(("drag_shape", {"op": "drag_shape", "kind": "model",
+                                    "index": 0, "mode": "translate",
+                                    "dx": 0.04, "dy": -0.03}))
+    cmds.append(("set_render", {"op": "set_render",
+                                "samples": options.num_samples + 1}))
+    return cmds
+
+
+def view_edits(n: int, card: str) -> dict:
+    """The edit path on config ``n`` (see VIEW_TIMES); returns its
+    launches."""
+    from simple_raytracer_tpu_torch.viewer import RenderLoop
+    scene, camera, options = CONFIGS[n]()
+    loop = RenderLoop(Renderer(options, scene, device="cuda"), camera,
+                      scene=scene, fps_limit=0)
+    lines = []
+    totals = {kind: {} for kind in KERNELS}
+    for label, cmd in view_commands(n, options):
+        for kernel in KERNELS.values():
+            kernel.reset_counts()
+        out = loop.handle_edit(cmd)
+        if not out.get("ok"):
+            fail(f"viewer edit {label} on config {n}: {out}")
+        if label == "set_render":
+            want = cmd["samples"]
+            wait_for("the set_render swap", lambda: (
+                loop._pending_opts is None
+                and loop.renderer.options.num_samples == want), loop)
+        r = loop.renderer
+        extra = ""
+        if label == "drag_shape":
+            # the refit (A), then the settle rebuild (B)
+            a = view_canvas(r, camera)
+            r.update_scene(loop.scene)
+            got = view_canvas(r, camera)
+            ok, rmse, share, differ, max_abs, same_bad = view_gate(a, got)
+            extra = (f"; the refit's canvas against the rebuilt one: max|d| "
+                     f"{max_abs}, {differ} pixels differ, rmse {rmse:.3e}, "
+                     f"share > 1e-3 {share:.2e}, same non-finite "
+                     f"{same_bad}")
+            if not ok:
+                fail(f"viewer config {n}: the refit's canvas is outside "
+                     f"the canvas rule against the rebuild{extra}")
+        else:
+            got = view_canvas(r, camera)
+        fresh = Renderer(r.options, copy.deepcopy(loop.scene), device="cuda")
+        want = view_canvas(fresh, camera)
+        same = same_bits(got, want)
+        both = torch.isfinite(got) & torch.isfinite(want)
+        max_abs = (float((got - want).abs()[both].max())
+                   if bool(both.any()) else 0.0)
+        got_counts = launch_counts()
+        add_counts(totals, got_counts)
+        lines.append(f"{label} {out.get('changed')}: bit-identical {same}, "
+                     f"max|d| {max_abs}; launches {got_counts}{extra}")
+        if not same:
+            fail(f"viewer config {n} after {label}: the loop's canvas "
+                 f"differs from a fresh renderer's (max|d| {max_abs})")
+    o = loop.renderer.options
+    say(f"[10] edits on config {n} {o.width}x{o.height} (RenderLoop."
+        f"handle_edit, then {len(VIEW_TIMES)} steps at time seeds "
+        f"{VIEW_TIMES} against a fresh Renderer over a deep copy of the "
+        f"edited scene): " + "; ".join(lines) + f"  [{card}]")
+    return totals
+
+
+def project(loop, point) -> tuple:
+    """The pixel (x, y) whose centre ray (RenderLoop._pixel_ray) passes
+    through the world ``point``."""
+    cam, o = loop.camera, loop.renderer.options
+    cy, sy = math.cos(cam.yaw), math.sin(cam.yaw)
+    cp, sp = math.cos(cam.pitch), math.sin(cam.pitch)
+    rel = np.asarray(point, np.float64) - np.asarray(cam.position)
+    px = rel @ np.array([cy, 0.0, -sy])
+    py = rel @ np.array([sy * sp, cp, cy * sp])
+    pz = rel @ np.array([-sy * cp, sp, -cy * cp])
+    fs, aspect = math.tan(cam.fov / 2.0), o.width / o.height
+    return ((px / pz / (fs * aspect) + 1.0) / 2.0 * o.width - 0.5,
+            (1.0 - py / pz / fs) / 2.0 * o.height - 0.5)
+
+
+@contextlib.contextmanager
+def live_viewer(width: int, height: int, shot: Path):
+    """The viewer as serve() starts it, on config 2 on the card: the first
+    step and image() on this thread, then the loop and the HTTP server on
+    127.0.0.1 at a free port; yields (loop, get, post) and stops both."""
+    from http.server import ThreadingHTTPServer
+    import threading
+    import urllib.request
+    from simple_raytracer_tpu_torch.viewer import RenderLoop, make_handler
+    scene, camera, _ = CONFIGS[2]()
+    options = RenderOptions(width=width, height=height,
+                            num_samples=VIEW_SAMPLES,
+                            num_bounces=VIEW_BOUNCES)
+    r = Renderer(options, scene=scene, device="cuda")
+    r.step(camera)
+    r.image()
+    r.clear_canvas()
+    loop = RenderLoop(r, camera, fps_limit=0, screenshot_path=str(shot),
+                      scene=scene)
+    loop.start()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                              make_handler(loop, width, height))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=10) as resp:
+            return resp.status, resp.read()
+
+    def post(path, payload):
+        req = urllib.request.Request(url + path, method="POST",
+                                     data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            return json.loads(resp.read())
+
+    try:
+        yield loop, get, post
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        loop.stop()
+        thread.join(timeout=5)
+        if loop._thread.is_alive():
+            fail("viewer: the render thread did not stop")
+
+
+def view_state(get, loop) -> dict:
+    _, body = get("/state")
+    state = json.loads(body)
+    if state["error"] is not None:
+        fail(f"viewer: /state reports {state['error']}")
+    return state
+
+
+def frame_parts(loop) -> str:
+    parts = {k: t.avg * 1e3 for k, t in loop.part_timers.items()}
+    return (f"step {parts['step']:.3f} ms (its launches), image() "
+            f"{parts['image']:.3f} ms (the wait for the pass, the tonemap, "
+            f"the copy), PNG encode {parts['encode']:.3f} ms (means over "
+            f"the last {len(loop.timer.times)} frames)")
+
+
+def view_live(card: str, tmp: Path) -> None:
+    """The live server at 960x540 (frames, reset, pick, drag, screenshot,
+    a set_render swap while the loop runs), then 480x272 for the rate."""
+    from PIL import Image
+    w, h = VIEW_SIZES[0]
+    shot = tmp / "shot.ppm"
+    with live_viewer(w, h, shot) as (loop, get, post):
+        status, png = None, b""
+        deadline = time.perf_counter() + VIEW_WAIT_S
+        while status != 200:
+            try:
+                status, png = get("/frame.png")
+            except urllib.error.HTTPError:
+                if time.perf_counter() > deadline:
+                    fail("viewer: no frame")
+                time.sleep(0.01)
+        size = Image.open(io.BytesIO(png)).size
+        if size != (w, h):
+            fail(f"viewer: /frame.png is {size}")
+        first = view_state(get, loop)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < VIEW_POLL_S:
+            state = view_state(get, loop)
+            time.sleep(0.1)
+        rate = (state["frame"] - first["frame"]) / (time.perf_counter() - t0)
+        say(f"[10] live viewer, config 2 {w}x{h} {VIEW_SAMPLES} spp "
+            f"{VIEW_BOUNCES} bounces, fps_limit 0, wall-clock seeds: "
+            f"/frame.png {size}; {rate:.2f} frames/s over {VIEW_POLL_S} s "
+            f"of /state ({state['frame'] - first['frame']} frames); "
+            f"FrameTimer {state['ms']:.3f} ms/frame (step + image()), "
+            f"{state['fps']:.2f} fps; {frame_parts(loop)}  [{card}]")
+        resets = loop.reset_count
+        post("/input", {"keys": ["w"], "dx": 0, "dy": 0, "wheel": 0,
+                        "dt": 0.1})
+        wait_for("a reset after input", lambda: loop.reset_count > resets,
+                 loop)
+        x, y = project(loop, loop.scene.spheres[1].position)
+        hit = post("/pick", {"x": x, "y": y})
+        if hit.get("shape") != {"kind": "sphere", "index": 1}:
+            fail(f"viewer: /pick at sphere 1's centre ({x:.1f}, {y:.1f}) "
+                 f"gave {hit}")
+        pos0 = loop.scene.spheres[1].position
+        out = post("/edit", {"op": "drag_shape", "kind": "sphere",
+                             "index": 1, "dx": 0.02, "dy": 0.0})
+        if not out.get("ok") or loop.scene.spheres[1].position == pos0:
+            fail(f"viewer: drag_shape gave {out}")
+        key = {"dx": 0, "dy": 0, "wheel": 0, "dt": 0.03}
+        post("/input", dict(key, keys=["p"]))
+        post("/input", dict(key, keys=[]))
+        wait_for("the screenshot", lambda: loop.screenshot_count >= 1, loop)
+        if load_ppm(shot).shape != (h, w, 3):
+            fail(f"viewer: the screenshot is {load_ppm(shot).shape}")
+        # a second renderer while the loop runs
+        frames = view_state(get, loop)["frame"]
+        out = post("/edit", {"op": "set_render", "samples": 2})
+        if not (out.get("ok") and out.get("compiling")):
+            fail(f"viewer: set_render gave {out}")
+        wait_for("the live set_render swap", lambda: (
+            loop._pending_opts is None
+            and loop.renderer.options.num_samples == 2), loop)
+        swapped = view_state(get, loop)["frame"]
+        wait_for("frames after the swap",
+                 lambda: view_state(get, loop)["frame"] > swapped + 2, loop)
+        end = view_state(get, loop)
+        say(f"[10] live viewer {w}x{h}: /input w reset {resets} -> "
+            f"{loop.reset_count}; /pick at ({x:.1f}, {y:.1f}) {hit}; "
+            f"drag_shape moved sphere 1 {pos0} -> "
+            f"{loop.scene.spheres[1].position}; p wrote a "
+            f"{load_ppm(shot).shape} PPM; set_render samples=2 swapped in "
+            f"while the loop ran (frame {frames} at the request, {swapped} "
+            f"at the swap, {end['frame']} after); error null throughout  "
+            f"[{card}]")
+    w, h = VIEW_SIZES[1]
+    with live_viewer(w, h, shot) as (loop, get, post):
+        first = view_state(get, loop)
+        t0 = time.perf_counter()
+        time.sleep(VIEW_RATE_S)
+        state = view_state(get, loop)
+        rate = (state["frame"] - first["frame"]) / (time.perf_counter() - t0)
+        say(f"[10] live viewer, config 2 {w}x{h} {VIEW_SAMPLES} spp "
+            f"{VIEW_BOUNCES} bounces, fps_limit 0: {rate:.2f} frames/s over "
+            f"{VIEW_RATE_S} s; FrameTimer {state['ms']:.3f} ms/frame; "
+            f"{frame_parts(loop)}  [{card}]")
+
+
+def viewer_phase(card: str) -> dict:
+    """Phase 10: the edit path and the live viewer on the card.  Returns
+    the phase's launches."""
+    t0 = time.perf_counter()
+    totals = {kind: {} for kind in KERNELS}
+    for n in VIEW_CONFIGS:
+        add_counts(totals, view_edits(n, card))
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    for kernel in KERNELS.values():
+        kernel.reset_counts()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        view_live(card, Path(tmp))
+    add_counts(totals, launch_counts())
+    seconds = time.perf_counter() - t0
+    say(f"[10] the viewer phase: {seconds:.2f} s (budget {VIEW_SECONDS} s)"
+        f"; its launches {totals}  [{card}]")
+    if seconds > VIEW_SECONDS:
+        fail(f"viewer: the phase took {seconds:.1f} s")
+    return totals
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -3157,6 +3504,11 @@ def main(argv=None) -> int:
     # ---- 9: multi-device bands on the one card ----
     totals["par"] = parallel_phase(card)
 
+    # ---- 10: editing and the viewer on the card ----
+    for kernel in KERNELS.values():
+        kernel.reset_counts()
+    totals["view"] = viewer_phase(card)
+
     entries = []
     for name, kind, line, cell, covered, variant in ROWS:
         _, max_abs, k_ms, p_ms, bound_ms, bound_by, o = timing[cell]
@@ -3169,7 +3521,7 @@ def main(argv=None) -> int:
                 if "cli" in covered and (counted is None or v in counted)]
         if kind == "trace":
             errs += [results[c]["max_abs"] for c in covered
-                     if c not in ("cli", "par")]
+                     if c not in ("cli", "par", "view")]
         max_abs = max(errs + [max_abs])
         if launches == 0:
             fail(f"kernel row {name}: no launch on the main path")

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 struct ProbeParams {
   int32_t rows;    // 512
   int32_t cols;    // 128
@@ -44,6 +46,7 @@ constexpr int kCols = 128;
 constexpr int kHalf = kRows / 2;
 constexpr int kStride = kCols + 1;  // padded shared row
 constexpr size_t kSharedBytes = sizeof(float) * kHalf * kStride;
+constexpr int kMaxDevices = 64;
 
 // the block's sum of one value per thread, in a fixed order
 __device__ float block_sum(float v) {
@@ -120,16 +123,29 @@ gated_loop(const float* __restrict__ x, float* __restrict__ out,
 extern "C" int srt_probe_launch(const float* x, float* out, ProbeParams p,
                                 void* stream) {
   if (p.rows != kRows || p.cols != kCols) return (int)cudaErrorInvalidValue;
-  // A and C stage half the array: above the 48 KB a launch gets by default
-  static bool configured = false;
-  if (!configured) {
-    const void* staged[] = {(const void*)column_sum, (const void*)gated_loop};
-    for (const void* fn : staged) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSharedBytes);
-      if (err != cudaSuccess) return (int)err;
+  // A and C stage half the array: above the 48 KB a launch gets by
+  // default.  The attribute belongs to the current device, so it is set
+  // once for each device, under a lock (launches may come from several
+  // threads)
+  static bool configured[kMaxDevices] = {};
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    if (!configured[dev]) {
+      const void* staged[] = {(const void*)column_sum,
+                              (const void*)gated_loop};
+      for (const void* fn : staged) {
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)kSharedBytes);
+        if (err != cudaSuccess) return (int)err;
+      }
+      configured[dev] = true;
     }
-    configured = true;
   }
   cudaStream_t st = (cudaStream_t)stream;
   switch (p.which) {

@@ -207,12 +207,15 @@ class Renderer:
     def step(self, camera: Camera, time: Optional[int] = None) -> None:
         """One progressive sample pass accumulated into the canvas.  ``time``
         seeds the pass's RNG streams (nonzero); by default a counter."""
-        if self._scenes is None:
+        # the scenes are read once: update_scene on another thread (the
+        # viewer's edits) swaps them whole, so a pass never mixes two
+        scenes = self._scenes
+        if scenes is None:
             raise RuntimeError("no scene: call update_scene() first")
         if time is None:
             time = self._time_base + self.num_steps
         o = self.options
-        self._canvases = self._step_fn(self._scenes,
+        self._canvases = self._step_fn(scenes,
                                        camera.state(o.width / o.height),
                                        self._canvases, time)
         self.num_steps += 1

@@ -13,10 +13,14 @@ only the cluster boxes (``accel.refit_clusters``) and never changes K.
 A texture skybox (``Scene.skybox``, an (H, W, 3) f32 image, row 0 the
 bottom) is uploaded once per image object and device
 (``_build_skybox``).  ``load_mesh`` and ``import_model`` read an STL or
-OBJ file into the pool (``io/stl.py``, ``io/obj.py``).
+OBJ file into the pool (``io/stl.py``, ``io/obj.py``).  The editor's verbs
+(``remove_shape``, ``duplicate_shape``, ``set_material``,
+``remove_material``, ``set_model_transform``) change the host scene only;
+the renderer sees an edit at its next ``update_scene``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional, Tuple
 
@@ -133,6 +137,10 @@ class Scene:
         if default_material:
             self.materials.push(Material(), "Material0")
 
+    @property
+    def all_shapes(self):
+        return [*self.spheres, *self.planes, *self.models]
+
     def add_sphere(self, position, radius, material: int = 0) -> Sphere:
         s = Sphere(material=material, position=tuple(position),
                    radius=float(radius))
@@ -176,6 +184,48 @@ class Scene:
         instance of it."""
         return self.add_model(load_mesh(path, self.pool), material=material,
                               transform=transform)
+
+    # -- the editor's verbs (the reference's editor windows) ------------
+    def remove_shape(self, shape) -> None:
+        """Delete ``shape``.  Matches by identity, not equality: shapes
+        are dataclasses that compare by value, so a duplicate equals its
+        source, and a Model's ndarray transform makes == raise."""
+        for lst in (self.spheres, self.planes, self.models):
+            for i, s in enumerate(lst):
+                if s is shape:
+                    del lst[i]
+                    return
+        raise ValueError("shape not in scene")
+
+    def duplicate_shape(self, shape):
+        """Append a deep copy of ``shape`` and return it; a model's copy
+        shares the mesh span (instancing) but has its own fields."""
+        dup = copy.deepcopy(shape)
+        if isinstance(shape, Sphere):
+            self.spheres.append(dup)
+        elif isinstance(shape, Plane):
+            self.planes.append(dup)
+        elif isinstance(shape, Model):
+            self.models.append(dup)
+        else:
+            raise TypeError(type(shape))
+        return dup
+
+    def set_material(self, shape, material_index: int) -> None:
+        """Assign material ``material_index``, which must exist."""
+        if not 0 <= material_index < len(self.materials):
+            raise IndexError(material_index)
+        shape.material = material_index
+
+    def remove_material(self, index: int) -> None:
+        """Delete a material; every shape's index is renumbered
+        (``MaterialSet.remove``)."""
+        self.materials.remove(index, self.all_shapes)
+
+    def set_model_transform(self, model: Model, transform) -> None:
+        """Replace a model's instance transform (its world box follows at
+        build)."""
+        model.transform = np.asarray(transform, np.float32)
 
     def _clusters(self, pos: np.ndarray, refit: bool) -> accel.Clusters:
         """The padded clusters of the (T, 3, 3) world triangles.  K is

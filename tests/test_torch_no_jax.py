@@ -16,7 +16,9 @@ runs the port's CLI (--device cpu) on a scene file, on an OBJ mesh with
 a depth AOV, and with --save-state; then imports the multi-device modules
 (parallel.mesh, .shard, .distributed, .dryrun) and the showcase scenes,
 runs the dry run over 2 CPU bands, renders config 2 in 2 bands and the
-three showcase scenes, and runs the CLI with --all-devices.
+three showcase scenes, and runs the CLI with --all-devices; then imports
+the editor, the gizmo and the viewer, starts the viewer's render loop and
+HTTP server on the CPU, fetches one frame and posts one edit.
 chip_smoke.py itself must fail, printing no result, without CUDA and
 outside the repository.
 """
@@ -165,6 +167,40 @@ with tempfile.TemporaryDirectory() as tmp:
     assert cli.main(["--config", "2", "--all-devices", "--out", out]
                     + small) == 0
     assert os.path.getsize(out) == len(b"P6 32 16 255\n") + 32 * 16 * 3
+# the editor, the gizmo and the viewer: a RenderLoop on the CPU behind the
+# HTTP server, one frame fetched, one edit and one pick through it
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+from simple_raytracer_tpu_torch import editor, gizmo, viewer
+scene, camera, opt = CONFIGS[2](width=32, height=16)
+r = Renderer(RenderOptions(width=32, height=16, num_samples=1,
+                           num_bounces=2), scene, device="cpu")
+loop = viewer.RenderLoop(r, camera, scene=scene)
+loop.start()
+srv = viewer.ThreadingHTTPServer(("127.0.0.1", 0),
+                                 viewer.make_handler(loop, 32, 16))
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+url = f"http://127.0.0.1:{srv.server_address[1]}"
+png, deadline = None, time.time() + 60
+while png is None and time.time() < deadline:
+    assert loop.error is None, loop.error
+    try:
+        png = urllib.request.urlopen(url + "/frame.png", timeout=10).read()
+    except urllib.error.HTTPError:      # 503 until the first frame
+        time.sleep(0.05)
+assert png is not None and png[:8] == b"\x89PNG\r\n\x1a\n"
+req = urllib.request.Request(url + "/edit", method="POST", data=json.dumps(
+    {"op": "add_sphere", "position": [0, 0, -3]}).encode())
+assert json.loads(urllib.request.urlopen(req, timeout=10).read())["ok"]
+assert editor.repair_selection(None, {}, {}) is None
+assert gizmo.handle_scale((0, 0, 0), (0, 0, 5), 1.0) > 0
+srv.shutdown()
+srv.server_close()
+loop.stop()
+assert loop.error is None, loop.error
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 try:

@@ -5,8 +5,12 @@ Inputs are made with numpy from a seed and handed to both packages; the
 JAX side runs on the CPU, as the JAX package's own tests run it.
 """
 import collections
+import contextlib
 import itertools
+import json
 import math
+import signal
+import urllib.request
 
 import numpy as np
 import torch
@@ -296,3 +300,74 @@ def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
         t_out[ray] = torch.where(won, best_t, math.inf)
         slot_out[ray] = torch.where(won, best_s, -1).to(torch.int32)
     return (t_out, slot_out), cnt
+
+
+# -- the port's viewer on the CPU (tests/test_torch_viewer.py,
+#    test_torch_gizmo.py) ----------------------------------------------------
+
+# seconds a server test may take in all; each HTTP request has its own
+# REQUEST_TIMEOUT
+SERVER_TEST_TIMEOUT = 60
+REQUEST_TIMEOUT = 10
+
+
+@contextlib.contextmanager
+def time_limit(seconds: int):
+    """Fail the block with TimeoutError after ``seconds`` (SIGALRM, on the
+    main thread, where pytest runs a test)."""
+    def expire(signum, frame):
+        raise TimeoutError(f"the test took more than {seconds} s")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+@contextlib.contextmanager
+def viewer_server(scene, camera, width: int = 32, height: int = 24,
+                  **options):
+    """The port's RenderLoop on the CPU over ``scene`` (1 spp, 2 bounces
+    unless ``options`` say otherwise) behind a ThreadingHTTPServer on a
+    free localhost port; yields (server, loop) and stops both."""
+    import threading
+
+    from simple_raytracer_tpu_torch.engine import Renderer, RenderOptions
+    from simple_raytracer_tpu_torch.viewer import (RenderLoop,
+                                                   ThreadingHTTPServer,
+                                                   make_handler)
+    opts = RenderOptions(width=width, height=height,
+                         **dict(dict(num_samples=1, num_bounces=2),
+                                **options))
+    renderer = Renderer(opts, scene=scene, device="cpu")
+    loop = RenderLoop(renderer, camera, scene=scene)
+    loop.start()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                              make_handler(loop, width, height))
+    # a short poll interval: shutdown() waits for the server's next poll
+    thread = threading.Thread(target=srv.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+    thread.start()
+    try:
+        yield srv, loop
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        loop.stop()
+
+
+def http_get(srv, path):
+    port = srv.server_address[1]
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                  timeout=REQUEST_TIMEOUT)
+
+
+def http_post(srv, path, payload):
+    port = srv.server_address[1]
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 method="POST")
+    return urllib.request.urlopen(req, timeout=REQUEST_TIMEOUT)
