@@ -31,14 +31,17 @@ lowering probes (simple_raytracer_tpu_torch/scripts/probe_kernel_ops.py)
 are a path of their own.  Phases, one line each on stdout:
   1. the card's name and power limit (nvidia-smi), and whether PIL (the
      8-bit skybox loader's dependency) is installed;
-  2. the build of the five kernel sources, one nvcc each, started
-     together; the whole-trace kernel's sections as compiled (a sphere
+  2. the build of the five kernel sources, one nvcc each, and of the
+     host library (csrc/host_accel.cpp: the binned-SAH BVH build, the
+     STL parse; the host compiler), all started together; the
+     whole-trace kernel's sections as compiled (a sphere
      test, a plane test, MT, a BSDF sample, a uniform, the gradient sky;
      cuobjdump of each built alone from the kernel's source);
   3. the main paths: each cell at its preset size through
      Renderer(device="cuda"), 4 progressive steps, with every kernel's
      launch counts (in all and per variant) reset just before and read
-     just after the cell; the scene build's seconds (once per scene), the
+     just after the cell; the scene build's seconds (once per scene; the
+     BVH is the host library's binned SAH), the
      Plucker coefficient table's, the BVH kernel's staged MT table's and
      the triangle kernel's staged table's (once per scene, on first use);
      then the probes' run(), its counts
@@ -116,7 +119,12 @@ are a path of their own.  Phases, one line each on stdout:
      replayed on two_level (the same walk); two_level's and flat's
      launches on builds of the kernel with the warp walk's constants
      swept (the split point, the ring), in turns with the route;
-     the probes' time per call and per loop iteration;
+     the probes' time per call and per loop iteration; cells 6, 7 and
+     6/fused (rows 4, 5 and 1b') on the SAH layout against a scene built
+     with the NumPy median split (accel.build_bvh(force_python=True)):
+     the kernel's pass in turns, its MT pairs and lane-slot MT tests
+     (the counting instance), the staged MT table's MB and the median
+     build's seconds;
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell);
   8. the command-line path: simple_raytracer_tpu_torch.cli.main in
@@ -198,7 +206,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from simple_raytracer_tpu_torch import cli
+from simple_raytracer_tpu_torch import accel, cli
 from simple_raytracer_tpu_torch.engine import Renderer, RenderOptions
 from simple_raytracer_tpu_torch.io.image import load_ppm, load_skybox, save_hdr
 from simple_raytracer_tpu_torch.io.obj import save_obj
@@ -441,10 +449,10 @@ def build_all(what: str, kernels) -> None:
 
 
 def build_kernels(extra=()) -> str:
-    """Build the five kernel sources and the ``extra`` kernels at once
-    (one nvcc each) and report ptxas's registers and spills per variant of
-    the five."""
-    build_all("kernel build", (*KERNELS.values(), *extra))
+    """Build the five kernel sources, the host library (the host
+    compiler) and the ``extra`` kernels at once (one compiler each) and
+    report ptxas's registers and spills per variant of the five."""
+    build_all("kernel build", (*KERNELS.values(), accel.HOST, *extra))
     parts = []
     # each entry's template arguments: the variant, then a first bool (the
     # trace kernel's counting instance, the BVH kernel's Plucker form), a
@@ -1559,6 +1567,101 @@ def walk_launches(label: str, res: dict, clusters, table,
         f"against {tot('needed_slots')} needed), admitted pairs "
         f"{tot('admitted_pairs')}")
     return dict(per_launch=per)
+
+
+# the cells timed on both BVH builders' layouts (phase 6): the host
+# library's binned SAH, the port's default, against the NumPy median split
+# (accel.build_bvh with force_python=True), each on a scene build of its
+# own; rows 4 (two_level), 5 (streamed) and 1b' (the whole-trace kernel's
+# clustered variant over config 6)
+BUILDER_CELLS = ("6", "7", "6/fused")
+
+
+@contextlib.contextmanager
+def median_split():
+    """Scene builds inside take the NumPy median-split BVH, asked for as
+    accel.build_bvh(force_python=True)."""
+    saved = accel.build_bvh
+    accel.build_bvh = lambda *a, **kw: saved(*a, **{**kw,
+                                                 "force_python": True})
+    try:
+        yield
+    finally:
+        accel.build_bvh = saved
+
+
+def layout_pass(label: str, r: Renderer, camera) -> tuple:
+    """A cell's kernel launches of one pass on its scene's layout, as a
+    callable, and the layout's numbers: the staged MT table's MB, the
+    clusters, and what the pass's walk did (its counting instance): MT
+    pairs (ray, cluster), lane-slot MT tests issued, (warp, cluster)
+    visits, chunks staged and box tests."""
+    tris = r.device_scene.triangles
+    staged = bvh.staged_slots(tris.clusters, tris.table)
+    if label in SPLIT:
+        _, rec = per_bounce_pass(r, camera, 4242)
+        recorded = rec.bvh
+
+        def run():
+            for pp, oo in recorded:
+                bk.launch(pp, oo)
+        counts = [bk.launch_counted(pp)[1] for pp, _ in recorded]
+        pairs, visits = "pairs", "stagings"
+    else:
+        args, kw = trace_args(r, camera, 4242)
+        prep = tk.prepare(*args, **kw, tri_backend=r.options.tri_backend)
+
+        def run():
+            tk.launch(prep)
+        counts = tk.launch_counted(prep)[1]
+        pairs, visits = "admitted", "union"
+    tot = lambda key: sum(c[key] for c in counts)
+    return run, dict(staged_mb=staged.numel() * staged.element_size() / 1e6,
+                     clusters=tris.clusters.slots.shape[0],
+                     pairs=tot(pairs), issued=32 * tot("mt_steps"),
+                     visits=tot(visits), chunks=tot("chunks"),
+                     box_tests=tot("box_tests"))
+
+
+def builder_turns(card: str, renderers: dict) -> dict:
+    """Each of BUILDER_CELLS on the SAH layout (phase 3's scene) and on
+    the median split's (a scene built here): the scene build's seconds,
+    the kernel's pass time in turns (SAH, median, median, SAH; the same
+    camera rays and time seed) and ``layout_pass``'s numbers of each.
+    Returns label -> the numbers."""
+    out, lines = {}, []
+    for label in BUILDER_CELLS:
+        r, camera = renderers[label]
+        n = CELLS[label][0]
+        scene, _, _ = CONFIGS[n](**KWARGS.get(n, {}))
+        t0 = time.perf_counter()
+        with median_split():
+            ds = scene.build("cuda")
+        torch.cuda.synchronize()
+        median_build_s = time.perf_counter() - t0
+        rm = Renderer(r.options, device="cuda")
+        rm.set_device_scene(ds)
+        (run_s, sah), (run_m, med) = (layout_pass(label, r, camera),
+                                      layout_pass(label, rm, camera))
+        ms = lambda run: float(np.median(cuda_ms(run, iters=3, repeats=3,
+                                                 warmup=1)))
+        turns = [ms(run_s), ms(run_m), ms(run_m), ms(run_s)]
+        sah_ms, med_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        out[label] = dict(sah_ms=sah_ms, median_ms=med_ms, turns=turns,
+                          sah=sah, median=med, median_build_s=median_build_s)
+        lines.append(
+            f"{label} ({CELLS[label][2]}): SAH {sah_ms:.4f} ms/pass, median "
+            f"{med_ms:.4f} ms/pass (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns)}; median / SAH "
+            f"{med_ms / sah_ms:.3f}); "
+            + ", ".join(f"{key} {sah[key]:.6g} against {med[key]:.6g}"
+                        for key in sah)
+            + f"; the median scene's build {median_build_s:.3f} s")
+        del rm, ds
+    say(f"[6] the BVH builders' layouts, the kernel's pass in turns, SAH "
+        f"(the host library, the default) against the median split "
+        f"(force_python): {'; '.join(lines)}  [{card}]")
+    return out
 
 
 # The warp walk's constants swept on the launches of a pass of two_level
@@ -2812,7 +2915,10 @@ def main(argv=None) -> int:
            f"; the parent's {parent.source} {parent.build_seconds:.2f} s, "
            f"{parent_trace.source} {parent_trace.build_seconds:.2f} s, "
            f"{parent_shade.source} {parent_shade.build_seconds:.2f} s")
-        + f"); ptxas: {ptxas}")
+        + f"); the host library {accel.HOST.source.name} "
+        f"{accel.HOST.build_seconds:.2f} s ({accel.HOST.compiler()} "
+        f"{' '.join(accel.HOST.flags)}; the BVH build, the STL parse)"
+        + f"; ptxas: {ptxas}")
     say(f"[2] triangle kernel {trk.SHAPE[0]}x{trk.SHAPE[1]}, the fast path "
         f"of one triangle (cuobjdump): {triangle_sass()}")
     say(f"[2] whole-trace kernel (cuobjdump): {trace_sass()}")
@@ -2851,7 +2957,8 @@ def main(argv=None) -> int:
             say(f"[3] config {n}{'' if sky is None else ' with ' + sky}"
                 + ("" if k_forced is None else f", cluster_size={k_forced}")
                 + f": preset {t1 - t0:.3f} s (its procedural mesh), build "
-                f"{scenes[key][4]:.3f} s (clusters, tables, upload): "
+                f"{scenes[key][4]:.3f} s (the host library's SAH BVH, "
+                "clusters, tables, upload): "
                 f"{int(tris.active.sum())} triangles"
                 + (f", {tris.clusters.slots.shape[0]} clusters of "
                    f"{tris.clusters.k} ({tris.clusters.slots.numel()} slots"
@@ -3461,6 +3568,7 @@ def main(argv=None) -> int:
                            ("6/k256", "6/k256/plucker"))]
     say(f"[6] BVH kernel per pass, the MT form against the Plucker form: "
         f"{'; '.join(side)}  [{card}]")
+    builder_turns(card, renderers)
     # the probes: time per call and per loop iteration (phase 3's run),
     # the plain versions on the same array
     x = torch.ones((probe.ROWS, probe.COLS), device="cuda")

@@ -1,13 +1,19 @@
 """Host acceleration structures: the BVH build and its cut into clusters.
 
-The port's own copy of ``simple_raytracer_tpu.accel``, limited to the
-NumPy median-split builder: the C++ SAH builder the JAX package prefers
-(``native/libsrt_native.so``) is not bound here, so a cluster layout
-equals the JAX package's only when that package uses its NumPy builder
-too.  ``refit_clusters`` recomputes the boxes of a cached topology for
-moved geometry.  The build runs on the host at scene build; the traversal
-runs in the whole-trace kernel (``csrc/trace_kernel.cu``) or, on the
-split per-bounce path, in the BVH kernel (``csrc/bvh_kernel.cu``).
+The port's own copy of ``simple_raytracer_tpu.accel``.  ``build_bvh``
+runs the binned-SAH builder of the port's host library
+(``csrc/host_accel.cpp``, the C interface and the algorithm of the JAX
+package's native library), which the host compiler builds at first use
+into ``build/srt_torch_kernels/`` (``ops/cuda/build.HostLibrary``); a
+failed build raises.  ``force_python=True`` asks for the NumPy
+median-split builder instead, the JAX package's fallback.  The library
+also transforms triangles (``transform_triangles``) and parses binary STL
+(``parse_stl``, for ``io/stl.py``).  ``build_clusters`` cuts the tree into
+clusters of K slots and ``refit_clusters`` recomputes the boxes of a
+cached topology for moved geometry.  The build runs on the host at scene
+build; the traversal runs in the whole-trace kernel
+(``csrc/trace_kernel.cu``) or, on the split per-bounce path, in the BVH
+kernel (``csrc/bvh_kernel.cu``).
 
 BVH layout:
   nodes:  (N, 8) f32 -- [min.xyz, max.xyz, pad, pad], DFS preorder
@@ -18,9 +24,43 @@ BVH layout:
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+
+from .ops.cuda import build
+
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.srt_bvh_build.restype = ctypes.c_int32
+    lib.srt_bvh_build.argtypes = [_F32P, ctypes.c_int32, ctypes.c_int32,
+                                  _F32P, _I32P, _I32P]
+    lib.srt_transform_triangles.restype = None
+    lib.srt_transform_triangles.argtypes = [_F32P, _F32P, _F32P,
+                                            ctypes.c_int32, _F32P, _F32P,
+                                            _F32P]
+    lib.srt_stl_count.restype = ctypes.c_int32
+    lib.srt_stl_count.argtypes = [_U8P, ctypes.c_int64]
+    lib.srt_stl_parse.restype = ctypes.c_int32
+    lib.srt_stl_parse.argtypes = [_U8P, ctypes.c_int64, _F32P, _F32P]
+
+
+HOST = build.HostLibrary(build.PACKAGE_DIR / "csrc" / "host_accel.cpp", _bind)
+
+
+def host_library() -> ctypes.CDLL:
+    """The host library, built on first use; raises RuntimeError with the
+    compiler's output if it cannot be built."""
+    return HOST.library()
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(_F32P)
 
 
 class BVH(NamedTuple):
@@ -33,14 +73,30 @@ class BVH(NamedTuple):
         return self.nodes.shape[0]
 
 
-def build_bvh(positions: np.ndarray, leaf_size: int = 4) -> BVH:
-    """A BVH over (T, 3, 3) world-space triangle positions."""
+def build_bvh(positions: np.ndarray, leaf_size: int = 4,
+              force_python: bool = False) -> BVH:
+    """A BVH over (T, 3, 3) world-space triangle positions: the host
+    library's binned SAH, or with ``force_python`` the NumPy median
+    split."""
     positions = np.ascontiguousarray(positions, np.float32)
-    if positions.shape[0] == 0:
+    t = positions.shape[0]
+    if t == 0:
         return BVH(nodes=np.zeros((0, 8), np.float32),
                    meta=np.zeros((0, 4), np.int32),
                    order=np.zeros((0,), np.int32))
-    return _build_bvh_python(positions, leaf_size)
+    if force_python:
+        return _build_bvh_python(positions, leaf_size)
+    cap = 2 * t + 1
+    nodes = np.zeros((cap, 8), np.float32)
+    meta = np.zeros((cap, 4), np.int32)
+    order = np.zeros((t,), np.int32)
+    n = host_library().srt_bvh_build(_f32p(positions), t, leaf_size,
+                                     _f32p(nodes), meta.ctypes.data_as(_I32P),
+                                     order.ctypes.data_as(_I32P))
+    if not 0 < n <= cap:
+        raise RuntimeError(f"srt_bvh_build returned {n} nodes for {t} "
+                           "triangles")
+    return BVH(nodes=nodes[:n].copy(), meta=meta[:n].copy(), order=order)
 
 
 def _build_bvh_python(positions: np.ndarray, leaf_size: int) -> BVH:
@@ -101,6 +157,74 @@ def _build_bvh_python(positions: np.ndarray, leaf_size: int) -> BVH:
                order=np.asarray(new_order, np.int32))
 
 
+def validate_bvh(bvh: BVH, positions: np.ndarray) -> None:
+    """Raise ValueError unless every triangle lies in exactly one leaf,
+    every leaf box contains its triangles (to 1e-4) and every skip link
+    points forward, at most one past the last node."""
+    t = positions.shape[0]
+    seen = np.zeros(t, bool)
+    n = bvh.num_nodes
+    for i in range(n):
+        skip, first, count, is_leaf = bvh.meta[i]
+        if not i < skip <= n:
+            raise ValueError(f"node {i}: bad skip {skip}")
+        if is_leaf:
+            idx = bvh.order[first:first + count]
+            if seen[idx].any():
+                raise ValueError(f"node {i}: a triangle in two leaves")
+            seen[idx] = True
+            tri = positions[idx].reshape(-1, 3)
+            if ((tri < bvh.nodes[i, :3] - 1e-4).any()
+                    or (tri > bvh.nodes[i, 3:6] + 1e-4).any()):
+                raise ValueError(f"leaf {i}: a triangle outside its box")
+    if not seen.all():
+        raise ValueError("a triangle in no leaf")
+
+
+def transform_triangles(positions: np.ndarray, normals: np.ndarray,
+                        matrix: np.ndarray, force_python: bool = False):
+    """(T, 3, 3) positions and normals by a 4x4 matrix (positions affine,
+    normals by its linear part) and the positions' world box (lo, hi):
+    the host library's, or with ``force_python`` NumPy's matmul, which
+    ``Model.world_triangles`` uses and which may differ in the last bit."""
+    positions = np.ascontiguousarray(positions, np.float32)
+    normals = np.ascontiguousarray(normals, np.float32)
+    matrix = np.ascontiguousarray(matrix, np.float32)
+    n = positions.shape[0]
+    if not force_python and n > 0:
+        pos_out = np.empty_like(positions)
+        nrm_out = np.empty_like(normals)
+        aabb = np.empty(6, np.float32)
+        host_library().srt_transform_triangles(
+            _f32p(positions), _f32p(normals), _f32p(matrix), n,
+            _f32p(pos_out), _f32p(nrm_out), _f32p(aabb))
+        return pos_out, nrm_out, (aabb[:3], aabb[3:])
+    wpos = positions @ matrix[:3, :3].T + matrix[:3, 3]
+    wnrm = normals @ matrix[:3, :3].T
+    flat = wpos.reshape(-1, 3)
+    if flat.shape[0]:
+        box = (flat.min(axis=0), flat.max(axis=0))
+    else:
+        box = (np.full(3, np.inf, np.float32), np.full(3, -np.inf, np.float32))
+    return wpos, wnrm, box
+
+
+def parse_stl(data: bytes) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The (M, 3, 3) positions and flat normals of a binary STL buffer's
+    whole records (a truncated file gives fewer than its header counts),
+    by the host library; None if the buffer is shorter than its header."""
+    lib = host_library()
+    buf = np.frombuffer(data, np.uint8)
+    count = lib.srt_stl_count(buf.ctypes.data_as(_U8P), len(data))
+    if count < 0:
+        return None
+    pos = np.empty((count, 3, 3), np.float32)
+    nrm = np.empty((count, 3, 3), np.float32)
+    lib.srt_stl_parse(buf.ctypes.data_as(_U8P), len(data), _f32p(pos),
+                      _f32p(nrm))
+    return pos, nrm
+
+
 class Clusters(NamedTuple):
     """Fixed-size triangle clusters cut from a BVH: a box per cluster and
     exactly K triangle slots (-1 pads).  ``order`` is the BVH permutation:
@@ -114,7 +238,8 @@ class Clusters(NamedTuple):
 
 def build_clusters(positions: np.ndarray, k: int = 256,
                    leaf_size: int = 8) -> Clusters:
-    """Cut a BVH into spatial clusters of at most ``k`` triangles.
+    """Cut a BVH (``build_bvh``'s) into spatial clusters of at most ``k``
+    triangles.
 
     First the tree is cut into granules, whole subtrees of at most k/4
     triangles (contiguous ranges of the reordered array); then

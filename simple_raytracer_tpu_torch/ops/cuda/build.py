@@ -1,12 +1,14 @@
-"""Build a CUDA source of the port with ``nvcc`` and bind it with ctypes.
+"""Build a source of the port into a shared library and bind it with ctypes.
 
-Each kernel source under ``csrc/`` is compiled on first use into a shared
-library with a plain C interface under ``build/srt_torch_kernels/``,
-named by a hash of the source, the headers beside it and the flags, and
-loaded with ``ctypes``.
+Each kernel source under ``csrc/`` is compiled with ``nvcc`` on first use
+into a shared library with a plain C interface under
+``build/srt_torch_kernels/``, named by a hash of the source, the headers
+beside it, the compiler and the flags, and loaded with ``ctypes``.
 No PyTorch header is compiled, so a build takes seconds.  A ``Kernel``
-also counts its launches, in all and per variant.  ``build_all`` builds
-several at once, one nvcc each.
+also counts its launches, in all and per variant.  ``HostLibrary`` is the
+same for a C++ source of the host (``csrc/host_accel.cpp``), compiled by
+the host compiler (``$CXX``, else ``c++``) into the same directory.
+``build_all`` builds several at once, one compiler each.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "srt_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# no -march=native: the library's results must not depend on the host
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off"]
 
 
 def interface(lib: ctypes.CDLL, name: str) -> int:
@@ -42,6 +46,8 @@ class Kernel:
     """One CUDA source: its built library, nvcc's output and counts of
     launches, in all (``launches``) and per variant
     (``variant_launches``).  ``bind`` sets the library's argtypes."""
+
+    headers = ("*.cuh",)     # the sources beside it that it includes
 
     def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None],
                  extra_flags: Sequence[str] = ()):
@@ -74,36 +80,49 @@ class Kernel:
                 self._lib = self._build()
             return self._lib
 
+    def compiler(self) -> str:
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found: the CUDA toolkit is "
+                               f"needed to build {self.source.name}")
+        return nvcc
+
     def _build(self) -> ctypes.CDLL:
         import time
         t0 = time.perf_counter()
-        headers = sorted(self.source.parent.glob("*.cuh"))
+        headers = sorted(p for pattern in self.headers
+                         for p in self.source.parent.glob(pattern))
         src = b"".join(p.read_bytes() for p in [self.source, *headers])
-        digest = hashlib.sha256(src + " ".join(self.flags).encode()
+        cc = self.compiler()
+        digest = hashlib.sha256(src + " ".join([cc, *self.flags]).encode()
                                 ).hexdigest()[:16]
         out = BUILD_DIR / f"{self.source.stem}-{digest}.so"
         if not out.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            if not os.path.exists(nvcc):
-                raise RuntimeError("nvcc not found: the CUDA toolkit is "
-                                   f"needed to build {self.source.name}")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # two Kernels of one source and flags may build at once
+            # two processes (or Kernels) of one source may build at once
             tmp = out.with_suffix(f".{os.getpid()}.{id(self)}.tmp")
-            proc = subprocess.run(
-                [nvcc, *self.flags, "-o", str(tmp), str(self.source)],
-                capture_output=True, text=True)
+            try:
+                proc = subprocess.run(
+                    [cc, *self.flags, "-o", str(tmp), str(self.source)],
+                    capture_output=True, text=True)
+            except OSError as exc:
+                raise RuntimeError(f"{cc} could not be run to build "
+                                   f"{self.source.name}: {exc}") from exc
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"{cc} failed ({proc.returncode}) on "
                                    f"{self.source.name}:\n{self.build_log}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
+        self._loaded(lib)
+        self.build_seconds = time.perf_counter() - t0
+        return lib
+
+    def _loaded(self, lib: ctypes.CDLL) -> None:
         lib.srt_error_string.argtypes = [ctypes.c_int]
         lib.srt_error_string.restype = ctypes.c_char_p
         self._bind(lib)
-        self.build_seconds = time.perf_counter() - t0
-        return lib
 
     def check(self, err: int, what: str) -> None:
         """Raise if a launch returned a CUDA error."""
@@ -112,8 +131,27 @@ class Kernel:
                                + self.library().srt_error_string(err).decode())
 
 
+class HostLibrary(Kernel):
+    """A C++ source of the host, built by the host compiler (``$CXX``,
+    else ``c++``) with ``HOST_FLAGS``; it launches nothing on the card,
+    so its counts stay 0."""
+
+    headers = ()
+
+    def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None]):
+        super().__init__(source, bind)
+        self.flags = list(HOST_FLAGS)
+
+    def compiler(self) -> str:
+        return (os.environ.get("CXX") or shutil.which("c++")
+                or shutil.which("g++") or "c++")
+
+    def _loaded(self, lib: ctypes.CDLL) -> None:
+        self._bind(lib)
+
+
 def build_all(kernels: Sequence[Kernel]) -> None:
-    """Build every kernel at once (a thread and one nvcc each); raise
+    """Build every kernel at once (a thread and one compiler each); raise
     RuntimeError naming each source that failed, after all have ended."""
     errors = []
 

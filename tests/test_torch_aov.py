@@ -27,7 +27,7 @@ from simple_raytracer_tpu_torch.ops import trace as trace_mod
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel, trace_kernel
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 
-from torch_port_helpers import jax_scene_arrays
+from torch_port_helpers import jax_native_accel, jax_scene_arrays
 
 MODES = ("normals", "depth", "albedo")
 BOUND = 2e-3
@@ -76,9 +76,7 @@ def test_config5_aov_through_bvh_matches_jax(aov, monkeypatch):
     path, whose nearest triangle is the BVH wrapper's (its plain version
     on the CPU, one call a pass), against JAX's render_pass (its dense
     loop on the CPU) on the same scene, carried across."""
-    import simple_raytracer_tpu.accel
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+    jax_native_accel()
     w, h = 48, 32
     jscene, jcamera, _ = JCONFIGS[5](width=w, height=h)
     ds = jscene.build()

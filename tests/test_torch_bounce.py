@@ -23,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
 from simple_raytracer_tpu.ops import trace as jtrace
 from simple_raytracer_tpu.ops.camera import camera_rotation as jrotation
@@ -36,7 +35,8 @@ from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 from simple_raytracer_tpu_torch.ops.trace import trace_rays, trace_rays_fused
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
-from torch_port_helpers import jax_scene_arrays, jvec, seeds, to_np, tvec
+from torch_port_helpers import (jax_native_accel, jax_scene_arrays, jvec,
+                                seeds, to_np, tvec)
 
 # config 7 at a test's size: 5,120 triangles
 SCENES = {5: {}, 7: {"subdivisions": 4}}
@@ -44,10 +44,10 @@ W, H, BOUNCES = 96, 54, 3        # tests/test_fused_kernel.py's pass
 
 
 @pytest.fixture
-def numpy_bvh(monkeypatch):
-    """The JAX package's NumPy BVH builder, the one the port has."""
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+def jax_native():
+    """The JAX package on its default BVH builder, its native library (the
+    port's host library builds the same tree)."""
+    jax_native_accel()
 
 
 def _scenes(n):
@@ -78,7 +78,7 @@ def _tseed(s: np.ndarray) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("n", [5, 7])
-def test_trace_rays_fused_matches_jax(n, numpy_bvh):
+def test_trace_rays_fused_matches_jax(n, jax_native):
     """The port's fused path (the BVH plain version and bounce_step_plain)
     against the JAX trace_rays_fused (_bounce_kernel in interpret mode,
     block_r=512): per-ray radiance within the fused tests' bounds."""
@@ -103,7 +103,7 @@ def _jax_tri_rows(ts, t, slot):
 
 @pytest.mark.parametrize("block_r", [128, 512])
 @pytest.mark.parametrize("n", [5, 7])
-def test_bounce_step_matches_jax_bounce_kernel(n, block_r, numpy_bvh):
+def test_bounce_step_matches_jax_bounce_kernel(n, block_r, jax_native):
     """One bounce at a time from the same state and winners:
     bounce_step_plain against _bounce_kernel in interpret mode.  The seed
     row (as uint32 bits) and the alive row are equal; every other row is

@@ -30,7 +30,6 @@ import numpy as np
 import pytest
 import torch
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.models import Scene as JScene
 from simple_raytracer_tpu.models.meshgen import icosphere
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
@@ -41,16 +40,17 @@ from simple_raytracer_tpu_torch.ops import intersect as tint
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 
-from torch_port_helpers import jax_scene_arrays, jvec, to_np, tvec, unit_vectors
+from torch_port_helpers import (jax_native_accel, jax_scene_arrays, jvec,
+                                to_np, tvec, unit_vectors)
 
 RTOL = 1e-5   # tests/test_bvh_kernel.py's bound on t (see the docstring)
 
 
 @pytest.fixture
-def numpy_bvh(monkeypatch):
-    """The JAX package's NumPy BVH builder, the one the port has."""
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+def jax_native():
+    """The JAX package on its default BVH builder, its native library (the
+    port's host library builds the same tree)."""
+    jax_native_accel()
 
 
 def _ico_scene(k):
@@ -241,7 +241,7 @@ def test_slab_test_matches_visit_prepass():
     assert got[:, :8].any() and not got[-4:].any()
 
 
-def test_unions_and_admission_boxes_match(numpy_bvh):
+def test_unions_and_admission_boxes_match(jax_native):
     """union_boxes8, the hierarchy's supers and groups, and the admission
     boxes are bit-equal to _union_boxes8, the super/group boxes
     intersect_triangles_bvh builds, and _admission_boxes: on config 6's
@@ -361,7 +361,7 @@ def interpret_bvh(monkeypatch):
 
 
 @pytest.mark.parametrize("n_cfg", [4, 6])
-def test_closest_hit_split_matches_jax_bvh(n_cfg, numpy_bvh, interpret_bvh):
+def test_closest_hit_split_matches_jax_bvh(n_cfg, jax_native, interpret_bvh):
     """The split path's nearest hit against JAX's closest_hit with
     tri_backend="bvh" (the BVH kernel in interpret mode, its winner shaded
     at the hit position): the same hits and materials, t within RTOL and
@@ -413,7 +413,7 @@ def test_closest_hit_split_dense_meshes_match_jax():
                                       to_np(jh.normal)[hit])
 
 
-def test_residency_and_compaction_rules_match_jax(numpy_bvh):
+def test_residency_and_compaction_rules_match_jax(jax_native):
     """table_streams_hbm, compact_cap_auto and the variant choice follow
     the TPU's rules: configs 4 and 5 fit the row table (flat), config 6
     the packed one (two_level, bounce 0 dense), config 7's 11,008

@@ -38,7 +38,6 @@ import numpy as np
 import pytest
 import torch
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
 from simple_raytracer_tpu.ops.pallas import bvh_kernel as jbvh
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
@@ -51,8 +50,9 @@ from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
-from torch_port_helpers import (LANES, jax_scene_arrays, jvec, tvec,
-                                unit_vectors, warp_walk_emulation)
+from torch_port_helpers import (LANES, jax_native_accel, jax_scene_arrays,
+                                jvec, tvec, unit_vectors,
+                                warp_walk_emulation)
 
 RTOL = 1e-5   # tests/test_bvh_kernel.py's bound on t (interpret mode runs
               # under jit, where XLA:CPU contracts multiply-adds)
@@ -60,17 +60,16 @@ RTOL = 1e-5   # tests/test_bvh_kernel.py's bound on t (interpret mode runs
 
 @pytest.fixture(scope="module")
 def flat_configs():
-    """Configs 4 and 5 at 64x36: the JAX scene (NumPy builder), the port's
+    """Configs 4 and 5 at 64x36: the JAX scene (its default, native BVH
+    builder, whose tree the port's host library builds too), the port's
     clusters and slot table, and the port's camera."""
+    jax_native_accel()
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(simple_raytracer_tpu.accel, "_load_library",
-                   lambda: None)
-        for n in (4, 5):
-            ds = JCONFIGS[n](width=64, height=36)[0].build()
-            tr = from_numpy(jax_scene_arrays(ds), "cpu").triangles
-            _, camera, _ = CONFIGS[n](width=64, height=36)
-            out[n] = (ds, tr.clusters, tr.table, camera)
+    for n in (4, 5):
+        ds = JCONFIGS[n](width=64, height=36)[0].build()
+        tr = from_numpy(jax_scene_arrays(ds), "cpu").triangles
+        _, camera, _ = CONFIGS[n](width=64, height=36)
+        out[n] = (ds, tr.clusters, tr.table, camera)
     return out
 
 

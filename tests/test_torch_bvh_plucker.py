@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.models import Scene as JScene
 from simple_raytracer_tpu.models.meshgen import icosphere
 from simple_raytracer_tpu.ops.pallas import bvh_kernel as jbvh
@@ -37,7 +36,8 @@ from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 from simple_raytracer_tpu_torch.scripts import probe_kernel_ops as probe
 
-from torch_port_helpers import jax_scene_arrays, jvec, tvec, unit_vectors
+from torch_port_helpers import (BUILDERS, jax_scene_arrays, jvec, tvec,
+                                unit_vectors, use_builder)
 
 RTOL = 1e-4   # tests/test_bvh_kernel.py's bound on the Plucker form's t
 
@@ -246,12 +246,13 @@ def test_resolve_plucker_matches_jax(subbox, monkeypatch):
         ts.triangles.clusters, "two_level")
 
 
+@pytest.mark.parametrize("builder", BUILDERS)
 @pytest.mark.parametrize("k", [64, 128, 256])
-def test_cluster_size_scene_matches_jax(k, monkeypatch):
+def test_cluster_size_scene_matches_jax(k, builder, monkeypatch):
     """Scene.cluster_size forces K: the port's build equals the JAX
-    package's (its NumPy builder) cluster boxes, slots and triangles."""
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+    package's cluster boxes, slots and triangles, both packages on either
+    BVH builder (``use_builder``)."""
+    use_builder(monkeypatch, builder)
     from simple_raytracer_tpu_torch.models.meshgen import icosphere as tico
     ds, _ = _ico_scene(k)
     want = jax_scene_arrays(ds)

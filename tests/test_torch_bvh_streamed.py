@@ -30,7 +30,6 @@ import numpy as np
 import pytest
 import torch
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.models import Scene as JScene
 from simple_raytracer_tpu.models.meshgen import icosphere
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
@@ -43,23 +42,22 @@ from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
-from torch_port_helpers import jax_scene_arrays, jvec, tvec, unit_vectors
+from torch_port_helpers import (jax_native_accel, jax_scene_arrays, jvec,
+                                tvec, unit_vectors)
 
 CHUNK, LANES = 64, 32      # the kernel's kChunk and a warp
 
 
 @pytest.fixture(scope="module")
 def config_scenes():
-    """Configs 5 and 6 at 64x36: the JAX scene (NumPy builder) carried
-    across, and the port's camera."""
+    """Configs 5 and 6 at 64x36: the JAX scene (its default, native BVH
+    builder) carried across, and the port's camera."""
+    jax_native_accel()
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(simple_raytracer_tpu.accel, "_load_library",
-                   lambda: None)
-        for n in (5, 6):
-            ds = JCONFIGS[n](width=64, height=36)[0].build()
-            _, camera, _ = CONFIGS[n](width=64, height=36)
-            out[n] = (ds, from_numpy(jax_scene_arrays(ds), "cpu"), camera)
+    for n in (5, 6):
+        ds = JCONFIGS[n](width=64, height=36)[0].build()
+        _, camera, _ = CONFIGS[n](width=64, height=36)
+        out[n] = (ds, from_numpy(jax_scene_arrays(ds), "cpu"), camera)
     return out
 
 

@@ -46,7 +46,6 @@ import numpy as np
 import pytest
 import torch
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.models import Scene as JScene
 from simple_raytracer_tpu.models.meshgen import icosphere
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
@@ -58,17 +57,15 @@ from simple_raytracer_tpu_torch.ops.vec import Vec3
 
 from test_torch_bvh_streamed import _tie_clusters
 from torch_port_helpers import (BATCH, CHUNK, LANES, SPLIT_MAX, STAGES,
-                               jax_scene_arrays, jvec, tvec, unit_vectors,
-                               warp_walk_emulation)
+                               jax_native_accel, jax_scene_arrays, jvec, tvec,
+                               unit_vectors, warp_walk_emulation)
 
 @pytest.fixture(scope="module")
 def config6():
     """Config 6 at 64x36 (768 clusters of 128, 3 groups of the hierarchy),
-    the JAX scene (NumPy builder) carried across."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(simple_raytracer_tpu.accel, "_load_library",
-                   lambda: None)
-        ds = JCONFIGS[6](width=64, height=36)[0].build()
+    the JAX scene (its default, native BVH builder) carried across."""
+    jax_native_accel()
+    ds = JCONFIGS[6](width=64, height=36)[0].build()
     tr = from_numpy(jax_scene_arrays(ds), "cpu").triangles
     assert tr.clusters.k == 128 and tr.clusters.hierarchy.groups.shape[0] > 1
     return tr.clusters, tr.table

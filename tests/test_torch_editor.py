@@ -14,7 +14,6 @@ import math
 import numpy as np
 import pytest
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.editor import EditError as JEditError
 from simple_raytracer_tpu.editor import SceneEditor as JEditor
 from simple_raytracer_tpu.editor import decompose_trs as jdecompose
@@ -27,17 +26,18 @@ from simple_raytracer_tpu_torch.io.stl import save_stl
 from simple_raytracer_tpu_torch.models.camera import Camera
 from simple_raytracer_tpu_torch.models.scene import Scene
 
-from torch_port_helpers import jax_scene_arrays, port_scene_arrays
+from torch_port_helpers import (jax_native_accel, jax_scene_arrays,
+                                port_scene_arrays)
 
 KINDS = ("sphere", "plane", "model")
 BOUND = 2e-3
 
 
 @pytest.fixture(autouse=True)
-def numpy_bvh(monkeypatch):
-    """The JAX package's BVH from its NumPy builder, as the port's."""
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+def jax_native():
+    """The JAX package on its default BVH builder, its native library (the
+    port's host library builds the same tree)."""
+    jax_native_accel()
 
 
 class Pair:

@@ -19,7 +19,7 @@ from simple_raytracer_tpu_torch.models.presets import CONFIGS
 from simple_raytracer_tpu_torch.models.shapes import transform_trs
 from simple_raytracer_tpu_torch.ops.camera import tile_image, untile_image
 
-from torch_port_helpers import jax_scene_arrays
+from torch_port_helpers import BUILDERS, jax_scene_arrays, use_builder
 
 W, H = 64, 32
 
@@ -112,11 +112,13 @@ def test_refit_clusters_matches_jax():
                                                      ).all()
 
 
-def test_scene_refit_keeps_k_and_topology_as_jax(monkeypatch):
+@pytest.mark.parametrize("builder", BUILDERS)
+def test_scene_refit_keeps_k_and_topology_as_jax(builder, monkeypatch):
     """Config 5 with one model moved, built with refit=True twice: the
     port keeps K and the slots, and its boxes and tables equal the JAX
-    scene's refit; a full build then clusters anew."""
-    monkeypatch.setattr(jaccel, "_load_library", lambda: None)
+    scene's refit; a full build then clusters anew.  Both packages on
+    either BVH builder (``use_builder``)."""
+    use_builder(monkeypatch, builder)
     scene, camera, _ = CONFIGS[5](width=16, height=8)
     jscene, _, _ = JCONFIGS[5](width=16, height=8)
     first = scene.arrays()

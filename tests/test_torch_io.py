@@ -25,7 +25,7 @@ from simple_raytracer_tpu_torch.models.presets import CONFIGS
 from simple_raytracer_tpu_torch.models.scene import Scene
 from simple_raytracer_tpu_torch.models.shapes import TrianglePool
 
-from torch_port_helpers import jax_scene_arrays
+from torch_port_helpers import jax_native_accel, jax_scene_arrays
 
 # (writer, loader) modules of the two packages, both ways
 WAYS = {"jax->port": (jobj, jstl, tobj, tstl, TrianglePool),
@@ -123,14 +123,12 @@ def _scene_doc(path):
 
 
 @pytest.mark.parametrize("n", [3, 5])
-def test_scene_files_cross_load(n, tmp_path, monkeypatch):
+def test_scene_files_cross_load(n, tmp_path):
     """Config 3 (a box, a skybox texture) and config 5 (a shared pool,
     two transformed models) saved by either package load in the other:
     the reloaded scene saves to the same document and side files, and
     builds to the same device arrays as the preset."""
-    import simple_raytracer_tpu.accel
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+    jax_native_accel()
     sky = np.random.default_rng(n).random((8, 16, 3), np.float32)
     jscene, jcamera, _ = JCONFIGS[n](width=16, height=8)
     tscene, tcamera, _ = CONFIGS[n](width=16, height=8)
@@ -168,13 +166,11 @@ def test_scene_files_cross_load(n, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("ext", ["obj", "stl"])
-def test_mesh_path_and_import_model_match_jax(ext, tmp_path, monkeypatch):
+def test_mesh_path_and_import_model_match_jax(ext, tmp_path):
     """Configs 4 and 5 read a mesh file (written by the port from
     organic_blob) into the same scene arrays as the JAX presets; an
     imported model adds the same span."""
-    import simple_raytracer_tpu.accel
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+    jax_native_accel()
     pos, nrm = organic_blob(subdivisions=2)
     path = str(tmp_path / f"blob.{ext}")
     if ext == "obj":

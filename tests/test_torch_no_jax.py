@@ -20,7 +20,9 @@ three showcase scenes, and runs the CLI with --all-devices; then imports
 the editor, the gizmo and the viewer, starts the viewer's render loop and
 HTTP server on the CPU, fetches one frame and posts one edit.
 chip_smoke.py itself must fail, printing no result, without CUDA and
-outside the repository.
+outside the repository.  The port's host library (the BVH builder, the
+STL parser) is compiled and loaded with the same imports refused, from
+the port's own source into build/, never the JAX package's native/.
 """
 import os
 import shutil
@@ -225,6 +227,66 @@ def test_port_runs_without_jax():
                           env=_env())
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO_JAX_OK" in proc.stdout
+
+
+HOST_SCRIPT = r'''
+import importlib.abc
+import shutil
+import sys
+import tempfile
+from pathlib import Path
+
+BLOCKED = {"jax", "jaxlib", "simple_raytracer_tpu"}
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"import of {name} refused")
+        return None
+
+
+for mod in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+
+import numpy as np
+from simple_raytracer_tpu_torch import accel
+from simple_raytracer_tpu_torch.ops.cuda import build
+
+# a fresh build directory under build/: the library is compiled here
+repo_build = build.BUILD_DIR.parent
+repo_build.mkdir(exist_ok=True)
+build.BUILD_DIR = Path(tempfile.mkdtemp(dir=repo_build))
+try:
+    lib = accel.host_library()
+    path = Path(lib._name).resolve()
+    assert path.parent == build.BUILD_DIR.resolve(), path
+    assert path.name.startswith("host_accel-"), path
+    assert accel.HOST.build_log is not None
+    pos = np.random.default_rng(0).normal(size=(500, 3, 3)).astype(np.float32)
+    bvh = accel.build_bvh(pos)
+    accel.validate_bvh(bvh, pos)
+    maps = Path("/proc/self/maps").read_text()
+    assert "libsrt_native" not in maps and "/native/" not in maps
+    assert str(path) in maps
+finally:
+    shutil.rmtree(build.BUILD_DIR)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("HOST_OK", path.relative_to(repo_build.resolve()).parts[0])
+'''
+
+
+def test_host_library_builds_without_jax():
+    """The port compiles its own host library (csrc/host_accel.cpp) into a
+    fresh directory under build/ and loads it, with jax and the JAX
+    package unimportable; no file under native/ is mapped."""
+    proc = subprocess.run([sys.executable, "-c", HOST_SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=_env())
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "HOST_OK" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -26,7 +26,7 @@ from simple_raytracer_tpu_torch.models.presets import CONFIGS
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 from simple_raytracer_tpu_torch.ops.trace import render_pass
 
-from torch_port_helpers import jax_scene_arrays
+from torch_port_helpers import jax_native_accel, jax_scene_arrays
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 SIZES = {1: (64, 64), 2: (96, 54), 3: (96, 54), 4: (96, 54), 5: (96, 54)}
@@ -53,10 +53,8 @@ def _port_renderer(n, scene=None, **kw):
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
-def test_renderer_matches_jax_and_golden(n, monkeypatch):
-    import simple_raytracer_tpu.accel
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+def test_renderer_matches_jax_and_golden(n):
+    jax_native_accel()
     w, h = SIZES[n]
     jscene, jcamera, jopt = JCONFIGS[n](width=w, height=h,
                                         **KWARGS.get(n, {}))
@@ -156,10 +154,8 @@ def test_config4_bvh_backend_matches_jax(monkeypatch):
     tests/test_bvh_kernel.py:426 runs it): the canvases agree within the
     golden bound (measured here: RMSE 2.6e-7), and the port's split path
     agrees with its own whole-trace plain version (RMSE 1.4e-9)."""
-    import simple_raytracer_tpu.accel
     import simple_raytracer_tpu.ops.pallas.bvh_kernel as jbvh
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+    jax_native_accel()
     orig = jbvh.intersect_triangles_bvh
 
     def interp(o, d, alive, t_init, aabb, table_t, block_r=1536,
@@ -348,13 +344,11 @@ def test_routing_matches_jax(monkeypatch):
     in both packages so that config 7 streams, as at full size.  Under
     "auto" the port's routes are those of PR 6: configs 1 to 5 whole,
     6 and 7 split."""
-    import simple_raytracer_tpu.accel
     import simple_raytracer_tpu.ops.pallas.bounce_kernel as jbk
     import simple_raytracer_tpu.ops.pallas.bvh_kernel as jbvh
     import simple_raytracer_tpu_torch.ops.bvh as tbvh
     import simple_raytracer_tpu_torch.ops.scene_types as tst
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+    jax_native_accel()
     kwargs = {**KWARGS, 7: {"subdivisions": 5}}
     scenes = {}
     for n in range(1, 8):

@@ -3,9 +3,10 @@
 For configs 1 to 5, the port's Scene.build() must equal the JAX
 Scene.build() array by array, padding slots included, the triangles in
 BVH order and the cluster boxes and slots too, and the JAX scene carried
-across with from_numpy must give the same tensors.  The port builds its
-BVH with the NumPy builder only, so the JAX side is forced to its NumPy
-builder (the C++ SAH builder gives other clusters).
+across with from_numpy must give the same tensors.  Both packages run on
+their default BVH builders, the binned SAH of the JAX package's native
+library and of the port's host library, and again on the NumPy median
+split of both.
 """
 import numpy as np
 import pytest
@@ -19,21 +20,23 @@ from simple_raytracer_tpu_torch.models.presets import CONFIGS as TCONFIGS
 from simple_raytracer_tpu_torch.models.scene import Scene
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 
-from torch_port_helpers import jax_scene_arrays, port_scene_arrays
+from torch_port_helpers import (BUILDERS, jax_scene_arrays, port_scene_arrays,
+                                use_builder)
 
 # the gradient sky, as tests/test_golden.py pins it
 KWARGS = {3: {"skybox": "gradient"}}
 
 
-@pytest.fixture
-def numpy_bvh(monkeypatch):
-    """The JAX package's BVH from its NumPy builder, as the port's."""
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+@pytest.fixture(params=BUILDERS)
+def builder(request, monkeypatch):
+    """Both packages on one BVH builder (``use_builder``): "sah", each
+    one's default, or "median", the NumPy median split of both."""
+    use_builder(monkeypatch, request.param)
+    return request.param
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6])
-def test_scene_build_matches_jax(n, numpy_bvh):
+def test_scene_build_matches_jax(n, builder):
     jscene, jcam, jopt = JCONFIGS[n](**KWARGS.get(n, {}))
     tscene, tcam, topt = TCONFIGS[n](**KWARGS.get(n, {}))
     want = jax_scene_arrays(jscene.build())
@@ -104,9 +107,9 @@ def test_meshes_and_skyboxes_are_a_later_slice():
         assert TCONFIGS[3](skybox=mode)[0].skybox is None
 
 
-def test_clusters_match_jax(numpy_bvh):
-    """The BVH and its cut into clusters equal the JAX package's NumPy
-    build: boxes, slots and the reorder permutation."""
+def test_clusters_match_jax(builder):
+    """The BVH and its cut into clusters equal the JAX package's build on
+    the same builder: boxes, slots and the reorder permutation."""
     pos, _ = organic_blob(subdivisions=3)
     for k in (64, 128):
         got = accel.build_clusters(pos, k=k)
@@ -122,7 +125,7 @@ def test_clusters_match_jax(numpy_bvh):
     simple_raytracer_tpu.accel.validate_bvh(bvh, pos)
 
 
-def test_mesh_instances_and_boxes(numpy_bvh):
+def test_mesh_instances_and_boxes(builder):
     """Boxes and model instances flatten to world space as in the JAX
     package; at the cluster threshold a mesh is BVH-clustered into
     K = 64 slots, padded with 3e38 boxes to a power of two."""

@@ -13,7 +13,6 @@ import math
 import numpy as np
 import pytest
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.editor import SceneEditor as JEditor
 from simple_raytracer_tpu.models.materials import Material as JMaterial
 from simple_raytracer_tpu.models.meshgen import torus
@@ -26,14 +25,15 @@ from simple_raytracer_tpu_torch.models.scene import Scene
 from simple_raytracer_tpu_torch.models.shapes import transform_trs
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 
-from torch_port_helpers import jax_scene_arrays, port_scene_arrays
+from torch_port_helpers import (jax_native_accel, jax_scene_arrays,
+                                port_scene_arrays)
 
 
 @pytest.fixture(autouse=True)
-def numpy_bvh(monkeypatch):
-    """The JAX package's BVH from its NumPy builder, as the port's."""
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+def jax_native():
+    """The JAX package on its default BVH builder, its native library (the
+    port's host library builds the same tree)."""
+    jax_native_accel()
 
 
 def assert_same_scene(jscene, tscene):

@@ -7,7 +7,6 @@ for the texture case."""
 import numpy as np
 import pytest
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.engine import Renderer as JRenderer
 from simple_raytracer_tpu.engine import RenderOptions as JOptions
 from simple_raytracer_tpu.models import showcase as jshowcase
@@ -16,17 +15,18 @@ from simple_raytracer_tpu_torch.io.image import save_hdr
 from simple_raytracer_tpu_torch.models import showcase
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 
-from torch_port_helpers import jax_scene_arrays, port_scene_arrays
+from torch_port_helpers import (jax_native_accel, jax_scene_arrays,
+                                port_scene_arrays)
 
 BOUND = 2e-3                     # tests/test_golden.py's RMSE bound
 W, H = 32, 18
 
 
 @pytest.fixture
-def numpy_bvh(monkeypatch):
-    """The JAX package's BVH from its NumPy builder, as the port's."""
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+def jax_native():
+    """The JAX package on its default BVH builder, its native library (the
+    port's host library builds the same tree)."""
+    jax_native_accel()
 
 
 @pytest.fixture
@@ -35,7 +35,7 @@ def no_reference(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", sorted(showcase.SHOWCASES))
-def test_showcase_matches_jax(name, numpy_bvh, no_reference):
+def test_showcase_matches_jax(name, jax_native, no_reference):
     """The builder's scene, camera and options equal the JAX builder's; its
     render at 32x18, 1 spp, 3 bounces is within the golden bound."""
     tscene, tcam, topt = showcase.SHOWCASES[name]()

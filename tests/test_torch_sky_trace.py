@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.io.image import _rgbe_to_float, float_to_rgbe
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
 from simple_raytracer_tpu.ops import trace as jtrace
@@ -36,7 +35,8 @@ from simple_raytracer_tpu_torch.ops.scene_types import from_numpy
 from simple_raytracer_tpu_torch.ops.trace import (add_sky, trace_rays,
                                                   trace_rays_fused)
 
-from torch_port_helpers import jax_scene_arrays, jvec, to_np, tvec
+from torch_port_helpers import (jax_native_accel, jax_scene_arrays, jvec,
+                                to_np, tvec)
 
 
 def _texture(form: str) -> np.ndarray:
@@ -51,9 +51,8 @@ def _texture(form: str) -> np.ndarray:
     return (r.random((256, 256, 3)) * 2.0 + 0.1).astype(np.float32)
 
 
-def _scene(n, form, w, h, monkeypatch):
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+def _scene(n, form, w, h):
+    jax_native_accel()
     kw = {"skybox": "gradient"} if n == 3 else {}
     scene, camera, opt = JCONFIGS[n](width=w, height=h, **kw)
     scene.skybox = _texture(form)
@@ -72,9 +71,9 @@ def _assert_close(a, b):
 
 
 @pytest.mark.parametrize("n, form", [(2, "rgb8"), (3, "rgbe"), (4, "f32")])
-def test_whole_trace_with_texture_matches_tpu_kernel(n, form, monkeypatch):
+def test_whole_trace_with_texture_matches_tpu_kernel(n, form):
     w, h = 64, 16
-    ds, ts, camera, opt = _scene(n, form, w, h, monkeypatch)
+    ds, ts, camera, opt = _scene(n, form, w, h)
     cam = camera.state(w / h)
     jcol = bounce_kernel.trace_full_fused(
         ds, jrotation(cam.yaw, cam.pitch), cam.position, cam.aspect_ratio,
@@ -96,9 +95,9 @@ def test_whole_trace_with_texture_matches_tpu_kernel(n, form, monkeypatch):
     _assert_close(a, b)
 
 
-def test_per_bounce_paths_with_texture_match_jax_trace_rays(monkeypatch):
+def test_per_bounce_paths_with_texture_match_jax_trace_rays():
     w, h, bounces = 48, 32, 3
-    ds, ts, camera, _ = _scene(5, "rgbe", w, h, monkeypatch)
+    ds, ts, camera, _ = _scene(5, "rgbe", w, h)
     cam = camera.state(w / h)
     o, d, s = jgenerate(w, h, 1, jnp.uint32(7), cam.position,
                         jrotation(cam.yaw, cam.pitch), cam.aspect_ratio,

@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-import simple_raytracer_tpu.accel
 from simple_raytracer_tpu.engine import Renderer as JRenderer
 from simple_raytracer_tpu.engine import RenderOptions as JOptions
 from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
@@ -41,16 +40,17 @@ from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy, tri_table
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
-from torch_port_helpers import jax_scene_arrays, jvec, to_np, tvec
+from torch_port_helpers import (jax_native_accel, jax_scene_arrays, jvec,
+                                to_np, tvec)
 
 KWARGS = {3: {"skybox": "gradient"}}
 
 
 @pytest.fixture
-def numpy_bvh(monkeypatch):
-    """The JAX package's NumPy BVH builder, the one the port has."""
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
+def jax_native():
+    """The JAX package on its default BVH builder, its native library (the
+    port's host library builds the same tree)."""
+    jax_native_accel()
 
 
 def _scenes(n):
@@ -77,7 +77,7 @@ def _mesh_rays(ts, n, seed):
 
 
 @pytest.mark.parametrize("n", [3, 4, 6])
-def test_packed_tables_match_jax(n, numpy_bvh):
+def test_packed_tables_match_jax(n, jax_native):
     """The packed (16, T) table is the JAX pack_triangles' bit for bit
     (config 6: 81,920 triangles padded to 131,072); the triangle-indexed
     rows are tri_table's, and for a clustered mesh each slot's row of the
@@ -125,7 +125,7 @@ def _tie_table():
     return torch.from_numpy(packed), o, d
 
 
-def test_plain_version_matches_tpu_kernel(numpy_bvh):
+def test_plain_version_matches_tpu_kernel(jax_native):
     """The plain version against _kernel in interpret mode over config 4's
     2,048-column table (grid 2 x 4 at the TPU's blocks), and over a table
     with exact ties (the first triangle wins in both)."""
@@ -192,7 +192,7 @@ def test_launch_struct_matches_cuda_source():
 
 
 @pytest.mark.parametrize("n", [3, 4])
-def test_closest_hit_matches_jax_dense_route(n, numpy_bvh):
+def test_closest_hit_matches_jax_dense_route(n, jax_native):
     """closest_hit_split under "pallas" and "jnp" (the same hits: equal
     Hit fields) against the JAX closest_hit under "jnp" (one chunk, so it
     runs eagerly): hits, t, materials and normals equal.  For config 4's
@@ -227,7 +227,7 @@ def test_closest_hit_matches_jax_dense_route(n, numpy_bvh):
 
 
 @pytest.mark.parametrize("n", [3, 4])
-def test_pallas_and_jnp_renders_match_jax(n, numpy_bvh):
+def test_pallas_and_jnp_renders_match_jax(n, jax_native):
     """A whole small render under "pallas" and under "jnp" (the port's
     split path: the plain triangle version and the dense loop, equal on
     the CPU) against the JAX Renderer under "jnp", for config 3's small

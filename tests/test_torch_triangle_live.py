@@ -43,7 +43,7 @@ from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
 from simple_raytracer_tpu_torch.ops.vec import Vec3
 
 from test_torch_triangle import (_mesh_rays, _scenes, _tie_table,  # noqa: F401
-                                 numpy_bvh)
+                                 jax_native)
 from torch_port_helpers import jvec, to_np, tvec
 
 # hypothesis: fixed examples, no database written beside the tests
@@ -54,7 +54,7 @@ def _alive(n, seed, share=0.3):
     return torch.from_numpy(np.random.default_rng(seed).random(n) < share)
 
 
-def test_live_rays_match_tpu_kernel(numpy_bvh):
+def test_live_rays_match_tpu_kernel(jax_native):
     """Live rays: the JAX kernel's (t, index) in interpret mode (config
     4's 2,048-column table, and the table with exact ties); dead rays:
     (+inf, 0); the wrapper on CPU rays is the plain version."""
@@ -84,7 +84,7 @@ def test_live_rays_match_tpu_kernel(numpy_bvh):
     assert (ti[hit] == 300).all()    # the first of two equal triangles
 
 
-def test_alive_none_is_every_ray(numpy_bvh):
+def test_alive_none_is_every_ray(jax_native):
     """alive=None and an all-True mask give the maskless result exactly;
     an all-False mask gives (+inf, 0) everywhere."""
     _, ts = _scenes(3)
@@ -125,7 +125,7 @@ def test_key_orders_as_t_then_index():
 
 
 @pytest.mark.parametrize("n", [3, 4, 6])
-def test_staged_table(n, numpy_bvh):
+def test_staged_table(n, jax_native):
     """The staged table holds the active columns of the packed table in
     order, bit for bit, with each column's index as int32 bits; a nearest
     hit over its rows (the kernel's reading) equals the plain version's."""
@@ -156,7 +156,7 @@ def test_staged_table(n, numpy_bvh):
 
 
 @pytest.mark.parametrize("n", [3, 4, 5])
-def test_staged_table_built_on_first_use(n, numpy_bvh):
+def test_staged_table_built_on_first_use(n, jax_native):
     """from_numpy builds no staged table; the CPU route under "pallas"
     (the plain version over the packed table) builds none either;
     staged_table builds it once and keeps it on the scene's Triangles."""
@@ -342,7 +342,7 @@ def test_pretest_never_rejects_a_hit(cases):
     assert not (rejects & valid).any()
 
 
-def test_pretest_rejects_most_pairs_of_a_scene(numpy_bvh):
+def test_pretest_rejects_most_pairs_of_a_scene(jax_native):
     """Config 4's mesh against rays aimed at its triangles: every pair
     that MT accepts survives the early-out, and it rejects more than 90%
     of the pairs before the division."""
@@ -364,7 +364,7 @@ def test_pretest_rejects_most_pairs_of_a_scene(numpy_bvh):
 
 
 @pytest.mark.parametrize("n", [3, 4])
-def test_closest_hit_with_dead_rays(n, numpy_bvh):
+def test_closest_hit_with_dead_rays(n, jax_native):
     """closest_hit_split under "pallas" with a partial alive mask: on the
     live rays, the "jnp" route's Hit and the JAX closest_hit's t, hits,
     materials and normals."""

@@ -372,13 +372,12 @@ def test_edit_response_repairs_shipped_selection(server):
 
 # -- beyond tests/test_viewer.py --------------------------------------------
 
-def test_wall_clock_seeds_match_jax(monkeypatch):
+def test_wall_clock_seeds_match_jax():
     """Steps at time seeds the wall clock gives (2^31 + 5 and 2^32 - 1):
     config 2 at its golden size, the JAX scene carried across, against the
     JAX Renderer.  The camera rays' seeds and origins are bit for bit
     JAX's (directions within 1e-6, as at small seeds), each canvas within
     the golden bound."""
-    import simple_raytracer_tpu.accel
     from simple_raytracer_tpu.engine import Renderer as JRenderer
     from simple_raytracer_tpu.engine import RenderOptions as JOptions
     from simple_raytracer_tpu.models.presets import CONFIGS as JCONFIGS
@@ -390,8 +389,6 @@ def test_wall_clock_seeds_match_jax(monkeypatch):
 
     from torch_port_helpers import jax_scene_arrays
 
-    monkeypatch.setattr(simple_raytracer_tpu.accel, "_load_library",
-                        lambda: None)
     w, h = 96, 54
     jscene, jcamera, jopt = JCONFIGS[2](width=w, height=h)
     _, camera, _ = CONFIGS[2](width=w, height=h)

@@ -9,8 +9,12 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import signal
+import subprocess
+import tempfile
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -21,6 +25,48 @@ from simple_raytracer_tpu_torch.ops.scene_types import (MATERIAL_FIELDS,
                                                         SKY_VECTORS,
                                                         TRI_VECTORS)
 from simple_raytracer_tpu_torch.ops.vec import Vec3 as TVec3
+
+
+# -- the BVH builders of both packages --------------------------------------
+
+BUILDERS = ("sah", "median")
+
+
+def jax_native_accel():
+    """``simple_raytracer_tpu.accel`` with its native library loaded, the
+    builder that package uses by default.  In a checkout without
+    native/libsrt_native.so the library is built as native/Makefile builds
+    it, into a temporary directory of this process, and named through
+    SRT_NATIVE_LIB."""
+    import simple_raytracer_tpu.accel as jaccel
+    if jaccel.native_available():
+        return jaccel
+    src = (Path(jaccel.__file__).resolve().parents[1] / "native"
+           / "srt_native.cpp")
+    out = Path(tempfile.mkdtemp(prefix="srt_native_")) / "libsrt_native.so"
+    subprocess.run([os.environ.get("CXX") or "g++", "-O3", "-march=native",
+                    "-fPIC", "-std=c++17", "-Wall", "-shared", "-o",
+                    str(out), str(src)], check=True, capture_output=True)
+    os.environ["SRT_NATIVE_LIB"] = str(out)
+    jaccel._LIB_TRIED = False
+    assert jaccel.native_available()
+    return jaccel
+
+
+def use_builder(monkeypatch, builder: str) -> None:
+    """Put both packages on one BVH builder: "sah", each one's default
+    (the JAX package's native library, the port's host library), or
+    "median", the NumPy median split of both (the JAX package without its
+    library, the port's build_bvh with force_python=True)."""
+    from simple_raytracer_tpu_torch import accel
+    jaccel = jax_native_accel()
+    if builder == "median":
+        monkeypatch.setattr(jaccel, "_load_library", lambda: None)
+        build_bvh = accel.build_bvh
+        monkeypatch.setattr(accel, "build_bvh", lambda *a, **kw: build_bvh(
+            *a, **{**kw, "force_python": True}))
+    else:
+        assert builder == "sah", builder
 
 
 def jax_scene_arrays(ds) -> dict:
