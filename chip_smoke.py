@@ -7,10 +7,10 @@ Run from the repository root:
 
 (``--parent``: a checkout of an earlier commit; phase 6 also times its
 BVH kernel on the same launches, one by one, its whole-trace kernel on
-the same pass of each whole-trace cell and its shade kernel on 7/fused's
-shade launches, in turns, each bound by the C interface its build
-reports: the BVH kernel's must be this one, the whole-trace kernel's
-this one or 1.)
+the same pass of each whole-trace cell, its shade kernel on 7/fused's
+shade launches and its probe kernel on the probes, in turns, each bound
+by the C interface its build reports: the BVH kernel's must be this
+one, the whole-trace kernel's and the probe kernel's this one or 1.)
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
@@ -31,9 +31,10 @@ lowering probes (simple_raytracer_tpu_torch/scripts/probe_kernel_ops.py)
 are a path of their own.  Phases, one line each on stdout:
   1. the card's name and power limit (nvidia-smi), and whether PIL (the
      8-bit skybox loader's dependency) is installed;
-  2. the build of the five kernel sources, one nvcc each, and of the
-     host library (csrc/host_accel.cpp: the binned-SAH BVH build, the
-     STL parse; the host compiler), all started together; the
+  2. the build of the five kernel sources, one nvcc each, of the probe
+     sweep's four builds, and of the host library (csrc/host_accel.cpp:
+     the binned-SAH BVH build, the STL parse; the host compiler), all
+     started together; the
      whole-trace kernel's sections as compiled (a sphere
      test, a plane test, MT, a BSDF sample, a uniform, the gradient sky;
      cuobjdump of each built alone from the kernel's source);
@@ -44,8 +45,10 @@ are a path of their own.  Phases, one line each on stdout:
      BVH is the host library's binned SAH), the
      Plucker coefficient table's, the BVH kernel's staged MT table's and
      the triangle kernel's staged table's (once per scene, on first use);
-     then the probes' run(), its counts
-     reset just before it;
+     then the probes' run() and floor_us() (each probe on the four
+     seeded inputs of probe_inputs, timed in a CUDA graph and from
+     Python, its timing instance; an empty cluster launch), their
+     counts reset just before them;
   4. each kernel against its plain PyTorch version on the card, one pass
      of each cell at full size: the whole-trace canvas (config 6 under
      "fused": a full-width band of rows, the plain version being a dense
@@ -81,8 +84,9 @@ are a path of their own.  Phases, one line each on stdout:
      plain version; each Plucker launch replayed in the MT form (a report:
      winners changed, largest relative t difference) and, where it was
      compacted, without compaction against the plain version (the first
-     such launch of a pass); the probes'
-     outputs against their plain versions;
+     such launch of a pass); each probe against its plain version on
+     the four seeded inputs (bit for bit on integer values, A and B
+     within rtol 1e-6 of the sum on the uniform floats);
   5. the golden-size renders (tests/test_golden.py) against
      tests/goldens/config{1..6}.npz (config 6 also under "fused" and
      "pallas", in the Plucker form, and at cluster_size=256 in both forms,
@@ -119,7 +123,12 @@ are a path of their own.  Phases, one line each on stdout:
      replayed on two_level (the same walk); two_level's and flat's
      launches on builds of the kernel with the warp walk's constants
      swept (the split point, the ring), in turns with the route;
-     the probes' time per call and per loop iteration; cells 6, 7 and
+     the probes' time per call (in a CUDA graph and from Python) beside
+     an empty cluster launch of the same shape, the loop's SM cycles an
+     iteration and the spans of a CTA (the timing instance), the probe
+     sweep's builds (a bulk copy a row, dense shared rows, the CTAs'
+     values pulled, C's vote gate) in turns with the route, and with
+     --parent the parent's probe kernel in turns; cells 6, 7 and
      6/fused (rows 4, 5 and 1b') on the SAH layout against a scene built
      with the NumPy median split (accel.build_bvh(force_python=True)):
      the kernel's pass in turns, its MT pairs and lane-slot MT tests
@@ -326,6 +335,7 @@ BAND_ROWS = 16                 # the band of the gate and band checks
 FP32_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
 PROBE_CALLS = 100              # probe launches timed per probe
+PROBE_TIMED = 10               # launches of a probe's timing instance
 # the kernel rows of the JSON line: (name, kernel, TPU kernel (under
 # simple_raytracer_tpu/ops/pallas/ unless a path), the cell timed, the
 # cells whose launches it counts ("cli": phase 8's, "par": phase 9's,
@@ -463,14 +473,19 @@ def build_kernels(extra=()) -> str:
              "scan_buckets|scatter_rays", bk.VARIANTS, "plucker"),
             (sk.KERNEL, "bounce_kernel", {}, ""),
             (trk.KERNEL, "triangle_kernel(?=E)|compact_live", {}, ""),
-            (probe.KERNEL, "(?:column_sum|scalar_sum|gated_loop)", {}, "")):
+            (probe.KERNEL, "column_sum|scalar_sum|gated_loop|empty_cluster",
+             None, "")):
         # ptxas reports each entry (template instance) after its name
-        modes = {str(v): k for k, v in names.items()}
+        modes = {str(v): k for k, v in (names or {}).items()}
         variant = None
         for line in kernel.build_log.splitlines():
             m = re.search(rf"entry function '.*({entry})(?:ILi(\d+)E"
                           rf"(?:(Lb1E)|Lb0E|Li(\d)E)?(Lb1E)?)?", line)
-            if m:
+            if m and names is None:
+                # a probe: its kernel, then the timing instance's flag
+                variant = m.group(1) + ("/timed" if m.group(2) == "1"
+                                        else "")
+            elif m:
                 variant = (modes.get(m.group(2), m.group(2) or m.group(1))
                            + (f"/{flag}" if m.group(3) else "")
                            + (f"x{m.group(4)}" if m.group(4) else "")
@@ -654,6 +669,19 @@ SAMPLE_FLOPS = 96
 SAMPLE_RAY_BYTES = 36 + 12
 # a probe: the (512, 128) f32 array read once and written once
 PROBE_BYTES = 2 * probe.ROWS * probe.COLS * 4
+# The probe kernel's layout, exchange and gate swept (phase 6), each a
+# build with -D flags of the source's names, and the probes each build
+# changes: the padded rows by a bulk copy a row instead of one tensor
+# copy, dense shared rows (one bulk copy of a CTA's slice; the loop's
+# 16-byte reads 8-way bank conflicts), the CTAs' values pulled after a
+# cluster barrier instead of pushed, and C's gate as a cluster vote at
+# every column
+PROBE_SWEEP = {"row copies": (["-DSRT_PROBE_STAGE=0"], ("A", "B", "C")),
+               "pull": (["-DSRT_PROBE_PUSH=0"], ("A", "B", "C")),
+               "dense rows": (["-DSRT_PROBE_STRIDE=128"], ("A", "B", "C")),
+               "vote gate": (["-DSRT_PROBE_GATE=1"], ("C",))}
+PROBE_SWEEP_KERNELS = {name: build.Kernel(probe.SOURCE, probe._bind, flags)
+                       for name, (flags, _) in PROBE_SWEEP.items()}
 
 
 def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
@@ -1805,6 +1833,237 @@ def parent_trace_launch(kernel, prep, out) -> None:
                      "kernel")
 
 
+# srt_probe_launch of the probe kernel's C interface 1 (up to 6e3e0ec):
+# no timing instance's `cycles`
+V1_PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, probe.ProbeParams,
+                     ctypes.c_void_p]
+
+
+def bind_parent_probe(lib) -> None:
+    """A parent's probe build bound to its C interface: this one
+    (probe._bind), or version 1, whose launch takes no ``cycles``."""
+    if interface(lib, "srt_probe_interface") != 1:
+        probe._bind(lib)        # refuses any version but this one
+        return
+    lib.srt_probe_launch.argtypes = V1_PROBE_ARGTYPES
+    lib.srt_probe_launch.restype = ctypes.c_int
+
+
+def parent_probe_kernel(parent: Path):
+    """The parent checkout's probe kernel (bind_parent_probe)."""
+    return build.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
+                        / "probe_kernel.cu", bind_parent_probe)
+
+
+def parent_probe_launch(kernel, name: str, x, out) -> None:
+    """Probe ``name`` on the parent's build into ``out`` (not counted as a
+    launch of either build)."""
+    fn = kernel.library().srt_probe_launch
+    ptrs = [x.data_ptr(), out.data_ptr()]
+    if len(fn.argtypes) == len(probe.LAUNCH_ARGTYPES):
+        ptrs.append(None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    kernel.check(fn(*ptrs, probe.ProbeParams(probe.ROWS, probe.COLS,
+                                             probe.PROBES[name][0]),
+                    stream), "the parent's probe kernel")
+
+
+def probe_cuda_inputs() -> dict:
+    """probe.probe_inputs() on the card."""
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in probe.probe_inputs().items()}
+
+
+def probe_path(card: str) -> tuple:
+    """Phase 3's probe path: probe_kernel_ops.run() and floor_us(), every
+    kernel's counts reset just before and read just after (a launch
+    captured in run()'s CUDA graph counts once; its replays are not
+    launches of the wrapper).  Fails where the counts are not what they
+    launch, or a probe differs from its plain version.  Returns run()'s
+    results, floor_us()'s and the counts."""
+    for kernel in KERNELS.values():
+        kernel.reset_counts()
+    probes = probe.run(calls=PROBE_CALLS, timed_calls=PROBE_TIMED)
+    floor = probe.floor_us(calls=PROBE_CALLS)
+    torch.cuda.synchronize()
+    got = {kind: dict(k.variant_launches) for kind, k in KERNELS.items()}
+    # run(): one launch an input, warm-up and timed, captured, timing
+    # instance; floor_us(): warm-up, timed, captured
+    per_probe = len(probe.probe_inputs()) + 3 + 2 * PROBE_CALLS
+    want = {kind: {} for kind in KERNELS}
+    want["probe"] = {"empty": 3 + 2 * PROBE_CALLS}
+    for name in probe.PROBES:
+        want["probe"].update({name: per_probe,
+                              f"{name}/timed": PROBE_TIMED})
+    say(f"[3] probes (probe_kernel_ops.run, floor_us): launches {got} (want "
+        f"{want}); "
+        + "; ".join(f"{name} value[0,0]={res['value']:.1f} equal to plain "
+                    f"on every seeded input={res['equal']}"
+                    for name, res in probes.items())
+        + f"  [{card}]")
+    if got != want:
+        fail(f"probes: launches {got}, want {want}")
+    if not all(res["equal"] for res in probes.values()):
+        fail(f"probes: run() found outputs that differ from the plain "
+             f"versions: {probes}")
+    return probes, floor, got
+
+
+def probe_checks(card: str) -> dict:
+    """Phase 4: each probe kernel against its plain version on every
+    seeded input (probe.agrees: bit for bit on integer values, A and B
+    within probe.RTOL of the sum on the uniform floats); fails on any
+    other difference.  Returns each probe's largest |difference|."""
+    xs = probe_cuda_inputs()
+    errs, lines = {}, []
+    for name in probe.PROBES:
+        parts = []
+        for key, x in xs.items():
+            out = probe.launch(name, x, torch.empty_like(x))
+            d = float((out - probe.probe_plain(name, x)).abs().max())
+            if not probe.agrees(name, x, out):
+                fail(f"probe {name} on {key}: the kernel differs from its "
+                     f"plain version (max |d| {d})")
+            parts.append(f"{key} " + ("equal" if d == 0 else f"|d| {d:.4g}"))
+            errs[name] = max(errs.get(name, 0.0), d)
+        lines.append(f"{name}: {', '.join(parts)}")
+    fired = {key: int((x > 2).any(dim=0).sum()) for key, x in xs.items()}
+    say(f"[4] probes vs plain on the seeded inputs (bit for bit on "
+        f"integer values; A and B within rtol {probe.RTOL} of the sum on "
+        f"the uniform floats; columns C fires: {fired}): "
+        f"{'; '.join(lines)}  [{card}]")
+    return errs
+
+
+def span_text(cycles: dict) -> str:
+    """A timing instance's spans (probe.spans) as text."""
+    return ", ".join(f"{span} {cycles[span]:.0f}" for span in probe.SPANS) \
+        + " SM cycles a CTA"
+
+
+def probe_timings(card: str, probes: dict, floor: dict, errs: dict,
+                  timing: dict, library: dict, parent=None) -> dict:
+    """Phase 6's probe rows: each probe's time per call at the device's
+    pace and launched from Python (phase 3's run()), its loop's cycles
+    an iteration, the empty cluster launch's time, the bound, the plain
+    version's time; each build of PROBE_SWEEP in turns with the route
+    (route, build, build, route, each probe.graph_us), its outputs equal
+    to the route's on every seeded input; with ``parent`` (an earlier
+    build) the same in turns (parent, this, this, parent), its outputs
+    on the ones equal to this one's, and whether its C agrees with the
+    plain version on each input.  Fills ``timing`` and ``library`` and
+    returns the JSON rows' extra keys by cell."""
+    xs = probe_cuda_inputs()
+    x = xs["ones"]
+    out = torch.empty_like(x)
+    bound_ms = PROBE_BYTES / HBM_BYTES_PER_S * 1e3
+    floor_ms = floor["us_per_call"] / 1e3
+    extra = {}
+    for name, (_, trips, what) in probe.PROBES.items():
+        res = probes[name]
+        k_ms = res["us_per_call"] / 1e3
+        p_ms = float(np.median(cuda_ms(lambda: probe.probe_plain(name, x),
+                                       iters=PROBE_CALLS)))
+        timing[f"probe/{name}"] = ("probe", errs[name], k_ms, p_ms,
+                                   bound_ms, "bytes", None)
+        # A's and B's function is one PyTorch call, full_like of the sum,
+        # their plain version: it is their library time too.  C's is a
+        # loop over the columns that fire: several calls, no library call
+        if name != "C":
+            library[f"probe/{name}"] = p_ms
+        row = {"ms_eager": res["us_per_call_eager"] / 1e3,
+               "cycles": res["cycles"],
+               "floor_ms": floor_ms,
+               "floor_ms_eager": floor["us_per_call_eager"] / 1e3,
+               "sweep": {}}
+        route_outs = {key: probe.launch(name, xi, torch.empty_like(xi))
+                      for key, xi in xs.items()}
+        route_kernel = probe.KERNEL
+        notes = []
+        for case, (_, changes) in PROBE_SWEEP.items():
+            if name not in changes:
+                continue
+
+            def on(kernel):
+                with kernel_as(probe, kernel):
+                    return probe.graph_us(lambda: probe.launch(name, x, out),
+                                          PROBE_CALLS)
+
+            kernel = PROBE_SWEEP_KERNELS[case]
+            turns = [on(route_kernel), on(kernel), on(kernel),
+                     on(route_kernel)]
+            with kernel_as(probe, kernel):
+                for key, xi in xs.items():
+                    got = probe.launch(name, xi, torch.empty_like(xi))
+                    if not torch.equal(got, route_outs[key]):
+                        fail(f"probe {name} on {key}: the {case} build "
+                             f"differs from the route's")
+                cycles = probe.spans(name, x, PROBE_TIMED)
+            row["sweep"][case] = {"route_us": [turns[0], turns[3]],
+                                  "us": [turns[1], turns[2]],
+                                  "cycles": cycles}
+            notes.append(f"{case}: {turns[1]:.3f}, {turns[2]:.3f} us a "
+                         f"call against the route's {turns[0]:.3f}, "
+                         f"{turns[3]:.3f} in turns, the loop "
+                         f"{cycles['per_iter']:.2f} cycles an iteration ("
+                         + span_text(cycles) + "), every output the "
+                         "route's")
+        if parent is not None:
+            out_p = torch.empty_like(x)
+            this = lambda: probe.launch(name, x, out)
+            theirs = lambda: parent_probe_launch(parent, name, x, out_p)
+            theirs()            # its first launch sets its attribute
+            torch.cuda.synchronize()
+            turns = [probe.graph_us(theirs, PROBE_CALLS),
+                     probe.graph_us(this, PROBE_CALLS),
+                     probe.graph_us(this, PROBE_CALLS),
+                     probe.graph_us(theirs, PROBE_CALLS)]
+            eager = [probe.events_us(theirs, PROBE_CALLS),
+                     probe.events_us(this, PROBE_CALLS)]
+            if not torch.equal(out_p, route_outs["ones"]):
+                fail(f"probe {name}: the parent's kernel and this one "
+                     f"differ on the ones")
+            agree = {}
+            for key, xi in xs.items():
+                got = torch.empty_like(xi)
+                parent_probe_launch(parent, name, xi, got)
+                agree[key] = probe.agrees(name, xi, got)
+            row["parent_us"] = [turns[0], turns[3]]
+            row["parent_turns_this_us"] = [turns[1], turns[2]]
+            row["parent_eager_us"] = eager[0]
+            row["parent_agrees"] = agree
+            notes.append(f"the parent's kernel {turns[0]:.3f}, "
+                         f"{turns[3]:.3f} us a call against this "
+                         f"{turns[1]:.3f}, {turns[2]:.3f} in turns "
+                         f"(parent / this "
+                         f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}"
+                         f"x); launched from Python {eager[0]:.3f} against "
+                         f"{eager[1]:.3f}; the parent's output agrees with "
+                         f"the plain version on {agree}")
+        extra[f"probe/{name}"] = row
+        say(f"[6] probe {name} ({what}): {res['us_per_call']:.3f} us a call "
+            f"in a CUDA graph of {PROBE_CALLS} launches, "
+            f"{res['us_per_call_eager']:.3f} launched from Python; the loop "
+            f"{res['cycles']['per_iter']:.2f} SM cycles an iteration "
+            f"({trips} a call; the timing instance: "
+            f"{span_text(res['cycles'])}); an empty cluster launch of the "
+            f"same shape {floor['us_per_call']:.3f} us "
+            f"({floor['us_per_call_eager']:.3f} from Python); plain "
+            f"{p_ms * 1e3:.3f} us; bound {bound_ms * 1e3:.4f} us "
+            f"({PROBE_BYTES} B / 3.35 TB/s), {bound_ms / k_ms * 100:.2f}% "
+            f"of it; " + "; ".join(notes) + f"  [{card}]")
+    # the SM clock the cycles ran at (clocks.sm just after them)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    for row in extra.values():
+        row["sm_clocks"] = clocks
+    say(f"[6] probes: the SM clock just after their timings, and its "
+        f"maximum (nvidia-smi clocks.sm, clocks.max.sm): {clocks}  [{card}]")
+    return extra
+
+
 # The whole-trace walk's constants swept on the clustered cells' passes
 # (phase 6), each a build of the kernel with -D flags of the source's
 # names: the split point (0: never split, 32: always), the ring (buffers x
@@ -2880,10 +3139,12 @@ def parse_args(argv):
         "--parent", type=Path, default=None,
         help="a checkout of an earlier commit of this repository, from "
              "e112b9c on: its BVH kernel (simple_raytracer_tpu_torch/csrc/"
-             "bvh_kernel.cu) and its whole-trace kernel (trace_kernel.cu), "
-             "each with this C interface, are built beside this one's, and "
-             "phase 6 times every BVH launch, and the pass of every "
-             "whole-trace cell, on them too, in turns")
+             "bvh_kernel.cu), its whole-trace kernel (trace_kernel.cu), "
+             "its shade kernel (bounce_kernel.cu) and its probe kernel "
+             "(probe_kernel.cu), each with this C interface or one it "
+             "binds, are built beside this one's, and phase 6 times every "
+             "BVH launch, the pass of every whole-trace cell, 7/fused's "
+             "shade launches and the probes on them too, in turns")
     return ap.parse_args(argv)
 
 
@@ -2899,13 +3160,16 @@ def main(argv=None) -> int:
         f"{pil}")
 
     t0 = time.perf_counter()
-    parent = parent_trace = parent_shade = None
+    parent = parent_trace = parent_shade = parent_probe = None
     if args.parent is not None:
         parent = parent_bvh_kernel(args.parent)
         parent_trace = parent_trace_kernel(args.parent)
         parent_shade = parent_shade_kernel(args.parent)
-    ptxas = build_kernels(() if parent is None
-                          else (parent, parent_trace, parent_shade))
+        parent_probe = parent_probe_kernel(args.parent)
+    ptxas = build_kernels((*PROBE_SWEEP_KERNELS.values(),)
+                          + (() if parent is None else
+                             (parent, parent_trace, parent_shade,
+                              parent_probe)))
     say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
         "sources "
         f"(nvcc sm_90a, ctypes; "
@@ -2914,7 +3178,11 @@ def main(argv=None) -> int:
         + ("" if parent is None else
            f"; the parent's {parent.source} {parent.build_seconds:.2f} s, "
            f"{parent_trace.source} {parent_trace.build_seconds:.2f} s, "
-           f"{parent_shade.source} {parent_shade.build_seconds:.2f} s")
+           f"{parent_shade.source} {parent_shade.build_seconds:.2f} s, "
+           f"{parent_probe.source} {parent_probe.build_seconds:.2f} s")
+        + "; the probe sweep's builds "
+        + ", ".join(f"{case} {k.build_seconds:.2f} s"
+                    for case, k in PROBE_SWEEP_KERNELS.items())
         + f"); the host library {accel.HOST.source.name} "
         f"{accel.HOST.build_seconds:.2f} s ({accel.HOST.compiler()} "
         f"{' '.join(accel.HOST.flags)}; the BVH build, the STL parse)"
@@ -3040,22 +3308,9 @@ def main(argv=None) -> int:
             fail(f"cell {label}: image {img.shape} {img.dtype}")
         if img.min() == img.max():
             fail(f"cell {label}: constant image")
-    # the probes' own path: their run(), counts reset just before it
-    for kernel in KERNELS.values():
-        kernel.reset_counts()
-    probes = probe.run(calls=PROBE_CALLS)
-    torch.cuda.synchronize()
-    got = {kind: dict(k.variant_launches) for kind, k in KERNELS.items()}
-    n_probe = 1 + 3 + PROBE_CALLS          # run(): check, warm-up, timed
-    want = {kind: {} for kind in KERNELS}
-    want["probe"] = {name: n_probe for name in probe.PROBES}
-    totals["probes"] = got
-    say(f"[3] probes (probe_kernel_ops.run): launches {got} (want {want}); "
-        + "; ".join(f"{name} value[0,0]={res['value']:.1f} equal to plain="
-                    f"{res['equal']}" for name, res in probes.items())
-        + f"  [{card}]")
-    if got != want:
-        fail(f"probes: launches {got}, want {want}")
+    # the probes' own path: their run() and floor_us(), counts reset just
+    # before them
+    probes, floor, totals["probes"] = probe_path(card)
     say(f"[3] launches per cell: {totals}")
 
     # ---- 4: kernels vs plain versions, full size, one pass ----
@@ -3226,19 +3481,8 @@ def main(argv=None) -> int:
             f"{same}; plain BVH {plain_s:.2f} s/pass  [{card}]")
         plucker_checks("7/fused/plucker", rec.bvh, tris.clusters, tris.table,
                        card)
-    # the probes' outputs against their plain versions
-    x = torch.ones((probe.ROWS, probe.COLS), device="cuda")
-    outs = {name: probe.launch(name, x, torch.empty_like(x))
-            for name in probe.PROBES}
-    equal = {name: bool(torch.equal(out, probe.probe_plain(name, x)))
-             for name, out in outs.items()}
-    probe_err = {name: float((out - probe.probe_plain(name, x)).abs().max())
-                 for name, out in outs.items()}
-    say(f"[4] probes vs plain (torch.full_like(x, x.sum()) for A and B, "
-        f"zeros for C) on the (512, 128) ones: equal {equal}  [{card}]")
-    if not (all(equal.values()) and all(res["equal"]
-                                        for res in probes.values())):
-        fail(f"probes: outputs differ from the plain versions: {equal}")
+    # the probes' outputs against their plain versions, every seeded input
+    probe_err = probe_checks(card)
     # the nine-row form of every triangle variant at the golden size
     for n in (2, 3, 4):
         w, h = GOLDEN_SIZES[str(n)]
@@ -3569,29 +3813,11 @@ def main(argv=None) -> int:
     say(f"[6] BVH kernel per pass, the MT form against the Plucker form: "
         f"{'; '.join(side)}  [{card}]")
     builder_turns(card, renderers)
-    # the probes: time per call and per loop iteration (phase 3's run),
-    # the plain versions on the same array
-    x = torch.ones((probe.ROWS, probe.COLS), device="cuda")
-    for name, (_, trips, what) in probe.PROBES.items():
-        res = probes[name]
-        k_ms = res["us_per_call"] / 1e3
-        p_ms = float(np.median(cuda_ms(lambda: probe.probe_plain(name, x),
-                                       iters=PROBE_CALLS)))
-        bound_ms = PROBE_BYTES / HBM_BYTES_PER_S * 1e3
-        timing[f"probe/{name}"] = ("probe", probe_err[name], k_ms, p_ms,
-                                   bound_ms, "bytes", None)
-        # A's and B's function is one PyTorch call, full_like of the sum,
-        # their plain version: it is their library time too.  C adds each
-        # column with an entry above 2 into the output; zeros_like, its
-        # plain version, equals that only on the all-ones input, so C has
-        # no library call
-        if name != "C":
-            library[f"probe/{name}"] = p_ms
-        say(f"[6] probe {name} ({what}): {res['us_per_call']:.3f} us/call "
-            f"({PROBE_CALLS} calls), {res['us_per_iter']:.4f} us per loop "
-            f"iteration ({trips} a call); plain {p_ms * 1e3:.3f} us; bound "
-            f"{bound_ms * 1e3:.4f} us ({PROBE_BYTES} B / 3.35 TB/s), "
-            f"{bound_ms / k_ms * 100:.2f}% of it  [{card}]")
+    # the probes: time per call, the loop's cost an iteration (phase 3's
+    # run()), the empty launch beside them, the sweep's and the parent's
+    # builds in turns
+    probe_rows = probe_timings(card, probes, floor, probe_err, timing,
+                               library, parent_probe)
 
     # ---- 7: where a step's time goes ----
     for label, (r, camera) in in_form(renderers):
@@ -3641,8 +3867,8 @@ def main(argv=None) -> int:
             "launches": launches, "max_abs_err": max_abs,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library.get(cell),
-            "shape": (f"({probe.ROWS}, {probe.COLS}) f32 ones, one thread "
-                      "block" if o is None else
+            "shape": (f"({probe.ROWS}, {probe.COLS}) f32 ones, one "
+                      f"cluster of {probe.CLUSTER} CTAs" if o is None else
                       f"config {CELLS[cell][0]} (tri_backend="
                       f"{o.tri_backend}"
                       + (f", SRT_BVH_MT={FORMS[cell]}" if cell in FORMS
@@ -3658,6 +3884,10 @@ def main(argv=None) -> int:
             for key in ("bound_mt_live_ms", "bound_all_rays_ms"):
                 entries[-1][key] = tri_cells[cell][key]
             entries[-1]["cells"] = tri_cells
+        if kind == "probe":
+            # its time from Python, the loop's cycles, the empty launch,
+            # the sweep's builds and the parent's (phase 6)
+            entries[-1].update(probe_rows[cell])
         if kind == "bvh":
             # the cells of this variant and form, launch by launch (phase
             # 6)
