@@ -31,8 +31,8 @@ lowering probes (simple_raytracer_tpu_torch/scripts/probe_kernel_ops.py)
 are a path of their own.  Phases, one line each on stdout:
   1. the card's name and power limit (nvidia-smi), and whether PIL (the
      8-bit skybox loader's dependency) is installed;
-  2. the build of the five kernel sources, one nvcc each, of the probe
-     sweep's four builds, and of the host library (csrc/host_accel.cpp:
+  2. the build of the five kernel sources, one nvcc each, and of the
+     host library (csrc/host_accel.cpp:
      the binned-SAH BVH build, the STL parse; the host compiler), all
      started together; the
      whole-trace kernel's sections as compiled (a sphere
@@ -125,10 +125,9 @@ are a path of their own.  Phases, one line each on stdout:
      swept (the split point, the ring), in turns with the route;
      the probes' time per call (in a CUDA graph and from Python) beside
      an empty cluster launch of the same shape, the loop's SM cycles an
-     iteration and the spans of a CTA (the timing instance), the probe
-     sweep's builds (a bulk copy a row, dense shared rows, the CTAs'
-     values pulled, C's vote gate) in turns with the route, and with
-     --parent the parent's probe kernel in turns; cells 6, 7 and
+     iteration and the spans of a CTA (the timing instance), and with
+     --parent the parent's probe kernel in turns, in a CUDA graph and
+     from Python; cells 6, 7 and
      6/fused (rows 4, 5 and 1b') on the SAH layout against a scene built
      with the NumPy median split (accel.build_bvh(force_python=True)):
      the kernel's pass in turns, its MT pairs and lane-slot MT tests
@@ -669,19 +668,6 @@ SAMPLE_FLOPS = 96
 SAMPLE_RAY_BYTES = 36 + 12
 # a probe: the (512, 128) f32 array read once and written once
 PROBE_BYTES = 2 * probe.ROWS * probe.COLS * 4
-# The probe kernel's layout, exchange and gate swept (phase 6), each a
-# build with -D flags of the source's names, and the probes each build
-# changes: the padded rows by a bulk copy a row instead of one tensor
-# copy, dense shared rows (one bulk copy of a CTA's slice; the loop's
-# 16-byte reads 8-way bank conflicts), the CTAs' values pulled after a
-# cluster barrier instead of pushed, and C's gate as a cluster vote at
-# every column
-PROBE_SWEEP = {"row copies": (["-DSRT_PROBE_STAGE=0"], ("A", "B", "C")),
-               "pull": (["-DSRT_PROBE_PUSH=0"], ("A", "B", "C")),
-               "dense rows": (["-DSRT_PROBE_STRIDE=128"], ("A", "B", "C")),
-               "vote gate": (["-DSRT_PROBE_GATE=1"], ("C",))}
-PROBE_SWEEP_KERNELS = {name: build.Kernel(probe.SOURCE, probe._bind, flags)
-                       for name, (flags, _) in PROBE_SWEEP.items()}
 
 
 def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
@@ -1855,9 +1841,10 @@ def parent_probe_kernel(parent: Path):
                         / "probe_kernel.cu", bind_parent_probe)
 
 
-def parent_probe_launch(kernel, name: str, x, out) -> None:
-    """Probe ``name`` on the parent's build into ``out`` (not counted as a
-    launch of either build)."""
+def raw_probe_launch(kernel, name: str, x, out) -> None:
+    """Probe ``name`` on a build of the probe kernel (the parent's, or this
+    one) into ``out`` through its C interface alone: the same host path
+    for either build, not counted as a launch of either."""
     fn = kernel.library().srt_probe_launch
     ptrs = [x.data_ptr(), out.data_ptr()]
     if len(fn.argtypes) == len(probe.LAUNCH_ARGTYPES):
@@ -1946,13 +1933,13 @@ def probe_timings(card: str, probes: dict, floor: dict, errs: dict,
     """Phase 6's probe rows: each probe's time per call at the device's
     pace and launched from Python (phase 3's run()), its loop's cycles
     an iteration, the empty cluster launch's time, the bound, the plain
-    version's time; each build of PROBE_SWEEP in turns with the route
-    (route, build, build, route, each probe.graph_us), its outputs equal
-    to the route's on every seeded input; with ``parent`` (an earlier
-    build) the same in turns (parent, this, this, parent), its outputs
-    on the ones equal to this one's, and whether its C agrees with the
-    plain version on each input.  Fills ``timing`` and ``library`` and
-    returns the JSON rows' extra keys by cell."""
+    version's time; with ``parent`` (an earlier build) its time per call
+    and this one's in turns (parent, this, this, parent), each launched
+    through raw_probe_launch, in a CUDA graph (probe.graph_us) and from
+    Python (probe.events_us), its outputs on
+    the ones equal to this one's, and whether its C agrees with the plain
+    version on each input.  Fills ``timing`` and ``library`` and returns
+    the JSON rows' extra keys by cell."""
     xs = probe_cuda_inputs()
     x = xs["ones"]
     out = torch.empty_like(x)
@@ -1974,72 +1961,41 @@ def probe_timings(card: str, probes: dict, floor: dict, errs: dict,
         row = {"ms_eager": res["us_per_call_eager"] / 1e3,
                "cycles": res["cycles"],
                "floor_ms": floor_ms,
-               "floor_ms_eager": floor["us_per_call_eager"] / 1e3,
-               "sweep": {}}
-        route_outs = {key: probe.launch(name, xi, torch.empty_like(xi))
-                      for key, xi in xs.items()}
-        route_kernel = probe.KERNEL
+               "floor_ms_eager": floor["us_per_call_eager"] / 1e3}
         notes = []
-        for case, (_, changes) in PROBE_SWEEP.items():
-            if name not in changes:
-                continue
-
-            def on(kernel):
-                with kernel_as(probe, kernel):
-                    return probe.graph_us(lambda: probe.launch(name, x, out),
-                                          PROBE_CALLS)
-
-            kernel = PROBE_SWEEP_KERNELS[case]
-            turns = [on(route_kernel), on(kernel), on(kernel),
-                     on(route_kernel)]
-            with kernel_as(probe, kernel):
-                for key, xi in xs.items():
-                    got = probe.launch(name, xi, torch.empty_like(xi))
-                    if not torch.equal(got, route_outs[key]):
-                        fail(f"probe {name} on {key}: the {case} build "
-                             f"differs from the route's")
-                cycles = probe.spans(name, x, PROBE_TIMED)
-            row["sweep"][case] = {"route_us": [turns[0], turns[3]],
-                                  "us": [turns[1], turns[2]],
-                                  "cycles": cycles}
-            notes.append(f"{case}: {turns[1]:.3f}, {turns[2]:.3f} us a "
-                         f"call against the route's {turns[0]:.3f}, "
-                         f"{turns[3]:.3f} in turns, the loop "
-                         f"{cycles['per_iter']:.2f} cycles an iteration ("
-                         + span_text(cycles) + "), every output the "
-                         "route's")
         if parent is not None:
             out_p = torch.empty_like(x)
-            this = lambda: probe.launch(name, x, out)
-            theirs = lambda: parent_probe_launch(parent, name, x, out_p)
+            this = lambda: raw_probe_launch(probe.KERNEL, name, x, out)
+            theirs = lambda: raw_probe_launch(parent, name, x, out_p)
             theirs()            # its first launch sets its attribute
             torch.cuda.synchronize()
-            turns = [probe.graph_us(theirs, PROBE_CALLS),
-                     probe.graph_us(this, PROBE_CALLS),
-                     probe.graph_us(this, PROBE_CALLS),
-                     probe.graph_us(theirs, PROBE_CALLS)]
-            eager = [probe.events_us(theirs, PROBE_CALLS),
-                     probe.events_us(this, PROBE_CALLS)]
-            if not torch.equal(out_p, route_outs["ones"]):
+            turns, eager = ([timer(fn, PROBE_CALLS)
+                             for fn in (theirs, this, this, theirs)]
+                            for timer in (probe.graph_us, probe.events_us))
+            if not torch.equal(out_p, out):
                 fail(f"probe {name}: the parent's kernel and this one "
                      f"differ on the ones")
             agree = {}
             for key, xi in xs.items():
                 got = torch.empty_like(xi)
-                parent_probe_launch(parent, name, xi, got)
+                raw_probe_launch(parent, name, xi, got)
                 agree[key] = probe.agrees(name, xi, got)
             row["parent_us"] = [turns[0], turns[3]]
             row["parent_turns_this_us"] = [turns[1], turns[2]]
-            row["parent_eager_us"] = eager[0]
+            row["parent_eager_us"] = [eager[0], eager[3]]
+            row["parent_turns_this_eager_us"] = [eager[1], eager[2]]
             row["parent_agrees"] = agree
             notes.append(f"the parent's kernel {turns[0]:.3f}, "
                          f"{turns[3]:.3f} us a call against this "
                          f"{turns[1]:.3f}, {turns[2]:.3f} in turns "
                          f"(parent / this "
                          f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}"
-                         f"x); launched from Python {eager[0]:.3f} against "
-                         f"{eager[1]:.3f}; the parent's output agrees with "
-                         f"the plain version on {agree}")
+                         f"x); launched from Python {eager[0]:.3f}, "
+                         f"{eager[3]:.3f} against {eager[1]:.3f}, "
+                         f"{eager[2]:.3f} in turns (parent / this "
+                         f"{(eager[0] + eager[3]) / (eager[1] + eager[2]):.2f}"
+                         f"x); the parent's output agrees with the plain "
+                         f"version on {agree}")
         extra[f"probe/{name}"] = row
         say(f"[6] probe {name} ({what}): {res['us_per_call']:.3f} us a call "
             f"in a CUDA graph of {PROBE_CALLS} launches, "
@@ -3166,10 +3122,8 @@ def main(argv=None) -> int:
         parent_trace = parent_trace_kernel(args.parent)
         parent_shade = parent_shade_kernel(args.parent)
         parent_probe = parent_probe_kernel(args.parent)
-    ptxas = build_kernels((*PROBE_SWEEP_KERNELS.values(),)
-                          + (() if parent is None else
-                             (parent, parent_trace, parent_shade,
-                              parent_probe)))
+    ptxas = build_kernels(() if parent is None else
+                          (parent, parent_trace, parent_shade, parent_probe))
     say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
         "sources "
         f"(nvcc sm_90a, ctypes; "
@@ -3180,9 +3134,6 @@ def main(argv=None) -> int:
            f"{parent_trace.source} {parent_trace.build_seconds:.2f} s, "
            f"{parent_shade.source} {parent_shade.build_seconds:.2f} s, "
            f"{parent_probe.source} {parent_probe.build_seconds:.2f} s")
-        + "; the probe sweep's builds "
-        + ", ".join(f"{case} {k.build_seconds:.2f} s"
-                    for case, k in PROBE_SWEEP_KERNELS.items())
         + f"); the host library {accel.HOST.source.name} "
         f"{accel.HOST.build_seconds:.2f} s ({accel.HOST.compiler()} "
         f"{' '.join(accel.HOST.flags)}; the BVH build, the STL parse)"
@@ -3814,8 +3765,7 @@ def main(argv=None) -> int:
         f"{'; '.join(side)}  [{card}]")
     builder_turns(card, renderers)
     # the probes: time per call, the loop's cost an iteration (phase 3's
-    # run()), the empty launch beside them, the sweep's and the parent's
-    # builds in turns
+    # run()), the empty launch beside them, the parent's build in turns
     probe_rows = probe_timings(card, probes, floor, probe_err, timing,
                                library, parent_probe)
 
@@ -3885,8 +3835,8 @@ def main(argv=None) -> int:
                 entries[-1][key] = tri_cells[cell][key]
             entries[-1]["cells"] = tri_cells
         if kind == "probe":
-            # its time from Python, the loop's cycles, the empty launch,
-            # the sweep's builds and the parent's (phase 6)
+            # its time from Python, the loop's cycles, the empty launch
+            # and the parent's build (phase 6)
             entries[-1].update(probe_rows[cell])
         if kind == "bvh":
             # the cells of this variant and form, launch by launch (phase

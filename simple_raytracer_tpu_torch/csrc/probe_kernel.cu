@@ -4,7 +4,7 @@
 // card.  Each probe computes its TPU probe's function on any (512, 128)
 // f32 array x into a (512, 128) f32 output (probe_kernel_ops.py:
 // probe_plain):
-//   - kColumnSum (A): the array's sum through 128 reads of a column at a
+//   - kColumnSum (A): the array's sum through 128 reads of one column at a
 //     runtime index (p.cols bounds the loop, as pl.ds(c, 1) slices),
 //     broadcast to the output;
 //   - kScalarSum (B): the same sum through a (128,) shared scratch of
@@ -12,10 +12,12 @@
 //   - kGatedLoop (C): out[r, j] is the sum, in ascending c, of x[r, c] over
 //     the columns c with an entry above 2 in any of the 512 rows (the TPU
 //     probe's jnp.any over the whole column, :47, then out += m, :49);
-//     zeros where no column fires.  A 128-step loop takes the decision
-//     column by column at run time.
-// kEmptyLaunch launches a kernel of the same shape that does nothing: the
-// floor under a call's time.
+//     zeros where no column fires.  A 128-step loop reads one column an
+//     iteration and takes the decision column by column at run time.
+// Each loop runs p.cols iterations of one column (A, C) or one scalar (B),
+// not unrolled, as the TPU probes' fori_loop does.  kEmptyLaunch launches
+// a kernel of the same shape that does nothing: the floor under a call's
+// time.
 //
 // Bound: the bytes, 256 KB in and 256 KB out, 0.16 us at 3.35 TB/s.  No
 // launch reaches half of that: a launch alone costs microseconds, which
@@ -23,40 +25,32 @@
 //
 // Design.  One thread-block cluster of kCluster = 8 CTAs, one an SM, holds
 // the whole array in shared memory at once: CTA `rank` holds rows
-// [64 rank, 64 rank + 64), one row a thread.  A row is padded to kStride =
-// 132 floats (528 bytes), so that a warp's 16-byte reads of one group of
-// four columns over its 32 rows touch every bank once (row r's group g
-// lies in 16-byte bank group (33 r + g) mod 8: the eight lanes of a
-// quarter-warp differ).  A column read is one lane of its group's 16-byte
-// read.  The rows come in by the TMA (SRT_PROBE_STAGE=1): one tensor copy
-// of a box 132 columns wide and 64 rows deep, whose 4 columns past the
-// array's 128 the TMA fills with zeros, completed on the CTA's mbarrier.
-// Chip_smoke.py phase 6 times two other layouts, each a build:
-// -DSRT_PROBE_STAGE=0, the same padded rows by one bulk copy a row
-// (cp.async.bulk, 512 bytes, each thread its own; 64 copies a CTA), and
-// -DSRT_PROBE_STRIDE=128, dense rows by one bulk copy of the slice (32
-// KB), on which the same reads are 8-way bank conflicts.  Each CTA writes
-// its own 64 rows of the output with 16-byte stores.
+// [64 rank, 64 rank + 64), one row a thread.  The rows come in by one TMA
+// tensor copy a CTA, a box 132 columns wide and 64 rows deep whose 4
+// columns past the array's 128 the TMA fills with zeros, completed on the
+// CTA's mbarrier: a row is padded to kStride = 132 floats (528 bytes).  A
+// warp's read of one column over its 32 rows then touches 8 banks, 4 rows
+// a bank (any stride a TMA box allows is a multiple of 4 floats, so no
+// layout of whole 16-byte groups does better for a column); a 16-byte read
+// of one group of four columns over 32 rows touches every bank once (row
+// r's group g lies in bank group (33 r + g) mod 8), which C's mask build
+// uses.  Each CTA writes its own 64 rows of the output with 16-byte
+// stores.
 //   A: each thread sums its row in ascending c; the CTA sums its rows in a
 //      fixed tree; the CTAs trade their partials through distributed
-//      shared memory (DSMEM, Inbox: each pushes its partial into every
-//      CTA and arrives on that CTA's mbarrier, -DSRT_PROBE_PUSH=0 pulls
-//      them after a cluster barrier instead), and every CTA adds the 8 in
-//      rank order, so every CTA gets the same total and the result does
-//      not vary from run to run.
+//      shared memory (DSMEM, Inbox), and every CTA adds the 8 in rank
+//      order, so every CTA gets the same total and the result does not
+//      vary from run to run.
 //   B: each thread sums two columns down the CTA's rows into the scratch;
 //      the loop reads it one scalar at a time; the partials as in A.
-//   C: the gate covers all 512 rows across the cluster.  The route
-//      (SRT_PROBE_GATE=0) batches it: each CTA builds a 128-bit mask of
-//      the columns its rows fire, the CTAs trade their masks once (the
-//      Inbox) and OR them, and the loop tests one bit a column.
-//      -DSRT_PROBE_GATE=1 votes at every column instead: a warp vote, a
-//      cluster barrier and a DSMEM read of every warp's vote, a column
-//      (chip_smoke.py phase 6 times both).  Either way each row adds its
-//      fired columns in ascending c, the TPU kernel's order.
-// No CTA leaves while another may still touch its shared memory: with the
-// push every write to a CTA lands before it reads its inbox, and the
-// pulls and C's votes end with a cluster barrier.
+//   C: the gate covers all 512 rows across the cluster, batched: each CTA
+//      builds a 128-bit mask of the columns its rows fire, the CTAs trade
+//      their masks once (the Inbox) and OR them, and the loop tests one
+//      bit a column.  Each row adds its fired columns in ascending c, the
+//      TPU kernel's order.
+// PERF.md (row P) records the alternatives this design was chosen over:
+// a bulk copy a row, dense rows, a pull of the partials after a cluster
+// barrier, and a cluster vote at every column.
 // The timing instance (a non-null `cycles`) reads clock64 in thread 0 and
 // writes each CTA's SM cycles from its entry to each Mark: its rows
 // landed, the loop's start and end (each after a block barrier: the
@@ -66,7 +60,9 @@
 // The launch is one cluster through cudaLaunchKernelEx: a cluster the card
 // cannot schedule fails the launch, and the error is returned; there is no
 // single-block fallback.  A CTA takes 33 KB of dynamic shared memory,
-// below the 48 KB a launch gets without an attribute.
+// below the 48 KB a launch gets without an attribute.  The host encodes
+// x's tensor map once for the last x it saw (under a lock), so a call
+// from a loop on one array pays for the launch alone.
 //
 // Arithmetic: the sums are exact in any order on integer-valued inputs
 // below 2^24, so there each output equals its plain version bit for bit.
@@ -82,19 +78,6 @@
 #include <mutex>
 
 #include "bulk_copy.cuh"
-
-#ifndef SRT_PROBE_STRIDE
-#define SRT_PROBE_STRIDE 132
-#endif
-#ifndef SRT_PROBE_GATE
-#define SRT_PROBE_GATE 0
-#endif
-#ifndef SRT_PROBE_STAGE
-#define SRT_PROBE_STAGE 1
-#endif
-#ifndef SRT_PROBE_PUSH
-#define SRT_PROBE_PUSH 1
-#endif
 
 struct ProbeParams {
   int32_t rows;    // 512
@@ -121,42 +104,19 @@ constexpr int kCluster = 8;                 // CTAs of the cluster
 constexpr int kCtaRows = kRows / kCluster;  // 64: a CTA's rows
 constexpr int kThreads = kCtaRows;          // one row a thread
 constexpr int kWarps = kThreads / 32;
-constexpr int kStride = SRT_PROBE_STRIDE;   // floats a shared row
+constexpr int kStride = kCols + 4;          // floats a shared row
 constexpr int kGroups = kCols / 4;          // 16-byte groups a row
 constexpr size_t kSharedBytes = sizeof(float) * kCtaRows * kStride;
 constexpr uint32_t kRowBytes = sizeof(float) * kCols;
-constexpr bool kVoteGate = SRT_PROBE_GATE == 1;
-// padded rows by one tensor copy (else by a bulk copy a row); dense rows
-// are one bulk copy
-constexpr bool kTensorStage = SRT_PROBE_STAGE == 1 && kStride != kCols;
-constexpr uint32_t kStagedBytes =
-    kTensorStage ? (uint32_t)kSharedBytes : kCtaRows * kRowBytes;
-constexpr bool kPush = SRT_PROBE_PUSH == 1;   // Inbox
-constexpr int kMaskWords = kCols / 32;        // C's 128-bit mask
+constexpr int kMaskWords = kCols / 32;      // C's 128-bit mask
 
-static_assert(kStride == kCols || kStride == kCols + 4,
-              "a shared row is dense or padded by one group");
 static_assert(kSharedBytes <= 48 * 1024, "no attribute is set");
-static_assert(kWarps * kCluster <= 32, "a warp reads every warp's vote");
 static_assert(kCluster * kMaskWords <= kThreads, "a thread a word a CTA");
 
 __device__ __forceinline__ long long clock_now() {
   long long t;
   asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
   return t;
-}
-
-// the cluster barrier split in two: shared-memory writes before arrive are
-// visible to every CTA after wait
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
 }
 
 // the address of `p`'s counterpart in CTA `rank`'s shared memory
@@ -169,19 +129,14 @@ __device__ __forceinline__ uint32_t remote(const void* p, int rank) {
 
 // The CTAs' trade of a value of N words (A and B: the CTA's partial sum;
 // C: the columns its rows fire): afterwards every CTA holds every CTA's
-// value in `slots`, by rank.
-//   push (SRT_PROBE_PUSH=1): at its entry a CTA initialises `bar` for
-//     kCluster x N arrivals and arrives at a cluster barrier, on which it
-//     waits only before its first push, long after the others have
-//     started.  Then each of kCluster x N threads writes one word of the
-//     CTA's value into one CTA's slot for this rank (DSMEM) and arrives
-//     on that CTA's `bar` (release, cluster scope); a CTA reads its own
-//     slots when its `bar` completes.  No CTA reads another's shared
-//     memory, and a CTA leaves only after every write to it has landed,
-//     so no barrier is needed at the exit.
-//   pull (0): a cluster barrier once every CTA has written its value in
-//     `mine`, reads of every CTA's `mine` (DSMEM), and a last cluster
-//     barrier before the exit.
+// value in `slots`, by rank.  At its entry a CTA initialises `bar` for
+// kCluster x N arrivals and arrives at a cluster barrier, on which it
+// waits only before its first push, long after the others have started.
+// Then each of kCluster x N threads writes one word of the CTA's value
+// into one CTA's slot for this rank (DSMEM) and arrives on that CTA's
+// `bar` (release, cluster scope); a CTA reads its own slots when its `bar`
+// completes.  No CTA reads another's shared memory, and a CTA leaves only
+// after every write to it has landed, so no barrier is needed at the exit.
 template <typename T, int N>
 struct Inbox {
   uint64_t bar;
@@ -189,7 +144,6 @@ struct Inbox {
   T slots[kCluster][N];
 
   __device__ void open() {
-    if (!kPush) return;
     if (threadIdx.x == 0) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
                    ::"r"(smem(&bar)), "r"(kCluster * N) : "memory");
@@ -201,78 +155,48 @@ struct Inbox {
   // after `mine` is written and a block barrier
   __device__ void trade(int rank) {
     const int t = threadIdx.x, r = t / N, i = t % N;
-    if (kPush) {
-      cluster_wait();    // every CTA has started and initialised `bar`
-      if (t < kCluster * N) {
-        static_assert(sizeof(T) == 4, "a word");
-        asm volatile("st.shared::cluster.b32 [%0], %1;"
-                     ::"r"(remote(&slots[rank][i], r)),
-                       "r"(*reinterpret_cast<const uint32_t*>(&mine[i]))
-                     : "memory");
-        asm volatile(
-            "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
-            ::"r"(remote(&bar, r)) : "memory");
-      }
-      for (uint32_t spin = 0;; ++spin) {
-        uint32_t done;
-        asm volatile(
-            "{\n .reg .pred p;\n"
-            " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64"
-            " p, [%1], 0;\n"
-            " selp.u32 %0, 1, 0, p;\n}"
-            : "=r"(done) : "r"(smem(&bar)) : "memory");
-        if (done) break;
-        if (spin == kSpinLimit) __trap();
-      }
-    } else {
-      cluster_sync();    // every CTA's `mine` is written
-      if (t < kCluster * N)
-        slots[r][i] = cg::this_cluster().map_shared_rank(mine, r)[i];
-      __syncthreads();
-      cluster_arrive();  // done reading the others
+    // every CTA has started and initialised `bar`
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    if (t < kCluster * N) {
+      static_assert(sizeof(T) == 4, "a word");
+      asm volatile("st.shared::cluster.b32 [%0], %1;"
+                   ::"r"(remote(&slots[rank][i], r)),
+                     "r"(*reinterpret_cast<const uint32_t*>(&mine[i]))
+                   : "memory");
+      asm volatile(
+          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+          ::"r"(remote(&bar, r)) : "memory");
     }
-  }
-
-  // just before the CTA leaves
-  __device__ void close() {
-    if (!kPush) cluster_wait();
+    for (uint32_t spin = 0;; ++spin) {
+      uint32_t done;
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64"
+          " p, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done) : "r"(smem(&bar)) : "memory");
+      if (done) break;
+      if (spin == kSpinLimit) __trap();
+    }
   }
 };
 
-// the CTA's rows of x into the shared copy, on one mbarrier: one tensor
-// copy of the padded rows (the box of `map`), a bulk copy a padded row, or
-// one bulk copy of the dense rows
-__device__ void stage_rows(const float* __restrict__ x,
-                           const CUtensorMap& map, float* rows, int rank) {
+// the CTA's rows of x into the padded shared copy: one tensor copy of the
+// box of `map`, on one mbarrier
+__device__ void stage_rows(const CUtensorMap& map, float* rows, int rank) {
   __shared__ uint64_t bar;
-  const float* src = x + (size_t)rank * kCtaRows * kCols;
   if (threadIdx.x == 0) {
     bar_init(&bar);
     bar_init_fence();
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 ::"r"(smem(&bar)), "r"(kStagedBytes) : "memory");
-    if (kTensorStage)
-      asm volatile(
-          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-          "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];"
-          ::"r"(smem(rows)), "l"(reinterpret_cast<uint64_t>(&map)), "r"(0),
-            "r"(rank * kCtaRows), "r"(smem(&bar)) : "memory");
+                 ::"r"(smem(&bar)), "r"((uint32_t)kSharedBytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];"
+        ::"r"(smem(rows)), "l"(reinterpret_cast<uint64_t>(&map)), "r"(0),
+          "r"(rank * kCtaRows), "r"(smem(&bar)) : "memory");
   }
-  if (!kTensorStage) {
-    __syncthreads();    // the barrier expects every byte before any copy
-    const uint32_t bytes = kStride == kCols ? kCtaRows * kRowBytes
-                                            : kRowBytes;
-    if (kStride != kCols || threadIdx.x == 0) {
-      const int r = threadIdx.x;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];"
-          ::"r"(smem(rows + r * kStride)), "l"(src + r * kCols), "r"(bytes),
-            "r"(smem(&bar)) : "memory");
-    }
-  } else {
-    __syncthreads();    // every thread waits on an initialised barrier
-  }
+  __syncthreads();    // every thread waits on an initialised barrier
   bar_wait(&bar, 0);
 }
 
@@ -338,40 +262,31 @@ struct Timer {
 
 template <int TIMED>
 __global__ void __launch_bounds__(kThreads)
-column_sum(const float* __restrict__ x, float* __restrict__ out,
-           long long* cycles, const ProbeParams p,
+column_sum(float* __restrict__ out, long long* cycles, const ProbeParams p,
            const __grid_constant__ CUtensorMap map) {
   extern __shared__ __align__(128) float rows[];
   __shared__ Inbox<float, 1> inbox;
   Timer<TIMED> timer;
   const int rank = (int)cg::this_cluster().block_rank();
   inbox.open();
-  stage_rows(x, map, rows, rank);
+  stage_rows(map, rows, rank);
   timer.mark(kMarkStaged);
-  const float4* row = reinterpret_cast<const float4*>(
-      rows + threadIdx.x * kStride);
+  const float* row = rows + threadIdx.x * kStride;
   timer.mark_all(kMarkLoopStart);
   float acc = 0.0f;
-  for (int g = 0; g < p.cols / 4; ++g) {
-    const float4 v = row[g];
-    acc += v.x;
-    acc += v.y;
-    acc += v.z;
-    acc += v.w;
-  }
+#pragma unroll 1
+  for (int c = 0; c < p.cols; ++c) acc += row[c];
   timer.mark_all(kMarkLoopEnd);
   const float total = cluster_total(inbox, cta_sum(acc), rank);
   timer.mark(kMarkFillStart);
   fill(out, rank, total);
   timer.mark(kMarkFillEnd);
-  inbox.close();
   timer.write(cycles, rank);
 }
 
 template <int TIMED>
 __global__ void __launch_bounds__(kThreads)
-scalar_sum(const float* __restrict__ x, float* __restrict__ out,
-           long long* cycles, const ProbeParams p,
+scalar_sum(float* __restrict__ out, long long* cycles, const ProbeParams p,
            const __grid_constant__ CUtensorMap map) {
   extern __shared__ __align__(128) float rows[];
   __shared__ float col_sums[kCols];
@@ -379,7 +294,7 @@ scalar_sum(const float* __restrict__ x, float* __restrict__ out,
   Timer<TIMED> timer;
   const int rank = (int)cg::this_cluster().block_rank();
   inbox.open();
-  stage_rows(x, map, rows, rank);
+  stage_rows(map, rows, rank);
   timer.mark(kMarkStaged);
   for (int c = threadIdx.x; c < kCols; c += kThreads) {
     float s = 0.0f;
@@ -389,94 +304,59 @@ scalar_sum(const float* __restrict__ x, float* __restrict__ out,
   __syncthreads();
   timer.mark_all(kMarkLoopStart);
   float total = 0.0f;
+#pragma unroll 1
   for (int c = 0; c < p.cols; ++c) total += col_sums[c];
   timer.mark_all(kMarkLoopEnd);
   total = cluster_total(inbox, total, rank);
   timer.mark(kMarkFillStart);
   fill(out, rank, total);
   timer.mark(kMarkFillEnd);
-  inbox.close();
   timer.write(cycles, rank);
-}
-
-// SRT_PROBE_GATE=1: whether column c fires anywhere in the cluster, by a
-// warp vote, a cluster barrier and a read of every warp's vote; two
-// columns' votes alternate in `votes` (a CTA writes column c's slot only
-// after every CTA passed column c - 1's barrier, so after it read column
-// c - 2's)
-__device__ __forceinline__ bool cluster_vote(float m, int c,
-                                             uint32_t (*votes)[kWarps]) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int lane = threadIdx.x & 31;
-  const uint32_t mine = __any_sync(0xffffffffu, m > 2.0f);
-  if (lane == 0) votes[c & 1][threadIdx.x >> 5] = mine;
-  cluster_sync();
-  uint32_t theirs = 0;
-  if (lane < kWarps * kCluster)
-    theirs = cluster.map_shared_rank(&votes[c & 1][0],
-                                     lane / kWarps)[lane % kWarps];
-  return __any_sync(0xffffffffu, theirs != 0);
 }
 
 template <int TIMED>
 __global__ void __launch_bounds__(kThreads)
-gated_loop(const float* __restrict__ x, float* __restrict__ out,
-           long long* cycles, const ProbeParams p,
+gated_loop(float* __restrict__ out, long long* cycles, const ProbeParams p,
            const __grid_constant__ CUtensorMap map) {
   extern __shared__ __align__(128) float rows[];
   __shared__ Inbox<uint32_t, kMaskWords> inbox;   // the columns that fire
-  __shared__ uint32_t votes[2][kWarps];
   __shared__ float sums[kCtaRows];
   Timer<TIMED> timer;
   const int rank = (int)cg::this_cluster().block_rank();
   const int lane = threadIdx.x & 31;
   if (threadIdx.x < kMaskWords) inbox.mine[threadIdx.x] = 0;
-  if (!kVoteGate) inbox.open();
-  stage_rows(x, map, rows, rank);            // its barrier orders the zeros
+  inbox.open();
+  stage_rows(map, rows, rank);               // its barrier orders the zeros
   timer.mark(kMarkStaged);
-  const float4* row = reinterpret_cast<const float4*>(
-      rows + threadIdx.x * kStride);
-  // the batched gate: word w of the cluster's mask in lane w (mod 4)
-  uint32_t gate = 0;
-  if (!kVoteGate) {
-    uint32_t words[kMaskWords] = {};
+  const float* row = rows + threadIdx.x * kStride;
+  // the CTA's mask from its rows, four columns a 16-byte read
+  uint32_t words[kMaskWords] = {};
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      const float4 v = row[g];
-      const uint32_t bits = (v.x > 2.0f) | (v.y > 2.0f) << 1
-                            | (v.z > 2.0f) << 2 | (v.w > 2.0f) << 3;
-      words[g / 8] |= bits << (g % 8 * 4);
-    }
-#pragma unroll
-    for (int w = 0; w < kMaskWords; ++w) {
-      const uint32_t any = __reduce_or_sync(0xffffffffu, words[w]);
-      if (lane == 0) atomicOr(&inbox.mine[w], any);
-    }
-    __syncthreads();          // the CTA's mask is complete
-    inbox.trade(rank);
-    gate = inbox.slots[lane / kMaskWords][lane % kMaskWords];
-    for (int off = kMaskWords; off < 32; off <<= 1)
-      gate |= __shfl_xor_sync(0xffffffffu, gate, off);
+  for (int g = 0; g < kGroups; ++g) {
+    const float4 v = reinterpret_cast<const float4*>(row)[g];
+    const uint32_t bits = (v.x > 2.0f) | (v.y > 2.0f) << 1
+                          | (v.z > 2.0f) << 2 | (v.w > 2.0f) << 3;
+    words[g / 8] |= bits << (g % 8 * 4);
   }
+#pragma unroll
+  for (int w = 0; w < kMaskWords; ++w) {
+    const uint32_t any = __reduce_or_sync(0xffffffffu, words[w]);
+    if (lane == 0) atomicOr(&inbox.mine[w], any);
+  }
+  __syncthreads();            // the CTA's mask is complete
+  inbox.trade(rank);
+  // word w of the cluster's mask in lane w (mod kMaskWords)
+  uint32_t gate = inbox.slots[lane / kMaskWords][lane % kMaskWords];
+  for (int off = kMaskWords; off < 32; off <<= 1)
+    gate |= __shfl_xor_sync(0xffffffffu, gate, off);
   timer.mark_all(kMarkLoopStart);
   float s = 0.0f;
-  for (int g = 0; g < p.cols / 4; ++g) {
-    const float4 v = row[g];
-    const float m[4] = {v.x, v.y, v.z, v.w};
-    uint32_t bits = 0;
-    if (kVoteGate) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        bits |= (uint32_t)cluster_vote(m[k], 4 * g + k, votes) << k;
-    } else {
-      bits = __shfl_sync(0xffffffffu, gate, g / 8) >> (g % 8 * 4);
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (bits >> k & 1) s += m[k];
+#pragma unroll 1
+  for (int c = 0; c < p.cols; ++c) {
+    const float m = row[c];
+    if (__shfl_sync(0xffffffffu, gate, c >> 5) >> (c & 31) & 1) s += m;
   }
   timer.mark_all(kMarkLoopEnd);
-  if (kVoteGate) cluster_arrive();   // done reading the last votes
   sums[threadIdx.x] = s;
   __syncthreads();
   timer.mark(kMarkFillStart);
@@ -487,15 +367,11 @@ gated_loop(const float* __restrict__ x, float* __restrict__ out,
     dst[e] = make_float4(v, v, v, v);
   }
   timer.mark(kMarkFillEnd);
-  if (kVoteGate)
-    cluster_wait();
-  else
-    inbox.close();
   timer.write(cycles, rank);
 }
 
 __global__ void __launch_bounds__(kThreads)
-empty_cluster(const float*, float*, long long*, const ProbeParams,
+empty_cluster(float*, long long*, const ProbeParams,
               const __grid_constant__ CUtensorMap) {}
 
 // cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point
@@ -528,28 +404,44 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
 }
 
 // the tensor map of x's padded rows: boxes kStride columns wide (the
-// columns past kCols read as zeros) and kCtaRows rows deep
+// columns past kCols read as zeros) and kCtaRows rows deep.  The map of
+// the last x is kept: it depends on x's address alone (the shape is
+// fixed), and a device address names one allocation of one device.
 cudaError_t padded_rows_map(const float* x, CUtensorMap* map) {
-  EncodeTiled encode;
-  const cudaError_t err = encode_tiled(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {kCols, kRows};
-  const cuuint64_t strides[1] = {kRowBytes};
-  const cuuint32_t box[2] = {kStride, kCtaRows};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)x, dims, strides, box,
-      steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  static std::mutex lock;
+  static const float* last_x = nullptr;
+  static CUtensorMap last_map;
+  std::lock_guard<std::mutex> guard(lock);
+  if (x != last_x) {
+    EncodeTiled encode;
+    const cudaError_t err = encode_tiled(&encode);
+    if (err != cudaSuccess) return err;
+    const cuuint64_t dims[2] = {kCols, kRows};
+    const cuuint64_t strides[1] = {kRowBytes};
+    const cuuint32_t box[2] = {kStride, kCtaRows};
+    const cuuint32_t steps[2] = {1, 1};
+    const CUresult res = encode(
+        &last_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)x, dims,
+        strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) {
+      last_x = nullptr;
+      return cudaErrorInvalidValue;
+    }
+    last_x = x;
+  }
+  *map = last_map;
+  return cudaSuccess;
 }
 
+// one cluster of `fn` on `stream`; the empty launch takes no tensor map
 template <typename Fn>
 cudaError_t launch_cluster(Fn fn, const float* x, float* out,
                            long long* cycles, ProbeParams p,
                            cudaStream_t stream) {
   CUtensorMap map = {};
-  if (kTensorStage) {
+  if (p.which != kEmptyLaunch) {
     const cudaError_t err = padded_rows_map(x, &map);
     if (err != cudaSuccess) return err;
   }
@@ -565,7 +457,7 @@ cudaError_t launch_cluster(Fn fn, const float* x, float* out,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, fn, x, out, cycles, p, map);
+  return cudaLaunchKernelEx(&cfg, fn, out, cycles, p, map);
 }
 
 }  // namespace

@@ -6,8 +6,8 @@ Each probe computes its TPU probe's function on any (512, 128) f32 array
 (``probe_plain``), as a kernel of ``csrc/probe_kernel.cu``: one
 thread-block cluster of 8 CTAs holding the array in shared memory, 64
 rows each:
-  A  the array's sum through 128 column reads at a runtime index,
-     broadcast to the output;
+  A  the array's sum through a loop that reads one column at a runtime
+     index an iteration, 128 iterations, broadcast to the output;
   B  the same sum through a (128,) shared scratch of column sums read one
      scalar at a time;
   C  out[r, j] = the sum, in ascending c, of x[r, c] over the columns c
@@ -37,8 +37,9 @@ from ..ops.cuda.build import PACKAGE_DIR, Kernel, interface
 SOURCE = PACKAGE_DIR / "csrc" / "probe_kernel.cu"
 ROWS, COLS = 512, 128
 CLUSTER = 8            # CTAs of the launch's cluster (kCluster)
-# probe -> (the CUDA source's Probe, its loop's trip count a call, what it
-# measures)
+# probe -> (the CUDA source's Probe, its loop's trip count a call (one
+# column an iteration for A and C, one scalar for B; no loop is unrolled),
+# what it measures)
 PROBES = {
     "A": (0, COLS, "dynamic column reads of a shared copy"),
     "B": (1, COLS, "scalar reads of a shared scratch at a dynamic index"),
