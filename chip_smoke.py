@@ -26,7 +26,10 @@ kernel (configs 5 and 6 under "pallas") and with the dense PyTorch loop
 (config 4 under "jnp", no kernel), and the BVH kernel's Plucker form
 (SRT_BVH_MT=plucker, set for the cell and restored after it: config 6
 "auto", two_level; config 7 "auto", streamed; config 6 clustered at
-Scene.cluster_size=256, streamed at K = 256, in both forms).  The
+Scene.cluster_size=256, streamed at K = 256, in both forms), and the BVH
+kernel's sub-box form (SRT_BVH_SUBBOX=8, set while the cell's own scene
+is built and while it runs: config 6 "auto", two_level; config 7
+"auto", streamed).  The
 lowering probes (simple_raytracer_tpu_torch/scripts/probe_kernel_ops.py)
 are a path of their own.  Phases, one line each on stdout:
   1. the card's name and power limit (nvidia-smi), and whether PIL (the
@@ -81,7 +84,10 @@ are a path of their own.  Phases, one line each on stdout:
      one full-width band of rows; and the
      nine rows of configs 2, 3 and 4 with the texture at the golden size;
      config 7 "fused" under the Plucker form, every BVH launch against the
-     plain version; each Plucker launch replayed in the MT form (a report:
+     plain version; every launch of the sub-box cells against the gated
+     plain version and the ungated kernel (the same launch without its
+     gate), and so config 6 at SRT_BVH_SUBBOX=2 and 4 and config 7 under
+     "fused" at 8, one pass each; each Plucker launch replayed in the MT form (a report:
      winners changed, largest relative t difference) and, where it was
      compacted, without compaction against the plain version (the first
      such launch of a pass); each probe against its plain version on
@@ -89,8 +95,8 @@ are a path of their own.  Phases, one line each on stdout:
      within rtol 1e-6 of the sum on the uniform floats);
   5. the golden-size renders (tests/test_golden.py) against
      tests/goldens/config{1..6}.npz (config 6 also under "fused" and
-     "pallas", in the Plucker form, and at cluster_size=256 in both forms,
-     config 5 under "pallas" and at cluster_size=256 (the whole-trace
+     "pallas", in the Plucker form, at cluster_size=256 in both forms and
+     with SRT_BVH_SUBBOX=8, config 5 under "pallas" and at cluster_size=256 (the whole-trace
      kernel), config 4 under "jnp"; config 7 has none); a 1,025-sphere
      scene (tables above 48 KB of shared memory)
      against the plain version; benchmark_step leaves the canvas and step
@@ -132,9 +138,12 @@ are a path of their own.  Phases, one line each on stdout:
      with the NumPy median split (accel.build_bvh(force_python=True)):
      the kernel's pass in turns, its MT pairs and lane-slot MT tests
      (the counting instance), the staged MT table's MB and the median
-     build's seconds;
+     build's seconds; the sub-box cells' launches in turns with the
+     ungated kernel's on the same rays, and both counting instances'
+     lane-slot MT tests, sub-box tests, clusters and chunks skipped and
+     the walk's SM cycles (of them the sub-box words');
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
-     a per-bounce cell);
+     a per-bounce cell; not the sub-box cells);
   8. the command-line path: simple_raytracer_tpu_torch.cli.main in
      process (--device cuda) at the presets' sizes, every kernel's counts
      reset just before its runs and read just after: config 2 over 4
@@ -273,15 +282,24 @@ CELLS = {"1": (1, "auto", "none", None), "2": (2, "auto", "none", None),
          "6/plucker": (6, "auto", "two_level/plucker", None),
          "7/plucker": (7, "auto", "streamed/plucker", None),
          "6/k256": (6, "auto", "streamed", None),
-         "6/k256/plucker": (6, "auto", "streamed/plucker", None)}
+         "6/k256/plucker": (6, "auto", "streamed/plucker", None),
+         "6/subbox8": (6, "auto", "two_level/subbox", None),
+         "7/subbox8": (7, "auto", "streamed/subbox", None)}
 # the MT form of each cell (SRT_BVH_MT, "mt" where not listed) and the
 # scene's Scene.cluster_size (None: the automatic rule)
 FORMS = {"6/plucker": "plucker", "7/plucker": "plucker",
          "6/k256/plucker": "plucker"}
 CLUSTER_SIZES = {"6/k256": 256, "6/k256/plucker": 256, "5/k256": 256}
+# the sub-box gate of each cell (SRT_BVH_SUBBOX, "0" where not listed),
+# set while its scene is built and while it runs; the divisions that
+# phase 4 also checks on each (config 6 at 2 and 4, and config 7's scene
+# under "fused" at 8, in that check only)
+SUBBOX = {"6/subbox8": "8", "7/subbox8": "8"}
+SUBBOX_CHECKS = {"6/subbox8": (("2", None), ("4", None)),
+                 "7/subbox8": (("8", "fused"),)}
 # the cells of the split per-bounce path with the BVH kernel
 SPLIT = ("6", "5/bvh", "4/bvh", "7", "6/texture", "6/plucker", "7/plucker",
-         "6/k256", "6/k256/plucker")
+         "6/k256", "6/k256/plucker", "6/subbox8", "7/subbox8")
 FUSED = ("7/fused",)           # the cells of the fused per-bounce path
 PALLAS = ("5/pallas", "6/pallas")   # the split path, the triangle kernel
 DENSE = ("4/jnp",)             # the split path, the dense PyTorch loop
@@ -294,7 +312,8 @@ BAND_CELLS = ("6/fused", "6/pallas")
 # benchmark_step iterations (and profiled steps) of the slow cells; 20
 # for the others
 ITERS = {"7": 5, "7/fused": 5, "6/pallas": 5, "4/jnp": 1, "7/plucker": 5,
-         "6/plucker": 10, "6/k256": 10, "6/k256/plucker": 10}
+         "6/plucker": 10, "6/k256": 10, "6/k256/plucker": 10,
+         "6/subbox8": 10, "7/subbox8": 5}
 # profiled steps (phase 7) of a per-bounce cell, at most: the profiler's
 # own cost per event dominates their hundreds of launches a step
 PROFILE_STEPS = 5
@@ -309,7 +328,8 @@ GOLDEN_SIZES = {"1": (64, 64), "2": (96, 54), "3": (96, 54), "4": (96, 54),
                 "6/fused": (64, 36), "5/pallas": (96, 54),
                 "6/pallas": (64, 36), "4/jnp": (96, 54),
                 "6/plucker": (64, 36), "6/k256": (64, 36),
-                "6/k256/plucker": (64, 36), "5/k256": (96, 54)}
+                "6/k256/plucker": (64, 36), "5/k256": (96, 54),
+                "6/subbox8": (64, 36)}
 # golden renders that are no cell: label -> (config, tri_backend, the
 # whole-trace variant it must take); cluster_size from CLUSTER_SIZES
 GOLDEN_ONLY = {"5/k256": (5, "auto", "clustered")}
@@ -358,6 +378,10 @@ ROWS = (
      "two_level/plucker"),
     ("bvh_streamed_plucker", "bvh", "bvh_kernel.py:629", "7/plucker", ALL,
      "streamed/plucker"),
+    ("bvh_two_level_subbox", "bvh", "bvh_kernel.py:474", "6/subbox8", ALL,
+     "two_level/subbox"),
+    ("bvh_streamed_subbox", "bvh", "bvh_kernel.py:474", "7/subbox8", ALL,
+     "streamed/subbox"),
     ("bounce_kernel", "bounce", "bounce_kernel.py:584", "7/fused", ALL,
      "bounce"),
     ("triangle_kernel", "triangle", "triangle_kernel.py:34", "5/pallas", ALL,
@@ -377,17 +401,27 @@ KERNELS = {"trace": tk.KERNEL, "bvh": bk.KERNEL, "bounce": sk.KERNEL,
 
 
 @contextlib.contextmanager
-def form_env(label: str):
-    """SRT_BVH_MT set to the cell's MT form, restored after."""
-    saved = os.environ.get("SRT_BVH_MT")
-    os.environ["SRT_BVH_MT"] = FORMS.get(label, "mt")
+def knob(name: str, value: str):
+    """The environment variable ``name`` set to ``value``, restored
+    after."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if saved is None:
-            del os.environ["SRT_BVH_MT"]
+            del os.environ[name]
         else:
-            os.environ["SRT_BVH_MT"] = saved
+            os.environ[name] = saved
+
+
+@contextlib.contextmanager
+def form_env(label: str):
+    """SRT_BVH_MT set to the cell's MT form and SRT_BVH_SUBBOX to its
+    sub-box gate, restored after."""
+    with knob("SRT_BVH_MT", FORMS.get(label, "mt")), \
+            knob("SRT_BVH_SUBBOX", SUBBOX.get(label, "0")):
+        yield
 
 
 def in_form(renderers: dict):
@@ -480,7 +514,16 @@ def build_kernels(extra=()) -> str:
         for line in kernel.build_log.splitlines():
             m = re.search(rf"entry function '.*({entry})(?:ILi(\d+)E"
                           rf"(?:(Lb1E)|Lb0E|Li(\d)E)?(Lb1E)?)?", line)
-            if m and names is None:
+            # the walk's instances: the variant, the Plucker form, the
+            # sub-box form, the counting instance
+            walk = re.search(r"entry function '.*bvh_kernelILi(\d+)ELb([01])E"
+                             r"Lb([01])ELb([01])E", line)
+            if walk:
+                variant = (modes.get(walk.group(1), walk.group(1))
+                           + ("/plucker" if walk.group(2) == "1" else "")
+                           + ("/subbox" if walk.group(3) == "1" else "")
+                           + ("/counting" if walk.group(4) == "1" else ""))
+            elif m and names is None:
                 # a probe: its kernel, then the timing instance's flag
                 variant = m.group(1) + ("/timed" if m.group(2) == "1"
                                         else "")
@@ -763,16 +806,33 @@ def canvas_diff(k: torch.Tensor, p: torch.Tensor, s: int):
 def plain_bvh(o, d, alive, t_init, clusters, table, compact=False,
               force_streamed=False):
     """The BVH kernel's wrapper with its plain version on the card, in the
-    MT form the wrapper resolves."""
-    form = ("plucker" if bvh.resolve_plucker(
-        clusters, bk.bvh_variant(clusters, force_streamed)) else "mt")
+    MT form and with the sub-box gate the wrapper resolves."""
+    variant = bk.bvh_variant(clusters, force_streamed)
+    form = "plucker" if bvh.resolve_plucker(clusters, variant) else "mt"
+    sub = bk.sub_box_gate(clusters, variant)
     if compact:
         order, count = bvh.compact_order(o, d, alive, t_init,
                                          clusters.hierarchy.admission)
         return bvh.intersect_compacted_plain(o, d, alive, t_init, clusters,
-                                             table, order, int(count), form)
+                                             table, order, int(count), form,
+                                             *sub)
     return bvh.intersect_triangles_bvh_plain(o, d, alive, t_init, clusters,
-                                             table, form)
+                                             table, form, *sub)
+
+
+def sub_gate(prep, clusters) -> tuple:
+    """(sub_aabb, sub_div) of a recorded BVH launch, as its plain version
+    takes them: the clusters' table and the launch's division in the
+    sub-box form, else (None, 8)."""
+    rows = prep.params.sub_rows
+    return (clusters.sub_aabb, prep.params.k // rows) if rows else (None, 8)
+
+
+def ungated(prep):
+    """A recorded BVH launch without its sub-box gate: the same rays,
+    tables, variant and compaction."""
+    return dataclasses.replace(with_params(prep, sub_rows=0),
+                               tensors=prep.tensors[:7] + (None,))
 
 
 def plain_triangles(o, d, packed, alive=None, staged=None):
@@ -912,8 +972,9 @@ def check_bvh_launches(label: str, recorded, clusters, table,
         form = "plucker" if prep.params.plucker else "mt"
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        t_p, s_p = bvh.intersect_triangles_bvh_plain(o_, d_, alive, t_init,
-                                                     clusters, table, form)
+        t_p, s_p = bvh.intersect_triangles_bvh_plain(
+            o_, d_, alive, t_init, clusters, table, form,
+            *sub_gate(prep, clusters))
         torch.cuda.synchronize()
         plain_s += time.perf_counter() - t1
         live = alive > 0
@@ -954,6 +1015,110 @@ def check_bvh_launches(label: str, recorded, clusters, table,
                  "(t, slot) differ from the route's")
         counted.append(cnt)
     return max_abs, work, plain_s, lines, counted
+
+
+def ungated_check(label: str, recorded) -> int:
+    """Every recorded launch of the sub-box form against the ungated
+    kernel on the same rays (the launch without its gate): (t, slot)
+    equal on every live ray.  Returns the live rays."""
+    live_n = 0
+    for b, (prep, (t_k, s_k)) in enumerate(recorded):
+        if not prep.params.sub_rows:
+            fail(f"cell {label} bounce {b}: {prep.label} has no sub-box gate")
+        t_u, s_u = bk.launch(ungated(prep))
+        live = prep.rays[6] > 0
+        live_n += int(live.sum())
+        if not (torch.equal(t_u[live], t_k[live])
+                and torch.equal(s_u[live], s_k[live])):
+            lost = int((s_u[live] != s_k[live]).sum())
+            fail(f"cell {label} bounce {b}: the sub-box form's (t, slot) "
+                 f"differ from the ungated kernel's on {lost} live rays")
+    return live_n
+
+
+def subbox_checks(label: str, r: Renderer, camera, recorded, clusters,
+                  table, card: str) -> None:
+    """Phase 4 of a sub-box cell, beyond the plain version: every launch
+    of its pass against the ungated kernel, then a pass at each division
+    (and route) of SUBBOX_CHECKS, every BVH launch against the gated plain
+    version and the ungated kernel."""
+    n = ungated_check(label, recorded)
+    rows = recorded[0][0].params.sub_rows
+    say(f"[4] cell {label} sub-box form (div {clusters.k // rows}, "
+        f"{rows} slots a sub-box) vs the ungated kernel, every launch of "
+        f"one full pass: (t, slot) equal on all {n} live rays  [{card}]")
+    for div, backend in SUBBOX_CHECKS[label]:
+        with knob("SRT_BVH_SUBBOX", div):
+            _, rec = per_bounce_pass(r, camera, 4242, tri_backend=backend)
+            torch.cuda.synchronize()
+            got = {(prep.label, prep.params.sub_rows) for prep, _ in rec.bvh}
+            want = {(CELLS[label][2], clusters.k // int(div))}
+            if got != want:
+                fail(f"cell {label} at SRT_BVH_SUBBOX={div}: launches "
+                     f"{got}, want {want}")
+            _, _, plain_s, lines, _ = check_bvh_launches(
+                f"{label} div {div}", rec.bvh, clusters, table,
+                count_work=False)
+            n = ungated_check(f"{label} div {div}", rec.bvh)
+        say(f"[4] cell {label} at SRT_BVH_SUBBOX={div}"
+            + ("" if backend is None else f" under tri_backend={backend}")
+            + f": every BVH launch of one full pass vs the gated plain "
+            f"version: {'; '.join(lines)}; vs the ungated kernel: (t, slot) "
+            f"equal on all {n} live rays; plain BVH {plain_s:.2f} s/pass  "
+            f"[{card}]")
+
+
+def subbox_turns(label: str, res: dict, card: str) -> dict:
+    """Phase 6 of a sub-box cell: its launches of one pass (the gated
+    kernel) and the same launches without the gate (the ungated kernel),
+    timed in turns (gated, ungated, ungated, gated; CUDA events, each the
+    median of 5 batches), with every (t, slot) of the ungated replay the
+    gated one's; and what each walk did, from the counting instances: the
+    lane-slot MT tests (32 x warp-wide MT steps) and the sub-box tests
+    beside the ungated walk's."""
+    gated = [(pp, oo) for pp, oo in res["recorded"]]
+    plain = [(ungated(pp), (torch.empty_like(oo[0]), torch.empty_like(oo[1])))
+             for pp, oo in gated]
+    run = lambda pairs: float(np.median(cuda_ms(
+        lambda: [bk.launch(q, o) for q, o in pairs], iters=2, repeats=5,
+        warmup=1)))
+    turns = [run(gated), run(plain), run(plain), run(gated)]
+    for (_, a), (_, b) in zip(plain, gated):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"cell {label}: the ungated replay's (t, slot) differ")
+    ungated_counts = [bk.launch_counted(q)[1] for q, _ in plain]
+    tot = lambda counts, key: sum(c[key] for c in counts)
+    g_ms, u_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    out = dict(gated_ms=g_ms, ungated_ms=u_ms, turns_ms=turns,
+               rows=gated[0][0].params.sub_rows)
+    for name, counts in (("gated", res["counts"]),
+                         ("ungated", ungated_counts)):
+        for key in ("pairs", "chunks", "slots", "mt_steps", "sub_tests",
+                    "sub_skipped", "chunks_skipped", "split", "walk_cycles",
+                    "sub_cycles"):
+            out[f"{name}_{key}"] = tot(counts, key)
+        out[f"{name}_lane_slots"] = 32 * out[f"{name}_mt_steps"]
+    div = gated[0][0].params.k // out["rows"]
+    say(f"[6] cell {label} sub-box form (div {div}) "
+        f"against the ungated kernel on the same launches of one pass, in "
+        f"turns (gated, ungated, ungated, gated: "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms): gated {g_ms:.4f} ms, "
+        f"ungated {u_ms:.4f} ms (gated / ungated {g_ms / u_ms:.3f}); "
+        f"results equal; lane-slot MT tests {out['gated_lane_slots']} "
+        f"against {out['ungated_lane_slots']} ungated "
+        f"({out['gated_lane_slots'] / max(out['ungated_lane_slots'], 1):.3f}"
+        f"), sub-box slab tests {out['gated_sub_tests']}, clusters skipped "
+        f"whole {out['gated_sub_skipped']}, chunks skipped "
+        f"{out['gated_chunks_skipped']}, chunks copied {out['gated_chunks']} "
+        f"against {out['ungated_chunks']}, MT pairs {out['gated_pairs']} "
+        f"against {out['ungated_pairs']}, split chunks {out['gated_split']} "
+        f"against {out['ungated_split']}; the warps' walk SM cycles "
+        f"{out['gated_walk_cycles']} against {out['ungated_walk_cycles']} "
+        f"({out['gated_walk_cycles'] / max(out['ungated_walk_cycles'], 1):.3f}"
+        f"), of them in the sub-box words {out['gated_sub_cycles']} "
+        f"({out['gated_sub_cycles'] / max(out['gated_walk_cycles'], 1):.3f})"
+        f"  [{card}]")
+    return out
 
 
 def check_shade_launches(scene, recorded):
@@ -1463,20 +1628,63 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     return {k: v / 1e3 / reps for k, v in kernel_device_us(prof).items()}
 
 
+class BvhParamsV2(ctypes.Structure):
+    """BvhParams of the BVH kernel's C interface 2 (e112b9c to adb6b6e):
+    no sub_rows."""
+    _fields_ = bk.BvhParams._fields_[:-1]
+
+
+# srt_bvh_launch of interface 2: no sub-box table after the admission
+# boxes
+V2_BVH_ARGTYPES = ([ctypes.c_void_p] * (bk.LAUNCH_POINTERS - 1)
+                   + [BvhParamsV2, ctypes.c_void_p])
+
+
+def bind_parent_bvh(lib) -> None:
+    """A parent's BVH build bound to its C interface: this one (bk._bind),
+    or version 2, whose launch takes no sub-box table (its counting
+    instance is not bound: phase 6 launches the parent's route only)."""
+    if interface(lib, "srt_bvh_interface") != 2:
+        bk._bind(lib)           # refuses any version but this one
+        return
+    lib.srt_bvh_launch.argtypes = V2_BVH_ARGTYPES
+    lib.srt_bvh_launch.restype = ctypes.c_int
+    lib.srt_bvh_work_words.argtypes = [BvhParamsV2]
+    lib.srt_bvh_work_words.restype = ctypes.c_longlong
+
+
 def parent_bvh_kernel(parent: Path):
-    """The parent checkout's BVH kernel, bound to this C interface
-    (bk._bind refuses a build that reports another)."""
+    """The parent checkout's BVH kernel (bind_parent_bvh)."""
     return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
-                     / "bvh_kernel.cu", bk._bind)
+                     / "bvh_kernel.cu", bind_parent_bvh)
 
 
 def parent_launcher(kernel, pp, out):
-    """A recorded BVH launch on the parent's kernel into ``out``, as a
-    callable."""
+    """A recorded BVH launch (of no sub-box gate) on the parent's kernel
+    into ``out``, as a callable: through bk.launch where the build has
+    this C interface, else by interface 2's arguments (the same pointers
+    without the sub-box table, and its parameters).  Its launches are
+    counted on the parent's kernel, never on the route's."""
     def run():
         with kernel_as(bk, kernel):
             bk.launch(pp, out)
-    return run
+
+    def run_v2():
+        fn = kernel.library().srt_bvh_launch
+        ptrs = bk._args(pp, out)
+        del ptrs[8 + 7]            # the sub-box table (None here)
+        q = BvhParamsV2(*(getattr(pp.params, name)
+                          for name, _ in BvhParamsV2._fields_))
+        with torch.cuda.device(pp.device):
+            stream = torch.cuda.current_stream(pp.device).cuda_stream
+            kernel.check(fn(*ptrs, q, stream), "the parent's BVH kernel")
+
+    if pp.params.sub_rows:
+        fail("the parent's BVH kernel has no sub-box form")
+    if len(kernel.library().srt_bvh_launch.argtypes) == len(
+            bk.LAUNCH_ARGTYPES):
+        return run
+    return run_v2
 
 
 def walk_launches(label: str, res: dict, clusters, table,
@@ -1718,7 +1926,7 @@ def bvh_registers(kernel) -> str:
     out, on = [], False
     for line in kernel.build_log.splitlines():
         if "entry function" in line:
-            on = f"bvh_kernelILi{variant}ELb0ELb0E" in line
+            on = f"bvh_kernelILi{variant}ELb0ELb0ELb0E" in line
         elif on and ("registers" in line or "spill" in line):
             out.append(line.split("ptxas info    : ")[-1].strip())
     return "; ".join(out) or "no ptxas report"
@@ -2142,7 +2350,7 @@ def dense_replay(label: str, recorded, clusters, table) -> str:
             continue
         dense = dataclasses.replace(
             with_params(prep, n_admission=0), perm=None, count=None,
-            tensors=prep.tensors[:-1] + (None,))
+            tensors=prep.tensors[:6] + (None,) + prep.tensors[7:])
         t_k, s_k = bk.launch(dense)
         o_, d_, alive, t_init = bvh_inputs(prep)
         t_p, s_p = bvh.intersect_triangles_bvh_plain(
@@ -3155,9 +3363,11 @@ def main(argv=None) -> int:
     for label in CELLS:
         n, backend, _, sky = CELLS[label]
         k_forced = CLUSTER_SIZES.get(label)
-        key = (n, sky, k_forced)
+        key = (n, sky, k_forced) + ((SUBBOX[label],) if label in SUBBOX
+                                    else ())
         if key not in scenes:
-            # one scene build per config, environment and cluster size,
+            # one scene build per config, environment, cluster size and
+            # sub-box gate (the table is built only under the knob),
             # shared by cells
             t0 = time.perf_counter()
             kw = dict(KWARGS.get(n, {}))
@@ -3168,13 +3378,17 @@ def main(argv=None) -> int:
                 scene.skybox = textures[sky]
             scene.cluster_size = k_forced
             t1 = time.perf_counter()
-            ds = scene.build("cuda")
+            with form_env(label):
+                ds = scene.build("cuda")
             torch.cuda.synchronize()
             scenes[key] = (ds, camera, options, t1 - t0,
                            time.perf_counter() - t1)
             tris = ds.triangles
             say(f"[3] config {n}{'' if sky is None else ' with ' + sky}"
                 + ("" if k_forced is None else f", cluster_size={k_forced}")
+                + ("" if label not in SUBBOX else
+                   f", SRT_BVH_SUBBOX={SUBBOX[label]} (sub-box table "
+                   f"{tuple(tris.clusters.sub_aabb.shape)})")
                 + f": preset {t1 - t0:.3f} s (its procedural mesh), build "
                 f"{scenes[key][4]:.3f} s (the host library's SAH BVH, "
                 "clusters, tables, upload): "
@@ -3367,6 +3581,8 @@ def main(argv=None) -> int:
         res = dict(max_abs=max_abs, work=work, plain_ms=plain_s * 1e3,
                    recorded=rec.bvh, n_rays=k.shape[1], canvas=k,
                    counts=counts)
+        if label in SUBBOX:
+            subbox_checks(label, r, camera, rec.bvh, cl, table, card)
         shade_ok = True
         if label in FUSED:
             differ, s_abs, s_work, s_plain, s_lines = check_shade_launches(
@@ -3476,7 +3692,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
         # the route the new goldens must take
         route = ""
-        if label in GOLDEN_ONLY or label in FORMS or label in CLUSTER_SIZES:
+        if (label in GOLDEN_ONLY or label in FORMS or label in CLUSTER_SIZES
+                or label in SUBBOX):
             kind = "bvh" if label in SPLIT else "trace"
             route = dict(KERNELS[kind].variant_launches)
             if set(route) != {variant}:
@@ -3606,9 +3823,13 @@ def main(argv=None) -> int:
                          f"{[w[0] for w in res['work']]}, clusters opened "
                          f"per launch {[w[5] for w in res['work']]}, "
                          f"{roots} root boxes")
-            walk_cells[label] = walk_launches(label, res, cl,
-                                              ds.triangles.table, parent)
-            if preps[0].variant in ("two_level", "flat"):
+            if label in SUBBOX:
+                walk_cells[label] = subbox_turns(label, res, card)
+            else:
+                walk_cells[label] = walk_launches(label, res, cl,
+                                                  ds.triangles.table, parent)
+            if preps[0].variant in ("two_level", "flat") \
+                    and label not in SUBBOX:
                 walk_cells[label]["sweep"] = walk_sweep(label, res)
             bvh_line = (f"BVH kernel {b_ms:.4f} ms/pass ({spread(b_all)}; "
                         f"{walk_note}; bound {b_bound:.4f} ms ({flops:.4g} "
@@ -3771,6 +3992,8 @@ def main(argv=None) -> int:
 
     # ---- 7: where a step's time goes ----
     for label, (r, camera) in in_form(renderers):
+        if label in SUBBOX:
+            continue      # the sub-box cells are timed in phase 6 only
         iters = ITERS.get(label, 20)
         if label in SPLIT + FUSED + PALLAS:
             iters = min(iters, PROFILE_STEPS)
@@ -3823,6 +4046,8 @@ def main(argv=None) -> int:
                       f"{o.tri_backend}"
                       + (f", SRT_BVH_MT={FORMS[cell]}" if cell in FORMS
                          else "")
+                      + (f", SRT_BVH_SUBBOX={SUBBOX[cell]}"
+                         if cell in SUBBOX else "")
                       + f"), {o.width}x{o.height}, {o.num_samples} spp, "
                       f"{o.num_bounces} bounces"
                       + (f"; plain_ms on {results[cell]['where']} only"

@@ -30,6 +30,27 @@
 // float4s).  The TPU evaluates the dot products on its MXU; here they are
 // FP32 on the CUDA cores, in the plain version's order (no tensor cores:
 // TF32 keeps too few bits for the t and u/v tests).
+// kTwoLevel and kStreamed also have a sub-box form (SUBBOX,
+// params.sub_rows > 0; bvh_kernel.py:437 _subbox_word and :474
+// _mt_gated_sub, SRT_BVH_SUBBOX, MT form only): the per-cluster table of
+// sub-boxes (ops/bvh.py: coarsen_sub_aabb, 8 rows of 32 bytes a cluster,
+// its first div = k / sub_rows the boxes of slot ranges [j * sub_rows,
+// (j + 1) * sub_rows)) adds a fourth gate inside the cluster.  When the
+// walk finds a cluster, each lane that admits it slabs the cluster's div
+// sub-boxes with its own ray and its best t of that moment and keeps a
+// div-bit word (sub_word); the sub-box rows are read with __ldg where the
+// cluster is found, not staged with its chunk, because the words decide
+// which chunks are copied at all (a cluster no lane's word wants is never
+// copied, nor a chunk of it without a wanted range) and the whole table
+// (config 6: 197 KB, config 7: 2.9 MB) stays in L2.  At a chunk's turn a
+// lane runs MT only if its word wants a range of the chunk, and only over
+// the slots of its ranges: each admitting lane over the ranges some
+// admitting lane wants, or, split pair by pair, each admitting ray's
+// wanted slots 32 at a time (its word shuffled with the ray).  The TPU
+// ORs a sub-box's slab over a 128-ray sub-block; here each ray keeps its
+// own, as it does every other gate.  kFlat (_kernel) has no sub-box form.
+// The form is off by default, as in the JAX package; PERF.md section 6
+// holds its times against the ungated walk's.
 // For each ray in its list it finds the nearest triangle strictly closer
 // than the ray's t_init and writes (t, table slot), or (+inf, -1) when none
 // is; a dead ray (alive == 0) is a miss.  Shading is not here: the
@@ -134,6 +155,8 @@ struct BvhParams {
   int32_t plucker;      // 1: the Plucker form (not kFlat)
   int32_t n_admission;  // admission boxes of the ray compaction; 0: none
   int32_t alive_u8;     // 1: alive is one byte a ray (bool), 0: f32
+  int32_t sub_rows;     // slots a sub-box bounds (the sub-box form: not
+                        // kFlat, not PLUCKER); 0: no sub-box gate
 };
 
 enum Variant { kFlat = 0, kTwoLevel = 1, kStreamed = 2 };
@@ -208,6 +231,11 @@ enum Count {
   kCountWarps,         // warps that walked (some lane listed)
   kCountBoxTests,      // slab tests of walking lanes (each box whose parent
                        // the lane admitted, and each chunk's re-test)
+  kCountSubTests,      // sub-box slab tests of lanes admitting a cluster
+  kCountSubSkipped,    // clusters found that no lane's sub-box word wanted
+  kCountChunksSkipped, // chunks of found clusters that held no wanted range
+  kCountWalkCycles,    // SM cycles of the warp's walk (clock64, each warp)
+  kCountSubCycles,     // of them, in the sub-box words (loads, slabs, vote)
   kCountHist,          // visits by admitting lanes: 1, 2, 3-4, 5-8,
                        // 9-16, 17-24, 25-31, 32
   kCounters = kCountHist + 8
@@ -594,15 +622,58 @@ struct Walk {
   unsigned s_mask = 0, s_any = 0;
   int s = 0;
   unsigned c_mask = 0, c_any = 0;
+  unsigned sub_any = 0;   // the sub-box form: the warp's union of the
+                          // current cluster's words
 };
 
 // one staged chunk: slots [base, base + kChunk) of cluster c (padded
-// index), and whether this lane admitted the cluster when it was found
+// index), whether this lane admitted the cluster when it was found, and
+// in the sub-box form the lane's sub-box word of the cluster and whether
+// it is the first chunk of the cluster the warp visits
 struct Item {
   int c;
   int base;
   bool ok;
+  unsigned word;
+  bool first;
 };
+
+// the bits of the sub-box ranges (of `rows` slots) that slots [base,
+// base + n) of a cluster fall in
+__device__ __forceinline__ unsigned chunk_ranges(int base, int n, int rows) {
+  const int lo = base / rows;
+  const int hi = (base + n - 1) / rows;
+  return ((2u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+// the lane's sub-box word of cluster c: bit j when the ray may meet
+// sub-box j (of div, each a row of 8 floats: lo, hi, 0, 0; 8 rows a
+// cluster) before t_far (_subbox_word's slab, for this ray alone); all
+// loads issued together
+__device__ __forceinline__ unsigned sub_word(const float* __restrict__ sub,
+                                             int c, int div, const Ray& r,
+                                             float t_far) {
+  const float4* b4 = reinterpret_cast<const float4*>(sub) + (size_t)c * 16;
+  unsigned m = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < div) {
+      const float4 lo = __ldg(b4 + 2 * j);       // lo.xyz, hi.x
+      const float4 hi = __ldg(b4 + 2 * j + 1);   // hi.yz, 0, 0
+      m |= (unsigned)slab6(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, t_far)
+           << j;
+    }
+  }
+  return m;
+}
+
+// Does the sub-box form skip the chunk at base (no lane wants a range of
+// it)?
+__device__ __forceinline__ bool skip_chunk(const Walk& w, int base,
+                                           const BvhParams& p) {
+  return !(w.sub_any
+           & chunk_ranges(base, min(kChunk, p.k - base), p.sub_rows));
+}
 
 // The next chunk to stage: the current cluster's next chunk, else the
 // next cluster some lane admits, through the group, super and cluster
@@ -611,15 +682,31 @@ struct Item {
 // supers; a super's 16 clusters), each against the lane's best t then: a
 // t can only fall, so that admits at least what gating each box at its
 // turn would, and the chunk's own turn tests its cluster's box again.
-// Called by the whole warp (control flow is warp-uniform); false at the
-// end of the walk.
-template <bool COUNT>
+// The sub-box form slabs a found cluster's sub-boxes there too (the
+// lanes that admit it, with their best t then), skips the cluster when
+// no lane's word is set and each chunk of it that holds no range some
+// lane wants.  Called by the whole warp (control flow is warp-uniform);
+// false at the end of the walk.
+template <bool SUBBOX, bool COUNT>
 __device__ __forceinline__ bool next_item(
     Walk& w, Item& it, const float* __restrict__ boxes,
     const float* __restrict__ supers, const float* __restrict__ groups,
-    const int32_t* __restrict__ order, bool listed, const Ray& r,
-    float best_t, const BvhParams& p, WarpCounts<COUNT>& cnt) {
-  if (it.c >= 0 && it.base + kChunk < p.k) {
+    const float* __restrict__ subboxes, const int32_t* __restrict__ order,
+    bool listed, const Ray& r, float best_t, const BvhParams& p,
+    WarpCounts<COUNT>& cnt) {
+  if constexpr (SUBBOX) {
+    if (it.c >= 0) {
+      for (int base = it.base + kChunk; base < p.k; base += kChunk) {
+        if (skip_chunk(w, base, p)) {
+          cnt.add(kCountChunksSkipped, 1);
+          continue;
+        }
+        it.base = base;
+        it.first = false;
+        return true;
+      }
+    }
+  } else if (it.c >= 0 && it.base + kChunk < p.k) {
     it.base += kChunk;
     return true;
   }
@@ -630,6 +717,25 @@ __device__ __forceinline__ bool next_item(
       it.c = w.s * kSuper + i;
       it.base = 0;
       it.ok = (w.c_mask >> i) & 1u;
+      if constexpr (SUBBOX) {
+        it.first = true;
+        const int div = p.k / p.sub_rows;
+        const long long t0 = COUNT ? clock64() : 0;
+        it.word = it.ok ? sub_word(subboxes, min(it.c, p.n_clusters - 1),
+                                   div, r, best_t)
+                        : 0u;
+        w.sub_any = __reduce_or_sync(kAll, it.word);
+        if constexpr (COUNT) cnt.add(kCountSubCycles, clock64() - t0);
+        cnt.add_lanes(kCountSubTests, it.ok ? div : 0);
+        if (!w.sub_any) {
+          cnt.add(kCountSubSkipped, 1);
+          continue;
+        }
+        while (skip_chunk(w, it.base, p)) {
+          cnt.add(kCountChunksSkipped, 1);
+          it.base += kChunk;
+        }
+      }
       return true;
     }
     if (w.s_any) {
@@ -702,19 +808,46 @@ __device__ __forceinline__ bool staged_hit(const float4* __restrict__ buf,
 }
 
 // The admitting lanes' MT over one staged chunk of n slots (first: its
-// first table slot).  Few lanes admitting (at most kSplitMax): for each
-// admitting ray in turn every lane tests every 32nd slot with that ray,
-// and the lexicographic least (t, index) of the warp is committed by the
-// ray's own lane.  Many: each admitting lane tests every slot (the chunk
-// is read at one address by the whole warp).
-template <bool PLUCKER, bool COUNT>
+// first table slot; base: its first slot in the cluster).  Few lanes
+// admitting (at most kSplitMax): for each admitting ray in turn every lane
+// tests every 32nd slot with that ray, and the lexicographic least (t,
+// index) of the warp is committed by the ray's own lane.  Many: each
+// admitting lane tests every slot (the chunk is read at one address by
+// the whole warp).  The sub-box form tests a ray only on the slots of the
+// ranges its word wants: each admitting lane over the ranges of the chunk
+// some admitting lane wants, the slots of a range it does not want
+// skipped; split, the ray's wanted slots of the chunk, numbered in order,
+// each lane every 32nd of them.
+template <bool PLUCKER, bool SUBBOX, bool COUNT>
 __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
-                                         int n, int first, unsigned admit,
-                                         bool ok, const Ray& r, Best& best,
+                                         int n, int first, int base,
+                                         unsigned admit, bool ok,
+                                         unsigned word, const Ray& r,
+                                         Best& best,
                                          const int32_t* __restrict__ gidx,
+                                         const BvhParams& p,
                                          WarpCounts<COUNT>& cnt) {
   const int lane = threadIdx.x & 31;
   if (__popc(admit) > kSplitMax) {
+    if constexpr (SUBBOX) {
+      const unsigned want = __reduce_or_sync(kAll, ok ? word : 0u)
+                            & chunk_ranges(base, n, p.sub_rows);
+      for (unsigned m = want; m; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        const int s0 = max(j * p.sub_rows - base, 0);
+        const int s1 = min((j + 1) * p.sub_rows - base, n);
+        cnt.add(kCountMtSteps, s1 - s0);
+        if (ok && ((word >> j) & 1u)) {
+          for (int sl = s0; sl < s1; ++sl) {
+            float t;
+            int32_t g;
+            if (staged_hit<PLUCKER>(buf, sl, r, gidx, first + sl, t, g))
+              commit(t, g, first + sl, best);
+          }
+        }
+      }
+      return;
+    }
     cnt.add(kCountMtSteps, n);
     if (ok) {
       for (int sl = 0; sl < n; ++sl) {
@@ -741,20 +874,48 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
       q.my = __shfl_sync(kAll, r.my, src);
       q.mz = __shfl_sync(kAll, r.mz, src);
     }
-    cnt.add(kCountMtSteps, (n + 31) / 32);
+    if constexpr (!SUBBOX) cnt.add(kCountMtSteps, (n + 31) / 32);
     // this lane's least candidate as one key: t > 0, so its bits order
     // as the floats do, then the global index (>= 0 for an active slot)
     unsigned long long key = ~0ull;
     int slot = -1;
-    for (int sl = lane; sl < n; sl += 32) {
-      float t;
-      int32_t g;
-      if (staged_hit<PLUCKER>(buf, sl, q, gidx, first + sl, t, g)) {
-        const unsigned long long k2 =
-            ((unsigned long long)__float_as_uint(t) << 32) | (uint32_t)g;
-        if (k2 < key) {
-          key = k2;
-          slot = first + sl;
+    if constexpr (SUBBOX) {
+      // the ray's wanted slots, numbered in order from 0: this lane takes
+      // those numbered lane, lane + 32, ...
+      const unsigned want = __shfl_sync(kAll, word, src)
+                            & chunk_ranges(base, n, p.sub_rows);
+      int acc = 0;
+      for (unsigned mm = want; mm; mm &= mm - 1) {
+        const int j = __ffs(mm) - 1;
+        const int s0 = max(j * p.sub_rows - base, 0);
+        const int len = min((j + 1) * p.sub_rows - base, n) - s0;
+        for (int x = (lane - acc) & 31; x < len; x += 32) {
+          const int sl = s0 + x;
+          float t;
+          int32_t g;
+          if (staged_hit<PLUCKER>(buf, sl, q, gidx, first + sl, t, g)) {
+            const unsigned long long k2 =
+                ((unsigned long long)__float_as_uint(t) << 32) | (uint32_t)g;
+            if (k2 < key) {
+              key = k2;
+              slot = first + sl;
+            }
+          }
+        }
+        acc += len;
+      }
+      cnt.add(kCountMtSteps, (acc + 31) / 32);
+    } else {
+      for (int sl = lane; sl < n; sl += 32) {
+        float t;
+        int32_t g;
+        if (staged_hit<PLUCKER>(buf, sl, q, gidx, first + sl, t, g)) {
+          const unsigned long long k2 =
+              ((unsigned long long)__float_as_uint(t) << 32) | (uint32_t)g;
+          if (k2 < key) {
+            key = k2;
+            slot = first + sl;
+          }
         }
       }
     }
@@ -787,26 +948,28 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
 // the lanes' best t of that moment, before the MT of the chunks ahead of
 // it (a t can only fall, so that admits at least what the walk would); at
 // its turn each lane tests the cluster's box again with its t then, and
-// the lanes that still admit it run MT (mt_chunk).  Each ray's gates and
-// commits are the plain version's, so it writes the same result.  Called
-// by the whole warp (control flow is warp-uniform).
-template <bool PLUCKER, bool COUNT>
+// the lanes that still admit it (in the sub-box form: and whose word wants
+// a range of the chunk) run MT (mt_chunk).  Each ray's gates and commits
+// are the plain version's, so it writes the same result.  Called by the
+// whole warp (control flow is warp-uniform).
+template <bool PLUCKER, bool SUBBOX, bool COUNT>
 __device__ __forceinline__ void warp_walk(
     const float4* __restrict__ rows, const int32_t* __restrict__ gidx,
     const float* __restrict__ boxes, const float* __restrict__ supers,
-    const float* __restrict__ groups, const int32_t* __restrict__ order,
-    bool listed, const Ray& r, Best& best, const BvhParams& p,
-    float4* __restrict__ s_buf, uint64_t* __restrict__ s_bar,
-    unsigned long long* counters) {
+    const float* __restrict__ groups, const float* __restrict__ subboxes,
+    const int32_t* __restrict__ order, bool listed, const Ray& r,
+    Best& best, const BvhParams& p, float4* __restrict__ s_buf,
+    uint64_t* __restrict__ s_bar, unsigned long long* counters) {
   constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
   WarpCounts<COUNT> cnt;
+  const long long t_walk = COUNT ? clock64() : 0;
   if constexpr (COUNT) {
     cnt.add(kCountWalked, __popc(__ballot_sync(kAll, listed)));
     cnt.add(kCountWarps, 1);
   }
   const int lane = threadIdx.x & 31;
   Walk w;
-  Item last = {-1, 0, false};   // the chunk found last
+  Item last = {-1, 0, false, kAll, false};   // the chunk found last
   Item q[kStages];              // the chunks staged, oldest first
   int n_q = 0;
   bool more = true;
@@ -815,8 +978,8 @@ __device__ __forceinline__ void warp_walk(
   // NaN ray admits the sentinel boxes past the table too; staging the
   // last cluster again changes nothing)
   auto stage_next = [&]() {
-    more = next_item<COUNT>(w, last, boxes, supers, groups, order, listed,
-                            r, best.t, p, cnt);
+    more = next_item<SUBBOX, COUNT>(w, last, boxes, supers, groups, subboxes,
+                                    order, listed, r, best.t, p, cnt);
     if (!more) return;
 #pragma unroll
     for (int i = 0; i < kStages; ++i)
@@ -841,36 +1004,48 @@ __device__ __forceinline__ void warp_walk(
     const int b = done % kStages;
     bar_wait(&s_bar[b], (phase >> b) & 1u);
     phase ^= 1u << b;
-    const bool ok = cur.ok && slab(boxes + 8 * cur.c, r, best.t);
+    const int n = min(kChunk, p.k - cur.base);
+    const bool in_box = cur.ok && slab(boxes + 8 * cur.c, r, best.t);
+    bool ok = in_box;
+    if constexpr (SUBBOX)
+      ok = in_box && (cur.word & chunk_ranges(cur.base, n, p.sub_rows));
     const unsigned admit = __ballot_sync(kAll, ok);
     cnt.add_lanes(kCountBoxTests, cur.ok);
-    if (admit) {
-      if (cur.base == 0) {
+    if constexpr (COUNT) {
+      // the (ray, cluster) pairs: the lanes that still admit the cluster
+      // at its first visited chunk (in the sub-box form: with a range)
+      const unsigned pairs =
+          SUBBOX ? __ballot_sync(kAll, in_box && cur.word != 0u) : admit;
+      if ((SUBBOX ? cur.first : cur.base == 0) && pairs) {
         cnt.add(kCountStagings, 1);
-        cnt.add(kCountPairs, __popc(admit));
-        cnt.add(kCountHist + hist_bin(__popc(admit)), 1);
+        cnt.add(kCountPairs, __popc(pairs));
+        cnt.add(kCountHist + hist_bin(__popc(pairs)), 1);
       }
+    }
+    if (admit) {
       const int first = min(cur.c, p.n_clusters - 1) * p.k + cur.base;
-      mt_chunk<PLUCKER, COUNT>(s_buf + b * kChunk * kRowF4,
-                               min(kChunk, p.k - cur.base), first, admit, ok,
-                               r, best, gidx, cnt);
+      mt_chunk<PLUCKER, SUBBOX, COUNT>(s_buf + b * kChunk * kRowF4, n, first,
+                                       cur.base, admit, ok, cur.word, r,
+                                       best, gidx, p, cnt);
     } else {
       cnt.add(kCountWasted, 1);
     }
     if (more) stage_next();   // into buffer b, just read
   }
+  if constexpr (COUNT) cnt.add(kCountWalkCycles, clock64() - t_walk);
   cnt.flush(counters);
 }
 
 // The walk over the ray list: ray perm[i] for thread i (perm and count
 // from the compaction, or ray i), a miss for a ray past the admitted count
 // or dead.
-template <int VARIANT, bool PLUCKER, bool COUNT = false>
+template <int VARIANT, bool PLUCKER, bool SUBBOX, bool COUNT = false>
 __global__ void __launch_bounds__(kBlock)
 bvh_kernel(const RayIn in, const float4* __restrict__ staged,
            const float* __restrict__ coeffs,
            const int32_t* __restrict__ gidx, const float* __restrict__ boxes,
            const float* __restrict__ supers, const float* __restrict__ groups,
+           const float* __restrict__ subboxes,
            const int32_t* __restrict__ order, const int32_t* __restrict__ perm,
            const int32_t* __restrict__ count, float* __restrict__ t_out,
            int32_t* __restrict__ slot_out, const BvhParams p,
@@ -911,9 +1086,9 @@ bvh_kernel(const RayIn in, const float4* __restrict__ staged,
   constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
   const int warp = threadIdx.x >> 5;
   if (__any_sync(kAll, listed))
-    warp_walk<PLUCKER, COUNT>(
+    warp_walk<PLUCKER, SUBBOX, COUNT>(
         PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
-        boxes, supers, groups, order, listed, r, best, p,
+        boxes, supers, groups, subboxes, order, listed, r, best, p,
         s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
   if (!in_range) return;
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
@@ -939,7 +1114,8 @@ size_t work_words(const BvhParams& p) {
 int launch_bvh(const RayIn& in, const float* staged,
                const float* coeffs, const int32_t* gidx, const float* boxes,
                const float* supers, const float* groups,
-               const float* admission, int32_t* work, int32_t* perm,
+               const float* admission, const float* subboxes, int32_t* work,
+               int32_t* perm,
                int32_t* count, float* t_out, int32_t* slot_out,
                const BvhParams& p, unsigned long long* counters,
                void* stream) {
@@ -957,7 +1133,12 @@ int launch_bvh(const RayIn& in, const float* staged,
       || (!p.plucker
           && (staged == nullptr
               || reinterpret_cast<uintptr_t>(staged) % 16 != 0))
-      || (p.plucker && reinterpret_cast<uintptr_t>(coeffs) % 16 != 0))
+      || (p.plucker && reinterpret_cast<uintptr_t>(coeffs) % 16 != 0)
+      || p.sub_rows < 0 || (p.sub_rows != 0) != (subboxes != nullptr)
+      || (p.sub_rows
+          && (p.plucker || p.variant == kFlat || p.k % p.sub_rows != 0
+              || p.k / p.sub_rows > 8
+              || reinterpret_cast<uintptr_t>(subboxes) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // the work scratch (work_words)
@@ -987,31 +1168,33 @@ int launch_bvh(const RayIn& in, const float* staged,
   }
   const int blocks = (p.n_rays + kBlock - 1) / kBlock;
   const float4* st4 = reinterpret_cast<const float4*>(staged);
-#define SRT_BVH_LAUNCH(VARIANT, PLUCKER, COUNT)                              \
+#define SRT_BVH_LAUNCH(VARIANT, PLUCKER, SUBBOX, COUNT)                      \
   do {                                                                       \
     constexpr int smem = walk_smem<PLUCKER>();                               \
     if (smem + kWarps * kStages * 8 > 48 * 1024) {                           \
       const cudaError_t e = cudaFuncSetAttribute(                            \
-          bvh_kernel<VARIANT, PLUCKER, COUNT>,                               \
+          bvh_kernel<VARIANT, PLUCKER, SUBBOX, COUNT>,                       \
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);                \
       if (e != cudaSuccess) return (int)e;                                   \
     }                                                                        \
-    bvh_kernel<VARIANT, PLUCKER, COUNT><<<blocks, kBlock, smem, st>>>(       \
-        in, st4, coeffs, gidx, boxes, supers, groups, visit_order,           \
-        compact ? perm : nullptr, compact ? count : nullptr, t_out,          \
-        slot_out, p, counters);                                              \
+    bvh_kernel<VARIANT, PLUCKER, SUBBOX, COUNT>                              \
+        <<<blocks, kBlock, smem, st>>>(                                      \
+            in, st4, coeffs, gidx, boxes, supers, groups, subboxes,          \
+            visit_order, compact ? perm : nullptr,                           \
+            compact ? count : nullptr, t_out, slot_out, p, counters);        \
   } while (0)
-#define SRT_BVH_WALK(VARIANT)                 \
-  if (counters != nullptr) {                  \
-    if (p.plucker)                            \
-      SRT_BVH_LAUNCH(VARIANT, true, true);    \
-    else                                      \
-      SRT_BVH_LAUNCH(VARIANT, false, true);   \
-  } else {                                    \
-    if (p.plucker)                            \
-      SRT_BVH_LAUNCH(VARIANT, true, false);   \
-    else                                      \
-      SRT_BVH_LAUNCH(VARIANT, false, false);  \
+#define SRT_BVH_FORMS(VARIANT, COUNT)                \
+  if (p.plucker)                                     \
+    SRT_BVH_LAUNCH(VARIANT, true, false, COUNT);     \
+  else if (p.sub_rows)                               \
+    SRT_BVH_LAUNCH(VARIANT, false, true, COUNT);     \
+  else                                               \
+    SRT_BVH_LAUNCH(VARIANT, false, false, COUNT)
+#define SRT_BVH_WALK(VARIANT)         \
+  if (counters != nullptr) {          \
+    SRT_BVH_FORMS(VARIANT, true);     \
+  } else {                            \
+    SRT_BVH_FORMS(VARIANT, false);    \
   }
   switch (p.variant) {
     case kFlat:       // the same warp walk
@@ -1023,6 +1206,7 @@ int launch_bvh(const RayIn& in, const float* staged,
       return (int)cudaErrorInvalidValue;
   }
 #undef SRT_BVH_WALK
+#undef SRT_BVH_FORMS
 #undef SRT_BVH_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -1032,7 +1216,7 @@ int launch_bvh(const RayIn& in, const float* staged,
 // The version of this C interface (ops/cuda/bvh_kernel.py: INTERFACE),
 // raised whenever an argument or BvhParams changes, so a caller can tell
 // which interface a build has (ops/cuda/build.py: interface).
-extern "C" int srt_bvh_interface() { return 2; }
+extern "C" int srt_bvh_interface() { return 3; }
 
 // The int32 words of the work scratch a launch with these parameters
 // needs (the wrapper allocates it).
@@ -1044,8 +1228,10 @@ extern "C" long long srt_bvh_work_words(BvhParams p) {
 // compaction into perm and count) on the stream, then the walk.  Rays:
 // (R,) f32 o, d, alive (bytes or f32) and t_init; staged: the warp walk's
 // MT table ((C * K, 12) f32; null for the Plucker form); coeffs: the
-// Plucker form's (C * K, 20) table, or null; work: srt_bvh_work_words int32
-// words; perm (R,) and count (1,) int32 with admission boxes.
+// Plucker form's (C * K, 20) table, or null; subboxes: the sub-box form's
+// (C * 8, 8) f32 table (params.sub_rows > 0), or null; work:
+// srt_bvh_work_words int32 words; perm (R,) and count (1,) int32 with
+// admission boxes.
 extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                               const float* oz, const float* dx,
                               const float* dy, const float* dz,
@@ -1053,13 +1239,14 @@ extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                               const float* staged, const float* coeffs,
                               const int32_t* gidx, const float* boxes,
                               const float* supers, const float* groups,
-                              const float* admission, int32_t* work,
-                              int32_t* perm, int32_t* count, float* t_out,
-                              int32_t* slot_out, BvhParams p, void* stream) {
+                              const float* admission, const float* subboxes,
+                              int32_t* work, int32_t* perm, int32_t* count,
+                              float* t_out, int32_t* slot_out, BvhParams p,
+                              void* stream) {
   const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
   return launch_bvh(in, staged, coeffs, gidx, boxes, supers, groups,
-                    admission, work, perm, count, t_out, slot_out, p,
-                    nullptr, stream);
+                    admission, subboxes, work, perm, count, t_out, slot_out,
+                    p, nullptr, stream);
 }
 
 // The counting instance (every variant): the same launch, which also adds
@@ -1070,14 +1257,14 @@ extern "C" int srt_bvh_count_launch(
     const float* dy, const float* dz, const void* alive, const float* t_init,
     const float* staged, const float* coeffs, const int32_t* gidx,
     const float* boxes, const float* supers, const float* groups,
-    const float* admission, int32_t* work, int32_t* perm, int32_t* count,
-    float* t_out, int32_t* slot_out, unsigned long long* counters,
-    BvhParams p, void* stream) {
+    const float* admission, const float* subboxes, int32_t* work,
+    int32_t* perm, int32_t* count, float* t_out, int32_t* slot_out,
+    unsigned long long* counters, BvhParams p, void* stream) {
   if (counters == nullptr) return (int)cudaErrorInvalidValue;
   const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
   return launch_bvh(in, staged, coeffs, gidx, boxes, supers, groups,
-                    admission, work, perm, count, t_out, slot_out, p,
-                    counters, stream);
+                    admission, subboxes, work, perm, count, t_out, slot_out,
+                    p, counters, stream);
 }
 
 extern "C" const char* srt_error_string(int err) {

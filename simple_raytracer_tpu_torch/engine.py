@@ -54,9 +54,6 @@ class RenderOptions:
     # the JAX option's VMEM chunk, accepted so that the same options build
     # in either package; the port's loops size their own chunks
     tri_chunk: int = 256
-    # screen-tile ray order (th, tw); None = row-major; "auto" tiles 8x64
-    # when the image divides evenly.  A permutation: results are the same.
-    ray_tile: object = "auto"
     # "auto": the whole-trace kernel for the scenes it serves, the split
     # per-bounce path for the others; "bvh": the split path for every
     # scene; "clustered": the split path with the BVH kernel's streamed
@@ -65,6 +62,9 @@ class RenderOptions:
     # "pallas": the split path with the brute-force triangle kernel for
     # every mesh; "jnp": the split path with the dense PyTorch loop.
     tri_backend: str = "auto"
+    # screen-tile ray order (th, tw); None = row-major; "auto" tiles 8x64
+    # when the image divides evenly.  A permutation: results are the same.
+    ray_tile: object = "auto"
     # render in horizontal pixel bands over every local device (or the
     # devices the Renderer is given), and across processes in a
     # multi-process render; the height must divide by the band count.

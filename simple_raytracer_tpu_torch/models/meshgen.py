@@ -1,9 +1,9 @@
 """Procedural meshes for the preset scenes.
 
 The port's own copy of ``simple_raytracer_tpu.models.meshgen`` (the
-generators the mesh presets need): deterministic triangle soups in the
-{positions, per-vertex normals} layout of the triangle pool, so the mesh
-configs run without a model file.
+generators the mesh presets need, and the torus): deterministic triangle
+soups in the {positions, per-vertex normals} layout of the triangle pool,
+so the mesh configs run without a model file.
 """
 from __future__ import annotations
 
@@ -116,3 +116,33 @@ def organic_blob(subdivisions: int = 3, radius: float = 1.0, seed: int = 7):
 
     nrm = vertex_normals(out, faces)
     return out[faces].astype(np.float32), nrm[faces].astype(np.float32)
+
+
+def torus(major: float = 1.0, minor: float = 0.35,
+          n_major: int = 24, n_minor: int = 12):
+    """Returns (positions, normals) of a torus triangle mesh: n_major x
+    n_minor quads of the surface, two triangles each, with the exact
+    surface normals at the vertices."""
+    u = np.linspace(0, 2 * np.pi, n_major, endpoint=False)
+    v = np.linspace(0, 2 * np.pi, n_minor, endpoint=False)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    cx = (major + minor * np.cos(vv)) * np.cos(uu)
+    cy = minor * np.sin(vv)
+    cz = (major + minor * np.cos(vv)) * np.sin(uu)
+    nx = np.cos(vv) * np.cos(uu)
+    ny = np.sin(vv)
+    nz = np.cos(vv) * np.sin(uu)
+    pts = np.stack([cx, cy, cz], axis=-1)
+    nrm = np.stack([nx, ny, nz], axis=-1)
+
+    tris_p, tris_n = [], []
+    for i in range(n_major):
+        for j in range(n_minor):
+            i1, j1 = (i + 1) % n_major, (j + 1) % n_minor
+            quad_p = (pts[i, j], pts[i1, j], pts[i1, j1], pts[i, j1])
+            quad_n = (nrm[i, j], nrm[i1, j], nrm[i1, j1], nrm[i, j1])
+            tris_p += [[quad_p[0], quad_p[1], quad_p[2]],
+                       [quad_p[0], quad_p[2], quad_p[3]]]
+            tris_n += [[quad_n[0], quad_n[1], quad_n[2]],
+                       [quad_n[0], quad_n[2], quad_n[3]]]
+    return (np.asarray(tris_p, np.float32), np.asarray(tris_n, np.float32))

@@ -10,6 +10,9 @@ into BVH clusters (``accel.py``) of ``cluster_size`` slots, or of 64 or
 128 by the automatic rule, decided once per mesh topology.  The topology
 is cached, so ``build(refit=True)`` after a transform edit recomputes
 only the cluster boxes (``accel.refit_clusters``) and never changes K.
+Under ``SRT_BVH_SUBBOX`` (not "0") a build of K % 64 == 0 clusters, a
+refit too, also makes the BVH kernel's sub-box table (``sub_boxes``) from
+the triangles' positions of that build.
 A texture skybox (``Scene.skybox``, an (H, W, 3) f32 image, row 0 the
 bottom) is uploaded once per image object and device
 (``_build_skybox``).  ``load_mesh`` and ``import_model`` read an STL or
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -88,6 +92,30 @@ def _pad_clusters(cl: accel.Clusters) -> accel.Clusters:
         slots=np.concatenate([cl.slots,
                               np.full((c_cap - c_raw, k), -1, np.int32)]),
         order=cl.order, k=k)
+
+
+def sub_boxes(pos: np.ndarray, slots: np.ndarray) -> np.ndarray:
+    """The (C * 8, 8) f32 sub-box table of the (C, K) cluster slots (-1
+    empty) over the (T, 3, 3) triangles they index: box j of a cluster
+    bounds the vertices of its slots [j * K / 8, (j + 1) * K / 8), in
+    columns 0:6 as [lo, hi], zeros in 6:8; a range without a triangle is
+    the sentinel box, 3e38 in both corners.  The JAX scene build's
+    reductions (per-vertex masks, then min and max)."""
+    c, k = slots.shape
+    valid = slots >= 0
+    si = np.clip(slots, 0, pos.shape[0] - 1)
+    vx = pos[si].reshape(c, 8, (k // 8) * 3, 3)
+    mx = np.repeat(valid.reshape(c, 8, k // 8, 1), 3, axis=2)
+    big = np.float32(3.0e38)
+    lo = np.where(mx, vx, big).min(axis=2)
+    hi = np.where(mx, vx, -big).max(axis=2)
+    empty = hi[:, :, 0:1] < lo[:, :, 0:1]
+    lo = np.where(empty, big, lo)
+    hi = np.where(empty, big, hi)
+    out = np.zeros((c * 8, 8), np.float32)
+    out[:, 0:3] = lo.reshape(c * 8, 3)
+    out[:, 3:6] = hi.reshape(c * 8, 3)
+    return out
 
 
 def load_mesh(path, pool: TrianglePool) -> Tuple[int, int]:
@@ -269,6 +297,13 @@ class Scene:
             pos, nrm, mat = pos[cl.order], nrm[cl.order], mat[cl.order]
             out["clusters.aabb"] = cl.aabb
             out["clusters.slots"] = cl.slots
+            # the sub-box table, only where the knob could read it: a
+            # default build, or a refit, pays nothing for it; every build
+            # under the knob (a refit too) makes it from the triangles'
+            # positions now
+            if (cl.k % 64 == 0
+                    and os.environ.get("SRT_BVH_SUBBOX", "0") != "0"):
+                out["clusters.sub_aabb"] = sub_boxes(pos, cl.slots)
         pad = _bucket(n) - n
         # padding triangles: all-zero vertices, inactive
         pos = np.concatenate([pos, np.zeros((pad, 3, 3), np.float32)])

@@ -29,6 +29,14 @@ cluster's own test admits, and the result is that of testing every
 11,008 clusters stay within memory.  It reports the winner's table slot,
 whose row the caller shades from.
 
+The sub-box gate (``SRT_BVH_SUBBOX``, ``maybe_sub_aabb``) is the JAX
+package's fourth culling level: a cluster's 8 slot-range sub-boxes
+(``Clusters.sub_aabb``, built by the scene only under the knob), unioned
+into ``div`` wider ones (``coarsen_sub_aabb``), gate each admitted pair's
+MT range by range.  ``_sub_box_rows`` is the one rule of where it runs
+(a table, K % (8 * div) == 0, a single packet), which the plain version
+and the kernel's wrapper both read; it never changes a result.
+
 The Plucker form (``SRT_BVH_MT=plucker``, ``mt_form``) evaluates the
 same predicate from per-slot coefficients (``plucker_table``, built once
 per scene and cached on the clusters) dotted with the per-ray vector
@@ -169,20 +177,42 @@ def mt_form() -> str:
             else "mt")
 
 
-def _sub_box_rows(k: int) -> int:
-    """The slots per sub-box the JAX package would gate with, 0 for none:
-    SRT_BVH_SUBBOX set (maybe_sub_aabb), sub-boxes built for K % 64 == 0
-    (Scene.build), a single packet and K % (8 * div) == 0
-    (intersect_triangles_bvh).  The port has no sub-box gating; it reads
-    the knob only to resolve the MT form as the JAX package does."""
+def maybe_sub_aabb(clusters):
+    """(sub_aabb, sub_div) as the SRT_BVH_SUBBOX knob asks, read at each
+    call (bvh_kernel.maybe_sub_aabb): "0" or unset, or clusters built
+    without a sub-box table, gives (None, 8); "2", "4" or "8" that many
+    sub-boxes a cluster ("1": 8); any other value raises."""
     v = os.environ.get("SRT_BVH_SUBBOX", "0")
-    if v == "0" or k % 64:
-        return 0
+    if v == "0" or clusters.sub_aabb is None:
+        return None, 8
     if v not in ("1", "2", "4", "8"):
         raise ValueError(f"SRT_BVH_SUBBOX must be 0/1/2/4/8, got {v!r}")
-    div = 8 if v == "1" else int(v)
+    return clusters.sub_aabb, 8 if v == "1" else int(v)
+
+
+def _sub_box_rows(k: int, sub_aabb, div: int) -> int:
+    """The slots a sub-box bounds in a launch over K-slot clusters, 0 for
+    no sub-box gate: the rule of intersect_triangles_bvh, a sub-box table
+    (``maybe_sub_aabb``), K % (8 * div) == 0 and a single packet.  The
+    plain version and the kernel's wrapper both read it; "flat" (the TPU's
+    _kernel) never gates sub-boxes, so its callers pass no table."""
     packets = -(-k // PACKET) if packable(k) else 1
-    return k // div if k % (8 * div) == 0 and packets == 1 else 0
+    return (k // div if sub_aabb is not None and k % (8 * div) == 0
+            and packets == 1 else 0)
+
+
+def coarsen_sub_aabb(sub_aabb: torch.Tensor, div: int) -> torch.Tensor:
+    """(C * 8, 8) sub-box table -> the same shape with each cluster's 8
+    slot-range boxes unioned into ``div`` wider ones (rows 0 to div - 1
+    of the cluster; the rest sentinel boxes): box j then bounds slots
+    [j * K / div, (j + 1) * K / div) (bvh_kernel.coarsen_sub_aabb)."""
+    if div == 8:
+        return sub_aabb
+    boxes = union_boxes8(sub_aabb.reshape(-1, div, 8 // div, 8))
+    pad = torch.zeros(boxes.shape[0], 8 - div, 8, dtype=boxes.dtype,
+                      device=boxes.device)
+    pad[..., 0:6] = SENTINEL
+    return torch.cat([boxes, pad], dim=1).reshape(sub_aabb.shape)
 
 
 def resolve_plucker(clusters, variant: str) -> bool:
@@ -196,7 +226,7 @@ def resolve_plucker(clusters, variant: str) -> bool:
     if mt_form() != "plucker" or variant == "flat":
         return False
     packed = variant == "two_level" or packable(clusters.k)
-    sub_rows = _sub_box_rows(clusters.k)
+    sub_rows = _sub_box_rows(clusters.k, *maybe_sub_aabb(clusters))
     if packed and sub_rows == 0:
         return True
     why = [] if packed else ["the triangle table is not packed"]
@@ -452,17 +482,34 @@ def admitted_pairs(o: Vec3, inv: Vec3, live: torch.Tensor,
 
 def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
                                   t_init: torch.Tensor, clusters,
-                                  table: torch.Tensor, form: str = "mt"):
+                                  table: torch.Tensor, form: str = "mt",
+                                  sub_aabb: Optional[torch.Tensor] = None,
+                                  sub_div: int = 8):
     """(R,) rays x a clustered mesh -> (t (R,) f32, slot (R,) int32): the
     nearest triangle hit strictly closer than ``t_init`` and the table slot
     of its triangle, (+inf, -1) when none is (``triangle_index`` maps a
     slot to the triangle's index).  ``clusters`` carries the (C, 8) boxes
     and the hierarchy, ``table`` the (C * K, 20) slot rows; ``form`` is
     the MT form, "mt" or "plucker" (the form only, never the commit); a
-    call in the Plucker form is counted in PLUCKER_CALLS."""
+    call in the Plucker form is counted in PLUCKER_CALLS.
+
+    ``sub_aabb`` ((C * 8, 8), ``maybe_sub_aabb``) with ``sub_div`` gates
+    each admitted pair's slot ranges where ``_sub_box_rows`` allows it
+    (the sub-box form, _mt_gated_sub): the pair runs MT only over the
+    ranges of K / div slots whose sub-box (``coarsen_sub_aabb``) the ray
+    may meet, by the same slab test as every gate.  Its far bound is the
+    ray's t_init, as every gate's here: the kernel's best t when it finds
+    the cluster is at most t_init, and a box beyond a ray's best t holds
+    no hit that could win, so the result is that of testing every slot."""
     global PLUCKER_CALLS
     n_rays = o.x.shape[0]
     n_cl, k = clusters.slots.shape
+    rows = _sub_box_rows(k, sub_aabb, sub_div)
+    if rows:
+        if form != "mt":
+            raise ValueError("the sub-box gate takes the MT form only")
+        sub = coarsen_sub_aabb(sub_aabb, k // rows).reshape(
+            n_cl, 8, 8)[:, :k // rows]
     dev = o.x.device
     live = alive > 0
     inv = inverse(d)
@@ -492,6 +539,13 @@ def intersect_triangles_bvh_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
             ray = lambda v: v[r_idx][:, None]
             t, valid = mt(ray(o.x), ray(o.y), ray(o.z), ray(d.x), ray(d.y),
                           ray(d.z), lambda j: cols[:, :, j][c_idx])
+            if rows:
+                boxes = sub[c_idx]                     # (P, div, 8)
+                meet = _slab(lambda j: boxes[:, :, j],
+                             Vec3(ray(o.x), ray(o.y), ray(o.z)),
+                             Vec3(ray(inv.x), ray(inv.y), ray(inv.z)),
+                             ray(t_init))              # (P, div)
+                valid = valid & meet.repeat_interleave(rows, dim=1)
             t = torch.where(valid, t, math.inf)
             local_t = t.amin(dim=1)
             local_key = torch.where(valid & (t == local_t[:, None]),
@@ -517,7 +571,9 @@ def triangle_index(clusters, slot: torch.Tensor) -> torch.Tensor:
 def intersect_compacted_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
                               t_init: torch.Tensor, clusters,
                               table: torch.Tensor, order: torch.Tensor,
-                              count: int, form: str = "mt"):
+                              count: int, form: str = "mt",
+                              sub_aabb: Optional[torch.Tensor] = None,
+                              sub_div: int = 8):
     """The plain version over the first ``count`` rays of ``order`` only;
     every other ray reports a miss, as the kernel's compacted launch
     does."""
@@ -525,7 +581,7 @@ def intersect_compacted_plain(o: Vec3, d: Vec3, alive: torch.Tensor,
     pick = lambda v: Vec3(v.x[sel], v.y[sel], v.z[sel])
     t_c, s_c = intersect_triangles_bvh_plain(pick(o), pick(d), alive[sel],
                                              t_init[sel], clusters, table,
-                                             form)
+                                             form, sub_aabb, sub_div)
     t = torch.full_like(o.x, math.inf)
     slot = torch.full(o.x.shape, -1, dtype=torch.int32, device=o.x.device)
     t[sel] = t_c

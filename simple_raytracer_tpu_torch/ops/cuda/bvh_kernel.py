@@ -16,6 +16,14 @@ copies into shared memory, and splits MT pair by pair across the lanes
 when few of them admit a cluster.  Its plain PyTorch version is
 ``ops/bvh.intersect_triangles_bvh_plain``.
 
+Under ``SRT_BVH_SUBBOX`` (2, 4 or 8) the ``two_level`` and ``streamed``
+variants take the sub-box form (``_subbox_word`` and ``_mt_gated_sub``,
+the JAX package's fourth culling level) where ``ops/bvh._sub_box_rows``
+allows it: a lane that admits a cluster slabs its ``div`` sub-boxes
+(``Clusters.sub_aabb`` coarsened by ``ops/bvh.coarsen_sub_aabb``) and
+runs MT only over the slot ranges it meets; a launch in that form is
+counted as "<variant>/subbox".  ``flat`` never gates sub-boxes.
+
 Under ``SRT_BVH_MT=plucker`` the ``two_level`` and ``streamed`` variants
 take the Plucker form of Moller-Trumbore (``_mt_update_sub_mxu`` and
 ``_plucker_lt``, row 5a) where ``ops/bvh.resolve_plucker`` grants it:
@@ -60,6 +68,7 @@ class BvhParams(ctypes.Structure):
         ("plucker", ctypes.c_int32),
         ("n_admission", ctypes.c_int32),
         ("alive_u8", ctypes.c_int32),
+        ("sub_rows", ctypes.c_int32),
     ]
 
 
@@ -67,18 +76,22 @@ class BvhParams(ctypes.Structure):
 # groups
 RANK_MAX = 8192
 # the C interface's version (srt_bvh_interface in the CUDA source)
-INTERFACE = 2
+INTERFACE = 3
 # srt_bvh_launch(ox, oy, oz, dx, dy, dz, alive, t_init, staged, coeffs,
-#                gidx, boxes, supers, groups, admission, work, perm, count,
-#                t_out, slot_out, params, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 20 + [BvhParams, ctypes.c_void_p]
+#                gidx, boxes, supers, groups, admission, subboxes, work,
+#                perm, count, t_out, slot_out, params, stream)
+LAUNCH_POINTERS = 21
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * LAUNCH_POINTERS
+                   + [BvhParams, ctypes.c_void_p])
 # srt_bvh_count_launch: the same, and the counters before the params
-COUNT_ARGTYPES = [ctypes.c_void_p] * 21 + [BvhParams, ctypes.c_void_p]
+COUNT_ARGTYPES = ([ctypes.c_void_p] * (LAUNCH_POINTERS + 1)
+                  + [BvhParams, ctypes.c_void_p])
 # the counting instance's int64 counters, in the CUDA source's Count order,
 # then HIST_BINS: the stagings by the lanes that admit them
 COUNTERS = ("walked", "stagings", "chunks", "slots", "pairs", "mt_steps",
             "group_tests", "super_tests", "cluster_tests", "split", "wasted",
-            "warps", "box_tests")
+            "warps", "box_tests", "sub_tests", "sub_skipped", "chunks_skipped",
+            "walk_cycles", "sub_cycles")
 HIST_BINS = ("1", "2", "3-4", "5-8", "9-16", "17-24", "25-31", "32")
 
 
@@ -119,7 +132,7 @@ class Prepared:
     # (R,) o.x, o.y, o.z, d.x, d.y, d.z, alive (bool or f32), t_init
     rays: tuple
     # staged (or None), coeffs (or None), gidx, boxes, supers, groups,
-    # admission (or None): the kernel's tables
+    # admission (or None), subboxes (or None): the kernel's tables
     tensors: tuple
     work: torch.Tensor               # int32 scratch (srt_bvh_work_words)
     # with a compaction, written by each launch: the (R,) int32 ray order
@@ -131,8 +144,10 @@ class Prepared:
 
     @property
     def label(self) -> str:
-        """The variant as counted: "<variant>/plucker" for that form."""
-        return self.variant + ("/plucker" if self.params.plucker else "")
+        """The variant as counted: "<variant>/plucker" or
+        "<variant>/subbox" for those forms."""
+        return self.variant + ("/plucker" if self.params.plucker else
+                               "/subbox" if self.params.sub_rows else "")
 
     @property
     def device(self) -> torch.device:
@@ -146,27 +161,42 @@ def _ray(t: torch.Tensor, n: int, device, dtype=torch.float32):
     return t.to(dtype).contiguous()
 
 
+def sub_box_gate(clusters, variant: str):
+    """(sub_aabb, sub_div) a launch of ``variant`` gates sub-boxes with,
+    as the plain version takes them: ``ops/bvh.maybe_sub_aabb`` for
+    ``two_level`` and ``streamed`` (_kernel_packed and _kernel_hbm), never
+    for ``flat`` (_kernel), which gets (None, 8)."""
+    return (None, 8) if variant == "flat" else bvh.maybe_sub_aabb(clusters)
+
+
 def launch_tables(clusters, table: torch.Tensor, variant: str,
                   compact: bool):
     """The tables a launch of ``variant`` reads: ((staged, coeffs, gidx,
-    boxes, supers, groups, admission), the visiting order's boxes (the
-    groups), whether it takes the Plucker form).  The MT form is
-    resolved here (``ops/bvh.resolve_plucker``): the warp walk reads
+    boxes, supers, groups, admission, subboxes), the visiting order's
+    boxes (the groups), whether it takes the Plucker form, the slots a
+    sub-box bounds (0: no sub-box gate)).  The MT form is resolved here
+    (``ops/bvh.resolve_plucker``): the warp walk reads
     ``bvh.staged_slots`` in the MT form and ``bvh.plucker_coefficients``
     in the Plucker form (never ``flat``), each built on first use (the
     other None), and the hierarchy's boxes (padded with sentinels to whole
     groups), supers and groups; the admission boxes with ``compact``, else
+    None; the sub-box table coarsened to the launch's division
+    (``bvh.coarsen_sub_aabb``) where ``bvh._sub_box_rows`` gates, else
     None."""
     hier = clusters.hierarchy
-    coeffs = staged = None
+    coeffs = staged = subboxes = None
     plucker = bvh.resolve_plucker(clusters, variant)
     if plucker:
         coeffs = bvh.plucker_coefficients(clusters, table)
     else:
         staged = bvh.staged_slots(clusters, table)
+    sub, div = sub_box_gate(clusters, variant)
+    sub_rows = bvh._sub_box_rows(clusters.k, sub, div)
+    if sub_rows:
+        subboxes = bvh.coarsen_sub_aabb(sub, div)
     return ((staged, coeffs, hier.gidx, hier.boxes, hier.supers,
-             hier.groups, hier.admission if compact else None),
-            hier.groups.shape[0], plucker)
+             hier.groups, hier.admission if compact else None, subboxes),
+            hier.groups.shape[0], plucker, sub_rows)
 
 
 def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
@@ -183,9 +213,9 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     if n_rays >= 2 ** 31 - 1024:
         raise ValueError(f"BVH kernel: {n_rays} rays overflow int32")
     n_cl, k = clusters.slots.shape
-    tensors, n_order, plucker = launch_tables(clusters, table, variant,
-                                              compact)
-    staged, coeffs, gidx, boxes, supers, groups, admission = tensors
+    tensors, n_order, plucker, sub_rows = launch_tables(clusters, table,
+                                                        variant, compact)
+    staged, coeffs, gidx, boxes, supers, groups, admission, subboxes = tensors
     rows = coeffs if plucker else staged
     if (rows.device != device or rows.dtype != torch.float32
             or rows.shape != (n_cl * k, bvh.PLUCKER_COLS if plucker
@@ -201,10 +231,11 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
                   torch.bool if alive_u8 else torch.float32),
              _ray(t_init, n_rays, device))
     for name, t, dtype in zip(
-            ("slot indices", "boxes", "supers", "groups", "admission boxes"),
-            (gidx, boxes, supers, groups, admission),
+            ("slot indices", "boxes", "supers", "groups", "admission boxes",
+             "sub-boxes"),
+            (gidx, boxes, supers, groups, admission, subboxes),
             (torch.int32, torch.float32, torch.float32, torch.float32,
-             torch.float32)):
+             torch.float32, torch.float32)):
         if t is not None and (t.device != device or t.dtype != dtype
                               or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"BVH kernel: bad {name} {t.dtype} on "
@@ -212,6 +243,9 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     if table.shape != (n_cl * k, 20) or gidx.shape != (n_cl * k,):
         raise ValueError(f"BVH kernel: table {tuple(table.shape)} for "
                          f"{n_cl} clusters of {k}")
+    if subboxes is not None and subboxes.shape != (n_cl * 8, 8):
+        raise ValueError(f"BVH kernel: sub-boxes {tuple(subboxes.shape)} "
+                         f"for {n_cl} clusters")
     if n_order > RANK_MAX:
         raise ValueError(f"BVH kernel: {n_order} boxes to order, at most "
                          f"{RANK_MAX}")
@@ -221,6 +255,7 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     p.plucker = int(plucker)
     p.n_admission = admission.shape[0] if compact else 0
     p.alive_u8 = int(alive_u8)
+    p.sub_rows = sub_rows
     if not 0 < p.n_admission <= bvh.ADMISSION_MAX and compact:
         raise ValueError(f"BVH kernel: {p.n_admission} admission boxes")
     work = torch.empty(KERNEL.library().srt_bvh_work_words(p),
@@ -298,17 +333,19 @@ def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
     ``compact`` walks only the rays that enter an admission box, and
     ``force_streamed`` takes the streamed variant for any table; neither
     changes a live ray's result.  The MT form follows SRT_BVH_MT
-    (``ops/bvh.resolve_plucker``), on the CPU as on the card."""
+    (``ops/bvh.resolve_plucker``) and the sub-box gate SRT_BVH_SUBBOX
+    (``sub_box_gate``), on the CPU as on the card."""
     if o.x.device.type == "cpu":
-        form = ("plucker" if bvh.resolve_plucker(
-            clusters, bvh_variant(clusters, force_streamed)) else "mt")
+        variant = bvh_variant(clusters, force_streamed)
+        form = "plucker" if bvh.resolve_plucker(clusters, variant) else "mt"
+        sub = sub_box_gate(clusters, variant)
         if compact:
             order, count = bvh.compact_order(o, d, alive, t_init,
                                              clusters.hierarchy.admission)
             return bvh.intersect_compacted_plain(o, d, alive, t_init,
                                                  clusters, table, order,
-                                                 int(count), form)
+                                                 int(count), form, *sub)
         return bvh.intersect_triangles_bvh_plain(o, d, alive, t_init,
-                                                 clusters, table, form)
+                                                 clusters, table, form, *sub)
     return launch(prepare(o, d, alive, t_init, clusters, table, compact,
                           force_streamed))

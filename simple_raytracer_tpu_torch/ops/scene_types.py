@@ -56,6 +56,12 @@ class Clusters:
                              # margin by it
     hierarchy: Hierarchy     # the BVH kernel's supers, groups, admission
                              # boxes and int32 slot indices
+    # (C * 8, 8) f32 sub-boxes, 8 a cluster: box j bounds the triangles of
+    # slots [j * K / 8, (j + 1) * K / 8), [lo, hi, 0, 0], an empty range
+    # the sentinel box (3e38 in both corners); built only under
+    # SRT_BVH_SUBBOX and for K % 64 == 0 (models/scene.sub_boxes), else
+    # None
+    sub_aabb: Optional[torch.Tensor] = None
     # the slot table's ops/bvh.plucker_table, built on first use (once per
     # scene) by ops/bvh.plucker_coefficients
     plucker: Optional[torch.Tensor] = dataclasses.field(
@@ -233,7 +239,9 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
     (vectors (3,)) and ``sky_reachable``; optionally the triangles
     ``triangles.{v0,v1,v2,n0,n1,n2}`` (Nt, 3), ``triangles.material``,
     ``triangles.active``, and for a clustered mesh ``clusters.aabb``
-    (C, 8) and ``clusters.slots`` (C, K) (-1 for an empty slot).  A scene
+    (C, 8) and ``clusters.slots`` (C, K) (-1 for an empty slot), and
+    optionally ``clusters.sub_aabb`` (C * 8, 8) (absent or None: no
+    sub-box table).  A scene
     without ``triangles.v0`` has no triangles.  ``skybox``, when present
     and not None, is the (H, W, 3) environment texture: an array, or a
     tensor already on ``device`` (kept as it is)."""
@@ -292,9 +300,17 @@ def from_numpy(arrays: dict, device) -> DeviceScene:
         real = aabb[:, 0] < 1.0e38
         extent = float(np.abs(aabb[real, 0:6]).max()) if real.any() else 0.0
         aabb_t, slots_t = t(aabb), t(slots)
+        sub = arrays.get("clusters.sub_aabb")
+        if sub is not None:
+            sub = np.asarray(sub, np.float32)
+            if sub.shape != (slots.shape[0] * 8, 8):
+                raise ValueError(f"clusters.sub_aabb: shape {sub.shape} for "
+                                 f"{slots.shape[0]} clusters")
+            sub = t(sub)
         clusters = Clusters(aabb=aabb_t, slots=slots_t,
                             extent=extent,
-                            hierarchy=build_hierarchy(aabb_t, slots_t))
+                            hierarchy=build_hierarchy(aabb_t, slots_t),
+                            sub_aabb=sub)
     table = t(tri_table(tris, slots))
     triangles = Triangles(
         **{k: t(tris[k]) for k in TRI_VECTORS + ("material", "active")},

@@ -245,12 +245,13 @@ def test_prepare_hands_flat_the_hierarchy_and_staged_table(
         "aabb", "slots", "k", "hierarchy")}, plucker=None, staged=None)
     monkeypatch.setenv("SRT_BVH_MT", form)
     variant = bk.bvh_variant(cl)
-    tensors, n_order, plucker = bk.launch_tables(cl, table, variant,
-                                                 compact=True)
-    staged, coeffs, gidx, boxes, supers, groups, adm = tensors
+    tensors, n_order, plucker, sub_rows = bk.launch_tables(
+        cl, table, variant, compact=True)
+    staged, coeffs, gidx, boxes, supers, groups, adm, subboxes = tensors
     hier = cl.hierarchy
     n_cl = cl.slots.shape[0]
     assert variant == "flat" and not plucker and coeffs is None
+    assert sub_rows == 0 and subboxes is None      # flat never gates
     assert cl.plucker is None
     assert staged is cl.staged and staged is bvh.staged_slots(cl, table)
     assert torch.equal(staged.view(torch.int32),           # NaN bits too
@@ -263,8 +264,8 @@ def test_prepare_hands_flat_the_hierarchy_and_staged_table(
     assert torch.equal(boxes[:n_cl], cl.aabb)
     assert (boxes[n_cl:, :6] == bvh.SENTINEL).all()
     assert not boxes[:, 6:].any()
-    *_, none = bk.launch_tables(cl, table, variant, compact=False)[0]
-    assert none is None
+    adm = bk.launch_tables(cl, table, variant, compact=False)[0][6]
+    assert adm is None
 
 
 def test_cuda_source_sends_flat_to_the_walk():
@@ -319,22 +320,32 @@ def test_interface_of_a_build_without_the_export_is_1():
 
 def test_bvh_launch_takes_no_slot_table():
     """srt_bvh_launch's pointers after the rays are ``Prepared.tensors``
-    (staged, coeffs, gidx, boxes, supers, groups, admission), then the
-    work scratch, the compaction's order and count and the outputs: no
-    variant reads the slot table, so it is not passed.  chip_smoke.py
-    binds a parent's build to this interface only (bk._bind, which refuses
-    version 1, the one that took the slot table)."""
+    (staged, coeffs, gidx, boxes, supers, groups, admission, subboxes),
+    then the work scratch, the compaction's order and count and the
+    outputs: no variant reads the slot table, so it is not passed.
+    chip_smoke.py binds a parent's build to this interface (bk._bind) or
+    to interface 2 (the same pointers without the sub-box table) and
+    refuses version 1, the one that took the slot table."""
     src = Path(bk.SOURCE).read_text()
     sig = re.search(r"int srt_bvh_launch\((.*?)\)", src, re.S).group(1)
     assert re.findall(r"\*\s*(\w+)", sig)[8:] == [
         "staged", "coeffs", "gidx", "boxes", "supers", "groups",
-        "admission", "work", "perm", "count", "t_out", "slot_out",
-        "stream"]
+        "admission", "subboxes", "work", "perm", "count", "t_out",
+        "slot_out", "stream"]
+    assert bk.LAUNCH_POINTERS == 8 + 8 + 5
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     parent = smoke.parent_bvh_kernel(Path("parent"))
-    assert parent._bind is bk._bind
-    with pytest.raises(RuntimeError, match="interface 1, want 2"):
+    assert parent._bind is smoke.bind_parent_bvh
+    with pytest.raises(RuntimeError, match="interface 1, want 3"):
         parent._bind(types.SimpleNamespace(srt_bvh_interface=lambda: 1))
+    fn = types.SimpleNamespace()
+    lib = types.SimpleNamespace(srt_bvh_interface=lambda: 2,
+                                srt_bvh_launch=fn,
+                                srt_bvh_work_words=types.SimpleNamespace())
+    parent._bind(lib)
+    assert len(fn.argtypes) == len(bk.LAUNCH_ARGTYPES) - 1
+    assert [f for f, _ in smoke.BvhParamsV2._fields_] == [
+        f for f, _ in bk.BvhParams._fields_ if f != "sub_rows"]

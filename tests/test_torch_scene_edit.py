@@ -15,12 +15,12 @@ import pytest
 
 from simple_raytracer_tpu.editor import SceneEditor as JEditor
 from simple_raytracer_tpu.models.materials import Material as JMaterial
-from simple_raytracer_tpu.models.meshgen import torus
 from simple_raytracer_tpu.models.scene import Scene as JScene
 from simple_raytracer_tpu.models.shapes import transform_trs as jtrs
 from simple_raytracer_tpu_torch.editor import EditError, SceneEditor
 from simple_raytracer_tpu_torch.io.stl import save_stl
 from simple_raytracer_tpu_torch.models.materials import Material
+from simple_raytracer_tpu_torch.models.meshgen import torus
 from simple_raytracer_tpu_torch.models.scene import Scene
 from simple_raytracer_tpu_torch.models.shapes import transform_trs
 from simple_raytracer_tpu_torch.ops.scene_types import from_numpy

@@ -100,6 +100,8 @@ def jax_scene_arrays(ds) -> dict:
         out["clusters.aabb"] = a(tr.clusters.aabb)
         out["clusters.slots"] = np.where(table[:, 19] > 0, table[:, 20],
                                          -1).astype(np.int32).reshape(c, -1)
+        if tr.clusters.sub_aabb is not None:
+            out["clusters.sub_aabb"] = a(tr.clusters.sub_aabb)
     m = ds.materials
     for k in ("smoothness", "metallic", "specular", "emission_strength",
               "transmittance", "refraction_index"):
@@ -129,6 +131,8 @@ def port_scene_arrays(ts) -> dict:
     if ts.triangles.clusters is not None:
         out["clusters.aabb"] = ts.triangles.clusters.aabb.numpy()
         out["clusters.slots"] = ts.triangles.clusters.slots.numpy()
+        if ts.triangles.clusters.sub_aabb is not None:
+            out["clusters.sub_aabb"] = ts.triangles.clusters.sub_aabb.numpy()
     out["sky.sun_focus"] = ts.sky.sun_focus
     out["sky.sun_intensity"] = ts.sky.sun_intensity
     for k in SKY_VECTORS:
@@ -204,7 +208,7 @@ def walk_feed(clusters, table, form):
 
 def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
                         form="mt", perm=None, count=None, batch=BATCH,
-                        split_max=SPLIT_MAX, stages=STAGES):
+                        split_max=SPLIT_MAX, stages=STAGES, sub=None):
     """The warp walk of one launch in PyTorch -> ((t, slot) as the kernel
     writes them, counts of what the walk did):
 
@@ -230,12 +234,27 @@ def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
       commits), else every admitting lane tests every slot itself (one
       commit of its least key: the commit rule is a lexicographic minimum,
       so slot-by-slot commits in order end in the same (t, index, first
-      slot))."""
+      slot));
+    - with ``sub`` = (the coarsened (C * 8, 8) sub-box table, the slots a
+      sub-box bounds), the sub-box form: when the walk finds a cluster,
+      each lane that admits it slabs its sub-boxes against its t then and
+      keeps a word of the ranges it may meet; a cluster no lane's word
+      wants is skipped, and so is each chunk of it that holds no wanted
+      range; at a chunk's turn a lane runs MT only if its word wants a
+      range of the chunk, and only over the slots of its ranges (split:
+      each admitting ray's wanted slots, 32 lanes at a time).
+
+    The counts include ``lane_slots`` (32 x the warp-wide MT steps: a
+    step over each wanted range's slots with every admitting lane, or
+    each admitting ray's wanted slots 32 at a time), ``sub_tests`` (the
+    lanes' sub-box slab tests) and ``chunks_skipped``."""
     n_rays = o.x.shape[0]
     n_cl, k = clusters.slots.shape
     hier = clusters.hierarchy
     cols, gidx = walk_feed(clusters, table, form)
     mt = bvh._mt_plucker if form == "plucker" else bvh._mt
+    if sub is not None:
+        sub_t, rows = sub
     live = alive > 0
     inv = bvh.inverse(d)
     order = bvh.front_to_back(hier.groups, o, live).long()
@@ -275,22 +294,41 @@ def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
             best_i[lane] = torch.where(win, g, bi)
             best_s[lane] = torch.where(win, slot, best_s[lane])
 
-        def chunk_turn(c, base, found):
-            ok = found & gates(hier.boxes[c:c + 1], True)[0]
+        def chunk_turn(c, base, found, word, first_chunk):
+            n = min(CHUNK, k - base)
+            in_box = found & gates(hier.boxes[c:c + 1], True)[0]
+            ok = in_box
+            if sub is not None:
+                # (lanes, n): the lane's word wants slot base + j's range
+                want = ((word[:, None] >> ((base + torch.arange(n))
+                                           // rows)[None, :]) & 1) > 0
+                ok = in_box & want.any(dim=1)
+            if first_chunk and (in_box & (word != 0)).any():
+                cnt["visits"] += 1
+                cnt["pairs"] += int((in_box & (word != 0)).sum())
             if not ok.any():
                 cnt["wasted"] += 1
                 return
-            if base == 0:
-                cnt["visits"] += 1
-                cnt["pairs"] += int(ok.sum())
             cnt["chunks"] += 1
             first = min(c, n_cl - 1) * k + base
-            n = min(CHUNK, k - base)
             slots = torch.arange(first, first + n)
             admit = ok.nonzero()[:, 0]
             q = lambda v: v[admit][:, None]
             t, valid = mt(q(ro.x), q(ro.y), q(ro.z), q(rd.x), q(rd.y),
                           q(rd.z), cols(slots[None, :]))          # (A, n)
+            if sub is not None:
+                valid = valid & want[admit]
+                wanted = want[admit]
+                if admit.numel() > split_max:
+                    cnt["lane_slots"] += LANES * int(wanted.any(0).sum())
+                else:
+                    cnt["lane_slots"] += LANES * int(
+                        ((wanted.sum(1) + LANES - 1) // LANES).sum())
+            elif admit.numel() > split_max:
+                cnt["lane_slots"] += LANES * n
+            else:
+                cnt["lane_slots"] += LANES * admit.numel() * (
+                    (n + LANES - 1) // LANES)
             key = torch.where(valid, (t.view(torch.int32).long() << 32)
                               | gidx[slots].long()[None, :], NO_KEY)
             if admit.numel() > split_max:
@@ -331,8 +369,32 @@ def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
                             hier.boxes[s * bvh.SUPER:(s + 1) * bvh.SUPER],
                             s_mask[si])
                         for ci in c_mask.any(dim=1).nonzero()[:, 0].tolist():
-                            for base in range(0, k, CHUNK):
-                                yield s * bvh.SUPER + ci, base, c_mask[ci]
+                            c = s * bvh.SUPER + ci
+                            word = torch.full_like(ray, -1)
+                            wanted = range(0, k, CHUNK)
+                            if sub is not None:
+                                # the lanes' words, with their t now
+                                cs = min(c, n_cl - 1)
+                                boxes = sub_t[cs * 8:cs * 8 + k // rows]
+                                hit = gates(boxes, c_mask[ci])  # (div, l)
+                                cnt["sub_tests"] += int(
+                                    c_mask[ci].sum()) * boxes.shape[0]
+                                word = (hit.long() << torch.arange(
+                                    boxes.shape[0])[:, None]).sum(0)
+                                union = int(np.bitwise_or.reduce(
+                                    word.numpy()))
+                                if not union:
+                                    cnt["sub_skipped"] += 1
+                                    continue
+                                wanted = [b for b in range(0, k, CHUNK)
+                                          if any((union >> r) & 1 for r in
+                                                 range(b // rows, (min(
+                                                     b + CHUNK, k) - 1)
+                                                     // rows + 1))]
+                                cnt["chunks_skipped"] += (
+                                    len(range(0, k, CHUNK)) - len(wanted))
+                            for i, base in enumerate(wanted):
+                                yield c, base, c_mask[ci], word, i == 0
 
         # the ring: the next chunks are found before the MT of the chunks
         # ahead of them, each after the turn of the chunk whose buffer it
