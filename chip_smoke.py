@@ -9,8 +9,8 @@ Run from the repository root:
 BVH kernel on the same launches, one by one, its whole-trace kernel on
 the same pass of each whole-trace cell, its shade kernel on 7/fused's
 shade launches and its probe kernel on the probes, in turns, each bound
-by the C interface its build reports: the BVH kernel's must be this
-one, the whole-trace kernel's and the probe kernel's this one or 1.)
+to this build's C interface, which each parent build must report: a
+parent from e9ce31e on.)
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
@@ -139,9 +139,11 @@ are a path of their own.  Phases, one line each on stdout:
      the kernel's pass in turns, its MT pairs and lane-slot MT tests
      (the counting instance), the staged MT table's MB and the median
      build's seconds; the sub-box cells' launches in turns with the
-     ungated kernel's on the same rays, and both counting instances'
-     lane-slot MT tests, sub-box tests, clusters and chunks skipped and
-     the walk's SM cycles (of them the sub-box words');
+     ungated kernel's on the same rays (with --parent also the parent's
+     gated kernel, in turns), and both counting instances' lane-slot MT
+     tests, sub-box tests, clusters and chunks skipped and the walk's SM
+     cycles (of them, waiting for a super's sub-box block and making its
+     words);
   7. where a Renderer.step's time goes (torch.profiler; 20 steps, 5 of
      a per-bounce cell; not the sub-box cells);
   8. the command-line path: simple_raytracer_tpu_torch.cli.main in
@@ -203,7 +205,6 @@ import argparse
 import collections
 import contextlib
 import copy
-import ctypes
 import dataclasses
 import importlib.util
 import io
@@ -231,6 +232,7 @@ from simple_raytracer_tpu_torch.io.scene_json import save_scene
 from simple_raytracer_tpu_torch.io.stl import save_stl
 from simple_raytracer_tpu_torch.models.camera import Camera
 from simple_raytracer_tpu_torch.models.materials import Material
+from simple_raytracer_tpu_torch.models.meshgen import icosphere
 from simple_raytracer_tpu_torch.models.meshgen import organic_blob
 from simple_raytracer_tpu_torch.models.presets import CONFIGS
 from simple_raytracer_tpu_torch.models import showcase
@@ -244,7 +246,6 @@ from simple_raytracer_tpu_torch.ops.camera import generate_rays
 from simple_raytracer_tpu_torch.ops.cuda import bounce_kernel as sk
 from simple_raytracer_tpu_torch.ops.cuda import bvh_kernel as bk
 from simple_raytracer_tpu_torch.ops.cuda import build
-from simple_raytracer_tpu_torch.ops.cuda.build import interface
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
@@ -297,6 +298,9 @@ CLUSTER_SIZES = {"6/k256": 256, "6/k256/plucker": 256, "5/k256": 256}
 SUBBOX = {"6/subbox8": "8", "7/subbox8": "8"}
 SUBBOX_CHECKS = {"6/subbox8": (("2", None), ("4", None)),
                  "7/subbox8": (("8", "fused"),)}
+# the cell after whose phase 4 the sub-box form is checked on partial
+# supers (partial_super_check), and the seed of its rays
+PARTIAL_CELL, PARTIAL_SEED = "6/subbox8", 22
 # the cells of the split per-bounce path with the BVH kernel
 SPLIT = ("6", "5/bvh", "4/bvh", "7", "6/texture", "6/plucker", "7/plucker",
          "6/k256", "6/k256/plucker", "6/subbox8", "7/subbox8")
@@ -1068,20 +1072,92 @@ def subbox_checks(label: str, r: Renderer, camera, recorded, clusters,
             f"[{card}]")
 
 
-def subbox_turns(label: str, res: dict, card: str) -> dict:
+def partial_super_check(card: str) -> None:
+    """Phase 4: the sub-box form on tables whose cluster count is not a
+    multiple of 16 (the last super's sub-box block cut at the table's
+    end): the 320-triangle icosphere clustered at K = 64 and at K = 192
+    (24-slot ranges across the 64-slot chunks) under SRT_BVH_SUBBOX=8,
+    4,096 seeded rays aimed near it (a tenth dead, half with a finite
+    t_init), dense and compacted, each launch's (t, slot) against the
+    gated plain version and the ungated kernel on every live ray; every
+    64th ray live with a NaN direction, which admits every box, so its
+    warp walks the supers past the table (their block: the last
+    cluster's rows)."""
+    rng = np.random.default_rng(PARTIAL_SEED)
+    n = 4096
+    o = rng.uniform(-3, 3, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d = d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(
+        0, 1.2, (n, 1)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_init = np.where(rng.uniform(size=n) < 0.5, np.inf,
+                      rng.uniform(0.2, 5.0, n))
+    live = rng.uniform(size=n) > 0.1
+    d[::64] = np.nan
+    live[::64] = True
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a, np.float32)).cuda()
+    vec = lambda a: Vec3(cuda(a[:, 0]), cuda(a[:, 1]), cuda(a[:, 2]))
+    alive = cuda(live)
+    rays = (vec(o), vec(d), alive, cuda(t_init))
+    live = alive > 0
+    lines = []
+    for k in (64, 192):
+        scene = Scene()
+        scene.cluster_threshold = 64
+        scene.cluster_size = k
+        scene.add_model(scene.pool.append(*icosphere(subdivisions=2)))
+        with knob("SRT_BVH_SUBBOX", "8"):
+            ds = scene.build("cuda")
+            cl, table = ds.triangles.clusters, ds.triangles.table
+            n_cl = cl.slots.shape[0]
+            if n_cl % bvh.SUPER == 0:
+                fail(f"the partial-super check: {n_cl} clusters at K = {k}")
+            for compact in (False, True):
+                prep = bk.prepare(*rays, cl, table, compact, True)
+                if prep.params.sub_rows != k // 8:
+                    fail(f"the partial-super check at K = {k}: "
+                         f"{prep.label} with {prep.params.sub_rows} rows")
+                t_k, s_k = bk.launch(prep)
+                t_u, s_u = bk.launch(ungated(prep))
+                t_p, s_p = plain_bvh(*rays, cl, table, compact, True)
+                torch.cuda.synchronize()
+                for name, (t, sl) in (("the gated plain version",
+                                       (t_p, s_p)),
+                                      ("the ungated kernel", (t_u, s_u))):
+                    if not (torch.equal(t[live], t_k[live])
+                            and torch.equal(sl[live], s_k[live])):
+                        fail(f"the partial-super check at K = {k}"
+                             f"{' compacted' if compact else ''}: the "
+                             f"sub-box form's (t, slot) differ from {name}'s"
+                             f" on {int((sl[live] != s_k[live]).sum())} "
+                             "live rays")
+                lines.append(f"K = {k} ({n_cl} clusters, the last super's "
+                             f"block {n_cl % bvh.SUPER} of {bvh.SUPER}) "
+                             f"{'compact' if compact else 'dense'}: hits "
+                             f"{int((s_k[live] >= 0).sum())}")
+    say(f"[4] the sub-box form on partial supers, {n} rays, (t, slot) "
+        f"equal to the gated plain version's and the ungated kernel's on "
+        f"all {int(live.sum())} live rays: {'; '.join(lines)}  [{card}]")
+
+
+def subbox_turns(label: str, res: dict, card: str, parent=None) -> dict:
     """Phase 6 of a sub-box cell: its launches of one pass (the gated
     kernel) and the same launches without the gate (the ungated kernel),
     timed in turns (gated, ungated, ungated, gated; CUDA events, each the
     median of 5 batches), with every (t, slot) of the ungated replay the
-    gated one's; and what each walk did, from the counting instances: the
+    gated one's; with ``parent``, the same gated launches on the parent's
+    kernel in turns (parent, this, this, parent), every (t, slot) this
+    one's; and what each walk did, from the counting instances: the
     lane-slot MT tests (32 x warp-wide MT steps) and the sub-box tests
-    beside the ungated walk's."""
+    beside the ungated walk's, and the walk's SM cycles waiting for a
+    super's sub-box block and making its words."""
     gated = [(pp, oo) for pp, oo in res["recorded"]]
     plain = [(ungated(pp), (torch.empty_like(oo[0]), torch.empty_like(oo[1])))
              for pp, oo in gated]
-    run = lambda pairs: float(np.median(cuda_ms(
-        lambda: [bk.launch(q, o) for q, o in pairs], iters=2, repeats=5,
-        warmup=1)))
+    med = lambda fn: float(np.median(cuda_ms(fn, iters=2, repeats=5,
+                                             warmup=1)))
+    run = lambda pairs: med(lambda: [bk.launch(q, o) for q, o in pairs])
     turns = [run(gated), run(plain), run(plain), run(gated)]
     for (_, a), (_, b) in zip(plain, gated):
         if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
@@ -1091,20 +1167,42 @@ def subbox_turns(label: str, res: dict, card: str) -> dict:
     g_ms, u_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     out = dict(gated_ms=g_ms, ungated_ms=u_ms, turns_ms=turns,
                rows=gated[0][0].params.sub_rows)
+    parent_note = ""
+    if parent is not None:
+        got = [(torch.empty_like(oo[0]), torch.empty_like(oo[1]))
+               for _, oo in gated]
+        runs = [parent_launcher(parent, pp, g)
+                for (pp, _), g in zip(gated, got)]
+        run_p = lambda: med(lambda: [f() for f in runs])
+        p_turns = [run_p(), run(gated), run(gated), run_p()]
+        for (_, a), b in zip(gated, got):
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                fail(f"cell {label}: the parent's gated kernel and this one "
+                     "differ")
+        out["parent_ms"] = (p_turns[0] + p_turns[3]) / 2
+        out["parent_this_ms"] = (p_turns[1] + p_turns[2]) / 2
+        out["parent_turns_ms"] = p_turns
+        parent_note = (
+            f"; the parent's gated kernel on the same launches in turns "
+            f"(parent, this, this, parent: "
+            f"{', '.join(f'{t:.4f}' for t in p_turns)} ms): this / parent "
+            f"{out['parent_this_ms'] / out['parent_ms']:.3f}, results equal")
     for name, counts in (("gated", res["counts"]),
                          ("ungated", ungated_counts)):
         for key in ("pairs", "chunks", "slots", "mt_steps", "sub_tests",
                     "sub_skipped", "chunks_skipped", "split", "walk_cycles",
-                    "sub_cycles"):
+                    "sub_wait_cycles", "sub_word_cycles"):
             out[f"{name}_{key}"] = tot(counts, key)
         out[f"{name}_lane_slots"] = 32 * out[f"{name}_mt_steps"]
     div = gated[0][0].params.k // out["rows"]
+    share = lambda key: out[f"gated_{key}"] / max(out["gated_walk_cycles"], 1)
     say(f"[6] cell {label} sub-box form (div {div}) "
         f"against the ungated kernel on the same launches of one pass, in "
         f"turns (gated, ungated, ungated, gated: "
         f"{', '.join(f'{t:.4f}' for t in turns)} ms): gated {g_ms:.4f} ms, "
         f"ungated {u_ms:.4f} ms (gated / ungated {g_ms / u_ms:.3f}); "
-        f"results equal; lane-slot MT tests {out['gated_lane_slots']} "
+        f"results equal{parent_note}; lane-slot MT tests "
+        f"{out['gated_lane_slots']} "
         f"against {out['ungated_lane_slots']} ungated "
         f"({out['gated_lane_slots'] / max(out['ungated_lane_slots'], 1):.3f}"
         f"), sub-box slab tests {out['gated_sub_tests']}, clusters skipped "
@@ -1115,9 +1213,10 @@ def subbox_turns(label: str, res: dict, card: str) -> dict:
         f"against {out['ungated_split']}; the warps' walk SM cycles "
         f"{out['gated_walk_cycles']} against {out['ungated_walk_cycles']} "
         f"({out['gated_walk_cycles'] / max(out['ungated_walk_cycles'], 1):.3f}"
-        f"), of them in the sub-box words {out['gated_sub_cycles']} "
-        f"({out['gated_sub_cycles'] / max(out['gated_walk_cycles'], 1):.3f})"
-        f"  [{card}]")
+        f"), of them waiting for a super's sub-box block "
+        f"{out['gated_sub_wait_cycles']} ({share('sub_wait_cycles'):.3f}) "
+        f"and making its words {out['gated_sub_word_cycles']} "
+        f"({share('sub_word_cycles'):.3f})  [{card}]")
     return out
 
 
@@ -1628,63 +1727,22 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     return {k: v / 1e3 / reps for k, v in kernel_device_us(prof).items()}
 
 
-class BvhParamsV2(ctypes.Structure):
-    """BvhParams of the BVH kernel's C interface 2 (e112b9c to adb6b6e):
-    no sub_rows."""
-    _fields_ = bk.BvhParams._fields_[:-1]
-
-
-# srt_bvh_launch of interface 2: no sub-box table after the admission
-# boxes
-V2_BVH_ARGTYPES = ([ctypes.c_void_p] * (bk.LAUNCH_POINTERS - 1)
-                   + [BvhParamsV2, ctypes.c_void_p])
-
-
-def bind_parent_bvh(lib) -> None:
-    """A parent's BVH build bound to its C interface: this one (bk._bind),
-    or version 2, whose launch takes no sub-box table (its counting
-    instance is not bound: phase 6 launches the parent's route only)."""
-    if interface(lib, "srt_bvh_interface") != 2:
-        bk._bind(lib)           # refuses any version but this one
-        return
-    lib.srt_bvh_launch.argtypes = V2_BVH_ARGTYPES
-    lib.srt_bvh_launch.restype = ctypes.c_int
-    lib.srt_bvh_work_words.argtypes = [BvhParamsV2]
-    lib.srt_bvh_work_words.restype = ctypes.c_longlong
-
-
 def parent_bvh_kernel(parent: Path):
-    """The parent checkout's BVH kernel (bind_parent_bvh)."""
+    """The parent checkout's BVH kernel, bound to this C interface
+    (bk._bind refuses a build of any other)."""
     return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
-                     / "bvh_kernel.cu", bind_parent_bvh)
+                     / "bvh_kernel.cu", bk._bind)
 
 
 def parent_launcher(kernel, pp, out):
-    """A recorded BVH launch (of no sub-box gate) on the parent's kernel
-    into ``out``, as a callable: through bk.launch where the build has
-    this C interface, else by interface 2's arguments (the same pointers
-    without the sub-box table, and its parameters).  Its launches are
-    counted on the parent's kernel, never on the route's."""
+    """A recorded BVH launch on the parent's kernel into ``out``, as a
+    callable.  Its launches are counted on the parent's kernel, never on
+    the route's."""
     def run():
         with kernel_as(bk, kernel):
             bk.launch(pp, out)
 
-    def run_v2():
-        fn = kernel.library().srt_bvh_launch
-        ptrs = bk._args(pp, out)
-        del ptrs[8 + 7]            # the sub-box table (None here)
-        q = BvhParamsV2(*(getattr(pp.params, name)
-                          for name, _ in BvhParamsV2._fields_))
-        with torch.cuda.device(pp.device):
-            stream = torch.cuda.current_stream(pp.device).cuda_stream
-            kernel.check(fn(*ptrs, q, stream), "the parent's BVH kernel")
-
-    if pp.params.sub_rows:
-        fail("the parent's BVH kernel has no sub-box form")
-    if len(kernel.library().srt_bvh_launch.argtypes) == len(
-            bk.LAUNCH_ARGTYPES):
-        return run
-    return run_v2
+    return run
 
 
 def walk_launches(label: str, res: dict, clusters, table,
@@ -1932,6 +1990,24 @@ def bvh_registers(kernel) -> str:
     return "; ".join(out) or "no ptxas report"
 
 
+def walk_registers(kernel) -> dict:
+    """ptxas's registers of each instance of a build's walk, by form ("mt",
+    "plucker", "subbox", each also "/counting")."""
+    out, name = {}, None
+    for line in kernel.build_log.splitlines():
+        if "entry function" in line:
+            m = re.search(r"bvh_kernelILi\d+ELb([01])ELb([01])ELb([01])E",
+                          line)
+            name = None if m is None else (
+                ("plucker" if m.group(1) == "1" else
+                 "subbox" if m.group(2) == "1" else "mt")
+                + ("/counting" if m.group(3) == "1" else ""))
+        elif name is not None and "registers" in line:
+            out[name] = int(re.search(r"Used (\d+) registers",
+                                      line).group(1))
+    return out
+
+
 def walk_sweep(label: str, res: dict) -> dict:
     """The launches of a pass (two_level or flat) on each build of
     ``sweep_kernels`` and on the route's, in turns, twice: ms a pass, and
@@ -1990,63 +2066,32 @@ def shade_turns(preps, outs, parent) -> str:
             f"(parent / this {ratio:.3f}x), every output equal")
 
 
-# srt_trace_launch of the whole-trace kernel's C interface 1 (up to
-# e112b9c): this interface's pointers but the launch's path counter
-V1_TRACE_ARGTYPES = ([ctypes.c_void_p] * (tk.LAUNCH_POINTERS - 1)
-                     + [tk.TraceParams, ctypes.c_void_p])
-
-
-def bind_parent_trace(lib) -> None:
-    """A parent's whole-trace build bound to its C interface: this one
-    (tk._bind), or version 1, whose launch takes no path counter."""
-    if interface(lib, "srt_trace_interface") != 1:
-        tk._bind(lib)           # refuses any version but this one
-        return
-    lib.srt_trace_launch.argtypes = V1_TRACE_ARGTYPES
-    lib.srt_trace_launch.restype = ctypes.c_int
-
-
 def parent_trace_kernel(parent: Path):
-    """The parent checkout's whole-trace kernel (bind_parent_trace)."""
+    """The parent checkout's whole-trace kernel, bound to this C interface
+    (tk._bind refuses a build of any other)."""
     return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
-                     / "trace_kernel.cu", bind_parent_trace)
+                     / "trace_kernel.cu", tk._bind)
 
 
 def parent_trace_launch(kernel, prep, out) -> None:
     """A prepared pass on the parent's whole-trace kernel into ``out``
     (not counted as a launch of either build)."""
     fn = kernel.library().srt_trace_launch
+    counter = tk.next_path(prep)
     ptrs = [None if t is None else t.data_ptr()
-            for t in prep.tables + prep.tri_tables] + [out.data_ptr()]
-    if len(fn.argtypes) == len(tk.LAUNCH_ARGTYPES):
-        counter = tk.next_path(prep)
-        ptrs.append(None if counter is None else counter.data_ptr())
+            for t in prep.tables + prep.tri_tables] + [
+        out.data_ptr(), None if counter is None else counter.data_ptr()]
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
         kernel.check(fn(*ptrs, prep.params, stream), "the parent's trace "
                      "kernel")
 
 
-# srt_probe_launch of the probe kernel's C interface 1 (up to 6e3e0ec):
-# no timing instance's `cycles`
-V1_PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, probe.ProbeParams,
-                     ctypes.c_void_p]
-
-
-def bind_parent_probe(lib) -> None:
-    """A parent's probe build bound to its C interface: this one
-    (probe._bind), or version 1, whose launch takes no ``cycles``."""
-    if interface(lib, "srt_probe_interface") != 1:
-        probe._bind(lib)        # refuses any version but this one
-        return
-    lib.srt_probe_launch.argtypes = V1_PROBE_ARGTYPES
-    lib.srt_probe_launch.restype = ctypes.c_int
-
-
 def parent_probe_kernel(parent: Path):
-    """The parent checkout's probe kernel (bind_parent_probe)."""
+    """The parent checkout's probe kernel, bound to this C interface
+    (probe._bind refuses a build of any other)."""
     return build.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
-                        / "probe_kernel.cu", bind_parent_probe)
+                        / "probe_kernel.cu", probe._bind)
 
 
 def raw_probe_launch(kernel, name: str, x, out) -> None:
@@ -2054,9 +2099,7 @@ def raw_probe_launch(kernel, name: str, x, out) -> None:
     one) into ``out`` through its C interface alone: the same host path
     for either build, not counted as a launch of either."""
     fn = kernel.library().srt_probe_launch
-    ptrs = [x.data_ptr(), out.data_ptr()]
-    if len(fn.argtypes) == len(probe.LAUNCH_ARGTYPES):
-        ptrs.append(None)
+    ptrs = [x.data_ptr(), out.data_ptr(), None]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     kernel.check(fn(*ptrs, probe.ProbeParams(probe.ROWS, probe.COLS,
                                              probe.PROBES[name][0]),
@@ -3302,11 +3345,11 @@ def parse_args(argv):
     ap.add_argument(
         "--parent", type=Path, default=None,
         help="a checkout of an earlier commit of this repository, from "
-             "e112b9c on: its BVH kernel (simple_raytracer_tpu_torch/csrc/"
+             "e9ce31e on: its BVH kernel (simple_raytracer_tpu_torch/csrc/"
              "bvh_kernel.cu), its whole-trace kernel (trace_kernel.cu), "
              "its shade kernel (bounce_kernel.cu) and its probe kernel "
-             "(probe_kernel.cu), each with this C interface or one it "
-             "binds, are built beside this one's, and phase 6 times every "
+             "(probe_kernel.cu), each with this C interface, are built "
+             "beside this one's, and phase 6 times every "
              "BVH launch, the pass of every whole-trace cell, 7/fused's "
              "shade launches and the probes on them too, in turns")
     return ap.parse_args(argv)
@@ -3346,6 +3389,15 @@ def main(argv=None) -> int:
         f"{accel.HOST.build_seconds:.2f} s ({accel.HOST.compiler()} "
         f"{' '.join(accel.HOST.flags)}; the BVH build, the STL parse)"
         + f"; ptxas: {ptxas}")
+    if parent is not None:
+        regs, regs_p = walk_registers(bk.KERNEL), walk_registers(parent)
+        same = all(regs.get(k) == regs_p.get(k) for k in regs
+                   if not k.startswith("subbox"))
+        say(f"[2] the BVH walk's registers a thread (ptxas), this build / "
+            f"the parent's: "
+            + ", ".join(f"{k} {v} / {regs_p.get(k)}"
+                        for k, v in sorted(regs.items()))
+            + f"; the ungated instances the parent's: {same}")
     say(f"[2] triangle kernel {trk.SHAPE[0]}x{trk.SHAPE[1]}, the fast path "
         f"of one triangle (cuobjdump): {triangle_sass()}")
     say(f"[2] whole-trace kernel (cuobjdump): {trace_sass()}")
@@ -3583,6 +3635,8 @@ def main(argv=None) -> int:
                    counts=counts)
         if label in SUBBOX:
             subbox_checks(label, r, camera, rec.bvh, cl, table, card)
+            if label == PARTIAL_CELL:
+                partial_super_check(card)
         shade_ok = True
         if label in FUSED:
             differ, s_abs, s_work, s_plain, s_lines = check_shade_launches(
@@ -3824,7 +3878,7 @@ def main(argv=None) -> int:
                          f"per launch {[w[5] for w in res['work']]}, "
                          f"{roots} root boxes")
             if label in SUBBOX:
-                walk_cells[label] = subbox_turns(label, res, card)
+                walk_cells[label] = subbox_turns(label, res, card, parent)
             else:
                 walk_cells[label] = walk_launches(label, res, cl,
                                                   ds.triangles.table, parent)

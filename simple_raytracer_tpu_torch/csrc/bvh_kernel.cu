@@ -35,22 +35,35 @@
 // _mt_gated_sub, SRT_BVH_SUBBOX, MT form only): the per-cluster table of
 // sub-boxes (ops/bvh.py: coarsen_sub_aabb, 8 rows of 32 bytes a cluster,
 // its first div = k / sub_rows the boxes of slot ranges [j * sub_rows,
-// (j + 1) * sub_rows)) adds a fourth gate inside the cluster.  When the
-// walk finds a cluster, each lane that admits it slabs the cluster's div
-// sub-boxes with its own ray and its best t of that moment and keeps a
-// div-bit word (sub_word); the sub-box rows are read with __ldg where the
-// cluster is found, not staged with its chunk, because the words decide
-// which chunks are copied at all (a cluster no lane's word wants is never
-// copied, nor a chunk of it without a wanted range) and the whole table
-// (config 6: 197 KB, config 7: 2.9 MB) stays in L2.  At a chunk's turn a
-// lane runs MT only if its word wants a range of the chunk, and only over
-// the slots of its ranges: each admitting lane over the ranges some
-// admitting lane wants, or, split pair by pair, each admitting ray's
-// wanted slots 32 at a time (its word shuffled with the ray).  The TPU
-// ORs a sub-box's slab over a 128-ray sub-block; here each ray keeps its
-// own, as it does every other gate.  kFlat (_kernel) has no sub-box form.
-// The form is off by default, as in the JAX package; PERF.md section 6
-// holds its times against the ungated walk's.
+// (j + 1) * sub_rows)) adds a fourth gate inside the cluster.  The words
+// decide which chunks are copied at all (a cluster no lane's word wants is
+// never copied, nor a chunk of it without a wanted range), so they must
+// be known before a cluster's first copy; made one cluster at a time where
+// the walk finds it, from __ldg loads, they put a dependent trip to L2 and
+// eight slab tests between finding each cluster and issuing its copy
+// (PERF.md section 6).  So they are made a super at a time
+// (super_words): when the walk takes a super, one lane issues one 1-D
+// bulk copy of its 16 clusters' sub-box rows (4 KB, contiguous in the
+// table; the last super's copy clamped to the table's end) into the
+// warp's own shared buffer, on an mbarrier of its own, and the copy runs
+// under the slab tests of the super's 16 cluster boxes.  Then each lane
+// slabs the div sub-boxes of every cluster it admits, from shared memory,
+// with its best t of that moment (at least its t when the cluster is
+// found later, so the gate admits at least what a word made there would),
+// and keeps the words 8 bits a cluster in four 32-bit registers, with the
+// warp's union per cluster beside them; clusters no lane wants leave the
+// walk there.  Finding a cluster then reads its word, its skip and its
+// chunks' skips from registers: no load stands before its copy.  The
+// buffer's phase follows the supers taken; a super whose clusters no lane
+// admits leaves its copy to be waited for before the next one.  At a
+// chunk's turn a lane runs MT only if its word wants a range of the
+// chunk, and only over the slots of its ranges: each admitting lane over
+// the ranges some admitting lane wants, or, split pair by pair, each
+// admitting ray's wanted slots 32 at a time (its word shuffled with the
+// ray).  The TPU ORs a sub-box's slab over a 128-ray sub-block; here each
+// ray keeps its own, as it does every other gate.  kFlat (_kernel) has no
+// sub-box form.  The form is off by default, as in the JAX package;
+// PERF.md section 6 holds its times against the ungated walk's.
 // For each ray in its list it finds the nearest triangle strictly closer
 // than the ray's t_init and writes (t, table slot), or (+inf, -1) when none
 // is; a dead ray (alive == 0) is a miss.  Shading is not here: the
@@ -124,7 +137,8 @@
 //     key, which the ray's lane commits.  When more lanes admit, each
 //     admitting lane tests every slot, all reading one address.
 // Shared memory of the ring: 2 buffers x kChunk slots x 48 (80) bytes a
-// warp, 24 KB (40 KB) a block of 4 warps in the MT (Plucker) form.
+// warp, 24 KB (40 KB) a block of 4 warps in the MT (Plucker) form, and in
+// the sub-box form a 4 KB super block a warp more, 40 KB.
 //
 // Bound on the H100 (chip_smoke.py): counted from what a launch's walked
 // rays open, the clusters whose box they may meet before their result t:
@@ -232,10 +246,11 @@ enum Count {
   kCountBoxTests,      // slab tests of walking lanes (each box whose parent
                        // the lane admitted, and each chunk's re-test)
   kCountSubTests,      // sub-box slab tests of lanes admitting a cluster
-  kCountSubSkipped,    // clusters found that no lane's sub-box word wanted
+  kCountSubSkipped,    // clusters admitted that no lane's sub-box word wanted
   kCountChunksSkipped, // chunks of found clusters that held no wanted range
   kCountWalkCycles,    // SM cycles of the warp's walk (clock64, each warp)
-  kCountSubCycles,     // of them, in the sub-box words (loads, slabs, vote)
+  kCountSubWaitCycles, // of them, waiting for a super's sub-box block
+  kCountSubWordCycles, // and making a super's words (slabs, packing, votes)
   kCountHist,          // visits by admitting lanes: 1, 2, 3-4, 5-8,
                        // 9-16, 17-24, 25-31, 32
   kCounters = kCountHist + 8
@@ -622,8 +637,14 @@ struct Walk {
   unsigned s_mask = 0, s_any = 0;
   int s = 0;
   unsigned c_mask = 0, c_any = 0;
-  unsigned sub_any = 0;   // the sub-box form: the warp's union of the
-                          // current cluster's words
+  // the sub-box form: the current super's words, 8 bits a cluster (bits
+  // 8 * (i % 4) of word i / 4 for cluster i), this lane's and the warp's
+  // union; the union of the current cluster's word; the super block
+  // barrier's next parity and whether a copy on it is not yet waited for
+  unsigned sub_w[4] = {}, sub_u[4] = {};
+  unsigned sub_any = 0;
+  uint32_t sub_parity = 0;
+  bool sub_pending = false;
 };
 
 // one staged chunk: slots [base, base + kChunk) of cluster c (padded
@@ -646,25 +667,101 @@ __device__ __forceinline__ unsigned chunk_ranges(int base, int n, int rows) {
   return ((2u << hi) - 1u) & ~((1u << lo) - 1u);
 }
 
-// the lane's sub-box word of cluster c: bit j when the ray may meet
-// sub-box j (of div, each a row of 8 floats: lo, hi, 0, 0; 8 rows a
-// cluster) before t_far (_subbox_word's slab, for this ray alone); all
-// loads issued together
-__device__ __forceinline__ unsigned sub_word(const float* __restrict__ sub,
-                                             int c, int div, const Ray& r,
-                                             float t_far) {
-  const float4* b4 = reinterpret_cast<const float4*>(sub) + (size_t)c * 16;
-  unsigned m = 0;
+// the sub-box form: a cluster's rows in the sub-box table (8 rows of 8
+// floats: lo, hi, 0, 0), in float4s, and a super's block of them
+constexpr int kSubClusterF4 = 16;
+constexpr int kSubBlockF4 = kSuper * kSubClusterF4;   // 4 KB
+
+// byte i of the packed words v (cluster i of the super)
+__device__ __forceinline__ unsigned word_of(const unsigned (&v)[4], int i) {
+  const unsigned x = i < 8 ? (i < 4 ? v[0] : v[1]) : (i < 12 ? v[2] : v[3]);
+  return (x >> (8 * (i & 3))) & 0xffu;
+}
+
+// The first cluster of super s's sub-box block and its clusters: the
+// super's 16, clamped to the table's end (a super past it, whose sentinel
+// boxes only a NaN ray admits, copies the last cluster's rows), so the
+// block's cluster i is min(s * 16 + i, n_clusters - 1) - first, the
+// cluster the walk stages for it
+__device__ __forceinline__ int2 sub_block(int s, int n_clusters) {
+  const int first = min(s * kSuper, n_clusters - 1);
+  return make_int2(first, min(kSuper, n_clusters - first));
+}
+
+// One lane issues the copy of super s's sub-box block into the warp's
+// buffer (after waiting for a copy of an earlier super never waited for:
+// every lane is done with the buffer).  Called by the whole warp.
+__device__ __forceinline__ void issue_sub_block(
+    Walk& w, const float* __restrict__ subboxes, int s, const BvhParams& p,
+    float4* __restrict__ s_sub, uint64_t* __restrict__ bar) {
+  if (w.sub_pending) {
+    bar_wait(bar, w.sub_parity);
+    w.sub_parity ^= 1u;
+  }
+  const int2 blk = sub_block(s, p.n_clusters);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    bulk_load(s_sub,
+              reinterpret_cast<const float4*>(subboxes)
+                  + (size_t)blk.x * kSubClusterF4,
+              static_cast<uint32_t>(blk.y * kSubClusterF4 * 16), bar);
+  w.sub_pending = true;
+}
+
+// The words of super s's admitted clusters (w.c_any), as one batch from
+// its block in shared memory: for each cluster the lane admits (w.c_mask),
+// bit j when the ray may meet sub-box j (of div) before t_far
+// (_subbox_word's slab, for this ray alone); the warp's union per
+// cluster; the clusters no lane wants taken out of w.c_any.  Called by the
+// whole warp once the block has landed.
+template <bool COUNT>
+__device__ __forceinline__ void super_words(Walk& w, int s, int div,
+                                            const float4* __restrict__ s_sub,
+                                            const Ray& r, float t_far,
+                                            const BvhParams& p,
+                                            WarpCounts<COUNT>& cnt) {
+  const int first = sub_block(s, p.n_clusters).x;
+  // clusters 0-7 and 8-15, 8 bits each
+  unsigned long long lo = 0ull, hi = 0ull;
+  for (unsigned m = w.c_any; m; m &= m - 1) {
+    const int i = __ffs(m) - 1;
+    if ((w.c_mask >> i) & 1u) {
+      const float4* b4 =
+          s_sub + (min(s * kSuper + i, p.n_clusters - 1) - first)
+                      * kSubClusterF4;
+      unsigned bits = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (j < div) {
-      const float4 lo = __ldg(b4 + 2 * j);       // lo.xyz, hi.x
-      const float4 hi = __ldg(b4 + 2 * j + 1);   // hi.yz, 0, 0
-      m |= (unsigned)slab6(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, t_far)
-           << j;
+      for (int j = 0; j < 8; ++j) {
+        if (j < div) {
+          const float4 a = b4[2 * j];       // lo.xyz, hi.x
+          const float4 b = b4[2 * j + 1];   // hi.yz, 0, 0
+          bits |= (unsigned)slab6(a.x, a.y, a.z, a.w, b.x, b.y, r, t_far)
+                  << j;
+        }
+      }
+      const unsigned long long sh = (unsigned long long)bits << (8 * (i & 7));
+      if (i < 8)
+        lo |= sh;
+      else
+        hi |= sh;
     }
   }
-  return m;
+  w.sub_w[0] = (unsigned)lo;
+  w.sub_w[1] = (unsigned)(lo >> 32);
+  w.sub_w[2] = (unsigned)hi;
+  w.sub_w[3] = (unsigned)(hi >> 32);
+  unsigned wanted = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    w.sub_u[q] = __reduce_or_sync(kAll, w.sub_w[q]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wanted |= (unsigned)(((w.sub_u[q] >> (8 * k)) & 0xffu) != 0u)
+                << (4 * q + k);
+  }
+  cnt.add_lanes(kCountSubTests, __popc(w.c_mask) * div);
+  cnt.add(kCountSubSkipped, __popc(w.c_any & ~wanted));
+  w.c_any &= wanted;
 }
 
 // Does the sub-box form skip the chunk at base (no lane wants a range of
@@ -682,17 +779,19 @@ __device__ __forceinline__ bool skip_chunk(const Walk& w, int base,
 // supers; a super's 16 clusters), each against the lane's best t then: a
 // t can only fall, so that admits at least what gating each box at its
 // turn would, and the chunk's own turn tests its cluster's box again.
-// The sub-box form slabs a found cluster's sub-boxes there too (the
-// lanes that admit it, with their best t then), skips the cluster when
-// no lane's word is set and each chunk of it that holds no range some
-// lane wants.  Called by the whole warp (control flow is warp-uniform);
-// false at the end of the walk.
+// The sub-box form copies a super's sub-box block when it takes the
+// super, under the slab tests of its cluster boxes, and makes the words of
+// every cluster some lane admits there (super_words, with the lanes' best
+// t then); a found cluster takes its word from them, and each chunk of it
+// that holds no range some lane wants is skipped.  Called by the whole
+// warp (control flow is warp-uniform); false at the end of the walk.
 template <bool SUBBOX, bool COUNT>
 __device__ __forceinline__ bool next_item(
     Walk& w, Item& it, const float* __restrict__ boxes,
     const float* __restrict__ supers, const float* __restrict__ groups,
     const float* __restrict__ subboxes, const int32_t* __restrict__ order,
     bool listed, const Ray& r, float best_t, const BvhParams& p,
+    float4* __restrict__ s_sub, uint64_t* __restrict__ sub_bar,
     WarpCounts<COUNT>& cnt) {
   if constexpr (SUBBOX) {
     if (it.c >= 0) {
@@ -718,19 +817,11 @@ __device__ __forceinline__ bool next_item(
       it.base = 0;
       it.ok = (w.c_mask >> i) & 1u;
       if constexpr (SUBBOX) {
+        // its word and the warp's union, made when the walk took the
+        // super (some lane wants a range: the others left c_any there)
         it.first = true;
-        const int div = p.k / p.sub_rows;
-        const long long t0 = COUNT ? clock64() : 0;
-        it.word = it.ok ? sub_word(subboxes, min(it.c, p.n_clusters - 1),
-                                   div, r, best_t)
-                        : 0u;
-        w.sub_any = __reduce_or_sync(kAll, it.word);
-        if constexpr (COUNT) cnt.add(kCountSubCycles, clock64() - t0);
-        cnt.add_lanes(kCountSubTests, it.ok ? div : 0);
-        if (!w.sub_any) {
-          cnt.add(kCountSubSkipped, 1);
-          continue;
-        }
+        it.word = word_of(w.sub_w, i);
+        w.sub_any = word_of(w.sub_u, i);
         while (skip_chunk(w, it.base, p)) {
           cnt.add(kCountChunksSkipped, 1);
           it.base += kChunk;
@@ -742,12 +833,29 @@ __device__ __forceinline__ bool next_item(
       const int i = __ffs(w.s_any) - 1;
       w.s_any &= w.s_any - 1;
       w.s = w.g * kGroup + i;
+      if constexpr (SUBBOX)
+        issue_sub_block(w, subboxes, w.s, p, s_sub, sub_bar);
       w.c_mask = (w.s_mask >> i) & 1u
                  ? slab_mask<kSuper>(boxes + 8 * kSuper * w.s, r, best_t)
                  : 0u;
       w.c_any = __reduce_or_sync(kAll, w.c_mask);
       cnt.add(kCountClusterTests, kSuper);
       cnt.add_lanes(kCountBoxTests, (w.s_mask >> i) & 1u ? kSuper : 0u);
+      if constexpr (SUBBOX) {
+        if (w.c_any) {
+          const long long t0 = COUNT ? clock64() : 0;
+          bar_wait(sub_bar, w.sub_parity);
+          w.sub_parity ^= 1u;
+          w.sub_pending = false;
+          const long long t1 = COUNT ? clock64() : 0;
+          super_words<COUNT>(w, w.s, p.k / p.sub_rows, s_sub, r, best_t, p,
+                             cnt);
+          if constexpr (COUNT) {
+            cnt.add(kCountSubWaitCycles, t1 - t0);
+            cnt.add(kCountSubWordCycles, clock64() - t1);
+          }
+        }
+      }
       continue;
     }
     if (w.g_any) {
@@ -763,7 +871,12 @@ __device__ __forceinline__ bool next_item(
       continue;
     }
     w.j0 += kBatch;
-    if (w.j0 >= p.n_order) return false;
+    if (w.j0 >= p.n_order) {
+      // no copy may still be in flight when the warp is done
+      if constexpr (SUBBOX)
+        if (w.sub_pending) bar_wait(sub_bar, w.sub_parity);
+      return false;
+    }
     const int n = min(kBatch, p.n_order - w.j0);
     w.g_mask = 0;
     if (listed) {
@@ -950,8 +1063,9 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
 // its turn each lane tests the cluster's box again with its t then, and
 // the lanes that still admit it (in the sub-box form: and whose word wants
 // a range of the chunk) run MT (mt_chunk).  Each ray's gates and commits
-// are the plain version's, so it writes the same result.  Called by the
-// whole warp (control flow is warp-uniform).
+// are the plain version's, so it writes the same result.  The sub-box
+// form's super blocks go to s_sub on s_bar[kStages].  Called by the whole
+// warp (control flow is warp-uniform).
 template <bool PLUCKER, bool SUBBOX, bool COUNT>
 __device__ __forceinline__ void warp_walk(
     const float4* __restrict__ rows, const int32_t* __restrict__ gidx,
@@ -959,7 +1073,8 @@ __device__ __forceinline__ void warp_walk(
     const float* __restrict__ groups, const float* __restrict__ subboxes,
     const int32_t* __restrict__ order, bool listed, const Ray& r,
     Best& best, const BvhParams& p, float4* __restrict__ s_buf,
-    uint64_t* __restrict__ s_bar, unsigned long long* counters) {
+    uint64_t* __restrict__ s_bar, float4* __restrict__ s_sub,
+    unsigned long long* counters) {
   constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
   WarpCounts<COUNT> cnt;
   const long long t_walk = COUNT ? clock64() : 0;
@@ -979,7 +1094,8 @@ __device__ __forceinline__ void warp_walk(
   // last cluster again changes nothing)
   auto stage_next = [&]() {
     more = next_item<SUBBOX, COUNT>(w, last, boxes, supers, groups, subboxes,
-                                    order, listed, r, best.t, p, cnt);
+                                    order, listed, r, best.t, p, s_sub,
+                                    s_bar + kStages, cnt);
     if (!more) return;
 #pragma unroll
     for (int i = 0; i < kStages; ++i)
@@ -1051,12 +1167,13 @@ bvh_kernel(const RayIn in, const float4* __restrict__ staged,
            int32_t* __restrict__ slot_out, const BvhParams p,
            unsigned long long* __restrict__ counters) {
   extern __shared__ __align__(128) float4 s_dyn[];
-  __shared__ __align__(8) uint64_t s_bar[kWarps][kStages];
+  // each warp's ring barriers, and in the sub-box form its super block's
+  constexpr int kBars = kStages + (SUBBOX ? 1 : 0);
+  __shared__ __align__(8) uint64_t s_bar[kWarps][kBars];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < p.n_rays;
   // every lane of the block stays to the end: the walk is the warp's
-  if (threadIdx.x < kWarps * kStages)
-    bar_init(&s_bar[0][0] + threadIdx.x);
+  if (threadIdx.x < kWarps * kBars) bar_init(&s_bar[0][0] + threadIdx.x);
   bar_init_fence();
   __syncthreads();
   const int ray = !in_range ? 0 : (perm != nullptr ? perm[i] : i);
@@ -1089,19 +1206,22 @@ bvh_kernel(const RayIn in, const float4* __restrict__ staged,
     warp_walk<PLUCKER, SUBBOX, COUNT>(
         PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
         boxes, supers, groups, subboxes, order, listed, r, best, p,
-        s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp], counters);
+        s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp],
+        s_dyn + kWarps * kStages * kChunk * kRowF4 + warp * kSubBlockF4,
+        counters);
   if (!in_range) return;
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
   slot_out[ray] = best.idx < 0 ? -1 : best.slot;
 }
 
 // the dynamic shared memory a block of the warp walk takes: each warp's
-// ring of buffers (the route's fit, with the mbarriers, the 48 KB a launch
-// may take without opting in; a larger ring of the sweep opts in)
-template <bool PLUCKER>
+// ring of buffers, then in the sub-box form each warp's super block (the
+// route's fit, with the mbarriers, the 48 KB a launch may take without
+// opting in; a larger ring of the sweep opts in)
+template <bool PLUCKER, bool SUBBOX>
 constexpr int walk_smem() {
-  return kWarps * kStages * kChunk * (PLUCKER ? kPluckerRowF4 : kMtRowF4)
-         * 16;
+  return (kWarps * kStages * kChunk * (PLUCKER ? kPluckerRowF4 : kMtRowF4)
+          + (SUBBOX ? kWarps * kSubBlockF4 : 0)) * 16;
 }
 
 // the work scratch's int32 words: partial sums, the two visiting orders,
@@ -1170,8 +1290,8 @@ int launch_bvh(const RayIn& in, const float* staged,
   const float4* st4 = reinterpret_cast<const float4*>(staged);
 #define SRT_BVH_LAUNCH(VARIANT, PLUCKER, SUBBOX, COUNT)                      \
   do {                                                                       \
-    constexpr int smem = walk_smem<PLUCKER>();                               \
-    if (smem + kWarps * kStages * 8 > 48 * 1024) {                           \
+    constexpr int smem = walk_smem<PLUCKER, SUBBOX>();                       \
+    if (smem + kWarps * (kStages + SUBBOX) * 8 > 48 * 1024) {                \
       const cudaError_t e = cudaFuncSetAttribute(                            \
           bvh_kernel<VARIANT, PLUCKER, SUBBOX, COUNT>,                       \
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);                \

@@ -19,10 +19,12 @@ when few of them admit a cluster.  Its plain PyTorch version is
 Under ``SRT_BVH_SUBBOX`` (2, 4 or 8) the ``two_level`` and ``streamed``
 variants take the sub-box form (``_subbox_word`` and ``_mt_gated_sub``,
 the JAX package's fourth culling level) where ``ops/bvh._sub_box_rows``
-allows it: a lane that admits a cluster slabs its ``div`` sub-boxes
-(``Clusters.sub_aabb`` coarsened by ``ops/bvh.coarsen_sub_aabb``) and
-runs MT only over the slot ranges it meets; a launch in that form is
-counted as "<variant>/subbox".  ``flat`` never gates sub-boxes.
+allows it: when the walk takes a super, its 16 clusters' rows of the
+sub-box table (``Clusters.sub_aabb`` coarsened by
+``ops/bvh.coarsen_sub_aabb``, 4 KB a super) come in one bulk copy, and
+each lane slabs the ``div`` sub-boxes of every cluster of it that it
+admits, then runs MT only over the slot ranges it meets; a launch in that
+form is counted as "<variant>/subbox".  ``flat`` never gates sub-boxes.
 
 Under ``SRT_BVH_MT=plucker`` the ``two_level`` and ``streamed`` variants
 take the Plucker form of Moller-Trumbore (``_mt_update_sub_mxu`` and
@@ -91,7 +93,7 @@ COUNT_ARGTYPES = ([ctypes.c_void_p] * (LAUNCH_POINTERS + 1)
 COUNTERS = ("walked", "stagings", "chunks", "slots", "pairs", "mt_steps",
             "group_tests", "super_tests", "cluster_tests", "split", "wasted",
             "warps", "box_tests", "sub_tests", "sub_skipped", "chunks_skipped",
-            "walk_cycles", "sub_cycles")
+            "walk_cycles", "sub_wait_cycles", "sub_word_cycles")
 HIST_BINS = ("1", "2", "3-4", "5-8", "9-16", "17-24", "25-31", "32")
 
 

@@ -323,9 +323,9 @@ def test_bvh_launch_takes_no_slot_table():
     (staged, coeffs, gidx, boxes, supers, groups, admission, subboxes),
     then the work scratch, the compaction's order and count and the
     outputs: no variant reads the slot table, so it is not passed.
-    chip_smoke.py binds a parent's build to this interface (bk._bind) or
-    to interface 2 (the same pointers without the sub-box table) and
-    refuses version 1, the one that took the slot table."""
+    chip_smoke.py binds a parent's build to this interface (bk._bind),
+    binding every entry point, and refuses any other version: 1, the one
+    that took the slot table, and 2, the one without the sub-box table."""
     src = Path(bk.SOURCE).read_text()
     sig = re.search(r"int srt_bvh_launch\((.*?)\)", src, re.S).group(1)
     assert re.findall(r"\*\s*(\w+)", sig)[8:] == [
@@ -338,14 +338,17 @@ def test_bvh_launch_takes_no_slot_table():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     parent = smoke.parent_bvh_kernel(Path("parent"))
-    assert parent._bind is smoke.bind_parent_bvh
-    with pytest.raises(RuntimeError, match="interface 1, want 3"):
-        parent._bind(types.SimpleNamespace(srt_bvh_interface=lambda: 1))
-    fn = types.SimpleNamespace()
-    lib = types.SimpleNamespace(srt_bvh_interface=lambda: 2,
-                                srt_bvh_launch=fn,
-                                srt_bvh_work_words=types.SimpleNamespace())
+    assert parent._bind is bk._bind
+    for old in (1, 2):
+        with pytest.raises(RuntimeError, match=f"interface {old}, want 3"):
+            parent._bind(types.SimpleNamespace(
+                srt_bvh_interface=lambda: old))
+    fn = lambda: types.SimpleNamespace()
+    lib = types.SimpleNamespace(srt_bvh_interface=lambda: bk.INTERFACE,
+                                srt_bvh_launch=fn(),
+                                srt_bvh_count_launch=fn(),
+                                srt_bvh_work_words=fn())
     parent._bind(lib)
-    assert len(fn.argtypes) == len(bk.LAUNCH_ARGTYPES) - 1
-    assert [f for f, _ in smoke.BvhParamsV2._fields_] == [
-        f for f, _ in bk.BvhParams._fields_ if f != "sub_rows"]
+    assert lib.srt_bvh_launch.argtypes == bk.LAUNCH_ARGTYPES
+    assert lib.srt_bvh_count_launch.argtypes == bk.COUNT_ARGTYPES
+    assert not hasattr(smoke, "BvhParamsV2")

@@ -19,10 +19,13 @@ Here, with exact equality unless a test says otherwise:
   at div 2, 4 and 8 (and at K = 64 and K = 192, whose 24-slot ranges
   straddle the walk's 64-slot chunks);
 - the warp walk's sub-box form, transcribed (``warp_walk_emulation``
-  with ``sub``: each admitting lane slabs the cluster's sub-boxes when
-  the walk finds it, the chunks no lane wants skipped, MT only over the
-  lane's ranges), gives the gated plain version's (t, slot) on config 6's
-  hierarchy;
+  with ``sub``: when the walk takes a super, its sub-box block is copied
+  and each lane's words of the clusters it admits made as one batch, the
+  clusters and chunks no lane wants skipped, MT only over the lane's
+  ranges), gives the gated plain version's (t, slot) on config 6's
+  hierarchy, and on the icosphere's, whose cluster count is not a
+  multiple of 16 (K = 64 and 192), with fewer lane-slot MT tests than the
+  ungated walk;
 - a whole pass under SRT_BVH_SUBBOX=8 keeps to the JAX package's within
   the golden bound (RMSE < 2e-3) and equals the port's ungated pass;
 - a bad value raises the JAX package's error, and ``_sub_box_rows`` and
@@ -341,6 +344,58 @@ def test_warp_walk_sub_box_form_matches_plain(config6, div, split_max):
     assert int((s_p >= 0).sum()) > 100
     assert cnt["sub_tests"] > 0 and cnt["chunks_skipped"] > 0
     assert cnt["lane_slots"] < cnt_u["lane_slots"]
+
+
+def _ico_walk(k, div, seed, nan_every=0):
+    """The warp walk transcribed, gated at ``div`` and ungated, and the
+    gated plain version, on the icosphere clustered at K = k (its cluster
+    count not a multiple of 16: the last super's sub-box block is cut at
+    the table's end) and 640 rays of ``_ray_set``; with ``nan_every``,
+    every such ray live with a NaN direction, which admits every box, the
+    sentinel ones of the supers past the table too (their block: the last
+    cluster's rows)."""
+    _, ts = _jax_scene(k)
+    cl, table = ts.triangles.clusters, ts.triangles.table
+    assert cl.slots.shape[0] % bvh.SUPER != 0
+    o, d, alive, t_init = _ray_set(640, seed)
+    if nan_every:
+        d[::nan_every] = np.nan
+        alive[::nan_every] = 1.0
+    rays = (tvec(o), tvec(d), torch.from_numpy(alive),
+            torch.from_numpy(t_init))
+    sub = (bvh.coarsen_sub_aabb(cl.sub_aabb, div), k // div)
+    gated = warp_walk_emulation(*rays, cl, table, sub=sub)
+    ungated = warp_walk_emulation(*rays, cl, table)
+    plain = bvh.intersect_triangles_bvh_plain(*rays, cl, table, "mt",
+                                              cl.sub_aabb, div)
+    return gated, ungated, plain
+
+
+@pytest.mark.parametrize("k", [64, 192])
+def test_warp_walk_sub_box_partial_super(k):
+    """The super-at-a-time words on a hierarchy whose cluster count is not
+    a multiple of 16 (the last super's block clamped to the table's end),
+    at K = 64 and at K = 192 (24-slot ranges across the 64-slot chunks),
+    with NaN rays that walk the supers past the table: the gated plain
+    version's (t, slot) bit for bit, and the ungated walk's."""
+    ((t_g, s_g), cnt), ((t_u, s_u), _), (t_p, s_p) = _ico_walk(k, 8, k, 160)
+    assert torch.equal(s_g, s_p) and torch.equal(t_g, t_p)
+    assert torch.equal(s_u, s_p) and torch.equal(t_u, t_p)
+    assert int((s_p >= 0).sum()) > 100
+    assert cnt["sub_tests"] > 0
+
+
+@pytest.mark.parametrize("div", [2, 4, 8])
+def test_warp_walk_sub_box_lane_slots_below_ungated(div):
+    """The batch's words, though made with the t of the super's entry
+    (at least the t when each cluster is found), still cut MT: on the K =
+    64 icosphere at each division the gated walk slabs div sub-boxes for
+    each admitting lane, issues fewer lane-slot MT tests than the ungated
+    walk, and gives the gated plain version's (t, slot)."""
+    ((t_g, s_g), cnt), ((_, _), cnt_u), (t_p, s_p) = _ico_walk(64, div, 7)
+    assert torch.equal(s_g, s_p) and torch.equal(t_g, t_p)
+    assert cnt["sub_tests"] > 0 and cnt["sub_tests"] % div == 0
+    assert 0 < cnt["lane_slots"] < cnt_u["lane_slots"]
 
 
 def test_whole_pass_matches_jax_and_ungated(monkeypatch):

@@ -351,17 +351,19 @@ def test_each_persistent_launch_owns_its_counter():
 
 
 def test_parent_trace_build_binds_its_interface():
-    """chip_smoke.py --parent binds a parent's whole-trace build to the C
-    interface it reports: this one through tk._bind, or version 1 (before
-    the launch's own path counter: its launch takes one pointer fewer);
-    any other version is refused."""
+    """chip_smoke.py --parent binds a parent's whole-trace build to this C
+    interface through tk._bind, and its probe build through probe._bind;
+    any other version is refused, 1 too (before the launch's own path
+    counter, or the probes' timing instance)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.parent_trace_kernel(Path("parent"))._bind is (
-        smoke.bind_parent_trace)
+    from simple_raytracer_tpu_torch.scripts import probe_kernel_ops as probe
+    bind = smoke.parent_trace_kernel(Path("parent"))._bind
+    assert bind is tk._bind
+    assert smoke.parent_probe_kernel(Path("parent"))._bind is probe._bind
     fn = lambda: types.SimpleNamespace(argtypes=None, restype=None)
 
     def lib(version):
@@ -369,13 +371,15 @@ def test_parent_trace_build_binds_its_interface():
             srt_trace_interface=lambda: version, srt_trace_launch=fn(),
             srt_trace_count_launch=fn(), srt_shared_optin=fn())
 
-    old, new = lib(1), lib(tk.INTERFACE)
-    smoke.bind_parent_trace(old)
-    smoke.bind_parent_trace(new)
+    new = lib(tk.INTERFACE)
+    bind(new)
     assert tk.INTERFACE == 2
-    assert (len(old.srt_trace_launch.argtypes) + 1
-            == len(new.srt_trace_launch.argtypes) == len(tk.LAUNCH_ARGTYPES))
-    assert old.srt_trace_launch.argtypes[-2:] == [tk.TraceParams,
+    assert new.srt_trace_launch.argtypes == tk.LAUNCH_ARGTYPES
+    assert new.srt_trace_launch.argtypes[-2:] == [tk.TraceParams,
                                                   ctypes.c_void_p]
-    with pytest.raises(RuntimeError, match="interface 3, want 2"):
-        smoke.bind_parent_trace(lib(3))
+    for version in (1, 3):
+        with pytest.raises(RuntimeError,
+                           match=f"interface {version}, want 2"):
+            bind(lib(version))
+    assert not hasattr(smoke, "bind_parent_trace")
+    assert not hasattr(smoke, "bind_parent_probe")

@@ -236,13 +236,16 @@ def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
       so slot-by-slot commits in order end in the same (t, index, first
       slot));
     - with ``sub`` = (the coarsened (C * 8, 8) sub-box table, the slots a
-      sub-box bounds), the sub-box form: when the walk finds a cluster,
-      each lane that admits it slabs its sub-boxes against its t then and
-      keeps a word of the ranges it may meet; a cluster no lane's word
-      wants is skipped, and so is each chunk of it that holds no wanted
-      range; at a chunk's turn a lane runs MT only if its word wants a
-      range of the chunk, and only over the slots of its ranges (split:
-      each admitting ray's wanted slots, 32 lanes at a time).
+      sub-box bounds), the sub-box form: when the walk takes a super
+      (``super_words``), its block of the table is copied (its 16
+      clusters' rows, clamped to the table's end) and each lane slabs the
+      sub-boxes of every cluster of it that it admits, against its t then
+      (the t of the super's cluster gates), keeping a word of the ranges
+      it may meet; a cluster no lane's word wants is skipped, and so is
+      each chunk of it that holds no wanted range; at a chunk's turn a
+      lane runs MT only if its word wants a range of the chunk, and only
+      over the slots of its ranges (split: each admitting ray's wanted
+      slots, 32 lanes at a time).
 
     The counts include ``lane_slots`` (32 x the warp-wide MT steps: a
     step over each wanted range's slots with every admitting lane, or
@@ -350,6 +353,28 @@ def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
             slot = first + j * LANES + src
             commit(admit, least, torch.where(least != NO_KEY, slot, -1))
 
+        def super_words(s, found, c_mask):
+            """The sub-box form's batch when the walk takes super s: the
+            copy of its sub-box block (its 16 clusters' rows, clamped to
+            the table's end), then each lane's word of each found cluster
+            it admits, from the block, with its t now: (16, lanes) words;
+            a found cluster no lane's word wants is counted skipped."""
+            first = min(s * bvh.SUPER, n_cl - 1)
+            n_copy = min(bvh.SUPER, n_cl - first)
+            block = sub_t[first * 8:(first + n_copy) * 8]
+            assert block.shape[0] == n_copy * 8
+            words = torch.zeros((bvh.SUPER, ray.numel()), dtype=torch.long)
+            for ci in found:
+                at = min(s * bvh.SUPER + ci, n_cl - 1) - first
+                assert 0 <= at < n_copy
+                boxes = block[at * 8:at * 8 + k // rows]
+                hit = gates(boxes, c_mask[ci])              # (div, lanes)
+                cnt["sub_tests"] += int(c_mask[ci].sum()) * boxes.shape[0]
+                words[ci] = (hit.long() << torch.arange(
+                    boxes.shape[0])[:, None]).sum(0)
+                cnt["sub_skipped"] += int(not words[ci].any())
+            return words
+
         def next_item():
             """The warp's chunks in order, each found (its gates tested)
             only when the walk asks for it: (cluster, first slot, each
@@ -368,24 +393,19 @@ def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
                         c_mask = gates(
                             hier.boxes[s * bvh.SUPER:(s + 1) * bvh.SUPER],
                             s_mask[si])
-                        for ci in c_mask.any(dim=1).nonzero()[:, 0].tolist():
+                        found = c_mask.any(dim=1).nonzero()[:, 0].tolist()
+                        if sub is not None and found:
+                            words = super_words(s, found, c_mask)
+                        for ci in found:
                             c = s * bvh.SUPER + ci
                             word = torch.full_like(ray, -1)
                             wanted = range(0, k, CHUNK)
                             if sub is not None:
-                                # the lanes' words, with their t now
-                                cs = min(c, n_cl - 1)
-                                boxes = sub_t[cs * 8:cs * 8 + k // rows]
-                                hit = gates(boxes, c_mask[ci])  # (div, l)
-                                cnt["sub_tests"] += int(
-                                    c_mask[ci].sum()) * boxes.shape[0]
-                                word = (hit.long() << torch.arange(
-                                    boxes.shape[0])[:, None]).sum(0)
+                                word = words[ci]
                                 union = int(np.bitwise_or.reduce(
                                     word.numpy()))
                                 if not union:
-                                    cnt["sub_skipped"] += 1
-                                    continue
+                                    continue    # counted by super_words
                                 wanted = [b for b in range(0, k, CHUNK)
                                           if any((union >> r) & 1 for r in
                                                  range(b // rows, (min(
