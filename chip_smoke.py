@@ -2008,6 +2008,47 @@ def walk_registers(kernel) -> dict:
     return out
 
 
+def walk_sass(kernels) -> list:
+    """Each build's walk instances as compiled: for each kernel of
+    ``kernels`` (builds of a BVH kernel source), its source built to a
+    cubin with its flags (all at once, one nvcc each), then each walk
+    instance's SASS instructions (cuobjdump -sass, addresses and encodings
+    left out), by form as walk_registers names them."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out_dir = Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        cubins = [Path(tmp) / f"walk{i}.cubin" for i in range(len(kernels))]
+        procs = [subprocess.Popen(
+            [nvcc, *[f for f in k.flags if f not in ("-shared", "-Xcompiler",
+                                                     "-fPIC", "-Xptxas",
+                                                     "-v")],
+             "-cubin", "-o", str(c), str(k.source)], stderr=subprocess.PIPE,
+            text=True) for k, c in zip(kernels, cubins)]
+        for proc in procs:
+            if proc.wait() != 0:
+                fail(f"the walk's SASS build: {proc.stderr.read()}")
+        found = []
+        for cubin in cubins:
+            text = subprocess.run([tool, "-sass", str(cubin)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            funcs = {}
+            for func in text.split("Function : ")[1:]:
+                m = re.search(r"bvh_kernelILi\d+ELb([01])ELb([01])ELb([01])E",
+                              func.split()[0])
+                if m is None:
+                    continue
+                name = (("plucker" if m.group(1) == "1" else
+                         "subbox" if m.group(2) == "1" else "mt")
+                        + ("/counting" if m.group(3) == "1" else ""))
+                funcs[name] = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);",
+                                         func)
+            found.append(funcs)
+    return found
+
+
 def walk_sweep(label: str, res: dict) -> dict:
     """The launches of a pass (two_level or flat) on each build of
     ``sweep_kernels`` and on the route's, in turns, twice: ms a pass, and
@@ -3391,13 +3432,16 @@ def main(argv=None) -> int:
         + f"; ptxas: {ptxas}")
     if parent is not None:
         regs, regs_p = walk_registers(bk.KERNEL), walk_registers(parent)
-        same = all(regs.get(k) == regs_p.get(k) for k in regs
-                   if not k.startswith("subbox"))
-        say(f"[2] the BVH walk's registers a thread (ptxas), this build / "
-            f"the parent's: "
-            + ", ".join(f"{k} {v} / {regs_p.get(k)}"
-                        for k, v in sorted(regs.items()))
-            + f"; the ungated instances the parent's: {same}")
+        sass, sass_p = walk_sass((bk.KERNEL, parent))
+        say(f"[2] the BVH walk's instances, this build / the parent's: "
+            + ", ".join(
+                f"{k} {v} / {regs_p.get(k)} registers, "
+                f"{len(sass.get(k, ()))} / {len(sass_p.get(k, ()))} "
+                f"instructions"
+                + (", the same SASS" if sass.get(k) == sass_p.get(k)
+                   else "")
+                for k, v in sorted(regs.items()))
+            + " (ptxas, cuobjdump)")
     say(f"[2] triangle kernel {trk.SHAPE[0]}x{trk.SHAPE[1]}, the fast path "
         f"of one triangle (cuobjdump): {triangle_sass()}")
     say(f"[2] whole-trace kernel (cuobjdump): {trace_sass()}")

@@ -46,24 +46,27 @@
 // bulk copy of its 16 clusters' sub-box rows (4 KB, contiguous in the
 // table; the last super's copy clamped to the table's end) into the
 // warp's own shared buffer, on an mbarrier of its own, and the copy runs
-// under the slab tests of the super's 16 cluster boxes.  Then each lane
-// slabs the div sub-boxes of every cluster it admits, from shared memory,
-// with its best t of that moment (at least its t when the cluster is
-// found later, so the gate admits at least what a word made there would),
-// and keeps the words 8 bits a cluster in four 32-bit registers, with the
-// warp's union per cluster beside them; clusters no lane wants leave the
-// walk there.  Finding a cluster then reads its word, its skip and its
-// chunks' skips from registers: no load stands before its copy.  The
-// buffer's phase follows the supers taken; a super whose clusters no lane
-// admits leaves its copy to be waited for before the next one.  At a
-// chunk's turn a lane runs MT only if its word wants a range of the
-// chunk, and only over the slots of its ranges: each admitting lane over
-// the ranges some admitting lane wants, or, split pair by pair, each
-// admitting ray's wanted slots 32 at a time (its word shuffled with the
-// ray).  The TPU ORs a sub-box's slab over a 128-ray sub-block; here each
-// ray keeps its own, as it does every other gate.  kFlat (_kernel) has no
-// sub-box form.  The form is off by default, as in the JAX package;
-// PERF.md section 6 holds its times against the ungated walk's.
+// under the slab tests of the super's 16 cluster boxes.  Then the warp
+// makes each lane's words of the clusters it admits, from shared memory,
+// with the lane's best t of that moment (at least its t when the cluster
+// is found later, so the gate admits at least what a word made there
+// would): the lanes share the slab tests, one admitting ray at a time,
+// 32 (cluster, sub-box) tests a step, so a ray that admits few clusters
+// costs the warp one step, not a step a cluster.  Each lane keeps its
+// words 8 bits a cluster in four 32-bit registers, with the warp's union
+// per cluster beside them; clusters no lane wants leave the walk there.
+// Finding a cluster then reads its word, its skip and its chunks' skips
+// from registers: no load stands before its copy.  The buffer's phase
+// follows the supers taken; a super whose clusters no lane admits leaves
+// its copy to be waited for before the next one.  At a chunk's turn a
+// lane runs MT only if its word wants a range of the chunk, and only over
+// the slots of its ranges: each admitting lane over the ranges some
+// admitting lane wants, or, split pair by pair, each admitting ray's
+// wanted slots 32 at a time (its word shuffled with the ray).  The TPU ORs
+// a sub-box's slab over a 128-ray sub-block; here each ray keeps its own,
+// as it does every other gate.  kFlat (_kernel) has no sub-box form.  The
+// form is off by default, as in the JAX package; PERF.md section 6 holds
+// its times against the ungated walk's.
 // For each ray in its list it finds the nearest triangle strictly closer
 // than the ray's t_init and writes (t, table slot), or (+inf, -1) when none
 // is; a dead ray (alive == 0) is a miss.  Shading is not here: the
@@ -637,14 +640,18 @@ struct Walk {
   unsigned s_mask = 0, s_any = 0;
   int s = 0;
   unsigned c_mask = 0, c_any = 0;
-  // the sub-box form: the current super's words, 8 bits a cluster (bits
-  // 8 * (i % 4) of word i / 4 for cluster i), this lane's and the warp's
-  // union; the union of the current cluster's word; the super block
-  // barrier's next parity and whether a copy on it is not yet waited for
-  unsigned sub_w[4] = {}, sub_u[4] = {};
-  unsigned sub_any = 0;
+  unsigned sub_any = 0;   // the sub-box form: the warp's union of the
+                          // current cluster's words
+  // the sub-box form's super block (unused in the other forms): the
+  // warp's shared buffer of a super's sub-box rows and its mbarrier, the
+  // barrier's next parity and whether a copy on it is not yet waited for,
+  // and the current super's words, 8 bits a cluster (bits 8 * (i % 4) of
+  // word i / 4 for cluster i), this lane's and the warp's union
+  float4* sub_buf = nullptr;
+  uint64_t* sub_bar = nullptr;
   uint32_t sub_parity = 0;
   bool sub_pending = false;
+  unsigned sub_w[4] = {}, sub_u[4] = {};
 };
 
 // one staged chunk: slots [base, base + kChunk) of cluster c (padded
@@ -692,58 +699,99 @@ __device__ __forceinline__ int2 sub_block(int s, int n_clusters) {
 // buffer (after waiting for a copy of an earlier super never waited for:
 // every lane is done with the buffer).  Called by the whole warp.
 __device__ __forceinline__ void issue_sub_block(
-    Walk& w, const float* __restrict__ subboxes, int s, const BvhParams& p,
-    float4* __restrict__ s_sub, uint64_t* __restrict__ bar) {
+    Walk& w, const float* __restrict__ subboxes, int s, const BvhParams& p) {
   if (w.sub_pending) {
-    bar_wait(bar, w.sub_parity);
+    bar_wait(w.sub_bar, w.sub_parity);
     w.sub_parity ^= 1u;
   }
   const int2 blk = sub_block(s, p.n_clusters);
   __syncwarp();
   if ((threadIdx.x & 31) == 0)
-    bulk_load(s_sub,
+    bulk_load(w.sub_buf,
               reinterpret_cast<const float4*>(subboxes)
                   + (size_t)blk.x * kSubClusterF4,
-              static_cast<uint32_t>(blk.y * kSubClusterF4 * 16), bar);
+              static_cast<uint32_t>(blk.y * kSubClusterF4 * 16), w.sub_bar);
   w.sub_pending = true;
 }
 
+// the position of set bit n (from 0) of m, a mask of at most 16 bits with
+// more than n set
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 8; width > 0; width >>= 1) {
+    const int c = __popc(m & ((1u << width) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= width;
+      pos += width;
+    }
+  }
+  return pos;
+}
+
 // The words of super s's admitted clusters (w.c_any), as one batch from
-// its block in shared memory: for each cluster the lane admits (w.c_mask),
-// bit j when the ray may meet sub-box j (of div) before t_far
-// (_subbox_word's slab, for this ray alone); the warp's union per
-// cluster; the clusters no lane wants taken out of w.c_any.  Called by the
-// whole warp once the block has landed.
+// its block in shared memory: for each cluster a lane admits (w.c_mask),
+// bit j when its ray may meet sub-box j (of div) before its t_far
+// (_subbox_word's slab, for this ray alone).  The lanes share the slab
+// tests: for each lane that admits some cluster of the super in turn
+// (src), its ray and t_far go to every lane, lane l takes sub-box l % div
+// of src's (l / div)-th admitted cluster, 32 / div clusters at a time,
+// and one ballot carries their words to src.  Then the warp's union per
+// cluster, and the clusters no lane wants taken out of w.c_any.  Called
+// by the whole warp once the block has landed.
 template <bool COUNT>
 __device__ __forceinline__ void super_words(Walk& w, int s, int div,
-                                            const float4* __restrict__ s_sub,
                                             const Ray& r, float t_far,
                                             const BvhParams& p,
                                             WarpCounts<COUNT>& cnt) {
+  const int lane = threadIdx.x & 31;
   const int first = sub_block(s, p.n_clusters).x;
-  // clusters 0-7 and 8-15, 8 bits each
+  const int log_div = __ffs(div) - 1;
+  const int per = 32 >> log_div;          // clusters a ballot
+  const int mine = lane >> log_div;       // this lane's cluster of a batch
+  const int j = lane & (div - 1);         // and its sub-box
+  const unsigned byte = (1u << div) - 1u;
+  // this lane's words of clusters 0-7 and 8-15, 8 bits each
   unsigned long long lo = 0ull, hi = 0ull;
-  for (unsigned m = w.c_any; m; m &= m - 1) {
-    const int i = __ffs(m) - 1;
-    if ((w.c_mask >> i) & 1u) {
-      const float4* b4 =
-          s_sub + (min(s * kSuper + i, p.n_clusters - 1) - first)
-                      * kSubClusterF4;
-      unsigned bits = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j < div) {
-          const float4 a = b4[2 * j];       // lo.xyz, hi.x
-          const float4 b = b4[2 * j + 1];   // hi.yz, 0, 0
-          bits |= (unsigned)slab6(a.x, a.y, a.z, a.w, b.x, b.y, r, t_far)
-                  << j;
+  for (unsigned m = __ballot_sync(kAll, w.c_mask != 0u); m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    const unsigned cm = __shfl_sync(kAll, w.c_mask, src);
+    Ray q;
+    q.ox = __shfl_sync(kAll, r.ox, src);
+    q.oy = __shfl_sync(kAll, r.oy, src);
+    q.oz = __shfl_sync(kAll, r.oz, src);
+    q.inx = __shfl_sync(kAll, r.inx, src);
+    q.iny = __shfl_sync(kAll, r.iny, src);
+    q.inz = __shfl_sync(kAll, r.inz, src);
+    const float tf = __shfl_sync(kAll, t_far, src);
+    const int n = __popc(cm);
+    unsigned rest = cm;   // src's clusters not yet given their word
+    for (int b = 0; b < n; b += per) {
+      bool meet = false;
+      if (b + mine < n) {
+        const int i = nth_bit(cm, b + mine);
+        const float4* b4 =
+            w.sub_buf + (min(s * kSuper + i, p.n_clusters - 1) - first)
+                         * kSubClusterF4 + 2 * j;
+        const float4 x = b4[0];   // lo.xyz, hi.x
+        const float4 y = b4[1];   // hi.yz, 0, 0
+        meet = slab6(x.x, x.y, x.z, x.w, y.x, y.y, q, tf);
+      }
+      const unsigned bits = __ballot_sync(kAll, meet);
+      if (lane == src) {
+        for (int t = 0; t < per && rest; ++t) {
+          const int i = __ffs(rest) - 1;
+          rest &= rest - 1;
+          const unsigned long long word =
+              (unsigned long long)((bits >> (t << log_div)) & byte)
+              << (8 * (i & 7));
+          if (i < 8)
+            lo |= word;
+          else
+            hi |= word;
         }
       }
-      const unsigned long long sh = (unsigned long long)bits << (8 * (i & 7));
-      if (i < 8)
-        lo |= sh;
-      else
-        hi |= sh;
     }
   }
   w.sub_w[0] = (unsigned)lo;
@@ -752,12 +800,12 @@ __device__ __forceinline__ void super_words(Walk& w, int s, int div,
   w.sub_w[3] = (unsigned)(hi >> 32);
   unsigned wanted = 0;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    w.sub_u[q] = __reduce_or_sync(kAll, w.sub_w[q]);
+  for (int k = 0; k < 4; ++k) {
+    w.sub_u[k] = __reduce_or_sync(kAll, w.sub_w[k]);
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      wanted |= (unsigned)(((w.sub_u[q] >> (8 * k)) & 0xffu) != 0u)
-                << (4 * q + k);
+    for (int b = 0; b < 4; ++b)
+      wanted |= (unsigned)(((w.sub_u[k] >> (8 * b)) & 0xffu) != 0u)
+                << (4 * k + b);
   }
   cnt.add_lanes(kCountSubTests, __popc(w.c_mask) * div);
   cnt.add(kCountSubSkipped, __popc(w.c_any & ~wanted));
@@ -791,7 +839,6 @@ __device__ __forceinline__ bool next_item(
     const float* __restrict__ supers, const float* __restrict__ groups,
     const float* __restrict__ subboxes, const int32_t* __restrict__ order,
     bool listed, const Ray& r, float best_t, const BvhParams& p,
-    float4* __restrict__ s_sub, uint64_t* __restrict__ sub_bar,
     WarpCounts<COUNT>& cnt) {
   if constexpr (SUBBOX) {
     if (it.c >= 0) {
@@ -833,8 +880,7 @@ __device__ __forceinline__ bool next_item(
       const int i = __ffs(w.s_any) - 1;
       w.s_any &= w.s_any - 1;
       w.s = w.g * kGroup + i;
-      if constexpr (SUBBOX)
-        issue_sub_block(w, subboxes, w.s, p, s_sub, sub_bar);
+      if constexpr (SUBBOX) issue_sub_block(w, subboxes, w.s, p);
       w.c_mask = (w.s_mask >> i) & 1u
                  ? slab_mask<kSuper>(boxes + 8 * kSuper * w.s, r, best_t)
                  : 0u;
@@ -844,12 +890,11 @@ __device__ __forceinline__ bool next_item(
       if constexpr (SUBBOX) {
         if (w.c_any) {
           const long long t0 = COUNT ? clock64() : 0;
-          bar_wait(sub_bar, w.sub_parity);
+          bar_wait(w.sub_bar, w.sub_parity);
           w.sub_parity ^= 1u;
           w.sub_pending = false;
           const long long t1 = COUNT ? clock64() : 0;
-          super_words<COUNT>(w, w.s, p.k / p.sub_rows, s_sub, r, best_t, p,
-                             cnt);
+          super_words<COUNT>(w, w.s, p.k / p.sub_rows, r, best_t, p, cnt);
           if constexpr (COUNT) {
             cnt.add(kCountSubWaitCycles, t1 - t0);
             cnt.add(kCountSubWordCycles, clock64() - t1);
@@ -874,7 +919,7 @@ __device__ __forceinline__ bool next_item(
     if (w.j0 >= p.n_order) {
       // no copy may still be in flight when the warp is done
       if constexpr (SUBBOX)
-        if (w.sub_pending) bar_wait(sub_bar, w.sub_parity);
+        if (w.sub_pending) bar_wait(w.sub_bar, w.sub_parity);
       return false;
     }
     const int n = min(kBatch, p.n_order - w.j0);
@@ -1064,8 +1109,9 @@ __device__ __forceinline__ void mt_chunk(const float4* __restrict__ buf,
 // the lanes that still admit it (in the sub-box form: and whose word wants
 // a range of the chunk) run MT (mt_chunk).  Each ray's gates and commits
 // are the plain version's, so it writes the same result.  The sub-box
-// form's super blocks go to s_sub on s_bar[kStages].  Called by the whole
-// warp (control flow is warp-uniform).
+// form's super blocks go to the buffer after the ring's, on
+// s_bar[kStages].  Called by the whole warp (control flow is
+// warp-uniform).
 template <bool PLUCKER, bool SUBBOX, bool COUNT>
 __device__ __forceinline__ void warp_walk(
     const float4* __restrict__ rows, const int32_t* __restrict__ gidx,
@@ -1073,8 +1119,7 @@ __device__ __forceinline__ void warp_walk(
     const float* __restrict__ groups, const float* __restrict__ subboxes,
     const int32_t* __restrict__ order, bool listed, const Ray& r,
     Best& best, const BvhParams& p, float4* __restrict__ s_buf,
-    uint64_t* __restrict__ s_bar, float4* __restrict__ s_sub,
-    unsigned long long* counters) {
+    uint64_t* __restrict__ s_bar, unsigned long long* counters) {
   constexpr int kRowF4 = PLUCKER ? kPluckerRowF4 : kMtRowF4;
   WarpCounts<COUNT> cnt;
   const long long t_walk = COUNT ? clock64() : 0;
@@ -1084,6 +1129,10 @@ __device__ __forceinline__ void warp_walk(
   }
   const int lane = threadIdx.x & 31;
   Walk w;
+  if constexpr (SUBBOX) {
+    w.sub_buf = s_buf + kStages * kChunk * kRowF4;
+    w.sub_bar = s_bar + kStages;
+  }
   Item last = {-1, 0, false, kAll, false};   // the chunk found last
   Item q[kStages];              // the chunks staged, oldest first
   int n_q = 0;
@@ -1094,8 +1143,7 @@ __device__ __forceinline__ void warp_walk(
   // last cluster again changes nothing)
   auto stage_next = [&]() {
     more = next_item<SUBBOX, COUNT>(w, last, boxes, supers, groups, subboxes,
-                                    order, listed, r, best.t, p, s_sub,
-                                    s_bar + kStages, cnt);
+                                    order, listed, r, best.t, p, cnt);
     if (!more) return;
 #pragma unroll
     for (int i = 0; i < kStages; ++i)
@@ -1206,16 +1254,16 @@ bvh_kernel(const RayIn in, const float4* __restrict__ staged,
     warp_walk<PLUCKER, SUBBOX, COUNT>(
         PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
         boxes, supers, groups, subboxes, order, listed, r, best, p,
-        s_dyn + warp * kStages * kChunk * kRowF4, s_bar[warp],
-        s_dyn + kWarps * kStages * kChunk * kRowF4 + warp * kSubBlockF4,
-        counters);
+        s_dyn + warp * (kStages * kChunk * kRowF4
+                        + (SUBBOX ? kSubBlockF4 : 0)),
+        s_bar[warp], counters);
   if (!in_range) return;
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
   slot_out[ray] = best.idx < 0 ? -1 : best.slot;
 }
 
 // the dynamic shared memory a block of the warp walk takes: each warp's
-// ring of buffers, then in the sub-box form each warp's super block (the
+// ring of buffers, followed in the sub-box form by its super block (the
 // route's fit, with the mbarriers, the 48 KB a launch may take without
 // opting in; a larger ring of the sweep opts in)
 template <bool PLUCKER, bool SUBBOX>
