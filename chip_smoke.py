@@ -203,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -3414,6 +3415,11 @@ def main(argv=None) -> int:
         parent_trace = parent_trace_kernel(args.parent)
         parent_shade = parent_shade_kernel(args.parent)
         parent_probe = parent_probe_kernel(args.parent)
+    sass_job = None
+    if parent is not None:
+        # the walk's SASS of both BVH sources, built beside the kernels
+        sass_job = concurrent.futures.ThreadPoolExecutor(1).submit(
+            walk_sass, (bk.KERNEL, parent))
     ptxas = build_kernels(() if parent is None else
                           (parent, parent_trace, parent_shade, parent_probe))
     say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
@@ -3432,7 +3438,7 @@ def main(argv=None) -> int:
         + f"; ptxas: {ptxas}")
     if parent is not None:
         regs, regs_p = walk_registers(bk.KERNEL), walk_registers(parent)
-        sass, sass_p = walk_sass((bk.KERNEL, parent))
+        sass, sass_p = sass_job.result()
         say(f"[2] the BVH walk's instances, this build / the parent's: "
             + ", ".join(
                 f"{k} {v} / {regs_p.get(k)} registers, "

@@ -50,9 +50,10 @@
 // makes each lane's words of the clusters it admits, from shared memory,
 // with the lane's best t of that moment (at least its t when the cluster
 // is found later, so the gate admits at least what a word made there
-// would): the lanes share the slab tests, one admitting ray at a time,
-// 32 (cluster, sub-box) tests a step, so a ray that admits few clusters
-// costs the warp one step, not a step a cluster.  Each lane keeps its
+// would): the lanes share the slab tests, 32 (lane, cluster, sub-box)
+// tests a step from a list of the warp's (lane, cluster) pairs, so a
+// sparse bounce's few pairs cost the warp a step or two, not 8 slab tests
+// for each cluster some lane admits.  Each lane keeps its
 // words 8 bits a cluster in four 32-bit registers, with the warp's union
 // per cluster beside them; clusters no lane wants leave the walk there.
 // Finding a cluster then reads its word, its skip and its chunks' skips
@@ -649,6 +650,7 @@ struct Walk {
   // word i / 4 for cluster i), this lane's and the warp's union
   float4* sub_buf = nullptr;
   uint64_t* sub_bar = nullptr;
+  uint16_t* sub_pairs = nullptr;   // the word batch's pair list
   uint32_t sub_parity = 0;
   bool sub_pending = false;
   unsigned sub_w[4] = {}, sub_u[4] = {};
@@ -675,9 +677,11 @@ __device__ __forceinline__ unsigned chunk_ranges(int base, int n, int rows) {
 }
 
 // the sub-box form: a cluster's rows in the sub-box table (8 rows of 8
-// floats: lo, hi, 0, 0), in float4s, and a super's block of them
+// floats: lo, hi, 0, 0), in float4s, a super's block of them, and the
+// word batch's list of (lane, cluster) pairs, 2 bytes each, in float4s
 constexpr int kSubClusterF4 = 16;
 constexpr int kSubBlockF4 = kSuper * kSubClusterF4;   // 4 KB
+constexpr int kSubPairsF4 = 32 * kSuper * 2 / 16;     // 1 KB
 
 // byte i of the packed words v (cluster i of the super)
 __device__ __forceinline__ unsigned word_of(const unsigned (&v)[4], int i) {
@@ -714,30 +718,17 @@ __device__ __forceinline__ void issue_sub_block(
   w.sub_pending = true;
 }
 
-// the position of set bit n (from 0) of m, a mask of at most 16 bits with
-// more than n set
-__device__ __forceinline__ int nth_bit(unsigned m, int n) {
-  int pos = 0;
-#pragma unroll
-  for (int width = 8; width > 0; width >>= 1) {
-    const int c = __popc(m & ((1u << width) - 1u));
-    if (n >= c) {
-      n -= c;
-      m >>= width;
-      pos += width;
-    }
-  }
-  return pos;
-}
-
 // The words of super s's admitted clusters (w.c_any), as one batch from
 // its block in shared memory: for each cluster a lane admits (w.c_mask),
 // bit j when its ray may meet sub-box j (of div) before its t_far
 // (_subbox_word's slab, for this ray alone).  The lanes share the slab
-// tests: for each lane that admits some cluster of the super in turn
-// (src), its ray and t_far go to every lane, lane l takes sub-box l % div
-// of src's (l / div)-th admitted cluster, 32 / div clusters at a time,
-// and one ballot carries their words to src.  Then the warp's union per
+// tests: every lane lists its (lane, cluster) pairs in the warp's pair
+// list (at its place by a scan of the lanes' counts), then the warp takes
+// the list 32 / div pairs a step, lane l sub-box l % div of pair l / div
+// with the pair's ray and t_far shuffled from its lane, and one ballot
+// gives the step's words, written back over their pairs; each lane then
+// reads its own words.  A sparse bounce's few pairs a lane so cost the
+// warp about (pairs x div) / 32 steps.  Then the warp's union per
 // cluster, and the clusters no lane wants taken out of w.c_any.  Called
 // by the whole warp once the block has landed.
 template <bool COUNT>
@@ -748,15 +739,30 @@ __device__ __forceinline__ void super_words(Walk& w, int s, int div,
   const int lane = threadIdx.x & 31;
   const int first = sub_block(s, p.n_clusters).x;
   const int log_div = __ffs(div) - 1;
-  const int per = 32 >> log_div;          // clusters a ballot
-  const int mine = lane >> log_div;       // this lane's cluster of a batch
+  const int per = 32 >> log_div;          // pairs a step
+  const int mine = lane >> log_div;       // this lane's pair of a step
   const int j = lane & (div - 1);         // and its sub-box
   const unsigned byte = (1u << div) - 1u;
-  // this lane's words of clusters 0-7 and 8-15, 8 bits each
-  unsigned long long lo = 0ull, hi = 0ull;
-  for (unsigned m = __ballot_sync(kAll, w.c_mask != 0u); m; m &= m - 1) {
-    const int src = __ffs(m) - 1;
-    const unsigned cm = __shfl_sync(kAll, w.c_mask, src);
+  uint16_t* pairs = w.sub_pairs;
+  // this lane's pairs' place in the list: the scan of the lanes' counts
+  const int own = __popc(w.c_mask);
+  int end = own;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kAll, end, off);
+    if (lane >= off) end += v;
+  }
+  const int total = __shfl_sync(kAll, end, 31);
+  __syncwarp();   // every lane is done with the last super's list
+  int at = end - own;
+  for (unsigned m = w.c_mask; m; m &= m - 1)
+    pairs[at++] = (uint16_t)((lane << 4) | (__ffs(m) - 1));
+  __syncwarp();
+  for (int p0 = 0; p0 < total; p0 += per) {
+    const int k = p0 + mine;
+    const int e = k < total ? pairs[k] : 0;
+    const int src = e >> 4;
+    const int i = e & 15;
     Ray q;
     q.ox = __shfl_sync(kAll, r.ox, src);
     q.oy = __shfl_sync(kAll, r.oy, src);
@@ -765,34 +771,28 @@ __device__ __forceinline__ void super_words(Walk& w, int s, int div,
     q.iny = __shfl_sync(kAll, r.iny, src);
     q.inz = __shfl_sync(kAll, r.inz, src);
     const float tf = __shfl_sync(kAll, t_far, src);
-    const int n = __popc(cm);
-    unsigned rest = cm;   // src's clusters not yet given their word
-    for (int b = 0; b < n; b += per) {
-      bool meet = false;
-      if (b + mine < n) {
-        const int i = nth_bit(cm, b + mine);
-        const float4* b4 =
-            w.sub_buf + (min(s * kSuper + i, p.n_clusters - 1) - first)
-                         * kSubClusterF4 + 2 * j;
-        const float4 x = b4[0];   // lo.xyz, hi.x
-        const float4 y = b4[1];   // hi.yz, 0, 0
-        meet = slab6(x.x, x.y, x.z, x.w, y.x, y.y, q, tf);
-      }
-      const unsigned bits = __ballot_sync(kAll, meet);
-      if (lane == src) {
-        for (int t = 0; t < per && rest; ++t) {
-          const int i = __ffs(rest) - 1;
-          rest &= rest - 1;
-          const unsigned long long word =
-              (unsigned long long)((bits >> (t << log_div)) & byte)
-              << (8 * (i & 7));
-          if (i < 8)
-            lo |= word;
-          else
-            hi |= word;
-        }
-      }
-    }
+    const float4* b4 =
+        w.sub_buf + (min(s * kSuper + i, p.n_clusters - 1) - first)
+                        * kSubClusterF4 + 2 * j;
+    const float4 x = b4[0];   // lo.xyz, hi.x
+    const float4 y = b4[1];   // hi.yz, 0, 0
+    const bool meet = k < total && slab6(x.x, x.y, x.z, x.w, y.x, y.y, q, tf);
+    const unsigned bits = __ballot_sync(kAll, meet);
+    if (j == 0 && k < total)
+      pairs[k] = (uint16_t)((bits >> (mine << log_div)) & byte);
+  }
+  __syncwarp();
+  // this lane's words of clusters 0-7 and 8-15, 8 bits each
+  unsigned long long lo = 0ull, hi = 0ull;
+  at = end - own;
+  for (unsigned m = w.c_mask; m; m &= m - 1) {
+    const int i = __ffs(m) - 1;
+    const unsigned long long word = (unsigned long long)pairs[at++]
+                                    << (8 * (i & 7));
+    if (i < 8)
+      lo |= word;
+    else
+      hi |= word;
   }
   w.sub_w[0] = (unsigned)lo;
   w.sub_w[1] = (unsigned)(lo >> 32);
@@ -807,7 +807,7 @@ __device__ __forceinline__ void super_words(Walk& w, int s, int div,
       wanted |= (unsigned)(((w.sub_u[k] >> (8 * b)) & 0xffu) != 0u)
                 << (4 * k + b);
   }
-  cnt.add_lanes(kCountSubTests, __popc(w.c_mask) * div);
+  cnt.add_lanes(kCountSubTests, own * div);
   cnt.add(kCountSubSkipped, __popc(w.c_any & ~wanted));
   w.c_any &= wanted;
 }
@@ -1132,6 +1132,7 @@ __device__ __forceinline__ void warp_walk(
   if constexpr (SUBBOX) {
     w.sub_buf = s_buf + kStages * kChunk * kRowF4;
     w.sub_bar = s_bar + kStages;
+    w.sub_pairs = reinterpret_cast<uint16_t*>(w.sub_buf + kSubBlockF4);
   }
   Item last = {-1, 0, false, kAll, false};   // the chunk found last
   Item q[kStages];              // the chunks staged, oldest first
@@ -1255,7 +1256,7 @@ bvh_kernel(const RayIn in, const float4* __restrict__ staged,
         PLUCKER ? reinterpret_cast<const float4*>(coeffs) : staged, gidx,
         boxes, supers, groups, subboxes, order, listed, r, best, p,
         s_dyn + warp * (kStages * kChunk * kRowF4
-                        + (SUBBOX ? kSubBlockF4 : 0)),
+                        + (SUBBOX ? kSubBlockF4 + kSubPairsF4 : 0)),
         s_bar[warp], counters);
   if (!in_range) return;
   t_out[ray] = best.idx < 0 ? INFINITY : best.t;
@@ -1269,7 +1270,7 @@ bvh_kernel(const RayIn in, const float4* __restrict__ staged,
 template <bool PLUCKER, bool SUBBOX>
 constexpr int walk_smem() {
   return (kWarps * kStages * kChunk * (PLUCKER ? kPluckerRowF4 : kMtRowF4)
-          + (SUBBOX ? kWarps * kSubBlockF4 : 0)) * 16;
+          + (SUBBOX ? kWarps * (kSubBlockF4 + kSubPairsF4) : 0)) * 16;
 }
 
 // the work scratch's int32 words: partial sums, the two visiting orders,
