@@ -1977,36 +1977,33 @@ def sweep_kernels() -> dict:
     return SWEEP_KERNELS
 
 
-def bvh_registers(kernel) -> str:
-    """ptxas's registers and spills of a build's walk in the MT form (the
-    route's instance, which every variant launches, not the counting
-    one)."""
-    variant = bk.VARIANTS["streamed"]
-    out, on = [], False
-    for line in kernel.build_log.splitlines():
-        if "entry function" in line:
-            on = f"bvh_kernelILi{variant}ELb0ELb0ELb0E" in line
-        elif on and ("registers" in line or "spill" in line):
-            out.append(line.split("ptxas info    : ")[-1].strip())
-    return "; ".join(out) or "no ptxas report"
+def walk_form(name: str):
+    """The form of a walk instance from its mangled name ("mt", "plucker",
+    "subbox", each also "/counting"), or None for another kernel."""
+    m = re.search(r"bvh_kernelILi\d+ELb([01])ELb([01])ELb([01])E", name)
+    if m is None:
+        return None
+    return (("plucker" if m.group(1) == "1" else
+             "subbox" if m.group(2) == "1" else "mt")
+            + ("/counting" if m.group(3) == "1" else ""))
 
 
-def walk_registers(kernel) -> dict:
-    """ptxas's registers of each instance of a build's walk, by form ("mt",
-    "plucker", "subbox", each also "/counting")."""
-    out, name = {}, None
+def walk_ptxas(kernel) -> dict:
+    """ptxas's report of each instance of a build's walk (registers,
+    spills), by walk_form."""
+    out, form = {}, None
     for line in kernel.build_log.splitlines():
         if "entry function" in line:
-            m = re.search(r"bvh_kernelILi\d+ELb([01])ELb([01])ELb([01])E",
-                          line)
-            name = None if m is None else (
-                ("plucker" if m.group(1) == "1" else
-                 "subbox" if m.group(2) == "1" else "mt")
-                + ("/counting" if m.group(3) == "1" else ""))
-        elif name is not None and "registers" in line:
-            out[name] = int(re.search(r"Used (\d+) registers",
-                                      line).group(1))
+            form = walk_form(line)
+        elif form is not None and ("registers" in line or "spill" in line):
+            text = line.split("ptxas info    : ")[-1].strip()
+            out[form] = f"{out[form]}; {text}" if form in out else text
     return out
+
+
+def registers(report: str) -> int:
+    """The registers a thread of one walk_ptxas report."""
+    return int(re.search(r"Used (\d+) registers", report).group(1))
 
 
 def walk_sass(kernels) -> list:
@@ -2014,7 +2011,7 @@ def walk_sass(kernels) -> list:
     ``kernels`` (builds of a BVH kernel source), its source built to a
     cubin with its flags (all at once, one nvcc each), then each walk
     instance's SASS instructions (cuobjdump -sass, addresses and encodings
-    left out), by form as walk_registers names them."""
+    left out), by walk_form."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out_dir = Path(__file__).resolve().parent / "build"
@@ -2037,15 +2034,10 @@ def walk_sass(kernels) -> list:
                                   check=True).stdout
             funcs = {}
             for func in text.split("Function : ")[1:]:
-                m = re.search(r"bvh_kernelILi\d+ELb([01])ELb([01])ELb([01])E",
-                              func.split()[0])
-                if m is None:
-                    continue
-                name = (("plucker" if m.group(1) == "1" else
-                         "subbox" if m.group(2) == "1" else "mt")
-                        + ("/counting" if m.group(3) == "1" else ""))
-                funcs[name] = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);",
-                                         func)
+                form = walk_form(func.split()[0])
+                if form is not None:
+                    funcs[form] = re.findall(
+                        r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", func)
             found.append(funcs)
     return found
 
@@ -2074,7 +2066,7 @@ def walk_sweep(label: str, res: dict) -> dict:
         f"{route_constant('SRT_BVH_CHUNK')}): "
         + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
         + "; results equal; ptxas of each build's walk (MT): "
-        + ", ".join(f"{k}: {bvh_registers(kernel)}"
+        + ", ".join(f"{k}: {walk_ptxas(kernel).get('mt', 'no report')}"
                     for k, kernel in builds.items()))
     return dict(ms)
 
@@ -3437,11 +3429,12 @@ def main(argv=None) -> int:
         f"{' '.join(accel.HOST.flags)}; the BVH build, the STL parse)"
         + f"; ptxas: {ptxas}")
     if parent is not None:
-        regs, regs_p = walk_registers(bk.KERNEL), walk_registers(parent)
+        regs, regs_p = walk_ptxas(bk.KERNEL), walk_ptxas(parent)
         sass, sass_p = sass_job.result()
         say(f"[2] the BVH walk's instances, this build / the parent's: "
             + ", ".join(
-                f"{k} {v} / {regs_p.get(k)} registers, "
+                f"{k} {registers(v)} / "
+                f"{registers(regs_p[k]) if k in regs_p else None} registers, "
                 f"{len(sass.get(k, ()))} / {len(sass_p.get(k, ()))} "
                 f"instructions"
                 + (", the same SASS" if sass.get(k) == sass_p.get(k)

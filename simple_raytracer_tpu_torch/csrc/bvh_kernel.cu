@@ -38,10 +38,10 @@
 // (j + 1) * sub_rows)) adds a fourth gate inside the cluster.  The words
 // decide which chunks are copied at all (a cluster no lane's word wants is
 // never copied, nor a chunk of it without a wanted range), so they must
-// be known before a cluster's first copy; made one cluster at a time where
-// the walk finds it, from __ldg loads, they put a dependent trip to L2 and
-// eight slab tests between finding each cluster and issuing its copy
-// (PERF.md section 6).  So they are made a super at a time
+// be known before a cluster's first copy.  Made one cluster at a time
+// where the walk finds it, from __ldg loads, they would put a dependent
+// trip to L2 and eight slab tests between finding each cluster and issuing
+// its copy (PERF.md section 6).  So they are made a super at a time
 // (super_words): when the walk takes a super, one lane issues one 1-D
 // bulk copy of its 16 clusters' sub-box rows (4 KB, contiguous in the
 // table; the last super's copy clamped to the table's end) into the
@@ -53,9 +53,9 @@
 // would): the lanes share the slab tests, 32 (lane, cluster, sub-box)
 // tests a step from a list of the warp's (lane, cluster) pairs, so a
 // sparse bounce's few pairs cost the warp a step or two, not 8 slab tests
-// for each cluster some lane admits.  Each lane keeps its
-// words 8 bits a cluster in four 32-bit registers, with the warp's union
-// per cluster beside them; clusters no lane wants leave the walk there.
+// for each cluster some lane admits.  Each lane keeps its words 8 bits a
+// cluster in four 32-bit registers, with the warp's union per cluster
+// beside them; clusters no lane wants leave the walk there.
 // Finding a cluster then reads its word, its skip and its chunks' skips
 // from registers: no load stands before its copy.  The buffer's phase
 // follows the supers taken; a super whose clusters no lane admits leaves
@@ -142,7 +142,8 @@
 //     admitting lane tests every slot, all reading one address.
 // Shared memory of the ring: 2 buffers x kChunk slots x 48 (80) bytes a
 // warp, 24 KB (40 KB) a block of 4 warps in the MT (Plucker) form, and in
-// the sub-box form a 4 KB super block a warp more, 40 KB.
+// the sub-box form a warp's 4 KB super block and 1 KB pair list more,
+// 44 KB.
 //
 // Bound on the H100 (chip_smoke.py): counted from what a launch's walked
 // rays open, the clusters whose box they may meet before their result t:

@@ -6,6 +6,7 @@ JAX side runs on the CPU, as the JAX package's own tests run it.
 """
 import collections
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -206,6 +207,24 @@ def walk_feed(clusters, table, form):
             st[:, 3].contiguous().view(torch.int32))
 
 
+def single_threaded(fn):
+    """``fn`` run with torch on one intra-op thread (the count restored
+    after): an emulation issues many small ops, which the intra-op pools
+    of several test workers on one machine slow by an order of magnitude;
+    the ops are elementwise, integer sums and exact minima, so the count
+    changes no result."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_num_threads(threads)
+    return run
+
+
+@single_threaded
 def warp_walk_emulation(o: TVec3, d: TVec3, alive, t_init, clusters, table,
                         form="mt", perm=None, count=None, batch=BATCH,
                         split_max=SPLIT_MAX, stages=STAGES, sub=None):
