@@ -10,7 +10,8 @@ BVH kernel on the same launches, one by one, its whole-trace kernel on
 the same pass of each whole-trace cell, its shade kernel on 7/fused's
 shade launches and its probe kernel on the probes, in turns, each bound
 to this build's C interface, which each parent build must report: a
-parent from e9ce31e on.)
+parent from e9ce31e on, whose BVH kernel may have the C interface before
+BvhOptions (3), called without the options.)
 
 The paths, each a cell: the whole-trace kernel (configs 1 to 5 under
 tri_backend="auto", and config 6's 98,304-slot table under "fused": the
@@ -103,11 +104,11 @@ are a path of their own.  Phases, one line each on stdout:
      count as they were;
   6. timings with CUDA events, and each kernel's bound (and the texture's
      sample beside the nine-row kernel; the clustered whole-trace cells
-     bounded by the BVH rows' rule, the flat gate's count beside it; with
+     bounded by the BVH rows' rule; with
      --parent the parent's kernel on the pass of every whole-trace cell,
      in turns, every output bit equal to this one's; the walk's
-     constants swept: the split point, the ring, the block and the flat
-     gate, and on configs 1, 2, 3 and 3/texture the path variants': the
+     constants swept: the split point, the ring and the block, and on
+     configs 1, 2, 3 and 3/texture the path variants': the
      blocks and the fetch, each a build of its own, every output the
      route's; with --parent also the parent's shade kernel on 7/fused's
      launches, in turns); the triangle kernel's launches
@@ -193,8 +194,24 @@ are a path of their own.  Phases, one line each on stdout:
      launches, image() and the PNG encode), /input "w" (a reset), /pick
      at a sphere's centre pixel, /edit drag_shape, the p screenshot (a
      960x540 PPM), and a set_render swap while the loop runs, /state's
-     error null throughout; at 480x272 the frame rate.  At most 40 s.
-Then one JSON line per the kernel table (the triangle kernel's row also
+     error null throughout; at 480x272 the frame rate.  At most 40 s;
+ 11. the JAX package's opt-in switches (SWITCHES; the counts reset just
+     before each pass and read just after): configs 6 and 7 under "auto"
+     and "fused", one pass under each of SRT_BVH_COMPACT_KEY=morton,
+     SRT_BVH_ORDER=rev, SRT_BVH_COMPACT=0 and 1, SRT_BVH_DMA_SLOTS=4 and
+     8 (the ring builds, built in phase 2), SRT_BVH_PACKED_VMEM_MAX=700
+     (config 6 on streamed), SRT_MEGA_PACKED_MAX=700 (config 6 under
+     "fused" on the fused per-bounce path) and SRT_MEGA_MT_SLICES=3 (the
+     last three read at import: the module's constant set as an import
+     would set it): each pass's radiance bit for bit the switch-free
+     pass's, every BVH launch's (t, slot) the switch-free launch's and the
+     plain version's on live rays, every compacted order compact_order's
+     under the launch's key, the route the switch asks for; the pass and
+     its BVH launches timed in turns with the switch-free ones; config 7's
+     dense launches (under SRT_BVH_COMPACT=0) replayed with
+     sort_rays=True, equal and timed in turns.
+Then one JSON line per the kernel table (with the ring builds of phase 11
+on config 7) (the triangle kernel's row also
 carries its full-MT bounds over the live pairs and over every ray, and
 its 6/pallas numbers), the card line again, and the last line {"ok": true, "device": {...}}.  Any failed phase exits non-zero
 before the last line.  Without CUDA it exits 1 and prints no result.
@@ -206,6 +223,7 @@ import collections
 import concurrent.futures
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import importlib.util
 import io
@@ -250,6 +268,7 @@ from simple_raytracer_tpu_torch.ops.cuda import build
 from simple_raytracer_tpu_torch.ops.cuda import trace_kernel as tk
 from simple_raytracer_tpu_torch.ops.cuda import triangle_kernel as trk
 from simple_raytracer_tpu_torch.ops.intersect import intersect_triangles
+from simple_raytracer_tpu_torch.ops import scene_types as tst
 from simple_raytracer_tpu_torch.ops.scene_types import whole_trace_variant
 from simple_raytracer_tpu_torch.ops.trace import add_sky, trace_rays
 from simple_raytracer_tpu_torch.ops.triangle import (intersect_packed_plain,
@@ -508,7 +527,8 @@ def build_kernels(extra=()) -> str:
     for kernel, entry, names, flag in (
             (tk.KERNEL, "trace_kernel", tk.TRI_MODES, "counting"),
             (bk.KERNEL, "bvh_kernel|ray_partials|rank_boxes|bucket_rays|"
-             "scan_buckets|scatter_rays", bk.VARIANTS, "plucker"),
+             "scan_buckets|scatter_rays|morton_keys", bk.VARIANTS,
+             "plucker"),
             (sk.KERNEL, "bounce_kernel", {}, ""),
             (trk.KERNEL, "triangle_kernel(?=E)|compact_live", {}, ""),
             (probe.KERNEL, "column_sum|scalar_sum|gated_loop|empty_cluster",
@@ -726,12 +746,9 @@ def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
     before the last bounce samples the BSDF.  Triangles: a small mesh is
     tested whole (live rays x active triangles x MT); a clustered mesh by
     the rule of the BVH rows, from ``work`` (``clustered_work`` of the
-    plain version's rays): every live ray slab-tests the hierarchy's root
-    boxes, and MT runs over the real slots of every cluster whose box the
-    ray may meet before its final t.  Without ``work``, the flat gate's
-    count (every live ray slab-tests every real cluster box, and each ray
-    whose nearest hit is a triangle runs MT over the K slots of its
-    cluster), which counts the flat gate's own work, not the data's.
+    plain version's rays, which a clustered mesh needs): every live ray
+    slab-tests the hierarchy's root boxes, and MT runs over the real slots
+    of every cluster whose box the ray may meet before its final t.
     ``sky``: the kernel evaluates the gradient sky (not in the nine-row
     form, whose texture is sampled outside)."""
     n_s = int(scene.spheres.active.sum())
@@ -739,18 +756,14 @@ def kernel_flops(scene, tri_backend: str, n_rays: int, segments: list,
     tris = scene.triangles
     variant = whole_trace_variant(scene, tri_backend)
     flops = n_rays * (RAYGEN_FLOPS + (SKY_FLOPS if sky else 0))
-    for i, (live, hits, tri_hits) in enumerate(segments):
+    for i, (live, hits, _) in enumerate(segments):
         flops += live * (n_s * SPHERE_FLOPS + n_p * PLANE_FLOPS)
         if variant == "small":
             flops += live * int(tris.active.sum()) * MT_FLOPS
-        elif variant == "clustered" and work is not None:
+        elif variant == "clustered":
             roots = int((tris.clusters.hierarchy.groups[:, 0] < 1.0e37).sum())
             flops += (live * (roots * SLAB_FLOPS + INV_DIR_FLOPS)
                       + work[i][1] * MT_FLOPS)
-        elif variant == "clustered":
-            real = int((tris.clusters.slots[:, 0] >= 0).sum())
-            flops += live * (real * SLAB_FLOPS + INV_DIR_FLOPS)
-            flops += tri_hits * tris.clusters.k * MT_FLOPS
         flops += hits * SHADE_FLOPS
         if i < len(segments) - 1:
             flops += hits * BSDF_FLOPS
@@ -945,20 +958,25 @@ def admitted(o_, d_, walked, t_final, clusters) -> tuple:
 
 
 def compaction_check(label: str, b: int, prep, clusters) -> None:
-    """A compacted launch's ray order, made on the card inside the launch,
-    against ops/bvh.compact_order on the same rays: the same count, the
-    same admitted rays first, and every ray listed once."""
+    """A compacted launch's ray order, made on the card by the launch,
+    against ops/bvh.compact_order under the launch's key on the same rays:
+    the same count, the same admitted rays first, and every ray listed
+    once; under the Morton key (sorted beside the launch) the whole order
+    is compact_order's."""
     o_, d_, alive, t_init = bvh_inputs(prep)
+    key = "morton" if prep.options.morton else "super"
     order, count = bvh.compact_order(o_, d_, alive, t_init,
-                                     clusters.hierarchy.admission)
+                                     clusters.hierarchy.admission, key)
     n = int(count)
     perm = prep.perm.long()
     if not (int(prep.count) == n
             and torch.equal(perm[:n].sort().values, order[:n].sort().values)
             and torch.equal(perm.sort().values,
-                            torch.arange(perm.numel(), device=perm.device))):
-        fail(f"cell {label} bounce {b}: the card's compaction admits "
-             f"{int(prep.count)} rays, compact_order {n}, or other rays")
+                            torch.arange(perm.numel(), device=perm.device))
+            and (key == "super" or torch.equal(perm, order))):
+        fail(f"cell {label} bounce {b}: the card's compaction ({key} key) "
+             f"admits {int(prep.count)} rays, compact_order {n}, or other "
+             "rays, or in another order")
 
 
 def check_bvh_launches(label: str, recorded, clusters, table,
@@ -1728,11 +1746,67 @@ def device_ms_by_kernel(fn, reps: int = 3) -> dict:
     return {k: v / 1e3 / reps for k, v in kernel_device_us(prof).items()}
 
 
+class ParentBvhLibrary:
+    """A parent build of the BVH kernel's C interface 3 (e9ce31e to
+    0fee89c: no BvhOptions) called through this one: a launch passes its
+    arguments without the options, and one whose options ask for a switch
+    (the reverse order, the Morton key), which that interface lacks, is
+    refused.  Every other name is the library's."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    @staticmethod
+    def _drop_options(args) -> list:
+        opt = args[-3]
+        if opt.reverse or opt.morton:
+            raise ValueError("a parent BVH build of C interface 3 has no "
+                             "reverse order and no Morton key")
+        return [*args[:-3], *args[-2:]]
+
+    def srt_bvh_launch(self, *args):
+        return self._lib.srt_bvh_launch(*self._drop_options(args))
+
+    def srt_bvh_count_launch(self, *args):
+        return self._lib.srt_bvh_count_launch(*self._drop_options(args))
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+class ParentBvhKernel(bk.Kernel):
+    """A parent checkout's BVH kernel: a build of this C interface bound
+    by bk._bind, or one of interface 3 bound without BvhOptions and called
+    through ParentBvhLibrary; any other version is refused."""
+
+    def __init__(self, source: Path):
+        super().__init__(source, self.bind)
+        self.version = None
+
+    def bind(self, lib) -> None:
+        self.version = build.interface(lib, "srt_bvh_interface")
+        if self.version != 3:
+            bk._bind(lib)          # refuses every version but this one
+            return
+        lib.srt_bvh_launch.argtypes = (bk.LAUNCH_ARGTYPES[:-3]
+                                       + bk.LAUNCH_ARGTYPES[-2:])
+        lib.srt_bvh_launch.restype = ctypes.c_int
+        lib.srt_bvh_count_launch.argtypes = (bk.COUNT_ARGTYPES[:-3]
+                                             + bk.COUNT_ARGTYPES[-2:])
+        lib.srt_bvh_count_launch.restype = ctypes.c_int
+        lib.srt_bvh_work_words.argtypes = [bk.BvhParams]
+        lib.srt_bvh_work_words.restype = ctypes.c_longlong
+
+    def _build(self):
+        lib = super()._build()
+        return ParentBvhLibrary(lib) if self.version == 3 else lib
+
+
 def parent_bvh_kernel(parent: Path):
-    """The parent checkout's BVH kernel, bound to this C interface
-    (bk._bind refuses a build of any other)."""
-    return bk.Kernel(parent / "simple_raytracer_tpu_torch" / "csrc"
-                     / "bvh_kernel.cu", bk._bind)
+    """The parent checkout's BVH kernel (ParentBvhKernel: this C
+    interface, or interface 3)."""
+    return ParentBvhKernel(parent / "simple_raytracer_tpu_torch" / "csrc"
+                           / "bvh_kernel.cu")
 
 
 def parent_launcher(kernel, pp, out):
@@ -2308,7 +2382,9 @@ def probe_timings(card: str, probes: dict, floor: dict, errs: dict,
 # The whole-trace walk's constants swept on the clustered cells' passes
 # (phase 6), each a build of the kernel with -D flags of the source's
 # names: the split point (0: never split, 32: always), the ring (buffers x
-# chunk), the block and the flat gate (every cluster box, no hierarchy)
+# chunk) and the block (the flat gate, every cluster box without the
+# hierarchy, lost 1.6-2.1x on every cell and left the source: PERF.md
+# names the commit that builds it)
 TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                "split 8": ["-DSRT_TRACE_SPLIT_MAX=8"],
                "split 16": ["-DSRT_TRACE_SPLIT_MAX=16"],
@@ -2320,8 +2396,7 @@ TRACE_SWEEP = {"split 0": ["-DSRT_TRACE_SPLIT_MAX=0"],
                              "-DSRT_TRACE_CHUNK=32"],
                "ring 3x128": ["-DSRT_TRACE_STAGES=3"],
                "block 64": ["-DSRT_TRACE_BLOCK=64"],
-               "block 256": ["-DSRT_TRACE_BLOCK=256"],
-               "flat gate": ["-DSRT_TRACE_FLAT_GATE=1"]}
+               "block 256": ["-DSRT_TRACE_BLOCK=256"]}
 # The path variants' constants (none, small) swept on the passes of
 # configs 1, 2, 3 and 3/texture (phase 6): the block of persistent warps
 # (small) and of one thread a ray (none), and the path indices a
@@ -3374,13 +3449,252 @@ def viewer_phase(card: str) -> dict:
     return totals
 
 
+# ---- 11: the JAX package's opt-in switches ----
+
+# each switch set for one pass of configs 6 and 7 under "auto" and "fused";
+# name -> (variable, value).  "packed 700" sends config 6's table to
+# streamed (768 clusters above the limit) and "mega 700" config 6 under
+# "fused" out of the whole-trace kernel into the fused per-bounce path
+SWITCH_CELLS = ("6", "6/fused", "7", "7/fused")
+SWITCHES = {"morton": ("SRT_BVH_COMPACT_KEY", "morton"),
+            "rev": ("SRT_BVH_ORDER", "rev"),
+            "compact 0": ("SRT_BVH_COMPACT", "0"),
+            "compact 1": ("SRT_BVH_COMPACT", "1"),
+            "ring 4": ("SRT_BVH_DMA_SLOTS", "4"),
+            "ring 8": ("SRT_BVH_DMA_SLOTS", "8"),
+            "packed 700": ("SRT_BVH_PACKED_VMEM_MAX", "700"),
+            "mega 700": ("SRT_MEGA_PACKED_MAX", "700"),
+            "slices 3": ("SRT_MEGA_MT_SLICES", "3")}
+# the switches the port reads once, at import: the module constant each
+# sets, which the phase sets as an import under the variable would
+IMPORT_KNOBS = {"SRT_BVH_PACKED_VMEM_MAX": (bvh, "PACKED_VMEM_MAX_CLUSTERS"),
+                "SRT_MEGA_PACKED_MAX": (tst, "MEGA_PACKED_MAX_CLUSTERS"),
+                "SRT_MEGA_MT_SLICES": (tk, "MEGA_MT_SLICES")}
+# the ring builds of the switches (SRT_BVH_DMA_SLOTS), each a row of the
+# kernels line, timed on cell 7
+RING_ROWS = {"ring 4": ("bvh_streamed_ring4", 4),
+             "ring 8": ("bvh_streamed_ring8", 8)}
+SWITCH_SEED = 4343
+# passes timed a turn: one of the split path's host-bound passes (about
+# 100 ms), more of the fused paths'
+SWITCH_PASS_ITERS = {"6/fused": 5, "7/fused": 2}
+
+
+@contextlib.contextmanager
+def switch(name: str):
+    """Switch ``name`` of SWITCHES set while the body runs: its variable,
+    and for one the port reads at import the module's constant as an
+    import under it would set it; both restored after."""
+    var, value = SWITCHES[name]
+    with knob(var, value):
+        if var not in IMPORT_KNOBS:
+            yield
+            return
+        mod, const = IMPORT_KNOBS[var]
+        saved = getattr(mod, const)
+        setattr(mod, const, int(value))
+        try:
+            yield
+        finally:
+            setattr(mod, const, saved)
+
+
+def route_pass(r: Renderer, camera, time_seed: int) -> tuple:
+    """One pass's per-ray radiance (3, R) by render_pass's route for the
+    cell's scene and backend (the whole-trace kernel, else
+    trace_per_bounce: the fused or the split path), and the Recorder of
+    its BVH and shade launches."""
+    o = r.options
+    if trace_mod.takes_whole_trace(r.device_scene, o.tri_backend):
+        args, kw = trace_args(r, camera, time_seed)
+        with Recorder() as rec:
+            color = tk.trace_full(*args, **kw, tri_backend=o.tri_backend)
+        return torch.stack(list(color)), rec
+    return per_bounce_pass(r, camera, time_seed)
+
+
+def in_turns(base, other, iters: int = 1) -> tuple:
+    """ms a call of two callables, in turns (base, other, other, base),
+    ``iters`` calls a turn after one unmeasured call of each: (base's two,
+    other's two)."""
+    base()
+    other()
+    t = [cuda_ms(fn, iters=iters, repeats=1, warmup=0)[0]
+         for fn in (base, other, other, base)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def sort_rays_replay(label: str, recorded, clusters, table) -> str:
+    """The recorded dense streamed launches of a pass replayed through the
+    wrapper with sort_rays=True (the rays permuted by the first super they
+    may meet, the results scattered back): (t, slot) equal to the launch's
+    on every ray, and both timed in turns."""
+    dense = [(pp, oo) for pp, oo in recorded
+             if pp.perm is None and pp.variant == "streamed"]
+    if not dense:
+        fail(f"cell {label}: no dense streamed launch to sort")
+
+    def sorted_launches():
+        out = []
+        for pp, _ in dense:
+            o_, d_, alive, t_init = bvh_inputs(pp)
+            out.append(bk.intersect_triangles_bvh(
+                o_, d_, alive, t_init, clusters, table, force_streamed=True,
+                sort_rays=True))
+        return out
+
+    for (pp, (t_k, s_k)), (t_s, s_s) in zip(dense, sorted_launches()):
+        if not (torch.equal(t_s, t_k) and torch.equal(s_s, s_k)):
+            fail(f"cell {label}: a launch under sort_rays differs from the "
+                 "unsorted launch")
+    base, other = in_turns(
+        lambda: [bk.launch(pp, oo) for pp, oo in dense], sorted_launches)
+    return (f"its {len(dense)} dense streamed launches replayed with "
+            f"sort_rays=True: (t, slot) equal on every ray; "
+            f"{other[0]:.4f}, {other[1]:.4f} against unsorted {base[0]:.4f}"
+            f", {base[1]:.4f} ms a pass in turns (sorted / unsorted "
+            f"{sum(other) / sum(base):.3f}; the sort, gathers and scatters "
+            "included)")
+
+
+def switch_phase(card: str, renderers: dict) -> tuple:
+    """Phase 11: each switch of SWITCHES set for one pass of each of
+    SWITCH_CELLS at its preset size, every kernel's counts reset just
+    before the pass and read just after: the per-ray radiance bit for bit
+    the switch-free pass's (that of cell 6 where "mega 700" sends
+    6/fused to the fused path), every BVH launch's (t, slot) on live rays
+    the switch-free launch's and the plain version's, every compacted
+    launch's order compact_order's under its key (the whole order under
+    "morton"), and the route the switch asks for; the pass and its BVH
+    launches timed in turns with the switch-free ones; under "compact 0"
+    cell 7's dense launches replayed with sort_rays=True.  Returns the
+    kernels line's rows of the ring builds and the launches counted."""
+    rings = {name: bk.ring_kernel(depth)
+             for name, (_, depth) in RING_ROWS.items()}
+    kernels = dict(KERNELS, **{RING_ROWS[n][0]: k for n, k in rings.items()})
+    ref = {label: route_pass(*renderers[label], SWITCH_SEED)
+           for label in SWITCH_CELLS}
+    torch.cuda.synchronize()
+    rows, launches = {}, collections.Counter()
+    for label in SWITCH_CELLS:
+        r, camera = renderers[label]
+        tris = r.device_scene.triangles
+        cl, table = tris.clusters, tris.table
+        for name in SWITCHES:
+            var, value = SWITCHES[name]
+            for k in kernels.values():
+                k.reset_counts()
+            with switch(name):
+                k_rad, rec = route_pass(r, camera, SWITCH_SEED)
+                torch.cuda.synchronize()
+                got = {kind: dict(k.variant_launches)
+                       for kind, k in kernels.items() if k.launches}
+                for kind, k in kernels.items():
+                    launches[kind] += k.launches
+                base = "6" if (label, name) == ("6/fused", "mega 700") else label
+                b_rad, b_rec = ref[base]
+                fin = torch.isfinite(k_rad)
+                if not (torch.equal(fin, torch.isfinite(b_rad))
+                        and torch.equal(k_rad[fin], b_rad[fin])):
+                    fail(f"cell {label} under {var}={value}: the radiance "
+                         f"differs from the switch-free pass of cell {base}")
+                if len(rec.bvh) != len(b_rec.bvh):
+                    fail(f"cell {label} under {var}={value}: "
+                         f"{len(rec.bvh)} BVH launches, switch-free "
+                         f"{len(b_rec.bvh)}")
+                for b, ((pp, (t_k, s_k)), (_, (t_b, s_b))) in enumerate(
+                        zip(rec.bvh, b_rec.bvh)):
+                    live = pp.rays[6] > 0
+                    if not (torch.equal(t_k[live], t_b[live])
+                            and torch.equal(s_k[live], s_b[live])):
+                        fail(f"cell {label} under {var}={value} bounce {b}:"
+                             " (t, slot) differ from the switch-free launch")
+                want = {"compact 0": lambda pp: pp.perm is None,
+                        "compact 1": lambda pp: pp.perm is not None,
+                        "morton": lambda pp: (pp.perm is None
+                                              or pp.options.morton == 1),
+                        "rev": lambda pp: pp.options.reverse == 1,
+                        # configs 6 and 7 both hold more than 700
+                        "packed 700": lambda pp: pp.variant == "streamed",
+                        }.get(name, lambda pp: True)
+                if not all(want(pp) for pp, _ in rec.bvh):
+                    fail(f"cell {label} under {var}={value}: a launch "
+                         "without the switch's form")
+                if name in RING_ROWS and any(
+                        pp.variant == "streamed" for pp, _ in rec.bvh) \
+                        and not rings[name].launches:
+                    fail(f"cell {label} under {var}={value}: the ring "
+                         "build was never launched")
+                if (label, name) == ("6/fused", "mega 700") and not rec.bvh:
+                    fail("mega 700 left config 6 under fused in the "
+                         "whole-trace kernel")
+                note = ""
+                if rec.bvh:
+                    ring_row = name in RING_ROWS and label == "7"
+                    max_abs, work, plain_s, _, _ = check_bvh_launches(
+                        f"{label} under {var}={value}", rec.bvh, cl, table,
+                        count_work=ring_row)
+                    note = (f"; {len(rec.bvh)} BVH launches: (t, slot) the "
+                            f"switch-free launches' and the plain "
+                            f"version's on live rays (max |dt| {max_abs:.3e})"
+                            + ("; every compacted order compact_order's"
+                               if any(pp.perm is not None
+                                      for pp, _ in rec.bvh) else ""))
+
+            def switched():
+                with switch(name):
+                    route_pass(r, camera, SWITCH_SEED)
+
+            # the cell's switch-free pass with every switch unset, in turns
+            pass_b, pass_s = in_turns(
+                lambda: route_pass(r, camera, SWITCH_SEED), switched,
+                iters=SWITCH_PASS_ITERS.get(label, 1))
+            times = (f"; the pass {pass_s[0]:.4f}, {pass_s[1]:.4f} ms "
+                     f"against the switch-free {pass_b[0]:.4f}, "
+                     f"{pass_b[1]:.4f} ms in turns (switch / switch-free "
+                     f"{sum(pass_s) / sum(pass_b):.3f})")
+            if rec.bvh and b_rec.bvh:
+                # a recorded launch keeps its form (options, ring build)
+                run = lambda recs: lambda: [bk.launch(pp, oo)
+                                            for pp, oo in recs]
+                bvh_b, bvh_s = in_turns(run(b_rec.bvh), run(rec.bvh),
+                                        iters=5)
+                times += (f"; its BVH launches {bvh_s[0]:.4f}, "
+                          f"{bvh_s[1]:.4f} ms a pass against the "
+                          f"switch-free launches' {bvh_b[0]:.4f}, "
+                          f"{bvh_b[1]:.4f} ms"
+                          + ("" if base == label else f" (cell {base}'s)")
+                          + f" ({sum(bvh_s) / sum(bvh_b):.3f})")
+                if name in RING_ROWS and label == "7":
+                    flops, nbytes, _ = bvh_bound(cl, work)
+                    t_ops = flops / FP32_PEAK * 1e3
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    rows[name] = dict(
+                        ms=sum(bvh_s) / 2, plain_ms=plain_s * 1e3,
+                        max_abs=max_abs, bound_ms=max(t_ops, t_bytes),
+                        bound_by=("operations" if t_ops >= t_bytes
+                                  else "bytes"))
+            if name == "compact 0" and label == "7":
+                times += "; " + sort_rays_replay(label, rec.bvh, cl, table)
+            say(f"[11] cell {label} under {var}={value}: launches {got}; "
+                f"radiance bit-identical to the switch-free pass"
+                + ("" if base == label else f" of cell {base}")
+                + f"{note}{times}  [{card}]")
+    for name, (row, _) in RING_ROWS.items():
+        if name not in rows or not launches[row]:
+            fail(f"{row}: no launch on config 7")
+        rows[name]["launches"] = launches[row]
+    return rows, dict(launches)
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--parent", type=Path, default=None,
         help="a checkout of an earlier commit of this repository, from "
              "e9ce31e on: its BVH kernel (simple_raytracer_tpu_torch/csrc/"
-             "bvh_kernel.cu), its whole-trace kernel (trace_kernel.cu), "
+             "bvh_kernel.cu, this C interface or the one before "
+             "BvhOptions), its whole-trace kernel (trace_kernel.cu), "
              "its shade kernel (bounce_kernel.cu) and its probe kernel "
              "(probe_kernel.cu), each with this C interface, are built "
              "beside this one's, and phase 6 times every "
@@ -3412,13 +3726,18 @@ def main(argv=None) -> int:
         # the walk's SASS of both BVH sources, built beside the kernels
         sass_job = concurrent.futures.ThreadPoolExecutor(1).submit(
             walk_sass, (bk.KERNEL, parent))
-    ptxas = build_kernels(() if parent is None else
-                          (parent, parent_trace, parent_shade, parent_probe))
+    # the ring builds of phase 11 (SRT_BVH_DMA_SLOTS), built beside these
+    rings = tuple(bk.ring_kernel(depth) for _, depth in RING_ROWS.values())
+    ptxas = build_kernels(rings + (() if parent is None else
+                                   (parent, parent_trace, parent_shade,
+                                    parent_probe)))
     say(f"[2] build: {time.perf_counter() - t0:.2f} s for the five kernel "
         "sources "
         f"(nvcc sm_90a, ctypes; "
         + ", ".join(f"{SOURCES[kind]} {k.build_seconds:.2f} s"
                     for kind, k in KERNELS.items())
+        + "; the ring builds " + ", ".join(
+            f"{k.tag} {k.build_seconds:.2f} s" for k in rings)
         + ("" if parent is None else
            f"; the parent's {parent.source} {parent.build_seconds:.2f} s, "
            f"{parent_trace.source} {parent_trace.build_seconds:.2f} s, "
@@ -4035,12 +4354,8 @@ def main(argv=None) -> int:
             flops = kernel_flops(ds, o.tri_backend, n_rays, segments,
                                  sky=prep.n_out == 3, work=res["work"])
             if res["work"] is not None:
-                flat = kernel_flops(ds, o.tri_backend, n_rays, segments,
-                                    sky=prep.n_out == 3)
-                extra += (f"; the flat gate's count (the parent's rule) "
-                          f"{flat:.4g} FLOP, {flat / FP32_PEAK * 1e3:.4f} ms"
-                          "; " + trace_walk_report(label, res["counts"],
-                                                   res["work"]))
+                extra += "; " + trace_walk_report(label, res["counts"],
+                                                  res["work"])
             nbytes = 4.0 * prep.n_out * n_rays
             segs = sum(seg[0] for seg in segments)
             work = (f"{n_rays / k_ms / 1e3:.1f} Mrays/s primary, "
@@ -4113,6 +4428,9 @@ def main(argv=None) -> int:
         kernel.reset_counts()
     totals["view"] = viewer_phase(card)
 
+    # ---- 11: the JAX package's opt-in switches ----
+    ring_rows, totals["switch"] = switch_phase(card, renderers)
+
     entries = []
     for name, kind, line, cell, covered, variant in ROWS:
         _, max_abs, k_ms, p_ms, bound_ms, bound_by, o = timing[cell]
@@ -4166,6 +4484,23 @@ def main(argv=None) -> int:
             entries[-1]["cells"] = {
                 c: v for c, v in walk_cells.items()
                 if CELLS[c][2] == variant}
+    for name, (row, depth) in RING_ROWS.items():
+        # the ring builds (SRT_BVH_DMA_SLOTS), on config 7's launches of
+        # phase 11
+        o = renderers["7"][0].options
+        v = ring_rows[name]
+        entries.append({
+            "name": row, "route": "cuda",
+            "source": "simple_raytracer_tpu_torch/csrc/bvh_kernel.cu",
+            "replaces": "simple_raytracer_tpu/ops/pallas/bvh_kernel.py:678",
+            "launches": v["launches"], "max_abs_err": v["max_abs"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": None,
+            "shape": (f"config 7 (tri_backend=auto, SRT_BVH_DMA_SLOTS="
+                      f"{depth}: -DSRT_BVH_STAGES={depth}), {o.width}x"
+                      f"{o.height}, {o.num_samples} spp, {o.num_bounces} "
+                      "bounces; launches: phase 11's passes")})
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ runs the binned-SAH builder of the port's host library
 (``csrc/host_accel.cpp``, the C interface and the algorithm of the JAX
 package's native library), which the host compiler builds at first use
 into ``build/srt_torch_kernels/`` (``ops/cuda/build.HostLibrary``); a
-failed build raises.  ``force_python=True`` asks for the NumPy
+failed build raises.  ``SRT_NATIVE_LIB`` names another library of the
+same C interface to load instead (``host_library``).  ``force_python=True`` asks for the NumPy
 median-split builder instead, the JAX package's fallback.  The library
 also transforms triangles (``transform_triangles``) and parses binary STL
 (``parse_stl``, for ``io/stl.py``).  ``build_clusters`` cuts the tree into
@@ -25,6 +26,7 @@ BVH layout:
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -51,12 +53,40 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 HOST = build.HostLibrary(build.PACKAGE_DIR / "csrc" / "host_accel.cpp", _bind)
+# the entry points a library named by SRT_NATIVE_LIB must export (the JAX
+# package's native library and csrc/host_accel.cpp alike)
+HOST_SYMBOLS = ("srt_bvh_build", "srt_transform_triangles", "srt_stl_count",
+                "srt_stl_parse")
+_NAMED = {}      # path -> the library SRT_NATIVE_LIB named, loaded once
 
 
 def host_library() -> ctypes.CDLL:
-    """The host library, built on first use; raises RuntimeError with the
-    compiler's output if it cannot be built."""
-    return HOST.library()
+    """The host library: the one SRT_NATIVE_LIB names, or else
+    ``csrc/host_accel.cpp`` built on first use (RuntimeError with the
+    compiler's output if it cannot be built).  SRT_NATIVE_LIB (the JAX
+    package's accel.py:41) is read at each call; its library is loaded
+    once.  A named file that is missing, cannot be loaded or lacks one of
+    ``HOST_SYMBOLS`` raises RuntimeError: stricter than the JAX package,
+    which then tries its other candidates and at last its NumPy
+    builder."""
+    path = os.environ.get("SRT_NATIVE_LIB")
+    if not path:
+        return HOST.library()
+    if path not in _NAMED:
+        if not os.path.isfile(path):
+            raise RuntimeError(f"SRT_NATIVE_LIB={path!r}: no such file")
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as exc:
+            raise RuntimeError(f"SRT_NATIVE_LIB={path!r} cannot be loaded: "
+                               f"{exc}") from exc
+        missing = [n for n in HOST_SYMBOLS if not hasattr(lib, n)]
+        if missing:
+            raise RuntimeError(f"SRT_NATIVE_LIB={path!r} lacks "
+                               f"{', '.join(missing)}")
+        _bind(lib)
+        _NAMED[path] = lib
+    return _NAMED[path]
 
 
 def _f32p(a: np.ndarray):

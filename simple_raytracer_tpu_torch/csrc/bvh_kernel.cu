@@ -77,7 +77,9 @@
 // back to the host:
 //   1. ray_partials and rank_boxes: the visiting order, the boxes by
 //      ascending squared distance of their centers from the mean live-ray
-//      origin (ops/bvh.py: front_to_back; the order changes no result);
+//      origin (ops/bvh.py: front_to_back; the order changes no result),
+//      descending under BvhOptions.reverse (SRT_BVH_ORDER=rev), which never
+//      reverses the admission boxes' rank;
 //   2. with admission boxes, the ray compaction (the plain version is
 //      ops/bvh.py: compact_order, which admits the same rays;
 //      tests/test_torch_bvh_streamed.py: compact_buckets transcribes these
@@ -86,7 +88,13 @@
 //      direction octant, or the last bucket, and counts the buckets;
 //      scan_buckets places them; scatter_rays writes each ray to its
 //      bucket's next place (any order within a bucket) and leaves the
-//      admitted rays first, their count in device memory;
+//      admitted rays first, their count in device memory.  Under the
+//      Morton key (BvhOptions.morton, SRT_BVH_COMPACT_KEY=morton) the
+//      launch takes perm and count as given: srt_bvh_morton_keys wrote
+//      each ray's packed key and the count before it (morton_keys), and
+//      the caller sorted the keys (ops/cuda/bvh_kernel.py; the JAX
+//      package's lax.sort), since the key's 2^(31 - index bits) buckets
+//      outgrow a counting sort's shared memory;
 //   3. the walk over the ray list: lane i takes ray perm[i] (or ray i), a
 //      lane at or past the count writes a miss.  Every result goes to its
 //      own ray's place in the output.
@@ -178,6 +186,14 @@ struct BvhParams {
                         // kFlat, not PLUCKER); 0: no sub-box gate
 };
 
+// The launch's opt-in switches, beside BvhParams (which the walk takes, so
+// they leave its code as it was); both 0 by default
+struct BvhOptions {
+  int32_t reverse;      // 1: the visiting order back to front
+  int32_t morton;       // 1: the compaction's Morton key (perm and count
+                        // given: srt_bvh_morton_keys and the caller's sort)
+};
+
 enum Variant { kFlat = 0, kTwoLevel = 1, kStreamed = 2 };
 
 // the rays of a launch, one (R,) array each
@@ -224,6 +240,9 @@ constexpr int kPluckerRowF4 = kPluckerCols / 4;
 constexpr int kChunk = SRT_BVH_CHUNK;
 constexpr int kStages = SRT_BVH_STAGES;
 constexpr int kSplitMax = SRT_BVH_SPLIT_MAX;
+// the ring's parities are the bits of one word; any depth from 2 works
+// (SRT_BVH_DMA_SLOTS builds one of its own: ops/cuda/bvh_kernel.py)
+static_assert(kStages >= 2 && kStages <= 32, "the ring holds 2 to 32 chunks");
 // the ray compaction and the visiting orders (ops/bvh.py: ADMISSION_MAX;
 // ops/cuda/bvh_kernel.py: RANK_MAX)
 constexpr int kAdmissionMax = 256;
@@ -431,26 +450,29 @@ ray_partials(const RayIn in, const BvhParams p, float4* __restrict__ part) {
   if (threadIdx.x == 0) part[blockIdx.x] = s_sum[0];
 }
 
-// the squared distance of box row b's center from the origin; a NaN sorts
-// last, as +inf does (front_to_back's key)
+// the squared distance of box row b's center from the origin, negated
+// under `neg` (front_to_back's key, reversed); a NaN sorts last, as +inf
+// does
 __device__ __forceinline__ float center_d2(const float* __restrict__ b,
-                                           const float* o) {
+                                           const float* o, bool neg) {
   const float cx = (__ldg(b + 0) + __ldg(b + 3)) * 0.5f - o[0];
   const float cy = (__ldg(b + 1) + __ldg(b + 4)) * 0.5f - o[1];
   const float cz = (__ldg(b + 2) + __ldg(b + 5)) * 0.5f - o[2];
   const float d2 = cx * cx + cy * cy + cz * cz;
-  return is_nan(d2) ? INFINITY : d2;
+  const float key = neg ? -d2 : d2;
+  return is_nan(key) ? INFINITY : key;
 }
 
 // The visiting order of the visit boxes (the groups) and the admission
 // boxes in their front-to-back rank (ops/bvh.py: front_to_back: ascending
 // squared distance of the centers from the mean live-ray origin, ties by
-// index): thread t < n_visit places visit box t, the next n_admission
+// index; the visit boxes descending under `reverse`, the admission boxes
+// never): thread t < n_visit places visit box t, the next n_admission
 // threads admission box t - n_visit.
 __global__ void __launch_bounds__(kThreads)
 rank_boxes(const float4* __restrict__ part, const int n_part,
            const float* __restrict__ visit, const int n_visit,
-           const float* __restrict__ adm, const int n_adm,
+           const float* __restrict__ adm, const int n_adm, const bool reverse,
            int32_t* __restrict__ visit_order,
            int32_t* __restrict__ adm_order) {
   __shared__ float s_d2[kRankMax + kAdmissionMax];
@@ -481,8 +503,9 @@ rank_boxes(const float4* __restrict__ part, const int n_part,
   __syncthreads();
   const int n_all = n_visit + n_adm;
   for (int j = threadIdx.x; j < n_all; j += kThreads)
-    s_d2[j] = j < n_visit ? center_d2(visit + 8 * j, s_origin)
-                          : center_d2(adm + 8 * (j - n_visit), s_origin);
+    s_d2[j] = j < n_visit ? center_d2(visit + 8 * j, s_origin, reverse)
+                          : center_d2(adm + 8 * (j - n_visit), s_origin,
+                                      false);
   __syncthreads();
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= n_all) return;
@@ -609,6 +632,89 @@ scatter_rays(const int32_t* __restrict__ bucket, const int n,
   if (lane == leader && b >= 0) base = atomicAdd(&cursor[b], __popc(peers));
   base = __shfl_sync(kAll, base, leader);
   if (b >= 0) perm[base + __popc(peers & ((1u << lane) - 1u))] = i;
+}
+
+// The compaction's Morton key (BvhOptions.morton; ops/bvh.py: compact_order
+// with key "morton", morton_cells): each ray's packed key (bucket <<
+// idx_bits) | ray, its bucket 8 x the Morton cell of its origin over the
+// bounds of the real admission boxes (lo below 1e37) plus its direction
+// octant, clamped to the last real bucket, or the last bucket when the ray
+// is dead or may meet no admission box before its t_init; the admitted
+// rays added to count.  The cell: the 31 - idx_bits - 3 bits split x, y, z
+// as (mb + 2) / 3, (mb + 1) / 3, mb / 3, each axis ((v - lo) / span *
+// cells) converted with truncation (a saturating conversion, NaN to 0, as
+// XLA's) and clipped, the bits interleaved MSB first.
+__global__ void __launch_bounds__(kThreads)
+morton_keys(const RayIn in, const BvhParams p, const float* __restrict__ adm,
+            const int idx_bits, int32_t* __restrict__ keys,
+            int32_t* __restrict__ count) {
+  __shared__ float s_box[kAdmissionMax * 6];
+  __shared__ float s_lo[3], s_span[3];
+  const int n_adm = p.n_admission;
+  for (int j = threadIdx.x; j < n_adm * 6; j += kThreads)
+    s_box[j] = __ldg(adm + 8 * (j / 6) + j % 6);
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    const int a = threadIdx.x;
+    float lo = 3.0e38f, hi = -3.0e38f;
+    for (int j = 0; j < n_adm; ++j)
+      if (s_box[6 * j] < 1.0e37f) {
+        lo = fminf(lo, s_box[6 * j + a]);
+        hi = fmaxf(hi, s_box[6 * j + 3 + a]);
+      }
+    s_lo[a] = lo;
+    s_span[a] = fmaxf(hi - lo, 1.0e-20f);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  bool admitted = false;
+  if (i < p.n_rays) {
+    Ray r;
+    r.ox = in.ox[i];
+    r.oy = in.oy[i];
+    r.oz = in.oz[i];
+    r.dx = in.dx[i];
+    r.dy = in.dy[i];
+    r.dz = in.dz[i];
+    if (ray_alive(in, i, p.alive_u8)) {
+      r.inx = 1.0f / r.dx;
+      r.iny = 1.0f / r.dy;
+      r.inz = 1.0f / r.dz;
+      const float t_far = in.t_init[i];
+      for (int j = 0; j < n_adm && !admitted; ++j) {
+        const float* q = s_box + 6 * j;
+        admitted = slab6(q[0], q[1], q[2], q[3], q[4], q[5], r, t_far);
+      }
+    }
+    const int bucket_bits = 31 - idx_bits;
+    const unsigned n_buckets = 1u << bucket_bits;
+    unsigned bucket = n_buckets - 1u;
+    if (admitted) {
+      const int mb = bucket_bits - 3;
+      const int nb[3] = {(mb + 2) / 3, (mb + 1) / 3, mb / 3};
+      const float v[3] = {r.ox, r.oy, r.oz};
+      int q[3];
+      for (int a = 0; a < 3; ++a) {
+        const float cells = (float)(1 << nb[a]);
+        const int c = __float2int_rz((v[a] - s_lo[a]) / s_span[a] * cells);
+        q[a] = min(max(c, 0), (1 << nb[a]) - 1);
+      }
+      unsigned cell = 0;
+      int pos = mb;
+      for (int level = 0; level < nb[0]; ++level)   // nb[0] is the most
+        for (int a = 0; a < 3; ++a)
+          if (level < nb[a]) {
+            --pos;
+            cell |= (unsigned)((q[a] >> (nb[a] - 1 - level)) & 1) << pos;
+          }
+      const unsigned octant = (r.dx < 0.0f) * 4 + (r.dy < 0.0f) * 2
+                              + (r.dz < 0.0f);
+      bucket = min(cell * 8u + octant, n_buckets - 2u);
+    }
+    keys[i] = (int32_t)((bucket << idx_bits) | (unsigned)i);
+  }
+  const int n = __syncthreads_count(admitted);
+  if (threadIdx.x == 0 && n) atomicAdd(count, n);
 }
 
 // ---- the warp walk (kTwoLevel, kStreamed) ----
@@ -1287,8 +1393,8 @@ int launch_bvh(const RayIn& in, const float* staged,
                const float* admission, const float* subboxes, int32_t* work,
                int32_t* perm,
                int32_t* count, float* t_out, int32_t* slot_out,
-               const BvhParams& p, unsigned long long* counters,
-               void* stream) {
+               const BvhParams& p, const BvhOptions& opt,
+               unsigned long long* counters, void* stream) {
   if (p.n_rays <= 0) return (int)cudaSuccess;
   // the warp walk, over the staged MT table or (not kFlat) the Plucker
   // coefficients
@@ -1308,7 +1414,9 @@ int launch_bvh(const RayIn& in, const float* staged,
       || (p.sub_rows
           && (p.plucker || p.variant == kFlat || p.k % p.sub_rows != 0
               || p.k / p.sub_rows > 8
-              || reinterpret_cast<uintptr_t>(subboxes) % 16 != 0)))
+              || reinterpret_cast<uintptr_t>(subboxes) % 16 != 0))
+      || (opt.reverse != 0 && opt.reverse != 1)
+      || (opt.morton != 0 && opt.morton != 1) || (opt.morton && !compact))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // the work scratch (work_words)
@@ -1321,11 +1429,13 @@ int launch_bvh(const RayIn& in, const float* staged,
   const int ray_blocks = (p.n_rays + kThreads - 1) / kThreads;
   const int n_part = min(ray_blocks, kPartials);
   ray_partials<<<n_part, kThreads, 0, st>>>(in, p, part);
-  const int n_rank = p.n_order + p.n_admission;
+  // the Morton key's order came with perm: no admission rank
+  const int n_adm_rank = opt.morton ? 0 : p.n_admission;
+  const int n_rank = p.n_order + n_adm_rank;
   rank_boxes<<<(n_rank + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      part, n_part, groups, p.n_order, admission, p.n_admission,
-      visit_order, adm_order);
-  if (compact) {
+      part, n_part, groups, p.n_order, admission, n_adm_rank,
+      opt.reverse != 0, visit_order, adm_order);
+  if (compact && !opt.morton) {
     cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * kBuckets,
                                       st);
     if (err != cudaSuccess) return (int)err;
@@ -1386,7 +1496,7 @@ int launch_bvh(const RayIn& in, const float* staged,
 // The version of this C interface (ops/cuda/bvh_kernel.py: INTERFACE),
 // raised whenever an argument or BvhParams changes, so a caller can tell
 // which interface a build has (ops/cuda/build.py: interface).
-extern "C" int srt_bvh_interface() { return 3; }
+extern "C" int srt_bvh_interface() { return 4; }
 
 // The int32 words of the work scratch a launch with these parameters
 // needs (the wrapper allocates it).
@@ -1401,7 +1511,8 @@ extern "C" long long srt_bvh_work_words(BvhParams p) {
 // Plucker form's (C * K, 20) table, or null; subboxes: the sub-box form's
 // (C * 8, 8) f32 table (params.sub_rows > 0), or null; work:
 // srt_bvh_work_words int32 words; perm (R,) and count (1,) int32 with
-// admission boxes.
+// admission boxes (under opt.morton, given: srt_bvh_morton_keys and the
+// caller's sort).
 extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                               const float* oz, const float* dx,
                               const float* dy, const float* dz,
@@ -1411,12 +1522,40 @@ extern "C" int srt_bvh_launch(const float* ox, const float* oy,
                               const float* supers, const float* groups,
                               const float* admission, const float* subboxes,
                               int32_t* work, int32_t* perm, int32_t* count,
-                              float* t_out, int32_t* slot_out, BvhParams p,
-                              void* stream) {
+                              float* t_out, int32_t* slot_out,
+                              BvhOptions opt, BvhParams p, void* stream) {
   const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
   return launch_bvh(in, staged, coeffs, gidx, boxes, supers, groups,
                     admission, subboxes, work, perm, count, t_out, slot_out,
-                    p, nullptr, stream);
+                    p, opt, nullptr, stream);
+}
+
+// The Morton key's half of a compaction (BvhOptions.morton): each ray's
+// packed key into keys ((R,) int32) and the admitted rays' count into
+// count ((1,) int32, zeroed here), on the stream; the caller sorts the keys
+// into the order srt_bvh_launch takes as perm (the ray index is each key's
+// low bits, idx_bits = max(bit length of R - 1, 1)).  Rays and admission
+// boxes as srt_bvh_launch's.
+extern "C" int srt_bvh_morton_keys(const float* ox, const float* oy,
+                                   const float* oz, const float* dx,
+                                   const float* dy, const float* dz,
+                                   const void* alive, const float* t_init,
+                                   const float* admission, int32_t* keys,
+                                   int32_t* count, BvhParams p,
+                                   void* stream) {
+  int idx_bits = 1;
+  while (idx_bits < 31 && (1u << idx_bits) < (unsigned)p.n_rays) ++idx_bits;
+  if (p.n_rays <= 0 || p.n_admission <= 0
+      || p.n_admission > kAdmissionMax || admission == nullptr
+      || keys == nullptr || count == nullptr || 31 - idx_bits < 6)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
+  morton_keys<<<(p.n_rays + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      in, p, admission, idx_bits, keys, count);
+  return (int)cudaGetLastError();
 }
 
 // The counting instance (every variant): the same launch, which also adds
@@ -1429,12 +1568,13 @@ extern "C" int srt_bvh_count_launch(
     const float* boxes, const float* supers, const float* groups,
     const float* admission, const float* subboxes, int32_t* work,
     int32_t* perm, int32_t* count, float* t_out, int32_t* slot_out,
-    unsigned long long* counters, BvhParams p, void* stream) {
+    unsigned long long* counters, BvhOptions opt, BvhParams p,
+    void* stream) {
   if (counters == nullptr) return (int)cudaErrorInvalidValue;
   const RayIn in = {ox, oy, oz, dx, dy, dz, t_init, alive};
   return launch_bvh(in, staged, coeffs, gidx, boxes, supers, groups,
                     admission, subboxes, work, perm, count, t_out, slot_out,
-                    p, counters, stream);
+                    p, opt, counters, stream);
 }
 
 extern "C" const char* srt_error_string(int err) {

@@ -103,9 +103,9 @@
 // Shared memory of the walk: each warp's ring, kStages x kChunk x 48 bytes
 // (48 KB a 128-thread block at 2 x 128: a chunk holds a whole cluster of up
 // to 128 slots, one copy), and its barriers, before the tables; the launch
-// opts in above the default 48 KB.  Its constants (the block, the ring, the
-// split point, and the flat gate that skips the hierarchy) are -D defaults
-// that chip_smoke.py's sweep sets on extra builds (PERF.md section 6).
+// opts in above the default 48 KB.  Its constants (the block, the ring and
+// the split point) are -D defaults that chip_smoke.py's sweep sets on extra
+// builds (PERF.md section 6).
 //
 // Bound on the H100 (chip_smoke.py): per-ray FP32 arithmetic (every sphere
 // and plane tested per segment, the root boxes of the hierarchy, MT over
@@ -263,8 +263,7 @@ constexpr float kSlabMargin = 0x1p-16f;
 // (PERF.md section 6; a -D flag of the same name sets each for the
 // sweep): the block (kClusteredTris), the slots of a chunk, the warp's
 // ring of chunk buffers, the most lanes admitting a chunk for which the
-// warp splits each admitting ray's MT across its lanes, and the flat gate
-// (1: every cluster box in batches of 16, no groups or supers).
+// warp splits each admitting ray's MT across its lanes.
 #ifndef SRT_TRACE_BLOCK
 #define SRT_TRACE_BLOCK 128
 #endif
@@ -277,15 +276,11 @@ constexpr float kSlabMargin = 0x1p-16f;
 #ifndef SRT_TRACE_SPLIT_MAX
 #define SRT_TRACE_SPLIT_MAX 32
 #endif
-#ifndef SRT_TRACE_FLAT_GATE
-#define SRT_TRACE_FLAT_GATE 0
-#endif
 constexpr int kWalkBlock = SRT_TRACE_BLOCK;
 constexpr int kWalkWarps = kWalkBlock / 32;
 constexpr int kChunk = SRT_TRACE_CHUNK;
 constexpr int kStages = SRT_TRACE_STAGES;
 constexpr int kSplitMax = SRT_TRACE_SPLIT_MAX;
-constexpr bool kFlatGate = SRT_TRACE_FLAT_GATE != 0;
 constexpr int kSuper = 16;   // clusters per super (ops/bvh.py: SUPER)
 constexpr int kGroup = 16;   // supers per group (ops/bvh.py: GROUP)
 constexpr int kBatch = 16;   // groups slab-tested together
@@ -643,11 +638,11 @@ struct Ring {
 
 // The next chunk to stage: the current cluster's next chunk, else the next
 // cluster some lane admits, through the group, super and cluster gates in
-// index order (kFlatGate: every cluster box, 16 at a time).  A level's
-// gates are tested together when the walk enters its parent, each against
-// the lane's best t then: a t can only fall, so that admits at least what
-// gating each box at its turn would, and the chunk's own turn tests its
-// cluster's box again.  Called by the whole warp; false at the end.
+// index order.  A level's gates are tested together when the walk enters
+// its parent, each against the lane's best t then: a t can only fall, so
+// that admits at least what gating each box at its turn would, and the
+// chunk's own turn tests its cluster's box again.  Called by the whole
+// warp; false at the end.
 template <bool COUNT>
 __device__ __forceinline__ bool next_item(
     Walk& w, Item& it, const TraceArgs& a, const TraceParams& p, bool live,
@@ -664,17 +659,6 @@ __device__ __forceinline__ bool next_item(
       it.base = 0;
       it.ok = (w.c_mask >> i) & 1u;
       return true;
-    }
-    if constexpr (kFlatGate) {
-      if (++w.s >= p.n_groups * kGroup) return false;
-      w.c_mask = live ? slab_mask<kSuper>(a.boxes + 8 * kSuper * w.s, r,
-                                          best_t)
-                      : 0u;
-      w.c_any = __reduce_or_sync(kAll, w.c_mask);
-      if constexpr (COUNT)
-        count<COUNT>(cnt, kCountBoxTests,
-                     kSuper * __popc(__ballot_sync(kAll, live)));
-      continue;
     }
     if (w.s_any) {
       const int i = __ffs(w.s_any) - 1;

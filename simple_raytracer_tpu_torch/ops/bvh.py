@@ -43,12 +43,21 @@ per scene and cached on the clusters) dotted with the per-ray vector
 [d, o x d, o, 1]; ``resolve_plucker`` decides, by the JAX package's
 ``_resolve_plucker`` rule, whether a launch takes it.
 
-``compact_order`` is ``_compact_prefix`` with the "super" key: the rays
-sorted by the front-to-back rank of the first admission box they enter
-and their direction octant, the rays that enter none last, and the count
-of those that enter one.  No order changes a result.  It is the plain
-version of the card's compaction, which runs inside the kernel's launch
-and admits the same rays.
+``compact_order`` is ``_compact_prefix``: the rays sorted by their
+bucket, under the "super" key the front-to-back rank of the first
+admission box they enter and their direction octant, under the "morton"
+key (``SRT_BVH_COMPACT_KEY``, ``resolve_sort_key``) their origin's Morton
+cell over the admission boxes' bounds and their octant, the rays that
+enter none last, and the count of those that enter one.  No order changes
+a result.  It is the plain version of the card's compaction, which runs
+inside the kernel's launch (the Morton keys are sorted beside it) and
+admits the same rays.  ``resolve_compact_cap`` and ``compacts`` are the
+JAX package's compaction policy, ``SRT_BVH_COMPACT`` and
+``SRT_BVH_COMPACT_CAP`` included.
+
+``front_to_back`` is the visiting order (``SRT_BVH_ORDER=rev`` reverses
+it, ``reverse_order``; never the compaction's rank), and
+``sort_rays_by_super`` the permutation of the wrapper's ``sort_rays``.
 
 ``stage_slots`` is the kernel's warp walk's own layout of the slot table
 (48 bytes a slot, the columns Moller-Trumbore reads), kept per scene by
@@ -72,9 +81,11 @@ SENTINEL = 3.0e38    # every plane of a padding box
 ADMISSION_MAX = 256  # the compaction's admission boxes, at most
 # the TPU's table residency limits: a row table of at most this many slots
 # stays resident (bvh_kernel.VMEM_TABLE_MAX_SLOTS), a packed one of at
-# most this many (24, 128) tiles (PACKED_VMEM_MAX_CLUSTERS)
+# most this many (24, 128) tiles (PACKED_VMEM_MAX_CLUSTERS, read from
+# SRT_BVH_PACKED_VMEM_MAX once, at import, as bvh_kernel.py:1036 reads it)
 VMEM_TABLE_MAX_SLOTS = 8192
-PACKED_VMEM_MAX_CLUSTERS = 800
+PACKED_VMEM_MAX_CLUSTERS = int(os.environ.get("SRT_BVH_PACKED_VMEM_MAX",
+                                              "800"))
 PACKET = 128         # triangles per packed tile
 BLOCK_R = 1536       # the TPU wrapper's ray block, compact_cap_auto's unit
 # (ray, cluster) pairs x K slots per chunk of the plain version, by device
@@ -247,13 +258,72 @@ def compact_cap_auto(n_rays: int, block_r: int = BLOCK_R) -> Optional[int]:
     return max(blocks, 16) * block_r
 
 
-def compacts(n_rays: int) -> bool:
-    """Whether a secondary bounce of ``n_rays`` rays takes the compacted
-    route: compact_cap_auto's rule, and room for the key's bucket bits
-    beside the ray index (intersect_triangles_bvh_compact)."""
-    cap = compact_cap_auto(n_rays)
-    idx_bits = max((n_rays - 1).bit_length(), 1)
-    return cap is not None and cap < n_rays and 31 - idx_bits >= 4
+def resolve_compact_cap(n_rays: int, compact="auto") -> Optional[int]:
+    """The compaction policy of the JAX package's BVH call sites
+    (intersect.resolve_compact_cap): ``compact`` is "auto" (the cap of
+    compact_cap_auto), an int cap, or None or 0 (off).  SRT_BVH_COMPACT,
+    read at each call, overrides it: "0" off, "auto", or an int cap (which
+    compacts every bounce, bounce 0 included); under "auto"
+    SRT_BVH_COMPACT_CAP sizes the cap without flattening the per-bounce
+    policy.  A value int() refuses raises ValueError.
+
+    The TPU wrapper compacts the first ``cap`` rays of the order and falls
+    back to the dense kernel when more rays admit.  The card's compaction
+    walks every admitted ray, so here a cap decides only whether a bounce
+    compacts (``compacts``); no cap changes a result."""
+    env = os.environ.get("SRT_BVH_COMPACT")
+    if env is not None:
+        compact = "auto" if env == "auto" else (int(env) or None)
+    if compact == "auto":
+        cap_env = os.environ.get("SRT_BVH_COMPACT_CAP")
+        if cap_env:
+            return int(cap_env)
+        return compact_cap_auto(n_rays)
+    return compact or None
+
+
+def index_bits(n_rays: int) -> int:
+    """The bits of a ray index in the compaction's packed key; the other
+    31 - index_bits are the bucket's (_compact_prefix)."""
+    return max((n_rays - 1).bit_length(), 1)
+
+
+def compacts(n_rays: int, compact="auto") -> bool:
+    """Whether a bounce of ``n_rays`` rays takes the compacted route: a cap
+    from ``resolve_compact_cap(n_rays, compact)`` below the ray count, and
+    room for the key's bucket bits beside the ray index
+    (intersect_triangles_bvh_compact)."""
+    cap = resolve_compact_cap(n_rays, compact)
+    return bool(cap) and cap < n_rays and 31 - index_bits(n_rays) >= 4
+
+
+def resolve_sort_key(bucket_bits: int) -> str:
+    """The compaction's key (bvh_kernel._resolve_sort_key, whose callers
+    pass no key of their own): "super" (the rank of the first admission
+    box a ray enters) or "morton" (its origin's Morton cell), as
+    SRT_BVH_COMPACT_KEY asks, read at each call: "super", "morton" or
+    "auto" (as unset: "super"); any other value raises ValueError.
+    "morton" falls back to "super" below 6 bucket bits."""
+    env = os.environ.get("SRT_BVH_COMPACT_KEY")
+    if env and env not in ("super", "morton", "auto"):
+        raise ValueError(
+            f"SRT_BVH_COMPACT_KEY must be super/morton/auto: {env!r}")
+    if env == "morton" and bucket_bits >= 6:
+        return "morton"
+    return "super"
+
+
+def compact_key(n_rays: int) -> str:
+    """The key a compacted launch of ``n_rays`` rays sorts by
+    (``resolve_sort_key`` at its bucket bits)."""
+    return resolve_sort_key(31 - index_bits(n_rays))
+
+
+def reverse_order() -> bool:
+    """Does SRT_BVH_ORDER ask for the visiting order back to front?  Read
+    at each call, as the JAX front_to_back reads it ("rev"; a debug knob
+    that measures what the order buys)."""
+    return os.environ.get("SRT_BVH_ORDER") == "rev"
 
 
 def inverse(d: Vec3) -> Vec3:
@@ -292,27 +362,68 @@ def slab_pairs(boxes: torch.Tensor, o: Vec3, inv: Vec3,
     return _slab(lambda j: boxes[:, j], o, inv, t_far)
 
 
-def front_to_back(boxes: torch.Tensor, o: Vec3,
-                  alive: torch.Tensor) -> torch.Tensor:
+def front_to_back(boxes: torch.Tensor, o: Vec3, alive: torch.Tensor,
+                  reverse: bool = False) -> torch.Tensor:
     """The boxes' visiting order (int32): ascending squared distance of
     their centers from the mean live-ray origin (intersect_triangles_bvh's
-    front_to_back).  Sentinels sort last.  The order changes no result."""
+    front_to_back; ``reverse``, the knob's ``reverse_order``, negates the
+    distance, as SRT_BVH_ORDER=rev does there).  Sentinels sort last, or
+    under ``reverse`` first.  The order changes no result.  The
+    compaction's rank (``compact_order``) never reverses: _compact_prefix
+    computes its own distance."""
     w = alive.to(torch.float32)
     origin = torch.stack([(o.x * w).sum(), (o.y * w).sum(), (o.z * w).sum()]
                          ) / w.sum().clamp_min(1.0)
     centers = (boxes[:, 0:3] + boxes[:, 3:6]) * 0.5
     d2 = ((centers - origin[None, :]) ** 2).sum(dim=1)
+    if reverse:
+        d2 = -d2
     return torch.argsort(d2, stable=True).to(torch.int32)
 
 
+def morton_cells(o: Vec3, admission: torch.Tensor,
+                 bucket_bits: int) -> torch.Tensor:
+    """(R,) int64: each origin's Morton cell over the bounds of the real
+    admission boxes (_compact_prefix's "morton" key): ``bucket_bits - 3``
+    bits split x, y, z as [(mb + 2) // 3, (mb + 1) // 3, mb // 3], each
+    axis quantised as ((v - lo) / span * cells) truncated, saturated and
+    clipped to its cells (a NaN to cell 0, as XLA's and CUDA's conversions
+    give), the bits interleaved MSB first."""
+    mb = bucket_bits - 3
+    nbits = [(mb + 2) // 3, (mb + 1) // 3, mb // 3]
+    real = admission[:, 0] < 1.0e37
+    lo = torch.where(real[:, None], admission[:, 0:3], SENTINEL).amin(dim=0)
+    hi = torch.where(real[:, None], admission[:, 3:6], -SENTINEL).amax(dim=0)
+    span = (hi - lo).clamp_min(1.0e-20)
+    qs = []
+    for axis, (v, bits) in enumerate(zip((o.x, o.y, o.z), nbits)):
+        cells = float(1 << bits)
+        x = (v - lo[axis]) / span[axis] * cells
+        x = torch.where(torch.isnan(x), 0.0, x)
+        qs.append(x.clamp(0.0, cells - 1.0).to(torch.int64))
+    morton = torch.zeros_like(qs[0])
+    out_pos = mb
+    for level in range(max(nbits)):
+        for a in range(3):
+            if level < nbits[a]:
+                out_pos -= 1
+                morton |= ((qs[a] >> (nbits[a] - 1 - level)) & 1) << out_pos
+    return morton
+
+
 def compact_order(o: Vec3, d: Vec3, alive: torch.Tensor,
-                  t_init: torch.Tensor, admission: torch.Tensor):
-    """_compact_prefix with the "super" key -> (order (R,) int64, count
-    0-d int64 tensor): the rays sorted by one packed key, bucket << bits
-    | ray index, whose bucket is 8 x the rank of the first admission box
-    the ray enters plus its direction octant, or the last bucket when it
-    enters none; ``count`` rays enter one.  Nothing is read back to the
-    host."""
+                  t_init: torch.Tensor, admission: torch.Tensor,
+                  key_kind: str = "super"):
+    """_compact_prefix -> (order (R,) int64, count 0-d int64 tensor): the
+    rays sorted by one packed key, bucket << bits | ray index, whose
+    bucket is 8 x the rank of the first admission box the ray enters
+    (``key_kind`` "super") or its origin's Morton cell (``morton_cells``,
+    "morton") plus its direction octant, clamped to the last real bucket,
+    or the last bucket when it enters none; ``count`` rays enter one.
+    ``compact_key`` resolves the key a launch takes.  Nothing is read back
+    to the host."""
+    if key_kind not in ("super", "morton"):
+        raise ValueError(f"unknown compaction key {key_kind!r}")
     n_rays = o.x.shape[0]
     n_box = admission.shape[0]
     live = alive > 0
@@ -322,15 +433,45 @@ def compact_order(o: Vec3, d: Vec3, alive: torch.Tensor,
     maybe = slab_maybe(admission, o, inverse(d), t_init, live)
     first = torch.where(maybe, rank[:, None], n_box).amin(dim=0)
     admitted = first < n_box
-    idx_bits = max((n_rays - 1).bit_length(), 1)
+    idx_bits = index_bits(n_rays)
     n_buckets = 1 << (31 - idx_bits)
     octant = ((d.x < 0).long() * 4 + (d.y < 0).long() * 2
               + (d.z < 0).long())
-    bucket = torch.where(admitted, (first * 8 + octant).clamp_max(
+    cell = (morton_cells(o, admission, 31 - idx_bits)
+            if key_kind == "morton" else first)
+    bucket = torch.where(admitted, (cell * 8 + octant).clamp_max(
         n_buckets - 2), n_buckets - 1)
     key = (bucket << idx_bits) | torch.arange(n_rays, device=bucket.device)
-    order = torch.sort(key).values & ((1 << idx_bits) - 1)
+    # below 2^31, as the JAX package's int32 key: sorted as int32
+    order = torch.sort(key.to(torch.int32)).values.long() & (
+        (1 << idx_bits) - 1)
     return order, admitted.sum()
+
+
+def sort_rays_by_super(o: Vec3, d: Vec3, alive: torch.Tensor,
+                       t_init: torch.Tensor, supers: torch.Tensor,
+                       order: torch.Tensor) -> torch.Tensor:
+    """bvh_kernel._sort_rays_by_super -> (R,) int64 permutation: the rays
+    stably sorted by the rank in ``order`` (the supers' visiting order) of
+    the first super whose box the live ray may meet before its t_init,
+    the rays that meet none and the dead rays last.  The (supers, rays)
+    slab tests run a chunk of rays at a time (``PAIR_CHUNK_ELEMS`` tests),
+    so config 7's 704 supers x 2M rays never stand in memory at once."""
+    n_super = supers.shape[0]
+    dev = o.x.device
+    rank = torch.empty(n_super, dtype=torch.int64, device=dev)
+    rank[order.long()] = torch.arange(n_super, device=dev)
+    inv = inverse(d)
+    live = alive > 0
+    key = torch.empty(o.x.shape, dtype=torch.int64, device=dev)
+    chunk = max(1, PAIR_CHUNK_ELEMS.get(dev.type, 2 ** 22) // 4
+                // max(n_super, 1))
+    for r0 in range(0, o.x.shape[0], chunk):
+        rs = slice(r0, r0 + chunk)
+        pick = lambda v: Vec3(v.x[rs], v.y[rs], v.z[rs])
+        maybe = slab_maybe(supers, pick(o), pick(inv), t_init[rs], live[rs])
+        key[rs] = torch.where(maybe, rank[:, None], n_super).amin(dim=0)
+    return torch.argsort(key, stable=True)
 
 
 def stage_slots(table: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:

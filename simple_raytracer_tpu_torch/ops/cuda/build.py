@@ -4,8 +4,11 @@ Each kernel source under ``csrc/`` is compiled with ``nvcc`` on first use
 into a shared library with a plain C interface under
 ``build/srt_torch_kernels/``, named by a hash of the source, the headers
 beside it, the compiler and the flags, and loaded with ``ctypes``.
-No PyTorch header is compiled, so a build takes seconds.  A ``Kernel``
-also counts its launches, in all and per variant.  ``HostLibrary`` is the
+No PyTorch header is compiled, so a build takes seconds.  With
+``SRT_NO_COMPILE_CACHE`` set (the JAX package's opt-out of its persistent
+compile cache), every source is built anew into a fresh temporary
+directory under ``build/`` instead.  A ``Kernel`` also counts its
+launches, in all and per variant.  ``HostLibrary`` is the
 same for a C++ source of the host (``csrc/host_accel.cpp``), compiled by
 the host compiler (``$CXX``, else ``c++``) into the same directory.
 ``build_all`` builds several at once, one compiler each.
@@ -18,12 +21,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Callable, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "srt_torch_kernels"
+# SRT_NO_COMPILE_CACHE, read once, at import, as the JAX package's
+# __init__.py reads it: set (to anything but ""), no build of BUILD_DIR is
+# reused; each source is built into a fresh temporary directory beside it
+COMPILE_CACHE = not os.environ.get("SRT_NO_COMPILE_CACHE")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -50,9 +58,10 @@ class Kernel:
     headers = ("*.cuh",)     # the sources beside it that it includes
 
     def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None],
-                 extra_flags: Sequence[str] = ()):
+                 extra_flags: Sequence[str] = (), tag: str = ""):
         self.source = Path(source)
         self.flags = NVCC_FLAGS + list(extra_flags)
+        self.tag = tag        # a name for a build of its own (its flags')
         self.launches = 0
         self.variant_launches = collections.Counter()
         self.build_log = ""
@@ -96,9 +105,15 @@ class Kernel:
         cc = self.compiler()
         digest = hashlib.sha256(src + " ".join([cc, *self.flags]).encode()
                                 ).hexdigest()[:16]
-        out = BUILD_DIR / f"{self.source.stem}-{digest}.so"
+        directory = BUILD_DIR
+        if not COMPILE_CACHE:
+            BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+            directory = Path(tempfile.mkdtemp(prefix=BUILD_DIR.name + "-",
+                                              dir=BUILD_DIR.parent))
+        tag = f"-{self.tag}" if self.tag else ""
+        out = directory / f"{self.source.stem}{tag}-{digest}.so"
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            directory.mkdir(parents=True, exist_ok=True)
             # two processes (or Kernels) of one source may build at once
             tmp = out.with_suffix(f".{os.getpid()}.{id(self)}.tmp")
             try:

@@ -37,14 +37,34 @@ CPU.  For rays on a CUDA device it launches the kernel or raises: there
 is no fallback.  A launch orders the groups front to back and, with
 ``compact``, compacts the rays (those that enter an admission box first,
 as ``ops/bvh.compact_order`` orders them, their count left in device
-memory) on the card before the walk, so no bounce waits on the host and
-no ray is sorted in PyTorch.  The kernel is built on first use
-(``ops/cuda/build.py``).
+memory) on the card before the walk, so no bounce waits on the host.
+The kernel is built on first use (``ops/cuda/build.py``).
+
+The JAX package's opt-in switches of this kernel, each read at each call
+as there; none changes a result:
+  - ``SRT_BVH_ORDER=rev`` visits the groups back to front
+    (``ops/bvh.reverse_order``; ``BvhOptions.reverse``), never the
+    compaction's rank;
+  - ``SRT_BVH_COMPACT_KEY=morton`` sorts the compaction by the origins'
+    Morton cells (``ops/bvh.compact_key``): the card makes each ray's
+    packed key (``srt_bvh_morton_keys``) and ``torch.sort`` orders them,
+    as the JAX package's ``lax.sort`` does, before the walk (a launch in
+    that form counts as "<variant>/.../morton");
+  - ``SRT_BVH_DMA_SLOTS`` sets the ring of ``streamed`` (``_kernel_hbm``'s
+    DMA slots, ``resolve_dma_slots``): a build of the source of its own
+    with ``-DSRT_BVH_STAGES=<v>`` (``ring_kernel``), which the launch uses
+    and counts; unset, the port's ring of ``STAGES``;
+  - ``sort_rays=True`` (an argument, ``_sort_rays_by_super``) permutes an
+    uncompacted ``streamed`` launch's rays by the first super they may
+    meet (``ops/bvh.sort_rays_by_super``, PyTorch, as the JAX package
+    sorts them in XLA) and scatters the results back.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
+import threading
 from typing import Optional
 
 import torch
@@ -74,20 +94,41 @@ class BvhParams(ctypes.Structure):
     ]
 
 
+class BvhOptions(ctypes.Structure):
+    """The launch's opt-in switches, by value beside BvhParams; the
+    layout of ``BvhOptions`` in the CUDA source."""
+    _fields_ = [
+        ("reverse", ctypes.c_int32),    # SRT_BVH_ORDER=rev
+        ("morton", ctypes.c_int32),     # SRT_BVH_COMPACT_KEY=morton
+    ]
+
+
 # the most boxes a visiting order ranks (the CUDA source's kRankMax): the
 # groups
 RANK_MAX = 8192
 # the C interface's version (srt_bvh_interface in the CUDA source)
-INTERFACE = 3
+INTERFACE = 4
 # srt_bvh_launch(ox, oy, oz, dx, dy, dz, alive, t_init, staged, coeffs,
 #                gidx, boxes, supers, groups, admission, subboxes, work,
-#                perm, count, t_out, slot_out, params, stream)
+#                perm, count, t_out, slot_out, options, params, stream)
 LAUNCH_POINTERS = 21
 LAUNCH_ARGTYPES = ([ctypes.c_void_p] * LAUNCH_POINTERS
-                   + [BvhParams, ctypes.c_void_p])
-# srt_bvh_count_launch: the same, and the counters before the params
+                   + [BvhOptions, BvhParams, ctypes.c_void_p])
+# srt_bvh_count_launch: the same, and the counters before the options
 COUNT_ARGTYPES = ([ctypes.c_void_p] * (LAUNCH_POINTERS + 1)
-                  + [BvhParams, ctypes.c_void_p])
+                  + [BvhOptions, BvhParams, ctypes.c_void_p])
+# srt_bvh_morton_keys(ox, oy, oz, dx, dy, dz, alive, t_init, admission,
+#                     keys, count, params, stream)
+MORTON_ARGTYPES = [ctypes.c_void_p] * 11 + [BvhParams, ctypes.c_void_p]
+# The warp walk's constants (the CUDA source's defaults): the slots of a
+# chunk and the port's ring of chunk buffers, chosen by chip_smoke.py's
+# sweep; its warps a block, and the sub-box form's super block and pair
+# list a warp, in bytes
+CHUNK = 64
+STAGES = 2
+WALK_WARPS = 4
+SUB_BLOCK_BYTES = 4096
+SUB_PAIRS_BYTES = 1024
 # the counting instance's int64 counters, in the CUDA source's Count order,
 # then HIST_BINS: the stagings by the lanes that admit them
 COUNTERS = ("walked", "stagings", "chunks", "slots", "pairs", "mt_steps",
@@ -108,9 +149,66 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srt_bvh_count_launch.restype = ctypes.c_int
     lib.srt_bvh_work_words.argtypes = [BvhParams]
     lib.srt_bvh_work_words.restype = ctypes.c_longlong
+    lib.srt_bvh_morton_keys.argtypes = MORTON_ARGTYPES
+    lib.srt_bvh_morton_keys.restype = ctypes.c_int
 
 
 KERNEL = Kernel(SOURCE, _bind)
+# the builds of other ring depths (SRT_BVH_DMA_SLOTS), by depth
+_RINGS = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def ring_kernel(stages: int) -> Kernel:
+    """The kernel built with a ring of ``stages`` chunks
+    (``-DSRT_BVH_STAGES``, a file of its own under ``build/`` named by the
+    depth), built on first use; the port's own depth is ``KERNEL``."""
+    if stages == STAGES:
+        return KERNEL
+    with _RINGS_LOCK:
+        if stages not in _RINGS:
+            _RINGS[stages] = Kernel(SOURCE, _bind,
+                                    [f"-DSRT_BVH_STAGES={stages}"],
+                                    tag=f"ring{stages}")
+        return _RINGS[stages]
+
+
+def resolve_dma_slots() -> Optional[int]:
+    """The ring depth SRT_BVH_DMA_SLOTS asks of a ``streamed`` launch, read
+    at each launch (bvh_kernel._resolve_dma_slots): None when it is unset
+    (the port keeps its own ring, STAGES, not the TPU's 8), else the
+    depth; a value below 2 raises ValueError in the JAX package's words,
+    and one int() refuses raises ValueError too."""
+    env = os.environ.get("SRT_BVH_DMA_SLOTS")
+    if env is None:
+        return None
+    v = int(env)
+    if v < 2:
+        raise ValueError(f"SRT_BVH_DMA_SLOTS must be >= 2, got {v}")
+    return v
+
+
+def walk_shared_bytes(stages: int, plucker: bool, sub_rows: int) -> int:
+    """Shared memory a block of the warp walk takes with a ring of
+    ``stages`` chunks: the source's walk_smem (each warp's ring of
+    CHUNK-slot buffers of staged rows or Plucker coefficients, and in the
+    sub-box form its super block and pair list) and its mbarriers."""
+    row = 4 * (bvh.PLUCKER_COLS if plucker else bvh.STAGED_COLS)
+    sub = 1 if sub_rows else 0
+    return WALK_WARPS * (stages * CHUNK * row
+                         + sub * (SUB_BLOCK_BYTES + SUB_PAIRS_BYTES)
+                         + (stages + sub) * 8)
+
+
+def check_ring(stages: int, plucker: bool, sub_rows: int, limit: int) -> None:
+    """Raise ValueError, before any launch, when the walk's ring of
+    ``stages`` chunks does not fit the ``limit`` bytes of shared memory a
+    block may opt in to (227 KB on an H100)."""
+    need = walk_shared_bytes(stages, plucker, sub_rows)
+    if need > limit:
+        raise ValueError(f"SRT_BVH_DMA_SLOTS={stages}: the BVH walk's ring "
+                         f"takes {need} B of shared memory a block, above "
+                         f"the device's limit of {limit} B")
 
 
 def bvh_variant(clusters, force_streamed: bool = False) -> str:
@@ -143,13 +241,26 @@ class Prepared:
     count: Optional[torch.Tensor]
     variant: str
     params: BvhParams
+    options: BvhOptions = dataclasses.field(default_factory=BvhOptions)
+    # under the Morton key: the (R,) int32 packed keys, made by each launch
+    keys: Optional[torch.Tensor] = None
+    # the ring depth of the build it launches (None: KERNEL's, STAGES)
+    stages: Optional[int] = None
 
     @property
     def label(self) -> str:
         """The variant as counted: "<variant>/plucker" or
-        "<variant>/subbox" for those forms."""
-        return self.variant + ("/plucker" if self.params.plucker else
-                               "/subbox" if self.params.sub_rows else "")
+        "<variant>/subbox" for those forms, and "/morton" after it under
+        the Morton key."""
+        return (self.variant
+                + ("/plucker" if self.params.plucker else
+                   "/subbox" if self.params.sub_rows else "")
+                + ("/morton" if self.options.morton else ""))
+
+    @property
+    def kernel(self) -> Kernel:
+        """The build it launches: KERNEL, or the ring's of ``stages``."""
+        return KERNEL if self.stages is None else ring_kernel(self.stages)
 
     @property
     def device(self) -> torch.device:
@@ -251,6 +362,11 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     if n_order > RANK_MAX:
         raise ValueError(f"BVH kernel: {n_order} boxes to order, at most "
                          f"{RANK_MAX}")
+    stages = resolve_dma_slots() if variant == "streamed" else None
+    if stages is not None:
+        check_ring(stages, plucker, sub_rows, shared_optin(device))
+        if stages == STAGES:
+            stages = None
     p = BvhParams()
     p.n_rays, p.n_order, p.n_clusters, p.k = n_rays, n_order, n_cl, k
     p.variant = VARIANTS[variant]
@@ -258,15 +374,28 @@ def prepare(o: Vec3, d: Vec3, alive: torch.Tensor, t_init: torch.Tensor,
     p.n_admission = admission.shape[0] if compact else 0
     p.alive_u8 = int(alive_u8)
     p.sub_rows = sub_rows
+    opt = BvhOptions()
+    opt.reverse = int(bvh.reverse_order())
+    opt.morton = int(compact and bvh.compact_key(n_rays) == "morton")
     if not 0 < p.n_admission <= bvh.ADMISSION_MAX and compact:
         raise ValueError(f"BVH kernel: {p.n_admission} admission boxes")
     work = torch.empty(KERNEL.library().srt_bvh_work_words(p),
                        dtype=torch.int32, device=device)
-    perm = cnt = None
+    perm = cnt = keys = None
     if compact:
         perm = torch.empty(n_rays, dtype=torch.int32, device=device)
         cnt = torch.empty(1, dtype=torch.int32, device=device)
-    return Prepared(rays, tensors, work, perm, cnt, variant, p)
+    if opt.morton:
+        keys = torch.empty(n_rays, dtype=torch.int32, device=device)
+    return Prepared(rays, tensors, work, perm, cnt, variant, p, opt, keys,
+                    stages)
+
+
+def shared_optin(device: torch.device) -> int:
+    """The dynamic shared memory a block of ``device`` may opt in to."""
+    from .trace_kernel import shared_limit
+    return shared_limit(device.index if device.index is not None
+                        else torch.cuda.current_device())
 
 
 def _outputs(prep: Prepared, out):
@@ -289,17 +418,36 @@ def _args(prep: Prepared, out) -> list:
                out[0].data_ptr(), out[1].data_ptr()])
 
 
+def _morton_order(prep: Prepared, kernel: Kernel, stream) -> None:
+    """Under the Morton key: each ray's packed key and the admitted
+    count on the card (srt_bvh_morton_keys), then the keys sorted into
+    ``perm`` (their low bits, the ray indices), on the same stream."""
+    p = prep.params
+    admission = prep.tensors[6]
+    err = kernel.library().srt_bvh_morton_keys(
+        *[t.data_ptr() for t in prep.rays], admission.data_ptr(),
+        prep.keys.data_ptr(), prep.count.data_ptr(), p, stream)
+    kernel.check(err, "BVH kernel (Morton keys)")
+    mask = (1 << bvh.index_bits(p.n_rays)) - 1
+    torch.bitwise_and(torch.sort(prep.keys).values, mask, out=prep.perm)
+
+
 def launch(prep: Prepared, out=None):
     """Launch on the current stream into ``out`` ((R,) f32 t, (R,) int32
-    slot; allocated when not given) and count the launch: the visiting
-    order (and the compaction) on the card, then the walk."""
+    slot; allocated when not given) and count the launch on its build
+    (``Prepared.kernel``): the visiting order (and the compaction) on the
+    card, then the walk."""
     out = _outputs(prep, out)
-    lib = KERNEL.library()
+    kernel = prep.kernel
+    lib = kernel.library()
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
-        err = lib.srt_bvh_launch(*_args(prep, out), prep.params, stream)
-    KERNEL.check(err, "BVH kernel")
-    KERNEL.count(prep.label)
+        if prep.options.morton:
+            _morton_order(prep, kernel, stream)
+        err = lib.srt_bvh_launch(*_args(prep, out), prep.options,
+                                 prep.params, stream)
+    kernel.check(err, "BVH kernel")
+    kernel.count(prep.label)
     return out
 
 
@@ -311,13 +459,16 @@ def launch_counted(prep: Prepared):
     out = _outputs(prep, None)
     counters = torch.zeros(len(COUNTERS) + len(HIST_BINS),
                            dtype=torch.int64, device=prep.device)
-    lib = KERNEL.library()
+    kernel = prep.kernel
+    lib = kernel.library()
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
+        if prep.options.morton:
+            _morton_order(prep, kernel, stream)
         err = lib.srt_bvh_count_launch(*_args(prep, out),
-                                       counters.data_ptr(), prep.params,
-                                       stream)
-    KERNEL.check(err, "BVH kernel (counting)")
+                                       counters.data_ptr(), prep.options,
+                                       prep.params, stream)
+    kernel.check(err, "BVH kernel (counting)")
     values = counters.tolist()
     res = dict(zip(COUNTERS, values))
     res["hist"] = dict(zip(HIST_BINS, values[len(COUNTERS):]))
@@ -327,23 +478,40 @@ def launch_counted(prep: Prepared):
 def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
                             t_init: torch.Tensor, clusters,
                             table: torch.Tensor, compact: bool = False,
-                            force_streamed: bool = False):
+                            force_streamed: bool = False,
+                            sort_rays: bool = False):
     """(R,) rays x a clustered mesh -> (t f32, slot int32): the nearest
     triangle hit strictly closer than ``t_init`` per live ray and the
     table slot of its triangle, (+inf, -1) where none is
     (``ops/bvh.triangle_index`` maps a slot to the triangle's index).
-    ``compact`` walks only the rays that enter an admission box, and
-    ``force_streamed`` takes the streamed variant for any table; neither
-    changes a live ray's result.  The MT form follows SRT_BVH_MT
-    (``ops/bvh.resolve_plucker``) and the sub-box gate SRT_BVH_SUBBOX
-    (``sub_box_gate``), on the CPU as on the card."""
+    ``compact`` walks only the rays that enter an admission box, under the
+    key SRT_BVH_COMPACT_KEY asks (``ops/bvh.compact_key``);
+    ``force_streamed`` takes the streamed variant for any table;
+    ``sort_rays`` (off, as in the JAX package, which measured it 13x
+    slower on the TPU) permutes an uncompacted ``streamed`` launch's rays
+    by ``sort_rays_order`` and returns each result in its ray's place.
+    None of them changes a live ray's result.  The MT form follows
+    SRT_BVH_MT (``ops/bvh.resolve_plucker``) and the sub-box gate
+    SRT_BVH_SUBBOX (``sub_box_gate``), on the CPU as on the card."""
+    variant = bvh_variant(clusters, force_streamed)
+    if sort_rays and not compact and variant == "streamed":
+        perm = sort_rays_order(o, d, alive, t_init, clusters)
+        take = lambda v: v[perm]
+        t_s, s_s = intersect_triangles_bvh(
+            Vec3(take(o.x), take(o.y), take(o.z)),
+            Vec3(take(d.x), take(d.y), take(d.z)), take(alive),
+            take(t_init), clusters, table, False, force_streamed)
+        t, slot = torch.empty_like(t_s), torch.empty_like(s_s)
+        t[perm] = t_s
+        slot[perm] = s_s
+        return t, slot
     if o.x.device.type == "cpu":
-        variant = bvh_variant(clusters, force_streamed)
         form = "plucker" if bvh.resolve_plucker(clusters, variant) else "mt"
         sub = sub_box_gate(clusters, variant)
         if compact:
-            order, count = bvh.compact_order(o, d, alive, t_init,
-                                             clusters.hierarchy.admission)
+            order, count = bvh.compact_order(
+                o, d, alive, t_init, clusters.hierarchy.admission,
+                bvh.compact_key(o.x.shape[0]))
             return bvh.intersect_compacted_plain(o, d, alive, t_init,
                                                  clusters, table, order,
                                                  int(count), form, *sub)
@@ -351,3 +519,14 @@ def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
                                                  clusters, table, form, *sub)
     return launch(prepare(o, d, alive, t_init, clusters, table, compact,
                           force_streamed))
+
+
+def sort_rays_order(o: Vec3, d: Vec3, alive: torch.Tensor,
+                    t_init: torch.Tensor, clusters) -> torch.Tensor:
+    """``sort_rays``' permutation of a launch's rays: ``bvh.
+    sort_rays_by_super`` over the hierarchy's supers (the JAX wrapper's
+    super_aabb, padded to whole groups) in their visiting order of these
+    rays (``bvh.front_to_back``, reversed under SRT_BVH_ORDER=rev)."""
+    supers = clusters.hierarchy.supers
+    order = bvh.front_to_back(supers, o, alive > 0, bvh.reverse_order())
+    return bvh.sort_rays_by_super(o, d, alive, t_init, supers, order)

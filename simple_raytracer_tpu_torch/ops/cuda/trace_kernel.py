@@ -44,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import os
 
 import torch
 
@@ -65,13 +66,21 @@ FETCH = 32
 # The clustered variant's warp walk (the CUDA source's defaults, which
 # chip_smoke.py's sweep sets on extra builds): its block, the slots of a
 # chunk, the warp's ring of chunk buffers, the most admitting lanes for
-# which a chunk's MT is split across the warp (32: always) and the flat
-# gate (every cluster box, no hierarchy)
+# which a chunk's MT is split across the warp (32: always)
 WALK_BLOCK = 128
 CHUNK = 128
 STAGES = 2
 SPLIT_MAX = 32
-FLAT_GATE = 0
+# SRT_MEGA_MT_SLICES (bounce_kernel.py:126), read once, at import, as the
+# JAX module reads it: the TPU megakernel runs its packed MT in that many
+# 128-lane slices of its MEGA_BLOCK_R-ray block, each slice gated by its
+# own rays.  The card's walk already decides MT per ray (each admitting
+# lane, or one admitting ray's slots split across the warp), a finer gate
+# than any slice, so the knob changes no code path here: a clustered pass
+# only validates it as the JAX package does (check_mt_slices), and every
+# valid value gives the same image.
+MEGA_MT_SLICES = int(os.environ.get("SRT_MEGA_MT_SLICES", "1"))
+MEGA_BLOCK_R = 1536      # trace_full_fused's block_r
 # shared memory of the walk a block: each warp's ring of staged rows and
 # one 8-byte barrier a buffer
 WALK_SHARED_BYTES = (WALK_BLOCK // 32) * STAGES * (
@@ -198,6 +207,19 @@ def trace_full_plain(scene: DeviceScene, rot, position, aspect_ratio,
     return out if rows else add_sky(scene, *out)
 
 
+def check_mt_slices(variant: str, slices: int = None) -> None:
+    """trace_full_fused's rule for SRT_MEGA_MT_SLICES (``MEGA_MT_SLICES``,
+    or ``slices``): on a clustered pass a value other than 1 must be at
+    least 1 and divide MEGA_BLOCK_R / 128 (12), else ValueError in the JAX
+    package's words; other variants never read it."""
+    mt = MEGA_MT_SLICES if slices is None else slices
+    lanes = MEGA_BLOCK_R // 128
+    if variant == "clustered" and mt != 1 and (mt < 1 or lanes % mt != 0):
+        raise ValueError(
+            f"SRT_MEGA_MT_SLICES={mt} must be >= 1 and divide "
+            f"block_r/128 = {lanes} (128-lane slice alignment)")
+
+
 def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
                time, *, width, height, num_samples, num_bounces, row0=0,
                tile_height=None, ray_tile=None,
@@ -205,12 +227,14 @@ def trace_full(scene: DeviceScene, rot, position, aspect_ratio, fov_scale,
     """Per-ray radiance of the (tile_height * W * S,) rays of one pass
     (ray i is local_pixel * S + sample, pixels in ray-tile order when
     ``ray_tile`` is set).  ``tri_backend`` sets the envelope
-    (``whole_trace_variant``).  A scene with a texture skybox takes the
+    (``whole_trace_variant``); a clustered pass checks SRT_MEGA_MT_SLICES
+    (``check_mt_slices``).  A scene with a texture skybox takes the
     nine-row form, then the texture's sample."""
     from ..trace import add_sky
     kw = dict(width=width, height=height, num_samples=num_samples,
               num_bounces=num_bounces, row0=row0, tile_height=tile_height,
               ray_tile=ray_tile)
+    check_mt_slices(whole_trace_variant(scene, tri_backend))
     if scene.device.type == "cpu":
         return trace_full_plain(scene, rot, position, aspect_ratio,
                                 fov_scale, time, **kw)

@@ -19,6 +19,7 @@ CUDA kernel takes them by value, so moving them costs no copy.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -165,8 +166,9 @@ SMALL_TRIS_MAX = 64
 # under tri_backend="fused" the whole-trace kernel also serves a table of
 # at most this many single-packet clusters (K <= PACKET), which the TPU
 # keeps resident in its packed form (bounce_kernel.py:119
-# MEGA_PACKED_MAX_CLUSTERS, the rule of ops/trace.py:283-293)
-MEGA_PACKED_MAX_CLUSTERS = 853
+# MEGA_PACKED_MAX_CLUSTERS, the rule of ops/trace.py:283-293), read from
+# SRT_MEGA_PACKED_MAX once, at import, as the JAX module reads it
+MEGA_PACKED_MAX_CLUSTERS = int(os.environ.get("SRT_MEGA_PACKED_MAX", "853"))
 
 
 def whole_trace_variant(scene: DeviceScene,

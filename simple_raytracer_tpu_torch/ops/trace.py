@@ -20,7 +20,9 @@ and under "jnp" through the dense loop, and shades at the barycentric
 weights of the hit position.  Its bounce 0 is peeled: dense unless the
 TPU would stream the cluster table from HBM, while every later bounce
 takes the ray compaction when the batch is large enough
-(``bvh.compacts``), the policy of the JAX ``trace_rays``.
+(``bvh.compacts``), the policy of the JAX ``trace_rays``;
+``SRT_BVH_COMPACT`` and ``SRT_BVH_COMPACT_CAP`` change it as they change
+the JAX package's (``bvh.resolve_compact_cap``).
 
 ``trace_rays_fused`` is the fused per-bounce path (the JAX
 ``trace_rays_fused``): the (20, Rp) ray state of ``ops/bounce.py``, and
@@ -52,6 +54,8 @@ mean to the canvas, routed as the JAX ``render_pass`` routes on the TPU:
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
+
+import os
 
 import torch
 
@@ -154,10 +158,8 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
     sky_mask = Vec3(zeros, zeros, zeros)
     sky_dir = Vec3(zeros, zeros, ones)
 
-    # bounce 0 is dense unless the TPU streams the table (trace.py's peel)
-    compact_later = bvh.compacts(o.x.shape[0])
-    compact_first = compact_later and bvh.table_streams_hbm(
-        scene.triangles.clusters)
+    compact_first, compact_later = split_compacts(
+        o.x.shape[0], scene.triangles.clusters)
     for i in range(1 if aov is not None else num_bounces):
         if split:
             hit = closest_hit_split(
@@ -193,14 +195,37 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
     return color, sky_mask, sky_dir
 
 
+def split_compacts(n_rays: int, clusters) -> tuple:
+    """(bounce 0, every later bounce): does the split path compact a bounce
+    of ``n_rays`` rays?  The JAX ``trace_rays``' policy: bounce 0 is peeled
+    dense unless the TPU streams the table from HBM, every later bounce
+    asks "auto"; SRT_BVH_COMPACT overrides both and SRT_BVH_COMPACT_CAP
+    sizes "auto" (``bvh.resolve_compact_cap``)."""
+    first = "auto" if bvh.table_streams_hbm(clusters) else None
+    return bvh.compacts(n_rays, first), bvh.compacts(n_rays, "auto")
+
+
+def fused_compacts(n_rays: int) -> bool:
+    """Does the fused path compact its bounces of ``n_rays`` rays?  The JAX
+    ``trace_rays_fused`` asks ``resolve_compact_cap(n, None)`` at every
+    bounce: no compaction unless SRT_BVH_COMPACT asks for it.  With neither
+    SRT_BVH_COMPACT nor SRT_BVH_COMPACT_CAP set the port keeps its own
+    default, "auto" on every bounce, bounce 0 included, the form this path
+    has taken since it was ported (compaction changes no result); under
+    either knob it decides as the JAX package does."""
+    knob = ("SRT_BVH_COMPACT" in os.environ
+            or bool(os.environ.get("SRT_BVH_COMPACT_CAP")))
+    return bvh.compacts(n_rays, None if knob else "auto")
+
+
 def trace_rays_fused(scene: DeviceScene, o: Vec3, d: Vec3,
                      seed: torch.Tensor, num_bounces: int) -> Vec3:
     """``trace_rays`` with each bounce's body in one launch of the
     per-bounce shade kernel (its plain version on the CPU), over the
     (20, Rp) ray state.  Per bounce: the nearest sphere and plane seed the
     BVH's far bound, the BVH kernel gives each live ray's nearest triangle
-    (compacted whenever ``bvh.compacts`` allows, bounce 0 included, which
-    changes no live ray's result), and ``bounce_step`` shades, samples and
+    (compacted as ``fused_compacts`` decides, which changes no live ray's
+    result), and ``bounce_step`` shades, samples and
     advances every ray; the environment once after the last bounce.  It
     makes the split ``trace_rays``'s float operations in the same order,
     so it gives the same radiance."""
@@ -208,7 +233,7 @@ def trace_rays_fused(scene: DeviceScene, o: Vec3, d: Vec3,
     state = make_state(o, d, seed)
     tables = prim_tables(scene)
     tr = scene.triangles
-    compact = bvh.compacts(n)
+    compact = fused_compacts(n)
     for i in range(num_bounces):
         tri = None
         if tr.material.shape[0] > 0:

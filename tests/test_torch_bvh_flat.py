@@ -27,6 +27,7 @@ walk in PyTorch, and:
   the BVH launch takes no slot table (chip_smoke.py --parent binds the
   version before, which did, with one pointer more).
 """
+import ctypes
 import importlib.util
 import math
 import re
@@ -323,9 +324,11 @@ def test_bvh_launch_takes_no_slot_table():
     (staged, coeffs, gidx, boxes, supers, groups, admission, subboxes),
     then the work scratch, the compaction's order and count and the
     outputs: no variant reads the slot table, so it is not passed.
-    chip_smoke.py binds a parent's build to this interface (bk._bind),
-    binding every entry point, and refuses any other version: 1, the one
-    that took the slot table, and 2, the one without the sub-box table."""
+    chip_smoke.py binds a parent's build to this interface (bk._bind,
+    binding every entry point) or to interface 3, the one without
+    BvhOptions, whose launches it passes without the options (refusing a
+    switch it lacks), and refuses any other version: 1, the one that took
+    the slot table, and 2, the one without the sub-box table."""
     src = Path(bk.SOURCE).read_text()
     sig = re.search(r"int srt_bvh_launch\((.*?)\)", src, re.S).group(1)
     assert re.findall(r"\*\s*(\w+)", sig)[8:] == [
@@ -338,17 +341,42 @@ def test_bvh_launch_takes_no_slot_table():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     parent = smoke.parent_bvh_kernel(Path("parent"))
-    assert parent._bind is bk._bind
     for old in (1, 2):
-        with pytest.raises(RuntimeError, match=f"interface {old}, want 3"):
-            parent._bind(types.SimpleNamespace(
+        with pytest.raises(RuntimeError, match=f"interface {old}, want 4"):
+            parent.bind(types.SimpleNamespace(
                 srt_bvh_interface=lambda: old))
     fn = lambda: types.SimpleNamespace()
     lib = types.SimpleNamespace(srt_bvh_interface=lambda: bk.INTERFACE,
                                 srt_bvh_launch=fn(),
                                 srt_bvh_count_launch=fn(),
-                                srt_bvh_work_words=fn())
-    parent._bind(lib)
+                                srt_bvh_work_words=fn(),
+                                srt_bvh_morton_keys=fn())
+    parent.bind(lib)
     assert lib.srt_bvh_launch.argtypes == bk.LAUNCH_ARGTYPES
     assert lib.srt_bvh_count_launch.argtypes == bk.COUNT_ARGTYPES
+    # interface 3: the same arguments without the options
+    lib3 = types.SimpleNamespace(srt_bvh_interface=lambda: 3,
+                                 srt_bvh_launch=fn(),
+                                 srt_bvh_count_launch=fn(),
+                                 srt_bvh_work_words=fn())
+    parent.bind(lib3)
+    assert parent.version == 3
+    assert lib3.srt_bvh_launch.argtypes == (
+        [ctypes.c_void_p] * bk.LAUNCH_POINTERS
+        + [bk.BvhParams, ctypes.c_void_p])
+    assert lib3.srt_bvh_count_launch.argtypes == (
+        [ctypes.c_void_p] * (bk.LAUNCH_POINTERS + 1)
+        + [bk.BvhParams, ctypes.c_void_p])
+    calls = []
+    lib3 = types.SimpleNamespace(
+        srt_bvh_launch=lambda *a: calls.append(a) or 0, tag="parent")
+    wrapped = smoke.ParentBvhLibrary(lib3)
+    params, opt = bk.BvhParams(), bk.BvhOptions()
+    assert wrapped.srt_bvh_launch(1, 2, opt, params, 3) == 0
+    assert calls == [(1, 2, params, 3)] and wrapped.tag == "parent"
+    for name in ("reverse", "morton"):
+        on = bk.BvhOptions()
+        setattr(on, name, 1)
+        with pytest.raises(ValueError, match="interface 3"):
+            wrapped.srt_bvh_launch(1, 2, on, params, 3)
     assert not hasattr(smoke, "BvhParamsV2")

@@ -626,8 +626,6 @@ def test_constants_match_the_cuda_source():
     assert const("kSplitMax") == SPLIT_MAX == tk.SPLIT_MAX
     assert const("kBatch") == BATCH
     assert const("kWalkBlock") == tk.WALK_BLOCK
-    assert re.search(r"#define SRT_TRACE_FLAT_GATE (\d+)\n",
-                     src).group(1) == str(tk.FLAT_GATE)
     assert const("kSuper") == bvh.SUPER and const("kGroup") == bvh.GROUP
     assert const("kRowF4") * 4 == bvh.STAGED_COLS
     assert const("kRayBlock") == tk.RAY_BLOCK

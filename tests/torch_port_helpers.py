@@ -38,7 +38,9 @@ def jax_native_accel():
     builder that package uses by default.  In a checkout without
     native/libsrt_native.so the library is built as native/Makefile builds
     it, into a temporary directory of this process, and named through
-    SRT_NATIVE_LIB."""
+    SRT_NATIVE_LIB while the JAX package loads it (it keeps the library
+    it loaded); the variable is cleared after, since the port's
+    host_library would load the library it names instead of its own."""
     import simple_raytracer_tpu.accel as jaccel
     if jaccel.native_available():
         return jaccel
@@ -49,8 +51,11 @@ def jax_native_accel():
                     "-fPIC", "-std=c++17", "-Wall", "-shared", "-o",
                     str(out), str(src)], check=True, capture_output=True)
     os.environ["SRT_NATIVE_LIB"] = str(out)
-    jaccel._LIB_TRIED = False
-    assert jaccel.native_available()
+    try:
+        jaccel._LIB_TRIED = False
+        assert jaccel.native_available()
+    finally:
+        del os.environ["SRT_NATIVE_LIB"]
     return jaccel
 
 
