@@ -107,10 +107,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="build the render path's kernels and run one "
                         "pass, then exit without writing anything")
     p.add_argument("--metrics", action="store_true",
-                   help="print per-run throughput metrics JSON")
+                   help="print per-run throughput metrics JSON, with the "
+                        "program's counters over the run (the rays each "
+                        "bounce spans and those alive, the BVH compaction's "
+                        "rays and admitted rays)")
     p.add_argument("--profile-dir", default=None,
                    help="capture a torch.profiler trace (Chrome format) "
-                        "into this directory")
+                        "into this directory, with the program's srt.* "
+                        "spans (the pass, each bounce's stages, the BVH "
+                        "launch, the image)")
     return p
 
 
@@ -159,6 +164,7 @@ def _render(args) -> int:
     from .io.image import load_skybox, save_png, save_ppm
     from .models.camera import Camera
     from .parallel import distributed
+    from .utils import metrics as srt_metrics
     from .utils.metrics import profiler_trace, ray_throughput
 
     if args.scene:
@@ -224,6 +230,7 @@ def _render(args) -> int:
         r.load_state_dict({"canvas": data["canvas"],
                            "num_steps": int(data["num_steps"])})
 
+    counting = args.metrics and not srt_metrics.counters(True)
     t0 = _time.perf_counter()
     prev_ms = 0
     with profiler_trace(args.profile_dir):
@@ -267,7 +274,10 @@ def _render(args) -> int:
         m["steps"] = args.steps
         m["device"] = (torch.cuda.get_device_name(r.device)
                        if r.device.type == "cuda" else "cpu")
+        m["counters"] = srt_metrics.read()
         print(json.dumps(m))
+    if counting:
+        srt_metrics.counters(False)
     if write_files:
         print(f"wrote {args.out} ({r.num_steps} accumulated steps)",
               file=sys.stderr)

@@ -34,6 +34,7 @@ from .parallel import distributed
 from .parallel.mesh import band_rows, make_mesh, resolve_device
 from .parallel.shard import (make_sharded_canvas, make_sharded_render_step,
                              replicate_scene)
+from .utils.metrics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +158,8 @@ class Renderer:
         """Build the whole scene onto each device again.  ``refit=True``
         keeps the scene's cached cluster topology and recomputes only the
         cluster boxes, for an edit that moves models (``Scene.build``)."""
-        self._scenes = replicate_scene(scene, self._mesh, refit)
+        with span("srt.update_scene"):
+            self._scenes = replicate_scene(scene, self._mesh, refit)
 
     def set_device_scene(self, device_scene: DeviceScene) -> None:
         """Render ``device_scene``; every band must be on its device."""
@@ -207,18 +209,19 @@ class Renderer:
     def step(self, camera: Camera, time: Optional[int] = None) -> None:
         """One progressive sample pass accumulated into the canvas.  ``time``
         seeds the pass's RNG streams (nonzero); by default a counter."""
-        # the scenes are read once: update_scene on another thread (the
-        # viewer's edits) swaps them whole, so a pass never mixes two
-        scenes = self._scenes
-        if scenes is None:
-            raise RuntimeError("no scene: call update_scene() first")
-        if time is None:
-            time = self._time_base + self.num_steps
-        o = self.options
-        self._canvases = self._step_fn(scenes,
-                                       camera.state(o.width / o.height),
-                                       self._canvases, time)
-        self.num_steps += 1
+        with span("srt.step"):
+            # the scenes are read once: update_scene on another thread (the
+            # viewer's edits) swaps them whole, so a pass never mixes two
+            scenes = self._scenes
+            if scenes is None:
+                raise RuntimeError("no scene: call update_scene() first")
+            if time is None:
+                time = self._time_base + self.num_steps
+            o = self.options
+            self._canvases = self._step_fn(scenes,
+                                           camera.state(o.width / o.height),
+                                           self._canvases, time)
+            self.num_steps += 1
 
     def render(self, camera: Camera, num_steps: int = 1,
                reset: bool = False) -> np.ndarray:
@@ -232,9 +235,14 @@ class Renderer:
     def image(self) -> np.ndarray:
         """Tonemapped (H, W, 3) u8 RGB of the accumulation state (on every
         process of a multi-process render)."""
-        steps = max(self.num_steps, 1)
-        return self._gather(self._row_major(
-            [tonemap_u8(c, steps) for c in self._canvases])).cpu().numpy()
+        with span("srt.image"):
+            steps = max(self.num_steps, 1)
+            with span("srt.tonemap"):
+                bands = self._row_major(
+                    [tonemap_u8(c, steps) for c in self._canvases])
+            image = self._gather(bands)
+            with span("srt.fetch"):
+                return image.cpu().numpy()
 
     # -- checkpoint / resume ---------------------------------------------
     def state_dict(self) -> dict:

@@ -71,6 +71,7 @@ import torch
 
 from .. import bvh
 from ..vec import Vec3
+from ...utils import metrics
 from .build import PACKAGE_DIR, Kernel, interface
 
 SOURCE = PACKAGE_DIR / "csrc" / "bvh_kernel.cu"
@@ -492,7 +493,8 @@ def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
     by ``sort_rays_order`` and returns each result in its ray's place.
     None of them changes a live ray's result.  The MT form follows
     SRT_BVH_MT (``ops/bvh.resolve_plucker``) and the sub-box gate
-    SRT_BVH_SUBBOX (``sub_box_gate``), on the CPU as on the card."""
+    SRT_BVH_SUBBOX (``sub_box_gate``), on the CPU as on the card.  A
+    compacting call feeds the counters (``count_compaction``)."""
     variant = bvh_variant(clusters, force_streamed)
     if sort_rays and not compact and variant == "streamed":
         perm = sort_rays_order(o, d, alive, t_init, clusters)
@@ -512,13 +514,26 @@ def intersect_triangles_bvh(o: Vec3, d: Vec3, alive: torch.Tensor,
             order, count = bvh.compact_order(
                 o, d, alive, t_init, clusters.hierarchy.admission,
                 bvh.compact_key(o.x.shape[0]))
+            count_compaction(o.x.shape[0], count)
             return bvh.intersect_compacted_plain(o, d, alive, t_init,
                                                  clusters, table, order,
                                                  int(count), form, *sub)
         return bvh.intersect_triangles_bvh_plain(o, d, alive, t_init,
                                                  clusters, table, form, *sub)
-    return launch(prepare(o, d, alive, t_init, clusters, table, compact,
-                          force_streamed))
+    prep = prepare(o, d, alive, t_init, clusters, table, compact,
+                   force_streamed)
+    out = launch(prep)
+    if compact:
+        count_compaction(o.x.shape[0], prep.count)
+    return out
+
+
+def count_compaction(n_rays: int, admitted: torch.Tensor) -> None:
+    """A compacting launch's rays and the rays it admitted (its count, on
+    the device) into the counters ``bvh.compacted_rays`` and
+    ``bvh.admitted``, while they are on."""
+    metrics.count("bvh.compacted_rays", n_rays)
+    metrics.count("bvh.admitted", admitted)
 
 
 def sort_rays_order(o: Vec3, d: Vec3, alive: torch.Tensor,

@@ -32,6 +32,7 @@ from .cuda import bvh_kernel, triangle_kernel
 from .scene_types import DeviceScene, Planes, Spheres, Triangles
 from .triangle import nearest_triangle, staged_table
 from .vec import Vec3, dot, normalize, sqrt, where as vwhere
+from ..utils.metrics import span
 
 
 class Hit(NamedTuple):
@@ -216,26 +217,34 @@ def closest_hit_split(scene: DeviceScene, o: Vec3, d: Vec3,
     forces its streamed variant, as the JAX ``closest_hit`` forces
     ``hbm_table``.  Its winner's row is the slot table's, at the slot it
     reports.  A mesh without clusters goes through the dense loop.  The
-    winner is shaded at the hit position."""
-    t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
+    winner is shaded at the hit position.
+
+    Its stages are the spans ``srt.nearest_prims`` (the spheres and the
+    planes), ``srt.bvh`` (the triangle route, with the BVH's far bound)
+    and ``srt.shade`` (the resolve and the winner's shading)."""
+    with span("srt.nearest_prims"):
+        t_s, i_s, t_p, i_p = _spheres_planes(scene, o, d)
     tr = scene.triangles
-    t_t = torch.full_like(o.x, math.inf)
-    i_t, rows = None, tr.rows
-    if tr.material.shape[0] > 0:
-        if tri_backend == "pallas":
-            staged = (None if o.x.device.type == "cpu"
-                      else staged_table(tr))
-            t_t, i_t = triangle_kernel.intersect_triangles_packed(
-                o, d, tr.packed, alive, staged)
-            i_t = i_t.long()
-        elif tri_backend != "jnp" and tr.clusters is not None:
-            t_t, i_t = bvh_kernel.intersect_triangles_bvh(
-                o, d, alive, torch.minimum(t_s, t_p), tr.clusters, tr.table,
-                compact=compact, force_streamed=tri_backend == "clustered")
-            i_t = i_t.clamp_min(0).long()   # slot -1 (no win): t is +inf
-            rows = tr.table
-        else:
-            t_t, i_t, _, _ = intersect_triangles(o, d, tr)
-    return _resolve(scene, o, d, t_s, i_s, t_p, i_p, t_t,
-                    lambda position: shade_from_position(rows[i_t],
-                                                         position))
+    with span("srt.bvh"):
+        t_t = torch.full_like(o.x, math.inf)
+        i_t, rows = None, tr.rows
+        if tr.material.shape[0] > 0:
+            if tri_backend == "pallas":
+                staged = (None if o.x.device.type == "cpu"
+                          else staged_table(tr))
+                t_t, i_t = triangle_kernel.intersect_triangles_packed(
+                    o, d, tr.packed, alive, staged)
+                i_t = i_t.long()
+            elif tri_backend != "jnp" and tr.clusters is not None:
+                t_t, i_t = bvh_kernel.intersect_triangles_bvh(
+                    o, d, alive, torch.minimum(t_s, t_p), tr.clusters,
+                    tr.table, compact=compact,
+                    force_streamed=tri_backend == "clustered")
+                i_t = i_t.clamp_min(0).long()   # slot -1 (no win): t is +inf
+                rows = tr.table
+            else:
+                t_t, i_t, _, _ = intersect_triangles(o, d, tr)
+    with span("srt.shade"):
+        return _resolve(scene, o, d, t_s, i_s, t_p, i_p, t_t,
+                        lambda position: shade_from_position(rows[i_t],
+                                                             position))

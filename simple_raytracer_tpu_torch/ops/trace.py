@@ -53,9 +53,8 @@ mean to the canvas, routed as the JAX ``render_pass`` routes on the TPU:
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
-
 import os
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,6 +67,8 @@ from .intersect import _spheres_planes, closest_hit, closest_hit_split
 from .scene_types import DeviceScene, prim_tables, whole_trace_variant
 from .sky import sky_color
 from .vec import Vec3, where as vwhere
+from ..utils import metrics
+from ..utils.metrics import span
 
 
 class CameraState(NamedTuple):
@@ -102,7 +103,8 @@ def add_sky(scene: DeviceScene, color: Vec3, sky_mask: Vec3,
     plus the throughput at the miss times the environment along the miss
     direction (``sky.sky_color``: the scene's texture, else the gradient
     sky), evaluated once for every ray."""
-    return color + sky_mask * sky_color(sky_dir, scene.sky, scene.skybox)
+    with span("srt.sky"):
+        return color + sky_mask * sky_color(sky_dir, scene.sky, scene.skybox)
 
 
 def trace_rays(scene: DeviceScene, o: Vec3, d: Vec3, seed: torch.Tensor,
@@ -147,7 +149,11 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
     rays whose nearest hit is a triangle) triple per bounce: the work the
     kernel does, which depends on the data.  ``split`` selects the split
     per-bounce path's nearest hit and its compaction policy, where
-    ``tri_backend`` picks the triangle route (``closest_hit_split``).
+    ``tri_backend`` picks the triangle route (``closest_hit_split``); the
+    split path feeds the counters ``trace.rays`` (R rays a bounce) and
+    ``trace.live`` while they are on.  Without ``split`` this is the
+    whole-trace kernel's plain version, which counts nothing, as the
+    kernel does not.
     ``aov`` traces the first segment only and records that AOV
     (``first_hit_aov``)."""
     zeros = torch.zeros_like(o.x)
@@ -158,39 +164,49 @@ def trace_rays_rows(scene: DeviceScene, o: Vec3, d: Vec3,
     sky_mask = Vec3(zeros, zeros, zeros)
     sky_dir = Vec3(zeros, zeros, ones)
 
-    compact_first, compact_later = split_compacts(
-        o.x.shape[0], scene.triangles.clusters)
-    for i in range(1 if aov is not None else num_bounces):
-        if split:
-            hit = closest_hit_split(
-                scene, o, d, alive,
-                compact=compact_first if i == 0 else compact_later,
-                tri_backend=tri_backend)
-        else:
-            hit = closest_hit(scene, o, d)
-        h_alive = alive & hit.hit
-        if segments is not None:
-            segments.append((int(alive.sum()), int(h_alive.sum()),
-                             int((h_alive & hit.triangle).sum())))
-        m_alive = alive & ~hit.hit
-        sky_mask = vwhere(m_alive, mask, sky_mask)
-        sky_dir = vwhere(m_alive, d, sky_dir)
-        if aov is not None:
-            color, sky_mask = first_hit_aov(scene, aov, hit, h_alive,
-                                            m_alive, color, sky_mask)
-            break
+    n = o.x.shape[0]
+    bounces = 1 if aov is not None else num_bounces
+    if split:
+        metrics.count("trace.rays", n * bounces)
+    counted = split and metrics.counting()
+    compact_first, compact_later = split_compacts(n, scene.triangles.clusters)
+    for i in range(bounces):
+        with span("srt.bounce", i):
+            if split:
+                # srt.nearest_prims, srt.bvh and the resolve's srt.shade
+                hit = closest_hit_split(
+                    scene, o, d, alive,
+                    compact=compact_first if i == 0 else compact_later,
+                    tri_backend=tri_backend)
+            else:
+                hit = closest_hit(scene, o, d)
+            with span("srt.shade"):
+                h_alive = alive & hit.hit
+                if segments is not None:
+                    segments.append((int(alive.sum()), int(h_alive.sum()),
+                                     int((h_alive & hit.triangle).sum())))
+                if counted:
+                    metrics.count("trace.live", alive.sum())
+                m_alive = alive & ~hit.hit
+                sky_mask = vwhere(m_alive, mask, sky_mask)
+                sky_dir = vwhere(m_alive, d, sky_dir)
+                if aov is not None:
+                    color, sky_mask = first_hit_aov(scene, aov, hit, h_alive,
+                                                    m_alive, color, sky_mask)
+                    break
 
-        mat = gather_materials(scene.materials, hit.material)
-        emission = mask * mat.emission * mat.emission_strength
-        color = vwhere(h_alive, color + emission, color)
-        if i == num_bounces - 1:
-            break
-        alive = h_alive
-        ms = sample_material(hit.position, hit.normal, hit.front, d, mat, seed)
-        o = vwhere(alive, ms.origin, o)
-        d = vwhere(alive, ms.direction, d)
-        mask = vwhere(alive, mask * ms.mask_mul, mask)
-        seed = torch.where(alive, ms.seed, seed)
+                mat = gather_materials(scene.materials, hit.material)
+                emission = mask * mat.emission * mat.emission_strength
+                color = vwhere(h_alive, color + emission, color)
+                if i == num_bounces - 1:
+                    break
+                alive = h_alive
+                ms = sample_material(hit.position, hit.normal, hit.front, d,
+                                     mat, seed)
+                o = vwhere(alive, ms.origin, o)
+                d = vwhere(alive, ms.direction, d)
+                mask = vwhere(alive, mask * ms.mask_mul, mask)
+                seed = torch.where(alive, ms.seed, seed)
 
     return color, sky_mask, sky_dir
 
@@ -228,22 +244,34 @@ def trace_rays_fused(scene: DeviceScene, o: Vec3, d: Vec3,
     result), and ``bounce_step`` shades, samples and
     advances every ray; the environment once after the last bounce.  It
     makes the split ``trace_rays``'s float operations in the same order,
-    so it gives the same radiance."""
+    so it gives the same radiance.  While the counters are on it adds Rp
+    rays a bounce to ``trace.rays`` and the state's live rays to
+    ``trace.live``."""
     n = o.x.shape[0]
-    state = make_state(o, d, seed)
+    with span("srt.rays"):
+        state = make_state(o, d, seed)
     tables = prim_tables(scene)
     tr = scene.triangles
     compact = fused_compacts(n)
+    metrics.count("trace.rays", state.shape[1] * num_bounces)
+    counted = metrics.counting()
     for i in range(num_bounces):
-        tri = None
-        if tr.material.shape[0] > 0:
-            ro = Vec3(state[0], state[1], state[2])
-            rd = Vec3(state[3], state[4], state[5])
-            t_s, _, t_p, _ = _spheres_planes(scene, ro, rd)
-            tri = bvh_kernel.intersect_triangles_bvh(
-                ro, rd, state[7], torch.minimum(t_s, t_p), tr.clusters,
-                tr.table, compact=compact)
-        state = bounce_step(state, i == num_bounces - 1, scene, tri, tables)
+        with span("srt.bounce", i):
+            if counted:
+                metrics.count("trace.live", (state[7] > 0.0).sum())
+            tri = None
+            if tr.material.shape[0] > 0:
+                ro = Vec3(state[0], state[1], state[2])
+                rd = Vec3(state[3], state[4], state[5])
+                with span("srt.nearest_prims"):
+                    t_s, _, t_p, _ = _spheres_planes(scene, ro, rd)
+                with span("srt.bvh"):
+                    tri = bvh_kernel.intersect_triangles_bvh(
+                        ro, rd, state[7], torch.minimum(t_s, t_p),
+                        tr.clusters, tr.table, compact=compact)
+            with span("srt.shade"):
+                state = bounce_step(state, i == num_bounces - 1, scene, tri,
+                                    tables)
     return add_sky(scene, *unpack_state(state, n))
 
 
@@ -301,18 +329,20 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
         tile_height = height
     rot = camera_rotation(camera.yaw, camera.pitch)
     if aov is None and takes_whole_trace(scene, tri_backend):
-        color = trace_full(
-            scene, rot, camera.position, camera.aspect_ratio,
-            camera.fov_scale, time, width=width, height=height,
-            num_samples=num_samples, num_bounces=num_bounces, row0=row0,
-            tile_height=tile_height, ray_tile=ray_tile,
-            tri_backend=tri_backend)
+        with span("srt.whole_trace"):
+            color = trace_full(
+                scene, rot, camera.position, camera.aspect_ratio,
+                camera.fov_scale, time, width=width, height=height,
+                num_samples=num_samples, num_bounces=num_bounces, row0=row0,
+                tile_height=tile_height, ray_tile=ray_tile,
+                tri_backend=tri_backend)
     else:
-        o, d, seed = generate_rays(width, height, num_samples, time,
-                                   camera.position, rot,
-                                   camera.aspect_ratio, camera.fov_scale,
-                                   row0=row0, tile_height=tile_height,
-                                   tile=ray_tile, device=scene.device)
+        with span("srt.rays"):
+            o, d, seed = generate_rays(width, height, num_samples, time,
+                                       camera.position, rot,
+                                       camera.aspect_ratio, camera.fov_scale,
+                                       row0=row0, tile_height=tile_height,
+                                       tile=ray_tile, device=scene.device)
         color = trace_per_bounce(scene, o, d, seed, num_bounces,
                                  tri_backend, aov)
 
@@ -324,6 +354,7 @@ def render_pass(scene: DeviceScene, camera: CameraState, canvas: torch.Tensor,
             p = untile_pixels(p, width, tile_height, ray_tile)
         return p
 
-    frame = torch.stack([per_pixel(color.x), per_pixel(color.y),
-                         per_pixel(color.z)], dim=-1)
-    return canvas + frame.reshape(tile_height, width, 3)
+    with span("srt.accumulate"):
+        frame = torch.stack([per_pixel(color.x), per_pixel(color.y),
+                             per_pixel(color.z)], dim=-1)
+        return canvas + frame.reshape(tile_height, width, 3)
